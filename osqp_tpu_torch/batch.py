@@ -1,0 +1,262 @@
+"""Batched multi-QP solving (counterpart of ``osqp_tpu/batch.py``).
+
+B problems of one shape (n, m) are solved together: every operation is
+batched over the leading axis, finished instances are frozen by masked
+selects, and statuses, iteration counts, residuals and certificates are
+per instance.  The pipeline is Ruiz scaling, rho classification,
+factorization (K2), the ADMM loop (K1), then unscaling and certificate
+normalization.
+
+The host drives the loop in segments so that it can poll the clock for
+``time_limit`` and catch Ctrl-C between them (osqp.c:374-407).  The
+global counter ``k`` keeps the check and rho schedules on the
+reference's numbering, so segment lengths change no iterate; they only
+decide where the refinement signal is re-read (see admm.run_segment),
+exactly where the JAX package's driver re-reads it.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from . import admm as admm_mod
+from . import constants as con
+from . import linsys as linsys_registry
+from .admm import set_rho_state
+from .linalg import bwhere, mat_vec, norm_inf
+from .scaling import scale_data, unscale_solution
+from .solver import Settings, make_config, reject_time_based_rho, torch_dtype, validate_settings
+from .types import DynSettings, Iterates, QPData, ScalingData
+
+
+class BatchSolveResults(NamedTuple):
+    x: Any  # (B, n)
+    y: Any  # (B, m)
+    status_val: Any  # (B,) int32
+    iter: Any  # (B,) int32
+    obj_val: Any  # (B,)
+    pri_res: Any  # (B,)
+    dua_res: Any  # (B,)
+    rho_updates: Any  # (B,) int32
+    rho_estimate: Any  # (B,)
+    status_polish: Any  # (B,) int32 (0 = not run)
+    prim_inf_cert: Any  # (B, m) (rows valid where status is primal infeasible)
+    dual_inf_cert: Any  # (B, n)
+
+
+def _prepare(cfg, scaling_iters, P, q, A, l, u, rho0, dyn, x0, y0):
+    """Scale, classify rho, factorize, warm or cold start
+    (osqp.c:192-215, 942-965)."""
+    B, n = q.shape
+    m = cfg.m
+    data = QPData(P=P, q=q, A=A, l=l, u=u)
+    if scaling_iters > 0:
+        scaled, scl = scale_data(data, scaling_iters)
+    else:
+        scaled, scl = data, ScalingData.identity(B, n, m, q.dtype, q.device)
+    rho_state = set_rho_state(scaled, rho0)
+    factor = linsys_registry.init_factor(cfg, scaled.P, scaled.A, dyn.sigma, rho_state.rho_vec)
+    if x0 is None:
+        it = Iterates.cold(B, n, m, q.dtype, q.device)
+    else:
+        xs = x0 * scl.Dinv
+        ys = y0 * scl.Einv * scl.c[:, None]
+        it = Iterates(x=xs, z=mat_vec(scaled.A, xs), y=ys)
+    return scaled, scl, rho_state, factor, it
+
+
+def _postprocess(cfg, scaled, scl, result):
+    """store_solution and certificate normalization (osqp.c:604-640,
+    auxil.c:524-562), polish off."""
+    B = scaled.q.shape[0]
+    info, it = result.info, result.iterates
+    sv = info.status_val
+    has_sol = (
+        (sv != con.OSQP_PRIMAL_INFEASIBLE)
+        & (sv != con.OSQP_PRIMAL_INFEASIBLE_INACCURATE)
+        & (sv != con.OSQP_DUAL_INFEASIBLE)
+        & (sv != con.OSQP_DUAL_INFEASIBLE_INACCURATE)
+        & (sv != con.OSQP_NON_CVX)
+    )
+    x_u, y_u = unscale_solution(it.x, it.y, scl)
+    nan = torch.full_like(x_u[:1], float("nan"))
+    x_out = bwhere(has_sol, x_u, nan)
+    y_out = bwhere(has_sol, y_u, torch.full_like(y_u[:1], float("nan"))) if cfg.m else y_u
+
+    def _normalize(v):
+        nrm = norm_inf(v)
+        return v / torch.where(nrm > 0, nrm, 1.0)[:, None]
+
+    return BatchSolveResults(
+        x=x_out,
+        y=y_out,
+        status_val=sv,
+        iter=info.iter,
+        obj_val=info.obj_val,
+        pri_res=info.pri_res,
+        dua_res=info.dua_res,
+        rho_updates=info.rho_updates,
+        rho_estimate=info.rho_estimate,
+        status_polish=torch.zeros(B, dtype=torch.int32, device=sv.device),
+        prim_inf_cert=_normalize(result.delta_y) if cfg.m else result.delta_y,
+        dual_inf_cert=_normalize(result.delta_x),
+    )
+
+
+def _solve_segmented(cfg, scaling_iters, P, q, A, l, u, rho0, dyn, x0, y0, time_limit=0.0, verbose=False):
+    """The non-compact segmented driver (osqp_tpu/batch.py:304-502).
+
+    Without verbose output and time limit the first segment spans the
+    whole iteration range; otherwise segments are ``check`` iterations
+    long with verbose output and ``max(4 check, 100)`` without.
+    """
+    t0 = time.perf_counter()
+    check = cfg.check_termination if cfg.check_termination > 0 else 25
+    seg = check if verbose else max(4 * check, 100)
+    first_end = min(seg, cfg.max_iter) if (verbose or time_limit > 0) else cfg.max_iter
+    fallback = con.OSQP_MAX_ITER_REACHED
+    run_checks = True
+
+    if verbose:
+        from .utils.printing import IterRowPrinter
+
+        rows = IterRowPrinter(t0)
+
+        def _row(c, end):
+            rows.maybe(end, lambda: admm_mod.segment_row_info(cfg, scaled, scl, dyn, c))
+    else:
+
+        def _row(c, end):
+            pass
+
+    prep = (cfg, scaling_iters, P, q, A, l, u, rho0, dyn, x0, y0)
+    try:
+        scaled, scl, rho_state, factor, it = _prepare(*prep)
+    except KeyboardInterrupt:
+        # Interrupted before any usable state: prepare again for a
+        # well-formed all-SIGINT result.
+        scaled, scl, rho_state, factor, it = _prepare(*prep)
+        c = admm_mod.init_carry(cfg, scaled, rho_state, factor, it)
+        fin = admm_mod.finalize(cfg, scaled, scl, dyn, c, fallback_status=con.OSQP_SIGINT, run_checks=False)
+        return _postprocess(cfg, scaled, scl, fin)
+
+    c = admm_mod.init_carry(cfg, scaled, rho_state, factor, it)
+    try:
+        c = admm_mod.run_segment(cfg, scaled, scl, dyn, c, first_end)
+        _row(c, first_end)
+        end = first_end
+        if end < cfg.max_iter and c.any_active:
+            # The JAX driver always queues the second segment before its
+            # first clock poll; the same iterates come out of this order.
+            end = min(end + seg, cfg.max_iter)
+            c = admm_mod.run_segment(cfg, scaled, scl, dyn, c, end)
+            while end < cfg.max_iter:
+                _row(c, end)
+                if not c.any_active:
+                    break
+                if time_limit > 0 and time.perf_counter() - t0 >= time_limit:
+                    fallback = con.OSQP_TIME_LIMIT_REACHED
+                    break
+                end = min(end + seg, cfg.max_iter)
+                c = admm_mod.run_segment(cfg, scaled, scl, dyn, c, end)
+    except KeyboardInterrupt:
+        # osqp.c:374-385: SIGINT exits at once, with no further checks.
+        fallback = con.OSQP_SIGINT
+        run_checks = False
+        print("Solver interrupted")
+    fin = admm_mod.finalize(cfg, scaled, scl, dyn, c, fallback_status=fallback, run_checks=run_checks)
+    return _postprocess(cfg, scaled, scl, fin)
+
+
+def solve_batch(
+    P, q, A, l, u, x0=None, y0=None, compact=False, segmented=True, device=None, **settings,
+) -> BatchSolveResults:
+    """Solve B same-shape QPs together.
+
+    Args:
+      P: (B, n, n) dense symmetric cost matrices.
+      q: (B, n); A: (B, m, n); l, u: (B, m) (entries beyond +-1e30 are
+         clamped to the reference's finite infinity, constants.h:98-100).
+         Tensors or arrays.
+      x0, y0: optional warm starts (unscaled); either alone is allowed.
+      compact: instance compaction, not ported yet (ROADMAP queue 1,
+         item 14).
+      segmented: run in host-polled segments (default), which honors
+         ``time_limit``, Ctrl-C and verbose rows; False runs the whole
+         range with no polling.
+      device: where to solve; default: P's device if P is a tensor,
+         else the CPU.  CUDA tensors run the hand-written kernels.
+      **settings: reference setting names (see :class:`Settings`);
+         ``dtype`` defaults to torch's default dtype.
+
+    Returns a :class:`BatchSolveResults` of tensors on ``device``.
+    """
+    s = Settings(**settings)
+    validate_settings(s)
+    reject_time_based_rho(s)
+    if s.polish:
+        raise NotImplementedError("polish is not ported to osqp_tpu_torch yet (ROADMAP queue 1, item 10)")
+    if compact:
+        raise NotImplementedError(
+            "instance compaction is not ported to osqp_tpu_torch yet (ROADMAP queue 1, item 14)"
+        )
+
+    dtype = torch_dtype(s.dtype)
+    if device is None:
+        device = P.device if isinstance(P, torch.Tensor) else torch.device("cpu")
+    as_t = lambda v: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                                     dtype=dtype, device=device).contiguous()
+    q = as_t(q)
+    if q.ndim != 2:
+        raise ValueError("q must be (B, n)")
+    B, n = q.shape
+    P = as_t(P)
+    A = as_t(A)
+    m = A.shape[1]
+    l = torch.clamp(as_t(l), -con.OSQP_INFTY, con.OSQP_INFTY)
+    u = torch.clamp(as_t(u), -con.OSQP_INFTY, con.OSQP_INFTY)
+
+    cfg = make_config(n, m, s, dtype)
+    dyn = DynSettings.make(
+        dtype,
+        sigma=s.sigma,
+        alpha=s.alpha,
+        eps_abs=s.eps_abs,
+        eps_rel=s.eps_rel,
+        eps_prim_inf=s.eps_prim_inf,
+        eps_dual_inf=s.eps_dual_inf,
+        adaptive_rho_tolerance=s.adaptive_rho_tolerance,
+        delta=s.delta,
+    )
+    rho0 = torch.full((B,), s.rho, dtype=dtype, device=device)
+    if x0 is not None or y0 is not None:
+        # reference osqp_warm_start: either side alone is allowed, the
+        # other defaults to zero (osqp.c:967-1010)
+        x0 = as_t(x0) if x0 is not None else torch.zeros((B, n), dtype=dtype, device=device)
+        y0 = as_t(y0) if y0 is not None else torch.zeros((B, m), dtype=dtype, device=device)
+
+    if not segmented:
+        scaled, scl, rho_state, factor, it = _prepare(cfg, int(s.scaling), P, q, A, l, u, rho0, dyn, x0, y0)
+        fin = admm_mod.solve_core(cfg, scaled, scl, dyn, rho_state, factor, it)
+        return _postprocess(cfg, scaled, scl, fin)
+
+    verbose = bool(s.verbose)
+    if verbose:
+        from .utils.printing import print_setup_header_vals
+
+        nnz = int(torch.count_nonzero(torch.triu(P[0]))) + int(torch.count_nonzero(A[0]))
+        print_setup_header_vals(s, n, m, nnz, B=B)
+    t0 = time.perf_counter()
+    res = _solve_segmented(
+        cfg, int(s.scaling), P, q, A, l, u, rho0, dyn, x0, y0,
+        time_limit=float(s.time_limit), verbose=verbose,
+    )
+    if verbose:
+        from .utils.printing import print_batch_footer
+
+        print_batch_footer(res, s, time.perf_counter() - t0)
+    return res

@@ -1,0 +1,224 @@
+"""osqp_tpu_torch.solve_batch end to end against osqp_tpu.solve_batch.
+
+The same problems, made with numpy from a seed, go through both
+packages on the CPU (the port's kernel wrappers then run their plain
+versions).  In float64 the port must give the same status and iteration
+count per instance, and x and y within 1e-6; in float32 the same status
+and iterations within one check interval (25).
+"""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import osqp_tpu
+import osqp_tpu.constants as jcon
+import osqp_tpu_torch
+from osqp_tpu.io.qps import parse_qps
+from test_batch import random_qps
+
+torch.set_num_threads(2)
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+ATOL = 1e-6
+CHECK = 25
+
+
+def _solve_both(P, q, A, l, u, dtype, **kw):
+    kw = {"verbose": False, **kw}
+    rj = osqp_tpu.solve_batch(P, q, A, l, u, dtype=dtype, **kw)
+    rt = osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype=dtype, **kw)
+    return rj, rt
+
+
+def _assert_parity(rj, rt, dtype):
+    sj, st = np.asarray(rj.status_val), rt.status_val.numpy()
+    np.testing.assert_array_equal(st, sj)
+    ij, it = np.asarray(rj.iter), rt.iter.numpy()
+    if dtype == "float64":
+        np.testing.assert_array_equal(it, ij)
+        for f in ("x", "y"):
+            np.testing.assert_allclose(
+                getattr(rt, f).numpy(), np.asarray(getattr(rj, f)), rtol=0, atol=ATOL, equal_nan=True
+            )
+    else:
+        assert np.abs(it.astype(int) - ij.astype(int)).max() <= CHECK, (it, ij)
+
+
+def _mixed():
+    """test_batch.py's mixed batch: instance 2 is primal infeasible (one
+    row twice, with disjoint bounds)."""
+    P, q, A, l, u = random_qps(4, 6, 8, seed=3)
+    A[2, 1] = A[2, 0]
+    l[2, 0], u[2, 0] = 1.0, 2.0
+    l[2, 1], u[2, 1] = 5.0, 6.0
+    return P, q, A, l, u
+
+
+def _ill_conditioned(seed=2):
+    """Equality rows, eight loose rows and a small P: the Schur
+    complement's condition number is ~1e6-1e7, so the dense_inv factor
+    raises its refine flag and the loop runs the refined body."""
+    P, q, A, l, u = random_qps(6, 12, 18, seed=seed)
+    u[:, :4] = l[:, :4]
+    l[:, 4:12], u[:, 4:12] = -1e30, 1e30
+    return P * 1e-3, q, A, l, u
+
+
+def _hs(name):
+    with open(os.path.join(DATA, f"{name}.qps")) as f:
+        qp = parse_qps(f.read(), name_hint=name)
+    Pu = qp.P.toarray()
+    P = Pu + Pu.T - np.diag(np.diag(Pu))
+    return P[None], qp.q[None], qp.A.toarray()[None], qp.l[None], qp.u[None]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("seed", [7, 11])
+def test_random_batch(dtype, seed):
+    rj, rt = _solve_both(*random_qps(5, 8, 12, seed=seed), dtype)
+    _assert_parity(rj, rt, dtype)
+    assert (rt.status_val == osqp_tpu_torch.OSQP_SOLVED).all()
+
+
+@pytest.mark.nanok
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_mixed_batch_with_primal_infeasible_instance(dtype):
+    rj, rt = _solve_both(*_mixed(), dtype)
+    _assert_parity(rj, rt, dtype)
+    st = rt.status_val.numpy()
+    assert st[2] == osqp_tpu_torch.OSQP_PRIMAL_INFEASIBLE
+    assert (st[[0, 1, 3]] == osqp_tpu_torch.OSQP_SOLVED).all()
+    assert torch.isnan(rt.x[2]).all()
+    # the certificate, normalized to unit inf-norm
+    cj, ct = np.asarray(rj.prim_inf_cert)[2], rt.prim_inf_cert[2].numpy()
+    np.testing.assert_allclose(ct, cj, rtol=0, atol=ATOL if dtype == "float64" else 1e-3)
+
+
+@pytest.mark.nanok
+def test_dual_infeasible_instance():
+    P, q, A, l, u = random_qps(3, 6, 8, seed=5)
+    P[1] = 0.0
+    q[1] = -1.0
+    A[1] = np.abs(A[1])
+    u[1] = 1e30
+    rj, rt = _solve_both(P, q, A, l, u, "float64")
+    _assert_parity(rj, rt, "float64")
+    assert rt.status_val[1] == osqp_tpu_torch.OSQP_DUAL_INFEASIBLE
+    np.testing.assert_allclose(rt.dual_inf_cert[1].numpy(), np.asarray(rj.dual_inf_cert)[1], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["HS21", "HS35", "HS51", "HS76"])
+def test_hs_fixture_as_batch_of_one(name):
+    rj, rt = _solve_both(*_hs(name), "float64")
+    _assert_parity(rj, rt, "float64")
+    assert rt.status_val[0] == osqp_tpu_torch.OSQP_SOLVED
+    np.testing.assert_allclose(rt.obj_val.numpy(), np.asarray(rj.obj_val), rtol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_ill_conditioned_batch_runs_refined_body(dtype):
+    """The refined loop body: residual-corrected solves and, in float32,
+    the TwoSum dual carry."""
+    from osqp_tpu_torch.ops import admm_iter as k1
+
+    before = k1.launches
+    rj, rt = _solve_both(*_ill_conditioned(), dtype, max_iter=400)
+    _assert_parity(rj, rt, dtype)
+    # CPU tensors never count a kernel launch
+    assert k1.launches == before
+
+
+@pytest.mark.parametrize("verbose", [False, True])
+def test_refine_flag_flips_at_a_rho_refactor(verbose, monkeypatch, capsys):
+    """The rho update at iteration 100 turns the refine flag on (inverse
+    residuals ~1e-14 before, >= 5e-12 after, against a gate of 1e-12).
+    The loop body is chosen per segment, so one whole-range segment
+    (verbose off) stays on the plain body while check-long segments
+    (verbose on) switch to the refined body at iteration 101.  Either
+    way the port re-reads the flag where the JAX driver does."""
+    from osqp_tpu_torch.linsys import dense_inv
+
+    signals = []
+    real = dense_inv.refine_signal
+    monkeypatch.setattr(dense_inv, "refine_signal", lambda f: signals.append(bool(real(f))) or real(f))
+    P, q, A, l, u = random_qps(4, 12, 6, seed=0)
+    u[:, :3] = l[:, :3]
+    kw = {"rho": 1e-4, "eps_abs": 1e-6, "eps_rel": 1e-6, "max_iter": 600, "verbose": verbose}
+    rj, rt = _solve_both(P * 0.1, q, A, l, u, "float64", **kw)
+    _assert_parity(rj, rt, "float64")
+    assert (rt.rho_updates > 0).all() and (rt.iter > 100).all()
+    assert signals[0] is False
+    assert signals[-1] is verbose
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        {"verbose": True},  # segments of one check interval
+        {"segmented": False},
+        {"adaptive_rho": False},
+        {"scaled_termination": True, "check_termination": 10},
+        {"alpha": 1.0, "sigma": 1e-4, "rho": 1.0},
+    ],
+    ids=["verbose", "unsegmented", "fixed_rho", "scaled_term", "settings"],
+)
+def test_settings_and_drivers(kw, capsys):
+    P, q, A, l, u = random_qps(5, 8, 12, seed=7)
+    rj, rt = _solve_both(P, q, A, l, u, "float64", **kw)
+    _assert_parity(rj, rt, "float64")
+
+
+def test_verbose_rows_and_footer_match_reference(capsys):
+    """verbose=True (the default) prints the same iteration rows and
+    footer as the JAX package, apart from the wall-clock column."""
+    P, q, A, l, u = _ill_conditioned(seed=4)
+    osqp_tpu.solve_batch(P, q, A, l, u, dtype="float64")
+    out_j = capsys.readouterr().out
+    osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype="float64")
+    out_t = capsys.readouterr().out
+
+    def rows(out):
+        lines = [ln for ln in out.splitlines() if re.match(r"^\s*\d+\s", ln)]
+        return [ln.rsplit(None, 1)[0] for ln in lines]  # drop the time column
+
+    def footer(out):
+        keep = ("status:", "batch status:", "number of iterations:", "optimal objective:")
+        return [ln for ln in out.splitlines() if ln.startswith(keep)]
+
+    assert rows(out_t) and rows(out_t) == rows(out_j)
+    assert footer(out_t) == footer(out_j)
+    assert f"OSQP-TPU-TORCH v{osqp_tpu_torch.__version__}" in out_t
+
+
+def test_warm_start():
+    P, q, A, l, u = random_qps(5, 8, 12, seed=7)
+    rng = np.random.default_rng(0)
+    x0, y0 = rng.standard_normal((5, 8)), rng.standard_normal((5, 12))
+    rj, rt = _solve_both(P, q, A, l, u, "float64", x0=x0, y0=y0)
+    _assert_parity(rj, rt, "float64")
+    rj, rt = _solve_both(P, q, A, l, u, "float64", x0=x0)
+    _assert_parity(rj, rt, "float64")
+
+
+def test_time_limit_stops_at_the_same_segment():
+    """Both drivers poll the clock only after their second segment; with
+    a limit that has passed by then, both stop at the same iteration."""
+    P, q, A, l, u = random_qps(5, 8, 12, seed=7)
+    kw = {"time_limit": 1e-9, "eps_abs": 1e-12, "eps_rel": 1e-12}
+    rj, rt = _solve_both(P, q, A, l, u, "float64", **kw)
+    _assert_parity(rj, rt, "float64")
+    stopped = rt.status_val == jcon.OSQP_TIME_LIMIT_REACHED
+    assert stopped.any()
+    assert (rt.iter[stopped] == 200).all()
+
+
+def test_solve_batch_takes_tensors_and_keeps_their_device():
+    P, q, A, l, u = (torch.as_tensor(v) for v in random_qps(3, 5, 7, seed=1))
+    res = osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype=torch.float64, verbose=False)
+    assert res.x.device == P.device and res.x.dtype == torch.float64
+    assert res.x.shape == (3, 5) and res.y.shape == (3, 7)
+    assert (res.status_val == osqp_tpu_torch.OSQP_SOLVED).all()

@@ -1,0 +1,78 @@
+#!/usr/bin/env python3
+"""Where the time of osqp_tpu_torch's headline solve goes, on one CUDA GPU.
+
+    python3 tools/profile_torch_headline.py [--batch 8192] [--top 15]
+
+Solves chip_smoke.py's headline batch (B=8192, n=100, m=200, float32,
+eps 1e-3, polish off) once to warm up, then once under
+``torch.profiler``.  Prints the card, the solve's wall time (host clock
+around work that ends in a synchronize), the device's busy time and
+idle share over that window, and device time by kernel, largest first.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import HEADLINE, SOLVE_KW, make_qps, on_device  # noqa: E402
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, default=HEADLINE["B"])
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_headline: no CUDA device", file=sys.stderr)
+        return 1
+    import osqp_tpu_torch as ot
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip())
+    dev = torch.device("cuda", 0)
+    B, n, m = args.batch, HEADLINE["n"], HEADLINE["m"]
+    P, q, A, l, u = on_device(make_qps(B, n, m), torch.float32, dev)
+    ot.solve_batch(P, q, A, l, u, **SOLVE_KW)  # warm-up: kernel build, allocator
+    torch.cuda.synchronize()
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = ot.solve_batch(P, q, A, l, u, **SOLVE_KW)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    by_kernel = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name][0] += 1
+            by_kernel[e.name][1] += e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(ms for _, ms in by_kernel.values())
+    iters = res.iter.cpu()
+    print(f"B={B} n={n} m={m} float32: iterations mean {iters.float().mean():.2f} max {int(iters.max())}")
+    print(f"solve wall {wall_ms:.3f} ms (host clock, under the profiler); device busy {busy_ms:.3f} ms; "
+          f"idle share {1.0 - busy_ms / wall_ms:.3f}")
+    if not by_kernel:
+        print("the profiler recorded no device time")
+        return 1
+    print(f"{'device ms':>10} {'share':>6} {'launches':>8}  kernel")
+    for name, (count, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[: args.top]:
+        print(f"{ms:10.3f} {ms / busy_ms:6.3f} {count:8d}  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
