@@ -2,18 +2,23 @@
 
 The same batched OSQP algorithm (ADMM with Ruiz scaling, adaptive rho
 and infeasibility certificates) on dense batched data, written for an
-NVIDIA H100.  The two routines that carry the dense main path are
+NVIDIA H100.  The routines that carry the dense main path are
 hand-written CUDA kernels (``osqp_tpu_torch/csrc``):
 
-* the fused ADMM iteration (:mod:`osqp_tpu_torch.ops.admm_iter`),
-* the batched SPD inverse (:mod:`osqp_tpu_torch.ops.spd_inverse`).
+* the fused ADMM iteration, plain and refined body
+  (:mod:`osqp_tpu_torch.ops.admm_iter`),
+* the batched SPD inverse (:mod:`osqp_tpu_torch.ops.spd_inverse`),
+* the termination and rho-estimate products
+  (:mod:`osqp_tpu_torch.ops.term_products`),
+* the Ruiz equilibration (:mod:`osqp_tpu_torch.ops.ruiz`).
 
 Each has a plain PyTorch version beside it, which serves CPU tensors.
 A CUDA tensor always goes through the kernel.  The package imports
 neither jax nor ``osqp_tpu``; ``osqp_tpu`` stays the reference that the
 tests hold this package against.
 
-Entry point: :func:`solve_batch`.
+Entry points: the stateful :class:`Solver` (alias :data:`OSQP`), OSQP's
+own API, and :func:`solve_batch` for B same-shape problems.
 """
 
 from __future__ import annotations
@@ -54,10 +59,14 @@ from .constants import (  # noqa: E402
     ErrorCode,
     OSQPError,
 )
-from .solver import Settings  # noqa: E402
+from .solver import OSQP, Info, Results, Settings, Solver  # noqa: E402
 from .types import DynSettings, QPData, ScalingData, StaticConfig  # noqa: E402
 
 __all__ = [
+    "Solver",
+    "OSQP",
+    "Info",
+    "Results",
     "solve_batch",
     "BatchSolveResults",
     "Settings",

@@ -39,6 +39,9 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "osqp_chol_inverse": (_I, _P, _P, _I, _I, _P),
     "osqp_admm_iter": (_I,) + (_P,) * 19 + (_D, _D, _I, _I, _I, _P),
+    "osqp_admm_iter_refined": (_I,) + (_P,) * 21 + (_D, _D, _I, _I, _I, _P),
+    "osqp_ruiz": (_I,) + (_P,) * 17 + (_I,) * 6 + (_P,),
+    "osqp_term_products": (_I,) + (_P,) * 11 + (_I,) * 5 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -88,8 +91,13 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            lib.osqp_cuda_error_string.argtypes = (ctypes.c_int,)
+            lib.osqp_cuda_error_string.argtypes = (_I,)
             lib.osqp_cuda_error_string.restype = ctypes.c_char_p
+            lib.osqp_split_geometry.argtypes = (_I, _I, _I, _I, ctypes.POINTER(_I))
+            lib.osqp_split_geometry.restype = None
+            for name in ("osqp_admm_iter_smem", "osqp_admm_iter_refined_smem"):
+                getattr(lib, name).argtypes = (_I, _I, _I)
+                getattr(lib, name).restype = ctypes.c_size_t
             _lib = lib
     return _lib
 
@@ -112,3 +120,24 @@ def stream() -> int:
     import torch
 
     return torch.cuda.current_stream().cuda_stream
+
+
+def split_geometry(B: int, n: int, m: int, device) -> tuple[int, int, int]:
+    """(column chunks, rows of A per block, rows of P per block) of the
+    split kernels (K3, K4) for B instances of n variables and m
+    constraints on ``device``, as csrc/common.cuh cuts them."""
+    import torch
+
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    out = (_I * 3)()
+    library().osqp_split_geometry(B, n, m, sm_count, out)
+    return out[0], out[1], out[2]
+
+
+def check_smem(kernel: str, dtype, n: int, m: int) -> None:
+    """Raise if one block of ``kernel`` (``admm_iter`` or
+    ``admm_iter_refined``) needs more shared memory at (n, m) than a block
+    may have; the launcher reports the bytes it would take."""
+    smem = getattr(library(), f"osqp_{kernel}_smem")(dtype_code(dtype), n, m)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"{kernel}: n={n}, m={m} needs {smem} bytes of shared memory, above {SMEM_BYTES}")

@@ -40,7 +40,7 @@ from .constants import (
     RHO_MIN,
     RHO_TOL,
 )
-from .linalg import bwhere, quad_form, vec_dot
+from .linalg import bwhere, vec_dot
 from .termination import check_termination, compute_products, compute_rho_estimate, residual_norms
 from .types import (
     DynSettings,
@@ -239,9 +239,9 @@ def run_segment(cfg: StaticConfig, data: QPData, scl: ScalingData, dyn: DynSetti
 
     The loop body is chosen once per segment from the backend's
     refinement signal: ill-conditioned batches run the refined body
-    (plain PyTorch, with the TwoSum dual carry), the rest the fused K1
-    body.  A rho refactor inside the segment that flips the signal is
-    picked up at the next segment, as in the JAX package.
+    (K1r, with the TwoSum dual carry), the rest the fused K1 body.  A
+    rho refactor inside the segment that flips the signal is picked up
+    at the next segment, as in the JAX package.
     """
     backend = linsys_registry.get(cfg.linsys_solver)
     check = int(cfg.check_termination)
@@ -253,16 +253,10 @@ def run_segment(cfg: StaticConfig, data: QPData, scl: ScalingData, dyn: DynSetti
 
     while c.k <= end_iter and c.any_active:
         if refine:
-            it_new, dx_new, dy_new, y_lo_new = admm_step(
-                backend.solve_refined, c.factor, data, dyn, c.rho_state, c.it, c.y_lo
+            x, z, y, dx, dy, y_lo = backend.refined_step(
+                c.factor, data, dyn, c.rho_state, c.it, c.delta_x, c.delta_y, c.y_lo, c.active
             )
-            c = replace(
-                c,
-                it=bwhere(c.active, it_new, c.it),
-                delta_x=bwhere(c.active, dx_new, c.delta_x),
-                delta_y=bwhere(c.active, dy_new, c.delta_y),
-                y_lo=c.y_lo if y_lo_new is None else bwhere(c.active, y_lo_new, c.y_lo),
-            )
+            c = replace(c, it=Iterates(x=x, z=z, y=y), delta_x=dx, delta_y=dy, y_lo=y_lo)
         else:
             x, z, y, dx, dy = backend.fused_step(
                 c.factor, data, dyn, c.rho_state, c.it, c.delta_x, c.delta_y, c.active
@@ -310,12 +304,13 @@ def finalize(
         & (sv != OSQP_DUAL_INFEASIBLE_INACCURATE)
         & (sv != OSQP_NON_CVX)
     )
-    obj = scl.cinv * (quad_form(data.P, c.it.x) + vec_dot(data.q, c.it.x))
+    pr = compute_products(data, c.it.x, c.it.z, c.it.y)
+    obj = scl.cinv * (0.5 * vec_dot(c.it.x, pr.Px) + vec_dot(data.q, c.it.x))
     info = replace(
         info,
         obj_val=torch.where(has_sol, obj, info.obj_val),
         # Final rho estimate (osqp.c:595)
-        rho_estimate=compute_rho_estimate(data, c.it.x, c.it.z, c.it.y, c.rho_state.rho),
+        rho_estimate=compute_rho_estimate(data, c.it.x, c.it.z, c.it.y, c.rho_state.rho, pr),
     )
     return SolveResult(
         iterates=c.it,
@@ -340,5 +335,5 @@ def segment_row_info(cfg, data, scl, dyn, c: Carry):
     verbose rows (print_summary columns, util.c:152-175)."""
     pr = compute_products(data, c.it.x, c.it.z, c.it.y)
     pri, dua = residual_norms(cfg, scl, pr)
-    obj = scl.cinv * (quad_form(data.P, c.it.x) + vec_dot(data.q, c.it.x))
+    obj = scl.cinv * (0.5 * vec_dot(c.it.x, pr.Px) + vec_dot(data.q, c.it.x))
     return obj, pri, dua, c.rho_state.rho

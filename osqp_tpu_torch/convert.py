@@ -3,8 +3,10 @@
 Turns the arrays of ``osqp_tpu``'s ``QPData``, ``ScalingData``,
 ``RhoState``, ``Iterates``, ``DynSettings`` and factor dicts (anything
 ``numpy.asarray`` reads) into this package's types, on a given device
-and dtype.  The tests use it to put identical scaled data, factors and
-iterates through both packages.  Nothing here imports jax.
+and dtype, and carries a whole ``osqp_tpu.Solver``'s device state into
+an ``osqp_tpu_torch.Solver``.  The tests use it to put identical scaled
+data, factors and iterates through both packages.  Nothing here imports
+jax.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .types import DynSettings
+from .types import DynSettings, Iterates, QPData, RhoState, ScalingData
 
 
 def to_tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
@@ -41,3 +43,16 @@ def factor(f: dict, device, dtype: torch.dtype) -> dict:
     out = {k: to_tensor(v, device, dtype) for k, v in f.items()}
     out["sigma"] = to_tensor(f["sigma"], "cpu", dtype)
     return out
+
+
+def load_solver_state(solver, src) -> None:
+    """Carry the device state of ``src``, an ``osqp_tpu.Solver``, into
+    ``solver``, an ``osqp_tpu_torch.Solver`` set up on the same problem
+    and settings: the scaled ``data``, ``scaling``, ``rho_state``,
+    ``factor`` and ``iterates``, on ``solver``'s device and dtype."""
+    dev, dt = solver.device, solver._dtype
+    solver.data = from_fields(QPData, src.data, dev, dt)
+    solver.scaling = from_fields(ScalingData, src.scaling, dev, dt)
+    solver.rho_state = from_fields(RhoState, src.rho_state, dev, dt)
+    solver.factor = factor(src.factor, dev, dt)
+    solver.iterates = from_fields(Iterates, src.iterates, dev, dt)

@@ -30,9 +30,12 @@
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
+using osqp_cuda::allow_smem;
+using osqp_cuda::kWarps;
 
 // out[c] = sum_r Mat[r * C + c] * v[r] for c < C; red holds kWarps * C.
 // Ends with a block barrier, so out is visible to every thread.
@@ -131,14 +134,17 @@ admm_iter_kernel(const T* __restrict__ Minv, const T* __restrict__ AMinvT, const
   }
 }
 
+// t, x~, w, z~ and the warps' partial sums
+template <typename T>
+size_t smem_bytes(int n, int m) {
+  return (2 * static_cast<size_t>(n) + 2 * m + kWarps * static_cast<size_t>(n > m ? n : m)) * sizeof(T);
+}
+
 template <typename T>
 int launch(void* const* p, double sigma, double alpha, int B, int n, int m, cudaStream_t stream) {
-  const size_t smem = (2 * static_cast<size_t>(n) + 2 * m + kWarps * static_cast<size_t>(n > m ? n : m)) * sizeof(T);
-  if (smem > 48 * 1024) {  // above the default, dynamic shared memory needs an opt-in
-    const cudaError_t err = cudaFuncSetAttribute(
-        admm_iter_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const size_t smem = smem_bytes<T>(n, m);
+  const cudaError_t err = allow_smem(admm_iter_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
   auto c = [&](int k) { return static_cast<const T*>(p[k]); };
   auto o = [&](int k) { return static_cast<T*>(p[k]); };
   admm_iter_kernel<T><<<B, dim3(32, kWarps), smem, stream>>>(
@@ -171,4 +177,9 @@ extern "C" int osqp_admm_iter(int dtype, const void* Minv, const void* AMinvT, c
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch<float>(p, sigma, alpha, B, n, m, s)
                     : launch<double>(p, sigma, alpha, B, n, m, s);
+}
+
+// Bytes of shared memory one block of osqp_admm_iter takes at (n, m).
+extern "C" size_t osqp_admm_iter_smem(int dtype, int n, int m) {
+  return dtype == 0 ? smem_bytes<float>(n, m) : smem_bytes<double>(n, m);
 }

@@ -33,9 +33,12 @@
 #include <cmath>
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using osqp_cuda::allow_smem;
+using osqp_cuda::kThreads;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -111,11 +114,8 @@ chol_inverse_kernel(const T* __restrict__ M, T* __restrict__ X, int n) {
 template <typename T>
 int launch(const void* M, void* X, int B, int n, cudaStream_t stream) {
   const size_t smem = (static_cast<size_t>(n) * n + 2 * n) * sizeof(T);
-  if (smem > 48 * 1024) {  // above the default, dynamic shared memory needs an opt-in
-    const cudaError_t err = cudaFuncSetAttribute(
-        chol_inverse_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_smem(chol_inverse_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
   chol_inverse_kernel<T><<<B, kThreads, smem, stream>>>(
       static_cast<const T*>(M), static_cast<T*>(X), n);
   return cudaGetLastError();
@@ -128,8 +128,4 @@ extern "C" int osqp_chol_inverse(int dtype, const void* M, void* X, int B, int n
   if (B == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch<float>(M, X, B, n, s) : launch<double>(M, X, B, n, s);
-}
-
-extern "C" const char* osqp_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -43,11 +43,6 @@ def mat_tvec(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.bmm(y.unsqueeze(-2), A).squeeze(-2)
 
 
-def quad_form(P: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """0.5 x' P x with symmetric P (lin_alg.c:387-413)."""
-    return 0.5 * vec_dot(x, mat_vec(P, x))
-
-
 def vec_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched inner product over the last axis (lin_alg.c:143-152)."""
     return (a * b).sum(-1)

@@ -13,17 +13,17 @@ t = rhs_x + A'(rho * rhs_z).
   guards the result per instance.
 * :func:`fused_step` is the plain loop body: one masked ADMM iteration
   through K1 (:mod:`..ops.admm_iter`).
-* :func:`solve_refined` is the refined loop body's KKT solve, with
-  residual correction, for ill-conditioned batches; plain PyTorch.
+* :func:`refined_step` is the refined loop body, for ill-conditioned
+  batches: one masked iteration with residual-corrected solves through
+  K1r (:func:`..ops.admm_iter.admm_iter_refined`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..linalg import mat_tvec, mat_vec
 from ..ops import spd_inverse as k2
-from ..ops.admm_iter import admm_iter
+from ..ops.admm_iter import admm_iter, admm_iter_refined
 from .dense_chol import form_schur
 
 # Refinement gate: an explicit-inverse solve has forward error
@@ -50,8 +50,9 @@ def init(P, A, sigma, rho_vec):
     """Factorize: Minv, AMinvT and the per-instance refinement flag.
 
     The inverse is chosen by n alone: up to K2's shared-memory bound
-    (``spd_inverse.max_n``) the K2 kernel with a Newton-Schulz step and
-    a residual guard; above it, torch's Cholesky and Cholesky inverse.
+    (``spd_inverse.max_n``) the K2 kernel with a residual guard; above
+    it, torch's Cholesky and Cholesky inverse.  Both take a Newton-Schulz
+    step.
     """
     M = form_schur(P, A, sigma, rho_vec)
     B, n = P.shape[0], P.shape[-1]
@@ -69,7 +70,9 @@ def init(P, A, sigma, rho_vec):
             Mb = torch.where(bad[:, None, None], M, eye)
             Minv = torch.where(bad[:, None, None], _chol_inverse(Mb), X)
     else:
-        Minv = _chol_inverse(M)
+        # Newton-Schulz on the Cholesky inverse as on K2's, so that both
+        # routes polish their inverse as the JAX package does at every n.
+        Minv = k2.newton_schulz(M, _chol_inverse(M))
         resid = _inverse_residual(M, Minv)
     if A.shape[-2]:
         # (A M^-1)' = M^-1 A', stored transposed (B, n, m) so that both
@@ -103,32 +106,12 @@ def fused_step(factor, data, dyn, rs, it, delta_x, delta_y, active):
     )
 
 
-def solve_refined(factor, A, rho_vec, rhs_x, rhs_z):
-    """KKT solve with residual correction (dense_inv.py:173-231).
-
-    In float32, two correction steps whose residual t - M x is
-    accumulated in float64; M x is applied matrix-free as
-    P x + sigma x + A'(rho (A x)).  In float64, one correction step.
-    Returns (x~, z~ = A x~).
-    """
-    t = rhs_x
-    if A.shape[-2]:
-        t = t + mat_tvec(A, rho_vec * rhs_z)
-    Minv, P, sigma = factor["Minv"], factor["P"], factor["sigma"]
-    apply_inv = lambda v: torch.bmm(v.unsqueeze(1), Minv).squeeze(1)
-    x = apply_inv(t)
-    if t.dtype == torch.float32:
-        P64, A64, rho64, t64 = P.double(), A.double(), rho_vec.double(), t.double()
-        sig64 = sigma.double()
-        for _ in range(2):
-            x64 = x.double()
-            Mx = mat_vec(P64, x64) + sig64 * x64
-            if A.shape[-2]:
-                Mx = Mx + mat_tvec(A64, rho64 * mat_vec(A64, x64))
-            x = x + apply_inv((t64 - Mx).to(t.dtype))
-    else:
-        Mx = mat_vec(P, x) + sigma * x
-        if A.shape[-2]:
-            Mx = Mx + mat_tvec(A, rho_vec * mat_vec(A, x))
-        x = x + apply_inv(t - Mx)
-    return x, mat_vec(A, x)
+def refined_step(factor, data, dyn, rs, it, delta_x, delta_y, y_lo, active):
+    """The refined loop body: one masked ADMM iteration through K1r, with
+    the TwoSum dual carry ``y_lo`` in float32 (None in float64).
+    Returns (x, z, y, delta_x, delta_y, y_lo)."""
+    return admm_iter_refined(
+        factor["Minv"], data.A, factor["P"], data.q, data.l, data.u,
+        rs.rho_vec, rs.rho_inv_vec, dyn.sigma, dyn.alpha, active,
+        it.x, it.z, it.y, delta_x, delta_y, y_lo,
+    )

@@ -81,9 +81,13 @@ def chol_inverse_plain(M: torch.Tensor) -> torch.Tensor:
     return torch.where((ok & (info == 0))[:, None, None], X, float("nan"))
 
 
-def spd_inverse(M: torch.Tensor) -> torch.Tensor:
-    """Inverse of a batch of SPD matrices (B, n, n), n <= max_n(dtype),
-    polished by one Newton-Schulz step X <- X (2I - M X)."""
-    X = chol_inverse(M)
+def newton_schulz(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """One Newton-Schulz step X <- X (2I - M X) towards M^-1."""
     eye2 = 2.0 * torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
     return torch.bmm(X, eye2 - torch.bmm(M, X))
+
+
+def spd_inverse(M: torch.Tensor) -> torch.Tensor:
+    """Inverse of a batch of SPD matrices (B, n, n), n <= max_n(dtype),
+    polished by one Newton-Schulz step."""
+    return newton_schulz(M, chol_inverse(M))

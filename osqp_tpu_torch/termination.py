@@ -4,7 +4,9 @@ src/auxil.c:13-52, 240-512, 681-786).
 
 All functions take and return tensors with a leading batch axis B, on
 scaled problem data; unscaling through D, E and c happens where the
-reference does it.
+reference does it.  Every matrix product goes through K3
+(:mod:`osqp_tpu_torch.ops.term_products`), one call per check, rho
+estimate or verbose row; the rest is O(B(n+m)) plain PyTorch.
 """
 
 from __future__ import annotations
@@ -27,25 +29,33 @@ from .constants import (
     RHO_MAX,
     RHO_MIN,
 )
-from .linalg import mat_tvec, mat_vec, norm_inf, scaled_norm_inf, vec_dot
+from .linalg import norm_inf, scaled_norm_inf, vec_dot
+from .ops.term_products import term_products
 from .types import DynSettings, QPData, ScalingData, StaticConfig
 
 
 class Products(NamedTuple):
-    """The matrix products update_info needs (auxil.c:240-318)."""
+    """The matrix products update_info needs (auxil.c:240-318), and
+    those of the certificate checks when asked for."""
 
     Ax: torch.Tensor  # (B, m)
     Px: torch.Tensor  # (B, n)
     Aty: torch.Tensor  # (B, n)
     pri_vec: torch.Tensor  # (B, m) scaled primal residual  A x - z
     dua_vec: torch.Tensor  # (B, n) scaled dual residual    q + P x + A' y
+    Atdy: torch.Tensor | None = None  # (B, n) A' dy, dy the projected delta_y
+    Pdx: torch.Tensor | None = None  # (B, n) P delta_x
+    Adx: torch.Tensor | None = None  # (B, m) A delta_x
 
 
-def compute_products(data: QPData, x, z, y) -> Products:
-    Ax = mat_vec(data.A, x)
-    Px = mat_vec(data.P, x)
-    Aty = mat_tvec(data.A, y)
-    return Products(Ax=Ax, Px=Px, Aty=Aty, pri_vec=Ax - z, dua_vec=data.q + Px + Aty)
+def compute_products(data: QPData, x, z, y, delta_x=None, dy_proj=None) -> Products:
+    """One K3 call: A x, P x, A'y and, given the certificate directions
+    delta_x and dy_proj (see project_delta_y), A'dy, P delta_x, A delta_x."""
+    tp = term_products(data.P, data.A, x, y, delta_x, dy_proj)
+    return Products(
+        Ax=tp.Ax, Px=tp.Px, Aty=tp.Aty, pri_vec=tp.Ax - z, dua_vec=data.q + tp.Px + tp.Aty,
+        Atdy=tp.Atdy, Pdx=tp.Pdx, Adx=tp.Adx,
+    )
 
 
 def residual_norms(cfg: StaticConfig, scl: ScalingData, pr: Products):
@@ -77,20 +87,13 @@ def tolerances(cfg: StaticConfig, data: QPData, scl: ScalingData, pr: Products, 
     return eps_abs + eps_rel * rel_pri, eps_abs + eps_rel * rel_dua
 
 
-def primal_infeasibility(cfg: StaticConfig, data: QPData, scl: ScalingData, delta_y, eps_prim_inf):
-    """is_primal_infeasible (auxil.c:361-424).
-
-    Returns (is_pinf (B,) bool, dy_proj (B, m)): delta_y projected onto
-    the polar of the recession cone of [l, u], which becomes the
-    certificate (auxil.c:374-387).
-    """
-    if cfg.m == 0:
-        return torch.zeros(delta_y.shape[0], dtype=torch.bool, device=delta_y.device), delta_y
-
+def project_delta_y(data: QPData, delta_y):
+    """delta_y projected onto the polar of the recession cone of [l, u]
+    (auxil.c:374-387), which becomes the primal certificate."""
     inf_u = data.u > OSQP_INFTY * MIN_SCALING
     inf_l = data.l < -OSQP_INFTY * MIN_SCALING
     zero = torch.zeros((), dtype=delta_y.dtype, device=delta_y.device)
-    dy = torch.where(
+    return torch.where(
         inf_u & inf_l,
         zero,
         torch.where(
@@ -99,25 +102,31 @@ def primal_infeasibility(cfg: StaticConfig, data: QPData, scl: ScalingData, delt
             torch.where(inf_l, torch.maximum(delta_y, zero), delta_y),
         ),
     )
+
+
+def primal_infeasibility(cfg: StaticConfig, data: QPData, scl: ScalingData, dy, Atdy, eps_prim_inf):
+    """is_primal_infeasible (auxil.c:361-424) on the projected delta_y
+    ``dy`` and its product ``Atdy`` = A'dy; returns (B,) bool."""
+    if cfg.m == 0:
+        return torch.zeros(dy.shape[0], dtype=torch.bool, device=dy.device)
     norm_dy = norm_inf(dy) if cfg.scaled_termination else scaled_norm_inf(scl.E, dy)
 
     # u' max(dy, 0) + l' min(dy, 0) on scaled data (auxil.c:400-403).
     ineq_lhs = vec_dot(data.u, torch.clamp(dy, min=0.0)) + vec_dot(data.l, torch.clamp(dy, max=0.0))
 
-    Atdy = mat_tvec(data.A, dy)
     if not cfg.scaled_termination:
         Atdy = scl.Dinv * Atdy
 
-    is_pinf = (
+    return (
         (norm_dy > OSQP_DIVISION_TOL)
         & (ineq_lhs < eps_prim_inf * norm_dy)
         & (norm_inf(Atdy) < eps_prim_inf * norm_dy)
     )
-    return is_pinf, dy
 
 
-def dual_infeasibility(cfg: StaticConfig, data: QPData, scl: ScalingData, delta_x, eps_dual_inf):
-    """is_dual_infeasible (auxil.c:426-512); returns (B,) bool."""
+def dual_infeasibility(cfg: StaticConfig, data: QPData, scl: ScalingData, delta_x, Pdx, Adx, eps_dual_inf):
+    """is_dual_infeasible (auxil.c:426-512) on delta_x and its products
+    ``Pdx`` = P delta_x and ``Adx`` = A delta_x; returns (B,) bool."""
     if cfg.scaled_termination:
         norm_dx = norm_inf(delta_x)
         cost_scaling = torch.ones_like(norm_dx)
@@ -128,13 +137,11 @@ def dual_infeasibility(cfg: StaticConfig, data: QPData, scl: ScalingData, delta_
     thresh = cost_scaling * eps_dual_inf * norm_dx
     cond_q = vec_dot(data.q, delta_x) < thresh
 
-    Pdx = mat_vec(data.P, delta_x)
     if not cfg.scaled_termination:
         Pdx = scl.Dinv * Pdx
     cond_P = norm_inf(Pdx) < thresh
 
     if cfg.m:
-        Adx = mat_vec(data.A, delta_x)
         if not cfg.scaled_termination:
             Adx = scl.Einv * Adx
         # De Morgan over constraints (auxil.c:491-502); eps * norm_dx is
@@ -175,7 +182,8 @@ def check_termination(
 ) -> TermResult:
     """Batched check_termination (auxil.c:681-786); ``approximate``
     multiplies all four tolerances by 10 (auxil.c:709-714)."""
-    pr = compute_products(data, x, z, y)
+    dy_proj = project_delta_y(data, delta_y) if cfg.m else delta_y
+    pr = compute_products(data, x, z, y, delta_x, dy_proj)
     pri_res, dua_res = residual_norms(cfg, scl, pr)
 
     mult = 10.0 if approximate else 1.0
@@ -192,14 +200,12 @@ def check_termination(
     if cfg.m == 0:
         prim_ok = torch.ones_like(non_cvx)
         prim_inf = torch.zeros_like(non_cvx)
-        dy_proj = delta_y
     else:
         prim_ok = pri_res < eps_pri
-        pinf, dy_proj = primal_infeasibility(cfg, data, scl, delta_y, eps_pinf)
-        prim_inf = ~prim_ok & pinf
+        prim_inf = ~prim_ok & primal_infeasibility(cfg, data, scl, dy_proj, pr.Atdy, eps_pinf)
 
     dual_ok = dua_res < eps_dua
-    dual_inf = ~dual_ok & dual_infeasibility(cfg, data, scl, delta_x, eps_dinf)
+    dual_inf = ~dual_ok & dual_infeasibility(cfg, data, scl, delta_x, pr.Pdx, pr.Adx, eps_dinf)
     solved = prim_ok & dual_ok
 
     if approximate:
@@ -249,9 +255,11 @@ def check_termination(
     )
 
 
-def compute_rho_estimate(data: QPData, x, z, y, rho):
-    """compute_rho_estimate (auxil.c:13-52), in scaled space."""
-    pr = compute_products(data, x, z, y)
+def compute_rho_estimate(data: QPData, x, z, y, rho, pr: Products | None = None):
+    """compute_rho_estimate (auxil.c:13-52), in scaled space; ``pr``, the
+    products at (x, z, y) when the caller has them."""
+    if pr is None:
+        pr = compute_products(data, x, z, y)
     pri_res = norm_inf(pr.pri_vec)
     dua_res = norm_inf(pr.dua_vec)
     pri_norm = torch.maximum(norm_inf(z), norm_inf(pr.Ax))

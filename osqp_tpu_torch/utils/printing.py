@@ -8,8 +8,14 @@ import time
 from .. import constants as con
 
 
+def print_setup_header(solver) -> None:
+    """print_setup_header (util.c:58-150) of the stateful Solver."""
+    print_setup_header_vals(solver.settings, solver.n, solver.m, solver._Pu.nnz + solver._Ac.nnz)
+
+
 def print_setup_header_vals(s, n, m, nnz, B: int = 1) -> None:
-    """Setup header (util.c:58-150) for the functional solve_batch entry."""
+    """Setup header (util.c:58-150), shared by the stateful Solver and the
+    functional solve_batch entry, which has no solver object."""
     from .. import __version__
 
     print("-" * 59)
@@ -55,6 +61,21 @@ def print_iter_row(k, obj, pri, dua, rho, t) -> None:
 def print_iter_header() -> None:
     """print_header (util.c:42-56)."""
     print("iter   objective    pri res    dua res    rho        time")
+
+
+def print_summary_footer(solver) -> None:
+    """print_footer (util.c:177-236) of the stateful Solver; its
+    per-iteration rows are printed live by the segmented solve loop.
+    Polish is not ported, so there is no polish line."""
+    info = solver.info
+    print()
+    print(f"status:               {info.status}")
+    print(f"number of iterations: {info.iter}")
+    if info.status_val in (con.OSQP_SOLVED, con.OSQP_SOLVED_INACCURATE):
+        print(f"optimal objective:    {info.obj_val:.4f}")
+    print(f"run time:             {info.run_time:.2e}s")
+    print(f"optimal rho estimate: {info.rho_estimate:.2e}")
+    print()
 
 
 def print_batch_footer(res, settings, run_time: float) -> None:

@@ -42,7 +42,11 @@ def test_constants_equal_name_by_name():
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, osqp_tpu_torch, osqp_tpu_torch.convert, osqp_tpu_torch.ops.admm_iter;"
+        "import sys, osqp_tpu_torch, osqp_tpu_torch.convert, osqp_tpu_torch.io.qps, osqp_tpu_torch.sparse;"
+        "import osqp_tpu_torch.ops.admm_iter, osqp_tpu_torch.ops.ruiz, osqp_tpu_torch.ops.term_products;"
+        "import numpy as np; e = np.eye(1);"
+        "s = osqp_tpu_torch.Solver(2 * e, [1.0], e, [-1.0], [1.0], verbose=False, dtype='float64');"
+        "assert s.solve().info.status == 'solved';"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'osqp_tpu')];"
         "assert not bad, bad"
     )

@@ -18,7 +18,6 @@ from osqp_tpu.ops.spd_inverse import spd_inverse as jspd_inverse
 from osqp_tpu.types import DynSettings as JDyn
 from osqp_tpu.types import Iterates as JIt
 from osqp_tpu.types import QPData as JQP
-from osqp_tpu_torch import admm as tadmm
 from osqp_tpu_torch import convert
 from osqp_tpu_torch.linsys import dense_inv
 from osqp_tpu_torch.ops import admm_iter as k1
@@ -148,10 +147,11 @@ def test_refined_step_matches_reference(dtype, tol):
     )
     td = getattr(torch, dtype)
     t = lambda v: torch.as_tensor(v, dtype=td)
-    it_new, dx, dy, ylo = tadmm.admm_step(
-        dense_inv.solve_refined, fac, data, dyn, rs, Iterates(t(x), t(z), t(y)), None if y_lo is None else t(y_lo)
+    xn, zn, yn, dx, dy, ylo = dense_inv.refined_step(
+        fac, data, dyn, rs, Iterates(t(x), t(z), t(y)), torch.zeros((B, n), dtype=td), torch.zeros((B, m), dtype=td),
+        None if y_lo is None else t(y_lo), torch.ones(B, dtype=torch.bool),
     )
-    for g, w in ((it_new.x, jit_new.x), (it_new.z, jit_new.z), (it_new.y, jit_new.y), (dx, jdx), (dy, jdy)):
+    for g, w in ((xn, jit_new.x), (zn, jit_new.z), (yn, jit_new.y), (dx, jdx), (dy, jdy)):
         assert _rel(g, w) < tol
     if y_lo is not None:
         assert np.abs(ylo.numpy() - np.asarray(jylo)).max() <= 1e-6 * np.abs(np.asarray(jit_new.y)).max()
@@ -183,12 +183,6 @@ def test_k1_wrapper_rejects_bad_input(change, error):
     args = _k1_args()
     args.update(change)
     with pytest.raises(error):
-        k1.admm_iter(**args)
-
-
-def test_k1_wrapper_rejects_shared_memory_overflow():
-    args = _k1_args(B=1, n=1, m=4000)
-    with pytest.raises(ValueError, match="shared memory"):
         k1.admm_iter(**args)
 
 
@@ -230,3 +224,18 @@ def test_dense_inv_init_shape_dispatch(monkeypatch, n, through_k2):
     assert bool(calls) == through_k2
     M = P + 1e-6 * torch.eye(n, dtype=torch.float64) + A.transpose(1, 2) @ (rho[:, :, None] * A)
     np.testing.assert_allclose(fac["Minv"].numpy(), np.linalg.inv(M.numpy()), rtol=1e-8, atol=1e-10)
+
+
+def test_dense_inv_init_above_k2_bound_polishes_like_reference():
+    """Above K2's bound the Cholesky inverse takes the Newton-Schulz step
+    that the JAX package's inverse takes at every n."""
+    n = k2.max_n(torch.float32) + 1
+    rng = np.random.default_rng(3)
+    G = rng.standard_normal((1, n, n))
+    P = torch.as_tensor(np.einsum("bij,bkj->bik", G, G) / n + 0.1 * np.eye(n), dtype=torch.float32)
+    A = torch.as_tensor(rng.standard_normal((1, 5, n)), dtype=torch.float32)
+    rho = torch.full((1, 5), 0.1)
+    fac = dense_inv.init(P, A, 1e-6, rho)
+    M = P + 1e-6 * torch.eye(n) + A.transpose(1, 2) @ (rho[:, :, None] * A)
+    assert torch.equal(fac["Minv"], k2.newton_schulz(M, dense_inv._chol_inverse(M)))
+    assert not torch.equal(fac["Minv"], dense_inv._chol_inverse(M))
