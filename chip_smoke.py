@@ -10,23 +10,30 @@ failure ends the run with a non-zero exit and no result line:
 3. K2 (chol_inverse) against its plain version on Schur matrices of the
    benchmark's data, n=100: B=512 in float64 and float32, and the main
    path's B=8192 in float32; the headline factor's inverse residual
-   against the refine gate; both versions timed at B=8192;
+   against the refine gate; kernel, plain and torch.linalg.inv timed at
+   B=8192 beside the bound;
 4. K1 (admm_iter) against its plain version, one step from a random
    state: B=512 in float64 and float32 with half of the instances
-   inactive, and B=8192 in float32 half and all active; both timed at
-   B=8192;
+   inactive, B=8192 in float32 half and all active, CVXQP2_M's shape at
+   B=1 in both dtypes, and B=1, n=2, m=6000 in float64 (above what one
+   block per instance could hold); every case launched twice and the two
+   results held bit-identical; warm, L2-flushed and profiled device
+   times beside the plain time and the bound at B=8192 and CVXQP2_M;
 5. K4 (ruiz) against its plain version on the headline data (B=8192,
    n=100, m=200, float32) and on CVXQP2_M (B=1, n=1000, m=1250, float64
-   and float32): D and E equal, c and the scaled data close; both timed;
+   and float32): D and E equal, c and the scaled data close; both timed,
+   with the bound;
 6. K3 (term_products) against its plain version at the same shapes from
    a random state, with and without the certificate products; both
-   timed;
+   timed, with the bound;
 7. K1r (admm_iter_refined) against its plain version, one step from a
    random state: B=512 in float64 and float32 with half of the instances
-   inactive, B=8192 at the headline shape in float32, and CVXQP2_M's
-   shape at B=1; the float32 carry held to TwoSum exactly; the float32
+   inactive, B=8192 at the headline shape in float32, CVXQP2_M's shape
+   at B=1 in both dtypes, B=1, n=2, m=6000 in float64 and B=1,
+   n=m=3000 in float32 (above the one-block bound); two launches
+   bit-identical; the float32 carry held to TwoSum exactly; the float32
    solve at CVXQP2_M held to a forward-error bound that a float32
-   residual misses; both versions timed;
+   residual misses; times as for K1;
 8. the batched slice on the GPU against the slice on the CPU (plain
    path), in float64 at B=64, n=20, m=30: equal statuses and iteration
    counts, x and y within 1e-6;
@@ -38,7 +45,9 @@ failure ends the run with a non-zero exit and no result line:
     float32, each held against the JAX package's results in
     ``tests/data/torch_goldens/solver_maros.npz``, and a warm re-solve
     after ``update_lin_cost`` held against the same sequence on the CPU;
-    launch counts, loop body and times per solve.
+    launch counts, loop body and times per solve; one more CVXQP2_M
+    solve per dtype under the profiler, for ms per iteration and the
+    K1/K1r device time per iteration.
 
 The line before the last is a JSON object of the kernels; the last line
 is the device JSON object.
@@ -102,6 +111,143 @@ def cuda_ms(fn, reps, warmup=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+# One H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and the peak rates
+# outside the tensor cores, by type.  A bound is the larger of the bytes
+# over the bandwidth and the operations over the peak.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+FLUSH_BYTES = 256 << 20  # written between calls to evict the 50 MB L2
+# The kernels of K1 and K1r (csrc/admm_passes.cuh, admm_iter_refined.cu).
+K1_KERNELS = ("colsum_kernel", "rowdot_kernel", "epilogue_kernel", "solve_finish_kernel")
+
+
+def bound(nbytes, flops) -> tuple[float, str]:
+    """(least ms, what bounds it): ``nbytes`` over the HBM rate against
+    ``flops`` (a count per dtype name) over the peak rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(f / PEAK_FLOPS[d] for d, f in flops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms_flushed(fn, reps):
+    """Mean milliseconds of ``fn()`` by CUDA events around each call, with
+    the L2 cache flushed before each."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
+
+
+def profiled(fn):
+    """(fn's result, host ms, device events) of one call of ``fn`` under
+    torch.profiler, ending in a synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, wall, events
+
+
+def event_ms(events, names=None) -> float:
+    """Device milliseconds of the events whose name holds one of ``names``
+    (all events when None)."""
+    return sum(e.time_range.elapsed_us() for e in events if names is None or any(k in e.name for k in names)) / 1e3
+
+
+def report_times(label, fn, plain, reps, nbytes, flops):
+    """Print and return a kernel's times: warm (back-to-back calls), with
+    the L2 flushed before each call, and its device time per call from the
+    profiler; its plain version's warm time; and its bound."""
+    import torch
+
+    warm = cuda_ms(fn, reps)
+    cold = cuda_ms_flushed(fn, reps)
+    fn()
+    torch.cuda.synchronize()
+    _, _, events = profiled(lambda: [fn() for _ in range(reps)])
+    dev_ms = event_ms(events) / reps
+    plain_ms = cuda_ms(plain, reps)
+    b, by = bound(nbytes, flops)
+    device = f"{dev_ms:.4f} ms" if dev_ms > 0 else "not measured (no device events)"
+    share = lambda t: f"{b / t:.3f}" if t > 0 else "not measured"
+    print(f"{label}: kernel warm {warm:.4f} ms, L2-flushed {cold:.4f} ms, device time per call {device}; "
+          f"plain {plain_ms:.4f} ms; bound {b:.4f} ms ({by}), share of bound warm {share(warm)}, "
+          f"flushed {share(cold)}, device {share(dev_ms)}")
+    return dict(ms=warm, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+
+
+def k1_cost(B, n, m, dtype):
+    """(bytes, operations) of one K1 call: Minv, AMinvT and A read once, the
+    vectors read and written once, a multiply-add per matrix value."""
+    elt = 4 if dtype_name(dtype) == "float32" else 8
+    nbytes = elt * B * (n * n + 2 * n * m + 5 * n + 10 * m) + B
+    return nbytes, {dtype_name(dtype): 2 * B * (n * n + 2 * n * m)}
+
+
+def k1r_cost(B, n, m, dtype):
+    """(bytes, operations) of one K1r call: Minv, A and P read once, the
+    vectors (and the float32 carry) read and written once; the products
+    of 1 + ncorr passes over Minv, 2 over A and, per correction, the
+    float64 residual's passes over A (two) and P."""
+    f32 = dtype_name(dtype) == "float32"
+    elt, ncorr = (4, 2) if f32 else (8, 1)
+    nbytes = elt * B * (2 * n * n + m * n + 5 * n + (12 if f32 else 10) * m) + B
+    flops = {dtype_name(dtype): 2 * B * ((1 + ncorr) * n * n + 2 * m * n)}
+    f64 = 2 * B * ncorr * (2 * m * n + n * n)
+    flops["float64"] = flops.get("float64", 0) + f64
+    return nbytes, flops
+
+
+def random_operands(B, n, m, dtype, dev, seed=5):
+    """Operands of one ADMM step with random data: P = G G'/n + 0.1 I,
+    A ~ N(0, 1/n), rho in [0.1, ...), Minv = (P + sigma I + A' rho A)^-1
+    and AMinvT = Minv A', made in float64 on the card and cast; a random
+    state, every instance active."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64, device=dev)
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    G = r(B, n, n)
+    P = G @ G.mT / n + 0.1 * eye
+    A = r(B, m, n) / n**0.5
+    rho = 0.1 + r(B, m).abs()
+    sigma = 1e-6
+    M = P + sigma * eye + A.mT @ (rho[:, :, None] * A)
+    Minv = torch.cholesky_inverse(torch.linalg.cholesky(M))
+    l = r(B, m) - 1.0
+    ops = dict(Minv=Minv, AMinvT=Minv @ A.mT, A=A, P=P, q=r(B, n), l=l, u=l + 2.0, rho=rho, rho_inv=1.0 / rho,
+               x=r(B, n), z=r(B, m), y=r(B, m), dx=r(B, n), dy=r(B, m))
+    ops = {k: v.to(dtype).contiguous() for k, v in ops.items()}
+    ops.update(sigma=sigma, alpha=1.6, active=torch.ones(B, dtype=torch.bool, device=dev))
+    return ops
+
+
+def k1_args(ops):
+    return tuple(ops[k] for k in ("Minv", "AMinvT", "A", "q", "l", "u", "rho", "rho_inv", "sigma", "alpha", "active",
+                                  "x", "z", "y", "dx", "dy"))
+
+
+def k1r_args(ops, y_lo=None):
+    return tuple(ops[k] for k in ("Minv", "A", "P", "q", "l", "u", "rho", "rho_inv", "sigma", "alpha", "active",
+                                  "x", "z", "y", "dx", "dy")) + (y_lo,)
 
 
 def on_device(arrays, dtype, dev):
@@ -202,7 +348,12 @@ def phase_k2(dev):
 
     ms = cuda_ms(lambda: k2.chol_inverse(M), reps=10)
     plain_ms = cuda_ms(lambda: k2.chol_inverse_plain(M), reps=10)
-    print(f"K2 chol_inverse B={B} n={n} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    library_ms = cuda_ms(lambda: torch.linalg.inv(M), reps=10)
+    # M read and M^-1 written once; Cholesky, triangular inverse and T'T take
+    # about n^3/3 operations each (n^3/6 multiply-adds), n^3 in all
+    bound_ms, bound_by = bound(2 * 4 * B * n * n, {"float32": B * n**3})
+    print(f"K2 chol_inverse B={B} n={n} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library torch.linalg.inv "
+          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms:.3f}")
 
     # The Solver's shape: CVXQP2_S, B=1, n=100.
     for dtype, rel_tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
@@ -214,7 +365,8 @@ def phase_k2(dev):
         plain_s = cuda_ms(lambda: k2.chol_inverse_plain(Ms), reps=20)
         print(f"K2 chol_inverse CVXQP2_S B=1 n=100 {dtype_name(dtype)}: relative difference {rel:.3e}; "
               f"kernel {ms_s:.4f} ms, plain {plain_s:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 def phase_k1(dev):
@@ -233,21 +385,37 @@ def phase_k1(dev):
                 rs.rho_vec, rs.rho_inv_vec, float(dyn.sigma), float(dyn.alpha), active,
                 rnd(B, n), rnd(B, m), rnd(B, m), rnd(B, n), rnd(B, m))
 
-    def compare(args, rtol, label):
-        """Kernel against plain on one step; returns the largest |k - p|."""
+    def compare(args, rtol, label, ref64=False):
+        """Kernel against plain on one step, and two launches against each
+        other; returns the largest |k - p|.  With ref64 (an ill-conditioned
+        float32 case, where the order of summation alone moves the result
+        by about rtol), both are also held against the plain version in
+        float64 on the same inputs, and the kernel must be within rtol of
+        the plain version or no further from the float64 result than
+        twice the plain version's distance."""
         outk = k1.admm_iter(*args)
+        again = k1.admm_iter(*args)
         outp = k1.admm_iter_plain(*args)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(outk, again)), f"K1's two launches differ at {label}")
         active = args[10]
         worst = err = 0.0
         for name, ok_, op, before in zip(("x", "z", "y", "dx", "dy"), outk, outp, args[11:]):
             require(torch.equal(ok_[~active], before[~active]), f"K1 changed inactive {name} at {label}")
-            diff = float((ok_ - op).abs().max())
-            worst = max(worst, diff / max(float(op.abs().max()), 1e-300))
-            err = max(err, diff)
+            diff, rel = rel_err(ok_, op)
+            worst, err = max(worst, rel), max(err, diff)
+        ok = worst <= rtol
+        against = ""
+        if ref64:
+            wide = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args]
+            out64 = k1.admm_iter_plain(*wide)
+            err_k = max(rel_err(a.double(), b)[1] for a, b in zip(outk, out64))
+            err_p = max(rel_err(a.double(), b)[1] for a, b in zip(outp, out64))
+            ok = ok or err_k <= 2 * err_p
+            against = f"; against float64 on the same inputs: kernel {err_k:.3e}, plain {err_p:.3e}"
         print(f"K1 admm_iter {label}: worst |k-p|max/|p|max over x,z,y,dx,dy {worst:.3e} (rtol {rtol:g}), "
-              f"|k-p|max {err:.3e}; inactive instances bit-identical")
-        require(worst <= rtol, f"K1 disagrees with its plain version at {label}")
+              f"|k-p|max {err:.3e}{against}; inactive instances bit-identical; two launches bit-identical")
+        require(ok, f"K1 disagrees with its plain version at {label}")
         return err
 
     compare(operands(512, torch.float64), 1e-12, "B=512 float64, half active")
@@ -260,24 +428,26 @@ def phase_k1(dev):
     ms = cuda_ms(lambda: k1.admm_iter(*half), reps=50)
     plain_ms = cuda_ms(lambda: k1.admm_iter_plain(*half), reps=50)
     print(f"K1 admm_iter B={B} n={n} m={m} f32 (half active): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    ms_all = cuda_ms(lambda: k1.admm_iter(*full), reps=50)
-    plain_all = cuda_ms(lambda: k1.admm_iter_plain(*full), reps=50)
-    gbytes = B * 4 * (n * n + 2 * n * m) / 1e9
-    print(f"K1 admm_iter all active: kernel {ms_all:.4f} ms ({gbytes / ms_all:.1f} TB/s of matrix reads), "
-          f"plain {plain_all:.4f} ms")
+    stats = report_times(f"K1 admm_iter B={B} n={n} m={m} float32 all active", lambda: k1.admm_iter(*full),
+                         lambda: k1.admm_iter_plain(*full), 50, *k1_cost(B, n, m, torch.float32))
 
-    # The Solver's shape: CVXQP2_M, B=1, the plain body it runs in float64.
-    P, q, A, l, u = on_device(maros_dense("CVXQP2_M"), torch.float64, dev)
-    scaled, rs, factor, dyn = prepared(P, q, A, l, u)
-    x, z, dx, y = _random_state(1, P.shape[1], A.shape[1], torch.float64, dev)
-    one = (factor["Minv"], factor["AMinvT"], scaled.A, scaled.q, scaled.l, scaled.u, rs.rho_vec, rs.rho_inv_vec,
-           float(dyn.sigma), float(dyn.alpha), torch.ones(1, dtype=torch.bool, device=dev), x, z, y, dx,
-           torch.randn_like(z))
-    compare(one, 1e-12, "CVXQP2_M B=1 float64")
-    ms_m = cuda_ms(lambda: k1.admm_iter(*one), reps=20)
-    plain_m = cuda_ms(lambda: k1.admm_iter_plain(*one), reps=20)
-    print(f"K1 admm_iter CVXQP2_M B=1 n=1000 m=1250 f64: kernel {ms_m:.4f} ms, plain {plain_m:.4f} ms")
-    return dict(max_abs_err=err, ms=ms_all, plain_ms=plain_all)
+    # The Solver's shape: CVXQP2_M, B=1, n=1000, m=1250, in both dtypes.
+    for dtype in (torch.float64, torch.float32):
+        P, q, A, l, u = on_device(maros_dense("CVXQP2_M"), dtype, dev)
+        scaled, rs, factor, dyn = prepared(P, q, A, l, u)
+        x, z, dx, y = _random_state(1, P.shape[1], A.shape[1], dtype, dev)
+        one = (factor["Minv"], factor["AMinvT"], scaled.A, scaled.q, scaled.l, scaled.u, rs.rho_vec,
+               rs.rho_inv_vec, float(dyn.sigma), float(dyn.alpha), torch.ones(1, dtype=torch.bool, device=dev),
+               x, z, y, dx, torch.randn_like(z))
+        label = f"CVXQP2_M B=1 n=1000 m=1250 {dtype_name(dtype)}"
+        # the Solver runs K1r here in float32 (cond(M) ~ 4.7e3): held against float64 too
+        compare(one, RTOL[dtype_name(dtype)], label, ref64=dtype == torch.float32)
+        report_times(f"K1 admm_iter {label}", lambda: k1.admm_iter(*one), lambda: k1.admm_iter_plain(*one), 20,
+                     *k1_cost(1, 1000, 1250, dtype))
+
+    # Above what one block per instance could hold in shared memory.
+    compare(k1_args(random_operands(1, 2, 6000, torch.float64, dev)), 1e-12, "B=1 n=2 m=6000 float64")
+    return dict(max_abs_err=err, library_ms=None, **stats)
 
 
 def phase_k4(dev):
@@ -307,9 +477,17 @@ def phase_k4(dev):
             worst, err = max(worst, rel), max(err, diff)
         ms = cuda_ms(lambda: k4.ruiz(*args, 10), reps=10)
         plain_ms = cuda_ms(lambda: k4.ruiz_plain(*args, 10), reps=10)
+        B_, n_, m_ = args[2].shape[0], args[2].shape[2], args[2].shape[1]
+        elt = args[0].element_size()
+        # P, q, A, l, u read and written scaled once, D, E, c written; about three operations per matrix
+        # value in each of 10 sweeps and two in the final scaling
+        bound_ms, bound_by = bound(elt * B_ * (2 * (n_ * n_ + m_ * n_ + n_ + 2 * m_) + n_ + m_ + 1),
+                                   {dtype_name(dtype): 32 * B_ * (n_ * n_ + m_ * n_)})
         print(f"K4 ruiz {label}: D, E bit-identical; worst relative difference over c, P, q, A, l, u "
-              f"{worst:.3e} (tol {tol:g}), |k-p|max {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        stats[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+              f"{worst:.3e} (tol {tol:g}), |k-p|max {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+              f"bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms:.3f}")
+        stats[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None)
     return stats[cases[0][0]]
 
 
@@ -354,10 +532,17 @@ def phase_k3(dev):
         plain_ms = cuda_ms(lambda: k3.term_products_plain(P, A, x, y), reps=20)
         ms_cert = cuda_ms(lambda: k3.term_products(P, A, x, y, dx, dy), reps=20)
         plain_cert = cuda_ms(lambda: k3.term_products_plain(P, A, x, y, dx, dy), reps=20)
+        B_, n_, m_ = P.shape[0], P.shape[1], A.shape[1]
+        # with certificates: P, A, x, y, dx, dy read once, six products written; A x, A dx, A'y, A'dy and
+        # P x, P dx take a multiply-add per matrix value each
+        bound_ms, bound_by = bound(P.element_size() * B_ * (n_ * n_ + m_ * n_ + 6 * n_ + 4 * m_),
+                                   {dtype_name(dtype): B_ * (8 * m_ * n_ + 4 * n_ * n_)})
         print(f"K3 term_products {label}: worst relative difference {worst:.3e} (tol {tol:g}), |k-p|max {err:.3e}; "
               f"Ax, Px, A'y: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; with certificates: kernel {ms_cert:.4f} ms, "
-              f"plain {plain_cert:.4f} ms")
-        stats[label] = dict(max_abs_err=err, ms=ms_cert, plain_ms=plain_cert)
+              f"plain {plain_cert:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share of bound "
+              f"{bound_ms / ms_cert:.3f}")
+        stats[label] = dict(max_abs_err=err, ms=ms_cert, plain_ms=plain_cert, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None)
     return stats[cases[0][0]]
 
 
@@ -381,8 +566,11 @@ def phase_k1r(dev):
 
     def compare(args, label):
         outk = k1.admm_iter_refined(*args)
+        again = k1.admm_iter_refined(*args)
         outp = k1.admm_iter_refined_plain(*args)
         torch.cuda.synchronize()
+        require(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(outk, again)),
+                f"K1r's two launches differ at {label}")
         active = args[10]
         tol = RTOL[dtype_name(args[11].dtype)]
         worst = err = 0.0
@@ -403,7 +591,7 @@ def phase_k1r(dev):
             carry = f"; TwoSum carry violated at {bad_k} (plain {bad_p}) of {y.numel()} active entries"
             require(bad_k == 0 and bad_p == 0, f"K1r's dual update is not TwoSum(y, dy + y_lo) at {label}")
         print(f"K1r admm_iter_refined {label}: worst |k-p|max/|p|max over x,z,y,dx,dy {worst:.3e} (rtol {tol:g}), "
-              f"|k-p|max {err:.3e}; inactive instances bit-identical{carry}")
+              f"|k-p|max {err:.3e}; inactive instances bit-identical; two launches bit-identical{carry}")
         require(worst <= tol, f"K1r disagrees with its plain version at {label}")
         return err
 
@@ -440,19 +628,23 @@ def phase_k1r(dev):
     B = HEADLINE["B"]
     head = operands(make_qps(B, n, m), torch.float32, half=False)
     err = compare(head, f"B={B} float32, all active")
-    ms = cuda_ms(lambda: k1.admm_iter_refined(*head), reps=20)
-    plain_ms = cuda_ms(lambda: k1.admm_iter_refined_plain(*head), reps=20)
-    print(f"K1r admm_iter_refined B={B} n={n} m={m} f32 all active: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    report_times(f"K1r admm_iter_refined B={B} n={n} m={m} float32 all active",
+                 lambda: k1.admm_iter_refined(*head), lambda: k1.admm_iter_refined_plain(*head), 20,
+                 *k1r_cost(B, n, m, torch.float32))
     cvxqp = maros_dense("CVXQP2_M")
     for dtype in (torch.float64, torch.float32):
         args = operands(cvxqp, dtype, half=False)
-        err = max(err, compare(args, f"CVXQP2_M B=1 {dtype_name(dtype)}"))
-        ms_m = cuda_ms(lambda: k1.admm_iter_refined(*args), reps=10)
-        plain_m = cuda_ms(lambda: k1.admm_iter_refined_plain(*args), reps=10)
-        print(f"K1r admm_iter_refined CVXQP2_M B=1 n=1000 m=1250 {dtype_name(dtype)}: kernel {ms_m:.4f} ms, "
-              f"plain {plain_m:.4f} ms")
+        label = f"CVXQP2_M B=1 n=1000 m=1250 {dtype_name(dtype)}"
+        err = max(err, compare(args, label))
+        stats = report_times(f"K1r admm_iter_refined {label}", lambda: k1.admm_iter_refined(*args),
+                             lambda: k1.admm_iter_refined_plain(*args), 10, *k1r_cost(1, 1000, 1250, dtype))
+    # Above what one block per instance could hold in shared memory.
+    compare(k1r_args(random_operands(1, 2, 6000, torch.float64, dev)), "B=1 n=2 m=6000 float64")
+    big = random_operands(1, 3000, 3000, torch.float32, dev)
+    compare(k1r_args(big, 1e-7 * torch.randn_like(big["y"])), "B=1 n=3000 m=3000 float32")
     residual_check("CVXQP2_M")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # stats: CVXQP2_M in float32, the shape and body of the Solver's K1r launches
+    return dict(max_abs_err=err, library_ms=None, **stats)
 
 
 def _solve_f32_residual(Minv, P, A, rho, sigma, t):
@@ -601,6 +793,18 @@ def phase_solver(dev):
             if name == "CVXQP2_S":
                 require(delta["chol_inverse"] > 0, f"{label}: K2 did not factor")
 
+    # Where a CVXQP2_M solve's time goes: one more solve in each dtype,
+    # under the profiler (outside the counts above).
+    qp = load_qps(os.path.join(MAROS, "CVXQP2_M.qps"))
+    for dtype in ("float64", "float32"):
+        s = ot.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype=dtype, polish=False, verbose=False)
+        r, wall, events = profiled(s.solve)
+        it = max(r.info.iter, 1)
+        k1_ms, busy = event_ms(events, K1_KERNELS), event_ms(events)
+        print(f"Solver CVXQP2_M {dtype} under the profiler: wall {wall:.3f} ms over {r.info.iter} iterations = "
+              f"{wall / it:.4f} ms/iteration; K1/K1r device time {k1_ms:.3f} ms = {k1_ms / it:.4f} ms/iteration "
+              f"({k1_ms / wall:.3f} of the wall); device busy {busy:.3f} ms, idle share {1.0 - busy / wall:.3f}")
+
     # a warm re-solve after update_lin_cost, against the same sequence on the CPU
     qp = load_qps(os.path.join(MAROS, "CVXQP2_S.qps"))
     q2 = qp.q * 1.1 + 1.0
@@ -663,7 +867,9 @@ def main() -> int:
     solver_launches = phase_solver(dev)
 
     # launches: the batched headline solve's, and for K1r, which that
-    # well-conditioned batch does not run, the Solver path's.
+    # well-conditioned batch does not run, the Solver path's (its times:
+    # CVXQP2_M in float32, where the Solver runs it; the others' at the
+    # headline shape).
     kernels = [
         dict(name="admm_iter", route="cuda", source="osqp_tpu_torch/csrc/admm_iter.cu",
              replaces="osqp_tpu/linsys/dense_inv.py:164", launches=launches["admm_iter"], **k1_stats),

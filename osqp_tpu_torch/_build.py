@@ -1,6 +1,7 @@
 """Builds the CUDA kernels in ``csrc/`` and binds them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, at first use on a CUDA tensor.  The
 library lands in ``osqp_tpu_torch/_build/`` under a name keyed by a
 hash of the sources and flags, so an edited source rebuilds and an
@@ -11,6 +12,7 @@ loaded at import: the CPU path never touches the compiler.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -24,12 +26,11 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 )
-# Bytes of shared memory one block may use on sm_90 (227 KB): the bound
-# the wrappers check before a launch.
+# Bytes of shared memory one block may use on sm_90 (227 KB): K2 sizes
+# its largest matrix by it.
 SMEM_BYTES = 232_448
 
 _P = ctypes.c_void_p
@@ -38,8 +39,8 @@ _D = ctypes.c_double
 # (name, argument types); every function returns a cudaError_t as int.
 _SIGNATURES = {
     "osqp_chol_inverse": (_I, _P, _P, _I, _I, _P),
-    "osqp_admm_iter": (_I,) + (_P,) * 19 + (_D, _D, _I, _I, _I, _P),
-    "osqp_admm_iter_refined": (_I,) + (_P,) * 21 + (_D, _D, _I, _I, _I, _P),
+    "osqp_admm_iter": (_I,) + (_P,) * 20 + (_D, _D, _I, _I, _I, _I, _P),
+    "osqp_admm_iter_refined": (_I,) + (_P,) * 22 + (_D, _D, _I, _I, _I, _I, _P),
     "osqp_ruiz": (_I,) + (_P,) * 17 + (_I,) * 6 + (_P,),
     "osqp_term_products": (_I,) + (_P,) * 11 + (_I,) * 5 + (_P,),
 }
@@ -61,6 +62,20 @@ def _nvcc() -> str:
     return path
 
 
+def _start(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish(cmd, proc, others=()) -> None:
+    """Wait for one nvcc; if it failed, stop ``others`` and raise."""
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        for other in others:
+            other.kill()
+            other.wait()
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+
+
 def build() -> pathlib.Path:
     """Compile the kernels unless a library for these sources exists."""
     sources = sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
@@ -71,13 +86,20 @@ def build() -> pathlib.Path:
     out = BUILD_DIR / f"libosqp_kernels_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(p) for p in sources if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    work = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objects = [work / f"{p.stem}.o" for p in sources if p.suffix == ".cu"]
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / f"{o.stem}.cu")] for o in objects]
+    try:
+        procs = [_start(cmd) for cmd in jobs]
+        for cmd, proc in zip(jobs, procs):
+            _finish(cmd, proc, procs)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(work / out.name), *(str(o) for o in objects)]
+        _finish(link, _start(link))
+        os.replace(work / out.name, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -95,8 +117,8 @@ def library() -> ctypes.CDLL:
             lib.osqp_cuda_error_string.restype = ctypes.c_char_p
             lib.osqp_split_geometry.argtypes = (_I, _I, _I, _I, ctypes.POINTER(_I))
             lib.osqp_split_geometry.restype = None
-            for name in ("osqp_admm_iter_smem", "osqp_admm_iter_refined_smem"):
-                getattr(lib, name).argtypes = (_I, _I, _I)
+            for name in ("osqp_admm_iter_scratch", "osqp_admm_iter_refined_scratch"):
+                getattr(lib, name).argtypes = (_I,) * 5
                 getattr(lib, name).restype = ctypes.c_size_t
             _lib = lib
     return _lib
@@ -122,22 +144,36 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The number of SMs of the CUDA ``device``."""
+    import torch
+
+    device = torch.device(device)
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
 def split_geometry(B: int, n: int, m: int, device) -> tuple[int, int, int]:
     """(column chunks, rows of A per block, rows of P per block) of the
     split kernels (K3, K4) for B instances of n variables and m
     constraints on ``device``, as csrc/common.cuh cuts them."""
-    import torch
-
-    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
     out = (_I * 3)()
-    library().osqp_split_geometry(B, n, m, sm_count, out)
+    library().osqp_split_geometry(B, n, m, sm_count(device), out)
     return out[0], out[1], out[2]
 
 
-def check_smem(kernel: str, dtype, n: int, m: int) -> None:
-    """Raise if one block of ``kernel`` (``admm_iter`` or
-    ``admm_iter_refined``) needs more shared memory at (n, m) than a block
-    may have; the launcher reports the bytes it would take."""
-    smem = getattr(library(), f"osqp_{kernel}_smem")(dtype_code(dtype), n, m)
-    if smem > SMEM_BYTES:
-        raise ValueError(f"{kernel}: n={n}, m={m} needs {smem} bytes of shared memory, above {SMEM_BYTES}")
+def scratch(kernel: str, dtype, B: int, n: int, m: int, device):
+    """The scratch buffer that ``kernel`` (``admm_iter`` or
+    ``admm_iter_refined``) takes at (B, n, m) on ``device``, sized by the
+    library, and the device's SM count that sized it."""
+    import torch
+
+    sms = sm_count(device)
+    nbytes = getattr(library(), f"osqp_{kernel}_scratch")(dtype_code(dtype), B, n, m, sms)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device), sms

@@ -29,7 +29,7 @@ from . import linsys as linsys_registry
 from .admm import set_rho_state
 from .linalg import bwhere, mat_vec, norm_inf
 from .scaling import scale_data, unscale_solution
-from .solver import Settings, make_config, reject_time_based_rho, torch_dtype, validate_settings
+from .solver import Settings, make_config, reject_time_based_rho, resolve_device, torch_dtype, validate_settings
 from .types import DynSettings, Iterates, QPData, ScalingData
 
 
@@ -189,7 +189,8 @@ def solve_batch(
          ``time_limit``, Ctrl-C and verbose rows; False runs the whole
          range with no polling.
       device: where to solve; default: P's device if P is a tensor,
-         else the CPU.  CUDA tensors run the hand-written kernels.
+         else the CUDA card (raises without one: pass ``device="cpu"``
+         for the CPU).  CUDA tensors run the hand-written kernels.
       **settings: reference setting names (see :class:`Settings`);
          ``dtype`` defaults to torch's default dtype.
 
@@ -207,7 +208,7 @@ def solve_batch(
 
     dtype = torch_dtype(s.dtype)
     if device is None:
-        device = P.device if isinstance(P, torch.Tensor) else torch.device("cpu")
+        device = P.device if isinstance(P, torch.Tensor) else resolve_device(None)
     as_t = lambda v: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
                                      dtype=dtype, device=device).contiguous()
     q = as_t(q)

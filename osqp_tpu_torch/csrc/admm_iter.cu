@@ -1,14 +1,14 @@
 // K1: one masked ADMM iteration of the dense_inv backend, plain body,
-// one thread block per instance.
+// each instance split over blocks.
 //
 // Replaces osqp_tpu/linsys/dense_inv.py:solve (plain body, the explicit
 // inverse products) together with osqp_tpu/admm.py:admm_step and the
 // active-mask selects of the loop body (admm.py:338-348).  XLA fused
-// those into one loop body on the TPU; here one kernel computes, for
+// those into one loop body on the TPU; here one C call computes, for
 // each active instance b,
 //
 //   w  = rho o (z - rho^-1 o y)
-//   t  = sigma x - q + A' w                  (t kept in shared memory)
+//   t  = sigma x - q + A' w
 //   x~ = Minv t,   z~ = (A Minv) t           (Minv symmetric; AMinvT = Minv A')
 //   x' = alpha x~ + (1 - alpha) x,            dx = x' - x
 //   zr = alpha z~ + (1 - alpha) z
@@ -17,140 +17,77 @@
 // and copies x, z, y, dx, dy unchanged where active[b] is false.
 //
 // What bounds it on the H100: device-memory bandwidth.  Each iteration
-// reads A (m x n), Minv (n x n) and AMinvT (n x m) once: 200 KB per
-// instance at n=100, m=200 in f32, 1.64 GB per iteration at B=8192,
-// against ~10 KB of vectors.  The design streams each matrix exactly
-// once with coalesced loads: all three products have the form
-// out_c = sum_r Mat[r, c] v[r] on a row-major matrix, so the 32 lanes
-// of a warp take 32 neighbouring columns of one row, the warps of the
-// block split the rows, and a small shared buffer sums the warps'
-// partials.  Four rows are in flight per thread to keep enough loads
-// outstanding.  Inactive instances read no matrix at all.
+// reads A (m x n), Minv (n x n) and AMinvT (n x m) once and does one
+// multiply-add per value, far below the card's ridge point, so tensor
+// cores would not help.  Least times at 3.35 TB/s: 1.64 GB, 0.489 ms, at
+// B=8192, n=100, m=200 in float32; 28 MB, 8.4 us, at the Solver's
+// CVXQP2_M (B=1, n=1000, m=1250) in float64, whose matrices fit the 50 MB
+// L2 and are read again every iteration, so a warm call may beat it.
+//
+// The design (admm_passes.cuh): three launches from one C call.
+//   1. colsum over A: per row tile, the partial sums of A'w, with w made
+//      in the block for its own rows;
+//   2. colsum over the n rows of [Minv | AMinvT]: each block first adds
+//      the A'w partials of its rows in order and sigma x - q, then takes
+//      the column sums of x~ and z~ for its tile;
+//   3. the epilogue: adds those partials in order and writes x, z, y,
+//      dx, dy under the active mask.
+// At B=1 the tiles spread one instance over the card's SMs; at B=8192 a
+// tile spans the matrix and the split costs one round trip of (B, n+m)
+// partials through scratch.  Each block keeps its tile's rows in flight
+// with bulk copies through a ring in shared memory (common.cuh), which
+// also makes shared memory independent of n and m.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "admm_passes.cuh"
 #include "common.cuh"
 
 namespace {
 
-using osqp_cuda::allow_smem;
-using osqp_cuda::kWarps;
+using namespace osqp_cuda;
 
-// out[c] = sum_r Mat[r * C + c] * v[r] for c < C; red holds kWarps * C.
-// Ends with a block barrier, so out is visible to every thread.
+// How a call cuts the work, and its scratch.
 template <typename T>
-__device__ void tmatvec(const T* __restrict__ Mat, int R, int C, const T* v, T* out, T* red) {
-  const int lane = threadIdx.x;
-  const int w = threadIdx.y;
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    const int c = c0 + lane;
-    if (c < C) {
-      T acc = T(0);
-      int r = w;
-      for (; r + 3 * kWarps < R; r += 4 * kWarps) {
-        const T a0 = Mat[static_cast<size_t>(r) * C + c];
-        const T a1 = Mat[static_cast<size_t>(r + kWarps) * C + c];
-        const T a2 = Mat[static_cast<size_t>(r + 2 * kWarps) * C + c];
-        const T a3 = Mat[static_cast<size_t>(r + 3 * kWarps) * C + c];
-        acc += a0 * v[r] + a1 * v[r + kWarps] + a2 * v[r + 2 * kWarps] + a3 * v[r + 3 * kWarps];
-      }
-      for (; r < R; r += kWarps) acc += Mat[static_cast<size_t>(r) * C + c] * v[r];
-      red[w * C + c] = acc;
-    }
+struct Plan {
+  int chunks_n, rows_a, tiles_a, rows_x, tiles_x;
+  T *t_parts, *xz_parts;
+  Plan(int B, int n, int m, int sm_count, unsigned char* scratch) {
+    chunks_n = chunks_of(n);
+    rows_a = tile_rows(B, chunks_n, m, sm_count);
+    tiles_a = tiles_of(m, rows_a);
+    rows_x = tile_rows(B, chunks_n + chunks_of(m), n, sm_count);
+    tiles_x = tiles_of(n, rows_x);
+    Carve c{scratch};
+    t_parts = c.take<T>(static_cast<size_t>(B) * tiles_a * n);
+    xz_parts = c.take<T>(static_cast<size_t>(B) * tiles_x * (n + m));
+    bytes = c.used;
   }
-  __syncthreads();
-  for (int c = threadIdx.y * 32 + lane; c < C; c += 32 * kWarps) {
-    T s = T(0);
-    for (int k = 0; k < kWarps; ++k) s += red[k * C + c];
-    out[c] = s;
-  }
-  __syncthreads();
-}
+  size_t bytes;
+};
 
 template <typename T>
-__global__ void __launch_bounds__(32 * kWarps)
-admm_iter_kernel(const T* __restrict__ Minv, const T* __restrict__ AMinvT, const T* __restrict__ A,
-                 const T* __restrict__ q, const T* __restrict__ l, const T* __restrict__ u,
-                 const T* __restrict__ rho, const T* __restrict__ rho_inv,
-                 const uint8_t* __restrict__ active, const T* __restrict__ x,
-                 const T* __restrict__ z, const T* __restrict__ y, const T* __restrict__ dx,
-                 const T* __restrict__ dy, T* __restrict__ x_out, T* __restrict__ z_out,
-                 T* __restrict__ y_out, T* __restrict__ dx_out, T* __restrict__ dy_out, T sigma,
-                 T alpha, int n, int m) {
-  const size_t b = blockIdx.x;
-  const int tid = threadIdx.y * 32 + threadIdx.x;
-  const int nt = 32 * kWarps;
-  const size_t bn = b * n;
-  const size_t bm = b * m;
-
-  if (!active[b]) {
-    for (int j = tid; j < n; j += nt) {
-      x_out[bn + j] = x[bn + j];
-      dx_out[bn + j] = dx[bn + j];
-    }
-    for (int i = tid; i < m; i += nt) {
-      z_out[bm + i] = z[bm + i];
-      y_out[bm + i] = y[bm + i];
-      dy_out[bm + i] = dy[bm + i];
-    }
-    return;
-  }
-
-  extern __shared__ unsigned char smem_raw[];
-  T* t = reinterpret_cast<T*>(smem_raw);  // n
-  T* xt = t + n;                          // n
-  T* w = xt + n;                          // m
-  T* zt = w + m;                          // m
-  T* red = zt + m;                        // kWarps * max(n, m)
-
-  for (int i = tid; i < m; i += nt) w[i] = rho[bm + i] * (z[bm + i] - rho_inv[bm + i] * y[bm + i]);
-  __syncthreads();
-  tmatvec(A + b * m * n, m, n, w, t, red);
-  for (int j = tid; j < n; j += nt) t[j] = (sigma * x[bn + j] - q[bn + j]) + t[j];
-  __syncthreads();
-  tmatvec(Minv + b * n * n, n, n, t, xt, red);
-  tmatvec(AMinvT + b * n * m, n, m, t, zt, red);
-
-  const T one_m_alpha = T(1) - alpha;
-  for (int j = tid; j < n; j += nt) {
-    const T xp = x[bn + j];
-    const T xn = alpha * xt[j] + one_m_alpha * xp;
-    x_out[bn + j] = xn;
-    dx_out[bn + j] = xn - xp;
-  }
-  for (int i = tid; i < m; i += nt) {
-    const T zp = z[bm + i];
-    const T yp = y[bm + i];
-    const T zr = alpha * zt[i] + one_m_alpha * zp;
-    // clip as max-then-min with NaN passing through, like jnp.clip
-    T zn = zr + rho_inv[bm + i] * yp;
-    zn = zn < l[bm + i] ? l[bm + i] : zn;
-    zn = zn > u[bm + i] ? u[bm + i] : zn;
-    const T dyn = rho[bm + i] * (zr - zn);
-    z_out[bm + i] = zn;
-    dy_out[bm + i] = dyn;
-    y_out[bm + i] = yp + dyn;
-  }
-}
-
-// t, x~, w, z~ and the warps' partial sums
-template <typename T>
-size_t smem_bytes(int n, int m) {
-  return (2 * static_cast<size_t>(n) + 2 * m + kWarps * static_cast<size_t>(n > m ? n : m)) * sizeof(T);
-}
-
-template <typename T>
-int launch(void* const* p, double sigma, double alpha, int B, int n, int m, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(n, m);
-  const cudaError_t err = allow_smem(admm_iter_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
+int launch(void* const* p, unsigned char* scratch, double sigma, double alpha, int B, int n, int m, int sm_count,
+           cudaStream_t s) {
   auto c = [&](int k) { return static_cast<const T*>(p[k]); };
   auto o = [&](int k) { return static_cast<T*>(p[k]); };
-  admm_iter_kernel<T><<<B, dim3(32, kWarps), smem, stream>>>(
-      c(0), c(1), c(2), c(3), c(4), c(5), c(6), c(7), static_cast<const uint8_t*>(p[8]), c(9),
-      c(10), c(11), c(12), c(13), o(14), o(15), o(16), o(17), o(18), static_cast<T>(sigma),
-      static_cast<T>(alpha), n, m);
+  const T *Minv = c(0), *AMinvT = c(1), *A = c(2), *q = c(3), *l = c(4), *u = c(5), *rho = c(6), *rho_inv = c(7);
+  const auto* active = static_cast<const uint8_t*>(p[8]);
+  const T *x = c(9), *z = c(10), *y = c(11), *dx = c(12), *dy = c(13);
+  const Plan<T> plan(B, n, m, sm_count, scratch);
+
+  cudaError_t err = launch_colsum<T, T>(Mats<T>{A, nullptr, n, 0, plan.chunks_n}, B, m, plan.rows_a,
+                                        DualWeight<T>{rho, rho_inv, z, y, m}, active, plan.t_parts, s);
+  if (err != cudaSuccess) return err;
+  const RhsWeight<T> rhs{x, q, plan.t_parts, nullptr, static_cast<T>(sigma), n, plan.tiles_a};
+  err = launch_colsum<T, T>(Mats<T>{Minv, AMinvT, n, m, plan.chunks_n}, B, n, plan.rows_x, rhs, active,
+                            plan.xz_parts, s);
+  if (err != cudaSuccess) return err;
+  const Parts<T> xt{plan.xz_parts, plan.tiles_x, n + m, 0}, zt{plan.xz_parts, plan.tiles_x, n + m, n};
+  epilogue_kernel<T><<<grid_size(static_cast<size_t>(B) * (n + m)), kThreads, 0, s>>>(
+      xt, zt, l, u, rho, rho_inv, active, x, z, y, dx, dy, nullptr, o(14), o(15), o(16), o(17), o(18), nullptr,
+      static_cast<T>(alpha), B, n, m);
   return cudaGetLastError();
 }
 
@@ -159,13 +96,16 @@ int launch(void* const* p, double sigma, double alpha, int B, int n, int m, cuda
 // dtype: 0 float32, 1 float64.  Operands are contiguous and batch-major:
 // Minv (B,n,n), AMinvT (B,n,m), A (B,m,n); q, x, dx (B,n); l, u, rho,
 // rho_inv, z, y, dy (B,m); active (B,) bytes.  Outputs have the shapes
-// of x, z, y, dx, dy and must not alias the inputs.
+// of x, z, y, dx, dy and must not alias the inputs.  scratch holds
+// osqp_admm_iter_scratch(dtype, B, n, m, sm_count) bytes, 256-byte
+// aligned; sm_count is the card's number of SMs.
 extern "C" int osqp_admm_iter(int dtype, const void* Minv, const void* AMinvT, const void* A,
                               const void* q, const void* l, const void* u, const void* rho,
                               const void* rho_inv, const void* active, const void* x,
                               const void* z, const void* y, const void* dx, const void* dy,
                               void* x_out, void* z_out, void* y_out, void* dx_out, void* dy_out,
-                              double sigma, double alpha, int B, int n, int m, void* stream) {
+                              void* scratch, double sigma, double alpha, int B, int n, int m,
+                              int sm_count, void* stream) {
   if (B == 0) return cudaSuccess;
   void* const p[19] = {const_cast<void*>(Minv), const_cast<void*>(AMinvT), const_cast<void*>(A),
                        const_cast<void*>(q),    const_cast<void*>(l),      const_cast<void*>(u),
@@ -175,11 +115,13 @@ extern "C" int osqp_admm_iter(int dtype, const void* Minv, const void* AMinvT, c
                        z_out,                   y_out,                     dx_out,
                        dy_out};
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(p, sigma, alpha, B, n, m, s)
-                    : launch<double>(p, sigma, alpha, B, n, m, s);
+  auto* ws = static_cast<unsigned char*>(scratch);
+  return dtype == 0 ? launch<float>(p, ws, sigma, alpha, B, n, m, sm_count, s)
+                    : launch<double>(p, ws, sigma, alpha, B, n, m, sm_count, s);
 }
 
-// Bytes of shared memory one block of osqp_admm_iter takes at (n, m).
-extern "C" size_t osqp_admm_iter_smem(int dtype, int n, int m) {
-  return dtype == 0 ? smem_bytes<float>(n, m) : smem_bytes<double>(n, m);
+// Bytes of scratch that osqp_admm_iter takes at (B, n, m) on a card of
+// sm_count SMs.
+extern "C" size_t osqp_admm_iter_scratch(int dtype, int B, int n, int m, int sm_count) {
+  return dtype == 0 ? Plan<float>(B, n, m, sm_count, nullptr).bytes : Plan<double>(B, n, m, sm_count, nullptr).bytes;
 }

@@ -1,5 +1,5 @@
 // K1r: one masked ADMM iteration of the dense_inv backend, refined body,
-// one thread block per instance.
+// each instance split over blocks.
 //
 // Replaces osqp_tpu/linsys/dense_inv.py:solve(refine=True) together with
 // osqp_tpu/admm.py:admm_step (its TwoSum dual carry, :152-160) and the
@@ -26,217 +26,154 @@
 // and friends), as PyTorch does, so that TwoSum stays exact and only the
 // order of the sums differs from the plain version.
 //
-// What bounds it on the H100: device-memory bandwidth.  An iteration
-// reads A five times in float32 (A'w, twice A x~ and A'(rho A x~), and
-// A x~ at the end), Minv three times and P twice, against K1's one pass
-// over Minv, AMinvT and A.  Matrix products keep four rows in flight per
-// thread with coalesced loads: column sums (A'v, Minv v; Minv is read as
-// Minv' v, as the plain version applies it) let the 32 lanes of a warp
-// take neighbouring columns and the warps split the rows; row dots
-// (A x, P x) give a row to a warp and reduce across its lanes.  One
-// block per instance leaves a B=1 solve on one SM; splitting an instance
-// over blocks is later work.
+// What bounds it on the H100: device-memory bandwidth, at one or two
+// multiply-adds per matrix value (tensor cores would not help).  An
+// iteration reads A 2 + 2 ncorr times (A'w, then A x~ and A'(rho A x~)
+// per correction, and A x~ at the end): 6 times in float32, 4 in
+// float64; Minv 1 + ncorr times and P ncorr times.  The least time
+// counts each matrix once: 13 MB, 3.9 us at 3.35 TB/s, at the Solver's
+// CVXQP2_M (B=1, n=1000, m=1250) in float32, whose matrices fit the
+// 50 MB L2 and are read again every iteration, so a warm call may beat
+// it; 1.31 GB, 0.391 ms, at B=8192, n=100, m=200.
+//
+// The design (admm_passes.cuh): a short sequence of split passes from
+// one C call, each instance's rows spread over blocks, each block
+// keeping its tile in flight with bulk copies through a ring in shared
+// memory (common.cuh).  Column sums (A'v, Minv'v: Minv is read as
+// Minv' v, as the plain version applies it) and row dots (A x, P x)
+// leave partial sums in scratch, which the next pass adds in order:
+//   colsum A (w)             -> A'w partials
+//   colsum Minv (t)          -> x~ partials; t itself to scratch
+//   finish                   -> x~
+//   per correction:
+//     rowdot A x~ (f64)      -> partials of A x~ by column chunk
+//     colsum A (rho o A x~)  -> A'(rho A x~) partials, f64
+//     rowdot P x~ (f64)      -> P x~ partials, f64
+//     colsum Minv (r)        -> Minv r partials, r made in the block
+//     finish                 -> x~ += Minv r
+//   rowdot A x~              -> z~ partials
+//   epilogue                 -> x, z, y, dx, dy, y_lo
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "admm_passes.cuh"
 #include "common.cuh"
 
 namespace {
 
 using namespace osqp_cuda;
 
-// out[c] = sum_r Acc(Mat[r * C + c]) * Acc(v[r]) for c < C; red holds
-// kWarps * C values of Acc.  Ends with a block barrier.
-template <typename Acc, typename TM, typename TV>
-__device__ void colsum(const TM* __restrict__ Mat, int R, int C, const TV* v, Acc* out, Acc* red) {
-  const int lane = threadIdx.x;
-  const int w = threadIdx.y;
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    const int c = c0 + lane;
-    if (c < C) {
-      Acc acc = Acc(0);
-      int r = w;
-      for (; r + 3 * kWarps < R; r += 4 * kWarps) {
-        const Acc a0 = Mat[static_cast<size_t>(r) * C + c];
-        const Acc a1 = Mat[static_cast<size_t>(r + kWarps) * C + c];
-        const Acc a2 = Mat[static_cast<size_t>(r + 2 * kWarps) * C + c];
-        const Acc a3 = Mat[static_cast<size_t>(r + 3 * kWarps) * C + c];
-        acc += a0 * Acc(v[r]) + a1 * Acc(v[r + kWarps]) + a2 * Acc(v[r + 2 * kWarps]) +
-               a3 * Acc(v[r + 3 * kWarps]);
-      }
-      for (; r < R; r += kWarps) acc += Acc(Mat[static_cast<size_t>(r) * C + c]) * Acc(v[r]);
-      red[w * C + c] = acc;
-    }
+// rho_i (A x~)_i in double, the row-dot partials added in chunk order.
+template <typename T>
+struct RhoAxWeight {
+  const T* rho;
+  const double* parts;
+  int m, nparts;
+  __device__ double operator()(size_t b, int i) const {
+    return static_cast<double>(rho[b * m + i]) * sum_parts(parts, b, nparts, m, 0, i);
   }
-  __syncthreads();
-  for (int c = threadIdx.y * 32 + lane; c < C; c += kThreads) {
-    Acc s = Acc(0);
-    for (int k = 0; k < kWarps; ++k) s += red[k * C + c];
-    out[c] = s;
-  }
-  __syncthreads();
-}
+};
 
-// out[r] = sum_c Acc(Mat[r * C + c]) * Acc(v[c]) for r < R, a warp per
-// row.  Ends with a block barrier.
-template <typename Acc, typename TM, typename TV>
-__device__ void rowdot(const TM* __restrict__ Mat, int R, int C, const TV* v, Acc* out) {
-  const int lane = threadIdx.x;
-  for (int r = threadIdx.y; r < R; r += kWarps) {
-    const TM* row = Mat + static_cast<size_t>(r) * C;
-    Acc acc = Acc(0);
-    int c = lane;
-    for (; c + 96 < C; c += 128) {
-      const Acc a0 = row[c], a1 = row[c + 32], a2 = row[c + 64], a3 = row[c + 96];
-      acc += a0 * Acc(v[c]) + a1 * Acc(v[c + 32]) + a2 * Acc(v[c + 64]) + a3 * Acc(v[c + 96]);
-    }
-    for (; c < C; c += 32) acc += Acc(row[c]) * Acc(v[c]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) out[r] = acc;
+// r_j = t_j - ((P x~)_j + sigma x~_j + (A'(rho A x~))_j), in double, in
+// the plain version's order, rounded to T.
+template <typename T>
+struct ResidualWeight {
+  const T *t, *xt;
+  const double *p_parts, *a_parts;
+  double sigma64;
+  int n, p_nparts, a_nparts;
+  __device__ T operator()(size_t b, int j) const {
+    const size_t k = b * n + j;
+    const double px = __dadd_rn(sum_parts(p_parts, b, p_nparts, n, 0, j), __dmul_rn(sigma64, double(xt[k])));
+    const double mx = __dadd_rn(px, sum_parts(a_parts, b, a_nparts, n, 0, j));
+    return static_cast<T>(__dsub_rn(static_cast<double>(t[k]), mx));
   }
-  __syncthreads();
-}
+};
 
+// xt = parts summed in order (accumulate false), or xt + that sum.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-admm_iter_refined_kernel(const T* __restrict__ Minv, const T* __restrict__ A, const T* __restrict__ P,
-                         const T* __restrict__ q, const T* __restrict__ l, const T* __restrict__ u,
-                         const T* __restrict__ rho, const T* __restrict__ rho_inv,
-                         const uint8_t* __restrict__ active, const T* __restrict__ x,
-                         const T* __restrict__ z, const T* __restrict__ y, const T* __restrict__ dx,
-                         const T* __restrict__ dy, const T* __restrict__ y_lo, T* __restrict__ x_out,
-                         T* __restrict__ z_out, T* __restrict__ y_out, T* __restrict__ dx_out,
-                         T* __restrict__ dy_out, T* __restrict__ y_lo_out, T sigma, double sigma64,
-                         T alpha, int n, int m, int ncorr) {
-  const size_t b = blockIdx.x;
-  const int tid = threadIdx.y * 32 + threadIdx.x;
-  const size_t bn = b * n;
-  const size_t bm = b * m;
-  const bool carry = y_lo != nullptr;
-
-  if (!active[b]) {
-    for (int j = tid; j < n; j += kThreads) {
-      x_out[bn + j] = x[bn + j];
-      dx_out[bn + j] = dx[bn + j];
-    }
-    for (int i = tid; i < m; i += kThreads) {
-      z_out[bm + i] = z[bm + i];
-      y_out[bm + i] = y[bm + i];
-      dy_out[bm + i] = dy[bm + i];
-      if (carry) y_lo_out[bm + i] = y_lo[bm + i];
-    }
-    return;
-  }
-
-  extern __shared__ double smem[];
-  const int nm = n > m ? n : m;
-  double* red = smem;             // kWarps * max(n, m), also as T
-  double* s64 = red + kWarps * nm;  // m: rho o (A x~), f64
-  double* mx64 = s64 + m;         // n: M x~ pieces, f64
-  T* t = reinterpret_cast<T*>(mx64 + n);  // n
-  T* xt = t + n;                  // n
-  T* w = xt + n;                  // m, also the residual r (n <= nm)
-  T* zt = w + nm;                 // m
-  T* redT = reinterpret_cast<T*>(red);
-  const T* Ab = A + b * m * n;
-  const T* Pb = P + b * n * n;
-  const T* Mb = Minv + b * n * n;
-
-  // t = sigma x - q + A'(rho o (z - rho^-1 o y))
-  for (int i = tid; i < m; i += kThreads)
-    w[i] = mul(rho[bm + i], sub(z[bm + i], mul(rho_inv[bm + i], y[bm + i])));
-  __syncthreads();
-  colsum<T>(Ab, m, n, w, t, redT);
-  for (int j = tid; j < n; j += kThreads) t[j] = add(sub(mul(sigma, x[bn + j]), q[bn + j]), t[j]);
-  __syncthreads();
-  colsum<T>(Mb, n, n, t, xt, redT);
-
-  for (int k = 0; k < ncorr; ++k) {
-    // r = t - (P x~ + sigma x~ + A'(rho o A x~)), in double
-    rowdot<double>(Ab, m, n, xt, s64);
-    for (int i = tid; i < m; i += kThreads) s64[i] = static_cast<double>(rho[bm + i]) * s64[i];
-    __syncthreads();
-    colsum<double>(Ab, m, n, s64, mx64, red);
-    // the P x~ row dots of one warp per row: add onto mx64 in place
-    const int lane = threadIdx.x;
-    for (int r = threadIdx.y; r < n; r += kWarps) {
-      const T* row = Pb + static_cast<size_t>(r) * n;
-      double acc = 0.0;
-      int c = lane;
-      for (; c + 96 < n; c += 128) {
-        const double a0 = row[c], a1 = row[c + 32], a2 = row[c + 64], a3 = row[c + 96];
-        acc += a0 * double(xt[c]) + a1 * double(xt[c + 32]) + a2 * double(xt[c + 64]) + a3 * double(xt[c + 96]);
-      }
-      for (; c < n; c += 32) acc += double(row[c]) * double(xt[c]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) {
-        // (P x + sigma x) + A'(rho A x), in the plain version's order
-        const double xv = xt[r];
-        const double px = __dadd_rn(acc, __dmul_rn(sigma64, xv));
-        w[r] = static_cast<T>(__dsub_rn(static_cast<double>(t[r]), __dadd_rn(px, mx64[r])));
-      }
-    }
-    __syncthreads();
-    colsum<T>(Mb, n, n, w, zt, redT);  // zt holds Minv r for now
-    for (int j = tid; j < n; j += kThreads) xt[j] = add(xt[j], zt[j]);
-    __syncthreads();
-  }
-
-  rowdot<T>(Ab, m, n, xt, zt);  // z~ = A x~
-
-  const T one_m_alpha = sub(T(1), alpha);
-  for (int j = tid; j < n; j += kThreads) {
-    const T xp = x[bn + j];
-    const T xn = add(mul(alpha, xt[j]), mul(one_m_alpha, xp));
-    x_out[bn + j] = xn;
-    dx_out[bn + j] = sub(xn, xp);
-  }
-  for (int i = tid; i < m; i += kThreads) {
-    const T zp = z[bm + i];
-    const T yp = y[bm + i];
-    const T zr = add(mul(alpha, zt[i]), mul(one_m_alpha, zp));
-    // clip as max-then-min with NaN passing through, like torch.clamp
-    T zn = add(zr, mul(rho_inv[bm + i], yp));
-    zn = zn < l[bm + i] ? l[bm + i] : zn;
-    zn = zn > u[bm + i] ? u[bm + i] : zn;
-    const T dyn = mul(rho[bm + i], sub(zr, zn));
-    z_out[bm + i] = zn;
-    dy_out[bm + i] = dyn;
-    if (carry) {
-      // TwoSum(y, dy + y_lo): the exact sum split into (hi, lo)
-      const T bsum = add(dyn, y_lo[bm + i]);
-      const T s = add(yp, bsum);
-      const T bb = sub(s, yp);
-      y_lo_out[bm + i] = add(sub(yp, sub(s, bb)), sub(bsum, bb));
-      y_out[bm + i] = s;
-    } else {
-      y_out[bm + i] = add(yp, dyn);
-    }
+solve_finish_kernel(const T* __restrict__ parts, int nparts, const uint8_t* __restrict__ active,
+                    T* __restrict__ xt, bool accumulate, int B, int n) {
+  const size_t total = static_cast<size_t>(B) * n;
+  const size_t stride = static_cast<size_t>(gridDim.x) * kThreads;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; e < total; e += stride) {
+    const size_t b = e / n;
+    if (!active[b]) continue;
+    const T s = sum_parts(parts, b, nparts, n, 0, static_cast<int>(e - b * n));
+    xt[e] = accumulate ? add(xt[e], s) : s;
   }
 }
 
 template <typename T>
-size_t smem_bytes(int n, int m) {
-  const size_t nm = n > m ? n : m;
-  return (kWarps * nm + m + n) * sizeof(double) + (2 * static_cast<size_t>(n) + 2 * nm) * sizeof(T);
-}
+struct Plan {
+  int chunks_n, rows_a, tiles_a, rows_n, tiles_n;
+  T *t_parts, *t, *x_parts, *xt, *z_parts;
+  double *ax_parts, *as_parts, *px_parts;
+  size_t bytes;
+  Plan(int B, int n, int m, int sm_count, unsigned char* scratch) {
+    chunks_n = chunks_of(n);
+    rows_a = tile_rows(B, chunks_n, m, sm_count);
+    tiles_a = tiles_of(m, rows_a);
+    rows_n = tile_rows(B, chunks_n, n, sm_count);
+    tiles_n = tiles_of(n, rows_n);
+    const size_t Bn = static_cast<size_t>(B) * n, Bm = static_cast<size_t>(B) * m;
+    Carve c{scratch};
+    t_parts = c.take<T>(Bn * tiles_a);
+    t = c.take<T>(Bn);
+    x_parts = c.take<T>(Bn * tiles_n);
+    xt = c.take<T>(Bn);
+    z_parts = c.take<T>(Bm * chunks_n);
+    ax_parts = c.take<double>(Bm * chunks_n);
+    as_parts = c.take<double>(Bn * tiles_a);
+    px_parts = c.take<double>(Bn * chunks_n);
+    bytes = c.used;
+  }
+};
 
 template <typename T>
-int launch(void* const* p, double sigma, double alpha, int B, int n, int m, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(n, m);
-  const cudaError_t err = allow_smem(admm_iter_refined_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
+int launch(void* const* p, unsigned char* scratch, double sigma, double alpha, int B, int n, int m, int sm_count,
+           cudaStream_t s) {
   auto c = [&](int k) { return static_cast<const T*>(p[k]); };
   auto o = [&](int k) { return static_cast<T*>(p[k]); };
+  const T *Minv = c(0), *A = c(1), *P = c(2), *q = c(3), *l = c(4), *u = c(5), *rho = c(6), *rho_inv = c(7);
+  const auto* active = static_cast<const uint8_t*>(p[8]);
+  const T *x = c(9), *z = c(10), *y = c(11), *dx = c(12), *dy = c(13), *y_lo = c(14);
+  const Plan<T> pl(B, n, m, sm_count, scratch);
   const int ncorr = sizeof(T) == 4 ? 2 : 1;
-  // sigma64: the solve-dtype sigma, widened exactly, as the plain version's sigma.double()
-  admm_iter_refined_kernel<T><<<B, dim3(32, kWarps), smem, stream>>>(
-      c(0), c(1), c(2), c(3), c(4), c(5), c(6), c(7), static_cast<const uint8_t*>(p[8]), c(9), c(10),
-      c(11), c(12), c(13), c(14), o(15), o(16), o(17), o(18), o(19), o(20), static_cast<T>(sigma),
-      static_cast<double>(static_cast<T>(sigma)), static_cast<T>(alpha), n, m, ncorr);
+  const T sig = static_cast<T>(sigma);
+  // the solve-dtype sigma, widened exactly, as the plain version's sigma.double()
+  const double sigma64 = static_cast<double>(sig);
+  const Mats<T> matA{A, nullptr, n, 0, pl.chunks_n}, matMinv{Minv, nullptr, n, 0, pl.chunks_n};
+  const int fin_grid = grid_size(static_cast<size_t>(B) * n);
+
+#define OSQP_TRY(call)                              \
+  do {                                              \
+    const cudaError_t e_ = (call);                  \
+    if (e_ != cudaSuccess) return e_;               \
+  } while (0)
+
+  OSQP_TRY((launch_colsum<T, T>(matA, B, m, pl.rows_a, DualWeight<T>{rho, rho_inv, z, y, m}, active, pl.t_parts, s)));
+  OSQP_TRY((launch_colsum<T, T>(matMinv, B, n, pl.rows_n,
+                                RhsWeight<T>{x, q, pl.t_parts, pl.t, sig, n, pl.tiles_a}, active, pl.x_parts, s)));
+  solve_finish_kernel<T><<<fin_grid, kThreads, 0, s>>>(pl.x_parts, pl.tiles_n, active, pl.xt, false, B, n);
+  for (int k = 0; k < ncorr; ++k) {
+    OSQP_TRY((launch_rowdot<T, double>(A, B, m, n, pl.rows_a, pl.xt, active, pl.ax_parts, s)));
+    OSQP_TRY((launch_colsum<T, double>(matA, B, m, pl.rows_a, RhoAxWeight<T>{rho, pl.ax_parts, m, pl.chunks_n},
+                                       active, pl.as_parts, s)));
+    OSQP_TRY((launch_rowdot<T, double>(P, B, n, n, pl.rows_n, pl.xt, active, pl.px_parts, s)));
+    const ResidualWeight<T> resid{pl.t, pl.xt, pl.px_parts, pl.as_parts, sigma64, n, pl.chunks_n, pl.tiles_a};
+    OSQP_TRY((launch_colsum<T, T>(matMinv, B, n, pl.rows_n, resid, active, pl.x_parts, s)));
+    solve_finish_kernel<T><<<fin_grid, kThreads, 0, s>>>(pl.x_parts, pl.tiles_n, active, pl.xt, true, B, n);
+  }
+  OSQP_TRY((launch_rowdot<T, T>(A, B, m, n, pl.rows_a, pl.xt, active, pl.z_parts, s)));
+#undef OSQP_TRY
+
+  const Parts<T> xt{pl.xt, 1, n, 0}, zt{pl.z_parts, pl.chunks_n, m, 0};
+  epilogue_kernel<T><<<grid_size(static_cast<size_t>(B) * (n + m)), kThreads, 0, s>>>(
+      xt, zt, l, u, rho, rho_inv, active, x, z, y, dx, dy, y_lo, o(15), o(16), o(17), o(18), o(19), o(20),
+      static_cast<T>(alpha), B, n, m);
   return cudaGetLastError();
 }
 
@@ -246,14 +183,17 @@ int launch(void* const* p, double sigma, double alpha, int B, int n, int m, cuda
 // Minv (B,n,n), A (B,m,n), P (B,n,n); q, x, dx (B,n); l, u, rho,
 // rho_inv, z, y, dy (B,m); active (B,) bytes; y_lo (B,m) in float32 and
 // null in float64.  Outputs have the shapes of x, z, y, dx, dy, y_lo
-// (y_lo_out null with y_lo) and must not alias the inputs.
+// (y_lo_out null with y_lo) and must not alias the inputs.  scratch holds
+// osqp_admm_iter_refined_scratch(dtype, B, n, m, sm_count) bytes,
+// 256-byte aligned; sm_count is the card's number of SMs.
 extern "C" int osqp_admm_iter_refined(int dtype, const void* Minv, const void* A, const void* P,
                                       const void* q, const void* l, const void* u, const void* rho,
                                       const void* rho_inv, const void* active, const void* x,
                                       const void* z, const void* y, const void* dx, const void* dy,
                                       const void* y_lo, void* x_out, void* z_out, void* y_out,
-                                      void* dx_out, void* dy_out, void* y_lo_out, double sigma,
-                                      double alpha, int B, int n, int m, void* stream) {
+                                      void* dx_out, void* dy_out, void* y_lo_out, void* scratch,
+                                      double sigma, double alpha, int B, int n, int m, int sm_count,
+                                      void* stream) {
   if (B == 0) return cudaSuccess;
   void* const p[21] = {const_cast<void*>(Minv), const_cast<void*>(A),  const_cast<void*>(P),
                        const_cast<void*>(q),    const_cast<void*>(l),  const_cast<void*>(u),
@@ -263,10 +203,14 @@ extern "C" int osqp_admm_iter_refined(int dtype, const void* Minv, const void* A
                        x_out,                   z_out,                 y_out,
                        dx_out,                  dy_out,                y_lo_out};
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(p, sigma, alpha, B, n, m, s) : launch<double>(p, sigma, alpha, B, n, m, s);
+  auto* ws = static_cast<unsigned char*>(scratch);
+  return dtype == 0 ? launch<float>(p, ws, sigma, alpha, B, n, m, sm_count, s)
+                    : launch<double>(p, ws, sigma, alpha, B, n, m, sm_count, s);
 }
 
-// Bytes of shared memory one block of osqp_admm_iter_refined takes at (n, m).
-extern "C" size_t osqp_admm_iter_refined_smem(int dtype, int n, int m) {
-  return dtype == 0 ? smem_bytes<float>(n, m) : smem_bytes<double>(n, m);
+// Bytes of scratch that osqp_admm_iter_refined takes at (B, n, m) on a
+// card of sm_count SMs.
+extern "C" size_t osqp_admm_iter_refined_scratch(int dtype, int B, int n, int m, int sm_count) {
+  return dtype == 0 ? Plan<float>(B, n, m, sm_count, nullptr).bytes
+                    : Plan<double>(B, n, m, sm_count, nullptr).bytes;
 }

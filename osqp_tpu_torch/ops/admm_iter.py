@@ -2,12 +2,12 @@
 in its plain and its refined loop body.
 
 :func:`admm_iter` (K1) is the plain body's wrapper: for CUDA tensors it
-launches the hand-written kernel in ``csrc/admm_iter.cu``, which fuses
+launches the hand-written kernels in ``csrc/admm_iter.cu``, which fuse
 the explicit-inverse KKT solve (``osqp_tpu/linsys/dense_inv.py:solve``),
 the relaxed x/z/y updates (``osqp_tpu/admm.py:admm_step``) and the
 active-mask selects of the loop body into one pass over Minv, AMinvT
-and A; for CPU tensors it runs :func:`admm_iter_plain`, the same
-function in plain PyTorch.
+and A, each instance split over blocks; for CPU tensors it runs
+:func:`admm_iter_plain`, the same function in plain PyTorch.
 
 :func:`admm_iter_refined` (K1r) is the refined body's wrapper, for
 ill-conditioned batches: the KKT solve with residual correction
@@ -15,6 +15,11 @@ ill-conditioned batches: the KKT solve with residual correction
 TwoSum dual carry (``admm.py:152-160``).  CUDA tensors launch
 ``csrc/admm_iter_refined.cu``; CPU tensors run
 :func:`admm_iter_refined_plain`.
+
+Each launch is one ctypes call that enqueues a short sequence of
+kernels; its partial sums go to a scratch buffer the wrapper allocates,
+sized by the library.  ``launches`` and ``refined_launches`` count those
+calls.
 """
 
 from __future__ import annotations
@@ -88,19 +93,21 @@ def admm_iter(Minv, AMinvT, A, q, l, u, rho, rho_inv, sigma, alpha, active, x, z
     if not all(t.is_contiguous() for t in args):
         raise ValueError("admm_iter takes contiguous tensors")
     (B, n), m = x.shape, z.shape[1]
-    _build.check_smem("admm_iter", x.dtype, n, m)
     outs = tuple(torch.empty_like(t) for t in (x, z, y, dx, dy))
     lib = _build.library()
     with torch.cuda.device(x.device):
+        ws, sms = _build.scratch("admm_iter", x.dtype, B, n, m, x.device)
         code = lib.osqp_admm_iter(
             _build.dtype_code(x.dtype),
             *(t.data_ptr() for t in args),
             *(t.data_ptr() for t in outs),
+            ws.data_ptr(),
             float(sigma),
             float(alpha),
             B,
             n,
             m,
+            sms,
             _build.stream(),
         )
     _build.check(code, "admm_iter")
@@ -159,23 +166,25 @@ def admm_iter_refined(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("admm_iter_refined takes contiguous tensors")
     (B, n), m = x.shape, z.shape[1]
-    _build.check_smem("admm_iter_refined", x.dtype, n, m)
     outs = tuple(torch.empty_like(t) for t in (x, z, y, dx, dy))
     lo_out = torch.empty_like(y_lo) if y_lo is not None else None
     ptr = lambda t: t.data_ptr() if t is not None else 0
     lib = _build.library()
     with torch.cuda.device(x.device):
+        ws, sms = _build.scratch("admm_iter_refined", x.dtype, B, n, m, x.device)
         code = lib.osqp_admm_iter_refined(
             _build.dtype_code(x.dtype),
             *(t.data_ptr() for t in args),
             ptr(y_lo),
             *(t.data_ptr() for t in outs),
             ptr(lo_out),
+            ws.data_ptr(),
             float(sigma),
             float(alpha),
             B,
             n,
             m,
+            sms,
             _build.stream(),
         )
     _build.check(code, "admm_iter_refined")

@@ -13,9 +13,9 @@ configuration that it shares with :func:`osqp_tpu_torch.solve_batch`.
   ``update_P_A`` (1171), ``update_rho`` (1281) and the settings setters
   (1339-1617)
 
-State lives on one device, explicit at setup (``device=``, default the
-CPU), as batch-of-1 tensors in the solve dtype; a CUDA device runs the
-hand-written kernels.  Polish (ROADMAP queue 1, item 10) and ``export``
+State lives on one device, chosen at setup (``device=``, default the
+CUDA card; ``device="cpu"`` for the CPU), as batch-of-1 tensors in the
+solve dtype; a CUDA device runs the hand-written kernels.  Polish (ROADMAP queue 1, item 10) and ``export``
 (item 14) are not ported yet and raise.
 """
 
@@ -91,6 +91,19 @@ def torch_dtype(d) -> torch.dtype:
     if d not in (torch.float32, torch.float64):
         raise OSQPError(ErrorCode.SETTINGS_VALIDATION_ERROR, f"dtype must be float32 or float64, not {d}")
     return d
+
+
+def resolve_device(device) -> torch.device:
+    """``device``, or the CUDA card when it is None.  Without a CUDA
+    device, None raises: nothing falls back to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'osqp_tpu_torch runs on a CUDA device unless asked otherwise, and none is available: '
+            'pass device="cpu" to solve on the CPU'
+        )
+    return torch.device("cuda")
 
 
 def validate_settings(s: Settings) -> None:
@@ -288,7 +301,8 @@ class Solver:
     # -- lifecycle ---------------------------------------------------------
     def setup(self, P=None, q=None, A=None, l=None, u=None, device=None, **settings):
         """osqp_setup (osqp.c:76-283).  ``device``: where the solver's
-        state lives and its solves run (default the CPU)."""
+        state lives and its solves run (default the CUDA card; raises
+        without one unless ``device="cpu"``)."""
         t0 = time.perf_counter()
         unknown = set(settings) - {f.name for f in dataclasses.fields(Settings)}
         if unknown:
@@ -303,7 +317,7 @@ class Solver:
         self._Pu, self._Ac = Pu, Ac
         self._q, self._l, self._u = qv, lv, uv
         self.n, self.m = n, m
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self._dtype = torch_dtype(self.settings.dtype)
         self._cfg = make_config(n, m, self.settings, self._dtype)
         self._dyn = DynSettings.make(

@@ -45,7 +45,7 @@ def test_import_leaves_jax_out():
         "import sys, osqp_tpu_torch, osqp_tpu_torch.convert, osqp_tpu_torch.io.qps, osqp_tpu_torch.sparse;"
         "import osqp_tpu_torch.ops.admm_iter, osqp_tpu_torch.ops.ruiz, osqp_tpu_torch.ops.term_products;"
         "import numpy as np; e = np.eye(1);"
-        "s = osqp_tpu_torch.Solver(2 * e, [1.0], e, [-1.0], [1.0], verbose=False, dtype='float64');"
+        "s = osqp_tpu_torch.Solver(2 * e, [1.0], e, [-1.0], [1.0], device='cpu', verbose=False, dtype='float64');"
         "assert s.solve().info.status == 'solved';"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'osqp_tpu')];"
         "assert not bad, bad"
@@ -122,10 +122,10 @@ def test_linsys_registry():
 def test_unported_options_raise(kw):
     P, q, A, l, u = random_qps(2, 3, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        osqp_tpu_torch.solve_batch(P, q, A, l, u, verbose=False, **kw)
+        osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", verbose=False, **kw)
 
 
 def test_time_based_rho_rejected():
     P, q, A, l, u = random_qps(2, 3, 4)
     with pytest.raises(tcon.OSQPError):
-        osqp_tpu_torch.solve_batch(P, q, A, l, u, adaptive_rho_time=True)
+        osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", adaptive_rho_time=True)

@@ -30,7 +30,7 @@ CHECK = 25
 def _solve_both(P, q, A, l, u, dtype, **kw):
     kw = {"verbose": False, **kw}
     rj = osqp_tpu.solve_batch(P, q, A, l, u, dtype=dtype, **kw)
-    rt = osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype=dtype, **kw)
+    rt = osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype=dtype, device="cpu", **kw)
     return rj, rt
 
 
@@ -178,7 +178,7 @@ def test_verbose_rows_and_footer_match_reference(capsys):
     P, q, A, l, u = _ill_conditioned(seed=4)
     osqp_tpu.solve_batch(P, q, A, l, u, dtype="float64")
     out_j = capsys.readouterr().out
-    osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype="float64")
+    osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype="float64", device="cpu")
     out_t = capsys.readouterr().out
 
     def rows(out):
@@ -221,4 +221,22 @@ def test_solve_batch_takes_tensors_and_keeps_their_device():
     res = osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype=torch.float64, verbose=False)
     assert res.x.device == P.device and res.x.dtype == torch.float64
     assert res.x.shape == (3, 5) and res.y.shape == (3, 7)
+    assert (res.status_val == osqp_tpu_torch.OSQP_SOLVED).all()
+
+
+def test_solve_batch_on_numpy_defaults_to_the_card(monkeypatch):
+    """numpy input with no ``device`` goes to the CUDA card; where there is
+    none, solve_batch raises and names ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        osqp_tpu_torch.solve_batch(*random_qps(2, 3, 4, seed=1), dtype="float64", verbose=False)
+
+
+@pytest.mark.parametrize("cuda", [False, True])
+def test_solve_batch_keeps_cpu_tensors_on_the_cpu(cuda, monkeypatch):
+    """CPU tensors with no ``device`` stay on the CPU, card or no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
+    P, q, A, l, u = (torch.as_tensor(v) for v in random_qps(2, 3, 4, seed=1))
+    res = osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype=torch.float64, verbose=False)
+    assert res.x.device.type == res.status_val.device.type == "cpu"
     assert (res.status_val == osqp_tpu_torch.OSQP_SOLVED).all()

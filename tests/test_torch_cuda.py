@@ -38,7 +38,7 @@ def dev():
 def _spd(B, n, dtype, seed=0):
     rng = np.random.default_rng(seed)
     G = rng.standard_normal((B, n, n))
-    return torch.as_tensor(np.einsum("bij,bkj->bik", G, G) / n + 0.1 * np.eye(n), dtype=dtype)
+    return torch.as_tensor(G @ G.transpose(0, 2, 1) / n + 0.1 * np.eye(n), dtype=dtype)
 
 
 def _qps(B, n, m, seed=0):
@@ -76,35 +76,61 @@ def test_k2_kernel_at_its_bound_and_nan_on_non_pd(dev):
     assert float((X[:1] - Xp).abs().max()) <= 1e-10 * float(Xp.abs().max())
 
 
-def _k1_args(B, n, m, dtype, dev, seed=0):
+def _k1_args(B, n, m, dtype, dev, seed=0, with_P=False):
+    """K1 operands of one step (K1r's with ``with_P``: P in place of
+    AMinvT) from consistent data: Minv = (P + sigma I + A' rho A)^-1,
+    made in float64 on the card; every other instance inactive."""
     g = torch.Generator().manual_seed(seed)
-    r = lambda *s: torch.randn(*s, generator=g, dtype=dtype).to(dev)
-    Minv = _spd(B, n, dtype, seed).inverse().contiguous().to(dev)
-    A = r(B, m, n)
+    r = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64).to(dev)
+    sigma = 1e-6
+    P = _spd(B, n, torch.float64, seed).to(dev)
+    A = r(B, m, n) / max(n, 1) ** 0.5
+    rho = r(B, m).abs() + 0.1
+    M = P + sigma * torch.eye(n, dtype=torch.float64, device=dev) + A.transpose(1, 2) @ (rho[:, :, None] * A)
+    Minv = torch.cholesky_inverse(torch.linalg.cholesky(M))
     l = r(B, m) - 1.0
-    return dict(
-        Minv=Minv, AMinvT=(Minv @ A.transpose(1, 2)).contiguous(), A=A, q=r(B, n), l=l, u=l + 2.0,
-        rho=r(B, m).abs() + 0.1, rho_inv=None, sigma=1e-6, alpha=1.6,
-        active=torch.arange(B, device=dev) % 2 == 0,
-        x=r(B, n), z=r(B, m), y=r(B, m), dx=r(B, n), dy=r(B, m),
-    )
+    mats = dict(Minv=Minv, A=A, **({"P": P} if with_P else {"AMinvT": Minv @ A.transpose(1, 2)}))
+    vecs = dict(q=r(B, n), l=l, u=l + 2.0, rho=rho, rho_inv=1.0 / rho, x=r(B, n), z=r(B, m), y=r(B, m),
+                dx=r(B, n), dy=r(B, m))
+    args = {k: v.to(dtype).contiguous() for k, v in {**mats, **vecs}.items()}
+    return dict(args, sigma=sigma, alpha=1.6, active=torch.arange(B, device=dev) % 2 == 0)
 
 
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
-@pytest.mark.parametrize("n,m", [(1, 1), (7, 3), (40, 0), (100, 200), (33, 65)])
-def test_k1_kernel_matches_plain(dev, dtype, rtol, n, m):
-    args = _k1_args(8, n, m, dtype, dev)
-    args["rho_inv"] = 1.0 / args["rho"]
-    before = k1.launches
-    outk = k1.admm_iter(**args)
-    torch.cuda.synchronize()
-    assert k1.launches == before + 1
-    outp = k1.admm_iter_plain(**args)
+# Only the order of summation differs from the plain versions.
+K1_TOL = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
+# (B, n, m): small and ragged shapes with every other instance inactive;
+# B=1 at CVXQP2_M's width, an instance split over many blocks; B=3 with
+# the middle instance inactive; and shapes where one block per instance
+# ran out of shared memory (B=1, n=2, m=6000; B=1, n=m=3000).
+K1_SHAPES = [(8, 1, 1), (8, 7, 3), (8, 40, 0), (8, 100, 200), (8, 33, 65), (1, 1000, 1250), (3, 100, 200),
+             (1, 2, 6000), (1, 3000, 3000)]
+
+
+def _check_step(args, outk, outp, rtol, y_lo=None):
+    """Active entries within rtol of the plain version (relative to its
+    largest value, at least 1), inactive ones equal to the inputs."""
     inactive = ~args["active"]
-    for got, want, old in zip(outk, outp, (args[k] for k in ("x", "z", "y", "dx", "dy"))):
-        assert torch.equal(got[inactive], old[inactive])
-        if want.numel():
-            assert float((got - want).abs().max()) <= rtol * max(float(want.abs().max()), 1.0)
+    olds = [args[k] for k in ("x", "z", "y", "dx", "dy")] + [y_lo]
+    for name, got, want, old in zip(("x", "z", "y", "dx", "dy", "y_lo"), outk, outp, olds):
+        if old is None:
+            assert got is None and want is None
+            continue
+        assert torch.equal(got[inactive], old[inactive]), name
+        if want.numel() and name != "y_lo":
+            assert float((got - want).abs().max()) <= rtol * max(float(want.abs().max()), 1.0), name
+
+
+@pytest.mark.parametrize("dtype,rtol", K1_TOL)
+@pytest.mark.parametrize("B,n,m", K1_SHAPES)
+def test_k1_kernel_matches_plain(dev, dtype, rtol, B, n, m):
+    """K1 against its plain version; two launches give the same bits."""
+    args = _k1_args(B, n, m, dtype, dev)
+    before = k1.launches
+    outk, again = k1.admm_iter(**args), k1.admm_iter(**args)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(outk, again))
+    _check_step(args, outk, k1.admm_iter_plain(**args), rtol)
 
 
 def test_wrappers_raise_on_non_contiguous_cuda_input(dev):
@@ -112,7 +138,6 @@ def test_wrappers_raise_on_non_contiguous_cuda_input(dev):
     with pytest.raises(ValueError, match="contiguous"):
         k2.chol_inverse(M)
     args = _k1_args(2, 5, 4, torch.float64, dev)
-    args["rho_inv"] = 1.0 / args["rho"]
     args["A"] = args["A"].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         k1.admm_iter(**args)
@@ -179,30 +204,20 @@ def test_k3_kernel_matches_plain(dev, dtype, tol, B, n, m, cert):
             assert got.shape == want.shape and _rel(got, want) <= tol
 
 
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
-@pytest.mark.parametrize("n,m", [(1, 1), (7, 3), (40, 0), (100, 200), (33, 65)])
-def test_k1r_kernel_matches_plain(dev, dtype, rtol, n, m):
-    args = _k1_args(8, n, m, dtype, dev)
-    args["rho_inv"] = 1.0 / args["rho"]
-    del args["AMinvT"]
-    P = _spd(8, n, dtype, seed=1).to(dev)
+@pytest.mark.parametrize("dtype,rtol", K1_TOL)
+@pytest.mark.parametrize("B,n,m", K1_SHAPES)
+def test_k1r_kernel_matches_plain(dev, dtype, rtol, B, n, m):
+    """K1r against its plain version; two launches give the same bits, and
+    in float32 the carry is exactly TwoSum on every active entry."""
+    args = _k1_args(B, n, m, dtype, dev, with_P=True)
     y_lo = 1e-7 * torch.randn_like(args["y"]) if dtype == torch.float32 else None
     before = k1.refined_launches
-    outk = k1.admm_iter_refined(P=P, y_lo=y_lo, **args)
+    outk, again = k1.admm_iter_refined(y_lo=y_lo, **args), k1.admm_iter_refined(y_lo=y_lo, **args)
     torch.cuda.synchronize()
-    assert k1.refined_launches == before + 1
-    outp = k1.admm_iter_refined_plain(P=P, y_lo=y_lo, **args)
-    inactive = ~args["active"]
-    olds = [args[k] for k in ("x", "z", "y", "dx", "dy")] + [y_lo]
-    for name, got, want, old in zip(("x", "z", "y", "dx", "dy", "y_lo"), outk, outp, olds):
-        if old is None:
-            assert got is None and want is None
-            continue
-        assert torch.equal(got[inactive], old[inactive])
-        if want.numel() and name != "y_lo":
-            assert float((got - want).abs().max()) <= rtol * max(float(want.abs().max()), 1.0)
+    assert k1.refined_launches == before + 2
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(outk, again))
+    _check_step(args, outk, k1.admm_iter_refined_plain(y_lo=y_lo, **args), rtol, y_lo)
     if y_lo is not None:
-        # the carry is exact: (y', y_lo') is TwoSum(y, dy' + y_lo) on every active entry
         a = args["active"]
         assert k1.twosum_violations(args["y"][a], outk[4][a], y_lo[a], outk[2][a], outk[5][a]) == 0
 
@@ -234,32 +249,6 @@ def test_k1r_kernel_residual_is_f64(dev):
     assert _rel(x_k.double(), truth) <= 1e-7 < _rel(x32.double(), truth)
 
 
-def _overflow_args(dev):
-    """K1/K1r operands at m = 6000 in float64, where one block needs more
-    shared memory than the card gives it."""
-    z = lambda *s: torch.zeros(s, dtype=torch.float64, device=dev)
-    B, n, m = 1, 2, 6000
-    return dict(Minv=z(B, n, n), A=z(B, m, n), q=z(B, n), l=z(B, m), u=z(B, m), rho=z(B, m), rho_inv=z(B, m),
-                sigma=1e-6, alpha=1.6, active=torch.ones(B, dtype=torch.bool, device=dev),
-                x=z(B, n), z=z(B, m), y=z(B, m), dx=z(B, n), dy=z(B, m)), z(B, n, n), z(B, n, m)
-
-
-def test_k1_wrapper_rejects_shared_memory_overflow(dev):
-    args, _, AMinvT = _overflow_args(dev)
-    before = k1.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        k1.admm_iter(AMinvT=AMinvT, **args)
-    assert k1.launches == before
-
-
-def test_admm_iter_refined_wrapper_rejects_shared_memory_overflow(dev):
-    args, P, _ = _overflow_args(dev)
-    before = k1.refined_launches
-    with pytest.raises(ValueError, match="shared memory"):
-        k1.admm_iter_refined(P=P, **args)
-    assert k1.refined_launches == before
-
-
 def test_new_wrappers_raise_on_non_contiguous_cuda_input(dev):
     P, q, A, l, u = (torch.as_tensor(a).to(dev) for a in _qps(2, 5, 4))
     At = A.transpose(1, 2).contiguous().transpose(1, 2)
@@ -267,12 +256,24 @@ def test_new_wrappers_raise_on_non_contiguous_cuda_input(dev):
         k4.ruiz(P, q, At, l, u, 3)
     with pytest.raises(ValueError, match="contiguous"):
         k3.term_products(P, At, q, l)
-    args = _k1_args(2, 5, 4, torch.float64, dev)
-    args["rho_inv"] = 1.0 / args["rho"]
-    del args["AMinvT"]
+    args = _k1_args(2, 5, 4, torch.float64, dev, with_P=True)
     args["A"] = args["A"].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        k1.admm_iter_refined(P=P, **args)
+        k1.admm_iter_refined(**args)
+
+
+def test_entry_points_default_to_the_card(dev):
+    """Solver and solve_batch on numpy input, with no ``device``, run on
+    the CUDA card and launch its kernels there."""
+    qp = load_qps(os.path.join(os.path.dirname(MAROS), "HS21.qps"))
+    before = (k1.launches + k1.refined_launches, k3.launches)
+    s = osqp_tpu_torch.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, dtype="float64", verbose=False)
+    assert s.device.type == "cuda" and s.data.P.device.type == "cuda"
+    assert s.solve().info.status_val == osqp_tpu_torch.OSQP_SOLVED
+    res = osqp_tpu_torch.solve_batch(*_qps(4, 10, 15, seed=2), dtype="float64", verbose=False)
+    assert res.x.device.type == res.status_val.device.type == "cuda"
+    assert (res.status_val == osqp_tpu_torch.OSQP_SOLVED).all()
+    assert k1.launches + k1.refined_launches > before[0] and k3.launches > before[1]
 
 
 @pytest.mark.parametrize("name", ["CVXQP2_S", "HS21"])
@@ -287,7 +288,7 @@ def test_solver_gpu_matches_cpu(dev, name):
     sg = osqp_tpu_torch.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, **kw)
     rg = sg.solve()
     assert k3.launches > before[0] and k4.launches > before[1]
-    rc = osqp_tpu_torch.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, **kw).solve()
+    rc = osqp_tpu_torch.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, device="cpu", **kw).solve()
     assert rg.info.status_val == rc.info.status_val == osqp_tpu_torch.OSQP_SOLVED
     assert rg.info.iter == rc.info.iter
     assert np.abs(rg.x - rc.x).max() <= 1e-6 and np.abs(rg.y - rc.y).max() <= 1e-6

@@ -274,10 +274,10 @@ def test_admm_iter_refined_wrapper_rejects_bad_input(change, error):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("refined", [False, True])
 def test_admm_iter_wrappers_take_cpu_tensors_above_the_kernel_bound(refined, dtype):
-    """At m = 6000 one block of K1 or K1r would need more shared memory
-    than the card gives it, and the wrappers refuse CUDA tensors there
-    (tests/test_torch_cuda.py); CPU tensors run the plain version at any
-    size."""
+    """At m = 6000, a size the kernels split over blocks (one block per
+    instance would need more shared memory than the card has; the card
+    runs them there, tests/test_torch_cuda.py), CPU tensors run the plain
+    version and launch nothing."""
     args = _k1r_args(B=1, n=2, m=6000, dtype=dtype)
     if not refined:
         args["AMinvT"] = torch.zeros(1, 2, 6000, dtype=dtype)

@@ -77,7 +77,7 @@ def _assert_parity(rj, rt, dtype, cert_atol=ATOL):
 
 def _both(P, q, A, l, u, **kw):
     kw = {"verbose": False, **kw}
-    return osqp_tpu.Solver(P, q, A, l, u, **kw), osqp_tpu_torch.Solver(P, q, A, l, u, **kw)
+    return osqp_tpu.Solver(P, q, A, l, u, **kw), osqp_tpu_torch.Solver(P, q, A, l, u, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -214,7 +214,7 @@ def test_update_sequence_matches_reference(dtype):
 
 def test_update_rejects_bad_input():
     Pu, q, A, l, u = _update_problem()
-    s = osqp_tpu_torch.Solver(Pu, q, A, l, u, verbose=False, dtype="float64")
+    s = osqp_tpu_torch.Solver(Pu, q, A, l, u, device="cpu", verbose=False, dtype="float64")
     with pytest.raises(osqp_tpu_torch.OSQPError):
         s.update_P(Px=np.ones(Pu.nnz + 1))
     with pytest.raises(osqp_tpu_torch.OSQPError):
@@ -228,7 +228,7 @@ def test_update_rejects_bad_input():
     with pytest.raises(osqp_tpu_torch.OSQPError):
         s.update_alpha(2.0)
     with pytest.raises(osqp_tpu_torch.OSQPError):
-        osqp_tpu_torch.Solver(Pu, q, A, l, u, nope=1)
+        osqp_tpu_torch.Solver(Pu, q, A, l, u, device="cpu", nope=1)
     with pytest.raises(osqp_tpu_torch.OSQPError):
         osqp_tpu_torch.Solver().solve()
 
@@ -236,7 +236,8 @@ def test_update_rejects_bad_input():
 def test_non_convex_rejected():
     P = np.array([[1.0, 0.0], [0.0, -1.0]])
     with pytest.raises(osqp_tpu_torch.constants.NonConvexError):
-        osqp_tpu_torch.Solver(P, np.zeros(2), np.eye(2), -np.ones(2), np.ones(2), verbose=False, dtype="float64")
+        osqp_tpu_torch.Solver(P, np.zeros(2), np.eye(2), -np.ones(2), np.ones(2), device="cpu", verbose=False,
+                              dtype="float64")
 
 
 def test_verbose_layout_matches_reference(capsys):
@@ -246,7 +247,7 @@ def test_verbose_layout_matches_reference(capsys):
     kw = dict(verbose=True, dtype="float64", max_iter=450, eps_abs=1e-6, eps_rel=1e-6)
     osqp_tpu.Solver(P, q, A, l, u, **kw).solve()
     out_j = capsys.readouterr().out
-    osqp_tpu_torch.Solver(P, q, A, l, u, **kw).solve()
+    osqp_tpu_torch.Solver(P, q, A, l, u, device="cpu", **kw).solve()
     out_t = capsys.readouterr().out
 
     def parts(out):
@@ -330,16 +331,16 @@ def test_time_based_rho_interval(fraction, fires, monkeypatch):
 @pytest.mark.parametrize(
     "make,item",
     [
-        (lambda s: osqp_tpu_torch.Solver(*_quick_start(), polish=True), "item 10"),
+        (lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", polish=True), "item 10"),
         (lambda s: s.update_polish(True), "item 10"),
         (lambda s: s.export(), "item 14"),
-        (lambda s: osqp_tpu_torch.Solver(*_quick_start(), linsys_solver="kkt_lu"), "item 11"),
-        (lambda s: osqp_tpu_torch.Solver(*_quick_start(), linsys_solver="cg"), "items 11-12"),
+        (lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", linsys_solver="kkt_lu"), "item 11"),
+        (lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", linsys_solver="cg"), "items 11-12"),
     ],
     ids=["polish", "update_polish", "export", "kkt_lu", "cg"],
 )
 def test_unported_options_raise(make, item):
-    s = osqp_tpu_torch.OSQP().setup(*_quick_start(), verbose=False)
+    s = osqp_tpu_torch.OSQP().setup(*_quick_start(), device="cpu", verbose=False)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
         make(s)
 
@@ -374,7 +375,7 @@ def test_cvxqp2_m_matches_goldens(dtype):
     one check interval, on the refined body."""
     g = np.load(_goldens_tool().OUT)
     key = lambda f: g[f"CVXQP2_M/{dtype}/{f}"]
-    s = osqp_tpu_torch.Solver(*_problem("CVXQP2_M"), dtype=dtype, verbose=False)
+    s = osqp_tpu_torch.Solver(*_problem("CVXQP2_M"), device="cpu", dtype=dtype, verbose=False)
     assert bool(s.factor["refine"].any()) == (dtype == "float32")
     r = s.solve()
     assert r.info.status_val == int(key("status_val")) == jcon.OSQP_SOLVED
@@ -386,3 +387,28 @@ def test_cvxqp2_m_matches_goldens(dtype):
             assert np.abs(got - want).max() <= 1e-8 * max(1.0, np.abs(want).max())
     else:
         assert abs(r.info.iter - int(key("iter"))) <= CHECK
+
+
+@pytest.mark.parametrize("make", [
+    lambda: osqp_tpu_torch.Solver(*_quick_start(), verbose=False),
+    lambda: osqp_tpu_torch.OSQP().setup(*_quick_start(), verbose=False),
+], ids=["Solver", "OSQP.setup"])
+def test_default_device_is_the_card(make, monkeypatch):
+    """Without ``device`` the Solver runs on the CUDA card; where there is
+    none it raises and names ``device="cpu"`` rather than carry on on the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make()
+    s = osqp_tpu_torch.Solver(*_quick_start(), device="cpu", verbose=False)
+    assert s.device == torch.device("cpu") and s.data.P.device.type == "cpu"
+
+
+def test_resolve_device_takes_the_card_when_there_is_one(monkeypatch):
+    """With a CUDA device present, no ``device`` means the card; an
+    explicit one is kept."""
+    from osqp_tpu_torch.solver import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -1,0 +1,71 @@
+#!/usr/bin/env python3
+"""Compare checkouts of osqp_tpu_torch on the headline shape, in turns, on one GPU.
+
+    python3 tools/ab_headline.py ROOT [ROOT ...]
+
+Each ROOT is the root of a checkout (for example the parent commit
+unpacked with ``git archive`` and this tree: ``old . . old``, so that
+drift on the card falls on both sides).  Each runs in a process of its
+own, which builds that checkout's kernels, then times on chip_smoke.py's
+headline data (B=8192, n=100, m=200, float32): K1 (``admm_iter``) with
+every instance active, mean of 50 warm calls by CUDA events; and
+``solve_batch`` 5 times, median and spread.  Prints the card, then one
+JSON line per checkout.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+CHILD = r"""
+import json, statistics, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+import osqp_tpu_torch as ot
+from osqp_tpu_torch.ops import admm_iter as k1
+
+dev = torch.device("cuda", 0)
+B, n, m = cs.HEADLINE["B"], cs.HEADLINE["n"], cs.HEADLINE["m"]
+scaled, rs, factor, dyn = cs.path_operands(B, n, m, torch.float32, dev)
+x, z, dx, y = cs._random_state(B, n, m, torch.float32, dev)
+args = (factor["Minv"], factor["AMinvT"], scaled.A, scaled.q, scaled.l, scaled.u, rs.rho_vec, rs.rho_inv_vec,
+        float(dyn.sigma), float(dyn.alpha), torch.ones(B, dtype=torch.bool, device=dev), x, z, y, dx,
+        torch.randn_like(z))
+k1_ms = cs.cuda_ms(lambda: k1.admm_iter(*args), reps=50)
+P, q, A, l, u = cs.on_device(cs.make_qps(B, n, m), torch.float32, dev)
+res = ot.solve_batch(P, q, A, l, u, **cs.SOLVE_KW)
+times = []
+for _ in range(5):
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ot.solve_batch(P, q, A, l, u, **cs.SOLVE_KW)
+    stop.record()
+    torch.cuda.synchronize()
+    times.append(start.elapsed_time(stop))
+solved = float((res.status_val == ot.OSQP_SOLVED).float().mean())
+print(json.dumps({"root": sys.argv[1], "k1_all_active_ms": k1_ms, "solve_median_ms": statistics.median(times),
+                  "solve_ms": times, "solved": solved, "max_iter": int(res.iter.max())}))
+"""
+
+
+def main() -> int:
+    roots = sys.argv[1:]
+    if not roots:
+        print(__doc__, file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    for root in roots:
+        proc = subprocess.run([sys.executable, "-c", CHILD, os.path.abspath(root)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr, file=sys.stderr)
+            return proc.returncode
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
