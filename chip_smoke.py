@@ -10,8 +10,12 @@ failure ends the run with a non-zero exit and no result line:
 3. K2 (chol_inverse) against its plain version on Schur matrices of the
    benchmark's data, n=100: B=512 in float64 and float32, and the main
    path's B=8192 in float32; the headline factor's inverse residual
-   against the refine gate; kernel, plain and torch.linalg.inv timed at
-   B=8192 beside the bound;
+   against the refine gate, which must flag 0 of 8192 instances, and how
+   many the residual guard sends to Cholesky; n swept from 1 to the
+   shared-memory bound in both dtypes, two launches bit-identical;
+   kernel, plain and torch.linalg.inv timed at B=8192 beside the bound,
+   with the kernel's blocks per SM; the library route above the bound
+   (CVXQP2_M, both dtypes) timed as that case's library_ms;
 4. K1 (admm_iter) against its plain version, one step from a random
    state: B=512 in float64 and float32 with half of the instances
    inactive, B=8192 in float32 half and all active, CVXQP2_M's shape at
@@ -20,9 +24,12 @@ failure ends the run with a non-zero exit and no result line:
    results held bit-identical; warm, L2-flushed and profiled device
    times beside the plain time and the bound at B=8192 and CVXQP2_M;
 5. K4 (ruiz) against its plain version on the headline data (B=8192,
-   n=100, m=200, float32) and on CVXQP2_M (B=1, n=1000, m=1250, float64
-   and float32): D and E equal, c and the scaled data close; both timed,
-   with the bound;
+   n=100, m=200) in float32 and float64, which take the resident path in
+   clusters of 2 and 4, and on CVXQP2_M (B=1, n=1000, m=1250, float64
+   and float32), which takes the split path: D and E equal, c and the
+   scaled data close, two launches bit-identical, the path each took
+   checked against cluster_size; both timed, with the bound, and at the
+   headline every cluster size that fits, with the clusters resident;
 6. K3 (term_products) against its plain version at the same shapes from
    a random state, with and without the certificate products; both
    timed, with the bound;
@@ -39,7 +46,8 @@ failure ends the run with a non-zero exit and no result line:
    counts, x and y within 1e-6;
 9. the batched slice at the repo's headline size through
    ``solve_batch``: B=8192, n=100, m=200, float32, eps 1e-3, polish off,
-   with the kernel launch counts of that one solve, then 5 timed solves;
+   with the kernel launch counts of that one solve (K4's on the resident
+   path, which it must take), then 5 timed solves;
 10. the stateful ``Solver`` path: README's quick start, CVXQP2_S and
     CVXQP2_M (read with ``osqp_tpu_torch.io.qps``) in float64 and
     float32, each held against the JAX package's results in
@@ -281,14 +289,14 @@ def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from osqp_tpu_torch.ops import admm_iter as k1, ruiz as k4, spd_inverse as k2, term_products as k3
 
-    k1.launches = k1.refined_launches = k2.launches = k3.launches = k4.launches = 0
+    k1.launches = k1.refined_launches = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
 
 
 def read_counts() -> dict:
     from osqp_tpu_torch.ops import admm_iter as k1, ruiz as k4, spd_inverse as k2, term_products as k3
 
     return {"admm_iter": k1.launches, "admm_iter_refined": k1.refined_launches, "chol_inverse": k2.launches,
-            "ruiz": k4.launches, "term_products": k3.launches}
+            "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches}
 
 
 def prepared(P, q, A, l, u):
@@ -340,12 +348,37 @@ def phase_k2(dev):
         require(rk <= tol and rp <= tol and rel <= rel_tol, f"K2 disagrees with its plain version at B={b} in {dtype}")
 
     # The headline's setup factor: the residual that dense_inv.init holds
-    # against the refine gate, after Newton-Schulz and the guard.
+    # against the refine gate, after Newton-Schulz and the guard, and how
+    # many instances the guard sent to Cholesky.
     worst = float(dense_inv._inverse_residual(M, factor["Minv"]).max())
     gate = dense_inv._REFINE_TOL_F32
+    flagged = int(factor["refine"].sum())
+    guarded = int((dense_inv._inverse_residual(M, k2.spd_inverse(M)) > dense_inv._GUARD_TOL_F32).sum())
     print(f"K2 headline factor: |I-M Minv|max after Newton-Schulz {worst:.3e}, refine gate {gate:g} "
-          f"({gate / worst:.2f}x above), refine flagged in {int(factor['refine'].sum())} of {B} instances")
+          f"({gate / worst:.2f}x above), refine flagged in {flagged} of {B} instances; residual guard sent "
+          f"{guarded} of {B} to Cholesky")
+    require(flagged == 0, f"the headline factor flags refine in {flagged} of {B} instances")
 
+    # n from 1 to the shared-memory bound in both dtypes, on the test's
+    # SPD matrices; two launches bit-identical.
+    rng = np.random.default_rng(0)
+    for dtype, rel_tol, sizes in ((torch.float32, 1e-4, (1, 7, 33, 100, 128, 239, 240)),
+                                  (torch.float64, 1e-11, (1, 7, 33, 100, 128, 168, 169))):
+        worst_n = 0.0
+        for nn in sizes:
+            G = rng.standard_normal((64, nn, nn))
+            Mn = torch.as_tensor(G @ G.transpose(0, 2, 1) / nn + 0.1 * np.eye(nn), dtype=dtype, device=dev)
+            Xa, Xb = k2.chol_inverse(Mn), k2.chol_inverse(Mn)
+            torch.cuda.synchronize()
+            require(torch.equal(Xa, Xb), f"K2's two launches differ at n={nn} in {dtype}")
+            _, rel = rel_err(Xa, k2.chol_inverse_plain(Mn))
+            require(rel <= rel_tol, f"K2 off by {rel:.3e} relative at n={nn} in {dtype}")
+            worst_n = max(worst_n, rel)
+        print(f"K2 chol_inverse B=64 {dtype_name(dtype)} n in {sizes}: worst relative difference {worst_n:.3e} "
+              f"(tol {rel_tol:g}); two launches bit-identical")
+
+    print(f"K2 chol_inverse n={n}: {k2.blocks_per_sm(n, torch.float32)} blocks per SM in float32, "
+          f"{k2.blocks_per_sm(n, torch.float64)} in float64")
     ms = cuda_ms(lambda: k2.chol_inverse(M), reps=10)
     plain_ms = cuda_ms(lambda: k2.chol_inverse_plain(M), reps=10)
     library_ms = cuda_ms(lambda: torch.linalg.inv(M), reps=10)
@@ -354,6 +387,16 @@ def phase_k2(dev):
     bound_ms, bound_by = bound(2 * 4 * B * n * n, {"float32": B * n**3})
     print(f"K2 chol_inverse B={B} n={n} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library torch.linalg.inv "
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms:.3f}")
+
+    # Above the bound, CVXQP2_M (n=1000): the library route that
+    # dense_inv.init takes there (torch's Cholesky, then Newton-Schulz),
+    # the yardstick of a later tiled K2.
+    for dtype in (torch.float64, torch.float32):
+        scaled, rs, _, dyn = prepared(*on_device(maros_dense("CVXQP2_M"), dtype, dev))
+        Mm = form_schur(scaled.P, scaled.A, dyn.sigma, rs.rho_vec)
+        lib_m = cuda_ms(lambda: k2.newton_schulz(Mm, dense_inv._chol_inverse(Mm)), reps=5)
+        print(f"K2 above max_n, CVXQP2_M B=1 n=1000 {dtype_name(dtype)}: library route (Cholesky, cholesky_inverse, "
+              f"Newton-Schulz) library_ms {lib_m:.4f}")
 
     # The Solver's shape: CVXQP2_S, B=1, n=100.
     for dtype, rel_tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
@@ -458,15 +501,25 @@ def phase_k4(dev):
     B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
     headline = make_qps(B, n, m)
     cvxqp = maros_dense("CVXQP2_M")
+    # the headline on the resident path in float32 and, with a larger
+    # cluster, in float64; CVXQP2_M on the split path in both dtypes
     cases = ((f"B={B} n={n} m={m} float32", headline, torch.float32),
+             (f"B={B} n={n} m={m} float64", headline, torch.float64),
              ("CVXQP2_M B=1 n=1000 m=1250 float64", cvxqp, torch.float64),
              ("CVXQP2_M B=1 n=1000 m=1250 float32", cvxqp, torch.float32))
     stats = {}
     for label, arrays, dtype in cases:
         args = on_device(arrays, dtype, dev)
+        B_, n_, m_ = args[2].shape[0], args[2].shape[2], args[2].shape[1]
+        k = k4.cluster_size(n_, m_, dtype)
+        path = f"resident, clusters of {k}" if k else "split"
+        before = k4.launches_resident
         outk = k4.ruiz(*args, 10)
+        again = k4.ruiz(*args, 10)
         outp = k4.ruiz_plain(*args, 10)
         torch.cuda.synchronize()
+        require((k4.launches_resident - before == 2) == (k > 0), f"K4 took the wrong path at {label}")
+        require(all(torch.equal(a, b) for a, b in zip(outk, again)), f"K4's two launches differ at {label}")
         tol = {"float64": 1e-12, "float32": 1e-6}[dtype_name(dtype)]
         for name, gk, gp in zip(("D", "E"), outk[1:3], outp[1:3]):
             require(torch.equal(gk, gp), f"K4 {name} differs from the plain version's at {label}")
@@ -477,15 +530,21 @@ def phase_k4(dev):
             worst, err = max(worst, rel), max(err, diff)
         ms = cuda_ms(lambda: k4.ruiz(*args, 10), reps=10)
         plain_ms = cuda_ms(lambda: k4.ruiz_plain(*args, 10), reps=10)
-        B_, n_, m_ = args[2].shape[0], args[2].shape[2], args[2].shape[1]
         elt = args[0].element_size()
         # P, q, A, l, u read and written scaled once, D, E, c written; about three operations per matrix
         # value in each of 10 sweeps and two in the final scaling
         bound_ms, bound_by = bound(elt * B_ * (2 * (n_ * n_ + m_ * n_ + n_ + 2 * m_) + n_ + m_ + 1),
                                    {dtype_name(dtype): 32 * B_ * (n_ * n_ + m_ * n_)})
-        print(f"K4 ruiz {label}: D, E bit-identical; worst relative difference over c, P, q, A, l, u "
-              f"{worst:.3e} (tol {tol:g}), |k-p|max {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-              f"bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms:.3f}")
+        print(f"K4 ruiz {label}: {path}; D, E bit-identical; two launches bit-identical; worst relative difference "
+              f"over c, P, q, A, l, u {worst:.3e} (tol {tol:g}), |k-p|max {err:.3e}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms:.3f}")
+        if k and B_ == B:
+            # every cluster size that fits this shape, for the choice of k
+            sizes = [c for c in (1, 2, 4, 8) if k4.fits(n_, m_, c, dtype)]
+            times = {c: cuda_ms(lambda: k4.launch(*args, 10, c), reps=10) for c in sizes}
+            print(f"K4 ruiz {label}, resident path by cluster size: "
+                  + ", ".join(f"k={c} {t:.4f} ms ({k4.resident_clusters(n_, m_, c, dtype)} clusters resident)"
+                              for c, t in times.items()) + f" (chosen k={k})")
         stats[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=None)
     return stats[cases[0][0]]
@@ -706,6 +765,7 @@ def phase_headline(dev):
     require(x.shape == (B, n) and res.y.shape == (B, m), "result shapes")
     for name in ("admm_iter", "chol_inverse", "ruiz", "term_products"):
         require(launches[name] > 0, f"{name}, a kernel of the batched path, never launched")
+    require(launches["ruiz_resident"] == launches["ruiz"], "the headline's K4 did not take the resident path")
 
     times = []
     for _ in range(5):
@@ -879,7 +939,9 @@ def main() -> int:
         dict(name="chol_inverse", route="cuda", source="osqp_tpu_torch/csrc/chol_inverse.cu",
              replaces="osqp_tpu/ops/spd_inverse.py:167", launches=launches["chol_inverse"], **k2_stats),
         dict(name="ruiz", route="cuda", source="osqp_tpu_torch/csrc/ruiz.cu",
-             replaces="osqp_tpu/scaling.py:51", launches=launches["ruiz"], **k4_stats),
+             replaces="osqp_tpu/scaling.py:51", launches=launches["ruiz"],
+             launches_resident=launches["ruiz_resident"], launches_split=launches["ruiz"] - launches["ruiz_resident"],
+             **k4_stats),
         dict(name="term_products", route="cuda", source="osqp_tpu_torch/csrc/term_products.cu",
              replaces="osqp_tpu/termination.py:47", launches=launches["term_products"], **k3_stats),
     ]

@@ -30,18 +30,24 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 # Bytes of shared memory one block may use on sm_90 (227 KB): K2 sizes
-# its largest matrix by it.
+# its largest matrix by it.  An SM holds 228 KB, of which each resident
+# block reserves 1 KB: K4 sizes its cluster shares by these.
 SMEM_BYTES = 232_448
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_BLOCK = 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-# (name, argument types); every function returns a cudaError_t as int.
+# (name, argument types); every function returns an int: the launchers
+# a cudaError_t, the occupancy queries a count.
 _SIGNATURES = {
+    "osqp_ruiz_resident_clusters": (_I,) * 4,
+    "osqp_chol_inverse_blocks_per_sm": (_I,) * 2,
     "osqp_chol_inverse": (_I, _P, _P, _I, _I, _P),
     "osqp_admm_iter": (_I,) + (_P,) * 20 + (_D, _D, _I, _I, _I, _I, _P),
     "osqp_admm_iter_refined": (_I,) + (_P,) * 22 + (_D, _D, _I, _I, _I, _I, _P),
-    "osqp_ruiz": (_I,) + (_P,) * 17 + (_I,) * 6 + (_P,),
+    "osqp_ruiz": (_I,) + (_P,) * 17 + (_I,) * 7 + (_P,),
     "osqp_term_products": (_I,) + (_P,) * 11 + (_I,) * 5 + (_P,),
 }
 

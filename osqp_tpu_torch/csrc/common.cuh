@@ -20,6 +20,7 @@ constexpr int kPerLane = 8;              // columns a lane takes in the split ke
 constexpr int kChunk = 32 * kPerLane;    // columns one block of a split kernel takes
 constexpr int kMaxTileRows = 4096;       // rows of a tile of the split ADMM passes (K1, K1r)
 constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory above this needs an opt-in
+constexpr int kMaxSmem = 232448;          // shared memory one block may use (227 KB)
 
 // Each operation rounded on its own, as PyTorch rounds it: nvcc may not
 // contract these into fused multiply-adds.
@@ -72,6 +73,14 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
 
+// Ask for the largest shared-memory carveout of the SM for a kernel whose
+// blocks hold their data in shared memory, so that as many fit an SM as
+// its shared memory allows.
+template <typename Kernel>
+cudaError_t prefer_shared(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+}
+
 // ---------------------------------------------------------------------------
 // Hopper's bulk copies (cp.async.bulk, the TMA's 1-D form) on mbarriers.
 // ---------------------------------------------------------------------------
@@ -111,6 +120,25 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
                    smem_addr(dst)),
                "l"(src), "r"(bytes), "r"(smem_addr(bar))
                : "memory");
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// shared memory to device memory, as one bulk group of this thread.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_addr(src)),
+               "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Make this thread's writes to shared memory visible to bulk copies.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // A ring of kStages slots in shared memory, each holding kWarps rows of

@@ -32,6 +32,9 @@ from .dense_chol import form_schur
 # the refined loop body (osqp_tpu/linsys/dense_inv.py:73-86).
 _REFINE_TOL_F32 = 3e-6
 _REFINE_TOL_F64 = 1e-12
+# Residual guard: K2's instances above this go through Cholesky.
+_GUARD_TOL_F32 = 1e-3
+_GUARD_TOL_F64 = 1e-8
 
 
 def _chol_inverse(M: torch.Tensor) -> torch.Tensor:
@@ -63,7 +66,7 @@ def init(P, A, sigma, rho_vec):
         # their inverse bit for bit.  NaN (non-PD) does not trigger it:
         # NaN is the convexity signal, and Cholesky would give it too.
         resid = _inverse_residual(M, X)
-        bad = resid > (1e-3 if M.dtype == torch.float32 else 1e-8)
+        bad = resid > (_GUARD_TOL_F32 if M.dtype == torch.float32 else _GUARD_TOL_F64)
         Minv = X
         if bool(bad.any()):
             eye = torch.eye(n, dtype=M.dtype, device=M.device)

@@ -8,6 +8,13 @@ column and row maxima of the scaled KKT matrix straight from P and A
 final pass; for CPU tensors it runs :func:`ruiz_plain`, the same
 function in plain PyTorch.
 
+Two paths on the card.  Where one instance's P and A fit the shared
+memory of a thread-block cluster (:func:`cluster_size` > 0), the
+resident path holds them there through all sweeps and reads each value
+from device memory once; otherwise the split path spreads an instance
+over blocks and re-reads P and A each sweep.  ``launches`` counts every
+launch, ``launches_resident`` those that took the resident path.
+
 The maxima do not depend on their order, and the cost normalisation's
 mean is taken as the same pairwise sum (:func:`tree_sum`) in both
 versions, so c, D and E come out equal bit for bit on one device.
@@ -23,8 +30,58 @@ from ..constants import MAX_SCALING, MIN_SCALING
 # Shared-memory bound of the kernel's pairwise sum: one value per
 # column, padded to a power of two.
 _MAX_N = 16384
+# The resident path: a lane keeps up to 16 columns (n <= 512), clusters
+# of 1, 2, 4 or 8 CTAs (8 is the portable limit), and a CTA's share of
+# shared memory small enough that two fit one SM.
+_RESIDENT_MAX_N = 512
+_WARPS = 8  # warps of a CTA (csrc/common.cuh kWarps)
+_CLUSTERS = (1, 2, 4, 8)
+CTA_BUDGET = _build.SMEM_PER_SM // 2 - _build.SMEM_RESERVED_PER_BLOCK
 
 launches = 0
+launches_resident = 0
+
+
+def _resident_bytes(n: int, m: int, k: int, elt: int) -> int:
+    """Shared memory of one CTA of the resident path with clusters of k
+    CTAs (``Resident`` in csrc/ruiz.cu): a 16-byte mbarrier slot, then
+    regions of values, each rounded up to 16 bytes: the shares of P and A
+    (with 16 bytes of slack on each side for their aligned bulk copies),
+    D, Pcol, |q|, two sets of column maxima of A and of P, the pairwise
+    sum's n values padded to a power of two, E and the row maxima of the
+    CTA's rows of A, and a value per warp."""
+    pad = 16 // elt
+    rows_p, rows_a = -(-n // k), -(-m // k)
+    width = 1 << max(n - 1, 0).bit_length()
+    regions = (rows_p * n + 2 * pad, rows_a * n + 2 * pad, n, n, n, 2 * n, 2 * n, width, rows_a, rows_a, _WARPS)
+    return 16 + elt * sum(-(-r // pad) * pad for r in regions)
+
+
+def fits(n: int, m: int, k: int, dtype) -> bool:
+    """Can the resident path run with clusters of k CTAs at all (one CTA
+    per SM at most, where the share is above :data:`CTA_BUDGET`)?"""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return k in _CLUSTERS and 1 <= n <= _RESIDENT_MAX_N and _resident_bytes(n, m, k, elt) <= _build.SMEM_BYTES
+
+
+def resident_clusters(n: int, m: int, k: int, dtype) -> int:
+    """How many clusters of k CTAs of the resident path the current CUDA
+    card holds at once (the CUDA occupancy query)."""
+    return _build.library().osqp_ruiz_resident_clusters(_build.dtype_code(dtype), n, m, k)
+
+
+def cluster_size(n: int, m: int, dtype) -> int:
+    """CTAs per cluster of K4's resident path for instances of n
+    variables and m constraints: the smallest of 1, 2, 4, 8 whose
+    per-CTA share fits :data:`CTA_BUDGET`, or 0 where none does (the
+    split path)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    if not 1 <= n <= _RESIDENT_MAX_N:
+        return 0
+    for k in _CLUSTERS:
+        if _resident_bytes(n, m, k, elt) <= CTA_BUDGET:
+            return k
+    return 0
 
 
 def limit_scaling(v: torch.Tensor) -> torch.Tensor:
@@ -69,7 +126,6 @@ def _validate(P, q, A, l, u) -> None:
 def ruiz(P, q, A, l, u, n_iters: int):
     """``n_iters`` Ruiz sweeps and the final scaling.  Returns
     (c (B,), D (B, n), E (B, m), c·DPD, c·Dq, EAD, El, Eu)."""
-    global launches
     _validate(P, q, A, l, u)
     if q.device.type == "cpu":
         return ruiz_plain(P, q, A, l, u, n_iters)
@@ -77,17 +133,34 @@ def ruiz(P, q, A, l, u, n_iters: int):
         raise ValueError(f"ruiz runs on CPU or CUDA tensors, not {q.device}")
     if not all(t.is_contiguous() for t in (P, q, A, l, u)):
         raise ValueError("ruiz takes contiguous tensors")
+    return launch(P, q, A, l, u, n_iters, cluster_size(q.shape[1], l.shape[1], q.dtype))
+
+
+def launch(P, q, A, l, u, n_iters: int, cluster: int):
+    """The kernel on validated contiguous CUDA tensors: the resident path
+    with clusters of ``cluster`` CTAs, or the split path where it is 0.
+    :func:`ruiz` chooses; a caller may name another cluster size that
+    fits (``chip_smoke.py`` times them)."""
+    global launches, launches_resident
     B, n = q.shape
     m = l.shape[1]
     dtype, dev = q.dtype, q.device
+    if dev.type != "cuda":
+        raise ValueError(f"ruiz.launch runs the kernel on CUDA tensors, not {dev}")
+    if cluster and not fits(n, m, cluster, dtype):
+        raise ValueError(f"ruiz: no resident path with clusters of {cluster} at n = {n}, m = {m} in {dtype}")
     c = torch.ones(B, dtype=dtype, device=dev)
     D = torch.ones((B, n), dtype=dtype, device=dev)
     E = torch.ones((B, m), dtype=dtype, device=dev)
     outs = tuple(torch.empty_like(t) for t in (P, q, A, l, u))
-    # Scratch: the maxima as bit patterns (zero = +0.0) and P's column norm.
-    col_a, col_p, p_col = (torch.zeros((B, n), dtype=dtype, device=dev) for _ in range(3))
-    row_a = torch.zeros((B, m), dtype=dtype, device=dev)
-    _, rows_a, rows_p = _build.split_geometry(B, n, m, dev)
+    if cluster:
+        scratch, rows_a, rows_p = (None,) * 4, 0, 0
+    else:
+        # Scratch: the maxima as bit patterns (zero = +0.0) and P's column norm.
+        col_a, col_p, p_col = (torch.zeros((B, n), dtype=dtype, device=dev) for _ in range(3))
+        row_a = torch.zeros((B, m), dtype=dtype, device=dev)
+        scratch = tuple(t.data_ptr() for t in (col_a, row_a, col_p, p_col))
+        _, rows_a, rows_p = _build.split_geometry(B, n, m, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.osqp_ruiz(
@@ -95,11 +168,12 @@ def ruiz(P, q, A, l, u, n_iters: int):
             *(t.data_ptr() for t in (P, q, A, l, u)),
             *(t.data_ptr() for t in (c, D, E)),
             *(t.data_ptr() for t in outs),
-            *(t.data_ptr() for t in (col_a, row_a, col_p, p_col)),
-            int(n_iters), B, n, m, rows_a, rows_p, _build.stream(),
+            *scratch,
+            int(n_iters), B, n, m, rows_a, rows_p, int(cluster), _build.stream(),
         )
     _build.check(code, "ruiz")
     launches += 1
+    launches_resident += bool(cluster)
     Ps, qs, As, ls, us = outs
     return c, D, E, Ps, qs, As, ls, us
 

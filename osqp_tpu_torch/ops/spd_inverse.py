@@ -32,6 +32,12 @@ def max_n(dtype: torch.dtype) -> int:
     return math.isqrt(values + 1) - 1  # n*n + 2n = (n+1)^2 - 1
 
 
+def blocks_per_sm(n: int, dtype: torch.dtype) -> int:
+    """How many blocks of the kernel one SM of the current CUDA card holds
+    at once at n (the CUDA occupancy query)."""
+    return _build.library().osqp_chol_inverse_blocks_per_sm(_build.dtype_code(dtype), n)
+
+
 def _validate(M: torch.Tensor) -> None:
     if M.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"chol_inverse takes float32 or float64, not {M.dtype}")

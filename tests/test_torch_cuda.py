@@ -53,25 +53,37 @@ def _qps(B, n, m, seed=0):
     return P, q, A, Ax - spread - 0.1, Ax + spread + 0.1
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
-@pytest.mark.parametrize("n", [1, 7, 33, 100])
+# n from 1 to K2's shared-memory bound (240 in float32, 169 in float64):
+# odd n, one panel, several panels with a ragged last one, whole panels,
+# and the bound, where the leading dimension cannot be padded.
+K2_CASES = [(torch.float32, 1e-4, n) for n in (1, 7, 33, 100, 128, 239, 240)] + [
+    (torch.float64, 1e-11, n) for n in (1, 7, 33, 100, 128, 168, 169)]
+
+
+@pytest.mark.parametrize("dtype,tol,n", K2_CASES)
 def test_k2_kernel_matches_plain(dev, dtype, tol, n):
-    M = _spd(16, n, dtype).to(dev)
+    """K2 against its plain version; two launches give the same bits."""
+    M = _spd(13, n, dtype).to(dev)
     before = k2.launches
-    Xk = k2.chol_inverse(M)
+    Xk, again = k2.chol_inverse(M), k2.chol_inverse(M)
     torch.cuda.synchronize()
-    assert k2.launches == before + 1
+    assert k2.launches == before + 2
+    assert torch.equal(Xk, again)
     Xp = k2.chol_inverse_plain(M)
     assert float((Xk - Xp).abs().max()) <= tol * float(Xp.abs().max())
 
 
 def test_k2_kernel_at_its_bound_and_nan_on_non_pd(dev):
+    """A negative diagonal, and a positive diagonal with a pivot that is
+    not positive in the second panel, give NaN in the whole instance."""
     n = k2.max_n(torch.float64)
-    M = _spd(2, n, torch.float64).to(dev)
+    M = _spd(3, n, torch.float64).to(dev)
     M[1, 3, 3] = -1.0
+    big = 10.0 * float(torch.sqrt(M[2, 20, 20] * M[2, 21, 21]))
+    M[2, 20, 21] = M[2, 21, 20] = big
     X = k2.chol_inverse(M)
     torch.cuda.synchronize()
-    assert torch.isnan(X[1]).all()
+    assert torch.isnan(X[1]).all() and torch.isnan(X[2]).all()
     Xp = k2.chol_inverse_plain(M[:1])
     assert float((X[:1] - Xp).abs().max()) <= 1e-10 * float(Xp.abs().max())
 
@@ -170,18 +182,70 @@ def _rel(got, want):
 SPLIT_SHAPES = [(16, 7, 5), (1, 300, 260), (2, 40, 0), (64, 100, 200)]
 
 
+def _cluster_boundary(dtype):
+    """The last square instance that fits a cluster in ``dtype``, and the
+    first that does not (a host computation: no card needed)."""
+    last = max(n for n in range(1, 513) if k4.cluster_size(n, n, dtype))
+    return [(1, last, last), (1, last + 1, last + 1)]
+
+
+# (B, n, m) for K4: resident with one CTA per cluster (k = 1), n = 1
+# and no constraints, the headline shape (k = 2 in float32, 4 in
+# float64), several column chunks on the split path (n > 512), and the
+# last square shape that fits a cluster and the first that does not, in
+# float32 and in float64 (each run in both dtypes).
+K4_SHAPES = [(16, 7, 5), (3, 1, 0), (2, 40, 0), (64, 100, 200), (1, 300, 260), (1, 600, 100)] + \
+    _cluster_boundary(torch.float32) + _cluster_boundary(torch.float64)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-12)])
-@pytest.mark.parametrize("B,n,m", SPLIT_SHAPES)
+@pytest.mark.parametrize("B,n,m", K4_SHAPES)
 def test_k4_kernel_matches_plain(dev, dtype, tol, B, n, m):
+    """K4 against its plain version on the path cluster_size picks: D
+    and E bit for bit, two launches bit-identical, and the resident
+    counter moved exactly where the shape fits a cluster."""
     args = [t.to(dev) for t in (torch.as_tensor(a, dtype=dtype) for a in _qps(B, n, m, seed=4))]
-    before = k4.launches
-    outk = k4.ruiz(*args, 10)
+    k = k4.cluster_size(n, m, dtype)
+    if (B, n, m) == (64, 100, 200):
+        assert k > 1
+    before = (k4.launches, k4.launches_resident)
+    outk, again = k4.ruiz(*args, 10), k4.ruiz(*args, 10)
     torch.cuda.synchronize()
-    assert k4.launches == before + 1
+    assert (k4.launches, k4.launches_resident) == (before[0] + 2, before[1] + (2 if k else 0))
+    assert all(torch.equal(a, b) for a, b in zip(outk, again))
     outp = k4.ruiz_plain(*args, 10)
     assert torch.equal(outk[1], outp[1]) and torch.equal(outk[2], outp[2])  # D, E bit for bit
     for got, want in zip(outk[:1] + outk[3:], outp[:1] + outp[3:]):
         assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k4_resident_path_takes_rows_that_are_not_16_byte_aligned(dev, dtype):
+    """Contiguous views that start one value into their storage: the
+    resident path reads them without 16-byte loads, and still gives the
+    plain version's D and E."""
+    def offset_view(a):
+        t = torch.as_tensor(a, dtype=dtype).to(dev)
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+    args = [offset_view(a) for a in _qps(16, 100, 200, seed=7)]
+    assert args[0].data_ptr() % 16 and k4.cluster_size(100, 200, dtype)
+    outk, outp = k4.ruiz(*args, 10), k4.ruiz_plain(*args, 10)
+    assert torch.equal(outk[1], outp[1]) and torch.equal(outk[2], outp[2])
+    assert _rel(outk[3], outp[3]) <= 1e-6 and _rel(outk[5], outp[5]) <= 1e-6
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_k4_every_cluster_size_matches_plain(dev, k):
+    """The resident path gives the plain version's D and E at the
+    headline shape in float32 with every cluster size, cluster_size's
+    choice (2) among them: k = 1 fits a block, one CTA per SM."""
+    args = [t.to(dev) for t in (torch.as_tensor(a, dtype=torch.float32) for a in _qps(8, 100, 200, seed=6))]
+    outk = k4.launch(*args, 10, k)
+    outp = k4.ruiz_plain(*args, 10)
+    assert torch.equal(outk[1], outp[1]) and torch.equal(outk[2], outp[2])
+    assert _rel(outk[3], outp[3]) <= 1e-6 and _rel(outk[5], outp[5]) <= 1e-6
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])

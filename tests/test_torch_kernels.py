@@ -298,3 +298,34 @@ def test_cpu_tensors_launch_no_kernel():
     k3.term_products(**_k3_args())
     k1.admm_iter_refined(**_k1r_args())
     assert (k1.refined_launches, k3.launches, k4.launches) == before
+
+
+# (n, m, dtype, expected cluster size): the headline shape in both dtypes,
+# CVXQP2_S (the Solver's K2 shape), CVXQP2_M (split path in both), no
+# constraints, n = 1, a single wide row, and n above a lane's 512 columns.
+@pytest.mark.parametrize(
+    "n,m,dtype,want",
+    [
+        (100, 200, torch.float32, 2),
+        (100, 200, torch.float64, 4),
+        (100, 125, torch.float64, 2),
+        (1000, 1250, torch.float32, 0),
+        (1000, 1250, torch.float64, 0),
+        (40, 0, torch.float32, 1),
+        (1, 0, torch.float64, 1),
+        (1, 3, torch.float32, 1),
+        (513, 0, torch.float32, 0),
+    ],
+)
+def test_ruiz_cluster_size(n, m, dtype, want):
+    """K4's resident path: the smallest cluster whose per-CTA share fits
+    the two-CTAs-per-SM budget, 0 (the split path) where none does."""
+    k = k4.cluster_size(n, m, dtype)
+    assert k == want
+    elt = torch.empty((), dtype=dtype).element_size()
+    if k:
+        assert k4._resident_bytes(n, m, k, elt) <= k4.CTA_BUDGET
+        assert 2 * (k4.CTA_BUDGET + 1024) <= 233_472  # two CTAs fit one SM
+    smaller = [c for c in (1, 2, 4, 8) if c < k] if k else [1, 2, 4, 8] * (n <= 512)
+    for c in smaller:
+        assert k4._resident_bytes(n, m, c, elt) > k4.CTA_BUDGET

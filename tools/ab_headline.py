@@ -8,7 +8,10 @@ unpacked with ``git archive`` and this tree: ``old . . old``, so that
 drift on the card falls on both sides).  Each runs in a process of its
 own, which builds that checkout's kernels, then times on chip_smoke.py's
 headline data (B=8192, n=100, m=200, float32): K1 (``admm_iter``) with
-every instance active, mean of 50 warm calls by CUDA events; and
+every instance active, mean of 50 warm calls by CUDA events; K4
+(``ruiz``, 10 sweeps) and K2 (``chol_inverse`` of the headline's Schur
+matrices), mean of 10 warm calls each; the setup (scaling, rho state and
+factor, as chip_smoke.py's headline phase times it), mean of 3; and
 ``solve_batch`` 5 times, median and spread.  Prints the card, then one
 JSON line per checkout.  Imports nothing of JAX.
 """
@@ -36,6 +39,18 @@ args = (factor["Minv"], factor["AMinvT"], scaled.A, scaled.q, scaled.l, scaled.u
         torch.randn_like(z))
 k1_ms = cs.cuda_ms(lambda: k1.admm_iter(*args), reps=50)
 P, q, A, l, u = cs.on_device(cs.make_qps(B, n, m), torch.float32, dev)
+from osqp_tpu_torch import batch, solver
+from osqp_tpu_torch.linsys.dense_chol import form_schur
+from osqp_tpu_torch.ops import ruiz as k4, spd_inverse as k2
+from osqp_tpu_torch.types import DynSettings
+k4_ms = cs.cuda_ms(lambda: k4.ruiz(P, q, A, l, u, 10), reps=10)
+M = form_schur(scaled.P, scaled.A, dyn.sigma, rs.rho_vec)
+k2_ms = cs.cuda_ms(lambda: k2.chol_inverse(M), reps=10)
+s = solver.Settings(**cs.SOLVE_KW)
+cfg = solver.make_config(n, m, s, torch.float32)
+dyn0 = DynSettings.make(torch.float32)
+rho0 = torch.full((B,), s.rho, dtype=torch.float32, device=dev)
+setup_ms = cs.cuda_ms(lambda: batch._prepare(cfg, s.scaling, P, q, A, l, u, rho0, dyn0, None, None), reps=3, warmup=1)
 res = ot.solve_batch(P, q, A, l, u, **cs.SOLVE_KW)
 times = []
 for _ in range(5):
@@ -46,7 +61,8 @@ for _ in range(5):
     torch.cuda.synchronize()
     times.append(start.elapsed_time(stop))
 solved = float((res.status_val == ot.OSQP_SOLVED).float().mean())
-print(json.dumps({"root": sys.argv[1], "k1_all_active_ms": k1_ms, "solve_median_ms": statistics.median(times),
+print(json.dumps({"root": sys.argv[1], "k1_all_active_ms": k1_ms, "k4_ms": k4_ms, "k2_ms": k2_ms,
+                  "setup_ms": setup_ms, "solve_median_ms": statistics.median(times),
                   "solve_ms": times, "solved": solved, "max_iter": int(res.iter.max())}))
 """
 
