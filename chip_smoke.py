@@ -55,10 +55,49 @@ failure ends the run with a non-zero exit and no result line:
     after ``update_lin_cost`` held against the same sequence on the CPU;
     launch counts, loop body and times per solve; one more CVXQP2_M
     solve per dtype under the profiler, for ms per iteration and the
-    K1/K1r device time per iteration.
+    K1/K1r device time per iteration;
+11. K8 (kkt_lu_factor, kkt_lu_solve) against its plain versions: the
+    ADMM-form K of the benchmark's data at B=512, N=75 in float64 and
+    float32 (perm equal, lu and the solve within RTOL), the polish-form
+    K_delta (delta 1e-6, the rows of A outside the active set that polish
+    guesses at the ADMM point zeroed) of the headline data at B=8192,
+    N=300 in float32 and of CVXQP2_S and CVXQP2_M at B=1, N=225 and
+    2250, in both dtypes; at every shape perm equal and lu within RTOL;
+    the solve of b = K x_true (x_true standard normal, so that the
+    solution is known and O(1)) held three ways: its row-wise backward
+    error against the factors it read under 8 sqrt(N) eps, its backward error
+    against K under BACKWARD_BOUND, and its forward errors over the
+    batch (64 right-hand sides at B=1), quantile by quantile, within
+    RTOL plus three times the plain solve's (cond(K) sets both); two
+    launches bit-identical; kernel,
+    plain and library (torch.linalg.lu_factor, lu_solve) times beside
+    the bounds;
+12. polish, batched: the headline batch through ``solve_batch`` with
+    polish off and on in one call: equal statuses and iterations, the
+    share of status_polish == 1, every polished instance's residuals no
+    larger than its ADMM residuals, K8 launched 4 + 16 times, polish ms;
+    the same at B=512 with ``polish_dtype="float64"``; and the GPU
+    against the CPU plain path in float64 at B=64, n=20, m=30;
+13. polish, Solver: CVXQP2_S and CVXQP2_M with ``polish=True`` in both
+    dtypes against the JAX package's results in
+    ``tests/data/torch_goldens/solver_maros_polish.npz``: status,
+    iterations, and at CVXQP2_S status_polish, x and y (float64 1e-6;
+    float32 x 1e-3, y 1e-2); at CVXQP2_M, where the JAX package's polish
+    is rejected and its x, y are the ADMM point, the objective to 1e-5
+    and x to 1e-3; an accepted polish is also held to the optimum: its
+    residuals recomputed in numpy float64, and x and the objective
+    against the JAX package's float64 solve at eps 1e-10 (1e-7 in
+    float64, 1e-5 in float32);
+14. the kkt_lu backend: the headline data at B=1024 and CVXQP2_S
+    through ``linsys_solver="kkt_lu"`` against the ``dense_inv`` run.
 
 The line before the last is a JSON object of the kernels; the last line
 is the device JSON object.
+
+``python3 chip_smoke.py --only k8,polish_solver`` runs the build and the
+named phases alone (names: the ``phase_*`` functions' suffixes), for a
+short look at one kernel on the card; it prints no result line and exits
+with code 2, since a partial run proves nothing of the whole.
 """
 
 from __future__ import annotations
@@ -77,6 +116,7 @@ SOLVE_KW = dict(dtype="float32", verbose=False, polish=False, eps_abs=1e-3, eps_
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MAROS = os.path.join(ROOT, "tests", "data", "maros_mm")
 GOLDENS = os.path.join(ROOT, "tests", "data", "torch_goldens", "solver_maros.npz")
+POLISH_GOLDENS = os.path.join(ROOT, "tests", "data", "torch_goldens", "solver_maros_polish.npz")
 # Relative tolerances of a kernel against its plain version (largest
 # difference over the largest plain value): order of summation differs.
 RTOL = {"float64": 1e-12, "float32": 1e-5}
@@ -84,6 +124,9 @@ RTOL = {"float64": 1e-12, "float32": 1e-5}
 # (cond(M) ~ 4.7e3): a float64 residual gives ~4e-8 there, a float32
 # residual ~3e-7.
 F64_RESIDUAL_BOUND = 1e-7
+# Bound on the backward error |K x - b|max / (|K|inf |x|max) of K8's solve:
+# a stable LU stays within a modest multiple of the unit roundoff.
+BACKWARD_BOUND = {"float64": 1e-13, "float32": 1e-5}
 
 
 def require(ok: bool, what: str) -> None:
@@ -287,16 +330,18 @@ def maros_dense(name):
 
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from osqp_tpu_torch.ops import admm_iter as k1, ruiz as k4, spd_inverse as k2, term_products as k3
+    from osqp_tpu_torch.ops import admm_iter as k1, kkt_lu as k8, ruiz as k4, spd_inverse as k2, term_products as k3
 
     k1.launches = k1.refined_launches = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
+    k8.launches_factor = k8.launches_solve = 0
 
 
 def read_counts() -> dict:
-    from osqp_tpu_torch.ops import admm_iter as k1, ruiz as k4, spd_inverse as k2, term_products as k3
+    from osqp_tpu_torch.ops import admm_iter as k1, kkt_lu as k8, ruiz as k4, spd_inverse as k2, term_products as k3
 
     return {"admm_iter": k1.launches, "admm_iter_refined": k1.refined_launches, "chol_inverse": k2.launches,
-            "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches}
+            "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches,
+            "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve}
 
 
 def prepared(P, q, A, l, u):
@@ -766,6 +811,7 @@ def phase_headline(dev):
     for name in ("admm_iter", "chol_inverse", "ruiz", "term_products"):
         require(launches[name] > 0, f"{name}, a kernel of the batched path, never launched")
     require(launches["ruiz_resident"] == launches["ruiz"], "the headline's K4 did not take the resident path")
+    require(launches["kkt_lu_factor"] == launches["kkt_lu_solve"] == 0, "K8 launched with polish off")
 
     times = []
     for _ in range(5):
@@ -891,8 +937,370 @@ def phase_solver(dev):
 
     print(f"Solver path launches: {total}")
     for name, n_launch in total.items():
-        require(n_launch > 0, f"{name} never launched on the Solver path")
+        if name.startswith("kkt_lu"):  # polish is off here: K8 must stay out of it
+            require(n_launch == 0, f"{name} launched on the Solver path with polish off")
+        else:
+            require(n_launch > 0, f"{name} never launched on the Solver path")
     return total
+
+
+def polish_kkt(args, dtype, delta=1e-6):
+    """The K_delta that polish's first pass factors for the problems
+    ``args`` (P, q, A, l, u on the card): they are solved with polish off,
+    the active set is guessed at the ADMM point as polish guesses it
+    (lower where z - l < -y, upper where u - z < y), and the other rows of
+    the scaled A are zeroed.  Returns K_delta and the active rows per
+    instance."""
+    import torch
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch.linsys import kkt_lu
+
+    P, q, A, l, u = args
+    res = ot.solve_batch(*args, **{**SOLVE_KW, "dtype": dtype_name(dtype)})
+    z = torch.minimum(torch.maximum(torch.bmm(A, res.x[:, :, None])[:, :, 0], l), u)
+    mask = ((z - l < -res.y) | (u - z < res.y)).to(dtype)
+    del res
+    scaled, _, _, _ = prepared(*args)
+    dvec = torch.full(mask.shape, delta, dtype=dtype, device=A.device)
+    return kkt_lu.form_kkt(scaled.P, mask[:, :, None] * scaled.A, delta, dvec).contiguous(), mask.sum(-1)
+
+
+def k8_cost(B, N, dtype):
+    """((bytes, operations) of the factor, of the solve): K read and lu
+    written once and (2/3) N^3 operations an instance; lu, perm and b read
+    and x written once and 2 N^2 operations."""
+    name = dtype_name(dtype)
+    elt = 4 if name == "float32" else 8
+    factor = (B * (2 * elt * N * N + 4 * N), {name: 2 * B * N**3 // 3})
+    solve = (B * (elt * N * N + 4 * N + 2 * elt * N), {name: 2 * B * N * N})
+    return factor, solve
+
+
+def phase_k8(dev):
+    import torch
+
+    from osqp_tpu_torch.linsys import kkt_lu
+    from osqp_tpu_torch.ops import kkt_lu as k8
+
+    def compare(K, label):
+        """Factor and solve against the plain versions; returns the
+        largest |lu_k - lu_p| and the largest |x_k - x_p|.  The right-hand
+        side is K x_true for a standard normal x_true, so that the solution
+        is known and O(1) in every component: under a random b the masked
+        rows of K_delta give |x| ~ b / delta, and a tolerance relative to
+        that largest entry could not fail a wrong solve."""
+        name = dtype_name(K.dtype)
+        lu, perm = k8.kkt_lu_factor(K)
+        lu2, perm2 = k8.kkt_lu_factor(K)
+        lp, pp = k8.kkt_lu_factor_plain(K)
+        require(torch.equal(lu, lu2) and torch.equal(perm, perm2), f"K8's two factor launches differ at {label}")
+        del lu2, perm2
+        same_perm, same_lu = torch.equal(perm, pp), torch.equal(lu, lp)
+        err, rel = rel_err(lu, lp)
+        # A small batch is solved for 64 right-hand sides, each on a copy of
+        # the factors, so that the forward errors below have a distribution
+        # at B=1 too: one sample of a forward error says little.
+        copies = max(1, 64 // K.shape[0])
+        if copies > 1:
+            K, lu, perm, lp, pp = (t.repeat(copies, *[1] * (t.dim() - 1)) for t in (K, lu, perm, lp, pp))
+        K64 = K.double()
+        x_true = torch.randn(K.shape[:2], generator=torch.Generator(device=dev).manual_seed(7), dtype=torch.float64,
+                             device=dev)
+        b64 = torch.bmm(K64, x_true[:, :, None])[:, :, 0]
+        b = b64.to(K.dtype)
+        x, x2 = k8.kkt_lu_solve(lu, perm, b), k8.kkt_lu_solve(lu, perm, b)
+        xp = k8.kkt_lu_solve_plain(lp, pp, b)
+        torch.cuda.synchronize()
+        require(torch.equal(x, x2), f"K8's two solve launches differ at {label}")
+        require(bool(torch.isfinite(lu).all()) and bool(torch.isfinite(x).all()), f"K8 is not finite at {label}")
+        err_x, rel_x = rel_err(x, xp)
+        x64, xp64, scale = x.double(), xp.double(), x_true.abs().amax(-1)
+        resid = (torch.bmm(K64, x64[:, :, None])[:, :, 0] - b.double()).abs().amax(-1)
+        backward = float((resid / (K64.abs().sum(-1).amax(-1) * x64.abs().amax(-1))).max())
+        del K64
+        # The substitutions alone, whatever cond(K) is: against the factors
+        # they read, both triangular solves are backward stable row by row,
+        # |L U x - b[perm]| <= c N eps (|L| |U| |x| + |b[perm]|); held to the
+        # probabilistic form of that bound, 8 sqrt(N) eps.
+        lu64 = lu.double()
+        U, L = torch.triu(lu64), torch.tril(lu64, -1)
+        del lu64
+        L.diagonal(dim1=-2, dim2=-1).fill_(1.0)
+        pb = torch.gather(b.double(), 1, perm.long())
+
+        def through(v):
+            return torch.bmm(L, torch.bmm(U, v[:, :, None]))[:, :, 0]
+
+        r_k, r_p = (through(x64) - pb).abs(), (through(xp64) - pb).abs()
+        L.abs_(), U.abs_()
+        rowwise_k = float((r_k / (through(x64.abs()) + pb.abs())).max())
+        rowwise_p = float((r_p / (through(xp64.abs()) + pb.abs())).max())
+        del L, U
+        rowwise_bound = 8 * K.shape[1] ** 0.5 * torch.finfo(K.dtype).eps
+        # Against the plain solve: the two read the same factors and differ
+        # in the order of their sums (the kernel takes dot products by rows,
+        # the plain version updates by columns), so each lies within its own
+        # forward error of x_true, which cond(K) sets.  The kernel's forward
+        # errors over the batch are held, quantile by quantile, to RTOL plus
+        # three times the plain solve's.
+        forward_k = (x64 - x_true).abs().amax(-1) / scale
+        forward_p = (xp64 - x_true).abs().amax(-1) / scale
+        qs = torch.tensor([0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device=dev)
+        fk, fp = torch.quantile(forward_k, qs), torch.quantile(forward_p, qs)
+        print(f"K8 kkt_lu {label}: perm equal {same_perm}, lu bit-identical to plain {same_lu}, "
+              f"|lu_k-lu_p|max/|lu_p|max {rel:.3e} (rtol {RTOL[name]:g}); two launches bit-identical")
+        print(f"  solve of b = K x_true, {K.shape[0]} right-hand sides: |x_k-x_p|max {err_x:.3e}, over |x_p|max {rel_x:.3e}; forward error "
+              f"|x-x_true|max/|x_true|max by instance, quantiles 0.5, 0.9, 0.99, 1: kernel "
+              f"{', '.join(f'{v:.3e}' for v in fk.tolist())}; plain {', '.join(f'{v:.3e}' for v in fp.tolist())}; "
+              f"row-wise backward error against the factors: kernel {rowwise_k:.3e}, plain {rowwise_p:.3e} (bound "
+              f"8 sqrt(N) eps = {rowwise_bound:.3e}); backward error against K {backward:.3e} (bound "
+              f"{BACKWARD_BOUND[name]:g})")
+        require(same_perm and rel <= RTOL[name], f"K8's factor disagrees with its plain version at {label}")
+        require(backward <= BACKWARD_BOUND[name], f"K8's solve has backward error {backward:.3e} at {label}")
+        require(rowwise_k <= rowwise_bound,
+                f"K8's solve has row-wise backward error {rowwise_k:.3e} against its factors at {label}")
+        require(bool((fk <= RTOL[name] + 3 * fp).all()),
+                f"K8's solve is less accurate than its plain version at {label}")
+        return err, err_x
+
+    def times(K, label, reps):
+        B, N, _ = K.shape
+        lu, perm = k8.kkt_lu_factor(K)
+        b = torch.randn(B, N, dtype=K.dtype, device=dev)
+        (fb, ff), (sb, sf) = k8_cost(B, N, K.dtype)
+        LU, pivots = torch.linalg.lu_factor(K)  # library_ms only: the port calls no library LU
+        out = {}
+        for what, fn, plain, lib, nbytes, flops in (
+            ("factor", lambda: k8.kkt_lu_factor(K), lambda: k8.kkt_lu_factor_plain(K),
+             lambda: torch.linalg.lu_factor(K), fb, ff),
+            ("solve", lambda: k8.kkt_lu_solve(lu, perm, b), lambda: k8.kkt_lu_solve_plain(lu, perm, b),
+             lambda: torch.linalg.lu_solve(LU, pivots, b[:, :, None]), sb, sf),
+        ):
+            ms = cuda_ms(fn, reps)
+            plain_ms = cuda_ms(plain, 1, warmup=1)
+            library_ms = cuda_ms(lib, reps)
+            bound_ms, bound_by = bound(nbytes, flops)
+            print(f"K8 kkt_lu_{what} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"torch.linalg.lu_{what} {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), share of bound "
+                  f"{bound_ms / ms:.3f}")
+            out[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        return out
+
+    for dtype in (torch.float64, torch.float32):
+        scaled, rs, _, dyn = path_operands(512, 25, 50, dtype, dev)
+        K = kkt_lu.form_kkt(scaled.P, scaled.A, dyn.sigma, rs.rho_inv_vec).contiguous()
+        compare(K, f"ADMM form B=512 N=75 {dtype_name(dtype)}")
+
+    B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
+    K, rows = polish_kkt(on_device(make_qps(B, n, m), torch.float32, dev), torch.float32)
+    label = f"K_delta B={B} N={n + m} float32"
+    print(f"K8 {label}: active rows of A by instance, of {m}: mean {float(rows.mean()):.1f}, least {int(rows.min())}, "
+          f"most {int(rows.max())}")
+    err, err_x = compare(K, label)
+    stats = times(K, label, reps=5)
+    del K
+    torch.cuda.empty_cache()
+
+    for name in ("CVXQP2_S", "CVXQP2_M"):
+        for dtype in (torch.float64, torch.float32):
+            K, rows = polish_kkt(on_device(maros_dense(name), dtype, dev), dtype)
+            label = f"K_delta {name} B=1 N={K.shape[1]} {dtype_name(dtype)}"
+            print(f"K8 {label}: {int(rows[0])} active rows of A")
+            compare(K, label)
+            times(K, label, reps=5)
+    return ({**stats["factor"], "max_abs_err": err}, {**stats["solve"], "max_abs_err": err_x})
+
+
+def phase_polish_batched(dev):
+    """Counts are set to 0 just before the headline's polish-on solve and
+    read just after it."""
+    import torch
+
+    import osqp_tpu_torch as ot
+
+    def on_against_off(label, args, kw, launches_wanted=True):
+        off = ot.solve_batch(*args, **{**kw, "polish": False})
+        reset_counts()
+        on = ot.solve_batch(*args, **{**kw, "polish": True})
+        torch.cuda.synchronize()
+        launches = read_counts()
+        same = torch.equal(on.status_val, off.status_val) and torch.equal(on.iter, off.iter)
+        sp = on.status_polish
+        ok = sp == 1
+        B = sp.numel()
+        solved = float((on.status_val == ot.OSQP_SOLVED).float().mean())
+        iters = on.iter.float()
+        worse = int(((on.pri_res > off.pri_res) | (on.dua_res > off.dua_res))[ok].sum())
+        print(f"polish {label}: statuses and iterations equal to the polish-off solve {same}; solved {solved:.4f}, "
+              f"iterations mean {float(iters.mean()):.2f} max {int(iters.max())}; status_polish 1 in {int(ok.sum())} "
+              f"of {B} ({float(ok.float().mean()):.4f}), -1 in {int((sp == -1).sum())}, 0 in {int((sp == 0).sum())}; "
+              f"polished instances with a residual above its ADMM residual: {worse}; residuals of the polished: "
+              f"pri max {float(on.pri_res[ok].max()):.3e}, dua max {float(on.dua_res[ok].max()):.3e} (ADMM: "
+              f"{float(off.pri_res[ok].max()):.3e}, {float(off.dua_res[ok].max()):.3e}); launches {launches}")
+        require(same, f"polish changed statuses or iterations at {label}")
+        require(int(ok.sum()) > 0 and worse == 0, f"a polished instance is worse than its ADMM point at {label}")
+        require(bool(torch.isfinite(on.x[ok]).all()) and bool(torch.isfinite(on.y[ok]).all()), "polished x, y not finite")
+        require((launches["kkt_lu_factor"], launches["kkt_lu_solve"]) == (4, 16),
+                f"K8 launched {launches['kkt_lu_factor']} + {launches['kkt_lu_solve']} times, not 4 + 16, at {label}")
+        t_off = statistics.median(cuda_ms(lambda: ot.solve_batch(*args, **{**kw, "polish": False}), 1, warmup=0)
+                                  for _ in range(3))
+        t_on = statistics.median(cuda_ms(lambda: ot.solve_batch(*args, **{**kw, "polish": True}), 1, warmup=0)
+                                 for _ in range(3))
+        print(f"polish {label}: solve with polish off {t_off:.3f} ms, on {t_on:.3f} ms (medians of 3): polish "
+              f"{t_on - t_off:.3f} ms, {(t_on - t_off) / t_on:.3f} of the polish-on solve")
+        return launches
+
+    B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
+    args = on_device(make_qps(B, n, m), torch.float32, dev)
+    launches = on_against_off(f"headline B={B} n={n} m={m} f32", args, SOLVE_KW)
+    del args
+    torch.cuda.empty_cache()
+    on_against_off(f"B=512 n={n} m={m} f32 with polish_dtype=float64", on_device(make_qps(512, n, m), torch.float32, dev),
+                   {**SOLVE_KW, "polish_dtype": "float64"})
+
+    P, q, A, l, u = make_qps(64, 20, 30, seed=3, dtype=np.float64)
+    kw = dict(dtype="float64", verbose=False, polish=True)
+    rg = ot.solve_batch(P, q, A, l, u, device=dev, **kw)
+    rc = ot.solve_batch(P, q, A, l, u, device="cpu", **kw)
+    same = (torch.equal(rg.status_val.cpu(), rc.status_val) and torch.equal(rg.iter.cpu(), rc.iter)
+            and torch.equal(rg.status_polish.cpu(), rc.status_polish))
+    dx, dy = float((rg.x.cpu() - rc.x).abs().max()), float((rg.y.cpu() - rc.y).abs().max())
+    print(f"polish GPU vs CPU, f64 B=64 n=20 m=30: statuses, iterations and status_polish equal {same} "
+          f"(status_polish 1 in {int((rc.status_polish == 1).sum())} of 64), |dx|max {dx:.3e}, |dy|max {dy:.3e}")
+    require(same and dx <= 1e-6 and dy <= 1e-6, "the polished GPU slice disagrees with the CPU slice")
+    return launches
+
+
+def phase_polish_solver(dev):
+    import scipy.sparse as sp
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch.io.qps import load_qps
+
+    gold = np.load(POLISH_GOLDENS)
+    for name in ("CVXQP2_S", "CVXQP2_M"):
+        qp = load_qps(os.path.join(MAROS, f"{name}.qps"))
+        P_full = qp.P + qp.P.T - sp.diags(qp.P.diagonal())  # qp.P is the upper triangle
+        for dtype in ("float64", "float32"):
+            g = lambda f: gold[f"{name}/{dtype}/{f}"]
+            label = f"{name} n={qp.n} m={qp.m} {dtype} polish on"
+            before = read_counts()
+            s = ot.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype=dtype, polish=True, verbose=False)
+            r = s.solve()
+            after = read_counts()
+            k8_launches = (after["kkt_lu_factor"] - before["kkt_lu_factor"], after["kkt_lu_solve"] - before["kkt_lu_solve"])
+            i = r.info
+            obj_rel = abs(i.obj_val - float(g("obj_val"))) / abs(float(g("obj_val")))
+            xs, ys = max(1.0, np.abs(g("x")).max()), max(1.0, np.abs(g("y")).max())
+            dx, dy = np.abs(r.x - g("x")).max() / xs, np.abs(r.y - g("y")).max() / ys
+            print(f"Solver {label}: {i.status}, {i.iter} iterations, status_polish {i.status_polish}, obj {i.obj_val!r}, "
+                  f"pri_res {i.pri_res:.3e}, dua_res {i.dua_res:.3e}; solve {i.solve_time * 1e3:.3f} ms, polish "
+                  f"{i.polish_time * 1e3:.3f} ms; K8 launches {k8_launches}")
+            print(f"  against the JAX package (CPU, goldens): iterations {i.iter} / {int(g('iter'))}, status_polish "
+                  f"{i.status_polish} / {int(g('status_polish'))}, pri_res {i.pri_res:.3e} / {float(g('pri_res')):.3e}, "
+                  f"dua_res {i.dua_res:.3e} / {float(g('dua_res')):.3e}, obj relative {obj_rel:.3e}, |dx|max/|x|max "
+                  f"{dx:.3e}, |dy|max/|y|max {dy:.3e}")
+            require(i.status_val == int(g("status_val")) == ot.OSQP_SOLVED, f"{label}: status {i.status}")
+            require(np.isfinite(r.x).all() and np.isfinite(r.y).all(), f"{label}: x, y not finite")
+            require(k8_launches == (4, 16), f"{label}: K8 launched {k8_launches}, not (4, 16)")
+            if dtype == "float64":
+                require(i.iter == int(g("iter")), f"{label}: iterations {i.iter}")
+            else:
+                require(abs(i.iter - int(g("iter"))) <= 25, f"{label}: iterations {i.iter}")
+            # the residuals of the returned point, from the problem's own
+            # matrices in numpy float64
+            Ax = qp.A @ r.x
+            pri_np = float(np.abs(Ax - np.clip(Ax, qp.l, qp.u)).max())
+            dua_np = float(np.abs(P_full @ r.x + qp.q + qp.A.T @ r.y).max())
+            ref_obj, ref_x = float(gold[f"{name}/reference/obj_val"]), gold[f"{name}/reference/x"]
+            ref_obj_rel = abs(i.obj_val - ref_obj) / abs(ref_obj)
+            ref_dx = np.abs(r.x - ref_x).max() / max(1.0, np.abs(ref_x).max())
+            print(f"  residuals in numpy float64: pri {pri_np:.3e}, dua {dua_np:.3e}; against the JAX package's "
+                  f"float64 solve at eps 1e-10: obj relative {ref_obj_rel:.3e}, |dx|max/|x|max {ref_dx:.3e}")
+            f64 = dtype == "float64"
+            if name == "CVXQP2_S":
+                # both packages factor K_delta by LU at delta 1e-6 here
+                require(i.status_polish == int(g("status_polish")) == 1, f"{label}: status_polish {i.status_polish}")
+                # float32: the two packages' polished points agree to what
+                # float32 keeps of y on this problem (|y| ~ 1e3, K_delta's
+                # condition number ~1e7): 1e-2 of its largest entry
+                tol_x, tol_y = (1e-6, 1e-6) if f64 else (1e-3, 1e-2)
+                require(obj_rel <= tol_x and dx <= tol_x and dy <= tol_y,
+                        f"{label} disagrees with the JAX package's run")
+            else:
+                # The JAX package's polish is rejected here (status_polish
+                # -1, through its Schur route at delta 1e-4, and through its
+                # LU branch too from its own ADMM point: ROADMAP queue 3),
+                # so the golden's x and y are the ADMM point, accurate to
+                # eps = 1e-3, and its y has the dual residual printed above.
+                # LU at delta 1e-6 from this run's ADMM point may be
+                # accepted.  Either way x and the objective lie within the
+                # ADMM accuracy of the golden.
+                require(obj_rel <= 1e-5 and dx <= 1e-3, f"{label} is far from the JAX package's run")
+            if i.status_polish == 1:
+                # An accepted polish is held to the optimum itself: the
+                # residuals recomputed here confirm the reported ones, and
+                # x and the objective agree with the solve at eps 1e-10 (y
+                # is not compared: the duals of these problems are not unique).
+                if name == "CVXQP2_M":  # the golden's residuals are the ADMM point's
+                    require(i.pri_res <= float(g("pri_res")) and i.dua_res <= float(g("dua_res")),
+                            f"{label}: polished residuals above the ADMM residuals")
+                scale = max(1.0, float(np.abs(r.y).max()))
+                tol_res, tol_ref = (1e-9, 1e-7) if f64 else (1e-3, 1e-5)
+                require(pri_np <= tol_res and dua_np <= tol_res * scale,
+                        f"{label}: the polished point's residuals are {pri_np:.3e}, {dua_np:.3e}")
+                require(ref_obj_rel <= tol_ref and ref_dx <= tol_ref, f"{label} is not at the optimum")
+
+
+def phase_kkt_lu_backend(dev):
+    import torch
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch.io.qps import load_qps
+
+    n, m = HEADLINE["n"], HEADLINE["m"]
+    args = on_device(make_qps(1024, n, m), torch.float32, dev)
+    ref = ot.solve_batch(*args, **SOLVE_KW)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ot.solve_batch(*args, **{**SOLVE_KW, "linsys_solver": "kkt_lu"})
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    same = torch.equal(res.status_val, ref.status_val) and torch.equal(res.iter, ref.iter)
+    differ = int((res.iter != ref.iter).sum())
+    dx = float((res.x - ref.x).abs().max())
+    print(f"kkt_lu backend B=1024 n={n} m={m} f32: statuses and iterations equal to the dense_inv run {same} "
+          f"({differ} iteration counts differ), |dx|max {dx:.3e}; solved "
+          f"{float((res.status_val == ot.OSQP_SOLVED).float().mean()):.4f}, iterations max {int(res.iter.max())}; "
+          f"{wall:.3f} ms; launches {launches}")
+    require(torch.equal(res.status_val, ref.status_val), "the kkt_lu backend's statuses differ from dense_inv's")
+    # float32: the generic body carries the TwoSum low bits that the fused
+    # K1 body drops, so an instance at the edge of a check may move by one
+    # check interval
+    require(differ <= 0.01 * 1024 and int((res.iter.int() - ref.iter.int()).abs().max()) <= 25,
+            f"the kkt_lu backend's iteration counts differ from dense_inv's in {differ} of 1024 instances")
+    require(launches["kkt_lu_factor"] >= 1 and launches["kkt_lu_solve"] == int(res.iter.max()),
+            "the kkt_lu backend did not run one K8 solve per iteration")
+    require(launches["admm_iter"] == launches["chol_inverse"] == 0, "the kkt_lu backend ran K1 or K2")
+
+    qp = load_qps(os.path.join(MAROS, "CVXQP2_S.qps"))
+    for dtype in ("float64", "float32"):
+        rd = ot.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype=dtype, verbose=False).solve()
+        before = read_counts()
+        rk = ot.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype=dtype, linsys_solver="kkt_lu",
+                       verbose=False).solve()
+        after = read_counts()
+        k8_launches = (after["kkt_lu_factor"] - before["kkt_lu_factor"], after["kkt_lu_solve"] - before["kkt_lu_solve"])
+        print(f"kkt_lu backend Solver CVXQP2_S {dtype}: {rk.info.status}, {rk.info.iter} iterations (dense_inv "
+              f"{rd.info.iter}), {rk.info.rho_updates} rho updates, |dx|max {np.abs(rk.x - rd.x).max():.3e}, solve "
+              f"{rk.info.solve_time * 1e3:.3f} ms (dense_inv {rd.info.solve_time * 1e3:.3f} ms); K8 launches {k8_launches}")
+        require(rk.info.status_val == rd.info.status_val == ot.OSQP_SOLVED, "kkt_lu backend Solver: status")
+        require(rk.info.iter == rd.info.iter if dtype == "float64" else abs(rk.info.iter - rd.info.iter) <= 25,
+                f"kkt_lu backend Solver {dtype}: {rk.info.iter} iterations against {rd.info.iter}")
+        require(k8_launches == (1 + rk.info.rho_updates, rk.info.iter), f"kkt_lu backend Solver: K8 launches {k8_launches}")
+    return launches
 
 
 def main() -> int:
@@ -917,6 +1325,15 @@ def main() -> int:
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: {lib_path.name}")
 
+    if len(sys.argv) > 1:
+        if len(sys.argv) != 3 or sys.argv[1] != "--only":
+            print("usage: chip_smoke.py [--only PHASE[,PHASE...]]", file=sys.stderr)
+            return 2
+        for name in sys.argv[2].split(","):
+            globals()[f"phase_{name}"](dev)
+        print("chip_smoke: a partial run, no result line", file=sys.stderr)
+        return 2
+
     k2_stats = phase_k2(dev)
     k1_stats = phase_k1(dev)
     k4_stats = phase_k4(dev)
@@ -925,11 +1342,15 @@ def main() -> int:
     phase_parity(dev)
     launches = phase_headline(dev)
     solver_launches = phase_solver(dev)
+    k8_factor_stats, k8_solve_stats = phase_k8(dev)
+    polish_launches = phase_polish_batched(dev)
+    phase_polish_solver(dev)
+    phase_kkt_lu_backend(dev)
 
     # launches: the batched headline solve's, and for K1r, which that
     # well-conditioned batch does not run, the Solver path's (its times:
     # CVXQP2_M in float32, where the Solver runs it; the others' at the
-    # headline shape).
+    # headline shape); for K8 the headline solve's with polish on.
     kernels = [
         dict(name="admm_iter", route="cuda", source="osqp_tpu_torch/csrc/admm_iter.cu",
              replaces="osqp_tpu/linsys/dense_inv.py:164", launches=launches["admm_iter"], **k1_stats),
@@ -944,6 +1365,10 @@ def main() -> int:
              **k4_stats),
         dict(name="term_products", route="cuda", source="osqp_tpu_torch/csrc/term_products.cu",
              replaces="osqp_tpu/termination.py:47", launches=launches["term_products"], **k3_stats),
+        dict(name="kkt_lu_factor", route="cuda", source="osqp_tpu_torch/csrc/kkt_lu.cu",
+             replaces="osqp_tpu/linsys/kkt_lu.py:37", launches=polish_launches["kkt_lu_factor"], **k8_factor_stats),
+        dict(name="kkt_lu_solve", route="cuda", source="osqp_tpu_torch/csrc/kkt_lu.cu",
+             replaces="osqp_tpu/linsys/kkt_lu.py:42", launches=polish_launches["kkt_lu_solve"], **k8_solve_stats),
     ]
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

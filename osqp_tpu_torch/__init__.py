@@ -10,7 +10,9 @@ hand-written CUDA kernels (``osqp_tpu_torch/csrc``):
 * the batched SPD inverse (:mod:`osqp_tpu_torch.ops.spd_inverse`),
 * the termination and rho-estimate products
   (:mod:`osqp_tpu_torch.ops.term_products`),
-* the Ruiz equilibration (:mod:`osqp_tpu_torch.ops.ruiz`).
+* the Ruiz equilibration (:mod:`osqp_tpu_torch.ops.ruiz`),
+* the partially pivoted LU of the full KKT matrix and its solve, for
+  polish and the ``kkt_lu`` backend (:mod:`osqp_tpu_torch.ops.kkt_lu`).
 
 Each has a plain PyTorch version beside it, which serves CPU tensors.
 A CUDA tensor always goes through the kernel.  The package imports
@@ -18,7 +20,9 @@ neither jax nor ``osqp_tpu``; ``osqp_tpu`` stays the reference that the
 tests hold this package against.
 
 Entry points: the stateful :class:`Solver` (alias :data:`OSQP`), OSQP's
-own API, and :func:`solve_batch` for B same-shape problems.
+own API, and :func:`solve_batch` for B same-shape problems; both polish
+with ``polish=True`` and take ``linsys_solver`` ``"dense_inv"``,
+``"dense_chol"`` or ``"kkt_lu"``.
 """
 
 from __future__ import annotations

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "osqp_admm_iter_refined": (_I,) + (_P,) * 22 + (_D, _D, _I, _I, _I, _I, _P),
     "osqp_ruiz": (_I,) + (_P,) * 17 + (_I,) * 7 + (_P,),
     "osqp_term_products": (_I,) + (_P,) * 11 + (_I,) * 5 + (_P,),
+    "osqp_kkt_lu_factor": (_I, _P, _P, _P, _I, _I, _P),
+    "osqp_kkt_lu_solve": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -237,11 +237,14 @@ def init_carry(cfg: StaticConfig, data: QPData, rho_state: RhoState, factor: Any
 def run_segment(cfg: StaticConfig, data: QPData, scl: ScalingData, dyn: DynSettings, c: Carry, end_iter: int) -> Carry:
     """Run ADMM iterations while ``k <= end_iter`` and an instance is active.
 
-    The loop body is chosen once per segment from the backend's
-    refinement signal: ill-conditioned batches run the refined body
-    (K1r, with the TwoSum dual carry), the rest the fused K1 body.  A
-    rho refactor inside the segment that flips the signal is picked up
-    at the next segment, as in the JAX package.
+    A backend with fused loop bodies (``dense_inv``) has its body chosen
+    once per segment from its refinement signal: ill-conditioned batches
+    run the refined body (K1r, with the TwoSum dual carry), the rest the
+    fused K1 body.  A rho refactor inside the segment that flips the
+    signal is picked up at the next segment, as in the JAX package.  Any
+    other backend runs the generic body: :func:`admm_step` over its
+    ``solve``, always with the TwoSum carry in float32, and instances
+    that are not active keep their state.
     """
     backend = linsys_registry.get(cfg.linsys_solver)
     check = int(cfg.check_termination)
@@ -249,10 +252,20 @@ def run_segment(cfg: StaticConfig, data: QPData, scl: ScalingData, dyn: DynSetti
     end_iter = min(int(end_iter), cfg.max_iter)
     if c.k > end_iter or not c.any_active:
         return c
-    refine = bool(backend.refine_signal(c.factor))
+    fused = hasattr(backend, "fused_step")
+    refine = fused and bool(backend.refine_signal(c.factor))
 
     while c.k <= end_iter and c.any_active:
-        if refine:
+        if not fused:
+            it, dx, dy, y_lo = admm_step(backend.solve, c.factor, data, dyn, c.rho_state, c.it, c.y_lo)
+            c = replace(
+                c,
+                it=bwhere(c.active, it, c.it),
+                delta_x=bwhere(c.active, dx, c.delta_x),
+                delta_y=bwhere(c.active, dy, c.delta_y),
+                y_lo=None if y_lo is None else bwhere(c.active, y_lo, c.y_lo),
+            )
+        elif refine:
             x, z, y, dx, dy, y_lo = backend.refined_step(
                 c.factor, data, dyn, c.rho_state, c.it, c.delta_x, c.delta_y, c.y_lo, c.active
             )

@@ -4,8 +4,8 @@ B problems of one shape (n, m) are solved together: every operation is
 batched over the leading axis, finished instances are frozen by masked
 selects, and statuses, iteration counts, residuals and certificates are
 per instance.  The pipeline is Ruiz scaling, rho classification,
-factorization (K2), the ADMM loop (K1), then unscaling and certificate
-normalization.
+factorization (K2), the ADMM loop (K1), optional polish (K8, K3), then
+unscaling and certificate normalization.
 
 The host drives the loop in segments so that it can poll the clock for
 ``time_limit`` and catch Ctrl-C between them (osqp.c:374-407).  The
@@ -28,6 +28,7 @@ from . import constants as con
 from . import linsys as linsys_registry
 from .admm import set_rho_state
 from .linalg import bwhere, mat_vec, norm_inf
+from .polish import polish as polish_fn
 from .scaling import scale_data, unscale_solution
 from .solver import Settings, make_config, reject_time_based_rho, resolve_device, torch_dtype, validate_settings
 from .types import DynSettings, Iterates, QPData, ScalingData
@@ -69,12 +70,25 @@ def _prepare(cfg, scaling_iters, P, q, A, l, u, rho0, dyn, x0, y0):
     return scaled, scl, rho_state, factor, it
 
 
-def _postprocess(cfg, scaled, scl, result):
-    """store_solution and certificate normalization (osqp.c:604-640,
-    auxil.c:524-562), polish off."""
+def _postprocess(cfg, do_polish, refine_iter, scaled, scl, dyn, result):
+    """Polish, store_solution and certificate normalization
+    (osqp.c:604-640, auxil.c:524-562)."""
     B = scaled.q.shape[0]
     info, it = result.info, result.iterates
     sv = info.status_val
+    status_polish = torch.zeros(B, dtype=torch.int32, device=sv.device)
+    obj_val, pri_res, dua_res = info.obj_val, info.pri_res, info.dua_res
+    if do_polish:
+        # Polish runs on every instance and is taken where the instance
+        # is solved and its residuals improved.
+        solved = sv == con.OSQP_SOLVED
+        pol = polish_fn(cfg, scaled, scl, dyn, it.x, it.z, it.y, pri_res, dua_res, refine_iter)
+        ok = solved & pol.success
+        it = Iterates(x=bwhere(ok, pol.x, it.x), z=bwhere(ok, pol.z, it.z), y=bwhere(ok, pol.y, it.y))
+        obj_val = torch.where(ok, pol.obj_val, obj_val)
+        pri_res = torch.where(ok, pol.pri_res, pri_res)
+        dua_res = torch.where(ok, pol.dua_res, dua_res)
+        status_polish = torch.where(solved, torch.where(ok, 1, -1), 0).to(torch.int32)
     has_sol = (
         (sv != con.OSQP_PRIMAL_INFEASIBLE)
         & (sv != con.OSQP_PRIMAL_INFEASIBLE_INACCURATE)
@@ -96,18 +110,19 @@ def _postprocess(cfg, scaled, scl, result):
         y=y_out,
         status_val=sv,
         iter=info.iter,
-        obj_val=info.obj_val,
-        pri_res=info.pri_res,
-        dua_res=info.dua_res,
+        obj_val=obj_val,
+        pri_res=pri_res,
+        dua_res=dua_res,
         rho_updates=info.rho_updates,
         rho_estimate=info.rho_estimate,
-        status_polish=torch.zeros(B, dtype=torch.int32, device=sv.device),
+        status_polish=status_polish,
         prim_inf_cert=_normalize(result.delta_y) if cfg.m else result.delta_y,
         dual_inf_cert=_normalize(result.delta_x),
     )
 
 
-def _solve_segmented(cfg, scaling_iters, P, q, A, l, u, rho0, dyn, x0, y0, time_limit=0.0, verbose=False):
+def _solve_segmented(cfg, scaling_iters, do_polish, refine_iter, P, q, A, l, u, rho0, dyn, x0, y0,
+                     time_limit=0.0, verbose=False):
     """The non-compact segmented driver (osqp_tpu/batch.py:304-502).
 
     Without verbose output and time limit the first segment spans the
@@ -142,7 +157,7 @@ def _solve_segmented(cfg, scaling_iters, P, q, A, l, u, rho0, dyn, x0, y0, time_
         scaled, scl, rho_state, factor, it = _prepare(*prep)
         c = admm_mod.init_carry(cfg, scaled, rho_state, factor, it)
         fin = admm_mod.finalize(cfg, scaled, scl, dyn, c, fallback_status=con.OSQP_SIGINT, run_checks=False)
-        return _postprocess(cfg, scaled, scl, fin)
+        return _postprocess(cfg, do_polish, refine_iter, scaled, scl, dyn, fin)
 
     c = admm_mod.init_carry(cfg, scaled, rho_state, factor, it)
     try:
@@ -169,7 +184,7 @@ def _solve_segmented(cfg, scaling_iters, P, q, A, l, u, rho0, dyn, x0, y0, time_
         run_checks = False
         print("Solver interrupted")
     fin = admm_mod.finalize(cfg, scaled, scl, dyn, c, fallback_status=fallback, run_checks=run_checks)
-    return _postprocess(cfg, scaled, scl, fin)
+    return _postprocess(cfg, do_polish, refine_iter, scaled, scl, dyn, fin)
 
 
 def solve_batch(
@@ -199,8 +214,6 @@ def solve_batch(
     s = Settings(**settings)
     validate_settings(s)
     reject_time_based_rho(s)
-    if s.polish:
-        raise NotImplementedError("polish is not ported to osqp_tpu_torch yet (ROADMAP queue 1, item 10)")
     if compact:
         raise NotImplementedError(
             "instance compaction is not ported to osqp_tpu_torch yet (ROADMAP queue 1, item 14)"
@@ -240,10 +253,11 @@ def solve_batch(
         x0 = as_t(x0) if x0 is not None else torch.zeros((B, n), dtype=dtype, device=device)
         y0 = as_t(y0) if y0 is not None else torch.zeros((B, m), dtype=dtype, device=device)
 
+    do_polish, refine_iter = bool(s.polish), int(s.polish_refine_iter)
     if not segmented:
         scaled, scl, rho_state, factor, it = _prepare(cfg, int(s.scaling), P, q, A, l, u, rho0, dyn, x0, y0)
         fin = admm_mod.solve_core(cfg, scaled, scl, dyn, rho_state, factor, it)
-        return _postprocess(cfg, scaled, scl, fin)
+        return _postprocess(cfg, do_polish, refine_iter, scaled, scl, dyn, fin)
 
     verbose = bool(s.verbose)
     if verbose:
@@ -253,7 +267,7 @@ def solve_batch(
         print_setup_header_vals(s, n, m, nnz, B=B)
     t0 = time.perf_counter()
     res = _solve_segmented(
-        cfg, int(s.scaling), P, q, A, l, u, rho0, dyn, x0, y0,
+        cfg, int(s.scaling), do_polish, refine_iter, P, q, A, l, u, rho0, dyn, x0, y0,
         time_limit=float(s.time_limit), verbose=verbose,
     )
     if verbose:

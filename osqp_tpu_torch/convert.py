@@ -38,10 +38,14 @@ def from_fields(cls, obj, device, dtype: torch.dtype):
 
 
 def factor(f: dict, device, dtype: torch.dtype) -> dict:
-    """A ``dense_inv`` factor dict (Minv, AMinvT, refine, P, sigma); the
-    0-d ``sigma`` stays on the host."""
+    """A factor dict of the JAX package as the port's: ``dense_inv``
+    (Minv, AMinvT, refine, P, sigma; the 0-d ``sigma`` stays on the
+    host), ``kkt_lu`` (lu, and perm as int32) or ``dense_chol`` (L)."""
     out = {k: to_tensor(v, device, dtype) for k, v in f.items()}
-    out["sigma"] = to_tensor(f["sigma"], "cpu", dtype)
+    if "sigma" in f:
+        out["sigma"] = to_tensor(f["sigma"], "cpu", dtype)
+    if "perm" in f:
+        out["perm"] = out["perm"].to(torch.int32)
     return out
 
 

@@ -1,22 +1,25 @@
 """Linear-system backends behind one protocol (counterpart of
 ``osqp_tpu/linsys/__init__.py``; reference lin_sys.c:15-75).
 
-Only ``dense_inv`` is ported.  The reference name ``qdldl`` maps onto
-it, as in the JAX package.  The other backends of the JAX package raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Every backend module provides ``init(P, A, sigma, rho_vec)`` returning a
+factor (a dict of tensors) and ``solve(factor, A, rho_vec, rhs_x, rhs_z)``
+returning ``(x_tilde, z_tilde)``.  ``dense_inv`` also brings its own fused
+loop bodies (K1, K1r); ``dense_chol`` and ``kkt_lu`` run the generic body
+of :func:`osqp_tpu_torch.admm.run_segment` over their ``solve``.  The
+reference names ``qdldl`` and ``mkl pardiso`` map onto ``dense_inv`` and
+``kkt_lu``, as in the JAX package.  ``cg`` and ``block_tridiag`` are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
-from . import dense_inv
+from . import dense_chol, dense_inv, kkt_lu
 
-_REGISTRY = {"dense_inv": dense_inv}
+_REGISTRY = {"dense_inv": dense_inv, "dense_chol": dense_chol, "kkt_lu": kkt_lu}
 
 _ALIASES = {"qdldl": "dense_inv", "mkl pardiso": "kkt_lu"}
 
 _NOT_PORTED = {
-    "dense_chol": "ROADMAP queue 1, item 11",
-    "kkt_lu": "ROADMAP queue 1, item 11",
     "block_tridiag": "ROADMAP queue 1, item 11",
     "cg": "ROADMAP queue 1, items 11-12",
 }

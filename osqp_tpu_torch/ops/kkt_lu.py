@@ -1,0 +1,143 @@
+"""K8: batched LU of the full KKT matrix with partial pivoting, and the
+solve with its factors (counterpart of ``osqp_tpu/linsys/kkt_lu.py:37-50``,
+``_lu_factor`` and ``_lu_solve``, which polish reuses through
+``osqp_tpu/polish.py:161-168``).
+
+:func:`kkt_lu_factor` and :func:`kkt_lu_solve` are the kernels' wrappers:
+for CUDA tensors they launch the hand-written kernels in
+``csrc/kkt_lu.cu`` (the factor in place in device memory by column
+panels, the trailing update spread over blocks; the solve one block per
+instance); for CPU tensors they run :func:`kkt_lu_factor_plain` and
+:func:`kkt_lu_solve_plain`, the same functions in plain PyTorch: an
+unblocked right-looking LU and two substitution loops, N steps of
+batched tensor operations each.  No library LU is called on either path.
+
+The pivot of a column is the first row of largest absolute value.  The
+kernel takes every update in the plain version's order with the plain
+version's rounding, so both give the same ``perm`` and the same ``lu``
+bit for bit.  A zero pivot column divides by zero and leaves Inf/NaN
+behind, as LAPACK-style LU does; polish reads that as a failed pass.
+
+On the H100 the factor is bound by the bytes of its trailing updates
+and the solve by one read of ``lu``; see the source's header.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+launches_factor = 0
+launches_solve = 0
+
+
+def _validate_factor(K: torch.Tensor) -> None:
+    if K.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kkt_lu_factor takes float32 or float64, not {K.dtype}")
+    if K.ndim != 3 or K.shape[1] != K.shape[2] or K.shape[1] == 0:
+        raise ValueError(f"kkt_lu_factor takes a (B, N, N) batch with N >= 1, not {tuple(K.shape)}")
+
+
+def kkt_lu_factor(K: torch.Tensor, overwrite: bool = False):
+    """P K = L U of each matrix of the batch (B, N, N), with row pivoting.
+
+    Returns ``(lu, perm)``: ``lu`` (B, N, N) holds the unit-lower L below
+    the diagonal and U on and above it; ``perm`` (B, N) int32 is the row
+    order, row i of P K being row ``perm[i]`` of K.  With ``overwrite``
+    a contiguous CUDA K is factored in place and returned as ``lu``.
+    """
+    global launches_factor
+    _validate_factor(K)
+    if K.device.type == "cpu":
+        return kkt_lu_factor_plain(K)
+    if K.device.type != "cuda":
+        raise ValueError(f"kkt_lu_factor runs on CPU or CUDA tensors, not {K.device}")
+    if not K.is_contiguous():
+        raise ValueError("kkt_lu_factor takes a contiguous tensor")
+    B, N, _ = K.shape
+    lu = K if overwrite else K.clone()
+    piv = torch.empty((B, N), dtype=torch.int32, device=K.device)
+    perm = torch.empty((B, N), dtype=torch.int32, device=K.device)
+    lib = _build.library()
+    with torch.cuda.device(K.device):
+        code = lib.osqp_kkt_lu_factor(
+            _build.dtype_code(K.dtype), lu.data_ptr(), piv.data_ptr(), perm.data_ptr(), B, N, _build.stream()
+        )
+    _build.check(code, "kkt_lu_factor")
+    launches_factor += 1
+    return lu, perm
+
+
+def _validate_solve(lu, perm, b) -> None:
+    if lu.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kkt_lu_solve takes float32 or float64, not {lu.dtype}")
+    if lu.ndim != 3 or lu.shape[1] != lu.shape[2] or lu.shape[1] == 0:
+        raise ValueError(f"kkt_lu_solve takes lu of shape (B, N, N) with N >= 1, not {tuple(lu.shape)}")
+    B, N, _ = lu.shape
+    if tuple(perm.shape) != (B, N) or perm.dtype != torch.int32:
+        raise ValueError(f"kkt_lu_solve takes perm (B, N) int32, not {tuple(perm.shape)} {perm.dtype}")
+    if tuple(b.shape) != (B, N) or b.dtype != lu.dtype:
+        raise ValueError(f"kkt_lu_solve takes b (B, N) {lu.dtype}, not {tuple(b.shape)} {b.dtype}")
+    if perm.device != lu.device or b.device != lu.device:
+        raise ValueError(f"kkt_lu_solve: lu on {lu.device}, perm on {perm.device}, b on {b.device}")
+
+
+def kkt_lu_solve(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x = U^-1 L^-1 b[perm] with the factors of :func:`kkt_lu_factor`;
+    ``b`` and the result are (B, N)."""
+    global launches_solve
+    _validate_solve(lu, perm, b)
+    if lu.device.type == "cpu":
+        return kkt_lu_solve_plain(lu, perm, b)
+    if lu.device.type != "cuda":
+        raise ValueError(f"kkt_lu_solve runs on CPU or CUDA tensors, not {lu.device}")
+    if not (lu.is_contiguous() and perm.is_contiguous() and b.is_contiguous()):
+        raise ValueError("kkt_lu_solve takes contiguous tensors")
+    B, N, _ = lu.shape
+    x = torch.empty_like(b)
+    lib = _build.library()
+    with torch.cuda.device(lu.device):
+        code = lib.osqp_kkt_lu_solve(
+            _build.dtype_code(lu.dtype), lu.data_ptr(), perm.data_ptr(), b.data_ptr(), x.data_ptr(), B, N,
+            _build.sm_count(lu.device), _build.stream(),
+        )
+    _build.check(code, "kkt_lu_solve")
+    launches_solve += 1
+    return x
+
+
+def kkt_lu_factor_plain(K: torch.Tensor):
+    """Plain PyTorch version of :func:`kkt_lu_factor`: the unblocked
+    right-looking algorithm, one batched step per column."""
+    B, N, _ = K.shape
+    lu = K.clone()
+    perm = torch.arange(N, dtype=torch.int32, device=K.device).repeat(B, 1)
+    inst = torch.arange(B, device=K.device)
+    for k in range(N):
+        # argmax returns the first of several largest values
+        p = lu[:, k:, k].abs().argmax(dim=1) + k
+        row_k, row_p = lu[:, k].clone(), lu[inst, p]
+        lu[:, k] = row_p
+        lu[inst, p] = row_k
+        perm_k, perm_p = perm[:, k].clone(), perm[inst, p]
+        perm[:, k] = perm_p
+        perm[inst, p] = perm_k
+        if k + 1 < N:
+            l = lu[:, k + 1:, k] / lu[:, k, k, None]
+            lu[:, k + 1:, k] = l
+            lu[:, k + 1:, k + 1:] -= l[:, :, None] * lu[:, k, None, k + 1:]
+    return lu, perm
+
+
+def kkt_lu_solve_plain(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`kkt_lu_solve`: a gather, then
+    forward and backward substitution by columns."""
+    N = lu.shape[-1]
+    y = torch.gather(b, 1, perm.long())
+    for j in range(N - 1):
+        y[:, j + 1:] -= lu[:, j + 1:, j] * y[:, j, None]
+    for j in range(N - 1, -1, -1):
+        y[:, j] /= lu[:, j, j]
+        y[:, :j] -= lu[:, :j, j] * y[:, j, None]
+    return y

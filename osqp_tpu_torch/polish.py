@@ -1,0 +1,197 @@
+"""Solution polishing: active-set refinement with iterative refinement
+(counterpart of ``osqp_tpu/polish.py``, dense operands; reference
+src/polish.c:19-350).
+
+The reference builds a smaller ``Ared`` of the rows guessed active
+(polish.c:19-97).  Here, as in the JAX package, the shape stays fixed:
+all m rows are kept and the inactive ones are zeroed, M = diag(mask).
+The embedded KKT
+
+    K_delta = [P + delta I      (M A)'   ]
+              [M A              -delta I ]
+
+is block-equivalent to the reference's reduced KKT (kkt.c:6-177 with
+param1 = param2 = delta): an inactive row i contributes the decoupled
+equation ``-delta nu_i = 0``, and its zero column leaves x untouched.
+Iterative refinement (polish.c:134-181) targets the unregularized masked
+KKT ``[P, (MA)'; MA, 0]``.
+
+K_delta is factored by K8's partially pivoted LU
+(:mod:`osqp_tpu_torch.ops.kkt_lu`) at every KKT dimension, in float32
+and float64, at the reference delta.  The products of a refinement step
+and of every evaluated point go through K3
+(:mod:`osqp_tpu_torch.ops.term_products`).
+
+Not carried over from the JAX package, each for its reason:
+
+* the switch to a Schur-complement solve above KKT dimension 2048 and
+  the rule that keeps float64 LU off the accelerator: both exist because
+  the TPU's batched-LU call serialises, exceeds its fast memory and has no
+  float64 form; K8 takes any N in both dtypes;
+* the Schur branch itself, with its clamp of delta to 1e-4, and
+  ``prefer_schur``, which the ``cg`` backend sets (ROADMAP queue 1,
+  items 11-12);
+* sparse (ELL) operands with their matrix-free PCG and its
+  ``OSQP_TPU_POLISH_CG_CAP`` variable (item 12).
+
+The passes and refinement steps are Python loops that enqueue device
+work and never read it back; the caller reads ``success`` once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from .linalg import bwhere, mat_vec, vec_dot
+from .linsys import kkt_lu
+from .ops.term_products import term_products
+from .termination import compute_products, residual_norms
+from .types import DynSettings, QPData, ScalingData, StaticConfig
+
+
+class PolishResult(NamedTuple):
+    success: torch.Tensor  # (B,) bool: residuals improved (polish.c:301-314)
+    x: torch.Tensor  # (B, n)
+    z: torch.Tensor  # (B, m)
+    y: torch.Tensor  # (B, m)
+    obj_val: torch.Tensor  # (B,) unscaled
+    pri_res: torch.Tensor  # (B,)
+    dua_res: torch.Tensor  # (B,)
+
+
+def _cast(obj, dtype: torch.dtype):
+    """A dataclass of tensors with its floating fields cast to ``dtype``."""
+    return dataclasses.replace(
+        obj,
+        **{
+            f.name: getattr(obj, f.name).to(dtype)
+            for f in dataclasses.fields(obj)
+            if getattr(obj, f.name).is_floating_point()
+        },
+    )
+
+
+def polish(
+    cfg: StaticConfig,
+    data: QPData,
+    scl: ScalingData,
+    dyn: DynSettings,
+    x,
+    z,
+    y,
+    admm_pri_res,
+    admm_dua_res,
+    refine_iter: int,
+    passes: int | None = None,
+) -> PolishResult:
+    """Batched polish (polish.c:212-350).  All inputs scaled.
+
+    Runs up to ``passes`` active-set passes (default ``cfg.polish_passes``)
+    where the reference runs one: the set is guessed again at the
+    polished point and the system solved again, and the best pass of
+    each instance is kept.  Pass 0 is the reference's behaviour and is
+    always among the candidates.
+
+    With ``cfg.polish_dtype`` different from the solve dtype (typically
+    a float64 polish over a float32 solve) everything is cast, polished
+    in that dtype and cast back: float64 is native on the card.
+    """
+    native = x.dtype
+    if cfg.polish_dtype is not None and getattr(torch, cfg.polish_dtype) != native:
+        tgt = getattr(torch, cfg.polish_dtype)
+        res = polish(
+            dataclasses.replace(cfg, polish_dtype=None),
+            _cast(data, tgt), _cast(scl, tgt), _cast(dyn, tgt),
+            x.to(tgt), z.to(tgt), y.to(tgt), admm_pri_res.to(tgt), admm_dua_res.to(tgt),
+            refine_iter, passes,
+        )
+        return PolishResult(*(v.to(native) if v.is_floating_point() else v for v in res))
+    if passes is None:
+        passes = cfg.polish_passes
+    B, n = x.shape
+    m = cfg.m
+    dtype = native
+    delta_vec = torch.full((B, m), float(dyn.delta), dtype=dtype, device=x.device)
+
+    def one_pass(x, z, y):
+        # Guess the active sets (polish.c:33-49); lower and upper are
+        # disjoint, since both would imply u < l.
+        lower = z - data.l < -y
+        upper = data.u - z < y
+        mask = (lower | upper).to(dtype)  # (B, m)
+        MA = mask[:, :, None] * data.A
+
+        # K_delta = [P + delta I, (MA)'; MA, -delta I]
+        # (qdldl_interface.c:261-267), factored by K8
+        factor = kkt_lu.factor_kkt(kkt_lu.form_kkt(data.P, MA, dyn.delta, delta_vec))
+
+        # rhs_red = [-q; l_low, u_upp], masked at fixed shape (polish.c:105-121)
+        zero = torch.zeros((), dtype=dtype, device=x.device)
+        rhs_z = mask * torch.where(lower, data.l, torch.where(upper, data.u, zero))
+        sol = kkt_lu.solve_raw(factor, torch.cat([-data.q, rhs_z], dim=-1))
+
+        def eval_point(sol):
+            """Recover (x, z, y), project, and measure the true residuals
+            (get_ypol_from_yred polish.c:188-210, project_normalcone
+            proj.c:16-29, update_info with polish=1)."""
+            x_pol = sol[:, :n].contiguous()
+            y_pol = mask * sol[:, n:]
+            zy = mat_vec(data.A, x_pol) + y_pol  # polish.c:291
+            z_pol = torch.clamp(zy, data.l, data.u)
+            y_pol = zy - z_pol
+            pr = compute_products(data, x_pol, z_pol, y_pol)
+            pri_res, dua_res = residual_norms(cfg, scl, pr)
+            finite = (
+                torch.isfinite(x_pol).all(-1)
+                & torch.isfinite(y_pol).all(-1)
+                & torch.isfinite(pri_res)
+                & torch.isfinite(dua_res)
+            )
+            return x_pol, z_pol, y_pol, pri_res, dua_res, finite
+
+        # Iterative refinement against the unregularized KKT
+        # (polish.c:134-181), keeping the best step of each instance,
+        # step 0 included: where the guessed active rows are dependent
+        # the unregularized target is singular and refinement diverges,
+        # while the regularized step 0 already has residuals of order
+        # delta.
+        best = eval_point(sol)
+        for _ in range(refine_iter):
+            sx, snu = sol[:, :n].contiguous(), sol[:, n:].contiguous()
+            tp = term_products(data.P, MA, sx, snu)  # MA sx, P sx, (MA)' snu
+            r_x = -data.q - (tp.Px + tp.Aty)
+            r_z = rhs_z - tp.Ax
+            sol = sol + kkt_lu.solve_raw(factor, torch.cat([r_x, r_z], dim=-1))
+            cand = eval_point(sol)
+            better = cand[5] & (torch.maximum(cand[3], cand[4]) < torch.maximum(best[3], best[4]))
+            best = tuple(bwhere(better, c, b) for c, b in zip(cand, best))
+        return best
+
+    inf = torch.full((B,), float("inf"), dtype=dtype, device=x.device)
+    # The best (x, z, y, pri, dua) so far, and the point the next pass
+    # guesses from: the last finite polished point, at first the ADMM point.
+    bx, bz, by, bpri, bdua = x, z, y, inf, inf
+    cx, cz, cy = x, z, y
+    for _ in range(passes):
+        px, pz, py, pri, dua, finite = one_pass(cx, cz, cy)
+        # A pass that is not finite (singular masked KKT,
+        # polish.c:334-339) never wins and is not guessed from.
+        better = finite & (torch.maximum(pri, dua) < torch.maximum(bpri, bdua))
+        bx, bz, by = bwhere(better, px, bx), bwhere(better, pz, bz), bwhere(better, py, by)
+        bpri = torch.where(better, pri, bpri)
+        bdua = torch.where(better, dua, bdua)
+        cx, cz, cy = bwhere(finite, px, cx), bwhere(finite, pz, cz), bwhere(finite, py, cy)
+
+    obj = scl.cinv * (0.5 * vec_dot(bx, mat_vec(data.P, bx)) + vec_dot(data.q, bx))
+
+    # Acceptance test (polish.c:301-314)
+    success = (
+        ((bpri < admm_pri_res) & (bdua < admm_dua_res))
+        | ((bpri < admm_pri_res) & (admm_dua_res < 1e-10))
+        | ((bdua < admm_dua_res) & (admm_pri_res < 1e-10))
+    )
+    success = success & torch.isfinite(bpri) & torch.isfinite(bdua)
+    return PolishResult(success=success, x=bx, z=bz, y=by, obj_val=obj, pri_res=bpri, dua_res=bdua)

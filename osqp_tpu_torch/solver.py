@@ -6,7 +6,7 @@ configuration that it shares with :func:`osqp_tpu_torch.solve_batch`.
 * ``setup`` (osqp.c:76-283): validate, scale (K4), classify rho,
   factorize (K2 or torch's Cholesky by n), convexity check
 * ``solve`` (osqp.c:288-654): the segmented ADMM loop (K1 or K1r per
-  segment, K3 at every check) and the solution
+  segment, K3 at every check), polish (K8) and the solution
 * ``update_lin_cost`` (765), ``update_bounds`` (797),
   ``update_lower_bound`` (848), ``update_upper_bound`` (895),
   ``warm_start`` (942-1007), ``update_P`` (1012), ``update_A`` (1092),
@@ -15,8 +15,8 @@ configuration that it shares with :func:`osqp_tpu_torch.solve_batch`.
 
 State lives on one device, chosen at setup (``device=``, default the
 CUDA card; ``device="cpu"`` for the CPU), as batch-of-1 tensors in the
-solve dtype; a CUDA device runs the hand-written kernels.  Polish (ROADMAP queue 1, item 10) and ``export``
-(item 14) are not ported yet and raise.
+solve dtype; a CUDA device runs the hand-written kernels.  ``export``
+(ROADMAP queue 1, item 14) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from . import linsys as linsys_registry
 from .admm import rho_vec_from_type, set_rho_state, update_rho_state
 from .constants import ErrorCode, NonConvexError, OSQPError
 from .linalg import mat_vec
+from .polish import polish as polish_fn
 from .scaling import scale_data, unscale_solution
 from .sparse import clamp_bounds, triu_to_full, validate_problem
 from .types import DynSettings, Iterates, QPData, ScalingData, StaticConfig
@@ -204,6 +205,10 @@ def make_config(n: int, m: int, settings: Settings, dtype) -> StaticConfig:
         scaled_termination=bool(settings.scaled_termination),
         linsys_solver=str(settings.linsys_solver),
         dtype=str(torch_dtype(dtype)).removeprefix("torch."),
+        polish_passes=int(settings.polish_passes),
+        polish_dtype=(
+            None if settings.polish_dtype is None else str(torch_dtype(settings.polish_dtype)).removeprefix("torch.")
+        ),
     )
 
 
@@ -309,8 +314,6 @@ class Solver:
             raise OSQPError(ErrorCode.SETTINGS_VALIDATION_ERROR, f"unknown settings: {sorted(unknown)}")
         self.settings = Settings(**settings)
         validate_settings(self.settings)
-        if self.settings.polish:
-            raise _not_ported("polish", "10")
 
         # Canonical unscaled host data (float64 numpy / scipy CSC).
         Pu, qv, Ac, lv, uv, n, m = validate_problem(P, q, A, l, u)
@@ -412,6 +415,27 @@ class Solver:
         self.info.rho_estimate = float(info.rho_estimate[0])
         self.info.status_polish = 0
         self.info.polish_time = 0.0
+
+        # ---- polish (osqp.c:604-608) ------------------------------------
+        if self.settings.polish and status_val == con.OSQP_SOLVED:
+            tp = time.perf_counter()
+            pol = polish_fn(
+                self._cfg, self.data, self.scaling, self._dyn,
+                result.iterates.x, result.iterates.z, result.iterates.y,
+                info.pri_res, info.dua_res, int(self.settings.polish_refine_iter),
+            )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.info.polish_time = time.perf_counter() - tp
+            if bool(pol.success[0]):
+                self.info.status_polish = 1
+                self.info.obj_val = float(pol.obj_val[0])
+                self.info.pri_res = float(pol.pri_res[0])
+                self.info.dua_res = float(pol.dua_res[0])
+                # Write back for warm starting (polish.c:323-327)
+                self.iterates = Iterates(x=pol.x, z=pol.z, y=pol.y)
+            else:
+                self.info.status_polish = -1
 
         # ---- store_solution (auxil.c:524-562) -----------------------------
         host = lambda t: t[0].to(device="cpu", dtype=torch.float64).numpy()
@@ -673,9 +697,7 @@ class Solver:
 
     def update_polish(self, v):
         self._check(v in (0, 1, True, False), "polish should be either 0 or 1")
-        if v:
-            raise _not_ported("polish", "10")
-        self.settings.polish = False
+        self.settings.polish = bool(v)
 
     def update_polish_refine_iter(self, v):
         self._check(v >= 0, "polish_refine_iter must be nonnegative")

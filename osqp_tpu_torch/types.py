@@ -53,7 +53,7 @@ class ScalingData:
 
 @dataclasses.dataclass(frozen=True)
 class StaticConfig:
-    """Hashable configuration: shape, schedule, backend, dtype."""
+    """Hashable configuration: shape, schedule, backend, dtype, polish."""
 
     n: int
     m: int
@@ -64,6 +64,9 @@ class StaticConfig:
     scaled_termination: bool = con.SCALED_TERMINATION
     linsys_solver: str = "dense_inv"
     dtype: str = "float64"
+    polish_passes: int = con.POLISH_PASSES
+    # e.g. "float64": polish in float64 over a float32 solve; None: the solve dtype
+    polish_dtype: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -64,12 +64,18 @@ def print_iter_header() -> None:
 
 
 def print_summary_footer(solver) -> None:
-    """print_footer (util.c:177-236) of the stateful Solver; its
-    per-iteration rows are printed live by the segmented solve loop.
-    Polish is not ported, so there is no polish line."""
+    """print_polish and print_footer (util.c:177-236) of the stateful
+    Solver; its per-iteration rows are printed live by the segmented
+    solve loop."""
     info = solver.info
+    if solver.settings.polish and info.status_polish == 1:
+        print(
+            f"plsh  {info.obj_val: .4e}  {info.pri_res:.2e}  "
+            f"{info.dua_res:.2e}   --------   {info.polish_time:.2e}s"
+        )
     print()
     print(f"status:               {info.status}")
+    _print_polish_status(solver.settings, info.status_polish)
     print(f"number of iterations: {info.iter}")
     if info.status_val in (con.OSQP_SOLVED, con.OSQP_SOLVED_INACCURATE):
         print(f"optimal objective:    {info.obj_val:.4f}")
@@ -78,11 +84,25 @@ def print_summary_footer(solver) -> None:
     print()
 
 
+def _print_polish_status(settings, status_polish: int) -> None:
+    if settings.polish:
+        if status_polish == 1:
+            print("solution polish:      successful")
+        elif status_polish < 0:
+            print("solution polish:      unsuccessful")
+
+
 def print_batch_footer(res, settings, run_time: float) -> None:
     """Footer of a batched solve (util.c:177-236).  The per-solution lines
     report instance 0, and a status histogram covers the whole batch."""
     status = res.status_val.cpu().tolist()
     s0 = status[0]
+    pol = int(res.status_polish[0])
+    if settings.polish and pol == 1:
+        print(
+            f"plsh  {float(res.obj_val[0]): .4e}  {float(res.pri_res[0]):.2e}  "
+            f"{float(res.dua_res[0]):.2e}   --------   --------"
+        )
     print()
     print(f"status:               {con.STATUS_MESSAGE.get(s0, str(s0))}")
     if len(status) > 1:
@@ -90,6 +110,7 @@ def print_batch_footer(res, settings, run_time: float) -> None:
             f"{con.STATUS_MESSAGE.get(v, str(v))}: {status.count(v)}" for v in sorted(set(status))
         )
         print(f"batch status:         {hist}")
+    _print_polish_status(settings, pol)
     print(f"number of iterations: {int(res.iter[0])}")
     if s0 in (con.OSQP_SOLVED, con.OSQP_SOLVED_INACCURATE):
         print(f"optimal objective:    {float(res.obj_val[0]):.4f}")

@@ -111,18 +111,30 @@ def test_settings_validation_matches_reference(kw):
 
 def test_linsys_registry():
     assert tlinsys.get("qdldl") is tlinsys.get("dense_inv")
-    for name in ("dense_chol", "kkt_lu", "cg", "block_tridiag", "mkl pardiso"):
+    assert tlinsys.get("mkl pardiso") is tlinsys.get("kkt_lu") is tlinsys.get("KKT_LU")
+    assert tlinsys.get("dense_chol") is not tlinsys.get("dense_inv")
+    for name in ("cg", "block_tridiag"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlinsys.get(name)
     with pytest.raises(KeyError):
         tlinsys.get("nope")
 
 
-@pytest.mark.parametrize("kw", [{"polish": True}, {"compact": True}, {"linsys_solver": "kkt_lu"}])
+@pytest.mark.parametrize("kw", [{"compact": True}, {"linsys_solver": "cg"}, {"linsys_solver": "block_tridiag"}])
 def test_unported_options_raise(kw):
     P, q, A, l, u = random_qps(2, 3, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", verbose=False, **kw)
+
+
+@pytest.mark.parametrize("kw", [{"polish": True}, {"linsys_solver": "kkt_lu"}, {"linsys_solver": "dense_chol"},
+                                {"linsys_solver": "mkl pardiso", "polish": True}])
+def test_ported_options_run(kw):
+    """Polish and the dense backends, which used to raise, solve."""
+    P, q, A, l, u = random_qps(2, 3, 4)
+    res = osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", dtype="float64", verbose=False, **kw)
+    assert (res.status_val == tcon.OSQP_SOLVED).all()
+    assert (res.status_polish == (1 if kw.get("polish") else 0)).all()
 
 
 def test_time_based_rho_rejected():

@@ -240,3 +240,123 @@ def test_solve_batch_keeps_cpu_tensors_on_the_cpu(cuda, monkeypatch):
     res = osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype=torch.float64, verbose=False)
     assert res.x.device.type == res.status_val.device.type == "cpu"
     assert (res.status_val == osqp_tpu_torch.OSQP_SOLVED).all()
+
+
+# --- polish and the other dense backends ---------------------------------
+def _assert_polish_parity(rj, rt, dtype):
+    np.testing.assert_array_equal(rt.status_polish.numpy(), np.asarray(rj.status_polish))
+    if dtype == "float64":
+        for f in ("pri_res", "dua_res"):
+            np.testing.assert_allclose(getattr(rt, f).numpy(), np.asarray(getattr(rj, f)), rtol=1e-6, atol=1e-12)
+        np.testing.assert_allclose(rt.obj_val.numpy(), np.asarray(rj.obj_val), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_batch_polish(dtype):
+    """The slice with polish on at B=16, n=20, m=30: statuses, iterations
+    and status_polish as the JAX package's (one instance fails to polish
+    in both), and the polished solutions satisfy the KKT conditions
+    tightly."""
+    rj, rt = _solve_both(*random_qps(16, 20, 30, seed=11), dtype, polish=True)
+    _assert_parity(rj, rt, dtype)
+    _assert_polish_parity(rj, rt, dtype)
+    ok = rt.status_polish == 1
+    assert int(ok.sum()) >= 15 and rt.status_polish.dtype == torch.int32
+    tight = 1e-9 if dtype == "float64" else 1e-3
+    assert float(rt.pri_res[ok].max()) < tight and float(rt.dua_res[ok].max()) < tight
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_batch_polish_all_succeed(dtype):
+    """The counterpart of test_batch.py's test_batch_polish."""
+    rj, rt = _solve_both(*random_qps(3, 8, 12, seed=11), dtype, polish=True)
+    _assert_parity(rj, rt, dtype)
+    _assert_polish_parity(rj, rt, dtype)
+    assert (rt.status_polish == 1).all()
+    tight = 1e-9 if dtype == "float64" else 1e-5
+    assert float(rt.pri_res.max()) < tight and float(rt.dua_res.max()) < tight
+
+
+@pytest.mark.nanok
+def test_batch_polish_status_by_instance():
+    """Polish is taken only where the instance is solved: the infeasible
+    instance of the mixed batch keeps status_polish 0 and its NaN x."""
+    rj, rt = _solve_both(*_mixed(), "float64", polish=True)
+    _assert_parity(rj, rt, "float64")
+    np.testing.assert_array_equal(rt.status_polish.numpy(), np.asarray(rj.status_polish))
+    assert rt.status_polish.tolist() == [1, 1, 0, 1]
+    assert torch.isnan(rt.x[2]).all()
+
+
+@pytest.mark.parametrize("kw", [{"polish_refine_iter": 0}, {"polish_passes": 1}, {"segmented": False},
+                                {"delta": 1e-5}, {"scaling": 0}],
+                         ids=["no_refinement", "one_pass", "unsegmented", "delta", "no_scaling"])
+def test_batch_polish_settings(kw):
+    rj, rt = _solve_both(*random_qps(5, 8, 12, seed=7), "float64", polish=True, **kw)
+    _assert_parity(rj, rt, "float64")
+    _assert_polish_parity(rj, rt, "float64")
+
+
+def test_batch_polish_in_float64_over_a_float32_solve():
+    rj, rt = _solve_both(*random_qps(5, 8, 12, seed=7), "float32", polish=True, polish_dtype="float64")
+    _assert_parity(rj, rt, "float32")
+    np.testing.assert_array_equal(rt.status_polish.numpy(), np.asarray(rj.status_polish))
+    assert rt.x.dtype == torch.float32 and (rt.status_polish == 1).all()
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=0, atol=1e-5)
+
+
+def test_batch_polish_verbose_footer_matches_reference(capsys):
+    P, q, A, l, u = random_qps(3, 8, 12, seed=11)
+    osqp_tpu.solve_batch(P, q, A, l, u, dtype="float64", polish=True)
+    out_j = capsys.readouterr().out
+    osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype="float64", polish=True, device="cpu")
+    out_t = capsys.readouterr().out
+    keep = ("plsh", "status:", "batch status:", "solution polish:", "number of iterations:", "optimal objective:")
+    # the plsh row's residuals are rounding noise (~1e-16): keep its objective only
+    pick = lambda out: [ln[:17] if ln.startswith("plsh") else ln for ln in out.splitlines() if ln.startswith(keep)]
+    assert pick(out_t) == pick(out_j) and pick(out_t)[0].startswith("plsh")
+    assert any(ln.startswith("solution polish:      successful") for ln in pick(out_t))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("backend", ["kkt_lu", "dense_chol", "mkl pardiso"])
+def test_dense_backends(backend, dtype):
+    """solve_batch through the full-KKT LU and the Cholesky backends
+    against the JAX package with the same backend, and against the port's
+    own dense_inv run."""
+    P, q, A, l, u = random_qps(6, 10, 14, seed=5)
+    rj, rt = _solve_both(P, q, A, l, u, dtype, linsys_solver=backend)
+    _assert_parity(rj, rt, dtype)
+    assert (rt.status_val == osqp_tpu_torch.OSQP_SOLVED).all()
+    ref = osqp_tpu_torch.solve_batch(P, q, A, l, u, dtype=dtype, device="cpu", verbose=False)
+    if dtype == "float64":
+        np.testing.assert_array_equal(rt.iter.numpy(), ref.iter.numpy())
+        np.testing.assert_allclose(rt.x.numpy(), ref.x.numpy(), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("backend", ["kkt_lu", "dense_chol"])
+def test_dense_backends_with_rho_updates_and_polish(backend):
+    """A batch whose rho adapts (the factor is rebuilt and merged per
+    instance, kkt_lu's integer perm included), then polish."""
+    P, q, A, l, u = random_qps(4, 12, 6, seed=0)
+    u[:, :3] = l[:, :3]
+    kw = {"rho": 1e-4, "eps_abs": 1e-6, "eps_rel": 1e-6, "max_iter": 600, "linsys_solver": backend, "polish": True}
+    rj, rt = _solve_both(P * 0.1, q, A, l, u, "float64", **kw)
+    _assert_parity(rj, rt, "float64")
+    _assert_polish_parity(rj, rt, "float64")
+    assert (rt.rho_updates > 0).all()
+
+
+@pytest.mark.parametrize("backend", ["dense_inv", "kkt_lu", "dense_chol"])
+def test_batch_polish_without_constraints(backend):
+    """m = 0: K is P + sigma I alone, polish's mask and nu are empty."""
+    rng = np.random.default_rng(0)
+    B, n = 3, 6
+    M = rng.standard_normal((B, n, n))
+    P = np.einsum("bij,bkj->bik", M, M) / n + 0.1 * np.eye(n)
+    q = rng.standard_normal((B, n))
+    A, l, u = np.zeros((B, 0, n)), np.zeros((B, 0)), np.zeros((B, 0))
+    rj, rt = _solve_both(P, q, A, l, u, "float64", polish=True, linsys_solver=backend)
+    _assert_parity(rj, rt, "float64")
+    _assert_polish_parity(rj, rt, "float64")
+    assert (rt.status_polish == 1).all()

@@ -19,6 +19,7 @@ import torch
 import osqp_tpu_torch
 from osqp_tpu_torch.io.qps import load_qps
 from osqp_tpu_torch.ops import admm_iter as k1
+from osqp_tpu_torch.ops import kkt_lu as k8
 from osqp_tpu_torch.ops import ruiz as k4
 from osqp_tpu_torch.ops import spd_inverse as k2
 from osqp_tpu_torch.ops import term_products as k3
@@ -358,3 +359,141 @@ def test_solver_gpu_matches_cpu(dev, name):
     assert np.abs(rg.x - rc.x).max() <= 1e-6 and np.abs(rg.y - rc.y).max() <= 1e-6
     sg.update_lin_cost(qp.q * 1.1)
     assert sg.solve().info.status_val == osqp_tpu_torch.OSQP_SOLVED
+
+
+def _kkt(B, n, m, dtype, dev, seed=0, delta=None):
+    """K = [[P + s I, A'], [A, -diag(d)]] from random data made in float64:
+    the ADMM form (s = 1e-6, d = 1/rho), or with ``delta`` the polish form
+    (s = d = delta, about half of A's rows zeroed)."""
+    from osqp_tpu_torch.linsys import kkt_lu
+
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64).to(dev)
+    P = _spd(B, n, torch.float64, seed).to(dev)
+    A = r(B, m, n) / max(n, 1) ** 0.5
+    if delta is None:
+        K = kkt_lu.form_kkt(P, A, 1e-6, 1.0 / (0.1 + r(B, m).abs()))
+    else:
+        A = A * (r(B, m) > 0)[:, :, None]
+        K = kkt_lu.form_kkt(P, A, delta, torch.full((B, m), delta, dtype=torch.float64, device=dev))
+    return K.to(dtype).contiguous()
+
+
+# N = n + m: one value, one ragged panel, exactly one panel, one panel and
+# a row, several panels, the headline's N, panels narrower than 32 columns
+# (f64 above ~870 rows, f32 above ~1750) and, in float64 at N = 3400, a
+# panel that fits no shared memory and is factored in device memory.
+K8_SHAPES = [(3, 1, 0, None), (5, 3, 4, None), (5, 12, 20, None), (5, 12, 21, None), (7, 30, 45, 1e-6),
+             (3, 100, 200, 1e-6), (2, 400, 500, None), (1, 1000, 1250, 1e-6), (1, 1500, 1900, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,n,m,delta", K8_SHAPES)
+def test_k8_factor_matches_plain(dev, dtype, B, n, m, delta):
+    """K8's factor gives the plain version's perm and lu bit for bit (every
+    update in the same order with the same rounding), twice."""
+    K = _kkt(B, n, m, dtype, dev, seed=n, delta=delta)
+    keep = K.clone()
+    before = k8.launches_factor
+    lu, perm = k8.kkt_lu_factor(K)
+    lu2, perm2 = k8.kkt_lu_factor(K)
+    torch.cuda.synchronize()
+    assert k8.launches_factor == before + 2
+    assert torch.equal(K, keep)
+    assert torch.equal(lu, lu2) and torch.equal(perm, perm2)
+    lp, pp = k8.kkt_lu_factor_plain(K)
+    assert perm.dtype == torch.int32 and torch.equal(perm, pp)
+    assert torch.isfinite(lu).all() and torch.equal(lu, lp)
+    # in place: the same factors, K consumed
+    lu3, perm3 = k8.kkt_lu_factor(K, overwrite=True)
+    assert lu3.data_ptr() == K.data_ptr() and torch.equal(lu3, lu) and torch.equal(perm3, perm)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("B,n,m,delta", K8_SHAPES + [(200, 20, 30, 1e-6)])
+def test_k8_solve_matches_plain(dev, dtype, tol, B, n, m, delta):
+    """K8's solve against its plain version, relative to the largest
+    entry, by its backward error against K, and row by row against the
+    factors it read, |L U x - b[perm]| <= 8 sqrt(N) eps (|L| |U| |x| +
+    |b[perm]|), which no scale of x (b / delta in a masked row) and no
+    cond(K) loosens; two launches give the same bits.  B = 200 takes the
+    narrow blocks, the others the wide ones."""
+    K = _kkt(B, n, m, dtype, dev, seed=n, delta=delta)
+    lu, perm = k8.kkt_lu_factor(K)
+    b = torch.randn(B, n + m, dtype=dtype, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    before = k8.launches_solve
+    x, again = k8.kkt_lu_solve(lu, perm, b), k8.kkt_lu_solve(lu, perm, b)
+    torch.cuda.synchronize()
+    assert k8.launches_solve == before + 2 and torch.equal(x, again)
+    assert _rel(x, k8.kkt_lu_solve_plain(lu, perm, b)) <= tol
+    K64, x64 = K.double(), x.double()
+    resid = (torch.bmm(K64, x64[:, :, None])[:, :, 0] - b.double()).abs().amax(-1)
+    backward = resid / (K64.abs().sum(-1).amax(-1) * x64.abs().amax(-1))
+    assert float(backward.max()) <= (1e-13 if dtype == torch.float64 else 1e-5)
+    lu64 = lu.double()
+    U, L = torch.triu(lu64), torch.tril(lu64, -1)
+    L.diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    pb = torch.gather(b.double(), 1, perm.long())
+    through = lambda L, U, v: torch.bmm(L, torch.bmm(U, v[:, :, None]))[:, :, 0]
+    rowwise = (through(L, U, x64) - pb).abs() / (through(L.abs(), U.abs(), x64.abs()) + pb.abs())
+    assert float(rowwise.max()) <= 8 * (n + m) ** 0.5 * torch.finfo(dtype).eps
+
+
+def test_k8_singular_gives_non_finite(dev):
+    """A zero row and column: Inf/NaN in that instance, no exception; the
+    other instances are untouched by it."""
+    K = _kkt(3, 6, 9, torch.float64, dev)
+    K[1, :, 4] = 0.0
+    K[1, 4, :] = 0.0
+    lu, perm = k8.kkt_lu_factor(K)
+    x = k8.kkt_lu_solve(lu, perm, torch.ones(3, 15, dtype=torch.float64, device=dev))
+    torch.cuda.synchronize()
+    assert not torch.isfinite(x[1]).all()
+    lp, pp = k8.kkt_lu_factor_plain(K[[0, 2]])
+    assert torch.equal(lu[[0, 2]], lp) and torch.equal(perm[[0, 2]], pp)
+
+
+def test_k8_wrappers_raise_on_non_contiguous_cuda_input(dev):
+    K = _kkt(2, 4, 5, torch.float64, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        k8.kkt_lu_factor(K.transpose(1, 2))
+    lu, perm = k8.kkt_lu_factor(K)
+    b = torch.ones(2, 18, dtype=torch.float64, device=dev)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        k8.kkt_lu_solve(lu, perm, b)
+
+
+@pytest.mark.parametrize("backend", ["dense_inv", "kkt_lu", "dense_chol"])
+def test_polish_and_backends_gpu_match_cpu(dev, backend):
+    """solve_batch with polish on through each dense backend, on the GPU
+    against the CPU in float64: the same statuses, iterations and
+    status_polish, x and y within 1e-6; K8 launched 4 + 16 times by the
+    polish, and by every factor and iteration of the kkt_lu backend."""
+    data = _qps(16, 20, 30, seed=11)
+    kw = dict(dtype="float64", verbose=False, polish=True, linsys_solver=backend)
+    before = (k8.launches_factor, k8.launches_solve)
+    rg = osqp_tpu_torch.solve_batch(*data, device=dev, **kw)
+    torch.cuda.synchronize()
+    factors, solves = k8.launches_factor - before[0], k8.launches_solve - before[1]
+    rc = osqp_tpu_torch.solve_batch(*data, device="cpu", **kw)
+    assert torch.equal(rg.status_val.cpu(), rc.status_val) and torch.equal(rg.iter.cpu(), rc.iter)
+    assert torch.equal(rg.status_polish.cpu(), rc.status_polish) and (rc.status_polish == 1).any()
+    assert float((rg.x.cpu() - rc.x).abs().max()) <= 1e-6 and float((rg.y.cpu() - rc.y).abs().max()) <= 1e-6
+    if backend == "kkt_lu":
+        assert factors >= 4 + 1 and solves == 16 + int(rc.iter.max())
+    else:
+        assert (factors, solves) == (4, 16)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_solver_polish_gpu_matches_cpu(dev, dtype):
+    """Solver(polish=True) at CVXQP2_S on the GPU against the CPU."""
+    qp = load_qps(os.path.join(MAROS, "CVXQP2_S.qps"))
+    kw = dict(dtype=dtype, verbose=False, polish=True)
+    rg = osqp_tpu_torch.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, **kw).solve()
+    rc = osqp_tpu_torch.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, device="cpu", **kw).solve()
+    assert rg.info.status_val == rc.info.status_val == osqp_tpu_torch.OSQP_SOLVED
+    assert rg.info.status_polish == rc.info.status_polish == 1 and rg.info.polish_time > 0
+    if dtype == "float64":
+        assert rg.info.iter == rc.info.iter
+        assert np.abs(rg.x - rc.x).max() <= 1e-6 and np.abs(rg.y - rc.y).max() <= 1e-6 * np.abs(rc.y).max()

@@ -329,3 +329,88 @@ def test_ruiz_cluster_size(n, m, dtype, want):
     smaller = [c for c in (1, 2, 4, 8) if c < k] if k else [1, 2, 4, 8] * (n <= 512)
     for c in smaller:
         assert k4._resident_bytes(n, m, c, elt) > k4.CTA_BUDGET
+
+
+# --- K8: the KKT LU's plain versions against jax.lax.linalg.lu -----------
+def _kkt(n, m, dtype, seed=0, B=3, masked=False):
+    """K from the JAX package's form_kkt on random QPs: sigma = 1e-6 and
+    1/rho in the ADMM form; masked, K_delta with half of A's rows zeroed."""
+    from osqp_tpu.linsys import kkt_lu as jkkt_lu
+
+    P, _, A, _, _ = random_qps(B, n, m, seed=seed)
+    jd = jnp.dtype(dtype)
+    if masked:
+        A = A * (np.arange(m) % 2 == 0)[None, :, None]
+        d, s = jnp.full((B, m), 1e-6, jd), 1e-6
+    else:
+        rho = 0.1 + np.abs(np.random.default_rng(seed).standard_normal((B, m)))
+        d, s = jnp.asarray(1.0 / rho, jd), 1e-6
+    return jkkt_lu.form_kkt(jnp.asarray(P, jd), jnp.asarray(A, jd), jnp.asarray(s, jd), d)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n,m,masked", [(1, 0, False), (3, 4, False), (12, 18, False), (30, 45, False),
+                                        (12, 18, True), (30, 45, True)])
+def test_kkt_lu_plain_matches_reference(dtype, n, m, masked):
+    """perm equal; lu and the solve within TOL of their largest value."""
+    from osqp_tpu.linsys import kkt_lu as jkkt_lu
+    from osqp_tpu_torch.ops import kkt_lu as k8
+
+    td = getattr(torch, dtype)
+    jK = _kkt(n, m, dtype, seed=n + m, masked=masked)
+    jfac = jkkt_lu._lu_factor(jK)
+    K = torch.as_tensor(np.array(jK), dtype=td)
+    lu, perm = k8.kkt_lu_factor(K)
+    assert lu.dtype == td and perm.dtype == torch.int32 and perm.shape == K.shape[:2]
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jfac["perm"]))
+    assert _rel(lu, jfac["lu"]) <= TOL[dtype]
+    b = np.random.default_rng(1).standard_normal(K.shape[:2])
+    x = k8.kkt_lu_solve(lu, perm, torch.as_tensor(b, dtype=td))
+    jx = jkkt_lu._lu_solve(jfac, jnp.asarray(b, jnp.dtype(dtype)))
+    assert _rel(x, jx) <= TOL[dtype]
+    # K is left alone
+    np.testing.assert_array_equal(K.numpy(), np.asarray(jK))
+
+
+def test_kkt_lu_plain_picks_the_first_of_equal_pivots():
+    from osqp_tpu_torch.ops import kkt_lu as k8
+
+    K = torch.tensor([[[1.0, 2.0, 3.0], [-2.0, 1.0, 0.0], [2.0, 5.0, 1.0]]], dtype=torch.float64)
+    lu, perm = k8.kkt_lu_factor(K)
+    assert perm.tolist() == [[1, 2, 0]]  # rows 1 and 2 tie in column 0: row 1 first
+    L = torch.tril(lu[0], -1) + torch.eye(3, dtype=torch.float64)
+    torch.testing.assert_close(L @ torch.triu(lu[0]), K[0][perm[0].long()])
+
+
+def test_kkt_lu_singular_gives_non_finite_in_both():
+    """A zero column: no exception, no repair; the solve is not finite."""
+    from osqp_tpu.linsys import kkt_lu as jkkt_lu
+    from osqp_tpu_torch.ops import kkt_lu as k8
+
+    jK = np.array(_kkt(3, 4, "float64"))
+    jK[1, :, 2] = 0.0
+    jK[1, 2, :] = 0.0
+    b = np.ones(jK.shape[:2])
+    jx = np.asarray(jkkt_lu._lu_solve(jkkt_lu._lu_factor(jnp.asarray(jK)), jnp.asarray(b)))
+    lu, perm = k8.kkt_lu_factor(torch.as_tensor(jK))
+    x = k8.kkt_lu_solve(lu, perm, torch.as_tensor(b)).numpy()
+    assert not np.isfinite(jx[1]).all() and not np.isfinite(x[1]).all()
+    for i in (0, 2):
+        np.testing.assert_allclose(x[i], jx[i], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("call", [
+    lambda k8, K, lu, perm, b: k8.kkt_lu_factor(K.to(torch.float16)),
+    lambda k8, K, lu, perm, b: k8.kkt_lu_factor(K[:, :, :3]),
+    lambda k8, K, lu, perm, b: k8.kkt_lu_factor(K[0]),
+    lambda k8, K, lu, perm, b: k8.kkt_lu_solve(lu, perm.long(), b),
+    lambda k8, K, lu, perm, b: k8.kkt_lu_solve(lu, perm, b[:, :3]),
+    lambda k8, K, lu, perm, b: k8.kkt_lu_solve(lu, perm, b.float()),
+], ids=["dtype", "not_square", "not_batched", "perm_dtype", "b_shape", "b_dtype"])
+def test_kkt_lu_wrappers_check_their_input(call):
+    from osqp_tpu_torch.ops import kkt_lu as k8
+
+    K = torch.as_tensor(np.array(_kkt(2, 2, "float64")))
+    lu, perm = k8.kkt_lu_factor(K)
+    with pytest.raises((TypeError, ValueError)):
+        call(k8, K, lu, perm, torch.ones(K.shape[:2], dtype=torch.float64))

@@ -239,3 +239,206 @@ def test_dense_inv_init_above_k2_bound_polishes_like_reference():
     M = P + 1e-6 * torch.eye(n) + A.transpose(1, 2) @ (rho[:, :, None] * A)
     assert torch.equal(fac["Minv"], k2.newton_schulz(M, dense_inv._chol_inverse(M)))
     assert not torch.equal(fac["Minv"], dense_inv._chol_inverse(M))
+
+
+# --- the kkt_lu and dense_chol backends ----------------------------------
+def _backend_setup(name, seed, dtype="float64", **kw):
+    """JAX-scaled data, rho state, dyn, and the JAX backend's factor."""
+    from osqp_tpu import linsys as jlinsys
+
+    jdata, jrs, jdyn, _ = _setup(seed, dtype=dtype, **kw)
+    return jdata, jrs, jdyn, jlinsys.get(name).init(jdata.P, jdata.A, jdyn.sigma, jrs.rho_vec)
+
+
+@pytest.mark.parametrize("seed,n_eq", [(0, 0), (2, 4)])
+def test_kkt_lu_backend_matches_reference(seed, n_eq):
+    """form_kkt, init, solve (with the z~ recovery) and solve_raw."""
+    from osqp_tpu.linsys import kkt_lu as jkkt_lu
+    from osqp_tpu_torch.linsys import kkt_lu
+
+    jdata, jrs, jdyn, jfac = _backend_setup("kkt_lu", seed, n_eq=n_eq)
+    data, rs, dyn, _ = _port(jdata, jrs, jdyn, {}, "float64")
+    K = kkt_lu.form_kkt(data.P, data.A, dyn.sigma, rs.rho_inv_vec)
+    np.testing.assert_allclose(
+        K.numpy(), np.asarray(jkkt_lu.form_kkt(jdata.P, jdata.A, jdyn.sigma, jrs.rho_inv_vec)), rtol=0, atol=0)
+    fac = kkt_lu.init(data.P, data.A, dyn.sigma, rs.rho_vec)
+    np.testing.assert_array_equal(fac["perm"].numpy(), np.asarray(jfac["perm"]))
+    assert _rel(fac["lu"], jfac["lu"]) < 1e-10
+    B, n = jdata.q.shape
+    m = jdata.l.shape[1]
+    rng = np.random.default_rng(seed)
+    rhs_x, rhs_z = rng.standard_normal((B, n)), rng.standard_normal((B, m))
+    jx, jz = jkkt_lu.solve(jfac, jdata.A, jrs.rho_vec, jnp.asarray(rhs_x), jnp.asarray(rhs_z))
+    x_t, z_t = kkt_lu.solve(fac, data.A, rs.rho_vec, torch.as_tensor(rhs_x), torch.as_tensor(rhs_z))
+    assert _rel(x_t, jx) < 1e-10 and _rel(z_t, jz) < 1e-10
+    # z~ = rhs_z + nu / rho equals A x~
+    np.testing.assert_allclose(z_t.numpy(), torch.bmm(data.A, x_t[:, :, None])[:, :, 0].numpy(), rtol=1e-8, atol=1e-9)
+    rhs = np.concatenate([rhs_x, rhs_z], axis=-1)
+    assert _rel(kkt_lu.solve_raw(fac, torch.as_tensor(rhs)), jkkt_lu.solve_raw(jfac, jnp.asarray(rhs))) < 1e-10
+
+
+@pytest.mark.parametrize("seed,n_eq", [(0, 0), (2, 4)])
+def test_dense_chol_backend_matches_reference(seed, n_eq):
+    from osqp_tpu.linsys import dense_chol as jdense_chol
+    from osqp_tpu_torch.linsys import dense_chol
+
+    jdata, jrs, jdyn, jfac = _backend_setup("dense_chol", seed, n_eq=n_eq)
+    data, rs, dyn, _ = _port(jdata, jrs, jdyn, {}, "float64")
+    fac = dense_chol.init(data.P, data.A, dyn.sigma, rs.rho_vec)
+    assert _rel(fac["L"], jfac["L"]) < 1e-10
+    B, n = jdata.q.shape
+    m = jdata.l.shape[1]
+    rng = np.random.default_rng(seed)
+    rhs_x, rhs_z = rng.standard_normal((B, n)), rng.standard_normal((B, m))
+    jx, jz = jdense_chol.solve(jfac, jdata.A, jrs.rho_vec, jnp.asarray(rhs_x), jnp.asarray(rhs_z))
+    x_t, z_t = dense_chol.solve(fac, data.A, rs.rho_vec, torch.as_tensor(rhs_x), torch.as_tensor(rhs_z))
+    assert _rel(x_t, jx) < 1e-10 and _rel(z_t, jz) < 1e-10
+
+
+def test_dense_chol_init_nan_on_non_pd():
+    from osqp_tpu_torch.linsys import dense_chol
+
+    P = torch.eye(3, dtype=torch.float64).repeat(2, 1, 1)
+    P[1, 1, 1] = -5.0
+    fac = dense_chol.init(P, torch.zeros(2, 0, 3, dtype=torch.float64), 1e-6, torch.zeros(2, 0, dtype=torch.float64))
+    assert torch.isfinite(fac["L"][0]).all() and torch.isnan(fac["L"][1]).all()
+
+
+@pytest.mark.parametrize("name", ["kkt_lu", "dense_chol"])
+def test_converted_factor_solves_like_the_reference(name):
+    """convert.factor carries a JAX kkt_lu or dense_chol factor into the
+    port's: one factorization, both packages' solves."""
+    from osqp_tpu import linsys as jlinsys
+    from osqp_tpu_torch import linsys as tlinsys
+
+    jdata, jrs, jdyn, jfac = _backend_setup(name, 1)
+    data, rs, _, fac = _port(jdata, jrs, jdyn, jfac, "float64")
+    if name == "kkt_lu":
+        assert fac["perm"].dtype == torch.int32
+    B, n = jdata.q.shape
+    rng = np.random.default_rng(4)
+    rhs_x, rhs_z = rng.standard_normal((B, n)), rng.standard_normal((B, jdata.l.shape[1]))
+    jx, jz = jlinsys.get(name).solve(jfac, jdata.A, jrs.rho_vec, jnp.asarray(rhs_x), jnp.asarray(rhs_z))
+    x_t, z_t = tlinsys.get(name).solve(fac, data.A, rs.rho_vec, torch.as_tensor(rhs_x), torch.as_tensor(rhs_z))
+    assert _rel(x_t, jx) < 1e-12 and _rel(z_t, jz) < 1e-12
+
+
+def test_backend_aliases():
+    """The counterpart of test_solve_linsys.py's test_backend_aliases."""
+    from osqp_tpu_torch import linsys as tlinsys
+
+    assert tlinsys.get("qdldl") is tlinsys.get("dense_inv")
+    assert tlinsys.get("mkl pardiso") is tlinsys.get("kkt_lu")
+    assert tlinsys.available() == ["dense_chol", "dense_inv", "kkt_lu"]
+
+
+@pytest.mark.parametrize("name", ["dense_inv", "dense_chol", "kkt_lu"])
+def test_solve_kkt_against_scipy(name):
+    """test_solve_linsys.py's KKT problem: x~ and the recovered z~ against
+    scipy's sparse LU (generate_problem.py:33-35)."""
+    from osqp_tpu_torch import linsys as tlinsys
+    from test_solve_linsys import make_kkt_problem
+
+    P, A, rho, sigma, rhs, x_exp, n, m = make_kkt_problem()
+    Pd, Ad = torch.as_tensor(P.toarray())[None], torch.as_tensor(A.toarray())[None]
+    rho_vec = torch.full((1, m), rho, dtype=torch.float64)
+    backend = tlinsys.get(name)
+    factor = backend.init(Pd, Ad, torch.tensor(sigma, dtype=torch.float64), rho_vec)
+    if name == "dense_inv":  # no solve of its own: the explicit-inverse products of K1
+        t = torch.as_tensor(rhs[:n])[None] + (Ad.transpose(1, 2) @ (rho_vec * torch.as_tensor(rhs[n:])[None])[:, :, None])[:, :, 0]
+        x_t = (factor["Minv"] @ t[:, :, None])[:, :, 0]
+        z_t = (Ad @ x_t[:, :, None])[:, :, 0]
+    else:
+        x_t, z_t = backend.solve(factor, Ad, rho_vec, torch.as_tensor(rhs[:n])[None], torch.as_tensor(rhs[n:])[None])
+    np.testing.assert_allclose(x_t[0].numpy(), x_exp[:n], atol=1e-4)
+    np.testing.assert_allclose(z_t[0].numpy(), x_exp[n:], atol=1e-4)
+
+
+def test_form_kkt_matches_scipy_bmat():
+    """The counterpart of test_solve_linsys.py's test of the same name."""
+    import scipy.sparse as sp
+
+    from osqp_tpu_torch.linsys import kkt_lu
+    from test_solve_linsys import make_kkt_problem
+
+    P, A, rho, sigma, *_, n, m = make_kkt_problem()
+    K_ref = sp.bmat([[P + sigma * sp.eye(n), A.T], [A, -1.0 / rho * sp.eye(m)]]).toarray()
+    K = kkt_lu.form_kkt(torch.as_tensor(P.toarray())[None], torch.as_tensor(A.toarray())[None],
+                        torch.tensor(sigma, dtype=torch.float64), torch.full((1, m), 1.0 / rho, dtype=torch.float64))
+    np.testing.assert_allclose(K[0].numpy(), K_ref, atol=1e-12)
+    # m = 0: K is P + sigma I
+    K0 = kkt_lu.form_kkt(torch.as_tensor(P.toarray())[None], torch.zeros(1, 0, n, dtype=torch.float64), 1.0,
+                         torch.zeros(1, 0, dtype=torch.float64))
+    np.testing.assert_allclose(K0[0].numpy(), P.toarray() + np.eye(n), atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["kkt_lu", "dense_chol"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_generic_body_matches_reference_and_leaves_inactive_alone(name, dtype):
+    """run_segment's generic body (admm_step over backend.solve) against
+    the JAX loop body on one step: inactive instances keep their state,
+    and in float32 the TwoSum carry moves as the JAX package's."""
+    import dataclasses
+
+    from osqp_tpu import linsys as jlinsys
+    from osqp_tpu_torch import admm as tadmm
+    from osqp_tpu_torch.types import StaticConfig
+
+    jdata, jrs, jdyn, jfac = _backend_setup(name, 3, dtype=dtype)
+    data, rs, dyn, fac = _port(jdata, jrs, jdyn, jfac, dtype)
+    B, n = jdata.q.shape
+    m = jdata.l.shape[1]
+    x, z, y, dx, dy, active = _state(3, B, n, m)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    y_lo = np.random.default_rng(9).standard_normal((B, m)) * 1e-7 if dtype == "float32" else None
+    jit_new, jdx, jdy, jylo = jadmm.admm_step(
+        jlinsys.get(name), jfac, jdata, jdyn, jrs, JIt(*(jnp.asarray(v, jd) for v in (x, z, y))),
+        None if y_lo is None else jnp.asarray(y_lo, jd))
+    t = lambda v: torch.as_tensor(v, dtype=td)
+    cfg = StaticConfig(n=n, m=m, linsys_solver=name, check_termination=0, adaptive_rho=False, max_iter=10)
+    c = tadmm.init_carry(cfg, data, rs, fac, Iterates(t(x), t(z), t(y)))
+    c = dataclasses.replace(c, delta_x=t(dx), delta_y=t(dy), active=torch.as_tensor(active),
+                            y_lo=None if y_lo is None else t(y_lo))
+    out = tadmm.run_segment(cfg, data, None, dyn, c, 1)
+    assert out.k == 2
+    tol = 1e-10 if dtype == "float64" else 2e-5
+    got = (out.it.x, out.it.z, out.it.y, out.delta_x, out.delta_y)
+    for g, w, before in zip(got, (jit_new.x, jit_new.z, jit_new.y, jdx, jdy), (x, z, y, dx, dy)):
+        assert _rel(g[active], np.asarray(w)[active]) < tol
+        np.testing.assert_array_equal(g.numpy()[~active], before.astype(g.numpy().dtype)[~active])
+    if y_lo is not None:
+        np.testing.assert_array_equal(out.y_lo.numpy()[~active], y_lo.astype(np.float32)[~active])
+        assert np.abs(out.y_lo.numpy() - np.asarray(jylo))[active].max() <= 1e-6 * np.abs(np.asarray(jit_new.y)).max()
+    else:
+        assert out.y_lo is None
+
+
+def test_rho_adaptation_merges_an_integer_perm_leaf():
+    """A rho update refactors through the registry and merges the new
+    kkt_lu factor per instance: lu and the int32 perm of updated instances
+    only."""
+    import dataclasses
+
+    from osqp_tpu_torch import admm as tadmm
+    from osqp_tpu_torch.linsys import kkt_lu
+    from osqp_tpu_torch.types import StaticConfig
+
+    jdata, jrs, jdyn, jfac = _backend_setup("kkt_lu", 5)
+    data, rs, dyn, fac = _port(jdata, jrs, jdyn, jfac, "float64")
+    B, n = jdata.q.shape
+    m = jdata.l.shape[1]
+    x, _, y, _, _, _ = _state(5, B, n, m)
+    cfg = StaticConfig(n=n, m=m, linsys_solver="kkt_lu")
+    # z = A x, no primal residual: the rho estimate falls out of the tolerance band
+    xt = torch.as_tensor(x)
+    c = tadmm.init_carry(cfg, data, rs, fac, Iterates(xt, torch.bmm(data.A, xt[:, :, None])[:, :, 0], torch.as_tensor(y)))
+    active = torch.arange(B) % 2 == 0
+    c = dataclasses.replace(c, active=active)
+    out = tadmm._apply_rho_adaptation(cfg, data, dyn, c)
+    upd = out.info.rho_updates > 0
+    assert upd.any() and not upd[~active].any()
+    assert out.factor["perm"].dtype == torch.int32
+    fresh = kkt_lu.init(data.P, data.A, dyn.sigma, out.rho_state.rho_vec)
+    for key in ("lu", "perm"):
+        assert torch.equal(out.factor[key][upd], fresh[key][upd])
+        assert torch.equal(out.factor[key][~upd], fac[key][~upd])

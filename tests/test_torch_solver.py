@@ -7,8 +7,8 @@ within 1e-6; in float32 the same status and iterations within one check
 interval (25).  Problems: the README quick start, the HS fixtures,
 CVXQP2_S, the infeasible problems of test_infeasibility.py, and update
 sequences; plus the verbose layout, time_limit, Ctrl-C, the time-based
-rho rule, the options not ported yet, and the JAX goldens that
-chip_smoke.py reads.
+rho rule, the dense backends, the options not ported yet, and the JAX
+goldens that chip_smoke.py reads.
 """
 
 import importlib.util
@@ -331,18 +331,74 @@ def test_time_based_rho_interval(fraction, fires, monkeypatch):
 @pytest.mark.parametrize(
     "make,item",
     [
-        (lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", polish=True), "item 10"),
-        (lambda s: s.update_polish(True), "item 10"),
         (lambda s: s.export(), "item 14"),
-        (lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", linsys_solver="kkt_lu"), "item 11"),
         (lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", linsys_solver="cg"), "items 11-12"),
+        (lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", linsys_solver="block_tridiag"), "item 11"),
     ],
-    ids=["polish", "update_polish", "export", "kkt_lu", "cg"],
+    ids=["export", "cg", "block_tridiag"],
 )
 def test_unported_options_raise(make, item):
     s = osqp_tpu_torch.OSQP().setup(*_quick_start(), device="cpu", verbose=False)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
         make(s)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", dtype="float64", polish=True, verbose=False),
+        lambda s: s.update_polish(True) or s,
+        lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", dtype="float64", linsys_solver="kkt_lu",
+                                        verbose=False),
+    ],
+    ids=["polish", "update_polish", "kkt_lu"],
+)
+def test_ported_options_run(make):
+    """Polish and the kkt_lu backend, which used to raise, now solve the
+    quick start as the JAX package does."""
+    ts = make(osqp_tpu_torch.OSQP().setup(*_quick_start(), device="cpu", dtype="float64", verbose=False))
+    rt = ts.solve()
+    kw = {f: getattr(ts.settings, f) for f in ("polish", "linsys_solver")}
+    rj = osqp_tpu.Solver(*_quick_start(), dtype="float64", verbose=False, **kw).solve()
+    _assert_parity(rj, rt, "float64")
+    assert rt.info.status_polish == rj.info.status_polish == (1 if ts.settings.polish else 0)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("backend", ["dense_inv", "dense_chol", "kkt_lu"])
+def test_all_backends(backend, dtype):
+    """The counterpart of test_basic_qp.py's test_all_backends for the
+    three dense backends: the basic QP with polish on, and CVXQP2_S."""
+    import scipy.sparse as sp2
+
+    P = sp2.triu([[4.0, 1.0], [1.0, 2.0]], format="csc")
+    A = sp2.csc_matrix(np.array([[1.0, 1.0], [1.0, 0.0], [0.0, 1.0], [0.0, 1.0]]))
+    basic = (P, np.ones(2), A, np.array([1.0, 0.0, 0.0, -np.inf]), np.array([1.0, 0.7, 0.7, np.inf]))
+    kw = dict(max_iter=2000, alpha=1.6, polish=True, scaling=0, warm_start=False, linsys_solver=backend, dtype=dtype)
+    js, ts = _both(*basic, **kw)
+    rj, rt = js.solve(), ts.solve()
+    _assert_parity(rj, rt, dtype)
+    assert rt.info.status_val == jcon.OSQP_SOLVED and rt.info.status_polish == rj.info.status_polish == 1
+    tol = 1e-4 if dtype == "float64" else 5e-3
+    np.testing.assert_allclose(rt.x, [0.3, 0.7], atol=tol)
+    np.testing.assert_allclose(rt.y, [-2.9, 0.0, 0.2, 0.0], atol=tol)
+    js, ts = _both(*_problem("CVXQP2_S"), linsys_solver=backend, dtype=dtype)
+    _assert_parity(js.solve(), ts.solve(), dtype)
+
+
+@pytest.mark.parametrize("backend", ["dense_chol", "kkt_lu"])
+def test_backend_update_sequence(backend):
+    """Bounds, rho and matrix updates refactor through the registry."""
+    P, q, A, l, u = _quick_start()
+    js, ts = _both(P, q, A, l, u, linsys_solver=backend, dtype="float64")
+    _assert_parity(js.solve(), ts.solve(), "float64")
+    for s in (js, ts):
+        s.update_bounds(l=np.array([1.0, 0.0, 0.0]), u=np.array([1.0, 0.5, 1e30]))
+        s.update_rho(0.7)
+    _assert_parity(js.solve(), ts.solve(), "float64")
+    for s in (js, ts):
+        s.update_P_A(Px=np.array([5.0, 1.5, 3.0]), Ax=A.data * 1.1)
+    _assert_parity(js.solve(), ts.solve(), "float64")
 
 
 def _goldens_tool():

@@ -11,9 +11,13 @@ headline data (B=8192, n=100, m=200, float32): K1 (``admm_iter``) with
 every instance active, mean of 50 warm calls by CUDA events; K4
 (``ruiz``, 10 sweeps) and K2 (``chol_inverse`` of the headline's Schur
 matrices), mean of 10 warm calls each; the setup (scaling, rho state and
-factor, as chip_smoke.py's headline phase times it), mean of 3; and
-``solve_batch`` 5 times, median and spread.  Prints the card, then one
-JSON line per checkout.  Imports nothing of JAX.
+factor, as chip_smoke.py's headline phase times it), mean of 3;
+``solve_batch`` 5 times, median and spread; and the polish leg: K8
+(``kkt_lu_factor`` and ``kkt_lu_solve`` on chip_smoke.py's K_delta of the
+headline data), mean of 5 warm calls each, and ``solve_batch`` with
+``polish=True`` 3 times, median (null for a checkout from before polish
+was ported).  Prints the card, then one JSON line per checkout.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -61,9 +65,23 @@ for _ in range(5):
     torch.cuda.synchronize()
     times.append(start.elapsed_time(stop))
 solved = float((res.status_val == ot.OSQP_SOLVED).float().mean())
+polish = {"k8_factor_ms": None, "k8_solve_ms": None, "polish_solve_median_ms": None, "polished": None}
+if hasattr(cs, "polish_kkt"):
+    from osqp_tpu_torch.ops import kkt_lu as k8
+    K, _ = cs.polish_kkt((P, q, A, l, u), torch.float32)
+    lu, perm = k8.kkt_lu_factor(K)
+    b = torch.randn(B, n + m, device=dev)
+    polish["k8_factor_ms"] = cs.cuda_ms(lambda: k8.kkt_lu_factor(K), reps=5)
+    polish["k8_solve_ms"] = cs.cuda_ms(lambda: k8.kkt_lu_solve(lu, perm, b), reps=5)
+    del K, lu
+    kw = {**cs.SOLVE_KW, "polish": True}
+    pol = ot.solve_batch(P, q, A, l, u, **kw)
+    polish["polished"] = float((pol.status_polish == 1).float().mean())
+    polish["polish_solve_median_ms"] = statistics.median(
+        cs.cuda_ms(lambda: ot.solve_batch(P, q, A, l, u, **kw), reps=1, warmup=0) for _ in range(3))
 print(json.dumps({"root": sys.argv[1], "k1_all_active_ms": k1_ms, "k4_ms": k4_ms, "k2_ms": k2_ms,
                   "setup_ms": setup_ms, "solve_median_ms": statistics.median(times),
-                  "solve_ms": times, "solved": solved, "max_iter": int(res.iter.max())}))
+                  "solve_ms": times, "solved": solved, "max_iter": int(res.iter.max()), **polish}))
 """
 
 

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of osqp_tpu_torch's headline solve goes, on one CUDA GPU.
 
-    python3 tools/profile_torch_headline.py [--batch 8192] [--top 15]
+    python3 tools/profile_torch_headline.py [--batch 8192] [--top 15] [--polish]
 
 Solves chip_smoke.py's headline batch (B=8192, n=100, m=200, float32,
-eps 1e-3, polish off) once to warm up, then once under
-``torch.profiler``.  Prints the card, the solve's wall time (host clock
+eps 1e-3; polish off, or on with ``--polish``) once to warm up, then
+once under ``torch.profiler``.  Prints the card, the solve's wall time (host clock
 around work that ends in a synchronize), the device's busy time and
 idle share over that window, and device time by kernel, largest first.
 Imports nothing of JAX.
@@ -31,7 +31,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=HEADLINE["B"])
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--polish", action="store_true", help="solve with polish on (adds K8 and polish's K3 calls)")
     args = ap.parse_args()
+    kw = {**SOLVE_KW, "polish": args.polish}
     if not torch.cuda.is_available():
         print("profile_torch_headline: no CUDA device", file=sys.stderr)
         return 1
@@ -44,14 +46,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     B, n, m = args.batch, HEADLINE["n"], HEADLINE["m"]
     P, q, A, l, u = on_device(make_qps(B, n, m), torch.float32, dev)
-    ot.solve_batch(P, q, A, l, u, **SOLVE_KW)  # warm-up: kernel build, allocator
+    ot.solve_batch(P, q, A, l, u, **kw)  # warm-up: kernel build, allocator
     torch.cuda.synchronize()
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = ot.solve_batch(P, q, A, l, u, **SOLVE_KW)
+        res = ot.solve_batch(P, q, A, l, u, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -62,7 +64,8 @@ def main() -> int:
             by_kernel[e.name][1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in by_kernel.values())
     iters = res.iter.cpu()
-    print(f"B={B} n={n} m={m} float32: iterations mean {iters.float().mean():.2f} max {int(iters.max())}")
+    print(f"B={B} n={n} m={m} float32, polish {'on' if args.polish else 'off'}: iterations mean "
+          f"{iters.float().mean():.2f} max {int(iters.max())}, status_polish 1 in {int((res.status_polish == 1).sum())}")
     print(f"solve wall {wall_ms:.3f} ms (host clock, under the profiler); device busy {busy_ms:.3f} ms; "
           f"idle share {1.0 - busy_ms / wall_ms:.3f}")
     if not by_kernel:
