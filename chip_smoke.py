@@ -89,7 +89,33 @@ failure ends the run with a non-zero exit and no result line:
     against the JAX package's float64 solve at eps 1e-10 (1e-7 in
     float64, 1e-5 in float32);
 14. the kkt_lu backend: the headline data at B=1024 and CVXQP2_S
-    through ``linsys_solver="kkt_lu"`` against the ``dense_inv`` run.
+    through ``linsys_solver="kkt_lu"`` against the ``dense_inv`` run;
+15. K5 (ell_ops) against its plain versions, every mode (A x, A'y,
+    A'(rho y), the squared column sums, row and column norms, P's
+    diagonal, the final scaling), on the sparse path's scaled operands of
+    CVXQP2_L (B=1, float64 and float32) and of a scenario batch of
+    CVXQP2_M (B=64, float64): sums within RTOL, the rest exact, two
+    launches bit-identical; A x and A'(rho y) timed beside the plain
+    version, ``torch.sparse.mm`` on a CSR copy and the bound;
+16. K6 (cg_step) against its plain loop: one cg solve from a mid-solve
+    ADMM state of CVXQP2_L (float64, ELL) and of the headline data
+    (dense, B=8192, float32, every fourth instance frozen): the same
+    steps, x within RTOL, frozen instances bit-unchanged, two runs
+    bit-identical; ms per solve and per step, one step's vector work
+    against the plain step and the bound;
+17. the sparse path: ``solve_sparse`` (polish off) at CVXQP2_L in
+    float64, LISWET1 in float64 and float32, and 8 copies of LISWET1
+    with q scaled by 1 + 0.1 i, each held to the JAX package's results
+    in ``tests/data/torch_goldens/sparse_maros.npz`` (float64: status and
+    iterations equal, the objective within 1e-6, x and y within 1e-5 of
+    the golden's largest entry, 1e-3 at CVXQP2_L; float32: status,
+    iterations within 25),
+    with launch counts, CG steps per ADMM iteration, setup and solve ms;
+    one more CVXQP2_L solve under the profiler for K5's and K6's device
+    time and the idle share;
+18. the cg backend on dense operands: ``solve_batch`` on the card against
+    the CPU's plain path (float64, B=64, n=20, m=30), then the headline
+    data at B=1024 in float32 beside the ``dense_inv`` run.
 
 The line before the last is a JSON object of the kernels; the last line
 is the device JSON object.
@@ -117,6 +143,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MAROS = os.path.join(ROOT, "tests", "data", "maros_mm")
 GOLDENS = os.path.join(ROOT, "tests", "data", "torch_goldens", "solver_maros.npz")
 POLISH_GOLDENS = os.path.join(ROOT, "tests", "data", "torch_goldens", "solver_maros_polish.npz")
+SPARSE_GOLDENS = os.path.join(ROOT, "tests", "data", "torch_goldens", "sparse_maros.npz")
 # Relative tolerances of a kernel against its plain version (largest
 # difference over the largest plain value): order of summation differs.
 RTOL = {"float64": 1e-12, "float32": 1e-5}
@@ -331,17 +358,21 @@ def maros_dense(name):
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from osqp_tpu_torch.ops import admm_iter as k1, kkt_lu as k8, ruiz as k4, spd_inverse as k2, term_products as k3
+    from osqp_tpu_torch.ops import cg as k6, ell as k5
 
     k1.launches = k1.refined_launches = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
     k8.launches_factor = k8.launches_solve = 0
+    k5.launches = k6.launches = 0
 
 
 def read_counts() -> dict:
     from osqp_tpu_torch.ops import admm_iter as k1, kkt_lu as k8, ruiz as k4, spd_inverse as k2, term_products as k3
+    from osqp_tpu_torch.ops import cg as k6, ell as k5
 
     return {"admm_iter": k1.launches, "admm_iter_refined": k1.refined_launches, "chol_inverse": k2.launches,
             "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches,
-            "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve}
+            "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve, "ell_ops": k5.launches,
+            "cg_step": k6.launches}
 
 
 def prepared(P, q, A, l, u):
@@ -812,6 +843,7 @@ def phase_headline(dev):
         require(launches[name] > 0, f"{name}, a kernel of the batched path, never launched")
     require(launches["ruiz_resident"] == launches["ruiz"], "the headline's K4 did not take the resident path")
     require(launches["kkt_lu_factor"] == launches["kkt_lu_solve"] == 0, "K8 launched with polish off")
+    require(launches["ell_ops"] == launches["cg_step"] == 0, "K5 or K6 launched on the dense_inv path")
 
     times = []
     for _ in range(5):
@@ -939,6 +971,8 @@ def phase_solver(dev):
     for name, n_launch in total.items():
         if name.startswith("kkt_lu"):  # polish is off here: K8 must stay out of it
             require(n_launch == 0, f"{name} launched on the Solver path with polish off")
+        elif name in ("ell_ops", "cg_step"):  # the sparse path's and cg's kernels
+            require(n_launch == 0, f"{name} launched on the dense_inv Solver path")
         else:
             require(n_launch > 0, f"{name} never launched on the Solver path")
     return total
@@ -1303,6 +1337,323 @@ def phase_kkt_lu_backend(dev):
     return launches
 
 
+# The sparse path's cases, as tools/make_torch_goldens.py writes them:
+# case -> (problem, dtype, instances).
+SPARSE_CASES = {
+    "CVXQP2_L/float64": ("CVXQP2_L", "float64", 1),
+    "LISWET1/float64": ("LISWET1", "float64", 1),
+    "LISWET1/float32": ("LISWET1", "float32", 1),
+    "LISWET1_B8/float64": ("LISWET1", "float64", 8),
+}
+# The kernels of K5 and K6 (csrc/ell_ops.cu, csrc/cg.cu), by name in the profiler.
+K5_KERNELS = ("reduce_kernel", "scale_kernel")
+K6_KERNELS = ("dot_kernel", "update_kernel", "direction_kernel")
+
+
+def scenario(name, B=1):
+    """A Maros-Meszaros problem as scipy P, A and (B, ·) q, l, u: B
+    instances sharing P and A, with q scaled by 1 + 0.1 i."""
+    from osqp_tpu_torch.io.qps import load_qps
+
+    qp = load_qps(os.path.join(MAROS, f"{name}.qps"))
+    q = np.stack([qp.q * (1.0 + 0.1 * i) for i in range(B)])
+    return qp.P, q, qp.A, np.tile(qp.l, (B, 1)), np.tile(qp.u, (B, 1))
+
+
+def sparse_prepared(name, dtype, dev, B=1, **settings):
+    """The sparse path's set-up of a problem on the card: config,
+    settings, scaled ELL data, scaling, rho state, cg factor, iterates."""
+    import torch
+
+    from osqp_tpu_torch import batch, large
+
+    P, q, A, l, u = scenario(name, B)
+    s, dt, cfg, dyn, P_ell, A_ell, q, l, u = large.prepare_sparse(
+        P, q, A, l, u, {"dtype": dtype, "verbose": False, **settings}, dev)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    rho0 = torch.full((B,), s.rho, dtype=dt, device=dev)
+    return (cfg, dyn) + batch._prepare(cfg, s.scaling, P_ell, t(q), A_ell, t(l), t(u), rho0, dyn, None, None)
+
+
+def k5_cost(E, mode, B):
+    """(bytes, operations) of one K5 reduction over the operand E (A's rows
+    for matvec, the transpose's for the others): the ELL values and
+    pattern and the gathered vector(s) read once, the output written once;
+    per stored nonzero a multiply-add (two multiplies and an add with a
+    weight)."""
+    val, idx, G = (E.val, E.idx, E.shape[1]) if mode == "matvec" else (E.t_val, E.t_idx, E.shape[0])
+    elt = val.element_size()
+    R, k = idx.shape
+    vectors = 2 if mode == "tmatvec_weighted" else 1
+    nnz = int((val[0] != 0).sum())
+    nbytes = elt * B * (R * k + vectors * G + R) + 4 * R * k
+    return nbytes, {dtype_name(val.dtype): (3 if vectors == 2 else 2) * B * nnz}
+
+
+def phase_k5(dev):
+    """K5 (ell_ops) against its plain versions, every mode, on CVXQP2_L's
+    scaled operands (B=1, float64 and float32) and on a scenario batch of
+    CVXQP2_M (B=64, float64): sums within RTOL, maxima, the diagonal and
+    the scaled values exact, two launches bit-identical; A x and
+    A'(rho y) timed beside the plain version, torch.sparse.mm on a CSR
+    copy, and the bound."""
+    import torch
+
+    from osqp_tpu_torch.ops import ell as k5
+
+    stats = None
+    for name, dtype, B in (("CVXQP2_L", "float64", 1), ("CVXQP2_L", "float32", 1), ("CVXQP2_M", "float64", 64)):
+        _, _, scaled, scl, rs, _, _ = sparse_prepared(name, dtype, dev, B)
+        A, P = scaled.A, scaled.P
+        m, n = A.shape
+        tol = RTOL[dtype]
+        g = torch.Generator(device=dev).manual_seed(11)
+        r = lambda *sh: torch.randn(*sh, generator=g, dtype=A.dtype, device=dev)
+        x, y = r(B, n), r(B, m)
+        cases = {
+            "matvec": lambda f: f(A, x), "tmatvec": lambda f: f(A, y),
+            "tmatvec_weighted": lambda f: f(A, y, rs.rho_vec), "sq_colsums": lambda f: f(A, rs.rho_vec),
+            "row_norms": lambda f: f(A, scl.D), "col_norms": lambda f: f(A, scl.E), "P_col_norms": lambda f: f(P, scl.D),
+            "diagonal": lambda f: f(P), "scale": lambda f: f(A, scl.E, scl.D, scl.c),
+        }
+        label = f"{name} B={B} n={n} m={m} {dtype} (k = {A.idx.shape[1]}, kt = {A.t_idx.shape[1]}, P k = {P.idx.shape[1]})"
+        worst = err = 0.0
+        for mode, call in cases.items():
+            fn = "ell_tmatvec" if mode == "tmatvec_weighted" else "ell_col_norms" if mode == "P_col_norms" else f"ell_{mode}"
+            got, again, want = call(getattr(k5, fn)), call(getattr(k5, fn)), call(getattr(k5, f"{fn}_plain"))
+            torch.cuda.synchronize()
+            if mode == "scale":
+                for f in ("val", "t_val"):
+                    require(torch.equal(getattr(got, f), getattr(again, f)), f"K5 scale {f}: two launches differ at {label}")
+                    require(torch.equal(getattr(got, f), getattr(want, f)), f"K5 scale {f} differs from plain at {label}")
+                continue
+            require(torch.equal(got, again), f"K5 {mode}: two launches differ at {label}")
+            diff, rel = rel_err(got, want)
+            if mode in ("row_norms", "col_norms", "P_col_norms", "diagonal"):
+                require(diff == 0.0, f"K5 {mode} differs from its plain version by {diff:.3e} at {label}")
+            require(rel <= tol, f"K5 {mode} off by {rel:.3e} relative at {label}")
+            worst, err = max(worst, rel), max(err, diff)
+        print(f"K5 ell_ops {label}: every mode against plain, worst relative difference {worst:.3e} (tol {tol:g}), "
+              f"|k-p|max {err:.3e}; maxima, diagonal and scaled values exact; two launches bit-identical")
+        for mode in ("matvec", "tmatvec_weighted"):
+            call = cases[mode]
+            fn = "ell_matvec" if mode == "matvec" else "ell_tmatvec"
+            nbytes, flops = k5_cost(A, mode, B)
+            t = report_times(f"K5 {mode} {label}", lambda: call(getattr(k5, fn)),
+                             lambda: call(getattr(k5, f"{fn}_plain")), 50, nbytes, flops)
+            library_ms = None
+            if B == 1:
+                # library_ms only: a CSR copy for torch.sparse.mm, which the port never calls
+                val, idx, R = (A.val[0], A.idx, m) if mode == "matvec" else (A.t_val[0], A.t_idx, n)
+                keep = (val != 0).flatten()
+                rows = torch.arange(R, device=dev).repeat_interleave(idx.shape[1])[keep]
+                csr = torch.sparse_coo_tensor(torch.stack([rows, idx.flatten().long()[keep]]), val.flatten()[keep],
+                                              (R, n if mode == "matvec" else m)).coalesce().to_sparse_csr()
+                vec = (x if mode == "matvec" else rs.rho_vec * y)[0][:, None]
+                library_ms = cuda_ms(lambda: torch.sparse.mm(csr, vec), 50)
+                print(f"  library torch.sparse.mm (CSR) {library_ms:.4f} ms")
+            if stats is None:
+                stats = dict(t, max_abs_err=err, library_ms=library_ms)
+    return stats
+
+
+def phase_k6(dev):
+    """K6 (cg_step) against its plain loop: one cg solve from a mid-solve
+    ADMM state of CVXQP2_L (float64, ELL operands; iteration 100) and of
+    the headline data (dense, B=8192, float32; iteration 25, every fourth
+    instance frozen by a huge tolerance): steps equal, x within RTOL,
+    frozen instances bit-unchanged, two runs bit-identical; ms per solve
+    and per step, and one step's vector work timed against the plain step
+    and the bound."""
+    import torch
+
+    from osqp_tpu_torch import admm, _build, batch, solver
+    from osqp_tpu_torch.linalg import mat_tvec
+    from osqp_tpu_torch.ops import cg as k6, ell as k5
+    from osqp_tpu_torch.types import DynSettings
+
+    def mid_solve(cfg, dyn, scaled, scl, rs, fac, it, iters):
+        c = admm.run_segment(cfg, scaled, scl, dyn, admm.init_carry(cfg, scaled, rs, fac, it), iters)
+        rs, fac = c.rho_state, c.factor
+        rhs_z = c.it.z - rs.rho_inv_vec * c.it.y
+        at = k5.ell_tmatvec(scaled.A, rhs_z, rs.rho_vec) if hasattr(scaled.A, "t_idx") else mat_tvec(
+            scaled.A, rs.rho_vec * rhs_z)
+        b = (dyn.sigma * c.it.x - scaled.q) + at
+        return [fac["P"], scaled.A, fac["sigma"], rs.rho_vec, fac["dinv"], b, c.it.x, fac["tol_rel"],
+                int(fac["max_iter"])]
+
+    B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
+    s = solver.Settings(**{**SOLVE_KW, "linsys_solver": "cg"})
+    cfg = solver.make_config(n, m, s, torch.float32)
+    dyn = DynSettings.make(torch.float32, eps_abs=s.eps_abs, eps_rel=s.eps_rel)
+    P, q, A, l, u = on_device(make_qps(B, n, m), torch.float32, dev)
+    rho0 = torch.full((B,), s.rho, dtype=torch.float32, device=dev)
+    head = mid_solve(cfg, dyn, *batch._prepare(cfg, s.scaling, P, q, A, l, u, rho0, dyn, None, None), 25)
+    head[7] = head[7].clone()
+    head[7][::4] = 1e9
+    cases = (("CVXQP2_L B=1 n=10000 m=12500 float64, ELL", mid_solve(*sparse_prepared("CVXQP2_L", "float64", dev), 100)),
+             (f"headline B={B} n={n} m={m} float32, dense", head))
+    stats = None
+    for label, args in cases:
+        x0 = args[6]
+        before = k6.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xk, sk = k6.cg_solve(*args)
+        torch.cuda.synchronize()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        launched = k6.launches - before
+        xk2, sk2 = k6.cg_solve(*args)
+        xp, sp = k6.cg_solve_plain(*args)
+        torch.cuda.synchronize()
+        diff, rel = rel_err(xk, xp)
+        tol = RTOL[dtype_name(xk.dtype)]
+        frozen = sk == 0
+        print(f"K6 cg {label}: steps max {int(sk.max())} (plain {int(sp.max())}), steps equal {torch.equal(sk, sp)}, "
+              f"launched {launched}; x relative difference {rel:.3e} (tol {tol:g}), |k-p|max {diff:.3e}; "
+              f"{int(frozen.sum())} frozen instances bit-unchanged {torch.equal(xk[frozen], x0[frozen])}; "
+              f"two runs bit-identical {torch.equal(xk, xk2) and torch.equal(sk, sk2)}; one solve {solve_ms:.3f} ms, "
+              f"{solve_ms / max(launched, 1):.4f} ms per launched step (with the operator's products)")
+        require(torch.equal(sk, sp), f"K6 took other steps than its plain loop at {label}")
+        require(rel <= tol, f"K6's x off by {rel:.3e} relative at {label}")
+        require(torch.equal(xk[frozen], x0[frozen]), f"K6 moved a frozen instance at {label}")
+        require(torch.equal(xk, xk2) and torch.equal(sk, sk2), f"K6: two runs differ at {label}")
+
+        # One step's vector work alone, from the solve's start.
+        Pm, Am, sigma, rho, dinv, b, x0, tol_rel, _ = args
+        products = k6._operator(Pm, Am, rho, plain=False)
+        x, r, z, p, rz, rr, tol2 = k6._start(products, sigma, dinv, b, x0, tol_rel)
+        u, v = products(p)
+        Bn, nn = b.shape
+        pairs = torch.stack([rz, rz]), torch.stack([rr, rr])
+        Mp = torch.empty_like(b)
+        parts = torch.empty((3, Bn, _build.library().osqp_cg_parts(nn)), dtype=b.dtype, device=dev)
+        steps = torch.zeros(Bn, dtype=torch.int32, device=dev)
+        kernel = lambda: k6.cg_step(p, u, v, float(sigma), dinv, tol2, *pairs, 0, Mp, x, r, z, parts, steps)
+        plain = lambda: k6.cg_step_plain(p, u, v, sigma, dinv, x, r, rz, rr, tol2)
+        elt = b.element_size()
+        # p, u, v, dinv, x, r read and x, r, z, p written once; 16 operations per element
+        t = report_times(f"K6 cg_step {label}", kernel, plain, 50, elt * Bn * nn * 10 + 3 * elt * Bn,
+                         {dtype_name(b.dtype): 16 * Bn * nn})
+        if stats is None:
+            stats = dict(t, max_abs_err=diff, library_ms=None)
+    return stats
+
+
+def phase_sparse(dev):
+    """solve_sparse with polish off against the JAX package's results in
+    tests/data/torch_goldens/sparse_maros.npz.  Counts are set to 0 just
+    before the CVXQP2_L solve and read just after it."""
+    import torch
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch.ops import cg as k6, ell as k5
+
+    gold = np.load(SPARSE_GOLDENS)
+    launches = None
+    # x and y against the golden, relative to its largest entry.  CVXQP2_L
+    # is held to its eps (1e-3): its ADMM path is sensitive to the inexact
+    # CG solves themselves, so that the JAX package's own run goes from 450
+    # to 425 iterations when its inner tolerance cap moves by 1% (ROADMAP
+    # queue 3), and two right runs end apart by more than 1e-5.
+    xy_tol = {"CVXQP2_L/float64": 1e-3}
+    for case, (name, dtype, B) in SPARSE_CASES.items():
+        P, q, A, l, u = scenario(name, B)
+        g = lambda f: gold[f"{case}/{f}"]
+        main_path = case == "CVXQP2_L/float64"
+        if main_path:
+            reset_counts()
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ot.solve_sparse(P, q, A, l, u, dtype=dtype, verbose=False)
+        status = res.status_val.cpu().numpy()
+        wall = (time.perf_counter() - t0) * 1e3
+        after = read_counts()
+        if main_path:
+            launches = after
+        delta = {k: after[k] - before[k] for k in ("ell_ops", "cg_step", "term_products", "ruiz")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sparse_prepared(name, dtype, dev, B)
+        torch.cuda.synchronize()
+        setup = (time.perf_counter() - t0) * 1e3
+        iters = res.iter.cpu().numpy()
+        it = int(iters.max())
+        x, y = res.x.cpu().numpy(), res.y.cpu().numpy()
+        obj_rel = float(np.max(np.abs(res.obj_val.cpu().numpy() - g("obj_val")) / np.abs(g("obj_val"))))
+        dx = float(np.abs(x - g("x")).max() / np.abs(g("x")).max())
+        dy = float(np.abs(y - g("y")).max() / np.abs(g("y")).max())
+        print(f"sparse {case} B={B} n={x.shape[1]} m={y.shape[1]}: status {status.tolist()} (golden "
+              f"{g('status_val').tolist()}), iterations {iters.tolist()} (golden {g('iter').tolist()}), obj relative "
+              f"{obj_rel:.3e}, x and y within {dx:.3e} and {dy:.3e} of the golden's largest entry; launches {delta}, "
+              f"CG steps launched per ADMM iteration {delta['cg_step'] / max(it, 1):.2f}; setup {setup:.3f} ms, solve "
+              f"{wall:.3f} ms, {(wall - setup) / max(it, 1):.4f} ms per iteration")
+        require(np.array_equal(status, g("status_val")), f"sparse {case}: status {status.tolist()}")
+        require(np.isfinite(x).all() and np.isfinite(y).all(), f"sparse {case}: non-finite x or y")
+        if dtype == "float64":
+            tol = xy_tol.get(case, 1e-5)
+            require(np.array_equal(iters, g("iter")) and obj_rel <= 1e-6 and dx <= tol and dy <= tol,
+                    f"sparse {case} disagrees with the JAX package's run")
+        else:
+            require(np.abs(iters - g("iter")).max() <= 25, f"sparse {case}: iterations {iters.tolist()}")
+        require(delta["ell_ops"] > 0 and delta["cg_step"] > 0, f"sparse {case}: K5 or K6 never launched")
+        require(delta["term_products"] == delta["ruiz"] == 0, f"sparse {case}: a dense kernel launched")
+
+    # Where a CVXQP2_L solve's time goes: one more solve under the profiler.
+    P, q, A, l, u = scenario("CVXQP2_L")
+    res, wall, events = profiled(lambda: ot.solve_sparse(P, q, A, l, u, dtype="float64", verbose=False))
+    it = int(res.iter.max())
+    k5_ms, k6_ms, busy = event_ms(events, K5_KERNELS), event_ms(events, K6_KERNELS), event_ms(events)
+    print(f"sparse CVXQP2_L float64 under the profiler: wall {wall:.3f} ms over {it} iterations = {wall / it:.4f} "
+          f"ms/iteration; K5 device time {k5_ms:.3f} ms ({k5_ms / wall:.3f} of the wall), K6 {k6_ms:.3f} ms "
+          f"({k6_ms / wall:.3f}), all device work {busy:.3f} ms, idle share {1.0 - busy / wall:.3f}")
+    return launches
+
+
+def phase_cg_dense(dev):
+    """The cg backend on dense operands: solve_batch on the card against
+    the CPU's plain path (float64, B=64, n=20, m=30), then the headline
+    data at B=1024 in float32 beside the dense_inv run."""
+    import torch
+
+    import osqp_tpu_torch as ot
+
+    P, q, A, l, u = make_qps(64, 20, 30, seed=3, dtype=np.float64)
+    kw = dict(dtype="float64", verbose=False, linsys_solver="cg")
+    rg = ot.solve_batch(P, q, A, l, u, device=dev, **kw)
+    rc = ot.solve_batch(P, q, A, l, u, device="cpu", **kw)
+    same_status = torch.equal(rg.status_val.cpu(), rc.status_val)
+    same_iter = torch.equal(rg.iter.cpu(), rc.iter)
+    dx = float((rg.x.cpu() - rc.x).abs().max())
+    dy = float((rg.y.cpu() - rc.y).abs().max())
+    print(f"cg backend GPU vs CPU, f64 B=64 n=20 m=30: statuses equal {same_status}, iterations equal {same_iter}, "
+          f"|dx|max {dx:.3e}, |dy|max {dy:.3e}")
+    require(same_status and same_iter and dx <= 1e-6 and dy <= 1e-6, "the cg backend on the GPU disagrees with the CPU")
+
+    n, m = HEADLINE["n"], HEADLINE["m"]
+    args = on_device(make_qps(1024, n, m), torch.float32, dev)
+    out = {}
+    for backend in ("dense_inv", "cg"):
+        ot.solve_batch(*args, **{**SOLVE_KW, "linsys_solver": backend, "max_iter": 25})  # warm-up
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ot.solve_batch(*args, **{**SOLVE_KW, "linsys_solver": backend})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        after = read_counts()
+        iters = res.iter.float()
+        solved = float((res.status_val == ot.OSQP_SOLVED).float().mean())
+        out[backend] = res
+        print(f"{backend} backend headline B=1024 n={n} m={m} f32: solved {solved:.4f}, iterations mean "
+              f"{float(iters.mean()):.2f} max {int(iters.max())}; {wall:.3f} ms; K6 steps launched "
+              f"{after['cg_step'] - before['cg_step']}")
+        require(solved >= 0.99, f"{backend} backend at the headline: solved {solved}")
+    agree = int((out["cg"].status_val == out["dense_inv"].status_val).sum())
+    print(f"cg backend headline: statuses equal to dense_inv's in {agree} of 1024 instances")
+
+
 def main() -> int:
     import torch
 
@@ -1346,11 +1697,17 @@ def main() -> int:
     polish_launches = phase_polish_batched(dev)
     phase_polish_solver(dev)
     phase_kkt_lu_backend(dev)
+    k5_stats = phase_k5(dev)
+    k6_stats = phase_k6(dev)
+    sparse_launches = phase_sparse(dev)
+    phase_cg_dense(dev)
 
     # launches: the batched headline solve's, and for K1r, which that
     # well-conditioned batch does not run, the Solver path's (its times:
     # CVXQP2_M in float32, where the Solver runs it; the others' at the
-    # headline shape); for K8 the headline solve's with polish on.
+    # headline shape); for K8 the headline solve's with polish on; for K5
+    # and K6 the sparse path's CVXQP2_L solve (their times: A x and one
+    # step at CVXQP2_L in float64).
     kernels = [
         dict(name="admm_iter", route="cuda", source="osqp_tpu_torch/csrc/admm_iter.cu",
              replaces="osqp_tpu/linsys/dense_inv.py:164", launches=launches["admm_iter"], **k1_stats),
@@ -1369,6 +1726,10 @@ def main() -> int:
              replaces="osqp_tpu/linsys/kkt_lu.py:37", launches=polish_launches["kkt_lu_factor"], **k8_factor_stats),
         dict(name="kkt_lu_solve", route="cuda", source="osqp_tpu_torch/csrc/kkt_lu.cu",
              replaces="osqp_tpu/linsys/kkt_lu.py:42", launches=polish_launches["kkt_lu_solve"], **k8_solve_stats),
+        dict(name="ell_ops", route="cuda", source="osqp_tpu_torch/csrc/ell_ops.cu",
+             replaces="osqp_tpu/sparse_ops.py:120", launches=sparse_launches["ell_ops"], **k5_stats),
+        dict(name="cg_step", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",
+             replaces="osqp_tpu/linsys/cg.py:129", launches=sparse_launches["cg_step"], **k6_stats),
     ]
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

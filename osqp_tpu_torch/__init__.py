@@ -12,7 +12,11 @@ hand-written CUDA kernels (``osqp_tpu_torch/csrc``):
   (:mod:`osqp_tpu_torch.ops.term_products`),
 * the Ruiz equilibration (:mod:`osqp_tpu_torch.ops.ruiz`),
 * the partially pivoted LU of the full KKT matrix and its solve, for
-  polish and the ``kkt_lu`` backend (:mod:`osqp_tpu_torch.ops.kkt_lu`).
+  polish and the ``kkt_lu`` backend (:mod:`osqp_tpu_torch.ops.kkt_lu`),
+* the row-gather products of sparse ELL operands
+  (:mod:`osqp_tpu_torch.ops.ell`),
+* the batched preconditioned conjugate gradient of the ``cg`` backend
+  (:mod:`osqp_tpu_torch.ops.cg`).
 
 Each has a plain PyTorch version beside it, which serves CPU tensors.
 A CUDA tensor always goes through the kernel.  The package imports
@@ -22,7 +26,9 @@ tests hold this package against.
 Entry points: the stateful :class:`Solver` (alias :data:`OSQP`), OSQP's
 own API, and :func:`solve_batch` for B same-shape problems; both polish
 with ``polish=True`` and take ``linsys_solver`` ``"dense_inv"``,
-``"dense_chol"`` or ``"kkt_lu"``.
+``"dense_chol"``, ``"kkt_lu"`` or ``"cg"``.  :func:`solve_sparse` solves
+scipy-sparse problems (or scenario batches sharing their pattern) on
+ELL operands without densifying them, through ``cg``.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from .constants import (  # noqa: E402
     ErrorCode,
     OSQPError,
 )
+from .large import solve_sparse  # noqa: E402
 from .solver import OSQP, Info, Results, Settings, Solver  # noqa: E402
 from .types import DynSettings, QPData, ScalingData, StaticConfig  # noqa: E402
 
@@ -72,6 +79,7 @@ __all__ = [
     "Info",
     "Results",
     "solve_batch",
+    "solve_sparse",
     "BatchSolveResults",
     "Settings",
     "QPData",

@@ -51,6 +51,10 @@ _SIGNATURES = {
     "osqp_term_products": (_I,) + (_P,) * 11 + (_I,) * 5 + (_P,),
     "osqp_kkt_lu_factor": (_I, _P, _P, _P, _I, _I, _P),
     "osqp_kkt_lu_solve": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "osqp_ell_reduce": (_I, _I) + (_P,) * 5 + (_I,) * 4 + (_P,),
+    "osqp_ell_scale": (_I,) + (_P,) * 9 + (_I,) * 5 + (_P,),
+    "osqp_cg_parts": (_I,),
+    "osqp_cg_step": (_I,) + (_P,) * 15 + (_D, _I, _I, _P),
 }
 
 _lock = threading.Lock()

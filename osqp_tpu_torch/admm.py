@@ -41,6 +41,7 @@ from .constants import (
     RHO_TOL,
 )
 from .linalg import bwhere, vec_dot
+from .sparse_ops import ELLMatrix
 from .termination import check_termination, compute_products, compute_rho_estimate, residual_norms
 from .types import (
     DynSettings,
@@ -112,8 +113,9 @@ def admm_step(solve, factor, data: QPData, dyn: DynSettings, rs: RhoState, it: I
     rhs_x = dyn.sigma * x_prev - data.q
     rhs_z = z_prev - rs.rho_inv_vec * y
 
-    # update_xz_tilde (auxil.c:177-183): z~ comes back as A x~
-    x_t, z_t = solve(factor, data.A, rs.rho_vec, rhs_x, rhs_z)
+    # update_xz_tilde (auxil.c:177-183): z~ comes back as A x~; the
+    # previous x warm-starts an iterative backend (cg)
+    x_t, z_t = solve(factor, data.A, rs.rho_vec, rhs_x, rhs_z, x0=x_prev)
 
     # update_x (auxil.c:185-198)
     x = alpha * x_t + (1.0 - alpha) * x_prev
@@ -177,15 +179,36 @@ def _apply_check(cfg, data, scl, dyn, c: Carry, iter_number: int, approximate=Fa
     dinf = newly & (
         (tr.status == OSQP_DUAL_INFEASIBLE) | (tr.status == OSQP_DUAL_INFEASIBLE_INACCURATE)
     )
+    # A backend with an inexact-solve schedule (cg) retunes its inner
+    # tolerance from this check's residuals.
+    factor = c.factor
+    upd_tol = getattr(linsys_registry.get(cfg.linsys_solver), "update_tolerance", None)
+    if upd_tol is not None:
+        factor = upd_tol(factor, tr.tol_ratio, dyn)
     active = c.active & ~tr.terminated
     return replace(
         c,
         info=info,
+        factor=factor,
         active=active,
         any_active=bool(active.any()),
         delta_x=bwhere(dinf, tr.dx_cert, c.delta_x),
         delta_y=bwhere(pinf, tr.dy_cert, c.delta_y),
     )
+
+
+def _select_factor(upd, new, old):
+    """One leaf of a refactored factor, taken where ``upd`` (B,) is set.
+    What is the same for every instance passes through whole: the
+    operand the factor keeps (a dense P, or an ELL operand, whose int32
+    pattern is unbatched) and 0-d leaves (sigma, cg's int32 max_iter and
+    tol_frac).  Batched leaves are selected per instance, integer ones
+    included: kkt_lu's perm goes with its lu.  (The JAX package passes
+    every integer leaf through, so a partial rho update there pairs a
+    kept lu with a new perm.)"""
+    if new is old or isinstance(new, ELLMatrix) or new.ndim == 0:
+        return new
+    return bwhere(upd, new, old)
 
 
 def _apply_rho_adaptation(cfg, data, dyn, c: Carry) -> Carry:
@@ -207,11 +230,7 @@ def _apply_rho_adaptation(cfg, data, dyn, c: Carry) -> Carry:
     new_rv = rho_vec_from_type(rs.constr_type, new_rho)
     new_rs = RhoState(rho=new_rho, rho_vec=new_rv, rho_inv_vec=1.0 / new_rv, constr_type=rs.constr_type)
     new_factor = linsys_registry.init_factor(cfg, data.P, data.A, dyn.sigma, new_rv)
-    # Leaves shared with the old factor (P) and scalars pass through.
-    factor = {
-        key: new if new is c.factor[key] or new.ndim == 0 else bwhere(upd, new, c.factor[key])
-        for key, new in new_factor.items()
-    }
+    factor = {key: _select_factor(upd, new, c.factor[key]) for key, new in new_factor.items()}
     info = replace(info, rho_updates=info.rho_updates + upd.to(torch.int32))
     return replace(c, rho_state=new_rs, factor=factor, info=info)
 

@@ -31,6 +31,7 @@ from .linalg import bwhere, mat_vec, norm_inf
 from .polish import polish as polish_fn
 from .scaling import scale_data, unscale_solution
 from .solver import Settings, make_config, reject_time_based_rho, resolve_device, torch_dtype, validate_settings
+from .sparse_ops import ELLMatrix
 from .types import DynSettings, Iterates, QPData, ScalingData
 
 
@@ -215,6 +216,13 @@ def solve_batch(
     validate_settings(s)
     reject_time_based_rho(s)
     if compact:
+        if isinstance(P, ELLMatrix) or isinstance(A, ELLMatrix):
+            # Compaction gathers every batched leaf by instance row; the
+            # ELL pattern (idx, t_idx) is unbatched and would be corrupted.
+            raise con.OSQPError(
+                con.ErrorCode.DATA_VALIDATION_ERROR,
+                "instance compaction is not supported with ELL (sparse) operands",
+            )
         raise NotImplementedError(
             "instance compaction is not ported to osqp_tpu_torch yet (ROADMAP queue 1, item 14)"
         )

@@ -1,12 +1,12 @@
 """Carry state across from the JAX package.
 
 Turns the arrays of ``osqp_tpu``'s ``QPData``, ``ScalingData``,
-``RhoState``, ``Iterates``, ``DynSettings`` and factor dicts (anything
-``numpy.asarray`` reads) into this package's types, on a given device
-and dtype, and carries a whole ``osqp_tpu.Solver``'s device state into
-an ``osqp_tpu_torch.Solver``.  The tests use it to put identical scaled
-data, factors and iterates through both packages.  Nothing here imports
-jax.
+``RhoState``, ``Iterates``, ``DynSettings``, ``ELLMatrix`` and factor
+dicts (anything ``numpy.asarray`` reads) into this package's types, on
+a given device and dtype, and carries a whole ``osqp_tpu.Solver``'s
+device state into an ``osqp_tpu_torch.Solver``.  The tests use it to
+put identical scaled data, factors and iterates through both packages.
+Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .sparse_ops import ELLMatrix
 from .types import DynSettings, Iterates, QPData, RhoState, ScalingData
 
 
@@ -28,22 +29,41 @@ def to_tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(arr, device=device)
 
 
+def ell(E, device, dtype: torch.dtype) -> ELLMatrix:
+    """The JAX package's ``ELLMatrix`` as the port's: values in ``dtype``
+    (contiguous, one copy per instance), the int32 pattern as it is."""
+    return ELLMatrix(
+        val=to_tensor(E.val, device, dtype),
+        idx=to_tensor(E.idx, device, dtype),
+        t_val=to_tensor(E.t_val, device, dtype),
+        t_idx=to_tensor(E.t_idx, device, dtype),
+        shape=tuple(E.shape),
+    )
+
+
+def _leaf(v, device, dtype: torch.dtype):
+    """A tensor, or an ELLMatrix where ``v`` is one."""
+    return ell(v, device, dtype) if hasattr(v, "t_idx") else to_tensor(v, device, dtype)
+
+
 def from_fields(cls, obj, device, dtype: torch.dtype):
     """An instance of the dataclass ``cls`` from an object with the same
-    field names, e.g. ``from_fields(QPData, jax_qp_data, "cpu", torch.float64)``.
-    ``DynSettings`` scalars stay on the host, as the port keeps them."""
+    field names, e.g. ``from_fields(QPData, jax_qp_data, "cpu", torch.float64)``;
+    a QPData's P and A may be ELL operands.  ``DynSettings`` scalars stay
+    on the host, as the port keeps them."""
     if cls is DynSettings:
         device = "cpu"
-    return cls(**{f.name: to_tensor(getattr(obj, f.name), device, dtype) for f in dataclasses.fields(cls)})
+    return cls(**{f.name: _leaf(getattr(obj, f.name), device, dtype) for f in dataclasses.fields(cls)})
 
 
 def factor(f: dict, device, dtype: torch.dtype) -> dict:
     """A factor dict of the JAX package as the port's: ``dense_inv``
-    (Minv, AMinvT, refine, P, sigma; the 0-d ``sigma`` stays on the
-    host), ``kkt_lu`` (lu, and perm as int32) or ``dense_chol`` (L)."""
-    out = {k: to_tensor(v, device, dtype) for k, v in f.items()}
-    if "sigma" in f:
-        out["sigma"] = to_tensor(f["sigma"], "cpu", dtype)
+    (Minv, AMinvT, refine, P, sigma), ``kkt_lu`` (lu, and perm as int32),
+    ``dense_chol`` (L) or ``cg`` (P, dense or ELL, sigma, dinv, max_iter,
+    tol_frac, tol_rel).  0-d leaves (sigma, cg's int32 max_iter and
+    tol_frac) stay scalars on the host."""
+    scalar = lambda v: not hasattr(v, "t_idx") and np.ndim(v) == 0
+    out = {k: to_tensor(v, "cpu", dtype) if scalar(v) else _leaf(v, device, dtype) for k, v in f.items()}
     if "perm" in f:
         out["perm"] = out["perm"].to(torch.int32)
     return out

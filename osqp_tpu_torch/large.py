@@ -1,0 +1,144 @@
+"""Large sparse QPs, the n ~ 1e4..1e5 regime (counterpart of
+``osqp_tpu/large.py``).
+
+The dense layout of :mod:`osqp_tpu_torch.batch` needs O(n^2) memory per
+instance; this path keeps the data sparse end to end: host CSR input
+that is never densified, ELL operands on the device
+(:mod:`osqp_tpu_torch.sparse_ops`), matrix-free Ruiz scaling and
+termination products on K5, and the Jacobi-preconditioned CG backend
+(K6) for the KKT solve.  The ADMM core, termination logic and
+infeasibility certificates are the dense path's code: the operand type
+dispatches underneath (:func:`osqp_tpu_torch.linalg.mat_vec`).
+
+Restrictions against the dense path:
+
+* ``linsys_solver`` is always ``cg`` (matrix-free);
+* a batch of instances shares one sparsity pattern and the values of P
+  and A (scenario batches with per-instance q, l, u);
+* there is no setup-time convexity check: non-convexity shows up as
+  divergence (OSQP_NON_CVX), the reference's second detection path
+  (auxil.c:699-706);
+* ``polish=True`` is not ported yet (ROADMAP queue 1, item 12).
+
+The JAX package's entry carries three workarounds for its TPU: at most
+2000 iterations per device dispatch, a dispatch band in its segmented
+driver, and polish on the host for B = 1.  Each exists only because a
+long TPU dispatch killed the worker that served the chip.  A CUDA card
+has no such limit, so none of them is carried over: the segments here
+are those of :func:`osqp_tpu_torch.solve_batch`.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from . import constants as con
+from .batch import BatchSolveResults, _solve_segmented
+from .solver import Settings, make_config, reject_time_based_rho, resolve_device, torch_dtype, validate_settings
+from .sparse_ops import ell_from_scipy
+from .types import DynSettings
+
+
+def prepare_sparse(P, q, A, l, u, settings: dict, device="cpu"):
+    """Settings validation (cg only), dtype, the ELL operands on
+    ``device`` and the static and dynamic configs.  Returns
+    ``(s, dtype, cfg, dyn, P_ell, A_ell, q, l, u)`` with q, l, u as
+    (B, ·) float64 numpy, the bounds clamped."""
+    settings.setdefault("linsys_solver", "cg")
+    s = Settings(**settings)
+    validate_settings(s)
+    reject_time_based_rho(s)
+    if s.linsys_solver != "cg":
+        raise con.OSQPError(
+            con.ErrorCode.SETTINGS_VALIDATION_ERROR,
+            "the sparse path supports only the matrix-free 'cg' backend",
+        )
+
+    q = np.atleast_2d(np.asarray(q, np.float64))
+    B, n = q.shape
+    l = np.atleast_2d(np.asarray(l, np.float64))
+    u = np.atleast_2d(np.asarray(u, np.float64))
+    # the reference's finite infinity (constants.h:98-100)
+    l = np.clip(np.broadcast_to(l, (B, l.shape[-1])), -con.OSQP_INFTY, con.OSQP_INFTY)
+    u = np.clip(np.broadcast_to(u, (B, u.shape[-1])), -con.OSQP_INFTY, con.OSQP_INFTY)
+    m = l.shape[-1]
+
+    dtype = torch_dtype(s.dtype)
+    # Contiguous values: the scenario batch's B copies, which K5 reads.
+    P_ell = ell_from_scipy(sp.csr_matrix(P), dtype, batch=B, sym_from_triu=True, device=device).contiguous()
+    A_ell = ell_from_scipy(sp.csr_matrix(A), dtype, batch=B, device=device).contiguous()
+    if A_ell.shape != (m, n):
+        raise con.OSQPError(
+            con.ErrorCode.DATA_VALIDATION_ERROR,
+            f"A shape {A_ell.shape} inconsistent with q/l/u ({m}, {n})",
+        )
+
+    cfg = make_config(n, m, s, dtype)
+    dyn = DynSettings.make(
+        dtype,
+        sigma=s.sigma,
+        alpha=s.alpha,
+        eps_abs=s.eps_abs,
+        eps_rel=s.eps_rel,
+        eps_prim_inf=s.eps_prim_inf,
+        eps_dual_inf=s.eps_dual_inf,
+        adaptive_rho_tolerance=s.adaptive_rho_tolerance,
+        delta=s.delta,
+    )
+    return s, dtype, cfg, dyn, P_ell, A_ell, q, l, u
+
+
+def solve_sparse(P, q, A, l, u, x0=None, y0=None, device=None, **settings) -> BatchSolveResults:
+    """Solve one sparse QP, or B that share its sparsity pattern and the
+    values of P and A with per-instance q, l, u, without densifying P or A.
+
+    Args:
+      P: scipy sparse (n, n), upper triangular or full symmetric.
+      q: (n,) or (B, n).
+      A: scipy sparse (m, n).
+      l, u: (m,) or (B, m).
+      x0, y0: optional warm starts (unscaled); either alone is allowed.
+      device: where to solve: the CUDA card by default (raises without
+        one: pass ``device="cpu"`` for the CPU).
+      settings: reference setting names; ``linsys_solver`` must be
+        ``"cg"`` (the default here).
+
+    Returns :class:`BatchSolveResults` of tensors on ``device`` (B = 1
+    for 1-D inputs).
+    """
+    device = resolve_device(device)
+    s, dtype, cfg, dyn, P_ell, A_ell, q, l, u = prepare_sparse(P, q, A, l, u, settings, device)
+    if s.polish:
+        raise NotImplementedError(
+            "polish on the sparse path is not ported to osqp_tpu_torch yet (ROADMAP queue 1, item 12)"
+        )
+    B, n = q.shape
+    m = l.shape[-1]
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    rho0 = torch.full((B,), s.rho, dtype=dtype, device=device)
+    if x0 is not None or y0 is not None:
+        # reference osqp_warm_start: either side alone is allowed, the
+        # other defaults to zero (osqp.c:967-1010)
+        x0 = as_t(np.reshape(x0, (B, n)) if x0 is not None else np.zeros((B, n)))
+        y0 = as_t(np.reshape(y0, (B, m)) if y0 is not None else np.zeros((B, m)))
+
+    verbose = bool(s.verbose)
+    if verbose:
+        from .utils.printing import print_setup_header_vals, sparse_nnz
+
+        print_setup_header_vals(s, n, m, sparse_nnz(P, A), B=B)
+    t0 = time.perf_counter()
+    res = _solve_segmented(
+        cfg, int(s.scaling), False, int(s.polish_refine_iter),
+        P_ell, as_t(q), A_ell, as_t(l), as_t(u), rho0, dyn, x0, y0,
+        time_limit=float(s.time_limit), verbose=verbose,
+    )
+    if verbose:
+        from .utils.printing import print_batch_footer
+
+        print_batch_footer(res, s, time.perf_counter() - t0)
+    return res

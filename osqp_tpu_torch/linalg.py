@@ -1,5 +1,8 @@
-"""Batched dense linear-algebra primitives (counterpart of
-``osqp_tpu/linalg.py``, dense operands only).
+"""Batched linear-algebra primitives (counterpart of
+``osqp_tpu/linalg.py``).  The matrix products dispatch on the operand:
+a dense (B, m, n) tensor goes to ``torch.bmm``, an
+:class:`~osqp_tpu_torch.sparse_ops.ELLMatrix` to K5
+(:mod:`osqp_tpu_torch.ops.ell`).
 
 Importing this module pins float32 matrix products to full precision.
 On the H100, TF32 would keep about three decimal digits, and ADMM
@@ -12,6 +15,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from .ops.ell import ell_matvec, ell_tmatvec
+from .sparse_ops import ELLMatrix
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -33,13 +39,17 @@ def scaled_norm_inf(S: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (S * v).abs().amax(-1)
 
 
-def mat_vec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def mat_vec(A, x: torch.Tensor) -> torch.Tensor:
     """Batched A @ x: (B, m, n) x (B, n) -> (B, m) (lin_alg.c:241-271)."""
+    if isinstance(A, ELLMatrix):
+        return ell_matvec(A, x)
     return torch.bmm(A, x.unsqueeze(-1)).squeeze(-1)
 
 
-def mat_tvec(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def mat_tvec(A, y: torch.Tensor) -> torch.Tensor:
     """Batched A' @ y: (B, m, n) x (B, m) -> (B, n) (lin_alg.c:273-323)."""
+    if isinstance(A, ELLMatrix):
+        return ell_tmatvec(A, y)
     return torch.bmm(y.unsqueeze(-2), A).squeeze(-2)
 
 

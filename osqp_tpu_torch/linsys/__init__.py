@@ -1,27 +1,30 @@
 """Linear-system backends behind one protocol (counterpart of
 ``osqp_tpu/linsys/__init__.py``; reference lin_sys.c:15-75).
 
-Every backend module provides ``init(P, A, sigma, rho_vec)`` returning a
-factor (a dict of tensors) and ``solve(factor, A, rho_vec, rhs_x, rhs_z)``
-returning ``(x_tilde, z_tilde)``.  ``dense_inv`` also brings its own fused
-loop bodies (K1, K1r); ``dense_chol`` and ``kkt_lu`` run the generic body
-of :func:`osqp_tpu_torch.admm.run_segment` over their ``solve``.  The
+Every backend module provides ``init(P, A, sigma, rho_vec, **options)``
+returning a factor (a dict of tensors) and
+``solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None)`` returning
+``(x_tilde, z_tilde)``; ``x0``, the previous iterate, warm-starts the
+iterative ``cg`` and is ignored by the direct backends.  ``dense_inv``
+also brings its own fused loop bodies (K1, K1r); ``dense_chol``,
+``kkt_lu`` and ``cg`` run the generic body of
+:func:`osqp_tpu_torch.admm.run_segment` over their ``solve``, and ``cg``
+retunes its inner tolerance at each check (``update_tolerance``).  The
 reference names ``qdldl`` and ``mkl pardiso`` map onto ``dense_inv`` and
-``kkt_lu``, as in the JAX package.  ``cg`` and ``block_tridiag`` are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+``kkt_lu``, as in the JAX package.  ``block_tridiag`` is not ported yet
+and raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
-from . import dense_chol, dense_inv, kkt_lu
+from . import cg, dense_chol, dense_inv, kkt_lu
 
-_REGISTRY = {"dense_inv": dense_inv, "dense_chol": dense_chol, "kkt_lu": kkt_lu}
+_REGISTRY = {"dense_inv": dense_inv, "dense_chol": dense_chol, "kkt_lu": kkt_lu, "cg": cg}
 
 _ALIASES = {"qdldl": "dense_inv", "mkl pardiso": "kkt_lu"}
 
 _NOT_PORTED = {
     "block_tridiag": "ROADMAP queue 1, item 11",
-    "cg": "ROADMAP queue 1, items 11-12",
 }
 
 
@@ -42,5 +45,10 @@ def get(name: str):
 
 
 def init_factor(cfg, P, A, sigma, rho_vec):
-    """Factorize with the backend selected by ``cfg`` (StaticConfig)."""
-    return get(cfg.linsys_solver).init(P, A, sigma, rho_vec)
+    """Factorize with the backend and options selected by ``cfg``
+    (StaticConfig): the one entry of setup, rho updates and bound-class
+    changes."""
+    return get(cfg.linsys_solver).init(
+        P, A, sigma, rho_vec,
+        cg_max_iter=cfg.cg_max_iter, cg_tol_fraction=cfg.cg_tol_fraction, block_size=cfg.block_size,
+    )

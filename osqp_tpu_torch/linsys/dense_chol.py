@@ -30,7 +30,7 @@ def form_schur(P: torch.Tensor, A: torch.Tensor, sigma, rho_vec: torch.Tensor) -
     return M
 
 
-def init(P, A, sigma, rho_vec):
+def init(P, A, sigma, rho_vec, **_):
     """Factorize: the batched lower Cholesky factor of M.  A non-PD M
     gives NaN in that instance's factor; like the reference's D-sign count
     (qdldl_interface.c:93-99) this signals non-convexity, surfaced by the
@@ -39,7 +39,7 @@ def init(P, A, sigma, rho_vec):
     return {"L": torch.where((info == 0)[:, None, None], L, float("nan"))}
 
 
-def solve(factor, A, rho_vec, rhs_x, rhs_z):
+def solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None):
     """One KKT solve: returns (x_tilde, z_tilde = A x_tilde)."""
     b = rhs_x
     if A.shape[-2]:

@@ -49,7 +49,7 @@ def _inverse_residual(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return (eye - torch.bmm(M, X)).abs().amax((-2, -1))
 
 
-def init(P, A, sigma, rho_vec):
+def init(P, A, sigma, rho_vec, **_):
     """Factorize: Minv, AMinvT and the per-instance refinement flag.
 
     The inverse is chosen by n alone: up to K2's shared-memory bound

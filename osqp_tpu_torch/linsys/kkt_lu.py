@@ -40,12 +40,12 @@ def factor_kkt(K):
     return {"lu": lu, "perm": perm}
 
 
-def init(P, A, sigma, rho_vec):
+def init(P, A, sigma, rho_vec, **_):
     """Factorize K; a singular K leaves Inf/NaN in the factor."""
     return factor_kkt(form_kkt(P, A, sigma, 1.0 / rho_vec))
 
 
-def solve(factor, A, rho_vec, rhs_x, rhs_z):
+def solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None):
     """KKT solve and split-solution recovery (qdldl_interface.c:359-370):
     solves K [x~; nu] = [rhs_x; rhs_z], returns x~ and
     z~ = rhs_z + nu / rho  (== A x~)."""

@@ -115,7 +115,7 @@ def admm_iter(Minv, AMinvT, A, q, l, u, rho, rho_inv, sigma, alpha, active, x, z
     return outs
 
 
-def _kkt_solve(factor, A, rho_vec, rhs_x, rhs_z):
+def _kkt_solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None):
     """Explicit-inverse KKT solve (osqp_tpu/linsys/dense_inv.py:164-171):
     x~ = Minv t and z~ = (A Minv) t with t = rhs_x + A'(rho rhs_z)."""
     t = (rhs_x + mat_tvec(A, rho_vec * rhs_z)).unsqueeze(1)
@@ -192,7 +192,7 @@ def admm_iter_refined(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x
     return outs + (lo_out,)
 
 
-def _refined_kkt_solve(factor, A, rho_vec, rhs_x, rhs_z):
+def _refined_kkt_solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None):
     """KKT solve with residual correction (osqp_tpu/linsys/dense_inv.py:173-231).
 
     In float32, two correction steps whose residual t - M x is

@@ -1,0 +1,175 @@
+"""K6: the batched Jacobi-preconditioned conjugate gradient of the ``cg``
+backend (counterpart of the loop of ``osqp_tpu/linsys/cg.py:122-169``).
+
+:func:`cg_solve` solves (P + sigma I + A' diag(rho) A) x = b for every
+instance, warm-started from ``x0``, to the relative tolerance ``tol_rel``
+(B,) or ``max_iter`` steps.  An instance whose r'r is at or below its
+tolerance is frozen (alpha = 0), so its x stops changing bit for bit.
+The operator's products are K5 launches on ELL operands and batched
+GEMVs on dense ones.
+
+For CUDA tensors each step's vector work is one call of the kernels in
+``csrc/cg.cu`` (:func:`cg_step`, counted in ``launches``), and the host
+tests "is any instance still live" once per :data:`CHUNK` steps, each
+chunk clipped to the steps left below ``max_iter``.  A step taken after
+every instance has converged has alpha = 0 everywhere and leaves x
+unchanged, so the result equals that of the JAX loop, which tests at
+every step.  For CPU tensors :func:`cg_solve_plain` runs the same loop
+in plain PyTorch, testing at every step (or, with ``chunk``, as the
+kernel path does).
+
+Both return ``(x, steps)``: ``steps`` (B,) int32 counts the steps in
+which each instance was live, so its maximum is the JAX loop's count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..linalg import mat_tvec, mat_vec, vec_dot
+from ..sparse_ops import ELLMatrix
+from . import ell
+
+# Steps between two host reads of the stop test.
+CHUNK = 8
+
+launches = 0
+
+
+def _operator(P, A, rho_vec, plain: bool):
+    """p -> (P p, A'(rho * A p), None when A has no rows): K5 (or, with
+    ``plain``, its plain versions) on ELL operands, ``torch.bmm`` on
+    dense ones."""
+    sparse = isinstance(P, ELLMatrix) or isinstance(A, ELLMatrix)
+    if sparse and plain:
+        mv, tv = ell.ell_matvec_plain, ell.ell_tmatvec_plain
+    elif sparse:
+        mv, tv = ell.ell_matvec, ell.ell_tmatvec
+    else:
+        mv = mat_vec
+        tv = lambda A, y, w: mat_tvec(A, w * y)
+    m = A.shape[-2]
+
+    def products(p):
+        return mv(P, p), (tv(A, mv(A, p), rho_vec) if m else None)
+
+    return products
+
+
+def _start(products, sigma, dinv, b, x0, tol_rel):
+    """x, r = b - M x, z = dinv r, p = z, rz, r'r and the squared
+    tolerance max((tol_rel |b|)^2, 1e-30)."""
+    x = x0.clone() if x0 is not None else torch.zeros_like(b)
+    u, v = products(x)
+    Mx = u + sigma * x
+    if v is not None:
+        Mx = Mx + v
+    r = b - Mx
+    z = dinv * r
+    tol = tol_rel * torch.linalg.vector_norm(b, dim=-1)
+    tol2 = torch.clamp(tol * tol, min=1e-30)
+    return x, r, z, z.clone(), vec_dot(r, z), vec_dot(r, r), tol2
+
+
+def _validate(P, A, rho_vec, dinv, b, x0, tol_rel):
+    dtype, dev = b.dtype, b.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"cg_solve takes float32 or float64, not {dtype}")
+    if b.ndim != 2:
+        raise ValueError(f"cg_solve takes b (B, n), not {tuple(b.shape)}")
+    B, n = b.shape
+    for name, t, shape in (("dinv", dinv, (B, n)), ("x0", x0, (B, n)), ("tol_rel", tol_rel, (B,)),
+                           ("rho_vec", rho_vec, (B, A.shape[-2]))):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
+            raise ValueError(f"cg_solve: {name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
+                             f"expected {shape} {dtype} on {dev}")
+    for name, M in (("P", P), ("A", A)):
+        if M.dtype != dtype or M.device != dev:
+            raise ValueError(f"cg_solve: {name} is {M.dtype} on {M.device}, b is {dtype} on {dev}")
+
+
+def cg_solve(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter: int):
+    """PCG on M = P + sigma I + A' diag(rho) A from ``x0`` (zeros when
+    None); returns ``(x, steps)``.  ``sigma`` is a number or a 0-d host
+    tensor; P and A are both dense or both ELL."""
+    _validate(P, A, rho_vec, dinv, b, x0, tol_rel)
+    if b.device.type == "cpu":
+        return cg_solve_plain(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter)
+    if b.device.type != "cuda":
+        raise ValueError(f"cg_solve runs on CPU or CUDA tensors, not {b.device}")
+    if not all(t.is_contiguous() for t in (b, dinv, rho_vec, tol_rel) + ((x0,) if x0 is not None else ())):
+        raise ValueError("cg_solve takes contiguous tensors")
+    products = _operator(P, A, rho_vec, plain=False)
+    x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel)
+    B, n = b.shape
+    sigma = float(sigma)
+    steps = torch.zeros(B, dtype=torch.int32, device=b.device)
+    if n == 0:
+        return x, steps
+    rz_pair = torch.stack([rz, torch.empty_like(rz)])
+    rr_pair = torch.stack([rr, torch.empty_like(rr)])
+    Mp = torch.empty_like(b)
+    parts = torch.empty((3, B, _build.library().osqp_cg_parts(n)), dtype=b.dtype, device=b.device)
+    k, cur = 0, 0
+    while k < max_iter and bool((rr_pair[cur] > tol2).any()):
+        for _ in range(min(CHUNK, max_iter - k)):
+            u, v = products(p)
+            cg_step(p, u, v, sigma, dinv, tol2, rz_pair, rr_pair, cur, Mp, x, r, z, parts, steps)
+            cur = 1 - cur
+            k += 1
+    return x, steps
+
+
+def cg_step(p, u, v, sigma, dinv, tol2, rz_pair, rr_pair, cur, Mp, x, r, z, parts, steps) -> None:
+    """One launch of K6: the vector work of one step.  ``p``, ``x``,
+    ``r``, ``z`` are updated in place; rz and r'r go to slot ``1 - cur``
+    of their pairs."""
+    global launches
+    B, n = p.shape
+    nxt = 1 - cur
+    lib = _build.library()
+    with torch.cuda.device(p.device):
+        code = lib.osqp_cg_step(
+            _build.dtype_code(p.dtype), p.data_ptr(), u.data_ptr(), v.data_ptr() if v is not None else 0,
+            dinv.data_ptr(), tol2.data_ptr(), rz_pair[cur].data_ptr(), rr_pair[cur].data_ptr(), Mp.data_ptr(),
+            x.data_ptr(), r.data_ptr(), z.data_ptr(), rz_pair[nxt].data_ptr(), rr_pair[nxt].data_ptr(),
+            parts.data_ptr(), steps.data_ptr(), sigma, B, n, _build.stream(),
+        )
+    _build.check(code, "cg_step")
+    launches += 1
+
+
+def cg_solve_plain(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter: int, chunk: int = 1):
+    """Plain PyTorch version of :func:`cg_solve`.  The stop test runs
+    before every ``chunk``-th step (every step by default, as the JAX
+    loop has it; ``chunk=CHUNK`` as the kernel path has it)."""
+    products = _operator(P, A, rho_vec, plain=True)
+    x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel)
+    steps = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
+    for k in range(int(max_iter)):
+        if k % chunk == 0 and not bool((rr > tol2).any()):
+            break
+        steps += (rr > tol2).to(torch.int32)
+        x, r, z, p, rz, rr = cg_step_plain(p, *products(p), sigma, dinv, x, r, rz, rr, tol2)
+    return x, steps
+
+
+def cg_step_plain(p, u, v, sigma, dinv, x, r, rz, rr, tol2):
+    """Plain PyTorch version of one K6 step (:func:`cg_step`): from the
+    direction ``p`` and its products ``u`` = P p and ``v`` = A'(rho A p)
+    (None without constraints), returns the next (x, r, z, p, rz, r'r)."""
+    Mp = u + sigma * p
+    if v is not None:
+        Mp = Mp + v
+    denom = vec_dot(p, Mp)
+    alpha = rz / torch.where(denom > 0, denom, torch.ones_like(denom))
+    alpha = torch.where(rr > tol2, alpha, torch.zeros_like(alpha))[:, None]
+    x = x + alpha * p
+    r = r - alpha * Mp
+    z = dinv * r
+    rz_new = vec_dot(r, z)
+    beta = (rz_new / torch.where(rz > 0, rz, torch.ones_like(rz)))[:, None]
+    return x, r, z, z + beta * p, rz_new, vec_dot(r, r)

@@ -35,6 +35,7 @@ from . import linsys as linsys_registry
 from .admm import rho_vec_from_type, set_rho_state, update_rho_state
 from .constants import ErrorCode, NonConvexError, OSQPError
 from .linalg import mat_vec
+from .linsys import cg as cg_backend
 from .polish import polish as polish_fn
 from .scaling import scale_data, unscale_solution
 from .sparse import clamp_bounds, triu_to_full, validate_problem
@@ -74,9 +75,9 @@ class Settings:
     warm_start: bool = bool(con.WARM_START)
     time_limit: float = con.TIME_LIMIT
     dtype: Any = None  # None -> torch.get_default_dtype()
-    # Knobs of the cg and block_tridiag backends, not ported yet
-    # (ROADMAP queue 1, items 11-12); accepted so that the reference's
-    # setting names all pass through.
+    # Knobs of the cg backend (step cap, 0 for n + m; floor of the inexact
+    # schedule) and of block_tridiag (not ported yet: ROADMAP queue 1,
+    # item 11, so accepted and unused).
     cg_max_iter: int = 0
     cg_tol_fraction: float = 1e-7
     block_size: int = 0
@@ -205,6 +206,11 @@ def make_config(n: int, m: int, settings: Settings, dtype) -> StaticConfig:
         scaled_termination=bool(settings.scaled_termination),
         linsys_solver=str(settings.linsys_solver),
         dtype=str(torch_dtype(dtype)).removeprefix("torch."),
+        cg_max_iter=int(settings.cg_max_iter),
+        # The inexact-CG floor must sit below the outer tolerance, or the
+        # subproblem error caps outer convergence.
+        cg_tol_fraction=cg_backend.link_cg_floor(settings),
+        block_size=int(settings.block_size),
         polish_passes=int(settings.polish_passes),
         polish_dtype=(
             None if settings.polish_dtype is None else str(torch_dtype(settings.polish_dtype)).removeprefix("torch.")
@@ -665,15 +671,30 @@ class Solver:
         self.settings.max_iter = int(v)
         self._cfg = dataclasses.replace(self._cfg, max_iter=int(v))
 
+    def _refresh_cg_floor(self):
+        """A tightened eps may need a lower inexact-CG floor
+        (linsys/cg.py:link_cg_floor): refresh the config, and the cg
+        factor whose tol_frac comes from it."""
+        if self._cfg.linsys_solver != "cg":
+            return
+        new = cg_backend.link_cg_floor(self.settings)
+        if new != self._cfg.cg_tol_fraction:
+            self._cfg = dataclasses.replace(self._cfg, cg_tol_fraction=new)
+            self.factor = _device_refactor(
+                self._cfg, self.data.P, self.data.A, self._dyn.sigma, self.rho_state.rho_vec
+            )
+
     def update_eps_abs(self, v):
         self._check(v >= 0, "eps_abs must be nonnegative")
         self.settings.eps_abs = float(v)
         self._set_dyn(eps_abs=v)
+        self._refresh_cg_floor()
 
     def update_eps_rel(self, v):
         self._check(v >= 0, "eps_rel must be nonnegative")
         self.settings.eps_rel = float(v)
         self._set_dyn(eps_rel=v)
+        self._refresh_cg_floor()
 
     def update_eps_prim_inf(self, v):
         self._check(v > 0, "eps_prim_inf must be positive")

@@ -4,9 +4,11 @@ src/auxil.c:13-52, 240-512, 681-786).
 
 All functions take and return tensors with a leading batch axis B, on
 scaled problem data; unscaling through D, E and c happens where the
-reference does it.  Every matrix product goes through K3
-(:mod:`osqp_tpu_torch.ops.term_products`), one call per check, rho
-estimate or verbose row; the rest is O(B(n+m)) plain PyTorch.
+reference does it.  Every matrix product of dense operands goes through
+K3 (:mod:`osqp_tpu_torch.ops.term_products`), one call per check, rho
+estimate or verbose row; ELL operands take K5
+(:mod:`osqp_tpu_torch.ops.ell`), one launch per product.  The rest is
+O(B(n+m)) plain PyTorch.
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ from .constants import (
     RHO_MAX,
     RHO_MIN,
 )
-from .linalg import norm_inf, scaled_norm_inf, vec_dot
-from .ops.term_products import term_products
+from .linalg import mat_tvec, mat_vec, norm_inf, scaled_norm_inf, vec_dot
+from .ops.term_products import TermProducts, term_products
+from .sparse_ops import ELLMatrix
 from .types import DynSettings, QPData, ScalingData, StaticConfig
 
 
@@ -49,9 +52,20 @@ class Products(NamedTuple):
 
 
 def compute_products(data: QPData, x, z, y, delta_x=None, dy_proj=None) -> Products:
-    """One K3 call: A x, P x, A'y and, given the certificate directions
-    delta_x and dy_proj (see project_delta_y), A'dy, P delta_x, A delta_x."""
-    tp = term_products(data.P, data.A, x, y, delta_x, dy_proj)
+    """A x, P x, A'y and, given the certificate directions delta_x and
+    dy_proj (see project_delta_y), A'dy, P delta_x, A delta_x: one K3
+    call on dense operands, K5 launches on ELL operands."""
+    P, A = data.P, data.A
+    if isinstance(P, ELLMatrix) or isinstance(A, ELLMatrix):
+        cert = delta_x is not None
+        tp = TermProducts(
+            mat_vec(A, x), mat_vec(P, x), mat_tvec(A, y),
+            mat_tvec(A, dy_proj) if cert else None,
+            mat_vec(P, delta_x) if cert else None,
+            mat_vec(A, delta_x) if cert else None,
+        )
+    else:
+        tp = term_products(P, A, x, y, delta_x, dy_proj)
     return Products(
         Ax=tp.Ax, Px=tp.Px, Aty=tp.Aty, pri_vec=tp.Ax - z, dua_vec=data.q + tp.Px + tp.Aty,
         Atdy=tp.Atdy, Pdx=tp.Pdx, Adx=tp.Adx,

@@ -64,6 +64,12 @@ class StaticConfig:
     scaled_termination: bool = con.SCALED_TERMINATION
     linsys_solver: str = "dense_inv"
     dtype: str = "float64"
+    # Knobs of the cg backend: its step cap (0 -> n + m) and the floor of
+    # its inexact tolerance schedule; and the stage-block size of
+    # block_tridiag (not ported yet).
+    cg_max_iter: int = 0
+    cg_tol_fraction: float = 1e-7
+    block_size: int = 0
     polish_passes: int = con.POLISH_PASSES
     # e.g. "float64": polish in float64 over a float32 solve; None: the solve dtype
     polish_dtype: str | None = None

@@ -13,6 +13,15 @@ def print_setup_header(solver) -> None:
     print_setup_header_vals(solver.settings, solver.n, solver.m, solver._Pu.nnz + solver._Ac.nnz)
 
 
+def sparse_nnz(P, A) -> int:
+    """nnz(P) + nnz(A) of scipy inputs, P counted on its upper triangle
+    as the reference stores it: the sparse path's header count, taken
+    without densifying."""
+    import scipy.sparse as sp
+
+    return int(sp.triu(sp.csc_matrix(P)).nnz + sp.csc_matrix(A).nnz)
+
+
 def print_setup_header_vals(s, n, m, nnz, B: int = 1) -> None:
     """Setup header (util.c:58-150), shared by the stateful Solver and the
     functional solve_batch entry, which has no solver object."""

@@ -75,6 +75,7 @@ def test_import_pins_full_f32_matmuls():
         {"adaptive_rho": False},
         {"adaptive_rho_interval": 7},
         {"scaled_termination": True, "max_iter": 99},
+        {"linsys_solver": "cg", "eps_abs": 1e-6, "eps_rel": 1e-7, "cg_max_iter": 9},
     ],
 )
 def test_make_config_matches_reference(kw):
@@ -82,7 +83,8 @@ def test_make_config_matches_reference(kw):
     jc = jsolver.make_config(5, 7, js, "float64")
     tc = tsolver.make_config(5, 7, ts, torch.float64)
     for f in ("n", "m", "max_iter", "check_termination", "adaptive_rho",
-              "adaptive_rho_interval", "scaled_termination", "linsys_solver", "dtype"):
+              "adaptive_rho_interval", "scaled_termination", "linsys_solver", "dtype",
+              "cg_max_iter", "cg_tol_fraction", "block_size"):
         assert getattr(tc, f) == getattr(jc, f), f
 
 
@@ -113,24 +115,34 @@ def test_linsys_registry():
     assert tlinsys.get("qdldl") is tlinsys.get("dense_inv")
     assert tlinsys.get("mkl pardiso") is tlinsys.get("kkt_lu") is tlinsys.get("KKT_LU")
     assert tlinsys.get("dense_chol") is not tlinsys.get("dense_inv")
-    for name in ("cg", "block_tridiag"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlinsys.get(name)
+    assert tlinsys.get("CG") is tlinsys.get("cg") and "cg" in tlinsys.available()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
+        tlinsys.get("block_tridiag")
     with pytest.raises(KeyError):
         tlinsys.get("nope")
 
 
-@pytest.mark.parametrize("kw", [{"compact": True}, {"linsys_solver": "cg"}, {"linsys_solver": "block_tridiag"}])
+@pytest.mark.parametrize("kw", [{"compact": True}, {"sparse": True, "polish": True}, {"linsys_solver": "block_tridiag"}])
 def test_unported_options_raise(kw):
+    """What is not ported yet raises, naming its ROADMAP item: compaction
+    (14), polish on the sparse path (12), block_tridiag (11)."""
+    import scipy.sparse as sp
+
     P, q, A, l, u = random_qps(2, 3, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", verbose=False, **kw)
+    item = {"compact": "item 14", "sparse": "item 12", "linsys_solver": "item 11"}[next(iter(kw))]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+        if kw.pop("sparse", False):
+            osqp_tpu_torch.solve_sparse(sp.csc_matrix(P[0]), q[0], sp.csc_matrix(A[0]), l[0], u[0], device="cpu",
+                                        verbose=False, **kw)
+        else:
+            osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", verbose=False, **kw)
 
 
 @pytest.mark.parametrize("kw", [{"polish": True}, {"linsys_solver": "kkt_lu"}, {"linsys_solver": "dense_chol"},
-                                {"linsys_solver": "mkl pardiso", "polish": True}])
+                                {"linsys_solver": "mkl pardiso", "polish": True}, {"linsys_solver": "cg"},
+                                {"linsys_solver": "cg", "polish": True}])
 def test_ported_options_run(kw):
-    """Polish and the dense backends, which used to raise, solve."""
+    """Polish and the dense and cg backends, which used to raise, solve."""
     P, q, A, l, u = random_qps(2, 3, 4)
     res = osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", dtype="float64", verbose=False, **kw)
     assert (res.status_val == tcon.OSQP_SOLVED).all()

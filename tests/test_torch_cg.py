@@ -1,0 +1,301 @@
+"""osqp_tpu_torch's ``cg`` backend and K6's plain loop against the JAX
+package on the CPU, on dense and on ELL operands.
+
+The backend's init, tolerance schedule and floor equal the JAX
+package's; K6's plain loop (what its wrapper runs for CPU tensors)
+agrees with ``osqp_tpu.linsys.cg.solve`` to 1e-10 in float64 from
+identical state, frozen instances and the step cap included; running it
+in chunks, as the kernel path does, changes no bit of x.  Then one ADMM
+step over cg, the rho-adaptation merge of a cg factor, the warm start,
+and whole solves through ``solve_batch`` and ``Solver`` at eps 1e-3 and
+1e-6: in float64 the JAX package's status and iterations with x and y
+within 1e-6, in float32 its status with iterations within 25.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import osqp_tpu
+import osqp_tpu.constants as jcon
+from osqp_tpu import admm as jadmm
+from osqp_tpu import scaling as jscaling
+from osqp_tpu import solver as jsolver
+from osqp_tpu import sparse_ops as jsp
+from osqp_tpu.batch import solve_batch as jsolve_batch
+from osqp_tpu.linsys import cg as jcg
+from osqp_tpu.types import DynSettings as JDyn
+from osqp_tpu.types import Iterates as JIt
+from osqp_tpu.types import QPData as JQP
+import osqp_tpu_torch
+from osqp_tpu_torch import admm as tadmm
+from osqp_tpu_torch import batch as tbatch
+from osqp_tpu_torch import convert
+from osqp_tpu_torch import solver as tsolver
+from osqp_tpu_torch.linsys import cg
+from osqp_tpu_torch.ops import cg as k6
+from osqp_tpu_torch.sparse_ops import ELLMatrix
+from osqp_tpu_torch.types import DynSettings, Iterates, QPData, RhoState, StaticConfig
+from test_batch import random_qps
+from test_sparse_large import _rand_sparse_qp
+
+torch.set_num_threads(2)
+
+ATOL = 1e-6
+CHECK = 25
+
+
+def _rel(t, j):
+    j = np.asarray(j)
+    return np.abs(t.numpy() - j).max() / np.abs(j).max()
+
+
+def _jax_data(kind, dtype="float64", B=4, n=20, m=30, seed=0):
+    """Scaled JAX data with dense or ELL operands (B instances)."""
+    jd = jnp.dtype(dtype)
+    if kind == "dense":
+        P, q, A, l, u = random_qps(B, n, m, seed=seed)
+        data = JQP(*(jnp.asarray(v, jd) for v in (P, q, A, l, u)))
+    else:
+        P, q, A, l, u = _rand_sparse_qp(n, m, 0.2, seed)
+        qs = np.stack([q * (1 + 0.1 * i) for i in range(B)])
+        data = JQP(P=jsp.ell_from_scipy(P, jd, batch=B, sym_from_triu=True), q=jnp.asarray(qs, jd),
+                   A=jsp.ell_from_scipy(A, jd, batch=B), l=jnp.asarray(np.tile(l, (B, 1)), jd),
+                   u=jnp.asarray(np.tile(u, (B, 1)), jd))
+    jdata, _ = jscaling.scale_data(data, 10)
+    jrs = jadmm.set_rho_state(jdata, jnp.full((B,), 0.1, jd))
+    return jdata, jrs, JDyn.make(jd)
+
+
+def _port(jdata, jrs, jdyn, jfac, dtype):
+    td = getattr(torch, dtype)
+    return (convert.from_fields(QPData, jdata, "cpu", td), convert.from_fields(RhoState, jrs, "cpu", td),
+            convert.from_fields(DynSettings, jdyn, "cpu", td), convert.factor(jfac, "cpu", td))
+
+
+# ---------------------------------------------------------------------------
+# init, the tolerance schedule and its floor
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["dense", "ell"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_init_matches_reference(kind, dtype):
+    jdata, jrs, jdyn = _jax_data(kind, dtype)
+    jfac = jcg.init(jdata.P, jdata.A, jdyn.sigma, jrs.rho_vec, cg_max_iter=0, cg_tol_fraction=1e-7)
+    data, rs, dyn, _ = _port(jdata, jrs, jdyn, {}, dtype)
+    fac = cg.init(data.P, data.A, dyn.sigma, rs.rho_vec, cg_max_iter=0, cg_tol_fraction=1e-7)
+    assert set(fac) == set(jfac)
+    assert _rel(fac["dinv"], jfac["dinv"]) < (1e-12 if dtype == "float64" else 1e-6)
+    np.testing.assert_array_equal(fac["tol_rel"].numpy(), np.asarray(jfac["tol_rel"]))
+    for key in ("max_iter", "tol_frac", "sigma"):
+        assert fac[key].ndim == 0 and fac[key].device.type == "cpu"
+        assert fac[key].item() == pytest.approx(float(jfac[key]), rel=1e-7)
+    assert fac["max_iter"].dtype == torch.int32 and int(fac["max_iter"]) == 50
+    assert fac["P"] is data.P
+    capped = cg.init(data.P, data.A, dyn.sigma, rs.rho_vec, cg_max_iter=7, cg_tol_fraction=1e-1)
+    jcapped = jcg.init(jdata.P, jdata.A, jdyn.sigma, jrs.rho_vec, cg_max_iter=7, cg_tol_fraction=1e-1)
+    assert int(capped["max_iter"]) == 7
+    np.testing.assert_array_equal(capped["tol_rel"].numpy(), np.asarray(jcapped["tol_rel"]))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("tol_frac", [1e-7, 1e-3])
+def test_update_tolerance_matches_reference(dtype, tol_frac):
+    jdata, jrs, jdyn = _jax_data("dense", dtype)
+    jfac = jcg.init(jdata.P, jdata.A, jdyn.sigma, jrs.rho_vec, cg_tol_fraction=tol_frac)
+    _, _, dyn, fac = _port(jdata, jrs, jdyn, jfac, dtype)
+    ratio = np.array([0.5, 3.0, 1e3, 1e9])
+    want = jcg.update_tolerance(jfac, jnp.asarray(ratio), jdyn)["tol_rel"]
+    got = cg.update_tolerance(fac, torch.as_tensor(ratio), dyn)["tol_rel"]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{}, {"eps_abs": 1e-6, "eps_rel": 1e-6}, {"eps_abs": 0.0, "eps_rel": 1e-9}, {"eps_abs": 1e-8},
+     {"cg_tol_fraction": 1e-3, "eps_rel": 1e-7}, {"eps_abs": 1e-15, "eps_rel": 0.0}],
+)
+def test_link_cg_floor_matches_reference(kw):
+    js, ts = jsolver.Settings(**kw), tsolver.Settings(**kw)
+    assert cg.link_cg_floor(ts) == jcg.link_cg_floor(js)
+    assert tsolver.make_config(5, 7, ts, torch.float64).cg_tol_fraction == jsolver.make_config(
+        5, 7, js, "float64").cg_tol_fraction
+
+
+# ---------------------------------------------------------------------------
+# K6's plain loop against the JAX solve
+# ---------------------------------------------------------------------------
+def _solve_case(kind, tol_rel, cg_max_iter=0, seed=1):
+    jdata, jrs, jdyn = _jax_data(kind, seed=seed)
+    jfac = jcg.init(jdata.P, jdata.A, jdyn.sigma, jrs.rho_vec, cg_max_iter=cg_max_iter)
+    jfac = {**jfac, "tol_rel": jnp.asarray(tol_rel)}
+    B, n = jdata.q.shape
+    m = jdata.l.shape[1]
+    rng = np.random.default_rng(seed)
+    rhs_x, rhs_z, x0 = rng.standard_normal((B, n)), rng.standard_normal((B, m)), rng.standard_normal((B, n))
+    return jdata, jrs, jdyn, jfac, rhs_x, rhs_z, x0
+
+
+@pytest.mark.parametrize("kind", ["dense", "ell"])
+@pytest.mark.parametrize("case", ["converge", "freeze", "step_cap"])
+def test_cg_solve_matches_reference(kind, case):
+    """x and z~ within 1e-10 of the JAX solve in float64: every instance
+    converging; instances converging at very different steps (one frozen
+    from the start keeps x0 bit for bit); and a solve cut at 3 steps."""
+    tol_rel = {"converge": [1e-10] * 4, "freeze": [1e-10, 1e-4, 1e-2, 1e3], "step_cap": [1e-10] * 4}[case]
+    jdata, jrs, jdyn, jfac, rhs_x, rhs_z, x0 = _solve_case(kind, tol_rel, cg_max_iter=3 if case == "step_cap" else 0)
+    jx, jz = jcg.solve(jfac, jdata.A, jrs.rho_vec, jnp.asarray(rhs_x), jnp.asarray(rhs_z), x0=jnp.asarray(x0))
+    data, rs, dyn, fac = _port(jdata, jrs, jdyn, jfac, "float64")
+    T = torch.as_tensor
+    x, z = cg.solve(fac, data.A, rs.rho_vec, T(rhs_x), T(rhs_z), x0=T(x0))
+    assert _rel(x, jx) < 1e-10 and _rel(z, jz) < 1e-10
+    b = T(rhs_x) + (osqp_tpu_torch.linalg.mat_tvec(data.A, rs.rho_vec * T(rhs_z)))
+    _, steps = k6.cg_solve_plain(fac["P"], data.A, fac["sigma"], rs.rho_vec, fac["dinv"], b, T(x0), fac["tol_rel"],
+                                 int(fac["max_iter"]))
+    if case == "freeze":
+        assert torch.equal(x[3], T(x0[3])) and steps[3] == 0
+        assert steps[0] > steps[1] > steps[2] > 0
+    if case == "step_cap":
+        assert steps.tolist() == [3] * 4
+
+
+@pytest.mark.parametrize("kind", ["dense", "ell"])
+@pytest.mark.parametrize("max_iter", [11, 1000])
+def test_chunked_stop_test_changes_no_bit(kind, max_iter):
+    """The plain loop tested once per CHUNK steps, as the kernel path runs,
+    against the loop tested at every step: x bit-identical and the same
+    steps, also when a chunk would pass max_iter (11 = 8 + 3)."""
+    jdata, jrs, jdyn, jfac, rhs_x, rhs_z, x0 = _solve_case(kind, [1e-10, 1e-5, 1e-3, 1e3], seed=2)
+    data, rs, dyn, fac = _port(jdata, jrs, jdyn, jfac, "float64")
+    T = torch.as_tensor
+    b = T(rhs_x) + osqp_tpu_torch.linalg.mat_tvec(data.A, rs.rho_vec * T(rhs_z))
+    args = (fac["P"], data.A, fac["sigma"], rs.rho_vec, fac["dinv"], b, T(x0), fac["tol_rel"], max_iter)
+    x1, s1 = k6.cg_solve_plain(*args)
+    xc, sc = k6.cg_solve_plain(*args, chunk=k6.CHUNK)
+    assert torch.equal(x1, xc) and torch.equal(s1, sc)
+    assert int(s1.max()) <= max_iter and (max_iter > 11 or int(s1.max()) == 11)
+    # the wrapper on CPU tensors is the step-by-step loop
+    xw, sw = k6.cg_solve(*args)
+    assert torch.equal(xw, x1) and torch.equal(sw, s1)
+
+
+def test_cg_solve_checks_its_inputs():
+    jdata, jrs, jdyn, jfac, rhs_x, rhs_z, x0 = _solve_case("dense", [1e-8] * 4)
+    data, rs, dyn, fac = _port(jdata, jrs, jdyn, jfac, "float64")
+    b = torch.as_tensor(rhs_x)
+    with pytest.raises(ValueError, match="dinv"):
+        k6.cg_solve(fac["P"], data.A, fac["sigma"], rs.rho_vec, fac["dinv"][:, :-1], b, None, fac["tol_rel"], 5)
+    with pytest.raises(ValueError, match="tol_rel"):
+        k6.cg_solve(fac["P"], data.A, fac["sigma"], rs.rho_vec, fac["dinv"], b, None, fac["tol_rel"].float(), 5)
+
+
+# ---------------------------------------------------------------------------
+# In the ADMM loop
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kind", ["dense", "ell"])
+def test_admm_step_over_cg_matches_reference(kind):
+    """One ADMM step over cg against the JAX package's to 1e-10: the
+    previous x warm-starts the solve.  A cold start lands elsewhere by
+    the CG tolerance, far more than 1e-10."""
+    jdata, jrs, jdyn = _jax_data(kind, seed=3)
+    jfac = jcg.init(jdata.P, jdata.A, jdyn.sigma, jrs.rho_vec)
+    B, n = jdata.q.shape
+    m = jdata.l.shape[1]
+    rng = np.random.default_rng(3)
+    x, z, y = rng.standard_normal((B, n)), rng.standard_normal((B, m)), rng.standard_normal((B, m))
+    jit_new, jdx, jdy, _ = jadmm.admm_step(jcg, jfac, jdata, jdyn, jrs, JIt(*(jnp.asarray(v) for v in (x, z, y))))
+    data, rs, dyn, fac = _port(jdata, jrs, jdyn, jfac, "float64")
+    T = torch.as_tensor
+    it, dx, dy, _ = tadmm.admm_step(cg.solve, fac, data, dyn, rs, Iterates(T(x), T(z), T(y)))
+    for g, w in zip((it.x, it.z, it.y, dx, dy), (jit_new.x, jit_new.z, jit_new.y, jdx, jdy)):
+        assert _rel(g, w) < 1e-10
+    cold = lambda *a, x0=None: cg.solve(*a)
+    it_cold, *_ = tadmm.admm_step(cold, fac, data, dyn, rs, Iterates(T(x), T(z), T(y)))
+    assert _rel(it_cold.x, jit_new.x) > 1e-10
+
+
+def test_warm_start_cuts_the_steps_late_in_a_solve():
+    """Late in a solve the previous x is close to the new x~: the
+    warm-started CG takes a fraction of the cold-started one's steps."""
+    P, q, A, l, u = _rand_sparse_qp(400, 600, 0.01, seed=0)
+    s, dtype, cfg, dyn, P_ell, A_ell, q, l, u = osqp_tpu_torch.large.prepare_sparse(
+        P, q, A, l, u, {"dtype": "float64", "eps_abs": 1e-6, "eps_rel": 1e-6, "verbose": False})
+    T = lambda a: torch.as_tensor(a, dtype=dtype)
+    scaled, scl, rs, fac, it = tbatch._prepare(cfg, 10, P_ell, T(q), A_ell, T(l), T(u), T([0.1]), dyn, None, None)
+    c = tadmm.run_segment(cfg, scaled, scl, dyn, tadmm.init_carry(cfg, scaled, rs, fac, it), 200)
+    assert c.any_active
+    rs, fac = c.rho_state, c.factor
+    rhs_x = dyn.sigma * c.it.x - scaled.q
+    b = rhs_x + osqp_tpu_torch.ops.ell.ell_tmatvec(scaled.A, c.it.z - rs.rho_inv_vec * c.it.y, rs.rho_vec)
+    args = (fac["P"], scaled.A, fac["sigma"], rs.rho_vec, fac["dinv"], b)
+    _, warm = k6.cg_solve(*args, c.it.x, fac["tol_rel"], int(fac["max_iter"]))
+    _, cold = k6.cg_solve(*args, None, fac["tol_rel"], int(fac["max_iter"]))
+    assert 0 < int(warm[0]) * 3 <= int(cold[0]), (int(warm[0]), int(cold[0]))
+
+
+def test_rho_adaptation_merges_a_cg_factor_on_ell_operands():
+    """A rho update refactors cg per instance: dinv and tol_rel of the
+    updated instances only (tol_rel back to init's value); the ELL
+    operand and the 0-d leaves pass through whole."""
+    jdata, jrs, jdyn = _jax_data("ell", seed=5)
+    jfac = jcg.init(jdata.P, jdata.A, jdyn.sigma, jrs.rho_vec)
+    data, rs, dyn, fac = _port(jdata, jrs, jdyn, jfac, "float64")
+    B, n = data.q.shape
+    m = data.l.shape[1]
+    fac = {**fac, "tol_rel": torch.full((B,), 1e-3, dtype=torch.float64)}
+    cfg = StaticConfig(n=n, m=m, linsys_solver="cg")
+    rng = np.random.default_rng(5)
+    x, y = torch.as_tensor(rng.standard_normal((B, n))), torch.as_tensor(rng.standard_normal((B, m)))
+    # z = A x, no primal residual: the rho estimate falls out of the tolerance band
+    c = tadmm.init_carry(cfg, data, rs, fac, Iterates(x, osqp_tpu_torch.linalg.mat_vec(data.A, x), y))
+    active = torch.arange(B) % 2 == 0
+    out = tadmm._apply_rho_adaptation(cfg, data, dyn, dataclasses.replace(c, active=active))
+    upd = out.info.rho_updates > 0
+    assert upd.any() and not upd[~active].any()
+    assert isinstance(out.factor["P"], ELLMatrix) and out.factor["P"] is data.P
+    for key in ("sigma", "max_iter", "tol_frac"):
+        assert out.factor[key].ndim == 0
+    fresh = cg.init(data.P, data.A, dyn.sigma, out.rho_state.rho_vec)
+    for key in ("dinv", "tol_rel"):
+        assert torch.equal(out.factor[key][upd], fresh[key][upd])
+        assert torch.equal(out.factor[key][~upd], fac[key][~upd])
+
+
+@pytest.mark.parametrize("eps,dtype", [(1e-3, "float64"), (1e-6, "float64"), (1e-3, "float32")])
+def test_solve_batch_cg_matches_reference(eps, dtype):
+    P, q, A, l, u = random_qps(4, 12, 18, seed=11)
+    kw = dict(dtype=dtype, verbose=False, linsys_solver="cg", eps_abs=eps, eps_rel=eps)
+    rj = jsolve_batch(P, q, A, l, u, **kw)
+    rt = osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", **kw)
+    np.testing.assert_array_equal(rt.status_val.numpy(), np.asarray(rj.status_val))
+    assert (rt.status_val == jcon.OSQP_SOLVED).all()
+    if dtype == "float64":
+        np.testing.assert_array_equal(rt.iter.numpy(), np.asarray(rj.iter))
+        np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), atol=ATOL)
+        np.testing.assert_allclose(rt.y.numpy(), np.asarray(rj.y), atol=ATOL)
+    else:
+        assert np.abs(rt.iter.numpy() - np.asarray(rj.iter)).max() <= CHECK
+
+
+@pytest.mark.parametrize("eps", [1e-3, 1e-6])
+def test_solver_cg_matches_reference(eps):
+    """The stateful Solver over cg, then a tightened eps_abs, whose
+    refreshed cg floor the next solve runs under."""
+    P, q, A, l, u = _rand_sparse_qp(20, 30, 0.2, seed=12)
+    kw = dict(dtype="float64", verbose=False, linsys_solver="cg", eps_abs=eps, eps_rel=eps)
+    js = osqp_tpu.Solver(P, q, A, l, u, **kw)
+    ts = osqp_tpu_torch.Solver(P, q, A, l, u, device="cpu", **kw)
+    for step in range(2):
+        rj, rt = js.solve(), ts.solve()
+        assert rt.info.status_val == rj.info.status_val == jcon.OSQP_SOLVED
+        assert (rt.info.iter, rt.info.rho_updates) == (rj.info.iter, rj.info.rho_updates)
+        np.testing.assert_allclose(rt.x, rj.x, atol=ATOL)
+        np.testing.assert_allclose(rt.y, rj.y, atol=ATOL)
+        if step == 0:
+            js.update_eps_abs(eps * 1e-2)
+            ts.update_eps_abs(eps * 1e-2)
+            assert ts._cfg.cg_tol_fraction == js._cfg.cg_tol_fraction
+            assert float(ts.factor["tol_frac"]) == pytest.approx(float(js.factor["tol_frac"]))

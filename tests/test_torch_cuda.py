@@ -19,6 +19,8 @@ import torch
 import osqp_tpu_torch
 from osqp_tpu_torch.io.qps import load_qps
 from osqp_tpu_torch.ops import admm_iter as k1
+from osqp_tpu_torch.ops import cg as k6
+from osqp_tpu_torch.ops import ell as k5
 from osqp_tpu_torch.ops import kkt_lu as k8
 from osqp_tpu_torch.ops import ruiz as k4
 from osqp_tpu_torch.ops import spd_inverse as k2
@@ -497,3 +499,136 @@ def test_solver_polish_gpu_matches_cpu(dev, dtype):
     if dtype == "float64":
         assert rg.info.iter == rc.info.iter
         assert np.abs(rg.x - rc.x).max() <= 1e-6 and np.abs(rg.y - rc.y).max() <= 1e-6 * np.abs(rc.y).max()
+
+
+def _ell(M, B, dtype, dev, seed=0, sym=False):
+    """An ELL operand of the scipy matrix M with per-instance values."""
+    import dataclasses
+
+    from osqp_tpu_torch.sparse_ops import ell_from_scipy
+
+    E = ell_from_scipy(M, dtype, batch=B, sym_from_triu=sym, device=dev).contiguous()
+    f = 1.0 + torch.rand(B, 1, 1, generator=torch.Generator().manual_seed(seed), dtype=torch.float64)
+    f = f.to(dtype).to(dev)
+    return dataclasses.replace(E, val=(E.val * f).contiguous(), t_val=(E.t_val * f).contiguous())
+
+
+K5_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# K6 against its plain loop after tens of CG steps: the dot products sum in
+# another order, and CG carries the rounding of alpha and beta forward,
+# grown by cond(M) (float64 at B=4, n=3000 below: 9.7e-12 relative after
+# the cold solve to 1e-7).
+K6_TOL = {torch.float32: 1e-4, torch.float64: 1e-9}
+K5_MODES = ["matvec", "tmatvec", "tmatvec_weighted", "sq_colsums", "row_norms", "col_norms", "diagonal", "scale"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", K5_MODES)
+@pytest.mark.parametrize("B,m,n", [(3, 17, 11), (1, 12500, 10000), (64, 300, 200)])
+def test_k5_kernel_matches_plain(dev, dtype, mode, B, m, n):
+    """Every K5 mode against its plain version: sums within the tolerance,
+    maxima, the diagonal and the scaled values exact; two launches give
+    the same bits."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(B + m)
+    A = _ell(sp.random(m, n, density=min(0.3, 5.0 / n), random_state=rng, format="csr"), B, dtype, dev)
+    Pm = sp.random(n, n, density=min(0.3, 5.0 / n), random_state=rng) + sp.eye(n)
+    P = _ell(sp.triu(Pm, format="csr"), B, dtype, dev, sym=True)
+    r = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+    x, y, w, cw = r(B, n), r(B, m), r(B, m).abs() + 0.1, r(B, n).abs() + 0.1
+    call = {
+        "matvec": lambda f: f(A, x), "tmatvec": lambda f: f(A, y), "tmatvec_weighted": lambda f: f(A, y, w),
+        "sq_colsums": lambda f: f(A, w), "row_norms": lambda f: f(A, cw), "col_norms": lambda f: f(A, w),
+        "diagonal": lambda f: f(P), "scale": lambda f: f(A, w, cw, cw[:, 0] + 1.0),
+    }[mode]
+    name = {"tmatvec_weighted": "ell_tmatvec"}.get(mode, f"ell_{mode}")
+    before = k5.launches
+    got, again = call(getattr(k5, name)), call(getattr(k5, name))
+    torch.cuda.synchronize()
+    assert k5.launches == before + 2
+    want = call(getattr(k5, f"{name}_plain"))
+    if mode == "scale":
+        for f in ("val", "t_val"):
+            assert torch.equal(getattr(got, f), getattr(again, f)) and torch.equal(getattr(got, f), getattr(want, f))
+        return
+    assert torch.equal(got, again)
+    if mode in ("row_norms", "col_norms", "diagonal"):
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= K5_TOL[dtype] * float(want.abs().max())
+
+
+def test_k5_raises_on_broadcast_values(dev):
+    """The kernel takes contiguous values and says so; it copies nothing."""
+    import scipy.sparse as sp
+
+    from osqp_tpu_torch.sparse_ops import ell_from_scipy
+
+    E = ell_from_scipy(sp.eye(5, format="csr"), torch.float64, batch=2, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.ell_matvec(E, torch.ones(2, 5, dtype=torch.float64, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["ell", "dense"])
+@pytest.mark.parametrize("max_iter", [11, 1000])
+def test_k6_kernel_matches_plain(dev, dtype, kind, max_iter):
+    """K6 against its plain loop: the same steps per instance, x within the
+    tolerance, an instance frozen from the start bit-unchanged, two runs
+    bit-identical, and no step past max_iter (11 = a chunk of 8 and 3)."""
+    import scipy.sparse as sp
+
+    from osqp_tpu_torch.linsys import cg
+
+    rng = np.random.default_rng(6)
+    B, n, m = 4, 3000, 2000
+    Pm = sp.random(n, n, density=3.0 / n, random_state=rng)
+    Pm = (Pm @ Pm.T + 0.1 * sp.eye(n)).tocsr()
+    Am = sp.random(m, n, density=3.0 / n, random_state=rng, format="csr")
+    if kind == "ell":
+        P, A = _ell(sp.triu(Pm, format="csr"), B, dtype, dev, sym=True), _ell(Am, B, dtype, dev)
+    else:
+        P = torch.as_tensor(np.stack([Pm[:300, :300].toarray()] * B), dtype=dtype, device=dev)
+        A = torch.as_tensor(np.stack([Am[:200, :300].toarray()] * B), dtype=dtype, device=dev)
+    nn, mm = (n, m) if kind == "ell" else (300, 200)
+    rho = torch.as_tensor(rng.random((B, mm)) + 0.1, dtype=dtype, device=dev)
+    fac = cg.init(P, A, torch.tensor(1e-6, dtype=dtype), rho)
+    b = torch.as_tensor(rng.standard_normal((B, nn)), dtype=dtype, device=dev)
+    x0 = torch.as_tensor(rng.standard_normal((B, nn)), dtype=dtype, device=dev)
+    tol = torch.tensor([1e-7, 1e-5, 1e-3, 1e9], dtype=dtype, device=dev)
+    args = (P, A, fac["sigma"], rho, fac["dinv"], b, x0, tol, max_iter)
+    before = k6.launches
+    xk, sk = k6.cg_solve(*args)
+    xk2, sk2 = k6.cg_solve(*args)
+    torch.cuda.synchronize()
+    assert k6.launches - before == 2 * min(max_iter, -(-int(sk.max()) // k6.CHUNK) * k6.CHUNK)
+    xp, sp_ = k6.cg_solve_plain(*args)
+    assert torch.equal(xk, xk2) and torch.equal(sk, sk2)
+    assert torch.equal(sk, sp_) and int(sk.max()) <= max_iter
+    assert torch.equal(xk[3], x0[3]) and int(sk[3]) == 0
+    assert float((xk - xp).abs().max()) <= K6_TOL[dtype] * float(xp.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_solve_sparse_on_the_card_matches_the_cpu(dev, dtype):
+    """solve_sparse on the card against the CPU's plain path."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(0)
+    n, m = 200, 300
+    M = sp.random(n, n, density=0.02, random_state=rng, format="csc")
+    P = sp.triu(M @ M.T + 0.1 * sp.eye(n), format="csc")
+    A = sp.random(m, n, density=0.02, random_state=rng, format="csc") + sp.eye(m, n, format="csc")
+    xr = rng.standard_normal(n)
+    s = np.abs(rng.standard_normal(m)) + 0.1
+    q = rng.standard_normal(n)
+    kw = dict(dtype=dtype, verbose=False)
+    rg = osqp_tpu_torch.solve_sparse(P, q, A, A @ xr - s, A @ xr + s, device=dev, **kw)
+    rc = osqp_tpu_torch.solve_sparse(P, q, A, A @ xr - s, A @ xr + s, device="cpu", **kw)
+    assert torch.equal(rg.status_val.cpu(), rc.status_val)
+    if dtype == "float64":
+        assert torch.equal(rg.iter.cpu(), rc.iter)
+        assert float((rg.x.cpu() - rc.x).abs().max()) <= 1e-6
+    else:
+        assert int((rg.iter.cpu() - rc.iter).abs().max()) <= 25

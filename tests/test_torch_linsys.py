@@ -329,10 +329,10 @@ def test_backend_aliases():
 
     assert tlinsys.get("qdldl") is tlinsys.get("dense_inv")
     assert tlinsys.get("mkl pardiso") is tlinsys.get("kkt_lu")
-    assert tlinsys.available() == ["dense_chol", "dense_inv", "kkt_lu"]
+    assert tlinsys.available() == ["cg", "dense_chol", "dense_inv", "kkt_lu"]
 
 
-@pytest.mark.parametrize("name", ["dense_inv", "dense_chol", "kkt_lu"])
+@pytest.mark.parametrize("name", ["dense_inv", "dense_chol", "kkt_lu", "cg"])
 def test_solve_kkt_against_scipy(name):
     """test_solve_linsys.py's KKT problem: x~ and the recovered z~ against
     scipy's sparse LU (generate_problem.py:33-35)."""

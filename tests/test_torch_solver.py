@@ -332,10 +332,10 @@ def test_time_based_rho_interval(fraction, fires, monkeypatch):
     "make,item",
     [
         (lambda s: s.export(), "item 14"),
-        (lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", linsys_solver="cg"), "items 11-12"),
+        (lambda s: osqp_tpu_torch.solve_sparse(*_quick_start(), device="cpu", polish=True), "item 12"),
         (lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", linsys_solver="block_tridiag"), "item 11"),
     ],
-    ids=["export", "cg", "block_tridiag"],
+    ids=["export", "sparse_polish", "block_tridiag"],
 )
 def test_unported_options_raise(make, item):
     s = osqp_tpu_torch.OSQP().setup(*_quick_start(), device="cpu", verbose=False)
@@ -350,12 +350,14 @@ def test_unported_options_raise(make, item):
         lambda s: s.update_polish(True) or s,
         lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", dtype="float64", linsys_solver="kkt_lu",
                                         verbose=False),
+        lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", dtype="float64", linsys_solver="cg",
+                                        verbose=False),
     ],
-    ids=["polish", "update_polish", "kkt_lu"],
+    ids=["polish", "update_polish", "kkt_lu", "cg"],
 )
 def test_ported_options_run(make):
-    """Polish and the kkt_lu backend, which used to raise, now solve the
-    quick start as the JAX package does."""
+    """Polish and the kkt_lu and cg backends, which used to raise, now
+    solve the quick start as the JAX package does."""
     ts = make(osqp_tpu_torch.OSQP().setup(*_quick_start(), device="cpu", dtype="float64", verbose=False))
     rt = ts.solve()
     kw = {f: getattr(ts.settings, f) for f in ("polish", "linsys_solver")}
@@ -365,10 +367,11 @@ def test_ported_options_run(make):
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("backend", ["dense_inv", "dense_chol", "kkt_lu"])
+@pytest.mark.parametrize("backend", ["dense_inv", "dense_chol", "kkt_lu", "cg"])
 def test_all_backends(backend, dtype):
     """The counterpart of test_basic_qp.py's test_all_backends for the
-    three dense backends: the basic QP with polish on, and CVXQP2_S."""
+    three dense backends and cg: the basic QP with polish on, and
+    CVXQP2_S."""
     import scipy.sparse as sp2
 
     P = sp2.triu([[4.0, 1.0], [1.0, 2.0]], format="csc")
@@ -386,7 +389,7 @@ def test_all_backends(backend, dtype):
     _assert_parity(js.solve(), ts.solve(), dtype)
 
 
-@pytest.mark.parametrize("backend", ["dense_chol", "kkt_lu"])
+@pytest.mark.parametrize("backend", ["dense_chol", "kkt_lu", "cg"])
 def test_backend_update_sequence(backend):
     """Bounds, rho and matrix updates refactor through the registry."""
     P, q, A, l, u = _quick_start()

@@ -18,9 +18,18 @@ polish file also holds, under ``<problem>/reference/<field>``, the
 objective and x of a float64 solve at eps 1e-10 with polish off, which a
 polished point can be held against (y is not: these problems' duals are
 not unique).
-``chip_smoke.py`` holds the port's Solver against these files; tier-1
-tests regenerate one entry of each with :func:`golden` and compare, so
-the files cannot go stale.
+A third file, ``sparse_maros.npz``, holds ``osqp_tpu.large.solve_sparse``
+with polish off (the sparse path: ELL operands and the cg backend) at
+CVXQP2_L in float64, LISWET1 in float64 and float32, and a scenario
+batch of 8 copies of LISWET1 with q scaled by 1 + 0.1 i in float64:
+status, iterations, objective, x and y per instance, under keys
+``<case>/<field>`` with the cases of SPARSE_CASES.
+``chip_smoke.py`` holds the port's Solver and solve_sparse against these
+files; tier-1 tests regenerate one entry of each with :func:`golden` or
+:func:`sparse_golden` and compare, so the files cannot go stale.
+
+    python3 tools/make_torch_goldens.py            # all three files
+    python3 tools/make_torch_goldens.py sparse     # sparse_maros.npz alone
 """
 
 from __future__ import annotations
@@ -39,6 +48,15 @@ OUT_POLISH = os.path.join(REPO, "tests", "data", "torch_goldens", "solver_maros_
 FIELDS = ("status_val", "iter", "rho_updates", "obj_val", "x", "y")
 POLISH_FIELDS = FIELDS + ("status_polish", "pri_res", "dua_res")
 REFERENCE_FIELDS = ("obj_val", "x")
+OUT_SPARSE = os.path.join(REPO, "tests", "data", "torch_goldens", "sparse_maros.npz")
+# case -> (problem, dtype, instances)
+SPARSE_CASES = {
+    "CVXQP2_L/float64": ("CVXQP2_L", "float64", 1),
+    "LISWET1/float64": ("LISWET1", "float64", 1),
+    "LISWET1/float32": ("LISWET1", "float32", 1),
+    "LISWET1_B8/float64": ("LISWET1", "float64", 8),
+}
+SPARSE_FIELDS = ("status_val", "iter", "obj_val", "x", "y")
 sys.path.insert(0, REPO)
 
 
@@ -68,6 +86,32 @@ def golden(name: str, dtype: str, polish: bool = False, **settings) -> dict:
     return out
 
 
+def scenario_batch(qp, B: int):
+    """(P, q, A, l, u) of B instances of ``qp`` (an object with P, q, A,
+    l, u) sharing P and A, with q scaled by 1 + 0.1 i."""
+    q = np.stack([np.asarray(qp.q) * (1.0 + 0.1 * i) for i in range(B)])
+    return qp.P, q, qp.A, np.tile(qp.l, (B, 1)), np.tile(qp.u, (B, 1))
+
+
+def sparse_golden(case: str) -> dict:
+    """One JAX solve_sparse run of ``case`` (a key of SPARSE_CASES), polish
+    off: {field: numpy array}, one row per instance.  The caller has put
+    jax on the CPU with x64 enabled."""
+    from osqp_tpu.io.qps import load_qps
+    from osqp_tpu.large import solve_sparse
+
+    name, dtype, B = SPARSE_CASES[case]
+    qp = load_qps(os.path.join(MAROS, f"{name}.qps"), native=False)
+    res = solve_sparse(*scenario_batch(qp, B), dtype=dtype, polish=False, verbose=False)
+    return {
+        "status_val": np.asarray(res.status_val, np.int64),
+        "iter": np.asarray(res.iter, np.int64),
+        "obj_val": np.asarray(res.obj_val, np.float64),
+        "x": np.asarray(res.x, np.float64),
+        "y": np.asarray(res.y, np.float64),
+    }
+
+
 def reference(name: str) -> dict:
     """The optimum to solver accuracy: {obj_val, x} of a float64 solve at
     eps 1e-10."""
@@ -80,9 +124,24 @@ def reference(name: str) -> dict:
 def main() -> int:
     import jax
 
+    which = set(sys.argv[1:]) or {"solver", "sparse"}
+    if not which <= {"solver", "sparse"}:
+        print("usage: make_torch_goldens.py [solver] [sparse]", file=sys.stderr)
+        return 2
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    if "sparse" in which:
+        arrays = {}
+        for case in SPARSE_CASES:
+            g = sparse_golden(case)
+            print(f"{case}: status {g['status_val'].tolist()}, iterations {g['iter'].tolist()}, "
+                  f"obj {g['obj_val'].tolist()}", flush=True)
+            arrays.update({f"{case}/{k}": v for k, v in g.items()})
+        np.savez_compressed(OUT_SPARSE, **arrays)
+        print(f"wrote {OUT_SPARSE}")
+    if "solver" not in which:
+        return 0
     for polish, out in ((False, OUT), (True, OUT_POLISH)):
         arrays = {}
         for name in PROBLEMS:
