@@ -97,12 +97,12 @@ failure ends the run with a non-zero exit and no result line:
     CVXQP2_M (B=64, float64): sums within RTOL, the rest exact, two
     launches bit-identical; A x and A'(rho y) timed beside the plain
     version, ``torch.sparse.mm`` on a CSR copy and the bound;
-16. K6 (cg_step) against its plain loop: one cg solve from a mid-solve
-    ADMM state of CVXQP2_L (float64, ELL) and of the headline data
-    (dense, B=8192, float32, every fourth instance frozen): the same
-    steps, x within RTOL, frozen instances bit-unchanged, two runs
-    bit-identical; ms per solve and per step, one step's vector work
-    against the plain step and the bound;
+16. K6 (cg_step) against its plain loop (summing in the kernel's order):
+    one cg solve from a mid-solve ADMM state of CVXQP2_L (float64, ELL)
+    and of the headline data (dense, B=8192, float32, every fourth
+    instance frozen): the same steps, x bit for bit, frozen instances
+    bit-unchanged, two runs bit-identical; ms per solve and per step, one
+    step's vector work against the plain step and the bound;
 17. the sparse path: ``solve_sparse`` (polish off) at CVXQP2_L in
     float64, LISWET1 in float64 and float32, and 8 copies of LISWET1
     with q scaled by 1 + 0.1 i, each held to the JAX package's results
@@ -115,7 +115,32 @@ failure ends the run with a non-zero exit and no result line:
     time and the idle share;
 18. the cg backend on dense operands: ``solve_batch`` on the card against
     the CPU's plain path (float64, B=64, n=20, m=30), then the headline
-    data at B=1024 in float32 beside the ``dense_inv`` run.
+    data at B=1024 in float32 beside the ``dense_inv`` run;
+19. K7 (block_tridiag: bt_factor, bt_solve) against its plain versions on
+    the reduced matrix of the MPC cell as the backend forms it
+    (``bench.py``'s bench_mpc: B=1000, n=372, b=12, Nb=31, float32) and at
+    B=64 in float64: factor and solve bit for bit, two launches
+    bit-identical, the solve's backward error against M; kernel, plain
+    and library (torch.linalg.cholesky of M, torch.cholesky_solve) times
+    beside the bounds;
+20. the MPC cell through ``solve_batch`` with ``block_tridiag`` and with
+    ``dense_inv`` (B=1000, float32, eps 1e-3, polish off): every
+    instance solved, none at MAX_ITER, the same statuses in both legs,
+    the first 16 scenarios against ``tests/data/torch_goldens/mpc.npz``,
+    K7's launches, the median of 5 timed solves per leg with QPs/s,
+    set-up and ms per iteration, and one more solve per leg under the
+    profiler (idle share, device time by kernel); then the ``Solver``
+    with block_tridiag on scenario 0 in float64 against its golden;
+21. polish on the sparse path: polish's PCG on K6 against the plain loop
+    over the same products on LISWET1's polish system (float32 to
+    convergence, float64 capped at 2000 steps): equal steps and x bit for
+    bit; then over K5's plain products for the record; ``solve_sparse`` with
+    ``polish=True`` at LISWET1 (float64, float32), CVXQP2_L (float64) and
+    2 copies of LISWET1 against ``sparse_polish.npz`` (status, iterations,
+    status_polish, x and y), with the polished candidate's residuals, the
+    ADMM point's, polish ms, the PCG steps of each solve and K6's
+    launches in the polish; the ``SparseSolver`` on LISWET1: set-up,
+    solve, update_lin_cost and a warm re-solve.
 
 The line before the last is a JSON object of the kernels; the last line
 is the device JSON object.
@@ -243,6 +268,18 @@ def profiled(fn):
     return out, wall, events
 
 
+def top_kernels(events, k=6) -> str:
+    """The k kernels (by name, argument lists cut) with the most device
+    time among ``events``, as "name ms (launches)"."""
+    total, count = {}, {}
+    for e in events:
+        name = e.name.split("(")[0][-60:]
+        total[name] = total.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+        count[name] = count.get(name, 0) + 1
+    top = sorted(total, key=total.get, reverse=True)[:k]
+    return "; ".join(f"{n} {total[n]:.3f} ms ({count[n]})" for n in top)
+
+
 def event_ms(events, names=None) -> float:
     """Device milliseconds of the events whose name holds one of ``names``
     (all events when None)."""
@@ -358,21 +395,22 @@ def maros_dense(name):
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from osqp_tpu_torch.ops import admm_iter as k1, kkt_lu as k8, ruiz as k4, spd_inverse as k2, term_products as k3
-    from osqp_tpu_torch.ops import cg as k6, ell as k5
+    from osqp_tpu_torch.ops import block_tridiag as k7, cg as k6, ell as k5
 
     k1.launches = k1.refined_launches = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
     k8.launches_factor = k8.launches_solve = 0
     k5.launches = k6.launches = 0
+    k7.launches_factor = k7.launches_solve = 0
 
 
 def read_counts() -> dict:
     from osqp_tpu_torch.ops import admm_iter as k1, kkt_lu as k8, ruiz as k4, spd_inverse as k2, term_products as k3
-    from osqp_tpu_torch.ops import cg as k6, ell as k5
+    from osqp_tpu_torch.ops import block_tridiag as k7, cg as k6, ell as k5
 
     return {"admm_iter": k1.launches, "admm_iter_refined": k1.refined_launches, "chol_inverse": k2.launches,
             "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches,
             "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve, "ell_ops": k5.launches,
-            "cg_step": k6.launches}
+            "cg_step": k6.launches, "bt_factor": k7.launches_factor, "bt_solve": k7.launches_solve}
 
 
 def prepared(P, q, A, l, u):
@@ -971,7 +1009,7 @@ def phase_solver(dev):
     for name, n_launch in total.items():
         if name.startswith("kkt_lu"):  # polish is off here: K8 must stay out of it
             require(n_launch == 0, f"{name} launched on the Solver path with polish off")
-        elif name in ("ell_ops", "cg_step"):  # the sparse path's and cg's kernels
+        elif name in ("ell_ops", "cg_step", "bt_factor", "bt_solve"):  # other backends' kernels
             require(n_launch == 0, f"{name} launched on the dense_inv Solver path")
         else:
             require(n_launch > 0, f"{name} never launched on the Solver path")
@@ -1504,7 +1542,7 @@ def phase_k6(dev):
         solve_ms = (time.perf_counter() - t0) * 1e3
         launched = k6.launches - before
         xk2, sk2 = k6.cg_solve(*args)
-        xp, sp = k6.cg_solve_plain(*args)
+        xp, sp = k6.cg_solve_plain(*args, dot=k6.kernel_dot)
         torch.cuda.synchronize()
         diff, rel = rel_err(xk, xp)
         tol = RTOL[dtype_name(xk.dtype)]
@@ -1515,7 +1553,7 @@ def phase_k6(dev):
               f"two runs bit-identical {torch.equal(xk, xk2) and torch.equal(sk, sk2)}; one solve {solve_ms:.3f} ms, "
               f"{solve_ms / max(launched, 1):.4f} ms per launched step (with the operator's products)")
         require(torch.equal(sk, sp), f"K6 took other steps than its plain loop at {label}")
-        require(rel <= tol, f"K6's x off by {rel:.3e} relative at {label}")
+        require(rel <= tol and torch.equal(xk, xp), f"K6's x off by {rel:.3e} relative at {label}")
         require(torch.equal(xk[frozen], x0[frozen]), f"K6 moved a frozen instance at {label}")
         require(torch.equal(xk, xk2) and torch.equal(sk, sk2), f"K6: two runs differ at {label}")
 
@@ -1654,6 +1692,403 @@ def phase_cg_dense(dev):
     print(f"cg backend headline: statuses equal to dense_inv's in {agree} of 1024 instances")
 
 
+# The MPC cell: bench.py's bench_mpc (nx = 8, nu = 4, horizon 30: n = 372,
+# m = 612, stages of b = 12), as tools/make_torch_goldens.py builds it.
+MPC = dict(B=1000, nx=8, nu=4, horizon=30)
+MPC_GOLDENS = os.path.join(ROOT, "tests", "data", "torch_goldens", "mpc.npz")
+MPC_KW = dict(eps_abs=1e-3, eps_rel=1e-3, polish=False, verbose=False)
+# The kernels of K7 (csrc/block_tridiag.cu), by name in the profiler; the
+# MPC solve launches no other kernel of these names (K8's lu_solve_kernel
+# runs with polish only).
+K7_KERNELS = ("factor_kernel", "solve_kernel")
+SPARSE_POLISH_GOLDENS = os.path.join(ROOT, "tests", "data", "torch_goldens", "sparse_polish.npz")
+
+
+def mpc_scenarios(B=None, seed=0):
+    """bench_mpc's scenario batch (bench.py:165-183): one random stable
+    system, B initial states (MPC["B"] when None).  Returns (base
+    problem, P, q, A, l, u)."""
+    from osqp_tpu_torch.models import build_mpc_qp
+
+    B = MPC["B"] if B is None else B
+    nx, nu, horizon = MPC["nx"], MPC["nu"], MPC["horizon"]
+    rng = np.random.default_rng(seed)
+    Ad = np.eye(nx) + 0.05 * rng.standard_normal((nx, nx)) / np.sqrt(nx)
+    Bd = rng.standard_normal((nx, nu)) / np.sqrt(nx)
+    base = build_mpc_qp(Ad, Bd, np.eye(nx), 0.1 * np.eye(nu), horizon=horizon, xmin=np.full(nx, -10.0),
+                        xmax=np.full(nx, 10.0), umin=np.full(nu, -1.0), umax=np.full(nu, 1.0))
+    xinits = rng.standard_normal((B, nx))
+    l = np.tile(base.l, (B, 1))
+    u = np.tile(base.u, (B, 1))
+    l[:, :nx] = xinits
+    u[:, :nx] = xinits
+    stack = lambda a: np.broadcast_to(a, (B,) + a.shape)
+    return base, stack(base.P), stack(base.q), stack(base.A), l, u
+
+
+def mpc_prepared(B, dtype, dev):
+    """The block_tridiag backend's set-up of the MPC batch on the card:
+    config, scaled data, rho state and the reduced matrix M."""
+    import torch
+
+    from osqp_tpu_torch import batch, solver
+    from osqp_tpu_torch.linsys.dense_chol import form_schur
+    from osqp_tpu_torch.types import DynSettings
+
+    base, *arrays = mpc_scenarios(B)
+    P, q, A, l, u = on_device(arrays, dtype, dev)
+    n, m = base.P.shape[0], base.A.shape[0]
+    s = solver.Settings(**MPC_KW, dtype=dtype, linsys_solver="block_tridiag", block_size=base.block_size)
+    cfg = solver.make_config(n, m, s, dtype)
+    dyn = DynSettings.make(dtype)
+    rho0 = torch.full((B,), s.rho, dtype=dtype, device=dev)
+    scaled, _, rs, _, _ = batch._prepare(cfg, s.scaling, P, q, A, l, u, rho0, dyn, None, None)
+    return base, scaled, rs, form_schur(scaled.P, scaled.A, dyn.sigma, rs.rho_vec).contiguous()
+
+
+def k7_cost(B, Nb, b, dtype):
+    """(bytes, operations) of K7's factor and of its solve.  Factor: the
+    band blocks of M (D and O) read once, C and G written once; per stage
+    the row solve for G (b^3), D - G G' on the lower triangle (b^3 + b^2)
+    and the Cholesky (b^3 / 3 multiply-subtracts).  Solve: C, G and r read
+    once, x written once; per stage 6 b^2 operations."""
+    elt = 4 if dtype_name(dtype) == "float32" else 8
+    blocks = 2 * Nb - 1
+    factor = (elt * B * 2 * blocks * b * b, {dtype_name(dtype): B * Nb * (2 * b**3 + b**2 + 2 * b**3 // 3)})
+    solve = (elt * B * (blocks * b * b + 2 * Nb * b), {dtype_name(dtype): B * Nb * 6 * b * b})
+    return factor, solve
+
+
+def phase_k7(dev):
+    """K7 (block_tridiag) against its plain versions on the reduced matrix
+    of the MPC cell as the block_tridiag backend forms it (B=1000, b=12,
+    Nb=31, float32) and at B=64 in float64: factor and solve bit for bit,
+    two launches bit-identical; kernel, plain and library (the dense route:
+    torch.linalg.cholesky of M, torch.cholesky_solve) times beside the
+    bound."""
+    import torch
+
+    from osqp_tpu_torch.ops import block_tridiag as k7
+
+    stats = None
+    for B, dtype in ((MPC["B"], torch.float32), (64, torch.float64)):
+        base, _, _, M = mpc_prepared(B, dtype, dev)
+        b = base.block_size
+        Nb = M.shape[-1] // b
+        label = f"MPC B={B} n={M.shape[-1]} b={b} Nb={Nb} {dtype_name(dtype)}"
+        g = torch.Generator(device=dev).manual_seed(7)
+        r = torch.randn(B, Nb * b, generator=g, dtype=dtype, device=dev)
+        C, G = k7.bt_factor(M, b)
+        C2, G2 = k7.bt_factor(M, b)
+        Cp, Gp = k7.bt_factor_plain(M, b)
+        x, x2, xp = k7.bt_solve(C, G, r), k7.bt_solve(C, G, r), k7.bt_solve_plain(Cp, Gp, r)
+        torch.cuda.synchronize()
+        same = torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp)
+        err = max(float((C - Cp).abs().max()), float((G - Gp).abs().max()), float((x - xp).abs().max()))
+        # the solve against M itself: backward error |M x - r| / (|M| |x|)
+        resid = float((torch.bmm(M, x[:, :, None])[:, :, 0] - r).abs().max())
+        scale = float(M.abs().sum(-1).max()) * float(x.abs().max())
+        print(f"K7 block_tridiag {label}: factor and solve bit-identical to plain {same}, |k-p|max {err:.3e}; two "
+              f"launches bit-identical {torch.equal(C, C2) and torch.equal(G, G2) and torch.equal(x, x2)}; "
+              f"backward error of the solve {resid / scale:.3e}")
+        require(same, f"K7 differs from its plain version at {label}")
+        require(torch.equal(C, C2) and torch.equal(G, G2) and torch.equal(x, x2), f"K7: two launches differ at {label}")
+        require(bool(torch.isfinite(x).all()) and resid <= BACKWARD_BOUND[dtype_name(dtype)] * scale,
+                f"K7's solve does not solve M x = r at {label}")
+        (fb, ff), (sb, sf) = k7_cost(B, Nb, b, dtype)
+        reps = 20 if B > 100 else 50
+        tf = report_times(f"K7 bt_factor {label}", lambda: k7.bt_factor(M, b), lambda: k7.bt_factor_plain(M, b),
+                          reps, fb, ff)
+        ts = report_times(f"K7 bt_solve {label}", lambda: k7.bt_solve(C, G, r), lambda: k7.bt_solve_plain(C, G, r),
+                          reps, sb, sf)
+        # library_ms only: the dense route to the same x, which the port never takes
+        L = torch.linalg.cholesky(M)
+        lib_f = cuda_ms(lambda: torch.linalg.cholesky(M), reps)
+        lib_s = cuda_ms(lambda: torch.cholesky_solve(r[:, :, None], L), reps)
+        print(f"  library: torch.linalg.cholesky(M) {lib_f:.4f} ms, torch.cholesky_solve {lib_s:.4f} ms")
+        if stats is None:
+            stats = (dict(tf, max_abs_err=err, library_ms=lib_f), dict(ts, max_abs_err=err, library_ms=lib_s))
+    return stats
+
+
+def phase_mpc(dev):
+    """The MPC cell through solve_batch: block_tridiag and dense_inv on
+    bench_mpc's data (B=1000, float32, eps 1e-3, polish off): the same
+    statuses, all solved, none at MAX_ITER; the first 16 scenarios against
+    mpc.npz; median of 5 timed solves per leg.  Counts are set to 0 just
+    before the block_tridiag leg's first solve and read just after it.
+    Then the Solver with block_tridiag on scenario 0 in float64."""
+    import torch
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch import batch, solver
+    from osqp_tpu_torch.types import DynSettings
+
+    gold = np.load(MPC_GOLDENS)
+    base, *arrays = mpc_scenarios()
+    B, b = MPC["B"], base.block_size
+    n, m = base.P.shape[0], base.A.shape[0]
+    P, q, A, l, u = on_device(arrays, torch.float32, dev)
+    torch.cuda.synchronize()
+    legs = {"block_tridiag": dict(block_size=b), "dense_inv": {}}
+    out, launches = {}, None
+    for backend, extra in legs.items():
+        kw = dict(MPC_KW, dtype="float32", linsys_solver=backend, **extra)
+        main_path = backend == "block_tridiag"
+        if main_path:
+            reset_counts()
+        before = read_counts()
+        t0 = time.perf_counter()
+        res = ot.solve_batch(P, q, A, l, u, **kw)
+        status = res.status_val.cpu().numpy()
+        first_s = time.perf_counter() - t0
+        after = read_counts()
+        if main_path:
+            launches = after
+        delta = {k: after[k] - before[k] for k in after}
+        iters = res.iter.cpu().numpy()
+        x = res.x.cpu().numpy()
+        solved = float(np.mean(status == ot.OSQP_SOLVED))
+        times = []
+        for _ in range(5):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ot.solve_batch(P, q, A, l, u, **kw)
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        s = solver.Settings(**kw)
+        cfg = solver.make_config(n, m, s, torch.float32)
+        dyn = DynSettings.make(torch.float32)
+        rho0 = torch.full((B,), s.rho, dtype=torch.float32, device=dev)
+        setup_ms = cuda_ms(lambda: batch._prepare(cfg, s.scaling, P, q, A, l, u, rho0, dyn, None, None), reps=3,
+                           warmup=1)
+        med = statistics.median(times)
+        print(f"mpc {backend} B={B} n={n} m={m} b={b} f32: first solve {first_s:.3f} s, solved {solved:.4f}, "
+              f"iterations mean {iters.mean():.2f} max {iters.max()}; launches {delta}")
+        print(f"mpc {backend} timed solves (ms, CUDA events, data on the card): {[round(t, 3) for t in times]}; "
+              f"median {med:.3f} ms, spread {min(times):.3f}..{max(times):.3f}, {B / (med / 1e3):.1f} QPs/s; setup "
+              f"{setup_ms:.3f} ms; {(med - setup_ms) / int(iters.max()):.4f} ms per iteration")
+        require(solved == 1.0, f"mpc {backend}: solved {solved}")
+        require(not np.any(status == ot.OSQP_MAX_ITER_REACHED), f"mpc {backend}: an instance hit MAX_ITER_REACHED")
+        require(np.isfinite(x).all() and x.shape == (B, n) and res.y.shape == (B, m), f"mpc {backend}: x")
+        k = 16
+        g_status, g_iter = gold["MPC16/float32/status_val"], gold["MPC16/float32/iter"]
+        print(f"  first {k} against the JAX package's float32 run: statuses equal "
+              f"{np.array_equal(status[:k], g_status)}, iterations {iters[:k].tolist()} (golden {g_iter.tolist()})")
+        require(np.array_equal(status[:k], g_status), f"mpc {backend}: statuses of the first {k} differ")
+        require(np.abs(iters[:k] - g_iter).max() <= 25, f"mpc {backend}: iterations of the first {k} differ")
+        if main_path:
+            require(delta["bt_factor"] >= 1 and delta["bt_solve"] == int(iters.max()),
+                    f"mpc block_tridiag: K7 launched {delta['bt_factor']} / {delta['bt_solve']} times")
+            require(delta["admm_iter"] == delta["chol_inverse"] == delta["kkt_lu_factor"] == 0,
+                    "mpc block_tridiag: a dense_inv or K8 kernel launched")
+        else:
+            require(delta["bt_factor"] == delta["bt_solve"] == 0, "mpc dense_inv: K7 launched")
+        # where one solve's time goes: once more under the profiler
+        _, wall, events = profiled(lambda: ot.solve_batch(P, q, A, l, u, **kw))
+        busy = event_ms(events)
+        print(f"mpc {backend} under the profiler: wall {wall:.3f} ms, all device work {busy:.3f} ms, idle share "
+              f"{1.0 - busy / wall:.3f}; K7 {event_ms(events, K7_KERNELS):.3f} ms; by kernel: {top_kernels(events)}")
+        out[backend] = (status, iters)
+    same = np.array_equal(out["block_tridiag"][0], out["dense_inv"][0])
+    print(f"mpc: statuses of block_tridiag equal to dense_inv's {same}; iterations equal in "
+          f"{int((out['block_tridiag'][1] == out['dense_inv'][1]).sum())} of {B}")
+    require(same, "mpc: block_tridiag and dense_inv statuses differ")
+
+    g = lambda f: gold[f"MPC1/float64/{f}"]
+    r = ot.Solver(base.P, base.q, base.A, arrays[3][0], arrays[4][0], device=dev, dtype="float64",
+                  linsys_solver="block_tridiag", block_size=b, **MPC_KW).solve()
+    dx, dy = float(np.abs(r.x - g("x")[0]).max()), float(np.abs(r.y - g("y")[0]).max())
+    print(f"mpc Solver block_tridiag scenario 0 float64: {r.info.status}, {r.info.iter} iterations (golden "
+          f"{int(g('iter')[0])}), |dx|max {dx:.3e}, |dy|max {dy:.3e}; setup {r.info.setup_time * 1e3:.3f} ms, solve "
+          f"{r.info.solve_time * 1e3:.3f} ms")
+    require(r.info.status_val == int(g("status_val")[0]) and r.info.iter == int(g("iter")[0]) and dx <= 1e-6
+            and dy <= 1e-6, "mpc Solver disagrees with the JAX package's run")
+    return launches
+
+
+def phase_sparse_polish(dev):
+    """Polish on the sparse path: polish's PCG on K6 against the plain loop
+    on LISWET1's polish system; solve_sparse(polish=True) at LISWET1
+    (float64, float32), CVXQP2_L (float64) and 2 copies of LISWET1
+    against sparse_polish.npz, with the polished (or rejected) point's
+    residuals beside the ADMM point's, polish ms, PCG steps and K6
+    launches per polish; the SparseSolver's set-up, solve, update_lin_cost
+    and warm re-solve on LISWET1.  Counts are set to 0 just before the
+    LISWET1 float64 solve and read just after it."""
+    import torch
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch import _build, admm, batch
+    from osqp_tpu_torch import polish as tpolish
+    from osqp_tpu_torch.ops import cg as k6, ell as k5
+
+    # Measurement hooks: what each polish returns and the PCG steps of each
+    # of its solves, wrapping the functions batch.py and polish.py call.
+    seen = []
+    real_polish, real_solver = batch.polish_fn, tpolish._ell_kkt_solver
+
+    def polish_spy(*args, **kw):
+        torch.cuda.synchronize()
+        before, t0 = k6.launches, time.perf_counter()
+        res = real_polish(*args, **kw)
+        torch.cuda.synchronize()
+        seen.append(dict(res=res, ms=(time.perf_counter() - t0) * 1e3, k6=k6.launches - before, steps=[]))
+        return res
+
+    def solver_spy(*args):
+        solve, steps = real_solver(*args)
+        seen.append(dict(steps=steps))
+        return solve, steps
+
+    # _pcg on K6 against the plain loop, on LISWET1's first polish system
+    pcg_stats = None
+    for dtype, cap in (("float32", None), ("float64", 2000)):
+        cfg, dyn, scaled, scl, rs, fac, it = sparse_prepared("LISWET1", dtype, dev)
+        c = admm.run_segment(cfg, scaled, scl, dyn, admm.init_carry(cfg, scaled, rs, fac, it), cfg.max_iter)
+        x, z, y = c.it.x, c.it.z, c.it.y
+        B, n = x.shape
+        m = cfg.m
+        lower, upper = z - scaled.l < -y, scaled.u - z < y
+        mask = (lower | upper).to(x.dtype)
+        MA = k5.ell_scale(scaled.A, mask, torch.ones((B, n), dtype=x.dtype, device=dev))
+        rhs_z = mask * torch.where(lower, scaled.l, torch.where(upper, scaled.u, torch.zeros_like(scaled.l)))
+        d = dyn.delta if dtype == "float64" else torch.clamp(dyn.delta, min=1e-4)
+        t = (-scaled.q + k5.ell_tmatvec(MA, rhs_z.contiguous()) / d).contiguous()
+        ones = torch.ones((B, m), dtype=x.dtype, device=dev)
+        dinv = 1.0 / (k5.ell_diagonal(scaled.P) + d + k5.ell_sq_colsums(MA, ones) / d)
+        tol = torch.full((B,), 1e-12 if dtype == "float64" else 1e-7, dtype=x.dtype, device=dev)
+        max_iter = cap or tpolish.polish_cg_cap(n, m)
+        kern = lambda v: (k5.ell_matvec(scaled.P, v), k5.ell_tmatvec(MA, k5.ell_matvec(MA, v)) / d)
+        plain = lambda v: (k5.ell_matvec_plain(scaled.P, v),
+                           k5.ell_tmatvec_plain(MA, k5.ell_matvec_plain(MA, v)) / d)
+        before = k6.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xk, sk = k6.pcg_solve(kern, d, dinv, t, tol, max_iter)
+        torch.cuda.synchronize()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        launched = k6.launches - before
+        # the plain step, summing in the kernel's order, over the same (K5)
+        # products: K6 alone is compared
+        xp, sp_ = k6.pcg_solve_plain(kern, d, dinv, t, tol, max_iter, dot=k6.kernel_dot)
+        # and the CPU path's plain loop: K5's plain products, PyTorch's sums
+        xq, sq = k6.pcg_solve_plain(plain, d, dinv, t, tol, max_iter)
+
+        def residual(v):
+            u, w = plain(v)
+            return float(torch.linalg.vector_norm(u + d * v + w - t) / torch.linalg.vector_norm(t))
+
+        diff, rel = rel_err(xk, xp)
+        label = f"LISWET1 polish system n={n} m={m} (active rows {int(mask.sum())}) {dtype}, cap {max_iter}"
+        print(f"polish PCG on K6 {label}: steps {int(sk.max())} (plain step {int(sp_.max())}), equal "
+              f"{torch.equal(sk, sp_)}, x bit-identical {torch.equal(xk, xp)}, K6 launched {launched}; the CPU "
+              f"path's plain loop {int(sq.max())} steps, x relative difference {rel_err(xk, xq)[1]:.3e}; relative "
+              f"residual of S x = t {residual(xk):.3e} (CPU path's loop {residual(xq):.3e}); one solve "
+              f"{solve_ms:.3f} ms, {solve_ms / max(launched, 1):.4f} ms per launched step (with the operator's "
+              f"products)")
+        require(torch.equal(sk, sp_) and torch.equal(xk, xp), f"polish PCG differs from its plain loop at {label}")
+        if pcg_stats is None:
+            # one step's vector work alone, from the solve's start
+            xs, r_, z_, p, rz, rr, tol2 = k6._start(kern, d, dinv, t, None, tol)
+            u, v = kern(p)
+            pairs = torch.stack([rz, rz]), torch.stack([rr, rr])
+            Mp = torch.empty_like(t)
+            parts = torch.empty((3, B, _build.library().osqp_cg_parts(n)), dtype=t.dtype, device=dev)
+            steps = torch.zeros(B, dtype=torch.int32, device=dev)
+            elt = t.element_size()
+            st = report_times(f"K6 cg_step in polish's PCG {label}",
+                              lambda: k6.cg_step(p, u, v, float(d), dinv, tol2, *pairs, 0, Mp, xs, r_, z_, parts,
+                                                 steps),
+                              lambda: k6.cg_step_plain(p, u, v, d, dinv, xs, r_, rz, rr, tol2), 50,
+                              elt * B * n * 10 + 3 * elt * B, {dtype: 16 * B * n})
+            pcg_stats = dict(st, max_abs_err=diff, library_ms=None)
+
+    gold = np.load(SPARSE_POLISH_GOLDENS)
+    cases = {"LISWET1/float64": ("LISWET1", "float64", 1), "LISWET1/float32": ("LISWET1", "float32", 1),
+             "CVXQP2_L/float64": ("CVXQP2_L", "float64", 1), "LISWET1_B2/float64": ("LISWET1", "float64", 2)}
+    # x and y against the golden, relative to its largest entry: CVXQP2_L's
+    # ADMM point is held to its eps (see phase_sparse), float32 to 1e-3
+    xy_tol = {"CVXQP2_L/float64": 1e-3, "LISWET1/float32": 1e-3}
+    launches = polish_k6 = None
+    batch.polish_fn, tpolish._ell_kkt_solver = polish_spy, solver_spy
+    try:
+        for case, (name, dtype, B) in cases.items():
+            P, q, A, l, u = scenario(name, B)
+            g = lambda f: gold[f"{case}/{f}"]
+            main_path = case == "LISWET1/float64"
+            off = ot.solve_sparse(P, q, A, l, u, dtype=dtype, verbose=False)
+            seen.clear()
+            if main_path:
+                reset_counts()
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ot.solve_sparse(P, q, A, l, u, dtype=dtype, polish=True, verbose=False)
+            status, sp_status = res.status_val.cpu().numpy(), res.status_polish.cpu().numpy()
+            wall = (time.perf_counter() - t0) * 1e3
+            after = read_counts()
+            if main_path:
+                launches = after
+            pol = next(e for e in seen if "res" in e)
+            steps = [[int(k.max()) for k in e["steps"]] for e in seen if "res" not in e]
+            if main_path:
+                polish_k6 = pol["k6"]
+            iters = res.iter.cpu().numpy()
+            x, y = res.x.cpu().numpy(), res.y.cpu().numpy()
+            dx = float(np.abs(x - g("x")).max() / np.abs(g("x")).max())
+            dy = float(np.abs(y - g("y")).max() / np.abs(g("y")).max())
+            pr = pol["res"]
+            print(f"sparse_polish {case} B={B}: status {status.tolist()} (golden {g('status_val').tolist()}), iterations "
+                  f"{iters.tolist()} (golden {g('iter').tolist()}), status_polish {sp_status.tolist()} (golden "
+                  f"{g('status_polish').tolist()}); polished candidate pri_res {pr.pri_res.cpu().tolist()}, dua_res "
+                  f"{pr.dua_res.cpu().tolist()} against the ADMM point's pri_res "
+                  f"{off.pri_res.cpu().tolist()}, dua_res {off.dua_res.cpu().tolist()}; x and y within {dx:.3e} and "
+                  f"{dy:.3e} of the golden's largest entry; polish {pol['ms']:.3f} ms of a {wall:.3f} ms solve, PCG "
+                  f"steps per solve {steps}, K6 launches in the polish {pol['k6']}, launches "
+                  f"{ {k: after[k] - before[k] for k in ('ell_ops', 'cg_step')} }")
+            if f"{name}/{dtype}/host_status_polish" in gold.files and B == 1:
+                print(f"  the JAX package's B = 1 host polish gave status_polish "
+                      f"{int(gold[f'{name}/{dtype}/host_status_polish'])}")
+            require(np.array_equal(status, g("status_val")), f"sparse_polish {case}: status {status.tolist()}")
+            require(np.array_equal(sp_status, g("status_polish")), f"sparse_polish {case}: status_polish")
+            require(np.isfinite(x).all() and np.isfinite(y).all(), f"sparse_polish {case}: non-finite x or y")
+            tol = xy_tol.get(case, 1e-5)
+            if dtype == "float64" and case != "CVXQP2_L/float64":
+                require(np.array_equal(iters, g("iter")), f"sparse_polish {case}: iterations {iters.tolist()}")
+            else:
+                require(np.abs(iters - g("iter")).max() <= 25, f"sparse_polish {case}: iterations {iters.tolist()}")
+            require(dx <= tol and dy <= tol, f"sparse_polish {case} disagrees with the JAX package's run")
+            require(pol["k6"] > 0 and all(s > 0 for s in steps[0]), f"sparse_polish {case}: the PCG never ran on K6")
+    finally:
+        batch.polish_fn, tpolish._ell_kkt_solver = real_polish, real_solver
+
+    # The SparseSolver on LISWET1 (float64, polish off): set-up, solve,
+    # update_lin_cost and a warm-started re-solve.
+    P, q, A, l, u = scenario("LISWET1")
+    sparse_gold = np.load(SPARSE_GOLDENS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = ot.SparseSolver(P, q[0], A, l[0], u[0], device=dev, dtype="float64", verbose=False)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    r1 = s.solve()
+    s.update_lin_cost(1.1 * q[0])
+    r2 = s.solve()
+    cold = ot.solve_sparse(P, 1.1 * q[0], A, l[0], u[0], device=dev, dtype="float64", verbose=False)
+    dx = float(np.abs(r1.x - sparse_gold["LISWET1/float64/x"][0]).max())
+    print(f"SparseSolver LISWET1 float64: set-up {setup_ms:.3f} ms; solve {r1.info.status}, {r1.info.iter} iterations "
+          f"(golden {int(sparse_gold['LISWET1/float64/iter'][0])}), {r1.info.solve_time * 1e3:.3f} ms, |dx|max "
+          f"{dx:.3e}; after update_lin_cost a warm re-solve {r2.info.status}, {r2.info.iter} iterations "
+          f"({r2.info.solve_time * 1e3:.3f} ms) where a cold solve takes {int(cold.iter[0])}")
+    require(r1.info.status_val == ot.OSQP_SOLVED and r1.info.iter == int(sparse_gold["LISWET1/float64/iter"][0])
+            and dx <= 1e-5 * np.abs(sparse_gold["LISWET1/float64/x"]).max(), "SparseSolver LISWET1: first solve")
+    require(r2.info.status_val == ot.OSQP_SOLVED and np.abs(r2.x - cold.x.cpu().numpy()[0]).max() <= 1e-2,
+            "SparseSolver LISWET1: the warm re-solve")
+    return launches, polish_k6, pcg_stats
+
+
 def main() -> int:
     import torch
 
@@ -1701,13 +2136,19 @@ def main() -> int:
     k6_stats = phase_k6(dev)
     sparse_launches = phase_sparse(dev)
     phase_cg_dense(dev)
+    k7_factor_stats, k7_solve_stats = phase_k7(dev)
+    mpc_launches = phase_mpc(dev)
+    polish_launches_sparse, polish_k6, pcg_stats = phase_sparse_polish(dev)
 
     # launches: the batched headline solve's, and for K1r, which that
     # well-conditioned batch does not run, the Solver path's (its times:
     # CVXQP2_M in float32, where the Solver runs it; the others' at the
     # headline shape); for K8 the headline solve's with polish on; for K5
     # and K6 the sparse path's CVXQP2_L solve (their times: A x and one
-    # step at CVXQP2_L in float64).
+    # step at CVXQP2_L in float64); for K7 the MPC cell's block_tridiag
+    # solve (times at the MPC cell, B=1000, float32); for K6 in polish's
+    # PCG the K6 launches of LISWET1's float64 polish (time: one step on
+    # LISWET1's float32 polish system).
     kernels = [
         dict(name="admm_iter", route="cuda", source="osqp_tpu_torch/csrc/admm_iter.cu",
              replaces="osqp_tpu/linsys/dense_inv.py:164", launches=launches["admm_iter"], **k1_stats),
@@ -1730,6 +2171,13 @@ def main() -> int:
              replaces="osqp_tpu/sparse_ops.py:120", launches=sparse_launches["ell_ops"], **k5_stats),
         dict(name="cg_step", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",
              replaces="osqp_tpu/linsys/cg.py:129", launches=sparse_launches["cg_step"], **k6_stats),
+        dict(name="cg_step_polish_pcg", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",
+             replaces="osqp_tpu/polish.py:65", launches=polish_k6,
+             launches_solve=polish_launches_sparse["cg_step"], **pcg_stats),
+        dict(name="k7_factor", route="cuda", source="osqp_tpu_torch/csrc/block_tridiag.cu",
+             replaces="osqp_tpu/linsys/block_tridiag.py:133", launches=mpc_launches["bt_factor"], **k7_factor_stats),
+        dict(name="k7_solve", route="cuda", source="osqp_tpu_torch/csrc/block_tridiag.cu",
+             replaces="osqp_tpu/linsys/block_tridiag.py:180", launches=mpc_launches["bt_solve"], **k7_solve_stats),
     ]
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

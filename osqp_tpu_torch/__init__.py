@@ -16,7 +16,9 @@ hand-written CUDA kernels (``osqp_tpu_torch/csrc``):
 * the row-gather products of sparse ELL operands
   (:mod:`osqp_tpu_torch.ops.ell`),
 * the batched preconditioned conjugate gradient of the ``cg`` backend
-  (:mod:`osqp_tpu_torch.ops.cg`).
+  and of polish on sparse operands (:mod:`osqp_tpu_torch.ops.cg`),
+* the block-tridiagonal Cholesky recursion and its solve, for the
+  ``block_tridiag`` backend (:mod:`osqp_tpu_torch.ops.block_tridiag`).
 
 Each has a plain PyTorch version beside it, which serves CPU tensors.
 A CUDA tensor always goes through the kernel.  The package imports
@@ -26,9 +28,12 @@ tests hold this package against.
 Entry points: the stateful :class:`Solver` (alias :data:`OSQP`), OSQP's
 own API, and :func:`solve_batch` for B same-shape problems; both polish
 with ``polish=True`` and take ``linsys_solver`` ``"dense_inv"``,
-``"dense_chol"``, ``"kkt_lu"`` or ``"cg"``.  :func:`solve_sparse` solves
-scipy-sparse problems (or scenario batches sharing their pattern) on
-ELL operands without densifying them, through ``cg``.
+``"dense_chol"``, ``"kkt_lu"``, ``"cg"`` or ``"block_tridiag"`` (with
+``block_size``, for stage-ordered problems such as
+:func:`osqp_tpu_torch.models.build_mpc_qp`'s).  :func:`solve_sparse`
+solves scipy-sparse problems (or scenario batches sharing their pattern)
+on ELL operands without densifying them, through ``cg``, and
+:class:`SparseSolver` is the stateful solver over them.
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ from .constants import (  # noqa: E402
     ErrorCode,
     OSQPError,
 )
-from .large import solve_sparse  # noqa: E402
+from .large import SparseSolver, solve_sparse  # noqa: E402
 from .solver import OSQP, Info, Results, Settings, Solver  # noqa: E402
 from .types import DynSettings, QPData, ScalingData, StaticConfig  # noqa: E402
 
@@ -80,6 +85,7 @@ __all__ = [
     "Results",
     "solve_batch",
     "solve_sparse",
+    "SparseSolver",
     "BatchSolveResults",
     "Settings",
     "QPData",

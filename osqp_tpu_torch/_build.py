@@ -55,6 +55,8 @@ _SIGNATURES = {
     "osqp_ell_scale": (_I,) + (_P,) * 9 + (_I,) * 5 + (_P,),
     "osqp_cg_parts": (_I,),
     "osqp_cg_step": (_I,) + (_P,) * 15 + (_D, _I, _I, _P),
+    "osqp_bt_factor": (_I, _P, _P, _P, _I, _I, _I, _P),
+    "osqp_bt_solve": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -4,7 +4,8 @@ B problems of one shape (n, m) are solved together: every operation is
 batched over the leading axis, finished instances are frozen by masked
 selects, and statuses, iteration counts, residuals and certificates are
 per instance.  The pipeline is Ruiz scaling, rho classification,
-factorization (K2), the ADMM loop (K1), optional polish (K8, K3), then
+factorization (K2 for ``dense_inv``, K7 for ``block_tridiag``), the ADMM
+loop (K1, or the backend's solve), optional polish (K8, K3), then
 unscaling and certificate normalization.
 
 The host drives the loop in segments so that it can poll the clock for
@@ -28,6 +29,7 @@ from . import constants as con
 from . import linsys as linsys_registry
 from .admm import set_rho_state
 from .linalg import bwhere, mat_vec, norm_inf
+from .linsys import block_tridiag
 from .polish import polish as polish_fn
 from .scaling import scale_data, unscale_solution
 from .solver import Settings, make_config, reject_time_based_rho, resolve_device, torch_dtype, validate_settings
@@ -243,6 +245,8 @@ def solve_batch(
     u = torch.clamp(as_t(u), -con.OSQP_INFTY, con.OSQP_INFTY)
 
     cfg = make_config(n, m, s, dtype)
+    if s.linsys_solver == "block_tridiag":
+        block_tridiag.validate_structure(P, A, s.block_size)
     dyn = DynSettings.make(
         dtype,
         sigma=s.sigma,

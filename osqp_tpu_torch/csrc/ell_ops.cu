@@ -19,10 +19,9 @@
 //
 // Padded slots hold val = 0, idx = 0, so they add 0 to each sum and to each
 // non-negative maximum, as the JAX reductions have them: nothing masks by
-// count.  Sums run in slot order, each product and sum rounded on its own
-// (no fused multiply-add), so the result is the plain version's up to the
-// order in which PyTorch sums the k slots; maxima and the diagonal match it
-// exactly.
+// count.  Sums run in slot order from 0, each product and sum rounded on
+// its own (no fused multiply-add), as the plain versions in ops/ell.py sum
+// them, so kernel and plain version agree bit for bit.
 //
 // What bounds it on the H100: latency and launch overhead.  k is the
 // largest row count (1-9 on the Maros-Meszaros problems of the sparse

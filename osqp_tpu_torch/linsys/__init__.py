@@ -7,25 +7,27 @@ returning a factor (a dict of tensors) and
 ``(x_tilde, z_tilde)``; ``x0``, the previous iterate, warm-starts the
 iterative ``cg`` and is ignored by the direct backends.  ``dense_inv``
 also brings its own fused loop bodies (K1, K1r); ``dense_chol``,
-``kkt_lu`` and ``cg`` run the generic body of
+``kkt_lu``, ``cg`` and ``block_tridiag`` run the generic body of
 :func:`osqp_tpu_torch.admm.run_segment` over their ``solve``, and ``cg``
-retunes its inner tolerance at each check (``update_tolerance``).  The
-reference names ``qdldl`` and ``mkl pardiso`` map onto ``dense_inv`` and
-``kkt_lu``, as in the JAX package.  ``block_tridiag`` is not ported yet
-and raises ``NotImplementedError`` naming its ROADMAP item.
+retunes its inner tolerance at each check (``update_tolerance``).
+``block_tridiag`` takes the ``block_size`` setting (K7).  The reference
+names ``qdldl`` and ``mkl pardiso`` map onto ``dense_inv`` and
+``kkt_lu``, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from . import cg, dense_chol, dense_inv, kkt_lu
+from . import block_tridiag, cg, dense_chol, dense_inv, kkt_lu
 
-_REGISTRY = {"dense_inv": dense_inv, "dense_chol": dense_chol, "kkt_lu": kkt_lu, "cg": cg}
+_REGISTRY = {
+    "dense_inv": dense_inv,
+    "dense_chol": dense_chol,
+    "kkt_lu": kkt_lu,
+    "cg": cg,
+    "block_tridiag": block_tridiag,
+}
 
 _ALIASES = {"qdldl": "dense_inv", "mkl pardiso": "kkt_lu"}
-
-_NOT_PORTED = {
-    "block_tridiag": "ROADMAP queue 1, item 11",
-}
 
 
 def available() -> list[str]:
@@ -35,10 +37,6 @@ def available() -> list[str]:
 def get(name: str):
     """Factory: init_linsys_solver (lin_sys.c:56-75)."""
     key = _ALIASES.get(str(name).lower(), str(name).lower())
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"linsys solver {name!r} is not ported to osqp_tpu_torch yet ({_NOT_PORTED[key]})"
-        )
     if key not in _REGISTRY:
         raise KeyError(f"unknown linsys solver {name!r}; available: {available()}")
     return _REGISTRY[key]

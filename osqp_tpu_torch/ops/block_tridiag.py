@@ -1,0 +1,189 @@
+"""K7: the block-tridiagonal Cholesky factorization and its solve
+(counterpart of ``osqp_tpu/linsys/block_tridiag.py:133-228``, ``init``,
+``_tsolve`` and ``solve``).
+
+For a stage-ordered problem (MPC) with Nb stages of b variables, the
+reduced KKT matrix M (B, Nb b, Nb b) is block tridiagonal.  With D_i its
+diagonal blocks and O_i = M[block i, block i-1]:
+
+    C_0 = chol(D_0),  G_i = O_i C_{i-1}^-T,  C_i = chol(D_i - G_i G_i')
+
+and M x = r is solved by y_i = C_i^-1 (r_i - G_i y_{i-1}) over the
+stages, then x_i = C_i^-T (y_i - G_{i+1}' x_{i+1}) back over them.
+
+:func:`bt_factor` and :func:`bt_solve` are the kernels' wrappers: for
+CUDA tensors they launch ``csrc/block_tridiag.cu`` (one block per
+instance walking the stages); for CPU tensors they run
+:func:`bt_factor_plain` and :func:`bt_solve_plain`, the same functions
+in plain PyTorch, written in the kernel's order (triangular solves by
+columns, the Cholesky right-looking column by column, every product and
+sum rounded on its own), so that the two agree bit for bit.  A stage
+that is not positive definite gives NaN in the whole lower triangle of
+its factor block, as ``jnp.linalg.cholesky`` does, and nothing raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import _build
+
+launches_factor = 0
+launches_solve = 0
+
+
+def max_block(dtype: torch.dtype) -> int:
+    """Largest block size b whose 3 b^2 values fit one block's shared
+    memory: 139 in float32, 98 in float64."""
+    values = _build.SMEM_BYTES // torch.empty((), dtype=dtype).element_size()
+    return math.isqrt(values // 3)
+
+
+def band_blocks(M: torch.Tensor, b: int):
+    """Views of the diagonal blocks D (B, Nb, b, b) and the sub-diagonal
+    blocks O (B, Nb-1, b, b), O[:, i-1] = M[block i, block i-1]."""
+    B, n, _ = M.shape
+    Nb = n // b
+    Mb = M.reshape(B, Nb, b, Nb, b)
+    D = torch.diagonal(Mb, offset=0, dim1=1, dim2=3).permute(0, 3, 1, 2)
+    O = torch.diagonal(Mb, offset=-1, dim1=1, dim2=3).permute(0, 3, 1, 2)
+    return D, O
+
+
+def _validate_factor(M: torch.Tensor, b: int) -> None:
+    if M.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"bt_factor takes float32 or float64, not {M.dtype}")
+    if M.ndim != 3 or M.shape[1] != M.shape[2] or M.shape[1] == 0:
+        raise ValueError(f"bt_factor takes a (B, n, n) batch with n >= 1, not {tuple(M.shape)}")
+    n = M.shape[1]
+    if b <= 0 or n % b:
+        raise ValueError(f"bt_factor needs a block size dividing n: block_size={b}, n={n}")
+
+
+def bt_factor(M: torch.Tensor, b: int):
+    """(C, G) of each matrix of the batch: C (B, Nb, b, b) the stages'
+    lower Cholesky factors (zeros above the diagonal), G (B, Nb-1, b, b)
+    the coupling blocks.  Only the band blocks of M are read."""
+    global launches_factor
+    _validate_factor(M, b)
+    if M.device.type == "cpu":
+        return bt_factor_plain(M, b)
+    if M.device.type != "cuda":
+        raise ValueError(f"bt_factor runs on CPU or CUDA tensors, not {M.device}")
+    if not M.is_contiguous():
+        raise ValueError("bt_factor takes a contiguous tensor")
+    if b > max_block(M.dtype):
+        raise ValueError(
+            f"bt_factor holds three b x b blocks in shared memory: b <= {max_block(M.dtype)} in {M.dtype}, "
+            f"got block_size = {b}"
+        )
+    B, n, _ = M.shape
+    Nb = n // b
+    C = torch.empty((B, Nb, b, b), dtype=M.dtype, device=M.device)
+    G = torch.empty((B, Nb - 1, b, b), dtype=M.dtype, device=M.device)
+    lib = _build.library()
+    with torch.cuda.device(M.device):
+        code = lib.osqp_bt_factor(_build.dtype_code(M.dtype), M.data_ptr(), C.data_ptr(), G.data_ptr(), B, b, Nb,
+                                  _build.stream())
+    _build.check(code, "bt_factor")
+    launches_factor += 1
+    return C, G
+
+
+def _validate_solve(C, G, r) -> None:
+    if C.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"bt_solve takes float32 or float64, not {C.dtype}")
+    if C.ndim != 4 or C.shape[2] != C.shape[3] or C.shape[1] == 0 or C.shape[2] == 0:
+        raise ValueError(f"bt_solve takes C of shape (B, Nb, b, b), not {tuple(C.shape)}")
+    B, Nb, b, _ = C.shape
+    if tuple(G.shape) != (B, Nb - 1, b, b) or G.dtype != C.dtype:
+        raise ValueError(f"bt_solve takes G ({B}, {Nb - 1}, {b}, {b}) {C.dtype}, not {tuple(G.shape)} {G.dtype}")
+    if tuple(r.shape) != (B, Nb * b) or r.dtype != C.dtype:
+        raise ValueError(f"bt_solve takes r ({B}, {Nb * b}) {C.dtype}, not {tuple(r.shape)} {r.dtype}")
+    if G.device != C.device or r.device != C.device:
+        raise ValueError(f"bt_solve: C on {C.device}, G on {G.device}, r on {r.device}")
+
+
+def bt_solve(C: torch.Tensor, G: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """x = M^-1 r with the factors of :func:`bt_factor`; r and x (B, n)."""
+    global launches_solve
+    _validate_solve(C, G, r)
+    if C.device.type == "cpu":
+        return bt_solve_plain(C, G, r)
+    if C.device.type != "cuda":
+        raise ValueError(f"bt_solve runs on CPU or CUDA tensors, not {C.device}")
+    if not (C.is_contiguous() and G.is_contiguous() and r.is_contiguous()):
+        raise ValueError("bt_solve takes contiguous tensors")
+    B, Nb, b, _ = C.shape
+    x = torch.empty_like(r)
+    lib = _build.library()
+    with torch.cuda.device(C.device):
+        code = lib.osqp_bt_solve(_build.dtype_code(C.dtype), C.data_ptr(), G.data_ptr(), r.data_ptr(), x.data_ptr(),
+                                 B, b, Nb, _build.stream())
+    _build.check(code, "bt_solve")
+    launches_solve += 1
+    return x
+
+
+def bt_factor_plain(M: torch.Tensor, b: int):
+    """Plain PyTorch version of :func:`bt_factor`, stage by stage."""
+    D, O = band_blocks(M, b)
+    B, Nb = D.shape[:2]
+    C = torch.empty((B, Nb, b, b), dtype=M.dtype, device=M.device)
+    G = torch.empty((B, Nb - 1, b, b), dtype=M.dtype, device=M.device)
+    for i in range(Nb):
+        S = D[:, i].clone()
+        if i > 0:
+            # G_i = O_i C_{i-1}^-T by columns
+            Cp, W = C[:, i - 1], O[:, i - 1].clone()
+            for j in range(b):
+                W[:, :, j] = W[:, :, j] / Cp[:, j, j, None]
+                if j + 1 < b:
+                    W[:, :, j + 1:] = W[:, :, j + 1:] - W[:, :, j, None] * Cp[:, None, j + 1:, j]
+            G[:, i - 1] = W
+            for t in range(b):
+                S = S - W[:, :, t, None] * W[:, None, :, t]
+        bad = torch.zeros(B, dtype=torch.bool, device=M.device)
+        for j in range(b):
+            piv = S[:, j, j].clone()
+            d = torch.sqrt(piv)
+            bad |= ~(piv > 0)
+            S[:, j + 1:, j] = S[:, j + 1:, j] / d[:, None]
+            S[:, j, j] = d
+            S[:, j + 1:, j + 1:] = S[:, j + 1:, j + 1:] - S[:, j + 1:, j, None] * S[:, None, j + 1:, j]
+        C[:, i] = torch.tril(torch.where(bad[:, None, None], float("nan"), S))
+    return C, G
+
+
+def bt_solve_plain(C: torch.Tensor, G: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bt_solve`: forward, then backward
+    block substitution, each triangular solve by columns."""
+    B, Nb, b, _ = C.shape
+    x = torch.empty_like(r)
+    for i in range(Nb):
+        v = r[:, i * b:(i + 1) * b].clone()
+        if i > 0:
+            yp = x[:, (i - 1) * b:i * b]
+            for t in range(b):
+                v = v - G[:, i - 1, :, t] * yp[:, t, None]
+        c = C[:, i]
+        for j in range(b):
+            yj = v[:, j] / c[:, j, j]
+            x[:, i * b + j] = yj
+            if j + 1 < b:
+                v[:, j + 1:] = v[:, j + 1:] - c[:, j + 1:, j] * yj[:, None]
+    for i in reversed(range(Nb)):
+        v = x[:, i * b:(i + 1) * b].clone()
+        if i < Nb - 1:
+            xn = x[:, (i + 1) * b:(i + 2) * b]
+            for t in range(b):
+                v = v - G[:, i, t, :] * xn[:, t, None]
+        c = C[:, i]
+        for j in reversed(range(b)):
+            xj = v[:, j] / c[:, j, j]
+            x[:, i * b + j] = xj
+            if j > 0:
+                v[:, :j] = v[:, :j] - c[:, j, :j] * xj[:, None]
+    return x

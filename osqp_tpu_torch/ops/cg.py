@@ -1,12 +1,17 @@
 """K6: the batched Jacobi-preconditioned conjugate gradient of the ``cg``
-backend (counterpart of the loop of ``osqp_tpu/linsys/cg.py:122-169``).
+backend and of polish on ELL operands (counterpart of the loop of
+``osqp_tpu/linsys/cg.py:122-169`` and of ``osqp_tpu/polish.py:_pcg``,
+``:65-102``).
 
-:func:`cg_solve` solves (P + sigma I + A' diag(rho) A) x = b for every
-instance, warm-started from ``x0``, to the relative tolerance ``tol_rel``
-(B,) or ``max_iter`` steps.  An instance whose r'r is at or below its
-tolerance is frozen (alpha = 0), so its x stops changing bit for bit.
-The operator's products are K5 launches on ELL operands and batched
-GEMVs on dense ones.
+:func:`pcg_solve` solves M x = b for every instance, from ``x0`` (zeros
+when None), to the relative tolerance ``tol_rel`` (B,) or ``max_iter``
+steps, where M p = P p + sigma p + V p and ``products(p)`` returns
+(P p, V p); V p is None where V is 0.  An instance whose r'r is at or
+below its tolerance is frozen (alpha = 0), so its x stops changing bit
+for bit.  :func:`cg_solve` is the ``cg`` backend's case,
+M = P + sigma I + A' diag(rho) A, whose products are K5 launches on ELL
+operands and batched GEMVs on dense ones; polish passes its own
+operator (``osqp_tpu_torch.polish``).
 
 For CUDA tensors each step's vector work is one call of the kernels in
 ``csrc/cg.cu`` (:func:`cg_step`, counted in ``launches``), and the host
@@ -14,9 +19,16 @@ tests "is any instance still live" once per :data:`CHUNK` steps, each
 chunk clipped to the steps left below ``max_iter``.  A step taken after
 every instance has converged has alpha = 0 everywhere and leaves x
 unchanged, so the result equals that of the JAX loop, which tests at
-every step.  For CPU tensors :func:`cg_solve_plain` runs the same loop
+every step.  For CPU tensors :func:`pcg_solve_plain` runs the same loop
 in plain PyTorch, testing at every step (or, with ``chunk``, as the
-kernel path does).
+kernel path does).  With ``dot=kernel_dot`` it sums its inner products
+in the kernel's order, so that over the same products the kernel and the
+plain loop take the same steps to the same bits: the reference the
+card's tests hold K6 to.  By default it sums as PyTorch does, the order
+the CPU path's parity with the JAX package was set on: the CG is
+inexact, and the ADMM point moves with the rounding of its sums (by
+2e-6 in y at CVXQP2_S in float64 under the kernel's order, past the 1e-6
+those tests hold).
 
 Both return ``(x, steps)``: ``steps`` (B,) int32 counts the steps in
 which each instance was live, so its maximum is the JAX loop's count.
@@ -33,6 +45,10 @@ from . import ell
 
 # Steps between two host reads of the stop test.
 CHUNK = 8
+# The kernel's block size and its cap on the blocks of one instance
+# (csrc/cg.cu: kThreads, kMaxParts), which fix the order of its sums.
+_THREADS = 256
+_MAX_PARTS = 64
 
 launches = 0
 
@@ -59,13 +75,17 @@ def _operator(P, A, rho_vec, plain: bool):
 
 def _start(products, sigma, dinv, b, x0, tol_rel):
     """x, r = b - M x, z = dinv r, p = z, rz, r'r and the squared
-    tolerance max((tol_rel |b|)^2, 1e-30)."""
-    x = x0.clone() if x0 is not None else torch.zeros_like(b)
-    u, v = products(x)
-    Mx = u + sigma * x
-    if v is not None:
-        Mx = Mx + v
-    r = b - Mx
+    tolerance max((tol_rel |b|)^2, 1e-30).  From x0 = None, x = 0 and
+    r = b, with no product."""
+    if x0 is None:
+        x, r = torch.zeros_like(b), b.clone()
+    else:
+        x = x0.clone()
+        u, v = products(x)
+        Mx = u + sigma * x
+        if v is not None:
+            Mx = Mx + v
+        r = b - Mx
     z = dinv * r
     tol = tol_rel * torch.linalg.vector_norm(b, dim=-1)
     tol2 = torch.clamp(tol * tol, min=1e-30)
@@ -96,13 +116,20 @@ def cg_solve(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter: int):
     None); returns ``(x, steps)``.  ``sigma`` is a number or a 0-d host
     tensor; P and A are both dense or both ELL."""
     _validate(P, A, rho_vec, dinv, b, x0, tol_rel)
+    return pcg_solve(_operator(P, A, rho_vec, plain=b.device.type == "cpu"), sigma, dinv, b, tol_rel, max_iter, x0)
+
+
+def pcg_solve(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None):
+    """PCG on M p = P p + sigma p + V p with ``products(p)`` = (P p, V p)
+    from ``x0`` (zeros when None); returns ``(x, steps)``.  Each step's
+    vector work is a K6 launch on a CUDA ``b``, the plain loop on a CPU
+    one."""
     if b.device.type == "cpu":
-        return cg_solve_plain(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter)
+        return pcg_solve_plain(products, sigma, dinv, b, tol_rel, max_iter, x0)
     if b.device.type != "cuda":
         raise ValueError(f"cg_solve runs on CPU or CUDA tensors, not {b.device}")
-    if not all(t.is_contiguous() for t in (b, dinv, rho_vec, tol_rel) + ((x0,) if x0 is not None else ())):
+    if not all(t.is_contiguous() for t in (b, dinv, tol_rel) + ((x0,) if x0 is not None else ())):
         raise ValueError("cg_solve takes contiguous tensors")
-    products = _operator(P, A, rho_vec, plain=False)
     x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel)
     B, n = b.shape
     sigma = float(sigma)
@@ -142,34 +169,80 @@ def cg_step(p, u, v, sigma, dinv, tol2, rz_pair, rr_pair, cur, Mp, x, r, z, part
     launches += 1
 
 
-def cg_solve_plain(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter: int, chunk: int = 1):
-    """Plain PyTorch version of :func:`cg_solve`.  The stop test runs
+def cg_solve_plain(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter: int, chunk: int = 1, dot=vec_dot):
+    """Plain PyTorch version of :func:`cg_solve`: :func:`pcg_solve_plain`
+    over K5's plain products."""
+    return pcg_solve_plain(_operator(P, A, rho_vec, plain=True), sigma, dinv, b, tol_rel, max_iter, x0, chunk, dot)
+
+
+def pcg_solve_plain(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None, chunk: int = 1, dot=vec_dot):
+    """Plain PyTorch version of :func:`pcg_solve`.  The stop test runs
     before every ``chunk``-th step (every step by default, as the JAX
-    loop has it; ``chunk=CHUNK`` as the kernel path has it)."""
-    products = _operator(P, A, rho_vec, plain=True)
+    loops have it; ``chunk=CHUNK`` as the kernel path has it); ``dot``
+    sums the inner products (:func:`kernel_dot`: in the kernel's order)."""
     x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel)
     steps = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
     for k in range(int(max_iter)):
         if k % chunk == 0 and not bool((rr > tol2).any()):
             break
         steps += (rr > tol2).to(torch.int32)
-        x, r, z, p, rz, rr = cg_step_plain(p, *products(p), sigma, dinv, x, r, rz, rr, tol2)
+        x, r, z, p, rz, rr = cg_step_plain(p, *products(p), sigma, dinv, x, r, rz, rr, tol2, dot)
     return x, steps
 
 
-def cg_step_plain(p, u, v, sigma, dinv, x, r, rz, rr, tol2):
+def parts_of(n: int) -> int:
+    """Blocks over which the kernel cuts one instance of n variables."""
+    return min(max(-(-n // _THREADS), 1), _MAX_PARTS)
+
+
+def _lane0_of_butterfly(v: torch.Tensor) -> torch.Tensor:
+    """(..., 32) -> (...,): lane 0's value after a warp's xor butterfly
+    of sums, each lane adding its partner's value at offsets 16..1."""
+    lanes = torch.arange(32, device=v.device)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ off]
+    return v[..., 0]
+
+
+def _block_sum(v: torch.Tensor) -> torch.Tensor:
+    """(..., 256) -> (...,): the kernel's block_sum, a butterfly in each
+    warp and then over the warps' sums."""
+    w = _lane0_of_butterfly(v.reshape(v.shape[:-1] + (_THREADS // 32, 32)))
+    return _lane0_of_butterfly(torch.cat([w, w.new_zeros(w.shape[:-1] + (32 - w.shape[-1],))], -1))
+
+
+def kernel_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched inner product (B, n) x (B, n) -> (B,), summed in the order
+    of csrc/cg.cu: each thread adds its products in a grid-stride loop,
+    each block sums its threads, and the blocks' partials are summed in a
+    fixed order.  Each product and sum is rounded on its own."""
+    B, n = a.shape
+    parts = parts_of(n)
+    stride = parts * _THREADS
+    steps = -(-n // stride)
+    prod = torch.nn.functional.pad(a * b, (0, steps * stride - n)).reshape(B, steps, parts, _THREADS)
+    acc = torch.zeros((B, parts, _THREADS), dtype=a.dtype, device=a.device)
+    for k in range(steps):
+        acc = acc + prod[:, k]
+    partials = _block_sum(acc)
+    return _block_sum(torch.nn.functional.pad(partials, (0, _THREADS - parts)))
+
+
+def cg_step_plain(p, u, v, sigma, dinv, x, r, rz, rr, tol2, dot=vec_dot):
     """Plain PyTorch version of one K6 step (:func:`cg_step`): from the
     direction ``p`` and its products ``u`` = P p and ``v`` = A'(rho A p)
-    (None without constraints), returns the next (x, r, z, p, rz, r'r)."""
+    (None without constraints), returns the next (x, r, z, p, rz, r'r).
+    With ``dot=kernel_dot`` its inner products are summed in the kernel's
+    order, and from the same products the two give the same bits."""
     Mp = u + sigma * p
     if v is not None:
         Mp = Mp + v
-    denom = vec_dot(p, Mp)
+    denom = dot(p, Mp)
     alpha = rz / torch.where(denom > 0, denom, torch.ones_like(denom))
     alpha = torch.where(rr > tol2, alpha, torch.zeros_like(alpha))[:, None]
     x = x + alpha * p
     r = r - alpha * Mp
     z = dinv * r
-    rz_new = vec_dot(r, z)
+    rz_new = dot(r, z)
     beta = (rz_new / torch.where(rz > 0, rz, torch.ones_like(rz)))[:, None]
-    return x, r, z, z + beta * p, rz_new, vec_dot(r, r)
+    return x, r, z, z + beta * p, rz_new, dot(r, r)

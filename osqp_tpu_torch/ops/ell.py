@@ -5,10 +5,12 @@ Each public function is the kernel's wrapper: for CUDA operands it
 launches ``csrc/ell_ops.cu`` (one templated row-gather kernel for the
 reductions, one elementwise kernel for :func:`ell_scale`); for CPU
 operands it runs its ``_plain`` twin, the same function in plain
-PyTorch (a gather and a reduction over the slot axis, as the JAX
-package writes it).  The kernel takes contiguous values and raises on
-anything else: values broadcast over the batch are made contiguous once
-at set-up (:meth:`ELLMatrix.contiguous`), never here.
+PyTorch: a gather, then the sum over the slot axis taken in slot order,
+as the kernel takes it, so that the two agree bit for bit (the JAX
+package writes the same gather and reduction).  The kernel takes
+contiguous values and raises on anything else: values broadcast over the
+batch are made contiguous once at set-up (:meth:`ELLMatrix.contiguous`),
+never here.
 
 Operands with no rows or no columns take the short cuts of the JAX
 package: an empty product is zeros, and nothing is launched.
@@ -205,13 +207,22 @@ def ell_scale(A: ELLMatrix, row_s: torch.Tensor, col_s: torch.Tensor, c: torch.T
 # ---------------------------------------------------------------------------
 # Plain versions (an operand with no rows or columns gathers zeros: _take)
 # ---------------------------------------------------------------------------
+def _slot_sum(v: torch.Tensor) -> torch.Tensor:
+    """(B, R, k) -> (B, R): the sum over the slots in slot order, from 0,
+    as the kernel's thread adds them, so that the two agree bit for bit."""
+    acc = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    for s in range(v.shape[-1]):
+        acc = acc + v[..., s]
+    return acc
+
+
 def ell_matvec_plain(A: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
-    return (A.val * _take(x, A.idx)).sum(-1)
+    return _slot_sum(A.val * _take(x, A.idx))
 
 
 def ell_tmatvec_plain(A: ELLMatrix, y: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
     g = y if w is None else w * y
-    return (A.t_val * _take(g, A.t_idx)).sum(-1)
+    return _slot_sum(A.t_val * _take(g, A.t_idx))
 
 
 def ell_diagonal_plain(P: ELLMatrix) -> torch.Tensor:
@@ -220,7 +231,7 @@ def ell_diagonal_plain(P: ELLMatrix) -> torch.Tensor:
 
 
 def ell_sq_colsums_plain(A: ELLMatrix, w: torch.Tensor) -> torch.Tensor:
-    return (A.t_val * A.t_val * _take(w, A.t_idx)).sum(-1)
+    return _slot_sum(A.t_val * A.t_val * _take(w, A.t_idx))
 
 
 def ell_row_norms_plain(A: ELLMatrix, col_w: torch.Tensor) -> torch.Tensor:

@@ -16,38 +16,53 @@ equation ``-delta nu_i = 0``, and its zero column leaves x untouched.
 Iterative refinement (polish.c:134-181) targets the unregularized masked
 KKT ``[P, (MA)'; MA, 0]``.
 
-K_delta is factored by K8's partially pivoted LU
-(:mod:`osqp_tpu_torch.ops.kkt_lu`) at every KKT dimension, in float32
-and float64, at the reference delta.  The products of a refinement step
-and of every evaluated point go through K3
-(:mod:`osqp_tpu_torch.ops.term_products`).
+On dense operands K_delta is factored by K8's partially pivoted LU
+(:mod:`osqp_tpu_torch.ops.kkt_lu`) at every KKT dimension, in float32 and
+float64, at the reference delta, and the products of a refinement step
+go through K3 (:mod:`osqp_tpu_torch.ops.term_products`).
 
-Not carried over from the JAX package, each for its reason:
+On ELL operands (``solve_sparse``, ``SparseSolver``) K_delta is
+block-eliminated, as in the JAX package, to
 
-* the switch to a Schur-complement solve above KKT dimension 2048 and
-  the rule that keeps float64 LU off the accelerator: both exist because
-  the TPU's batched-LU call serialises, exceeds its fast memory and has no
-  float64 form; K8 takes any N in both dtypes;
-* the Schur branch itself, with its clamp of delta to 1e-4, and
-  ``prefer_schur``, which the ``cg`` backend sets (ROADMAP queue 1,
-  items 11-12);
-* sparse (ELL) operands with their matrix-free PCG and its
-  ``OSQP_TPU_POLISH_CG_CAP`` variable (item 12).
+    S sx = r_x + (1/d) (MA)' r_z,   snu = ((MA) sx - r_z) / d,
+    S = P + d I + (1/d) (MA)'(MA),
+
+and S, never formed, is solved by Jacobi-preconditioned CG from zero
+(:func:`osqp_tpu_torch.ops.cg.pcg_solve`: K6 for the step, K5 for the
+products) to a relative tolerance of 1e-12 (float64) or 1e-7 (float32),
+at most min(4 (n + m), 40000) steps or ``OSQP_TPU_POLISH_CG_CAP``.  The
+rows are masked by scaling them (K5's scale kernel), and every product
+goes through the linalg dispatch, which is K5 there.  In float32 d is
+max(delta, 1e-4): S squares the conditioning of K_delta, and at the
+reference delta a float32 S cannot be solved.  A sparse polish runs one
+active-set pass by default.
+
+Not carried over from the JAX package, each for its reason: the switch
+of dense operands to a Schur-complement solve above KKT dimension 2048,
+with its clamp of delta, ``prefer_schur``, which the ``cg`` backend
+sets, and the rule that keeps float64 LU off the accelerator.  All
+three exist because the TPU's batched-LU call serialises, exceeds its
+fast memory and has no float64 form; K8 takes any N in both dtypes.
 
 The passes and refinement steps are Python loops that enqueue device
-work and never read it back; the caller reads ``success`` once.
+work; only the CG's stop test (once per K6 chunk) and the caller's read
+of ``success`` wait on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import torch
 
-from .linalg import bwhere, mat_vec, vec_dot
+from .linalg import bwhere, mat_tvec, mat_vec, vec_dot
 from .linsys import kkt_lu
+from .ops.cg import pcg_solve
+from .ops.ell import ell_diagonal, ell_scale, ell_sq_colsums
 from .ops.term_products import term_products
+from .sparse_ops import ELLMatrix
 from .termination import compute_products, residual_norms
 from .types import DynSettings, QPData, ScalingData, StaticConfig
 
@@ -62,16 +77,53 @@ class PolishResult(NamedTuple):
     dua_res: torch.Tensor  # (B,)
 
 
+def _cast_leaf(v, dtype: torch.dtype):
+    if isinstance(v, ELLMatrix):
+        return dataclasses.replace(v, val=v.val.to(dtype), t_val=v.t_val.to(dtype))
+    return v.to(dtype) if v.is_floating_point() else v
+
+
 def _cast(obj, dtype: torch.dtype):
-    """A dataclass of tensors with its floating fields cast to ``dtype``."""
+    """A dataclass of tensors (or ELL operands) with its floating fields
+    cast to ``dtype``."""
     return dataclasses.replace(
-        obj,
-        **{
-            f.name: getattr(obj, f.name).to(dtype)
-            for f in dataclasses.fields(obj)
-            if getattr(obj, f.name).is_floating_point()
-        },
+        obj, **{f.name: _cast_leaf(getattr(obj, f.name), dtype) for f in dataclasses.fields(obj)}
     )
+
+
+def polish_cg_cap(n: int, m: int) -> int:
+    """The step cap of the sparse polish's CG: ``OSQP_TPU_POLISH_CG_CAP``
+    where set, else min(4 (n + m), 40000), as in the JAX package (its
+    earlier cap of 4000 under-converged DTOC3's reduced KKT)."""
+    return int(os.environ.get("OSQP_TPU_POLISH_CG_CAP", "0")) or min(4 * (n + m), 40_000)
+
+
+def _ell_kkt_solver(n: int, m: int, P: ELLMatrix, MA: ELLMatrix, delta, dtype):
+    """rhs (B, n+m) -> K_delta^-1 rhs by the Schur complement S, solved
+    matrix-free (JAX: polish.py:114-155).  Also returns the CG's steps
+    of each solve in a list."""
+    d = delta if dtype == torch.float64 else torch.clamp(delta.to(dtype), min=1e-4)
+    B = MA.batch
+    ones_m = torch.ones((B, m), dtype=dtype, device=MA.device)
+    dinv = 1.0 / (ell_diagonal(P) + d + ell_sq_colsums(MA, ones_m) / d)
+    tol_rel = torch.full((B,), 1e-12 if dtype == torch.float64 else 1e-7, dtype=dtype, device=MA.device)
+    cap = polish_cg_cap(n, m)
+
+    def products(v):
+        # (P v, (MA)'((MA) v) / d), rounded as the JAX package's matvec_S
+        return mat_vec(P, v), (mat_tvec(MA, mat_vec(MA, v)) / d if m else None)
+
+    steps = []
+
+    def solve(rhs):
+        r_x, r_z = rhs[:, :n], rhs[:, n:].contiguous()
+        t = (r_x + mat_tvec(MA, r_z) / d) if m else r_x.contiguous()
+        sx, k = pcg_solve(products, d, dinv, t.contiguous(), tol_rel, cap)
+        steps.append(k)
+        snu = (mat_vec(MA, sx) - r_z) / d
+        return torch.cat([sx, snu], dim=-1)
+
+    return solve, steps
 
 
 def polish(
@@ -100,6 +152,12 @@ def polish(
     in that dtype and cast back: float64 is native on the card.
     """
     native = x.dtype
+    sparse = isinstance(data.A, ELLMatrix)
+    if passes is None and sparse:
+        # One pass on ELL operands, as in the JAX package: re-guessing has
+        # rescued no problem of the sparse path there, and every pass costs
+        # a full set of CG solves.
+        passes = 1
     if cfg.polish_dtype is not None and getattr(torch, cfg.polish_dtype) != native:
         tgt = getattr(torch, cfg.polish_dtype)
         res = polish(
@@ -114,7 +172,8 @@ def polish(
     B, n = x.shape
     m = cfg.m
     dtype = native
-    delta_vec = torch.full((B, m), float(dyn.delta), dtype=dtype, device=x.device)
+    if not sparse:
+        delta_vec = torch.full((B, m), float(dyn.delta), dtype=dtype, device=x.device)
 
     def one_pass(x, z, y):
         # Guess the active sets (polish.c:33-49); lower and upper are
@@ -122,16 +181,23 @@ def polish(
         lower = z - data.l < -y
         upper = data.u - z < y
         mask = (lower | upper).to(dtype)  # (B, m)
-        MA = mask[:, :, None] * data.A
 
         # K_delta = [P + delta I, (MA)'; MA, -delta I]
-        # (qdldl_interface.c:261-267), factored by K8
-        factor = kkt_lu.factor_kkt(kkt_lu.form_kkt(data.P, MA, dyn.delta, delta_vec))
+        # (qdldl_interface.c:261-267): factored by K8 on dense operands,
+        # eliminated to S and solved by CG on ELL ones, whose rows are
+        # masked by scaling them.
+        if sparse:
+            MA = ell_scale(data.A, mask, torch.ones((B, n), dtype=dtype, device=x.device))
+            solve_kkt, _ = _ell_kkt_solver(n, m, data.P, MA, dyn.delta, dtype)
+        else:
+            MA = mask[:, :, None] * data.A
+            factor = kkt_lu.factor_kkt(kkt_lu.form_kkt(data.P, MA, dyn.delta, delta_vec))
+            solve_kkt = lambda rhs: kkt_lu.solve_raw(factor, rhs)
 
         # rhs_red = [-q; l_low, u_upp], masked at fixed shape (polish.c:105-121)
         zero = torch.zeros((), dtype=dtype, device=x.device)
         rhs_z = mask * torch.where(lower, data.l, torch.where(upper, data.u, zero))
-        sol = kkt_lu.solve_raw(factor, torch.cat([-data.q, rhs_z], dim=-1))
+        sol = solve_kkt(torch.cat([-data.q, rhs_z], dim=-1))
 
         def eval_point(sol):
             """Recover (x, z, y), project, and measure the true residuals
@@ -161,10 +227,14 @@ def polish(
         best = eval_point(sol)
         for _ in range(refine_iter):
             sx, snu = sol[:, :n].contiguous(), sol[:, n:].contiguous()
-            tp = term_products(data.P, MA, sx, snu)  # MA sx, P sx, (MA)' snu
-            r_x = -data.q - (tp.Px + tp.Aty)
-            r_z = rhs_z - tp.Ax
-            sol = sol + kkt_lu.solve_raw(factor, torch.cat([r_x, r_z], dim=-1))
+            if sparse:
+                r_x = -data.q - (mat_vec(data.P, sx) + mat_tvec(MA, snu))
+                r_z = rhs_z - mat_vec(MA, sx)
+            else:
+                tp = term_products(data.P, MA, sx, snu)  # MA sx, P sx, (MA)' snu
+                r_x = -data.q - (tp.Px + tp.Aty)
+                r_z = rhs_z - tp.Ax
+            sol = sol + solve_kkt(torch.cat([r_x, r_z], dim=-1))
             cand = eval_point(sol)
             better = cand[5] & (torch.maximum(cand[3], cand[4]) < torch.maximum(best[3], best[4]))
             best = tuple(bwhere(better, c, b) for c, b in zip(cand, best))

@@ -4,7 +4,8 @@ src/osqp.c), and the settings, their validation and the static
 configuration that it shares with :func:`osqp_tpu_torch.solve_batch`.
 
 * ``setup`` (osqp.c:76-283): validate, scale (K4), classify rho,
-  factorize (K2 or torch's Cholesky by n), convexity check
+  factorize (``dense_inv``: K2 or torch's Cholesky by n; or the backend
+  that ``linsys_solver`` names, K7 for ``block_tridiag``), convexity check
 * ``solve`` (osqp.c:288-654): the segmented ADMM loop (K1 or K1r per
   segment, K3 at every check), polish (K8) and the solution
 * ``update_lin_cost`` (765), ``update_bounds`` (797),
@@ -35,6 +36,7 @@ from . import linsys as linsys_registry
 from .admm import rho_vec_from_type, set_rho_state, update_rho_state
 from .constants import ErrorCode, NonConvexError, OSQPError
 from .linalg import mat_vec
+from .linsys import block_tridiag
 from .linsys import cg as cg_backend
 from .polish import polish as polish_fn
 from .scaling import scale_data, unscale_solution
@@ -76,8 +78,7 @@ class Settings:
     time_limit: float = con.TIME_LIMIT
     dtype: Any = None  # None -> torch.get_default_dtype()
     # Knobs of the cg backend (step cap, 0 for n + m; floor of the inexact
-    # schedule) and of block_tridiag (not ported yet: ROADMAP queue 1,
-    # item 11, so accepted and unused).
+    # schedule) and of block_tridiag (the stage size b, which must divide n).
     cg_max_iter: int = 0
     cg_tol_fraction: float = 1e-7
     block_size: int = 0
@@ -340,6 +341,11 @@ class Solver:
             adaptive_rho_tolerance=self.settings.adaptive_rho_tolerance,
             delta=self.settings.delta,
         )
+
+        if self.settings.linsys_solver == "block_tridiag":
+            # Reject out-of-band structure at setup: init would drop such
+            # entries silently.
+            block_tridiag.validate_structure(Pu, Ac, self.settings.block_size)
 
         self._push_data_and_factor(rho=self.settings.rho)
 

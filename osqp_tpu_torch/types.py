@@ -66,7 +66,7 @@ class StaticConfig:
     dtype: str = "float64"
     # Knobs of the cg backend: its step cap (0 -> n + m) and the floor of
     # its inexact tolerance schedule; and the stage-block size of
-    # block_tridiag (not ported yet).
+    # block_tridiag.
     cg_max_iter: int = 0
     cg_tol_fraction: float = 1e-7
     block_size: int = 0

@@ -116,26 +116,42 @@ def test_linsys_registry():
     assert tlinsys.get("mkl pardiso") is tlinsys.get("kkt_lu") is tlinsys.get("KKT_LU")
     assert tlinsys.get("dense_chol") is not tlinsys.get("dense_inv")
     assert tlinsys.get("CG") is tlinsys.get("cg") and "cg" in tlinsys.available()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-        tlinsys.get("block_tridiag")
+    assert tlinsys.get("block_tridiag") is tlinsys.block_tridiag and "block_tridiag" in tlinsys.available()
     with pytest.raises(KeyError):
         tlinsys.get("nope")
 
 
-@pytest.mark.parametrize("kw", [{"compact": True}, {"sparse": True, "polish": True}, {"linsys_solver": "block_tridiag"}])
+@pytest.mark.parametrize("kw", [{"compact": True}])
 def test_unported_options_raise(kw):
     """What is not ported yet raises, naming its ROADMAP item: compaction
-    (14), polish on the sparse path (12), block_tridiag (11)."""
+    (14)."""
+    P, q, A, l, u = random_qps(2, 3, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 14"):
+        osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", verbose=False, **kw)
+
+
+@pytest.mark.parametrize(
+    "kw", [{"sparse": True, "polish": True}, {"linsys_solver": "block_tridiag", "block_size": 3}],
+    ids=["sparse_polish", "block_tridiag"],
+)
+def test_formerly_unported_options_run(kw):
+    """Polish on the sparse path (item 12) and block_tridiag (item 11),
+    which raised until they were ported, now solve and give the JAX
+    package's statuses."""
     import scipy.sparse as sp
 
+    from osqp_tpu.batch import solve_batch as jsolve_batch
+    from osqp_tpu.large import solve_sparse as jsolve_sparse
+
     P, q, A, l, u = random_qps(2, 3, 4)
-    item = {"compact": "item 14", "sparse": "item 12", "linsys_solver": "item 11"}[next(iter(kw))]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        if kw.pop("sparse", False):
-            osqp_tpu_torch.solve_sparse(sp.csc_matrix(P[0]), q[0], sp.csc_matrix(A[0]), l[0], u[0], device="cpu",
-                                        verbose=False, **kw)
-        else:
-            osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", verbose=False, **kw)
+    kw = dict(kw, dtype="float64", verbose=False)
+    if kw.pop("sparse", False):
+        args = (sp.csc_matrix(P[0]), q[0], sp.csc_matrix(A[0]), l[0], u[0])
+        rt, rj = osqp_tpu_torch.solve_sparse(*args, device="cpu", **kw), jsolve_sparse(*args, **kw)
+    else:
+        rt, rj = osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", **kw), jsolve_batch(P, q, A, l, u, **kw)
+    assert rt.status_val.tolist() == [int(v) for v in rj.status_val] and (rt.status_val == tcon.OSQP_SOLVED).all()
+    assert rt.status_polish.tolist() == [int(v) for v in rj.status_polish]
 
 
 @pytest.mark.parametrize("kw", [{"polish": True}, {"linsys_solver": "kkt_lu"}, {"linsys_solver": "dense_chol"},

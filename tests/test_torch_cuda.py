@@ -19,6 +19,7 @@ import torch
 import osqp_tpu_torch
 from osqp_tpu_torch.io.qps import load_qps
 from osqp_tpu_torch.ops import admm_iter as k1
+from osqp_tpu_torch.ops import block_tridiag as k7
 from osqp_tpu_torch.ops import cg as k6
 from osqp_tpu_torch.ops import ell as k5
 from osqp_tpu_torch.ops import kkt_lu as k8
@@ -526,9 +527,9 @@ K5_MODES = ["matvec", "tmatvec", "tmatvec_weighted", "sq_colsums", "row_norms", 
 @pytest.mark.parametrize("mode", K5_MODES)
 @pytest.mark.parametrize("B,m,n", [(3, 17, 11), (1, 12500, 10000), (64, 300, 200)])
 def test_k5_kernel_matches_plain(dev, dtype, mode, B, m, n):
-    """Every K5 mode against its plain version: sums within the tolerance,
-    maxima, the diagonal and the scaled values exact; two launches give
-    the same bits."""
+    """Every K5 mode against its plain version, which sums in the
+    kernel's slot order: every result bit for bit (and sums within the
+    tolerance); two launches give the same bits."""
     import scipy.sparse as sp
 
     rng = np.random.default_rng(B + m)
@@ -553,10 +554,8 @@ def test_k5_kernel_matches_plain(dev, dtype, mode, B, m, n):
             assert torch.equal(getattr(got, f), getattr(again, f)) and torch.equal(getattr(got, f), getattr(want, f))
         return
     assert torch.equal(got, again)
-    if mode in ("row_norms", "col_norms", "diagonal"):
-        assert torch.equal(got, want)
-    else:
-        assert float((got - want).abs().max()) <= K5_TOL[dtype] * float(want.abs().max())
+    assert torch.equal(got, want)
+    assert float((got - want).abs().max()) <= K5_TOL[dtype] * float(want.abs().max())
 
 
 def test_k5_raises_on_broadcast_values(dev):
@@ -574,9 +573,11 @@ def test_k5_raises_on_broadcast_values(dev):
 @pytest.mark.parametrize("kind", ["ell", "dense"])
 @pytest.mark.parametrize("max_iter", [11, 1000])
 def test_k6_kernel_matches_plain(dev, dtype, kind, max_iter):
-    """K6 against its plain loop: the same steps per instance, x within the
-    tolerance, an instance frozen from the start bit-unchanged, two runs
-    bit-identical, and no step past max_iter (11 = a chunk of 8 and 3)."""
+    """K6 against its plain loop: the same steps per instance, x bit for
+    bit (the plain step summing in the kernel's order, over K5's plain
+    products, which sum in K5's order), an instance frozen from the start
+    bit-unchanged, two runs bit-identical, and no step past max_iter
+    (11 = a chunk of 8 and 3)."""
     import scipy.sparse as sp
 
     from osqp_tpu_torch.linsys import cg
@@ -603,10 +604,11 @@ def test_k6_kernel_matches_plain(dev, dtype, kind, max_iter):
     xk2, sk2 = k6.cg_solve(*args)
     torch.cuda.synchronize()
     assert k6.launches - before == 2 * min(max_iter, -(-int(sk.max()) // k6.CHUNK) * k6.CHUNK)
-    xp, sp_ = k6.cg_solve_plain(*args)
+    xp, sp_ = k6.cg_solve_plain(*args, dot=k6.kernel_dot)
     assert torch.equal(xk, xk2) and torch.equal(sk, sk2)
     assert torch.equal(sk, sp_) and int(sk.max()) <= max_iter
     assert torch.equal(xk[3], x0[3]) and int(sk[3]) == 0
+    assert torch.equal(xk, xp)
     assert float((xk - xp).abs().max()) <= K6_TOL[dtype] * float(xp.abs().max())
 
 
@@ -632,3 +634,170 @@ def test_solve_sparse_on_the_card_matches_the_cpu(dev, dtype):
         assert float((rg.x.cpu() - rc.x).abs().max()) <= 1e-6
     else:
         assert int((rg.iter.cpu() - rc.iter).abs().max()) <= 25
+
+
+def _band_schur(B, Nb, b, dtype, seed=0):
+    """M = P + sigma I + A' diag(rho) A of a random block-tridiagonal
+    problem (block-diagonal P, rows of A on two adjacent stages)."""
+    from osqp_tpu_torch.linsys.dense_chol import form_schur
+
+    rng = np.random.default_rng(seed)
+    n = Nb * b
+    P = np.zeros((B, n, n))
+    for i in range(Nb):
+        G = rng.standard_normal((B, b, b))
+        P[:, i * b:(i + 1) * b, i * b:(i + 1) * b] = G @ G.transpose(0, 2, 1) / b + 0.5 * np.eye(b)
+    A = np.zeros((B, max(Nb - 1, 0) * b, n))
+    for i in range(Nb - 1):
+        A[:, i * b:(i + 1) * b, i * b:(i + 2) * b] = rng.standard_normal((B, b, 2 * b))
+    rho = np.abs(rng.standard_normal((B, A.shape[1]))) + 0.1
+    t = lambda a: torch.as_tensor(a, dtype=dtype)
+    return form_schur(t(P), t(A), 1e-6, t(rho))
+
+
+# (B, Nb, b): the MPC cell's stages (b = 12, Nb = 31), one stage, stages of
+# one variable, a block size above a warp, the largest b of each dtype.
+K7_SHAPES = [(64, 31, 12), (3, 1, 7), (5, 9, 1), (2, 4, 40), (200, 6, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,Nb,b", K7_SHAPES + [(1, 2, "max")])
+def test_k7_kernel_matches_plain(dev, dtype, B, Nb, b):
+    """K7's factor and solve against their plain versions bit for bit,
+    two launches bit-identical, one launch counted per call."""
+    b = k7.max_block(dtype) if b == "max" else b
+    M = _band_schur(B, Nb, b, dtype).to(dev).contiguous()
+    before = (k7.launches_factor, k7.launches_solve)
+    C, G = k7.bt_factor(M, b)
+    C2, G2 = k7.bt_factor(M, b)
+    Cp, Gp = k7.bt_factor_plain(M, b)
+    r = torch.as_tensor(np.random.default_rng(1).standard_normal((B, Nb * b)), dtype=dtype, device=dev)
+    x, x2, xp = k7.bt_solve(C, G, r), k7.bt_solve(C, G, r), k7.bt_solve_plain(Cp, Gp, r)
+    torch.cuda.synchronize()
+    assert (k7.launches_factor - before[0], k7.launches_solve - before[1]) == (2, 2)
+    assert torch.equal(C, C2) and torch.equal(G, G2) and torch.equal(x, x2)
+    assert torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp)
+    assert bool(torch.isfinite(x).all())
+
+
+def test_k7_stage_not_positive_definite_gives_nan(dev):
+    """An indefinite stage: NaN in the lower triangle of its factor and of
+    every later stage's, as the plain version; nothing raises."""
+    M = _band_schur(2, 4, 3, torch.float64)
+    M[1, 6, 6] = -50.0
+    M = M.to(dev).contiguous()
+    C, G = k7.bt_factor(M, 3)
+    Cp, Gp = k7.bt_factor_plain(M, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(C), torch.isnan(Cp)) and torch.isnan(C[1, 2:]).any()
+    assert torch.equal(torch.nan_to_num(C), torch.nan_to_num(Cp)) and torch.equal(torch.nan_to_num(G),
+                                                                                  torch.nan_to_num(Gp))
+    assert bool(torch.isfinite(C[0]).all())
+
+
+def test_k7_raises_above_its_shared_memory(dev):
+    b = k7.max_block(torch.float64) + 1
+    M = torch.eye(2 * b, dtype=torch.float64, device=dev)[None].contiguous()
+    with pytest.raises(ValueError, match="shared memory"):
+        k7.bt_factor(M, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        k7.bt_factor(torch.eye(24, dtype=torch.float64, device=dev)[None].mT, 12)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_block_tridiag_backend_gpu_matches_cpu(dev, dtype):
+    """An MPC scenario batch (horizon 8) through solve_batch with
+    block_tridiag on the card against the CPU's plain path."""
+    from osqp_tpu_torch.models import build_mpc_qp
+
+    rng = np.random.default_rng(0)
+    nx, nu, B = 8, 4, 32
+    Ad = np.eye(nx) + 0.05 * rng.standard_normal((nx, nx)) / np.sqrt(nx)
+    Bd = rng.standard_normal((nx, nu)) / np.sqrt(nx)
+    base = build_mpc_qp(Ad, Bd, np.eye(nx), 0.1 * np.eye(nu), horizon=8, xmin=np.full(nx, -10.0),
+                        xmax=np.full(nx, 10.0), umin=np.full(nu, -1.0), umax=np.full(nu, 1.0))
+    l, u = np.tile(base.l, (B, 1)), np.tile(base.u, (B, 1))
+    l[:, :nx] = u[:, :nx] = rng.standard_normal((B, nx))
+    args = (np.stack([base.P] * B), np.stack([base.q] * B), np.stack([base.A] * B), l, u)
+    kw = dict(dtype=dtype, verbose=False, linsys_solver="block_tridiag", block_size=base.block_size)
+    before = k7.launches_solve
+    rg = osqp_tpu_torch.solve_batch(*args, device=dev, **kw)
+    torch.cuda.synchronize()
+    assert k7.launches_solve - before == int(rg.iter.max())
+    rc = osqp_tpu_torch.solve_batch(*args, device="cpu", **kw)
+    assert torch.equal(rg.status_val.cpu(), rc.status_val) and (rc.status_val == 1).all()
+    if dtype == "float64":
+        assert torch.equal(rg.iter.cpu(), rc.iter)
+        assert float((rg.x.cpu() - rc.x).abs().max()) <= 1e-6
+    else:
+        assert int((rg.iter.cpu() - rc.iter).abs().max()) <= 25
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pcg_on_k6_matches_plain(dev, dtype):
+    """Polish's PCG (pcg_solve: K6 over K5's products) against the plain
+    loop over the same (K5) products on a masked polish system at
+    polish's delta: the same steps and the same x, bit for bit (the plain
+    step summing its inner products in the kernel's order)."""
+    import scipy.sparse as sp
+
+    from osqp_tpu_torch import polish as tpolish
+    from osqp_tpu_torch.sparse_ops import ell_from_scipy
+
+    rng = np.random.default_rng(3)
+    n, m, B = 3000, 2000, 2
+    Pm = sp.random(n, n, density=3.0 / n, random_state=rng)
+    Pm = sp.triu(Pm @ Pm.T + 0.1 * sp.eye(n), format="csr")
+    Am = sp.random(m, n, density=3.0 / n, random_state=rng, format="csr")
+    P = ell_from_scipy(Pm, dtype, batch=B, sym_from_triu=True, device=dev).contiguous()
+    A = ell_from_scipy(Am, dtype, batch=B, device=dev).contiguous()
+    mask = torch.as_tensor(rng.random((B, m)) < 0.4, dtype=dtype, device=dev)
+    MA = k5.ell_scale(A, mask, torch.ones((B, n), dtype=dtype, device=dev))
+    d = torch.tensor(1e-6 if dtype == torch.float64 else 1e-4, dtype=dtype)
+    solve, steps = tpolish._ell_kkt_solver(n, m, P, MA, d, dtype)
+    rhs = torch.as_tensor(rng.standard_normal((B, n + m)), dtype=dtype, device=dev)
+    before = k6.launches
+    sol = solve(rhs)
+    torch.cuda.synchronize()
+    (sk,) = steps
+    assert k6.launches - before >= int(sk.max()) > 0
+    t = rhs[:, :n] + k5.ell_tmatvec(MA, rhs[:, n:].contiguous()) / d
+    ones = torch.ones((B, m), dtype=dtype, device=dev)
+    dinv = 1.0 / (k5.ell_diagonal(P) + d + k5.ell_sq_colsums(MA, ones) / d)
+    products = lambda v: (k5.ell_matvec(P, v), k5.ell_tmatvec(MA, k5.ell_matvec(MA, v)) / d)
+    tol = torch.full((B,), 1e-12 if dtype == torch.float64 else 1e-7, dtype=dtype, device=dev)
+    xp, sp_ = k6.pcg_solve_plain(products, d, dinv, t.contiguous(), tol, tpolish.polish_cg_cap(n, m),
+                                 dot=k6.kernel_dot)
+    assert torch.equal(sk, sp_)
+    assert torch.equal(sol[:, :n], xp)
+
+
+def test_k6_blocks_are_the_plain_sums_blocks(dev):
+    """The plain step sums in the kernel's order only if it cuts an
+    instance into the kernel's blocks."""
+    from osqp_tpu_torch import _build
+
+    for n in (1, 255, 256, 257, 10002, 16384, 16385, 40000):
+        assert _build.library().osqp_cg_parts(n) == k6.parts_of(n)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_sparse_polish_on_the_card_matches_the_cpu(dev, dtype):
+    """SparseSolver with polish on the card against the CPU's plain path."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(0)
+    n, m = 200, 300
+    M = sp.random(n, n, density=0.02, random_state=rng, format="csc")
+    P = sp.triu(M @ M.T + 0.1 * sp.eye(n), format="csc")
+    A = sp.random(m, n, density=0.02, random_state=rng, format="csc") + sp.eye(m, n, format="csc")
+    xr = rng.standard_normal(n)
+    s = np.abs(rng.standard_normal(m)) + 0.1
+    args = (P, rng.standard_normal(n), A, A @ xr - s, A @ xr + s)
+    kw = dict(dtype=dtype, verbose=False, polish=True)
+    rg = osqp_tpu_torch.SparseSolver(*args, device=dev, **kw).solve()
+    rc = osqp_tpu_torch.SparseSolver(*args, device="cpu", **kw).solve()
+    assert rg.info.status_val == rc.info.status_val and rg.info.status_polish == rc.info.status_polish
+    if dtype == "float64":
+        assert rg.info.iter == rc.info.iter
+        assert np.abs(rg.x - rc.x).max() <= 1e-6

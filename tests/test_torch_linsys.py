@@ -329,7 +329,7 @@ def test_backend_aliases():
 
     assert tlinsys.get("qdldl") is tlinsys.get("dense_inv")
     assert tlinsys.get("mkl pardiso") is tlinsys.get("kkt_lu")
-    assert tlinsys.available() == ["cg", "dense_chol", "dense_inv", "kkt_lu"]
+    assert tlinsys.available() == ["block_tridiag", "cg", "dense_chol", "dense_inv", "kkt_lu"]
 
 
 @pytest.mark.parametrize("name", ["dense_inv", "dense_chol", "kkt_lu", "cg"])

@@ -332,10 +332,9 @@ def test_time_based_rho_interval(fraction, fires, monkeypatch):
     "make,item",
     [
         (lambda s: s.export(), "item 14"),
-        (lambda s: osqp_tpu_torch.solve_sparse(*_quick_start(), device="cpu", polish=True), "item 12"),
-        (lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", linsys_solver="block_tridiag"), "item 11"),
+        (lambda s: osqp_tpu_torch.SparseSolver(*_quick_start(), device="cpu", verbose=False).export(), "item 14"),
     ],
-    ids=["export", "sparse_polish", "block_tridiag"],
+    ids=["export", "sparse_export"],
 )
 def test_unported_options_raise(make, item):
     s = osqp_tpu_torch.OSQP().setup(*_quick_start(), device="cpu", verbose=False)
@@ -352,32 +351,41 @@ def test_unported_options_raise(make, item):
                                         verbose=False),
         lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", dtype="float64", linsys_solver="cg",
                                         verbose=False),
+        lambda s: osqp_tpu_torch.SparseSolver(*_quick_start(), device="cpu", dtype="float64", polish=True,
+                                              verbose=False),
+        lambda s: osqp_tpu_torch.Solver(*_quick_start(), device="cpu", dtype="float64",
+                                        linsys_solver="block_tridiag", block_size=1, verbose=False),
     ],
-    ids=["polish", "update_polish", "kkt_lu", "cg"],
+    ids=["polish", "update_polish", "kkt_lu", "cg", "sparse_polish", "block_tridiag"],
 )
 def test_ported_options_run(make):
-    """Polish and the kkt_lu and cg backends, which used to raise, now
-    solve the quick start as the JAX package does."""
+    """Polish, the kkt_lu, cg and block_tridiag backends and the sparse
+    Solver with its polish, which used to raise, now solve the quick
+    start as the JAX package does."""
     ts = make(osqp_tpu_torch.OSQP().setup(*_quick_start(), device="cpu", dtype="float64", verbose=False))
     rt = ts.solve()
-    kw = {f: getattr(ts.settings, f) for f in ("polish", "linsys_solver")}
-    rj = osqp_tpu.Solver(*_quick_start(), dtype="float64", verbose=False, **kw).solve()
+    kw = {f: getattr(ts.settings, f) for f in ("polish", "linsys_solver", "block_size")}
+    reference = osqp_tpu.SparseSolver if isinstance(ts, osqp_tpu_torch.SparseSolver) else osqp_tpu.Solver
+    rj = reference(*_quick_start(), dtype="float64", verbose=False, **kw).solve()
     _assert_parity(rj, rt, "float64")
     assert rt.info.status_polish == rj.info.status_polish == (1 if ts.settings.polish else 0)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("backend", ["dense_inv", "dense_chol", "kkt_lu", "cg"])
+@pytest.mark.parametrize("backend", ["dense_inv", "dense_chol", "kkt_lu", "cg", "block_tridiag"])
 def test_all_backends(backend, dtype):
     """The counterpart of test_basic_qp.py's test_all_backends for the
-    three dense backends and cg: the basic QP with polish on, and
-    CVXQP2_S."""
+    three dense backends, cg and block_tridiag: the basic QP with polish
+    on, and CVXQP2_S (block_tridiag in stages of 1 and of 50, so that
+    every matrix is block tridiagonal)."""
     import scipy.sparse as sp2
 
     P = sp2.triu([[4.0, 1.0], [1.0, 2.0]], format="csc")
     A = sp2.csc_matrix(np.array([[1.0, 1.0], [1.0, 0.0], [0.0, 1.0], [0.0, 1.0]]))
     basic = (P, np.ones(2), A, np.array([1.0, 0.0, 0.0, -np.inf]), np.array([1.0, 0.7, 0.7, np.inf]))
-    kw = dict(max_iter=2000, alpha=1.6, polish=True, scaling=0, warm_start=False, linsys_solver=backend, dtype=dtype)
+    stages = backend == "block_tridiag"
+    kw = dict(max_iter=2000, alpha=1.6, polish=True, scaling=0, warm_start=False, linsys_solver=backend, dtype=dtype,
+              block_size=1 if stages else 0)
     js, ts = _both(*basic, **kw)
     rj, rt = js.solve(), ts.solve()
     _assert_parity(rj, rt, dtype)
@@ -385,15 +393,15 @@ def test_all_backends(backend, dtype):
     tol = 1e-4 if dtype == "float64" else 5e-3
     np.testing.assert_allclose(rt.x, [0.3, 0.7], atol=tol)
     np.testing.assert_allclose(rt.y, [-2.9, 0.0, 0.2, 0.0], atol=tol)
-    js, ts = _both(*_problem("CVXQP2_S"), linsys_solver=backend, dtype=dtype)
+    js, ts = _both(*_problem("CVXQP2_S"), linsys_solver=backend, dtype=dtype, block_size=50 if stages else 0)
     _assert_parity(js.solve(), ts.solve(), dtype)
 
 
-@pytest.mark.parametrize("backend", ["dense_chol", "kkt_lu", "cg"])
+@pytest.mark.parametrize("backend", ["dense_chol", "kkt_lu", "cg", "block_tridiag"])
 def test_backend_update_sequence(backend):
     """Bounds, rho and matrix updates refactor through the registry."""
     P, q, A, l, u = _quick_start()
-    js, ts = _both(P, q, A, l, u, linsys_solver=backend, dtype="float64")
+    js, ts = _both(P, q, A, l, u, linsys_solver=backend, dtype="float64", block_size=1)
     _assert_parity(js.solve(), ts.solve(), "float64")
     for s in (js, ts):
         s.update_bounds(l=np.array([1.0, 0.0, 0.0]), u=np.array([1.0, 0.5, 1e30]))

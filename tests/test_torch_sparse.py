@@ -307,8 +307,6 @@ def test_solve_sparse_warm_start_and_verbose_header(capsys):
 
 def test_solve_sparse_rejects_what_it_does_not_run():
     P, q, A, l, u = _rand_sparse_qp(10, 12, 0.3, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-        osqp_tpu_torch.solve_sparse(P, q, A, l, u, device="cpu", polish=True, verbose=False)
     with pytest.raises(osqp_tpu_torch.OSQPError, match="only the matrix-free 'cg'"):
         osqp_tpu_torch.solve_sparse(P, q, A, l, u, device="cpu", linsys_solver="dense_inv", verbose=False)
     with pytest.raises(osqp_tpu_torch.OSQPError, match="inconsistent"):

@@ -24,12 +24,30 @@ CVXQP2_L in float64, LISWET1 in float64 and float32, and a scenario
 batch of 8 copies of LISWET1 with q scaled by 1 + 0.1 i in float64:
 status, iterations, objective, x and y per instance, under keys
 ``<case>/<field>`` with the cases of SPARSE_CASES.
+A fourth, ``sparse_polish.npz``, holds the sparse path with polish on
+(the device polish: masked ELL operands and the matrix-free PCG): the
+JAX ``SparseSolver`` at LISWET1 (float64, float32) and CVXQP2_L
+(float64), and ``solve_sparse`` at B = 2 (LISWET1 with q scaled by
+1 + 0.1 i, float64): status, iterations, status_polish, objective,
+residuals, x and y, under ``<case>/<field>`` with the cases of
+POLISH_CASES, and under ``<problem>/<dtype>/host_status_polish`` the
+status_polish of the JAX package's B = 1 ``solve_sparse``, which
+polishes on the host.
+A fifth, ``mpc.npz``, holds the MPC scenario batch of ``bench.py``'s
+``bench_mpc`` (nx = 8, nu = 4, horizon 30: n = 372, m = 612, stages of
+b = 12): ``solve_batch`` with ``linsys_solver="block_tridiag"`` on its
+first 16 scenarios (eps 1e-3, polish off) in float64 and float32, and
+the ``Solver`` with the same backend on scenario 0 alone in float64:
+status, iterations, objective, x and y under ``<case>/<field>``
+(cases of MPC_CASES).
 ``chip_smoke.py`` holds the port's Solver and solve_sparse against these
-files; tier-1 tests regenerate one entry of each with :func:`golden` or
-:func:`sparse_golden` and compare, so the files cannot go stale.
+files; tier-1 tests regenerate one entry of each with :func:`golden`,
+:func:`sparse_golden` or :func:`mpc_golden` and compare, so the files
+cannot go stale.
 
-    python3 tools/make_torch_goldens.py            # all three files
+    python3 tools/make_torch_goldens.py            # all five files
     python3 tools/make_torch_goldens.py sparse     # sparse_maros.npz alone
+    python3 tools/make_torch_goldens.py polish mpc # sparse_polish.npz, mpc.npz
 """
 
 from __future__ import annotations
@@ -57,6 +75,25 @@ SPARSE_CASES = {
     "LISWET1_B8/float64": ("LISWET1", "float64", 8),
 }
 SPARSE_FIELDS = ("status_val", "iter", "obj_val", "x", "y")
+OUT_POLISH_SPARSE = os.path.join(REPO, "tests", "data", "torch_goldens", "sparse_polish.npz")
+# case -> (problem, dtype, entry, instances)
+POLISH_CASES = {
+    "LISWET1/float64": ("LISWET1", "float64", "SparseSolver", 1),
+    "LISWET1/float32": ("LISWET1", "float32", "SparseSolver", 1),
+    "CVXQP2_L/float64": ("CVXQP2_L", "float64", "SparseSolver", 1),
+    "LISWET1_B2/float64": ("LISWET1", "float64", "solve_sparse", 2),
+}
+POLISH_SPARSE_FIELDS = SPARSE_FIELDS + ("status_polish", "pri_res", "dua_res")
+OUT_MPC = os.path.join(REPO, "tests", "data", "torch_goldens", "mpc.npz")
+# bench.py's bench_mpc: B = 1000 scenarios of one MPC problem
+MPC_SCENARIOS = 1000
+MPC_SETTINGS = dict(eps_abs=1e-3, eps_rel=1e-3, polish=False, verbose=False, linsys_solver="block_tridiag")
+# case -> (dtype, entry, scenarios)
+MPC_CASES = {
+    "MPC16/float64": ("float64", "solve_batch", 16),
+    "MPC16/float32": ("float32", "solve_batch", 16),
+    "MPC1/float64": ("float64", "Solver", 1),
+}
 sys.path.insert(0, REPO)
 
 
@@ -112,6 +149,83 @@ def sparse_golden(case: str) -> dict:
     }
 
 
+def polish_golden(case: str) -> dict:
+    """One JAX run of ``case`` (a key of POLISH_CASES) with polish on:
+    {field: numpy array}, one row per instance.  The caller has put jax
+    on the CPU with x64 enabled."""
+    import osqp_tpu
+    from osqp_tpu.io.qps import load_qps
+    from osqp_tpu.large import solve_sparse
+
+    name, dtype, entry, B = POLISH_CASES[case]
+    qp = load_qps(os.path.join(MAROS, f"{name}.qps"), native=False)
+    if entry == "SparseSolver":
+        res = osqp_tpu.SparseSolver(P=qp.P, q=qp.q, A=qp.A, l=qp.l, u=qp.u, dtype=dtype, polish=True,
+                                    verbose=False).solve()
+        info = res.info
+        out = {f: np.asarray([getattr(info, f)]) for f in ("status_val", "iter", "status_polish")}
+        out.update({f: np.asarray([getattr(info, f)], np.float64) for f in ("obj_val", "pri_res", "dua_res")})
+        out.update(x=np.asarray(res.x, np.float64)[None], y=np.asarray(res.y, np.float64)[None])
+    else:
+        res = solve_sparse(*scenario_batch(qp, B), dtype=dtype, polish=True, verbose=False)
+        out = {f: np.asarray(getattr(res, f)) for f in POLISH_SPARSE_FIELDS}
+    return {f: (v.astype(np.int64) if v.dtype.kind in "iu" else v.astype(np.float64)) for f, v in out.items()}
+
+
+def host_polish_status(name: str, dtype: str) -> int:
+    """status_polish of the JAX package's B = 1 solve_sparse, which
+    polishes on the host (``polish_host``)."""
+    from osqp_tpu.io.qps import load_qps
+    from osqp_tpu.large import solve_sparse
+
+    qp = load_qps(os.path.join(MAROS, f"{name}.qps"), native=False)
+    res = solve_sparse(qp.P, qp.q, qp.A, qp.l, qp.u, dtype=dtype, polish=True, verbose=False)
+    return int(np.asarray(res.status_polish)[0])
+
+
+def mpc_scenarios(build_mpc_qp, B: int = MPC_SCENARIOS, horizon: int = 30, seed: int = 0):
+    """bench.py's MPC scenario batch (bench_mpc): one random stable
+    system with nx = 8 states and nu = 4 inputs over ``horizon`` stages,
+    built by ``build_mpc_qp`` (either package's), and B initial states.
+    Returns (base problem, P, q, A, l, u) with (B, ...) arrays."""
+    nx, nu = 8, 4
+    rng = np.random.default_rng(seed)
+    Ad = np.eye(nx) + 0.05 * rng.standard_normal((nx, nx)) / np.sqrt(nx)
+    Bd = rng.standard_normal((nx, nu)) / np.sqrt(nx)
+    base = build_mpc_qp(Ad, Bd, np.eye(nx), 0.1 * np.eye(nu), horizon=horizon, xmin=np.full(nx, -10.0),
+                        xmax=np.full(nx, 10.0), umin=np.full(nu, -1.0), umax=np.full(nu, 1.0))
+    xinits = rng.standard_normal((B, nx))
+    l = np.broadcast_to(base.l, (B,) + base.l.shape).copy()
+    u = np.broadcast_to(base.u, (B,) + base.u.shape).copy()
+    l[:, :nx] = xinits
+    u[:, :nx] = xinits
+    P = np.broadcast_to(base.P, (B,) + base.P.shape)
+    q = np.broadcast_to(base.q, (B,) + base.q.shape)
+    A = np.broadcast_to(base.A, (B,) + base.A.shape)
+    return base, P, q, A, l, u
+
+
+def mpc_golden(case: str) -> dict:
+    """One JAX run of ``case`` (a key of MPC_CASES) on the first
+    scenarios of the MPC batch: {field: numpy array}, one row per
+    instance.  The caller has put jax on the CPU with x64 enabled."""
+    import osqp_tpu
+    from osqp_tpu.batch import solve_batch
+    from osqp_tpu.models import build_mpc_qp
+
+    dtype, entry, k = MPC_CASES[case]
+    base, P, q, A, l, u = mpc_scenarios(build_mpc_qp)
+    kw = dict(MPC_SETTINGS, dtype=dtype, block_size=base.block_size)
+    if entry == "solve_batch":
+        res = solve_batch(P[:k], q[:k], A[:k], l[:k], u[:k], **kw)
+        out = {f: np.asarray(getattr(res, f)) for f in SPARSE_FIELDS}
+    else:
+        info_res = osqp_tpu.Solver(base.P, base.q, base.A, l[0], u[0], **kw).solve()
+        out = {f: np.asarray([getattr(info_res.info, f)]) for f in ("status_val", "iter", "obj_val")}
+        out.update(x=np.asarray(info_res.x)[None], y=np.asarray(info_res.y)[None])
+    return {f: (v.astype(np.int64) if v.dtype.kind in "iu" else v.astype(np.float64)) for f, v in out.items()}
+
+
 def reference(name: str) -> dict:
     """The optimum to solver accuracy: {obj_val, x} of a float64 solve at
     eps 1e-10."""
@@ -124,9 +238,10 @@ def reference(name: str) -> dict:
 def main() -> int:
     import jax
 
-    which = set(sys.argv[1:]) or {"solver", "sparse"}
-    if not which <= {"solver", "sparse"}:
-        print("usage: make_torch_goldens.py [solver] [sparse]", file=sys.stderr)
+    targets = {"solver", "sparse", "polish", "mpc"}
+    which = set(sys.argv[1:]) or targets
+    if not which <= targets:
+        print("usage: make_torch_goldens.py [solver] [sparse] [polish] [mpc]", file=sys.stderr)
         return 2
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
@@ -140,6 +255,29 @@ def main() -> int:
             arrays.update({f"{case}/{k}": v for k, v in g.items()})
         np.savez_compressed(OUT_SPARSE, **arrays)
         print(f"wrote {OUT_SPARSE}")
+    if "polish" in which:
+        arrays = {}
+        for case in POLISH_CASES:
+            g = polish_golden(case)
+            print(f"{case}: status {g['status_val'].tolist()}, iterations {g['iter'].tolist()}, status_polish "
+                  f"{g['status_polish'].tolist()}, pri_res {g['pri_res'].tolist()}, dua_res {g['dua_res'].tolist()}",
+                  flush=True)
+            arrays.update({f"{case}/{k}": v for k, v in g.items()})
+        for name, dtype, entry, B in POLISH_CASES.values():
+            if entry == "SparseSolver":
+                st = host_polish_status(name, dtype)
+                print(f"{name}/{dtype}: host polish status_polish {st}", flush=True)
+                arrays[f"{name}/{dtype}/host_status_polish"] = np.int64(st)
+        np.savez_compressed(OUT_POLISH_SPARSE, **arrays)
+        print(f"wrote {OUT_POLISH_SPARSE}")
+    if "mpc" in which:
+        arrays = {}
+        for case in MPC_CASES:
+            g = mpc_golden(case)
+            print(f"{case}: status {g['status_val'].tolist()}, iterations {g['iter'].tolist()}", flush=True)
+            arrays.update({f"{case}/{k}": v for k, v in g.items()})
+        np.savez_compressed(OUT_MPC, **arrays)
+        print(f"wrote {OUT_MPC}")
     if "solver" not in which:
         return 0
     for polish, out in ((False, OUT), (True, OUT_POLISH)):
