@@ -15,7 +15,8 @@ failure ends the run with a non-zero exit and no result line:
    shared-memory bound in both dtypes, two launches bit-identical;
    kernel, plain and torch.linalg.inv timed at B=8192 beside the bound,
    with the kernel's blocks per SM; the library route above the bound
-   (CVXQP2_M, both dtypes) timed as that case's library_ms;
+   (CVXQP2_M, both dtypes) timed as that case's library_ms; CVXQP2_S
+   (B=1, n=100) timed beside its bound;
 4. K1 (admm_iter) against its plain version, one step from a random
    state: B=512 in float64 and float32 with half of the instances
    inactive, B=8192 in float32 half and all active, CVXQP2_M's shape at
@@ -61,8 +62,9 @@ failure ends the run with a non-zero exit and no result line:
     float32 (perm equal, lu and the solve within RTOL), the polish-form
     K_delta (delta 1e-6, the rows of A outside the active set that polish
     guesses at the ADMM point zeroed) of the headline data at B=8192,
-    N=300 in float32 and of CVXQP2_S and CVXQP2_M at B=1, N=225 and
-    2250, in both dtypes; at every shape perm equal and lu within RTOL;
+    N=300 in float32 (the batched path) and of CVXQP2_S and CVXQP2_M at
+    B=1, N=225 and 2250, in both dtypes (the cluster path and the strip
+    solve); at every shape perm and lu bit for bit;
     the solve of b = K x_true (x_true standard normal, so that the
     solution is known and O(1)) held three ways: its row-wise backward
     error against the factors it read under 8 sqrt(N) eps, its backward error
@@ -71,7 +73,8 @@ failure ends the run with a non-zero exit and no result line:
     RTOL plus three times the plain solve's (cond(K) sets both); two
     launches bit-identical; kernel,
     plain and library (torch.linalg.lu_factor, lu_solve) times beside
-    the bounds;
+    the bounds, the kernel launches per factor and the path taken, and at
+    CVXQP2_M the kernel's time over the library's;
 12. polish, batched: the headline batch through ``solve_batch`` with
     polish off and on in one call: equal statuses and iterations, the
     share of status_polish == 1, every polished instance's residuals no
@@ -96,12 +99,15 @@ failure ends the run with a non-zero exit and no result line:
     CVXQP2_L (B=1, float64 and float32) and of a scenario batch of
     CVXQP2_M (B=64, float64): sums within RTOL, the rest exact, two
     launches bit-identical; A x and A'(rho y) timed beside the plain
-    version, ``torch.sparse.mm`` on a CSR copy and the bound;
-16. K6 (cg_step) against its plain loop (summing in the kernel's order):
-    one cg solve from a mid-solve ADMM state of CVXQP2_L (float64, ELL)
-    and of the headline data (dense, B=8192, float32, every fourth
-    instance frozen): the same steps, x bit for bit, frozen instances
-    bit-unchanged, two runs bit-identical; ms per solve and per step, one
+    version, ``torch.sparse.mm`` on a CSR copy and the bound; K5's
+    launches in a sparse solve of the B=64 batch;
+16. K6 against its plain loop (summing in the kernel's order): one cg
+    solve from a mid-solve ADMM state of CVXQP2_L (float64, ELL: the
+    device loop, one launch) and of the headline data (dense, B=8192,
+    float32, every fourth instance frozen: the step kernels): the same
+    steps, x bit for bit, frozen instances bit-unchanged, two runs
+    bit-identical; at CVXQP2_L the stepwise path on the same operator,
+    bit for bit, and ms per CG step of both beside the loop's bound; one
     step's vector work against the plain step and the bound;
 17. the sparse path: ``solve_sparse`` (polish off) at CVXQP2_L in
     float64, LISWET1 in float64 and float32, and 8 copies of LISWET1
@@ -110,12 +116,17 @@ failure ends the run with a non-zero exit and no result line:
     iterations equal, the objective within 1e-6, x and y within 1e-5 of
     the golden's largest entry, 1e-3 at CVXQP2_L; float32: status,
     iterations within 25),
-    with launch counts, CG steps per ADMM iteration, setup and solve ms;
+    with launch counts (the CG on K6's device loop alone), CG steps per
+    ADMM iteration, setup and solve ms; at CVXQP2_L and the 8 copies the
+    same solve on the stepwise path in the same call (a measurement hook,
+    stepwise_everywhere): x, y and iterations bit-identical, solve ms, ms
+    per CG step, launches and the idle share of both under the profiler;
     one more CVXQP2_L solve under the profiler for K5's and K6's device
     time and the idle share;
 18. the cg backend on dense operands: ``solve_batch`` on the card against
     the CPU's plain path (float64, B=64, n=20, m=30), then the headline
-    data at B=1024 in float32 beside the ``dense_inv`` run;
+    data at B=1024 in float32 beside the ``dense_inv`` run, with the step
+    kernels' launches in that solve (the stepwise path's main user);
 19. K7 (block_tridiag: bt_factor, bt_solve) against its plain versions on
     the reduced matrix of the MPC cell as the backend forms it
     (``bench.py``'s bench_mpc: B=1000, n=372, b=12, Nb=31, float32) and at
@@ -130,20 +141,24 @@ failure ends the run with a non-zero exit and no result line:
     K7's launches, the median of 5 timed solves per leg with QPs/s,
     set-up and ms per iteration, and one more solve per leg under the
     profiler (idle share, device time by kernel); then the ``Solver``
-    with block_tridiag on scenario 0 in float64 against its golden;
-21. polish on the sparse path: polish's PCG on K6 against the plain loop
-    over the same products on LISWET1's polish system (float32 to
-    convergence, float64 capped at 2000 steps): equal steps and x bit for
-    bit; then over K5's plain products for the record; ``solve_sparse`` with
+    with block_tridiag on scenario 0 in float64 against its golden, with
+    K7's launches at B=1;
+21. polish on the sparse path: polish's PCG on K6's device loop against
+    the plain loop over the same products and against the stepwise path
+    on LISWET1's polish system (float32 to convergence, float64 capped at
+    2000 steps): equal steps and x bit for bit, ms per CG step of both;
+    then over K5's plain products for the record; ``solve_sparse`` with
     ``polish=True`` at LISWET1 (float64, float32), CVXQP2_L (float64) and
     2 copies of LISWET1 against ``sparse_polish.npz`` (status, iterations,
     status_polish, x and y), with the polished candidate's residuals, the
     ADMM point's, polish ms, the PCG steps of each solve and K6's
-    launches in the polish; the ``SparseSolver`` on LISWET1: set-up,
-    solve, update_lin_cost and a warm re-solve.
+    launches in the polish; at LISWET1 (float64, float32) the polish-on
+    solve on the stepwise path in the same call, bit for bit, with polish
+    ms, ms per CG step and the idle share; the ``SparseSolver`` on
+    LISWET1: set-up, solve, update_lin_cost and a warm re-solve.
 
-The line before the last is a JSON object of the kernels; the last line
-is the device JSON object.
+The line before the last is a JSON object of the kernels (13 rows:
+K6's device loop is cg_loop); the last line is the device JSON object.
 
 ``python3 chip_smoke.py --only k8,polish_solver`` runs the build and the
 named phases alone (names: the ``phase_*`` functions' suffixes), for a
@@ -268,12 +283,30 @@ def profiled(fn):
     return out, wall, events
 
 
+def kernel_label(name: str, width=90) -> str:
+    """A kernel's name without its argument list, its return type and the
+    anonymous namespace, template arguments kept: distinct instances of
+    one template (update_kernel<float> and <double>, a panel kernel with
+    and without its cluster) print apart."""
+    name = name.strip()
+    if name.endswith(")"):
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i]
+                break
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.removeprefix("void ")
+    return name if len(name) <= width else name[:width - 3] + "..."
+
+
 def top_kernels(events, k=6) -> str:
-    """The k kernels (by name, argument lists cut) with the most device
-    time among ``events``, as "name ms (launches)"."""
+    """The k kernels (by name, template arguments kept) with the most
+    device time among ``events``, as "name ms (launches)"."""
     total, count = {}, {}
     for e in events:
-        name = e.name.split("(")[0][-60:]
+        name = kernel_label(e.name)
         total[name] = total.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
         count[name] = count.get(name, 0) + 1
     top = sorted(total, key=total.get, reverse=True)[:k]
@@ -399,7 +432,7 @@ def reset_counts() -> None:
 
     k1.launches = k1.refined_launches = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
     k8.launches_factor = k8.launches_solve = 0
-    k5.launches = k6.launches = 0
+    k5.launches = k6.launches = k6.launches_loop = 0
     k7.launches_factor = k7.launches_solve = 0
 
 
@@ -410,7 +443,8 @@ def read_counts() -> dict:
     return {"admm_iter": k1.launches, "admm_iter_refined": k1.refined_launches, "chol_inverse": k2.launches,
             "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches,
             "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve, "ell_ops": k5.launches,
-            "cg_step": k6.launches, "bt_factor": k7.launches_factor, "bt_solve": k7.launches_solve}
+            "cg_step": k6.launches, "cg_loop": k6.launches_loop, "bt_factor": k7.launches_factor,
+            "bt_solve": k7.launches_solve}
 
 
 def prepared(P, q, A, l, u):
@@ -520,8 +554,11 @@ def phase_k2(dev):
         require(rel <= rel_tol, f"K2 disagrees with its plain version at CVXQP2_S in {dtype}")
         ms_s = cuda_ms(lambda: k2.chol_inverse(Ms), reps=20)
         plain_s = cuda_ms(lambda: k2.chol_inverse_plain(Ms), reps=20)
+        elt = Ms.element_size()
+        bound_s, by_s = bound(2 * elt * 100 * 100, {dtype_name(dtype): 100**3})
         print(f"K2 chol_inverse CVXQP2_S B=1 n=100 {dtype_name(dtype)}: relative difference {rel:.3e}; "
-              f"kernel {ms_s:.4f} ms, plain {plain_s:.4f} ms")
+              f"kernel {ms_s:.4f} ms, plain {plain_s:.4f} ms; bound {bound_s:.6f} ms ({by_s}), share of bound "
+              f"{bound_s / ms_s:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
 
@@ -1009,7 +1046,7 @@ def phase_solver(dev):
     for name, n_launch in total.items():
         if name.startswith("kkt_lu"):  # polish is off here: K8 must stay out of it
             require(n_launch == 0, f"{name} launched on the Solver path with polish off")
-        elif name in ("ell_ops", "cg_step", "bt_factor", "bt_solve"):  # other backends' kernels
+        elif name in ("ell_ops", "cg_step", "cg_loop", "bt_factor", "bt_solve"):  # other backends' kernels
             require(n_launch == 0, f"{name} launched on the dense_inv Solver path")
         else:
             require(n_launch > 0, f"{name} never launched on the Solver path")
@@ -1128,7 +1165,7 @@ def phase_k8(dev):
               f"row-wise backward error against the factors: kernel {rowwise_k:.3e}, plain {rowwise_p:.3e} (bound "
               f"8 sqrt(N) eps = {rowwise_bound:.3e}); backward error against K {backward:.3e} (bound "
               f"{BACKWARD_BOUND[name]:g})")
-        require(same_perm and rel <= RTOL[name], f"K8's factor disagrees with its plain version at {label}")
+        require(same_perm and same_lu, f"K8's factor disagrees with its plain version at {label}")
         require(backward <= BACKWARD_BOUND[name], f"K8's solve has backward error {backward:.3e} at {label}")
         require(rowwise_k <= rowwise_bound,
                 f"K8's solve has row-wise backward error {rowwise_k:.3e} against its factors at {label}")
@@ -1139,6 +1176,9 @@ def phase_k8(dev):
     def times(K, label, reps):
         B, N, _ = K.shape
         lu, perm = k8.kkt_lu_factor(K)
+        kernels, width, cluster = k8.factor_info
+        path = f"clusters of {cluster} CTAs" if cluster else "one block per instance"
+        print(f"K8 kkt_lu_factor {label}: {kernels} kernel launches per factor, panels {width} columns wide, {path}")
         b = torch.randn(B, N, dtype=K.dtype, device=dev)
         (fb, ff), (sb, sf) = k8_cost(B, N, K.dtype)
         LU, pivots = torch.linalg.lu_factor(K)  # library_ms only: the port calls no library LU
@@ -1157,6 +1197,7 @@ def phase_k8(dev):
                   f"torch.linalg.lu_{what} {library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), share of bound "
                   f"{bound_ms / ms:.3f}")
             out[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        out["factor"]["kernels_per_factor"] = kernels
         return out
 
     for dtype in (torch.float64, torch.float32):
@@ -1174,14 +1215,23 @@ def phase_k8(dev):
     del K
     torch.cuda.empty_cache()
 
+    # B = 1, where the batch cannot fill the card: the cluster factor and
+    # the strip solve, each timed beside the library at CVXQP2_M
+    small = {}
     for name in ("CVXQP2_S", "CVXQP2_M"):
         for dtype in (torch.float64, torch.float32):
             K, rows = polish_kkt(on_device(maros_dense(name), dtype, dev), dtype)
             label = f"K_delta {name} B=1 N={K.shape[1]} {dtype_name(dtype)}"
             print(f"K8 {label}: {int(rows[0])} active rows of A")
             compare(K, label)
-            times(K, label, reps=5)
-    return ({**stats["factor"], "max_abs_err": err}, {**stats["solve"], "max_abs_err": err_x})
+            t = times(K, label, reps=5)
+            if name == "CVXQP2_M":
+                small[dtype_name(dtype)] = t
+                for what in ("factor", "solve"):
+                    print(f"K8 kkt_lu_{what} {label}: kernel over library {t[what]['ms'] / t[what]['library_ms']:.3f}")
+    b1 = lambda what: {d: {k: v for k, v in small[d][what].items() if k != "plain_ms"} for d in small}
+    return ({**stats["factor"], "max_abs_err": err, "cvxqp2_m_b1": b1("factor")},
+            {**stats["solve"], "max_abs_err": err_x, "cvxqp2_m_b1": b1("solve")})
 
 
 def phase_polish_batched(dev):
@@ -1385,7 +1435,7 @@ SPARSE_CASES = {
 }
 # The kernels of K5 and K6 (csrc/ell_ops.cu, csrc/cg.cu), by name in the profiler.
 K5_KERNELS = ("reduce_kernel", "scale_kernel")
-K6_KERNELS = ("dot_kernel", "update_kernel", "direction_kernel")
+K6_KERNELS = ("dot_kernel", "update_kernel", "direction_kernel", "loop_kernel")
 
 
 def scenario(name, B=1):
@@ -1492,17 +1542,66 @@ def phase_k5(dev):
                 print(f"  library torch.sparse.mm (CSR) {library_ms:.4f} ms")
             if stats is None:
                 stats = dict(t, max_abs_err=err, library_ms=library_ms)
+
+    # K5's launches in a sparse solve of the B=64 scenario batch of CVXQP2_M
+    import osqp_tpu_torch as ot
+
+    before = read_counts()
+    res = ot.solve_sparse(*scenario("CVXQP2_M", 64), dtype="float64", verbose=False)
+    solved = int((res.status_val == ot.OSQP_SOLVED).sum())
+    after = read_counts()
+    print(f"K5 in solve_sparse, CVXQP2_M scenario batch B=64 float64: {after['ell_ops'] - before['ell_ops']} K5 "
+          f"launches, {after['cg_loop'] - before['cg_loop']} K6 loops; solved {solved} of 64, iterations max "
+          f"{int(res.iter.max())}")
     return stats
 
 
+def loop_cost(op, B, n, steps):
+    """(bytes, operations) of ``steps`` CG steps of the device loop on the
+    ELL operator ``op``: per step the operands (the values and patterns of
+    P, A and A's transpose) read once, and some twelve (B, n) and two
+    (B, m) vectors read or written once; per stored nonzero of the
+    products a multiply-add, and 16 operations per entry of the step's
+    vector work."""
+    elt = op.P.val.element_size()
+    m = op.A.shape[0]
+    nnz = lambda v: int((v != 0).sum())
+    operands = sum(elt * t.numel() + 4 * i.numel() for t, i in ((op.P.val, op.P.idx), (op.A.val, op.A.idx),
+                                                                  (op.A.t_val, op.A.t_idx)))
+    nbytes = operands + elt * B * (12 * n + 2 * m)
+    flops = 2 * (nnz(op.P.val) + nnz(op.A.val) + nnz(op.A.t_val)) + 16 * B * n
+    return steps * nbytes, {dtype_name(op.P.dtype): steps * flops}
+
+
+def stepwise_everywhere():
+    """A measurement hook: while it is in force pcg_solve takes the stepwise
+    path on ELL operators too, so that one call times both paths."""
+    import contextlib
+
+    from osqp_tpu_torch.ops import cg as k6
+
+    @contextlib.contextmanager
+    def hook():
+        loop = k6.pcg_solve_loop
+        k6.pcg_solve_loop = k6.pcg_solve_stepwise
+        try:
+            yield
+        finally:
+            k6.pcg_solve_loop = loop
+
+    return hook()
+
+
 def phase_k6(dev):
-    """K6 (cg_step) against its plain loop: one cg solve from a mid-solve
-    ADMM state of CVXQP2_L (float64, ELL operands; iteration 100) and of
-    the headline data (dense, B=8192, float32; iteration 25, every fourth
-    instance frozen by a huge tolerance): steps equal, x within RTOL,
-    frozen instances bit-unchanged, two runs bit-identical; ms per solve
-    and per step, and one step's vector work timed against the plain step
-    and the bound."""
+    """K6 against its plain loop: one cg solve from a mid-solve ADMM state
+    of CVXQP2_L (float64, ELL operands: the device loop; iteration 100) and
+    of the headline data (dense, B=8192, float32: the step kernels;
+    iteration 25, every fourth instance frozen by a huge tolerance): steps
+    equal, x bit for bit, frozen instances bit-unchanged, two runs
+    bit-identical; at CVXQP2_L the stepwise path on the same operator,
+    bit for bit, and the ms per CG step of both; one step's vector work
+    timed against the plain step and the bound.  Returns the step's stats
+    at the headline (the stepwise path's main user) and the loop's."""
     import torch
 
     from osqp_tpu_torch import admm, _build, batch, solver
@@ -1520,6 +1619,13 @@ def phase_k6(dev):
         return [fac["P"], scaled.A, fac["sigma"], rs.rho_vec, fac["dinv"], b, c.it.x, fac["tol_rel"],
                 int(fac["max_iter"])]
 
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
     B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
     s = solver.Settings(**{**SOLVE_KW, "linsys_solver": "cg"})
     cfg = solver.make_config(n, m, s, torch.float32)
@@ -1531,34 +1637,52 @@ def phase_k6(dev):
     head[7][::4] = 1e9
     cases = (("CVXQP2_L B=1 n=10000 m=12500 float64, ELL", mid_solve(*sparse_prepared("CVXQP2_L", "float64", dev), 100)),
              (f"headline B={B} n={n} m={m} float32, dense", head))
-    stats = None
+    step_stats = loop_stats = None
     for label, args in cases:
         x0 = args[6]
-        before = k6.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        xk, sk = k6.cg_solve(*args)
-        torch.cuda.synchronize()
-        solve_ms = (time.perf_counter() - t0) * 1e3
-        launched = k6.launches - before
+        before, before_loop = k6.launches, k6.launches_loop
+        (xk, sk), solve_ms = timed(lambda: k6.cg_solve(*args))
+        launched, loops = k6.launches - before, k6.launches_loop - before_loop
         xk2, sk2 = k6.cg_solve(*args)
-        xp, sp = k6.cg_solve_plain(*args, dot=k6.kernel_dot)
-        torch.cuda.synchronize()
+        (xp, sp), plain_ms = timed(lambda: k6.cg_solve_plain(*args, dot=k6.kernel_dot))
         diff, rel = rel_err(xk, xp)
         tol = RTOL[dtype_name(xk.dtype)]
         frozen = sk == 0
-        print(f"K6 cg {label}: steps max {int(sk.max())} (plain {int(sp.max())}), steps equal {torch.equal(sk, sp)}, "
-              f"launched {launched}; x relative difference {rel:.3e} (tol {tol:g}), |k-p|max {diff:.3e}; "
-              f"{int(frozen.sum())} frozen instances bit-unchanged {torch.equal(xk[frozen], x0[frozen])}; "
-              f"two runs bit-identical {torch.equal(xk, xk2) and torch.equal(sk, sk2)}; one solve {solve_ms:.3f} ms, "
-              f"{solve_ms / max(launched, 1):.4f} ms per launched step (with the operator's products)")
+        steps = int(sk.max())
+        ell = loops > 0
+        print(f"K6 cg {label}: {'device loop' if ell else 'step kernels'}, steps max {steps} (plain {int(sp.max())}), "
+              f"steps equal {torch.equal(sk, sp)}, launched {loops if ell else launched} "
+              f"{'loop' if ell else 'steps'}; x relative difference {rel:.3e} (tol {tol:g}), |k-p|max {diff:.3e}; "
+              f"{int(frozen.sum())} frozen instances bit-unchanged {torch.equal(xk[frozen], x0[frozen])}; two runs "
+              f"bit-identical {torch.equal(xk, xk2) and torch.equal(sk, sk2)}; one solve {solve_ms:.3f} ms, "
+              f"{solve_ms / max(steps, 1):.4f} ms per CG step (with the operator's products)")
+        require(ell == (label.endswith("ELL") and loops == 1 and launched == 0), f"K6 took the wrong path at {label}")
         require(torch.equal(sk, sp), f"K6 took other steps than its plain loop at {label}")
         require(rel <= tol and torch.equal(xk, xp), f"K6's x off by {rel:.3e} relative at {label}")
         require(torch.equal(xk[frozen], x0[frozen]), f"K6 moved a frozen instance at {label}")
         require(torch.equal(xk, xk2) and torch.equal(sk, sk2), f"K6: two runs differ at {label}")
 
+        Pm, Am, sigma, rho, dinv, b, x0, tol_rel, max_iter = args
+        if ell:
+            # the stepwise path on the same operator, in the same call
+            op = k6._operator(Pm, Am, rho, plain=False)
+            before = k6.launches
+            (xs, ss), step_ms = timed(lambda: k6.pcg_solve_stepwise(op, sigma, dinv, b, tol_rel, max_iter, x0))
+            stepped = k6.launches - before
+            print(f"  stepwise path on the same operator: x bit-identical {torch.equal(xs, xk)}, steps equal "
+                  f"{torch.equal(ss, sk)}; {step_ms:.3f} ms, {step_ms / max(steps, 1):.4f} ms per CG step, {stepped} "
+                  f"step launches; the loop {solve_ms / step_ms:.4f} of its time; the plain loop "
+                  f"{plain_ms / max(steps, 1):.4f} ms per step")
+            require(torch.equal(xs, xk) and torch.equal(ss, sk), f"K6's loop and stepwise path differ at {label}")
+            nbytes, flops = loop_cost(op, b.shape[0], b.shape[1], steps)
+            bound_ms, bound_by = bound(nbytes, flops)
+            loop_stats = dict(ms=solve_ms / steps, plain_ms=plain_ms / steps, bound_ms=bound_ms / steps,
+                              bound_by=bound_by, library_ms=None, max_abs_err=diff, stepwise_ms=step_ms / steps,
+                              steps=steps)
+            print(f"  loop: {solve_ms / steps:.4f} ms per step against a bound of {bound_ms / steps:.6f} ms ({bound_by})")
+            continue
+
         # One step's vector work alone, from the solve's start.
-        Pm, Am, sigma, rho, dinv, b, x0, tol_rel, _ = args
         products = k6._operator(Pm, Am, rho, plain=False)
         x, r, z, p, rz, rr, tol2 = k6._start(products, sigma, dinv, b, x0, tol_rel)
         u, v = products(p)
@@ -1566,22 +1690,56 @@ def phase_k6(dev):
         pairs = torch.stack([rz, rz]), torch.stack([rr, rr])
         Mp = torch.empty_like(b)
         parts = torch.empty((3, Bn, _build.library().osqp_cg_parts(nn)), dtype=b.dtype, device=dev)
-        steps = torch.zeros(Bn, dtype=torch.int32, device=dev)
-        kernel = lambda: k6.cg_step(p, u, v, float(sigma), dinv, tol2, *pairs, 0, Mp, x, r, z, parts, steps)
+        steps_t = torch.zeros(Bn, dtype=torch.int32, device=dev)
+        kernel = lambda: k6.cg_step(p, u, v, float(sigma), dinv, tol2, *pairs, 0, Mp, x, r, z, parts, steps_t)
         plain = lambda: k6.cg_step_plain(p, u, v, sigma, dinv, x, r, rz, rr, tol2)
         elt = b.element_size()
         # p, u, v, dinv, x, r read and x, r, z, p written once; 16 operations per element
         t = report_times(f"K6 cg_step {label}", kernel, plain, 50, elt * Bn * nn * 10 + 3 * elt * Bn,
                          {dtype_name(b.dtype): 16 * Bn * nn})
-        if stats is None:
-            stats = dict(t, max_abs_err=diff, library_ms=None)
-    return stats
+        step_stats = dict(t, max_abs_err=diff, library_ms=None)
+    return step_stats, loop_stats
+
+
+def cg_step_spy():
+    """A measurement hook: the CG steps of every pcg_solve call (their
+    tensors, read only at the end), for ms per CG step."""
+    import contextlib
+
+    from osqp_tpu_torch.ops import cg as k6
+
+    seen = []
+
+    @contextlib.contextmanager
+    def hook():
+        real = {name: getattr(k6, name) for name in ("pcg_solve_loop", "pcg_solve_stepwise")}
+
+        def spy(fn):
+            def call(*args, **kw):
+                x, steps = fn(*args, **kw)
+                seen.append(steps)
+                return x, steps
+
+            return call
+
+        for name, fn in real.items():
+            setattr(k6, name, spy(fn))
+        try:
+            yield seen
+        finally:
+            for name, fn in real.items():
+                setattr(k6, name, fn)
+
+    return hook()
 
 
 def phase_sparse(dev):
     """solve_sparse with polish off against the JAX package's results in
-    tests/data/torch_goldens/sparse_maros.npz.  Counts are set to 0 just
-    before the CVXQP2_L solve and read just after it."""
+    tests/data/torch_goldens/sparse_maros.npz, the CG on K6's device loop.
+    Counts are set to 0 just before the CVXQP2_L solve and read just after
+    it.  At CVXQP2_L and at the 8 copies of LISWET1 the same solve with the
+    stepwise path (stepwise_everywhere) in the same call: the same bits,
+    and both paths' solve ms, ms per CG step, launches and idle share."""
     import torch
 
     import osqp_tpu_torch as ot
@@ -1589,6 +1747,7 @@ def phase_sparse(dev):
 
     gold = np.load(SPARSE_GOLDENS)
     launches = None
+    paths = {}
     # x and y against the golden, relative to its largest entry.  CVXQP2_L
     # is held to its eps (1e-3): its ADMM path is sensitive to the inexact
     # CG solves themselves, so that the JAX package's own run goes from 450
@@ -1604,13 +1763,15 @@ def phase_sparse(dev):
         before = read_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = ot.solve_sparse(P, q, A, l, u, dtype=dtype, verbose=False)
-        status = res.status_val.cpu().numpy()
+        with cg_step_spy() as seen:
+            res = ot.solve_sparse(P, q, A, l, u, dtype=dtype, verbose=False)
+            status = res.status_val.cpu().numpy()
         wall = (time.perf_counter() - t0) * 1e3
         after = read_counts()
         if main_path:
             launches = after
-        delta = {k: after[k] - before[k] for k in ("ell_ops", "cg_step", "term_products", "ruiz")}
+        delta = {k: after[k] - before[k] for k in ("ell_ops", "cg_step", "cg_loop", "term_products", "ruiz")}
+        cg_steps = int(sum(int(k.max()) for k in seen))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sparse_prepared(name, dtype, dev, B)
@@ -1625,8 +1786,8 @@ def phase_sparse(dev):
         print(f"sparse {case} B={B} n={x.shape[1]} m={y.shape[1]}: status {status.tolist()} (golden "
               f"{g('status_val').tolist()}), iterations {iters.tolist()} (golden {g('iter').tolist()}), obj relative "
               f"{obj_rel:.3e}, x and y within {dx:.3e} and {dy:.3e} of the golden's largest entry; launches {delta}, "
-              f"CG steps launched per ADMM iteration {delta['cg_step'] / max(it, 1):.2f}; setup {setup:.3f} ms, solve "
-              f"{wall:.3f} ms, {(wall - setup) / max(it, 1):.4f} ms per iteration")
+              f"{cg_steps} CG steps in {len(seen)} CG solves, {cg_steps / max(it, 1):.2f} per ADMM iteration; setup "
+              f"{setup:.3f} ms, solve {wall:.3f} ms, {(wall - setup) / max(it, 1):.4f} ms per iteration")
         require(np.array_equal(status, g("status_val")), f"sparse {case}: status {status.tolist()}")
         require(np.isfinite(x).all() and np.isfinite(y).all(), f"sparse {case}: non-finite x or y")
         if dtype == "float64":
@@ -1635,8 +1796,40 @@ def phase_sparse(dev):
                     f"sparse {case} disagrees with the JAX package's run")
         else:
             require(np.abs(iters - g("iter")).max() <= 25, f"sparse {case}: iterations {iters.tolist()}")
-        require(delta["ell_ops"] > 0 and delta["cg_step"] > 0, f"sparse {case}: K5 or K6 never launched")
+        require(delta["ell_ops"] > 0 and delta["cg_loop"] == len(seen) > 0 and delta["cg_step"] == 0,
+                f"sparse {case}: the CG did not run on K6's device loop alone")
         require(delta["term_products"] == delta["ruiz"] == 0, f"sparse {case}: a dense kernel launched")
+
+        if case in ("CVXQP2_L/float64", "LISWET1_B8/float64"):
+            # the same solve on the stepwise path, and both under the profiler
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with stepwise_everywhere(), cg_step_spy() as seen_s:
+                res_s = ot.solve_sparse(P, q, A, l, u, dtype=dtype, verbose=False)
+                torch.cuda.synchronize()
+            wall_s = (time.perf_counter() - t0) * 1e3
+            after = read_counts()
+            steps_s = int(sum(int(k.max()) for k in seen_s))
+            same = (torch.equal(res_s.x, res.x) and torch.equal(res_s.y, res.y)
+                    and torch.equal(res_s.iter, res.iter) and steps_s == cg_steps)
+            run = lambda: ot.solve_sparse(P, q, A, l, u, dtype=dtype, verbose=False)
+            _, pwall, events = profiled(run)
+            busy = event_ms(events)
+            with stepwise_everywhere():
+                _, pwall_s, events_s = profiled(run)
+            busy_s = event_ms(events_s)
+            paths[case] = dict(loop_ms=wall, stepwise_ms=wall_s, steps=cg_steps, loop_ms_per_step=wall / cg_steps,
+                               stepwise_ms_per_step=wall_s / cg_steps, idle_loop=1 - busy / pwall,
+                               idle_stepwise=1 - busy_s / pwall_s)
+            print(f"  {case} on the stepwise path in the same call: x, y and iterations bit-identical {same}; "
+                  f"solve {wall_s:.3f} ms against the loop's {wall:.3f}; ms per CG step {wall_s / cg_steps:.4f} "
+                  f"against {wall / cg_steps:.4f} ({wall / wall_s:.4f} of it); launches per solve: K6 "
+                  f"{after['cg_step'] - before['cg_step']} steps and K5 {after['ell_ops'] - before['ell_ops']} "
+                  f"against {delta['cg_loop']} loops and K5 {delta['ell_ops']}; under the profiler idle share "
+                  f"{1 - busy_s / pwall_s:.3f} against the loop's {1 - busy / pwall:.3f} (wall {pwall_s:.3f} and "
+                  f"{pwall:.3f} ms); loop run: {top_kernels(events, 4)}")
+            require(same, f"sparse {case}: the stepwise path and the device loop differ")
 
     # Where a CVXQP2_L solve's time goes: one more solve under the profiler.
     P, q, A, l, u = scenario("CVXQP2_L")
@@ -1645,8 +1838,9 @@ def phase_sparse(dev):
     k5_ms, k6_ms, busy = event_ms(events, K5_KERNELS), event_ms(events, K6_KERNELS), event_ms(events)
     print(f"sparse CVXQP2_L float64 under the profiler: wall {wall:.3f} ms over {it} iterations = {wall / it:.4f} "
           f"ms/iteration; K5 device time {k5_ms:.3f} ms ({k5_ms / wall:.3f} of the wall), K6 {k6_ms:.3f} ms "
-          f"({k6_ms / wall:.3f}), all device work {busy:.3f} ms, idle share {1.0 - busy / wall:.3f}")
-    return launches
+          f"({k6_ms / wall:.3f}), all device work {busy:.3f} ms, idle share {1.0 - busy / wall:.3f}; "
+          f"{top_kernels(events)}")
+    return launches, paths
 
 
 def phase_cg_dense(dev):
@@ -1672,8 +1866,11 @@ def phase_cg_dense(dev):
     n, m = HEADLINE["n"], HEADLINE["m"]
     args = on_device(make_qps(1024, n, m), torch.float32, dev)
     out = {}
+    launches = None
     for backend in ("dense_inv", "cg"):
         ot.solve_batch(*args, **{**SOLVE_KW, "linsys_solver": backend, "max_iter": 25})  # warm-up
+        if backend == "cg":
+            reset_counts()
         before = read_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1681,6 +1878,9 @@ def phase_cg_dense(dev):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         after = read_counts()
+        if backend == "cg":
+            launches = after
+            require(after["cg_step"] > 0 and after["cg_loop"] == 0, "the cg backend on dense operands left the step kernels")
         iters = res.iter.float()
         solved = float((res.status_val == ot.OSQP_SOLVED).float().mean())
         out[backend] = res
@@ -1690,6 +1890,7 @@ def phase_cg_dense(dev):
         require(solved >= 0.99, f"{backend} backend at the headline: solved {solved}")
     agree = int((out["cg"].status_val == out["dense_inv"].status_val).sum())
     print(f"cg backend headline: statuses equal to dense_inv's in {agree} of 1024 instances")
+    return launches
 
 
 # The MPC cell: bench.py's bench_mpc (nx = 8, nu = 4, horizon 30: n = 372,
@@ -1897,8 +2098,12 @@ def phase_mpc(dev):
     require(same, "mpc: block_tridiag and dense_inv statuses differ")
 
     g = lambda f: gold[f"MPC1/float64/{f}"]
+    before = read_counts()
     r = ot.Solver(base.P, base.q, base.A, arrays[3][0], arrays[4][0], device=dev, dtype="float64",
                   linsys_solver="block_tridiag", block_size=b, **MPC_KW).solve()
+    after = read_counts()
+    print(f"mpc Solver block_tridiag scenario 0 float64 (B=1): K7 launches, setup and solve: factor "
+          f"{after['bt_factor'] - before['bt_factor']}, solve {after['bt_solve'] - before['bt_solve']}")
     dx, dy = float(np.abs(r.x - g("x")[0]).max()), float(np.abs(r.y - g("y")[0]).max())
     print(f"mpc Solver block_tridiag scenario 0 float64: {r.info.status}, {r.info.iter} iterations (golden "
           f"{int(g('iter')[0])}), |dx|max {dx:.3e}, |dy|max {dy:.3e}; setup {r.info.setup_time * 1e3:.3f} ms, solve "
@@ -1931,10 +2136,11 @@ def phase_sparse_polish(dev):
 
     def polish_spy(*args, **kw):
         torch.cuda.synchronize()
-        before, t0 = k6.launches, time.perf_counter()
+        before, t0 = (k6.launches, k6.launches_loop), time.perf_counter()
         res = real_polish(*args, **kw)
         torch.cuda.synchronize()
-        seen.append(dict(res=res, ms=(time.perf_counter() - t0) * 1e3, k6=k6.launches - before, steps=[]))
+        seen.append(dict(res=res, ms=(time.perf_counter() - t0) * 1e3, k6=k6.launches - before[0],
+                         loops=k6.launches_loop - before[1], steps=[]))
         return res
 
     def solver_spy(*args):
@@ -1960,19 +2166,31 @@ def phase_sparse_polish(dev):
         dinv = 1.0 / (k5.ell_diagonal(scaled.P) + d + k5.ell_sq_colsums(MA, ones) / d)
         tol = torch.full((B,), 1e-12 if dtype == "float64" else 1e-7, dtype=x.dtype, device=dev)
         max_iter = cap or tpolish.polish_cg_cap(n, m)
-        kern = lambda v: (k5.ell_matvec(scaled.P, v), k5.ell_tmatvec(MA, k5.ell_matvec(MA, v)) / d)
-        plain = lambda v: (k5.ell_matvec_plain(scaled.P, v),
-                           k5.ell_tmatvec_plain(MA, k5.ell_matvec_plain(MA, v)) / d)
+        op = k6.EllOperator(scaled.P, MA, div=d)
+        plain = op.plain
+        before = k6.launches_loop
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xk, sk = k6.pcg_solve(op, d, dinv, t, tol, max_iter)
+        torch.cuda.synchronize()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        launched = k6.launches_loop - before
+        # the stepwise path on the same operator (K5 launches and the step
+        # kernels), in the same call
         before = k6.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        xk, sk = k6.pcg_solve(kern, d, dinv, t, tol, max_iter)
+        xs, ss = k6.pcg_solve_stepwise(op, d, dinv, t, tol, max_iter)
         torch.cuda.synchronize()
-        solve_ms = (time.perf_counter() - t0) * 1e3
-        launched = k6.launches - before
-        # the plain step, summing in the kernel's order, over the same (K5)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        stepped = k6.launches - before
+        # the plain step, summing in the kernels' order, over the same (K5)
         # products: K6 alone is compared
-        xp, sp_ = k6.pcg_solve_plain(kern, d, dinv, t, tol, max_iter, dot=k6.kernel_dot)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xp, sp_ = k6.pcg_solve_plain(op, d, dinv, t, tol, max_iter, dot=k6.kernel_dot)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
         # and the CPU path's plain loop: K5's plain products, PyTorch's sums
         xq, sq = k6.pcg_solve_plain(plain, d, dinv, t, tol, max_iter)
 
@@ -1981,29 +2199,27 @@ def phase_sparse_polish(dev):
             return float(torch.linalg.vector_norm(u + d * v + w - t) / torch.linalg.vector_norm(t))
 
         diff, rel = rel_err(xk, xp)
+        steps = int(sk.max())
         label = f"LISWET1 polish system n={n} m={m} (active rows {int(mask.sum())}) {dtype}, cap {max_iter}"
-        print(f"polish PCG on K6 {label}: steps {int(sk.max())} (plain step {int(sp_.max())}), equal "
-              f"{torch.equal(sk, sp_)}, x bit-identical {torch.equal(xk, xp)}, K6 launched {launched}; the CPU "
-              f"path's plain loop {int(sq.max())} steps, x relative difference {rel_err(xk, xq)[1]:.3e}; relative "
-              f"residual of S x = t {residual(xk):.3e} (CPU path's loop {residual(xq):.3e}); one solve "
-              f"{solve_ms:.3f} ms, {solve_ms / max(launched, 1):.4f} ms per launched step (with the operator's "
-              f"products)")
+        print(f"polish PCG on K6 {label}: steps {steps} (plain step {int(sp_.max())}), equal "
+              f"{torch.equal(sk, sp_)}, x bit-identical {torch.equal(xk, xp)}, {launched} loop launch; the stepwise "
+              f"path x bit-identical {torch.equal(xs, xk)}, steps equal {torch.equal(ss, sk)}, {stepped} step "
+              f"launches; the CPU path's plain loop {int(sq.max())} steps, x relative difference "
+              f"{rel_err(xk, xq)[1]:.3e}; relative residual of S x = t {residual(xk):.3e} (CPU path's loop "
+              f"{residual(xq):.3e}); one solve {solve_ms:.3f} ms on the loop, {solve_ms / max(steps, 1):.4f} ms per "
+              f"CG step, against {step_ms:.3f} ms, {step_ms / max(steps, 1):.4f} ms per step on the stepwise path "
+              f"({solve_ms / step_ms:.4f} of it)")
         require(torch.equal(sk, sp_) and torch.equal(xk, xp), f"polish PCG differs from its plain loop at {label}")
+        require(torch.equal(xs, xk) and torch.equal(ss, sk), f"polish PCG: loop and stepwise path differ at {label}")
+        require(launched == 1, f"polish PCG at {label} did not run on the device loop")
         if pcg_stats is None:
-            # one step's vector work alone, from the solve's start
-            xs, r_, z_, p, rz, rr, tol2 = k6._start(kern, d, dinv, t, None, tol)
-            u, v = kern(p)
-            pairs = torch.stack([rz, rz]), torch.stack([rr, rr])
-            Mp = torch.empty_like(t)
-            parts = torch.empty((3, B, _build.library().osqp_cg_parts(n)), dtype=t.dtype, device=dev)
-            steps = torch.zeros(B, dtype=torch.int32, device=dev)
-            elt = t.element_size()
-            st = report_times(f"K6 cg_step in polish's PCG {label}",
-                              lambda: k6.cg_step(p, u, v, float(d), dinv, tol2, *pairs, 0, Mp, xs, r_, z_, parts,
-                                                 steps),
-                              lambda: k6.cg_step_plain(p, u, v, d, dinv, xs, r_, rz, rr, tol2), 50,
-                              elt * B * n * 10 + 3 * elt * B, {dtype: 16 * B * n})
-            pcg_stats = dict(st, max_abs_err=diff, library_ms=None)
+            nbytes, flops = loop_cost(op, B, n, steps)
+            bound_ms, bound_by = bound(nbytes, flops)
+            pcg_stats = dict(ms=solve_ms / steps, plain_ms=plain_ms / steps, bound_ms=bound_ms / steps,
+                             bound_by=bound_by, library_ms=None, max_abs_err=diff, stepwise_ms=step_ms / steps,
+                             steps=steps, shape=label)
+            print(f"  loop in polish's PCG: {pcg_stats['ms']:.4f} ms per step, plain loop "
+                  f"{pcg_stats['plain_ms']:.4f}, bound {pcg_stats['bound_ms']:.6f} ms ({bound_by})")
 
     gold = np.load(SPARSE_POLISH_GOLDENS)
     cases = {"LISWET1/float64": ("LISWET1", "float64", 1), "LISWET1/float32": ("LISWET1", "float32", 1),
@@ -2012,6 +2228,7 @@ def phase_sparse_polish(dev):
     # ADMM point is held to its eps (see phase_sparse), float32 to 1e-3
     xy_tol = {"CVXQP2_L/float64": 1e-3, "LISWET1/float32": 1e-3}
     launches = polish_k6 = None
+    polish_paths = {}
     batch.polish_fn, tpolish._ell_kkt_solver = polish_spy, solver_spy
     try:
         for case, (name, dtype, B) in cases.items():
@@ -2034,7 +2251,7 @@ def phase_sparse_polish(dev):
             pol = next(e for e in seen if "res" in e)
             steps = [[int(k.max()) for k in e["steps"]] for e in seen if "res" not in e]
             if main_path:
-                polish_k6 = pol["k6"]
+                polish_k6 = pol["loops"]
             iters = res.iter.cpu().numpy()
             x, y = res.x.cpu().numpy(), res.y.cpu().numpy()
             dx = float(np.abs(x - g("x")).max() / np.abs(g("x")).max())
@@ -2046,8 +2263,8 @@ def phase_sparse_polish(dev):
                   f"{pr.dua_res.cpu().tolist()} against the ADMM point's pri_res "
                   f"{off.pri_res.cpu().tolist()}, dua_res {off.dua_res.cpu().tolist()}; x and y within {dx:.3e} and "
                   f"{dy:.3e} of the golden's largest entry; polish {pol['ms']:.3f} ms of a {wall:.3f} ms solve, PCG "
-                  f"steps per solve {steps}, K6 launches in the polish {pol['k6']}, launches "
-                  f"{ {k: after[k] - before[k] for k in ('ell_ops', 'cg_step')} }")
+                  f"steps per solve {steps}, K6 loop launches in the polish {pol['loops']} (step launches "
+                  f"{pol['k6']}), launches {dict((k, after[k] - before[k]) for k in ('ell_ops', 'cg_step', 'cg_loop'))}")
             if f"{name}/{dtype}/host_status_polish" in gold.files and B == 1:
                 print(f"  the JAX package's B = 1 host polish gave status_polish "
                       f"{int(gold[f'{name}/{dtype}/host_status_polish'])}")
@@ -2060,7 +2277,35 @@ def phase_sparse_polish(dev):
             else:
                 require(np.abs(iters - g("iter")).max() <= 25, f"sparse_polish {case}: iterations {iters.tolist()}")
             require(dx <= tol and dy <= tol, f"sparse_polish {case} disagrees with the JAX package's run")
-            require(pol["k6"] > 0 and all(s > 0 for s in steps[0]), f"sparse_polish {case}: the PCG never ran on K6")
+            require(pol["loops"] > 0 and pol["k6"] == 0 and all(s > 0 for s in steps[0]),
+                    f"sparse_polish {case}: the PCG did not run on K6's device loop")
+            if case in ("LISWET1/float64", "LISWET1/float32"):
+                # the same polish-on solve on the stepwise path, in the same call
+                seen.clear()
+                with stepwise_everywhere():
+                    res_s = ot.solve_sparse(P, q, A, l, u, dtype=dtype, polish=True, verbose=False)
+                    torch.cuda.synchronize()
+                pol_s = next(e for e in seen if "res" in e)
+                same = all(torch.equal(getattr(res_s, f), getattr(res, f)) for f in ("x", "y", "iter", "status_polish"))
+                n_steps = sum(steps[0])
+                run = lambda: ot.solve_sparse(P, q, A, l, u, dtype=dtype, polish=True, verbose=False)
+                _, pwall, events = profiled(run)
+                idle = 1 - event_ms(events) / pwall
+                idle_s = "not measured (its ~1e6 kernel events are too many to trace)"
+                if dtype == "float32":
+                    with stepwise_everywhere():
+                        _, pwall_s, events_s = profiled(run)
+                    idle_s = f"{1 - event_ms(events_s) / pwall_s:.3f}"
+                polish_paths[case] = dict(loop_ms=pol["ms"], stepwise_ms=pol_s["ms"], steps=n_steps,
+                                          loop_ms_per_step=pol["ms"] / n_steps,
+                                          stepwise_ms_per_step=pol_s["ms"] / n_steps, idle_loop=idle)
+                print(f"  {case} polish on the stepwise path in the same call: x, y, iterations and status_polish "
+                      f"bit-identical {same}; polish {pol_s['ms']:.3f} ms against the loop's {pol['ms']:.3f} "
+                      f"({pol['ms'] / pol_s['ms']:.4f} of it); ms per CG step {pol_s['ms'] / n_steps:.4f} against "
+                      f"{pol['ms'] / n_steps:.4f}; launches in the polish: K6 {pol_s['k6']} steps against "
+                      f"{pol['loops']} loops; idle share of the polish-on solve under the profiler: loop {idle:.3f} "
+                      f"(wall {pwall:.3f} ms), stepwise {idle_s}")
+                require(same, f"sparse_polish {case}: the stepwise path and the device loop differ")
     finally:
         batch.polish_fn, tpolish._ell_kkt_solver = real_polish, real_solver
 
@@ -2086,7 +2331,7 @@ def phase_sparse_polish(dev):
             and dx <= 1e-5 * np.abs(sparse_gold["LISWET1/float64/x"]).max(), "SparseSolver LISWET1: first solve")
     require(r2.info.status_val == ot.OSQP_SOLVED and np.abs(r2.x - cold.x.cpu().numpy()[0]).max() <= 1e-2,
             "SparseSolver LISWET1: the warm re-solve")
-    return launches, polish_k6, pcg_stats
+    return launches, polish_k6, pcg_stats, polish_paths
 
 
 def main() -> int:
@@ -2133,21 +2378,25 @@ def main() -> int:
     phase_polish_solver(dev)
     phase_kkt_lu_backend(dev)
     k5_stats = phase_k5(dev)
-    k6_stats = phase_k6(dev)
-    sparse_launches = phase_sparse(dev)
-    phase_cg_dense(dev)
+    k6_stats, loop_stats = phase_k6(dev)
+    sparse_launches, sparse_paths = phase_sparse(dev)
+    cg_dense_launches = phase_cg_dense(dev)
     k7_factor_stats, k7_solve_stats = phase_k7(dev)
     mpc_launches = phase_mpc(dev)
-    polish_launches_sparse, polish_k6, pcg_stats = phase_sparse_polish(dev)
+    polish_launches_sparse, polish_loops, pcg_stats, polish_paths = phase_sparse_polish(dev)
 
     # launches: the batched headline solve's, and for K1r, which that
     # well-conditioned batch does not run, the Solver path's (its times:
     # CVXQP2_M in float32, where the Solver runs it; the others' at the
-    # headline shape); for K8 the headline solve's with polish on; for K5
-    # and K6 the sparse path's CVXQP2_L solve (their times: A x and one
-    # step at CVXQP2_L in float64); for K7 the MPC cell's block_tridiag
-    # solve (times at the MPC cell, B=1000, float32); for K6 in polish's
-    # PCG the K6 launches of LISWET1's float64 polish (time: one step on
+    # headline shape); for K8 the headline solve's with polish on (times at
+    # the headline, and at CVXQP2_M B=1 under cvxqp2_m_b1); for K5 the
+    # sparse path's CVXQP2_L solve (times: A x at CVXQP2_L in float64); for
+    # K6's step kernels the cg backend's dense solve at B=1024 (times: one
+    # step at the headline shape, B=8192); for K6's device loop the
+    # CVXQP2_L solve (times per CG step, and the stepwise path's beside
+    # them under stepwise_ms); for K7 the MPC cell's block_tridiag solve
+    # (times at the MPC cell, B=1000, float32); for K6 in polish's PCG the
+    # loop's launches in LISWET1's float64 polish (times per CG step on
     # LISWET1's float32 polish system).
     kernels = [
         dict(name="admm_iter", route="cuda", source="osqp_tpu_torch/csrc/admm_iter.cu",
@@ -2170,15 +2419,20 @@ def main() -> int:
         dict(name="ell_ops", route="cuda", source="osqp_tpu_torch/csrc/ell_ops.cu",
              replaces="osqp_tpu/sparse_ops.py:120", launches=sparse_launches["ell_ops"], **k5_stats),
         dict(name="cg_step", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",
-             replaces="osqp_tpu/linsys/cg.py:129", launches=sparse_launches["cg_step"], **k6_stats),
+             replaces="osqp_tpu/linsys/cg.py:129", launches=cg_dense_launches["cg_step"], **k6_stats),
         dict(name="cg_step_polish_pcg", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",
-             replaces="osqp_tpu/polish.py:65", launches=polish_k6,
-             launches_solve=polish_launches_sparse["cg_step"], **pcg_stats),
+             replaces="osqp_tpu/polish.py:65", launches=polish_loops,
+             launches_solve=polish_launches_sparse["cg_loop"], paths=polish_paths, **pcg_stats),
         dict(name="k7_factor", route="cuda", source="osqp_tpu_torch/csrc/block_tridiag.cu",
              replaces="osqp_tpu/linsys/block_tridiag.py:133", launches=mpc_launches["bt_factor"], **k7_factor_stats),
         dict(name="k7_solve", route="cuda", source="osqp_tpu_torch/csrc/block_tridiag.cu",
              replaces="osqp_tpu/linsys/block_tridiag.py:180", launches=mpc_launches["bt_solve"], **k7_solve_stats),
+        dict(name="cg_loop", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",
+             replaces="osqp_tpu/linsys/cg.py:129", launches=sparse_launches["cg_loop"], paths=sparse_paths,
+             **loop_stats),
     ]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']} was launched no time on its main path")
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))

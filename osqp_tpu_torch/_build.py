@@ -49,12 +49,15 @@ _SIGNATURES = {
     "osqp_admm_iter_refined": (_I,) + (_P,) * 22 + (_D, _D, _I, _I, _I, _I, _P),
     "osqp_ruiz": (_I,) + (_P,) * 17 + (_I,) * 7 + (_P,),
     "osqp_term_products": (_I,) + (_P,) * 11 + (_I,) * 5 + (_P,),
-    "osqp_kkt_lu_factor": (_I, _P, _P, _P, _I, _I, _P),
-    "osqp_kkt_lu_solve": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "osqp_kkt_lu_factor": (_I, _P, _P, _P, _I, _I, _I, _P, _P),
+    "osqp_kkt_lu_solve_scratch": (_I,) * 3,
+    "osqp_kkt_lu_solve": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "osqp_ell_reduce": (_I, _I) + (_P,) * 5 + (_I,) * 4 + (_P,),
     "osqp_ell_scale": (_I,) + (_P,) * 9 + (_I,) * 5 + (_P,),
     "osqp_cg_parts": (_I,),
     "osqp_cg_step": (_I,) + (_P,) * 15 + (_D, _I, _I, _P),
+    "osqp_cg_loop": (_I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _D, _D) + (_P,) * 12 + (_I,) * 4 + (_P,),
+    "osqp_cg_loop_blocks": (_I,) * 3,
     "osqp_bt_factor": (_I, _P, _P, _P, _I, _I, _I, _P),
     "osqp_bt_solve": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
 }

@@ -21,7 +21,8 @@
 // non-negative maximum, as the JAX reductions have them: nothing masks by
 // count.  Sums run in slot order from 0, each product and sum rounded on
 // its own (no fused multiply-add), as the plain versions in ops/ell.py sum
-// them, so kernel and plain version agree bit for bit.
+// them, so kernel and plain version agree bit for bit.  The reduction over
+// one row lives in ell_gather.cuh, which K6's device loop shares.
 //
 // What bounds it on the H100: latency and launch overhead.  k is the
 // largest row count (1-9 on the Maros-Meszaros problems of the sparse
@@ -34,12 +35,11 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "ell_gather.cuh"
 
 namespace {
 
 using namespace osqp_cuda;
-
-enum Mode { kSum = 0, kWSum = 1, kSq = 2, kMax = 3, kDiag = 4 };
 
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
@@ -50,25 +50,7 @@ reduce_kernel(const T* __restrict__ val, const int32_t* __restrict__ idx, const 
   for (size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; e < total; e += stride) {
     const size_t b = e / R;
     const int r = static_cast<int>(e - b * R);
-    const T* v = val + e * k;
-    const int32_t* j = idx + static_cast<size_t>(r) * k;
-    const T* gb = g + b * G;
-    T acc = T(0);
-    for (int s = 0; s < k; ++s) {
-      if (M == kSum) {
-        acc = add(acc, mul(v[s], gb[j[s]]));
-      } else if (M == kWSum) {
-        acc = add(acc, mul(v[s], mul(w[b * G + j[s]], gb[j[s]])));
-      } else if (M == kSq) {
-        acc = add(acc, mul(mul(v[s], v[s]), gb[j[s]]));
-      } else if (M == kMax) {
-        const T a = mul(v[s] < T(0) ? -v[s] : v[s], gb[j[s]]);
-        acc = s == 0 || a > acc ? a : acc;
-      } else {
-        if (j[s] == r) acc = add(acc, v[s]);
-      }
-    }
-    out[e] = acc;
+    out[e] = ell_row<T, M>(val + e * k, idx + static_cast<size_t>(r) * k, g + b * G, w ? w + b * G : nullptr, k, r);
   }
 }
 

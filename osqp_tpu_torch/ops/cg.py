@@ -9,32 +9,41 @@ steps, where M p = P p + sigma p + V p and ``products(p)`` returns
 (P p, V p); V p is None where V is 0.  An instance whose r'r is at or
 below its tolerance is frozen (alpha = 0), so its x stops changing bit
 for bit.  :func:`cg_solve` is the ``cg`` backend's case,
-M = P + sigma I + A' diag(rho) A, whose products are K5 launches on ELL
-operands and batched GEMVs on dense ones; polish passes its own
-operator (``osqp_tpu_torch.polish``).
+M = P + sigma I + A' diag(rho) A; polish passes its own operator
+(``osqp_tpu_torch.polish``).  On ELL operands the operator is an
+:class:`EllOperator`, which names its form (the cg backend's
+V p = A'(rho * A p) or polish's V p = A'(A p) / d); on dense ones a
+function of batched GEMVs.
 
-For CUDA tensors each step's vector work is one call of the kernels in
-``csrc/cg.cu`` (:func:`cg_step`, counted in ``launches``), and the host
-tests "is any instance still live" once per :data:`CHUNK` steps, each
-chunk clipped to the steps left below ``max_iter``.  A step taken after
-every instance has converged has alpha = 0 everywhere and leaves x
-unchanged, so the result equals that of the JAX loop, which tests at
-every step.  For CPU tensors :func:`pcg_solve_plain` runs the same loop
-in plain PyTorch, testing at every step (or, with ``chunk``, as the
-kernel path does).  With ``dot=kernel_dot`` it sums its inner products
-in the kernel's order, so that over the same products the kernel and the
-plain loop take the same steps to the same bits: the reference the
-card's tests hold K6 to.  By default it sums as PyTorch does, the order
-the CPU path's parity with the JAX package was set on: the CG is
-inexact, and the ADMM point moves with the rounding of its sums (by
-2e-6 in y at CVXQP2_S in float64 under the kernel's order, past the 1e-6
-those tests hold).
+For CUDA tensors the path follows the operator's type.  An
+:class:`EllOperator` runs the whole solve in one launch of the loop in
+``csrc/cg.cu`` (:func:`pcg_solve_loop`, counted in ``launches_loop``):
+the products, the step and the stop test at every step stay on the
+device, and the host reads nothing until the end.  Any other operator
+(dense batches) takes :func:`pcg_solve_stepwise`: each step's vector
+work is one call of the step kernels (:func:`cg_step`, counted in
+``launches``), and the host tests "is any instance still live" once per
+:data:`CHUNK` steps, each chunk clipped to the steps left below
+``max_iter``.  A step taken after every instance has converged has
+alpha = 0 everywhere and leaves x unchanged, so both equal the JAX loop,
+which tests at every step.  For CPU tensors :func:`pcg_solve_plain` runs
+the same loop in plain PyTorch, testing at every step (or, with
+``chunk``, as the stepwise path does).  With ``dot=kernel_dot`` it sums
+its inner products in the kernels' order, so that over the same
+products the kernels and the plain loop take the same steps to the same
+bits: the reference the card's tests hold K6 to.  By default it sums as
+PyTorch does, the order the CPU path's parity with the JAX package was
+set on: the CG is inexact, and the ADMM point moves with the rounding of
+its sums (by 2e-6 in y at CVXQP2_S in float64 under the kernel's order,
+past the 1e-6 those tests hold).
 
-Both return ``(x, steps)``: ``steps`` (B,) int32 counts the steps in
+All return ``(x, steps)``: ``steps`` (B,) int32 counts the steps in
 which each instance was live, so its maximum is the JAX loop's count.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -50,25 +59,61 @@ CHUNK = 8
 _THREADS = 256
 _MAX_PARTS = 64
 
-launches = 0
+launches = 0  # step launches (pcg_solve_stepwise)
+launches_loop = 0  # loop launches, one per solve (pcg_solve_loop)
+
+
+@dataclasses.dataclass(frozen=True)
+class EllOperator:
+    """p -> (P p, V p) on ELL operands, V p None when A has no rows: with
+    ``w`` (B, m) the cg backend's V p = A'(w * A p) (K5's weighted
+    transpose), else polish's V p = A'(A p) / ``div``, divided after the
+    transposed product.  ``div`` is a host number (a float or a 0-d CPU
+    tensor) in the operands' dtype; the products divide by a copy of it
+    on the operands' device, elementwise and correctly rounded, as the
+    loop divides (PyTorch would multiply a CUDA tensor by the reciprocal
+    of a CPU scalar)."""
+
+    P: ELLMatrix
+    A: ELLMatrix
+    w: torch.Tensor | None = None
+    div: float | torch.Tensor | None = None
+
+    def __post_init__(self):
+        if (self.w is None) == (self.div is None):
+            raise ValueError("EllOperator takes exactly one of w (the cg form) and div (polish's form)")
+        if self.div is not None:
+            if isinstance(self.div, torch.Tensor) and (self.div.device.type != "cpu" or self.div.ndim):
+                raise ValueError("EllOperator: div is a host number")
+            object.__setattr__(self, "_div", torch.as_tensor(self.div, dtype=self.P.dtype).to(self.P.device))
+
+    def __call__(self, p):
+        return self._products(p, ell.ell_matvec, ell.ell_tmatvec)
+
+    def plain(self, p):
+        """The same products through K5's plain versions."""
+        return self._products(p, ell.ell_matvec_plain, ell.ell_tmatvec_plain)
+
+    def _products(self, p, mv, tv):
+        u = mv(self.P, p)
+        if not self.A.shape[0]:
+            return u, None
+        if self.w is not None:
+            return u, tv(self.A, mv(self.A, p), self.w)
+        return u, tv(self.A, mv(self.A, p)) / self._div
 
 
 def _operator(P, A, rho_vec, plain: bool):
-    """p -> (P p, A'(rho * A p), None when A has no rows): K5 (or, with
-    ``plain``, its plain versions) on ELL operands, ``torch.bmm`` on
-    dense ones."""
-    sparse = isinstance(P, ELLMatrix) or isinstance(A, ELLMatrix)
-    if sparse and plain:
-        mv, tv = ell.ell_matvec_plain, ell.ell_tmatvec_plain
-    elif sparse:
-        mv, tv = ell.ell_matvec, ell.ell_tmatvec
-    else:
-        mv = mat_vec
-        tv = lambda A, y, w: mat_tvec(A, w * y)
+    """p -> (P p, A'(rho * A p), None when A has no rows): an
+    :class:`EllOperator` on ELL operands (with ``plain``, its plain
+    products), ``torch.bmm`` on dense ones."""
+    if isinstance(P, ELLMatrix) and isinstance(A, ELLMatrix):
+        op = EllOperator(P, A, w=rho_vec)
+        return op.plain if plain else op
     m = A.shape[-2]
 
     def products(p):
-        return mv(P, p), (tv(A, mv(A, p), rho_vec) if m else None)
+        return mat_vec(P, p), (mat_tvec(A, rho_vec * mat_vec(A, p)) if m else None)
 
     return products
 
@@ -121,15 +166,35 @@ def cg_solve(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter: int):
 
 def pcg_solve(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None):
     """PCG on M p = P p + sigma p + V p with ``products(p)`` = (P p, V p)
-    from ``x0`` (zeros when None); returns ``(x, steps)``.  Each step's
-    vector work is a K6 launch on a CUDA ``b``, the plain loop on a CPU
-    one."""
-    if b.device.type == "cpu":
-        return pcg_solve_plain(products, sigma, dinv, b, tol_rel, max_iter, x0)
-    if b.device.type != "cuda":
-        raise ValueError(f"cg_solve runs on CPU or CUDA tensors, not {b.device}")
-    if not all(t.is_contiguous() for t in (b, dinv, tol_rel) + ((x0,) if x0 is not None else ())):
-        raise ValueError("cg_solve takes contiguous tensors")
+    from ``x0`` (zeros when None); returns ``(x, steps)``.  On a CPU ``b``
+    the plain loop; on a CUDA one the device loop for an
+    :class:`EllOperator`, else the step kernels step by step."""
+    return _route(products, b.device.type)(products, sigma, dinv, b, tol_rel, max_iter, x0)
+
+
+def _route(products, device_type: str):
+    """The loop that :func:`pcg_solve` runs for ``products`` on a device
+    of this type."""
+    if device_type == "cpu":
+        return pcg_solve_plain
+    if device_type != "cuda":
+        raise ValueError(f"cg_solve runs on CPU or CUDA tensors, not {device_type}")
+    return pcg_solve_loop if isinstance(products, EllOperator) else pcg_solve_stepwise
+
+
+def _check_cuda(name, tensors) -> None:
+    if any(t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"{name} runs on CUDA tensors")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def pcg_solve_stepwise(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None):
+    """The solve on the card step by step: one :func:`cg_step` per step
+    after ``products(p)``, the stop test read by the host once per
+    :data:`CHUNK` steps.  Takes any operator (dense GEMVs, or an
+    :class:`EllOperator`'s K5 launches)."""
+    _check_cuda("pcg_solve_stepwise", (b, dinv, tol_rel) + ((x0,) if x0 is not None else ()))
     x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel)
     B, n = b.shape
     sigma = float(sigma)
@@ -147,6 +212,62 @@ def pcg_solve(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None):
             cg_step(p, u, v, sigma, dinv, tol2, rz_pair, rr_pair, cur, Mp, x, r, z, parts, steps)
             cur = 1 - cur
             k += 1
+    return x, steps
+
+
+def _ell_fields(M: ELLMatrix, name: str, B: int, rows: int, cols: int, dtype, device):
+    if not isinstance(M, ELLMatrix):
+        raise TypeError(f"pcg_solve_loop: {name} must be an ELLMatrix, not {type(M).__name__}")
+    if tuple(M.shape) != (rows, cols) or M.batch != B:
+        raise ValueError(f"pcg_solve_loop: {name} is {tuple(M.shape)} over {M.batch} instances, "
+                         f"expected ({rows}, {cols}) over {B}")
+    for t in (M.val, M.t_val):
+        if t.dtype != dtype or t.device != device:
+            raise ValueError(f"pcg_solve_loop: {name}'s values are {t.dtype} on {t.device}, expected {dtype} on {device}")
+    for t in (M.idx, M.t_idx):
+        if t.dtype != torch.int32 or t.device != device:
+            raise ValueError(f"pcg_solve_loop: {name}'s pattern is {t.dtype} on {t.device}, expected int32 on {device}")
+    return M.val, M.idx, M.t_val, M.t_idx
+
+
+def pcg_solve_loop(op: EllOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=None):
+    """The solve on the card in one launch of the loop kernel, for an
+    :class:`EllOperator`: its products, every step and the stop test at
+    every step on the device.  The start (from ``x0``, one product) is
+    the stepwise path's."""
+    global launches_loop
+    if not isinstance(op, EllOperator):
+        raise TypeError(f"pcg_solve_loop takes an EllOperator, not {type(op).__name__}")
+    B, n = b.shape
+    m = op.A.shape[0] if isinstance(op.A, ELLMatrix) else op.A.shape[-2]
+    dtype, dev = b.dtype, b.device
+    operands = _ell_fields(op.P, "P", B, n, n, dtype, dev) + _ell_fields(op.A, "A", B, m, n, dtype, dev)
+    vectors = [("dinv", dinv, (B, n)), ("tol_rel", tol_rel, (B,)), ("x0", x0, (B, n)), ("w", op.w, (B, m))]
+    for name, t, shape in vectors:
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev):
+            raise ValueError(f"pcg_solve_loop: {name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
+                             f"expected {shape} {dtype} on {dev}")
+    _check_cuda("pcg_solve_loop", (b,) + operands + tuple(t for _, t, _ in vectors if t is not None))
+    x, r, z, p, rz, rr, tol2 = _start(op, sigma, dinv, b, x0, tol_rel)
+    steps = torch.zeros(B, dtype=torch.int32, device=dev)
+    if n == 0 or max_iter <= 0:
+        return x, steps
+    pairs = torch.stack([rz, torch.empty_like(rz)]), torch.stack([rr, torch.empty_like(rr)])
+    Ap, Mp = torch.empty((B, m), dtype=dtype, device=dev), torch.empty_like(b)
+    parts = torch.empty((3, B, parts_of(n)), dtype=dtype, device=dev)
+    P, A = op.P, op.A
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.osqp_cg_loop(
+            _build.dtype_code(dtype), P.val.data_ptr(), P.idx.data_ptr(), P.idx.shape[1], A.val.data_ptr(),
+            A.idx.data_ptr(), A.idx.shape[1], A.t_val.data_ptr(), A.t_idx.data_ptr(), A.t_idx.shape[1],
+            op.w.data_ptr() if op.w is not None else 0, float(sigma), float(op.div) if op.div is not None else 0.0,
+            dinv.data_ptr(), tol2.data_ptr(), x.data_ptr(), r.data_ptr(), z.data_ptr(), p.data_ptr(), Ap.data_ptr(),
+            Mp.data_ptr(), pairs[0].data_ptr(), pairs[1].data_ptr(), parts.data_ptr(), steps.data_ptr(), B, n, m,
+            int(max_iter), _build.stream(),
+        )
+    _build.check(code, "cg_loop")
+    launches_loop += 1
     return x, steps
 
 

@@ -5,12 +5,21 @@ solve with its factors (counterpart of ``osqp_tpu/linsys/kkt_lu.py:37-50``,
 
 :func:`kkt_lu_factor` and :func:`kkt_lu_solve` are the kernels' wrappers:
 for CUDA tensors they launch the hand-written kernels in
-``csrc/kkt_lu.cu`` (the factor in place in device memory by column
-panels, the trailing update spread over blocks; the solve one block per
-instance); for CPU tensors they run :func:`kkt_lu_factor_plain` and
-:func:`kkt_lu_solve_plain`, the same functions in plain PyTorch: an
+``csrc/kkt_lu.cu``; for CPU tensors they run :func:`kkt_lu_factor_plain`
+and :func:`kkt_lu_solve_plain`, the same functions in plain PyTorch: an
 unblocked right-looking LU and two substitution loops, N steps of
 batched tensor operations each.  No library LU is called on either path.
+
+The kernels take one of two paths by batch size.  A batch that fills the
+card (B at or above the SM count, the headline) factors each instance's
+panels in one block and solves one instance per block.  A smaller batch
+(polish's B = 1) factors each panel in a thread-block cluster of up to 16
+CTAs per instance, 32 columns wide, with the next panel factored on a
+second stream while the rest of the trailing update runs, and solves by
+strips of 32 rows spread over the card, each strip published to the next
+by a flag.  ``factor_info`` holds the last factor's kernel launches, its
+first panel's width and that panel's cluster size (0 on the batched
+path).
 
 The pivot of a column is the first row of largest absolute value.  The
 kernel takes every update in the plain version's order with the plain
@@ -18,11 +27,14 @@ version's rounding, so both give the same ``perm`` and the same ``lu``
 bit for bit.  A zero pivot column divides by zero and leaves Inf/NaN
 behind, as LAPACK-style LU does; polish reads that as a failed pass.
 
-On the H100 the factor is bound by the bytes of its trailing updates
-and the solve by one read of ``lu``; see the source's header.
+On the H100 the batched factor is bound by the bytes of its trailing
+updates and the batched solve by one read of ``lu``; at B = 1 both by
+their chains (pivot columns, diagonal blocks); see the source's header.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -30,6 +42,9 @@ from .. import _build
 
 launches_factor = 0
 launches_solve = 0
+# The last factor's (kernel launches, first panel's width, CTAs of its
+# cluster or 0 on the batched path).
+factor_info = (0, 0, 0)
 
 
 def _validate_factor(K: torch.Tensor) -> None:
@@ -47,7 +62,7 @@ def kkt_lu_factor(K: torch.Tensor, overwrite: bool = False):
     order, row i of P K being row ``perm[i]`` of K.  With ``overwrite``
     a contiguous CUDA K is factored in place and returned as ``lu``.
     """
-    global launches_factor
+    global launches_factor, factor_info
     _validate_factor(K)
     if K.device.type == "cpu":
         return kkt_lu_factor_plain(K)
@@ -60,12 +75,15 @@ def kkt_lu_factor(K: torch.Tensor, overwrite: bool = False):
     piv = torch.empty((B, N), dtype=torch.int32, device=K.device)
     perm = torch.empty((B, N), dtype=torch.int32, device=K.device)
     lib = _build.library()
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(K.device):
         code = lib.osqp_kkt_lu_factor(
-            _build.dtype_code(K.dtype), lu.data_ptr(), piv.data_ptr(), perm.data_ptr(), B, N, _build.stream()
+            _build.dtype_code(K.dtype), lu.data_ptr(), piv.data_ptr(), perm.data_ptr(), B, N,
+            _build.sm_count(K.device), info, _build.stream(),
         )
     _build.check(code, "kkt_lu_factor")
     launches_factor += 1
+    factor_info = tuple(info)
     return lu, perm
 
 
@@ -97,10 +115,13 @@ def kkt_lu_solve(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor) -> torch
     B, N, _ = lu.shape
     x = torch.empty_like(b)
     lib = _build.library()
+    sms = _build.sm_count(lu.device)
+    ints = lib.osqp_kkt_lu_solve_scratch(B, N, sms)
+    scratch = torch.zeros(ints, dtype=torch.int32, device=lu.device) if ints else None
     with torch.cuda.device(lu.device):
         code = lib.osqp_kkt_lu_solve(
-            _build.dtype_code(lu.dtype), lu.data_ptr(), perm.data_ptr(), b.data_ptr(), x.data_ptr(), B, N,
-            _build.sm_count(lu.device), _build.stream(),
+            _build.dtype_code(lu.dtype), lu.data_ptr(), perm.data_ptr(), b.data_ptr(), x.data_ptr(),
+            scratch.data_ptr() if scratch is not None else 0, B, N, sms, _build.stream(),
         )
     _build.check(code, "kkt_lu_solve")
     launches_solve += 1

@@ -28,8 +28,9 @@ block-eliminated, as in the JAX package, to
     S = P + d I + (1/d) (MA)'(MA),
 
 and S, never formed, is solved by Jacobi-preconditioned CG from zero
-(:func:`osqp_tpu_torch.ops.cg.pcg_solve`: K6 for the step, K5 for the
-products) to a relative tolerance of 1e-12 (float64) or 1e-7 (float32),
+(:func:`osqp_tpu_torch.ops.cg.pcg_solve`: on the card one launch of
+K6's device loop per solve, which computes K5's products itself) to a
+relative tolerance of 1e-12 (float64) or 1e-7 (float32),
 at most min(4 (n + m), 40000) steps or ``OSQP_TPU_POLISH_CG_CAP``.  The
 rows are masked by scaling them (K5's scale kernel), and every product
 goes through the linalg dispatch, which is K5 there.  In float32 d is
@@ -45,8 +46,8 @@ three exist because the TPU's batched-LU call serialises, exceeds its
 fast memory and has no float64 form; K8 takes any N in both dtypes.
 
 The passes and refinement steps are Python loops that enqueue device
-work; only the CG's stop test (once per K6 chunk) and the caller's read
-of ``success`` wait on the device.
+work; only the caller's read of ``success`` waits on the device (the
+CG's stop test is the device loop's own).
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ import torch
 
 from .linalg import bwhere, mat_tvec, mat_vec, vec_dot
 from .linsys import kkt_lu
-from .ops.cg import pcg_solve
+from .ops.cg import EllOperator, pcg_solve
 from .ops.ell import ell_diagonal, ell_scale, ell_sq_colsums
 from .ops.term_products import term_products
 from .sparse_ops import ELLMatrix
@@ -109,10 +110,9 @@ def _ell_kkt_solver(n: int, m: int, P: ELLMatrix, MA: ELLMatrix, delta, dtype):
     tol_rel = torch.full((B,), 1e-12 if dtype == torch.float64 else 1e-7, dtype=dtype, device=MA.device)
     cap = polish_cg_cap(n, m)
 
-    def products(v):
-        # (P v, (MA)'((MA) v) / d), rounded as the JAX package's matvec_S
-        return mat_vec(P, v), (mat_tvec(MA, mat_vec(MA, v)) / d if m else None)
-
+    # (P v, (MA)'((MA) v) / d), rounded as the JAX package's matvec_S: on
+    # the card pcg_solve runs it in K6's device loop
+    products = EllOperator(P, MA, div=d)
     steps = []
 
     def solve(rhs):

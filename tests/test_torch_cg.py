@@ -192,6 +192,126 @@ def test_cg_solve_checks_its_inputs():
         k6.cg_solve(fac["P"], data.A, fac["sigma"], rs.rho_vec, fac["dinv"], b, None, fac["tol_rel"].float(), 5)
 
 
+def _ell_system(dtype=torch.float64, B=3, n=60, m=40, seed=4):
+    """ELL operands (P symmetric, A) of random sparse data, B copies, with
+    rho, a mask of A's rows, b and x0."""
+    from osqp_tpu_torch.sparse_ops import ell_from_scipy
+
+    rng = np.random.default_rng(seed)
+    M = sp.random(n, n, density=4.0 / n, random_state=rng)
+    Pm = sp.triu(M @ M.T + 0.1 * sp.eye(n), format="csr")
+    Am = sp.random(m, n, density=4.0 / n, random_state=rng, format="csr")
+    P = ell_from_scipy(Pm, dtype, batch=B, sym_from_triu=True).contiguous()
+    A = ell_from_scipy(Am, dtype, batch=B).contiguous()
+    T = lambda a: torch.as_tensor(a, dtype=dtype)
+    return (P, A, T(rng.random((B, m)) + 0.1), T(rng.random((B, m)) < 0.5), T(rng.standard_normal((B, n))),
+            T(rng.standard_normal((B, n))))
+
+
+def test_pcg_takes_the_device_loop_for_ell_operators_only():
+    """pcg_solve's path follows the operator's type: the plain loop on the
+    CPU; on the card the device loop for an EllOperator (the sparse path's
+    cg backend and polish), the step kernels for any other operator (dense
+    batches)."""
+    P, A, rho, *_ = _ell_system()
+    op = k6.EllOperator(P, A, w=rho)
+    dense = lambda p: (p, None)
+    assert k6._route(op, "cuda") is k6.pcg_solve_loop
+    assert k6._route(dense, "cuda") is k6.pcg_solve_stepwise
+    assert k6._route(op.plain, "cuda") is k6.pcg_solve_stepwise
+    assert k6._route(op, "cpu") is k6.pcg_solve_plain and k6._route(dense, "cpu") is k6.pcg_solve_plain
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        k6._route(op, "meta")
+    # the cg backend hands ELL operands over as an EllOperator, dense ones as a function
+    assert k6._operator(P, A, rho, plain=False) == op
+    Pd, Ad = torch.eye(4, dtype=torch.float64)[None], torch.ones((1, 2, 4), dtype=torch.float64)
+    assert not isinstance(k6._operator(Pd, Ad, torch.ones((1, 2), dtype=torch.float64), plain=False),
+                          k6.EllOperator)
+
+
+def test_ell_operator_computes_both_forms_as_their_plain_versions():
+    """The cg form, P p and A'(rho * A p) through K5's weighted transpose,
+    and polish's form, P p and A'(A p) / d divided after the product: each
+    bit for bit the composition of K5's functions; no rows of A, no V p."""
+    from osqp_tpu_torch.ops import ell as k5
+
+    P, A, rho, mask, p, _ = _ell_system()
+    u, v = k6.EllOperator(P, A, w=rho)(p)
+    assert torch.equal(u, k5.ell_matvec(P, p)) and torch.equal(v, k5.ell_tmatvec(A, k5.ell_matvec(A, p), rho))
+    d = torch.tensor(1e-6, dtype=torch.float64)
+    MA = k5.ell_scale(A, mask, torch.ones_like(p))
+    u, v = k6.EllOperator(P, MA, div=d)(p)
+    assert torch.equal(v, k5.ell_tmatvec(MA, k5.ell_matvec(MA, p)) / d)
+    u2, v2 = k6.EllOperator(P, MA, div=d).plain(p)
+    assert torch.equal(u, u2) and torch.equal(v, v2)
+    from osqp_tpu_torch.sparse_ops import ell_from_scipy
+
+    empty = ell_from_scipy(sp.csr_matrix((0, p.shape[1])), torch.float64, batch=p.shape[0]).contiguous()
+    assert k6.EllOperator(P, empty, div=d)(p)[1] is None
+    for kw in ({}, {"w": rho, "div": d}):
+        with pytest.raises(ValueError, match="exactly one"):
+            k6.EllOperator(P, A, **kw)
+
+
+def _loop_args(**change):
+    P, A, rho, _, b, x0 = _ell_system()
+    B, n = b.shape
+    args = dict(op=k6.EllOperator(P, A, w=rho), sigma=1e-6, dinv=torch.ones_like(b), b=b,
+                tol_rel=torch.full((B,), 1e-8, dtype=b.dtype), max_iter=10, x0=x0)
+    args.update({k: (v(args) if callable(v) else v) for k, v in change.items()})
+    return args
+
+
+@pytest.mark.parametrize(
+    "change,error,match",
+    [
+        ({}, ValueError, "CUDA tensors"),
+        ({"op": lambda a: (lambda p: (p, None))}, TypeError, "EllOperator"),
+        ({"op": lambda a: dataclasses.replace(a["op"], P=torch.eye(60, dtype=torch.float64)[None])}, TypeError,
+         "ELLMatrix"),
+        ({"b": lambda a: a["b"][:2]}, ValueError, "over 3 instances"),
+        ({"dinv": lambda a: a["dinv"][:, :-1]}, ValueError, "dinv"),
+        ({"tol_rel": lambda a: a["tol_rel"].float()}, ValueError, "tol_rel"),
+        ({"op": lambda a: dataclasses.replace(a["op"], w=a["op"].w[:, :-1])}, ValueError, "w is"),
+    ],
+)
+def test_device_loop_rejects_bad_input(change, error, match):
+    """The loop's wrapper checks the operator's type, the operands' shapes
+    and types against b, and that everything is on the card, before it
+    builds or launches anything."""
+    with pytest.raises(error, match=match):
+        k6.pcg_solve_loop(**_loop_args(**change))
+
+
+@pytest.mark.parametrize("form", ["cg", "polish"])
+@pytest.mark.parametrize("max_iter", [11, 1000])
+@pytest.mark.parametrize("dot", ["kernel", "torch"])
+def test_chunked_stop_test_changes_no_bit_in_either_operator_form(form, max_iter, dot):
+    """The plain loop tested at every step, as the device loop tests,
+    against the loop tested once per CHUNK steps, as the stepwise path
+    does, over each ELL operator form: the same steps and x bit for bit
+    (an instance frozen from the start included)."""
+    from osqp_tpu_torch.ops import ell as k5
+
+    P, A, rho, mask, b, x0 = _ell_system(B=4, seed=5)
+    B, n = b.shape
+    if form == "cg":
+        op, sigma = k6.EllOperator(P, A, w=rho), torch.tensor(1e-6, dtype=torch.float64)
+        dinv = 1.0 / (k5.ell_diagonal(P) + sigma + k5.ell_sq_colsums(A, rho))
+    else:
+        sigma = torch.tensor(1e-4, dtype=torch.float64)
+        MA = k5.ell_scale(A, mask, torch.ones_like(b))
+        op = k6.EllOperator(P, MA, div=sigma)
+        dinv = 1.0 / (k5.ell_diagonal(P) + sigma + k5.ell_sq_colsums(MA, torch.ones_like(rho)) / sigma)
+    tol = torch.tensor([1e-12, 1e-6, 1e-3, 1e9], dtype=torch.float64)
+    kw = dict(dot=k6.kernel_dot) if dot == "kernel" else {}
+    x1, s1 = k6.pcg_solve_plain(op, sigma, dinv, b, tol, max_iter, x0, chunk=1, **kw)
+    xc, sc = k6.pcg_solve_plain(op, sigma, dinv, b, tol, max_iter, x0, chunk=k6.CHUNK, **kw)
+    assert torch.equal(s1, sc) and torch.equal(x1, xc)
+    assert int(s1.max()) <= max_iter and int(s1[-1]) == 0 and torch.equal(x1[-1], x0[-1])
+    assert int(s1.max()) > 0
+
+
 # ---------------------------------------------------------------------------
 # In the ADMM loop
 # ---------------------------------------------------------------------------

@@ -577,7 +577,9 @@ def test_k6_kernel_matches_plain(dev, dtype, kind, max_iter):
     bit (the plain step summing in the kernel's order, over K5's plain
     products, which sum in K5's order), an instance frozen from the start
     bit-unchanged, two runs bit-identical, and no step past max_iter
-    (11 = a chunk of 8 and 3)."""
+    (11 = a chunk of 8 and 3).  ELL operands take the device loop, one
+    launch per solve, and the stepwise path gives the same bits; dense
+    ones take the step kernels."""
     import scipy.sparse as sp
 
     from osqp_tpu_torch.linsys import cg
@@ -599,17 +601,26 @@ def test_k6_kernel_matches_plain(dev, dtype, kind, max_iter):
     x0 = torch.as_tensor(rng.standard_normal((B, nn)), dtype=dtype, device=dev)
     tol = torch.tensor([1e-7, 1e-5, 1e-3, 1e9], dtype=dtype, device=dev)
     args = (P, A, fac["sigma"], rho, fac["dinv"], b, x0, tol, max_iter)
-    before = k6.launches
+    before, before_loop = k6.launches, k6.launches_loop
     xk, sk = k6.cg_solve(*args)
     xk2, sk2 = k6.cg_solve(*args)
     torch.cuda.synchronize()
-    assert k6.launches - before == 2 * min(max_iter, -(-int(sk.max()) // k6.CHUNK) * k6.CHUNK)
+    if kind == "ell":
+        assert k6.launches_loop - before_loop == 2 and k6.launches == before
+    else:
+        assert k6.launches - before == 2 * min(max_iter, -(-int(sk.max()) // k6.CHUNK) * k6.CHUNK)
+        assert k6.launches_loop == before_loop
     xp, sp_ = k6.cg_solve_plain(*args, dot=k6.kernel_dot)
     assert torch.equal(xk, xk2) and torch.equal(sk, sk2)
     assert torch.equal(sk, sp_) and int(sk.max()) <= max_iter
     assert torch.equal(xk[3], x0[3]) and int(sk[3]) == 0
     assert torch.equal(xk, xp)
     assert float((xk - xp).abs().max()) <= K6_TOL[dtype] * float(xp.abs().max())
+    if kind == "ell":
+        # ELL operands run the device loop; the stepwise path gives the same bits
+        xs, ss = k6.pcg_solve_stepwise(k6._operator(P, A, rho, plain=False), fac["sigma"], fac["dinv"], b, tol,
+                                       max_iter, x0)
+        assert torch.equal(xs, xk) and torch.equal(ss, sk)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -735,10 +746,11 @@ def test_block_tridiag_backend_gpu_matches_cpu(dev, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_pcg_on_k6_matches_plain(dev, dtype):
-    """Polish's PCG (pcg_solve: K6 over K5's products) against the plain
-    loop over the same (K5) products on a masked polish system at
-    polish's delta: the same steps and the same x, bit for bit (the plain
-    step summing its inner products in the kernel's order)."""
+    """Polish's PCG (pcg_solve: K6's device loop, one launch) against the
+    plain loop over the same (K5) products on a masked polish system at
+    polish's delta, and against the stepwise path: the same steps and the
+    same x, bit for bit (the plain step summing its inner products in the
+    kernel's order)."""
     import scipy.sparse as sp
 
     from osqp_tpu_torch import polish as tpolish
@@ -756,20 +768,22 @@ def test_pcg_on_k6_matches_plain(dev, dtype):
     d = torch.tensor(1e-6 if dtype == torch.float64 else 1e-4, dtype=dtype)
     solve, steps = tpolish._ell_kkt_solver(n, m, P, MA, d, dtype)
     rhs = torch.as_tensor(rng.standard_normal((B, n + m)), dtype=dtype, device=dev)
-    before = k6.launches
+    before, before_loop = k6.launches, k6.launches_loop
     sol = solve(rhs)
     torch.cuda.synchronize()
     (sk,) = steps
-    assert k6.launches - before >= int(sk.max()) > 0
+    assert k6.launches_loop - before_loop == 1 and k6.launches == before and int(sk.max()) > 0
     t = rhs[:, :n] + k5.ell_tmatvec(MA, rhs[:, n:].contiguous()) / d
     ones = torch.ones((B, m), dtype=dtype, device=dev)
     dinv = 1.0 / (k5.ell_diagonal(P) + d + k5.ell_sq_colsums(MA, ones) / d)
-    products = lambda v: (k5.ell_matvec(P, v), k5.ell_tmatvec(MA, k5.ell_matvec(MA, v)) / d)
+    op = k6.EllOperator(P, MA, div=d)
     tol = torch.full((B,), 1e-12 if dtype == torch.float64 else 1e-7, dtype=dtype, device=dev)
-    xp, sp_ = k6.pcg_solve_plain(products, d, dinv, t.contiguous(), tol, tpolish.polish_cg_cap(n, m),
-                                 dot=k6.kernel_dot)
+    cap = tpolish.polish_cg_cap(n, m)
+    xp, sp_ = k6.pcg_solve_plain(op, d, dinv, t.contiguous(), tol, cap, dot=k6.kernel_dot)
     assert torch.equal(sk, sp_)
     assert torch.equal(sol[:, :n], xp)
+    xs, ss = k6.pcg_solve_stepwise(op, d, dinv, t.contiguous(), tol, cap)
+    assert torch.equal(ss, sk) and torch.equal(xs, xp)
 
 
 def test_k6_blocks_are_the_plain_sums_blocks(dev):
@@ -801,3 +815,113 @@ def test_sparse_polish_on_the_card_matches_the_cpu(dev, dtype):
     if dtype == "float64":
         assert rg.info.iter == rc.info.iter
         assert np.abs(rg.x - rc.x).max() <= 1e-6
+
+
+# K8 where the batch cannot fill the card (B below the SM count): the
+# cluster factor and the strip solve, at polish's CVXQP2_M size and at a
+# batch of four.
+K8_SMALL = [(1, 1000, 1250), (4, 300, 400), (1, 60, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,n,m", K8_SMALL)
+def test_k8_small_batch_path_matches_plain(dev, dtype, B, n, m):
+    """The cluster path: lu and perm bit for bit the plain version's and
+    two launches alike; the strip solve bit-identical twice, its row-wise
+    backward error against the factors under 8 sqrt(N) eps, its backward
+    error against K under the chip check's bound, and its forward errors
+    quantile by quantile within RTOL plus three times the plain solve's."""
+    K = _kkt(B, n, m, dtype, dev, seed=n + B, delta=1e-6)
+    N = n + m
+    lu, perm = k8.kkt_lu_factor(K)
+    kernels, width, cluster = k8.factor_info
+    lu2, perm2 = k8.kkt_lu_factor(K)
+    lp, pp = k8.kkt_lu_factor_plain(K)
+    torch.cuda.synchronize()
+    assert cluster >= 1 and width == min(32, N) and kernels > 0
+    assert torch.equal(lu, lu2) and torch.equal(perm, perm2)
+    assert torch.equal(perm, pp) and torch.equal(lu, lp)
+    copies = max(1, 64 // B)  # 64 right-hand sides, so that the quantiles mean something
+    Kc, luc, permc = (t.repeat(copies, *[1] * (t.dim() - 1)) for t in (K, lu, perm))
+    x_true = torch.randn(Kc.shape[:2], generator=torch.Generator(device=dev).manual_seed(7), dtype=torch.float64,
+                         device=dev)
+    b = torch.bmm(Kc.double(), x_true[:, :, None])[:, :, 0].to(dtype)
+    x, x2 = k8.kkt_lu_solve(luc, permc, b), k8.kkt_lu_solve(luc, permc, b)
+    xp = k8.kkt_lu_solve_plain(luc, permc, b)
+    torch.cuda.synchronize()
+    assert torch.equal(x, x2) and torch.isfinite(x).all()
+    K64, x64, xp64 = Kc.double(), x.double(), xp.double()
+    resid = (torch.bmm(K64, x64[:, :, None])[:, :, 0] - b.double()).abs().amax(-1)
+    backward = resid / (K64.abs().sum(-1).amax(-1) * x64.abs().amax(-1))
+    assert float(backward.max()) <= (1e-13 if dtype == torch.float64 else 1e-5)
+    lu64 = luc.double()
+    U, L = torch.triu(lu64), torch.tril(lu64, -1)
+    L.diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    pb = torch.gather(b.double(), 1, permc.long())
+    through = lambda L, U, v: torch.bmm(L, torch.bmm(U, v[:, :, None]))[:, :, 0]
+    rowwise = (through(L, U, x64) - pb).abs() / (through(L.abs(), U.abs(), x64.abs()) + pb.abs())
+    assert float(rowwise.max()) <= 8 * N ** 0.5 * torch.finfo(dtype).eps
+    scale = x_true.abs().amax(-1)
+    qs = torch.tensor([0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device=dev)
+    fk = torch.quantile((x64 - x_true).abs().amax(-1) / scale, qs)
+    fp = torch.quantile((xp64 - x_true).abs().amax(-1) / scale, qs)
+    assert bool((fk <= (1e-12 if dtype == torch.float64 else 1e-5) + 3 * fp).all())
+
+
+def test_k8_batched_path_is_taken_at_and_above_the_sm_count(dev):
+    """From B = SM count up the factor keeps the batched kernels (no
+    cluster), and its factors stay the plain version's."""
+    from osqp_tpu_torch import _build
+
+    B = _build.sm_count(dev)
+    K = _kkt(B, 20, 30, torch.float32, dev, seed=2, delta=1e-6)
+    lu, perm = k8.kkt_lu_factor(K)
+    assert k8.factor_info[2] == 0
+    lp, pp = k8.kkt_lu_factor_plain(K)
+    assert torch.equal(lu, lp) and torch.equal(perm, pp)
+
+
+def _maros_ell(name, dtype, dev):
+    import scipy.sparse as sp
+
+    from osqp_tpu_torch.sparse_ops import ell_from_scipy
+
+    qp = load_qps(os.path.join(MAROS, f"{name}.qps"))
+    P = ell_from_scipy(sp.triu(qp.P, format="csr"), dtype, sym_from_triu=True, device=dev).contiguous()
+    A = ell_from_scipy(qp.A, dtype, device=dev).contiguous()
+    return P, A
+
+
+@pytest.mark.parametrize("name,form", [("CVXQP2_L", "cg"), ("LISWET1", "polish")])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_device_loop_matches_the_plain_loop_on_maros_operators(dev, name, form, dtype):
+    """K6's device loop on a Maros-Meszaros problem's ELL operators (CVXQP2_L
+    in the cg backend's form, LISWET1 in polish's) against
+    pcg_solve_plain(chunk=1, dot=kernel_dot): the same steps, x bit for
+    bit, one launch."""
+    from osqp_tpu_torch.ops import ell as k5
+
+    P, A = _maros_ell(name, dtype, dev)
+    n, m = P.shape[0], A.shape[0]
+    rng = np.random.default_rng(5)
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    b, x0 = T(rng.standard_normal((1, n))), T(rng.standard_normal((1, n)))
+    if form == "cg":
+        sigma, w = torch.tensor(1e-6, dtype=dtype), T(rng.random((1, m)) + 0.1)
+        op = k6.EllOperator(P, A, w=w)
+        dinv = 1.0 / (k5.ell_diagonal(P) + sigma + k5.ell_sq_colsums(A, w))
+        start = x0
+    else:
+        sigma = torch.tensor(1e-6 if dtype == torch.float64 else 1e-4, dtype=dtype)
+        MA = k5.ell_scale(A, T(rng.random((1, m)) < 0.5), torch.ones_like(b))
+        op = k6.EllOperator(P, MA, div=sigma)
+        dinv = 1.0 / (k5.ell_diagonal(P) + sigma + k5.ell_sq_colsums(MA, torch.ones((1, m), dtype=dtype, device=dev))
+                      / sigma)
+        start = None
+    tol = T([1e-8 if dtype == torch.float64 else 1e-6])
+    before = k6.launches_loop
+    xk, sk = k6.pcg_solve(op, sigma, dinv, b, tol, 300, start)
+    torch.cuda.synchronize()
+    assert k6.launches_loop - before == 1
+    xp, sp_ = k6.pcg_solve_plain(op, sigma, dinv, b, tol, 300, start, chunk=1, dot=k6.kernel_dot)
+    assert int(sk.max()) > 0 and torch.equal(sk, sp_) and torch.equal(xk, xp)
