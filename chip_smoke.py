@@ -16,7 +16,7 @@ failure ends the run with a non-zero exit and no result line:
    kernel, plain and torch.linalg.inv timed at B=8192 beside the bound,
    with the kernel's blocks per SM; the library route above the bound
    (CVXQP2_M, both dtypes) timed as that case's library_ms; CVXQP2_S
-   (B=1, n=100) timed beside its bound;
+   (B=1, n=100) timed beside its bound and torch.linalg.inv;
 4. K1 (admm_iter) against its plain version, one step from a random
    state: B=512 in float64 and float32 with half of the instances
    inactive, B=8192 in float32 half and all active, CVXQP2_M's shape at
@@ -61,20 +61,27 @@ failure ends the run with a non-zero exit and no result line:
     ADMM-form K of the benchmark's data at B=512, N=75 in float64 and
     float32 (perm equal, lu and the solve within RTOL), the polish-form
     K_delta (delta 1e-6, the rows of A outside the active set that polish
-    guesses at the ADMM point zeroed) of the headline data at B=8192,
+    guesses at the ADMM point masked) of the headline data at B=8192,
     N=300 in float32 (the batched path) and of CVXQP2_S and CVXQP2_M at
     B=1, N=225 and 2250, in both dtypes (the cluster path and the strip
-    solve); at every shape perm and lu bit for bit;
+    solve); at every shape perm and lu bit for bit, through the K entry
+    and through the blocks entry (kkt_lu_factor_blocks: P, A with the
+    inactive rows zeroed, the shift and d, which polish and the kkt_lu
+    backend call), each
+    launched twice; the batched path at N = 1, 31, 33, 63, 65, 75 and 300
+    at B = the SM count in both dtypes, through both entries;
     the solve of b = K x_true (x_true standard normal, so that the
     solution is known and O(1)) held three ways: its row-wise backward
     error against the factors it read under 8 sqrt(N) eps, its backward error
     against K under BACKWARD_BOUND, and its forward errors over the
     batch (64 right-hand sides at B=1), quantile by quantile, within
     RTOL plus three times the plain solve's (cond(K) sets both); two
-    launches bit-identical; kernel,
-    plain and library (torch.linalg.lu_factor, lu_solve) times beside
-    the bounds, the kernel launches per factor and the path taken, and at
-    CVXQP2_M the kernel's time over the library's;
+    launches bit-identical; kernel (the factor through the blocks entry,
+    which polish calls), plain and library (torch.linalg.lu_factor,
+    lu_solve) times beside the bounds and the operations floor without
+    fused multiply-adds, the kernel launches per factor and the path
+    taken, the K entry's time and one factor's device time by kernel,
+    and at CVXQP2_M the kernel's time over the library's;
 12. polish, batched: the headline batch through ``solve_batch`` with
     polish off and on in one call: equal statuses and iterations, the
     share of status_polish == 1, every polished instance's residuals no
@@ -99,7 +106,8 @@ failure ends the run with a non-zero exit and no result line:
     CVXQP2_L (B=1, float64 and float32) and of a scenario batch of
     CVXQP2_M (B=64, float64): sums within RTOL, the rest exact, two
     launches bit-identical; A x and A'(rho y) timed beside the plain
-    version, ``torch.sparse.mm`` on a CSR copy and the bound; K5's
+    version, the library (``torch.sparse.mm`` on a CSR copy at B=1,
+    ``torch.bmm`` on a 3-D sparse COO copy at B=64) and the bound; K5's
     launches in a sparse solve of the B=64 batch;
 16. K6 against its plain loop (summing in the kernel's order): one cg
     solve from a mid-solve ADMM state of CVXQP2_L (float64, ELL: the
@@ -127,7 +135,9 @@ failure ends the run with a non-zero exit and no result line:
     the CPU's plain path (float64, B=64, n=20, m=30), then the headline
     data at B=1024 in float32 beside the ``dense_inv`` run, with the step
     kernels' launches in that solve (the stepwise path's main user);
-19. K7 (block_tridiag: bt_factor, bt_solve) against its plain versions on
+19. K7 (block_tridiag: bt_factor, bt_solve) against its plain versions:
+    the warp path (b = 1, 5, 12, 16, 32) and the block path (b = 40) on
+    random band matrices at B=200 in both dtypes, then on
     the reduced matrix of the MPC cell as the backend forms it
     (``bench.py``'s bench_mpc: B=1000, n=372, b=12, Nb=31, float32) and at
     B=64 in float64: factor and solve bit for bit, two launches
@@ -138,7 +148,7 @@ failure ends the run with a non-zero exit and no result line:
     ``dense_inv`` (B=1000, float32, eps 1e-3, polish off): every
     instance solved, none at MAX_ITER, the same statuses in both legs,
     the first 16 scenarios against ``tests/data/torch_goldens/mpc.npz``,
-    K7's launches, the median of 5 timed solves per leg with QPs/s,
+    K7's launches (all on the warp path), the median of 5 timed solves per leg with QPs/s,
     set-up and ms per iteration, and one more solve per leg under the
     profiler (idle share, device time by kernel); then the ``Solver``
     with block_tridiag on scenario 0 in float64 against its golden, with
@@ -433,7 +443,7 @@ def reset_counts() -> None:
     k1.launches = k1.refined_launches = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
     k8.launches_factor = k8.launches_solve = 0
     k5.launches = k6.launches = k6.launches_loop = 0
-    k7.launches_factor = k7.launches_solve = 0
+    k7.launches_factor = k7.launches_solve = k7.launches_factor_warp = k7.launches_solve_warp = 0
 
 
 def read_counts() -> dict:
@@ -444,7 +454,8 @@ def read_counts() -> dict:
             "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches,
             "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve, "ell_ops": k5.launches,
             "cg_step": k6.launches, "cg_loop": k6.launches_loop, "bt_factor": k7.launches_factor,
-            "bt_solve": k7.launches_solve}
+            "bt_solve": k7.launches_solve, "bt_factor_warp": k7.launches_factor_warp,
+            "bt_solve_warp": k7.launches_solve_warp}
 
 
 def prepared(P, q, A, l, u):
@@ -554,11 +565,12 @@ def phase_k2(dev):
         require(rel <= rel_tol, f"K2 disagrees with its plain version at CVXQP2_S in {dtype}")
         ms_s = cuda_ms(lambda: k2.chol_inverse(Ms), reps=20)
         plain_s = cuda_ms(lambda: k2.chol_inverse_plain(Ms), reps=20)
+        lib_s = cuda_ms(lambda: torch.linalg.inv(Ms), reps=20)  # library_ms only
         elt = Ms.element_size()
         bound_s, by_s = bound(2 * elt * 100 * 100, {dtype_name(dtype): 100**3})
         print(f"K2 chol_inverse CVXQP2_S B=1 n=100 {dtype_name(dtype)}: relative difference {rel:.3e}; "
-              f"kernel {ms_s:.4f} ms, plain {plain_s:.4f} ms; bound {bound_s:.6f} ms ({by_s}), share of bound "
-              f"{bound_s / ms_s:.4f}")
+              f"kernel {ms_s:.4f} ms, plain {plain_s:.4f} ms, library torch.linalg.inv {lib_s:.4f} ms; bound "
+              f"{bound_s:.6f} ms ({by_s}), share of bound {bound_s / ms_s:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
 
@@ -1046,24 +1058,25 @@ def phase_solver(dev):
     for name, n_launch in total.items():
         if name.startswith("kkt_lu"):  # polish is off here: K8 must stay out of it
             require(n_launch == 0, f"{name} launched on the Solver path with polish off")
-        elif name in ("ell_ops", "cg_step", "cg_loop", "bt_factor", "bt_solve"):  # other backends' kernels
+        elif name in ("ell_ops", "cg_step", "cg_loop", "bt_factor", "bt_solve", "bt_factor_warp",
+                      "bt_solve_warp"):  # other backends' kernels
             require(n_launch == 0, f"{name} launched on the dense_inv Solver path")
         else:
             require(n_launch > 0, f"{name} never launched on the Solver path")
     return total
 
 
-def polish_kkt(args, dtype, delta=1e-6):
-    """The K_delta that polish's first pass factors for the problems
-    ``args`` (P, q, A, l, u on the card): they are solved with polish off,
-    the active set is guessed at the ADMM point as polish guesses it
-    (lower where z - l < -y, upper where u - z < y), and the other rows of
-    the scaled A are zeroed.  Returns K_delta and the active rows per
-    instance."""
+def polish_blocks(args, dtype, delta=1e-6):
+    """The blocks of the K_delta that polish's first pass factors for the
+    problems ``args`` (P, q, A, l, u on the card): they are solved with
+    polish off, the active set is guessed at the ADMM point as polish
+    guesses it (lower where z - l < -y, upper where u - z < y), and the
+    other rows of the scaled A are zeroed.  Returns (P, M A, delta, d) of
+    the scaled data, as polish hands them to kkt_lu_factor_blocks, and the
+    active rows per instance."""
     import torch
 
     import osqp_tpu_torch as ot
-    from osqp_tpu_torch.linsys import kkt_lu
 
     P, q, A, l, u = args
     res = ot.solve_batch(*args, **{**SOLVE_KW, "dtype": dtype_name(dtype)})
@@ -1072,16 +1085,51 @@ def polish_kkt(args, dtype, delta=1e-6):
     del res
     scaled, _, _, _ = prepared(*args)
     dvec = torch.full(mask.shape, delta, dtype=dtype, device=A.device)
-    return kkt_lu.form_kkt(scaled.P, mask[:, :, None] * scaled.A, delta, dvec).contiguous(), mask.sum(-1)
+    return (scaled.P, mask[:, :, None] * scaled.A, delta, dvec), mask.sum(-1)
 
 
-def k8_cost(B, N, dtype):
-    """((bytes, operations) of the factor, of the solve): K read and lu
-    written once and (2/3) N^3 operations an instance; lu, perm and b read
-    and x written once and 2 N^2 operations."""
+def polish_kkt(args, dtype, delta=1e-6):
+    """K_delta itself (polish_blocks's, formed) and the active rows per
+    instance."""
+    blocks, rows = polish_blocks(args, dtype, delta)
+    return blocks_kkt(blocks), rows
+
+
+def random_blocks(B, n, m, dtype, dev, seed, masked):
+    """Blocks of a KKT matrix from random data made in float64: polish's
+    form (shift = d = 1e-6, about half the rows of A zeroed) or the ADMM
+    form (shift 1e-6, d = 1/rho)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64, device=dev)
+    G = r(B, n, n)
+    P = G @ G.mT / n + 0.1 * torch.eye(n, dtype=torch.float64, device=dev)
+    A = r(B, m, n) / n**0.5
+    if masked:
+        A, d = A * (r(B, m) > 0)[:, :, None], torch.full((B, m), 1e-6, dtype=torch.float64, device=dev)
+    else:
+        d = 1.0 / (0.1 + r(B, m).abs())
+    T = lambda t: t.to(dtype).contiguous()
+    return T(P), T(A), 1e-6, T(d)
+
+
+def blocks_kkt(blocks):
+    """form_kkt's K of kkt_lu_factor_blocks's arguments."""
+    from osqp_tpu_torch.ops.kkt_lu import form_kkt
+
+    return form_kkt(*blocks).contiguous()
+
+
+def k8_cost(B, N, dtype, n=None):
+    """((bytes, operations) of the factor, of the solve): K (or, given n,
+    its blocks P, A and d) read and lu written once and (2/3) N^3
+    operations an instance; lu, perm and b read and x written once and
+    2 N^2 operations."""
     name = dtype_name(dtype)
     elt = 4 if name == "float32" else 8
-    factor = (B * (2 * elt * N * N + 4 * N), {name: 2 * B * N**3 // 3})
+    read = N * N if n is None else n * n + (N - n) * (n + 1)
+    factor = (B * (elt * (read + N * N) + 4 * N), {name: 2 * B * N**3 // 3})
     solve = (B * (elt * N * N + 4 * N + 2 * elt * N), {name: 2 * B * N * N})
     return factor, solve
 
@@ -1089,11 +1137,11 @@ def k8_cost(B, N, dtype):
 def phase_k8(dev):
     import torch
 
-    from osqp_tpu_torch.linsys import kkt_lu
     from osqp_tpu_torch.ops import kkt_lu as k8
 
-    def compare(K, label):
-        """Factor and solve against the plain versions; returns the
+    def compare(K, label, blocks=None):
+        """Factor (through the K entry and, given ``blocks``, the blocks
+        entry) and solve against the plain versions; returns the
         largest |lu_k - lu_p| and the largest |x_k - x_p|.  The right-hand
         side is K x_true for a standard normal x_true, so that the solution
         is known and O(1) in every component: under a random b the masked
@@ -1107,6 +1155,15 @@ def phase_k8(dev):
         del lu2, perm2
         same_perm, same_lu = torch.equal(perm, pp), torch.equal(lu, lp)
         err, rel = rel_err(lu, lp)
+        if blocks is not None:
+            lb, pb = k8.kkt_lu_factor_blocks(*blocks)
+            lb2, pb2 = k8.kkt_lu_factor_blocks(*blocks)
+            require(torch.equal(lb, lb2) and torch.equal(pb, pb2), f"K8's two blocks-entry launches differ at {label}")
+            same_blocks = torch.equal(lb, lp) and torch.equal(pb, pp)
+            print(f"K8 kkt_lu_factor_blocks {label}: lu and perm bit-identical to plain {same_blocks}; two launches "
+                  f"bit-identical")
+            require(same_blocks, f"K8's blocks entry disagrees with its plain version at {label}")
+            del lb, lb2, pb, pb2
         # A small batch is solved for 64 right-hand sides, each on a copy of
         # the factors, so that the forward errors below have a distribution
         # at B=1 too: one sample of a forward error says little.
@@ -1173,18 +1230,22 @@ def phase_k8(dev):
                 f"K8's solve is less accurate than its plain version at {label}")
         return err, err_x
 
-    def times(K, label, reps):
+    def times(K, blocks, label, reps):
+        """Kernel, plain and library times of the factor through the blocks
+        entry, which polish and the kkt_lu backend call (the K entry's time
+        beside it), and of the solve."""
         B, N, _ = K.shape
-        lu, perm = k8.kkt_lu_factor(K)
+        lu, perm = k8.kkt_lu_factor_blocks(*blocks)
         kernels, width, cluster = k8.factor_info
         path = f"clusters of {cluster} CTAs" if cluster else "one block per instance"
-        print(f"K8 kkt_lu_factor {label}: {kernels} kernel launches per factor, panels {width} columns wide, {path}")
+        print(f"K8 kkt_lu_factor_blocks {label}: {kernels} kernel launches per factor, panels {width} columns wide, "
+              f"{path}")
         b = torch.randn(B, N, dtype=K.dtype, device=dev)
-        (fb, ff), (sb, sf) = k8_cost(B, N, K.dtype)
+        (fb, ff), (sb, sf) = k8_cost(B, N, K.dtype, n=blocks[0].shape[-1])
         LU, pivots = torch.linalg.lu_factor(K)  # library_ms only: the port calls no library LU
         out = {}
         for what, fn, plain, lib, nbytes, flops in (
-            ("factor", lambda: k8.kkt_lu_factor(K), lambda: k8.kkt_lu_factor_plain(K),
+            ("factor", lambda: k8.kkt_lu_factor_blocks(*blocks), lambda: k8.kkt_lu_factor_blocks_plain(*blocks),
              lambda: torch.linalg.lu_factor(K), fb, ff),
             ("solve", lambda: k8.kkt_lu_solve(lu, perm, b), lambda: k8.kkt_lu_solve_plain(lu, perm, b),
              lambda: torch.linalg.lu_solve(LU, pivots, b[:, :, None]), sb, sf),
@@ -1198,21 +1259,55 @@ def phase_k8(dev):
                   f"{bound_ms / ms:.3f}")
             out[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         out["factor"]["kernels_per_factor"] = kernels
+        # every product and difference rounded on its own: the operations
+        # take twice the time of a bound that assumes fused multiply-adds
+        no_fma = 2 * sum(f / PEAK_FLOPS[d] for d, f in ff.items()) * 1e3
+        out["factor"]["bound_no_fma_ms"] = no_fma
+        print(f"K8 kkt_lu_factor {label}: operations without fused multiply-add {no_fma:.4f} ms, share "
+              f"{no_fma / out['factor']['ms']:.3f}")
+        k_entry_ms = cuda_ms(lambda: k8.kkt_lu_factor(K), reps)
+        out["factor"]["k_entry_ms"] = k_entry_ms
+        torch.cuda.synchronize()
+        _, _, events = profiled(lambda: k8.kkt_lu_factor_blocks(*blocks))
+        print(f"K8 kkt_lu_factor {label}: the K entry {k_entry_ms:.4f} ms (the blocks entry "
+              f"{out['factor']['ms']:.4f}); one blocks-entry factor's device time by kernel: "
+              f"{top_kernels(events, k=8)}")
         return out
 
     for dtype in (torch.float64, torch.float32):
         scaled, rs, _, dyn = path_operands(512, 25, 50, dtype, dev)
-        K = kkt_lu.form_kkt(scaled.P, scaled.A, dyn.sigma, rs.rho_inv_vec).contiguous()
-        compare(K, f"ADMM form B=512 N=75 {dtype_name(dtype)}")
+        blocks = (scaled.P, scaled.A, dyn.sigma, rs.rho_inv_vec)
+        compare(blocks_kkt(blocks), f"ADMM form B=512 N=75 {dtype_name(dtype)}", blocks)
+
+    # the batched path at ragged N, a batch of the SM count
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.float64, torch.float32):
+        launches = {}
+        for N in (1, 31, 33, 63, 65, 75, 300):
+            n = max(1, N // 3)
+            blocks = random_blocks(sms, n, N - n, dtype, dev, seed=N, masked=N % 2 == 1)
+            K = blocks_kkt(blocks)
+            lp, pp = k8.kkt_lu_factor_plain(K)
+            runs = [k8.kkt_lu_factor(K), k8.kkt_lu_factor(K), k8.kkt_lu_factor_blocks(*blocks),
+                    k8.kkt_lu_factor_blocks(*blocks)]
+            launches[N] = k8.factor_info[0]
+            torch.cuda.synchronize()
+            require(k8.factor_info[2] == 0, f"K8 at B={sms} N={N} did not take the batched path")
+            require(all(torch.equal(lu, lp) and torch.equal(perm, pp) for lu, perm in runs),
+                    f"K8's batched factor disagrees with its plain version at B={sms} N={N} {dtype_name(dtype)}")
+        print(f"K8 batched path B={sms} {dtype_name(dtype)}, N in {list(launches)}: lu and perm bit-identical to "
+              f"plain through both entry points, two launches each bit-identical True; launches per factor "
+              f"{launches}")
 
     B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
-    K, rows = polish_kkt(on_device(make_qps(B, n, m), torch.float32, dev), torch.float32)
+    blocks, rows = polish_blocks(on_device(make_qps(B, n, m), torch.float32, dev), torch.float32)
+    K = blocks_kkt(blocks)
     label = f"K_delta B={B} N={n + m} float32"
     print(f"K8 {label}: active rows of A by instance, of {m}: mean {float(rows.mean()):.1f}, least {int(rows.min())}, "
           f"most {int(rows.max())}")
-    err, err_x = compare(K, label)
-    stats = times(K, label, reps=5)
-    del K
+    err, err_x = compare(K, label, blocks)
+    stats = times(K, blocks, label, reps=5)
+    del K, blocks
     torch.cuda.empty_cache()
 
     # B = 1, where the batch cannot fill the card: the cluster factor and
@@ -1220,11 +1315,12 @@ def phase_k8(dev):
     small = {}
     for name in ("CVXQP2_S", "CVXQP2_M"):
         for dtype in (torch.float64, torch.float32):
-            K, rows = polish_kkt(on_device(maros_dense(name), dtype, dev), dtype)
+            blocks, rows = polish_blocks(on_device(maros_dense(name), dtype, dev), dtype)
+            K = blocks_kkt(blocks)
             label = f"K_delta {name} B=1 N={K.shape[1]} {dtype_name(dtype)}"
             print(f"K8 {label}: {int(rows[0])} active rows of A")
-            compare(K, label)
-            t = times(K, label, reps=5)
+            compare(K, label, blocks)
+            t = times(K, blocks, label, reps=5)
             if name == "CVXQP2_M":
                 small[dtype_name(dtype)] = t
                 for what in ("factor", "solve"):
@@ -1540,6 +1636,23 @@ def phase_k5(dev):
                 vec = (x if mode == "matvec" else rs.rho_vec * y)[0][:, None]
                 library_ms = cuda_ms(lambda: torch.sparse.mm(csr, vec), 50)
                 print(f"  library torch.sparse.mm (CSR) {library_ms:.4f} ms")
+            else:
+                # library_ms only: the batch as one 3-D sparse COO tensor for
+                # torch.bmm, which the port never calls
+                val, idx, R, C = (A.val, A.idx, m, n) if mode == "matvec" else (A.t_val, A.t_idx, n, m)
+                keep = (val != 0).flatten()
+                k = idx.shape[1]
+                bi = torch.arange(B, device=dev).repeat_interleave(R * k)
+                ri = torch.arange(R, device=dev).repeat_interleave(k).repeat(B)
+                ci = idx.flatten().long().repeat(B)
+                coo = torch.sparse_coo_tensor(torch.stack([bi, ri, ci])[:, keep], val.flatten()[keep],
+                                              (B, R, C)).coalesce()
+                vec = (x if mode == "matvec" else rs.rho_vec * y)[:, :, None]
+                got = torch.bmm(coo, vec)[:, :, 0]
+                _, rel_lib = rel_err(got, call(getattr(k5, fn)))
+                library_ms = cuda_ms(lambda: torch.bmm(coo, vec), 50)
+                print(f"  library torch.bmm (3-D sparse COO) {library_ms:.4f} ms, relative difference to the "
+                      f"kernel {rel_lib:.3e}")
             if stats is None:
                 stats = dict(t, max_abs_err=err, library_ms=library_ms)
 
@@ -1961,7 +2074,9 @@ def k7_cost(B, Nb, b, dtype):
 
 
 def phase_k7(dev):
-    """K7 (block_tridiag) against its plain versions on the reduced matrix
+    """K7 (block_tridiag) against its plain versions: both paths (b = 1, 5,
+    12, 16, 32 on the warp path, 40 on the block path) on random band
+    matrices, B=200, in both dtypes; then on the reduced matrix
     of the MPC cell as the block_tridiag backend forms it (B=1000, b=12,
     Nb=31, float32) and at B=64 in float64: factor and solve bit for bit,
     two launches bit-identical; kernel, plain and library (the dense route:
@@ -1969,7 +2084,42 @@ def phase_k7(dev):
     bound."""
     import torch
 
+    from osqp_tpu_torch.linsys.dense_chol import form_schur
     from osqp_tpu_torch.ops import block_tridiag as k7
+
+    # both paths by block size: the warp path up to 32, the block path above
+    for dtype in (torch.float64, torch.float32):
+        paths = {}
+        for b in (1, 5, 12, 16, 32, 40):
+            B, Nb = 200, 8
+            rng = np.random.default_rng(b)
+            n = Nb * b
+            P = np.zeros((B, n, n))
+            for i in range(Nb):
+                W = rng.standard_normal((B, b, b))
+                P[:, i * b:(i + 1) * b, i * b:(i + 1) * b] = W @ W.transpose(0, 2, 1) / b + 0.5 * np.eye(b)
+            A = np.zeros((B, (Nb - 1) * b, n))
+            for i in range(Nb - 1):
+                A[:, i * b:(i + 1) * b, i * b:(i + 2) * b] = rng.standard_normal((B, b, 2 * b))
+            rho = np.abs(rng.standard_normal((B, A.shape[1]))) + 0.1
+            P, A, rho = on_device((P, A, rho), dtype, dev)
+            M = form_schur(P, A, 1e-6, rho).contiguous()
+            r = torch.as_tensor(rng.standard_normal((B, n)), dtype=dtype, device=dev)
+            before = (k7.launches_factor_warp, k7.launches_solve_warp)
+            C, G = k7.bt_factor(M, b)
+            C2, G2 = k7.bt_factor(M, b)
+            x, x2 = k7.bt_solve(C, G, r), k7.bt_solve(C, G, r)
+            warp = (k7.launches_factor_warp - before[0], k7.launches_solve_warp - before[1]) == (2, 2)
+            Cp, Gp = k7.bt_factor_plain(M, b)
+            xp = k7.bt_solve_plain(Cp, Gp, r)
+            torch.cuda.synchronize()
+            require(warp == (b <= k7.WARP_MAX), f"K7 at b={b} took the wrong path")
+            require(torch.equal(C, C2) and torch.equal(G, G2) and torch.equal(x, x2), f"K7: two launches differ at b={b}")
+            require(torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp),
+                    f"K7 differs from its plain version at b={b} {dtype_name(dtype)}")
+            paths[b] = "warp" if warp else "block"
+        print(f"K7 block_tridiag B=200 Nb=8 {dtype_name(dtype)}, paths by b {paths}: factor and solve bit-identical "
+              f"to plain True, two launches bit-identical True")
 
     stats = None
     for B, dtype in ((MPC["B"], torch.float32), (64, torch.float64)):
@@ -2082,6 +2232,8 @@ def phase_mpc(dev):
         if main_path:
             require(delta["bt_factor"] >= 1 and delta["bt_solve"] == int(iters.max()),
                     f"mpc block_tridiag: K7 launched {delta['bt_factor']} / {delta['bt_solve']} times")
+            require((delta["bt_factor_warp"], delta["bt_solve_warp"]) == (delta["bt_factor"], delta["bt_solve"]),
+                    "mpc block_tridiag: K7 did not take the warp path at b = 12")
             require(delta["admm_iter"] == delta["chol_inverse"] == delta["kkt_lu_factor"] == 0,
                     "mpc block_tridiag: a dense_inv or K8 kernel launched")
         else:
@@ -2424,9 +2576,11 @@ def main() -> int:
              replaces="osqp_tpu/polish.py:65", launches=polish_loops,
              launches_solve=polish_launches_sparse["cg_loop"], paths=polish_paths, **pcg_stats),
         dict(name="k7_factor", route="cuda", source="osqp_tpu_torch/csrc/block_tridiag.cu",
-             replaces="osqp_tpu/linsys/block_tridiag.py:133", launches=mpc_launches["bt_factor"], **k7_factor_stats),
+             replaces="osqp_tpu/linsys/block_tridiag.py:133", launches=mpc_launches["bt_factor"],
+             launches_warp=mpc_launches["bt_factor_warp"], **k7_factor_stats),
         dict(name="k7_solve", route="cuda", source="osqp_tpu_torch/csrc/block_tridiag.cu",
-             replaces="osqp_tpu/linsys/block_tridiag.py:180", launches=mpc_launches["bt_solve"], **k7_solve_stats),
+             replaces="osqp_tpu/linsys/block_tridiag.py:180", launches=mpc_launches["bt_solve"],
+             launches_warp=mpc_launches["bt_solve_warp"], **k7_solve_stats),
         dict(name="cg_loop", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",
              replaces="osqp_tpu/linsys/cg.py:129", launches=sparse_launches["cg_loop"], paths=sparse_paths,
              **loop_stats),

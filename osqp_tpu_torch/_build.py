@@ -49,7 +49,8 @@ _SIGNATURES = {
     "osqp_admm_iter_refined": (_I,) + (_P,) * 22 + (_D, _D, _I, _I, _I, _I, _P),
     "osqp_ruiz": (_I,) + (_P,) * 17 + (_I,) * 7 + (_P,),
     "osqp_term_products": (_I,) + (_P,) * 11 + (_I,) * 5 + (_P,),
-    "osqp_kkt_lu_factor": (_I, _P, _P, _P, _I, _I, _I, _P, _P),
+    "osqp_kkt_lu_factor": (_I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "osqp_kkt_lu_factor_blocks": (_I, _P, _P, _P, _D, _I, _I, _P, _P, _P, _I, _I, _P, _P),
     "osqp_kkt_lu_solve_scratch": (_I,) * 3,
     "osqp_kkt_lu_solve": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "osqp_ell_reduce": (_I, _I) + (_P,) * 5 + (_I,) * 4 + (_P,),
@@ -137,6 +138,8 @@ def library() -> ctypes.CDLL:
             for name in ("osqp_admm_iter_scratch", "osqp_admm_iter_refined_scratch"):
                 getattr(lib, name).argtypes = (_I,) * 5
                 getattr(lib, name).restype = ctypes.c_size_t
+            lib.osqp_kkt_lu_factor_scratch.argtypes = (_I,) * 3
+            lib.osqp_kkt_lu_factor_scratch.restype = ctypes.c_longlong
             _lib = lib
     return _lib
 

@@ -1,6 +1,7 @@
 // K7: the block-tridiagonal Cholesky factorization of the reduced KKT
-// matrix M = P + sigma I + A' diag(rho) A, and the solve with its factors,
-// one thread block per instance.
+// matrix M = P + sigma I + A' diag(rho) A, and the solve with its factors:
+// a warp per instance for stages of b <= 32 variables, a block per
+// instance above.
 //
 // Replaces osqp_tpu/linsys/block_tridiag.py:init (:133-170), _tsolve
 // (:173) and solve (:180-228), two lax.scan recursions over the Nb stages
@@ -11,31 +12,55 @@
 //   solve   y_i = C_i^-1 (r_i - G_i y_{i-1})         forward over the stages
 //           x_i = C_i^-T (y_i - G_{i+1}' x_{i+1})    backward over the stages
 //
-// where D_i = M[block i, block i] and O_i = M[block i, block i-1].  The
-// factor kernel reads those two blocks of each stage straight from M
-// (strided; the rest of M is never read), keeps C_{i-1}, D_i and O_i in
-// shared memory (3 b^2 values), and writes C (B, Nb, b, b), lower with
-// zeros above, and G (B, Nb-1, b, b).  A stage whose pivot is not
+// where D_i = M[block i, block i] and O_i = M[block i, block i-1].  Both
+// factor paths read those two blocks of each stage straight from M
+// (strided; the rest of M is never read) and write C (B, Nb, b, b), lower
+// with zeros above, and G (B, Nb-1, b, b).  A stage whose pivot is not
 // positive gives NaN in the whole lower triangle of C_i, as
 // jnp.linalg.cholesky does, and the NaN runs on through every later
-// stage: it is not raised.  The solve kernel walks both passes in one
-// launch, keeping y in x's memory.
+// stage: it is not raised.  The solve walks both passes in one launch,
+// keeping y in x's memory.
+//
+// b <= 32 (the MPC cell's b = 12): a warp per instance, four a block,
+// lane r holding row r of the stage in registers.  The factor solves
+// G_i's row by columns against C_{i-1} (shared memory, broadcast reads),
+// forms D_i - G_i G_i' from G_i's rows in shared memory and runs the
+// Cholesky by columns, column j's entries by shuffle; the solve holds
+// rows of C_i and G_i (forward) or columns of C_i and G_{i+1} (backward),
+// the other entries of y or x by shuffle, and every lane divides entry j
+// by the diagonal at column step j.  No block barrier anywhere, and each
+// stage's bytes are loaded into registers while the stage before runs.
+// A ring of stages in shared memory fed by cp.async is not built: one
+// stage in flight already hides the loads' latency.  On an NVIDIA H100
+// 80GB HBM3 at 700.00 W at the MPC cell (tools/probe_k7_solve.py), the
+// solve takes 0.0911 ms warm and 0.1044 with the L2 flushed before each
+// call; with every stage's C and G read from stage 0's blocks instead
+// (L1 hits, or loads hoisted out of the loop) it takes 0.0743 and
+// 0.0841.  Flushing costs both about the same (0.013 and 0.010 ms), so
+// no stage waits on device memory; the 0.017 ms the loads add warm is
+// their instructions, which a ring would replace by as many
+// shared-memory loads, and without them the chain alone misses 0.05 ms.
+// Dividing on lane j alone behind a branch and shuffling the quotient
+// takes 0.1165.
+//
+// b > 32 (up to 139 in float32, 98 in float64): one block per instance,
+// C_{i-1}, D_i and O_i in shared memory (3 b^2 values), column steps
+// behind block barriers.
 //
 // Every product, sum, quotient and square root is rounded on its own (no
 // fused multiply-add), in the order of the plain versions in
 // ops/block_tridiag.py: the triangular solves by columns, the Cholesky
 // right-looking, column by column.  So kernel and plain version agree bit
-// for bit.
+// for bit on both paths.
 //
 // What bounds it on the H100: latency.  At the MPC cell (B = 1000, b = 12,
 // Nb = 31, float32) the factor reads the band blocks of M and writes C
 // and G, about 70 MB (0.02 ms at the HBM rate), and the solve reads C and
 // G once, about 35 MB; the work is ~Nb b^3 operations per instance.  What
-// sets the time is the chain of dependent steps inside a block: b column
-// steps of the Cholesky and of each triangular solve per stage, each
-// behind a block barrier.  This first version is the simple one; packing
-// several instances into a block and fusing the A products into the solve
-// are for later.
+// sets the time is each instance's chain: per stage b column steps of the
+// Cholesky or of each triangular solve, each a quotient (or square root)
+// and a shuffle, with about 8 warps an SM to hide them.  The two GEMVs
+// with A around the solve (linsys/block_tridiag.py) are not fused here.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -51,11 +76,16 @@ using osqp_cuda::sub;
 
 constexpr int kFactorThreads = 128;
 constexpr int kSolveThreads = 32;
+constexpr int kWarpMax = 32;  // largest b of the warp path
 
-__device__ __forceinline__ float quot(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double quot(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float root(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double root(double a) { return __dsqrt_rn(a); }
+// Correctly rounded (nvcc's defaults, -prec-div and -prec-sqrt, with no
+// --use_fast_math): the plain version's torch division and sqrt.
+template <typename T>
+__device__ __forceinline__ T quot(T a, T b) {
+  return a / b;
+}
+__device__ __forceinline__ float root(float a) { return sqrtf(a); }
+__device__ __forceinline__ double root(double a) { return sqrt(a); }
 
 template <typename T>
 __device__ __forceinline__ T not_a_number() {
@@ -197,8 +227,263 @@ solve_kernel(const T* __restrict__ C, const T* __restrict__ G, const T* __restri
   }
 }
 
+// ---------------------------------------------------------------------------
+// b <= 32: a warp per instance, kWarpInstances instances a block
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpInstances = 4;
+constexpr unsigned kFull = 0xffffffffu;
+
+// C_i, G_i of a warp's instance: lane r holds row r of the stage.  G_i's
+// row by its column solve against C_{i-1} (in shared memory, read by
+// broadcast), D_i - G_i G_i' from G_i's rows in shared memory, then the
+// Cholesky right-looking by columns: column j's entries come by shuffle
+// from the lanes that hold them.  The next stage's band rows (one
+// contiguous segment of 2 b values a lane) are loaded while this stage
+// runs.  Every value takes its operations in the plain version's order.
+template <typename T, int BM>
+__global__ void __launch_bounds__(32 * kWarpInstances)
+warp_factor_kernel(const T* __restrict__ M, T* __restrict__ C, T* __restrict__ G, int B, int b, int Nb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t inst = static_cast<size_t>(blockIdx.x) * kWarpInstances + warp;
+  if (inst >= static_cast<size_t>(B)) return;
+  const int bb = b * b;
+  T* Cp = reinterpret_cast<T*>(smem) + static_cast<size_t>(warp) * 2 * bb;  // C_{i-1}
+  T* Gs = Cp + bb;                                                          // G_i
+  const bool own = lane < b;
+  const int r = own ? lane : 0;
+  const size_t n = static_cast<size_t>(Nb) * b;
+  const T* Mi = M + inst * n * n;
+  T* Ci = C + inst * static_cast<size_t>(Nb) * bb;
+  T* Gi = G + inst * static_cast<size_t>(Nb - 1) * bb;
+
+  // row r of D_i and of O_i
+  T d[BM], o[BM], dn[BM], on[BM];
+  auto load = [&](int i, T (&dr)[BM], T (&orow)[BM]) {
+    const T* row = Mi + (static_cast<size_t>(i) * b + r) * n + static_cast<size_t>(i) * b;
+#pragma unroll
+    for (int t = 0; t < BM; ++t) {
+      dr[t] = own && t < b ? row[t] : T(0);
+      orow[t] = own && t < b && i > 0 ? row[t - b] : T(0);
+    }
+  };
+  load(0, d, o);
+  for (int i = 0; i < Nb; ++i) {
+    if (i + 1 < Nb) load(i + 1, dn, on);
+    T s[BM];
+#pragma unroll
+    for (int c = 0; c < BM; ++c) s[c] = d[c];
+    if (i > 0) {
+      // G_i = O_i C_{i-1}^-T: g[j] = (o[j] - sum_{t<j} g[t] C[j, t]) / C[j, j]
+      T g[BM];
+#pragma unroll
+      for (int j = 0; j < BM; ++j) {
+        if (j < b) {
+          T acc = o[j];
+#pragma unroll
+          for (int t = 0; t < j; ++t) acc = sub(acc, mul(g[t], Cp[j * b + t]));
+          g[j] = own ? quot(acc, Cp[j * b + j]) : T(0);
+        } else {
+          g[j] = T(0);
+        }
+      }
+      __syncwarp();  // the last stage's Gs is read
+      if (own) {
+#pragma unroll
+        for (int t = 0; t < BM; ++t) {
+          if (t < b) {
+            Gs[r * b + t] = g[t];
+            Gi[static_cast<size_t>(i - 1) * bb + r * b + t] = g[t];
+          }
+        }
+      }
+      __syncwarp();
+      // D_i - G_i G_i', in increasing t: the whole row, without a branch
+      // by lane, so that the b chains interleave (the entries above the
+      // diagonal are never read)
+#pragma unroll
+      for (int c = 0; c < BM; ++c) {
+        if (c < b) {
+          T acc = s[c];
+#pragma unroll
+          for (int t = 0; t < BM; ++t)
+            if (t < b) acc = sub(acc, mul(g[t], Gs[c * b + t]));
+          s[c] = acc;
+        }
+      }
+    }
+    // C_i = chol(S), right-looking, column by column
+    bool bad = false;
+#pragma unroll
+    for (int j = 0; j < BM; ++j) {
+      if (j < b) {
+        const T piv = __shfl_sync(kFull, s[j], j);
+        const T dj = root(piv);
+        bad |= !(piv > T(0));
+        if (lane > j && own) s[j] = quot(s[j], dj);
+        if (lane == j) s[j] = dj;
+#pragma unroll
+        for (int c = j + 1; c < BM; ++c) {
+          if (c < b) {
+            const T scj = __shfl_sync(kFull, s[j], c);
+            s[c] = sub(s[c], mul(s[j], scj));  // read where c <= lane only
+          }
+        }
+      }
+    }
+    __syncwarp();  // Cp is read
+    if (own) {
+#pragma unroll
+      for (int c = 0; c < BM; ++c) {
+        if (c < b) {
+          const T v = c <= r ? (bad ? not_a_number<T>() : s[c]) : T(0);
+          Ci[static_cast<size_t>(i) * bb + r * b + c] = v;
+          Cp[r * b + c] = v;
+        }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < BM; ++t) {
+      d[t] = dn[t];
+      o[t] = on[t];
+    }
+  }
+}
+
+// Both passes of the solve, lane r holding entry r of the stage: forward
+// with row r of C_i and G_i in registers, y_{i-1} by shuffle; backward
+// with column r of C_i and of G_{i+1}, x_{i+1} by shuffle.  At column
+// step j every lane takes entry j and the diagonal C_i[j][j] from lane j
+// and divides them itself: every lane computes lane j's quotient, and no
+// lane waits at a branch that lane j alone takes.  The next stage's
+// blocks are loaded while this stage runs.  y is kept in x's memory,
+// each entry read back by the lane that wrote it.
+template <typename T, int BM>
+__global__ void __launch_bounds__(32 * kWarpInstances)
+warp_solve_kernel(const T* __restrict__ C, const T* __restrict__ G, const T* __restrict__ rhs, T* __restrict__ x,
+                  int B, int b, int Nb) {
+  const int lane = threadIdx.x & 31;
+  const size_t inst = static_cast<size_t>(blockIdx.x) * kWarpInstances + (threadIdx.x >> 5);
+  if (inst >= static_cast<size_t>(B)) return;
+  const int bb = b * b;
+  const bool own = lane < b;
+  const int r = own ? lane : 0;
+  const size_t n = static_cast<size_t>(Nb) * b;
+  const T* Ci = C + inst * static_cast<size_t>(Nb) * bb;
+  const T* Gi = G + inst * static_cast<size_t>(Nb - 1) * bb;
+  const T* ri = rhs + inst * n;
+  T* xi = x + inst * n;
+  T c[BM], g[BM], cn[BM], gn[BM];
+  T v, vn;
+
+  // forward: row r of C_i and of G_i (stage i >= 1), entry r of r_i
+  auto rows = [&](int i, T (&cr)[BM], T (&gr)[BM], T& rv) {
+#pragma unroll
+    for (int t = 0; t < BM; ++t) {
+      cr[t] = own && t < b ? Ci[static_cast<size_t>(i) * bb + r * b + t] : T(0);
+      gr[t] = own && t < b && i > 0 ? Gi[static_cast<size_t>(i - 1) * bb + r * b + t] : T(0);
+    }
+    rv = own ? ri[static_cast<size_t>(i) * b + r] : T(0);
+  };
+  rows(0, c, g, v);
+  T y = T(0);  // entry `lane` of y_{i-1}
+  for (int i = 0; i < Nb; ++i) {
+    if (i + 1 < Nb) rows(i + 1, cn, gn, vn);
+    if (i > 0) {
+#pragma unroll
+      for (int t = 0; t < BM; ++t) {
+        const T yt = __shfl_sync(kFull, y, t);
+        if (t < b) v = sub(v, mul(g[t], yt));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BM; ++j) {
+      if (j < b) {
+        const T yj = quot(__shfl_sync(kFull, v, j), __shfl_sync(kFull, c[j], j));
+        const T vk = sub(v, mul(c[j], yj));
+        v = lane == j ? yj : (lane > j ? vk : v);
+      }
+    }
+    y = v;
+    if (own) xi[static_cast<size_t>(i) * b + r] = y;
+#pragma unroll
+    for (int t = 0; t < BM; ++t) {
+      c[t] = cn[t];
+      g[t] = gn[t];
+    }
+    v = vn;
+  }
+
+  // backward: column r of C_i and of G_{i+1}, entry r of y_i
+  auto cols = [&](int i, T (&cc)[BM], T (&gc)[BM], T& yv) {
+#pragma unroll
+    for (int t = 0; t < BM; ++t) {
+      cc[t] = own && t < b ? Ci[static_cast<size_t>(i) * bb + t * b + r] : T(0);
+      gc[t] = own && t < b && i + 1 < Nb ? Gi[static_cast<size_t>(i) * bb + t * b + r] : T(0);
+    }
+    yv = own ? xi[static_cast<size_t>(i) * b + r] : T(0);
+  };
+  cols(Nb - 1, c, g, v);
+  T xn = T(0);  // entry `lane` of x_{i+1}
+  for (int i = Nb - 1; i >= 0; --i) {
+    if (i > 0) cols(i - 1, cn, gn, vn);
+    if (i + 1 < Nb) {
+#pragma unroll
+      for (int t = 0; t < BM; ++t) {
+        const T xt = __shfl_sync(kFull, xn, t);
+        if (t < b) v = sub(v, mul(g[t], xt));
+      }
+    }
+#pragma unroll
+    for (int j = BM - 1; j >= 0; --j) {
+      if (j < b) {
+        const T xj = quot(__shfl_sync(kFull, v, j), __shfl_sync(kFull, c[j], j));
+        const T vk = sub(v, mul(c[j], xj));
+        v = lane == j ? xj : (lane < j ? vk : v);
+      }
+    }
+    xn = v;
+    if (own) xi[static_cast<size_t>(i) * b + r] = xn;
+#pragma unroll
+    for (int t = 0; t < BM; ++t) {
+      c[t] = cn[t];
+      g[t] = gn[t];
+    }
+    v = vn;
+  }
+}
+
+template <typename T, int BM>
+int launch_warp(const void* M, void* C, void* G, const void* rhs, void* x, int B, int b, int Nb, bool factor,
+                cudaStream_t s) {
+  const int blocks = (B + kWarpInstances - 1) / kWarpInstances;
+  if (factor) {
+    const size_t smem = static_cast<size_t>(kWarpInstances) * 2 * b * b * sizeof(T);
+    const cudaError_t err = allow_smem(warp_factor_kernel<T, BM>, smem);
+    if (err != cudaSuccess) return err;
+    warp_factor_kernel<T, BM><<<blocks, 32 * kWarpInstances, smem, s>>>(
+        static_cast<const T*>(M), static_cast<T*>(C), static_cast<T*>(G), B, b, Nb);
+  } else {
+    warp_solve_kernel<T, BM><<<blocks, 32 * kWarpInstances, 0, s>>>(
+        static_cast<const T*>(C), static_cast<const T*>(G), static_cast<const T*>(rhs), static_cast<T*>(x), B, b, Nb);
+  }
+  return cudaGetLastError();
+}
+
+// The warp path at b <= 32, its register arrays sized by b.
+template <typename T>
+int warp_path(const void* M, void* C, void* G, const void* rhs, void* x, int B, int b, int Nb, bool factor,
+              cudaStream_t s) {
+  if (b <= 8) return launch_warp<T, 8>(M, C, G, rhs, x, B, b, Nb, factor, s);
+  if (b <= 16) return launch_warp<T, 16>(M, C, G, rhs, x, B, b, Nb, factor, s);
+  return launch_warp<T, 32>(M, C, G, rhs, x, B, b, Nb, factor, s);
+}
+
 template <typename T>
 int factor(const void* M, void* C, void* G, int B, int b, int Nb, cudaStream_t s) {
+  if (b <= kWarpMax) return warp_path<T>(M, C, G, nullptr, nullptr, B, b, Nb, true, s);
   const size_t smem = 3 * static_cast<size_t>(b) * b * sizeof(T);
   const cudaError_t err = allow_smem(factor_kernel<T>, smem);
   if (err != cudaSuccess) return err;
@@ -209,6 +494,8 @@ int factor(const void* M, void* C, void* G, int B, int b, int Nb, cudaStream_t s
 
 template <typename T>
 int solve(const void* C, const void* G, const void* rhs, void* x, int B, int b, int Nb, cudaStream_t s) {
+  if (b <= kWarpMax)
+    return warp_path<T>(nullptr, const_cast<void*>(C), const_cast<void*>(G), rhs, x, B, b, Nb, false, s);
   const size_t smem = static_cast<size_t>(b) * sizeof(T);
   const cudaError_t err = allow_smem(solve_kernel<T>, smem);
   if (err != cudaSuccess) return err;

@@ -15,23 +15,47 @@
 //
 // One instance does not fit a block: N = n + m = 300 at the headline is
 // 360 KB in float32, N = 2250 (CVXQP2_M) 40 MB in float64.  So the factor
-// works in place in device memory by column panels, a short sequence of
-// launches per panel, all enqueued by one C call.  Two paths, by batch:
+// works in device memory by column panels, a short sequence of launches
+// per panel, all enqueued by one C call.  Two entry points: K itself
+// (osqp_kkt_lu_factor, not written), or its blocks P, A, the shift s of
+// P's diagonal and the (2,2) diagonal d (osqp_kkt_lu_factor_blocks:
+// polish, which zeroes A's inactive rows, and the kkt_lu backend), whose
+// first pass reads the blocks where it would read K (Source::at: each
+// entry one rounding, as form_kkt forms it), so K is never formed.  Two
+// paths, by batch:
 //
-// Batches that fill the card (B >= SMs, the headline), per panel:
-//   1. panel_kernel, one block per instance: the panel's rows below the
-//      diagonal, nb <= 32 columns wide, are staged in shared memory (the
-//      widest of 32, 16, 8 columns that fits; above that the panel stays
-//      in device memory), and factored column by column: pivot search by
-//      a block reduction, row exchange, scale, rank-1 update, a thread
-//      per row.
-//   2. swap_solve_kernel, a thread per column outside the panel: the
-//      panel's row exchanges, composed into one gather, and for the
-//      columns to its right the triangular solve U12 = L11^-1 A12, the
-//      column held in registers.
-//   3. update_kernel, a block per 64 x 64 tile of the trailing matrix:
-//      A22 -= L21 U12 in 4 x 4 register tiles.
-//   4. perm_kernel turns the pivots into perm.
+// Batches that fill the card (B >= SMs, the headline), per panel of W =
+// 64 columns (32, 16 or 8 where a panel of 64 would keep two blocks off
+// an SM: float64 at N = 300; spilled to device memory where no panel
+// fits), two launches:
+//   1. bpanel_kernel, one block per instance: the panel's rows [k0, N)
+//      staged in shared memory by cp.async (no register round trip, so a
+//      thread's copies are all in flight at once), rows relabelled, not
+//      moved.  The columns go by sub-panels of 16: a thread holds its rows
+//      of the sub-panel in registers (up to 1024 rows: 1, 2 or 4 a
+//      thread; above that the sweep reads shared memory), and a column
+//      costs one block barrier: each warp reduces its candidates (integer
+//      reductions on |value|'s bits) and its winner publishes its row of
+//      the sub-panel; after the barrier every warp re-reduces the warps'
+//      candidates, reads the pivot row and updates its rows, finding the
+//      next column's candidates in the same sweep.  At the end of a
+//      sub-panel its U12 and the rank-16 update of the rows below run
+//      from shared memory.  The epilogue writes the panel in the factored
+//      order, composes perm and lists the moved rows.
+//   2. bupdate_kernel, a block per strip of 64 columns of an instance:
+//      the moved rows on the strip (left of the panel that is all), then
+//      right of it U12 = L11^-1 A12 (four lanes a column, rows by
+//      shuffle) and A22 -= L21 U12 by chunks of 128 rows, 4 x 8 values a
+//      thread, 16-byte shared loads, the next chunk of L21 staged
+//      (cp.async, transposed) while this one is used, and the trailing
+//      values read and written 16 bytes at a time where rows are aligned.
+//      The first pass reads K (or the blocks) through the moves instead
+//      of moving it.
+// So a factor at N = 300 is 10 launches, the trailing matrix crosses
+// device memory 4 times and no row exchange is a pass of its own.  The panel's column steps are latency-bound (a chain of
+// warp reductions, a barrier, shared-memory round trips and a division
+// per column, with the shared memory of a 64-column panel leaving two
+// instances an SM); the update's mul and sub are issued separately.
 //
 // Batches that cannot fill the card (B < SMs: polish's B = 1), where one
 // instance must spread over the card:
@@ -63,9 +87,10 @@
 // Every value takes its updates in the order of the unblocked
 // right-looking algorithm, a_ic <- a_ic - l_ik u_kc for k = 0, 1, ...,
 // each product and difference rounded on its own.  Neither path changes
-// that: a panel's columns are the unblocked algorithm on its rows, U12's
-// solve and the trailing update subtract in increasing k, and the update
-// split in two touches each value once.  So the factors, and with them
+// that: a panel's columns are the unblocked algorithm on its rows (by
+// sub-panels, each value still takes its k in order), U12's solves and
+// the trailing updates subtract in increasing k, and the updates split
+// by strips or in two touch each value once.  So the factors, and with them
 // every pivot choice, are bit for bit those of the plain PyTorch version
 // (ops/kkt_lu.py:kkt_lu_factor_plain), and two launches agree bit for
 // bit: nothing here is atomic on floating values.
@@ -87,15 +112,15 @@
 // agree bit for bit.
 //
 // What bounds them on the H100: the factor does (2/3) N^3 operations an
-// instance and, blocked by 32 columns, moves the trailing matrix through
-// device memory N / 32 times (about N^3 / 48 values read and written an
-// instance), so at the headline its bytes, not its operations, set the
-// time.  At B = 1 the chain of N pivot columns sets it: a cluster barrier,
-// a round of remote reads and three block barriers per column, some 2.8
-// us all told, against 0.2 ms of operations for the whole factor at
-// N = 2250 in float64.  The
-// solve reads lu once and is bound by those bytes; at B = 1 by its chain
-// of 2 N / 32 diagonal solves, each behind a flag.
+// instance, issued as separate multiplies and subtractions (no FMA: twice
+// the time of chip_smoke.bound's operations figure), and at the headline
+// those, not its bytes, set the floor: the update kernel's inner loop is
+// 32 multiply-subtracts for three 16-byte shared loads.  At B = 1 the
+// chain of N pivot columns sets it: a cluster barrier, a round of remote
+// reads and three block barriers per column, some 2.8 us all told,
+// against 0.2 ms of operations for the whole factor at N = 2250 in
+// float64.  The solve reads lu once and is bound by those bytes; at B = 1
+// by its chain of 2 N / 32 diagonal solves, each behind a flag.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -114,18 +139,18 @@ using osqp_cuda::kWarps;
 using osqp_cuda::mul;
 using osqp_cuda::sub;
 
-constexpr int kMaxNB = 32;     // widest panel
-constexpr int kMinNB = 8;      // narrowest staged panel
-constexpr int kGlobalNB = 16;  // panel width where no staged panel fits
-constexpr int kTile = 64;      // edge of a tile of the trailing update
+constexpr int kMaxNB = 32;     // widest panel of the cluster path
+constexpr int kMinNB = 8;      // narrowest panel of the cluster path
+constexpr int kMaxBatchedW = 64;  // widest panel of the batched path
+constexpr int kTile = 64;      // edge of a tile of the cluster path's trailing update
 constexpr int kSolveRows = 32;  // rows of a group of the solve
 constexpr int kSolveThreadsWide = 1024;  // launch bound of lu_solve_kernel
 constexpr int kClusterMax = 16;         // CTAs of a panel's cluster at most (non-portable above 8)
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
-// Shared memory a staged panel may take: what a block may use, less the
+// Shared memory a batched panel may take: what a block may use, less the
 // kernel's static shared memory.
-constexpr size_t kPanelSmem = osqp_cuda::kMaxSmem - 1024;
+constexpr size_t kPanelSmem = osqp_cuda::kMaxSmem - 4096;
 // The same for the cluster panel, whose static shared memory is larger.
 constexpr size_t kClusterSmem = osqp_cuda::kMaxSmem - 4096;
 
@@ -145,96 +170,607 @@ __device__ __forceinline__ T quotient(T a, T d) {
   return a / d;
 }
 
-// Of two (|value|, row) candidates keep the larger value, and of equal
-// values the smaller row.
+// The pivot searches compare keys: |value|'s bits plus one
+// (bits of non-negative floats order as the values do), 0 for a NaN or
+// for no candidate.  Of equal keys the smallest tie wins, where the tie
+// carries the logical row: so the winner is the first row of largest
+// |value|, and a warp finds it with the integer reductions.
 template <typename T>
-__device__ __forceinline__ void keep_better(T& best, int& idx, T ob, int oi) {
-  if (ob > best || (ob == best && oi < idx)) {
-    best = ob;
-    idx = oi;
+__device__ __forceinline__ unsigned long long pivot_key(T v, bool candidate) {
+  if constexpr (sizeof(T) == 4) {
+    const unsigned bits = __float_as_uint(v) & 0x7fffffffu;
+    return candidate && bits <= 0x7f800000u ? bits + 1ull : 0ull;
+  } else {
+    const unsigned long long bits = static_cast<unsigned long long>(__double_as_longlong(v)) & 0x7fffffffffffffffull;
+    return candidate && bits <= 0x7ff0000000000000ull ? bits + 1ull : 0ull;
   }
 }
 
+// The warp's largest key and, of the lanes that hold it, the smallest
+// tie, in every lane.
 template <typename T>
-size_t panel_bytes(int rows, int nb) {
-  return static_cast<size_t>(rows) * (nb + 1) * sizeof(T);
+__device__ __forceinline__ void warp_best(unsigned long long key, unsigned tie, unsigned long long& best,
+                                          unsigned& best_tie) {
+  if constexpr (sizeof(T) == 4) {
+    best = __reduce_max_sync(kFull, static_cast<unsigned>(key));
+  } else {
+    const unsigned hi = static_cast<unsigned>(key >> 32), lo = static_cast<unsigned>(key);
+    const unsigned mh = __reduce_max_sync(kFull, hi);
+    best = (static_cast<unsigned long long>(mh) << 32) | __reduce_max_sync(kFull, hi == mh ? lo : 0u);
+  }
+  best_tie = __reduce_min_sync(kFull, key == best ? tie : UINT_MAX);
 }
 
-// Factor the panel of columns [k0, k0 + nb) of every instance: rows
-// [k0, N), in place.  piv[b][k0 + j] is the row exchanged with row k0 + j.
+// v[0..V) <- p[0..V), by 16-byte loads (p 16-byte aligned).
+template <int V, typename T>
+__device__ __forceinline__ void load_vec(const T* p, T (&v)[V]) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      const float4 f = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = f.x;
+      v[4 * i + 1] = f.y;
+      v[4 * i + 2] = f.z;
+      v[4 * i + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const double2 f = reinterpret_cast<const double2*>(p)[i];
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// p[0..V) <- v[0..V), by 16-byte stores (p 16-byte aligned).
+template <int V, typename T>
+__device__ __forceinline__ void store_vec(T* p, const T (&v)[V]) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i)
+      reinterpret_cast<float4*>(p)[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) reinterpret_cast<double2*>(p)[i] = make_double2(v[2 * i], v[2 * i + 1]);
+  }
+}
+
+// *dst <- *src, shared from device memory, without a register: a thread
+// issues all its copies back to back, and cp.async.wait_all (then a block
+// barrier) makes them visible.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) panel_kernel(T* __restrict__ lu, int* __restrict__ piv, int N, int k0,
-                                                         int nb, int staged) {
-  extern __shared__ __align__(16) unsigned char panel_smem[];
-  __shared__ T s_best[kWarps];
-  __shared__ int s_idx[kWarps];
-  __shared__ int s_piv;
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(osqp_cuda::smem_addr(dst)), "l"(src),
+               "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Where a factor's first pass reads K: from lu itself (kLu, every later
+// pass too), from a separate K, or from the blocks of
+// K = [[P + s I, A'], [A, -diag(d)]] (kBlocks).  Every entry of K is the
+// blocks' entry or one rounding of it, as form_kkt computes it: P + s
+// (P + 0 off the diagonal), A, -d.
+enum SourceKind { kLu = 0, kSeparate = 1, kBlocks = 2 };
+
+template <typename T>
+struct Source {
+  int kind;
+  const T* K;     // kSeparate: (B, N, N)
+  const T* P;     // kBlocks: (B, n, n)
+  const T* A;     // (B, m, n)
+  const T* d;     // (B, m)
+  T s;
+  int n, m;
+
+  // K[r][c] of instance b, for r, c < N
+  __device__ __forceinline__ T at(const T* lu, size_t b, int r, int c, int N) const {
+    if (kind == kLu) return lu[(b * N + r) * N + c];
+    if (kind == kSeparate) return K[(b * N + r) * N + c];
+    if (r < n) {
+      if (c < n) return osqp_cuda::add(P[(b * n + r) * n + c], r == c ? s : T(0));
+      return A[(b * m + (c - n)) * n + r];
+    }
+    if (c < n) return A[(b * m + (r - n)) * n + c];
+    return r == c ? -d[b * m + (r - n)] : T(0);
+  }
+  // K of instance b where K is an array (kLu, kSeparate), else null
+  __device__ __forceinline__ const T* array(const T* lu, size_t b, int N) const {
+    return kind == kLu ? lu + b * N * N : kind == kSeparate ? K + b * N * N : nullptr;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Batches that fill the card: a panel kernel and an update kernel a panel
+// ---------------------------------------------------------------------------
+
+constexpr int kSub = 16;          // columns of a sub-panel of the batched panel
+constexpr int kStrip = 64;        // columns of a strip of the batched update
+constexpr int kChunk = 128;       // rows of L21 a strip stages at once
+constexpr int kChunkLd = kChunk + 4;
+constexpr int kMoveInts = 1 + 4 * kMaxBatchedW;  // a panel's moved rows: count, then (to, from) pairs
+constexpr size_t kPanelPair = (kPanelSmem - 1024) / 2;  // a panel that lets two blocks share an SM
+
+__host__ __device__ constexpr size_t align16(size_t v) { return (v + 15) / 16 * 16; }
+
+// Dynamic shared memory of a batched panel of `rows` rows and `w`
+// columns: three int arrays by row (label, row of a label, scratch), then
+// the panel's values unless they spill to device memory.
+template <typename T>
+size_t bpanel_bytes(int rows, int w, bool spill) {
+  return align16(3 * sizeof(int) * static_cast<size_t>(rows)) +
+         (spill ? 0 : sizeof(T) * static_cast<size_t>(rows) * (w | 1));
+}
+
+// Dynamic shared memory of a batched update behind a panel of W columns:
+// L21 by chunks (transposed, two buffers), U12 on the strip, L11, the
+// gathered rows.
+template <typename T, int W>
+size_t bupdate_bytes(int rows) {
+  return sizeof(T) * (2 * static_cast<size_t>(W) * kChunkLd + W * kStrip + W * (W + 1)) + sizeof(int) * rows;
+}
+
+// Factor the panel of columns [k0, k0 + w) of instance blockIdx.x, rows
+// [k0, N), in shared memory (in `spill`, one (N - k0) x (w | 1) block an
+// instance, where it does not fit).
+//
+// Rows are not moved: physical row r keeps its place, lab[r] is its
+// place in the factored order.  At column j the pivot, the first logical
+// row of largest |value| among rows j.., takes label j and the row that
+// held label j takes the pivot's, as the plain version swaps the rows.
+// Per column: each warp reduces its threads' candidates (integer
+// reductions on |value|'s bits, pivot_key), one block barrier, every warp
+// re-reduces the warps' candidates, and each thread updates its rows and
+// finds its candidate for the next column in the same sweep.  With R > 0
+// thread t holds rows t + kThreads i (i < R) of the sub-panel in
+// registers, and each warp's winner publishes its row beside its key;
+// with R = 0 (more than 4 kThreads rows) the sweep works in place.
+//
+// The columns go by sub-panels of kSub: a column's update reaches the
+// columns of its sub-panel only; at the end of a sub-panel its rows of
+// U12 on the panel's later columns are solved (a thread a column) and the
+// rows below take the rank-kSub update, two rows by eight columns a
+// thread.  Every value so takes its updates in increasing k.
+//
+// The epilogue writes the panel back in the factored order, perm composed
+// with the panel's exchanges, and the moved rows as (to, from) pairs into
+// `moves`, for the update kernel to carry to the other columns.
+// In float32 a panel of at most kThreads rows keeps its registers to
+// three blocks an SM, a taller one to two.
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? (R == 1 ? 3 : 2) : 1)
+    bpanel_kernel(T* lu, Source<T> src, int* __restrict__ moves, int* __restrict__ perm, T* spill, int N, int k0,
+                  int w) {
+  extern __shared__ __align__(16) unsigned char bp_smem[];
+  __shared__ unsigned long long s_key[2][kWarps];
+  __shared__ unsigned s_tie[2][kWarps];
+  __shared__ int s_row[2][kWarps];
+  __shared__ T s_crow[2][kWarps][kSub];
+  __shared__ int s_count;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rows = N - k0;
-  T* base = lu + static_cast<size_t>(blockIdx.x) * N * N + static_cast<size_t>(k0) * N + k0;
-  T* p = base;
-  size_t ld = N;
-  if (staged) {
-    p = reinterpret_cast<T*>(panel_smem);
-    ld = nb + 1;  // odd: a thread per row reads a column without bank conflicts
-    for (int e = tid; e < rows * nb; e += kThreads) {
-      const int r = e / nb, c = e - r * nb;
-      p[r * ld + c] = base[static_cast<size_t>(r) * N + c];
+  const size_t b = blockIdx.x;
+  const int rows = N - k0, ld = w | 1;  // odd: a thread per row reads a column without bank conflicts
+  int* lab = reinterpret_cast<int*>(bp_smem);
+  int* where = lab + rows;
+  int* tmp = where + rows;
+  T* p = spill ? spill + b * rows * ld : reinterpret_cast<T*>(bp_smem + align16(3 * sizeof(int) * rows));
+  T* M = lu + b * N * N;
+  if (tid == 0) s_count = 0;
+  const T* Ks = src.array(lu, b, N);
+  for (int r = warp; r < rows; r += kWarps) {
+    for (int c = lane; c < w; c += 32) {
+      if (Ks && !spill)
+        copy_async(p + r * ld + c, Ks + static_cast<size_t>(k0 + r) * N + k0 + c);
+      else
+        p[r * ld + c] = src.at(lu, b, k0 + r, k0 + c, N);
     }
-    __syncthreads();
   }
-  for (int j = 0; j < nb; ++j) {
-    // the first row of largest |value| in column j, rows [j, rows)
-    T best = T(-1);
-    int idx = INT_MAX;
-    for (int r = j + tid; r < rows; r += kThreads) {
-      const T v = absval(p[r * ld + j]);
-      if (v > best) {
-        best = v;
-        idx = r;
+  copy_async_wait();
+  __syncthreads();
+
+  // this thread's candidate for the next column: key, logical row, and
+  // its row (R > 0: which of the thread's rows)
+  unsigned long long key = 0;
+  unsigned tie = UINT_MAX;
+  int row = 0;
+  auto offer = [&](T v, int lg, int r) {
+    const unsigned long long k = pivot_key(v, true);
+    if (k > key || (k == key && k != 0 && static_cast<unsigned>(lg) < tie)) {
+      key = k;
+      tie = lg;
+      row = r;
+    }
+  };
+  for (int r = tid; r < rows; r += kThreads) {
+    lab[r] = r;
+    if constexpr (R == 0) offer(p[r * ld], r, r);
+  }
+  const T nan = T(0) / T(0);
+  for (int q0 = 0; q0 < w; q0 += kSub) {
+    const int q1 = min(q0 + kSub, w);
+    if constexpr (R > 0) {
+      // Rows tid + kThreads i of the sub-panel in registers; each warp's
+      // candidate publishes its row with its key, so the pivot row is read
+      // after the one barrier of the column.
+      T seg[R][kSub];
+      int lr[R];
+      key = 0;
+      tie = UINT_MAX;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = tid + i * kThreads;
+        lr[i] = r < rows ? lab[r] : -1;
+#pragma unroll
+        for (int c = 0; c < kSub; ++c) seg[i][c] = r < rows && q0 + c < q1 ? p[r * ld + q0 + c] : T(0);
+        if (lr[i] >= q0) offer(seg[i][0], lr[i], i);
+      }
+#pragma unroll
+      for (int jj = 0; jj < kSub; ++jj) {
+        const int j = q0 + jj;
+        if (j >= q1) break;
+        const int par = j & 1;
+        unsigned long long kb;
+        unsigned tb;
+        warp_best<T>(key, key ? tie : UINT_MAX, kb, tb);
+        const unsigned who = __ballot_sync(kFull, kb != 0 && key == kb && tie == tb);
+        if (who && lane == __ffs(who) - 1) {
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            if (i == row) {
+#pragma unroll
+              for (int c = 0; c < kSub; ++c) s_crow[par][warp][c] = seg[i][c];
+            }
+          }
+        }
+        if (lane == 0) {
+          s_key[par][warp] = kb;
+          s_tie[par][warp] = tb;
+        }
+        __syncthreads();
+        const unsigned long long wk = lane < kWarps ? s_key[par][lane] : 0ull;
+        warp_best<T>(wk, wk ? s_tie[par][lane] : UINT_MAX, kb, tb);
+        const unsigned won = __ballot_sync(kFull, kb != 0 && wk == kb && lane < kWarps && s_tie[par][lane] == tb);
+        // No candidate: every live value of the column is NaN; row j stays
+        // and the pivot row is taken as NaN.
+        const int pr = kb ? static_cast<int>(tb) : j;
+        const T* top = kb ? s_crow[par][__ffs(won) - 1] : nullptr;
+        T tv[kSub];
+#pragma unroll
+        for (int c = 0; c < kSub; ++c) tv[c] = top && c >= jj && q0 + c < q1 ? top[c] : nan;
+        key = 0;
+        tie = UINT_MAX;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const int r = tid + i * kThreads;
+          if (r < rows) {
+            int lg = lr[i];
+            lg = lg == pr ? j : (lg == j ? pr : lg);
+            lr[i] = lg;
+            if (lg == j) where[j] = r;
+            if (lg > j) {
+              const T l = quotient(seg[i][jj], tv[jj]);
+              seg[i][jj] = l;
+#pragma unroll
+              for (int c = jj + 1; c < kSub; ++c)
+                if (q0 + c < q1) seg[i][c] = sub(seg[i][c], mul(l, tv[c]));
+              if (j + 1 < q1) offer(seg[i][jj + 1], lg, i);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = tid + i * kThreads;
+        if (r < rows) {
+          lab[r] = lr[i];
+#pragma unroll
+          for (int c = 0; c < kSub; ++c)
+            if (q0 + c < q1) p[r * ld + q0 + c] = seg[i][c];
+        }
+      }
+    } else {
+      for (int j = q0; j < q1; ++j) {
+        const int par = j & 1;
+        unsigned long long kb;
+        unsigned tb;
+        warp_best<T>(key, key ? tie : UINT_MAX, kb, tb);
+        unsigned who = __ballot_sync(kFull, kb != 0 && key == kb && tie == tb);
+        int at = __shfl_sync(kFull, row, who ? __ffs(who) - 1 : 0);
+        if (lane == 0) {
+          s_key[par][warp] = kb;
+          s_tie[par][warp] = tb;
+          s_row[par][warp] = at;
+        }
+        __syncthreads();
+        const unsigned long long wk = lane < kWarps ? s_key[par][lane] : 0ull;
+        warp_best<T>(wk, wk ? s_tie[par][lane] : UINT_MAX, kb, tb);
+        who = __ballot_sync(kFull, kb != 0 && wk == kb && lane < kWarps && s_tie[par][lane] == tb);
+        // No candidate: every live value of the column is NaN; row j stays
+        // and the pivot row is taken as NaN.
+        const int pr = kb ? static_cast<int>(tb) : j;
+        const T* top = kb ? p + s_row[par][__ffs(who) - 1] * ld + q0 : nullptr;
+        const T d = top ? top[j - q0] : nan;
+        // the pivot row on the sub-panel, once for this thread's rows; the
+        // row update unrolled over the sub-panel, so that its loads issue
+        // together
+        T tv[kSub];
+#pragma unroll
+        for (int c = 0; c < kSub; ++c) tv[c] = top && q0 + c > j && q0 + c < q1 ? top[c] : nan;
+        key = 0;
+        tie = UINT_MAX;
+        for (int r = tid; r < rows; r += kThreads) {
+          int lg = lab[r];
+          lg = lg == pr ? j : (lg == j ? pr : lg);
+          lab[r] = lg;
+          if (lg == j) where[j] = r;
+          if (lg > j) {
+            T* row_ = p + r * ld + q0;
+            const T l = quotient(row_[j - q0], d);
+            row_[j - q0] = l;
+#pragma unroll
+            for (int c = 0; c < kSub; ++c)
+              if (q0 + c > j && q0 + c < q1) row_[c] = sub(row_[c], mul(l, tv[c]));
+            if (j + 1 < q1) offer(row_[j + 1 - q0], lg, r);
+          }
+        }
       }
     }
-    for (int off = 16; off > 0; off >>= 1)
-      keep_better(best, idx, __shfl_down_sync(kFull, best, off), __shfl_down_sync(kFull, idx, off));
-    if (lane == 0) {
-      s_best[warp] = best;
-      s_idx[warp] = idx;
+    if (q1 == w) break;
+    __syncthreads();
+    // U12 of the sub-panel on the columns [q1, w): u <- L11^-1 u
+    if (tid < w - q1) {
+      const int c = q1 + tid;
+      T u[kSub];
+      const T* at[kSub];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) {
+        at[i] = p + where[q0 + i] * ld;
+        u[i] = at[i][c];
+      }
+#pragma unroll
+      for (int k = 0; k < kSub; ++k) {
+#pragma unroll
+        for (int i = k + 1; i < kSub; ++i) u[i] = sub(u[i], mul(at[i][q0 + k], u[k]));
+      }
+#pragma unroll
+      for (int i = 1; i < kSub; ++i) p[where[q0 + i] * ld + c] = u[i];
     }
     __syncthreads();
-    if (warp == 0) {
-      best = lane < kWarps ? s_best[lane] : T(-1);
-      idx = lane < kWarps ? s_idx[lane] : INT_MAX;
-      for (int off = 16; off > 0; off >>= 1)
-        keep_better(best, idx, __shfl_down_sync(kFull, best, off), __shfl_down_sync(kFull, idx, off));
-      if (lane == 0) {
-        const int pr = idx == INT_MAX ? j : idx;  // a column of NaN keeps its row
-        s_piv = pr;
-        piv[static_cast<size_t>(blockIdx.x) * N + k0 + j] = k0 + pr;
+    // the rows below it (labels >= q1): a -= L21 U12, two rows and eight
+    // columns a thread
+    {
+      const int groups = (w - q1 + 7) / 8, tiles = kThreads / groups;
+      const int g = tid % groups, t = tid / groups, c0 = q1 + 8 * g;
+      if (t < tiles) {
+        for (int r0 = 2 * t; r0 < rows; r0 += 2 * tiles) {
+          bool live[2];
+          T acc[2][8];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            live[i] = r0 + i < rows && lab[r0 + i] >= q1;
+#pragma unroll
+            for (int v = 0; v < 8; ++v) acc[i][v] = live[i] && c0 + v < w ? p[(r0 + i) * ld + c0 + v] : T(0);
+          }
+          if (!live[0] && !live[1]) continue;
+#pragma unroll 4
+          for (int k = 0; k < kSub; ++k) {
+            const T* uk = p + where[q0 + k] * ld + c0;
+            T a[2], uv[8];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) a[i] = live[i] ? p[(r0 + i) * ld + q0 + k] : T(0);
+#pragma unroll
+            for (int v = 0; v < 8; ++v) uv[v] = c0 + v < w ? uk[v] : T(0);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+#pragma unroll
+              for (int v = 0; v < 8; ++v) acc[i][v] = sub(acc[i][v], mul(a[i], uv[v]));
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+#pragma unroll
+            for (int v = 0; v < 8; ++v)
+              if (live[i] && c0 + v < w) p[(r0 + i) * ld + c0 + v] = acc[i][v];
+          }
+        }
       }
     }
     __syncthreads();
-    const int pr = s_piv;
-    if (pr != j && tid < nb) {
-      const T a = p[j * ld + tid];
-      p[j * ld + tid] = p[pr * ld + tid];
-      p[pr * ld + tid] = a;
+    if constexpr (R == 0) {
+      for (int r = tid; r < rows; r += kThreads) {
+        if (lab[r] >= q1) offer(p[r * ld + q1], lab[r], r);
+      }
     }
-    __syncthreads();
-    const T d = p[j * ld + j];
-    const T* top = p + j * ld;
-    for (int r = j + 1 + tid; r < rows; r += kThreads) {
-      T* row = p + r * ld;
-      const T l = row[j] / d;
-      row[j] = l;
-      for (int c = j + 1; c < nb; ++c) row[c] = sub(row[c], mul(l, top[c]));
-    }
-    __syncthreads();
   }
-  if (staged) {
-    for (int e = tid; e < rows * nb; e += kThreads) {
-      const int r = e / nb, c = e - r * nb;
-      base[static_cast<size_t>(r) * N + c] = p[r * ld + c];
+  __syncthreads();
+  for (int r = tid; r < rows; r += kThreads) where[lab[r]] = r;
+  __syncthreads();
+  for (int i = warp; i < rows; i += kWarps) {
+    const T* from = p + where[i] * ld;
+    for (int c = lane; c < w; c += 32) M[static_cast<size_t>(k0 + i) * N + k0 + c] = from[c];
+  }
+  int* mv = moves + b * kMoveInts;
+  int* pm = perm + b * N;
+  for (int i = tid; i < rows; i += kThreads) {
+    const int from = where[i];
+    tmp[i] = k0 == 0 ? from : pm[k0 + from];
+    if (from != i) {
+      const int slot = atomicAdd(&s_count, 1);
+      mv[1 + 2 * slot] = k0 + i;
+      mv[2 + 2 * slot] = k0 + from;
     }
+  }
+  __syncthreads();
+  for (int i = tid; i < rows; i += kThreads) pm[k0 + i] = tmp[i];
+  if (tid == 0) mv[0] = s_count;
+}
+
+// Behind the panel [k0, k0 + w) of instance blockIdx.x / strips: strip
+// blockIdx.x % strips of kStrip columns, the first `left` strips over
+// the columns [0, k0), the others over [k0 + w, N).
+//
+// Every strip first carries the panel's moved rows to its columns (read
+// all, then write all: the strip's columns belong to this block alone).
+// A strip right of the panel then solves its columns of U12 = L11^-1 A12
+// (four threads a column, lane g holding the rows g, g + 4, ...: the
+// entry of row k comes by shuffle) and takes A22 -= L21 U12 by chunks of
+// kChunk rows, L21 staged transposed in shared memory, four rows by
+// eight columns a thread, subtracting in increasing k.  In the first
+// pass (src not lu) the strip reads K through the moves instead of moving
+// it first: the source is not written.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads) bupdate_kernel(T* lu, Source<T> src, const int* __restrict__ moves,
+                                                           int N, int k0, int left, int strips) {
+  extern __shared__ __align__(16) unsigned char bu_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t b = blockIdx.x / strips;
+  const int strip = blockIdx.x - static_cast<int>(b) * strips;
+  const int k1 = k0 + W, rows = N - k0;
+  const bool right = strip >= left;
+  const int c0 = right ? k1 + (strip - left) * kStrip : strip * kStrip;
+  const int ce = min(c0 + kStrip, right ? N : k0);
+  const int cols = ce - c0;
+  T* Lt = reinterpret_cast<T*>(bu_smem);  // [2][W][kChunkLd]; first the moved rows' values
+  T* Us = Lt + 2 * W * kChunkLd;          // [W][kStrip]
+  T* L11 = Us + W * kStrip;               // [W][W + 1]
+  int* from = reinterpret_cast<int*>(L11 + W * (W + 1));  // [rows]: the row whose values logical row i takes
+  T* M = lu + b * N * N;
+  const int* mv = moves + b * kMoveInts;
+  const int count = mv[0];
+  const bool gather = src.kind != kLu;
+  if (gather) {
+    for (int i = tid; i < rows; i += kThreads) from[i] = i;
+    __syncthreads();
+    for (int e = tid; e < count; e += kThreads) from[mv[1 + 2 * e] - k0] = mv[2 + 2 * e] - k0;
+  } else if (count > 0) {
+    for (int i = warp; i < count; i += kWarps) {
+      const T* from = M + static_cast<size_t>(mv[2 + 2 * i]) * N + c0;
+      for (int c = lane; c < cols; c += 32) copy_async(Lt + i * kStrip + c, from + c);
+    }
+    copy_async_wait();
+    __syncthreads();
+    for (int i = warp; i < count; i += kWarps) {
+      T* to = M + static_cast<size_t>(mv[1 + 2 * i]) * N + c0;
+      for (int c = lane; c < cols; c += 32) to[c] = Lt[i * kStrip + c];
+    }
+  }
+  if (!right) return;
+  // L21's rows [r0, r0 + kChunk) into chunk buffer `buf`, transposed
+  auto stage = [&](int r0, int buf) {
+    T* to = Lt + buf * W * kChunkLd;
+    const int nr = min(kChunk, N - r0);
+    for (int i = warp; i < nr; i += kWarps) {
+      const T* from = M + static_cast<size_t>(r0 + i) * N + k0;
+      for (int k = lane; k < W; k += 32) copy_async(to + k * kChunkLd + i, from + k);
+    }
+  };
+  __syncthreads();  // the moves' staging area is free
+  for (int i = warp; i < W; i += kWarps) {
+    const T* from = M + static_cast<size_t>(k0 + i) * N + k0;
+    for (int k = lane; k < W; k += 32) copy_async(L11 + i * (W + 1) + k, from + k);
+  }
+  stage(k1, 0);
+  copy_async_wait();
+  __syncthreads();
+  // the value of logical row r (>= k0) in column c as this pass finds it
+  auto value = [&](int r, int c) -> T {
+    return gather ? src.at(lu, b, k0 + from[r - k0], c, N) : M[static_cast<size_t>(r) * N + c];
+  };
+
+  // U12 on columns c0 + 8 warp + lane % 8
+  {
+    constexpr int kPer = W / 4;
+    const int cl = warp * 8 + (lane & 7), g = lane >> 3;
+    const int c = c0 + cl;
+    const bool have = cl < cols;
+    T u[kPer];
+#pragma unroll
+    for (int t = 0; t < kPer; ++t) u[t] = have ? value(k0 + g + 4 * t, c) : T(0);
+#pragma unroll
+    for (int k = 0; k < W - 1; ++k) {
+      const T uk = __shfl_sync(kFull, u[k >> 2], ((k & 3) << 3) | (lane & 7));
+#pragma unroll
+      for (int t = 0; t < kPer; ++t) {
+        if (4 * t + 3 <= k) continue;  // rows g + 4 t <= k for every g
+        const int i = g + 4 * t;
+        if (i > k) u[t] = sub(u[t], mul(L11[i * (W + 1) + k], uk));
+      }
+    }
+    if (cl < kStrip) {
+#pragma unroll
+      for (int t = 0; t < kPer; ++t) {
+        const int i = g + 4 * t;
+        Us[i * kStrip + cl] = u[t];
+        if (have) M[static_cast<size_t>(k0 + i) * N + c] = u[t];
+      }
+    }
+  }
+
+  // A22 -= L21 U12 by chunks of rows
+  const bool aligned = N % (16 / sizeof(T)) == 0;  // c0 + cc is a multiple of 8
+  const int rt = warp * 4 + (lane >> 3), cg = lane & 7;
+  const int rr = 4 * rt, cc = 8 * cg;
+  for (int r0 = k1, buf = 0; r0 < N; r0 += kChunk, buf ^= 1) {
+    const int nr = min(kChunk, N - r0);
+    copy_async_wait();
+    __syncthreads();  // this chunk staged, Us written, the other buffer read
+    if (r0 + kChunk < N) stage(r0 + kChunk, buf ^ 1);
+    const T* Lc = Lt + buf * W * kChunkLd;
+    if (rr >= nr || cc >= cols) continue;
+    T acc[4][8];
+    // whole 16-byte groups of a row where rows start aligned (N a multiple
+    // of 16 / sizeof(T)), the strip's columns all present and no gather
+    const bool vec = !gather && aligned && cc + 8 <= cols;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (rr + i >= nr) {
+#pragma unroll
+        for (int v = 0; v < 8; ++v) acc[i][v] = T(0);
+      } else if (vec) {
+        load_vec<8>(M + static_cast<size_t>(r0 + rr + i) * N + c0 + cc, acc[i]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < 8; ++v) acc[i][v] = cc + v < cols ? value(r0 + rr + i, c0 + cc + v) : T(0);
+      }
+    }
+#pragma unroll 4
+    for (int k = 0; k < W; ++k) {
+      T a[4], x[8];
+      load_vec<4>(Lc + k * kChunkLd + rr, a);
+      load_vec<8>(Us + k * kStrip + cc, x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int v = 0; v < 8; ++v) acc[i][v] = sub(acc[i][v], mul(a[i], x[v]));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (rr + i >= nr) continue;
+      T* to = M + static_cast<size_t>(r0 + rr + i) * N + c0 + cc;
+      if (aligned && cc + 8 <= cols) {
+        store_vec<8>(to, acc[i]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < 8; ++v)
+          if (cc + v < cols) to[v] = acc[i][v];
+      }
+    }
+  }
+}
+
+// K into lu from its source, one pass: the batches that cannot fill the
+// card factor in place.
+template <typename T>
+__global__ void form_kernel(T* lu, Source<T> src, int B, int N) {
+  const size_t total = static_cast<size_t>(B) * N * N;
+  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; e < total;
+       e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t b = e / (static_cast<size_t>(N) * N);
+    const int rc = static_cast<int>(e - b * N * N), r = rc / N;
+    lu[e] = src.at(lu, b, r, rc - r * N, N);
   }
 }
 
@@ -481,37 +1017,6 @@ __global__ void __launch_bounds__(kSolveThreadsWide) lu_solve_kernel(const T* __
 // ---------------------------------------------------------------------------
 // Batches that cannot fill the card
 // ---------------------------------------------------------------------------
-
-// The cluster panel's pivot search compares keys: |value|'s bits plus one
-// (bits of non-negative floats order as the values do), 0 for a NaN or
-// for no candidate.  Of equal keys the smallest tie wins, where the tie
-// carries the logical row: so the winner is keep_better's, the first row
-// of largest |value|, and a warp finds it with the integer reductions.
-template <typename T>
-__device__ __forceinline__ unsigned long long pivot_key(T v, bool candidate) {
-  if constexpr (sizeof(T) == 4) {
-    const unsigned bits = __float_as_uint(v) & 0x7fffffffu;
-    return candidate && bits <= 0x7f800000u ? bits + 1ull : 0ull;
-  } else {
-    const unsigned long long bits = static_cast<unsigned long long>(__double_as_longlong(v)) & 0x7fffffffffffffffull;
-    return candidate && bits <= 0x7ff0000000000000ull ? bits + 1ull : 0ull;
-  }
-}
-
-// The warp's largest key and, of the lanes that hold it, the smallest
-// tie, in every lane.
-template <typename T>
-__device__ __forceinline__ void warp_best(unsigned long long key, unsigned tie, unsigned long long& best,
-                                          unsigned& best_tie) {
-  if constexpr (sizeof(T) == 4) {
-    best = __reduce_max_sync(kFull, static_cast<unsigned>(key));
-  } else {
-    const unsigned hi = static_cast<unsigned>(key >> 32), lo = static_cast<unsigned>(key);
-    const unsigned mh = __reduce_max_sync(kFull, hi);
-    best = (static_cast<unsigned long long>(mh) << 32) | __reduce_max_sync(kFull, hi == mh ? lo : 0u);
-  }
-  best_tie = __reduce_min_sync(kFull, key == best ? tie : UINT_MAX);
-}
 
 // Shared memory of one CTA of a cluster panel: the rows of the previous
 // panel's L21 of its slab (prev + 1 values each), that panel's U12 block
@@ -887,16 +1392,6 @@ __global__ void __launch_bounds__(kThreads) strip_solve_kernel(const T* __restri
 
 bool fits_grid(long long blocks) { return blocks > 0 && blocks <= INT_MAX; }
 
-// The width of the panel at `rows` rows, and whether it is staged.
-template <typename T>
-int panel_width(int rows, bool& staged) {
-  int nb = kMaxNB;
-  while (nb > kMinNB && panel_bytes<T>(rows, nb) > kPanelSmem) nb >>= 1;
-  staged = panel_bytes<T>(rows, nb) <= kPanelSmem;
-  if (!staged) nb = kGlobalNB;
-  return nb < rows ? nb : rows;
-}
-
 // The panel's exchanges and U12 for every column outside [k0, k0 + nb)
 // but the `skip` columns right after it.
 template <typename T>
@@ -1070,44 +1565,131 @@ cudaError_t factor_clustered(T* lu, int* piv, int B, int N, int nb, int cmax, cu
   return cudaSuccess;
 }
 
-// info (3 ints): the kernels launched, the first panel's width, and its
-// cluster's CTAs (0 on the batched path).
+// The batched panel's template width at `rows` rows, and whether its
+// values spill to device memory: the widest of 64, 32, 16 and 8 columns
+// whose staged panel lets two blocks share an SM, else the widest that
+// fits one block, else 32 columns spilled.
 template <typename T>
-int factor(void* lu_, int* piv, int* perm, int B, int N, int sm_count, int* info, cudaStream_t stream) {
-  T* lu = static_cast<T*>(lu_);
+int batched_width(int rows, bool& spill) {
+  spill = false;
+  for (size_t limit : {kPanelPair, kPanelSmem})
+    for (int W = kMaxBatchedW; W >= 8; W >>= 1)
+      if (bpanel_bytes<T>(rows, W < rows ? W : rows, false) <= limit) return W;
+  spill = true;
+  return 32;
+}
+
+// Bytes of the factor's scratch at (B, N): the cluster path's pivots,
+// the batched path's moved rows and, where its first panel spills, the
+// spilled panel of every instance.
+template <typename T>
+size_t factor_scratch(int B, int N) {
+  bool spill;
+  const int W = batched_width<T>(N, spill);
+  const size_t ints = align16(sizeof(int) * (static_cast<size_t>(B) * N + static_cast<size_t>(B) * kMoveInts));
+  return ints + (spill ? sizeof(T) * B * static_cast<size_t>(N) * (W | 1) : 0);
+}
+
+// The update behind the batched panel [k0, k0 + w) of template width W.
+template <typename T, int W>
+cudaError_t launch_bupdate(T* lu, const Source<T>& src, const int* moves, int B, int N, int k0, int w,
+                           cudaStream_t s, int& kernels) {
+  const int rows = N - k0;
+  const int left = (k0 + kStrip - 1) / kStrip;
+  const int right = rows > w ? (rows - w + kStrip - 1) / kStrip : 0;
+  if (left + right == 0) return cudaSuccess;
+  if (!fits_grid(static_cast<long long>(B) * (left + right))) return cudaErrorInvalidValue;
+  const size_t smem = bupdate_bytes<T, W>(rows);
+  OSQP_TRY(allow_smem(bupdate_kernel<T, W>, smem));
+  bupdate_kernel<T, W><<<B * (left + right), kThreads, smem, s>>>(lu, src, moves, N, k0, left, left + right);
+  ++kernels;
+  return cudaGetLastError();
+}
+
+// The factor of a batch that fills the card: per panel a bpanel_kernel
+// and a bupdate_kernel, the first pair reading K from `first`.
+template <typename T>
+cudaError_t factor_batched(T* lu, const Source<T>& first, int* moves, int* perm, T* spill, int B, int N,
+                           cudaStream_t s, int& kernels, int& first_nb) {
+  // a later, shorter panel may be wider and take more than the first
+  OSQP_TRY(allow_smem(bpanel_kernel<T, 0>, kPanelSmem));
+  OSQP_TRY(allow_smem(bpanel_kernel<T, 1>, kPanelSmem));
+  OSQP_TRY(allow_smem(bpanel_kernel<T, 2>, kPanelSmem));
+  OSQP_TRY(allow_smem(bpanel_kernel<T, 4>, kPanelSmem));
+  Source<T> later = first;
+  later.kind = kLu;
+  for (int k0 = 0; k0 < N;) {
+    const int rows = N - k0;
+    bool spilled;
+    const int W = batched_width<T>(rows, spilled), w = W < rows ? W : rows;
+    if (spilled && (!spill || bpanel_bytes<T>(rows, w, true) > kPanelSmem)) return cudaErrorInvalidValue;
+    if (k0 == 0) first_nb = w;
+    const Source<T>& src = k0 == 0 ? first : later;
+    const size_t smem = bpanel_bytes<T>(rows, w, spilled);
+    T* sp = spilled ? spill : nullptr;
+    if (rows <= kThreads)
+      bpanel_kernel<T, 1><<<B, kThreads, smem, s>>>(lu, src, moves, perm, sp, N, k0, w);
+    else if (rows <= 2 * kThreads)
+      bpanel_kernel<T, 2><<<B, kThreads, smem, s>>>(lu, src, moves, perm, sp, N, k0, w);
+    else if (rows <= 4 * kThreads)
+      bpanel_kernel<T, 4><<<B, kThreads, smem, s>>>(lu, src, moves, perm, sp, N, k0, w);
+    else
+      bpanel_kernel<T, 0><<<B, kThreads, smem, s>>>(lu, src, moves, perm, sp, N, k0, w);
+    ++kernels;
+    OSQP_TRY(cudaGetLastError());
+    switch (W) {
+      case 64: OSQP_TRY((launch_bupdate<T, 64>(lu, src, moves, B, N, k0, w, s, kernels))); break;
+      case 32: OSQP_TRY((launch_bupdate<T, 32>(lu, src, moves, B, N, k0, w, s, kernels))); break;
+      case 16: OSQP_TRY((launch_bupdate<T, 16>(lu, src, moves, B, N, k0, w, s, kernels))); break;
+      default: OSQP_TRY((launch_bupdate<T, 8>(lu, src, moves, B, N, k0, w, s, kernels))); break;
+    }
+    k0 += w;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+Source<T> separate(const T* K) {
+  Source<T> src{};
+  src.kind = kSeparate;
+  src.K = K;
+  return src;
+}
+
+// P K = L U of K as `src` gives it, into lu and perm.  scratch holds
+// factor_scratch<T>(B, N) bytes.  info (3 ints): the kernels launched,
+// the first panel's width, and its cluster's CTAs (0 on the batched
+// path).
+template <typename T>
+int factor(const Source<T>& src, T* lu, int* perm, unsigned char* scratch, int B, int N, int sm_count, int* info,
+           cudaStream_t stream) {
+  int* piv = reinterpret_cast<int*>(scratch);
+  int* moves = piv + static_cast<size_t>(B) * N;
+  T* spill = reinterpret_cast<T*>(
+      scratch + align16(sizeof(int) * (static_cast<size_t>(B) * N + static_cast<size_t>(B) * kMoveInts)));
   int kernels = 0, first_nb = 0, first_cluster = 0;
   int nb = 0, cmax = 0;
   bool clustered = false;
   if (B < sm_count) OSQP_TRY(cluster_path<T>(N, nb, cmax, clustered));
   if (clustered) {
+    // the cluster path factors in place: K into lu first
+    const size_t total = static_cast<size_t>(B) * N * N;
+    if (src.kind == kSeparate) {
+      OSQP_TRY(cudaMemcpyAsync(lu, src.K, total * sizeof(T), cudaMemcpyDeviceToDevice, stream));
+    } else if (src.kind == kBlocks) {
+      const size_t blocks = (total + kThreads - 1) / kThreads;
+      form_kernel<T><<<static_cast<int>(blocks < 65536 ? blocks : 65536), kThreads, 0, stream>>>(lu, src, B, N);
+      ++kernels;
+    }
     OSQP_TRY(factor_clustered<T>(lu, piv, B, N, nb, cmax, stream, kernels, first_cluster));
     first_nb = nb < N ? nb : N;
+    const size_t smem = 2 * static_cast<size_t>(N) * sizeof(int);
+    OSQP_TRY(allow_smem(perm_kernel, smem));
+    perm_kernel<<<B, kThreads, smem, stream>>>(piv, perm, N);
+    ++kernels;
   } else {
-    bool staged;
-    // a later, shorter panel may be wider and take more than the first
-    OSQP_TRY(allow_smem(panel_kernel<T>, kPanelSmem));
-    for (int k0 = 0; k0 < N;) {
-      const int rows = N - k0;
-      const int w = panel_width<T>(rows, staged);
-      if (k0 == 0) first_nb = w;
-      panel_kernel<T><<<B, kThreads, staged ? panel_bytes<T>(rows, w) : 0, stream>>>(lu, piv, N, k0, w, staged);
-      ++kernels;
-      if (N > w) {
-        OSQP_TRY(launch_swap_solve<T>(lu, piv, B, N, k0, w, 0, stream));
-        ++kernels;
-      }
-      if (rows > w) {
-        OSQP_TRY(launch_update<T>(lu, B, N, k0, w, k0 + w, N, stream));
-        ++kernels;
-      }
-      OSQP_TRY(cudaGetLastError());
-      k0 += w;
-    }
+    OSQP_TRY(factor_batched<T>(lu, src, moves, perm, spill, B, N, stream, kernels, first_nb));
   }
-  const size_t smem = 2 * static_cast<size_t>(N) * sizeof(int);
-  OSQP_TRY(allow_smem(perm_kernel, smem));
-  perm_kernel<<<B, kThreads, smem, stream>>>(piv, perm, N);
-  ++kernels;
   if (info) {
     info[0] = kernels;
     info[1] = first_nb;
@@ -1153,18 +1735,49 @@ int solve(const void* lu_, const int* perm, const void* rhs_, void* x_, int* scr
 
 }  // namespace
 
-// dtype: 0 float32, 1 float64.  lu is a contiguous (B, N, N) batch holding
-// K, factored in place; piv (scratch) and perm are (B, N) int32.  info,
-// where not null, gets 3 ints: the kernels launched, the first panel's
-// width, its cluster's CTAs (0 on the batched path, B >= sm_count).
-extern "C" int osqp_kkt_lu_factor(int dtype, void* lu, void* piv, void* perm, int B, int N, int sm_count, void* info,
-                                  void* stream) {
+// dtype: 0 float32, 1 float64.  Bytes of scratch osqp_kkt_lu_factor and
+// osqp_kkt_lu_factor_blocks take at (B, N).
+extern "C" long long osqp_kkt_lu_factor_scratch(int dtype, int B, int N) {
+  return static_cast<long long>(dtype == 0 ? factor_scratch<float>(B, N) : factor_scratch<double>(B, N));
+}
+
+// P K = L U of the contiguous (B, N, N) batch K into lu (B, N, N) and perm
+// (B, N) int32; K is not written.  info, where not null, gets 3 ints: the
+// kernels launched, the first panel's width, its cluster's CTAs (0 on the
+// batched path, B >= sm_count).
+extern "C" int osqp_kkt_lu_factor(int dtype, const void* K, void* lu, void* perm, void* scratch, int B, int N,
+                                  int sm_count, void* info, void* stream) {
   if (B == 0 || N == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  auto pv = static_cast<int*>(piv), pm = static_cast<int*>(perm);
+  auto pm = static_cast<int*>(perm);
+  auto sc = static_cast<unsigned char*>(scratch);
   auto in = static_cast<int*>(info);
-  return dtype == 0 ? factor<float>(lu, pv, pm, B, N, sm_count, in, s)
-                    : factor<double>(lu, pv, pm, B, N, sm_count, in, s);
+  if (dtype == 0) return factor<float>(separate(static_cast<const float*>(K)), static_cast<float*>(lu), pm, sc, B, N,
+                                       sm_count, in, s);
+  return factor<double>(separate(static_cast<const double*>(K)), static_cast<double*>(lu), pm, sc, B, N, sm_count,
+                        in, s);
+}
+
+// The same for K = [[P + s I, A'], [A, -diag(d)]] from its blocks: P
+// (B, n, n), A (B, m, n), d (B, m), all contiguous; N = n + m.  The
+// first pass reads the blocks where it would read K.
+extern "C" int osqp_kkt_lu_factor_blocks(int dtype, const void* P, const void* A, const void* d,
+                                         double shift, int n, int m, void* lu, void* perm, void* scratch, int B,
+                                         int sm_count, void* info, void* stream) {
+  const int N = n + m;
+  if (B == 0 || N == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto pm = static_cast<int*>(perm);
+  auto sc = static_cast<unsigned char*>(scratch);
+  auto in = static_cast<int*>(info);
+  if (dtype == 0) {
+    const Source<float> src{kBlocks, nullptr, static_cast<const float*>(P), static_cast<const float*>(A),
+                            static_cast<const float*>(d), static_cast<float>(shift), n, m};
+    return factor<float>(src, static_cast<float*>(lu), pm, sc, B, N, sm_count, in, s);
+  }
+  const Source<double> src{kBlocks, nullptr, static_cast<const double*>(P), static_cast<const double*>(A),
+                           static_cast<const double*>(d), shift, n, m};
+  return factor<double>(src, static_cast<double*>(lu), pm, sc, B, N, sm_count, in, s);
 }
 
 // Ints of zeroed scratch osqp_kkt_lu_solve takes at (B, N).

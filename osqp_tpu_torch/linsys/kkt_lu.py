@@ -10,7 +10,7 @@ the structural analogue of the reference's second backend (MKL Pardiso on
 the full KKT, pardiso_interface.c:73-300, hence the alias
 ``"mkl pardiso"``), and it is robust for P that is PSD but singular,
 where the Schur complement can be marginal.  Polish reuses
-:func:`form_kkt` and :func:`solve_raw` with param1 = param2 = delta
+:func:`factor_blocks` and :func:`solve_raw` with param1 = param2 = delta
 (polish.c:232-272).
 
 The JAX package refuses KKT dimensions above 6144 because the TPU's
@@ -22,27 +22,19 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.kkt_lu import kkt_lu_factor, kkt_lu_solve
+from ..ops.kkt_lu import kkt_lu_factor_blocks, kkt_lu_solve
 
 
-def form_kkt(P, A, sigma, rho_inv_vec):
-    """K as above, batched (B, n+m, n+m) (mirrors kkt.c:6-177, dense)."""
-    n, m = P.shape[-1], A.shape[-2]
-    top = torch.cat([P + sigma * torch.eye(n, dtype=P.dtype, device=P.device), A.transpose(1, 2)], dim=-1)
-    bot = torch.cat([A, torch.diag_embed(-rho_inv_vec)], dim=-1) if m else A
-    return torch.cat([top, bot], dim=-2)
-
-
-def factor_kkt(K):
-    """The factor dict of a ready-formed K, which is consumed (a CUDA K
-    is factored in place)."""
-    lu, perm = kkt_lu_factor(K, overwrite=True)
+def factor_blocks(P, A, shift, d):
+    """The factor dict of K = [[P + shift I, A'], [A, -diag(d)]] from its
+    blocks (K is not formed on the card)."""
+    lu, perm = kkt_lu_factor_blocks(P, A, shift, d)
     return {"lu": lu, "perm": perm}
 
 
 def init(P, A, sigma, rho_vec, **_):
     """Factorize K; a singular K leaves Inf/NaN in the factor."""
-    return factor_kkt(form_kkt(P, A, sigma, 1.0 / rho_vec))
+    return factor_blocks(P, A, sigma, 1.0 / rho_vec)
 
 
 def solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None):

@@ -12,8 +12,13 @@ and M x = r is solved by y_i = C_i^-1 (r_i - G_i y_{i-1}) over the
 stages, then x_i = C_i^-T (y_i - G_{i+1}' x_{i+1}) back over them.
 
 :func:`bt_factor` and :func:`bt_solve` are the kernels' wrappers: for
-CUDA tensors they launch ``csrc/block_tridiag.cu`` (one block per
-instance walking the stages); for CPU tensors they run
+CUDA tensors they launch ``csrc/block_tridiag.cu``, which takes one of
+two paths by block size: up to ``WARP_MAX`` = 32 a warp per instance
+(lane r holding row r of the stage, column steps by shuffles, several
+instances a block), above it one block per instance walking the stages;
+``launches_factor_warp`` / ``launches_solve_warp`` count the warp path's
+launches among ``launches_factor`` / ``launches_solve``.  For CPU
+tensors they run
 :func:`bt_factor_plain` and :func:`bt_solve_plain`, the same functions
 in plain PyTorch, written in the kernel's order (triangular solves by
 columns, the Cholesky right-looking column by column, every product and
@@ -32,11 +37,17 @@ from .. import _build
 
 launches_factor = 0
 launches_solve = 0
+# Of those, the launches on the warp path (b <= WARP_MAX).
+launches_factor_warp = 0
+launches_solve_warp = 0
+# The largest block size of the warp path: up to it a warp takes an
+# instance, above it a block does.
+WARP_MAX = 32
 
 
 def max_block(dtype: torch.dtype) -> int:
-    """Largest block size b whose 3 b^2 values fit one block's shared
-    memory: 139 in float32, 98 in float64."""
+    """Largest block size b of the block path, whose 3 b^2 values fit one
+    block's shared memory: 139 in float32, 98 in float64."""
     values = _build.SMEM_BYTES // torch.empty((), dtype=dtype).element_size()
     return math.isqrt(values // 3)
 
@@ -66,7 +77,7 @@ def bt_factor(M: torch.Tensor, b: int):
     """(C, G) of each matrix of the batch: C (B, Nb, b, b) the stages'
     lower Cholesky factors (zeros above the diagonal), G (B, Nb-1, b, b)
     the coupling blocks.  Only the band blocks of M are read."""
-    global launches_factor
+    global launches_factor, launches_factor_warp
     _validate_factor(M, b)
     if M.device.type == "cpu":
         return bt_factor_plain(M, b)
@@ -89,6 +100,7 @@ def bt_factor(M: torch.Tensor, b: int):
                                   _build.stream())
     _build.check(code, "bt_factor")
     launches_factor += 1
+    launches_factor_warp += b <= WARP_MAX
     return C, G
 
 
@@ -108,7 +120,7 @@ def _validate_solve(C, G, r) -> None:
 
 def bt_solve(C: torch.Tensor, G: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """x = M^-1 r with the factors of :func:`bt_factor`; r and x (B, n)."""
-    global launches_solve
+    global launches_solve, launches_solve_warp
     _validate_solve(C, G, r)
     if C.device.type == "cpu":
         return bt_solve_plain(C, G, r)
@@ -124,6 +136,7 @@ def bt_solve(C: torch.Tensor, G: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
                                  B, b, Nb, _build.stream())
     _build.check(code, "bt_solve")
     launches_solve += 1
+    launches_solve_warp += b <= WARP_MAX
     return x
 
 

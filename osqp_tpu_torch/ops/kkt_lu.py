@@ -3,16 +3,23 @@ solve with its factors (counterpart of ``osqp_tpu/linsys/kkt_lu.py:37-50``,
 ``_lu_factor`` and ``_lu_solve``, which polish reuses through
 ``osqp_tpu/polish.py:161-168``).
 
-:func:`kkt_lu_factor` and :func:`kkt_lu_solve` are the kernels' wrappers:
-for CUDA tensors they launch the hand-written kernels in
-``csrc/kkt_lu.cu``; for CPU tensors they run :func:`kkt_lu_factor_plain`
+:func:`kkt_lu_factor`, :func:`kkt_lu_factor_blocks` and
+:func:`kkt_lu_solve` are the kernels' wrappers: for CUDA tensors they
+launch the hand-written kernels in ``csrc/kkt_lu.cu``; for CPU tensors
+they run :func:`kkt_lu_factor_plain`, :func:`kkt_lu_factor_blocks_plain`
 and :func:`kkt_lu_solve_plain`, the same functions in plain PyTorch: an
 unblocked right-looking LU and two substitution loops, N steps of
 batched tensor operations each.  No library LU is called on either path.
+:func:`kkt_lu_factor_blocks` factors the KKT matrix from its blocks (P,
+A, a shift of P's diagonal and the (2,2) diagonal), which polish and the
+``kkt_lu`` backend call: on the card K is never formed.
 
 The kernels take one of two paths by batch size.  A batch that fills the
 card (B at or above the SM count, the headline) factors each instance's
-panels in one block and solves one instance per block.  A smaller batch
+panels of up to 64 columns in one block, in shared memory, and brings
+the rest of the matrix up to date with one launch a panel (the panel's
+row moves, U12 and the trailing update by column strips); it solves one
+instance per block.  A smaller batch
 (polish's B = 1) factors each panel in a thread-block cluster of up to 16
 CTAs per instance, 32 columns wide, with the next panel factored on a
 second stream while the rest of the trailing update runs, and solves by
@@ -27,8 +34,9 @@ version's rounding, so both give the same ``perm`` and the same ``lu``
 bit for bit.  A zero pivot column divides by zero and leaves Inf/NaN
 behind, as LAPACK-style LU does; polish reads that as a failed pass.
 
-On the H100 the batched factor is bound by the bytes of its trailing
-updates and the batched solve by one read of ``lu``; at B = 1 both by
+On the H100 the batched factor is bound by its operations (no fused
+multiply-add: twice the operations figure of a bound that assumes one)
+and the batched solve by one read of ``lu``; at B = 1 both by
 their chains (pivot columns, diagonal blocks); see the source's header.
 """
 
@@ -54,15 +62,31 @@ def _validate_factor(K: torch.Tensor) -> None:
         raise ValueError(f"kkt_lu_factor takes a (B, N, N) batch with N >= 1, not {tuple(K.shape)}")
 
 
-def kkt_lu_factor(K: torch.Tensor, overwrite: bool = False):
+def _launch_factor(device, dtype, B, N, launch):
+    """Allocate lu, perm and the scratch, run ``launch(lib, lu, perm,
+    scratch, sms, info)`` on the current stream and count the factor."""
+    global launches_factor, factor_info
+    lu = torch.empty((B, N, N), dtype=dtype, device=device)
+    perm = torch.empty((B, N), dtype=torch.int32, device=device)
+    lib = _build.library()
+    scratch = torch.empty(lib.osqp_kkt_lu_factor_scratch(_build.dtype_code(dtype), B, N), dtype=torch.uint8,
+                          device=device)
+    info = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        code = launch(lib, lu, perm, scratch, _build.sm_count(device), info)
+    _build.check(code, "kkt_lu_factor")
+    launches_factor += 1
+    factor_info = tuple(info)
+    return lu, perm
+
+
+def kkt_lu_factor(K: torch.Tensor):
     """P K = L U of each matrix of the batch (B, N, N), with row pivoting.
 
     Returns ``(lu, perm)``: ``lu`` (B, N, N) holds the unit-lower L below
     the diagonal and U on and above it; ``perm`` (B, N) int32 is the row
-    order, row i of P K being row ``perm[i]`` of K.  With ``overwrite``
-    a contiguous CUDA K is factored in place and returned as ``lu``.
+    order, row i of P K being row ``perm[i]`` of K.  K is not written.
     """
-    global launches_factor, factor_info
     _validate_factor(K)
     if K.device.type == "cpu":
         return kkt_lu_factor_plain(K)
@@ -71,20 +95,60 @@ def kkt_lu_factor(K: torch.Tensor, overwrite: bool = False):
     if not K.is_contiguous():
         raise ValueError("kkt_lu_factor takes a contiguous tensor")
     B, N, _ = K.shape
-    lu = K if overwrite else K.clone()
-    piv = torch.empty((B, N), dtype=torch.int32, device=K.device)
-    perm = torch.empty((B, N), dtype=torch.int32, device=K.device)
-    lib = _build.library()
-    info = (ctypes.c_int * 3)()
-    with torch.cuda.device(K.device):
-        code = lib.osqp_kkt_lu_factor(
-            _build.dtype_code(K.dtype), lu.data_ptr(), piv.data_ptr(), perm.data_ptr(), B, N,
-            _build.sm_count(K.device), info, _build.stream(),
-        )
-    _build.check(code, "kkt_lu_factor")
-    launches_factor += 1
-    factor_info = tuple(info)
-    return lu, perm
+    return _launch_factor(K.device, K.dtype, B, N, lambda lib, lu, perm, scratch, sms, info: lib.osqp_kkt_lu_factor(
+        _build.dtype_code(K.dtype), K.data_ptr(), lu.data_ptr(), perm.data_ptr(), scratch.data_ptr(), B, N, sms,
+        info, _build.stream()))
+
+
+def _validate_blocks(P, A, d) -> None:
+    if P.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kkt_lu_factor_blocks takes float32 or float64, not {P.dtype}")
+    if P.ndim != 3 or P.shape[1] != P.shape[2] or P.shape[1] == 0:
+        raise ValueError(f"kkt_lu_factor_blocks takes P of shape (B, n, n) with n >= 1, not {tuple(P.shape)}")
+    B, n, _ = P.shape
+    m = A.shape[1] if A.ndim == 3 else -1
+    if A.ndim != 3 or A.shape[0] != B or A.shape[2] != n:
+        raise ValueError(f"kkt_lu_factor_blocks takes A of shape ({B}, m, {n}), not {tuple(A.shape)}")
+    if tuple(d.shape) != (B, m):
+        raise ValueError(f"kkt_lu_factor_blocks takes d of shape ({B}, {m}), not {tuple(d.shape)}")
+    for v in (A, d):
+        if v.dtype != P.dtype or v.device != P.device:
+            raise ValueError(f"kkt_lu_factor_blocks: P is {P.dtype} on {P.device}, got {v.dtype} on {v.device}")
+
+
+def kkt_lu_factor_blocks(P: torch.Tensor, A: torch.Tensor, shift: float, d: torch.Tensor):
+    """:func:`kkt_lu_factor` of K = [[P + shift I, A'], [A, -diag(d)]] from
+    its blocks: P (B, n, n), A (B, m, n), d (B, m).  On the card K is never
+    formed: the factor's first pass reads the blocks where it would read
+    K.  The same bits as factoring :func:`form_kkt`'s K."""
+    _validate_blocks(P, A, d)
+    if P.device.type == "cpu":
+        return kkt_lu_factor_blocks_plain(P, A, shift, d)
+    if P.device.type != "cuda":
+        raise ValueError(f"kkt_lu_factor_blocks runs on CPU or CUDA tensors, not {P.device}")
+    B, n, _ = P.shape
+    m = A.shape[1]
+    P, A, d = P.contiguous(), A.contiguous(), d.contiguous()
+    return _launch_factor(P.device, P.dtype, B, n + m, lambda lib, lu, perm, scratch, sms, info:
+                          lib.osqp_kkt_lu_factor_blocks(
+                              _build.dtype_code(P.dtype), P.data_ptr(), A.data_ptr(), d.data_ptr(), float(shift),
+                              n, m,
+                              lu.data_ptr(), perm.data_ptr(), scratch.data_ptr(), B, sms, info, _build.stream()))
+
+
+def form_kkt(P, A, sigma, rho_inv_vec):
+    """K = [[P + sigma I, A'], [A, -diag(rho_inv_vec)]], batched (B, n+m,
+    n+m) (mirrors kkt.c:6-177, dense): the plain path's K."""
+    n, m = P.shape[-1], A.shape[-2]
+    top = torch.cat([P + sigma * torch.eye(n, dtype=P.dtype, device=P.device), A.transpose(1, 2)], dim=-1)
+    bot = torch.cat([A, torch.diag_embed(-rho_inv_vec)], dim=-1) if m else A
+    return torch.cat([top, bot], dim=-2)
+
+
+def kkt_lu_factor_blocks_plain(P, A, shift, d):
+    """Plain PyTorch version of :func:`kkt_lu_factor_blocks`: K formed by
+    :func:`form_kkt`, then :func:`kkt_lu_factor_plain`."""
+    return kkt_lu_factor_plain(form_kkt(P, A, shift, d))
 
 
 def _validate_solve(lu, perm, b) -> None:

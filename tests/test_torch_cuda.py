@@ -368,17 +368,15 @@ def _kkt(B, n, m, dtype, dev, seed=0, delta=None):
     """K = [[P + s I, A'], [A, -diag(d)]] from random data made in float64:
     the ADMM form (s = 1e-6, d = 1/rho), or with ``delta`` the polish form
     (s = d = delta, about half of A's rows zeroed)."""
-    from osqp_tpu_torch.linsys import kkt_lu
-
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64).to(dev)
     P = _spd(B, n, torch.float64, seed).to(dev)
     A = r(B, m, n) / max(n, 1) ** 0.5
     if delta is None:
-        K = kkt_lu.form_kkt(P, A, 1e-6, 1.0 / (0.1 + r(B, m).abs()))
+        K = k8.form_kkt(P, A, 1e-6, 1.0 / (0.1 + r(B, m).abs()))
     else:
         A = A * (r(B, m) > 0)[:, :, None]
-        K = kkt_lu.form_kkt(P, A, delta, torch.full((B, m), delta, dtype=torch.float64, device=dev))
+        K = k8.form_kkt(P, A, delta, torch.full((B, m), delta, dtype=torch.float64, device=dev))
     return K.to(dtype).contiguous()
 
 
@@ -407,9 +405,7 @@ def test_k8_factor_matches_plain(dev, dtype, B, n, m, delta):
     lp, pp = k8.kkt_lu_factor_plain(K)
     assert perm.dtype == torch.int32 and torch.equal(perm, pp)
     assert torch.isfinite(lu).all() and torch.equal(lu, lp)
-    # in place: the same factors, K consumed
-    lu3, perm3 = k8.kkt_lu_factor(K, overwrite=True)
-    assert lu3.data_ptr() == K.data_ptr() and torch.equal(lu3, lu) and torch.equal(perm3, perm)
+    assert lu.data_ptr() != K.data_ptr()
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
@@ -667,8 +663,9 @@ def _band_schur(B, Nb, b, dtype, seed=0):
 
 
 # (B, Nb, b): the MPC cell's stages (b = 12, Nb = 31), one stage, stages of
-# one variable, a block size above a warp, the largest b of each dtype.
-K7_SHAPES = [(64, 31, 12), (3, 1, 7), (5, 9, 1), (2, 4, 40), (200, 6, 5)]
+# one variable, the warp path's register widths at their ends (16, 32),
+# block sizes above a warp (the block path), the largest b of each dtype.
+K7_SHAPES = [(64, 31, 12), (3, 1, 7), (5, 9, 1), (6, 5, 16), (5, 3, 32), (2, 4, 40), (200, 6, 5)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -689,6 +686,22 @@ def test_k7_kernel_matches_plain(dev, dtype, B, Nb, b):
     assert torch.equal(C, C2) and torch.equal(G, G2) and torch.equal(x, x2)
     assert torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp)
     assert bool(torch.isfinite(x).all())
+
+
+@pytest.mark.parametrize("b", [1, 5, 12, 16, 32, 33])
+def test_k7_path_by_block_size(dev, b):
+    """Up to 32 the warp path runs (counted in launches_*_warp), above it
+    the block path; both the plain version's bits."""
+    M = _band_schur(9, 4, b, torch.float32).to(dev).contiguous()
+    before = (k7.launches_factor_warp, k7.launches_solve_warp)
+    C, G = k7.bt_factor(M, b)
+    x = k7.bt_solve(C, G, torch.ones(9, 4 * b, dtype=torch.float32, device=dev))
+    Cp, Gp = k7.bt_factor_plain(M, b)
+    torch.cuda.synchronize()
+    warp = b <= k7.WARP_MAX
+    assert (k7.launches_factor_warp - before[0], k7.launches_solve_warp - before[1]) == (warp, warp)
+    assert torch.equal(C, Cp) and torch.equal(G, Gp)
+    assert torch.equal(x, k7.bt_solve_plain(Cp, Gp, torch.ones_like(x)))
 
 
 def test_k7_stage_not_positive_definite_gives_nan(dev):
@@ -866,6 +879,90 @@ def test_k8_small_batch_path_matches_plain(dev, dtype, B, n, m):
     fk = torch.quantile((x64 - x_true).abs().amax(-1) / scale, qs)
     fp = torch.quantile((xp64 - x_true).abs().amax(-1) / scale, qs)
     assert bool((fk <= (1e-12 if dtype == torch.float64 else 1e-5) + 3 * fp).all())
+
+
+def _blocks(B, n, m, dtype, dev, seed, masked):
+    """The blocks of polish's K_delta (delta 1e-6, about half of the rows
+    of A zeroed by its mask) or, unmasked, of the ADMM form's K, made in
+    float64."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64).to(dev)
+    P = _spd(B, n, torch.float64, seed).to(dev)
+    A = r(B, m, n) / max(n, 1) ** 0.5
+    if masked:
+        A, d = A * (r(B, m) > 0)[:, :, None], torch.full((B, m), 1e-6, dtype=torch.float64, device=dev)
+    else:
+        d = 1.0 / (0.1 + r(B, m).abs())
+    T = lambda t: t.to(dtype).contiguous()
+    return T(P), T(A), 1e-6, T(d)
+
+
+# N = n + m on the batched path (B at the SM count): one value, one panel
+# of 32 a row short and a row long, one of 64 a row short and a row long,
+# the kkt_lu backend's N and the headline's.
+K8_BATCHED_N = [(1, 0), (11, 20), (13, 20), (21, 42), (25, 40), (25, 50), (100, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m", K8_BATCHED_N)
+def test_k8_batched_factor_matches_plain_at_ragged_n(dev, dtype, n, m):
+    """The batched path (panels of up to 64 columns, a panel kernel and
+    an update kernel a panel) through both entry points: lu and perm the
+    plain version's bit for bit, two launches bit-identical, K and the
+    blocks untouched."""
+    from osqp_tpu_torch import _build
+
+    B = _build.sm_count(dev)
+    P, A, shift, d = _blocks(B, n, m, dtype, dev, seed=n + m, masked=m % 2 == 0)
+    K = k8.form_kkt(P, A, shift, d).contiguous()
+    keep = [t.clone() for t in (K, P, A, d)]
+    lp, pp = k8.kkt_lu_factor_plain(K)
+    lu, perm = k8.kkt_lu_factor(K)
+    assert k8.factor_info[2] == 0
+    lu2, perm2 = k8.kkt_lu_factor(K)
+    lb, pb = k8.kkt_lu_factor_blocks(P, A, shift, d)
+    kernels = k8.factor_info[0]
+    lb2, pb2 = k8.kkt_lu_factor_blocks(P, A, shift, d)
+    torch.cuda.synchronize()
+    assert kernels == k8.factor_info[0] and 1 <= kernels <= 2 * ((n + m + 7) // 8)
+    assert all(torch.equal(t, u) for t, u in zip((K, P, A, d), keep))
+    assert torch.equal(perm, pp) and torch.equal(lu, lp)
+    assert torch.equal(lu, lu2) and torch.equal(perm, perm2)
+    assert torch.equal(lb, lp) and torch.equal(pb, pp) and torch.equal(lb, lb2) and torch.equal(pb, pb2)
+
+
+@pytest.mark.parametrize("N,dtype", [(600, torch.float32), (1100, torch.float64), (2900, torch.float64)])
+def test_k8_batched_factor_on_tall_panels(dev, N, dtype):
+    """The batched panel's other forms: four rows a thread (N = 600), the
+    shared-memory sweep above 1024 rows (N = 1100) and, in float64 at
+    N = 2900, a panel that spills to device memory: the plain version's
+    bits through both entry points."""
+    from osqp_tpu_torch import _build
+
+    B = _build.sm_count(dev)
+    n = N // 3
+    P, A, shift, d = _blocks(B, n, N - n, dtype, dev, seed=N, masked=True)
+    K = k8.form_kkt(P, A, shift, d).contiguous()
+    lu, perm = k8.kkt_lu_factor(K)
+    lb, pb = k8.kkt_lu_factor_blocks(P, A, shift, d)
+    del P, A
+    lp, pp = k8.kkt_lu_factor_plain(K)
+    torch.cuda.synchronize()
+    assert torch.equal(perm, pp) and torch.equal(lu, lp)
+    assert torch.equal(pb, pp) and torch.equal(lb, lp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("masked", [True, False])
+def test_k8_blocks_entry_on_the_cluster_path(dev, dtype, masked):
+    """Below the SM count the blocks entry forms K in lu by one kernel and
+    factors it on the cluster path: the plain version's bits."""
+    P, A, shift, d = _blocks(2, 60, 70, dtype, dev, seed=3, masked=masked)
+    lu, perm = k8.kkt_lu_factor_blocks(P, A, shift, d)
+    assert k8.factor_info[2] >= 1
+    lp, pp = k8.kkt_lu_factor_blocks_plain(P, A, shift, d)
+    torch.cuda.synchronize()
+    assert torch.equal(lu, lp) and torch.equal(perm, pp)
 
 
 def test_k8_batched_path_is_taken_at_and_above_the_sm_count(dev):

@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from osqp_tpu_torch.linsys import kkt_lu
 from osqp_tpu_torch.ops import kkt_lu as k8
 
 torch.set_num_threads(2)
@@ -97,7 +96,7 @@ def _k_delta_with_tie(B, n, m, dtype, seed, delta=1e-6):
     A[:, 1, 1:] = rng.standard_normal((B, n - 1))
     A[:, m - 2] = -A[:, 1]
     T = lambda a: torch.as_tensor(a, dtype=torch.float64)
-    K = kkt_lu.form_kkt(T(P), T(A), delta, torch.full((B, m), delta, dtype=torch.float64))
+    K = k8.form_kkt(T(P), T(A), delta, torch.full((B, m), delta, dtype=torch.float64))
     return K.to(dtype).contiguous()
 
 
@@ -124,4 +123,91 @@ def test_narrower_panels_give_the_same_bits(nb):
     K = _k_delta_with_tie(1, 40, 60, torch.float64, seed=nb)
     lp, pp = k8.kkt_lu_factor_plain(K)
     lu, perm = factor_by_panels(K, nb)
+    assert torch.equal(perm, pp) and torch.equal(lu, lp)
+
+
+def factor_batched_order(K: torch.Tensor, W: int = 64, S: int = 16):
+    """(lu, perm) of K in the batched path's order (B at or above the SM
+    count): panels of ``W`` columns factored with their rows in place and
+    relabelled, by sub-panels of ``S`` columns (a column's update reaching
+    its sub-panel only, then the sub-panel's U12 on the panel's later
+    columns and the rank-S update of the rows below); then the panel's
+    moved rows on every other column, U12 of the panel and the trailing
+    update, each value's updates in increasing k."""
+    B, N, _ = K.shape
+    lu = K.clone()
+    inst = torch.arange(B)[:, None]
+    b0 = inst[:, 0]
+    perm = torch.arange(N).repeat(B, 1)
+    for k0 in range(0, N, W):
+        w = min(W, N - k0)
+        k1, rows = k0 + w, N - k0
+        pan = lu[:, k0:, k0:k1].clone()  # physical rows
+        label = torch.arange(rows).repeat(B, 1)
+        where = torch.zeros((B, rows), dtype=torch.long)
+        for q0 in range(0, w, S):
+            q1 = min(q0 + S, w)
+            for j in range(q0, q1):
+                live = label >= j
+                score = torch.where(live, pan[:, :, j].abs(), torch.full_like(pan[:, :, j], -1.0))
+                best = score.amax(1, keepdim=True)
+                pr = torch.where((score == best) & live, label, torch.full_like(label, rows)).amin(1)
+                sp = (label == pr[:, None]).float().argmax(1)  # the pivot's physical row
+                top = pan[b0, sp].clone()
+                label = torch.where(label == pr[:, None], j, torch.where(label == j, pr[:, None], label))
+                where[:, j] = sp
+                below = label > j
+                l = pan[:, :, j] / top[:, j, None]
+                pan[:, :, j] = torch.where(below, l, pan[:, :, j])
+                upd = pan[:, :, j + 1:q1] - l[:, :, None] * top[:, None, j + 1:q1]
+                pan[:, :, j + 1:q1] = torch.where(below[:, :, None], upd, pan[:, :, j + 1:q1])
+            if q1 == w:
+                break
+            # the sub-panel's U12 on the columns [q1, w), then the rows below
+            for k in range(q0, q1 - 1):
+                for i in range(k + 1, q1):
+                    ri, rk = where[:, i], where[:, k]
+                    pan[b0, ri, q1:] = pan[b0, ri, q1:] - pan[b0, ri, k, None] * pan[b0, rk, q1:]
+            below = (label >= q1)[:, :, None]
+            for k in range(q0, q1):
+                u = pan[b0, where[:, k], q1:]
+                upd = pan[:, :, q1:] - pan[:, :, k, None] * u[:, None, :]
+                pan[:, :, q1:] = torch.where(below, upd, pan[:, :, q1:])
+        order = torch.empty_like(label)
+        order[inst, label] = torch.arange(rows).repeat(B, 1)  # order[i]: physical row of logical row i
+        lu[:, k0:, k0:k1] = pan[inst, order]
+        outside = torch.cat([torch.arange(k0), torch.arange(k1, N)])
+        lu[:, k0:, outside] = lu[:, k0:, outside][inst, order]
+        perm[:, k0:] = perm[:, k0:][inst, order]
+        for j in range(w - 1):
+            lu[:, k0 + j + 1:k1, k1:] -= lu[:, k0 + j + 1:k1, k0 + j, None] * lu[:, k0 + j, None, k1:]
+        for k in range(k0, k1):
+            lu[:, k1:, k1:] -= lu[:, k1:, k, None] * lu[:, k, None, k1:]
+    return lu, perm.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m", [(1, 0), (5, 10), (10, 21), (11, 22), (21, 42), (25, 40), (25, 50), (50, 80)])
+def test_batched_order_equals_the_plain_factor(n, m, dtype):
+    """N = 1, 15, 31, 33, 63, 65, 75 and 130: one column, part of a
+    sub-panel, ragged and whole panels of 64 in sub-panels of 16, three
+    panels; lu and perm bit for bit with the first pivot tied where N
+    allows it."""
+    if m >= 3:
+        K = _k_delta_with_tie(2, n, m, dtype, seed=n + m)
+    else:
+        K = torch.as_tensor(np.random.default_rng(n).standard_normal((2, n + m, n + m)), dtype=dtype)
+    lp, pp = k8.kkt_lu_factor_plain(K)
+    lu, perm = factor_batched_order(K)
+    assert torch.equal(perm, pp)
+    assert torch.equal(lu, lp)
+
+
+@pytest.mark.parametrize("W", [32, 16, 8])
+def test_narrower_batched_panels_give_the_same_bits(W):
+    """The batched widths that f64, or a larger N, leaves to the shared
+    memory: the same bits, sub-panels of 16 or the whole panel."""
+    K = _k_delta_with_tie(1, 40, 60, torch.float64, seed=W)
+    lp, pp = k8.kkt_lu_factor_plain(K)
+    lu, perm = factor_batched_order(K, W=W)
     assert torch.equal(perm, pp) and torch.equal(lu, lp)

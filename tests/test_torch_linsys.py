@@ -255,10 +255,11 @@ def test_kkt_lu_backend_matches_reference(seed, n_eq):
     """form_kkt, init, solve (with the z~ recovery) and solve_raw."""
     from osqp_tpu.linsys import kkt_lu as jkkt_lu
     from osqp_tpu_torch.linsys import kkt_lu
+    from osqp_tpu_torch.ops.kkt_lu import form_kkt
 
     jdata, jrs, jdyn, jfac = _backend_setup("kkt_lu", seed, n_eq=n_eq)
     data, rs, dyn, _ = _port(jdata, jrs, jdyn, {}, "float64")
-    K = kkt_lu.form_kkt(data.P, data.A, dyn.sigma, rs.rho_inv_vec)
+    K = form_kkt(data.P, data.A, dyn.sigma, rs.rho_inv_vec)
     np.testing.assert_allclose(
         K.numpy(), np.asarray(jkkt_lu.form_kkt(jdata.P, jdata.A, jdyn.sigma, jrs.rho_inv_vec)), rtol=0, atol=0)
     fac = kkt_lu.init(data.P, data.A, dyn.sigma, rs.rho_vec)
@@ -358,17 +359,17 @@ def test_form_kkt_matches_scipy_bmat():
     """The counterpart of test_solve_linsys.py's test of the same name."""
     import scipy.sparse as sp
 
-    from osqp_tpu_torch.linsys import kkt_lu
+    from osqp_tpu_torch.ops.kkt_lu import form_kkt
     from test_solve_linsys import make_kkt_problem
 
     P, A, rho, sigma, *_, n, m = make_kkt_problem()
     K_ref = sp.bmat([[P + sigma * sp.eye(n), A.T], [A, -1.0 / rho * sp.eye(m)]]).toarray()
-    K = kkt_lu.form_kkt(torch.as_tensor(P.toarray())[None], torch.as_tensor(A.toarray())[None],
-                        torch.tensor(sigma, dtype=torch.float64), torch.full((1, m), 1.0 / rho, dtype=torch.float64))
+    K = form_kkt(torch.as_tensor(P.toarray())[None], torch.as_tensor(A.toarray())[None],
+                 torch.tensor(sigma, dtype=torch.float64), torch.full((1, m), 1.0 / rho, dtype=torch.float64))
     np.testing.assert_allclose(K[0].numpy(), K_ref, atol=1e-12)
     # m = 0: K is P + sigma I
-    K0 = kkt_lu.form_kkt(torch.as_tensor(P.toarray())[None], torch.zeros(1, 0, n, dtype=torch.float64), 1.0,
-                         torch.zeros(1, 0, dtype=torch.float64))
+    K0 = form_kkt(torch.as_tensor(P.toarray())[None], torch.zeros(1, 0, n, dtype=torch.float64), 1.0,
+                  torch.zeros(1, 0, dtype=torch.float64))
     np.testing.assert_allclose(K0[0].numpy(), P.toarray() + np.eye(n), atol=1e-12)
 
 

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of osqp_tpu_torch's headline solve goes, on one CUDA GPU.
 
-    python3 tools/profile_torch_headline.py [--batch 8192] [--top 15] [--polish]
+    python3 tools/profile_torch_headline.py [--batch 8192] [--top 15] [--polish | --mpc]
 
 Solves chip_smoke.py's headline batch (B=8192, n=100, m=200, float32,
-eps 1e-3; polish off, or on with ``--polish``) once to warm up, then
-once under ``torch.profiler``.  Prints the card, the solve's wall time (host clock
+eps 1e-3; polish off, or on with ``--polish``), or with ``--mpc`` its MPC
+cell (1000 scenarios, n=372, m=612, stages of 12, float32, through the
+``block_tridiag`` backend), once to warm up, then once under
+``torch.profiler``.  Prints the card, the solve's wall time (host clock
 around work that ends in a synchronize), the device's busy time and
 idle share over that window, and device time by kernel, largest first.
 Imports nothing of JAX.
@@ -22,7 +24,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import HEADLINE, SOLVE_KW, make_qps, on_device  # noqa: E402
+from chip_smoke import HEADLINE, MPC, MPC_KW, SOLVE_KW, make_qps, mpc_scenarios, on_device  # noqa: E402
 
 
 def main() -> int:
@@ -32,6 +34,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=HEADLINE["B"])
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--polish", action="store_true", help="solve with polish on (adds K8 and polish's K3 calls)")
+    ap.add_argument("--mpc", action="store_true", help="the MPC cell through block_tridiag (K7) instead")
     args = ap.parse_args()
     kw = {**SOLVE_KW, "polish": args.polish}
     if not torch.cuda.is_available():
@@ -44,8 +47,14 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip())
     dev = torch.device("cuda", 0)
-    B, n, m = args.batch, HEADLINE["n"], HEADLINE["m"]
-    P, q, A, l, u = on_device(make_qps(B, n, m), torch.float32, dev)
+    if args.mpc:
+        base, *arrays = mpc_scenarios()
+        B, (n, m) = MPC["B"], (base.P.shape[0], base.A.shape[0])
+        kw = dict(MPC_KW, dtype="float32", linsys_solver="block_tridiag", block_size=base.block_size)
+    else:
+        B, n, m = args.batch, HEADLINE["n"], HEADLINE["m"]
+        arrays = make_qps(B, n, m)
+    P, q, A, l, u = on_device(arrays, torch.float32, dev)
     ot.solve_batch(P, q, A, l, u, **kw)  # warm-up: kernel build, allocator
     torch.cuda.synchronize()
 
@@ -64,7 +73,8 @@ def main() -> int:
             by_kernel[e.name][1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in by_kernel.values())
     iters = res.iter.cpu()
-    print(f"B={B} n={n} m={m} float32, polish {'on' if args.polish else 'off'}: iterations mean "
+    what = "block_tridiag" if args.mpc else f"polish {'on' if args.polish else 'off'}"
+    print(f"B={B} n={n} m={m} float32, {what}: iterations mean "
           f"{iters.float().mean():.2f} max {int(iters.max())}, status_polish 1 in {int((res.status_polish == 1).sum())}")
     print(f"solve wall {wall_ms:.3f} ms (host clock, under the profiler); device busy {busy_ms:.3f} ms; "
           f"idle share {1.0 - busy_ms / wall_ms:.3f}")
