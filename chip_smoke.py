@@ -32,16 +32,27 @@ failure ends the run with a non-zero exit and no result line:
    checked against cluster_size; both timed, with the bound, and at the
    headline every cluster size that fits, with the clusters resident;
 6. K3 (term_products) against its plain version at the same shapes from
-   a random state, with and without the certificate products; both
-   timed, with the bound;
+   a random state, with and without the certificate products: one kernel
+   launch a call (counted by the profiler, against
+   term_products.launches_per_call), two calls bit-identical and sharing
+   no output; both timed (warm, L2-flushed and device time), with the
+   bound;
 7. K1r (admm_iter_refined) against its plain version, one step from a
-   random state: B=512 in float64 and float32 with half of the instances
-   inactive, B=8192 at the headline shape in float32, CVXQP2_M's shape
-   at B=1 in both dtypes, B=1, n=2, m=6000 in float64 and B=1,
-   n=m=3000 in float32 (above the one-block bound); two launches
-   bit-identical; the float32 carry held to TwoSum exactly; the float32
-   solve at CVXQP2_M held to a forward-error bound that a float32
-   residual misses; times as for K1;
+   random state, each case on the path refined_plan names (printed and
+   required): B=512 in float64 and float32 with half of the instances
+   inactive, B=8192 at the headline shape in float32 (all active) and
+   float64 (half active), and the MPC cell's shape (B=1000, n=372, m=612,
+   float32, its dense_inv factor; half and all active; the kernel also
+   held against the float64 plain version on the same inputs, as K1's
+   ill-conditioned case) on the resident path; CVXQP2_M's shape at B=1
+   in both dtypes, B=1, n=2, m=6000 in float64 and B=1, n=m=3000 in
+   float32 on the split path; two launches bit-identical; inactive
+   instances bit-identical; the float32 carry held to TwoSum exactly;
+   the float32 solve at CVXQP2_M held to a forward-error bound that a
+   float32 residual misses; times as for K1; at the headline and MPC
+   shapes every resident variant that fits (clusters of k, P's slab
+   resident or not) and the split path timed in one call, and at the
+   headline's n and m the resident path against the split path by B;
 8. the batched slice on the GPU against the slice on the CPU (plain
    path), in float64 at B=64, n=20, m=30: equal statuses and iteration
    counts, x and y within 1e-6;
@@ -148,7 +159,8 @@ failure ends the run with a non-zero exit and no result line:
     ``dense_inv`` (B=1000, float32, eps 1e-3, polish off): every
     instance solved, none at MAX_ITER, the same statuses in both legs,
     the first 16 scenarios against ``tests/data/torch_goldens/mpc.npz``,
-    K7's launches (all on the warp path), the median of 5 timed solves per leg with QPs/s,
+    K7's launches (all on the warp path) and K1r's in the dense_inv leg
+    (all on the resident path), the median of 5 timed solves per leg with QPs/s,
     set-up and ms per iteration, and one more solve per leg under the
     profiler (idle share, device time by kernel); then the ``Solver``
     with block_tridiag on scenario 0 in float64 against its golden, with
@@ -167,8 +179,9 @@ failure ends the run with a non-zero exit and no result line:
     ms, ms per CG step and the idle share; the ``SparseSolver`` on
     LISWET1: set-up, solve, update_lin_cost and a warm re-solve.
 
-The line before the last is a JSON object of the kernels (13 rows:
-K6's device loop is cg_loop); the last line is the device JSON object.
+The line before the last is a JSON object of the kernels (14 rows:
+K6's device loop is cg_loop, K1r's resident path
+admm_iter_refined_resident); the last line is the device JSON object.
 
 ``python3 chip_smoke.py --only k8,polish_solver`` runs the build and the
 named phases alone (names: the ``phase_*`` functions' suffixes), for a
@@ -440,7 +453,7 @@ def reset_counts() -> None:
     from osqp_tpu_torch.ops import admm_iter as k1, kkt_lu as k8, ruiz as k4, spd_inverse as k2, term_products as k3
     from osqp_tpu_torch.ops import block_tridiag as k7, cg as k6, ell as k5
 
-    k1.launches = k1.refined_launches = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
+    k1.launches = k1.refined_launches = k1.refined_launches_resident = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
     k8.launches_factor = k8.launches_solve = 0
     k5.launches = k6.launches = k6.launches_loop = 0
     k7.launches_factor = k7.launches_solve = k7.launches_factor_warp = k7.launches_solve_warp = 0
@@ -450,7 +463,8 @@ def read_counts() -> dict:
     from osqp_tpu_torch.ops import admm_iter as k1, kkt_lu as k8, ruiz as k4, spd_inverse as k2, term_products as k3
     from osqp_tpu_torch.ops import block_tridiag as k7, cg as k6, ell as k5
 
-    return {"admm_iter": k1.launches, "admm_iter_refined": k1.refined_launches, "chol_inverse": k2.launches,
+    return {"admm_iter": k1.launches, "admm_iter_refined": k1.refined_launches,
+            "admm_iter_refined_resident": k1.refined_launches_resident, "chol_inverse": k2.launches,
             "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches,
             "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve, "ell_ops": k5.launches,
             "cg_step": k6.launches, "cg_loop": k6.launches_loop, "bt_factor": k7.launches_factor,
@@ -720,6 +734,25 @@ def _random_state(B, n, m, dtype, dev, seed=1):
     return [torch.randn(*s, generator=g, dtype=dtype, device=dev) for s in ((B, n), (B, m), (B, n), (B, m))]
 
 
+def k3_kernels_per_call(call, calls=3) -> float:
+    """Device kernels per call of ``call`` (K3), by the profiler over
+    ``calls`` calls.  The profiler may lose the records of the first or
+    last kernels of a short window, so the calls sit between small
+    kernels of another name, and the count holds only if every kernel
+    recorded is K3's products_kernel or one of those."""
+    import torch
+
+    pad = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    padding = lambda: [pad.add_(1) for _ in range(8)]
+    _, _, events = profiled(lambda: (padding(), [call() for _ in range(calls)], padding()))
+    names = [kernel_label(e.name) for e in events]
+    k3_count = sum("products_kernel" in name for name in names)
+    others = [name for name in names if "products_kernel" not in name]
+    require(all("elementwise" in name for name in others), f"K3's calls launched other kernels: {set(others)}")
+    return k3_count / calls
+
+
 def phase_k3(dev):
     import torch
 
@@ -750,16 +783,32 @@ def phase_k3(dev):
                 diff, rel = rel_err(gk, gp)
                 require(rel <= tol, f"K3 {name} off by {rel:.3e} relative at {label}")
                 worst, err = max(worst, rel), max(err, diff)
+        # one kernel launch a call, with and without certificates, and fresh outputs every call
+        B_, n_, m_ = P.shape[0], P.shape[1], A.shape[1]
+        per_call = []
+        for extra in ((), (dx, dy)):
+            launched = k3_kernels_per_call(lambda: k3.term_products(P, A, x, y, *extra))
+            per_call.append(launched)
+            require(launched == k3.launches_per_call(B_, n_, m_, bool(extra)) == 1,
+                    f"K3 took {launched} kernel launches a call at {label}")
+        first, second = k3.term_products(P, A, x, y, dx, dy), k3.term_products(P, A, x, y, dx, dy)
+        ptrs = {t.data_ptr() for t in first} & {t.data_ptr() for t in second}
+        require(not ptrs and all(torch.equal(a, b) for a, b in zip(first, second)),
+                f"K3: two calls share an output or differ at {label}")
         ms = cuda_ms(lambda: k3.term_products(P, A, x, y), reps=20)
         plain_ms = cuda_ms(lambda: k3.term_products_plain(P, A, x, y), reps=20)
-        ms_cert = cuda_ms(lambda: k3.term_products(P, A, x, y, dx, dy), reps=20)
-        plain_cert = cuda_ms(lambda: k3.term_products_plain(P, A, x, y, dx, dy), reps=20)
-        B_, n_, m_ = P.shape[0], P.shape[1], A.shape[1]
         # with certificates: P, A, x, y, dx, dy read once, six products written; A x, A dx, A'y, A'dy and
         # P x, P dx take a multiply-add per matrix value each
-        bound_ms, bound_by = bound(P.element_size() * B_ * (n_ * n_ + m_ * n_ + 6 * n_ + 4 * m_),
-                                   {dtype_name(dtype): B_ * (8 * m_ * n_ + 4 * n_ * n_)})
-        print(f"K3 term_products {label}: worst relative difference {worst:.3e} (tol {tol:g}), |k-p|max {err:.3e}; "
+        timed = report_times(f"K3 term_products {label} with certificates",
+                             lambda: k3.term_products(P, A, x, y, dx, dy),
+                             lambda: k3.term_products_plain(P, A, x, y, dx, dy), 20,
+                             P.element_size() * B_ * (n_ * n_ + m_ * n_ + 6 * n_ + 4 * m_),
+                             {dtype_name(dtype): B_ * (8 * m_ * n_ + 4 * n_ * n_)})
+        ms_cert, plain_cert, bound_ms, bound_by = timed["ms"], timed["plain_ms"], timed["bound_ms"], timed["bound_by"]
+        print(f"K3 term_products {label}: kernel launches per call {per_call[0]:g}, with certificates {per_call[1]:g} "
+              f"(profiler); "
+              f"two calls bit-identical, no output shared; worst relative difference {worst:.3e} (tol {tol:g}), "
+              f"|k-p|max {err:.3e}; "
               f"Ax, Px, A'y: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; with certificates: kernel {ms_cert:.4f} ms, "
               f"plain {plain_cert:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share of bound "
               f"{bound_ms / ms_cert:.3f}")
@@ -771,9 +820,11 @@ def phase_k3(dev):
 def phase_k1r(dev):
     import torch
 
+    from osqp_tpu_torch import _build
     from osqp_tpu_torch.ops import admm_iter as k1
 
     n, m = HEADLINE["n"], HEADLINE["m"]
+    sms = _build.sm_count(dev)
 
     def operands(arrays, dtype, half=True):
         P, q, A, l, u = on_device(arrays, dtype, dev)
@@ -786,11 +837,31 @@ def phase_k1r(dev):
         return (factor["Minv"], scaled.A, factor["P"], scaled.q, scaled.l, scaled.u, rs.rho_vec, rs.rho_inv_vec,
                 float(dyn.sigma), float(dyn.alpha), active, x, z, y, dx, dy, y_lo)
 
-    def compare(args, label):
+    def path_of(args):
+        """The plan's path for these operands, as "resident, clusters of k"
+        or "split"."""
+        B, n_, m_ = args[11].shape[0], args[11].shape[1], args[12].shape[1]
+        kind, k = k1.refined_plan(B, n_, m_, args[11].dtype, sms)
+        return kind, k
+
+    def compare(args, label, ref64=False):
+        """Kernel against plain on one step, two launches against each
+        other, the carry against TwoSum; the path taken must be the plan's.
+        With ref64 (the MPC cell's float32 data: equality rows with rho
+        boosted 1e3 make M ill-conditioned, and the order of summation
+        alone moves the step by about rtol), both are also held against
+        the plain version in float64 on the same inputs, as K1's phase
+        does: the kernel must be within rtol of the plain version or no
+        further from the float64 result than twice the plain version's
+        distance.  Returns the largest |k - p|."""
+        kind, k = path_of(args)
+        before = (k1.refined_launches, k1.refined_launches_resident)
         outk = k1.admm_iter_refined(*args)
         again = k1.admm_iter_refined(*args)
+        took = (k1.refined_launches - before[0], k1.refined_launches_resident - before[1])
         outp = k1.admm_iter_refined_plain(*args)
         torch.cuda.synchronize()
+        require(took == ((2, 2) if kind == "resident" else (2, 0)), f"K1r took another path than the plan's at {label}")
         require(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(outk, again)),
                 f"K1r's two launches differ at {label}")
         active = args[10]
@@ -812,9 +883,20 @@ def phase_k1r(dev):
             bad_p = k1.twosum_violations(y, outp[4][active], y_lo, outp[2][active], outp[5][active])
             carry = f"; TwoSum carry violated at {bad_k} (plain {bad_p}) of {y.numel()} active entries"
             require(bad_k == 0 and bad_p == 0, f"K1r's dual update is not TwoSum(y, dy + y_lo) at {label}")
-        print(f"K1r admm_iter_refined {label}: worst |k-p|max/|p|max over x,z,y,dx,dy {worst:.3e} (rtol {tol:g}), "
-              f"|k-p|max {err:.3e}; inactive instances bit-identical; two launches bit-identical{carry}")
-        require(worst <= tol, f"K1r disagrees with its plain version at {label}")
+        ok = worst <= tol
+        against = ""
+        if ref64:
+            wide = [a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args[:16]]
+            out64 = k1.admm_iter_refined_plain(*wide)
+            err_k = max(rel_err(a.double(), b)[1] for a, b in zip(outk[:5], out64[:5]))
+            err_p = max(rel_err(a.double(), b)[1] for a, b in zip(outp[:5], out64[:5]))
+            ok = ok or err_k <= 2 * err_p
+            against = f"; against float64 on the same inputs: kernel {err_k:.3e}, plain {err_p:.3e}"
+        path = f"resident, clusters of {k}" if kind == "resident" else "split"
+        print(f"K1r admm_iter_refined {label} ({path}): worst |k-p|max/|p|max over x,z,y,dx,dy {worst:.3e} "
+              f"(rtol {tol:g}), |k-p|max {err:.3e}{against}; inactive instances bit-identical; two launches "
+              f"bit-identical{carry}")
+        require(ok, f"K1r disagrees with its plain version at {label}")
         return err
 
     def residual_check(name):
@@ -829,9 +911,11 @@ def phase_k1r(dev):
         rhs = torch.randn(B, n_, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
         zn, zm = torch.zeros(B, n_, device=dev), torch.zeros(B, m_, device=dev)
         sigma = float(dyn.sigma)
+        before = k1.refined_launches_resident
         x_k = k1.admm_iter_refined(factor["Minv"], scaled.A, factor["P"], rhs, scaled.l, scaled.u, rs.rho_vec,
                                    rs.rho_inv_vec, sigma, 1.0, torch.ones(B, dtype=torch.bool, device=dev),
                                    zn, zm, zm, zn, zm, zm)[0]
+        require(k1.refined_launches_resident == before, f"K1r at {name} B=1 left the split path")
         A64, rho64 = scaled.A.double(), rs.rho_vec.double()
         M64 = (factor["P"].double() + sigma * torch.eye(n_, dtype=torch.float64, device=dev)
                + A64.transpose(1, 2) @ (rho64[:, :, None] * A64))
@@ -839,10 +923,33 @@ def phase_k1r(dev):
         x32 = _solve_f32_residual(factor["Minv"], factor["P"], scaled.A, rs.rho_vec, dyn.sigma, -rhs)
         _, err_k = rel_err(x_k.double(), truth)
         _, err_32 = rel_err(x32.double(), truth)
-        print(f"K1r float64 residual, {name} B=1 float32: |x~ - x*|max/|x*|max kernel {err_k:.3e}, "
+        print(f"K1r float64 residual, {name} B=1 float32 (split): |x~ - x*|max/|x*|max kernel {err_k:.3e}, "
               f"with a float32 residual {err_32:.3e} (bound {F64_RESIDUAL_BOUND:g})")
         require(err_k <= F64_RESIDUAL_BOUND, f"K1r's solve at {name} is off by {err_k:.3e}: no float64 residual?")
         require(err_32 > F64_RESIDUAL_BOUND, f"the float64-residual check at {name} does not tell the residuals apart")
+
+    def paths_timed(args, label):
+        """Every resident variant that fits (clusters of k, P resident or
+        read from device memory) and the split path, warm and L2-flushed,
+        in one call: how the plan was fixed.  refined_bytes, by which the
+        plan sizes a CTA's share, is held to the kernel's own layout."""
+        B, n_, m_, dtype = args[11].shape[0], args[11].shape[1], args[12].shape[1], args[11].dtype
+        rows = []
+        lib = _build.library()
+        for k in k1.CLUSTERS:
+            for p_res in (True, False):
+                nbytes = k1.refined_bytes(n_, m_, k, dtype, p_res)
+                smem = lib.osqp_admm_iter_refined_resident_smem(_build.dtype_code(dtype), n_, m_, k, int(p_res))
+                require(nbytes == smem, f"K1r: refined_bytes gives {nbytes} bytes, the kernel's layout {smem}")
+                clusters = k1.resident_clusters(n_, m_, k, dtype, p_res, dev)
+                if nbytes > _build.SMEM_BYTES or clusters <= 0:
+                    continue
+                fn = lambda: k1.launch_refined(*args, cluster=k, p_res=p_res)
+                rows.append(f"k={k}{' P' if p_res else ''} {cuda_ms(fn, 10):.4f}/{cuda_ms_flushed(fn, 5):.4f} "
+                            f"({clusters} clusters)")
+        split = lambda: k1.launch_refined(*args, cluster=0)
+        rows.append(f"split {cuda_ms(split, 10):.4f}/{cuda_ms_flushed(split, 5):.4f}")
+        print(f"K1r paths at {label}, ms warm/flushed: " + "; ".join(rows))
 
     small = make_qps(512, n, m, seed=0, dtype=np.float64)
     compare(operands(small, torch.float64), "B=512 float64, half active")
@@ -850,13 +957,49 @@ def phase_k1r(dev):
     B = HEADLINE["B"]
     head = operands(make_qps(B, n, m), torch.float32, half=False)
     err = compare(head, f"B={B} float32, all active")
-    report_times(f"K1r admm_iter_refined B={B} n={n} m={m} float32 all active",
-                 lambda: k1.admm_iter_refined(*head), lambda: k1.admm_iter_refined_plain(*head), 20,
-                 *k1r_cost(B, n, m, torch.float32))
+    require(path_of(head)[0] == "resident", "K1r at the headline shape is not on the resident path")
+    report_times(f"K1r admm_iter_refined B={B} n={n} m={m} float32 all active", lambda: k1.admm_iter_refined(*head),
+                 lambda: k1.admm_iter_refined_plain(*head), 20, *k1r_cost(B, n, m, torch.float32))
+    paths_timed(head, f"B={B} n={n} m={m} float32")
+    del head
+    head64 = operands(make_qps(B, n, m, dtype=np.float64), torch.float64)
+    err = max(err, compare(head64, f"B={B} float64, half active"))
+    require(path_of(head64)[0] == "resident", "K1r at the headline shape in float64 is not on the resident path")
+    report_times(f"K1r admm_iter_refined B={B} n={n} m={m} float64 half active",
+                 lambda: k1.admm_iter_refined(*head64), lambda: k1.admm_iter_refined_plain(*head64), 10,
+                 *k1r_cost(B // 2, n, m, torch.float64))
+    del head64
+    # the MPC cell's shape, its dense_inv factor: where K1r runs on batches
+    mpc = mpc_scenarios()[1:]
+    B_mpc, n_mpc, m_mpc = mpc[0].shape[0], mpc[0].shape[1], mpc[2].shape[1]
+    mpc_half = operands(mpc, torch.float32)
+    compare(mpc_half, f"MPC B={B_mpc} n={n_mpc} m={m_mpc} float32, half active", ref64=True)
+    mpc_all = mpc_half[:10] + (torch.ones_like(mpc_half[10]),) + mpc_half[11:]
+    err_mpc = compare(mpc_all, f"MPC B={B_mpc} n={n_mpc} m={m_mpc} float32, all active", ref64=True)
+    split_mpc = k1.launch_refined(*mpc_all, cluster=0)
+    print(f"  the split path at the same MPC operands against plain: worst relative "
+          f"{max(rel_err(a, b)[1] for a, b in zip(split_mpc[:5], k1.admm_iter_refined_plain(*mpc_all)[:5])):.3e}")
+    del split_mpc
+    require(path_of(mpc_all)[0] == "resident", "K1r at the MPC shape is not on the resident path")
+    mpc_stats = report_times(f"K1r admm_iter_refined MPC B={B_mpc} n={n_mpc} m={m_mpc} float32 all active",
+                             lambda: k1.admm_iter_refined(*mpc_all), lambda: k1.admm_iter_refined_plain(*mpc_all),
+                             10, *k1r_cost(B_mpc, n_mpc, m_mpc, torch.float32))
+    paths_timed(mpc_all, f"MPC B={B_mpc} float32")
+    del mpc_half, mpc_all
+    # the crossover in B at the headline's n and m
+    big = operands(make_qps(sms * 2, n, m), torch.float32, half=False)
+    rows = []
+    for Bc in (1, 16, sms // 2, sms, 2 * sms):
+        sub = tuple(a[:Bc].contiguous() if torch.is_tensor(a) else a for a in big)
+        res = lambda: k1.launch_refined(*sub, cluster=1)
+        spl = lambda: k1.launch_refined(*sub, cluster=0)
+        rows.append(f"B={Bc} {cuda_ms(res, 20):.4f}/{cuda_ms(spl, 20):.4f} (plan {path_of(sub)[0]})")
+    print(f"K1r n={n} m={m} float32, resident k=1 / split ms warm by B: " + "; ".join(rows))
     cvxqp = maros_dense("CVXQP2_M")
     for dtype in (torch.float64, torch.float32):
         args = operands(cvxqp, dtype, half=False)
         label = f"CVXQP2_M B=1 n=1000 m=1250 {dtype_name(dtype)}"
+        require(path_of(args)[0] == "split", f"K1r at {label} is not on the split path")
         err = max(err, compare(args, label))
         stats = report_times(f"K1r admm_iter_refined {label}", lambda: k1.admm_iter_refined(*args),
                              lambda: k1.admm_iter_refined_plain(*args), 10, *k1r_cost(1, 1000, 1250, dtype))
@@ -865,8 +1008,10 @@ def phase_k1r(dev):
     big = random_operands(1, 3000, 3000, torch.float32, dev)
     compare(k1r_args(big, 1e-7 * torch.randn_like(big["y"])), "B=1 n=3000 m=3000 float32")
     residual_check("CVXQP2_M")
-    # stats: CVXQP2_M in float32, the shape and body of the Solver's K1r launches
-    return dict(max_abs_err=err, library_ms=None, **stats)
+    # stats: CVXQP2_M in float32, the shape and body of the Solver's K1r
+    # launches (split); mpc_stats: the MPC shape (resident)
+    return (dict(max_abs_err=err, library_ms=None, **stats),
+            dict(max_abs_err=err_mpc, library_ms=None, **mpc_stats))
 
 
 def _solve_f32_residual(Minv, P, A, rho, sigma, t):
@@ -1061,6 +1206,8 @@ def phase_solver(dev):
         elif name in ("ell_ops", "cg_step", "cg_loop", "bt_factor", "bt_solve", "bt_factor_warp",
                       "bt_solve_warp"):  # other backends' kernels
             require(n_launch == 0, f"{name} launched on the dense_inv Solver path")
+        elif name == "admm_iter_refined_resident":  # B = 1: K1r's split path spreads the instance over the card
+            require(n_launch == 0, "K1r took the resident path on the Solver path (B = 1)")
         else:
             require(n_launch > 0, f"{name} never launched on the Solver path")
     return total
@@ -2167,8 +2314,10 @@ def phase_mpc(dev):
     bench_mpc's data (B=1000, float32, eps 1e-3, polish off): the same
     statuses, all solved, none at MAX_ITER; the first 16 scenarios against
     mpc.npz; median of 5 timed solves per leg.  Counts are set to 0 just
-    before the block_tridiag leg's first solve and read just after it.
-    Then the Solver with block_tridiag on scenario 0 in float64."""
+    before each leg's first solve and read just after it: the
+    block_tridiag leg is K7's main path, the dense_inv leg K1r's resident
+    path's (its refined loop body).  Then the Solver with block_tridiag on
+    scenario 0 in float64."""
     import torch
 
     import osqp_tpu_torch as ot
@@ -2182,20 +2331,18 @@ def phase_mpc(dev):
     P, q, A, l, u = on_device(arrays, torch.float32, dev)
     torch.cuda.synchronize()
     legs = {"block_tridiag": dict(block_size=b), "dense_inv": {}}
-    out, launches = {}, None
+    out, launches = {}, {}
     for backend, extra in legs.items():
         kw = dict(MPC_KW, dtype="float32", linsys_solver=backend, **extra)
         main_path = backend == "block_tridiag"
-        if main_path:
-            reset_counts()
+        reset_counts()
         before = read_counts()
         t0 = time.perf_counter()
         res = ot.solve_batch(P, q, A, l, u, **kw)
         status = res.status_val.cpu().numpy()
         first_s = time.perf_counter() - t0
         after = read_counts()
-        if main_path:
-            launches = after
+        launches[backend] = after
         delta = {k: after[k] - before[k] for k in after}
         iters = res.iter.cpu().numpy()
         x = res.x.cpu().numpy()
@@ -2238,11 +2385,17 @@ def phase_mpc(dev):
                     "mpc block_tridiag: a dense_inv or K8 kernel launched")
         else:
             require(delta["bt_factor"] == delta["bt_solve"] == 0, "mpc dense_inv: K7 launched")
+            require(delta["admm_iter_refined"] > 0, "mpc dense_inv: K1r never launched")
+            require(delta["admm_iter_refined_resident"] == delta["admm_iter_refined"],
+                    f"mpc dense_inv: K1r left the resident path ({delta['admm_iter_refined_resident']} of "
+                    f"{delta['admm_iter_refined']} resident)")
         # where one solve's time goes: once more under the profiler
         _, wall, events = profiled(lambda: ot.solve_batch(P, q, A, l, u, **kw))
         busy = event_ms(events)
+        k1r_ms = event_ms(events, ("refined_resident_kernel",))
         print(f"mpc {backend} under the profiler: wall {wall:.3f} ms, all device work {busy:.3f} ms, idle share "
-              f"{1.0 - busy / wall:.3f}; K7 {event_ms(events, K7_KERNELS):.3f} ms; by kernel: {top_kernels(events)}")
+              f"{1.0 - busy / wall:.3f}; K7 {event_ms(events, K7_KERNELS):.3f} ms; K1r resident {k1r_ms:.3f} ms; "
+              f"by kernel: {top_kernels(events)}")
         out[backend] = (status, iters)
     same = np.array_equal(out["block_tridiag"][0], out["dense_inv"][0])
     print(f"mpc: statuses of block_tridiag equal to dense_inv's {same}; iterations equal in "
@@ -2521,7 +2674,7 @@ def main() -> int:
     k1_stats = phase_k1(dev)
     k4_stats = phase_k4(dev)
     k3_stats = phase_k3(dev)
-    k1r_stats = phase_k1r(dev)
+    k1r_stats, k1r_resident_stats = phase_k1r(dev)
     phase_parity(dev)
     launches = phase_headline(dev)
     solver_launches = phase_solver(dev)
@@ -2534,7 +2687,8 @@ def main() -> int:
     sparse_launches, sparse_paths = phase_sparse(dev)
     cg_dense_launches = phase_cg_dense(dev)
     k7_factor_stats, k7_solve_stats = phase_k7(dev)
-    mpc_launches = phase_mpc(dev)
+    mpc_legs = phase_mpc(dev)
+    mpc_launches = mpc_legs["block_tridiag"]
     polish_launches_sparse, polish_loops, pcg_stats, polish_paths = phase_sparse_polish(dev)
 
     # launches: the batched headline solve's, and for K1r, which that
@@ -2547,7 +2701,9 @@ def main() -> int:
     # step at the headline shape, B=8192); for K6's device loop the
     # CVXQP2_L solve (times per CG step, and the stepwise path's beside
     # them under stepwise_ms); for K7 the MPC cell's block_tridiag solve
-    # (times at the MPC cell, B=1000, float32); for K6 in polish's PCG the
+    # (times at the MPC cell, B=1000, float32); for K1r's resident path the
+    # MPC cell's dense_inv solve (times at the MPC shape, all active,
+    # float32); for K6 in polish's PCG the
     # loop's launches in LISWET1's float64 polish (times per CG step on
     # LISWET1's float32 polish system).
     kernels = [
@@ -2556,6 +2712,9 @@ def main() -> int:
         dict(name="admm_iter_refined", route="cuda", source="osqp_tpu_torch/csrc/admm_iter_refined.cu",
              replaces="osqp_tpu/linsys/dense_inv.py:173", launches=solver_launches["admm_iter_refined"],
              **k1r_stats),
+        dict(name="admm_iter_refined_resident", route="cuda", source="osqp_tpu_torch/csrc/admm_iter_refined.cu",
+             replaces="osqp_tpu/linsys/dense_inv.py:173",
+             launches=mpc_legs["dense_inv"]["admm_iter_refined_resident"], **k1r_resident_stats),
         dict(name="chol_inverse", route="cuda", source="osqp_tpu_torch/csrc/chol_inverse.cu",
              replaces="osqp_tpu/ops/spd_inverse.py:167", launches=launches["chol_inverse"], **k2_stats),
         dict(name="ruiz", route="cuda", source="osqp_tpu_torch/csrc/ruiz.cu",

@@ -30,8 +30,9 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 # Bytes of shared memory one block may use on sm_90 (227 KB): K2 sizes
-# its largest matrix by it.  An SM holds 228 KB, of which each resident
-# block reserves 1 KB: K4 sizes its cluster shares by these.
+# its largest matrix by it, K1r's resident path its CTA's share.  An SM
+# holds 228 KB, of which each resident block reserves 1 KB: K4 sizes its
+# cluster shares by these.
 SMEM_BYTES = 232_448
 SMEM_PER_SM = 233_472
 SMEM_RESERVED_PER_BLOCK = 1024
@@ -47,8 +48,11 @@ _SIGNATURES = {
     "osqp_chol_inverse": (_I, _P, _P, _I, _I, _P),
     "osqp_admm_iter": (_I,) + (_P,) * 20 + (_D, _D, _I, _I, _I, _I, _P),
     "osqp_admm_iter_refined": (_I,) + (_P,) * 22 + (_D, _D, _I, _I, _I, _I, _P),
+    "osqp_admm_iter_refined_resident": (_I,) + (_P,) * 21 + (_D, _D) + (_I,) * 6 + (_P,),
+    "osqp_admm_iter_refined_resident_clusters": (_I,) * 5,
+    "osqp_admm_iter_refined_resident_smem": (_I,) * 5,
     "osqp_ruiz": (_I,) + (_P,) * 17 + (_I,) * 7 + (_P,),
-    "osqp_term_products": (_I,) + (_P,) * 11 + (_I,) * 5 + (_P,),
+    "osqp_term_products": (_I,) + (_P,) * 10 + (_I,) * 5 + (_P,),
     "osqp_kkt_lu_factor": (_I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "osqp_kkt_lu_factor_blocks": (_I, _P, _P, _P, _D, _I, _I, _P, _P, _P, _I, _I, _P, _P),
     "osqp_kkt_lu_solve_scratch": (_I,) * 3,
@@ -140,6 +144,8 @@ def library() -> ctypes.CDLL:
                 getattr(lib, name).restype = ctypes.c_size_t
             lib.osqp_kkt_lu_factor_scratch.argtypes = (_I,) * 3
             lib.osqp_kkt_lu_factor_scratch.restype = ctypes.c_longlong
+            lib.osqp_term_products_scratch.argtypes = (_I,) * 7
+            lib.osqp_term_products_scratch.restype = ctypes.c_longlong
             _lib = lib
     return _lib
 

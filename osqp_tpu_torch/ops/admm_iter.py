@@ -14,16 +14,22 @@ ill-conditioned batches: the KKT solve with residual correction
 (``dense_inv.py:solve(refine=True)``), z~ = A x~, and in float32 the
 TwoSum dual carry (``admm.py:152-160``).  CUDA tensors launch
 ``csrc/admm_iter_refined.cu``; CPU tensors run
-:func:`admm_iter_refined_plain`.
+:func:`admm_iter_refined_plain`.  K1r has two paths on the card, chosen
+by :func:`refined_plan` from the shapes: the resident path, one kernel
+launch per call in which each instance's slabs of Minv, A and (where
+they fit) P stay in the shared memory of a thread-block cluster for the
+whole iteration, and the split path, a short sequence of kernels that
+spreads one instance over the card (single large problems).
 
-Each launch is one ctypes call that enqueues a short sequence of
-kernels; its partial sums go to a scratch buffer the wrapper allocates,
-sized by the library.  ``launches`` and ``refined_launches`` count those
-calls.
+Each launch is one ctypes call; the split paths' partial sums go to a
+scratch buffer the wrapper allocates, sized by the library.
+``launches`` and ``refined_launches`` count those calls,
+``refined_launches_resident`` the K1r calls that took the resident path.
 """
 
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 
 import torch
@@ -34,6 +40,13 @@ from ..types import Iterates
 
 launches = 0
 refined_launches = 0
+refined_launches_resident = 0
+
+# K1r's resident path (csrc/admm_iter_refined.cu, refined_resident_kernel):
+# a lane keeps up to 16 columns (n <= 512), in clusters of up to 16 CTAs
+# (above 8 a non-portable cluster size).
+RESIDENT_MAX_N = 512
+CLUSTERS = (1, 2, 4, 8, 16)
 
 
 def _validate(name, mats, q, l, u, rho, rho_inv, active, x, z, y, dx, dy, y_lo=None) -> None:
@@ -141,6 +154,73 @@ def admm_iter_plain(Minv, AMinvT, A, q, l, u, rho, rho_inv, sigma, alpha, active
     )
 
 
+def refined_bytes(n: int, m: int, k: int, dtype, p_resident: bool = True) -> int:
+    """Shared memory of one CTA of K1r's resident path with clusters of k
+    CTAs (``RLayout`` in csrc/admm_iter_refined.cu): 16 bytes of
+    mbarriers, then regions each rounded up to 16 bytes: the CTA's row
+    slabs of Minv (ceil(n/k) rows), A (ceil(m/k) rows) and, resident, P,
+    each with 16 bytes of slack on each side for its aligned bulk copy;
+    x~ (n values); t, r and x (a value per slab row of Minv); w, z~,
+    rho, z, y, rho^-1, l, u and y_lo (per row of A); in double P x~ and
+    A'(rho A x~) (per row of Minv), the warps' column sums (n a warp:
+    16 warps where n <= 256, 8 above) and, in a cluster, two sets of
+    partials (2 n)."""
+    elt = torch.finfo(dtype).bits // 8
+    pad = 16 // elt
+    rn, rm = -(-n // k), -(-m // k)
+    slab = lambda rows: elt * (rows * n + 2 * pad)
+    regions = ((slab(rn), slab(rm), slab(rn) if p_resident else 0, elt * n) + (elt * rn,) * 3 + (elt * rm,) * 9
+               + (8 * rn, 8 * rn, 8 * resident_warps(n) * n, 16 * n if k > 1 else 0))
+    return 16 + sum(-(-r // 16) * 16 for r in regions)
+
+
+def resident_warps(n: int) -> int:
+    """Warps of a CTA of K1r's resident path: 16 where a lane holds at
+    most 8 columns (n <= 256), 8 above."""
+    return 16 if n <= 256 else 8
+
+
+def p_resident(n: int, m: int, k: int, dtype) -> bool:
+    """Does P's slab fit in shared memory beside Minv's and A's with
+    clusters of k CTAs?  Where it does not, the resident path reads P's
+    rows from device memory at each P x~."""
+    return refined_bytes(n, m, k, dtype, True) <= _build.SMEM_BYTES
+
+
+def refined_plan(B: int, n: int, m: int, dtype, sm_count: int) -> tuple[str, int]:
+    """K1r's path for B instances of n variables and m constraints on a
+    card of ``sm_count`` SMs: ``("resident", k)`` with k the smallest of
+    1, 2, 4, 8, 16 whose CTA share of Minv and A (and P, where
+    :func:`p_resident`) fits one CTA's shared memory, or ``("split", 0)``
+    where none does (n > 512 among them) or where B clusters of k CTAs
+    would leave SMs of the card idle (B k < sm_count), as a single
+    problem does: the split path spreads one instance over the card."""
+    if not 1 <= n <= RESIDENT_MAX_N:
+        return ("split", 0)
+    for k in CLUSTERS:
+        if refined_bytes(n, m, k, dtype, False) <= _build.SMEM_BYTES:
+            break
+    else:
+        return ("split", 0)
+    if B * k < sm_count:
+        return ("split", 0)
+    return ("resident", k)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_clusters(index: int, code: int, n: int, m: int, k: int, p_res: bool) -> int:
+    with torch.cuda.device(index):
+        return _build.library().osqp_admm_iter_refined_resident_clusters(code, n, m, k, int(p_res))
+
+
+def resident_clusters(n: int, m: int, k: int, dtype, p_res: bool, device) -> int:
+    """Clusters of k CTAs of K1r's resident path that the CUDA ``device``
+    holds at once (the CUDA occupancy query), 0 or less where none fits."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _resident_clusters(index, _build.dtype_code(dtype), n, m, k, bool(p_res))
+
+
 def admm_iter_refined(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x, z, y, dx, dy, y_lo=None):
     """One refined ADMM iteration where ``active``; returns new
     (x, z, y, dx, dy, y_lo), equal to the inputs bit for bit where
@@ -150,7 +230,6 @@ def admm_iter_refined(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x
     Shapes: Minv, P (B,n,n), A (B,m,n); q, x, dx (B,n); l, u, rho,
     rho_inv, z, y, dy (B,m); active (B,) bool; sigma and alpha scalars.
     """
-    global refined_launches
     args = (Minv, A, P, q, l, u, rho, rho_inv, active, x, z, y, dx, dy)
     mats = {
         "Minv": (Minv, lambda B, n, m: (B, n, n)),
@@ -166,29 +245,56 @@ def admm_iter_refined(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("admm_iter_refined takes contiguous tensors")
     (B, n), m = x.shape, z.shape[1]
+    _, cluster = refined_plan(B, n, m, x.dtype, _build.sm_count(x.device))
+    return launch_refined(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x, z, y, dx, dy, y_lo,
+                          cluster=cluster)
+
+
+def launch_refined(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x, z, y, dx, dy, y_lo=None, *,
+                   cluster: int, p_res: bool | None = None):
+    """K1r on validated contiguous CUDA tensors: the resident path with
+    clusters of ``cluster`` CTAs (P's slab resident where ``p_res``, by
+    default where it fits), or the split path where ``cluster`` is 0.
+    :func:`admm_iter_refined` chooses by :func:`refined_plan`; a caller
+    may name another path (``chip_smoke.py`` times them).  Raises where
+    the card refuses the launch."""
+    global refined_launches, refined_launches_resident
+    if x.device.type != "cuda":
+        raise ValueError(f"launch_refined runs the kernel on CUDA tensors, not {x.device}")
+    args = (Minv, A, P, q, l, u, rho, rho_inv, active, x, z, y, dx, dy)
+    (B, n), m = x.shape, z.shape[1]
+    dtype = x.dtype
     outs = tuple(torch.empty_like(t) for t in (x, z, y, dx, dy))
     lo_out = torch.empty_like(y_lo) if y_lo is not None else None
     ptr = lambda t: t.data_ptr() if t is not None else 0
     lib = _build.library()
     with torch.cuda.device(x.device):
-        ws, sms = _build.scratch("admm_iter_refined", x.dtype, B, n, m, x.device)
-        code = lib.osqp_admm_iter_refined(
-            _build.dtype_code(x.dtype),
-            *(t.data_ptr() for t in args),
-            ptr(y_lo),
-            *(t.data_ptr() for t in outs),
-            ptr(lo_out),
-            ws.data_ptr(),
-            float(sigma),
-            float(alpha),
-            B,
-            n,
-            m,
-            sms,
-            _build.stream(),
-        )
+        if cluster:
+            if p_res is None:
+                p_res = p_resident(n, m, cluster, dtype)
+            if cluster not in CLUSTERS or not 1 <= n <= RESIDENT_MAX_N or (
+                    refined_bytes(n, m, cluster, dtype, p_res) > _build.SMEM_BYTES):
+                raise ValueError(f"admm_iter_refined: no resident path with clusters of {cluster} at n = {n}, "
+                                 f"m = {m} in {dtype}")
+            clusters = resident_clusters(n, m, cluster, dtype, p_res, x.device)
+            if clusters <= 0:
+                raise RuntimeError(f"admm_iter_refined: the card holds no cluster of {cluster} CTAs of the resident "
+                                   f"path at n = {n}, m = {m} in {dtype}")
+            code = lib.osqp_admm_iter_refined_resident(
+                _build.dtype_code(dtype), *(t.data_ptr() for t in args), ptr(y_lo),
+                *(t.data_ptr() for t in outs), ptr(lo_out), float(sigma), float(alpha),
+                B, n, m, cluster, int(p_res), clusters, _build.stream(),
+            )
+        else:
+            ws, sms = _build.scratch("admm_iter_refined", dtype, B, n, m, x.device)
+            code = lib.osqp_admm_iter_refined(
+                _build.dtype_code(dtype), *(t.data_ptr() for t in args), ptr(y_lo),
+                *(t.data_ptr() for t in outs), ptr(lo_out), ws.data_ptr(), float(sigma), float(alpha),
+                B, n, m, sms, _build.stream(),
+            )
     _build.check(code, "admm_iter_refined")
     refined_launches += 1
+    refined_launches_resident += bool(cluster)
     return outs + (lo_out,)
 
 

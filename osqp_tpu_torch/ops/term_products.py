@@ -3,11 +3,17 @@ rho estimate (counterpart of ``osqp_tpu/termination.py:47-51,94-184,
 309-329`` and ``osqp_tpu/admm.py:479-487``).
 
 :func:`term_products` is the kernel's wrapper: for CUDA tensors it
-launches the hand-written kernels in ``csrc/term_products.cu``, which
-read A and P once per call for all the products asked for; for CPU
-tensors it runs :func:`term_products_plain`, the same products in plain
-PyTorch.  The tolerances, certificates and status decisions stay plain
-PyTorch on the returned vectors (:mod:`osqp_tpu_torch.termination`).
+launches the hand-written kernel in ``csrc/term_products.cu``, one
+launch per call, which reads A and P once for all the products asked
+for; for CPU tensors it runs :func:`term_products_plain`, the same
+products in plain PyTorch.  The tolerances, certificates and status
+decisions stay plain PyTorch on the returned vectors
+(:mod:`osqp_tpu_torch.termination`).
+
+The outputs are allocated fresh on every call (callers keep them across
+checks); the kernel's partial sums and its tickets live in a scratch
+buffer cached per device, stream, dtype and shape, which every call
+leaves zeroed for the next.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from .. import _build
 from ..linalg import mat_tvec, mat_vec
 
 launches = 0
+_PLAN_ENTRIES = 16  # shapes whose geometry and scratch stay cached
+_plans: dict = {}
 
 
 class TermProducts(NamedTuple):
@@ -32,7 +40,7 @@ class TermProducts(NamedTuple):
 
 
 def _validate(P, A, x, y, dx, dy) -> None:
-    dtype = x.dtype
+    dtype, dev = x.dtype, x.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"term_products takes float32 or float64, not {dtype}")
     if x.ndim != 2 or y.ndim != 2:
@@ -40,18 +48,43 @@ def _validate(P, A, x, y, dx, dy) -> None:
     if (dx is None) != (dy is None):
         raise ValueError("term_products takes both certificate directions dx and dy, or neither")
     (B, n), m = x.shape, y.shape[1]
-    shapes = {"P": (P, (B, n, n)), "A": (A, (B, m, n)), "dx": (dx, (B, n)), "dy": (dy, (B, m))}
-    for name, (t, shape) in shapes.items():
+    for name, t, shape in (("P", P, (B, n, n)), ("A", A, (B, m, n)), ("dx", dx, (B, n)), ("dy", dy, (B, m))):
         if t is None:
             continue
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"term_products: {name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.device != x.device:
-            raise ValueError(f"term_products: {name} is on {t.device}, x on {x.device}")
+        if t.device != dev:
+            raise ValueError(f"term_products: {name} is on {t.device}, x on {dev}")
         if t.dtype != dtype:
             raise TypeError(f"term_products: {name} is {t.dtype}, x is {dtype}")
-    if y.device != x.device or y.dtype != dtype:
-        raise TypeError(f"term_products: y is {y.dtype} on {y.device}, x is {dtype} on {x.device}")
+    if y.device != dev or y.dtype != dtype:
+        raise TypeError(f"term_products: y is {y.dtype} on {y.device}, x is {dtype} on {dev}")
+
+
+def launches_per_call(B: int, n: int, m: int, cert: bool) -> int:
+    """Kernel launches of one :func:`term_products` call on the card: one
+    at every shape, with or without the certificate products (none for
+    an empty batch)."""
+    return 1 if B > 0 else 0
+
+
+def _plan(dev, dtype, B, n, m, k):
+    """(dtype code, rows of A and of P a block takes, scratch pointer, the
+    scratch, the stream) of a call at these shapes on the current stream.
+    The scratch is zeroed at its allocation and left zeroed by every call,
+    so one buffer serves the calls in order on one stream."""
+    stream = _build.stream()
+    key = (dev, stream, dtype, B, n, m, k)
+    plan = _plans.get(key)
+    if plan is None:
+        code = _build.dtype_code(dtype)
+        _, rows_a, rows_p = _build.split_geometry(B, n, m, dev)
+        nbytes = _build.library().osqp_term_products_scratch(code, B, n, m, rows_a, rows_p, k)
+        ws = torch.zeros(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+        if len(_plans) >= _PLAN_ENTRIES:
+            _plans.pop(next(iter(_plans)))
+        plan = _plans[key] = (code, rows_a, rows_p, ws.data_ptr() if ws is not None else 0, ws, stream)
+    return plan
 
 
 def term_products(P, A, x, y, dx=None, dy=None) -> TermProducts:
@@ -59,44 +92,36 @@ def term_products(P, A, x, y, dx=None, dy=None) -> TermProducts:
     dy (B, m) also A'dy, P dx and A dx (else those are None)."""
     global launches
     _validate(P, A, x, y, dx, dy)
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return term_products_plain(P, A, x, y, dx, dy)
-    if x.device.type != "cuda":
-        raise ValueError(f"term_products runs on CPU or CUDA tensors, not {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"term_products runs on CPU or CUDA tensors, not {dev}")
     cert = dx is not None
-    ins = (P, A, x, y) + ((dx, dy) if cert else ())
-    if not all(t.is_contiguous() for t in ins):
+    if not (P.is_contiguous() and A.is_contiguous() and x.is_contiguous() and y.is_contiguous()
+            and (not cert or (dx.is_contiguous() and dy.is_contiguous()))):
         raise ValueError("term_products takes contiguous tensors")
     B, n = x.shape
     m = y.shape[1]
-    dtype, dev = x.dtype, x.device
     k = 2 if cert else 1
-    chunks, rows_a, rows_p = _build.split_geometry(B, n, m, dev)
-    tiles_a = max(-(-m // rows_a), 1)
-    # Outputs: [Ax, Adx] (k, B, m), [Px, Pdx] and [Aty, Atdy] (k, B, n);
-    # scratch: the partial sums of each column chunk and row tile.
-    row_out = torch.empty((k, B, m), dtype=dtype, device=dev)
-    p_out = torch.empty((k, B, n), dtype=dtype, device=dev)
-    col_out = torch.empty((k, B, n), dtype=dtype, device=dev)
-    row_ws = torch.empty((k, B, chunks, max(m, n)) if chunks > 1 else (0,), dtype=dtype, device=dev)
-    col_ws = torch.empty((k, B, tiles_a, n) if tiles_a > 1 else (0,), dtype=dtype, device=dev)
-    null = 0
     lib = _build.library()
     with torch.cuda.device(dev):
-        code = lib.osqp_term_products(
-            _build.dtype_code(dtype),
-            P.data_ptr(), A.data_ptr(), x.data_ptr(), y.data_ptr(),
-            dx.data_ptr() if cert else null, dy.data_ptr() if cert else null,
-            row_out.data_ptr(), p_out.data_ptr(), col_out.data_ptr(),
-            row_ws.data_ptr() if row_ws.numel() else null,
-            col_ws.data_ptr() if col_ws.numel() else null,
-            B, n, m, rows_a, rows_p, _build.stream(),
+        code, rows_a, rows_p, ws, _, stream = _plan(dev, x.dtype, B, n, m, k)
+        # Outputs, one allocation: [Ax, Adx] (k, B, m), then [Px, Pdx] and [Aty, Atdy] (k, B, n).
+        out = torch.empty(k * B * (m + 2 * n), dtype=x.dtype, device=dev)
+        base, elt = out.data_ptr(), out.element_size()
+        rc = lib.osqp_term_products(
+            code, P.data_ptr(), A.data_ptr(), x.data_ptr(), y.data_ptr(),
+            dx.data_ptr() if cert else 0, dy.data_ptr() if cert else 0,
+            base, base + elt * k * B * m, base + elt * k * B * (m + n), ws, B, n, m, rows_a, rows_p, stream,
         )
-    _build.check(code, "term_products")
+    _build.check(rc, "term_products")
     launches += 1
+    view = lambda rows, at: out.as_strided((B, rows), (rows, 1), at)
+    Ax, Px, Aty = view(m, 0), view(n, k * B * m), view(n, k * B * (m + n))
     if cert:
-        return TermProducts(row_out[0], p_out[0], col_out[0], col_out[1], p_out[1], row_out[1])
-    return TermProducts(row_out[0], p_out[0], col_out[0], None, None, None)
+        return TermProducts(Ax, Px, Aty, view(n, k * B * (m + n) + B * n), view(n, k * B * m + B * n), view(m, B * m))
+    return TermProducts(Ax, Px, Aty, None, None, None)
 
 
 def term_products_plain(P, A, x, y, dx=None, dy=None) -> TermProducts:

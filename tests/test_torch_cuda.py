@@ -136,6 +136,39 @@ def _check_step(args, outk, outp, rtol, y_lo=None):
             assert float((got - want).abs().max()) <= rtol * max(float(want.abs().max()), 1.0), name
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("B,n,m", [(1, 600, 900), (2, 300, 1300), (1, 700, 0)])
+def test_k3_is_one_launch_over_chunks_and_tiles(dev, dtype, tol, B, n, m):
+    """Several column chunks and row tiles, whose partials the last block
+    of each group adds: one kernel launch a call (counted by the
+    profiler), within tol of plain, two calls bit-identical, and their
+    outputs never share memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    P, _, A, _, _ = (torch.as_tensor(a, dtype=dtype).to(dev) for a in _qps(B, n, m, seed=4))
+    g = torch.Generator().manual_seed(1)
+    r = lambda *s: torch.randn(*s, generator=g, dtype=dtype).to(dev)
+    x, y, dx, dy = r(B, n), r(B, m), r(B, n), r(B, m)
+    first = k3.term_products(P, A, x, y, dx, dy)
+    pad = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    # small kernels of another name around the call: the profiler may lose the first or last records
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            pad.add_(1)
+        second = k3.term_products(P, A, x, y, dx, dy)
+        for _ in range(8):
+            pad.add_(1)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("products_kernel" in name for name in names) == k3.launches_per_call(B, n, m, True) == 1
+    assert all("products_kernel" in name or "elementwise" in name for name in names)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert not {t.data_ptr() for t in first if t.numel()} & {t.data_ptr() for t in second if t.numel()}
+    for got, want in zip(second, k3.term_products_plain(P, A, x, y, dx, dy)):
+        assert got.shape == want.shape and _rel(got, want) <= tol
+
+
 @pytest.mark.parametrize("dtype,rtol", K1_TOL)
 @pytest.mark.parametrize("B,n,m", K1_SHAPES)
 def test_k1_kernel_matches_plain(dev, dtype, rtol, B, n, m):
@@ -288,6 +321,69 @@ def test_k1r_kernel_matches_plain(dev, dtype, rtol, B, n, m):
     if y_lo is not None:
         a = args["active"]
         assert k1.twosum_violations(args["y"][a], outk[4][a], y_lo[a], outk[2][a], outk[5][a]) == 0
+
+
+# K1r's resident path named directly, at shapes the plan sends to the
+# split path (B below the SM count): odd n and m, m = 0, float64 without
+# a carry, every other instance inactive, each cluster size, P's slab
+# resident and read from device memory, and more CTAs than rows.
+K1R_RESIDENT = [
+    (torch.float32, 1e-5, 40, 37, 53, 1, True),
+    (torch.float32, 1e-5, 40, 37, 53, 2, False),
+    (torch.float64, 1e-12, 40, 37, 53, 4, True),
+    (torch.float32, 1e-5, 24, 33, 0, 2, True),
+    (torch.float64, 1e-12, 24, 100, 200, 2, True),
+    (torch.float32, 1e-5, 20, 129, 77, 8, False),
+    (torch.float32, 1e-5, 17, 300, 511, 16, True),
+    (torch.float64, 1e-12, 9, 5, 3, 16, False),
+]
+
+
+@pytest.mark.parametrize("dtype,rtol,B,n,m,k,p_res", K1R_RESIDENT)
+def test_k1r_resident_matches_plain(dev, dtype, rtol, B, n, m, k, p_res):
+    """The resident kernel against K1r's plain version: two launches give
+    the same bits, inactive instances are copied through, the float32
+    carry is exactly TwoSum."""
+    args = _k1_args(B, n, m, dtype, dev, with_P=True)
+    y_lo = 1e-7 * torch.randn_like(args["y"]) if dtype == torch.float32 else None
+    before = k1.refined_launches_resident
+    outk = k1.launch_refined(y_lo=y_lo, cluster=k, p_res=p_res, **args)
+    again = k1.launch_refined(y_lo=y_lo, cluster=k, p_res=p_res, **args)
+    torch.cuda.synchronize()
+    assert k1.refined_launches_resident == before + 2
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(outk, again))
+    _check_step(args, outk, k1.admm_iter_refined_plain(y_lo=y_lo, **args), rtol, y_lo)
+    if y_lo is not None:
+        a = args["active"]
+        assert k1.twosum_violations(args["y"][a], outk[4][a], y_lo[a], outk[2][a], outk[5][a]) == 0
+
+
+def test_k1r_plan_takes_the_resident_path_on_a_batch(dev):
+    """From B = the SM count up, admm_iter_refined launches the resident
+    kernel (clusters of 1 at n=100, m=200 in float32) and agrees with the
+    split path named directly."""
+    from osqp_tpu_torch import _build
+
+    B = _build.sm_count(dev)
+    assert k1.refined_plan(B, 100, 200, torch.float32, B) == ("resident", 1)
+    args = _k1_args(B, 100, 200, torch.float32, dev, with_P=True)
+    before = k1.refined_launches_resident
+    out = k1.admm_iter_refined(**args)
+    assert k1.refined_launches_resident == before + 1
+    split = k1.launch_refined(cluster=0, **args)
+    assert k1.refined_launches_resident == before + 1
+    for got, want in zip(out[:5], split[:5]):
+        assert _rel(got, want) <= 1e-5
+
+
+def test_k1r_resident_refuses_what_does_not_fit(dev):
+    """A cluster size the path does not take, or a share above a CTA's
+    shared memory, raises before any launch."""
+    args = _k1_args(2, 372, 612, torch.float32, dev, with_P=True)
+    with pytest.raises(ValueError, match="no resident path"):
+        k1.launch_refined(cluster=3, **args)
+    with pytest.raises(ValueError, match="no resident path"):
+        k1.launch_refined(cluster=1, **args)
 
 
 def test_k1r_kernel_residual_is_f64(dev):

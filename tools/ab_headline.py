@@ -16,8 +16,15 @@ factor, as chip_smoke.py's headline phase times it), mean of 3;
 (``kkt_lu_factor`` and ``kkt_lu_solve`` on chip_smoke.py's K_delta of the
 headline data), mean of 5 warm calls each, and ``solve_batch`` with
 ``polish=True`` 3 times, median (null for a checkout from before polish
-was ported).  Prints the card, then one JSON line per checkout.  Imports
-nothing of JAX.
+was ported); K1r (``admm_iter_refined``) at the headline shape and at the
+MPC cell's (B=1000, n=372, m=612, float32, chip_smoke.py's scenarios and
+their ``dense_inv`` factor), every instance active, warm (mean of 20
+calls) and with the L2 flushed before each call (mean of 10); and K3
+(``term_products``) at CVXQP2_M (B=1, n=1000, m=1250, float64, Ruiz-
+scaled) without and with the certificate products, and at the headline
+shape with them, mean of 50 warm calls each.  A checkout that lacks an
+entry point a leg needs gives null for that leg.  Prints the card, then
+one JSON line per checkout.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ for _ in range(5):
     times.append(start.elapsed_time(stop))
 solved = float((res.status_val == ot.OSQP_SOLVED).float().mean())
 polish = {"k8_factor_ms": None, "k8_solve_ms": None, "polish_solve_median_ms": None, "polished": None}
+K = lu = None
 if hasattr(cs, "polish_kkt"):
     from osqp_tpu_torch.ops import kkt_lu as k8
     K, _ = cs.polish_kkt((P, q, A, l, u), torch.float32)
@@ -73,15 +81,45 @@ if hasattr(cs, "polish_kkt"):
     b = torch.randn(B, n + m, device=dev)
     polish["k8_factor_ms"] = cs.cuda_ms(lambda: k8.kkt_lu_factor(K), reps=5)
     polish["k8_solve_ms"] = cs.cuda_ms(lambda: k8.kkt_lu_solve(lu, perm, b), reps=5)
-    del K, lu
     kw = {**cs.SOLVE_KW, "polish": True}
     pol = ot.solve_batch(P, q, A, l, u, **kw)
     polish["polished"] = float((pol.status_polish == 1).float().mean())
     polish["polish_solve_median_ms"] = statistics.median(
         cs.cuda_ms(lambda: ot.solve_batch(P, q, A, l, u, **kw), reps=1, warmup=0) for _ in range(3))
+del K, lu, M
+refined = {"k1r_headline_ms": None, "k1r_headline_flushed_ms": None, "k1r_mpc_ms": None, "k1r_mpc_flushed_ms": None}
+
+
+def k1r_operands(arrays):
+    P, q, A, l, u = cs.on_device(arrays, torch.float32, dev)
+    sc, rs_, fac, dyn_ = cs.prepared(P, q, A, l, u)
+    B_, n_, m_ = P.shape[0], P.shape[1], A.shape[1]
+    x_, z_, dx_, y_ = cs._random_state(B_, n_, m_, torch.float32, dev, seed=2)
+    return (fac["Minv"], sc.A, fac["P"], sc.q, sc.l, sc.u, rs_.rho_vec, rs_.rho_inv_vec, float(dyn_.sigma),
+            float(dyn_.alpha), torch.ones(B_, dtype=torch.bool, device=dev), x_, z_, y_, dx_, torch.randn_like(z_),
+            1e-7 * torch.randn_like(z_))
+
+
+for key, make in (("headline", lambda: cs.make_qps(B, n, m)), ("mpc", lambda: cs.mpc_scenarios()[1:])):
+    if key == "mpc" and not hasattr(cs, "mpc_scenarios"):
+        continue
+    ra = k1r_operands(make())
+    refined[f"k1r_{key}_ms"] = cs.cuda_ms(lambda: k1.admm_iter_refined(*ra), reps=20)
+    refined[f"k1r_{key}_flushed_ms"] = cs.cuda_ms_flushed(lambda: k1.admm_iter_refined(*ra), reps=10)
+    del ra
+from osqp_tpu_torch.ops import term_products as k3
+Pm, qm, Am, lm, um = cs.on_device(cs.maros_dense("CVXQP2_M"), torch.float64, dev)
+_, _, _, Ps, _, As, _, _ = k4.ruiz(Pm, qm, Am, lm, um, 10)
+xs, ys, dxs, dys = cs._random_state(1, 1000, 1250, torch.float64, dev)
+xh, yh, dxh, dyh = cs._random_state(B, n, m, torch.float32, dev)
+k3_legs = {"k3_cvxqp2_m_f64_ms": cs.cuda_ms(lambda: k3.term_products(Ps, As, xs, ys), reps=50),
+           "k3_cvxqp2_m_f64_cert_ms": cs.cuda_ms(lambda: k3.term_products(Ps, As, xs, ys, dxs, dys), reps=50),
+           "k3_headline_cert_ms": cs.cuda_ms(lambda: k3.term_products(scaled.P, scaled.A, xh, yh, dxh, dyh),
+                                             reps=50)}
 print(json.dumps({"root": sys.argv[1], "k1_all_active_ms": k1_ms, "k4_ms": k4_ms, "k2_ms": k2_ms,
                   "setup_ms": setup_ms, "solve_median_ms": statistics.median(times),
-                  "solve_ms": times, "solved": solved, "max_iter": int(res.iter.max()), **polish}))
+                  "solve_ms": times, "solved": solved, "max_iter": int(res.iter.max()), **polish, **refined,
+                  **k3_legs}))
 """
 
 

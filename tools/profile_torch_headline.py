@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of osqp_tpu_torch's headline solve goes, on one CUDA GPU.
 
-    python3 tools/profile_torch_headline.py [--batch 8192] [--top 15] [--polish | --mpc]
+    python3 tools/profile_torch_headline.py [--batch 8192] [--top 15] [--polish | --mpc [--backend dense_inv]]
 
 Solves chip_smoke.py's headline batch (B=8192, n=100, m=200, float32,
 eps 1e-3; polish off, or on with ``--polish``), or with ``--mpc`` its MPC
 cell (1000 scenarios, n=372, m=612, stages of 12, float32, through the
-``block_tridiag`` backend), once to warm up, then once under
+``block_tridiag`` backend, or with ``--backend dense_inv`` through the
+explicit inverse, whose loop body is K1r's refined one), once to warm up, then once under
 ``torch.profiler``.  Prints the card, the solve's wall time (host clock
 around work that ends in a synchronize), the device's busy time and
 idle share over that window, and device time by kernel, largest first.
@@ -35,6 +36,8 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--polish", action="store_true", help="solve with polish on (adds K8 and polish's K3 calls)")
     ap.add_argument("--mpc", action="store_true", help="the MPC cell through block_tridiag (K7) instead")
+    ap.add_argument("--backend", choices=("block_tridiag", "dense_inv"), default="block_tridiag",
+                    help="the MPC cell's backend (dense_inv: K1r's refined body)")
     args = ap.parse_args()
     kw = {**SOLVE_KW, "polish": args.polish}
     if not torch.cuda.is_available():
@@ -50,7 +53,8 @@ def main() -> int:
     if args.mpc:
         base, *arrays = mpc_scenarios()
         B, (n, m) = MPC["B"], (base.P.shape[0], base.A.shape[0])
-        kw = dict(MPC_KW, dtype="float32", linsys_solver="block_tridiag", block_size=base.block_size)
+        extra = dict(block_size=base.block_size) if args.backend == "block_tridiag" else {}
+        kw = dict(MPC_KW, dtype="float32", linsys_solver=args.backend, **extra)
     else:
         B, n, m = args.batch, HEADLINE["n"], HEADLINE["m"]
         arrays = make_qps(B, n, m)
@@ -73,7 +77,7 @@ def main() -> int:
             by_kernel[e.name][1] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(ms for _, ms in by_kernel.values())
     iters = res.iter.cpu()
-    what = "block_tridiag" if args.mpc else f"polish {'on' if args.polish else 'off'}"
+    what = args.backend if args.mpc else f"polish {'on' if args.polish else 'off'}"
     print(f"B={B} n={n} m={m} float32, {what}: iterations mean "
           f"{iters.float().mean():.2f} max {int(iters.max())}, status_polish 1 in {int((res.status_polish == 1).sum())}")
     print(f"solve wall {wall_ms:.3f} ms (host clock, under the profiler); device busy {busy_ms:.3f} ms; "
