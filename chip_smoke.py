@@ -17,6 +17,18 @@ failure ends the run with a non-zero exit and no result line:
    with the kernel's blocks per SM; the library route above the bound
    (CVXQP2_M, both dtypes) timed as that case's library_ms; CVXQP2_S
    (B=1, n=100) timed beside its bound and torch.linalg.inv;
+   then K2 above max_n (phase k2_route): the route dense_inv.init takes
+   there (the blocked recursion on the leaf entry chol_inverse_leaf)
+   against the plain route (the recursion on the plain leaves), the old
+   library route and torch.linalg.inv, at the MPC cell (B=1000, n=372,
+   float32), the portfolio leg (B=256, n=550, float32), CVXQP2_M (B=1,
+   n=1000, both dtypes) and n = max_n + 1 (both dtypes): leaf launches a
+   call, each leaf held against its plain version at the input the route
+   gives it, the kernel route against the plain route, each route's
+   worst residual against the refine gate (the kernel route's within the
+   gate or 3x the other routes'), the instances the residual guard
+   sends to Cholesky, times with and without the guard beside the bound;
+   the leaf kernel timed at the portfolio's first leaf;
 4. K1 (admm_iter) against its plain version, one step from a random
    state: B=512 in float64 and float32 with half of the instances
    inactive, B=8192 in float32 half and all active, CVXQP2_M's shape at
@@ -154,7 +166,12 @@ failure ends the run with a non-zero exit and no result line:
     B=64 in float64: factor and solve bit for bit, two launches
     bit-identical, the solve's backward error against M; kernel, plain
     and library (torch.linalg.cholesky of M, torch.cholesky_solve) times
-    beside the bounds;
+    beside the bounds; then K7's device path (phase k7_device, b above
+    max_block): factor and solve bit for bit at b = max_block + 1 and
+    256 in both dtypes, and stage-structured MPC batches at b = 140
+    (float32) and 99 (float64) through solve_batch and the Solver against
+    the CPU path (statuses and iterations equal, float64 x and y within
+    1e-6), the device-path factor timed at the float32 batch;
 20. the MPC cell through ``solve_batch`` with ``block_tridiag`` and with
     ``dense_inv`` (B=1000, float32, eps 1e-3, polish off): every
     instance solved, none at MAX_ITER, the same statuses in both legs,
@@ -164,7 +181,16 @@ failure ends the run with a non-zero exit and no result line:
     set-up and ms per iteration, and one more solve per leg under the
     profiler (idle share, device time by kernel); then the ``Solver``
     with block_tridiag on scenario 0 in float64 against its golden, with
-    K7's launches at B=1;
+    K7's launches at B=1; then BatchedSolver (phases
+    parametric_portfolio and parametric_mpc): bench.py's portfolio leg
+    (B=256, n=550, float32; a cold solve, one untimed re-solve and 8
+    timed re-solves with new q, each solved >= 0.99, the first 4
+    instances against the CPU, re-solves per second, host reads per
+    resolve, the set-up's time with the residual guard, which must send
+    no instance to Cholesky and run no library inverse, device time by
+    kernel)
+    and the MPC cell as a 10-step receding horizon per backend (each
+    step held to a fresh solve_batch, no refactor);
 21. polish on the sparse path: polish's PCG on K6's device loop against
     the plain loop over the same products and against the stepwise path
     on LISWET1's polish system (float32 to convergence, float64 capped at
@@ -179,9 +205,11 @@ failure ends the run with a non-zero exit and no result line:
     ms, ms per CG step and the idle share; the ``SparseSolver`` on
     LISWET1: set-up, solve, update_lin_cost and a warm re-solve.
 
-The line before the last is a JSON object of the kernels (14 rows:
+The line before the last is a JSON object of the kernels (16 rows:
 K6's device loop is cg_loop, K1r's resident path
-admm_iter_refined_resident); the last line is the device JSON object.
+admm_iter_refined_resident, K7's device path
+block_tridiag_factor_device, K2's leaf chol_inverse_leaf); the last line
+is the device JSON object.
 
 ``python3 chip_smoke.py --only k8,polish_solver`` runs the build and the
 named phases alone (names: the ``phase_*`` functions' suffixes), for a
@@ -454,9 +482,11 @@ def reset_counts() -> None:
     from osqp_tpu_torch.ops import block_tridiag as k7, cg as k6, ell as k5
 
     k1.launches = k1.refined_launches = k1.refined_launches_resident = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
+    k2.launches_leaf = 0
     k8.launches_factor = k8.launches_solve = 0
     k5.launches = k6.launches = k6.launches_loop = 0
     k7.launches_factor = k7.launches_solve = k7.launches_factor_warp = k7.launches_solve_warp = 0
+    k7.launches_factor_device = 0
 
 
 def read_counts() -> dict:
@@ -465,11 +495,12 @@ def read_counts() -> dict:
 
     return {"admm_iter": k1.launches, "admm_iter_refined": k1.refined_launches,
             "admm_iter_refined_resident": k1.refined_launches_resident, "chol_inverse": k2.launches,
+            "chol_inverse_leaf": k2.launches_leaf,
             "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches,
             "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve, "ell_ops": k5.launches,
             "cg_step": k6.launches, "cg_loop": k6.launches_loop, "bt_factor": k7.launches_factor,
             "bt_solve": k7.launches_solve, "bt_factor_warp": k7.launches_factor_warp,
-            "bt_solve_warp": k7.launches_solve_warp}
+            "bt_solve_warp": k7.launches_solve_warp, "bt_factor_device": k7.launches_factor_device}
 
 
 def prepared(P, q, A, l, u):
@@ -560,16 +591,6 @@ def phase_k2(dev):
     bound_ms, bound_by = bound(2 * 4 * B * n * n, {"float32": B * n**3})
     print(f"K2 chol_inverse B={B} n={n} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library torch.linalg.inv "
           f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms:.3f}")
-
-    # Above the bound, CVXQP2_M (n=1000): the library route that
-    # dense_inv.init takes there (torch's Cholesky, then Newton-Schulz),
-    # the yardstick of a later tiled K2.
-    for dtype in (torch.float64, torch.float32):
-        scaled, rs, _, dyn = prepared(*on_device(maros_dense("CVXQP2_M"), dtype, dev))
-        Mm = form_schur(scaled.P, scaled.A, dyn.sigma, rs.rho_vec)
-        lib_m = cuda_ms(lambda: k2.newton_schulz(Mm, dense_inv._chol_inverse(Mm)), reps=5)
-        print(f"K2 above max_n, CVXQP2_M B=1 n=1000 {dtype_name(dtype)}: library route (Cholesky, cholesky_inverse, "
-              f"Newton-Schulz) library_ms {lib_m:.4f}")
 
     # The Solver's shape: CVXQP2_S, B=1, n=100.
     for dtype, rel_tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
@@ -1204,7 +1225,7 @@ def phase_solver(dev):
         if name.startswith("kkt_lu"):  # polish is off here: K8 must stay out of it
             require(n_launch == 0, f"{name} launched on the Solver path with polish off")
         elif name in ("ell_ops", "cg_step", "cg_loop", "bt_factor", "bt_solve", "bt_factor_warp",
-                      "bt_solve_warp"):  # other backends' kernels
+                      "bt_solve_warp", "bt_factor_device"):  # other backends' kernels
             require(n_launch == 0, f"{name} launched on the dense_inv Solver path")
         elif name == "admm_iter_refined_resident":  # B = 1: K1r's split path spreads the instance over the card
             require(n_launch == 0, "K1r took the resident path on the Solver path (B = 1)")
@@ -2220,6 +2241,29 @@ def k7_cost(B, Nb, b, dtype):
     return factor, solve
 
 
+def band_schur(B, Nb, b, dtype, dev, seed=None):
+    """The reduced matrix M = P + sigma I + A' diag(rho) A of a random
+    block-tridiagonal problem (block-diagonal P, rows of A on two adjacent
+    stages) with Nb stages of b, and a random right-hand side, on the card."""
+    import torch
+
+    from osqp_tpu_torch.linsys.dense_chol import form_schur
+
+    rng = np.random.default_rng(b if seed is None else seed)
+    n = Nb * b
+    P = np.zeros((B, n, n))
+    for i in range(Nb):
+        W = rng.standard_normal((B, b, b))
+        P[:, i * b:(i + 1) * b, i * b:(i + 1) * b] = W @ W.transpose(0, 2, 1) / b + 0.5 * np.eye(b)
+    A = np.zeros((B, (Nb - 1) * b, n))
+    for i in range(Nb - 1):
+        A[:, i * b:(i + 1) * b, i * b:(i + 2) * b] = rng.standard_normal((B, b, 2 * b))
+    rho = np.abs(rng.standard_normal((B, A.shape[1]))) + 0.1
+    P, A, rho = on_device((P, A, rho), dtype, dev)
+    r = torch.as_tensor(rng.standard_normal((B, n)), dtype=dtype, device=dev)
+    return form_schur(P, A, 1e-6, rho).contiguous(), r
+
+
 def phase_k7(dev):
     """K7 (block_tridiag) against its plain versions: both paths (b = 1, 5,
     12, 16, 32 on the warp path, 40 on the block path) on random band
@@ -2231,7 +2275,6 @@ def phase_k7(dev):
     bound."""
     import torch
 
-    from osqp_tpu_torch.linsys.dense_chol import form_schur
     from osqp_tpu_torch.ops import block_tridiag as k7
 
     # both paths by block size: the warp path up to 32, the block path above
@@ -2239,19 +2282,7 @@ def phase_k7(dev):
         paths = {}
         for b in (1, 5, 12, 16, 32, 40):
             B, Nb = 200, 8
-            rng = np.random.default_rng(b)
-            n = Nb * b
-            P = np.zeros((B, n, n))
-            for i in range(Nb):
-                W = rng.standard_normal((B, b, b))
-                P[:, i * b:(i + 1) * b, i * b:(i + 1) * b] = W @ W.transpose(0, 2, 1) / b + 0.5 * np.eye(b)
-            A = np.zeros((B, (Nb - 1) * b, n))
-            for i in range(Nb - 1):
-                A[:, i * b:(i + 1) * b, i * b:(i + 2) * b] = rng.standard_normal((B, b, 2 * b))
-            rho = np.abs(rng.standard_normal((B, A.shape[1]))) + 0.1
-            P, A, rho = on_device((P, A, rho), dtype, dev)
-            M = form_schur(P, A, 1e-6, rho).contiguous()
-            r = torch.as_tensor(rng.standard_normal((B, n)), dtype=dtype, device=dev)
+            M, r = band_schur(B, Nb, b, dtype, dev)
             before = (k7.launches_factor_warp, k7.launches_solve_warp)
             C, G = k7.bt_factor(M, b)
             C2, G2 = k7.bt_factor(M, b)
@@ -2322,6 +2353,7 @@ def phase_mpc(dev):
 
     import osqp_tpu_torch as ot
     from osqp_tpu_torch import batch, solver
+    from osqp_tpu_torch.linsys import dense_inv
     from osqp_tpu_torch.types import DynSettings
 
     gold = np.load(MPC_GOLDENS)
@@ -2335,6 +2367,7 @@ def phase_mpc(dev):
     for backend, extra in legs.items():
         kw = dict(MPC_KW, dtype="float32", linsys_solver=backend, **extra)
         main_path = backend == "block_tridiag"
+        rescued0 = dense_inv.guard_rescued
         reset_counts()
         before = read_counts()
         t0 = time.perf_counter()
@@ -2363,7 +2396,8 @@ def phase_mpc(dev):
                            warmup=1)
         med = statistics.median(times)
         print(f"mpc {backend} B={B} n={n} m={m} b={b} f32: first solve {first_s:.3f} s, solved {solved:.4f}, "
-              f"iterations mean {iters.mean():.2f} max {iters.max()}; launches {delta}")
+              f"iterations mean {iters.mean():.2f} max {iters.max()}; launches {delta}; the residual guard sent "
+              f"{dense_inv.guard_rescued - rescued0} instances to Cholesky")
         print(f"mpc {backend} timed solves (ms, CUDA events, data on the card): {[round(t, 3) for t in times]}; "
               f"median {med:.3f} ms, spread {min(times):.3f}..{max(times):.3f}, {B / (med / 1e3):.1f} QPs/s; setup "
               f"{setup_ms:.3f} ms; {(med - setup_ms) / int(iters.max()):.4f} ms per iteration")
@@ -2385,6 +2419,8 @@ def phase_mpc(dev):
                     "mpc block_tridiag: a dense_inv or K8 kernel launched")
         else:
             require(delta["bt_factor"] == delta["bt_solve"] == 0, "mpc dense_inv: K7 launched")
+            require(delta["chol_inverse_leaf"] > 0 and delta["chol_inverse"] == 0,
+                    "mpc dense_inv: the factor did not take K2's route above max_n")
             require(delta["admm_iter_refined"] > 0, "mpc dense_inv: K1r never launched")
             require(delta["admm_iter_refined_resident"] == delta["admm_iter_refined"],
                     f"mpc dense_inv: K1r left the resident path ({delta['admm_iter_refined_resident']} of "
@@ -2416,6 +2452,457 @@ def phase_mpc(dev):
     require(r.info.status_val == int(g("status_val")[0]) and r.info.iter == int(g("iter")[0]) and dx <= 1e-6
             and dy <= 1e-6, "mpc Solver disagrees with the JAX package's run")
     return launches
+
+
+def large_stage_mpc(b, B=4, horizon=2, seed=0):
+    """A stage-structured MPC batch with stages of b = nx + nu variables
+    (nx = 2 b / 3, horizon 2: three stages), B scenarios by their initial
+    state.  Returns (base problem, P, q, A, l, u)."""
+    from osqp_tpu_torch.models import build_mpc_qp
+
+    nx = 2 * b // 3
+    nu = b - nx
+    rng = np.random.default_rng(seed)
+    Ad = np.eye(nx) + 0.05 * rng.standard_normal((nx, nx)) / np.sqrt(nx)
+    Bd = rng.standard_normal((nx, nu)) / np.sqrt(nx)
+    base = build_mpc_qp(Ad, Bd, np.eye(nx), 0.1 * np.eye(nu), horizon=horizon, xmin=np.full(nx, -10.0),
+                        xmax=np.full(nx, 10.0), umin=np.full(nu, -1.0), umax=np.full(nu, 1.0))
+    l, u = np.tile(base.l, (B, 1)), np.tile(base.u, (B, 1))
+    l[:, :nx] = u[:, :nx] = rng.standard_normal((B, nx))
+    stack = lambda a: np.broadcast_to(a, (B,) + a.shape)
+    return base, stack(base.P), stack(base.q), stack(base.A), l, u
+
+
+def phase_k7_device(dev):
+    """K7's factor above max_block, where its three stage blocks leave
+    shared memory for device memory (the device path): factor and solve
+    bit for bit against the plain versions at b = max_block + 1 and 256 in
+    both dtypes, two launches bit-identical; then stage-structured MPC
+    batches at b = 140 (float32) and 99 (float64) through solve_batch and
+    the Solver with block_tridiag against the CPU path (statuses and
+    iterations equal, float64 x and y within 1e-6), the counts set to 0
+    just before the float32 batch's solve and read just after it; the
+    device path's factor timed at that batch's reduced matrix beside the
+    plain version, the library (torch.linalg.cholesky) and the bound."""
+    import torch
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch import batch, solver
+    from osqp_tpu_torch.linsys.dense_chol import form_schur
+    from osqp_tpu_torch.ops import block_tridiag as k7
+    from osqp_tpu_torch.types import DynSettings
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for b in (k7.max_block(dtype) + 1, 256):
+            B, Nb = 8, 3
+            M, r = band_schur(B, Nb, b, dtype, dev)
+            before = k7.launches_factor_device
+            C, G = k7.bt_factor(M, b)
+            C2, G2 = k7.bt_factor(M, b)
+            x, x2 = k7.bt_solve(C, G, r), k7.bt_solve(C, G, r)
+            Cp, Gp = k7.bt_factor_plain(M, b)
+            xp = k7.bt_solve_plain(Cp, Gp, r)
+            torch.cuda.synchronize()
+            label = f"b={b} B={B} Nb={Nb} {dtype_name(dtype)}"
+            require(k7.factor_path(b, dtype) == "device" and k7.launches_factor_device - before == 2,
+                    f"K7 at {label} did not take the device path")
+            require(torch.equal(C, C2) and torch.equal(G, G2) and torch.equal(x, x2), f"K7: two launches differ at {label}")
+            same = torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp)
+            err = max(float((C - Cp).abs().max()), float((G - Gp).abs().max()), float((x - xp).abs().max()))
+            resid = float((torch.bmm(M, x[:, :, None])[:, :, 0] - r).abs().max())
+            scale = float(M.abs().sum(-1).max()) * float(x.abs().max())
+            print(f"K7 device path {label}: factor and solve bit-identical to plain {same}, |k-p|max {err:.3e}; two "
+                  f"launches bit-identical True; backward error of the solve {resid / scale:.3e}")
+            require(same, f"K7's device path differs from its plain version at {label}")
+            require(bool(torch.isfinite(x).all()) and resid <= BACKWARD_BOUND[dtype_name(dtype)] * scale,
+                    f"K7's solve does not solve M x = r at {label}")
+            worst = max(worst, err)
+
+    launches = None
+    for dtype, b in (("float32", 140), ("float64", 99)):
+        base, *arrays = large_stage_mpc(b)
+        n, m, B = base.P.shape[0], base.A.shape[0], arrays[0].shape[0]
+        kw = dict(MPC_KW, dtype=dtype, linsys_solver="block_tridiag", block_size=b)
+        args = on_device(arrays, getattr(torch, dtype), dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        rg = ot.solve_batch(*args, **kw)
+        status = rg.status_val.cpu().numpy()
+        counts = read_counts()
+        launches = launches or counts
+        rc = ot.solve_batch(*arrays, device="cpu", **kw)
+        sg = ot.Solver(base.P, base.q, base.A, arrays[3][0], arrays[4][0], device=dev, **kw).solve()
+        sc = ot.Solver(base.P, base.q, base.A, arrays[3][0], arrays[4][0], device="cpu", **kw).solve()
+        dx = float((rg.x.cpu() - rc.x).abs().max())
+        dy = float((rg.y.cpu() - rc.y).abs().max())
+        sdx, sdy = float(np.abs(sg.x - sc.x).max()), float(np.abs(sg.y - sc.y).max())
+        label = f"b={b} (nx {2 * b // 3}, nu {b - 2 * b // 3}, 3 stages) B={B} n={n} m={m} {dtype}"
+        print(f"block_tridiag {label}: solve_batch statuses {status.tolist()} (CPU {rc.status_val.tolist()}), "
+              f"iterations {rg.iter.tolist()} (CPU {rc.iter.tolist()}), |dx|max {dx:.3e}, |dy|max {dy:.3e}; Solver "
+              f"scenario 0: {sg.info.status}, {sg.info.iter} iterations (CPU {sc.info.status}, {sc.info.iter}), "
+              f"|dx|max {sdx:.3e}, |dy|max {sdy:.3e}; K7 launches {dict((k, counts[k]) for k in counts if k.startswith('bt'))}")
+        require(counts["bt_factor_device"] == counts["bt_factor"] >= 1, f"block_tridiag {label}: K7's device path did not run")
+        require(np.array_equal(status, rc.status_val.numpy()) and torch.equal(rg.iter.cpu(), rc.iter),
+                f"block_tridiag {label}: solve_batch on the card disagrees with the CPU path")
+        require(sg.info.status_val == sc.info.status_val and sg.info.iter == sc.info.iter,
+                f"block_tridiag {label}: the Solver on the card disagrees with the CPU path")
+        require((status == ot.OSQP_SOLVED).all(), f"block_tridiag {label}: not every instance solved")
+        if dtype == "float64":
+            require(max(dx, dy, sdx, sdy) <= 1e-6, f"block_tridiag {label}: x or y off the CPU path's by more than 1e-6")
+
+    # the device path's factor at the float32 batch's reduced matrix
+    base, *arrays = large_stage_mpc(140)
+    P, q, A, l, u = on_device(arrays, torch.float32, dev)
+    B, n, m = P.shape[0], P.shape[1], A.shape[1]
+    s = solver.Settings(**MPC_KW, dtype=torch.float32, linsys_solver="block_tridiag", block_size=140)
+    cfg = solver.make_config(n, m, s, torch.float32)
+    dyn = DynSettings.make(torch.float32)
+    rho0 = torch.full((B,), s.rho, dtype=torch.float32, device=dev)
+    scaled, _, rs, _, _ = batch._prepare(cfg, s.scaling, P, q, A, l, u, rho0, dyn, None, None)
+    M = form_schur(scaled.P, scaled.A, dyn.sigma, rs.rho_vec).contiguous()
+    Nb = n // 140
+    (fb, ff), _ = k7_cost(B, Nb, 140, torch.float32)
+    stats = report_times(f"K7 bt_factor device path b=140 B={B} Nb={Nb} float32", lambda: k7.bt_factor(M, 140),
+                         lambda: k7.bt_factor_plain(M, 140), 5, fb, ff)
+    lib = cuda_ms(lambda: torch.linalg.cholesky(M), 5)  # library_ms only: the dense route, which the port never takes
+    print(f"  library: torch.linalg.cholesky(M) {lib:.4f} ms")
+    return launches, dict(stats, max_abs_err=worst, library_ms=lib)
+
+
+def leaf_spy(fn, seen):
+    """``fn()`` with each of K2's leaf launches held against its plain
+    version on the same input: appends (n, |Tk - Tp|max relative, S) to
+    ``seen`` for every leaf the call runs."""
+    from osqp_tpu_torch.ops import spd_inverse as k2
+
+    real = k2.chol_inverse_leaf
+
+    def spy(S):
+        T = real(S)
+        seen.append((S.shape[-1], rel_err(T, k2.chol_inverse_leaf_plain(S))[1], S))
+        return T
+
+    k2.chol_inverse_leaf = spy
+    try:
+        return fn()
+    finally:
+        k2.chol_inverse_leaf = real
+
+
+def plain_leaves(fn):
+    """``fn()`` with K2's recursion on its plain leaves (the plain route)."""
+    from osqp_tpu_torch.ops import spd_inverse as k2
+
+    real = k2.chol_inverse_leaf
+    k2.chol_inverse_leaf = k2.chol_inverse_leaf_plain
+    try:
+        return fn()
+    finally:
+        k2.chol_inverse_leaf = real
+
+
+def portfolio_batch(B, n=500, k=50, seed=0):
+    """bench.py's portfolio leg (bench_portfolio, BASELINE config 3): B
+    Markowitz problems of n assets and k factors, from default_rng(seed)."""
+    from osqp_tpu_torch.models import build_portfolio
+
+    rng = np.random.default_rng(seed)
+    probs = []
+    for _ in range(B):
+        mu = rng.standard_normal(n)
+        F = rng.standard_normal((n, k)) / np.sqrt(k)
+        D = np.abs(rng.standard_normal(n)) * np.sqrt(k)
+        probs.append(build_portfolio(mu, F, D, gamma=1.0))
+    return tuple(np.stack(v) for v in zip(*probs))
+
+
+PORTFOLIO = dict(B=256, n=500, k=50, K=8)
+# K2's route against its plain route (the same recursion on the plain
+# leaves), |Xk - Xp|max relative, and each leaf against its plain version
+# at the inputs the route gives it.  Measured on an H100 at the MPC cell,
+# the portfolio leg, CVXQP2_M and max_n + 1: the routes at most 6.9e-4
+# (float32, the portfolio) and 7.9e-15 (float64, CVXQP2_M), the leaves
+# at most 4.7e-5 (float32, the portfolio's first) and 2.0e-15 (float64).
+ROUTE_REL_TOL = {"float32": 2e-3, "float64": 1e-13}
+LEAF_REL_TOL = {"float32": 1e-4, "float64": 2e-14}
+# A route's inverse residual against the other routes': measured within
+# 1.9x of the plain and the library route's (the MPC cell, float32).
+ROUTE_RESID_FACTOR = 3
+# The residual guard's rescue through the library (cholesky_inverse's
+# triangular solves), which the portfolio leg's set-up must not run, and
+# the library's Cholesky factor, which the set-up's convexity check of
+# P + sigma I runs (as the JAX package's and the reference's set-up).
+RESCUE_KERNELS = ("trsm", "potri")
+LIBRARY_FACTOR = ("potrf", "potf", "magma", "cholesky")
+
+
+def phase_k2_route(dev):
+    """K2 above max_n: dense_inv.init's route (spd_inverse: the blocked
+    recursion on the leaf kernel, Newton-Schulz, the scaling undone)
+    against the plain route (the same recursion on the plain leaves), the
+    old library route (torch's Cholesky, cholesky_inverse and the
+    Newton-Schulz step) and torch.linalg.inv, at the shapes the main paths
+    give it: the MPC cell (B=1000, n=372, float32), the portfolio leg
+    (B=256, n=550, float32), CVXQP2_M (B=1, n=1000) in float64 and
+    float32, and n = max_n + 1 in both dtypes; every leaf of one route
+    call held against its plain version on the input it was given, the
+    kernel route against the plain route, each route's worst inverse
+    residual |I - M X|max against the refine gate, the instances each
+    flags and those the residual guard sends to Cholesky, the leaf
+    launches per call, times with and without the guard beside the
+    bound.  Then the leaf kernel timed at the portfolio's first leaf."""
+    import torch
+
+    from osqp_tpu_torch.linsys import dense_inv
+    from osqp_tpu_torch.linsys.dense_chol import form_schur
+    from osqp_tpu_torch.ops import spd_inverse as k2
+
+    def schur(arrays, dtype):
+        scaled, rs, _, dyn = prepared(*on_device(arrays, dtype, dev))
+        return form_schur(scaled.P, scaled.A, dyn.sigma, rs.rho_vec).contiguous()
+
+    def spd(B, n, dtype):
+        G = np.random.default_rng(n).standard_normal((B, n, n))
+        return torch.as_tensor(G @ G.transpose(0, 2, 1) / n + 0.1 * np.eye(n), dtype=dtype, device=dev)
+
+    cases = [("MPC cell", lambda: mpc_prepared(MPC["B"], torch.float32, dev)[3]),
+             ("portfolio leg", lambda: schur(portfolio_batch(PORTFOLIO["B"])[:5], torch.float32)),
+             ("CVXQP2_M", lambda: schur(maros_dense("CVXQP2_M"), torch.float64)),
+             ("CVXQP2_M", lambda: schur(maros_dense("CVXQP2_M"), torch.float32)),
+             ("max_n + 1", lambda: spd(64, k2.max_n(torch.float32) + 1, torch.float32)),
+             ("max_n + 1", lambda: spd(64, k2.max_n(torch.float64) + 1, torch.float64))]
+    routes = {}
+    for name, make in cases:
+        M = make()
+        B, n, dtype = M.shape[0], M.shape[-1], M.dtype
+        f32 = dtype == torch.float32
+        gate = dense_inv._REFINE_TOL_F32 if f32 else dense_inv._REFINE_TOL_F64
+        guard = dense_inv._GUARD_TOL_F32 if f32 else dense_inv._GUARD_TOL_F64
+        leaves, seen = k2.launches_leaf, []
+        Xk = leaf_spy(lambda: k2.spd_inverse(M), seen)
+        per_call = k2.launches_leaf - leaves
+        Xp = plain_leaves(lambda: k2.spd_inverse(M))
+        Xl = k2.newton_schulz(M, dense_inv._chol_inverse(M))
+        torch.cuda.synchronize()
+        rk, rp, rl = (dense_inv._inverse_residual(M, X) for X in (Xk, Xp, Xl))
+        worst = {key: float(v.max()) for key, v in (("kernel", rk), ("plain", rp), ("library", rl))}
+        flags = {key: int((v > gate).sum()) for key, v in (("kernel", rk), ("plain", rp), ("library", rl))}
+        rescued0 = dense_inv.guard_rescued
+        dense_inv.guarded_inverse(M)
+        rescued = dense_inv.guard_rescued - rescued0
+        err, rel = rel_err(Xk, Xp)
+        leaf_rel = max(r for _, r, _ in seen)
+        label = f"{name} B={B} n={n} {dtype_name(dtype)}"
+        reps = 3 if B > 100 else 10
+        ms = cuda_ms(lambda: k2.spd_inverse(M), reps)
+        plain_ms = cuda_ms(lambda: plain_leaves(lambda: k2.spd_inverse(M)), reps)
+        chol_ms = cuda_ms(lambda: k2.newton_schulz(M, dense_inv._chol_inverse(M)), reps)
+        guarded_ms = cuda_ms(lambda: dense_inv.guarded_inverse(M), reps)
+        inv_ms = cuda_ms(lambda: torch.linalg.inv(M), reps)  # library_ms only
+        b_ms, b_by = bound(2 * M.element_size() * B * n * n, {dtype_name(dtype): B * n**3})
+        print(f"K2 route {label}: {per_call} leaf launches a call; |I-MX|max kernel route {worst['kernel']:.3e}, plain "
+              f"route {worst['plain']:.3e}, library route {worst['library']:.3e} (refine gate {gate:g}; flagged "
+              f"{flags['kernel']} / {flags['plain']} / {flags['library']} of {B}); the guard sent {rescued} of {B} "
+              f"to Cholesky; |Xk-Xp|max relative {rel:.3e} (limit {ROUTE_REL_TOL[dtype_name(dtype)]:g}); leaves "
+              f"(n, |Tk-Tp|max relative) {[(nl, float(f'{r:.3e}')) for nl, r, _ in seen]} (limit "
+              f"{LEAF_REL_TOL[dtype_name(dtype)]:g})")
+        print(f"  times: kernel route {ms:.4f} ms, with the residual guard {guarded_ms:.4f} ms, plain route "
+              f"{plain_ms:.4f} ms, old library route (Cholesky, "
+              f"cholesky_inverse, Newton-Schulz) {chol_ms:.4f} ms, torch.linalg.inv {inv_ms:.4f} ms; bound {b_ms:.4f} "
+              f"ms ({b_by}), share of bound {b_ms / ms:.4f}")
+        require(per_call >= 2 and bool(torch.isfinite(Xk).all()), f"K2 route {label}: no recursion, or not finite")
+        require(worst["kernel"] <= max(gate, ROUTE_RESID_FACTOR * worst["plain"],
+                                       ROUTE_RESID_FACTOR * worst["library"]),
+                f"K2 route {label}: residual {worst['kernel']:.3e} against the gate and the other routes'")
+        require(rel <= ROUTE_REL_TOL[dtype_name(dtype)], f"K2 route {label}: off the plain route by {rel:.3e}")
+        require(len(seen) == per_call and leaf_rel <= LEAF_REL_TOL[dtype_name(dtype)],
+                f"K2 route {label}: a leaf off its plain version by {leaf_rel:.3e}")
+        routes[f"{label}"] = dict(ms=ms, guarded_ms=guarded_ms, plain_ms=plain_ms, cholesky_route_ms=chol_ms,
+                                  inv_ms=inv_ms, bound_ms=b_ms, resid=worst["kernel"], flagged=flags["kernel"],
+                                  rescued=rescued, leaves=per_call, route_rel=rel, leaf_rel=leaf_rel)
+        if name == "portfolio leg":
+            leaf_M = seen[0][2]  # the route's first leaf, as it was given
+
+    # the leaf kernel at the portfolio's first leaf
+    B, nl = leaf_M.shape[0], leaf_M.shape[-1]
+    Tk, Tp = k2.chol_inverse_leaf(leaf_M), k2.chol_inverse_leaf_plain(leaf_M)
+    again = k2.chol_inverse_leaf(leaf_M)
+    torch.cuda.synchronize()
+    err, rel = rel_err(Tk, Tp)
+    require(torch.equal(Tk, again), "K2's leaf: two launches differ")
+    require(rel <= LEAF_REL_TOL["float32"], f"K2's leaf off its plain version by {rel:.3e} relative")
+    # S read and T written once; the factor and the triangular inverse take
+    # about n^3/3 operations each
+    stats = report_times(f"K2 chol_inverse_leaf portfolio's first leaf B={B} n={nl} float32",
+                         lambda: k2.chol_inverse_leaf(leaf_M), lambda: k2.chol_inverse_leaf_plain(leaf_M), 10,
+                         2 * 4 * B * nl * nl, {"float32": 2 * B * nl**3 // 3})
+    print(f"  |Tk-Tp|max {err:.3e}, relative {rel:.3e}; two launches bit-identical")
+    return dict(stats, max_abs_err=err, library_ms=None, routes=routes)
+
+
+def phase_parametric_portfolio(dev):
+    """bench.py's portfolio leg (bench_portfolio, BASELINE config 3) through
+    BatchedSolver: B=256 instances of build_portfolio (500 assets, 50
+    factors: 550 variables, 551 constraints) from default_rng(0), float32,
+    eps 1e-3, polish off; a cold solve, one untimed resolve(q = 1.01 q),
+    as bench.py runs, then K=8 resolve(q = q (1 + 0.01 (j + 1))) with the
+    q vectors on the card first.  Counts set to 0 just before the set-up
+    and read after the last re-solve.  Re-solves per second over the
+    timed loop (CUDA events), iterations per re-solve, the solved fraction
+    after each (>= 0.99, no MAX_ITER_REACHED), host reads per resolve; the
+    first 4 instances held against BatchedSolver on the CPU over the same
+    sequence; the set-up alone timed by CUDA events (K4, the Schur
+    matrices, K2's route and the residual guard), the guard's rescues (0
+    required); device time by kernel for the set-up and cold solve, with
+    no kernel of the library's inverse (its Cholesky factor runs only in
+    the convexity check, printed), and for one more re-solve under the
+    profiler."""
+    import torch
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch.linsys import dense_inv
+
+    B, K = PORTFOLIO["B"], PORTFOLIO["K"]
+    arrays = portfolio_batch(B, PORTFOLIO["n"], PORTFOLIO["k"])
+    nv, mc = arrays[0].shape[-1], arrays[2].shape[1]
+    kw = dict(dtype="float32", eps_abs=1e-3, eps_rel=1e-3, polish=False, verbose=False)
+    P, q, A, l, u = on_device(arrays, torch.float32, dev)
+    q_news = [q * (1.0 + 0.01 * (j + 1)) for j in range(K)]
+    torch.cuda.synchronize()
+    rescued0 = dense_inv.guard_rescued
+    reset_counts()
+    t0 = time.perf_counter()
+    bs = ot.BatchedSolver(P, q, A, l, u, **kw)
+    r0 = bs.solve()
+    cold_status = r0.status_val.cpu().numpy()
+    cold_s = time.perf_counter() - t0
+    warm = bs.resolve(q=q_news[0])  # untimed, as bench.py's first resolve
+    warm_status = warm.status_val.cpu().numpy()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    results, reads = [], []
+    for j in range(K):
+        results.append(bs.resolve(q=q_news[j]))
+        reads.append(bs.last_resolve["host_reads"])
+        require(not bs.last_resolve["refactored"], "portfolio: a q update refactored")
+    stop.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    loop_ms = start.elapsed_time(stop)
+    iters = [r.iter.cpu().numpy() for r in results]
+    statuses = [r.status_val.cpu().numpy() for r in results]
+    solved = [float(np.mean(st == ot.OSQP_SOLVED)) for st in statuses]
+    rate = B * K / (loop_ms / 1e3)
+    print(f"parametric_portfolio B={B} n={nv} m={mc} float32: set-up and cold solve {cold_s:.3f} s, cold solved "
+          f"{float(np.mean(cold_status == ot.OSQP_SOLVED)):.4f}, iterations max {int(r0.iter.max())}; {K} re-solves in "
+          f"{loop_ms:.3f} ms (CUDA events): {rate:.1f} re-solves/s, {loop_ms / K:.3f} ms a re-solve")
+    print(f"  per re-solve: iterations mean {[round(float(i.mean()), 2) for i in iters]}, max "
+          f"{[int(i.max()) for i in iters]}; solved {[round(x, 4) for x in solved]}; host reads {reads}")
+    rescued = dense_inv.guard_rescued - rescued0
+    print(f"  launches (set-up, cold solve and {K + 1} re-solves): {launches}; the residual guard sent "
+          f"{rescued} instances to Cholesky")
+    require(rescued == 0, f"portfolio: the residual guard sent {rescued} instances to the library's Cholesky")
+    for j, st in enumerate(statuses):
+        require(solved[j] >= 0.99, f"portfolio re-solve {j}: solved {solved[j]}")
+        require(not np.any(st == ot.OSQP_MAX_ITER_REACHED), f"portfolio re-solve {j}: MAX_ITER_REACHED")
+    require(np.isfinite(results[-1].x.cpu().numpy()).all() and results[-1].x.shape == (B, nv), "portfolio: x")
+    require(launches["chol_inverse_leaf"] > 0 and launches["chol_inverse"] == 0, "portfolio: K2's route not taken")
+
+    # the first 4 instances on the CPU, over the same sequence
+    cpu = ot.BatchedSolver(*(a[:4] for a in arrays), device="cpu", **kw)
+    pairs = [(cold_status[:4], r0.iter.cpu().numpy()[:4], cpu.solve()),
+             (warm_status[:4], warm.iter.cpu().numpy()[:4], cpu.resolve(q=arrays[1][:4] * 1.01))]
+    for j in range(K):
+        pairs.append((statuses[j][:4], iters[j][:4], cpu.resolve(q=arrays[1][:4] * (1.0 + 0.01 * (j + 1)))))
+    worst = 0
+    for st, it, rc in pairs:
+        require(np.array_equal(st, rc.status_val.numpy()), "portfolio: statuses of the first 4 differ from the CPU's")
+        worst = max(worst, int(np.abs(it - rc.iter.numpy()).max()))
+    print(f"  the first 4 instances against BatchedSolver on the CPU, cold solve and {K + 1} re-solves: statuses "
+          f"equal True, iterations differ by at most {worst}")
+    require(worst <= 25, f"portfolio: iterations of the first 4 differ from the CPU's by {worst}")
+
+    setup_ms = cuda_ms(lambda: ot.BatchedSolver(P, q, A, l, u, **kw), 3, warmup=1)
+    print(f"  set-up alone (K4, Schur matrices, K2's route with the residual guard, A M^-1): {setup_ms:.3f} ms "
+          f"(CUDA events, mean of 3)")
+    _, wall, events = profiled(lambda: ot.BatchedSolver(P, q, A, l, u, **kw).solve())
+    busy = event_ms(events)
+    rescue = [e for e in events if any(k in e.name.lower() for k in RESCUE_KERNELS)]
+    check = [e for e in events if any(k in e.name.lower() for k in LIBRARY_FACTOR)]
+    print(f"  set-up and cold solve under the profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}; the guard's library inverse: {len(rescue)} kernels; the convexity check's library "
+          f"Cholesky of P + sigma I: {len(check)} kernels, {event_ms(check):.3f} ms; by kernel: {top_kernels(events, 8)}")
+    require(not rescue, f"portfolio: the set-up ran the guard's library inverse ({top_kernels(rescue, 3)})")
+    _, wall, events = profiled(lambda: bs.resolve(q=q_news[0]))
+    busy = event_ms(events)
+    print(f"  one re-solve under the profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}; by kernel: {top_kernels(events, 8)}")
+    return launches
+
+
+def phase_parametric_mpc(dev):
+    """The MPC cell (mpc_scenarios: B=1000, n=372, m=612, float32, eps
+    1e-3, polish off) as a receding horizon through BatchedSolver, for
+    block_tridiag (K7's warp path) and dense_inv (K2's route at n=372, K1r
+    resident): a cold solve, then 10 steps, each setting x0 to the previous
+    step's x_1 on the card (MPCProblem.update_xinit's bounds, batched) and
+    calling resolve(l=, u=).  Per step: ms (CUDA events), QPs/s,
+    iterations, the solved fraction and whether a refactor ran (none
+    should: the classes do not change); each step held to a fresh
+    solve_batch on the same bounds (equal statuses).  Counts set to 0 just
+    before each leg's set-up and read after its last step."""
+    import torch
+
+    import osqp_tpu_torch as ot
+
+    base, *arrays = mpc_scenarios()
+    B, b, nx = MPC["B"], base.block_size, base.nx
+    P, q, A, l, u = on_device(arrays, torch.float32, dev)
+    torch.cuda.synchronize()
+    legs = {"block_tridiag": dict(block_size=b), "dense_inv": {}}
+    out = {}
+    for backend, extra in legs.items():
+        kw = dict(MPC_KW, dtype="float32", linsys_solver=backend, **extra)
+        reset_counts()
+        bs = ot.BatchedSolver(P, q, A, l, u, **kw)
+        res = bs.solve()
+        lk, uk = l.clone(), u.clone()
+        rows = []
+        for step in range(10):
+            x1 = res.x[:, b:b + nx]
+            lk, uk = lk.clone(), uk.clone()
+            lk[:, :nx] = x1
+            uk[:, :nx] = x1
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = bs.resolve(l=lk, u=uk)
+            stop.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(stop)
+            status, iters = res.status_val.cpu().numpy(), res.iter.cpu().numpy()
+            fresh = ot.solve_batch(P, q, A, lk, uk, **kw).status_val.cpu().numpy()
+            solved = float(np.mean(status == ot.OSQP_SOLVED))
+            rows.append((step, round(ms, 3), round(B / (ms / 1e3), 1), round(float(iters.mean()), 2),
+                         int(iters.max()), solved, bs.last_resolve["refactored"]))
+            require(np.array_equal(status, fresh), f"parametric_mpc {backend} step {step}: statuses differ from a "
+                                                   "fresh solve_batch")
+            require(solved >= 0.99 and not np.any(status == ot.OSQP_MAX_ITER_REACHED),
+                    f"parametric_mpc {backend} step {step}: solved {solved}")
+            require(not bs.last_resolve["refactored"], f"parametric_mpc {backend} step {step}: a refactor ran")
+            require(np.isfinite(res.x.cpu().numpy()).all(), f"parametric_mpc {backend} step {step}: x")
+        launches = read_counts()
+        print(f"parametric_mpc {backend} B={B} n={base.P.shape[0]} m={base.A.shape[0]} float32, 10 receding-horizon "
+              f"steps (step, ms, QPs/s, iterations mean, max, solved, refactored): {rows}")
+        print(f"  statuses equal to a fresh solve_batch at every step True; launches {launches}")
+        if backend == "block_tridiag":
+            require(launches["bt_solve"] > 0 and launches["bt_solve_warp"] == launches["bt_solve"],
+                    "parametric_mpc block_tridiag: K7's warp path did not run")
+        else:
+            require(launches["chol_inverse_leaf"] > 0 and launches["admm_iter_refined_resident"] > 0,
+                    "parametric_mpc dense_inv: K2's route or K1r's resident path did not run")
+        out[backend] = launches
+    return out
 
 
 def phase_sparse_polish(dev):
@@ -2671,6 +3158,7 @@ def main() -> int:
         return 2
 
     k2_stats = phase_k2(dev)
+    k2_leaf_stats = phase_k2_route(dev)
     k1_stats = phase_k1(dev)
     k4_stats = phase_k4(dev)
     k3_stats = phase_k3(dev)
@@ -2687,8 +3175,11 @@ def main() -> int:
     sparse_launches, sparse_paths = phase_sparse(dev)
     cg_dense_launches = phase_cg_dense(dev)
     k7_factor_stats, k7_solve_stats = phase_k7(dev)
+    k7_device_launches, k7_device_stats = phase_k7_device(dev)
     mpc_legs = phase_mpc(dev)
     mpc_launches = mpc_legs["block_tridiag"]
+    portfolio_launches = phase_parametric_portfolio(dev)
+    phase_parametric_mpc(dev)
     polish_launches_sparse, polish_loops, pcg_stats, polish_paths = phase_sparse_polish(dev)
 
     # launches: the batched headline solve's, and for K1r, which that
@@ -2705,7 +3196,10 @@ def main() -> int:
     # MPC cell's dense_inv solve (times at the MPC shape, all active,
     # float32); for K6 in polish's PCG the
     # loop's launches in LISWET1's float64 polish (times per CG step on
-    # LISWET1's float32 polish system).
+    # LISWET1's float32 polish system); for K7's device path the b = 140
+    # float32 batch's solve_batch (times at its reduced matrix); for K2's
+    # leaf the portfolio leg's set-up, cold solve and re-solves (times at
+    # its first leaf, the routes' beside them under routes).
     kernels = [
         dict(name="admm_iter", route="cuda", source="osqp_tpu_torch/csrc/admm_iter.cu",
              replaces="osqp_tpu/linsys/dense_inv.py:164", launches=launches["admm_iter"], **k1_stats),
@@ -2743,6 +3237,12 @@ def main() -> int:
         dict(name="cg_loop", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",
              replaces="osqp_tpu/linsys/cg.py:129", launches=sparse_launches["cg_loop"], paths=sparse_paths,
              **loop_stats),
+        dict(name="block_tridiag_factor_device", route="cuda", source="osqp_tpu_torch/csrc/block_tridiag.cu",
+             replaces="osqp_tpu/linsys/block_tridiag.py:144", launches=k7_device_launches["bt_factor_device"],
+             **k7_device_stats),
+        dict(name="chol_inverse_leaf", route="cuda", source="osqp_tpu_torch/csrc/chol_inverse.cu",
+             replaces="osqp_tpu/ops/spd_inverse.py:129", launches=portfolio_launches["chol_inverse_leaf"],
+             **k2_leaf_stats),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} was launched no time on its main path")

@@ -26,7 +26,9 @@ neither jax nor ``osqp_tpu``; ``osqp_tpu`` stays the reference that the
 tests hold this package against.
 
 Entry points: the stateful :class:`Solver` (alias :data:`OSQP`), OSQP's
-own API, and :func:`solve_batch` for B same-shape problems; both polish
+own API, :func:`solve_batch` for B same-shape problems, and
+:class:`BatchedSolver`, which keeps such a batch on the device for
+parametric updates and warm-started re-solves (``resolve``); all polish
 with ``polish=True`` and take ``linsys_solver`` ``"dense_inv"``,
 ``"dense_chol"``, ``"kkt_lu"``, ``"cg"`` or ``"block_tridiag"`` (with
 ``block_size``, for stage-ordered problems such as
@@ -75,6 +77,7 @@ from .constants import (  # noqa: E402
     OSQPError,
 )
 from .large import SparseSolver, solve_sparse  # noqa: E402
+from .parametric import BatchedSolver  # noqa: E402
 from .solver import OSQP, Info, Results, Settings, Solver  # noqa: E402
 from .types import DynSettings, QPData, ScalingData, StaticConfig  # noqa: E402
 
@@ -84,6 +87,7 @@ __all__ = [
     "Info",
     "Results",
     "solve_batch",
+    "BatchedSolver",
     "solve_sparse",
     "SparseSolver",
     "BatchSolveResults",

@@ -10,7 +10,8 @@ int ``k``, and each iteration enqueues device work without waiting:
   keep the reference's whole-loop iteration numbering;
 * the host reads the device only at those iterations: ``active.any()``
   after a check and ``upd.any()`` at a rho iteration, plus the
-  backend's refinement signal once per segment.
+  backend's refinement signal once per segment, each through
+  ``linalg.host_read``, which counts them.
 
 Per-instance termination freezes instances by masked selects; the loop
 ends when every instance has terminated or ``k`` passes the segment end.
@@ -40,7 +41,7 @@ from .constants import (
     RHO_MIN,
     RHO_TOL,
 )
-from .linalg import bwhere, vec_dot
+from .linalg import bwhere, host_read, vec_dot
 from .sparse_ops import ELLMatrix
 from .termination import check_termination, compute_products, compute_rho_estimate, residual_norms
 from .types import (
@@ -191,7 +192,7 @@ def _apply_check(cfg, data, scl, dyn, c: Carry, iter_number: int, approximate=Fa
         info=info,
         factor=factor,
         active=active,
-        any_active=bool(active.any()),
+        any_active=bool(host_read(active.any())),
         delta_x=bwhere(dinf, tr.dx_cert, c.delta_x),
         delta_y=bwhere(pinf, tr.dy_cert, c.delta_y),
     )
@@ -223,7 +224,7 @@ def _apply_rho_adaptation(cfg, data, dyn, c: Carry) -> Carry:
     info = replace(c.info, rho_estimate=torch.where(c.active, est, c.info.rho_estimate))
     tol = dyn.adaptive_rho_tolerance
     upd = c.active & ((est > rs.rho * tol) | (est < rs.rho / tol))
-    if not bool(upd.any()):
+    if not host_read(upd.any()):
         return replace(c, info=info)
 
     new_rho = torch.where(upd, torch.clamp(est, RHO_MIN, RHO_MAX), rs.rho)
@@ -272,7 +273,7 @@ def run_segment(cfg: StaticConfig, data: QPData, scl: ScalingData, dyn: DynSetti
     if c.k > end_iter or not c.any_active:
         return c
     fused = hasattr(backend, "fused_step")
-    refine = fused and bool(backend.refine_signal(c.factor))
+    refine = fused and bool(host_read(backend.refine_signal(c.factor)))
 
     while c.k <= end_iter and c.any_active:
         if not fused:

@@ -3,8 +3,9 @@
 Turns the arrays of ``osqp_tpu``'s ``QPData``, ``ScalingData``,
 ``RhoState``, ``Iterates``, ``DynSettings``, ``ELLMatrix`` and factor
 dicts (anything ``numpy.asarray`` reads) into this package's types, on
-a given device and dtype, and carries a whole ``osqp_tpu.Solver``'s
-device state into an ``osqp_tpu_torch.Solver``.  The tests use it to
+a given device and dtype, and carries a whole ``osqp_tpu.Solver``'s (or
+``osqp_tpu.parametric.BatchedSolver``'s) device state into an
+``osqp_tpu_torch.Solver`` (or ``BatchedSolver``).  The tests use it to
 put identical scaled data, factors and iterates through both packages.
 Nothing here imports jax.
 """
@@ -70,9 +71,10 @@ def factor(f: dict, device, dtype: torch.dtype) -> dict:
 
 
 def load_solver_state(solver, src) -> None:
-    """Carry the device state of ``src``, an ``osqp_tpu.Solver``, into
-    ``solver``, an ``osqp_tpu_torch.Solver`` set up on the same problem
-    and settings: the scaled ``data``, ``scaling``, ``rho_state``,
+    """Carry the device state of ``src``, an ``osqp_tpu.Solver`` (or
+    ``osqp_tpu.parametric.BatchedSolver``), into ``solver``, an
+    ``osqp_tpu_torch.Solver`` (or ``BatchedSolver``) set up on the same
+    problem and settings: the scaled ``data``, ``scaling``, ``rho_state``,
     ``factor`` and ``iterates``, on ``solver``'s device and dtype."""
     dev, dt = solver.device, solver._dtype
     solver.data = from_fields(QPData, src.data, dev, dt)
@@ -80,3 +82,4 @@ def load_solver_state(solver, src) -> None:
     solver.rho_state = from_fields(RhoState, src.rho_state, dev, dt)
     solver.factor = factor(src.factor, dev, dt)
     solver.iterates = from_fields(Iterates, src.iterates, dev, dt)
+

@@ -1,7 +1,9 @@
 // K7: the block-tridiagonal Cholesky factorization of the reduced KKT
 // matrix M = P + sigma I + A' diag(rho) A, and the solve with its factors:
 // a warp per instance for stages of b <= 32 variables, a block per
-// instance above.
+// instance above, with the factor's three stage blocks in shared memory
+// up to max_block (139 in float32, 98 in float64) and in device memory
+// beyond.
 //
 // Replaces osqp_tpu/linsys/block_tridiag.py:init (:133-170), _tsolve
 // (:173) and solve (:180-228), two lax.scan recursions over the Nb stages
@@ -43,9 +45,17 @@
 // Dividing on lane j alone behind a branch and shuffling the quotient
 // takes 0.1165.
 //
-// b > 32 (up to 139 in float32, 98 in float64): one block per instance,
-// C_{i-1}, D_i and O_i in shared memory (3 b^2 values), column steps
-// behind block barriers.
+// b > 32: one block per instance, column steps behind block barriers.
+// The factor holds C_{i-1}, D_i and O_i in shared memory (3 b^2 values)
+// up to b = 139 in float32, 98 in float64 (the block path); above that
+// (the device path) it runs the same steps on C_i's and G_i's own slots
+// of the outputs, which serve as its workspace: D_i - G_i G_i' is formed
+// in C_i's slot, G_i in its slot, C_{i-1} read back from its slot.  Each
+// stage's ~2 b^3 operations then read their operands from L1 and L2 (the
+// stage just written, b^2 values, is L2-hot) instead of shared memory;
+// staging S_i or panels of it in shared memory is left for a later
+// redesign.  The solve keeps only b values in shared memory and runs at
+// any b.
 //
 // Every product, sum, quotient and square root is rounded on its own (no
 // fused multiply-add), in the order of the plain versions in
@@ -92,7 +102,13 @@ __device__ __forceinline__ T not_a_number() {
   return static_cast<T>(NAN);
 }
 
-template <typename T>
+// One block per instance walks the stages.  kDevice false (the block
+// path, b <= max_block): C_{i-1}, D_i and O_i in shared memory, 3 b^2
+// values.  kDevice true (the device path, any b): the same steps in device
+// memory, D_i - G_i G_i' formed in C_i's slot of C and G_i in its own slot
+// of G, C_{i-1} read back from its slot; a block barrier orders them, and
+// the stage just written is L2-hot.
+template <typename T, bool kDevice>
 __global__ void __launch_bounds__(kFactorThreads)
 factor_kernel(const T* __restrict__ M, T* __restrict__ C, T* __restrict__ G, int b, int Nb) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -109,6 +125,13 @@ factor_kernel(const T* __restrict__ M, T* __restrict__ C, T* __restrict__ G, int
 
   for (int i = 0; i < Nb; ++i) {
     const size_t r0 = static_cast<size_t>(i) * b;
+    if (kDevice) {
+      S = Ci + static_cast<size_t>(i) * bb;
+      if (i > 0) {
+        Cp = Ci + static_cast<size_t>(i - 1) * bb;
+        W = Gi + static_cast<size_t>(i - 1) * bb;
+      }
+    }
     for (int e = tid; e < bb; e += nt) {
       const int r = e / b, c = e - r * b;
       const T* row = Mi + (r0 + r) * n + r0;
@@ -130,9 +153,10 @@ factor_kernel(const T* __restrict__ M, T* __restrict__ C, T* __restrict__ G, int
         }
       }
       __syncthreads();
-      // D_i - G_i G_i' on the lower triangle; G_i to device memory
+      // D_i - G_i G_i' on the lower triangle; G_i to device memory (the
+      // device path formed it there)
       for (int e = tid; e < bb; e += nt) {
-        Gi[static_cast<size_t>(i - 1) * bb + e] = W[e];
+        if (!kDevice) Gi[static_cast<size_t>(i - 1) * bb + e] = W[e];
         const int r = e / b, c = e - r * b;
         if (c <= r) {
           T acc = S[e];
@@ -164,8 +188,12 @@ factor_kernel(const T* __restrict__ M, T* __restrict__ C, T* __restrict__ G, int
     for (int e = tid; e < bb; e += nt) {
       const int r = e / b, c = e - r * b;
       const T v = c <= r ? (failed ? not_a_number<T>() : S[e]) : T(0);
-      Ci[static_cast<size_t>(i) * bb + e] = v;
-      Cp[e] = v;
+      if (kDevice) {
+        S[e] = v;  // S is C_i
+      } else {
+        Ci[static_cast<size_t>(i) * bb + e] = v;
+        Cp[e] = v;
+      }
     }
     __syncthreads();
   }
@@ -481,14 +509,27 @@ int warp_path(const void* M, void* C, void* G, const void* rhs, void* x, int B, 
   return launch_warp<T, 32>(M, C, G, rhs, x, B, b, Nb, factor, s);
 }
 
+// path: 0 the warp path (b <= 32), 1 the block path (3 b^2 values in
+// shared memory), 2 the device path (any b).
 template <typename T>
-int factor(const void* M, void* C, void* G, int B, int b, int Nb, cudaStream_t s) {
-  if (b <= kWarpMax) return warp_path<T>(M, C, G, nullptr, nullptr, B, b, Nb, true, s);
+int factor(const void* M, void* C, void* G, int B, int b, int Nb, int path, cudaStream_t s) {
+  if (path == 0) {
+    if (b > kWarpMax) return cudaErrorInvalidValue;
+    return warp_path<T>(M, C, G, nullptr, nullptr, B, b, Nb, true, s);
+  }
+  auto Mt = static_cast<const T*>(M);
+  auto Ct = static_cast<T*>(C);
+  auto Gt = static_cast<T*>(G);
+  if (path == 2) {
+    factor_kernel<T, true><<<B, kFactorThreads, 0, s>>>(Mt, Ct, Gt, b, Nb);
+    return cudaGetLastError();
+  }
+  if (path != 1) return cudaErrorInvalidValue;
   const size_t smem = 3 * static_cast<size_t>(b) * b * sizeof(T);
-  const cudaError_t err = allow_smem(factor_kernel<T>, smem);
+  if (smem > static_cast<size_t>(osqp_cuda::kMaxSmem)) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(factor_kernel<T, false>, smem);
   if (err != cudaSuccess) return err;
-  factor_kernel<T><<<B, kFactorThreads, smem, s>>>(static_cast<const T*>(M), static_cast<T*>(C), static_cast<T*>(G),
-                                                    b, Nb);
+  factor_kernel<T, false><<<B, kFactorThreads, smem, s>>>(Mt, Ct, Gt, b, Nb);
   return cudaGetLastError();
 }
 
@@ -507,12 +548,14 @@ int solve(const void* C, const void* G, const void* rhs, void* x, int B, int b, 
 }  // namespace
 
 // dtype: 0 float32, 1 float64.  M (B, Nb b, Nb b) contiguous; writes C
-// (B, Nb, b, b) and G (B, Nb-1, b, b), contiguous.  3 b^2 values of the
-// dtype must fit one block's shared memory (the wrapper checks).
-extern "C" int osqp_bt_factor(int dtype, const void* M, void* C, void* G, int B, int b, int Nb, void* stream) {
+// (B, Nb, b, b) and G (B, Nb-1, b, b), contiguous.  path as factor()
+// above, named by the wrapper (ops/block_tridiag.py:factor_path); a path
+// that does not take b returns cudaErrorInvalidValue.
+extern "C" int osqp_bt_factor(int dtype, const void* M, void* C, void* G, int B, int b, int Nb, int path,
+                              void* stream) {
   if (B == 0 || b == 0 || Nb == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? factor<float>(M, C, G, B, b, Nb, s) : factor<double>(M, C, G, B, b, Nb, s);
+  return dtype == 0 ? factor<float>(M, C, G, B, b, Nb, path, s) : factor<double>(M, C, G, B, b, Nb, path, s);
 }
 
 // x = M^-1 rhs with the factors above; rhs and x (B, Nb b), contiguous.

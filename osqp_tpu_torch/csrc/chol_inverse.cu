@@ -48,8 +48,15 @@
 //     that a warp reading a column (rows at stride ld) hits 32 banks.
 //
 // The block holds n*ld + 2n values, so n <= 240 in float32 and n <= 169
-// in float64 fit the 227 KB a block may use; the Python wrapper raises
-// above that and dense_inv.init takes torch's Cholesky there.
+// in float64 fit the 227 KB a block may use.  Above that the wrapper
+// (ops/spd_inverse.py:spd_inverse) runs the JAX package's blocked
+// recursion: M split at about n/2, T11 = chol(M11)^-1, L21 = M21 T11',
+// T22 = chol(M22 - L21 L21')^-1, T21 = -T22 L21 T11, down to diagonal
+// blocks that fit, each a launch of the leaf entry below
+// (osqp_chol_inverse_leaf: the same factor and triangular inverse on S as
+// it comes, writing T instead of T'T); the products between the leaves
+// are batched GEMMs, as the JAX package leaves them to XLA.  At B = 1 the
+// leaves run one after another, each on one block: one SM of the card.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -275,8 +282,10 @@ __device__ void forward_update(T* S, int ld, int k0, int kb, int n) {
 }
 
 // Registers capped so that 4 blocks (f32) or 2 (f64, whose matrix at
-// n=100 leaves room for 2) share an SM.
-template <typename T>
+// n=100 leaves room for 2) share an SM.  kLeaf: the recursion's leaf
+// (osqp_chol_inverse_leaf), which takes S as it is (no Jacobi scaling)
+// and writes T = chol(S)^-1, lower with zeros above, instead of T'T.
+template <typename T, bool kLeaf>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 4 : 2)
 chol_inverse_kernel(const T* __restrict__ M, T* __restrict__ X, int n, int ld) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -294,8 +303,12 @@ chol_inverse_kernel(const T* __restrict__ M, T* __restrict__ X, int n, int ld) {
   __syncthreads();
   for (int i = tid; i < n; i += kThreads) {
     const T g = Mb[i * n + i];
-    if (!(g > T(0))) bad = 1;
-    d[i] = g > T(0) ? T(1) / sqrt(g) : T(NAN);
+    if (kLeaf) {
+      d[i] = T(1);  // a diagonal entry that is not positive fails as a pivot
+    } else {
+      if (!(g > T(0))) bad = 1;
+      d[i] = g > T(0) ? T(1) / sqrt(g) : T(NAN);
+    }
   }
   __syncthreads();
   // S = d M d below and on the diagonal, zero above, walking M in order
@@ -310,7 +323,7 @@ chol_inverse_kernel(const T* __restrict__ M, T* __restrict__ X, int n, int ld) {
       for (int q = 0; q < 4; ++q) v[q] = e0 + q * kThreads < nn ? Mb[e0 + q * kThreads] : T(0);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        if (e0 + q * kThreads < nn) S[i * ld + j] = j <= i ? v[q] * d[i] * d[j] : T(0);
+        if (e0 + q * kThreads < nn) S[i * ld + j] = j <= i ? (kLeaf ? v[q] : v[q] * d[i] * d[j]) : T(0);
         i += di;
         j += dj;
         if (j >= n) {
@@ -342,8 +355,17 @@ chol_inverse_kernel(const T* __restrict__ M, T* __restrict__ X, int n, int ld) {
     __syncthreads();
   }
 
-  // X = d (T'T) d: X_ij = sum_{k >= max(i, j)} T_ki T_kj, lower tiles.
   const bool nan_out = bad != 0;
+  if (kLeaf) {
+    // T itself, row by row: T_rc is S[c][r] below the diagonal.
+    for (int e = tid; e < n * n; e += kThreads) {
+      const int r = e / n, c = e - r * n;
+      Xb[e] = nan_out ? T(NAN) : tval(S, td, ld, r, c);
+    }
+    return;
+  }
+
+  // X = d (T'T) d: X_ij = sum_{k >= max(i, j)} T_ki T_kj, lower tiles.
   const int nt = (n + kTile - 1) / kTile;
   for (int t = tid; t < nt * (nt + 1) / 2; t += kThreads) {
     int ti, tj;
@@ -413,14 +435,15 @@ int leading_dim(int n) {
   return smem_bytes<T>(n, ld) + sizeof(int) > static_cast<size_t>(osqp_cuda::kMaxSmem) ? n : ld;
 }
 
-template <typename T>
+template <typename T, bool kLeaf>
 int launch(const void* M, void* X, int B, int n, cudaStream_t stream) {
   const int ld = leading_dim<T>(n);
   const size_t smem = smem_bytes<T>(n, ld);
-  cudaError_t err = allow_smem(chol_inverse_kernel<T>, smem);
-  if (err == cudaSuccess) err = prefer_shared(chol_inverse_kernel<T>);
+  if (smem + sizeof(int) > static_cast<size_t>(osqp_cuda::kMaxSmem)) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(chol_inverse_kernel<T, kLeaf>, smem);
+  if (err == cudaSuccess) err = prefer_shared(chol_inverse_kernel<T, kLeaf>);
   if (err != cudaSuccess) return err;
-  chol_inverse_kernel<T><<<B, kThreads, smem, stream>>>(static_cast<const T*>(M), static_cast<T*>(X), n, ld);
+  chol_inverse_kernel<T, kLeaf><<<B, kThreads, smem, stream>>>(static_cast<const T*>(M), static_cast<T*>(X), n, ld);
   return cudaGetLastError();
 }
 
@@ -429,8 +452,10 @@ template <typename T>
 int blocks_per_sm(int n) {
   const size_t smem = smem_bytes<T>(n, leading_dim<T>(n));
   int blocks = 0;
-  if (allow_smem(chol_inverse_kernel<T>, smem) != cudaSuccess || prefer_shared(chol_inverse_kernel<T>) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, chol_inverse_kernel<T>, kThreads, smem) != cudaSuccess)
+  if (allow_smem(chol_inverse_kernel<T, false>, smem) != cudaSuccess ||
+      prefer_shared(chol_inverse_kernel<T, false>) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, chol_inverse_kernel<T, false>, kThreads, smem) !=
+          cudaSuccess)
     return -1;
   return blocks;
 }
@@ -441,7 +466,16 @@ int blocks_per_sm(int n) {
 extern "C" int osqp_chol_inverse(int dtype, const void* M, void* X, int B, int n, void* stream) {
   if (B == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(M, X, B, n, s) : launch<double>(M, X, B, n, s);
+  return dtype == 0 ? launch<float, false>(M, X, B, n, s) : launch<double, false>(M, X, B, n, s);
+}
+
+// The recursion's leaf: T = chol(S)^-1 of each (n, n) S, lower with zeros
+// above (NaN over the whole instance where S is not PD), no scaling.  S
+// and T contiguous (B, n, n); n as osqp_chol_inverse's.
+extern "C" int osqp_chol_inverse_leaf(int dtype, const void* S, void* T, int B, int n, void* stream) {
+  if (B == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch<float, true>(S, T, B, n, s) : launch<double, true>(S, T, B, n, s);
 }
 
 // Blocks per SM at n (dtype as above); negative on a CUDA error.

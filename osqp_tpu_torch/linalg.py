@@ -23,6 +23,17 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
+# Reads of a device value by the host in the solve path (each waits for
+# the device where it is a CUDA card), counted by :func:`host_read`.
+host_reads = 0
+
+
+def host_read(t: torch.Tensor):
+    """``t.item()`` of a one-element tensor, counted in ``host_reads``."""
+    global host_reads
+    host_reads += 1
+    return t.item()
+
 
 def norm_inf(v: torch.Tensor) -> torch.Tensor:
     """Batched infinity norm over the last axis (lin_alg.c:32-43);

@@ -9,8 +9,8 @@ with M = P + sigma I + A' diag(rho) A, so a KKT solve is two matrix-
 vector products: x~ = Minv t and z~ = (A Minv) t with
 t = rhs_x + A'(rho * rhs_z).
 
-* :func:`init` inverts M through K2 (:mod:`..ops.spd_inverse`) and
-  guards the result per instance.
+* :func:`init` inverts M through K2 (:mod:`..ops.spd_inverse`) at every
+  n and guards the result per instance (:func:`guarded_inverse`).
 * :func:`fused_step` is the plain loop body: one masked ADMM iteration
   through K1 (:mod:`..ops.admm_iter`).
 * :func:`refined_step` is the refined loop body, for ill-conditioned
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ..linalg import host_read
 from ..ops import spd_inverse as k2
 from ..ops.admm_iter import admm_iter, admm_iter_refined
 from .dense_chol import form_schur
@@ -32,13 +33,21 @@ from .dense_chol import form_schur
 # the refined loop body (osqp_tpu/linsys/dense_inv.py:73-86).
 _REFINE_TOL_F32 = 3e-6
 _REFINE_TOL_F64 = 1e-12
-# Residual guard: K2's instances above this go through Cholesky.
-_GUARD_TOL_F32 = 1e-3
+# Residual guard: K2's instances above this are inverted again through
+# Cholesky, and keep whichever inverse has the lower residual.  In
+# float32 every route's rounding floor on the repo's cells is at most
+# ~2e-3 (n = 550, the portfolio leg), so the guard sits well above it:
+# below the floor the library inverse cannot do better.
+_GUARD_TOL_F32 = 1e-2
 _GUARD_TOL_F64 = 1e-8
+# Instances the residual guard has sent to Cholesky, over all calls of
+# init (the count costs no further host read: the guard reads it anyway).
+guard_rescued = 0
 
 
 def _chol_inverse(M: torch.Tensor) -> torch.Tensor:
-    """Inverse through torch's Cholesky; NaN where M is not PD."""
+    """Inverse through torch's Cholesky; NaN where M is not PD.  The
+    residual guard's rescue of the instances K2 inverts badly."""
     L, info = torch.linalg.cholesky_ex(M)
     X = torch.cholesky_inverse(L)
     return torch.where((info == 0)[:, None, None], X, float("nan"))
@@ -49,34 +58,48 @@ def _inverse_residual(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return (eye - torch.bmm(M, X)).abs().amax((-2, -1))
 
 
-def init(P, A, sigma, rho_vec, **_):
-    """Factorize: Minv, AMinvT and the per-instance refinement flag.
+def guarded_inverse(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """M^-1 of each instance and the residual |I - M X|max of the inverse
+    kept: K2 at every n (``spd_inverse.spd_inverse``: the kernel up to
+    ``spd_inverse.max_n``, its blocked recursion above, each with a
+    Newton-Schulz step), then the residual guard, as the JAX package's
+    init (``osqp_tpu/linsys/dense_inv.py:93-131``).
 
-    The inverse is chosen by n alone: up to K2's shared-memory bound
-    (``spd_inverse.max_n``) the K2 kernel with a residual guard; above
-    it, torch's Cholesky and Cholesky inverse.  Both take a Newton-Schulz
-    step.
-    """
+    The guard inverts the instances above its tolerance again through
+    Cholesky, those alone, and keeps per instance whichever inverse has
+    the lower residual (the JAX package takes Cholesky's unconditionally);
+    the rest keep K2's inverse bit for bit.  NaN (non-PD) does not
+    trigger it: NaN is the convexity signal, and Cholesky would give it
+    too."""
+    global guard_rescued
+    X = k2.spd_inverse(M)
+    resid = _inverse_residual(M, X)
+    bad = resid > (_GUARD_TOL_F32 if M.dtype == torch.float32 else _GUARD_TOL_F64)
+    rescued = int(host_read(bad.sum()))
+    if rescued:
+        guard_rescued += rescued
+        # the flagged instances first, without a further host read
+        idx = torch.argsort(bad.to(torch.int8), descending=True, stable=True)[:rescued]
+        Mb = M[idx]
+        Xr = _chol_inverse(Mb)
+        rr = _inverse_residual(Mb, Xr)
+        better = rr < resid[idx]  # NaN compares False: K2's is kept
+        # index_copy into X keeps it row-major, as the kernels take Minv
+        # (the library's batched inverse comes back column-major)
+        X = X.index_copy(0, idx, torch.where(better[:, None, None], Xr, X[idx]))
+        resid = resid.index_copy(0, idx, torch.where(better, rr, resid[idx]))
+    return X, resid
+
+
+def init(P, A, sigma, rho_vec, **_):
+    """Factorize: Minv (:func:`guarded_inverse`), AMinvT and the
+    per-instance refinement flag, from the residual of the inverse kept."""
     M = form_schur(P, A, sigma, rho_vec)
     B, n = P.shape[0], P.shape[-1]
-    if 0 < n <= k2.max_n(M.dtype):
-        X = k2.spd_inverse(M)
-        # Residual guard: instances whose inverse is inaccurate are
-        # recomputed through Cholesky, each on its own; the rest keep
-        # their inverse bit for bit.  NaN (non-PD) does not trigger it:
-        # NaN is the convexity signal, and Cholesky would give it too.
-        resid = _inverse_residual(M, X)
-        bad = resid > (_GUARD_TOL_F32 if M.dtype == torch.float32 else _GUARD_TOL_F64)
-        Minv = X
-        if bool(bad.any()):
-            eye = torch.eye(n, dtype=M.dtype, device=M.device)
-            Mb = torch.where(bad[:, None, None], M, eye)
-            Minv = torch.where(bad[:, None, None], _chol_inverse(Mb), X)
+    if n:
+        Minv, resid = guarded_inverse(M)
     else:
-        # Newton-Schulz on the Cholesky inverse as on K2's, so that both
-        # routes polish their inverse as the JAX package does at every n.
-        Minv = k2.newton_schulz(M, _chol_inverse(M))
-        resid = _inverse_residual(M, Minv)
+        Minv, resid = M, torch.zeros(B, dtype=M.dtype, device=M.device)
     if A.shape[-2]:
         # (A M^-1)' = M^-1 A', stored transposed (B, n, m) so that both
         # per-iteration products read rows of a row-major matrix.

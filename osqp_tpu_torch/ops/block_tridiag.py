@@ -13,12 +13,16 @@ stages, then x_i = C_i^-T (y_i - G_{i+1}' x_{i+1}) back over them.
 
 :func:`bt_factor` and :func:`bt_solve` are the kernels' wrappers: for
 CUDA tensors they launch ``csrc/block_tridiag.cu``, which takes one of
-two paths by block size: up to ``WARP_MAX`` = 32 a warp per instance
-(lane r holding row r of the stage, column steps by shuffles, several
-instances a block), above it one block per instance walking the stages;
-``launches_factor_warp`` / ``launches_solve_warp`` count the warp path's
-launches among ``launches_factor`` / ``launches_solve``.  For CPU
-tensors they run
+its paths by block size (:func:`factor_path`): up to ``WARP_MAX`` = 32 a
+warp per instance (lane r holding row r of the stage, column steps by
+shuffles, several instances a block), above it one block per instance
+walking the stages, whose factor holds its three stage blocks in shared
+memory up to :func:`max_block` (the block path) and works in device
+memory, on its own outputs, beyond (the device path); the solve keeps b
+values in shared memory and runs at any b.  ``launches_factor_warp`` /
+``launches_solve_warp`` count the warp path's launches and
+``launches_factor_device`` the device path's among ``launches_factor`` /
+``launches_solve``.  For CPU tensors they run
 :func:`bt_factor_plain` and :func:`bt_solve_plain`, the same functions
 in plain PyTorch, written in the kernel's order (triangular solves by
 columns, the Cholesky right-looking column by column, every product and
@@ -40,16 +44,31 @@ launches_solve = 0
 # Of those, the launches on the warp path (b <= WARP_MAX).
 launches_factor_warp = 0
 launches_solve_warp = 0
+# Of the factor's launches, those on the device path (b > max_block).
+launches_factor_device = 0
 # The largest block size of the warp path: up to it a warp takes an
 # instance, above it a block does.
 WARP_MAX = 32
 
 
+_PATH_CODES = {"warp": 0, "block": 1, "device": 2}
+
+
 def max_block(dtype: torch.dtype) -> int:
-    """Largest block size b of the block path, whose 3 b^2 values fit one
-    block's shared memory: 139 in float32, 98 in float64."""
+    """Largest block size b of the factor's block path, whose 3 b^2
+    values fit one block's shared memory: 139 in float32, 98 in float64.
+    Above it the factor takes the device path."""
     values = _build.SMEM_BYTES // torch.empty((), dtype=dtype).element_size()
     return math.isqrt(values // 3)
+
+
+def factor_path(b: int, dtype: torch.dtype) -> str:
+    """The path of :func:`bt_factor`'s kernel at block size b: ``"warp"``
+    up to ``WARP_MAX``, ``"block"`` up to :func:`max_block`, ``"device"``
+    above."""
+    if b <= WARP_MAX:
+        return "warp"
+    return "block" if b <= max_block(dtype) else "device"
 
 
 def band_blocks(M: torch.Tensor, b: int):
@@ -77,7 +96,7 @@ def bt_factor(M: torch.Tensor, b: int):
     """(C, G) of each matrix of the batch: C (B, Nb, b, b) the stages'
     lower Cholesky factors (zeros above the diagonal), G (B, Nb-1, b, b)
     the coupling blocks.  Only the band blocks of M are read."""
-    global launches_factor, launches_factor_warp
+    global launches_factor, launches_factor_warp, launches_factor_device
     _validate_factor(M, b)
     if M.device.type == "cpu":
         return bt_factor_plain(M, b)
@@ -85,11 +104,7 @@ def bt_factor(M: torch.Tensor, b: int):
         raise ValueError(f"bt_factor runs on CPU or CUDA tensors, not {M.device}")
     if not M.is_contiguous():
         raise ValueError("bt_factor takes a contiguous tensor")
-    if b > max_block(M.dtype):
-        raise ValueError(
-            f"bt_factor holds three b x b blocks in shared memory: b <= {max_block(M.dtype)} in {M.dtype}, "
-            f"got block_size = {b}"
-        )
+    path = factor_path(b, M.dtype)
     B, n, _ = M.shape
     Nb = n // b
     C = torch.empty((B, Nb, b, b), dtype=M.dtype, device=M.device)
@@ -97,10 +112,11 @@ def bt_factor(M: torch.Tensor, b: int):
     lib = _build.library()
     with torch.cuda.device(M.device):
         code = lib.osqp_bt_factor(_build.dtype_code(M.dtype), M.data_ptr(), C.data_ptr(), G.data_ptr(), B, b, Nb,
-                                  _build.stream())
+                                  _PATH_CODES[path], _build.stream())
     _build.check(code, "bt_factor")
     launches_factor += 1
-    launches_factor_warp += b <= WARP_MAX
+    launches_factor_warp += path == "warp"
+    launches_factor_device += path == "device"
     return C, G
 
 

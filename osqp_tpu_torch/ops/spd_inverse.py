@@ -4,13 +4,21 @@
 launches the hand-written kernel in ``csrc/chol_inverse.cu`` (Jacobi
 equilibration, Cholesky, triangular inverse and d(T'T)d, one thread
 block per instance, all in shared memory); for a CPU tensor it runs
-:func:`chol_inverse_plain`, the same function in plain PyTorch.
-:func:`spd_inverse` adds the Newton-Schulz step, a plain product on
-either path, as in the JAX package.
+:func:`chol_inverse_plain`, the same function in plain PyTorch.  It
+takes n up to :func:`max_n`, where one matrix fits a block's shared
+memory.
 
-The JAX package's recursive-GEMM formulation and its batch-minor leaf
-exist because a Cholesky factorization serialises on the TPU; they are
-not carried over.  Non-PD input gives NaN in the whole instance, which
+:func:`spd_inverse` inverts at every n.  Up to :func:`max_n` it is
+:func:`chol_inverse` and a Newton-Schulz step.  Above, it runs the JAX
+package's blocked recursion (``osqp_tpu/ops/spd_inverse.py:_chol_inv``)
+on the Jacobi-equilibrated matrix: split at about n/2 (a multiple of
+16) until a diagonal block fits, T = chol(.)^-1 of each such block by
+the kernel's leaf entry (:func:`chol_inverse_leaf`), the blocks between
+them by batched GEMMs, then X = T'T, one Newton-Schulz step and the
+scaling undone, as there.  The JAX package pads n to a power of two and
+recurses to closed-form 2 x 2 leaves, because a Cholesky factorization
+serialises on the TPU; neither is carried over (padding with the
+identity is exact).  Non-PD input gives NaN in the whole instance, which
 callers read as the non-convexity signal.
 """
 
@@ -23,6 +31,10 @@ import torch
 from .. import _build
 
 launches = 0
+# Launches of the leaf entry, by the recursion above max_n.
+launches_leaf = 0
+# The recursion splits at a multiple of this.
+SPLIT = 16
 
 
 def max_n(dtype: torch.dtype) -> int:
@@ -73,6 +85,39 @@ def chol_inverse(M: torch.Tensor) -> torch.Tensor:
     return X
 
 
+def chol_inverse_leaf(S: torch.Tensor) -> torch.Tensor:
+    """T = chol(S)^-1 of each SPD matrix of the batch (B, n, n), n <=
+    max_n(dtype): lower triangular, zeros above; NaN over the whole
+    instance where S is not PD.  S is taken as it is (no scaling); only
+    its lower triangle is read."""
+    global launches_leaf
+    _validate(S)
+    if S.device.type == "cpu":
+        return chol_inverse_leaf_plain(S)
+    if S.device.type != "cuda":
+        raise ValueError(f"chol_inverse_leaf runs on CPU or CUDA tensors, not {S.device}")
+    if not S.is_contiguous():
+        raise ValueError("chol_inverse_leaf takes a contiguous tensor")
+    B, n, _ = S.shape
+    T = torch.empty_like(S)
+    lib = _build.library()
+    with torch.cuda.device(S.device):
+        code = lib.osqp_chol_inverse_leaf(_build.dtype_code(S.dtype), S.data_ptr(), T.data_ptr(), B, n,
+                                          _build.stream())
+    _build.check(code, "chol_inverse_leaf")
+    launches_leaf += 1
+    return T
+
+
+def chol_inverse_leaf_plain(S: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`chol_inverse_leaf`."""
+    n = S.shape[-1]
+    L, info = torch.linalg.cholesky_ex(S)
+    eye = torch.eye(n, dtype=S.dtype, device=S.device).expand_as(S)
+    T = torch.linalg.solve_triangular(torch.where((info == 0)[:, None, None], L, eye), eye, upper=False)
+    return torch.where((info == 0)[:, None, None], T, float("nan"))
+
+
 def chol_inverse_plain(M: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`chol_inverse`."""
     n = M.shape[-1]
@@ -93,7 +138,41 @@ def newton_schulz(M: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return torch.bmm(X, eye2 - torch.bmm(M, X))
 
 
+def split(n: int) -> int:
+    """Where the recursion splits an n x n matrix: about n/2, rounded to
+    a multiple of SPLIT."""
+    return max(SPLIT, (n // 2 + SPLIT // 2) // SPLIT * SPLIT)
+
+
+def chol_inv(M: torch.Tensor) -> torch.Tensor:
+    """T = chol(M)^-1 (lower) at any n by the blocked recursion
+    (``osqp_tpu/ops/spd_inverse.py:_chol_inv``), the diagonal blocks that
+    fit by :func:`chol_inverse_leaf`."""
+    n = M.shape[-1]
+    if n <= max_n(M.dtype):
+        return chol_inverse_leaf(M.contiguous())
+    h = split(n)
+    T11 = chol_inv(M[:, :h, :h])
+    L21 = torch.bmm(M[:, h:, :h], T11.mT)
+    T22 = chol_inv(M[:, h:, h:] - torch.bmm(L21, L21.mT))
+    T = torch.zeros_like(M)
+    T[:, :h, :h] = T11
+    T[:, h:, :h] = -torch.bmm(T22, torch.bmm(L21, T11))
+    T[:, h:, h:] = T22
+    return T
+
+
 def spd_inverse(M: torch.Tensor) -> torch.Tensor:
-    """Inverse of a batch of SPD matrices (B, n, n), n <= max_n(dtype),
-    polished by one Newton-Schulz step."""
-    return newton_schulz(M, chol_inverse(M))
+    """Inverse of a batch of SPD matrices (B, n, n) at any n >= 1,
+    polished by one Newton-Schulz step, as the JAX package's default; NaN
+    over an instance that is not PD."""
+    if M.shape[-1] <= max_n(M.dtype):
+        return newton_schulz(M, chol_inverse(M))
+    # Jacobi equilibration, exact: inv(M) = d inv(dMd) d (the JAX
+    # package's spd_inverse:176-179)
+    dg = torch.diagonal(M, dim1=-2, dim2=-1)
+    pos = dg > 0
+    d = torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, dg, 1.0)), float("nan"))
+    Ms = M * d[:, :, None] * d[:, None, :]
+    T = chol_inv(Ms)
+    return newton_schulz(Ms, torch.bmm(T.mT, T)) * d[:, :, None] * d[:, None, :]

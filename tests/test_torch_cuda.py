@@ -815,13 +815,160 @@ def test_k7_stage_not_positive_definite_gives_nan(dev):
     assert bool(torch.isfinite(C[0]).all())
 
 
-def test_k7_raises_above_its_shared_memory(dev):
-    b = k7.max_block(torch.float64) + 1
-    M = torch.eye(2 * b, dtype=torch.float64, device=dev)[None].contiguous()
-    with pytest.raises(ValueError, match="shared memory"):
-        k7.bt_factor(M, b)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("b", ["max+1", 256])
+def test_k7_device_path_above_its_shared_memory(dev, dtype, b):
+    """Above max_block the factor takes its device path (counted in
+    launches_factor_device) and gives the plain version's bits, as does
+    the solve; two launches bit-identical.  A stage that is not positive
+    definite gives NaN there as on the other paths."""
+    b = k7.max_block(dtype) + 1 if b == "max+1" else b
+    M = _band_schur(2, 3, b, dtype).to(dev).contiguous()
+    before = k7.launches_factor_device
+    C, G = k7.bt_factor(M, b)
+    C2, G2 = k7.bt_factor(M, b)
+    Cp, Gp = k7.bt_factor_plain(M, b)
+    r = torch.as_tensor(np.random.default_rng(1).standard_normal((2, 3 * b)), dtype=dtype, device=dev)
+    x, xp = k7.bt_solve(C, G, r), k7.bt_solve_plain(Cp, Gp, r)
+    torch.cuda.synchronize()
+    assert k7.factor_path(b, dtype) == "device" and k7.launches_factor_device - before == 2
+    assert torch.equal(C, C2) and torch.equal(G, G2)
+    assert torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp)
+    M[1, b + 3, b + 3] = -1e6
+    C, _ = k7.bt_factor(M, b)
+    Cp, _ = k7.bt_factor_plain(M, b)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(C), torch.isnan(Cp)) and torch.isnan(C[1, 1:]).any()
+    assert torch.equal(torch.nan_to_num(C), torch.nan_to_num(Cp))
     with pytest.raises(ValueError, match="contiguous"):
-        k7.bt_factor(torch.eye(24, dtype=torch.float64, device=dev)[None].mT, 12)
+        k7.bt_factor(M.mT, b)
+
+
+def _large_stage_mpc(b, B=3, horizon=2):
+    """A stage-structured MPC batch with stages of b = nx + nu variables
+    (nx = 2 b / 3), scenarios by their initial state."""
+    from osqp_tpu_torch.models import build_mpc_qp
+
+    nx = 2 * b // 3
+    nu = b - nx
+    rng = np.random.default_rng(b)
+    Ad = np.eye(nx) + 0.05 * rng.standard_normal((nx, nx)) / np.sqrt(nx)
+    Bd = rng.standard_normal((nx, nu)) / np.sqrt(nx)
+    base = build_mpc_qp(Ad, Bd, np.eye(nx), 0.1 * np.eye(nu), horizon=horizon, xmin=np.full(nx, -10.0),
+                        xmax=np.full(nx, 10.0), umin=np.full(nu, -1.0), umax=np.full(nu, 1.0))
+    l, u = np.tile(base.l, (B, 1)), np.tile(base.u, (B, 1))
+    l[:, :nx] = u[:, :nx] = rng.standard_normal((B, nx))
+    return base, (np.stack([base.P] * B), np.stack([base.q] * B), np.stack([base.A] * B), l, u)
+
+
+@pytest.mark.parametrize("dtype,b", [("float32", 140), ("float64", 99)])
+def test_block_tridiag_above_max_block_gpu_matches_cpu(dev, dtype, b):
+    """Stages above max_block through solve_batch and the Solver with
+    block_tridiag on the card (K7's device path) against the CPU path:
+    the same statuses and iterations, float64 x and y within 1e-6."""
+    base, args = _large_stage_mpc(b)
+    kw = dict(dtype=dtype, verbose=False, linsys_solver="block_tridiag", block_size=base.block_size)
+    before = k7.launches_factor_device
+    rg = osqp_tpu_torch.solve_batch(*args, device=dev, **kw)
+    torch.cuda.synchronize()
+    assert k7.launches_factor_device > before
+    rc = osqp_tpu_torch.solve_batch(*args, device="cpu", **kw)
+    assert torch.equal(rg.status_val.cpu(), rc.status_val) and torch.equal(rg.iter.cpu(), rc.iter)
+    sg = osqp_tpu_torch.Solver(base.P, base.q, base.A, args[3][0], args[4][0], device=dev, **kw).solve()
+    sc = osqp_tpu_torch.Solver(base.P, base.q, base.A, args[3][0], args[4][0], device="cpu", **kw).solve()
+    assert sg.info.status_val == sc.info.status_val and sg.info.iter == sc.info.iter
+    if dtype == "float64":
+        assert float((rg.x.cpu() - rc.x).abs().max()) <= 1e-6 and float((rg.y.cpu() - rc.y).abs().max()) <= 1e-6
+        assert np.abs(sg.x - sc.x).max() <= 1e-6 and np.abs(sg.y - sc.y).max() <= 1e-6
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("n", [7, "max"])
+def test_k2_leaf_matches_plain(dev, dtype, tol, n):
+    """K2's leaf entry, T = chol(S)^-1 with no scaling, against its plain
+    version; two launches give the same bits."""
+    n = k2.max_n(dtype) if n == "max" else n
+    S = _spd(5, n, dtype).to(dev)
+    before = k2.launches_leaf
+    T, again = k2.chol_inverse_leaf(S), k2.chol_inverse_leaf(S)
+    torch.cuda.synchronize()
+    assert k2.launches_leaf == before + 2 and torch.equal(T, again)
+    Tp = k2.chol_inverse_leaf_plain(S)
+    assert torch.equal(T, torch.tril(T))
+    assert float((T - Tp).abs().max()) <= tol * float(Tp.abs().max())
+
+
+@pytest.mark.parametrize("dtype,gate", [(torch.float32, 3e-6), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n", ["max+1", 372, 550])
+def test_k2_recursion_above_max_n_within_the_library_residual(dev, dtype, gate, n):
+    """dense_inv.init above max_n: K2's recursion on its leaves, no
+    torch Cholesky (the guard's rescue not needed), the inverse residual
+    under the refine gate, or within 4x the residual of torch's Cholesky
+    route with its Newton-Schulz step: in float32 these matrices (cond ~
+    40) leave every route a few float32 spacings above the gate."""
+    from osqp_tpu_torch.linsys import dense_inv
+
+    n = k2.max_n(dtype) + 1 if n == "max+1" else n
+    M = _spd(4, n, dtype).to(dev)
+    before, rescued = k2.launches_leaf, dense_inv.guard_rescued
+    X = k2.spd_inverse(M)
+    torch.cuda.synchronize()
+    assert k2.launches_leaf > before
+    resid = float(dense_inv._inverse_residual(M, X).max())
+    library = float(dense_inv._inverse_residual(M, k2.newton_schulz(M, dense_inv._chol_inverse(M))).max())
+    assert resid <= max(gate, 4 * library)
+    fac = dense_inv.init(M - 1e-6 * torch.eye(n, dtype=dtype, device=dev),
+                         torch.zeros(4, 0, n, dtype=dtype, device=dev), 1e-6, torch.zeros(4, 0, dtype=dtype, device=dev))
+    assert dense_inv.guard_rescued == rescued and bool(torch.isfinite(fac["Minv"]).all())
+
+
+@pytest.mark.parametrize("better", [True, False])
+def test_guard_rescue_on_the_card_keeps_the_better_inverse(dev, monkeypatch, better):
+    """The residual guard on CUDA tensors: the flagged instance alone goes
+    through torch's Cholesky, counted; it keeps whichever inverse has the
+    lower residual, the others K2's bit for bit; Minv comes back
+    row-major."""
+    from osqp_tpu_torch.linsys import dense_inv
+
+    M = _spd(3, 40, torch.float64).to(dev)
+    real, real_chol = k2.spd_inverse, dense_inv._chol_inverse
+    X = real(M) * torch.tensor([1.0, 1.01, 1.0], dtype=M.dtype, device=dev)[:, None, None]
+    monkeypatch.setattr(k2, "spd_inverse", lambda M_: X.clone())
+    if not better:
+        monkeypatch.setattr(dense_inv, "_chol_inverse", lambda M_: real_chol(M_) * 1.05)
+    rescued = dense_inv.guard_rescued
+    Minv, resid = dense_inv.guarded_inverse(M)
+    torch.cuda.synchronize()
+    assert dense_inv.guard_rescued == rescued + 1 and Minv.is_contiguous()
+    assert torch.equal(Minv[0], X[0]) and torch.equal(Minv[2], X[2])
+    if better:
+        assert float(resid[1]) < 1e-12 and not torch.equal(Minv[1], X[1])
+    else:
+        assert torch.equal(Minv[1], X[1]) and float(resid[1]) > 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_batched_solver_gpu_matches_cpu(dev, dtype):
+    """BatchedSolver on the card against the CPU: a portfolio batch
+    (n = 550 variables, so K2's recursion at set-up), a cold solve and two
+    re-solves with new q: the same statuses, iterations within one check
+    interval in float32 and equal in float64."""
+    from osqp_tpu_torch.models import build_portfolio
+
+    rng = np.random.default_rng(0)
+    probs = [build_portfolio(rng.standard_normal(500), rng.standard_normal((500, 50)) / np.sqrt(50),
+                             np.abs(rng.standard_normal(500)) * np.sqrt(50)) for _ in range(2)]
+    P, q, A, l, u = (np.stack(v) for v in zip(*probs))
+    kw = dict(dtype=dtype, verbose=False, eps_abs=1e-3, eps_rel=1e-3)
+    bg = osqp_tpu_torch.BatchedSolver(P, q, A, l, u, device=dev, **kw)
+    bc = osqp_tpu_torch.BatchedSolver(P, q, A, l, u, device="cpu", **kw)
+    for j in range(3):
+        qj = q * (1.0 + 0.01 * j)
+        rg, rc = (bg.solve(), bc.solve()) if j == 0 else (bg.resolve(q=qj), bc.resolve(q=qj))
+        torch.cuda.synchronize()
+        assert torch.equal(rg.status_val.cpu(), rc.status_val)
+        tol = 0 if dtype == "float64" else 25
+        assert int((rg.iter.cpu() - rc.iter).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

@@ -1,0 +1,185 @@
+"""K2 and K7 beyond one block's shared memory, against the JAX package.
+
+K2 above ``spd_inverse.max_n`` runs its blocked recursion over the
+leaf entry, and ``dense_inv.init`` takes it at every n; K7 above
+``block_tridiag.max_block`` takes the factor's device path.  On the CPU
+the wrappers run their plain versions, so these tests pin the recursion,
+the routing and the paths' names, and hold the results against the JAX
+package in float64.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import osqp_tpu
+import osqp_tpu_torch
+from osqp_tpu.ops.spd_inverse import spd_inverse as jspd_inverse
+from osqp_tpu_torch.linsys import dense_inv
+from osqp_tpu_torch.models import build_mpc_qp
+from osqp_tpu_torch.ops import block_tridiag as k7
+from osqp_tpu_torch.ops import spd_inverse as k2
+
+torch.set_num_threads(2)
+
+# The port's recursion (leaves by Cholesky) and the JAX package's (padded
+# to a power of two, closed-form 2 x 2 leaves) are different roundings of
+# one algorithm: on these well-conditioned matrices (cond ~ 1e2) both sit
+# ~1e-15 from the inverse, so 1e-8 of the largest entry leaves room for
+# ill-conditioning and nothing else; the residual |I - M X|max of each
+# inverse stays under 1e-10.
+REL_TOL = 1e-8
+RESID_TOL = 1e-10
+SIZES = (k2.max_n(torch.float64) + 1, 300)
+
+
+@functools.lru_cache(maxsize=None)
+def _problem(n):
+    """P, A, rho of a well-conditioned Schur matrix M = P + sigma I +
+    A' diag(rho) A, M itself, and the JAX package's inverse of M."""
+    rng = np.random.default_rng(n)
+    G = rng.standard_normal((2, n, n))
+    P = np.einsum("bij,bkj->bik", G, G) / n + 0.1 * np.eye(n)
+    A = rng.standard_normal((2, 7, n))
+    rho = np.full((2, 7), 0.1)
+    M = P + 1e-6 * np.eye(n) + np.einsum("bmi,bm,bmj->bij", A, rho, A)
+    return P, A, rho, M, np.asarray(jspd_inverse(jnp.asarray(M)))
+
+
+def _hold(X, M, J):
+    X = X.numpy()
+    assert np.abs(X - J).max() <= REL_TOL * np.abs(J).max()
+    assert np.abs(np.eye(M.shape[-1]) - M @ X).max() <= RESID_TOL
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_spd_inverse_above_max_n_matches_reference(n):
+    *_, M, J = _problem(n)
+    _hold(k2.spd_inverse(torch.as_tensor(M)), M, J)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_dense_inv_init_above_max_n_matches_reference(n):
+    P, A, rho, M, J = _problem(n)
+    rescued = dense_inv.guard_rescued
+    fac = dense_inv.init(torch.as_tensor(P), torch.as_tensor(A), 1e-6, torch.as_tensor(rho))
+    _hold(fac["Minv"], M, J)
+    assert dense_inv.guard_rescued == rescued, "a well-conditioned batch needs no rescue"
+    assert not fac["refine"].any()
+
+
+@pytest.mark.parametrize("n,leaves", [(170, [80, 90]), (300, [144, 156]), (550, [144, 128, 144, 134])])
+def test_recursion_splits_at_multiples_of_16_down_to_leaves_that_fit(monkeypatch, n, leaves):
+    seen = []
+    real = k2.chol_inverse_leaf
+    monkeypatch.setattr(k2, "chol_inverse_leaf", lambda S: seen.append(S.shape[-1]) or real(S))
+    rng = np.random.default_rng(0)
+    G = rng.standard_normal((1, n, n))
+    M = torch.as_tensor(G @ G.transpose(0, 2, 1) / n + np.eye(n))
+    T = k2.chol_inv(M)
+    assert seen == leaves and all(s <= k2.max_n(torch.float64) for s in seen)
+    assert torch.equal(T, torch.tril(T))
+    # T M T' = I: T is the inverse Cholesky factor of M
+    assert float((T @ M @ T.mT - torch.eye(n, dtype=torch.float64)).abs().max()) <= 1e-10
+
+
+def test_leaf_is_the_inverse_cholesky_factor_and_nan_where_not_pd():
+    rng = np.random.default_rng(2)
+    G = rng.standard_normal((3, 9, 9))
+    S = G @ G.transpose(0, 2, 1) + np.eye(9)
+    S[2, 4, 4] = -1.0
+    T = k2.chol_inverse_leaf(torch.as_tensor(S)).numpy()
+    np.testing.assert_allclose(T[0], np.linalg.inv(np.linalg.cholesky(S[0])), rtol=0, atol=1e-12)
+    assert np.array_equal(T[1], np.tril(T[1]))
+    assert np.isnan(T[2]).all()
+    # and the recursion carries NaN over a whole instance above max_n
+    n = k2.max_n(torch.float64) + 1
+    M = np.stack([np.eye(n), np.eye(n)])
+    M[1, n - 1, n - 1] = -1.0
+    X = k2.spd_inverse(torch.as_tensor(M)).numpy()
+    np.testing.assert_allclose(X[0], np.eye(n), rtol=0, atol=1e-15)
+    assert np.isnan(X[1]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("offset,path", [(32, "warp"), (33, "block"), ("max", "block"), ("max+1", "device")])
+def test_k7_factor_path(dtype, offset, path):
+    b = {"max": k7.max_block(dtype), "max+1": k7.max_block(dtype) + 1}.get(offset, offset)
+    assert k7.factor_path(b, dtype) == path
+
+
+def _mpc_batch(nx, nu, horizon, B, seed=0):
+    rng = np.random.default_rng(seed)
+    Ad = np.eye(nx) + 0.05 * rng.standard_normal((nx, nx)) / np.sqrt(nx)
+    Bd = rng.standard_normal((nx, nu)) / np.sqrt(nx)
+    base = build_mpc_qp(Ad, Bd, np.eye(nx), 0.1 * np.eye(nu), horizon=horizon, xmin=np.full(nx, -10.0),
+                        xmax=np.full(nx, 10.0), umin=np.full(nu, -1.0), umax=np.full(nu, 1.0))
+    l, u = np.tile(base.l, (B, 1)), np.tile(base.u, (B, 1))
+    l[:, :nx] = u[:, :nx] = rng.standard_normal((B, nx))
+    return base, (np.stack([base.P] * B), np.stack([base.q] * B), np.stack([base.A] * B), l, u)
+
+
+def test_block_tridiag_at_b99_matches_reference():
+    """A stage-structured problem with stages of b = 99 = max_block(f64) +
+    1 (nx = 66, nu = 33, two stages), B = 2, in float64 through
+    solve_batch with block_tridiag on both packages: the same statuses and
+    iterations, x and y within 1e-6.  On the card the same problem takes
+    K7's device path."""
+    base, args = _mpc_batch(66, 33, 1, 2)
+    b = base.block_size
+    assert b == 99 and k7.factor_path(b, torch.float64) == "device"
+    kw = dict(dtype="float64", verbose=False, linsys_solver="block_tridiag", block_size=b)
+    rt = osqp_tpu_torch.solve_batch(*args, device="cpu", **kw)
+    rj = osqp_tpu.solve_batch(*args, **kw)
+    np.testing.assert_array_equal(rt.status_val.numpy(), np.asarray(rj.status_val))
+    np.testing.assert_array_equal(rt.iter.numpy(), np.asarray(rj.iter))
+    assert (rt.status_val == 1).all()
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(rt.y.numpy(), np.asarray(rj.y), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [12, SIZES[0]])
+def test_guard_rescue_is_counted_and_row_major(monkeypatch, n):
+    """Instances whose K2 inverse misses the residual guard are inverted
+    again through torch's Cholesky, counted in guard_rescued, and come
+    back row-major, as the kernels take Minv (the library's batched
+    inverse is column-major)."""
+    P, A, rho, M, _ = _problem(SIZES[0])
+    P, A, rho = P[:, :n, :n], A[:, :, :n], rho
+    real = k2.spd_inverse
+    # the second instance's inverse off by 1%: the guard catches it alone
+    monkeypatch.setattr(k2, "spd_inverse", lambda M_: real(M_) * torch.tensor([1.0, 1.01], dtype=M_.dtype)[:, None, None])
+    rescued = dense_inv.guard_rescued
+    fac = dense_inv.init(torch.as_tensor(P), torch.as_tensor(A), 1e-6, torch.as_tensor(rho))
+    assert dense_inv.guard_rescued == rescued + 1
+    assert fac["Minv"].is_contiguous()
+    Ms = torch.as_tensor(P + 1e-6 * np.eye(n) + np.einsum("bmi,bm,bmj->bij", A, rho, A))
+    np.testing.assert_allclose(fac["Minv"][1].numpy(), np.linalg.inv(Ms[1].numpy()), rtol=0,
+                               atol=1e-10 * float(fac["Minv"][1].abs().max()))
+    assert torch.equal(fac["Minv"][0], real(Ms)[0]) or float((fac["Minv"][0] - real(Ms)[0]).abs().max()) < 1e-12
+    assert not fac["refine"].any(), "the refine flag reads the residual of the inverse kept"
+
+
+def test_guard_keeps_k2_where_the_rescue_is_no_better(monkeypatch):
+    """A flagged instance keeps K2's inverse where Cholesky's residual is
+    no lower: the library's inverse never replaces a better one."""
+    n = 12
+    P, A, rho, _, _ = _problem(SIZES[0])
+    P, A = P[:, :n, :n], A[:, :, :n]
+    real, real_chol, seen = k2.spd_inverse, dense_inv._chol_inverse, []
+
+    def off(M_):  # K2's inverse of the second instance off by 1%
+        seen.append(real(M_) * torch.tensor([1.0, 1.01], dtype=M_.dtype)[:, None, None])
+        return seen[-1]
+
+    monkeypatch.setattr(k2, "spd_inverse", off)
+    # the rescue's off by 5%
+    monkeypatch.setattr(dense_inv, "_chol_inverse", lambda M_: real_chol(M_) * 1.05)
+    rescued = dense_inv.guard_rescued
+    fac = dense_inv.init(torch.as_tensor(P), torch.as_tensor(A), 1e-6, torch.as_tensor(rho))
+    assert dense_inv.guard_rescued == rescued + 1
+    assert torch.equal(fac["Minv"], seen[0]) and fac["Minv"].is_contiguous()
+    assert fac["refine"].tolist() == [False, True]

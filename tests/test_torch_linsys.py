@@ -210,11 +210,13 @@ def test_k2_bound():
 
 @pytest.mark.parametrize("n,through_k2", [(169, True), (170, False)])
 def test_dense_inv_init_shape_dispatch(monkeypatch, n, through_k2):
-    """Up to K2's bound the inverse goes through K2; above it, through
-    torch's Cholesky, chosen by n alone."""
-    calls = []
-    real = k2.chol_inverse
+    """Up to K2's bound the inverse goes through K2's whole-matrix entry;
+    above it, through K2's blocked recursion on its leaf entry (diagonal
+    blocks of 80 and 90), chosen by n alone."""
+    calls, leaves = [], []
+    real, real_leaf = k2.chol_inverse, k2.chol_inverse_leaf
     monkeypatch.setattr(k2, "chol_inverse", lambda M: calls.append(M.shape) or real(M))
+    monkeypatch.setattr(k2, "chol_inverse_leaf", lambda M: leaves.append(M.shape[-1]) or real_leaf(M))
     rng = np.random.default_rng(n)
     G = rng.standard_normal((2, n, n))
     P = torch.as_tensor(np.einsum("bij,bkj->bik", G, G) / n + 0.1 * np.eye(n))
@@ -222,13 +224,14 @@ def test_dense_inv_init_shape_dispatch(monkeypatch, n, through_k2):
     rho = torch.full((2, 3), 0.1, dtype=torch.float64)
     fac = dense_inv.init(P, A, 1e-6, rho)
     assert bool(calls) == through_k2
+    assert leaves == ([] if through_k2 else [80, 90])
     M = P + 1e-6 * torch.eye(n, dtype=torch.float64) + A.transpose(1, 2) @ (rho[:, :, None] * A)
     np.testing.assert_allclose(fac["Minv"].numpy(), np.linalg.inv(M.numpy()), rtol=1e-8, atol=1e-10)
 
 
 def test_dense_inv_init_above_k2_bound_polishes_like_reference():
-    """Above K2's bound the Cholesky inverse takes the Newton-Schulz step
-    that the JAX package's inverse takes at every n."""
+    """Above K2's bound the blocked recursion's inverse takes the
+    Newton-Schulz step that the JAX package's inverse takes at every n."""
     n = k2.max_n(torch.float32) + 1
     rng = np.random.default_rng(3)
     G = rng.standard_normal((1, n, n))
@@ -237,8 +240,13 @@ def test_dense_inv_init_above_k2_bound_polishes_like_reference():
     rho = torch.full((1, 5), 0.1)
     fac = dense_inv.init(P, A, 1e-6, rho)
     M = P + 1e-6 * torch.eye(n) + A.transpose(1, 2) @ (rho[:, :, None] * A)
-    assert torch.equal(fac["Minv"], k2.newton_schulz(M, dense_inv._chol_inverse(M)))
-    assert not torch.equal(fac["Minv"], dense_inv._chol_inverse(M))
+    assert torch.equal(fac["Minv"], k2.spd_inverse(M))
+    # the recursion's inverse before its Newton-Schulz step
+    d = torch.diagonal(M, dim1=-2, dim2=-1).rsqrt()
+    T = k2.chol_inv(M * d[:, :, None] * d[:, None, :])
+    X0 = torch.bmm(T.mT, T) * d[:, :, None] * d[:, None, :]
+    assert not torch.equal(fac["Minv"], X0)
+    assert float((fac["Minv"] - X0).abs().max()) <= 1e-3 * float(X0.abs().max())
 
 
 # --- the kkt_lu and dense_chol backends ----------------------------------
