@@ -22,13 +22,18 @@ failure ends the run with a non-zero exit and no result line:
    against the plain route (the recursion on the plain leaves), the old
    library route and torch.linalg.inv, at the MPC cell (B=1000, n=372,
    float32), the portfolio leg (B=256, n=550, float32), CVXQP2_M (B=1,
-   n=1000, both dtypes) and n = max_n + 1 (both dtypes): leaf launches a
-   call, each leaf held against its plain version at the input the route
-   gives it, the kernel route against the plain route, each route's
-   worst residual against the refine gate (the kernel route's within the
-   gate or 3x the other routes'), the instances the residual guard
-   sends to Cholesky, times with and without the guard beside the bound;
-   the leaf kernel timed at the portfolio's first leaf;
+   n=1000, both dtypes) and n = max_n + 1 (B=64, both dtypes): leaf
+   launches a call and those of the leaf's cluster form (required at
+   CVXQP2_M, four leaves of 256, 240, 256 and 248, and at B=64; excluded
+   at the MPC cell and the portfolio), each leaf held against its plain version at
+   the input the route gives it, the kernel route against the plain
+   route, each route's worst residual against the refine gate (the
+   kernel route's within the gate or 3x the other routes'), the
+   instances the residual guard sends to Cholesky, times with and
+   without the guard beside the bound, and the old tree's (leaves of
+   max_n on one block each) where the cluster form runs; the leaf kernel
+   timed at the portfolio's first leaf, its cluster form at CVXQP2_M's
+   first leaf in both dtypes with every cluster size that fits;
 4. K1 (admm_iter) against its plain version, one step from a random
    state: B=512 in float64 and float32 with half of the instances
    inactive, B=8192 in float32 half and all active, CVXQP2_M's shape at
@@ -159,19 +164,25 @@ failure ends the run with a non-zero exit and no result line:
     data at B=1024 in float32 beside the ``dense_inv`` run, with the step
     kernels' launches in that solve (the stepwise path's main user);
 19. K7 (block_tridiag: bt_factor, bt_solve) against its plain versions:
-    the warp path (b = 1, 5, 12, 16, 32) and the block path (b = 40) on
-    random band matrices at B=200 in both dtypes, then on
+    the warp path (b = 1, 5, 12, 16, 32) and the factor's cluster path (b
+    = 40, 64) on random band matrices at B=200 in both dtypes, then on
     the reduced matrix of the MPC cell as the backend forms it
     (``bench.py``'s bench_mpc: B=1000, n=372, b=12, Nb=31, float32) and at
     B=64 in float64: factor and solve bit for bit, two launches
     bit-identical, the solve's backward error against M; kernel, plain
     and library (torch.linalg.cholesky of M, torch.cholesky_solve) times
-    beside the bounds; then K7's device path (phase k7_device, b above
-    max_block): factor and solve bit for bit at b = max_block + 1 and
-    256 in both dtypes, and stage-structured MPC batches at b = 140
-    (float32) and 99 (float64) through solve_batch and the Solver against
-    the CPU path (statuses and iterations equal, float64 x and y within
-    1e-6), the device-path factor timed at the float32 batch;
+    beside the bounds; then K7 above a warp (phase k7_device): the
+    cluster path bit for bit at b = 33, 140 and 256 (float32) and 33, 99
+    and 256 (float64) in every cluster size that fits, the device
+    path at b = cluster_max_block + 1 and where named, factor and solve;
+    stage-structured MPC batches at b = 140 (float32) and 99 (float64) on
+    the cluster path and at b = cluster_max_block + 1 (float64) on the
+    device path through solve_batch and the Solver against the CPU path
+    (statuses and iterations equal, float64 x and y within 1e-6); the
+    factor timed at the b = 140 and 99 batches by path and cluster size,
+    and on the device path at the b = cluster_max_block + 1 batch, beside
+    the plain version, the library, the bound and the operations floor
+    without fused multiply-adds;
 20. the MPC cell through ``solve_batch`` with ``block_tridiag`` and with
     ``dense_inv`` (B=1000, float32, eps 1e-3, polish off): every
     instance solved, none at MAX_ITER, the same statuses in both legs,
@@ -205,11 +216,12 @@ failure ends the run with a non-zero exit and no result line:
     ms, ms per CG step and the idle share; the ``SparseSolver`` on
     LISWET1: set-up, solve, update_lin_cost and a warm re-solve.
 
-The line before the last is a JSON object of the kernels (16 rows:
+The line before the last is a JSON object of the kernels (18 rows:
 K6's device loop is cg_loop, K1r's resident path
-admm_iter_refined_resident, K7's device path
-block_tridiag_factor_device, K2's leaf chol_inverse_leaf); the last line
-is the device JSON object.
+admm_iter_refined_resident, K7's cluster and device paths
+block_tridiag_factor_cluster and block_tridiag_factor_device, K2's leaf
+chol_inverse_leaf and its cluster form chol_inverse_leaf_cluster); the
+last line is the device JSON object.
 
 ``python3 chip_smoke.py --only k8,polish_solver`` runs the build and the
 named phases alone (names: the ``phase_*`` functions' suffixes), for a
@@ -482,11 +494,11 @@ def reset_counts() -> None:
     from osqp_tpu_torch.ops import block_tridiag as k7, cg as k6, ell as k5
 
     k1.launches = k1.refined_launches = k1.refined_launches_resident = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
-    k2.launches_leaf = 0
+    k2.launches_leaf = k2.launches_leaf_cluster = 0
     k8.launches_factor = k8.launches_solve = 0
     k5.launches = k6.launches = k6.launches_loop = 0
     k7.launches_factor = k7.launches_solve = k7.launches_factor_warp = k7.launches_solve_warp = 0
-    k7.launches_factor_device = 0
+    k7.launches_factor_cluster = k7.launches_factor_device = 0
 
 
 def read_counts() -> dict:
@@ -495,12 +507,13 @@ def read_counts() -> dict:
 
     return {"admm_iter": k1.launches, "admm_iter_refined": k1.refined_launches,
             "admm_iter_refined_resident": k1.refined_launches_resident, "chol_inverse": k2.launches,
-            "chol_inverse_leaf": k2.launches_leaf,
+            "chol_inverse_leaf": k2.launches_leaf, "chol_inverse_leaf_cluster": k2.launches_leaf_cluster,
             "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches,
             "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve, "ell_ops": k5.launches,
             "cg_step": k6.launches, "cg_loop": k6.launches_loop, "bt_factor": k7.launches_factor,
             "bt_solve": k7.launches_solve, "bt_factor_warp": k7.launches_factor_warp,
-            "bt_solve_warp": k7.launches_solve_warp, "bt_factor_device": k7.launches_factor_device}
+            "bt_solve_warp": k7.launches_solve_warp, "bt_factor_cluster": k7.launches_factor_cluster,
+            "bt_factor_device": k7.launches_factor_device}
 
 
 def prepared(P, q, A, l, u):
@@ -1097,6 +1110,7 @@ def phase_headline(dev):
     require(launches["ruiz_resident"] == launches["ruiz"], "the headline's K4 did not take the resident path")
     require(launches["kkt_lu_factor"] == launches["kkt_lu_solve"] == 0, "K8 launched with polish off")
     require(launches["ell_ops"] == launches["cg_step"] == 0, "K5 or K6 launched on the dense_inv path")
+    require(launches["chol_inverse_leaf_cluster"] == 0, "a K2 leaf took the cluster form at the headline")
 
     times = []
     for _ in range(5):
@@ -1225,7 +1239,7 @@ def phase_solver(dev):
         if name.startswith("kkt_lu"):  # polish is off here: K8 must stay out of it
             require(n_launch == 0, f"{name} launched on the Solver path with polish off")
         elif name in ("ell_ops", "cg_step", "cg_loop", "bt_factor", "bt_solve", "bt_factor_warp",
-                      "bt_solve_warp", "bt_factor_device"):  # other backends' kernels
+                      "bt_solve_warp", "bt_factor_cluster", "bt_factor_device"):  # other backends' kernels
             require(n_launch == 0, f"{name} launched on the dense_inv Solver path")
         elif name == "admm_iter_refined_resident":  # B = 1: K1r's split path spreads the instance over the card
             require(n_launch == 0, "K1r took the resident path on the Solver path (B = 1)")
@@ -2229,16 +2243,27 @@ def mpc_prepared(B, dtype, dev):
 
 
 def k7_cost(B, Nb, b, dtype):
-    """(bytes, operations) of K7's factor and of its solve.  Factor: the
-    band blocks of M (D and O) read once, C and G written once; per stage
-    the row solve for G (b^3), D - G G' on the lower triangle (b^3 + b^2)
-    and the Cholesky (b^3 / 3 multiply-subtracts).  Solve: C, G and r read
-    once, x written once; per stage 6 b^2 operations."""
+    """(bytes, operations) of K7's factor and of its solve, a multiply-
+    subtract counted as two operations.  Factor: the band blocks of M (D
+    and O) read once, C and G written once; the Cholesky of every stage
+    ((b^3 - b) / 6 multiply-subtracts) and, on the Nb - 1 stages after
+    the first, the row solve for G (b^2 (b - 1) / 2) and D - G G' on the
+    lower triangle (b^2 (b + 1) / 2).  Solve: C, G and r read once, x
+    written once; per stage 6 b^2 operations.  Every product and
+    difference of K7 is rounded on its own (no FMA), so its operations
+    floor is twice this operations figure (k7_no_fma_ms)."""
     elt = 4 if dtype_name(dtype) == "float32" else 8
     blocks = 2 * Nb - 1
-    factor = (elt * B * 2 * blocks * b * b, {dtype_name(dtype): B * Nb * (2 * b**3 + b**2 + 2 * b**3 // 3)})
+    factor = (elt * B * 2 * blocks * b * b, {dtype_name(dtype): B * (Nb * (b**3 - b) // 3 + (Nb - 1) * 2 * b**3)})
     solve = (elt * B * (blocks * b * b + 2 * Nb * b), {dtype_name(dtype): B * Nb * 6 * b * b})
     return factor, solve
+
+
+def k7_no_fma_ms(flops):
+    """K7's operations floor in ms: its products and differences each
+    rounded on its own take twice the time of a bound that assumes fused
+    multiply-adds."""
+    return 2 * sum(f / PEAK_FLOPS[d] for d, f in flops.items()) * 1e3
 
 
 def band_schur(B, Nb, b, dtype, dev, seed=None):
@@ -2266,7 +2291,8 @@ def band_schur(B, Nb, b, dtype, dev, seed=None):
 
 def phase_k7(dev):
     """K7 (block_tridiag) against its plain versions: both paths (b = 1, 5,
-    12, 16, 32 on the warp path, 40 on the block path) on random band
+    12, 16, 32 on the warp path, 40 and 64 on the factor's cluster path
+    and a block an instance for the solve) on random band
     matrices, B=200, in both dtypes; then on the reduced matrix
     of the MPC cell as the block_tridiag backend forms it (B=1000, b=12,
     Nb=31, float32) and at B=64 in float64: factor and solve bit for bit,
@@ -2277,25 +2303,26 @@ def phase_k7(dev):
 
     from osqp_tpu_torch.ops import block_tridiag as k7
 
-    # both paths by block size: the warp path up to 32, the block path above
+    # both paths by block size: the warp path up to 32, the cluster path above
     for dtype in (torch.float64, torch.float32):
         paths = {}
-        for b in (1, 5, 12, 16, 32, 40):
+        for b in (1, 5, 12, 16, 32, 40, 64):
             B, Nb = 200, 8
             M, r = band_schur(B, Nb, b, dtype, dev)
-            before = (k7.launches_factor_warp, k7.launches_solve_warp)
+            before = (k7.launches_factor_warp, k7.launches_solve_warp, k7.launches_factor_cluster)
             C, G = k7.bt_factor(M, b)
             C2, G2 = k7.bt_factor(M, b)
             x, x2 = k7.bt_solve(C, G, r), k7.bt_solve(C, G, r)
             warp = (k7.launches_factor_warp - before[0], k7.launches_solve_warp - before[1]) == (2, 2)
+            cluster = k7.launches_factor_cluster - before[2] == 2
             Cp, Gp = k7.bt_factor_plain(M, b)
             xp = k7.bt_solve_plain(Cp, Gp, r)
             torch.cuda.synchronize()
-            require(warp == (b <= k7.WARP_MAX), f"K7 at b={b} took the wrong path")
+            require(warp == (b <= k7.WARP_MAX) and cluster == (not warp), f"K7 at b={b} took the wrong path")
             require(torch.equal(C, C2) and torch.equal(G, G2) and torch.equal(x, x2), f"K7: two launches differ at b={b}")
             require(torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp),
                     f"K7 differs from its plain version at b={b} {dtype_name(dtype)}")
-            paths[b] = "warp" if warp else "block"
+            paths[b] = "warp" if warp else "cluster"
         print(f"K7 block_tridiag B=200 Nb=8 {dtype_name(dtype)}, paths by b {paths}: factor and solve bit-identical "
               f"to plain True, two launches bit-identical True")
 
@@ -2421,6 +2448,8 @@ def phase_mpc(dev):
             require(delta["bt_factor"] == delta["bt_solve"] == 0, "mpc dense_inv: K7 launched")
             require(delta["chol_inverse_leaf"] > 0 and delta["chol_inverse"] == 0,
                     "mpc dense_inv: the factor did not take K2's route above max_n")
+            require(delta["chol_inverse_leaf_cluster"] == 0,
+                    "mpc dense_inv: a K2 leaf took the cluster form at B = 1000")
             require(delta["admm_iter_refined"] > 0, "mpc dense_inv: K1r never launched")
             require(delta["admm_iter_refined_resident"] == delta["admm_iter_refined"],
                     f"mpc dense_inv: K1r left the resident path ({delta['admm_iter_refined_resident']} of "
@@ -2473,54 +2502,86 @@ def large_stage_mpc(b, B=4, horizon=2, seed=0):
     return base, stack(base.P), stack(base.q), stack(base.A), l, u
 
 
+def k7_bits(M, r, b, label, expect, **kw):
+    """K7's factor on the path ``expect`` (counted) against the plain
+    version at M, with its solve: bit for bit, two launches
+    bit-identical, the solve's backward error against M.  Returns
+    |kernel - plain|max (0 when bit for bit)."""
+    import torch
+
+    from osqp_tpu_torch.ops import block_tridiag as k7
+
+    count = lambda: getattr(k7, f"launches_factor_{expect}")
+    before = count()
+    C, G = k7.bt_factor(M, b, **kw)
+    C2, G2 = k7.bt_factor(M, b, **kw)
+    x, x2 = k7.bt_solve(C, G, r), k7.bt_solve(C, G, r)
+    Cp, Gp = k7.bt_factor_plain(M, b)
+    xp = k7.bt_solve_plain(Cp, Gp, r)
+    torch.cuda.synchronize()
+    require(count() - before == 2, f"K7 at {label} did not take the {expect} path")
+    require(torch.equal(C, C2) and torch.equal(G, G2) and torch.equal(x, x2), f"K7: two launches differ at {label}")
+    same = torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp)
+    err = max(float((C - Cp).abs().max()), float((G - Gp).abs().max()), float((x - xp).abs().max()))
+    resid = float((torch.bmm(M, x[:, :, None])[:, :, 0] - r).abs().max())
+    scale = float(M.abs().sum(-1).max()) * float(x.abs().max())
+    print(f"K7 {expect} path {label}: factor and solve bit-identical to plain {same}, |k-p|max {err:.3e}; two "
+          f"launches bit-identical True; backward error of the solve {resid / scale:.3e}")
+    require(same, f"K7's {expect} path differs from its plain version at {label}")
+    require(bool(torch.isfinite(x).all()) and resid <= BACKWARD_BOUND[dtype_name(M.dtype)] * scale,
+            f"K7's solve does not solve M x = r at {label}")
+    return err
+
+
 def phase_k7_device(dev):
-    """K7's factor above max_block, where its three stage blocks leave
-    shared memory for device memory (the device path): factor and solve
-    bit for bit against the plain versions at b = max_block + 1 and 256 in
-    both dtypes, two launches bit-identical; then stage-structured MPC
-    batches at b = 140 (float32) and 99 (float64) through solve_batch and
-    the Solver with block_tridiag against the CPU path (statuses and
-    iterations equal, float64 x and y within 1e-6), the counts set to 0
-    just before the float32 batch's solve and read just after it; the
-    device path's factor timed at that batch's reduced matrix beside the
-    plain version, the library (torch.linalg.cholesky) and the bound."""
+    """K7's factor above a warp (b > 32): the cluster path (each instance
+    over a thread-block cluster, up to cluster_max_block) bit for bit
+    against the plain versions at b = 33, 140 and 256 in float32 and 33,
+    99 and 256 in float64, in clusters of cluster_plan's size and of
+    every other size that fits, and the device path (device memory)
+    above cluster_max_block and where named at each of those b;
+    two launches bit-identical.  Then stage-structured MPC batches at b =
+    140 (float32) and 99 (float64) through solve_batch and the Solver with
+    block_tridiag against the CPU path (statuses and iterations equal,
+    float64 x and y within 1e-6), the cluster path counted, and one at b =
+    cluster_max_block + 1 (float64) on the device path, the counts set to
+    0 just before each solve_batch and read just after it; the factor at
+    the b = 140 and 99 batches' reduced matrices timed on the cluster
+    path (every cluster size that fits) beside the device path named
+    there, and at the b = cluster_max_block + 1 batch's on the device
+    path, each beside the plain version, the library
+    (torch.linalg.cholesky), the bound and the operations floor without
+    fused multiply-adds, in one call."""
     import torch
 
     import osqp_tpu_torch as ot
-    from osqp_tpu_torch import batch, solver
+    from osqp_tpu_torch import _build, batch, solver
     from osqp_tpu_torch.linsys.dense_chol import form_schur
     from osqp_tpu_torch.ops import block_tridiag as k7
     from osqp_tpu_torch.types import DynSettings
 
-    worst = 0.0
-    for dtype in (torch.float32, torch.float64):
-        for b in (k7.max_block(dtype) + 1, 256):
+    sms = _build.sm_count(dev)
+    worst = {"cluster": 0.0, "device": 0.0}
+    for dtype, sizes in ((torch.float32, (33, 140, 256)), (torch.float64, (33, 99, 256))):
+        for b in sizes:
             B, Nb = 8, 3
             M, r = band_schur(B, Nb, b, dtype, dev)
-            before = k7.launches_factor_device
-            C, G = k7.bt_factor(M, b)
-            C2, G2 = k7.bt_factor(M, b)
-            x, x2 = k7.bt_solve(C, G, r), k7.bt_solve(C, G, r)
-            Cp, Gp = k7.bt_factor_plain(M, b)
-            xp = k7.bt_solve_plain(Cp, Gp, r)
-            torch.cuda.synchronize()
-            label = f"b={b} B={B} Nb={Nb} {dtype_name(dtype)}"
-            require(k7.factor_path(b, dtype) == "device" and k7.launches_factor_device - before == 2,
-                    f"K7 at {label} did not take the device path")
-            require(torch.equal(C, C2) and torch.equal(G, G2) and torch.equal(x, x2), f"K7: two launches differ at {label}")
-            same = torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp)
-            err = max(float((C - Cp).abs().max()), float((G - Gp).abs().max()), float((x - xp).abs().max()))
-            resid = float((torch.bmm(M, x[:, :, None])[:, :, 0] - r).abs().max())
-            scale = float(M.abs().sum(-1).max()) * float(x.abs().max())
-            print(f"K7 device path {label}: factor and solve bit-identical to plain {same}, |k-p|max {err:.3e}; two "
-                  f"launches bit-identical True; backward error of the solve {resid / scale:.3e}")
-            require(same, f"K7's device path differs from its plain version at {label}")
-            require(bool(torch.isfinite(x).all()) and resid <= BACKWARD_BOUND[dtype_name(dtype)] * scale,
-                    f"K7's solve does not solve M x = r at {label}")
-            worst = max(worst, err)
+            plan = k7.cluster_plan(b, B, dtype, sms)
+            require(k7.factor_path(b, dtype) == "cluster", f"K7 at b={b} {dtype_name(dtype)}: not the cluster path")
+            for k in (None,) + tuple(c for c in k7.CLUSTERS if c != plan and k7.cluster_fits(b, c, dtype)):
+                kw = {} if k is None else dict(path="cluster", cluster=k)
+                label = f"b={b} B={B} Nb={Nb} {dtype_name(dtype)}, clusters of {plan if k is None else k}"
+                worst["cluster"] = max(worst["cluster"], k7_bits(M, r, b, label, "cluster", **kw))
+            label = f"b={b} B={B} Nb={Nb} {dtype_name(dtype)}, named"
+            worst["device"] = max(worst["device"], k7_bits(M, r, b, label, "device", path="device"))
+        b = k7.cluster_max_block(dtype) + 1
+        M, r = band_schur(2, 3, b, dtype, dev)
+        require(k7.factor_path(b, dtype) == "device", f"K7 at b={b}: not the device path")
+        worst["device"] = max(worst["device"], k7_bits(M, r, b, f"b={b} B=2 Nb=3 {dtype_name(dtype)}", "device"))
 
-    launches = None
-    for dtype, b in (("float32", 140), ("float64", 99)):
+    launches = {}
+    for dtype, b in (("float32", 140), ("float64", 99), ("float64", k7.cluster_max_block(torch.float64) + 1)):
+        path = k7.factor_path(b, getattr(torch, dtype))
         base, *arrays = large_stage_mpc(b)
         n, m, B = base.P.shape[0], base.A.shape[0], arrays[0].shape[0]
         kw = dict(MPC_KW, dtype=dtype, linsys_solver="block_tridiag", block_size=b)
@@ -2530,7 +2591,7 @@ def phase_k7_device(dev):
         rg = ot.solve_batch(*args, **kw)
         status = rg.status_val.cpu().numpy()
         counts = read_counts()
-        launches = launches or counts
+        launches.setdefault(path, counts)
         rc = ot.solve_batch(*arrays, device="cpu", **kw)
         sg = ot.Solver(base.P, base.q, base.A, arrays[3][0], arrays[4][0], device=dev, **kw).solve()
         sc = ot.Solver(base.P, base.q, base.A, arrays[3][0], arrays[4][0], device="cpu", **kw).solve()
@@ -2538,11 +2599,13 @@ def phase_k7_device(dev):
         dy = float((rg.y.cpu() - rc.y).abs().max())
         sdx, sdy = float(np.abs(sg.x - sc.x).max()), float(np.abs(sg.y - sc.y).max())
         label = f"b={b} (nx {2 * b // 3}, nu {b - 2 * b // 3}, 3 stages) B={B} n={n} m={m} {dtype}"
-        print(f"block_tridiag {label}: solve_batch statuses {status.tolist()} (CPU {rc.status_val.tolist()}), "
-              f"iterations {rg.iter.tolist()} (CPU {rc.iter.tolist()}), |dx|max {dx:.3e}, |dy|max {dy:.3e}; Solver "
-              f"scenario 0: {sg.info.status}, {sg.info.iter} iterations (CPU {sc.info.status}, {sc.info.iter}), "
-              f"|dx|max {sdx:.3e}, |dy|max {sdy:.3e}; K7 launches {dict((k, counts[k]) for k in counts if k.startswith('bt'))}")
-        require(counts["bt_factor_device"] == counts["bt_factor"] >= 1, f"block_tridiag {label}: K7's device path did not run")
+        print(f"block_tridiag {label}, {path} path: solve_batch statuses {status.tolist()} (CPU "
+              f"{rc.status_val.tolist()}), iterations {rg.iter.tolist()} (CPU {rc.iter.tolist()}), |dx|max {dx:.3e}, "
+              f"|dy|max {dy:.3e}; Solver scenario 0: {sg.info.status}, {sg.info.iter} iterations (CPU "
+              f"{sc.info.status}, {sc.info.iter}), |dx|max {sdx:.3e}, |dy|max {sdy:.3e}; K7 launches "
+              f"{dict((k, counts[k]) for k in counts if k.startswith('bt'))}")
+        require(counts[f"bt_factor_{path}"] == counts["bt_factor"] >= 1,
+                f"block_tridiag {label}: K7's {path} path did not run")
         require(np.array_equal(status, rc.status_val.numpy()) and torch.equal(rg.iter.cpu(), rc.iter),
                 f"block_tridiag {label}: solve_batch on the card disagrees with the CPU path")
         require(sg.info.status_val == sc.info.status_val and sg.info.iter == sc.info.iter,
@@ -2551,23 +2614,59 @@ def phase_k7_device(dev):
         if dtype == "float64":
             require(max(dx, dy, sdx, sdy) <= 1e-6, f"block_tridiag {label}: x or y off the CPU path's by more than 1e-6")
 
-    # the device path's factor at the float32 batch's reduced matrix
-    base, *arrays = large_stage_mpc(140)
-    P, q, A, l, u = on_device(arrays, torch.float32, dev)
-    B, n, m = P.shape[0], P.shape[1], A.shape[1]
-    s = solver.Settings(**MPC_KW, dtype=torch.float32, linsys_solver="block_tridiag", block_size=140)
-    cfg = solver.make_config(n, m, s, torch.float32)
-    dyn = DynSettings.make(torch.float32)
-    rho0 = torch.full((B,), s.rho, dtype=torch.float32, device=dev)
-    scaled, _, rs, _, _ = batch._prepare(cfg, s.scaling, P, q, A, l, u, rho0, dyn, None, None)
-    M = form_schur(scaled.P, scaled.A, dyn.sigma, rs.rho_vec).contiguous()
-    Nb = n // 140
-    (fb, ff), _ = k7_cost(B, Nb, 140, torch.float32)
-    stats = report_times(f"K7 bt_factor device path b=140 B={B} Nb={Nb} float32", lambda: k7.bt_factor(M, 140),
-                         lambda: k7.bt_factor_plain(M, 140), 5, fb, ff)
-    lib = cuda_ms(lambda: torch.linalg.cholesky(M), 5)  # library_ms only: the dense route, which the port never takes
-    print(f"  library: torch.linalg.cholesky(M) {lib:.4f} ms")
-    return launches, dict(stats, max_abs_err=worst, library_ms=lib)
+    # the factor at the batches' reduced matrices, each path where the main
+    # path takes it, in one call: the cluster path at b = 140 (float32) and
+    # 99 (float64) in every cluster size that fits, beside the device path
+    # named there; the device path at b = cluster_max_block + 1 (float64);
+    # each beside its plain version, the library (torch.linalg.cholesky)
+    # and the bound
+    stats = {}
+    for dtype, b in ((torch.float32, 140), (torch.float64, 99),
+                     (torch.float64, k7.cluster_max_block(torch.float64) + 1)):
+        base, *arrays = large_stage_mpc(b)
+        P, q, A, l, u = on_device(arrays, dtype, dev)
+        B, n, m = P.shape[0], P.shape[1], A.shape[1]
+        s = solver.Settings(**MPC_KW, dtype=dtype, linsys_solver="block_tridiag", block_size=b)
+        cfg = solver.make_config(n, m, s, dtype)
+        dyn = DynSettings.make(dtype)
+        rho0 = torch.full((B,), s.rho, dtype=dtype, device=dev)
+        scaled, _, rs, _, _ = batch._prepare(cfg, s.scaling, P, q, A, l, u, rho0, dyn, None, None)
+        M = form_schur(scaled.P, scaled.A, dyn.sigma, rs.rho_vec).contiguous()
+        Nb = n // b
+        path = k7.factor_path(b, dtype)
+        (fb, ff), _ = k7_cost(B, Nb, b, dtype)
+        no_fma = k7_no_fma_ms(ff)
+        label = f"b={b} B={B} Nb={Nb} {dtype_name(dtype)}"
+        if path == "cluster":
+            plan = k7.cluster_plan(b, B, dtype, sms)
+            st = report_times(f"K7 bt_factor cluster path {label}, clusters of {plan}", lambda: k7.bt_factor(M, b),
+                              lambda: k7.bt_factor_plain(M, b), 5, fb, ff)
+            sizes = {}
+            for k in k7.CLUSTERS:
+                if k7.cluster_fits(b, k, dtype):
+                    sizes[k] = cuda_ms(lambda: k7.bt_factor(M, b, path="cluster", cluster=k), 20)
+            dv = cuda_ms(lambda: k7.bt_factor(M, b, path="device"), 5)
+            again = cuda_ms(lambda: k7.bt_factor(M, b), 20)
+            # library_ms only: the dense route, which the port never takes
+            lib = cuda_ms(lambda: torch.linalg.cholesky(M), 20)
+            print(f"  cluster path by CTAs a cluster (ms): {({k: round(v, 4) for k, v in sizes.items()})}; planned "
+                  f"({plan}) again {again:.4f} ms; device path named {dv:.4f} ms; library torch.linalg.cholesky(M) "
+                  f"{lib:.4f} ms; cluster over library {again / lib:.3f}, device over cluster {dv / again:.2f}; "
+                  f"operations without fused multiply-add {no_fma:.4f} ms, share {no_fma / again:.3f}")
+            st.update(library_ms=lib, device_named_ms=dv, by_cluster=sizes, cluster=plan, bound_no_fma_ms=no_fma)
+        else:
+            require(path == "device", f"K7 at b={b} {dtype_name(dtype)}: not the device path")
+            st = report_times(f"K7 bt_factor device path {label}", lambda: k7.bt_factor(M, b),
+                              lambda: k7.bt_factor_plain(M, b), 3, fb, ff)
+            lib = cuda_ms(lambda: torch.linalg.cholesky(M), 20)
+            print(f"  library torch.linalg.cholesky(M) {lib:.4f} ms; device over library {st['ms'] / lib:.3f}; "
+                  f"operations without fused multiply-add {no_fma:.4f} ms, share {no_fma / st['ms']:.3f}")
+            st.update(library_ms=lib, bound_no_fma_ms=no_fma, at=label)
+        stats[path if path == "device" else dtype_name(dtype)] = st
+    cluster_stats = dict(stats["float32"], max_abs_err=worst["cluster"], float64=stats["float64"])
+    device_stats = dict(stats["device"], max_abs_err=worst["device"],
+                        named_b140_float32_ms=stats["float32"]["device_named_ms"])
+    return launches, cluster_stats, device_stats
 
 
 def leaf_spy(fn, seen):
@@ -2600,6 +2699,29 @@ def plain_leaves(fn):
         return fn()
     finally:
         k2.chol_inverse_leaf = real
+
+
+def one_block_leaves(fn):
+    """``fn()`` with K2's leaves on one block an instance, as before the
+    cluster form (the old tree, with leaf_n = max_n)."""
+    from osqp_tpu_torch.ops import spd_inverse as k2
+
+    real = k2.chol_inverse_leaf
+    k2.chol_inverse_leaf = lambda S: real(S, cluster=0)
+    try:
+        return fn()
+    finally:
+        k2.chol_inverse_leaf = real
+
+
+def tree_leaves(n, leaf_n):
+    """The leaf sizes of K2's recursion at n with leaves of at most leaf_n."""
+    from osqp_tpu_torch.ops import spd_inverse as k2
+
+    if n <= leaf_n:
+        return [n]
+    h = k2.split(n)
+    return tree_leaves(h, leaf_n) + tree_leaves(n - h, leaf_n)
 
 
 def portfolio_batch(B, n=500, k=50, seed=0):
@@ -2645,15 +2767,21 @@ def phase_k2_route(dev):
     Newton-Schulz step) and torch.linalg.inv, at the shapes the main paths
     give it: the MPC cell (B=1000, n=372, float32), the portfolio leg
     (B=256, n=550, float32), CVXQP2_M (B=1, n=1000) in float64 and
-    float32, and n = max_n + 1 in both dtypes; every leaf of one route
-    call held against its plain version on the input it was given, the
-    kernel route against the plain route, each route's worst inverse
+    float32, and n = max_n + 1 in both dtypes (B=64); every leaf of one
+    route call held against its plain version on the input it was given,
+    the kernel route against the plain route, each route's worst inverse
     residual |I - M X|max against the refine gate, the instances each
-    flags and those the residual guard sends to Cholesky, the leaf
-    launches per call, times with and without the guard beside the
-    bound.  Then the leaf kernel timed at the portfolio's first leaf."""
+    flags and those the residual guard sends to Cholesky, the leaves a
+    call and those of the cluster form (which B at most half the SM count
+    takes: CVXQP2_M's four leaves of at most 256 and the B=64 cases, not
+    the MPC cell nor the portfolio), times with and without the guard
+    beside the bound and, where the leaves take the cluster form, the old
+    tree's (leaves of at most max_n on one block an instance) in the same
+    call.  Then the leaf kernel timed at the portfolio's first leaf, and
+    its cluster form at CVXQP2_M's first leaf in both dtypes."""
     import torch
 
+    from osqp_tpu_torch import _build
     from osqp_tpu_torch.linsys import dense_inv
     from osqp_tpu_torch.linsys.dense_chol import form_schur
     from osqp_tpu_torch.ops import spd_inverse as k2
@@ -2672,16 +2800,18 @@ def phase_k2_route(dev):
              ("CVXQP2_M", lambda: schur(maros_dense("CVXQP2_M"), torch.float32)),
              ("max_n + 1", lambda: spd(64, k2.max_n(torch.float32) + 1, torch.float32)),
              ("max_n + 1", lambda: spd(64, k2.max_n(torch.float64) + 1, torch.float64))]
-    routes = {}
+    sms = _build.sm_count(dev)
+    routes, cluster_leaves = {}, {}
     for name, make in cases:
         M = make()
         B, n, dtype = M.shape[0], M.shape[-1], M.dtype
         f32 = dtype == torch.float32
         gate = dense_inv._REFINE_TOL_F32 if f32 else dense_inv._REFINE_TOL_F64
         guard = dense_inv._GUARD_TOL_F32 if f32 else dense_inv._GUARD_TOL_F64
-        leaves, seen = k2.launches_leaf, []
+        leaves, clustered, seen = k2.launches_leaf, k2.launches_leaf_cluster, []
         Xk = leaf_spy(lambda: k2.spd_inverse(M), seen)
-        per_call = k2.launches_leaf - leaves
+        per_call, cluster_call = k2.launches_leaf - leaves, k2.launches_leaf_cluster - clustered
+        tree = tree_leaves(n, k2.leaf_size(B, dtype, dev))
         Xp = plain_leaves(lambda: k2.spd_inverse(M))
         Xl = k2.newton_schulz(M, dense_inv._chol_inverse(M))
         torch.cuda.synchronize()
@@ -2700,8 +2830,14 @@ def phase_k2_route(dev):
         chol_ms = cuda_ms(lambda: k2.newton_schulz(M, dense_inv._chol_inverse(M)), reps)
         guarded_ms = cuda_ms(lambda: dense_inv.guarded_inverse(M), reps)
         inv_ms = cuda_ms(lambda: torch.linalg.inv(M), reps)  # library_ms only
+        # the old tree (leaves of at most max_n, one block an instance) where
+        # the leaves now take the cluster form
+        old_ms = cuda_ms(lambda: one_block_leaves(lambda: k2.spd_inverse(M, leaf_n=k2.max_n(dtype))),
+                         reps) if cluster_call else None
         b_ms, b_by = bound(2 * M.element_size() * B * n * n, {dtype_name(dtype): B * n**3})
-        print(f"K2 route {label}: {per_call} leaf launches a call; |I-MX|max kernel route {worst['kernel']:.3e}, plain "
+        print(f"K2 route {label}: {per_call} leaf launches a call, {cluster_call} of the cluster form "
+              f"(clusters of {k2.leaf_plan(B, tree[0], dtype, sms)}), leaves {tree}; |I-MX|max kernel route "
+              f"{worst['kernel']:.3e}, plain "
               f"route {worst['plain']:.3e}, library route {worst['library']:.3e} (refine gate {gate:g}; flagged "
               f"{flags['kernel']} / {flags['plain']} / {flags['library']} of {B}); the guard sent {rescued} of {B} "
               f"to Cholesky; |Xk-Xp|max relative {rel:.3e} (limit {ROUTE_REL_TOL[dtype_name(dtype)]:g}); leaves "
@@ -2709,9 +2845,30 @@ def phase_k2_route(dev):
               f"{LEAF_REL_TOL[dtype_name(dtype)]:g})")
         print(f"  times: kernel route {ms:.4f} ms, with the residual guard {guarded_ms:.4f} ms, plain route "
               f"{plain_ms:.4f} ms, old library route (Cholesky, "
-              f"cholesky_inverse, Newton-Schulz) {chol_ms:.4f} ms, torch.linalg.inv {inv_ms:.4f} ms; bound {b_ms:.4f} "
-              f"ms ({b_by}), share of bound {b_ms / ms:.4f}")
-        require(per_call >= 2 and bool(torch.isfinite(Xk).all()), f"K2 route {label}: no recursion, or not finite")
+              f"cholesky_inverse, Newton-Schulz) {chol_ms:.4f} ms, torch.linalg.inv {inv_ms:.4f} ms"
+              f"{'' if old_ms is None else f', old tree (leaves of max_n, one block each) {old_ms:.4f} ms'}; bound "
+              f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / ms:.4f}")
+        busy = None
+        if B == 1:
+            # at B=1 the host paces the route's ~30-55 small launches, and
+            # its event times move by 2x between calls: the device time of
+            # each route under the profiler is the steadier comparison
+            busy, walls = {}, {}
+            for key, fn in (("kernel route", lambda: k2.spd_inverse(M)),
+                            ("old library route", lambda: k2.newton_schulz(M, dense_inv._chol_inverse(M))),
+                            ("old tree", lambda: one_block_leaves(lambda: k2.spd_inverse(M, leaf_n=k2.max_n(dtype)))),
+                            ("torch.linalg.inv", lambda: torch.linalg.inv(M))):
+                fn()
+                _, wall, events = profiled(lambda: [fn() for _ in range(5)])
+                busy[key], walls[key] = event_ms(events) / 5, wall / 5
+            print(f"  device time per call under the profiler (ms): {({k: round(v, 4) for k, v in busy.items()})}; "
+                  f"host wall per call there {({k: round(v, 4) for k, v in walls.items()})}")
+        require(per_call == len(tree) and bool(torch.isfinite(Xk).all()),
+                f"K2 route {label}: {per_call} leaves where the tree has {len(tree)}, or not finite")
+        require(cluster_call == (per_call if B <= sms // 2 else 0),
+                f"K2 route {label}: {cluster_call} of {per_call} leaves on the cluster form at B = {B}")
+        if name == "CVXQP2_M":  # four leaves of at most CLUSTER_LEAF_N (eight or seven of max_n on one block each)
+            require(tree == [256, 240, 256, 248], f"K2 route {label}: leaves {tree}, not [256, 240, 256, 248]")
         require(worst["kernel"] <= max(gate, ROUTE_RESID_FACTOR * worst["plain"],
                                        ROUTE_RESID_FACTOR * worst["library"]),
                 f"K2 route {label}: residual {worst['kernel']:.3e} against the gate and the other routes'")
@@ -2719,10 +2876,13 @@ def phase_k2_route(dev):
         require(len(seen) == per_call and leaf_rel <= LEAF_REL_TOL[dtype_name(dtype)],
                 f"K2 route {label}: a leaf off its plain version by {leaf_rel:.3e}")
         routes[f"{label}"] = dict(ms=ms, guarded_ms=guarded_ms, plain_ms=plain_ms, cholesky_route_ms=chol_ms,
-                                  inv_ms=inv_ms, bound_ms=b_ms, resid=worst["kernel"], flagged=flags["kernel"],
-                                  rescued=rescued, leaves=per_call, route_rel=rel, leaf_rel=leaf_rel)
+                                  inv_ms=inv_ms, old_tree_ms=old_ms, device_ms=busy, bound_ms=b_ms,
+                                  resid=worst["kernel"], flagged=flags["kernel"], rescued=rescued, leaves=per_call,
+                                  cluster_leaves=cluster_call, route_rel=rel, leaf_rel=leaf_rel)
         if name == "portfolio leg":
             leaf_M = seen[0][2]  # the route's first leaf, as it was given
+        if name == "CVXQP2_M":
+            cluster_leaves[dtype_name(dtype)] = seen[0][2]
 
     # the leaf kernel at the portfolio's first leaf
     B, nl = leaf_M.shape[0], leaf_M.shape[-1]
@@ -2738,7 +2898,31 @@ def phase_k2_route(dev):
                          lambda: k2.chol_inverse_leaf(leaf_M), lambda: k2.chol_inverse_leaf_plain(leaf_M), 10,
                          2 * 4 * B * nl * nl, {"float32": 2 * B * nl**3 // 3})
     print(f"  |Tk-Tp|max {err:.3e}, relative {rel:.3e}; two launches bit-identical")
-    return dict(stats, max_abs_err=err, library_ms=None, routes=routes)
+
+    # the cluster form at CVXQP2_M's first leaf (B=1, n=256), both dtypes
+    cluster = {}
+    for dt in ("float64", "float32"):
+        S = cluster_leaves[dt]
+        B, nl = S.shape[0], S.shape[-1]
+        before = k2.launches_leaf_cluster
+        Tk, Tp, again = k2.chol_inverse_leaf(S), k2.chol_inverse_leaf_plain(S), k2.chol_inverse_leaf(S)
+        torch.cuda.synchronize()
+        e, r = rel_err(Tk, Tp)
+        require(k2.launches_leaf_cluster - before == 2, f"K2's leaf at CVXQP2_M {dt} did not take the cluster form")
+        require(torch.equal(Tk, again), f"K2's cluster leaf: two launches differ ({dt})")
+        require(r <= LEAF_REL_TOL[dt], f"K2's cluster leaf off its plain version by {r:.3e} relative ({dt})")
+        elt = S.element_size()
+        k = k2.leaf_plan(B, nl, S.dtype, sms)
+        st = report_times(f"K2 chol_inverse_leaf cluster form, CVXQP2_M's first leaf B={B} n={nl} {dt}, "
+                          f"clusters of {k}", lambda: k2.chol_inverse_leaf(S), lambda: k2.chol_inverse_leaf_plain(S),
+                          20, 2 * elt * B * nl * nl, {dt: 2 * B * nl**3 // 3})
+        sizes = {c: cuda_ms(lambda: k2.chol_inverse_leaf(S, cluster=c), 20)
+                 for c in k2.LEAF_CLUSTERS if k2.cluster_fits(nl, c, S.dtype)}
+        print(f"  |Tk-Tp|max {e:.3e}, relative {r:.3e} (limit {LEAF_REL_TOL[dt]:g}); two launches bit-identical; by "
+              f"CTAs a cluster (ms) {({c: round(v, 4) for c, v in sizes.items()})}")
+        cluster[dt] = dict(st, max_abs_err=e, rel_err=r, by_cluster=sizes, cluster=k)
+    cluster_stats = dict(cluster["float64"], library_ms=None, float32=cluster["float32"])
+    return dict(stats, max_abs_err=err, library_ms=None, routes=routes), cluster_stats
 
 
 def phase_parametric_portfolio(dev):
@@ -2808,6 +2992,7 @@ def phase_parametric_portfolio(dev):
         require(not np.any(st == ot.OSQP_MAX_ITER_REACHED), f"portfolio re-solve {j}: MAX_ITER_REACHED")
     require(np.isfinite(results[-1].x.cpu().numpy()).all() and results[-1].x.shape == (B, nv), "portfolio: x")
     require(launches["chol_inverse_leaf"] > 0 and launches["chol_inverse"] == 0, "portfolio: K2's route not taken")
+    require(launches["chol_inverse_leaf_cluster"] == 0, "portfolio: a K2 leaf took the cluster form at B = 256")
 
     # the first 4 instances on the CPU, over the same sequence
     cpu = ot.BatchedSolver(*(a[:4] for a in arrays), device="cpu", **kw)
@@ -2901,6 +3086,8 @@ def phase_parametric_mpc(dev):
         else:
             require(launches["chol_inverse_leaf"] > 0 and launches["admm_iter_refined_resident"] > 0,
                     "parametric_mpc dense_inv: K2's route or K1r's resident path did not run")
+            require(launches["chol_inverse_leaf_cluster"] == 0,
+                    "parametric_mpc dense_inv: a K2 leaf took the cluster form at B = 1000")
         out[backend] = launches
     return out
 
@@ -3158,7 +3345,7 @@ def main() -> int:
         return 2
 
     k2_stats = phase_k2(dev)
-    k2_leaf_stats = phase_k2_route(dev)
+    k2_leaf_stats, k2_cluster_stats = phase_k2_route(dev)
     k1_stats = phase_k1(dev)
     k4_stats = phase_k4(dev)
     k3_stats = phase_k3(dev)
@@ -3175,7 +3362,7 @@ def main() -> int:
     sparse_launches, sparse_paths = phase_sparse(dev)
     cg_dense_launches = phase_cg_dense(dev)
     k7_factor_stats, k7_solve_stats = phase_k7(dev)
-    k7_device_launches, k7_device_stats = phase_k7_device(dev)
+    k7_large_launches, k7_cluster_stats, k7_device_stats = phase_k7_device(dev)
     mpc_legs = phase_mpc(dev)
     mpc_launches = mpc_legs["block_tridiag"]
     portfolio_launches = phase_parametric_portfolio(dev)
@@ -3196,10 +3383,15 @@ def main() -> int:
     # MPC cell's dense_inv solve (times at the MPC shape, all active,
     # float32); for K6 in polish's PCG the
     # loop's launches in LISWET1's float64 polish (times per CG step on
-    # LISWET1's float32 polish system); for K7's device path the b = 140
-    # float32 batch's solve_batch (times at its reduced matrix); for K2's
-    # leaf the portfolio leg's set-up, cold solve and re-solves (times at
-    # its first leaf, the routes' beside them under routes).
+    # LISWET1's float32 polish system); for K7's cluster path the b = 140
+    # float32 batch's solve_batch (times at its reduced matrix, the b = 99
+    # float64 batch's under float64), for its device path the b =
+    # cluster_max_block + 1 float64 batch's (times: the device path at the
+    # b = 140 batch's reduced matrix, in the same call); for K2's leaf the
+    # portfolio leg's set-up, cold solve and re-solves (times at its first
+    # leaf, the routes' beside them under routes); for its cluster form the
+    # Solver path's (CVXQP2_M at B=1; times at CVXQP2_M's first leaf in
+    # float64, float32's under float32).
     kernels = [
         dict(name="admm_iter", route="cuda", source="osqp_tpu_torch/csrc/admm_iter.cu",
              replaces="osqp_tpu/linsys/dense_inv.py:164", launches=launches["admm_iter"], **k1_stats),
@@ -3238,11 +3430,17 @@ def main() -> int:
              replaces="osqp_tpu/linsys/cg.py:129", launches=sparse_launches["cg_loop"], paths=sparse_paths,
              **loop_stats),
         dict(name="block_tridiag_factor_device", route="cuda", source="osqp_tpu_torch/csrc/block_tridiag.cu",
-             replaces="osqp_tpu/linsys/block_tridiag.py:144", launches=k7_device_launches["bt_factor_device"],
-             **k7_device_stats),
+             replaces="osqp_tpu/linsys/block_tridiag.py:144",
+             launches=k7_large_launches["device"]["bt_factor_device"], **k7_device_stats),
+        dict(name="block_tridiag_factor_cluster", route="cuda", source="osqp_tpu_torch/csrc/block_tridiag.cu",
+             replaces="osqp_tpu/linsys/block_tridiag.py:144",
+             launches=k7_large_launches["cluster"]["bt_factor_cluster"], **k7_cluster_stats),
         dict(name="chol_inverse_leaf", route="cuda", source="osqp_tpu_torch/csrc/chol_inverse.cu",
              replaces="osqp_tpu/ops/spd_inverse.py:129", launches=portfolio_launches["chol_inverse_leaf"],
              **k2_leaf_stats),
+        dict(name="chol_inverse_leaf_cluster", route="cuda", source="osqp_tpu_torch/csrc/chol_inverse.cu",
+             replaces="osqp_tpu/ops/spd_inverse.py:129",
+             launches=solver_launches["chol_inverse_leaf_cluster"], **k2_cluster_stats),
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} was launched no time on its main path")

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "osqp_chol_inverse_blocks_per_sm": (_I,) * 2,
     "osqp_chol_inverse": (_I, _P, _P, _I, _I, _P),
     "osqp_chol_inverse_leaf": (_I, _P, _P, _I, _I, _P),
+    "osqp_chol_inverse_leaf_cluster": (_I, _P, _P, _P, _I, _I, _I, _P),
     "osqp_admm_iter": (_I,) + (_P,) * 20 + (_D, _D, _I, _I, _I, _I, _P),
     "osqp_admm_iter_refined": (_I,) + (_P,) * 22 + (_D, _D, _I, _I, _I, _I, _P),
     "osqp_admm_iter_refined_resident": (_I,) + (_P,) * 21 + (_D, _D) + (_I,) * 6 + (_P,),
@@ -64,7 +65,7 @@ _SIGNATURES = {
     "osqp_cg_step": (_I,) + (_P,) * 15 + (_D, _I, _I, _P),
     "osqp_cg_loop": (_I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _D, _D) + (_P,) * 12 + (_I,) * 4 + (_P,),
     "osqp_cg_loop_blocks": (_I,) * 3,
-    "osqp_bt_factor": (_I, _P, _P, _P, _I, _I, _I, _I, _P),
+    "osqp_bt_factor": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "osqp_bt_solve": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
@@ -143,6 +144,8 @@ def library() -> ctypes.CDLL:
             for name in ("osqp_admm_iter_scratch", "osqp_admm_iter_refined_scratch"):
                 getattr(lib, name).argtypes = (_I,) * 5
                 getattr(lib, name).restype = ctypes.c_size_t
+            lib.osqp_chol_inverse_leaf_scratch.argtypes = (_I,)
+            lib.osqp_chol_inverse_leaf_scratch.restype = ctypes.c_longlong
             lib.osqp_kkt_lu_factor_scratch.argtypes = (_I,) * 3
             lib.osqp_kkt_lu_factor_scratch.restype = ctypes.c_longlong
             lib.osqp_term_products_scratch.argtypes = (_I,) * 7

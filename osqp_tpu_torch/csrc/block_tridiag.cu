@@ -1,9 +1,10 @@
 // K7: the block-tridiagonal Cholesky factorization of the reduced KKT
 // matrix M = P + sigma I + A' diag(rho) A, and the solve with its factors:
-// a warp per instance for stages of b <= 32 variables, a block per
-// instance above, with the factor's three stage blocks in shared memory
-// up to max_block (139 in float32, 98 in float64) and in device memory
-// beyond.
+// a warp per instance for stages of b <= 32 variables; above that the
+// factor spreads each instance over a thread-block cluster (the cluster
+// path, up to cluster_max_block: 558 in float32, 361 in float64) and
+// works in device memory, a block per instance, beyond, and the solve
+// takes a block per instance.
 //
 // Replaces osqp_tpu/linsys/block_tridiag.py:init (:133-170), _tsolve
 // (:173) and solve (:180-228), two lax.scan recursions over the Nb stages
@@ -45,23 +46,25 @@
 // Dividing on lane j alone behind a branch and shuffling the quotient
 // takes 0.1165.
 //
-// b > 32: one block per instance, column steps behind block barriers.
-// The factor holds C_{i-1}, D_i and O_i in shared memory (3 b^2 values)
-// up to b = 139 in float32, 98 in float64 (the block path); above that
-// (the device path) it runs the same steps on C_i's and G_i's own slots
-// of the outputs, which serve as its workspace: D_i - G_i G_i' is formed
-// in C_i's slot, G_i in its slot, C_{i-1} read back from its slot.  Each
-// stage's ~2 b^3 operations then read their operands from L1 and L2 (the
-// stage just written, b^2 values, is L2-hot) instead of shared memory;
-// staging S_i or panels of it in shared memory is left for a later
-// redesign.  The solve keeps only b values in shared memory and runs at
-// any b.
+// b > 32: the factor's cluster path (cluster_factor_kernel below) holds
+// each instance's rows in the shared memory of up to 16 CTAs.  From b =
+// 64 up it is several times faster, at every batch size measured, than
+// the block per instance with the three stage blocks in shared memory
+// that it replaced; it is slower only near b = 33 at large B
+// (tools/ab_k7_factor.py, PERF.md).  Above cluster_max_block (the
+// device path) one block per instance runs the same steps on C_i's and
+// G_i's own slots of the outputs, which serve as its workspace: D_i -
+// G_i G_i' is formed in C_i's slot, G_i in its slot, C_{i-1} read back
+// from its slot.  Each stage's ~2 b^3 operations then read their
+// operands from L1 and L2 (the stage just written, b^2 values, is
+// L2-hot).  The solve keeps only b values in shared memory and runs at
+// any b, a block per instance, column steps behind block barriers.
 //
 // Every product, sum, quotient and square root is rounded on its own (no
 // fused multiply-add), in the order of the plain versions in
 // ops/block_tridiag.py: the triangular solves by columns, the Cholesky
 // right-looking, column by column.  So kernel and plain version agree bit
-// for bit on both paths.
+// for bit on every path.
 //
 // What bounds it on the H100: latency.  At the MPC cell (B = 1000, b = 12,
 // Nb = 31, float32) the factor reads the band blocks of M and writes C
@@ -73,9 +76,11 @@
 // with A around the solve (linsys/block_tridiag.py) are not fused here.
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace {
@@ -87,6 +92,7 @@ using osqp_cuda::sub;
 constexpr int kFactorThreads = 128;
 constexpr int kSolveThreads = 32;
 constexpr int kWarpMax = 32;  // largest b of the warp path
+constexpr unsigned kFull = 0xffffffffu;
 
 // Correctly rounded (nvcc's defaults, -prec-div and -prec-sqrt, with no
 // --use_fast_math): the plain version's torch division and sqrt.
@@ -102,21 +108,16 @@ __device__ __forceinline__ T not_a_number() {
   return static_cast<T>(NAN);
 }
 
-// One block per instance walks the stages.  kDevice false (the block
-// path, b <= max_block): C_{i-1}, D_i and O_i in shared memory, 3 b^2
-// values.  kDevice true (the device path, any b): the same steps in device
-// memory, D_i - G_i G_i' formed in C_i's slot of C and G_i in its own slot
-// of G, C_{i-1} read back from its slot; a block barrier orders them, and
-// the stage just written is L2-hot.
-template <typename T, bool kDevice>
+// Above cluster_max_block (the device path, any b): one block per
+// instance walks the stages in device memory, on C_i's and G_i's own
+// slots of the outputs: D_i - G_i G_i' formed in C_i's slot, G_i in its
+// slot of G, C_{i-1} read back from its slot; a block barrier orders
+// them, and the stage just written is L2-hot.
+template <typename T>
 __global__ void __launch_bounds__(kFactorThreads)
-factor_kernel(const T* __restrict__ M, T* __restrict__ C, T* __restrict__ G, int b, int Nb) {
-  extern __shared__ __align__(16) unsigned char smem[];
+device_factor_kernel(const T* __restrict__ M, T* __restrict__ C, T* __restrict__ G, int b, int Nb) {
   __shared__ int bad;
   const int bb = b * b;
-  T* Cp = reinterpret_cast<T*>(smem);  // C_{i-1}
-  T* S = Cp + bb;                      // D_i, then D_i - G_i G_i', then C_i
-  T* W = S + bb;                       // O_i, then G_i
   const int tid = threadIdx.x, nt = blockDim.x;
   const size_t n = static_cast<size_t>(Nb) * b;
   const T* Mi = M + blockIdx.x * n * n;
@@ -125,13 +126,9 @@ factor_kernel(const T* __restrict__ M, T* __restrict__ C, T* __restrict__ G, int
 
   for (int i = 0; i < Nb; ++i) {
     const size_t r0 = static_cast<size_t>(i) * b;
-    if (kDevice) {
-      S = Ci + static_cast<size_t>(i) * bb;
-      if (i > 0) {
-        Cp = Ci + static_cast<size_t>(i - 1) * bb;
-        W = Gi + static_cast<size_t>(i - 1) * bb;
-      }
-    }
+    T* S = Ci + static_cast<size_t>(i) * bb;                           // D_i, then D_i - G_i G_i', then C_i
+    const T* Cp = i > 0 ? Ci + static_cast<size_t>(i - 1) * bb : Ci;  // C_{i-1}
+    T* W = i > 0 ? Gi + static_cast<size_t>(i - 1) * bb : Gi;          // O_i, then G_i
     for (int e = tid; e < bb; e += nt) {
       const int r = e / b, c = e - r * b;
       const T* row = Mi + (r0 + r) * n + r0;
@@ -153,10 +150,8 @@ factor_kernel(const T* __restrict__ M, T* __restrict__ C, T* __restrict__ G, int
         }
       }
       __syncthreads();
-      // D_i - G_i G_i' on the lower triangle; G_i to device memory (the
-      // device path formed it there)
+      // D_i - G_i G_i' on the lower triangle
       for (int e = tid; e < bb; e += nt) {
-        if (!kDevice) Gi[static_cast<size_t>(i - 1) * bb + e] = W[e];
         const int r = e / b, c = e - r * b;
         if (c <= r) {
           T acc = S[e];
@@ -187,15 +182,298 @@ factor_kernel(const T* __restrict__ M, T* __restrict__ C, T* __restrict__ G, int
     const bool failed = bad != 0;
     for (int e = tid; e < bb; e += nt) {
       const int r = e / b, c = e - r * b;
-      const T v = c <= r ? (failed ? not_a_number<T>() : S[e]) : T(0);
-      if (kDevice) {
-        S[e] = v;  // S is C_i
-      } else {
-        Ci[static_cast<size_t>(i) * bb + e] = v;
-        Cp[e] = v;
-      }
+      S[e] = c <= r ? (failed ? not_a_number<T>() : S[e]) : T(0);
     }
     __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 32 < b <= cluster_max_block: one instance over a thread-block
+// cluster of k <= 16 CTAs
+// ---------------------------------------------------------------------------
+
+#ifdef OSQP_STAMPS
+// cycles by phase of the cluster path (tools/probe_k7_cluster.py): load,
+// G's fetch, G's earlier columns, G's panel, G's store and barrier, S's
+// fetch, S's update, the diagonal block, the panel solve, the panel's
+// barrier, its fetch, the trailing update, the stage's end
+__device__ unsigned long long bt_stamps[2][16];
+#endif
+
+constexpr int kPanel = 16;          // columns of a panel, rows of a diagonal block
+constexpr int kPitch = kPanel + 1;  // odd: a thread per row reads a column of a panel without bank conflicts
+constexpr int kClusterThreads = 256;
+constexpr int kClusterMax = 16;
+// Dynamic shared memory a CTA of the cluster path may take: the 227 KB a
+// block may use less 64 bytes for the static flag (ops/block_tridiag.py
+// sizes by the same figure).
+constexpr int kClusterSmem = osqp_cuda::kMaxSmem - 64;
+
+// Shared memory of one CTA of the cluster path, in values: two strips of
+// s rows of a stage block (S_i, W_i), the panel buffer (16 rows of
+// C_{i-1} at pitch b | 1, or a panel of b rows at pitch kPitch), and the
+// diagonal band (every diagonal block of S_i, kPanel x kPitch each).
+// ops/block_tridiag.py:_cluster_values repeats this sum.
+__host__ __device__ inline size_t panel_values(int b) {
+  const size_t rows16 = static_cast<size_t>(kPanel) * (b | 1), cols16 = static_cast<size_t>(kPitch) * b;
+  return rows16 > cols16 ? rows16 : cols16;
+}
+inline size_t cluster_values(int b, int s) {
+  const size_t blocks = (b + kPanel - 1) / kPanel;
+  return 2 * static_cast<size_t>(s) * b + panel_values(b) + blocks * kPanel * kPitch;
+}
+
+// Lane r of the calling warp factors row r of the kb x kb block D (pitch
+// kPitch, lower) in place, right-looking by columns: column jj's entries
+// by shuffle, each lane's row in registers shifted one column a step, so
+// that every register index is static (the loop unrolled runs 4% faster
+// than rolled, tools/probe_k7_cluster.py).  Returns whether a pivot was
+// not positive (the same in every lane).
+template <typename T>
+__device__ bool factor_block(T* D, int kb) {
+  const int r = threadIdx.x & 31;
+  T a[kPanel];
+#pragma unroll
+  for (int u = 0; u < kPanel; ++u) a[u] = r < kb && u <= r ? D[r * kPitch + u] : T(0);
+  bool failed = false;
+#pragma unroll
+  for (int jj = 0; jj < kPanel; ++jj) {
+    if (jj >= kb) break;
+    const T piv = __shfl_sync(kFull, a[0], jj);
+    const T dj = root(piv);
+    failed |= !(piv > T(0));
+    if (r > jj) a[0] = osqp_cuda::quotient(a[0], dj);
+    if (r == jj) a[0] = dj;
+    if (r >= jj && r < kb) D[r * kPitch + jj] = a[0];
+#pragma unroll
+    for (int u = 1; u < kPanel; ++u) {
+      const T l = __shfl_sync(kFull, a[0], min(jj + u, 31));
+      if (jj + u < kb && r >= jj + u) a[u] = sub(a[u], mul(a[0], l));
+    }
+#pragma unroll
+    for (int u = 0; u + 1 < kPanel; ++u) a[u] = a[u + 1];
+    a[kPanel - 1] = T(0);
+  }
+  return failed;
+}
+
+// x[0, kb) <- x L^-T for the kb x kb lower L at pitch `pitch`, by one
+// thread: x[j] = (x[j] - sum_{t<j} x[t] L[j, t]) / L[j, j], right-looking
+// over the columns with the values shifted as in factor_block.
+template <typename T>
+__device__ void solve_row(T* x, const T* L, int pitch, int kb) {
+  T a[kPanel];
+#pragma unroll
+  for (int u = 0; u < kPanel; ++u) a[u] = u < kb ? x[u] : T(0);
+#pragma unroll
+  for (int jj = 0; jj < kPanel; ++jj) {
+    if (jj >= kb) break;
+    const T v = osqp_cuda::quotient(a[0], L[jj * pitch + jj]);
+    x[jj] = v;
+#pragma unroll
+    for (int u = 1; u < kPanel; ++u)
+      if (jj + u < kb) a[u] = sub(a[u], mul(v, L[(jj + u) * pitch + jj]));
+#pragma unroll
+    for (int u = 0; u + 1 < kPanel; ++u) a[u] = a[u + 1];
+    a[kPanel - 1] = T(0);
+  }
+}
+
+// acc - sum_{t<kt} x[t] y[t], t ascending, each product and difference
+// rounded on its own; the loads of all 16 issued together.
+template <typename T>
+__device__ __forceinline__ T minus_dot16(T acc, const T* x, const T* y, int kt) {
+  T p[kPanel];
+#pragma unroll
+  for (int t = 0; t < kPanel; ++t) p[t] = t < kt ? mul(x[t], y[t]) : T(0);
+#pragma unroll
+  for (int t = 0; t < kPanel; ++t)
+    if (t < kt) acc = sub(acc, p[t]);
+  return acc;
+}
+
+// One instance over a cluster of k CTAs.  CTA q holds rows [q s, q s + s)
+// of every stage block in two strips of its shared memory: S_i (D_i, then
+// D_i - G_i G_i', then C_i) and W_i (O_i, then G_i).  Every CTA also
+// keeps the diagonal band, all the 16 x 16 diagonal blocks of S_i, and
+// brings it up to date itself, so that each factors every diagonal block
+// on its own and knows a failed pivot without asking.  What every CTA
+// needs of the others' rows (a panel of C_{i-1}, of G_i, of C_i) goes
+// through L2: its owners write it to C or G in device memory, which the
+// factor writes anyway, before a cluster barrier, and every CTA loads it
+// from there; reading it from the owners' shared memory instead, about a
+// request a cycle at each owner, took two to three times as long
+// (PERF.md).  A stage, by panels of 16 columns:
+//
+//   G_i   the panel's 16 rows of C_{i-1}; each row of the strip takes
+//         the earlier columns' products (a thread per row and column),
+//         then the panel's own columns (a thread per row); no cluster
+//         barrier.
+//   S_i   after one cluster barrier (G_i whole), G_i's panel of 16
+//         columns, all b rows; each CTA subtracts the panel's products
+//         from its rows left of their diagonal block and from the band.
+//   C_i   right-looking by panels: warp 0 factors the panel's diagonal
+//         block from the band; each row of the strip below it solves its
+//         panel columns, and the rows of the block take the block; one
+//         cluster barrier; the panel's columns below the block; each CTA
+//         updates its rows' trailing columns and the later diagonal
+//         blocks.
+//
+// then a cluster barrier before the next stage reads C_i.  So a stage of
+// np panels costs np + 1 cluster barriers and no block barrier per
+// column.  Every entry takes its products and differences in the plain
+// version's order (t ascending, then j ascending), each rounded on its
+// own: the same bits as the other paths.
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads)
+cluster_factor_kernel(const T* __restrict__ M, T* __restrict__ C, T* __restrict__ G, int b, int Nb, int s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int bad;
+  const int k = static_cast<int>(cooperative_groups::this_cluster().num_blocks());
+  const int q = static_cast<int>(cooperative_groups::this_cluster().block_rank());
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5, warps = nt >> 5;
+  const int r0 = q * s, rows = max(0, min(s, b - r0));
+  const int nblk = (b + kPanel - 1) / kPanel, ldr = b | 1;
+  const size_t sb = static_cast<size_t>(s) * b, bb = static_cast<size_t>(b) * b;
+  T* Sb = reinterpret_cast<T*>(smem);
+  T* Wb = Sb + sb;
+  T* Pn = Wb + sb;               // the panel buffer
+  T* Db = Pn + panel_values(b);  // the band
+  const size_t n = static_cast<size_t>(Nb) * b;
+  const size_t inst = blockIdx.x / k;
+  const T* Mi = M + inst * n * n;
+  T* Ci = C + inst * static_cast<size_t>(Nb) * bb;
+  T* Gi = G + inst * static_cast<size_t>(Nb - 1) * bb;
+  STAMP_DECL(bt_stamps)
+
+  for (int i = 0; i < Nb; ++i) {
+    const size_t st = static_cast<size_t>(i) * b;
+    T* Cs = Ci + static_cast<size_t>(i) * bb;  // C_i in device memory
+    for (int e = tid; e < rows * b; e += nt) {
+      const int lr = e / b, c = e - lr * b;
+      const T* row = Mi + (st + r0 + lr) * n + st;
+      Sb[e] = row[c];
+      if (i > 0) Wb[e] = row[c - b];
+    }
+    for (int e = tid; e < nblk * kPanel * kPanel; e += nt) {
+      const int d = e / (kPanel * kPanel), rr = (e / kPanel) % kPanel, cc = e % kPanel;
+      const int r = d * kPanel + rr;
+      if (r < b && cc <= rr) Db[(d * kPanel + rr) * kPitch + cc] = Mi[(st + r) * n + st + d * kPanel + cc];
+    }
+    if (tid == 0) bad = 0;
+    __syncthreads();
+    STAMP(0);
+
+    if (i > 0) {
+      // G_i = O_i C_{i-1}^-T: G[r, j] = (O[r, j] - sum_{t<j} G[r, t] C[j, t]) / C[j, j]
+      const T* Cp = Cs - bb;
+      for (int j0 = 0; j0 < b; j0 += kPanel) {
+        const int kb = min(kPanel, b - j0);
+        osqp_cuda::load_rows_l2(Pn, ldr, Cp + static_cast<size_t>(j0) * b, b, kb, j0 + kb);
+        __syncthreads();
+        STAMP(1);
+        for (int e = tid; e < rows * kb; e += nt) {
+          const int lr = e / kb, jj = e - lr * kb;
+          const T* wr = Wb + lr * b;
+          const T* cr = Pn + jj * ldr;
+          T acc = wr[j0 + jj];
+#pragma unroll 8
+          for (int t = 0; t < j0; ++t) acc = sub(acc, mul(wr[t], cr[t]));
+          Wb[lr * b + j0 + jj] = acc;
+        }
+        __syncthreads();
+        STAMP(2);
+        for (int lr = tid; lr < rows; lr += nt) solve_row(Wb + lr * b + j0, Pn + j0, ldr, kb);
+        __syncthreads();
+        STAMP(3);
+      }
+      for (int e = tid; e < rows * b; e += nt) Gi[static_cast<size_t>(i - 1) * bb + r0 * b + e] = Wb[e];
+      osqp_cuda::cluster_barrier();  // G_i whole in device memory
+      STAMP(4);
+
+      // D_i - G_i G_i', by panels of G_i's columns: the strip's rows left
+      // of their diagonal block, and the band
+      for (int t0 = 0; t0 < b; t0 += kPanel) {
+        const int kt = min(kPanel, b - t0);
+        osqp_cuda::load_rows_l2(Pn, kPitch, Gi + static_cast<size_t>(i - 1) * bb + t0, b, b, kt);
+        __syncthreads();
+        STAMP(5);
+        for (int lr = warp; lr < rows; lr += warps) {
+          T* sr = Sb + lr * b;
+          const T* wr = Wb + lr * b + t0;
+          for (int c = lane; c < ((r0 + lr) & ~(kPanel - 1)); c += 32)
+            sr[c] = minus_dot16(sr[c], wr, Pn + c * kPitch, kt);
+        }
+        for (int e = tid; e < nblk * kPanel * kPanel; e += nt) {
+          const int d = e / (kPanel * kPanel), rr = (e / kPanel) % kPanel, cc = e % kPanel;
+          const int r = d * kPanel + rr;
+          if (r < b && cc <= rr) {
+            T* v = Db + (d * kPanel + rr) * kPitch + cc;
+            *v = minus_dot16(*v, Pn + r * kPitch, Pn + (d * kPanel + cc) * kPitch, kt);
+          }
+        }
+        __syncthreads();
+        STAMP(6);
+      }
+    }
+
+    // C_i = chol(S_i), right-looking by panels
+    for (int p = 0; p < nblk; ++p) {
+      const int j0 = p * kPanel, kb = min(kPanel, b - j0), base = j0 + kb;
+      T* D = Db + p * kPanel * kPitch;
+      if (tid < 32) {
+        const bool failed = factor_block(D, kb);
+        if (tid == 0 && failed) bad = 1;
+      }
+      __syncthreads();
+      STAMP(7);
+      // the strip's rows below the block solve the panel's columns and
+      // publish them in C_i; its rows of the block take the block
+      for (int lr = tid; lr < rows; lr += nt) {
+        const int r = r0 + lr;
+        T* sr = Sb + lr * b + j0;
+        if (r >= base) {
+          solve_row(sr, D, kPitch, kb);
+          for (int jj = 0; jj < kb; ++jj) Cs[static_cast<size_t>(r) * b + j0 + jj] = sr[jj];
+        } else if (r >= j0) {
+          for (int c = 0; c <= r - j0; ++c) sr[c] = D[(r - j0) * kPitch + c];
+        }
+      }
+      STAMP(8);
+      if (base == b) break;
+      osqp_cuda::cluster_barrier();  // the panel's columns below the block in device memory
+      STAMP(9);
+      osqp_cuda::load_rows_l2(Pn, kPitch, Cs + static_cast<size_t>(base) * b + j0, b, b - base, kb);
+      __syncthreads();
+      STAMP(10);
+      // trailing update: the strip's rows below the panel, left of their
+      // diagonal block, and the later diagonal blocks
+      for (int lr = warp; lr < rows; lr += warps) {
+        T* sr = Sb + lr * b;
+        for (int c = base + lane; c < ((r0 + lr) & ~(kPanel - 1)); c += 32)
+          sr[c] = minus_dot16(sr[c], sr + j0, Pn + (c - base) * kPitch, kb);
+      }
+      for (int e = tid; e < nblk * kPanel * kPanel; e += nt) {
+        const int d = e / (kPanel * kPanel), rr = (e / kPanel) % kPanel, cc = e % kPanel;
+        const int r = d * kPanel + rr;
+        if (d > p && r < b && cc <= rr) {
+          T* v = Db + (d * kPanel + rr) * kPitch + cc;
+          *v = minus_dot16(*v, Pn + (r - base) * kPitch, Pn + (d * kPanel + cc - base) * kPitch, kb);
+        }
+      }
+      __syncthreads();
+      STAMP(11);
+    }
+    __syncthreads();
+    const bool failed = bad != 0;
+    for (int e = tid; e < rows * b; e += nt) {
+      const int lr = e / b, c = e - lr * b;
+      Cs[r0 * b + e] = c <= r0 + lr ? (failed ? not_a_number<T>() : Sb[e]) : T(0);
+    }
+    // C_i whole in device memory for the next stage's G
+    osqp_cuda::cluster_barrier();
+    STAMP(12);
   }
 }
 
@@ -260,7 +538,6 @@ solve_kernel(const T* __restrict__ C, const T* __restrict__ G, const T* __restri
 // ---------------------------------------------------------------------------
 
 constexpr int kWarpInstances = 4;
-constexpr unsigned kFull = 0xffffffffu;
 
 // C_i, G_i of a warp's instance: lane r holds row r of the stage.  G_i's
 // row by its column solve against C_{i-1} (in shared memory, read by
@@ -509,10 +786,39 @@ int warp_path(const void* M, void* C, void* G, const void* rhs, void* x, int B, 
   return launch_warp<T, 32>(M, C, G, rhs, x, B, b, Nb, factor, s);
 }
 
-// path: 0 the warp path (b <= 32), 1 the block path (3 b^2 values in
-// shared memory), 2 the device path (any b).
+// The cluster path: B clusters of k CTAs, each CTA's strip s = ceil(b / k)
+// rows.  A size the card cannot take is refused (cudaErrorInvalidValue, or
+// the launch's own error), never replaced by another path.
 template <typename T>
-int factor(const void* M, void* C, void* G, int B, int b, int Nb, int path, cudaStream_t s) {
+int cluster_factor(const T* M, T* C, T* G, int B, int b, int Nb, int k, cudaStream_t s) {
+  if (k < 1 || k > kClusterMax || static_cast<long long>(B) * k > INT_MAX) return cudaErrorInvalidValue;
+  const int strip = (b + k - 1) / k;
+  const size_t smem = cluster_values(b, strip) * sizeof(T);
+  if (smem > static_cast<size_t>(kClusterSmem)) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(cluster_factor_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) err = allow_smem(cluster_factor_kernel<T>, smem, sizeof(int));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * k);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, cluster_factor_kernel<T>, M, C, G, b, Nb, strip);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// path: 0 the warp path (b <= 32), 1 the cluster path (clusters of
+// `cluster` CTAs), 2 the device path (any b).
+template <typename T>
+int factor(const void* M, void* C, void* G, int B, int b, int Nb, int path, int cluster, cudaStream_t s) {
   if (path == 0) {
     if (b > kWarpMax) return cudaErrorInvalidValue;
     return warp_path<T>(M, C, G, nullptr, nullptr, B, b, Nb, true, s);
@@ -520,16 +826,9 @@ int factor(const void* M, void* C, void* G, int B, int b, int Nb, int path, cuda
   auto Mt = static_cast<const T*>(M);
   auto Ct = static_cast<T*>(C);
   auto Gt = static_cast<T*>(G);
-  if (path == 2) {
-    factor_kernel<T, true><<<B, kFactorThreads, 0, s>>>(Mt, Ct, Gt, b, Nb);
-    return cudaGetLastError();
-  }
-  if (path != 1) return cudaErrorInvalidValue;
-  const size_t smem = 3 * static_cast<size_t>(b) * b * sizeof(T);
-  if (smem > static_cast<size_t>(osqp_cuda::kMaxSmem)) return cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(factor_kernel<T, false>, smem);
-  if (err != cudaSuccess) return err;
-  factor_kernel<T, false><<<B, kFactorThreads, smem, s>>>(Mt, Ct, Gt, b, Nb);
+  if (path == 1) return cluster_factor<T>(Mt, Ct, Gt, B, b, Nb, cluster, s);
+  if (path != 2) return cudaErrorInvalidValue;
+  device_factor_kernel<T><<<B, kFactorThreads, 0, s>>>(Mt, Ct, Gt, b, Nb);
   return cudaGetLastError();
 }
 
@@ -549,14 +848,27 @@ int solve(const void* C, const void* G, const void* rhs, void* x, int B, int b, 
 
 // dtype: 0 float32, 1 float64.  M (B, Nb b, Nb b) contiguous; writes C
 // (B, Nb, b, b) and G (B, Nb-1, b, b), contiguous.  path as factor()
-// above, named by the wrapper (ops/block_tridiag.py:factor_path); a path
-// that does not take b returns cudaErrorInvalidValue.
+// above, named by the wrapper (ops/block_tridiag.py:factor_path, and
+// cluster_plan for the cluster path's CTAs a cluster); a path that does
+// not take b returns cudaErrorInvalidValue.
 extern "C" int osqp_bt_factor(int dtype, const void* M, void* C, void* G, int B, int b, int Nb, int path,
-                              void* stream) {
+                              int cluster, void* stream) {
   if (B == 0 || b == 0 || Nb == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? factor<float>(M, C, G, B, b, Nb, path, s) : factor<double>(M, C, G, B, b, Nb, path, s);
+  return dtype == 0 ? factor<float>(M, C, G, B, b, Nb, path, cluster, s)
+                    : factor<double>(M, C, G, B, b, Nb, path, cluster, s);
 }
+
+#ifdef OSQP_STAMPS
+// The cluster path's cycles by phase since the last call, [CTA 0, CTA k -
+// 1 of the first instance][16 phases], and zero them.
+extern "C" int osqp_bt_stamps(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, bt_stamps, sizeof(bt_stamps));
+  static const unsigned long long zero[2][16] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(bt_stamps, zero, sizeof(bt_stamps));
+  return err;
+}
+#endif
 
 // x = M^-1 rhs with the factors above; rhs and x (B, Nb b), contiguous.
 extern "C" int osqp_bt_solve(int dtype, const void* C, const void* G, const void* rhs, void* x, int B, int b, int Nb,

@@ -65,11 +65,12 @@ inline int tile_rows(int B, int chunks, int R, int sm_count) {
 // Tiles of `rows` rows that cover R rows (0 when R is 0).
 inline int tiles_of(int R, int rows) { return (R + rows - 1) / rows; }
 
-// Opt a kernel in to `smem` bytes of dynamic shared memory when that is
-// above the default.
+// Opt a kernel in to `smem` bytes of dynamic shared memory when that and
+// its `static_smem` bytes of static shared memory are above the default
+// (without the opt-in a launch may take the default less the static).
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= kDefaultSmem) return cudaSuccess;
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t static_smem = 0) {
+  if (smem + static_smem <= kDefaultSmem) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
 

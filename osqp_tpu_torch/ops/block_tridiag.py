@@ -15,25 +15,30 @@ stages, then x_i = C_i^-T (y_i - G_{i+1}' x_{i+1}) back over them.
 CUDA tensors they launch ``csrc/block_tridiag.cu``, which takes one of
 its paths by block size (:func:`factor_path`): up to ``WARP_MAX`` = 32 a
 warp per instance (lane r holding row r of the stage, column steps by
-shuffles, several instances a block), above it one block per instance
-walking the stages, whose factor holds its three stage blocks in shared
-memory up to :func:`max_block` (the block path) and works in device
-memory, on its own outputs, beyond (the device path); the solve keeps b
-values in shared memory and runs at any b.  ``launches_factor_warp`` /
-``launches_solve_warp`` count the warp path's launches and
-``launches_factor_device`` the device path's among ``launches_factor`` /
-``launches_solve``.  For CPU tensors they run
+shuffles, several instances a block); above it the factor spreads each
+instance over a thread-block cluster whose CTAs hold its rows in strips
+of their shared memory, up to :func:`cluster_max_block` (the cluster
+path, :func:`cluster_plan` sizing the cluster), and works in device
+memory, on its own outputs, a block per instance, beyond (the device
+path); the solve takes a block per instance above ``WARP_MAX``, keeps b
+values in shared memory and runs at any b.
+``launches_factor_warp`` / ``launches_solve_warp`` count the warp
+path's launches and ``launches_factor_cluster`` /
+``launches_factor_device`` the cluster and device paths' among
+``launches_factor`` / ``launches_solve``.  For CPU tensors they run
 :func:`bt_factor_plain` and :func:`bt_solve_plain`, the same functions
 in plain PyTorch, written in the kernel's order (triangular solves by
 columns, the Cholesky right-looking column by column, every product and
-sum rounded on its own), so that the two agree bit for bit.  A stage
+sum rounded on its own), so that the two agree bit for bit; the cluster
+path's panels keep that order for every entry
+(``tests/test_torch_block_tridiag_order.py`` renders it).  A stage
 that is not positive definite gives NaN in the whole lower triangle of
 its factor block, as ``jnp.linalg.cholesky`` does, and nothing raises.
 """
 
 from __future__ import annotations
 
-import math
+import functools
 
 import torch
 
@@ -44,31 +49,69 @@ launches_solve = 0
 # Of those, the launches on the warp path (b <= WARP_MAX).
 launches_factor_warp = 0
 launches_solve_warp = 0
-# Of the factor's launches, those on the device path (b > max_block).
+# Of the factor's launches, those on the cluster path (WARP_MAX < b <=
+# cluster_max_block) and on the device path (above).
+launches_factor_cluster = 0
 launches_factor_device = 0
 # The largest block size of the warp path: up to it a warp takes an
-# instance, above it a block does.
+# instance, above it a cluster (factor) or a block (solve) does.
 WARP_MAX = 32
 
 
-_PATH_CODES = {"warp": 0, "block": 1, "device": 2}
+_PATH_CODES = {"warp": 0, "cluster": 1, "device": 2}
+# CTAs a cluster of the cluster path may have (above 8 the card's
+# non-portable sizes), and the shared memory each may take: a block's
+# 227 KB less 64 bytes for the kernel's static flag.
+CLUSTERS = (1, 2, 4, 8, 16)
+_CLUSTER_SMEM = _build.SMEM_BYTES - 64
+PANEL = 16
 
 
-def max_block(dtype: torch.dtype) -> int:
-    """Largest block size b of the factor's block path, whose 3 b^2
-    values fit one block's shared memory: 139 in float32, 98 in float64.
-    Above it the factor takes the device path."""
-    values = _build.SMEM_BYTES // torch.empty((), dtype=dtype).element_size()
-    return math.isqrt(values // 3)
+def _cluster_values(b: int, s: int) -> int:
+    """Shared-memory values of one CTA of the cluster path with strips of
+    s rows (csrc/block_tridiag.cu:cluster_values): two strips, the panel
+    buffer, the diagonal band."""
+    blocks = -(-b // PANEL)
+    return 2 * s * b + max(PANEL * (b | 1), (PANEL + 1) * b) + blocks * PANEL * (PANEL + 1)
+
+
+def cluster_fits(b: int, k: int, dtype: torch.dtype) -> bool:
+    """Whether a CTA of a cluster of k holds its strip of ceil(b / k) rows."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return k in CLUSTERS and _cluster_values(b, -(-b // k)) * elt <= _CLUSTER_SMEM
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_max_block(dtype: torch.dtype) -> int:
+    """Largest block size b of the cluster path, whose strips fit a
+    cluster of 16 CTAs: 558 in float32, 361 in float64.  Above it the
+    factor takes the device path."""
+    b = WARP_MAX
+    while cluster_fits(b + 1, CLUSTERS[-1], dtype):
+        b += 1
+    return b
 
 
 def factor_path(b: int, dtype: torch.dtype) -> str:
     """The path of :func:`bt_factor`'s kernel at block size b: ``"warp"``
-    up to ``WARP_MAX``, ``"block"`` up to :func:`max_block`, ``"device"``
-    above."""
+    up to ``WARP_MAX``, ``"cluster"`` up to :func:`cluster_max_block`,
+    ``"device"`` above."""
     if b <= WARP_MAX:
         return "warp"
-    return "block" if b <= max_block(dtype) else "device"
+    return "cluster" if b <= cluster_max_block(dtype) else "device"
+
+
+def cluster_plan(b: int, B: int, dtype: torch.dtype, sm_count: int) -> int:
+    """CTAs a cluster of the cluster path at block size b for B instances
+    on a card of ``sm_count`` SMs: the fewest of :data:`CLUSTERS` whose
+    strips fit, or more where B clusters of them would leave SMs idle,
+    as many as B clusters spread over the card (16 at B = 4 on an H100's
+    132 SMs).  Raises where none fits."""
+    fit = [k for k in CLUSTERS if cluster_fits(b, k, dtype)]
+    if not fit:
+        raise ValueError(f"bt_factor: stages of b = {b} fit no cluster of at most {CLUSTERS[-1]} CTAs in {dtype}")
+    spread = [k for k in fit if B * k <= sm_count]
+    return max(spread) if spread else fit[0]
 
 
 def band_blocks(M: torch.Tensor, b: int):
@@ -92,11 +135,15 @@ def _validate_factor(M: torch.Tensor, b: int) -> None:
         raise ValueError(f"bt_factor needs a block size dividing n: block_size={b}, n={n}")
 
 
-def bt_factor(M: torch.Tensor, b: int):
+def bt_factor(M: torch.Tensor, b: int, *, path: str | None = None, cluster: int | None = None):
     """(C, G) of each matrix of the batch: C (B, Nb, b, b) the stages'
     lower Cholesky factors (zeros above the diagonal), G (B, Nb-1, b, b)
-    the coupling blocks.  Only the band blocks of M are read."""
-    global launches_factor, launches_factor_warp, launches_factor_device
+    the coupling blocks.  Only the band blocks of M are read.  On the
+    card the kernel takes :func:`factor_path`'s path, the cluster path in
+    clusters of :func:`cluster_plan`'s size; a caller may name another
+    path that takes b, or another cluster size that fits
+    (``chip_smoke.py`` times them).  Every path gives the same bits."""
+    global launches_factor, launches_factor_warp, launches_factor_cluster, launches_factor_device
     _validate_factor(M, b)
     if M.device.type == "cpu":
         return bt_factor_plain(M, b)
@@ -104,18 +151,25 @@ def bt_factor(M: torch.Tensor, b: int):
         raise ValueError(f"bt_factor runs on CPU or CUDA tensors, not {M.device}")
     if not M.is_contiguous():
         raise ValueError("bt_factor takes a contiguous tensor")
-    path = factor_path(b, M.dtype)
+    path = factor_path(b, M.dtype) if path is None else path
     B, n, _ = M.shape
     Nb = n // b
+    if path == "cluster":
+        cluster = cluster_plan(b, B, M.dtype, _build.sm_count(M.device)) if cluster is None else cluster
+        if not cluster_fits(b, cluster, M.dtype):
+            raise ValueError(f"bt_factor: stages of b = {b} do not fit clusters of {cluster} CTAs in {M.dtype}")
+    elif path not in _PATH_CODES or cluster is not None:
+        raise ValueError(f"bt_factor: no path {path!r} with clusters of {cluster}")
     C = torch.empty((B, Nb, b, b), dtype=M.dtype, device=M.device)
     G = torch.empty((B, Nb - 1, b, b), dtype=M.dtype, device=M.device)
     lib = _build.library()
     with torch.cuda.device(M.device):
         code = lib.osqp_bt_factor(_build.dtype_code(M.dtype), M.data_ptr(), C.data_ptr(), G.data_ptr(), B, b, Nb,
-                                  _PATH_CODES[path], _build.stream())
+                                  _PATH_CODES[path], cluster or 0, _build.stream())
     _build.check(code, "bt_factor")
     launches_factor += 1
     launches_factor_warp += path == "warp"
+    launches_factor_cluster += path == "cluster"
     launches_factor_device += path == "device"
     return C, G
 

@@ -294,7 +294,8 @@ def test_wrappers_check_their_inputs():
         k7.bt_solve(C, G, torch.zeros(1, 5, dtype=torch.float64))
     with pytest.raises(ValueError):
         k7.bt_solve(C, G, torch.zeros(1, 6, dtype=torch.float32))
-    assert k7.max_block(torch.float32) == 139 and k7.max_block(torch.float64) == 98
+    assert k7.factor_path(k7.WARP_MAX + 1, torch.float32) == "cluster"
+    assert (k7.cluster_max_block(torch.float32), k7.cluster_max_block(torch.float64)) == (558, 361)
 
 
 def test_check_block_structure_matches_reference():

@@ -760,16 +760,17 @@ def _band_schur(B, Nb, b, dtype, seed=0):
 
 # (B, Nb, b): the MPC cell's stages (b = 12, Nb = 31), one stage, stages of
 # one variable, the warp path's register widths at their ends (16, 32),
-# block sizes above a warp (the block path), the largest b of each dtype.
-K7_SHAPES = [(64, 31, 12), (3, 1, 7), (5, 9, 1), (6, 5, 16), (5, 3, 32), (2, 4, 40), (200, 6, 5)]
+# block sizes above a warp (the factor's cluster path, a block an
+# instance for the solve), the end of what one CTA of 227 KB held of the
+# three stage blocks before the cluster path took over (139).
+K7_SHAPES = [(64, 31, 12), (3, 1, 7), (5, 9, 1), (6, 5, 16), (5, 3, 32), (2, 4, 40), (2, 3, 64), (200, 6, 5)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("B,Nb,b", K7_SHAPES + [(1, 2, "max")])
+@pytest.mark.parametrize("B,Nb,b", K7_SHAPES + [(1, 2, 139)])
 def test_k7_kernel_matches_plain(dev, dtype, B, Nb, b):
     """K7's factor and solve against their plain versions bit for bit,
     two launches bit-identical, one launch counted per call."""
-    b = k7.max_block(dtype) if b == "max" else b
     M = _band_schur(B, Nb, b, dtype).to(dev).contiguous()
     before = (k7.launches_factor, k7.launches_solve)
     C, G = k7.bt_factor(M, b)
@@ -787,15 +788,17 @@ def test_k7_kernel_matches_plain(dev, dtype, B, Nb, b):
 @pytest.mark.parametrize("b", [1, 5, 12, 16, 32, 33])
 def test_k7_path_by_block_size(dev, b):
     """Up to 32 the warp path runs (counted in launches_*_warp), above it
-    the block path; both the plain version's bits."""
+    the factor's cluster path (launches_factor_cluster) and a block an
+    instance for the solve; both the plain version's bits."""
     M = _band_schur(9, 4, b, torch.float32).to(dev).contiguous()
-    before = (k7.launches_factor_warp, k7.launches_solve_warp)
+    before = (k7.launches_factor_warp, k7.launches_solve_warp, k7.launches_factor_cluster)
     C, G = k7.bt_factor(M, b)
     x = k7.bt_solve(C, G, torch.ones(9, 4 * b, dtype=torch.float32, device=dev))
     Cp, Gp = k7.bt_factor_plain(M, b)
     torch.cuda.synchronize()
     warp = b <= k7.WARP_MAX
     assert (k7.launches_factor_warp - before[0], k7.launches_solve_warp - before[1]) == (warp, warp)
+    assert k7.launches_factor_cluster - before[2] == (not warp)
     assert torch.equal(C, Cp) and torch.equal(G, Gp)
     assert torch.equal(x, k7.bt_solve_plain(Cp, Gp, torch.ones_like(x)))
 
@@ -816,32 +819,70 @@ def test_k7_stage_not_positive_definite_gives_nan(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("b", ["max+1", 256])
+@pytest.mark.parametrize("b", [140, 256, "cmax+1"])
 def test_k7_device_path_above_its_shared_memory(dev, dtype, b):
-    """Above max_block the factor takes its device path (counted in
-    launches_factor_device) and gives the plain version's bits, as does
-    the solve; two launches bit-identical.  A stage that is not positive
-    definite gives NaN there as on the other paths."""
-    b = k7.max_block(dtype) + 1 if b == "max+1" else b
+    """The device path (counted in launches_factor_device), which the
+    factor takes above cluster_max_block and a caller may name at any b
+    above WARP_MAX, gives the plain version's bits, as does the solve;
+    two launches bit-identical.  A stage that is not positive definite
+    gives NaN there as on the other paths."""
+    b = k7.cluster_max_block(dtype) + 1 if b == "cmax+1" else b
+    path = None if b > k7.cluster_max_block(dtype) else "device"
     M = _band_schur(2, 3, b, dtype).to(dev).contiguous()
     before = k7.launches_factor_device
-    C, G = k7.bt_factor(M, b)
-    C2, G2 = k7.bt_factor(M, b)
+    C, G = k7.bt_factor(M, b, path=path)
+    C2, G2 = k7.bt_factor(M, b, path=path)
     Cp, Gp = k7.bt_factor_plain(M, b)
     r = torch.as_tensor(np.random.default_rng(1).standard_normal((2, 3 * b)), dtype=dtype, device=dev)
     x, xp = k7.bt_solve(C, G, r), k7.bt_solve_plain(Cp, Gp, r)
     torch.cuda.synchronize()
-    assert k7.factor_path(b, dtype) == "device" and k7.launches_factor_device - before == 2
+    assert k7.launches_factor_device - before == 2
     assert torch.equal(C, C2) and torch.equal(G, G2)
     assert torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp)
     M[1, b + 3, b + 3] = -1e6
-    C, _ = k7.bt_factor(M, b)
+    C, _ = k7.bt_factor(M, b, path=path)
     Cp, _ = k7.bt_factor_plain(M, b)
     torch.cuda.synchronize()
     assert torch.equal(torch.isnan(C), torch.isnan(Cp)) and torch.isnan(C[1, 1:]).any()
     assert torch.equal(torch.nan_to_num(C), torch.nan_to_num(Cp))
     with pytest.raises(ValueError, match="contiguous"):
         k7.bt_factor(M.mT, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("b,B,k", [(33, 4, None), (140, 4, None), (140, 3, 1), (140, 2, 2), (140, 3, 5),
+                                   (256, 4, None), (256, 9, 8), ("cmax", 2, None), (140, 200, None)])
+def test_k7_cluster_path_matches_plain(dev, dtype, b, B, k):
+    """Above WARP_MAX up to cluster_max_block the factor takes its
+    cluster path (launches_factor_cluster), in clusters of cluster_plan's
+    size or of a size named that fits: C and G bit for bit with the plain
+    version, two launches bit-identical, the solve on its factors the
+    plain solve's bits; NaN where a stage is not positive definite."""
+    b = k7.cluster_max_block(dtype) if b == "cmax" else b
+    if k is not None and not k7.cluster_fits(b, k, dtype):
+        with pytest.raises(ValueError, match="do not fit"):
+            k7.bt_factor(_band_schur(1, 2, b, dtype).to(dev).contiguous(), b, path="cluster", cluster=k)
+        return
+    M = _band_schur(B, 3, b, dtype, seed=b).to(dev).contiguous()
+    before = (k7.launches_factor_cluster, k7.launches_factor_device)
+    kw = {} if k is None else dict(path="cluster", cluster=k)
+    C, G = k7.bt_factor(M, b, **kw)
+    C2, G2 = k7.bt_factor(M, b, **kw)
+    Cp, Gp = k7.bt_factor_plain(M, b)
+    r = torch.as_tensor(np.random.default_rng(2).standard_normal((B, 3 * b)), dtype=dtype, device=dev)
+    x, xp = k7.bt_solve(C, G, r), k7.bt_solve_plain(Cp, Gp, r)
+    torch.cuda.synchronize()
+    assert k7.factor_path(b, dtype) == "cluster"
+    assert (k7.launches_factor_cluster - before[0], k7.launches_factor_device - before[1]) == (2, 0)
+    assert torch.equal(C, C2) and torch.equal(G, G2)
+    assert torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp)
+    M[B - 1, b + 5, b + 5] = -1e6
+    C, G = k7.bt_factor(M, b, **kw)
+    Cp, Gp = k7.bt_factor_plain(M, b)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(C), torch.isnan(Cp)) and torch.isnan(C[B - 1, 1:]).any()
+    assert torch.equal(torch.nan_to_num(C), torch.nan_to_num(Cp)) and torch.equal(torch.nan_to_num(G),
+                                                                                  torch.nan_to_num(Gp))
 
 
 def _large_stage_mpc(b, B=3, horizon=2):
@@ -863,15 +904,15 @@ def _large_stage_mpc(b, B=3, horizon=2):
 
 @pytest.mark.parametrize("dtype,b", [("float32", 140), ("float64", 99)])
 def test_block_tridiag_above_max_block_gpu_matches_cpu(dev, dtype, b):
-    """Stages above max_block through solve_batch and the Solver with
-    block_tridiag on the card (K7's device path) against the CPU path:
+    """Stages of b = 140 and 99 through solve_batch and the Solver with
+    block_tridiag on the card (K7's cluster path) against the CPU path:
     the same statuses and iterations, float64 x and y within 1e-6."""
     base, args = _large_stage_mpc(b)
     kw = dict(dtype=dtype, verbose=False, linsys_solver="block_tridiag", block_size=base.block_size)
-    before = k7.launches_factor_device
+    before = (k7.launches_factor_cluster, k7.launches_factor)
     rg = osqp_tpu_torch.solve_batch(*args, device=dev, **kw)
     torch.cuda.synchronize()
-    assert k7.launches_factor_device > before
+    assert k7.launches_factor_cluster - before[0] == k7.launches_factor - before[1] > 0
     rc = osqp_tpu_torch.solve_batch(*args, device="cpu", **kw)
     assert torch.equal(rg.status_val.cpu(), rc.status_val) and torch.equal(rg.iter.cpu(), rc.iter)
     sg = osqp_tpu_torch.Solver(base.P, base.q, base.A, args[3][0], args[4][0], device=dev, **kw).solve()
@@ -886,16 +927,77 @@ def test_block_tridiag_above_max_block_gpu_matches_cpu(dev, dtype, b):
 @pytest.mark.parametrize("n", [7, "max"])
 def test_k2_leaf_matches_plain(dev, dtype, tol, n):
     """K2's leaf entry, T = chol(S)^-1 with no scaling, against its plain
-    version; two launches give the same bits."""
+    version, on both forms (B = 5 takes the cluster form, a batch of the
+    SM count one block an instance); two launches give the same bits."""
+    from osqp_tpu_torch import _build
+
     n = k2.max_n(dtype) if n == "max" else n
-    S = _spd(5, n, dtype).to(dev)
-    before = k2.launches_leaf
-    T, again = k2.chol_inverse_leaf(S), k2.chol_inverse_leaf(S)
+    for B in (5, _build.sm_count(dev)):
+        S = _spd(B, n, dtype).to(dev)
+        before = (k2.launches_leaf, k2.launches_leaf_cluster)
+        T, again = k2.chol_inverse_leaf(S), k2.chol_inverse_leaf(S)
+        torch.cuda.synchronize()
+        cluster = 2 * (k2.leaf_plan(B, n, dtype, _build.sm_count(dev)) > 0)
+        assert (k2.launches_leaf - before[0], k2.launches_leaf_cluster - before[1]) == (2, cluster)
+        assert cluster == (2 if B == 5 else 0) and torch.equal(T, again)
+        Tp = k2.chol_inverse_leaf_plain(S)
+        assert torch.equal(T, torch.tril(T))
+        assert float((T - Tp).abs().max()) <= tol * float(Tp.abs().max())
+
+
+# the cluster form's leaves: one panel, ragged panels, one CTA's strip,
+# several CTAs' strips with a ragged last one, the recursion's leaves at
+# CVXQP2_M (at most 256), leaves of the largest tree (496, 504), the
+# largest leaf of each dtype
+K2_CLUSTER_CASES = [(n, k) for n in (7, 100, 240, 241, 256, 300, 496, 504, "cmax") for k in (None, 2, 16)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 2e-14)])
+@pytest.mark.parametrize("n,k", K2_CLUSTER_CASES)
+def test_k2_cluster_leaf_matches_plain(dev, dtype, tol, n, k):
+    """The leaf's cluster form at B = 1 and 3, in clusters of leaf_plan's
+    size or of a size named that fits, within the leaf tolerance of
+    chip_smoke.py (LEAF_REL_TOL) of its plain version, lower with zeros
+    above, two launches bit-identical; NaN over an instance that is not
+    PD and over no other."""
+    n = k2.cluster_max_n(dtype) if n == "cmax" else n
+    if k is not None and not k2.cluster_fits(n, k, dtype):
+        with pytest.raises(ValueError, match="does not fit"):
+            k2.chol_inverse_leaf(_spd(1, n, dtype).to(dev), cluster=k)
+        return
+    for B in (1, 3):
+        S = _spd(B, n, dtype, seed=n).to(dev)
+        kw = {} if k is None else dict(cluster=k)
+        before = k2.launches_leaf_cluster
+        T, again = k2.chol_inverse_leaf(S, **kw), k2.chol_inverse_leaf(S, **kw)
+        Tp = k2.chol_inverse_leaf_plain(S)
+        torch.cuda.synchronize()
+        assert k2.launches_leaf_cluster - before == 2 and torch.equal(T, again)
+        assert torch.equal(T, torch.tril(T))
+        assert float((T - Tp).abs().max()) <= tol * float(Tp.abs().max())
+    S[1, n // 2, n // 2] = -1.0
+    T = k2.chol_inverse_leaf(S, **kw)
     torch.cuda.synchronize()
-    assert k2.launches_leaf == before + 2 and torch.equal(T, again)
-    Tp = k2.chol_inverse_leaf_plain(S)
-    assert torch.equal(T, torch.tril(T))
-    assert float((T - Tp).abs().max()) <= tol * float(Tp.abs().max())
+    assert torch.isnan(T[1]).all() and bool(torch.isfinite(T[0]).all()) and bool(torch.isfinite(T[2]).all())
+
+
+def test_k2_route_at_b1_runs_its_leaves_on_clusters(dev):
+    """spd_inverse at B = 1, n = 1000 (CVXQP2_M's size) in float64: four
+    leaves of at most CLUSTER_LEAF_N, all in the cluster form, and the
+    plain route's inverse within chip_smoke.py's ROUTE_REL_TOL."""
+    M = _spd(1, 1000, torch.float64).to(dev)
+    before = (k2.launches_leaf, k2.launches_leaf_cluster)
+    X = k2.spd_inverse(M)
+    torch.cuda.synchronize()
+    assert k2.leaf_size(1, torch.float64, dev) == k2.CLUSTER_LEAF_N
+    assert (k2.launches_leaf - before[0], k2.launches_leaf_cluster - before[1]) == (4, 4)
+    real = k2.chol_inverse_leaf
+    try:
+        k2.chol_inverse_leaf = k2.chol_inverse_leaf_plain
+        Xp = k2.spd_inverse(M)
+    finally:
+        k2.chol_inverse_leaf = real
+    assert float((X - Xp).abs().max()) <= 1e-13 * float(Xp.abs().max())
 
 
 @pytest.mark.parametrize("dtype,gate", [(torch.float32, 3e-6), (torch.float64, 1e-12)])

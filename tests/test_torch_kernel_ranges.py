@@ -1,11 +1,13 @@
 """K2 and K7 beyond one block's shared memory, against the JAX package.
 
 K2 above ``spd_inverse.max_n`` runs its blocked recursion over the
-leaf entry, and ``dense_inv.init`` takes it at every n; K7 above
-``block_tridiag.max_block`` takes the factor's device path.  On the CPU
-the wrappers run their plain versions, so these tests pin the recursion,
-the routing and the paths' names, and hold the results against the JAX
-package in float64.
+leaf entry, and ``dense_inv.init`` takes it at every n; below half the
+SM count the leaves take their cluster form and grow to
+``spd_inverse.cluster_max_n``.  K7 above ``block_tridiag.WARP_MAX``
+takes the factor's cluster path, and above ``cluster_max_block`` its
+device path.  On the CPU the wrappers run their plain versions, so these
+tests pin the recursion, the plans, the routing and the paths' names,
+and hold the results against the JAX package in float64.
 """
 
 import functools
@@ -104,11 +106,143 @@ def test_leaf_is_the_inverse_cholesky_factor_and_nan_where_not_pd():
     assert np.isnan(X[1]).all()
 
 
+@pytest.mark.parametrize("n", SIZES)
+def test_spd_inverse_on_one_large_leaf_matches_reference(monkeypatch, n):
+    """Leaves as large as the cluster form takes (n = 170 and 300 as one
+    leaf each) give the JAX package's inverse, as the default tree does."""
+    seen = []
+    real = k2.chol_inverse_leaf
+    monkeypatch.setattr(k2, "chol_inverse_leaf", lambda S: seen.append(S.shape[-1]) or real(S))
+    *_, M, J = _problem(n)
+    _hold(k2.spd_inverse(torch.as_tensor(M), leaf_n=k2.cluster_max_n(torch.float64)), M, J)
+    assert seen == [n]
+
+
+def _spd(n, B=1, seed=0):
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B, n, n))
+    return torch.as_tensor(G @ G.transpose(0, 2, 1) / n + 0.1 * np.eye(n))
+
+
+def test_spd_inverse_at_n1000_on_the_cluster_leaves_matches_the_default_tree():
+    """CVXQP2_M's size, B = 1, in float64: the tree the card takes there
+    (two leaves of at most cluster_max_n) against the port's default CPU
+    tree (leaves of at most max_n), within the JAX comparison's
+    tolerance, both residuals under its bound."""
+    M = _spd(1000)
+    X = k2.spd_inverse(M, leaf_n=k2.cluster_max_n(torch.float64))
+    Xd = k2.spd_inverse(M)
+    assert float((X - Xd).abs().max()) <= REL_TOL * float(Xd.abs().max())
+    eye = torch.eye(1000, dtype=torch.float64)
+    assert float((eye - M @ X).abs().max()) <= RESID_TOL and float((eye - M @ Xd).abs().max()) <= RESID_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_recursion_at_the_cluster_leaf_size_splits_1000_once(monkeypatch, dtype):
+    seen = []
+    real = k2.chol_inverse_leaf
+    monkeypatch.setattr(k2, "chol_inverse_leaf", lambda S: seen.append(S.shape[-1]) or real(S))
+    M = _spd(1000).to(dtype) + torch.eye(1000, dtype=dtype)
+    T = k2.chol_inv(M, k2.cluster_max_n(dtype))
+    assert seen == [496, 504]
+    assert torch.equal(T, torch.tril(T))
+    tol = 1e-10 if dtype == torch.float64 else 1e-3
+    assert float((T @ M @ T.mT - torch.eye(1000, dtype=dtype)).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_recursion_at_the_card_leaf_size_runs_1000_in_four_leaves(monkeypatch, dtype):
+    """CLUSTER_LEAF_N, the leaf size the card takes at B = 1: CVXQP2_M's n =
+    1000 in four leaves (eight of max_n on one block each before)."""
+    seen = []
+    real = k2.chol_inverse_leaf
+    monkeypatch.setattr(k2, "chol_inverse_leaf", lambda S: seen.append(S.shape[-1]) or real(S))
+    M = _spd(1000).to(dtype) + torch.eye(1000, dtype=dtype)
+    T = k2.chol_inv(M, k2.CLUSTER_LEAF_N)
+    assert seen == [256, 240, 256, 248] and k2.CLUSTER_LEAF_N <= k2.cluster_max_n(dtype)
+    tol = 1e-10 if dtype == torch.float64 else 1e-3
+    assert float((T @ M @ T.mT - torch.eye(1000, dtype=dtype)).abs().max()) <= tol
+
+
+def test_cluster_leaf_sizes():
+    """The cluster form's largest leaf: 16 CTAs of strips of a multiple
+    of 16 rows hold it, not the next one; the CPU keeps max_n."""
+    assert (k2.cluster_max_n(torch.float32), k2.cluster_max_n(torch.float64)) == (768, 512)
+    for dtype in (torch.float32, torch.float64):
+        n = k2.cluster_max_n(dtype)
+        assert k2.cluster_fits(n, 16, dtype) and not k2.cluster_fits(n + 1, 16, dtype)
+        assert k2.leaf_size(1, dtype, "cpu") == k2.max_n(dtype)
+    assert [k2.strip_rows(n, 16) for n in (1, 16, 256, 257, 504, 512, 768)] == [16, 16, 16, 32, 32, 32, 48]
+
+
+@pytest.mark.parametrize("B,sms,k", [(1, 132, 16), (8, 132, 16), (9, 132, 8), (33, 132, 4), (66, 132, 2),
+                                     (67, 132, 0), (256, 132, 0), (8192, 132, 0), (1, 16, 16), (2, 16, 8)])
+def test_leaf_cluster_by_batch_and_sm_count(B, sms, k):
+    """The cluster form only where B is at most half the SM count: the MPC
+    cell (B = 1000), the portfolio (256) and the headline keep one block
+    an instance."""
+    assert k2.leaf_cluster(B, sms) == k
+
+
+@pytest.mark.parametrize("B,n,dtype,k", [(1, 504, torch.float64, 16), (1, 170, torch.float64, 16),
+                                         (64, 241, torch.float32, 2), (64, 300, torch.float64, 8),
+                                         (64, 504, torch.float64, 16), (1000, 186, torch.float32, 0)])
+def test_leaf_plan(B, n, dtype, k):
+    assert k2.leaf_plan(B, n, dtype, 132) == k
+
+
+def test_leaf_plan_and_leaf_refuse_what_no_path_holds():
+    with pytest.raises(ValueError, match="one block an instance holds"):
+        k2.leaf_plan(256, 300, torch.float32, 132)
+    with pytest.raises(ValueError, match="a cluster of 16 CTAs holds"):
+        k2.leaf_plan(1, 513, torch.float64, 132)
+    # the leaf entry takes what some path holds, on the CPU too
+    n = k2.cluster_max_n(torch.float64)
+    assert k2.chol_inverse_leaf(_spd(n)).shape == (1, n, n)
+    with pytest.raises(ValueError, match="holds n <= 512"):
+        k2.chol_inverse_leaf(_spd(n + 1))
+    with pytest.raises(ValueError, match="holds n <= 169"):
+        k2.chol_inverse(_spd(170))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("offset,path", [(32, "warp"), (33, "block"), ("max", "block"), ("max+1", "device")])
+@pytest.mark.parametrize("offset,path", [(32, "warp"), (33, "cluster"), (64, "cluster"), (140, "cluster"),
+                                         ("cmax", "cluster"), ("cmax+1", "device")])
 def test_k7_factor_path(dtype, offset, path):
-    b = {"max": k7.max_block(dtype), "max+1": k7.max_block(dtype) + 1}.get(offset, offset)
+    b = {"cmax": k7.cluster_max_block(dtype), "cmax+1": k7.cluster_max_block(dtype) + 1}.get(offset, offset)
     assert k7.factor_path(b, dtype) == path
+
+
+def test_k7_cluster_max_block_is_what_sixteen_ctas_hold():
+    """The cluster path's largest b: 16 CTAs hold it, not the next one."""
+    assert (k7.cluster_max_block(torch.float32), k7.cluster_max_block(torch.float64)) == (558, 361)
+    for dtype in (torch.float32, torch.float64):
+        b = k7.cluster_max_block(dtype)
+        assert k7.cluster_fits(b, 16, dtype) and not k7.cluster_fits(b + 1, 16, dtype)
+        assert not k7.cluster_fits(b, 8, dtype) and not k7.cluster_fits(b, 12, dtype)
+
+
+@pytest.mark.parametrize("b,B,dtype,sms,k", [
+    (140, 4, torch.float32, 132, 16),     # the large-stage cell: B clusters of 16 on the card
+    (140, 8, torch.float32, 132, 16),
+    (140, 9, torch.float32, 132, 8),      # 9 x 16 > 132: the largest size that fits the card
+    (140, 1000, torch.float32, 132, 1),   # a batch that fills the card: the fewest CTAs that hold a strip
+    (99, 1000, torch.float64, 132, 1),
+    (140, 1000, torch.float64, 132, 2),
+    (256, 1000, torch.float64, 132, 8),   # 8 CTAs needed whatever B
+    (361, 1, torch.float64, 132, 16),
+    (140, 4, torch.float32, 16, 4),       # a smaller card
+    (140, 1, torch.float32, 1, 1),
+])
+def test_k7_cluster_plan(b, B, dtype, sms, k):
+    assert k7.cluster_plan(b, B, dtype, sms) == k
+    assert k7.cluster_fits(b, k, dtype)
+
+
+def test_k7_cluster_plan_refuses_what_no_cluster_holds():
+    b = k7.cluster_max_block(torch.float64) + 1
+    with pytest.raises(ValueError, match="fit no cluster"):
+        k7.cluster_plan(b, 1, torch.float64, 132)
 
 
 def _mpc_batch(nx, nu, horizon, B, seed=0):
@@ -123,14 +257,14 @@ def _mpc_batch(nx, nu, horizon, B, seed=0):
 
 
 def test_block_tridiag_at_b99_matches_reference():
-    """A stage-structured problem with stages of b = 99 = max_block(f64) +
-    1 (nx = 66, nu = 33, two stages), B = 2, in float64 through
+    """A stage-structured problem with stages of b = 99 (nx = 66, nu =
+    33, two stages), B = 2, in float64 through
     solve_batch with block_tridiag on both packages: the same statuses and
     iterations, x and y within 1e-6.  On the card the same problem takes
-    K7's device path."""
+    K7's cluster path."""
     base, args = _mpc_batch(66, 33, 1, 2)
     b = base.block_size
-    assert b == 99 and k7.factor_path(b, torch.float64) == "device"
+    assert b == 99 and k7.factor_path(b, torch.float64) == "cluster"
     kw = dict(dtype="float64", verbose=False, linsys_solver="block_tridiag", block_size=b)
     rt = osqp_tpu_torch.solve_batch(*args, device="cpu", **kw)
     rj = osqp_tpu.solve_batch(*args, **kw)
