@@ -174,15 +174,19 @@ failure ends the run with a non-zero exit and no result line:
     beside the bounds; then K7 above a warp (phase k7_device): the
     cluster path bit for bit at b = 33, 140 and 256 (float32) and 33, 99
     and 256 (float64) in every cluster size that fits, the device
-    path at b = cluster_max_block + 1 and where named, factor and solve;
-    stage-structured MPC batches at b = 140 (float32) and 99 (float64) on
-    the cluster path and at b = cluster_max_block + 1 (float64) on the
-    device path through solve_batch and the Solver against the CPU path
-    (statuses and iterations equal, float64 x and y within 1e-6); the
-    factor timed at the b = 140 and 99 batches by path and cluster size,
-    and on the device path at the b = cluster_max_block + 1 batch, beside
-    the plain version, the library, the bound and the operations floor
-    without fused multiply-adds;
+    path at b = cluster_max_block + 1 (559 in float32, 362 in float64),
+    at b = 849 in float64 (its band in device memory) and where named,
+    factor and wide solve; the wide solve's quotient route against the
+    division; stage-structured MPC batches at b = 140 (float32) and 99
+    (float64) on the cluster path and at b = cluster_max_block + 1
+    (float64) on the device path through solve_batch and the Solver
+    against the CPU path (statuses and iterations equal, float64 x and y
+    within 1e-6, the factor's path and the wide solve counted in both);
+    the factor timed at the b = 140 and 99 batches by path and cluster
+    size, and on the device path at the b = cluster_max_block + 1 batch,
+    and the wide solve at the b = 140 and cluster_max_block + 1 batches,
+    each beside the plain version, the library, the bound and the
+    operations floor without fused multiply-adds;
 20. the MPC cell through ``solve_batch`` with ``block_tridiag`` and with
     ``dense_inv`` (B=1000, float32, eps 1e-3, polish off): every
     instance solved, none at MAX_ITER, the same statuses in both legs,
@@ -216,12 +220,13 @@ failure ends the run with a non-zero exit and no result line:
     ms, ms per CG step and the idle share; the ``SparseSolver`` on
     LISWET1: set-up, solve, update_lin_cost and a warm re-solve.
 
-The line before the last is a JSON object of the kernels (18 rows:
+The line before the last is a JSON object of the kernels (19 rows:
 K6's device loop is cg_loop, K1r's resident path
 admm_iter_refined_resident, K7's cluster and device paths
-block_tridiag_factor_cluster and block_tridiag_factor_device, K2's leaf
-chol_inverse_leaf and its cluster form chol_inverse_leaf_cluster); the
-last line is the device JSON object.
+block_tridiag_factor_cluster and block_tridiag_factor_device and its
+wide solve block_tridiag_solve_wide, K2's leaf chol_inverse_leaf and its
+cluster form chol_inverse_leaf_cluster); the last line is the device
+JSON object.
 
 ``python3 chip_smoke.py --only k8,polish_solver`` runs the build and the
 named phases alone (names: the ``phase_*`` functions' suffixes), for a
@@ -331,18 +336,24 @@ def cuda_ms_flushed(fn, reps):
     return total / reps
 
 
-def profiled(fn):
+def profiled(fn, tries=3):
     """(fn's result, host ms, device events) of one call of ``fn`` under
-    torch.profiler, ending in a synchronize."""
+    torch.profiler, ending in a synchronize.  Now and then the profiler
+    hands back no device event at all for a window that ran kernels (K3's
+    count of kernels a call read 0 so in one run on the H100); such a
+    window is run again, up to ``tries`` times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     return out, wall, events
 
 
@@ -498,7 +509,7 @@ def reset_counts() -> None:
     k8.launches_factor = k8.launches_solve = 0
     k5.launches = k6.launches = k6.launches_loop = 0
     k7.launches_factor = k7.launches_solve = k7.launches_factor_warp = k7.launches_solve_warp = 0
-    k7.launches_factor_cluster = k7.launches_factor_device = 0
+    k7.launches_factor_cluster = k7.launches_factor_device = k7.launches_solve_wide = 0
 
 
 def read_counts() -> dict:
@@ -513,7 +524,7 @@ def read_counts() -> dict:
             "cg_step": k6.launches, "cg_loop": k6.launches_loop, "bt_factor": k7.launches_factor,
             "bt_solve": k7.launches_solve, "bt_factor_warp": k7.launches_factor_warp,
             "bt_solve_warp": k7.launches_solve_warp, "bt_factor_cluster": k7.launches_factor_cluster,
-            "bt_factor_device": k7.launches_factor_device}
+            "bt_factor_device": k7.launches_factor_device, "bt_solve_wide": k7.launches_solve_wide}
 
 
 def prepared(P, q, A, l, u):
@@ -1239,7 +1250,8 @@ def phase_solver(dev):
         if name.startswith("kkt_lu"):  # polish is off here: K8 must stay out of it
             require(n_launch == 0, f"{name} launched on the Solver path with polish off")
         elif name in ("ell_ops", "cg_step", "cg_loop", "bt_factor", "bt_solve", "bt_factor_warp",
-                      "bt_solve_warp", "bt_factor_cluster", "bt_factor_device"):  # other backends' kernels
+                      "bt_solve_warp", "bt_factor_cluster", "bt_factor_device",
+                      "bt_solve_wide"):  # other backends' kernels
             require(n_launch == 0, f"{name} launched on the dense_inv Solver path")
         elif name == "admm_iter_refined_resident":  # B = 1: K1r's split path spreads the instance over the card
             require(n_launch == 0, "K1r took the resident path on the Solver path (B = 1)")
@@ -2248,14 +2260,18 @@ def k7_cost(B, Nb, b, dtype):
     and O) read once, C and G written once; the Cholesky of every stage
     ((b^3 - b) / 6 multiply-subtracts) and, on the Nb - 1 stages after
     the first, the row solve for G (b^2 (b - 1) / 2) and D - G G' on the
-    lower triangle (b^2 (b + 1) / 2).  Solve: C, G and r read once, x
-    written once; per stage 6 b^2 operations.  Every product and
-    difference of K7 is rounded on its own (no FMA), so its operations
-    floor is twice this operations figure (k7_no_fma_ms)."""
+    lower triangle (b^2 (b + 1) / 2).  Solve: the lower triangles of C
+    (b (b + 1) / 2 values a stage), G and r read once, x written once;
+    the two triangular solves of every stage (2 b^2 operations) and, on
+    the Nb - 1 stages after the first, the products with G_i and G_i'
+    (4 b^2).  Every product and difference of K7 is rounded on its own
+    (no FMA), so its operations floor is twice this operations figure
+    (k7_no_fma_ms)."""
     elt = 4 if dtype_name(dtype) == "float32" else 8
-    blocks = 2 * Nb - 1
-    factor = (elt * B * 2 * blocks * b * b, {dtype_name(dtype): B * (Nb * (b**3 - b) // 3 + (Nb - 1) * 2 * b**3)})
-    solve = (elt * B * (blocks * b * b + 2 * Nb * b), {dtype_name(dtype): B * Nb * 6 * b * b})
+    factor = (elt * B * 2 * (2 * Nb - 1) * b * b,
+              {dtype_name(dtype): B * (Nb * (b**3 - b) // 3 + (Nb - 1) * 2 * b**3)})
+    solve = (elt * B * ((Nb - 1) * b * b + Nb * b * (b + 1) // 2 + 2 * Nb * b),
+             {dtype_name(dtype): B * (Nb * 2 * b * b + (Nb - 1) * 4 * b * b)})
     return factor, solve
 
 
@@ -2292,8 +2308,8 @@ def band_schur(B, Nb, b, dtype, dev, seed=None):
 def phase_k7(dev):
     """K7 (block_tridiag) against its plain versions: both paths (b = 1, 5,
     12, 16, 32 on the warp path, 40 and 64 on the factor's cluster path
-    and a block an instance for the solve) on random band
-    matrices, B=200, in both dtypes; then on the reduced matrix
+    and the wide solve) on random band matrices, B=200, in both dtypes;
+    then on the reduced matrix
     of the MPC cell as the block_tridiag backend forms it (B=1000, b=12,
     Nb=31, float32) and at B=64 in float64: factor and solve bit for bit,
     two launches bit-identical; kernel, plain and library (the dense route:
@@ -2504,14 +2520,14 @@ def large_stage_mpc(b, B=4, horizon=2, seed=0):
 
 def k7_bits(M, r, b, label, expect, **kw):
     """K7's factor on the path ``expect`` (counted) against the plain
-    version at M, with its solve: bit for bit, two launches
+    version at M, with the wide solve (counted): bit for bit, two launches
     bit-identical, the solve's backward error against M.  Returns
     |kernel - plain|max (0 when bit for bit)."""
     import torch
 
     from osqp_tpu_torch.ops import block_tridiag as k7
 
-    count = lambda: getattr(k7, f"launches_factor_{expect}")
+    count = lambda: (getattr(k7, f"launches_factor_{expect}"), k7.launches_solve_wide)
     before = count()
     C, G = k7.bt_factor(M, b, **kw)
     C2, G2 = k7.bt_factor(M, b, **kw)
@@ -2519,7 +2535,8 @@ def k7_bits(M, r, b, label, expect, **kw):
     Cp, Gp = k7.bt_factor_plain(M, b)
     xp = k7.bt_solve_plain(Cp, Gp, r)
     torch.cuda.synchronize()
-    require(count() - before == 2, f"K7 at {label} did not take the {expect} path")
+    require(tuple(a - b_ for a, b_ in zip(count(), before)) == (2, 2),
+            f"K7 at {label} did not take the {expect} path and the wide solve")
     require(torch.equal(C, C2) and torch.equal(G, G2) and torch.equal(x, x2), f"K7: two launches differ at {label}")
     same = torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp)
     err = max(float((C - Cp).abs().max()), float((G - Gp).abs().max()), float((x - xp).abs().max()))
@@ -2534,24 +2551,30 @@ def k7_bits(M, r, b, label, expect, **kw):
 
 
 def phase_k7_device(dev):
-    """K7's factor above a warp (b > 32): the cluster path (each instance
-    over a thread-block cluster, up to cluster_max_block) bit for bit
-    against the plain versions at b = 33, 140 and 256 in float32 and 33,
-    99 and 256 in float64, in clusters of cluster_plan's size and of
-    every other size that fits, and the device path (device memory)
-    above cluster_max_block and where named at each of those b;
-    two launches bit-identical.  Then stage-structured MPC batches at b =
-    140 (float32) and 99 (float64) through solve_batch and the Solver with
-    block_tridiag against the CPU path (statuses and iterations equal,
-    float64 x and y within 1e-6), the cluster path counted, and one at b =
-    cluster_max_block + 1 (float64) on the device path, the counts set to
-    0 just before each solve_batch and read just after it; the factor at
-    the b = 140 and 99 batches' reduced matrices timed on the cluster
-    path (every cluster size that fits) beside the device path named
-    there, and at the b = cluster_max_block + 1 batch's on the device
-    path, each beside the plain version, the library
-    (torch.linalg.cholesky), the bound and the operations floor without
-    fused multiply-adds, in one call."""
+    """K7 above a warp (b > 32): the factor's cluster path (each instance
+    over a thread-block cluster, its strips in shared memory, up to
+    cluster_max_block) bit for bit against the plain versions at b = 33,
+    140 and 256 in float32 and 33, 99 and 256 in float64, in clusters of
+    cluster_plan's size and of every other size that fits; the device
+    path (the same steps with the strips in C's and G's slots) above
+    cluster_max_block, at b = 849 in float64 (band and panel in device
+    memory) and where named at each of those b; each with the wide solve
+    (one CTA an instance, by panels), two launches bit-identical; the
+    wide solve's quotient route against the division on random and
+    edge-case pairs.  Then stage-structured MPC batches at b = 140
+    (float32), 99 (float64) and cluster_max_block + 1 (float64, the
+    device path) through solve_batch and the Solver with block_tridiag
+    against the CPU path (statuses and iterations equal, float64 x and y
+    within 1e-6), the counts set to 0 just before each solve_batch and
+    each Solver solve and read just after, the factor's path and the
+    wide solve counted in both.  Then, at the batches' reduced matrices,
+    the factor timed on the cluster path (every cluster size that fits)
+    beside the device path named there, and on the device path at the
+    b = cluster_max_block + 1 batch's; and the wide solve at the b = 140
+    and cluster_max_block + 1 batches' factors; each beside the plain
+    version, the library (torch.linalg.cholesky, torch.cholesky_solve),
+    the bound and the operations floor without fused multiply-adds, in
+    one call."""
     import torch
 
     import osqp_tpu_torch as ot
@@ -2578,6 +2601,28 @@ def phase_k7_device(dev):
         M, r = band_schur(2, 3, b, dtype, dev)
         require(k7.factor_path(b, dtype) == "device", f"K7 at b={b}: not the device path")
         worst["device"] = max(worst["device"], k7_bits(M, r, b, f"b={b} B=2 Nb=3 {dtype_name(dtype)}", "device"))
+    # the device path with its band and panel in device memory
+    b = 849
+    require(k7.device_scratch(b, torch.float64) > 0 and k7.device_scratch(b - 1, torch.float64) == 0,
+            "K7's device path keeps its band in shared memory at b = 849 in float64")
+    M, r = band_schur(1, 3, b, torch.float64, dev)
+    worst["device"] = max(worst["device"], k7_bits(M, r, b, f"b={b} B=1 Nb=3 float64, band in device memory",
+                                                   "device"))
+    # the wide solve's quotient route: the division's bits
+    for dtype in (torch.float32, torch.float64):
+        g = torch.Generator(device=dev).manual_seed(11)
+        nq = 1 << 22
+        scale = lambda: torch.exp2(torch.randint(-60, 60, (nq,), generator=g, device=dev).to(dtype))
+        a = torch.randn(nq, generator=g, dtype=dtype, device=dev) * scale()
+        d = torch.randn(nq, generator=g, dtype=dtype, device=dev) * scale()
+        a[:64], a[64:128], d[128:192], a[192:256], d[256:320] = 0.0, -0.0, float("nan"), float("inf"), 0.0
+        q, ref = k7.route_quotient(a, d), a / d
+        ints = torch.int32 if dtype == torch.float32 else torch.int64
+        num = ~torch.isnan(ref)
+        differ = int((q.view(ints)[num] != ref.view(ints)[num]).sum()) + int((torch.isnan(q) != ~num).sum())
+        print(f"K7 wide solve's quotient route {dtype_name(dtype)}: {nq} pairs (exponents -60..60 on both sides, "
+              f"zeros, infinities, NaNs), {differ} differ from the division's bits")
+        require(differ == 0, f"K7's quotient route differs from the division in {dtype_name(dtype)}")
 
     launches = {}
     for dtype, b in (("float32", 140), ("float64", 99), ("float64", k7.cluster_max_block(torch.float64) + 1)):
@@ -2593,19 +2638,26 @@ def phase_k7_device(dev):
         counts = read_counts()
         launches.setdefault(path, counts)
         rc = ot.solve_batch(*arrays, device="cpu", **kw)
+        torch.cuda.synchronize()
+        reset_counts()
         sg = ot.Solver(base.P, base.q, base.A, arrays[3][0], arrays[4][0], device=dev, **kw).solve()
+        scounts = read_counts()
         sc = ot.Solver(base.P, base.q, base.A, arrays[3][0], arrays[4][0], device="cpu", **kw).solve()
         dx = float((rg.x.cpu() - rc.x).abs().max())
         dy = float((rg.y.cpu() - rc.y).abs().max())
         sdx, sdy = float(np.abs(sg.x - sc.x).max()), float(np.abs(sg.y - sc.y).max())
         label = f"b={b} (nx {2 * b // 3}, nu {b - 2 * b // 3}, 3 stages) B={B} n={n} m={m} {dtype}"
+        k7_counts = lambda c: dict((k, c[k]) for k in c if k.startswith("bt"))
         print(f"block_tridiag {label}, {path} path: solve_batch statuses {status.tolist()} (CPU "
               f"{rc.status_val.tolist()}), iterations {rg.iter.tolist()} (CPU {rc.iter.tolist()}), |dx|max {dx:.3e}, "
               f"|dy|max {dy:.3e}; Solver scenario 0: {sg.info.status}, {sg.info.iter} iterations (CPU "
               f"{sc.info.status}, {sc.info.iter}), |dx|max {sdx:.3e}, |dy|max {sdy:.3e}; K7 launches "
-              f"{dict((k, counts[k]) for k in counts if k.startswith('bt'))}")
-        require(counts[f"bt_factor_{path}"] == counts["bt_factor"] >= 1,
-                f"block_tridiag {label}: K7's {path} path did not run")
+              f"{k7_counts(counts)}, in the Solver's solve {k7_counts(scounts)}")
+        for where, c in (("solve_batch", counts), ("the Solver", scounts)):
+            require(c[f"bt_factor_{path}"] == c["bt_factor"] >= 1,
+                    f"block_tridiag {label}: K7's {path} path did not run in {where}")
+            require(c["bt_solve_wide"] == c["bt_solve"] >= 1,
+                    f"block_tridiag {label}: K7's wide solve did not run in {where}")
         require(np.array_equal(status, rc.status_val.numpy()) and torch.equal(rg.iter.cpu(), rc.iter),
                 f"block_tridiag {label}: solve_batch on the card disagrees with the CPU path")
         require(sg.info.status_val == sc.info.status_val and sg.info.iter == sc.info.iter,
@@ -2614,13 +2666,15 @@ def phase_k7_device(dev):
         if dtype == "float64":
             require(max(dx, dy, sdx, sdy) <= 1e-6, f"block_tridiag {label}: x or y off the CPU path's by more than 1e-6")
 
-    # the factor at the batches' reduced matrices, each path where the main
-    # path takes it, in one call: the cluster path at b = 140 (float32) and
-    # 99 (float64) in every cluster size that fits, beside the device path
-    # named there; the device path at b = cluster_max_block + 1 (float64);
-    # each beside its plain version, the library (torch.linalg.cholesky)
-    # and the bound
-    stats = {}
+    # the factor and the wide solve at the batches' reduced matrices, each
+    # path where the main path takes it, in one call: the cluster path at
+    # b = 140 (float32) and 99 (float64) in every cluster size that fits,
+    # beside the device path named there; the device path at b =
+    # cluster_max_block + 1 (float64); the wide solve at b = 140 (float32)
+    # and cluster_max_block + 1 (float64); each beside its plain version,
+    # the library (torch.linalg.cholesky, torch.cholesky_solve) and the
+    # bound
+    stats, solve_stats = {}, {}
     for dtype, b in ((torch.float32, 140), (torch.float64, 99),
                      (torch.float64, k7.cluster_max_block(torch.float64) + 1)):
         base, *arrays = large_stage_mpc(b)
@@ -2634,7 +2688,7 @@ def phase_k7_device(dev):
         M = form_schur(scaled.P, scaled.A, dyn.sigma, rs.rho_vec).contiguous()
         Nb = n // b
         path = k7.factor_path(b, dtype)
-        (fb, ff), _ = k7_cost(B, Nb, b, dtype)
+        (fb, ff), (sb, sf) = k7_cost(B, Nb, b, dtype)
         no_fma = k7_no_fma_ms(ff)
         label = f"b={b} B={B} Nb={Nb} {dtype_name(dtype)}"
         if path == "cluster":
@@ -2645,7 +2699,7 @@ def phase_k7_device(dev):
             for k in k7.CLUSTERS:
                 if k7.cluster_fits(b, k, dtype):
                     sizes[k] = cuda_ms(lambda: k7.bt_factor(M, b, path="cluster", cluster=k), 20)
-            dv = cuda_ms(lambda: k7.bt_factor(M, b, path="device"), 5)
+            dv = cuda_ms(lambda: k7.bt_factor(M, b, path="device"), 20)
             again = cuda_ms(lambda: k7.bt_factor(M, b), 20)
             # library_ms only: the dense route, which the port never takes
             lib = cuda_ms(lambda: torch.linalg.cholesky(M), 20)
@@ -2656,17 +2710,40 @@ def phase_k7_device(dev):
             st.update(library_ms=lib, device_named_ms=dv, by_cluster=sizes, cluster=plan, bound_no_fma_ms=no_fma)
         else:
             require(path == "device", f"K7 at b={b} {dtype_name(dtype)}: not the device path")
-            st = report_times(f"K7 bt_factor device path {label}", lambda: k7.bt_factor(M, b),
-                              lambda: k7.bt_factor_plain(M, b), 3, fb, ff)
+            plan = k7.device_plan(B, sms)
+            st = report_times(f"K7 bt_factor device path {label}, clusters of {plan}", lambda: k7.bt_factor(M, b),
+                              lambda: k7.bt_factor_plain(M, b), 5, fb, ff)
+            sizes = {k: cuda_ms(lambda: k7.bt_factor(M, b, path="device", cluster=k), 10) for k in k7.CLUSTERS}
             lib = cuda_ms(lambda: torch.linalg.cholesky(M), 20)
-            print(f"  library torch.linalg.cholesky(M) {lib:.4f} ms; device over library {st['ms'] / lib:.3f}; "
-                  f"operations without fused multiply-add {no_fma:.4f} ms, share {no_fma / st['ms']:.3f}")
-            st.update(library_ms=lib, bound_no_fma_ms=no_fma, at=label)
+            print(f"  device path by CTAs a cluster (ms): {({k: round(v, 4) for k, v in sizes.items()})}; library "
+                  f"torch.linalg.cholesky(M) {lib:.4f} ms; device over library {st['ms'] / lib:.3f}; operations "
+                  f"without fused multiply-add {no_fma:.4f} ms, share {no_fma / st['ms']:.3f}")
+            st.update(library_ms=lib, by_cluster=sizes, cluster=plan, bound_no_fma_ms=no_fma, at=label)
         stats[path if path == "device" else dtype_name(dtype)] = st
+        if b == 99:
+            continue
+        # the wide solve on this batch's factors
+        C, G = k7.bt_factor(M, b)
+        g = torch.Generator(device=dev).manual_seed(b)
+        r = torch.randn(B, n, generator=g, dtype=dtype, device=dev)
+        _, warps = k7.solve_plan(b, dtype)
+        ss = report_times(f"K7 bt_solve wide {label}, CTAs of {warps} warps", lambda: k7.bt_solve(C, G, r),
+                          lambda: k7.bt_solve_plain(C, G, r), 20, sb, sf)
+        L = torch.linalg.cholesky(M)  # outside the timed region
+        rc = r[:, :, None].contiguous()
+        lib = cuda_ms(lambda: torch.cholesky_solve(rc, L), 50)
+        x, xp = k7.bt_solve(C, G, r), k7.bt_solve_plain(C, G, r)
+        torch.cuda.synchronize()
+        require(torch.equal(x, xp), f"K7's wide solve differs from its plain version at {label}")
+        print(f"  library torch.cholesky_solve {lib:.4f} ms; wide solve over library {ss['ms'] / lib:.3f}; "
+              f"bit-identical to plain True")
+        ss.update(library_ms=lib, warps=warps, max_abs_err=0.0, at=label)
+        solve_stats[dtype_name(dtype)] = ss
     cluster_stats = dict(stats["float32"], max_abs_err=worst["cluster"], float64=stats["float64"])
     device_stats = dict(stats["device"], max_abs_err=worst["device"],
                         named_b140_float32_ms=stats["float32"]["device_named_ms"])
-    return launches, cluster_stats, device_stats
+    wide_stats = dict(solve_stats["float64"], float32=solve_stats["float32"])
+    return launches, cluster_stats, device_stats, wide_stats
 
 
 def leaf_spy(fn, seen):
@@ -3362,7 +3439,7 @@ def main() -> int:
     sparse_launches, sparse_paths = phase_sparse(dev)
     cg_dense_launches = phase_cg_dense(dev)
     k7_factor_stats, k7_solve_stats = phase_k7(dev)
-    k7_large_launches, k7_cluster_stats, k7_device_stats = phase_k7_device(dev)
+    k7_large_launches, k7_cluster_stats, k7_device_stats, k7_wide_stats = phase_k7_device(dev)
     mpc_legs = phase_mpc(dev)
     mpc_launches = mpc_legs["block_tridiag"]
     portfolio_launches = phase_parametric_portfolio(dev)
@@ -3385,9 +3462,10 @@ def main() -> int:
     # loop's launches in LISWET1's float64 polish (times per CG step on
     # LISWET1's float32 polish system); for K7's cluster path the b = 140
     # float32 batch's solve_batch (times at its reduced matrix, the b = 99
-    # float64 batch's under float64), for its device path the b =
-    # cluster_max_block + 1 float64 batch's (times: the device path at the
-    # b = 140 batch's reduced matrix, in the same call); for K2's leaf the
+    # float64 batch's under float64), for its device path and the wide
+    # solve the b = cluster_max_block + 1 float64 batch's solve_batch (times
+    # at its reduced matrix and factors, the wide solve's at the b = 140
+    # float32 batch's under float32); for K2's leaf the
     # portfolio leg's set-up, cold solve and re-solves (times at its first
     # leaf, the routes' beside them under routes); for its cluster form the
     # Solver path's (CVXQP2_M at B=1; times at CVXQP2_M's first leaf in
@@ -3435,6 +3513,9 @@ def main() -> int:
         dict(name="block_tridiag_factor_cluster", route="cuda", source="osqp_tpu_torch/csrc/block_tridiag.cu",
              replaces="osqp_tpu/linsys/block_tridiag.py:144",
              launches=k7_large_launches["cluster"]["bt_factor_cluster"], **k7_cluster_stats),
+        dict(name="block_tridiag_solve_wide", route="cuda", source="osqp_tpu_torch/csrc/block_tridiag.cu",
+             replaces="osqp_tpu/linsys/block_tridiag.py:180",
+             launches=k7_large_launches["device"]["bt_solve_wide"], **k7_wide_stats),
         dict(name="chol_inverse_leaf", route="cuda", source="osqp_tpu_torch/csrc/chol_inverse.cu",
              replaces="osqp_tpu/ops/spd_inverse.py:129", launches=portfolio_launches["chol_inverse_leaf"],
              **k2_leaf_stats),

@@ -65,8 +65,9 @@ _SIGNATURES = {
     "osqp_cg_step": (_I,) + (_P,) * 15 + (_D, _I, _I, _P),
     "osqp_cg_loop": (_I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _D, _D) + (_P,) * 12 + (_I,) * 4 + (_P,),
     "osqp_cg_loop_blocks": (_I,) * 3,
-    "osqp_bt_factor": (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "osqp_bt_solve": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "osqp_bt_factor": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "osqp_bt_solve": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "osqp_bt_quotients": (_I, _P, _P, _P, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -134,6 +134,8 @@
 namespace {
 
 using osqp_cuda::allow_smem;
+using osqp_cuda::copy_async;
+using osqp_cuda::copy_async_wait;
 using osqp_cuda::kThreads;
 using osqp_cuda::kWarps;
 using osqp_cuda::mul;
@@ -235,18 +237,6 @@ __device__ __forceinline__ void store_vec(T* p, const T (&v)[V]) {
     for (int i = 0; i < V / 2; ++i) reinterpret_cast<double2*>(p)[i] = make_double2(v[2 * i], v[2 * i + 1]);
   }
 }
-
-// *dst <- *src, shared from device memory, without a register: a thread
-// issues all its copies back to back, and cp.async.wait_all (then a block
-// barrier) makes them visible.
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(osqp_cuda::smem_addr(dst)), "l"(src),
-               "n"(sizeof(T))
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // Where a factor's first pass reads K: from lu itself (kLu, every later
 // pass too), from a separate K, or from the blocks of

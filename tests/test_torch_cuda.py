@@ -760,9 +760,9 @@ def _band_schur(B, Nb, b, dtype, seed=0):
 
 # (B, Nb, b): the MPC cell's stages (b = 12, Nb = 31), one stage, stages of
 # one variable, the warp path's register widths at their ends (16, 32),
-# block sizes above a warp (the factor's cluster path, a block an
-# instance for the solve), the end of what one CTA of 227 KB held of the
-# three stage blocks before the cluster path took over (139).
+# block sizes above a warp (the factor's cluster path, the wide solve), the
+# end of what one CTA of 227 KB held of the three stage blocks before the
+# cluster path took over (139).
 K7_SHAPES = [(64, 31, 12), (3, 1, 7), (5, 9, 1), (6, 5, 16), (5, 3, 32), (2, 4, 40), (2, 3, 64), (200, 6, 5)]
 
 
@@ -788,17 +788,17 @@ def test_k7_kernel_matches_plain(dev, dtype, B, Nb, b):
 @pytest.mark.parametrize("b", [1, 5, 12, 16, 32, 33])
 def test_k7_path_by_block_size(dev, b):
     """Up to 32 the warp path runs (counted in launches_*_warp), above it
-    the factor's cluster path (launches_factor_cluster) and a block an
-    instance for the solve; both the plain version's bits."""
+    the factor's cluster path (launches_factor_cluster) and the wide solve
+    (launches_solve_wide); both the plain version's bits."""
     M = _band_schur(9, 4, b, torch.float32).to(dev).contiguous()
-    before = (k7.launches_factor_warp, k7.launches_solve_warp, k7.launches_factor_cluster)
+    before = (k7.launches_factor_warp, k7.launches_solve_warp, k7.launches_factor_cluster, k7.launches_solve_wide)
     C, G = k7.bt_factor(M, b)
     x = k7.bt_solve(C, G, torch.ones(9, 4 * b, dtype=torch.float32, device=dev))
     Cp, Gp = k7.bt_factor_plain(M, b)
     torch.cuda.synchronize()
     warp = b <= k7.WARP_MAX
     assert (k7.launches_factor_warp - before[0], k7.launches_solve_warp - before[1]) == (warp, warp)
-    assert k7.launches_factor_cluster - before[2] == (not warp)
+    assert k7.launches_factor_cluster - before[2] == (not warp) and k7.launches_solve_wide - before[3] == (not warp)
     assert torch.equal(C, Cp) and torch.equal(G, Gp)
     assert torch.equal(x, k7.bt_solve_plain(Cp, Gp, torch.ones_like(x)))
 
@@ -819,31 +819,38 @@ def test_k7_stage_not_positive_definite_gives_nan(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("b", [140, 256, "cmax+1"])
-def test_k7_device_path_above_its_shared_memory(dev, dtype, b):
-    """The device path (counted in launches_factor_device), which the
-    factor takes above cluster_max_block and a caller may name at any b
-    above WARP_MAX, gives the plain version's bits, as does the solve;
-    two launches bit-identical.  A stage that is not positive definite
-    gives NaN there as on the other paths."""
-    b = k7.cluster_max_block(dtype) + 1 if b == "cmax+1" else b
-    path = None if b > k7.cluster_max_block(dtype) else "device"
-    M = _band_schur(2, 3, b, dtype).to(dev).contiguous()
+@pytest.mark.parametrize("b,k", [(140, None), (256, None), ("cmax+1", None), ("cmax+1", 1), ("cmax+1", 4),
+                                 ("band+1", None)])
+def test_k7_device_path_above_its_shared_memory(dev, dtype, b, k):
+    """The device path (counted in launches_factor_device; strips in C's
+    and G's slots), which the factor takes above cluster_max_block and a
+    caller may name at any b above WARP_MAX, in clusters of device_plan's
+    size or of a size named, and with its band in device memory above
+    848 (f64) / 1705 (f32), gives the plain version's bits, as does the
+    solve; two launches bit-identical.  A stage that is not positive
+    definite gives NaN there as on the other paths."""
+    top = 848 if dtype == torch.float64 else 1705
+    b = {"cmax+1": k7.cluster_max_block(dtype) + 1, "band+1": top + 1}.get(b, b)
+    assert (k7.device_scratch(b, dtype) > 0) == (b > top)
+    path = None if b > k7.cluster_max_block(dtype) and k is None else "device"
+    kw = dict(path=path) if k is None else dict(path=path, cluster=k)
+    M = _band_schur(2 if b <= top else 1, 3, b, dtype).to(dev).contiguous()
     before = k7.launches_factor_device
-    C, G = k7.bt_factor(M, b, path=path)
-    C2, G2 = k7.bt_factor(M, b, path=path)
+    C, G = k7.bt_factor(M, b, **kw)
+    C2, G2 = k7.bt_factor(M, b, **kw)
     Cp, Gp = k7.bt_factor_plain(M, b)
-    r = torch.as_tensor(np.random.default_rng(1).standard_normal((2, 3 * b)), dtype=dtype, device=dev)
+    r = torch.as_tensor(np.random.default_rng(1).standard_normal((M.shape[0], 3 * b)), dtype=dtype, device=dev)
     x, xp = k7.bt_solve(C, G, r), k7.bt_solve_plain(Cp, Gp, r)
     torch.cuda.synchronize()
     assert k7.launches_factor_device - before == 2
     assert torch.equal(C, C2) and torch.equal(G, G2)
     assert torch.equal(C, Cp) and torch.equal(G, Gp) and torch.equal(x, xp)
-    M[1, b + 3, b + 3] = -1e6
-    C, _ = k7.bt_factor(M, b, path=path)
+    last = M.shape[0] - 1
+    M[last, b + 3, b + 3] = -1e6
+    C, _ = k7.bt_factor(M, b, **kw)
     Cp, _ = k7.bt_factor_plain(M, b)
     torch.cuda.synchronize()
-    assert torch.equal(torch.isnan(C), torch.isnan(Cp)) and torch.isnan(C[1, 1:]).any()
+    assert torch.equal(torch.isnan(C), torch.isnan(Cp)) and torch.isnan(C[last, 1:]).any()
     assert torch.equal(torch.nan_to_num(C), torch.nan_to_num(Cp))
     with pytest.raises(ValueError, match="contiguous"):
         k7.bt_factor(M.mT, b)
@@ -885,6 +892,68 @@ def test_k7_cluster_path_matches_plain(dev, dtype, b, B, k):
                                                                                   torch.nan_to_num(Gp))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("b,B", [(33, 4), (33, 1000), (47, 3), (64, 132), (140, 4), (140, 200), (256, 4), (362, 4),
+                                 (362, 2), (559, 2)])
+def test_k7_wide_solve_matches_plain(dev, dtype, b, B):
+    """The solve above a warp (launches_solve_wide), in CTAs of
+    solve_plan's warps: x bit for bit with the plain solve on the plain
+    factors, two launches bit-identical; on factors with a NaN stage, the
+    plain solve's NaNs."""
+    M = _band_schur(B, 3, b, dtype, seed=b).to(dev).contiguous()
+    Cp, Gp = k7.bt_factor_plain(M, b)
+    r = torch.as_tensor(np.random.default_rng(3).standard_normal((B, 3 * b)), dtype=dtype, device=dev)
+    before = (k7.launches_solve_wide, k7.launches_solve_warp)
+    x, x2 = k7.bt_solve(Cp, Gp, r), k7.bt_solve(Cp, Gp, r)
+    xp = k7.bt_solve_plain(Cp, Gp, r)
+    torch.cuda.synchronize()
+    assert (k7.launches_solve_wide - before[0], k7.launches_solve_warp - before[1]) == (2, 0)
+    assert torch.equal(x, x2) and torch.equal(x, xp)
+    M[B - 1, b + 5, b + 5] = -1e6
+    Cn, Gn = k7.bt_factor_plain(M, b)
+    x, xp = k7.bt_solve(Cn, Gn, r), k7.bt_solve_plain(Cn, Gn, r)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(x), torch.isnan(xp)) and torch.isnan(x[B - 1]).any()
+    assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(xp))
+
+
+@pytest.mark.parametrize("dtype,b,B", [(torch.float64, 7147, 2), (torch.float32, 16833, 1)])
+def test_k7_wide_solve_vectors_in_device_memory(dev, dtype, b, B):
+    """Above b = 7146 (f64) / 16832 (f32) the wide solve keeps its vectors
+    in a scratch of device memory (solve_scratch): x bit for bit with the
+    plain solve, two launches bit-identical.  C and G are made directly
+    (C lower with a dominant diagonal), Nb = 2 stages."""
+    assert k7.solve_scratch(b, dtype) == 3 * b
+    g = torch.Generator(device=dev).manual_seed(b)
+    C = torch.tril(torch.randn(B, 2, b, b, generator=g, dtype=dtype, device=dev)) / b
+    C.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    G = torch.randn(B, 1, b, b, generator=g, dtype=dtype, device=dev) / b
+    r = torch.randn(B, 2 * b, generator=g, dtype=dtype, device=dev)
+    before = k7.launches_solve_wide
+    x, x2 = k7.bt_solve(C, G, r), k7.bt_solve(C, G, r)
+    xp = k7.bt_solve_plain(C, G, r)
+    torch.cuda.synchronize()
+    assert k7.launches_solve_wide - before == 2
+    assert torch.equal(x, x2) and torch.equal(x, xp) and bool(torch.isfinite(x).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k7_route_quotient_is_the_division(dev, dtype):
+    """The wide solve's quotient route gives the division's bits on
+    random pairs across exponents and on zeros, infinities and NaNs."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = 1 << 20
+    scale = lambda: torch.exp2(torch.randint(-60, 60, (n,), generator=g, device=dev).to(dtype))
+    a = torch.randn(n, generator=g, dtype=dtype, device=dev) * scale()
+    d = torch.randn(n, generator=g, dtype=dtype, device=dev) * scale()
+    a[:64], a[64:128], d[128:192], a[192:256], d[256:320] = 0.0, -0.0, float("nan"), float("inf"), 0.0
+    q, ref = k7.route_quotient(a, d), a / d
+    torch.cuda.synchronize()
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(torch.isnan(q), torch.isnan(ref))
+    assert torch.equal(q.view(ints)[~torch.isnan(ref)], ref.view(ints)[~torch.isnan(ref)])
+
+
 def _large_stage_mpc(b, B=3, horizon=2):
     """A stage-structured MPC batch with stages of b = nx + nu variables
     (nx = 2 b / 3), scenarios by their initial state."""
@@ -902,20 +971,33 @@ def _large_stage_mpc(b, B=3, horizon=2):
     return base, (np.stack([base.P] * B), np.stack([base.q] * B), np.stack([base.A] * B), l, u)
 
 
-@pytest.mark.parametrize("dtype,b", [("float32", 140), ("float64", 99)])
+@pytest.mark.parametrize("dtype,b", [("float32", 140), ("float64", 99), ("float64", 362)])
 def test_block_tridiag_above_max_block_gpu_matches_cpu(dev, dtype, b):
-    """Stages of b = 140 and 99 through solve_batch and the Solver with
-    block_tridiag on the card (K7's cluster path) against the CPU path:
-    the same statuses and iterations, float64 x and y within 1e-6."""
+    """Stages of b = 140, 99 and 362 through solve_batch and the Solver
+    with block_tridiag on the card (K7's cluster path, or its device path
+    at 362, and the wide solve, counted through both entry points)
+    against the CPU path: the same statuses and iterations, float64 x and
+    y within 1e-6."""
     base, args = _large_stage_mpc(b)
+    path = k7.factor_path(b, getattr(torch, dtype))
+    assert path == ("device" if b == 362 else "cluster")
     kw = dict(dtype=dtype, verbose=False, linsys_solver="block_tridiag", block_size=base.block_size)
-    before = (k7.launches_factor_cluster, k7.launches_factor)
+    counts = lambda: (getattr(k7, f"launches_factor_{path}"), k7.launches_factor, k7.launches_solve_wide,
+                      k7.launches_solve)
+
+    def ran(before):
+        torch.cuda.synchronize()
+        f_path, f_all, s_wide, s_all = (a - b_ for a, b_ in zip(counts(), before))
+        return f_path == f_all > 0 and s_wide == s_all > 0
+
+    before = counts()
     rg = osqp_tpu_torch.solve_batch(*args, device=dev, **kw)
-    torch.cuda.synchronize()
-    assert k7.launches_factor_cluster - before[0] == k7.launches_factor - before[1] > 0
+    assert ran(before)
     rc = osqp_tpu_torch.solve_batch(*args, device="cpu", **kw)
     assert torch.equal(rg.status_val.cpu(), rc.status_val) and torch.equal(rg.iter.cpu(), rc.iter)
+    before = counts()
     sg = osqp_tpu_torch.Solver(base.P, base.q, base.A, args[3][0], args[4][0], device=dev, **kw).solve()
+    assert ran(before)
     sc = osqp_tpu_torch.Solver(base.P, base.q, base.A, args[3][0], args[4][0], device="cpu", **kw).solve()
     assert sg.info.status_val == sc.info.status_val and sg.info.iter == sc.info.iter
     if dtype == "float64":

@@ -245,6 +245,74 @@ def test_k7_cluster_plan_refuses_what_no_cluster_holds():
         k7.cluster_plan(b, 1, torch.float64, 132)
 
 
+@pytest.mark.parametrize("B,sms,k", [(4, 132, 16), (8, 132, 16), (9, 132, 8), (33, 132, 4), (132, 132, 1),
+                                     (1000, 132, 1), (4, 16, 4), (1, 1, 1)])
+def test_k7_device_plan(B, sms, k):
+    """The device path's strips live in the outputs, so any cluster holds
+    them: as many CTAs as B clusters spread over the card, one an
+    instance where B fills it."""
+    assert k7.device_plan(B, sms) == k
+
+
+@pytest.mark.parametrize("dtype,b_max", [(torch.float32, 1705), (torch.float64, 848)])
+def test_k7_device_band_in_shared_memory_up_to_its_limit(dtype, b_max):
+    """Up to b = 1705 (f32) / 848 (f64) the device path keeps its panel
+    buffer and band in shared memory and needs no scratch; above, a CTA
+    keeps them in device memory."""
+    assert k7.device_scratch(k7.cluster_max_block(dtype) + 1, dtype) == 0
+    assert k7.device_scratch(b_max, dtype) == 0
+    assert k7.device_scratch(b_max + 1, dtype) == k7._band_values(b_max + 1)
+    assert k7._band_values(b_max) * torch.empty((), dtype=dtype).element_size() <= k7._CLUSTER_SMEM
+
+
+@pytest.mark.parametrize("b,dtype,plan", [
+    (1, torch.float32, ("warp", 0)), (32, torch.float64, ("warp", 0)),
+    (33, torch.float32, ("wide", 3)),      # warp 0 and two warps beside it
+    (99, torch.float64, ("wide", 5)),
+    (140, torch.float32, ("wide", 6)),     # the large-stage batch, f32
+    (320, torch.float64, ("wide", 11)),
+    (362, torch.float64, ("wide", 12)),    # the large-stage batch, f64: the most warps
+    (559, torch.float32, ("wide", 12)),
+    (7146, torch.float64, ("wide", 12)),
+    (7147, torch.float64, ("wide", 12)),   # its vectors in device memory (test_k7_solve_scratch)
+])
+def test_k7_solve_plan(b, dtype, plan):
+    assert k7.solve_plan(b, dtype) == plan
+
+
+@pytest.mark.parametrize("b,dtype,spill", [
+    (32, torch.float64, 0), (33, torch.float64, 0), (362, torch.float64, 0),
+    (7146, torch.float64, 0),          # the largest b whose vectors a CTA's shared memory holds in f64
+    (7147, torch.float64, 3 * 7147),   # above it they go to device memory
+    (16832, torch.float32, 0), (16833, torch.float32, 3 * 16833), (60000, torch.float64, 3 * 60000),
+])
+def test_k7_solve_scratch(b, dtype, spill):
+    """The wide solve takes every b: its three vectors stay in shared
+    memory beside the blocks and tiles up to 7146 (f64) / 16832 (f32),
+    and above that in a scratch of 3 b values an instance; what stays in
+    shared memory then fits a CTA at any b."""
+    path, warps = k7.solve_plan(b, dtype)
+    assert k7.solve_scratch(b, dtype) == spill
+    if path == "wide":
+        kept = k7._solve_values(b, warps, vectors=not spill)
+        assert kept * torch.empty((), dtype=dtype).element_size() <= k7._build.SMEM_BYTES
+
+
+@pytest.mark.parametrize("b,dtype,warps,nbytes", [
+    (33, torch.float32, 3, 4 * (99 + 1088 + 3 * 544)),    # tiles for the 3 warps launched, not for 12
+    (33, torch.float64, 3, 8 * (99 + 1088 + 3 * 544)),
+    (64, torch.float64, 3, 8 * (192 + 1088 + 3 * 544)),
+    (140, torch.float32, 6, 4 * (420 + 1088 + 6 * 544)),
+    (362, torch.float64, 12, 8 * (1086 + 1088 + 12 * 544)),
+])
+def test_k7_solve_shared_memory_by_warps(b, dtype, warps, nbytes):
+    """A CTA of the wide solve takes shared memory for the warps it
+    launches: its vectors, two rounds of two 16 x 17 blocks, a 32 x 17
+    tile a warp."""
+    assert k7.solve_plan(b, dtype) == ("wide", warps)
+    assert k7._solve_values(b, warps) * torch.empty((), dtype=dtype).element_size() == nbytes
+
+
 def _mpc_batch(nx, nu, horizon, B, seed=0):
     rng = np.random.default_rng(seed)
     Ad = np.eye(nx) + 0.05 * rng.standard_normal((nx, nx)) / np.sqrt(nx)

@@ -7,7 +7,7 @@ Each ROOT is the root of a checkout (for example the parent commit
 unpacked with ``git archive`` and this tree: ``old . . old``, so that
 drift on the card falls on both sides).  Each runs in a process of its
 own, which builds that checkout's kernels and, for every block size b of
-SIZES and batch B of BATCHES, makes the reduced matrix M = P + sigma I +
+SIZES and batch B of BATCHES and every case of EXTRA, makes the reduced matrix M = P + sigma I +
 A' diag(rho) A of a random block-tridiagonal problem with Nb = 3 stages
 on the card from a fixed seed (the same M in every checkout), factors
 it with ``bt_factor(M, b)`` on the path that checkout takes, and times
@@ -31,6 +31,8 @@ from osqp_tpu_torch.ops import block_tridiag as k7
 
 SIZES = {"float32": (33, 40, 48, 64, 100, 139), "float64": (33, 40, 48, 64, 98)}
 BATCHES = (1, 8, 132, 1000)
+# (dtype, b, B) besides: the large-stage MPC batches' cells on the cluster path
+EXTRA = (("float32", 140, 4), ("float64", 99, 4), ("float32", 256, 4), ("float64", 256, 4))
 REPS, ROUNDS = 20, 3
 dev = torch.device("cuda", 0)
 
@@ -67,21 +69,19 @@ def ms(fn):
 
 
 cases = []
-for name, sizes in SIZES.items():
+for name, b, B in [(name, b, B) for name, sizes in SIZES.items() for b in sizes for B in BATCHES] + list(EXTRA):
     dtype = getattr(torch, name)
-    for b in sizes:
-        for B in BATCHES:
-            M = band_schur(B, b, dtype, seed=1000 * b + B)
-            try:
-                C, G = k7.bt_factor(M, b)
-                torch.cuda.synchronize()
-            except RuntimeError as e:  # a launch the checkout's kernel refuses
-                cases.append(dict(dtype=name, b=b, B=B, path=k7.factor_path(b, dtype), error=str(e)))
-                continue
-            digest = hashlib.sha256(C.cpu().numpy().tobytes() + G.cpu().numpy().tobytes()).hexdigest()[:16]
-            cases.append(dict(dtype=name, b=b, B=B, path=k7.factor_path(b, dtype), ms=ms(lambda: k7.bt_factor(M, b)),
-                              bits=digest))
-            del M, C, G
+    M = band_schur(B, b, dtype, seed=1000 * b + B)
+    try:
+        C, G = k7.bt_factor(M, b)
+        torch.cuda.synchronize()
+    except RuntimeError as e:  # a launch the checkout's kernel refuses
+        cases.append(dict(dtype=name, b=b, B=B, path=k7.factor_path(b, dtype), error=str(e)))
+        continue
+    digest = hashlib.sha256(C.cpu().numpy().tobytes() + G.cpu().numpy().tobytes()).hexdigest()[:16]
+    cases.append(dict(dtype=name, b=b, B=B, path=k7.factor_path(b, dtype), ms=ms(lambda: k7.bt_factor(M, b)),
+                      bits=digest))
+    del M, C, G
 print(json.dumps({"root": sys.argv[1], "cases": cases}))
 """
 

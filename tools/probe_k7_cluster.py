@@ -56,7 +56,8 @@ UNROLLED = "#pragma unroll\n  for (int jj = 0; jj < kPanel; ++jj) {\n    if (jj 
 ROLLED = "#pragma unroll 1\n  for (int jj = 0; jj < kb; ++jj) {"
 VARIANTS = {"shipped": None, "fence_cta": FENCE_CTA, "fence_cluster": FENCE, "rolled": None, "stamps": None}
 PHASES = ("load", "G fetch", "G earlier columns", "G panel", "G store, barrier", "S fetch", "S update",
-          "diagonal block", "panel solve", "panel barrier", "panel fetch", "trailing update", "stage end")
+          "first diagonal block", "panel solve", "panel barrier",
+          "panel fetch", "trailing update and next diagonal block", "stage end")
 CASES = [(140, 4, 16), (140, 4, 2), (256, 4, 16), (256, 4, 8), (256, 4, 4), (256, 9, 8), (466, 2, 16)]
 
 
@@ -121,8 +122,8 @@ def main() -> int:
             Nb = n // b
             C = torch.empty((B, Nb, b, b), dtype=M.dtype, device=dev)
             G = torch.empty((B, Nb - 1, b, b), dtype=M.dtype, device=dev)
-            code = lib.osqp_bt_factor(_build.dtype_code(M.dtype), M.data_ptr(), C.data_ptr(), G.data_ptr(), B, b, Nb,
-                                      1, k, _build.stream())
+            code = lib.osqp_bt_factor(_build.dtype_code(M.dtype), M.data_ptr(), C.data_ptr(), G.data_ptr(), None, B, b,
+                                      Nb, 1, k, _build.stream())
             if code:
                 raise RuntimeError(f"launch failed: {code}")
             return C, G
@@ -154,19 +155,19 @@ def main() -> int:
                   f"{({n: round(statistics.median(t), 4) for n, t in times.items()})}")
 
         lib = libs["stamps"]
-        lib.osqp_bt_stamps.argtypes = (ctypes.c_void_p,)
+        lib.osqp_bt_stamps.argtypes = (ctypes.c_void_p, ctypes.c_int)
         lib.osqp_bt_stamps.restype = ctypes.c_int
         out = (ctypes.c_ulonglong * 32)()
         for dtype, b in ((torch.float32, 140), (torch.float64, 99)):
             M, _ = chip_smoke.band_schur(4, 3, b, dtype, dev)
             factor(lib, M, b, 16)
             torch.cuda.synchronize()
-            lib.osqp_bt_stamps(out)
+            lib.osqp_bt_stamps(out, 0)
             reps = 10
             for _ in range(reps):
                 factor(lib, M, b, 16)
             torch.cuda.synchronize()
-            if lib.osqp_bt_stamps(out):
+            if lib.osqp_bt_stamps(out, 0):
                 raise RuntimeError("reading the stamps failed")
             clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
                                    capture_output=True, text=True).stdout.strip()

@@ -126,7 +126,7 @@ def main() -> int:
 
             def call(name):
                 code = libs[name].osqp_bt_solve(_build.dtype_code(dtype), C.data_ptr(), G.data_ptr(), r.data_ptr(),
-                                                outs[name].data_ptr(), B, b, Nb, _build.stream())
+                                                outs[name].data_ptr(), None, B, b, Nb, 0, _build.stream())
                 if code:
                     raise RuntimeError(f"osqp_bt_solve ({name}) returned {code}")
 
