@@ -128,15 +128,21 @@ failure ends the run with a non-zero exit and no result line:
     float64, 1e-5 in float32);
 14. the kkt_lu backend: the headline data at B=1024 and CVXQP2_S
     through ``linsys_solver="kkt_lu"`` against the ``dense_inv`` run;
-15. K5 (ell_ops) against its plain versions, every mode (A x, A'y,
-    A'(rho y), the squared column sums, row and column norms, P's
-    diagonal, the final scaling), on the sparse path's scaled operands of
-    CVXQP2_L (B=1, float64 and float32) and of a scenario batch of
-    CVXQP2_M (B=64, float64): sums within RTOL, the rest exact, two
-    launches bit-identical; A x and A'(rho y) timed beside the plain
-    version, the library (``torch.sparse.mm`` on a CSR copy at B=1,
-    ``torch.bmm`` on a 3-D sparse COO copy at B=64) and the bound; K5's
-    launches in a sparse solve of the B=64 batch;
+15. K5 (ell_ops) against its plain versions, bit for bit, on the sparse
+    path's scaled operands of CVXQP2_L (B=1, float64 and float32) and of
+    a scenario batch of CVXQP2_M (B=64, float64): every single product
+    (A x, A'y, A'(rho y), the squared column sums, row and column norms,
+    P's diagonal; one-job launches of the grouped kernel) and the final
+    scaling, the grouped launches the path makes (P x with A x, a
+    check's six products, a Ruiz sweep's three norms, the cg init's two)
+    and eight products of every mode in one launch, and the fused CG
+    start with and without its right-hand side; two launches
+    bit-identical; A x, P x with A x and the fused start timed beside
+    their plain versions, the library (``torch.sparse.mm`` on a CSR copy,
+    the batch block-diagonal; for the start its product part, in two
+    calls) and the bound, with host microseconds per call, and the
+    scaling at CVXQP2_L; K5's launches in a sparse solve of the B=64
+    batch;
 16. K6 against its plain loop (summing in the kernel's order): one cg
     solve from a mid-solve ADMM state of CVXQP2_L (float64, ELL: the
     device loop, one launch) and of the headline data (dense, B=8192,
@@ -152,8 +158,11 @@ failure ends the run with a non-zero exit and no result line:
     iterations equal, the objective within 1e-6, x and y within 1e-5 of
     the golden's largest entry, 1e-3 at CVXQP2_L; float32: status,
     iterations within 25),
-    with launch counts (the CG on K6's device loop alone), CG steps per
-    ADMM iteration, setup and solve ms; at CVXQP2_L and the 8 copies the
+    with launch counts (the CG on K6's device loop alone; K5's by kernel
+    and per ADMM iteration), CG steps per ADMM iteration, setup and solve
+    ms; at CVXQP2_L the same solve with the CG's start unfused (a
+    measurement hook, unfused_start): x, y and iterations bit-identical,
+    solve ms and K5 launches of both; at CVXQP2_L and the 8 copies the
     same solve on the stepwise path in the same call (a measurement hook,
     stepwise_everywhere): x, y and iterations bit-identical, solve ms, ms
     per CG step, launches and the idle share of both under the profiler;
@@ -220,8 +229,9 @@ failure ends the run with a non-zero exit and no result line:
     ms, ms per CG step and the idle share; the ``SparseSolver`` on
     LISWET1: set-up, solve, update_lin_cost and a warm re-solve.
 
-The line before the last is a JSON object of the kernels (19 rows:
-K6's device loop is cg_loop, K1r's resident path
+The line before the last is a JSON object of the kernels (21 rows:
+K5's grouped products are ell_group, its fused CG start ell_cg_start and
+its scaling ell_scale, K6's device loop is cg_loop, K1r's resident path
 admm_iter_refined_resident, K7's cluster and device paths
 block_tridiag_factor_cluster and block_tridiag_factor_device and its
 wide solve block_tridiag_solve_wide, K2's leaf chol_inverse_leaf and its
@@ -507,7 +517,8 @@ def reset_counts() -> None:
     k1.launches = k1.refined_launches = k1.refined_launches_resident = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
     k2.launches_leaf = k2.launches_leaf_cluster = 0
     k8.launches_factor = k8.launches_solve = 0
-    k5.launches = k6.launches = k6.launches_loop = 0
+    k5.launches = k5.launches_group = k5.launches_start = k5.launches_scale = 0
+    k6.launches = k6.launches_loop = 0
     k7.launches_factor = k7.launches_solve = k7.launches_factor_warp = k7.launches_solve_warp = 0
     k7.launches_factor_cluster = k7.launches_factor_device = k7.launches_solve_wide = 0
 
@@ -521,6 +532,7 @@ def read_counts() -> dict:
             "chol_inverse_leaf": k2.launches_leaf, "chol_inverse_leaf_cluster": k2.launches_leaf_cluster,
             "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches,
             "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve, "ell_ops": k5.launches,
+            "ell_group": k5.launches_group, "ell_cg_start": k5.launches_start, "ell_scale": k5.launches_scale,
             "cg_step": k6.launches, "cg_loop": k6.launches_loop, "bt_factor": k7.launches_factor,
             "bt_solve": k7.launches_solve, "bt_factor_warp": k7.launches_factor_warp,
             "bt_solve_warp": k7.launches_solve_warp, "bt_factor_cluster": k7.launches_factor_cluster,
@@ -1249,7 +1261,8 @@ def phase_solver(dev):
     for name, n_launch in total.items():
         if name.startswith("kkt_lu"):  # polish is off here: K8 must stay out of it
             require(n_launch == 0, f"{name} launched on the Solver path with polish off")
-        elif name in ("ell_ops", "cg_step", "cg_loop", "bt_factor", "bt_solve", "bt_factor_warp",
+        elif name in ("ell_ops", "ell_group", "ell_cg_start", "ell_scale", "cg_step", "cg_loop", "bt_factor",
+                      "bt_solve", "bt_factor_warp",
                       "bt_solve_warp", "bt_factor_cluster", "bt_factor_device",
                       "bt_solve_wide"):  # other backends' kernels
             require(n_launch == 0, f"{name} launched on the dense_inv Solver path")
@@ -1724,7 +1737,9 @@ SPARSE_CASES = {
     "LISWET1_B8/float64": ("LISWET1", "float64", 8),
 }
 # The kernels of K5 and K6 (csrc/ell_ops.cu, csrc/cg.cu), by name in the profiler.
-K5_KERNELS = ("reduce_kernel", "scale_kernel")
+K5_KERNELS = tuple(f"namespace)::{k}<" for k in ("group_kernel", "cg_start_kernel", "scale_kernel"))
+# K5's launch counts in read_counts: all, and by kernel.
+K5_COUNTS = ("ell_ops", "ell_group", "ell_cg_start", "ell_scale")
 K6_KERNELS = ("dot_kernel", "update_kernel", "direction_kernel", "loop_kernel")
 
 
@@ -1753,6 +1768,18 @@ def sparse_prepared(name, dtype, dev, B=1, **settings):
     return (cfg, dyn) + batch._prepare(cfg, s.scaling, P_ell, t(q), A_ell, t(l), t(u), rho0, dyn, None, None)
 
 
+def ell_bytes(val, idx, B):
+    """Bytes of one ELL copy read once: B instances' values (padding
+    included) and the shared pattern."""
+    return val.element_size() * B * idx.numel() + 4 * idx.numel()
+
+
+def ell_nnz(val, B):
+    """Stored nonzeros of B instances (instance 0's count: the batch shares
+    its pattern)."""
+    return B * int((val[0] != 0).sum())
+
+
 def k5_cost(E, mode, B):
     """(bytes, operations) of one K5 reduction over the operand E (A's rows
     for matvec, the transpose's for the others): the ELL values and
@@ -1761,94 +1788,214 @@ def k5_cost(E, mode, B):
     weight)."""
     val, idx, G = (E.val, E.idx, E.shape[1]) if mode == "matvec" else (E.t_val, E.t_idx, E.shape[0])
     elt = val.element_size()
-    R, k = idx.shape
+    R = idx.shape[0]
     vectors = 2 if mode == "tmatvec_weighted" else 1
-    nnz = int((val[0] != 0).sum())
-    nbytes = elt * B * (R * k + vectors * G + R) + 4 * R * k
-    return nbytes, {dtype_name(val.dtype): (3 if vectors == 2 else 2) * B * nnz}
+    nbytes = ell_bytes(val, idx, B) + elt * B * (vectors * G + R)
+    return nbytes, {dtype_name(val.dtype): (3 if vectors == 2 else 2) * ell_nnz(val, B)}
+
+
+def k5_pair_cost(P, A, B):
+    """(bytes, operations) of P x and A x in one launch: both operands read
+    once, x read once, both outputs written once."""
+    m, n = A.shape
+    elt = A.val.element_size()
+    nbytes = ell_bytes(P.val, P.idx, B) + ell_bytes(A.val, A.idx, B) + elt * B * (2 * n + m)
+    return nbytes, {dtype_name(A.dtype): 2 * (ell_nnz(P.val, B) + ell_nnz(A.val, B))}
+
+
+def k5_start_cost(P, A, B, with_rhs=True):
+    """(bytes, operations) of ell_cg_start (P x0 and A x0, then the start
+    kernel) as one function: P, A and A's transpose read once; x0, rhs_x,
+    dinv (B, n) and rhs_z, rho (B, m; w is rho) read once; b, r, z written
+    once (r, z without rhs_z); per stored nonzero a multiply-add in P x0 and
+    A x0 and three operations in each weighted transpose; six operations a
+    column besides."""
+    m, n = A.shape
+    elt = A.val.element_size()
+    nbytes = (ell_bytes(P.val, P.idx, B) + ell_bytes(A.val, A.idx, B) + ell_bytes(A.t_val, A.t_idx, B)
+              + elt * B * (3 * n + (2 * m if with_rhs else m) + (3 if with_rhs else 2) * n))
+    flops = (2 * (ell_nnz(P.val, B) + ell_nnz(A.val, B)) + (2 if with_rhs else 1) * 3 * ell_nnz(A.t_val, B)
+             + 6 * B * n)
+    return nbytes, {dtype_name(A.dtype): flops}
+
+
+def k5_scale_cost(A, B, with_c):
+    """(bytes, operations) of ell_scale: both copies of the values and
+    their patterns read once, the row and column scales and c read once,
+    both copies written once; two or three multiplies a slot."""
+    m, n = A.shape
+    elt = A.val.element_size()
+    slots = A.idx.numel() + A.t_idx.numel()
+    nbytes = 2 * elt * B * slots + 4 * slots + elt * B * (m + n + 1)
+    return nbytes, {dtype_name(A.dtype): (3 if with_c else 2) * B * slots}
+
+
+def library_operand(parts, B, G):
+    """ELL copies ``parts`` ((values (B, R, k), pattern (R, k)), ...; all
+    gathering one vector of G entries) stacked by rows, the B instances as
+    the blocks of a block-diagonal CSR matrix, for one torch.sparse.mm
+    (library_ms only: the port never calls it)."""
+    import torch
+
+    Rs = sum(idx.shape[0] for _, idx in parts)
+    rs, cs, vs, off = [], [], [], 0
+    for val, idx in parts:
+        R, k = idx.shape
+        dev = val.device
+        keep = (val != 0).flatten()
+        b = torch.arange(B, device=dev).repeat_interleave(R * k)
+        rs.append(((torch.arange(R, device=dev).repeat_interleave(k) + off).repeat(B) + b * Rs)[keep])
+        cs.append((idx.flatten().long().repeat(B) + b * G)[keep])
+        vs.append(val.flatten()[keep])
+        off += R
+    r, c, v = (torch.cat(t) for t in (rs, cs, vs))
+    return torch.sparse_coo_tensor(torch.stack([r, c]), v, (B * Rs, B * G)).coalesce().to_sparse_csr()
+
+
+def library_product(S, x):
+    """S x for library_operand's S: (B, G) -> (B, rows), or (B, G, c) ->
+    (B, rows, c): one torch.sparse.mm."""
+    import torch
+
+    B = x.shape[0]
+    return torch.sparse.mm(S, x.reshape((B * x.shape[1], -1))).reshape((B, -1) + tuple(x.shape[2:]))
+
+
+def host_us(fn, calls=1000):
+    """Microseconds of host time per call of ``fn``: ``calls`` calls back to
+    back, synchronized once at the end (the device's work per call is a
+    few microseconds, below the host's)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
 
 
 def phase_k5(dev):
-    """K5 (ell_ops) against its plain versions, every mode, on CVXQP2_L's
+    """K5 (ell_ops) against its plain versions, bit for bit, on CVXQP2_L's
     scaled operands (B=1, float64 and float32) and on a scenario batch of
-    CVXQP2_M (B=64, float64): sums within RTOL, maxima, the diagonal and
-    the scaled values exact, two launches bit-identical; A x and
-    A'(rho y) timed beside the plain version, torch.sparse.mm on a CSR
-    copy, and the bound."""
+    CVXQP2_M (B=64, float64): every single product (one-job launches of the
+    grouped kernel) and the scaling, the grouped launches the path makes
+    (P x with A x, a check's six products, a Ruiz sweep's three norms, the
+    cg init's two) and eight jobs of every mode in one launch, and the
+    fused CG start with and without its right-hand side; two launches
+    bit-identical.  At CVXQP2_L float64 and CVXQP2_M B=64: A x, P x with A
+    x and the fused start timed beside their plain versions, the library
+    and the bound, with host microseconds per call; the scaling at
+    CVXQP2_L.  Returns the stats of the grouped kernel, the start and the
+    scaling."""
     import torch
 
     from osqp_tpu_torch.ops import ell as k5
 
-    stats = None
+    stats, err = {}, [0.0]
     for name, dtype, B in (("CVXQP2_L", "float64", 1), ("CVXQP2_L", "float32", 1), ("CVXQP2_M", "float64", 64)):
-        _, _, scaled, scl, rs, _, _ = sparse_prepared(name, dtype, dev, B)
+        _, _, scaled, scl, rs, fac, _ = sparse_prepared(name, dtype, dev, B)
         A, P = scaled.A, scaled.P
         m, n = A.shape
-        tol = RTOL[dtype]
         g = torch.Generator(device=dev).manual_seed(11)
         r = lambda *sh: torch.randn(*sh, generator=g, dtype=A.dtype, device=dev)
-        x, y = r(B, n), r(B, m)
-        cases = {
-            "matvec": lambda f: f(A, x), "tmatvec": lambda f: f(A, y),
-            "tmatvec_weighted": lambda f: f(A, y, rs.rho_vec), "sq_colsums": lambda f: f(A, rs.rho_vec),
-            "row_norms": lambda f: f(A, scl.D), "col_norms": lambda f: f(A, scl.E), "P_col_norms": lambda f: f(P, scl.D),
-            "diagonal": lambda f: f(P), "scale": lambda f: f(A, scl.E, scl.D, scl.c),
+        x, y, x2, y2, x0, rhs_x, rhs_z = r(B, n), r(B, m), r(B, n), r(B, m), r(B, n), r(B, n), r(B, m)
+        rho, dinv, sigma = rs.rho_vec, fac["dinv"], fac["sigma"]
+        label = (f"{name} B={B} n={n} m={m} {dtype} (k = {A.idx.shape[1]}, kt = {A.t_idx.shape[1]}, "
+                 f"P k = {P.idx.shape[1]})")
+        singles = {
+            "matvec": (k5.ell_matvec, A, x), "tmatvec": (k5.ell_tmatvec, A, y),
+            "tmatvec_weighted": (k5.ell_tmatvec, A, y, rho), "sq_colsums": (k5.ell_sq_colsums, A, rho),
+            "row_norms": (k5.ell_row_norms, A, scl.D), "col_norms": (k5.ell_col_norms, A, scl.E),
+            "P_col_norms": (k5.ell_col_norms, P, scl.D), "diagonal": (k5.ell_diagonal, P),
         }
-        label = f"{name} B={B} n={n} m={m} {dtype} (k = {A.idx.shape[1]}, kt = {A.t_idx.shape[1]}, P k = {P.idx.shape[1]})"
-        worst = err = 0.0
-        for mode, call in cases.items():
-            fn = "ell_tmatvec" if mode == "tmatvec_weighted" else "ell_col_norms" if mode == "P_col_norms" else f"ell_{mode}"
-            got, again, want = call(getattr(k5, fn)), call(getattr(k5, fn)), call(getattr(k5, f"{fn}_plain"))
+        plain = lambda f, *args: getattr(k5, f"{f.__name__}_plain")(*args)
+
+        def same(got, again, want, what):
+            """Both launches the plain bits; the largest difference kept."""
+            diff = rel_err(got, want)[0]
+            err[0] = max(err[0], diff)
+            require(torch.equal(got, again), f"K5 {what}: two launches differ at {label}")
+            require(torch.equal(got, want), f"K5 {what} differs from its plain version by {diff:.3e} at {label}")
+
+        for mode, (f, *args) in singles.items():
+            got, again, want = f(*args), f(*args), plain(f, *args)
             torch.cuda.synchronize()
-            if mode == "scale":
-                for f in ("val", "t_val"):
-                    require(torch.equal(getattr(got, f), getattr(again, f)), f"K5 scale {f}: two launches differ at {label}")
-                    require(torch.equal(getattr(got, f), getattr(want, f)), f"K5 scale {f} differs from plain at {label}")
-                continue
-            require(torch.equal(got, again), f"K5 {mode}: two launches differ at {label}")
-            diff, rel = rel_err(got, want)
-            if mode in ("row_norms", "col_norms", "P_col_norms", "diagonal"):
-                require(diff == 0.0, f"K5 {mode} differs from its plain version by {diff:.3e} at {label}")
-            require(rel <= tol, f"K5 {mode} off by {rel:.3e} relative at {label}")
-            worst, err = max(worst, rel), max(err, diff)
-        print(f"K5 ell_ops {label}: every mode against plain, worst relative difference {worst:.3e} (tol {tol:g}), "
-              f"|k-p|max {err:.3e}; maxima, diagonal and scaled values exact; two launches bit-identical")
-        for mode in ("matvec", "tmatvec_weighted"):
-            call = cases[mode]
-            fn = "ell_matvec" if mode == "matvec" else "ell_tmatvec"
-            nbytes, flops = k5_cost(A, mode, B)
-            t = report_times(f"K5 {mode} {label}", lambda: call(getattr(k5, fn)),
-                             lambda: call(getattr(k5, f"{fn}_plain")), 50, nbytes, flops)
-            library_ms = None
-            if B == 1:
-                # library_ms only: a CSR copy for torch.sparse.mm, which the port never calls
-                val, idx, R = (A.val[0], A.idx, m) if mode == "matvec" else (A.t_val[0], A.t_idx, n)
-                keep = (val != 0).flatten()
-                rows = torch.arange(R, device=dev).repeat_interleave(idx.shape[1])[keep]
-                csr = torch.sparse_coo_tensor(torch.stack([rows, idx.flatten().long()[keep]]), val.flatten()[keep],
-                                              (R, n if mode == "matvec" else m)).coalesce().to_sparse_csr()
-                vec = (x if mode == "matvec" else rs.rho_vec * y)[0][:, None]
-                library_ms = cuda_ms(lambda: torch.sparse.mm(csr, vec), 50)
-                print(f"  library torch.sparse.mm (CSR) {library_ms:.4f} ms")
-            else:
-                # library_ms only: the batch as one 3-D sparse COO tensor for
-                # torch.bmm, which the port never calls
-                val, idx, R, C = (A.val, A.idx, m, n) if mode == "matvec" else (A.t_val, A.t_idx, n, m)
-                keep = (val != 0).flatten()
-                k = idx.shape[1]
-                bi = torch.arange(B, device=dev).repeat_interleave(R * k)
-                ri = torch.arange(R, device=dev).repeat_interleave(k).repeat(B)
-                ci = idx.flatten().long().repeat(B)
-                coo = torch.sparse_coo_tensor(torch.stack([bi, ri, ci])[:, keep], val.flatten()[keep],
-                                              (B, R, C)).coalesce()
-                vec = (x if mode == "matvec" else rs.rho_vec * y)[:, :, None]
-                got = torch.bmm(coo, vec)[:, :, 0]
-                _, rel_lib = rel_err(got, call(getattr(k5, fn)))
-                library_ms = cuda_ms(lambda: torch.bmm(coo, vec), 50)
-                print(f"  library torch.bmm (3-D sparse COO) {library_ms:.4f} ms, relative difference to the "
-                      f"kernel {rel_lib:.3e}")
-            if stats is None:
-                stats = dict(t, max_abs_err=err, library_ms=library_ms)
+            same(got, again, want, mode)
+        for c in (scl.c, None):
+            got, again, want = (f(A, scl.E, scl.D, c) for f in (k5.ell_scale, k5.ell_scale, k5.ell_scale_plain))
+            torch.cuda.synchronize()
+            for fld in ("val", "t_val"):
+                same(getattr(got, fld), getattr(again, fld), getattr(want, fld), f"scale {fld}")
+        groups = {
+            "P x with A x": [(k5.ell_matvec, P, x), (k5.ell_matvec, A, x)],
+            "a check's six": [(k5.ell_matvec, A, x), (k5.ell_matvec, P, x), (k5.ell_tmatvec, A, y),
+                              (k5.ell_tmatvec, A, y2), (k5.ell_matvec, P, x2), (k5.ell_matvec, A, x2)],
+            "a Ruiz sweep's three": [(k5.ell_col_norms, P, scl.D), (k5.ell_col_norms, A, scl.E),
+                                     (k5.ell_row_norms, A, scl.D)],
+            "the cg init's two": [(k5.ell_diagonal, P), (k5.ell_sq_colsums, A, rho)],
+            "eight of every mode": list(singles.values()),
+        }
+        for gname, calls in groups.items():
+            before = k5.launches_group
+            outs, again = k5.ell_products(*calls), k5.ell_products(*calls)
+            torch.cuda.synchronize()
+            require(k5.launches_group - before == 2, f"K5 {gname}: {k5.launches_group - before} launches for two calls")
+            for (f, *args), o, o2 in zip(calls, outs, again):
+                same(o, o2, plain(f, *args), f"{gname}: {f.__name__}")
+        for with_rhs in (True, False):
+            args = (P, A, rho, x0, dinv, sigma, rhs_x) + ((rhs_z, rho) if with_rhs else ())
+            before = (k5.launches_group, k5.launches_start)
+            got, again, want = k5.ell_cg_start(*args), k5.ell_cg_start(*args), k5.ell_cg_start_plain(*args)
+            torch.cuda.synchronize()
+            require((k5.launches_group - before[0], k5.launches_start - before[1]) == (2, 2),
+                    "K5 ell_cg_start: not one grouped and one start launch a call")
+            for fld, o, o2, w in zip("brz", got, again, want):
+                same(o, o2, w, f"cg start {fld}")
+        p = k5.plan((n, m), B, torch.cuda.get_device_properties(dev).multi_processor_count)
+        print(f"K5 ell_ops {label}: bit for bit with plain: every single product and the scaling, the grouped "
+              f"launches ({', '.join(groups)}) and the fused start with and without its right-hand side; two "
+              f"launches bit-identical; P x with A x planned as {p.ctas} CTAs of {p.rows} rows x {p.ipar} "
+              f"instances, runs of {p.run}")
+        if dtype == "float32":
+            continue
+
+        key = "B1" if B == 1 else f"B{B}"
+        # A x alone, a one-job launch
+        t = report_times(f"K5 matvec {label}", lambda: k5.ell_matvec(A, x), lambda: k5.ell_matvec_plain(A, x), 50,
+                         *k5_cost(A, "matvec", B))
+        S = library_operand([(A.val, A.idx)], B, n)
+        lib_ms = cuda_ms(lambda: library_product(S, x), 50)
+        us = host_us(lambda: k5.ell_matvec(A, x))
+        print(f"  library torch.sparse.mm (CSR{', the batch block-diagonal' if B > 1 else ''}) {lib_ms:.4f} ms, "
+              f"relative difference to the kernel {rel_err(library_product(S, x), k5.ell_matvec(A, x))[1]:.3e}; host "
+              f"{us:.2f} us per call")
+        stats[f"matvec_{key}"] = dict(t, library_ms=lib_ms, host_us=us)
+        # P x with A x, one launch (the CG's start on the path)
+        pair = [(k5.ell_matvec, P, x), (k5.ell_matvec, A, x)]
+        t = report_times(f"K5 group P x with A x {label}", lambda: k5.ell_products(*pair),
+                         lambda: (k5.ell_matvec_plain(P, x), k5.ell_matvec_plain(A, x)), 50, *k5_pair_cost(P, A, B))
+        S = library_operand([(P.val, P.idx), (A.val, A.idx)], B, n)
+        lib_ms = cuda_ms(lambda: library_product(S, x), 50)
+        us = host_us(lambda: k5.ell_products(*pair))
+        print(f"  library: one product with [P; A] {lib_ms:.4f} ms; host {us:.2f} us per call")
+        stats[f"group_{key}"] = dict(t, library_ms=lib_ms, host_us=us)
+        # the fused start: P x0 with A x0, then the start kernel
+        args = (P, A, rho, x0, dinv, sigma, rhs_x, rhs_z, rho)
+        t = report_times(f"K5 cg start {label}", lambda: k5.ell_cg_start(*args), lambda: k5.ell_cg_start_plain(*args),
+                         50, *k5_start_cost(P, A, B))
+        St = library_operand([(A.t_val, A.t_idx)], B, m)
+        Y = torch.stack([rho * rhs_z, rho * k5.ell_matvec(A, x0)], -1)
+        lib_ms = cuda_ms(lambda: (library_product(S, x0), library_product(St, Y)), 50)
+        us = host_us(lambda: k5.ell_cg_start(*args))
+        print(f"  library, the product part alone ([P; A] x0, then A' on two columns): {lib_ms:.4f} ms in two calls; "
+              f"host {us:.2f} us per call")
+        stats[f"start_{key}"] = dict(t, library_ms=None, library_products_ms=lib_ms, host_us=us)
+        if B == 1:
+            t = report_times(f"K5 scale {label}", lambda: k5.ell_scale(A, scl.E, scl.D, scl.c),
+                             lambda: k5.ell_scale_plain(A, scl.E, scl.D, scl.c), 50, *k5_scale_cost(A, B, True))
+            stats["scale"] = dict(t, library_ms=None, host_us=host_us(lambda: k5.ell_scale(A, scl.E, scl.D, scl.c)))
 
     # K5's launches in a sparse solve of the B=64 scenario batch of CVXQP2_M
     import osqp_tpu_torch as ot
@@ -1857,10 +2004,14 @@ def phase_k5(dev):
     res = ot.solve_sparse(*scenario("CVXQP2_M", 64), dtype="float64", verbose=False)
     solved = int((res.status_val == ot.OSQP_SOLVED).sum())
     after = read_counts()
-    print(f"K5 in solve_sparse, CVXQP2_M scenario batch B=64 float64: {after['ell_ops'] - before['ell_ops']} K5 "
-          f"launches, {after['cg_loop'] - before['cg_loop']} K6 loops; solved {solved} of 64, iterations max "
-          f"{int(res.iter.max())}")
-    return stats
+    print(f"K5 in solve_sparse, CVXQP2_M scenario batch B=64 float64: "
+          f"{dict((k, after[k] - before[k]) for k in K5_COUNTS)} K5 launches, {after['cg_loop'] - before['cg_loop']} "
+          f"K6 loops; solved {solved} of 64, iterations max {int(res.iter.max())}")
+    # the rows: CVXQP2_L float64's times, the others' beside them by name
+    group = dict(stats["group_B1"], max_abs_err=err[0], group_B64=stats["group_B64"],
+                 matvec_B1=stats["matvec_B1"], matvec_B64=stats["matvec_B64"])
+    start = dict(stats["start_B1"], max_abs_err=err[0], start_B64=stats["start_B64"])
+    return group, start, dict(stats["scale"], max_abs_err=err[0])
 
 
 def loop_cost(op, B, n, steps):
@@ -1895,6 +2046,35 @@ def stepwise_everywhere():
             yield
         finally:
             k6.pcg_solve_loop = loop
+
+    return hook()
+
+
+def unfused_start():
+    """A measurement hook: while it is in force the CG's start runs as the
+    composition of single K5 launches that the fused start replaced (the
+    right-hand side's weighted transpose, P x0, A x0 and A'(w A x0), each a
+    one-job launch, and the vector work in PyTorch), so that one call holds
+    the fused start to it bit for bit."""
+    import contextlib
+
+    from osqp_tpu_torch.ops import ell as k5
+
+    def composed(P, A, w, x0, dinv, sigma, rhs_x, rhs_z=None, rho=None):
+        b = rhs_x if rhs_z is None else rhs_x + k5.ell_tmatvec(A, rhs_z, rho)
+        Mx = k5.ell_matvec(P, x0) + sigma * x0
+        Mx = Mx + k5.ell_tmatvec(A, k5.ell_matvec(A, x0), w)
+        r = b - Mx
+        return b, r, dinv * r
+
+    @contextlib.contextmanager
+    def hook():
+        fused = k5.ell_cg_start
+        k5.ell_cg_start = composed
+        try:
+            yield
+        finally:
+            k5.ell_cg_start = fused
 
     return hook()
 
@@ -2077,7 +2257,7 @@ def phase_sparse(dev):
         after = read_counts()
         if main_path:
             launches = after
-        delta = {k: after[k] - before[k] for k in ("ell_ops", "cg_step", "cg_loop", "term_products", "ruiz")}
+        delta = {k: after[k] - before[k] for k in K5_COUNTS + ("cg_step", "cg_loop", "term_products", "ruiz")}
         cg_steps = int(sum(int(k.max()) for k in seen))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2106,6 +2286,31 @@ def phase_sparse(dev):
         require(delta["ell_ops"] > 0 and delta["cg_loop"] == len(seen) > 0 and delta["cg_step"] == 0,
                 f"sparse {case}: the CG did not run on K6's device loop alone")
         require(delta["term_products"] == delta["ruiz"] == 0, f"sparse {case}: a dense kernel launched")
+        require(delta["ell_cg_start"] > 0, f"sparse {case}: the CG's start did not run fused")
+        print(f"  K5 launches per solve {delta['ell_ops']} (grouped {delta['ell_group']}, start "
+              f"{delta['ell_cg_start']}, scale {delta['ell_scale']}), {delta['ell_ops'] / max(it, 1):.3f} per ADMM "
+              f"iteration")
+
+        if main_path:
+            # the same solve with the unfused start, then with the fused one
+            # again (the first solve above paid for warming up), in turns
+            def timed_solve():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = ot.solve_sparse(P, q, A, l, u, dtype=dtype, verbose=False)
+                torch.cuda.synchronize()
+                return r, (time.perf_counter() - t0) * 1e3
+
+            before = read_counts()
+            with unfused_start():
+                res_u, wall_u = timed_solve()
+            after = read_counts()
+            _, wall_f = timed_solve()
+            same = torch.equal(res_u.x, res.x) and torch.equal(res_u.y, res.y) and torch.equal(res_u.iter, res.iter)
+            print(f"  {case} with the unfused start in the same call: x, y and iterations bit-identical {same}; "
+                  f"solve {wall_u:.3f} ms, then the fused start's {wall_f:.3f}; K5 launches "
+                  f"{after['ell_ops'] - before['ell_ops']} against {delta['ell_ops']}")
+            require(same, f"sparse {case}: the fused and the unfused start differ")
 
         if case in ("CVXQP2_L/float64", "LISWET1_B8/float64"):
             # the same solve on the stepwise path, and both under the profiler
@@ -3434,7 +3639,7 @@ def main() -> int:
     polish_launches = phase_polish_batched(dev)
     phase_polish_solver(dev)
     phase_kkt_lu_backend(dev)
-    k5_stats = phase_k5(dev)
+    k5_group_stats, k5_start_stats, k5_scale_stats = phase_k5(dev)
     k6_stats, loop_stats = phase_k6(dev)
     sparse_launches, sparse_paths = phase_sparse(dev)
     cg_dense_launches = phase_cg_dense(dev)
@@ -3450,8 +3655,10 @@ def main() -> int:
     # well-conditioned batch does not run, the Solver path's (its times:
     # CVXQP2_M in float32, where the Solver runs it; the others' at the
     # headline shape); for K8 the headline solve's with polish on (times at
-    # the headline, and at CVXQP2_M B=1 under cvxqp2_m_b1); for K5 the
-    # sparse path's CVXQP2_L solve (times: A x at CVXQP2_L in float64); for
+    # the headline, and at CVXQP2_M B=1 under cvxqp2_m_b1); for K5's three
+    # kernels the sparse path's CVXQP2_L solve (times at CVXQP2_L in
+    # float64: P x with A x for ell_group, A x alone and B=64 beside it;
+    # the fused start, both launches, for ell_cg_start; the scaling); for
     # K6's step kernels the cg backend's dense solve at B=1024 (times: one
     # step at the headline shape, B=8192); for K6's device loop the
     # CVXQP2_L solve (times per CG step, and the stepwise path's beside
@@ -3491,8 +3698,12 @@ def main() -> int:
              replaces="osqp_tpu/linsys/kkt_lu.py:37", launches=polish_launches["kkt_lu_factor"], **k8_factor_stats),
         dict(name="kkt_lu_solve", route="cuda", source="osqp_tpu_torch/csrc/kkt_lu.cu",
              replaces="osqp_tpu/linsys/kkt_lu.py:42", launches=polish_launches["kkt_lu_solve"], **k8_solve_stats),
-        dict(name="ell_ops", route="cuda", source="osqp_tpu_torch/csrc/ell_ops.cu",
-             replaces="osqp_tpu/sparse_ops.py:120", launches=sparse_launches["ell_ops"], **k5_stats),
+        dict(name="ell_group", route="cuda", source="osqp_tpu_torch/csrc/ell_ops.cu",
+             replaces="osqp_tpu/sparse_ops.py:120", launches=sparse_launches["ell_group"], **k5_group_stats),
+        dict(name="ell_cg_start", route="cuda", source="osqp_tpu_torch/csrc/ell_ops.cu",
+             replaces="osqp_tpu/linsys/cg.py:129", launches=sparse_launches["ell_cg_start"], **k5_start_stats),
+        dict(name="ell_scale", route="cuda", source="osqp_tpu_torch/csrc/ell_ops.cu",
+             replaces="osqp_tpu/sparse_ops.py:167", launches=sparse_launches["ell_scale"], **k5_scale_stats),
         dict(name="cg_step", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",
              replaces="osqp_tpu/linsys/cg.py:129", launches=cg_dense_launches["cg_step"], **k6_stats),
         dict(name="cg_step_polish_pcg", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",

@@ -59,7 +59,8 @@ _SIGNATURES = {
     "osqp_kkt_lu_factor_blocks": (_I, _P, _P, _P, _D, _I, _I, _P, _P, _P, _I, _I, _P, _P),
     "osqp_kkt_lu_solve_scratch": (_I,) * 3,
     "osqp_kkt_lu_solve": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "osqp_ell_reduce": (_I, _I) + (_P,) * 5 + (_I,) * 4 + (_P,),
+    "osqp_ell_group": (_I, _P) + (_I,) * 6 + (_P,),
+    "osqp_ell_cg_start": (_I, _P, _P, _I) + (_P,) * 8 + (_D,) + (_P,) * 3 + (_I,) * 4 + (_P,),
     "osqp_ell_scale": (_I,) + (_P,) * 9 + (_I,) * 5 + (_P,),
     "osqp_cg_parts": (_I,),
     "osqp_cg_step": (_I,) + (_P,) * 15 + (_D, _I, _I, _P),
@@ -131,6 +132,8 @@ def build() -> pathlib.Path:
 def library() -> ctypes.CDLL:
     """The bound kernel library, built on first call."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -162,6 +165,7 @@ def check(code: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {code} ({msg})")
 
 
+@functools.lru_cache(maxsize=None)
 def dtype_code(dtype) -> int:
     """0 for float32, 1 for float64: the launchers' template switch."""
     import torch
@@ -173,6 +177,16 @@ def stream() -> int:
     import torch
 
     return torch.cuda.current_stream().cuda_stream
+
+
+def raw_stream(index: int) -> int:
+    """The current stream of CUDA device ``index``, as :func:`stream` gives
+    it for the current device, by the call PyTorch's generated kernels make
+    (torch._inductor's get_raw_stream): no Stream object is built, which
+    saves a few microseconds a launch."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 @functools.lru_cache(maxsize=None)

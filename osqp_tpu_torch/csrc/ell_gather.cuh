@@ -28,6 +28,10 @@ namespace osqp_cuda {
 
 enum EllMode { kSum = 0, kWSum = 1, kSq = 2, kMax = 3, kDiag = 4 };
 
+// |x| with the sign bit cleared, as torch.abs gives it (-0 becomes +0).
+__device__ __forceinline__ float abs_of(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_of(double x) { return fabs(x); }
+
 template <typename T, int M>
 __device__ __forceinline__ T ell_row(const T* v, const int32_t* j, const T* g, const T* w, int k, int r) {
   T acc = T(0);
@@ -39,7 +43,7 @@ __device__ __forceinline__ T ell_row(const T* v, const int32_t* j, const T* g, c
     } else if (M == kSq) {
       acc = add(acc, mul(mul(v[s], v[s]), g[j[s]]));
     } else if (M == kMax) {
-      const T a = mul(v[s] < T(0) ? -v[s] : v[s], g[j[s]]);
+      const T a = mul(abs_of(v[s]), g[j[s]]);
       acc = s == 0 || a > acc ? a : acc;
     } else {
       if (j[s] == r) acc = add(acc, v[s]);

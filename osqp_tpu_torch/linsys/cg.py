@@ -23,8 +23,8 @@ from __future__ import annotations
 import torch
 
 from ..linalg import mat_tvec, mat_vec
+from ..ops import ell
 from ..ops.cg import cg_solve
-from ..ops.ell import ell_diagonal, ell_sq_colsums, ell_tmatvec
 from ..sparse_ops import ELLMatrix
 
 # Caps of the inexact schedule's relative tolerance, by dtype (the JAX
@@ -49,13 +49,14 @@ def init(P, A, sigma, rho_vec, cg_max_iter: int = 0, cg_tol_fraction: float = 1e
     m = A.shape[-2]
     dtype = P.dtype
     if isinstance(P, ELLMatrix):
-        diagM = ell_diagonal(P) + sigma
+        # diag(P) and the column sums in one K5 launch
+        diagP, colsums = ell.ell_products((ell.ell_diagonal, P), (ell.ell_sq_colsums, A, rho_vec))
+        diagM = diagP + sigma
+        if m:
+            diagM = diagM + colsums
     else:
         diagM = torch.diagonal(P, dim1=-2, dim2=-1) + sigma
-    if m:
-        if isinstance(A, ELLMatrix):
-            diagM = diagM + ell_sq_colsums(A, rho_vec)
-        else:
+        if m:
             diagM = diagM + torch.einsum("bm,bmn->bn", rho_vec, A * A)
     max_iter = int(cg_max_iter) if cg_max_iter else (n + m)
     B = diagM.shape[0]
@@ -104,10 +105,18 @@ def update_tolerance(factor, tol_ratio, dyn):
 
 def solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None):
     """One KKT solve through K6, warm-started from ``x0``: returns
-    (x_tilde, z_tilde = A x_tilde)."""
-    b = rhs_x
-    if A.shape[-2]:
-        b = b + (ell_tmatvec(A, rhs_z, rho_vec) if isinstance(A, ELLMatrix) else mat_tvec(A, rho_vec * rhs_z))
-    x, _ = cg_solve(factor["P"], A, factor["sigma"], rho_vec, factor["dinv"], b, x0, factor["tol_rel"],
-                    int(factor["max_iter"]))
+    (x_tilde, z_tilde = A x_tilde).  On ELL operands with constraints the
+    right-hand side b = rhs_x + A'(rho * rhs_z) and the CG's start from
+    x0 come from K5's fused start (two launches), with the bits of the
+    composition below."""
+    P, sigma, dinv = factor["P"], factor["sigma"], factor["dinv"]
+    start = None
+    if isinstance(A, ELLMatrix) and A.shape[0] and x0 is not None:
+        b, r, z = ell.ell_cg_start(P, A, rho_vec, x0, dinv, sigma, rhs_x, rhs_z, rho_vec)
+        start = (r, z)
+    elif A.shape[-2]:
+        b = rhs_x + (ell.ell_tmatvec(A, rhs_z, rho_vec) if isinstance(A, ELLMatrix) else mat_tvec(A, rho_vec * rhs_z))
+    else:
+        b = rhs_x
+    x, _ = cg_solve(P, A, sigma, rho_vec, dinv, b, x0, factor["tol_rel"], int(factor["max_iter"]), start)
     return x, mat_vec(A, x)

@@ -118,20 +118,29 @@ def _operator(P, A, rho_vec, plain: bool):
     return products
 
 
-def _start(products, sigma, dinv, b, x0, tol_rel):
+def _start(products, sigma, dinv, b, x0, tol_rel, start=None):
     """x, r = b - M x, z = dinv r, p = z, rz, r'r and the squared
     tolerance max((tol_rel |b|)^2, 1e-30).  From x0 = None, x = 0 and
-    r = b, with no product."""
+    r = b, with no product; from x0, (r, z) is ``start`` where the caller
+    computed it, else K5's fused start (:func:`ell.ell_cg_start`) on the
+    cg form of an :class:`EllOperator` with rows in A, else
+    ``products(x0)`` composed with the vector work, to the same bits."""
     if x0 is None:
         x, r = torch.zeros_like(b), b.clone()
+        z = dinv * r
     else:
         x = x0.clone()
-        u, v = products(x)
-        Mx = u + sigma * x
-        if v is not None:
-            Mx = Mx + v
-        r = b - Mx
-    z = dinv * r
+        if start is None and isinstance(products, EllOperator) and products.w is not None and products.A.shape[0]:
+            start = ell.ell_cg_start(products.P, products.A, products.w, x0, dinv, sigma, b)[1:]
+        if start is None:
+            u, v = products(x)
+            Mx = u + sigma * x
+            if v is not None:
+                Mx = Mx + v
+            r = b - Mx
+            z = dinv * r
+        else:
+            r, z = start
     tol = tol_rel * torch.linalg.vector_norm(b, dim=-1)
     tol2 = torch.clamp(tol * tol, min=1e-30)
     return x, r, z, z.clone(), vec_dot(r, z), vec_dot(r, r), tol2
@@ -156,20 +165,23 @@ def _validate(P, A, rho_vec, dinv, b, x0, tol_rel):
             raise ValueError(f"cg_solve: {name} is {M.dtype} on {M.device}, b is {dtype} on {dev}")
 
 
-def cg_solve(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter: int):
+def cg_solve(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter: int, start=None):
     """PCG on M = P + sigma I + A' diag(rho) A from ``x0`` (zeros when
     None); returns ``(x, steps)``.  ``sigma`` is a number or a 0-d host
-    tensor; P and A are both dense or both ELL."""
+    tensor; P and A are both dense or both ELL.  ``start``: (r, z) at x0
+    where the caller computed them (:func:`ell.ell_cg_start`)."""
     _validate(P, A, rho_vec, dinv, b, x0, tol_rel)
-    return pcg_solve(_operator(P, A, rho_vec, plain=b.device.type == "cpu"), sigma, dinv, b, tol_rel, max_iter, x0)
+    return pcg_solve(_operator(P, A, rho_vec, plain=b.device.type == "cpu"), sigma, dinv, b, tol_rel, max_iter, x0,
+                     start)
 
 
-def pcg_solve(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None):
+def pcg_solve(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=None):
     """PCG on M p = P p + sigma p + V p with ``products(p)`` = (P p, V p)
-    from ``x0`` (zeros when None); returns ``(x, steps)``.  On a CPU ``b``
-    the plain loop; on a CUDA one the device loop for an
-    :class:`EllOperator`, else the step kernels step by step."""
-    return _route(products, b.device.type)(products, sigma, dinv, b, tol_rel, max_iter, x0)
+    from ``x0`` (zeros when None, ``start`` as :func:`_start` takes it);
+    returns ``(x, steps)``.  On a CPU ``b`` the plain loop; on a CUDA one
+    the device loop for an :class:`EllOperator`, else the step kernels
+    step by step."""
+    return _route(products, b.device.type)(products, sigma, dinv, b, tol_rel, max_iter, x0, start=start)
 
 
 def _route(products, device_type: str):
@@ -189,13 +201,13 @@ def _check_cuda(name, tensors) -> None:
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def pcg_solve_stepwise(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None):
+def pcg_solve_stepwise(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=None):
     """The solve on the card step by step: one :func:`cg_step` per step
     after ``products(p)``, the stop test read by the host once per
     :data:`CHUNK` steps.  Takes any operator (dense GEMVs, or an
     :class:`EllOperator`'s K5 launches)."""
     _check_cuda("pcg_solve_stepwise", (b, dinv, tol_rel) + ((x0,) if x0 is not None else ()))
-    x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel)
+    x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel, start)
     B, n = b.shape
     sigma = float(sigma)
     steps = torch.zeros(B, dtype=torch.int32, device=b.device)
@@ -230,7 +242,7 @@ def _ell_fields(M: ELLMatrix, name: str, B: int, rows: int, cols: int, dtype, de
     return M.val, M.idx, M.t_val, M.t_idx
 
 
-def pcg_solve_loop(op: EllOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=None):
+def pcg_solve_loop(op: EllOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=None):
     """The solve on the card in one launch of the loop kernel, for an
     :class:`EllOperator`: its products, every step and the stop test at
     every step on the device.  The start (from ``x0``, one product) is
@@ -248,7 +260,7 @@ def pcg_solve_loop(op: EllOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=N
             raise ValueError(f"pcg_solve_loop: {name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
                              f"expected {shape} {dtype} on {dev}")
     _check_cuda("pcg_solve_loop", (b,) + operands + tuple(t for _, t, _ in vectors if t is not None))
-    x, r, z, p, rz, rr, tol2 = _start(op, sigma, dinv, b, x0, tol_rel)
+    x, r, z, p, rz, rr, tol2 = _start(op, sigma, dinv, b, x0, tol_rel, start)
     steps = torch.zeros(B, dtype=torch.int32, device=dev)
     if n == 0 or max_iter <= 0:
         return x, steps
@@ -296,12 +308,13 @@ def cg_solve_plain(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter: int, ch
     return pcg_solve_plain(_operator(P, A, rho_vec, plain=True), sigma, dinv, b, tol_rel, max_iter, x0, chunk, dot)
 
 
-def pcg_solve_plain(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None, chunk: int = 1, dot=vec_dot):
+def pcg_solve_plain(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None, chunk: int = 1, dot=vec_dot,
+                    start=None):
     """Plain PyTorch version of :func:`pcg_solve`.  The stop test runs
     before every ``chunk``-th step (every step by default, as the JAX
     loops have it; ``chunk=CHUNK`` as the kernel path has it); ``dot``
     sums the inner products (:func:`kernel_dot`: in the kernel's order)."""
-    x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel)
+    x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel, start)
     steps = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
     for k in range(int(max_iter)):
         if k % chunk == 0 and not bool((rr > tol2).any()):

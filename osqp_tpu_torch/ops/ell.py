@@ -1,33 +1,127 @@
 """K5: the row-gather products of ELL operands (counterpart of
-``osqp_tpu/sparse_ops.py:120-177``).
+``osqp_tpu/sparse_ops.py:120-177``), and the start of the cg backend's
+CG on them (``osqp_tpu/linsys/cg.py:129-137``).
 
-Each public function is the kernel's wrapper: for CUDA operands it
-launches ``csrc/ell_ops.cu`` (one templated row-gather kernel for the
-reductions, one elementwise kernel for :func:`ell_scale`); for CPU
-operands it runs its ``_plain`` twin, the same function in plain
-PyTorch: a gather, then the sum over the slot axis taken in slot order,
-as the kernel takes it, so that the two agree bit for bit (the JAX
-package writes the same gather and reduction).  The kernel takes
-contiguous values and raises on anything else: values broadcast over the
-batch are made contiguous once at set-up (:meth:`ELLMatrix.contiguous`),
-never here.
+Each public function is the kernels' wrapper: for CUDA operands it
+launches ``csrc/ell_ops.cu``; for CPU operands it runs its ``_plain``
+twin, the same function in plain PyTorch: a gather, then the sum over the
+slot axis taken in slot order, as the kernel takes it, so that the two
+agree bit for bit (the JAX package writes the same gather and
+reduction).
 
-Operands with no rows or no columns take the short cuts of the JAX
-package: an empty product is zeros, and nothing is launched.
+- :func:`ell_products` runs several independent products, each given as
+  ``(function, *arguments)`` of the product functions below, in one
+  launch of the grouped reduction kernel (:data:`MAX_JOBS` a launch);
+  each result has the bits of the function's own call, which is a
+  one-job launch of the same kernel.  :func:`plan` deals the launch's
+  CTAs to its jobs.
+- :func:`ell_cg_start` computes the CG's right-hand side and its start
+  from x0 in two launches: P x0 and A x0 grouped, then one kernel.
+- :func:`ell_scale` runs the scaling kernel on both copies of the values.
+
+An operand is checked once, at its first product, and what a launch
+needs of it is kept on the :class:`ELLMatrix` (:func:`_operand`); a call
+checks its vectors.  The kernels take contiguous tensors and raise on
+anything else: values broadcast over the batch are made contiguous once
+at set-up (:meth:`ELLMatrix.contiguous`), never here.  Operands with no
+rows or no columns take the short cuts of the JAX package: an empty
+product is zeros, and nothing is launched.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
 from .. import _build
 from ..sparse_ops import ELLMatrix
 
-launches = 0
+launches = 0  # every K5 launch
+launches_group = 0  # launches of the grouped reduction, one-job launches included
+launches_start = 0  # launches of the CG start
+launches_scale = 0  # launches of the scaling
 
 _SUM, _WSUM, _SQ, _MAX, _DIAG = range(5)
+
+# The grouped kernel's limits (csrc/ell_ops.cu: kMaxJobs, kThreads): jobs
+# a launch, threads a CTA; a row tile is a warp at the least.
+MAX_JOBS = 8
+THREADS = 256
+MIN_ROWS = 32
+# CTAs per SM a launch aims at, where its batch can be split into runs.
+CTAS_PER_SM = 8
+
+
+class Plan(NamedTuple):
+    """How one launch of the grouped kernel cuts its jobs: tiles of
+    ``rows`` rows, ``ipar`` instances side by side in a CTA of rows x ipar
+    threads, runs of ``run`` instances (a multiple of ipar), ``tiles[j]``
+    tiles of job j and its CTAs from ``cta0[j]`` on, ``ctas`` in all."""
+
+    rows: int
+    ipar: int
+    run: int
+    tiles: tuple
+    cta0: tuple
+    ctas: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(R: tuple, B: int, sm_count: int, ctas_per_sm: int = CTAS_PER_SM) -> Plan:
+    """The plan of a launch whose jobs have ``R`` rows each (all >= 1)
+    over ``B`` instances on a card of ``sm_count`` SMs.  Row tiles shrink
+    from 256 rows towards a warp until the tiles give every SM a CTA;
+    then the batch is cut into runs until there are ``ctas_per_sm`` CTAs
+    an SM, or as many runs as groups of ipar instances.  A run's CTA reads
+    its tile's pattern once for all its instances."""
+    if not R or min(R) < 1 or B < 1:
+        raise ValueError(f"plan takes jobs of at least one row over at least one instance, not {R} over {B}")
+    tiles_of = lambda rows: tuple(-(-r // rows) for r in R)
+    rows = THREADS
+    while rows > MIN_ROWS and sum(tiles_of(rows)) < sm_count:
+        rows //= 2
+    tiles = tiles_of(rows)
+    ipar = min(THREADS // rows, B)
+    groups = -(-B // ipar)
+    runs = min(max(-(-ctas_per_sm * sm_count // sum(tiles)), 1), groups)
+    run = -(-groups // runs) * ipar
+    runs = -(-B // run)
+    cta0, ctas = [], 0
+    for t in tiles:
+        cta0.append(ctas)
+        ctas += t * runs
+    return Plan(rows, ipar, run, tiles, tuple(cta0), ctas)
+
+
+def plan_tiles(p: Plan, R: tuple, B: int):
+    """(job, r0, r1, b0, b1) of every CTA of the plan, as the kernel reads
+    its block index: the job is the last whose first CTA is at or below
+    it; then the tile, then the run."""
+    for cta in range(p.ctas):
+        j = max(i for i in range(len(R)) if p.cta0[i] <= cta)
+        run, tile = divmod(cta - p.cta0[j], p.tiles[j])
+        r0, b0 = tile * p.rows, run * p.run
+        yield j, r0, min(r0 + p.rows, R[j]), b0, min(b0 + p.run, B)
+
+
+# ---------------------------------------------------------------------------
+# Operands and vectors
+# ---------------------------------------------------------------------------
+class _Operand(NamedTuple):
+    """What a launch needs of an ELLMatrix, checked once."""
+
+    cuda: bool
+    dtype: torch.dtype
+    device: torch.device
+    B: int
+    rows: tuple  # (values pointer, pattern pointer, k) of A's copy
+    t: tuple  # the same of the transpose's
+    code: int  # the dtype's code and the card's SMs (CUDA only)
+    sms: int
 
 
 def _take(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -49,51 +143,139 @@ def _check_operand(val, idx, name):
         raise ValueError(f"{name}: pattern on {idx.device}, values on {val.device}")
 
 
-def _check_vector(v, B, G, ref, name):
-    if v.dtype != ref.dtype or v.device != ref.device or tuple(v.shape) != (B, G):
+def _operand(A: ELLMatrix, name: str) -> _Operand:
+    """A's launch descriptor, made and checked at its first use and kept
+    on A (a new matrix, such as :func:`ell_scale`'s result, has none; a
+    copy whose values moved, such as a deep copy's, makes its own)."""
+    d = A.__dict__.get("_k5_operand")
+    if d is not None and (not d.cuda or d.rows[0] == A.val.data_ptr()):
+        return d
+    _check_operand(A.val, A.idx, name)
+    _check_operand(A.t_val, A.t_idx, name)
+    if A.t_val.dtype != A.val.dtype or A.t_val.device != A.val.device or A.t_val.shape[0] != A.val.shape[0]:
+        raise ValueError(f"{name}: the transpose's values differ from A's in dtype, device or batch")
+    dev = A.val.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {dev}")
+    cuda = dev.type == "cuda"
+    copies = ((A.val, A.idx), (A.t_val, A.t_idx))
+    if cuda and not all(t.is_contiguous() for c in copies for t in c):
+        raise ValueError(f"{name} takes contiguous tensors (make the operand so with ELLMatrix.contiguous)")
+    ptrs = [(v.data_ptr(), i.data_ptr(), i.shape[1]) if cuda else None for v, i in copies]
+    d = _Operand(cuda, A.val.dtype, dev, A.val.shape[0], ptrs[0], ptrs[1],
+                 _build.dtype_code(A.val.dtype) if cuda else -1, _build.sm_count(dev) if cuda else 0)
+    object.__setattr__(A, "_k5_operand", d)
+    return d
+
+
+def _check_vector(v, B, G, d: _Operand, name):
+    if v.dtype != d.dtype or v.device != d.device or v.shape != (B, G):
         raise ValueError(
-            f"{name}: vector {tuple(v.shape)} {v.dtype} on {v.device}, expected ({B}, {G}) {ref.dtype} on {ref.device}"
+            f"{name}: vector {tuple(v.shape)} {v.dtype} on {v.device}, expected ({B}, {G}) {d.dtype} on {d.device}"
         )
+    if d.cuda and not v.is_contiguous():
+        raise ValueError(f"{name} takes contiguous tensors")
 
 
-def _zeros(A: ELLMatrix, L: int) -> torch.Tensor:
-    """The (B, L) zeros of an empty product, launching nothing."""
-    return torch.zeros((A.batch, L), dtype=A.dtype, device=A.device)
+def _call(lib_fn, device, *args) -> int:
+    """A launcher's call on the current stream of ``device``, under it
+    unless it is the current device."""
+    if device.index == torch.cuda.current_device():
+        return lib_fn(*args, _build.raw_stream(device.index))
+    with torch.cuda.device(device):
+        return lib_fn(*args, _build.raw_stream(device.index))
 
 
-def _on_cuda(val, name) -> bool:
-    if val.device.type == "cpu":
-        return False
-    if val.device.type != "cuda":
-        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {val.device}")
-    return True
+# ---------------------------------------------------------------------------
+# Jobs of the grouped kernel
+# ---------------------------------------------------------------------------
+class _Job(NamedTuple):
+    op: _Operand
+    mode: int
+    copy: tuple | None  # (values pointer, pattern pointer, k) of the copy reduced (CUDA)
+    g: torch.Tensor | None
+    w: torch.Tensor | None
+    R: int  # rows of the output
+    empty: bool  # no rows or no columns: zeros, no launch
+    plain: Callable[[], torch.Tensor]
 
 
-def _reduce(mode, val, idx, g, w, name):
-    """One launch of the reduction kernel over contiguous operands."""
-    global launches
-    B, R, k = val.shape
-    G = g.shape[1] if g is not None else 0
-    for t in (val, idx, g, w):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} takes contiguous tensors (make the operand so with ELLMatrix.contiguous)")
-    out = torch.empty((B, R), dtype=val.dtype, device=val.device)
-    lib = _build.library()
-    with torch.cuda.device(val.device):
-        code = lib.osqp_ell_reduce(
-            _build.dtype_code(val.dtype), mode, val.data_ptr(), idx.data_ptr(),
-            g.data_ptr() if g is not None else 0, w.data_ptr() if w is not None else 0,
-            out.data_ptr(), B, R, k, G, _build.stream(),
-        )
-    _build.check(code, name)
+def _gathering(name, mode, A, copy_t, g, G, R, plain, w=None):
+    """The job of a product that gathers g (and w) of G entries into R
+    rows of A's copy (of its transpose's with ``copy_t``)."""
+    d = _operand(A, name)
+    _check_vector(g, d.B, G, d, name)
+    if w is not None:
+        _check_vector(w, d.B, G, d, name)
+    return _Job(d, mode, d.t if copy_t else d.rows, g, w, R, A.shape[0] == 0 or A.shape[1] == 0, plain)
+
+
+def _job_matvec(A, x):
+    m, n = A.shape
+    return _gathering("ell_matvec", _SUM, A, False, x, n, m, lambda: ell_matvec_plain(A, x))
+
+
+def _job_tmatvec(A, y, w=None):
+    m, n = A.shape
+    mode = _SUM if w is None else _WSUM
+    return _gathering("ell_tmatvec", mode, A, True, y, m, n, lambda: ell_tmatvec_plain(A, y, w), w)
+
+
+def _job_diagonal(P):
+    d = _operand(P, "ell_diagonal")
+    n = P.shape[0]
+    return _Job(d, _DIAG, d.rows, None, None, n, n == 0, lambda: ell_diagonal_plain(P))
+
+
+def _job_sq_colsums(A, w):
+    m, n = A.shape
+    return _gathering("ell_sq_colsums", _SQ, A, True, w, m, n, lambda: ell_sq_colsums_plain(A, w))
+
+
+def _job_row_norms(A, col_w):
+    m, n = A.shape
+    return _gathering("ell_row_norms", _MAX, A, False, col_w, n, m, lambda: ell_row_norms_plain(A, col_w))
+
+
+def _job_col_norms(A, row_w):
+    m, n = A.shape
+    return _gathering("ell_col_norms", _MAX, A, True, row_w, m, n, lambda: ell_col_norms_plain(A, row_w))
+
+
+def _run(jobs) -> list:
+    """The jobs' results: zeros for empty products, the plain versions on
+    the CPU, one grouped launch per MAX_JOBS of the rest on the card."""
+    d = jobs[0].op
+    if any(j.op.device != d.device or j.op.dtype != d.dtype or j.op.B != d.B for j in jobs):
+        raise ValueError("ell_products: the operands differ in device, dtype or batch")
+    zeros = lambda R: torch.zeros((d.B, R), dtype=d.dtype, device=d.device)
+    if not d.cuda:
+        return [zeros(j.R) if j.empty else j.plain() for j in jobs]
+    outs = [zeros(j.R) if j.empty else torch.empty((d.B, j.R), dtype=d.dtype, device=d.device) for j in jobs]
+    live = [i for i, j in enumerate(jobs) if not j.empty]
+    if d.B:
+        for c in range(0, len(live), MAX_JOBS):
+            chunk = live[c:c + MAX_JOBS]
+            _launch_group([jobs[i] for i in chunk], [outs[i] for i in chunk], d)
+    return outs
+
+
+def _launch_group(jobs, outs, d: _Operand) -> None:
+    global launches, launches_group
+    p = plan(tuple(j.R for j in jobs), d.B, d.sms)
+    words = []
+    for j, out, tiles, cta0 in zip(jobs, outs, p.tiles, p.cta0):
+        val, idx, k = j.copy
+        if j.g is None:
+            words += (val, idx, 0, 0, out.data_ptr(), j.R, k, 0, j.mode, tiles, cta0)
+        else:
+            w = j.w.data_ptr() if j.w is not None else 0
+            words += (val, idx, j.g.data_ptr(), w, out.data_ptr(), j.R, k, j.g.shape[1], j.mode, tiles, cta0)
+    code = _call(_build.library().osqp_ell_group, d.device, d.code, (ctypes.c_longlong * len(words))(*words),
+                 len(jobs), d.B, p.rows, p.ipar, p.run, p.ctas)
+    _build.check(code, "ell_group")
     launches += 1
-    return out
-
-
-def _gathered(A_val, A_idx, g, G, name):
-    """Validate an operand and the vector it gathers from (B, G)."""
-    _check_operand(A_val, A_idx, name)
-    _check_vector(g, A_val.shape[0], G, A_val, name)
+    launches_group += 1
 
 
 # ---------------------------------------------------------------------------
@@ -101,106 +283,122 @@ def _gathered(A_val, A_idx, g, G, name):
 # ---------------------------------------------------------------------------
 def ell_matvec(A: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
     """A x: (B, n) -> (B, m)."""
-    m, n = A.shape
-    _gathered(A.val, A.idx, x, n, "ell_matvec")
-    if m == 0 or n == 0:
-        return _zeros(A, m)
-    if not _on_cuda(A.val, "ell_matvec"):
-        return ell_matvec_plain(A, x)
-    return _reduce(_SUM, A.val, A.idx, x, None, "ell_matvec")
+    return _run((_job_matvec(A, x),))[0]
 
 
 def ell_tmatvec(A: ELLMatrix, y: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
     """A'y through the stored transpose: (B, m) -> (B, n).  With ``w``
     (B, m), A'(w * y), the product w * y taken per slot and rounded as
     the elementwise product would be."""
-    m, n = A.shape
-    _gathered(A.t_val, A.t_idx, y, m, "ell_tmatvec")
-    if w is not None:
-        _check_vector(w, A.batch, m, A.val, "ell_tmatvec")
-    if m == 0 or n == 0:
-        return _zeros(A, n)
-    if not _on_cuda(A.val, "ell_tmatvec"):
-        return ell_tmatvec_plain(A, y, w)
-    return _reduce(_SUM if w is None else _WSUM, A.t_val, A.t_idx, y, w, "ell_tmatvec")
+    return _run((_job_tmatvec(A, y, w),))[0]
 
 
 def ell_diagonal(P: ELLMatrix) -> torch.Tensor:
     """(B, n) diagonal of a square ELL matrix."""
-    _check_operand(P.val, P.idx, "ell_diagonal")
-    if P.shape[0] == 0:
-        return _zeros(P, 0)
-    if not _on_cuda(P.val, "ell_diagonal"):
-        return ell_diagonal_plain(P)
-    return _reduce(_DIAG, P.val, P.idx, None, None, "ell_diagonal")
+    return _run((_job_diagonal(P),))[0]
 
 
 def ell_sq_colsums(A: ELLMatrix, w: torch.Tensor) -> torch.Tensor:
     """(B, n) column sums  sum_i w_i A_ij^2  (the Jacobi preconditioner's
     term) through the transpose copy."""
-    m, n = A.shape
-    _gathered(A.t_val, A.t_idx, w, m, "ell_sq_colsums")
-    if m == 0 or n == 0:
-        return _zeros(A, n)
-    if not _on_cuda(A.val, "ell_sq_colsums"):
-        return ell_sq_colsums_plain(A, w)
-    return _reduce(_SQ, A.t_val, A.t_idx, w, None, "ell_sq_colsums")
+    return _run((_job_sq_colsums(A, w),))[0]
 
 
 def ell_row_norms(A: ELLMatrix, col_w: torch.Tensor) -> torch.Tensor:
     """(B, m) row inf-norms under a column weight: max_j |A_ij| col_w_j."""
-    m, n = A.shape
-    _gathered(A.val, A.idx, col_w, n, "ell_row_norms")
-    if m == 0 or n == 0:
-        return _zeros(A, m)
-    if not _on_cuda(A.val, "ell_row_norms"):
-        return ell_row_norms_plain(A, col_w)
-    return _reduce(_MAX, A.val, A.idx, col_w, None, "ell_row_norms")
+    return _run((_job_row_norms(A, col_w),))[0]
 
 
 def ell_col_norms(A: ELLMatrix, row_w: torch.Tensor) -> torch.Tensor:
     """(B, n) column inf-norms under a row weight: max_i row_w_i |A_ij|
     (through the transpose)."""
+    return _run((_job_col_norms(A, row_w),))[0]
+
+
+_JOBS = {ell_matvec: _job_matvec, ell_tmatvec: _job_tmatvec, ell_diagonal: _job_diagonal,
+         ell_sq_colsums: _job_sq_colsums, ell_row_norms: _job_row_norms, ell_col_norms: _job_col_norms}
+
+
+def ell_products(*calls) -> list:
+    """Independent products in one launch: each call is ``(function,
+    *arguments)`` of :func:`ell_matvec`, :func:`ell_tmatvec`,
+    :func:`ell_diagonal`, :func:`ell_sq_colsums`, :func:`ell_row_norms` or
+    :func:`ell_col_norms`, all on one device, dtype and batch.  Returns
+    the results in order, each the bits of the function's own call (up
+    to MAX_JOBS products a launch)."""
+    jobs = []
+    for f, *args in calls:
+        if f not in _JOBS:
+            raise TypeError(f"ell_products takes K5's product functions, not {f!r}")
+        jobs.append(_JOBS[f](*args))
+    return _run(jobs) if jobs else []
+
+
+def ell_cg_start(P: ELLMatrix, A: ELLMatrix, w, x0, dinv, sigma, rhs_x, rhs_z=None, rho=None):
+    """The CG's start from ``x0`` on M = P + sigma I + A' diag(w) A: returns
+    (b, r, z) with b = rhs_x + A'(rho * rhs_z) (b = rhs_x without
+    ``rhs_z``), r = b - M x0 and z = dinv r, each rounded as
+    :func:`ell_cg_start_plain` composes them.  ``sigma`` is a host number
+    (a float or a 0-d CPU tensor), rounded to the operands' dtype as
+    PyTorch rounds a CPU scalar.  A must have rows (else M has no V p).
+    On the card: P x0 and A x0 in one grouped launch, then one launch of
+    the start kernel."""
+    global launches, launches_start
+    name = "ell_cg_start"
+    dA, dP = _operand(A, name), _operand(P, name)
     m, n = A.shape
-    _gathered(A.t_val, A.t_idx, row_w, m, "ell_col_norms")
-    if m == 0 or n == 0:
-        return _zeros(A, n)
-    if not _on_cuda(A.val, "ell_col_norms"):
-        return ell_col_norms_plain(A, row_w)
-    return _reduce(_MAX, A.t_val, A.t_idx, row_w, None, "ell_col_norms")
+    if m == 0 or tuple(P.shape) != (n, n) or dP.device != dA.device or dP.dtype != dA.dtype or dP.B != dA.B:
+        raise ValueError(f"{name}: A {tuple(A.shape)} must have rows and P {tuple(P.shape)} be ({n}, {n}), "
+                         "both on one device, dtype and batch")
+    if (rhs_z is None) != (rho is None):
+        raise ValueError(f"{name} takes rhs_z and rho together")
+    B = dA.B
+    vectors = [(x0, n), (dinv, n), (rhs_x, n), (w, m)] + ([(rhs_z, m), (rho, m)] if rhs_z is not None else [])
+    for v, G in vectors:
+        _check_vector(v, B, G, dA, name)
+    if not dA.cuda or n == 0:
+        return ell_cg_start_plain(P, A, w, x0, dinv, sigma, rhs_x, rhs_z, rho)
+    Px0, Ax0 = _run((_job_matvec(P, x0), _job_matvec(A, x0)))
+    r, z = torch.empty_like(x0), torch.empty_like(x0)
+    b = rhs_x if rhs_z is None else torch.empty_like(x0)
+    sig = float(sigma)
+    if dA.dtype == torch.float32:
+        sig = ctypes.c_float(sig).value
+    t_val, t_idx, kt = dA.t
+    ptr = lambda t: t.data_ptr() if t is not None else 0
+    code = _call(_build.library().osqp_ell_cg_start, dA.device, dA.code, t_val, t_idx, kt, rhs_x.data_ptr(),
+                 ptr(rhs_z), ptr(rho), w.data_ptr(), Ax0.data_ptr(), Px0.data_ptr(), x0.data_ptr(), dinv.data_ptr(),
+                 sig, b.data_ptr(), r.data_ptr(), z.data_ptr(), B, n, m, dA.sms)
+    _build.check(code, name)
+    launches += 1
+    launches_start += 1
+    return b, r, z
 
 
 def ell_scale(A: ELLMatrix, row_s: torch.Tensor, col_s: torch.Tensor, c: torch.Tensor | None = None) -> ELLMatrix:
     """diag(row_s) A diag(col_s), times c (B,) where given, on both
     copies of the values."""
-    global launches
+    global launches, launches_scale
     m, n = A.shape
-    B = A.batch
-    _check_operand(A.val, A.idx, "ell_scale")
-    _check_operand(A.t_val, A.t_idx, "ell_scale")
-    _check_vector(row_s, B, m, A.val, "ell_scale")
-    _check_vector(col_s, B, n, A.val, "ell_scale")
+    d = _operand(A, "ell_scale")
+    _check_vector(row_s, d.B, m, d, "ell_scale")
+    _check_vector(col_s, d.B, n, d, "ell_scale")
     if c is not None:
-        _check_vector(c[:, None], B, 1, A.val, "ell_scale")
+        _check_vector(c[:, None], d.B, 1, d, "ell_scale")
     if m == 0 or n == 0:
         # every slot is padding: the scaled values are the zeros they were
         return dataclasses.replace(A, val=torch.zeros_like(A.val), t_val=torch.zeros_like(A.t_val))
-    if not _on_cuda(A.val, "ell_scale"):
+    if not d.cuda:
         return ell_scale_plain(A, row_s, col_s, c)
-    ins = (A.val, A.idx, A.t_val, A.t_idx, row_s, col_s) + ((c,) if c is not None else ())
-    if not all(t.is_contiguous() for t in ins):
-        raise ValueError("ell_scale takes contiguous tensors (make the operand so with ELLMatrix.contiguous)")
     val = torch.empty_like(A.val)
     t_val = torch.empty_like(A.t_val)
-    lib = _build.library()
-    with torch.cuda.device(A.device):
-        code = lib.osqp_ell_scale(
-            _build.dtype_code(A.dtype), A.val.data_ptr(), A.idx.data_ptr(), A.t_val.data_ptr(), A.t_idx.data_ptr(),
-            row_s.data_ptr(), col_s.data_ptr(), c.data_ptr() if c is not None else 0, val.data_ptr(),
-            t_val.data_ptr(), B, m, A.val.shape[2], n, A.t_val.shape[2], _build.stream(),
-        )
+    (v, i, ka), (tv, ti, kt) = d.rows, d.t
+    code = _call(_build.library().osqp_ell_scale, d.device, d.code, v, i, tv, ti, row_s.data_ptr(),
+                 col_s.data_ptr(), c.data_ptr() if c is not None else 0, val.data_ptr(), t_val.data_ptr(), d.B, m, ka,
+                 n, kt)
     _build.check(code, "ell_scale")
     launches += 1
+    launches_scale += 1
     return dataclasses.replace(A, val=val, t_val=t_val)
 
 
@@ -240,6 +438,17 @@ def ell_row_norms_plain(A: ELLMatrix, col_w: torch.Tensor) -> torch.Tensor:
 
 def ell_col_norms_plain(A: ELLMatrix, row_w: torch.Tensor) -> torch.Tensor:
     return (A.t_val.abs() * _take(row_w, A.t_idx)).amax(-1)
+
+
+def ell_cg_start_plain(P: ELLMatrix, A: ELLMatrix, w, x0, dinv, sigma, rhs_x, rhs_z=None, rho=None):
+    """Plain version of :func:`ell_cg_start`: the cg backend's right-hand
+    side (``linsys/cg.py:solve``) and the CG's start (``ops/cg.py:_start``)
+    as they compose K5's plain products."""
+    b = rhs_x if rhs_z is None else rhs_x + ell_tmatvec_plain(A, rhs_z, rho)
+    Mx = ell_matvec_plain(P, x0) + sigma * x0
+    Mx = Mx + ell_tmatvec_plain(A, ell_matvec_plain(A, x0), w)
+    r = b - Mx
+    return b, r, dinv * r
 
 
 def ell_scale_plain(A: ELLMatrix, row_s, col_s, c=None) -> ELLMatrix:

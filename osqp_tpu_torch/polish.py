@@ -61,7 +61,7 @@ import torch
 from .linalg import bwhere, mat_tvec, mat_vec, vec_dot
 from .linsys import kkt_lu
 from .ops.cg import EllOperator, pcg_solve
-from .ops.ell import ell_diagonal, ell_scale, ell_sq_colsums
+from .ops.ell import ell_diagonal, ell_matvec, ell_products, ell_scale, ell_sq_colsums, ell_tmatvec
 from .ops.term_products import term_products
 from .sparse_ops import ELLMatrix
 from .termination import compute_products, residual_norms
@@ -106,7 +106,8 @@ def _ell_kkt_solver(n: int, m: int, P: ELLMatrix, MA: ELLMatrix, delta, dtype):
     d = delta if dtype == torch.float64 else torch.clamp(delta.to(dtype), min=1e-4)
     B = MA.batch
     ones_m = torch.ones((B, m), dtype=dtype, device=MA.device)
-    dinv = 1.0 / (ell_diagonal(P) + d + ell_sq_colsums(MA, ones_m) / d)
+    diagP, colsums = ell_products((ell_diagonal, P), (ell_sq_colsums, MA, ones_m))
+    dinv = 1.0 / (diagP + d + colsums / d)
     tol_rel = torch.full((B,), 1e-12 if dtype == torch.float64 else 1e-7, dtype=dtype, device=MA.device)
     cap = polish_cg_cap(n, m)
 
@@ -228,8 +229,9 @@ def polish(
         for _ in range(refine_iter):
             sx, snu = sol[:, :n].contiguous(), sol[:, n:].contiguous()
             if sparse:
-                r_x = -data.q - (mat_vec(data.P, sx) + mat_tvec(MA, snu))
-                r_z = rhs_z - mat_vec(MA, sx)
+                Px, Aty, Ax = ell_products((ell_matvec, data.P, sx), (ell_tmatvec, MA, snu), (ell_matvec, MA, sx))
+                r_x = -data.q - (Px + Aty)
+                r_z = rhs_z - Ax
             else:
                 tp = term_products(data.P, MA, sx, snu)  # MA sx, P sx, (MA)' snu
                 r_x = -data.q - (tp.Px + tp.Aty)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .ops.ell import ell_col_norms, ell_row_norms, ell_scale
+from .ops.ell import ell_col_norms, ell_products, ell_row_norms, ell_scale
 from .ops.ruiz import limit_scaling, ruiz
 from .sparse_ops import ELLMatrix
 from .types import QPData, ScalingData
@@ -33,7 +33,8 @@ def _scale_data_ell(data: QPData, n_iters: int) -> tuple[QPData, ScalingData]:
     """The sweeps on ELL operands (osqp_tpu/scaling.py:133-185): P and A
     are only read, the accumulated (c, D, E) folded into K5's weighted
     norms, and applied once at the end by ``ell_scale``.  The
-    cost-normalization norm of one sweep is the P norm of the next."""
+    cost-normalization norm of one sweep is the P norm of the next, and
+    it shares a launch with the next sweep's norms of A."""
     P, A, q0 = data.P, data.A, data.q
     B, n = q0.shape
     m = data.l.shape[-1]
@@ -41,13 +42,20 @@ def _scale_data_ell(data: QPData, n_iters: int) -> tuple[QPData, ScalingData]:
     ones = lambda *s: torch.ones(s, dtype=dtype, device=dev)
     zeros = lambda *s: torch.zeros(s, dtype=dtype, device=dev)
 
+    def norms(D, E, sweep: bool):
+        """P's column norms under D and, for a sweep to come, A's column
+        norms under E and row norms under D: one K5 launch."""
+        calls = [(ell_col_norms, P, D)] + ([(ell_col_norms, A, E), (ell_row_norms, A, D)] if sweep else [])
+        return ell_products(*calls) + [None] * (3 - len(calls))
+
     c, D, E = ones(B), ones(B, n), ones(B, m)
-    Pcol = ell_col_norms(P, D) * D if n else zeros(B, n)
-    for _ in range(n_iters):
+    P_norm, A_col, A_row = norms(D, E, n_iters > 0)
+    Pcol = P_norm * D if n else zeros(B, n)
+    for i in range(n_iters):
         Pn = Pcol * c[:, None] if n else zeros(B, n)
         if m:
-            An_col = ell_col_norms(A, E) * D
-            e_norm = ell_row_norms(A, D) * E
+            An_col = A_col * D
+            e_norm = A_row * E
             d_norm = torch.maximum(Pn, An_col)
         else:
             e_norm = zeros(B, m)
@@ -55,7 +63,9 @@ def _scale_data_ell(data: QPData, n_iters: int) -> tuple[QPData, ScalingData]:
         D = D * (1.0 / torch.sqrt(limit_scaling(d_norm)))
         E = E * (1.0 / torch.sqrt(limit_scaling(e_norm)))
 
-        Pcol = ell_col_norms(P, D) * D if n else Pcol
+        # this sweep's P norm and the next sweep's A norms share D and E
+        P_norm, A_col, A_row = norms(D, E, i + 1 < n_iters)
+        Pcol = P_norm * D if n else Pcol
         col_norm_P = Pcol * c[:, None] if n else zeros(B, n)
         c_temp = col_norm_P.mean(-1)
         inf_norm_q = limit_scaling((q0.abs() * D).amax(-1) * c)

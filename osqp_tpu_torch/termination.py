@@ -7,7 +7,7 @@ scaled problem data; unscaling through D, E and c happens where the
 reference does it.  Every matrix product of dense operands goes through
 K3 (:mod:`osqp_tpu_torch.ops.term_products`), one call per check, rho
 estimate or verbose row; ELL operands take K5
-(:mod:`osqp_tpu_torch.ops.ell`), one launch per product.  The rest is
+(:mod:`osqp_tpu_torch.ops.ell`), one grouped launch per call.  The rest is
 O(B(n+m)) plain PyTorch.
 """
 
@@ -31,7 +31,8 @@ from .constants import (
     RHO_MAX,
     RHO_MIN,
 )
-from .linalg import mat_tvec, mat_vec, norm_inf, scaled_norm_inf, vec_dot
+from .linalg import norm_inf, scaled_norm_inf, vec_dot
+from .ops.ell import ell_matvec, ell_products, ell_tmatvec
 from .ops.term_products import TermProducts, term_products
 from .sparse_ops import ELLMatrix
 from .types import DynSettings, QPData, ScalingData, StaticConfig
@@ -54,16 +55,13 @@ class Products(NamedTuple):
 def compute_products(data: QPData, x, z, y, delta_x=None, dy_proj=None) -> Products:
     """A x, P x, A'y and, given the certificate directions delta_x and
     dy_proj (see project_delta_y), A'dy, P delta_x, A delta_x: one K3
-    call on dense operands, K5 launches on ELL operands."""
+    call on dense operands, one K5 launch on ELL operands."""
     P, A = data.P, data.A
-    if isinstance(P, ELLMatrix) or isinstance(A, ELLMatrix):
-        cert = delta_x is not None
-        tp = TermProducts(
-            mat_vec(A, x), mat_vec(P, x), mat_tvec(A, y),
-            mat_tvec(A, dy_proj) if cert else None,
-            mat_vec(P, delta_x) if cert else None,
-            mat_vec(A, delta_x) if cert else None,
-        )
+    if isinstance(P, ELLMatrix):
+        calls = [(ell_matvec, A, x), (ell_matvec, P, x), (ell_tmatvec, A, y)]
+        if delta_x is not None:
+            calls += [(ell_tmatvec, A, dy_proj), (ell_matvec, P, delta_x), (ell_matvec, A, delta_x)]
+        tp = TermProducts(*ell_products(*calls), *[None] * (6 - len(calls)))
     else:
         tp = term_products(P, A, x, y, delta_x, dy_proj)
     return Products(

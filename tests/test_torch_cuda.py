@@ -606,7 +606,6 @@ def _ell(M, B, dtype, dev, seed=0, sym=False):
     return dataclasses.replace(E, val=(E.val * f).contiguous(), t_val=(E.t_val * f).contiguous())
 
 
-K5_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # K6 against its plain loop after tens of CG steps: the dot products sum in
 # another order, and CG carries the rounding of alpha and beta forward,
 # grown by cond(M) (float64 at B=4, n=3000 below: 9.7e-12 relative after
@@ -620,8 +619,8 @@ K5_MODES = ["matvec", "tmatvec", "tmatvec_weighted", "sq_colsums", "row_norms", 
 @pytest.mark.parametrize("B,m,n", [(3, 17, 11), (1, 12500, 10000), (64, 300, 200)])
 def test_k5_kernel_matches_plain(dev, dtype, mode, B, m, n):
     """Every K5 mode against its plain version, which sums in the
-    kernel's slot order: every result bit for bit (and sums within the
-    tolerance); two launches give the same bits."""
+    kernel's slot order: every result bit for bit, sums included; two
+    launches give the same bits."""
     import scipy.sparse as sp
 
     rng = np.random.default_rng(B + m)
@@ -647,7 +646,82 @@ def test_k5_kernel_matches_plain(dev, dtype, mode, B, m, n):
         return
     assert torch.equal(got, again)
     assert torch.equal(got, want)
-    assert float((got - want).abs().max()) <= K5_TOL[dtype] * float(want.abs().max())
+    assert float((got - want).abs().max()) == 0.0
+
+
+def _k_slots(m, n, k, rng, sym=False):
+    """A scipy (m, n) matrix whose rows hold 1 to k nonzeros, every seventh
+    exactly k; with ``sym``, the upper triangle of a random symmetric one
+    with about k nonzeros a row and a full diagonal."""
+    import scipy.sparse as sp
+
+    counts = rng.integers(1, k + 1, m)
+    counts[::7] = k
+    if sym:
+        M = sp.random(m, n, density=min(1.0, k / (2.0 * n)), random_state=rng) + sp.eye(m, n)
+        return sp.triu(M, format="csr")
+    cols = [np.sort(rng.choice(n, c, replace=False)) for c in counts]
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    return sp.csr_matrix((rng.standard_normal(indptr[-1]), np.concatenate(cols), indptr), shape=(m, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [1, 3, 9, 16, 17])
+@pytest.mark.parametrize("B", [1, 64])
+def test_k5_grouped_launch_matches_plain(dev, dtype, k, B):
+    """Eight products of every mode, rows of up to k slots (the staged
+    path to 16, the run-time loop above, mixed in one launch where the
+    transpose's rows are longer), in one launch of the grouped kernel:
+    each bit for bit its single plain function; nine products take two
+    launches; a launch's products equal their one-job launches."""
+    rng = np.random.default_rng(100 * k + B)
+    m, n = 700, 500
+    A = _ell(_k_slots(m, n, k, rng), B, dtype, dev, seed=k)
+    P = _ell(_k_slots(n, n, k, rng, sym=True), B, dtype, dev, seed=k + 1, sym=True)
+    r = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+    x, y, w, cw = r(B, n), r(B, m), r(B, m).abs() + 0.1, r(B, n).abs() + 0.1
+    calls = [(k5.ell_matvec, A, x), (k5.ell_tmatvec, A, y), (k5.ell_tmatvec, A, y, w), (k5.ell_sq_colsums, A, w),
+             (k5.ell_row_norms, A, cw), (k5.ell_col_norms, A, w), (k5.ell_diagonal, P), (k5.ell_matvec, P, x)]
+    before = (k5.launches, k5.launches_group)
+    got = k5.ell_products(*calls)
+    torch.cuda.synchronize()
+    assert (k5.launches - before[0], k5.launches_group - before[1]) == (1, 1)
+    for (f, *args), o in zip(calls, got):
+        want = getattr(k5, f"{f.__name__}_plain")(*args)
+        assert torch.equal(o, want), f.__name__
+        assert torch.equal(o, f(*args)), f.__name__
+    before = k5.launches_group
+    again = k5.ell_products(*calls, (k5.ell_matvec, A, x))
+    torch.cuda.synchronize()
+    assert k5.launches_group - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [1, 3, 9, 17])
+@pytest.mark.parametrize("with_rhs", [True, False])
+def test_k5_cg_start_matches_plain(dev, dtype, k, with_rhs):
+    """The fused CG start (P x0 with A x0 in one grouped launch, then the
+    start kernel) against its plain version: b, r and z bit for bit, with
+    sigma as the cg backend passes it (a 0-d host tensor) and as a Python
+    float, which the wrapper rounds to the dtype as PyTorch does."""
+    rng = np.random.default_rng(7 * k)
+    B, m, n = 3, 600, 400
+    A = _ell(_k_slots(m, n, k, rng), B, dtype, dev, seed=k)
+    P = _ell(_k_slots(n, n, k, rng, sym=True), B, dtype, dev, seed=k + 1, sym=True)
+    r = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+    rho = r(B, m).abs() + 0.1
+    x0, dinv, rhs_x, rhs_z = r(B, n), r(B, n).abs(), r(B, n), r(B, m)
+    for sigma in (torch.tensor(1e-6, dtype=dtype), 1.1e-6):
+        args = (P, A, rho, x0, dinv, sigma, rhs_x) + ((rhs_z, rho) if with_rhs else ())
+        before = (k5.launches_group, k5.launches_start)
+        got = k5.ell_cg_start(*args)
+        torch.cuda.synchronize()
+        assert (k5.launches_group - before[0], k5.launches_start - before[1]) == (1, 1)
+        want = k5.ell_cg_start_plain(*args)
+        for o, w in zip(got, want):
+            assert torch.equal(o, w)
+        assert (got[0] is rhs_x) == (not with_rhs)
 
 
 def test_k5_raises_on_broadcast_values(dev):
