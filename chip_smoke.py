@@ -227,7 +227,27 @@ failure ends the run with a non-zero exit and no result line:
     launches in the polish; at LISWET1 (float64, float32) the polish-on
     solve on the stepwise path in the same call, bit for bit, with polish
     ms, ms per CG step and the idle share; the ``SparseSolver`` on
-    LISWET1: set-up, solve, update_lin_cost and a warm re-solve.
+    LISWET1: set-up, solve, update_lin_cost and a warm re-solve;
+22. the Maros-Meszaros harness (phase maros): the native QPS parser
+    (built from ``native/qps_parser.cpp``; its build time) against the
+    Python parser on the 36 corpus files, equal problems, both times;
+    ``maros.run_maros`` over the 36 rows on the card in float64 (eps
+    1e-3, polish on): per row the route (dense bucket and its B, or
+    sparse), status, iterations, status_polish, fallback, host_polish,
+    the objective against MM_INDEX.json's published optimum, the port's
+    kkt_check at the original data and the seconds, beside the JAX
+    package's TPU float64 row (MAROS_r04_F64.json) and, for dense rows,
+    its CPU float64 golden (maros_rows.npz); all 36 must pass (a final
+    status and kkt_check ok), and the run must launch K1/K1r, K2, K3, K4,
+    K8, K5 and K6's loop; the summary beside MAROS_r05.json's; the dense
+    rows again in float32 with the float64 fallback, every row final;
+    single mode (the Solver) on the rows with n <= 16;
+23. the families suite (phase families): ``benchmarks.run_suite`` on the
+    default ``generate_suite()`` (dims 10-250, 2 instances, ten families:
+    100 instances) in float64 with polish on, each instance's status and
+    pass equal to the JAX package's in
+    ``tests/data/torch_goldens/families.npz``, iteration differences, the
+    pass rate and the time per bucket chunk.
 
 The line before the last is a JSON object of the kernels (21 rows:
 K5's grouped products are ell_group, its fused CG start ell_cg_start and
@@ -3595,6 +3615,227 @@ def phase_sparse_polish(dev):
     return launches, polish_k6, pcg_stats, polish_paths
 
 
+# Kernels that the corpus run and the families suite must launch: K1/K1r
+# (either body), K2 (any entry), K3, K4, K8 on the dense buckets, K5 and
+# K6's device loop on the sparse rows.
+CORPUS_KERNELS = (("K1/K1r", ("admm_iter", "admm_iter_refined")),
+                  ("K2", ("chol_inverse", "chol_inverse_leaf", "chol_inverse_leaf_cluster")),
+                  ("K3", ("term_products",)), ("K4", ("ruiz",)), ("K8 factor", ("kkt_lu_factor",)),
+                  ("K8 solve", ("kkt_lu_solve",)), ("K5", ("ell_ops",)), ("K6 loop", ("cg_loop",)))
+MM_INDEX = os.path.join(MAROS, "MM_INDEX.json")
+MAROS_TPU_F64 = os.path.join(ROOT, "MAROS_r04_F64.json")
+MAROS_TPU = os.path.join(ROOT, "MAROS_r05.json")
+MAROS_GOLDENS = os.path.join(ROOT, "tests", "data", "torch_goldens", "maros_rows.npz")
+FAMILY_GOLDENS = os.path.join(ROOT, "tests", "data", "torch_goldens", "families.npz")
+# The objective's relative error that counts as the published optimum
+# (tools/run_maros_mm.py:38).
+OBJ_RTOL = 5e-3
+# Dense rows whose iterations or status_polish may differ from the JAX CPU
+# golden: CVXQP2_M polishes on the card (K8's pivoted LU) where the JAX
+# package's polish fails at the same ADMM point (ROADMAP queue 3).
+GOLDEN_EXCEPTIONS = ("CVXQP2_M",)
+
+
+def require_kernels(counts, kernels, what):
+    """Fail unless each named kernel (one of its counts) launched."""
+    for label, names in kernels:
+        require(sum(counts[n] for n in names) > 0, f"{what}: {label} was launched no time")
+
+
+def bucket_times(rows) -> str:
+    """'(N, M) B=k: s' per bucket chunk of dense rows, in first-seen order."""
+    seen = {}
+    for r in rows:
+        if r.get("bucket") is not None:
+            seen.setdefault(tuple(r["bucket"]), r["time"])
+    return ", ".join(f"({N}, {M}) B={B}: {t:.3f} s" for (N, M, B), t in seen.items())
+
+
+def phase_maros(dev):
+    """The Maros-Meszaros corpus through osqp_tpu_torch.maros.run_maros:
+    the native parser against the Python one; the 36 rows in float64
+    (eps 1e-3, polish on) with the pass criterion, each beside the JAX
+    package's TPU float64 row; the dense rows in float32 with the float64
+    fallback; single mode on the small rows.  Counts are set to 0 just
+    before the float64 corpus run and read just after it."""
+    import torch
+
+    from osqp_tpu_torch import maros
+    from osqp_tpu_torch.io import native
+    from osqp_tpu_torch.io.qps import load_qps, parse_qps, parse_qps_fast
+    from osqp_tpu_torch.verify import kkt_check
+
+    require(native.load_native() is not None, "maros: the native QPS parser did not build")
+    paths = maros.collect_paths([MAROS])
+    require(len(paths) == 36, f"maros: {len(paths)} corpus files, not 36")
+    texts = [(open(p).read(), os.path.splitext(os.path.basename(p))[0]) for p in paths]
+    t0 = time.perf_counter()
+    fast = [parse_qps_fast(t, h) for t, h in texts]
+    t_fast = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = [parse_qps(t, h) for t, h in texts]
+    t_slow = time.perf_counter() - t0
+    for a, b in zip(fast, slow):
+        same = ((a.name, a.n, a.m, a.obj_constant) == (b.name, b.n, b.m, b.obj_constant)
+                and (a.P != b.P).nnz == 0 and (a.A != b.A).nnz == 0
+                and all(np.array_equal(v, w) for v, w in ((a.q, b.q), (a.l, b.l), (a.u, b.u))))
+        require(same, f"maros: the native parser and the Python parser differ on {b.name}")
+    print(f"maros native QPS parser: built in {native.build_seconds:.2f} s (0 when already built); the 36 "
+          f"corpus files parse to equal problems; native {t_fast:.3f} s, Python {t_slow:.3f} s")
+
+    index = json.load(open(MM_INDEX))["problems"]
+    tpu = {r["name"]: r for r in json.load(open(MAROS_TPU_F64))["rows"]}
+    gold = np.load(MAROS_GOLDENS)
+    problems = {qp.name: qp for qp in fast}
+
+    def check(rows, eps=1e-3):
+        for r in rows:
+            qp = problems[r["name"]]
+            r["kkt"] = kkt_check(qp.P, qp.q, qp.A, qp.l, qp.u, r["x"], r["y"], eps_abs=eps, eps_rel=eps)
+            pub = index[r["name"]]["published"]
+            r["rel"] = abs(r["obj"] - pub) / max(1.0, abs(pub))
+            r["pass"] = r["status_val"] in (1, 2) and r["kkt"]["ok"]
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, summary = maros.run_maros(paths, eps=1e-3, polish=True, dtype="float64", device=dev,
+                                    keep_solutions=True, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(rows)
+    for r in rows:
+        route = f"dense {r['bucket'][:2]} B={r['bucket'][2]}" if r.get("bucket") else "sparse"
+        k = r["kkt"]
+        t = tpu[r["name"]]
+        golden = ""
+        if f"{r['name']}/iter" in gold.files:
+            golden = (f"; JAX CPU float64 (maros_rows.npz): iterations {int(gold[r['name'] + '/iter'])}, "
+                      f"status_polish {int(gold[r['name'] + '/status_polish'])}, host_polish "
+                      f"{bool(gold[r['name'] + '/host_polish'])}")
+        print(f"  {r['name']:<9} n={r['n']:<6} m={r['m']:<6} {route:<22} {r['status']}, {r['iter']} iterations, "
+              f"status_polish {r['status_polish']}, fallback {bool(r.get('fallback'))}, host_polish "
+              f"{bool(r.get('host_polish'))}; obj relative to published {r['rel']:.2e}"
+              f"{' (match)' if r['rel'] < OBJ_RTOL else ''}; kkt_check {'ok' if k['ok'] else 'FAILED'} "
+              f"(pri {k['pri_res']:.2e} / {k['pri_tol']:.2e}, dua {k['dua_res']:.2e} / {k['dua_tol']:.2e}); "
+              f"{r['time']:.3f} s{' (its bucket)' if r.get('bucket') else ''} | TPU float64 "
+              f"(MAROS_r04_F64.json): {t['status']}, {t['iter']} iterations, status_polish {t['status_polish']}"
+              f"{golden}")
+    npass = sum(r["pass"] for r in rows)
+    nmatch = sum(r["rel"] < OBJ_RTOL for r in rows)
+    ref = json.load(open(MAROS_TPU))
+    dense = [r for r in rows if r.get("bucket")]
+    same_gold = sum(int(gold[f"{r['name']}/iter"]) == r["iter"]
+                    and int(gold[f"{r['name']}/status_polish"]) == r["status_polish"] for r in dense)
+    print(f"maros float64 corpus on the card: {npass}/36 passed, {nmatch} published optima matched, polish "
+          f"{summary['polish_success']} succeeded and {summary['polish_fail']} failed, "
+          f"{sum(bool(r.get('fallback')) for r in rows)} fallbacks, {sum(bool(r.get('host_polish')) for r in rows)} "
+          f"host rescues; {wall:.3f} s in all (dense buckets: {bucket_times(rows)}; sparse rows "
+          f"{sum(r['time'] for r in rows if r.get('sparse')):.3f} s); the JAX package's TPU run (MAROS_r05.json): "
+          f"{ref['passed']}/36, {ref['published_obj_matches']} matched, {ref['polish_success']} polished; dense "
+          f"rows with the JAX CPU golden's iterations and status_polish: {same_gold}/{len(dense)} (required of all but "
+          f"{', '.join(GOLDEN_EXCEPTIONS)})")
+    print(f"  launches in the float64 corpus run: {counts}")
+    require(npass == 36, f"maros: {36 - npass} corpus rows failed in float64: "
+            f"{[r['name'] for r in rows if not r['pass']]}")
+    rescued = [r["name"] for r in rows if r.get("host_polish")]
+    require(not rescued, f"maros: the host polish rescued {rescued} in float64; every row must polish on the card")
+    off_gold = [r["name"] for r in dense if r["name"] not in GOLDEN_EXCEPTIONS
+                and (int(gold[f"{r['name']}/iter"]), int(gold[f"{r['name']}/status_polish"]))
+                != (r["iter"], r["status_polish"])]
+    require(not off_gold, f"maros: dense rows off the JAX CPU golden's iterations or status_polish: {off_gold}")
+    require_kernels(counts, CORPUS_KERNELS, "maros float64 corpus run")
+
+    # The dense rows in float32 with the float64 fallback.
+    path_of = {qp.name: p for qp, p in zip(fast, paths)}
+    dense_paths = [path_of[r["name"]] for r in rows if r.get("bucket")]
+    t0 = time.perf_counter()
+    rows32, s32 = maros.run_maros(dense_paths, eps=1e-3, polish=True, dtype="float32", fallback_dtype="float64",
+                                  device=dev, keep_solutions=True, verbose=False)
+    wall32 = time.perf_counter() - t0
+    check(rows32)
+    for r in rows32:
+        print(f"  {r['name']:<9} float32: {r['status']}, {r['iter']} iterations, status_polish {r['status_polish']}, "
+              f"fallback {bool(r.get('fallback'))}, host_polish {bool(r.get('host_polish'))}, kkt_check "
+              f"{'ok' if r['kkt']['ok'] else 'FAILED'}, obj relative to published {r['rel']:.2e}")
+    print(f"maros float32 dense rows with the float64 fallback: {s32['final']}/{len(rows32)} final, "
+          f"{sum(r['pass'] for r in rows32)} pass; fell back: "
+          f"{[r['name'] for r in rows32 if r.get('fallback')]}; host rescues: "
+          f"{[r['name'] for r in rows32 if r.get('host_polish')]}; {wall32:.3f} s")
+    require(s32["final"] == len(rows32), "maros: a dense row is not final in float32 with the float64 fallback")
+    rescued = [r["name"] for r in rows32 if r.get("host_polish")]
+    require(not rescued, f"maros: the host polish rescued {rescued} in float32; every row must polish on the card")
+
+    # Single mode on the small rows, through the Solver.
+    small = [p for p, qp in zip(paths, fast) if qp.n <= 16]
+    by_name = {r["name"]: r for r in rows}
+    t0 = time.perf_counter()
+    rows1, s1 = maros.run_maros(small, eps=1e-3, polish=True, dtype="float64", single=True, device=dev,
+                                keep_solutions=True, verbose=False)
+    wall1 = time.perf_counter() - t0
+    check(rows1)
+    same = sum((r["status_val"], r["iter"], r["status_polish"]) == (by_name[r["name"]]["status_val"],
+               by_name[r["name"]]["iter"], by_name[r["name"]]["status_polish"]) for r in rows1)
+    print(f"maros single mode (Solver) on the {len(rows1)} rows with n <= 16: {sum(r['pass'] for r in rows1)} pass; "
+          f"status, iterations and status_polish equal to the batched run's in {same}; {wall1:.3f} s")
+    require(all(r["pass"] for r in rows1), "maros: a small row failed in single mode")
+    return counts
+
+
+def phase_families(dev):
+    """benchmarks.run_suite on the default generate_suite() (dims 10-250,
+    2 instances, the ten families: 100 instances) in float64, polish on,
+    against the JAX package's run in families.npz: each instance's status
+    and pass equal, iteration differences printed, the pass rate and the
+    time per bucket.  Counts are set to 0 just before the run and read
+    just after it."""
+    import torch
+
+    from osqp_tpu_torch import benchmarks
+
+    gold = np.load(FAMILY_GOLDENS)
+    seen = []
+    real = benchmarks.solve_problems
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.extend(out)
+        return out
+
+    problems = benchmarks.generate_suite()
+    benchmarks.solve_problems = spy
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows, summary = benchmarks.run_suite(problems, dtype="float64", polish=True, device=dev, verbose=False)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        benchmarks.solve_problems = real
+    diffs, mismatched = [], []
+    for r in rows:
+        want = (int(gold[f"{r['name']}/status_val"]), bool(gold[f"{r['name']}/pass"]))
+        if (r["status_val"], r["pass"]) != want:
+            mismatched.append(r["name"])
+        d = r["iter"] - int(gold[f"{r['name']}/iter"])
+        if d:
+            diffs.append(f"{r['name']} {d:+d}")
+    chunks = {}
+    for res in seen:
+        chunks.setdefault(res.bucket, res.seconds)
+    times = ", ".join(f"({N}, {M}) B={B}: {t:.3f} s" for (N, M, B), t in chunks.items())
+    print(f"families suite on the card (float64, polish on): {summary['passed']}/{summary['problems']} pass "
+          f"(pass rate {summary['pass_rate']:.4f}); status and pass equal to the JAX golden in "
+          f"{len(rows) - len(mismatched)}/{len(rows)}; iterations differ in {len(diffs)}: {diffs}; "
+          f"{wall:.3f} s in all; by bucket chunk: {times}")
+    print(f"  launches in the families run: {counts}")
+    require(not mismatched, f"families: status or pass differ from the JAX golden at {mismatched}")
+    require_kernels(counts, CORPUS_KERNELS[:6], "families run")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3650,6 +3891,8 @@ def main() -> int:
     portfolio_launches = phase_parametric_portfolio(dev)
     phase_parametric_mpc(dev)
     polish_launches_sparse, polish_loops, pcg_stats, polish_paths = phase_sparse_polish(dev)
+    phase_maros(dev)
+    phase_families(dev)
 
     # launches: the batched headline solve's, and for K1r, which that
     # well-conditioned batch does not run, the Solver path's (its times:

@@ -35,7 +35,12 @@ with ``polish=True`` and take ``linsys_solver`` ``"dense_inv"``,
 :func:`osqp_tpu_torch.models.build_mpc_qp`'s).  :func:`solve_sparse`
 solves scipy-sparse problems (or scenario batches sharing their pattern)
 on ELL operands without densifying them, through ``cg``, and
-:class:`SparseSolver` is the stateful solver over them.
+:class:`SparseSolver` is the stateful solver over them.  On top of
+them, :func:`osqp_tpu_torch.buckets.solve_problems` solves a list of QPs
+of different shapes (one batched solve per padded shape bucket),
+:func:`osqp_tpu_torch.maros.run_maros` runs the Maros-Meszaros harness
+and :func:`osqp_tpu_torch.benchmarks.run_suite` the OSQP-paper families,
+each solution checked by :mod:`osqp_tpu_torch.verify`.
 """
 
 from __future__ import annotations

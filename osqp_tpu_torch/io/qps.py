@@ -12,9 +12,11 @@ G -> [rhs, +inf]; RANGES widen them MPS-style.  Variable bounds
 (default 0 <= x) are appended to A as identity rows, matching how the
 osqp_benchmarks harness feeds boxes to OSQP.
 
-A copy of the pure-Python reader of ``osqp_tpu/io/qps.py``, which
-imports nothing of jax.  Its C++ fast path is not carried over yet
-(ROADMAP queue 1, item 13): ``load_qps(..., native=True)`` raises.
+A copy of the reader of ``osqp_tpu/io/qps.py``, which imports nothing
+of jax: the pure-Python parser and its C++ fast path
+(:func:`parse_qps_fast`, ``native/qps_parser.cpp`` built at first use by
+:mod:`osqp_tpu_torch.io.native`), which ``load_qps`` takes by default and
+which falls back to the Python parser when the library cannot be built.
 """
 
 from __future__ import annotations
@@ -284,15 +286,33 @@ def _assemble(
     )
 
 
-def load_qps(path: str, native: bool = False) -> QPSProblem:
-    """Read a QPS file (gzip if it ends in .gz) into OSQP form."""
+def parse_qps_fast(text: str, name_hint: str = "") -> QPSProblem:
+    """Parse with the native C++ tokenizer when available, else Python."""
+    from .native import parse_qps_native
+
+    raw = parse_qps_native(text, name_hint)
+    if raw is None:
+        return parse_qps(text, name_hint)
+    return _assemble(
+        raw["name"] or "qps",
+        raw["n"],
+        raw["m"],
+        raw["a_trip"],
+        raw["q_trip"],
+        raw["q_lin"],
+        raw["l_rows"],
+        raw["u_rows"],
+        raw["lo"],
+        raw["up"],
+        raw["obj_rhs"],
+    )
+
+
+def load_qps(path: str, native: bool = True) -> QPSProblem:
+    """Read a QPS file (gzip if it ends in .gz) into OSQP form, with the
+    native parser unless ``native`` is False."""
     import gzip
     import os
-
-    if native:
-        raise NotImplementedError(
-            "the native QPS parser is not ported to osqp_tpu_torch yet (ROADMAP queue 1, item 13)"
-        )
 
     if path.endswith(".gz"):
         with gzip.open(path, "rt") as f:
@@ -301,4 +321,4 @@ def load_qps(path: str, native: bool = False) -> QPSProblem:
         with open(path) as f:
             text = f.read()
     hint = os.path.splitext(os.path.basename(path))[0]
-    return parse_qps(text, name_hint=hint)
+    return (parse_qps_fast if native else parse_qps)(text, name_hint=hint)

@@ -1523,3 +1523,48 @@ def test_device_loop_matches_the_plain_loop_on_maros_operators(dev, name, form, 
     assert k6.launches_loop - before == 1
     xp, sp_ = k6.pcg_solve_plain(op, sigma, dinv, b, tol, 300, start, chunk=1, dot=k6.kernel_dot)
     assert int(sk.max()) > 0 and torch.equal(sk, sp_) and torch.equal(xk, xp)
+
+
+# ---------------------------------------------------------------------------
+# Heterogeneous shapes and the Maros harness on the card against the CPU
+# ---------------------------------------------------------------------------
+MAROS_SMALL = ["GENHS28", "HS118", "HS21", "HS268", "HS35", "HS35MOD", "HS51", "HS52", "HS53", "HS76", "QPTEST",
+               "S268", "TAME", "ZECEVIC2", "CVXQP2_S"]
+
+
+def _same_rows(got, want, pairs):
+    """Statuses, iterations and status_polish equal; f64 x and y within 1e-6."""
+    for a, b in pairs(got, want):
+        assert (a["status_val"], a["iter"], a["status_polish"]) == (b["status_val"], b["iter"], b["status_polish"])
+        np.testing.assert_allclose(a["x"], b["x"], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(a["y"], b["y"], rtol=0, atol=1e-6)
+
+
+def test_solve_problems_on_the_card_matches_the_cpu(dev):
+    from osqp_tpu_torch.buckets import solve_problems
+
+    rng = np.random.default_rng(0)
+    problems = []
+    for i, (n, m) in enumerate([(3, 5), (7, 4), (3, 5), (12, 20), (40, 90)]):
+        M = rng.standard_normal((n, n))
+        A = rng.standard_normal((m, n))
+        x0 = rng.standard_normal(n)
+        problems.append((f"p{i}", M @ M.T + 0.5 * np.eye(n), rng.standard_normal(n), A, A @ x0 - 1.0, A @ x0 + 1.0))
+    kw = dict(dtype="float64", polish=True, verbose=False)
+    as_row = lambda r: dict(vars(r))  # noqa: E731
+    got = [as_row(r) for r in solve_problems(problems, device=dev, **kw)]
+    want = [as_row(r) for r in solve_problems(problems, device="cpu", **kw)]
+    _same_rows(got, want, zip)
+    assert [r["bucket"] for r in got] == [r["bucket"] for r in want]
+
+
+def test_run_maros_on_the_card_matches_the_cpu(dev):
+    from osqp_tpu_torch.maros import run_maros
+
+    paths = [os.path.join(MAROS, f"{n}.qps") for n in MAROS_SMALL]
+    kw = dict(dtype="float64", polish=True, verbose=False, keep_solutions=True)
+    got, s_got = run_maros(paths, device=dev, **kw)
+    want, _ = run_maros(paths, device="cpu", **kw)
+    assert s_got["pass_rate"] == 1.0
+    assert not any(r.get("host_polish") for r in got)
+    _same_rows(got, want, zip)

@@ -40,14 +40,25 @@ first 16 scenarios (eps 1e-3, polish off) in float64 and float32, and
 the ``Solver`` with the same backend on scenario 0 alone in float64:
 status, iterations, objective, x and y under ``<case>/<field>``
 (cases of MPC_CASES).
+A sixth, ``maros_rows.npz``, holds ``osqp_tpu.maros.run_maros`` over the
+corpus rows that it routes to the dense bucketed batch (every row of
+``tests/data/maros_mm`` but the large and structurally sparse ones) in
+float64 with polish on (eps 1e-3): per row status, iterations,
+status_polish, host_polish, fallback, objective (obj_constant folded
+in), residuals, x and y, under ``<row>/<field>``.
+A seventh, ``families.npz``, holds ``osqp_tpu.benchmarks.run_suite`` on
+the default ``generate_suite()`` (dims 10-250, 2 instances, the ten
+families) in float64 with polish on: per instance status, iterations,
+pass and objective, under ``<instance>/<field>``.
 ``chip_smoke.py`` holds the port's Solver and solve_sparse against these
 files; tier-1 tests regenerate one entry of each with :func:`golden`,
 :func:`sparse_golden` or :func:`mpc_golden` and compare, so the files
 cannot go stale.
 
-    python3 tools/make_torch_goldens.py            # all five files
+    python3 tools/make_torch_goldens.py            # all seven files
     python3 tools/make_torch_goldens.py sparse     # sparse_maros.npz alone
     python3 tools/make_torch_goldens.py polish mpc # sparse_polish.npz, mpc.npz
+    python3 tools/make_torch_goldens.py maros families  # maros_rows.npz, families.npz
 """
 
 from __future__ import annotations
@@ -94,6 +105,11 @@ MPC_CASES = {
     "MPC16/float32": ("float32", "solve_batch", 16),
     "MPC1/float64": ("float64", "Solver", 1),
 }
+OUT_MAROS = os.path.join(REPO, "tests", "data", "torch_goldens", "maros_rows.npz")
+MAROS_FIELDS = ("status_val", "iter", "status_polish", "host_polish", "fallback", "obj", "pri_res", "dua_res",
+                "x", "y")
+OUT_FAMILIES = os.path.join(REPO, "tests", "data", "torch_goldens", "families.npz")
+FAMILY_FIELDS = ("status_val", "iter", "pass", "obj")
 sys.path.insert(0, REPO)
 
 
@@ -226,6 +242,43 @@ def mpc_golden(case: str) -> dict:
     return {f: (v.astype(np.int64) if v.dtype.kind in "iu" else v.astype(np.float64)) for f, v in out.items()}
 
 
+def dense_maros_paths() -> list:
+    """The corpus files whose rows ``run_maros`` routes to the dense
+    bucketed batch, in corpus order."""
+    from osqp_tpu.io.qps import load_qps
+    from osqp_tpu.maros import _route_sparse, collect_paths
+
+    return [p for p in collect_paths([MAROS]) if not _route_sparse(load_qps(p, native=False))]
+
+
+def maros_rows(paths) -> dict:
+    """The JAX package's run_maros over ``paths`` (float64, polish on):
+    {row name: {field: numpy array}} for MAROS_FIELDS.  The caller has
+    put jax on the CPU with x64 enabled."""
+    from osqp_tpu.maros import run_maros
+
+    rows, _ = run_maros(paths, dtype="float64", polish=True, verbose=False, keep_solutions=True)
+    out = {}
+    for r in rows:
+        g = {f: np.int64(int(bool(r.get(f)))) for f in ("host_polish", "fallback")}
+        g.update({f: np.int64(r[f]) for f in ("status_val", "iter", "status_polish")})
+        g.update({f: np.float64(r[f]) for f in ("obj", "pri_res", "dua_res")})
+        g.update(x=np.asarray(r["x"], np.float64), y=np.asarray(r["y"], np.float64))
+        out[r["name"]] = g
+    return out
+
+
+def family_rows(**suite) -> dict:
+    """The JAX package's run_suite on generate_suite(**suite) (float64,
+    polish on): {instance name: {field: numpy array}} for FAMILY_FIELDS.
+    The caller has put jax on the CPU with x64 enabled."""
+    from osqp_tpu.benchmarks import generate_suite, run_suite
+
+    rows, _ = run_suite(generate_suite(**suite), dtype="float64", polish=True, verbose=False)
+    return {r["name"]: {"status_val": np.int64(r["status_val"]), "iter": np.int64(r["iter"]),
+                        "pass": np.int64(int(r["pass"])), "obj": np.float64(r["obj"])} for r in rows}
+
+
 def reference(name: str) -> dict:
     """The optimum to solver accuracy: {obj_val, x} of a float64 solve at
     eps 1e-10."""
@@ -238,10 +291,10 @@ def reference(name: str) -> dict:
 def main() -> int:
     import jax
 
-    targets = {"solver", "sparse", "polish", "mpc"}
+    targets = {"solver", "sparse", "polish", "mpc", "maros", "families"}
     which = set(sys.argv[1:]) or targets
     if not which <= targets:
-        print("usage: make_torch_goldens.py [solver] [sparse] [polish] [mpc]", file=sys.stderr)
+        print("usage: make_torch_goldens.py [solver] [sparse] [polish] [mpc] [maros] [families]", file=sys.stderr)
         return 2
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
@@ -278,6 +331,23 @@ def main() -> int:
             arrays.update({f"{case}/{k}": v for k, v in g.items()})
         np.savez_compressed(OUT_MPC, **arrays)
         print(f"wrote {OUT_MPC}")
+    if "maros" in which:
+        arrays = {}
+        for name, g in maros_rows(dense_maros_paths()).items():
+            print(f"{name}: status {int(g['status_val'])}, iterations {int(g['iter'])}, status_polish "
+                  f"{int(g['status_polish'])}, host_polish {int(g['host_polish'])}, obj {float(g['obj'])!r}",
+                  flush=True)
+            arrays.update({f"{name}/{k}": v for k, v in g.items()})
+        np.savez_compressed(OUT_MAROS, **arrays)
+        print(f"wrote {OUT_MAROS}")
+    if "families" in which:
+        arrays = {}
+        for name, g in family_rows().items():
+            print(f"{name}: status {int(g['status_val'])}, iterations {int(g['iter'])}, pass {int(g['pass'])}",
+                  flush=True)
+            arrays.update({f"{name}/{k}": v for k, v in g.items()})
+        np.savez_compressed(OUT_FAMILIES, **arrays)
+        print(f"wrote {OUT_FAMILIES}")
     if "solver" not in which:
         return 0
     for polish, out in ((False, OUT), (True, OUT_POLISH)):
