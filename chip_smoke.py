@@ -247,9 +247,33 @@ failure ends the run with a non-zero exit and no result line:
     100 instances) in float64 with polish on, each instance's status and
     pass equal to the JAX package's in
     ``tests/data/torch_goldens/families.npz``, iteration differences, the
-    pass rate and the time per bucket chunk.
+    pass rate and the time per bucket chunk;
+24. the differentiable layer (phase qp_layer): ``make_qp_layer`` at
+    B=1024, n=100, m=200 in float64 (polish on, eps 1e-8) and at the
+    headline batch in float32 (eps 1e-3, polish on): forward and backward
+    of a weighted sum of x, the forward pass equal to ``solve_batch`` bit
+    for bit, solved >= 0.99, the backward pass's launches (K8's blocks
+    factor 1, its solve 4, K3 3) and no library LU under the profiler; in
+    float64 the card's gradients on 4 polished instances against the CPU
+    layer's and dq against central differences on 2; forward and
+    backward ms, medians of 5;
+25. instance compaction (phase compact): the headline batch with
+    ``compact=True, min_compact_batch=256`` beside the plain solve: the
+    sub-batch sizes, equal statuses, iterations equal where the bits
+    agree, the instances that differ in some bit and x within 1e-4
+    relative, wall ms of both, medians of 5;
+26. the fixed-shape artifact (phase export): the headline shape in
+    float32 with polish on, loaded and held to ``solve_batch`` bit for
+    bit; LISWET1 in float64 through ``SparseSolver.export`` against
+    ``SparseSolver.solve`` (1e-6; 1e-5 after P's values x2 through both);
+    blob sizes and call ms.
 
-The line before the last is a JSON object of the kernels (21 rows:
+Every time printed by phases 24-26 carries the card's name and power
+limit.  Each phase ends with a line of its wall time, ``[name: s]``.
+
+The line before the last is a JSON object of the kernels (21 rows; the
+rows of K3 and K8 also give ``launches_backward``, the launches of one
+backward pass of the float64 layer in phase 24;
 K5's grouped products are ell_group, its fused CG start ell_cg_start and
 its scaling ell_scale, K6's device loop is cg_loop, K1r's resident path
 admm_iter_refined_resident, K7's cluster and device paths
@@ -3836,6 +3860,340 @@ def phase_families(dev):
     return counts
 
 
+# The differentiable layer, compaction and export (phases qp_layer, compact
+# and export).  Every time they print carries CARD, the card's name and
+# power limit as nvidia-smi gives them (set by main).
+CARD = "card not read"
+LAYER = dict(B=1024, n=100, m=200)
+# Tight settings: the gradient assumes an accurate optimum.
+LAYER_KW = dict(eps_abs=1e-8, eps_rel=1e-8)
+# The card's gradients against the CPU layer's on the same instances, and
+# dq against central differences, each relative to max(1, the largest
+# entry of the CPU's or the analytic value).
+LAYER_GRAD_TOL = 1e-6
+LAYER_FD_TOL = 1e-5
+LAYER_FD_STEP = 1e-4
+LIBRARY_LU = ("getrf", "getrs", "magma", "cusolver")
+COMPACT_MIN_BATCH = 256
+COMPACT_X_RTOL = 1e-4
+
+
+def event_times(fn, reps=5):
+    """(fn's last result, the milliseconds of each of ``reps`` calls) by
+    CUDA events around each call."""
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return out, times
+
+
+def wall_times(fn, reps=5):
+    """Milliseconds of each of ``reps`` calls of ``fn`` by the host's clock,
+    each ending in a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def nonzero(counts) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (NaNs included)."""
+    import torch
+
+    if a.dtype.is_floating_point:
+        view = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return a.shape == b.shape and torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+    return torch.equal(a, b)
+
+
+def layer_run(layer, arrays, w, dtype, dev):
+    """The layer's x and the gradients of sum(w x) for P, q, A, l and u
+    (tensors of ``dtype`` on ``dev`` from ``arrays``)."""
+    import torch
+
+    ts = [torch.as_tensor(a, dtype=dtype, device=dev).requires_grad_(True) for a in arrays]
+    x = layer(*ts)
+    grads = torch.autograd.grad((torch.as_tensor(w, dtype=dtype, device=dev) * x).sum(), ts)
+    return x.detach(), grads
+
+
+def phase_qp_layer(dev):
+    """The differentiable QP layer (osqp_tpu_torch.make_qp_layer) at the
+    headline's width: B=1024, n=100, m=200 in float64 with polish on and
+    eps 1e-8 (LAYER_KW), and the headline batch (B=8192, float32, eps
+    1e-3, polish on).  Forward and backward with a random weight on x;
+    the forward pass equal to solve_batch bit for bit; a final status on
+    >= 0.99 of the instances; the backward pass's launches (counts set to
+    0 just before it): K8's blocks factor once, its solve 1 + 3 times,
+    K3 3 times, and under the profiler no library LU; the card's dP, dq,
+    dA, dl and du on 4 polished instances against the CPU layer's on the
+    same instances (LAYER_GRAD_TOL), dq against central differences
+    along a random direction on 2 polished instances (LAYER_FD_TOL);
+    forward and backward ms, medians of 5 by CUDA events."""
+    import torch
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch.linsys import kkt_lu as kkt_backend
+
+    names = ("P", "q", "A", "l", "u")
+    blocks_calls = []
+    real_blocks = kkt_backend.kkt_lu_factor_blocks
+
+    def blocks_spy(*args, **kw):
+        blocks_calls.append(args[0].shape[0])
+        return real_blocks(*args, **kw)
+
+    backward_counts = {}
+    for label, (B, n, m), dtype, kw, seed in (
+        ("float64", (LAYER["B"], LAYER["n"], LAYER["m"]), torch.float64, LAYER_KW, 3),
+        ("float32", (HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]), torch.float32,
+         dict(eps_abs=SOLVE_KW["eps_abs"], eps_rel=SOLVE_KW["eps_rel"]), 0),
+    ):
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        arrays = make_qps(B, n, m, seed=seed, dtype=np_dtype)
+        w = np.random.default_rng(4).standard_normal((B, n))
+        layer = ot.make_qp_layer(**kw)
+        res = ot.solve_batch(*on_device(arrays, dtype, dev), dtype=dtype, polish=True, verbose=False, **kw)
+        ts = [torch.as_tensor(a, dtype=dtype, device=dev).requires_grad_(True) for a in arrays]
+        wt = torch.as_tensor(w, dtype=dtype, device=dev)
+        x, fwd = event_times(lambda: layer(*ts))
+        loss = (wt * x).sum()
+        reset_counts()
+        blocks_calls.clear()
+        kkt_backend.kkt_lu_factor_blocks = blocks_spy
+        try:
+            grads = torch.autograd.grad(loss, ts, retain_graph=True)
+            torch.cuda.synchronize()
+        finally:
+            kkt_backend.kkt_lu_factor_blocks = real_blocks
+        counts = read_counts()
+        _, bwd = event_times(lambda: torch.autograd.grad(loss, ts, retain_graph=True))
+        _, _, events = profiled(lambda: torch.autograd.grad(loss, ts, retain_graph=True))
+        library = sorted({kernel_label(e.name) for e in events if any(k in e.name.lower() for k in LIBRARY_LU)})
+
+        sv = res.status_val.cpu().numpy()
+        sp_ = res.status_polish.cpu().numpy()
+        solved = float(np.mean(sv == ot.OSQP_SOLVED))
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        print(f"qp_layer {label} B={B} n={n} m={m} {kw}, polish on [{CARD}]: forward ms {[round(t, 3) for t in fwd]}, "
+              f"median {statistics.median(fwd):.3f}; backward ms {[round(t, 3) for t in bwd]}, median "
+              f"{statistics.median(bwd):.3f}; solved {solved:.4f}, status_polish 1 in {int((sp_ == 1).sum())} of {B}, "
+              f"iterations mean {res.iter.float().mean().item():.2f} max {int(res.iter.max())}")
+        print(f"  backward launches {nonzero(counts)}; K8 blocks entry calls {blocks_calls}; library LU kernels under the "
+              f"profiler {library}; backward device time by kernel: {top_kernels(events)}")
+        require(same_bits(x.detach(), res.x), f"qp_layer {label}: the forward pass differs from solve_batch")
+        require(solved >= 0.99, f"qp_layer {label}: solved fraction {solved} < 0.99")
+        require(finite, f"qp_layer {label}: a gradient is not finite")
+        require(blocks_calls == [B] and counts["kkt_lu_factor"] == 1 and counts["kkt_lu_solve"] == 4
+                and counts["term_products"] == 3,
+                f"qp_layer {label}: the backward pass launched {nonzero(counts)}, K8 blocks calls {blocks_calls}")
+        require(not library, f"qp_layer {label}: a library LU ran in the backward pass: {library}")
+        backward_counts[label] = counts
+        if dtype != torch.float64:
+            continue
+
+        polished = np.nonzero(sp_ == 1)[0]
+        require(len(polished) >= 4, "qp_layer: fewer than 4 polished instances")
+        pick = polished[:4]
+        cpu_x, cpu_grads = layer_run(layer, [a[pick] for a in arrays], w[pick], dtype, "cpu")
+        errs = {}
+        for name, g, c in zip(names, grads, cpu_grads):
+            diff = float((g[pick].cpu() - c).abs().max())
+            errs[name] = diff / max(1.0, float(c.abs().max()))
+        x_err = float((x.detach()[pick].cpu() - cpu_x).abs().max())
+        print(f"  card against the CPU layer on instances {pick.tolist()}: x {x_err:.3e}; gradients, largest "
+              f"difference over max(1, largest CPU entry): " + ", ".join(f"d{k} {v:.3e}" for k, v in errs.items())
+              + f" (tolerance {LAYER_GRAD_TOL})")
+        require(all(v <= LAYER_GRAD_TOL for v in errs.values()), f"qp_layer: card gradients off the CPU's: {errs}")
+
+        # dq against central differences, on a B=2 batch of two polished instances
+        two = polished[:2]
+        d = np.random.default_rng(5).standard_normal((2, n))
+        sub = [a[two] for a in arrays]
+
+        def loss_at(qv):
+            r = ot.solve_batch(sub[0], qv, *sub[2:], device=dev, dtype=dtype, polish=True, verbose=False, **kw)
+            require((r.status_polish == 1).all(), "qp_layer: polish failed at a perturbed q")
+            return (torch.as_tensor(w[two], dtype=dtype, device=dev) * r.x).sum(-1).cpu().numpy()
+
+        fd = (loss_at(sub[1] + LAYER_FD_STEP * d) - loss_at(sub[1] - LAYER_FD_STEP * d)) / (2 * LAYER_FD_STEP)
+        an = (grads[1][two].cpu().numpy() * d).sum(-1)
+        rel = np.abs(fd - an) / np.maximum(1.0, np.abs(an))
+        print(f"  dq along a random direction on instances {two.tolist()}: analytic {an.tolist()}, central "
+              f"differences (step {LAYER_FD_STEP}) {fd.tolist()}, relative difference {rel.max():.3e} "
+              f"(tolerance {LAYER_FD_TOL})")
+        require(rel.max() <= LAYER_FD_TOL, "qp_layer: dq disagrees with central differences")
+    return backward_counts
+
+
+def phase_compact(dev):
+    """Instance compaction at the headline (bench.py:31-42: B=8192, n=100,
+    m=200, float32, eps 1e-3, polish off) with min_compact_batch=256,
+    beside the plain solve: the sub-batch sizes taken (a spy on
+    admm.run_segment reads the working batch of each segment), equal
+    statuses, iterations equal where the bits of x and y agree, how many
+    instances differ in any bit and by how much in x (COMPACT_X_RTOL,
+    relative to the instance's largest |x|), and each variant's wall time,
+    median of 5.  On the card a kernel's split over blocks may depend on
+    B, so a sub-batch can round differently from the full batch."""
+    import torch
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch import admm as admm_mod
+
+    B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
+    data = on_device(make_qps(B, n, m), torch.float32, dev)
+    kw = dict(SOLVE_KW, compact=True, min_compact_batch=COMPACT_MIN_BATCH)
+    reset_counts()
+    plain = ot.solve_batch(*data, **SOLVE_KW)
+    torch.cuda.synchronize()
+    plain_counts = read_counts()
+    widths = []
+    real_segment = admm_mod.run_segment
+
+    def spy(cfg, d, scl, dyn, c, end):
+        widths.append(c.active.shape[0])
+        return real_segment(cfg, d, scl, dyn, c, end)
+
+    admm_mod.run_segment = spy
+    try:
+        reset_counts()
+        comp = ot.solve_batch(*data, **kw)
+        torch.cuda.synchronize()
+        comp_counts = read_counts()
+    finally:
+        admm_mod.run_segment = real_segment
+    plain_ms = wall_times(lambda: ot.solve_batch(*data, **SOLVE_KW))
+    comp_ms = wall_times(lambda: ot.solve_batch(*data, **kw))
+
+    bits = lambda t: t.contiguous().view(torch.int32)
+    same = ((bits(plain.x) == bits(comp.x)).all(-1) & (bits(plain.y) == bits(comp.y)).all(-1)).cpu().numpy()
+    it_p, it_c = plain.iter.cpu().numpy(), comp.iter.cpu().numpy()
+    scale = plain.x.abs().amax(-1).clamp_min(1e-30)
+    x_rel = ((comp.x - plain.x).abs().amax(-1) / scale).cpu().numpy()
+    statuses_equal = torch.equal(plain.status_val, comp.status_val)
+    sizes = [w for i, w in enumerate(widths) if i == 0 or w != widths[i - 1]]
+    print(f"compact headline B={B} n={n} m={m} f32, min_compact_batch {COMPACT_MIN_BATCH} [{CARD}]: sub-batch sizes "
+          f"{sizes} over {len(widths)} segments; statuses equal {statuses_equal}; instances whose x and y differ "
+          f"in some bit {int((~same).sum())} of {B}; iterations differ in {int((it_p != it_c).sum())} (in "
+          f"{int((it_p[same] != it_c[same]).sum())} of the bit-equal ones); x relative difference max "
+          f"{x_rel.max():.3e}, mean over the differing {x_rel[~same].mean() if (~same).any() else 0.0:.3e}")
+    print(f"  wall ms, median of 5 (host clock, synchronized): plain {statistics.median(plain_ms):.3f} "
+          f"{[round(t, 3) for t in plain_ms]}, compact {statistics.median(comp_ms):.3f} "
+          f"{[round(t, 3) for t in comp_ms]}; compact over plain {statistics.median(comp_ms) / statistics.median(plain_ms):.3f}")
+    print(f"  launches plain {nonzero(plain_counts)}")
+    print(f"  launches compact {nonzero(comp_counts)}")
+    # Which kernels' results follow B: K1 and K3 on every 32nd row of a
+    # random headline state, at B=8192 and on those rows alone (B=256).
+    from osqp_tpu_torch.ops import admm_iter as k1, term_products as k3
+
+    ops = random_operands(B, n, m, torch.float32, dev)
+    pick = torch.arange(0, B, B // COMPACT_MIN_BATCH, device=dev)
+    sub = {k: v.index_select(0, pick).contiguous() if torch.is_tensor(v) and v.ndim else v for k, v in ops.items()}
+    k3_args = lambda o: (o["P"], o["A"], o["x"], o["y"], o["dx"], o["dy"])
+    rows_same = lambda full, part: all(same_bits(a.index_select(0, pick), b) for a, b in zip(full, part))
+    k1_same = rows_same(k1.admm_iter(*k1_args(ops)), k1.admm_iter(*k1_args(sub)))
+    k3_same = rows_same(k3.term_products(*k3_args(ops)), k3.term_products(*k3_args(sub)))
+    print(f"  the same {len(pick)} rows of a random state at B={B} and alone: K1 bit-identical {k1_same}, "
+          f"K3 bit-identical {k3_same}")
+    require(statuses_equal, "compact: statuses differ from the plain solve")
+    require(bool((it_p[same] == it_c[same]).all()), "compact: iterations differ where x and y agree bit for bit")
+    require(float(x_rel.max()) <= COMPACT_X_RTOL, f"compact: x off the plain solve by {x_rel.max():.3e}")
+    require(len(sizes) > 1 and min(sizes) >= COMPACT_MIN_BATCH, f"compact: sub-batch sizes {sizes}")
+    return dict(sizes=sizes, plain_ms=statistics.median(plain_ms), compact_ms=statistics.median(comp_ms))
+
+
+def phase_export(dev):
+    """The fixed-shape artifact (osqp_tpu_torch.export): the headline
+    shape exported in float32 with polish on, loaded on the card and held
+    to a live solve_batch bit for bit (the same code path over the same
+    range); LISWET1 exported in float64 through SparseSolver.export,
+    loaded and held to SparseSolver.solve within 1e-6, then with P's
+    values x2 through the artifact and through update_P within 1e-5.  The
+    Solver runs with warm_start off and its rho reset to the setting
+    before the re-solve, so that it starts where the artifact starts: a
+    re-solve from the first solve's iterates or adapted rho stops at
+    another point within eps 1e-3 of the optimum (1.9e-3 from the
+    artifact's in x, on the CPU), which no tolerance of 1e-5 could hold.
+    Blob sizes and each call's ms."""
+    import scipy.sparse as sp
+    import torch
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch import export
+    from osqp_tpu_torch.io.qps import load_qps
+
+    B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
+    kw = dict(SOLVE_KW, polish=True)
+    data = on_device(make_qps(B, n, m), torch.float32, dev)
+    t0 = time.perf_counter()
+    blob = export.export_solver(B, n, m, **kw)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fn = export.load_solver(blob)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    out, call_ms = event_times(lambda: fn(*data))
+    live, live_ms = event_times(lambda: ot.solve_batch(*data, **kw))
+    differ = [f for f in export._FIELDS if not same_bits(out[f], getattr(live, f))]
+    print(f"export headline B={B} n={n} m={m} f32 polish on [{CARD}]: blob {len(blob)} bytes, export "
+          f"{export_ms:.3f} ms, load {load_ms:.3f} ms (host clock); loaded call ms {[round(t, 3) for t in call_ms]} "
+          f"(median {statistics.median(call_ms):.3f}), live solve_batch ms {[round(t, 3) for t in live_ms]} (median "
+          f"{statistics.median(live_ms):.3f}); fields differing from the live solve in some bit: {differ}; "
+          f"status_polish 1 in {int((out['status_polish'] == 1).sum())} of {B}")
+    require(not differ, f"export: the loaded solver differs from the live solve in {differ}")
+
+    qp = load_qps(os.path.join(MAROS, "LISWET1.qps"))
+    s = ot.SparseSolver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype="float64", verbose=False, warm_start=False)
+    t0 = time.perf_counter()
+    sblob = s.export()
+    sexport_ms = (time.perf_counter() - t0) * 1e3
+    sfn = export.load_sparse_solver(sblob)
+    Pv, Av = s._Pu.data.copy(), s._Ac.data.copy()
+    vecs = (qp.q[None], np.asarray(qp.l, np.float64)[None], np.asarray(qp.u, np.float64)[None])
+    (o1, t1) = event_times(lambda: sfn(Pv, vecs[0], Av, *vecs[1:]), reps=1)
+    r1, s1 = event_times(s.solve, reps=1)
+    e1 = float(np.abs(o1["x"][0].cpu().numpy() - r1.x).max())
+    (o2, t2) = event_times(lambda: sfn(2.0 * Pv, vecs[0], Av, *vecs[1:]), reps=1)
+    s.update_P(Px=2.0 * Pv)
+    s.update_rho(s.settings.rho)
+    r2, s2 = event_times(s.solve, reps=1)
+    e2 = float(np.abs(o2["x"][0].cpu().numpy() - r2.x).max())
+    print(f"export LISWET1 float64 through SparseSolver.export [{CARD}]: blob {len(sblob)} bytes, export "
+          f"{sexport_ms:.3f} ms; artifact status {int(o1['status_val'][0])}, iterations {int(o1['iter'][0])} "
+          f"against the Solver's {r1.info.status} {r1.info.iter}: x max difference {e1:.3e} (tolerance 1e-6); "
+          f"artifact call {t1[0]:.3f} ms, Solver solve {s1[0]:.3f} ms; with P x2: status {int(o2['status_val'][0])}, "
+          f"iterations {int(o2['iter'][0])} against {r2.info.status} {r2.info.iter}, x max difference {e2:.3e} "
+          f"(tolerance 1e-5), artifact call {t2[0]:.3f} ms, Solver solve {s2[0]:.3f} ms")
+    require(int(o1["status_val"][0]) == ot.OSQP_SOLVED and e1 <= 1e-6, "export: LISWET1 artifact off the Solver")
+    require(e2 <= 1e-5, "export: LISWET1 artifact off the Solver after update_P")
+    return dict(dense_bytes=len(blob), sparse_bytes=len(sblob))
+
+
+def run_phase(phase, dev):
+    """``phase(dev)``, and a line with its wall time."""
+    t0 = time.perf_counter()
+    out = phase(dev)
+    print(f"[{phase.__name__.removeprefix('phase_')}: {time.perf_counter() - t0:.1f} s]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3851,6 +4209,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    global CARD
+    CARD = smi
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
@@ -3863,36 +4223,39 @@ def main() -> int:
             print("usage: chip_smoke.py [--only PHASE[,PHASE...]]", file=sys.stderr)
             return 2
         for name in sys.argv[2].split(","):
-            globals()[f"phase_{name}"](dev)
+            run_phase(globals()[f"phase_{name}"], dev)
         print("chip_smoke: a partial run, no result line", file=sys.stderr)
         return 2
 
-    k2_stats = phase_k2(dev)
-    k2_leaf_stats, k2_cluster_stats = phase_k2_route(dev)
-    k1_stats = phase_k1(dev)
-    k4_stats = phase_k4(dev)
-    k3_stats = phase_k3(dev)
-    k1r_stats, k1r_resident_stats = phase_k1r(dev)
-    phase_parity(dev)
-    launches = phase_headline(dev)
-    solver_launches = phase_solver(dev)
-    k8_factor_stats, k8_solve_stats = phase_k8(dev)
-    polish_launches = phase_polish_batched(dev)
-    phase_polish_solver(dev)
-    phase_kkt_lu_backend(dev)
-    k5_group_stats, k5_start_stats, k5_scale_stats = phase_k5(dev)
-    k6_stats, loop_stats = phase_k6(dev)
-    sparse_launches, sparse_paths = phase_sparse(dev)
-    cg_dense_launches = phase_cg_dense(dev)
-    k7_factor_stats, k7_solve_stats = phase_k7(dev)
-    k7_large_launches, k7_cluster_stats, k7_device_stats, k7_wide_stats = phase_k7_device(dev)
-    mpc_legs = phase_mpc(dev)
+    k2_stats = run_phase(phase_k2, dev)
+    k2_leaf_stats, k2_cluster_stats = run_phase(phase_k2_route, dev)
+    k1_stats = run_phase(phase_k1, dev)
+    k4_stats = run_phase(phase_k4, dev)
+    k3_stats = run_phase(phase_k3, dev)
+    k1r_stats, k1r_resident_stats = run_phase(phase_k1r, dev)
+    run_phase(phase_parity, dev)
+    launches = run_phase(phase_headline, dev)
+    solver_launches = run_phase(phase_solver, dev)
+    k8_factor_stats, k8_solve_stats = run_phase(phase_k8, dev)
+    polish_launches = run_phase(phase_polish_batched, dev)
+    run_phase(phase_polish_solver, dev)
+    run_phase(phase_kkt_lu_backend, dev)
+    k5_group_stats, k5_start_stats, k5_scale_stats = run_phase(phase_k5, dev)
+    k6_stats, loop_stats = run_phase(phase_k6, dev)
+    sparse_launches, sparse_paths = run_phase(phase_sparse, dev)
+    cg_dense_launches = run_phase(phase_cg_dense, dev)
+    k7_factor_stats, k7_solve_stats = run_phase(phase_k7, dev)
+    k7_large_launches, k7_cluster_stats, k7_device_stats, k7_wide_stats = run_phase(phase_k7_device, dev)
+    mpc_legs = run_phase(phase_mpc, dev)
     mpc_launches = mpc_legs["block_tridiag"]
-    portfolio_launches = phase_parametric_portfolio(dev)
-    phase_parametric_mpc(dev)
-    polish_launches_sparse, polish_loops, pcg_stats, polish_paths = phase_sparse_polish(dev)
-    phase_maros(dev)
-    phase_families(dev)
+    portfolio_launches = run_phase(phase_parametric_portfolio, dev)
+    run_phase(phase_parametric_mpc, dev)
+    polish_launches_sparse, polish_loops, pcg_stats, polish_paths = run_phase(phase_sparse_polish, dev)
+    run_phase(phase_maros, dev)
+    run_phase(phase_families, dev)
+    layer_launches = run_phase(phase_qp_layer, dev)["float64"]
+    run_phase(phase_compact, dev)
+    run_phase(phase_export, dev)
 
     # launches: the batched headline solve's, and for K1r, which that
     # well-conditioned batch does not run, the Solver path's (its times:
@@ -3936,11 +4299,14 @@ def main() -> int:
              launches_resident=launches["ruiz_resident"], launches_split=launches["ruiz"] - launches["ruiz_resident"],
              **k4_stats),
         dict(name="term_products", route="cuda", source="osqp_tpu_torch/csrc/term_products.cu",
-             replaces="osqp_tpu/termination.py:47", launches=launches["term_products"], **k3_stats),
+             replaces="osqp_tpu/termination.py:47", launches=launches["term_products"],
+             launches_backward=layer_launches["term_products"], **k3_stats),
         dict(name="kkt_lu_factor", route="cuda", source="osqp_tpu_torch/csrc/kkt_lu.cu",
-             replaces="osqp_tpu/linsys/kkt_lu.py:37", launches=polish_launches["kkt_lu_factor"], **k8_factor_stats),
+             replaces="osqp_tpu/linsys/kkt_lu.py:37", launches=polish_launches["kkt_lu_factor"],
+             launches_backward=layer_launches["kkt_lu_factor"], **k8_factor_stats),
         dict(name="kkt_lu_solve", route="cuda", source="osqp_tpu_torch/csrc/kkt_lu.cu",
-             replaces="osqp_tpu/linsys/kkt_lu.py:42", launches=polish_launches["kkt_lu_solve"], **k8_solve_stats),
+             replaces="osqp_tpu/linsys/kkt_lu.py:42", launches=polish_launches["kkt_lu_solve"],
+             launches_backward=layer_launches["kkt_lu_solve"], **k8_solve_stats),
         dict(name="ell_group", route="cuda", source="osqp_tpu_torch/csrc/ell_ops.cu",
              replaces="osqp_tpu/sparse_ops.py:120", launches=sparse_launches["ell_group"], **k5_group_stats),
         dict(name="ell_cg_start", route="cuda", source="osqp_tpu_torch/csrc/ell_ops.cu",

@@ -41,6 +41,11 @@ of different shapes (one batched solve per padded shape bucket),
 :func:`osqp_tpu_torch.maros.run_maros` runs the Maros-Meszaros harness
 and :func:`osqp_tpu_torch.benchmarks.run_suite` the OSQP-paper families,
 each solution checked by :mod:`osqp_tpu_torch.verify`.
+:func:`make_qp_layer` is the differentiable batched QP layer (a
+``torch.autograd.Function``), ``solve_batch(..., compact=True)`` shrinks
+the working batch as instances finish, and :mod:`osqp_tpu_torch.export`
+writes and loads fixed-shape solver artifacts (``Solver.export``,
+``SparseSolver.export``).
 """
 
 from __future__ import annotations
@@ -81,6 +86,7 @@ from .constants import (  # noqa: E402
     ErrorCode,
     OSQPError,
 )
+from .diff import make_qp_layer  # noqa: E402
 from .large import SparseSolver, solve_sparse  # noqa: E402
 from .parametric import BatchedSolver  # noqa: E402
 from .solver import OSQP, Info, Results, Settings, Solver  # noqa: E402
@@ -95,6 +101,7 @@ __all__ = [
     "BatchedSolver",
     "solve_sparse",
     "SparseSolver",
+    "make_qp_layer",
     "BatchSolveResults",
     "Settings",
     "QPData",

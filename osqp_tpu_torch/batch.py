@@ -14,10 +14,20 @@ global counter ``k`` keeps the check and rho schedules on the
 reference's numbering, so segment lengths change no iterate; they only
 decide where the refinement signal is re-read (see admm.run_segment),
 exactly where the JAX package's driver re-reads it.
+
+Instance compaction (``compact=True``, no reference analogue): finished
+instances are frozen by masked selects but still share the batch's
+launches until the slowest one ends.  The compacting driver, whenever
+at most half of the working set is still active, finalizes the finished
+instances into full-size accumulators and gathers the active ones into
+a power-of-two sub-batch.  Per-instance arithmetic is unchanged; on the
+card a kernel's split over blocks may depend on the batch size, so the
+last bits of a sum can differ from the full batch's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, NamedTuple
 
@@ -28,13 +38,13 @@ from . import admm as admm_mod
 from . import constants as con
 from . import linsys as linsys_registry
 from .admm import set_rho_state
-from .linalg import bwhere, mat_vec, norm_inf
+from .linalg import bwhere, host_array, mat_vec, norm_inf
 from .linsys import block_tridiag
 from .polish import polish as polish_fn
 from .scaling import scale_data, unscale_solution
 from .solver import Settings, make_config, reject_time_based_rho, resolve_device, torch_dtype, validate_settings
 from .sparse_ops import ELLMatrix
-from .types import DynSettings, Iterates, QPData, ScalingData
+from .types import DynSettings, Iterates, QPData, ScalingData, SolveResult
 
 
 class BatchSolveResults(NamedTuple):
@@ -190,8 +200,134 @@ def _solve_segmented(cfg, scaling_iters, do_polish, refine_iter, P, q, A, l, u, 
     return _postprocess(cfg, do_polish, refine_iter, scaled, scl, dyn, fin)
 
 
+def _next_pow2(v: int) -> int:
+    return 1 << (int(v) - 1).bit_length() if v > 1 else 1
+
+
+def _gather(obj, idx, memo):
+    """Rows ``idx`` of every batched tensor in ``obj`` (a tensor, a dict or
+    a dataclass of them): dim 0 of each tensor that has one; 0-d tensors
+    and host values (``Carry.k``, ``any_active``, None) pass through.
+    ``memo`` maps a tensor's id to its gathered copy, so that a tensor two
+    fields share (dense_inv's factor keeps the scaled P) is gathered once
+    and stays shared."""
+    if isinstance(obj, torch.Tensor):
+        if obj.ndim == 0:
+            return obj
+        if id(obj) not in memo:
+            memo[id(obj)] = obj.index_select(0, idx)
+        return memo[id(obj)]
+    if isinstance(obj, dict):
+        return {key: _gather(v, idx, memo) for key, v in obj.items()}
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(
+            obj, **{f.name: _gather(getattr(obj, f.name), idx, memo) for f in dataclasses.fields(obj)}
+        )
+    return obj
+
+
+def _scatter(acc, sub, rows):
+    """``acc`` (full size) with rows ``rows`` replaced by the first
+    ``len(rows)`` rows of ``sub``: a cohort's real rows, never its
+    padding lanes."""
+    if isinstance(acc, torch.Tensor):
+        return acc.index_copy(0, rows, sub[: rows.numel()])
+    if isinstance(acc, dict):
+        return {key: _scatter(acc[key], sub[key], rows) for key in acc}
+    return dataclasses.replace(
+        acc, **{f.name: _scatter(getattr(acc, f.name), getattr(sub, f.name), rows) for f in dataclasses.fields(acc)}
+    )
+
+
+def _result_parts(r: SolveResult) -> dict:
+    """What _postprocess reads of a finalized cohort, per instance."""
+    return {"it": r.iterates, "info": r.info, "dx": r.delta_x, "dy": r.delta_y}
+
+
+def _solve_compact(cfg, scaling_iters, do_polish, refine_iter, P, q, A, l, u, rho0, dyn, x0, y0,
+                   min_batch=256, time_limit=0.0):
+    """The compacting segmented driver (osqp_tpu/batch.py:504-606).
+
+    Segments are ``check`` iterations long.  After each one the host reads
+    the active mask once; once ``target = max(next_pow2(active),
+    min_batch)`` is at most half the working batch, the finished cohort
+    (padded to a power of two, capped at the working batch) is finalized
+    and its real rows scattered into full-size accumulators, and the
+    active cohort is gathered into a sub-batch of ``target`` lanes, the
+    padding lanes inactive.  A host array maps the working batch's rows
+    to global rows; the real rows are always its first ones.
+    """
+    t0 = time.perf_counter()
+    B = q.shape[0]
+    dev = q.device
+    seg = cfg.check_termination if cfg.check_termination > 0 else 25
+    fallback = con.OSQP_MAX_ITER_REACHED
+    run_checks = True
+    scaled, scl, rho_state, factor, it = _prepare(cfg, scaling_iters, P, q, A, l, u, rho0, dyn, x0, y0)
+    c = admm_mod.init_carry(cfg, scaled, rho_state, factor, it)
+    acc = {"it": c.it, "info": c.info, "dx": c.delta_x, "dy": c.delta_y}
+    data, sclc = scaled, scl
+    gidx = np.arange(B)  # working row -> global row; B marks a padding lane
+    rows = lambda r: torch.as_tensor(r, dtype=torch.int64, device=dev)
+
+    k = 1
+    try:
+        while k <= cfg.max_iter:
+            end = min(k + seg - 1, cfg.max_iter)
+            c = admm_mod.run_segment(cfg, data, sclc, dyn, c, end)
+            k = end + 1
+            act = host_array(c.active)
+            na = int(act.sum())
+            if na == 0 or k > cfg.max_iter:
+                break
+            if time_limit > 0 and time.perf_counter() - t0 >= time_limit:
+                fallback = con.OSQP_TIME_LIMIT_REACHED
+                break
+            Bs = act.shape[0]
+            target = max(_next_pow2(na), int(min_batch))
+            if target > Bs // 2:
+                continue
+
+            keep = np.nonzero(act)[0]
+            drop = np.nonzero(~act & (gidx < B))[0]
+            # Finalize and scatter the finished cohort.
+            dsize = min(max(_next_pow2(len(drop)), int(min_batch)), Bs)
+            didx = np.zeros(dsize, np.int64)
+            didx[: len(drop)] = drop
+            memo = {}
+            sub = [_gather(v, rows(didx), memo) for v in (data, sclc, c)]
+            fin = admm_mod.finalize(cfg, *sub[:2], dyn, sub[2])
+            acc = _scatter(acc, _result_parts(fin), rows(gidx[drop]))
+
+            # Gather the active cohort; its padding lanes are inactive.
+            kidx = np.zeros(target, np.int64)
+            kidx[:na] = keep
+            memo = {}
+            data, sclc, c = (_gather(v, rows(kidx), memo) for v in (data, sclc, c))
+            lanes = torch.as_tensor(np.arange(target) < na, device=dev)
+            c = dataclasses.replace(c, active=c.active & lanes, any_active=True)
+            new_gidx = np.full(target, B)
+            new_gidx[:na] = gidx[keep]
+            gidx = new_gidx
+    except KeyboardInterrupt:
+        # osqp.c:374-385: SIGINT exits at once, with no further checks.
+        fallback = con.OSQP_SIGINT
+        run_checks = False
+        print("Solver interrupted")
+
+    # The last cohort: a normal finalize, the fallback status for the rest.
+    fin = admm_mod.finalize(cfg, data, sclc, dyn, c, fallback_status=fallback, run_checks=run_checks)
+    acc = _scatter(acc, _result_parts(fin), rows(gidx[gidx < B]))
+    result = SolveResult(
+        iterates=acc["it"], info=acc["info"], rho_state=rho_state, factor=factor,
+        delta_x=acc["dx"], delta_y=acc["dy"],
+    )
+    return _postprocess(cfg, do_polish, refine_iter, scaled, scl, dyn, result)
+
+
 def solve_batch(
-    P, q, A, l, u, x0=None, y0=None, compact=False, segmented=True, device=None, **settings,
+    P, q, A, l, u, x0=None, y0=None, compact=False, min_compact_batch=256, segmented=True, device=None,
+    **settings,
 ) -> BatchSolveResults:
     """Solve B same-shape QPs together.
 
@@ -201,11 +337,14 @@ def solve_batch(
          clamped to the reference's finite infinity, constants.h:98-100).
          Tensors or arrays.
       x0, y0: optional warm starts (unscaled); either alone is allowed.
-      compact: instance compaction, not ported yet (ROADMAP queue 1,
-         item 14).
+      compact: shrink the working batch as instances terminate (saves
+         the launches' work on frozen instances when iteration counts
+         are dispersed; per-instance arithmetic unchanged).  Dense
+         operands only.  ``min_compact_batch`` floors the sub-batch size.
+         Verbose output prints the header and footer only.
       segmented: run in host-polled segments (default), which honors
          ``time_limit``, Ctrl-C and verbose rows; False runs the whole
-         range with no polling.
+         range with no polling (``compact=True`` segments regardless).
       device: where to solve; default: P's device if P is a tensor,
          else the CUDA card (raises without one: pass ``device="cpu"``
          for the CPU).  CUDA tensors run the hand-written kernels.
@@ -217,16 +356,12 @@ def solve_batch(
     s = Settings(**settings)
     validate_settings(s)
     reject_time_based_rho(s)
-    if compact:
-        if isinstance(P, ELLMatrix) or isinstance(A, ELLMatrix):
-            # Compaction gathers every batched leaf by instance row; the
-            # ELL pattern (idx, t_idx) is unbatched and would be corrupted.
-            raise con.OSQPError(
-                con.ErrorCode.DATA_VALIDATION_ERROR,
-                "instance compaction is not supported with ELL (sparse) operands",
-            )
-        raise NotImplementedError(
-            "instance compaction is not ported to osqp_tpu_torch yet (ROADMAP queue 1, item 14)"
+    if compact and (isinstance(P, ELLMatrix) or isinstance(A, ELLMatrix)):
+        # Compaction gathers every batched leaf by instance row; the ELL
+        # pattern (idx, t_idx) is unbatched and would be corrupted.
+        raise con.OSQPError(
+            con.ErrorCode.DATA_VALIDATION_ERROR,
+            "instance compaction is not supported with ELL (sparse) operands",
         )
 
     dtype = torch_dtype(s.dtype)
@@ -266,7 +401,7 @@ def solve_batch(
         y0 = as_t(y0) if y0 is not None else torch.zeros((B, m), dtype=dtype, device=device)
 
     do_polish, refine_iter = bool(s.polish), int(s.polish_refine_iter)
-    if not segmented:
+    if not (segmented or compact):
         scaled, scl, rho_state, factor, it = _prepare(cfg, int(s.scaling), P, q, A, l, u, rho0, dyn, x0, y0)
         fin = admm_mod.solve_core(cfg, scaled, scl, dyn, rho_state, factor, it)
         return _postprocess(cfg, do_polish, refine_iter, scaled, scl, dyn, fin)
@@ -278,10 +413,11 @@ def solve_batch(
         nnz = int(torch.count_nonzero(torch.triu(P[0]))) + int(torch.count_nonzero(A[0]))
         print_setup_header_vals(s, n, m, nnz, B=B)
     t0 = time.perf_counter()
-    res = _solve_segmented(
-        cfg, int(s.scaling), do_polish, refine_iter, P, q, A, l, u, rho0, dyn, x0, y0,
-        time_limit=float(s.time_limit), verbose=verbose,
-    )
+    args = (cfg, int(s.scaling), do_polish, refine_iter, P, q, A, l, u, rho0, dyn, x0, y0)
+    if compact:
+        res = _solve_compact(*args, min_batch=int(min_compact_batch), time_limit=float(s.time_limit))
+    else:
+        res = _solve_segmented(*args, time_limit=float(s.time_limit), verbose=verbose)
     if verbose:
         from .utils.printing import print_batch_footer
 

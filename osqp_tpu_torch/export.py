@@ -1,0 +1,241 @@
+"""Fixed-shape solver artifacts, the analogue of the reference's EMBEDDED
+mode (counterpart of ``osqp_tpu/export.py``; CMakeLists.txt:48-55,
+include/osqp.h:35-60).
+
+    blob = export_solver(B=64, n=10, m=20, dtype="float32", polish=True)
+    open("solver.bin", "wb").write(blob)
+    ...
+    fn = load_solver(open("solver.bin", "rb").read())   # on the card
+    res = fn(P, q, A, l, u)   # dict of per-instance outputs
+
+The blob fixes (B, n, m), the dtype, the platforms it may run on
+(``"cuda"``, ``"cpu"``) and the full settings; the callable refuses
+inputs of another shape or dtype with a ValueError and runs the whole
+pipeline (Ruiz scaling, rho classification, factorization, the masked
+ADMM loop over the whole iteration range, optional polish, unscaling and
+certificates) in one unsegmented solve.  :func:`export_sparse_solver`
+also bakes in a sparsity pattern and its CSC-nnz -> ELL-slot value maps,
+and its callable takes value vectors only.
+
+What differs from the JAX package's artifact: that one is a traced and
+compiled program (``jax.export``), which runs with jax and the blob
+alone.  The port's solve cannot be traced: its kernels are ctypes calls,
+and its loop reads the device from the host at every termination check.
+So this blob is a versioned ``torch.save`` of plain data (readable with
+``torch.load(..., weights_only=True)``), loading it needs
+``osqp_tpu_torch`` installed, and on the card the kernel library is
+built at first use, as for any solve.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import io
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from . import __version__
+from . import admm as admm_mod
+from . import constants as con
+from .batch import _postprocess, _prepare, solve_batch
+from .solver import Settings, make_config, resolve_device, torch_dtype, validate_settings
+from .sparse_ops import ell_pattern_from_scipy, ell_value_maps, ell_with_values
+from .types import DynSettings
+
+FORMAT = "osqp_tpu_torch.export"
+FORMAT_VERSION = 1
+PLATFORMS = ("cuda", "cpu")
+
+# Stable output order of the calling convention (the JAX package's).
+_FIELDS = (
+    "x",
+    "y",
+    "status_val",
+    "iter",
+    "obj_val",
+    "pri_res",
+    "dua_res",
+    "rho_updates",
+    "rho_estimate",
+    "status_polish",
+    "prim_inf_cert",
+    "dual_inf_cert",
+)
+
+
+def _settings(dtype, settings: dict, **defaults) -> Settings:
+    """Validated settings with the dtypes as names (plain data)."""
+    s = Settings(dtype=dtype, **{**defaults, **settings})
+    validate_settings(s)
+    name = lambda d: str(torch_dtype(d)).removeprefix("torch.")
+    s.dtype = name(s.dtype)
+    if s.polish_dtype is not None:
+        s.polish_dtype = name(s.polish_dtype)
+    return s
+
+
+def _platforms(platforms) -> list[str]:
+    """``platforms`` as a list of names; None means the card."""
+    names = ["cuda"] if platforms is None else [str(p).lower() for p in platforms]
+    bad = [p for p in names if p not in PLATFORMS]
+    if not names or bad:
+        raise ValueError(f"platforms must name some of {PLATFORMS}, not {platforms!r}")
+    return names
+
+
+def _dump(spec: dict) -> bytes:
+    buf = io.BytesIO()
+    torch.save({"format": FORMAT, "format_version": FORMAT_VERSION, "version": __version__, **spec}, buf)
+    return buf.getvalue()
+
+
+def _load(blob: bytes, kind: str) -> dict:
+    spec = torch.load(io.BytesIO(blob), weights_only=True)
+    if not isinstance(spec, dict) or spec.get("format") != FORMAT:
+        raise ValueError("not an osqp_tpu_torch solver artifact")
+    if spec["format_version"] != FORMAT_VERSION:
+        raise ValueError(f"artifact format {spec['format_version']}, this package reads {FORMAT_VERSION}")
+    if spec["kind"] != kind:
+        loader = {"dense": "load_solver", "sparse": "load_sparse_solver"}[spec["kind"]]
+        raise ValueError(f"a {spec['kind']} artifact: load it with {loader}")
+    return spec
+
+
+def _device(spec: dict, device) -> torch.device:
+    """The device to run on (the card unless asked), refused where the
+    blob does not list its platform."""
+    dev = resolve_device(device)
+    if dev.type not in spec["platforms"]:
+        raise ValueError(f"this artifact was exported for {spec['platforms']}, not {dev.type}")
+    return dev
+
+
+def _check(args, names, shapes, dtype: torch.dtype):
+    """Each input's shape and dtype as the artifact fixes them (a tensor's
+    dtype, or an array's), else a ValueError."""
+    for v, name, shape in zip(args, names, shapes):
+        vdt = v.dtype if isinstance(v, torch.Tensor) else getattr(torch, np.asarray(v).dtype.name, None)
+        if tuple(v.shape) != tuple(shape) or vdt != dtype:
+            raise ValueError(
+                f"{name}: expected shape {tuple(shape)} of {dtype}, got {tuple(v.shape)} of {vdt}"
+            )
+
+
+def _outputs(res) -> dict:
+    return {f: getattr(res, f) for f in _FIELDS}
+
+
+def export_solver(B: int, n: int, m: int, dtype="float32", platforms=None, **settings) -> bytes:
+    """Serialize a batched solver for fixed (B, n, m) and settings.
+
+    ``platforms``: a list of ``"cuda"`` and/or ``"cpu"``, the devices the
+    loaded callable may run on; the card by default.
+    """
+    s = _settings(dtype, settings)
+    return _dump(dict(kind="dense", B=int(B), n=int(n), m=int(m), dtype=s.dtype, platforms=_platforms(platforms),
+                      settings=dataclasses.asdict(s)))
+
+
+def load_solver(blob: bytes, device=None):
+    """Deserialize an exported solver into a callable
+
+        fn(P, q, A, l, u) -> dict(field -> tensor)
+
+    on ``device`` (the card unless asked; the blob must list its
+    platform), over inputs of the exported shapes and dtype."""
+    spec = _load(blob, "dense")
+    dev = _device(spec, device)
+    B, n, m = spec["B"], spec["n"], spec["m"]
+    settings = dict(spec["settings"])
+    dtype = torch_dtype(settings["dtype"])
+
+    def fn(P, q, A, l, u):
+        _check((P, q, A, l, u), ("P", "q", "A", "l", "u"), ((B, n, n), (B, n), (B, m, n), (B, m), (B, m)), dtype)
+        return _outputs(solve_batch(P, q, A, l, u, segmented=False, device=dev, **settings))
+
+    return fn
+
+
+def export_sparse_solver(P, A, B: int = 1, dtype="float32", platforms=None, **settings) -> bytes:
+    """Serialize a sparse solver for a fixed sparsity pattern.
+
+    The ELL pattern and the CSC-nnz -> ELL-slot value maps (the
+    PtoKKT/AtoKKT analogue, kkt.c:184-212) of P's upper triangle and of A
+    go into the blob; the loaded callable takes only values,
+
+        fn(P_val (nnzP,), q (B, n), A_val (nnzA,), l (B, m), u (B, m))
+
+    in the CSC order of ``triu(P)`` and ``A`` as given here, the value
+    vectors osqp_update_P/A take (osqp.c:1031-1062).  The backend is the
+    matrix-free cg, the sparse path's only one.
+    """
+    s = _settings(dtype, settings, linsys_solver="cg")
+    if s.linsys_solver != "cg":
+        raise con.OSQPError(
+            con.ErrorCode.SETTINGS_VALIDATION_ERROR,
+            "the sparse path supports only the matrix-free 'cg' backend",
+        )
+    Pu = sp.triu(sp.csc_matrix(P), format="csc")
+    Ac = sp.csc_matrix(A)
+    tensors = lambda *arrays: [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
+    operands = {}
+    for name, M, sym in (("P", Pu, True), ("A", Ac, False)):
+        idx, t_idx, shape = ell_pattern_from_scipy(M, sym_from_triu=sym)
+        operands[name] = dict(nnz=int(M.nnz), shape=list(shape),
+                              pattern=tensors(idx, t_idx), maps=tensors(*ell_value_maps(M, sym_from_triu=sym)))
+    return _dump(dict(kind="sparse", B=int(B), n=int(Pu.shape[0]), m=int(Ac.shape[0]), dtype=s.dtype,
+                      platforms=_platforms(platforms), settings=dataclasses.asdict(s), operands=operands))
+
+
+def load_sparse_solver(blob: bytes, device=None):
+    """Deserialize a sparse-pattern artifact into a callable
+
+        fn(P_val, q, A_val, l, u) -> dict(field -> tensor)
+
+    (the calling convention it was exported with; the pattern and the
+    value maps travel inside the blob) on ``device``, the card unless
+    asked."""
+    spec = _load(blob, "sparse")
+    dev = _device(spec, device)
+    B, n, m = spec["B"], spec["n"], spec["m"]
+    s = Settings(**spec["settings"])
+    dtype = torch_dtype(s.dtype)
+    cfg = make_config(n, m, s, dtype)
+    dyn = DynSettings.make(
+        dtype,
+        sigma=s.sigma,
+        alpha=s.alpha,
+        eps_abs=s.eps_abs,
+        eps_rel=s.eps_rel,
+        eps_prim_inf=s.eps_prim_inf,
+        eps_dual_inf=s.eps_dual_inf,
+        adaptive_rho_tolerance=s.adaptive_rho_tolerance,
+        delta=s.delta,
+    )
+    ops = {name: (*(t.to(dev) for t in op["pattern"]), tuple(op["shape"]), *(t.to(dev) for t in op["maps"]))
+           for name, op in spec["operands"].items()}
+    nnz = spec["operands"]["P"]["nnz"], spec["operands"]["A"]["nnz"]
+    on = lambda v: torch.as_tensor(v, device=dev).contiguous()
+
+    def fn(P_val, q, A_val, l, u):
+        _check((P_val, q, A_val, l, u), ("P_val", "q", "A_val", "l", "u"),
+               ((nnz[0],), (B, n), (nnz[1],), (B, m), (B, m)), dtype)
+        P_ell = ell_with_values(*ops["P"], _host(P_val), dtype, batch=B, device=dev).contiguous()
+        A_ell = ell_with_values(*ops["A"], _host(A_val), dtype, batch=B, device=dev).contiguous()
+        clamp = lambda v: torch.clamp(on(v), -con.OSQP_INFTY, con.OSQP_INFTY)
+        rho0 = torch.full((B,), s.rho, dtype=dtype, device=dev)
+        scaled, scl, rho_state, factor, it = _prepare(cfg, int(s.scaling), P_ell, on(q), A_ell, clamp(l), clamp(u),
+                                                      rho0, dyn, None, None)
+        fin = admm_mod.solve_core(cfg, scaled, scl, dyn, rho_state, factor, it)
+        return _outputs(_postprocess(cfg, bool(s.polish), int(s.polish_refine_iter), scaled, scl, dyn, fin))
+
+    return fn
+
+
+def _host(values):
+    """A value vector as numpy float64, where ell_with_values takes it."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu()
+    return np.asarray(values, np.float64)

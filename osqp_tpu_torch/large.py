@@ -33,6 +33,7 @@ B polishes on the device, as the JAX package's ``SparseSolver`` does.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -47,7 +48,6 @@ from .scaling import scale_data
 from .solver import (
     Settings,
     Solver,
-    _not_ported,
     make_config,
     reject_time_based_rho,
     resolve_device,
@@ -191,7 +191,8 @@ class SparseSolver(Solver):
     * iterates stay on the device between solves (warm starting), and
       polish, matrix-free, writes back into them.
 
-    ``linsys_solver`` must be ``"cg"``; ``export`` is not ported yet.
+    ``linsys_solver`` must be ``"cg"``.  ``export`` writes the
+    pattern-baked artifact of :func:`osqp_tpu_torch.export.export_sparse_solver`.
     """
 
     def setup(self, P=None, q=None, A=None, l=None, u=None, device=None, **settings):
@@ -229,6 +230,22 @@ class SparseSolver(Solver):
         )
 
     def export(self, path=None, B: int = 1) -> bytes:
-        """The pattern-baked EMBEDDED artifact of the JAX package; not
-        ported yet."""
-        raise _not_ported("SparseSolver.export", "14")
+        """Serialize this problem's pattern and settings: the artifact's
+        callable takes only value vectors (P_val, q, A_val, l, u) in this
+        solver's CSC order, the parametric EMBEDDED workflow at sparse
+        scale (osqp.c:1031-1062 value semantics), on this solver's device
+        type.  Load with :func:`osqp_tpu_torch.export.load_sparse_solver`;
+        optionally written to ``path``."""
+        from .export import export_sparse_solver
+
+        self._require_setup()
+        blob = export_sparse_solver(
+            self._Pu, self._Ac, B=B, dtype=self._dtype, platforms=[self.device.type],
+            **{f.name: getattr(self.settings, f.name) for f in dataclasses.fields(Settings)
+               if f.name not in ("dtype", "verbose", "time_limit")},
+            verbose=False,
+        )
+        if path is not None:
+            with open(path, "wb") as f:
+                f.write(blob)
+        return blob

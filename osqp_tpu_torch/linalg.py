@@ -35,6 +35,13 @@ def host_read(t: torch.Tensor):
     return t.item()
 
 
+def host_array(t: torch.Tensor):
+    """A numpy copy of ``t``, counted in ``host_reads``."""
+    global host_reads
+    host_reads += 1
+    return t.cpu().numpy()
+
+
 def norm_inf(v: torch.Tensor) -> torch.Tensor:
     """Batched infinity norm over the last axis (lin_alg.c:32-43);
     zero-length axis gives 0."""

@@ -17,7 +17,8 @@ configuration that it shares with :func:`osqp_tpu_torch.solve_batch`.
 State lives on one device, chosen at setup (``device=``, default the
 CUDA card; ``device="cpu"`` for the CPU), as batch-of-1 tensors in the
 solve dtype; a CUDA device runs the hand-written kernels.  ``export``
-(ROADMAP queue 1, item 14) is not ported yet and raises.
+writes a fixed-shape artifact of the problem's shape and settings
+(:mod:`osqp_tpu_torch.export`).
 """
 
 from __future__ import annotations
@@ -295,10 +296,6 @@ def _device_refactor(cfg: StaticConfig, P, A, sigma, rho_vec):
     return linsys_registry.init_factor(cfg, P, A, sigma, rho_vec)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to osqp_tpu_torch yet (ROADMAP queue 1, item {item})")
-
-
 # ---------------------------------------------------------------------------
 # Solver
 # ---------------------------------------------------------------------------
@@ -557,8 +554,26 @@ class Solver:
         self.iterates = it
 
     def export(self, path: str | None = None, B: int = 1) -> bytes:
-        """The EMBEDDED/codegen workflow of the reference; not ported yet."""
-        raise _not_ported("Solver.export", "14")
+        """Serialize a solver for this problem's shape and the current
+        settings: the EMBEDDED/codegen workflow of the reference
+        (CMakeLists.txt:48-55) as a deployable artifact.
+
+        The blob solves any (B, n, m)-shaped data in the solve dtype
+        through :func:`osqp_tpu_torch.export.load_solver`, on this
+        solver's device type; optionally written to ``path``."""
+        self._require_setup()
+        from .export import export_solver
+
+        blob = export_solver(
+            B, self.n, self.m, dtype=self._dtype, platforms=[self.device.type],
+            **{f.name: getattr(self.settings, f.name) for f in dataclasses.fields(Settings)
+               if f.name not in ("dtype", "verbose", "time_limit")},
+            verbose=False,
+        )
+        if path is not None:
+            with open(path, "wb") as f:
+                f.write(blob)
+        return blob
 
     def update(self, **kwargs):
         """osqp-python-style combined update: accepts q, l, u, Px, Px_idx,

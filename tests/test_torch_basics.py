@@ -121,23 +121,16 @@ def test_linsys_registry():
         tlinsys.get("nope")
 
 
-@pytest.mark.parametrize("kw", [{"compact": True}])
-def test_unported_options_raise(kw):
-    """What is not ported yet raises, naming its ROADMAP item: compaction
-    (14)."""
-    P, q, A, l, u = random_qps(2, 3, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 14"):
-        osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", verbose=False, **kw)
-
-
 @pytest.mark.parametrize(
-    "kw", [{"sparse": True, "polish": True}, {"linsys_solver": "block_tridiag", "block_size": 3}],
-    ids=["sparse_polish", "block_tridiag"],
+    "kw",
+    [{"sparse": True, "polish": True}, {"linsys_solver": "block_tridiag", "block_size": 3},
+     {"compact": True, "min_compact_batch": 1}],
+    ids=["sparse_polish", "block_tridiag", "compact"],
 )
 def test_formerly_unported_options_run(kw):
-    """Polish on the sparse path (item 12) and block_tridiag (item 11),
-    which raised until they were ported, now solve and give the JAX
-    package's statuses."""
+    """Polish on the sparse path (item 12), block_tridiag (item 11) and
+    instance compaction (item 14), which raised until they were ported,
+    now solve and give the JAX package's statuses."""
     import scipy.sparse as sp
 
     from osqp_tpu.batch import solve_batch as jsolve_batch

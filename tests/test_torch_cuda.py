@@ -1568,3 +1568,92 @@ def test_run_maros_on_the_card_matches_the_cpu(dev):
     assert s_got["pass_rate"] == 1.0
     assert not any(r.get("host_polish") for r in got)
     _same_rows(got, want, zip)
+
+
+def test_qp_layer_gradients_on_the_card_match_the_cpu(dev):
+    """make_qp_layer on the card against the CPU layer in float64 (B=64,
+    n=20, m=30, polish on, eps 1e-8): x and dP, dq, dA, dl, du of a
+    weighted sum within 1e-8 of the CPU's largest entry, at least 1; the
+    backward pass launches K8's factor once, its solve 1 + 3 times and K3
+    3 times."""
+    P, q, A, l, u = _qps(64, 20, 30, seed=3)
+    w = np.random.default_rng(4).standard_normal((64, 20))
+    layer = osqp_tpu_torch.make_qp_layer(eps_abs=1e-8, eps_rel=1e-8)
+
+    def run(device):
+        ts = [torch.as_tensor(v, dtype=torch.float64, device=device).requires_grad_(True) for v in (P, q, A, l, u)]
+        x = layer(*ts)
+        return x.detach().cpu(), (torch.as_tensor(w, device=device) * x).sum(), ts
+
+    xg, loss, ts = run(dev)
+    f0, s0, t0 = k8.launches_factor, k8.launches_solve, k3.launches
+    grads = torch.autograd.grad(loss, ts)
+    torch.cuda.synchronize()
+    assert (k8.launches_factor - f0, k8.launches_solve - s0, k3.launches - t0) == (1, 4, 3)
+    xc, loss_c, tc = run("cpu")
+    grads_c = torch.autograd.grad(loss_c, tc)
+    for got, want in ((xg, xc), *zip(grads, grads_c)):
+        assert float((got.cpu() - want).abs().max()) <= 1e-8 * max(1.0, float(want.abs().max()))
+
+
+def test_adjoint_solve_float32_on_the_card_matches_the_cpu(dev):
+    """The layer's backward solve in float32 (delta 1e-6) on the card
+    against the CPU on the same (P, A, mask, g), the mask the active set
+    of a float32 solve: u and v within 1e-3 of the CPU's largest entry, at
+    least 1.  (End to end, the card's and the CPU's float32 ADMM runs may
+    stop a check interval apart and polish from different points.)"""
+    from osqp_tpu_torch.diff import _adjoint_solve
+
+    P, q, A, l, u = _qps(64, 20, 30, seed=3)
+    y = osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", dtype="float32", verbose=False, polish=True).y
+    mask = (y.abs() > 1e-8).to(torch.float32)
+    g = torch.as_tensor(np.random.default_rng(4).standard_normal((64, 20)), dtype=torch.float32)
+    Pt, At = (torch.as_tensor(v, dtype=torch.float32) for v in (P, A))
+    want = _adjoint_solve(Pt, At, mask, g, 1e-6)
+    got = _adjoint_solve(Pt.to(dev), At.to(dev), mask.to(dev), g.to(dev), 1e-6)
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max()) <= 1e-3 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_compaction_on_the_card(dev, dtype):
+    """compact=True on the card against the plain solve on the card and
+    against compact=True on the CPU (B=512, n=20, m=30): equal statuses,
+    x within 1e-8 (float64) or 1e-4 (float32) relative."""
+    args = _qps(512, 20, 30, seed=5)
+    kw = dict(dtype=dtype, verbose=False, eps_abs=1e-5, eps_rel=1e-5)
+    comp = osqp_tpu_torch.solve_batch(*args, device=dev, compact=True, min_compact_batch=16, **kw)
+    plain = osqp_tpu_torch.solve_batch(*args, device=dev, **kw)
+    cpu = osqp_tpu_torch.solve_batch(*args, device="cpu", compact=True, min_compact_batch=16, **kw)
+    tol = 1e-8 if dtype == "float64" else 1e-4
+    for other in (plain, cpu):
+        assert torch.equal(comp.status_val.cpu(), other.status_val.cpu())
+        scale = other.x.abs().amax(-1).clamp_min(1.0).cpu()
+        assert float(((comp.x.cpu() - other.x.cpu()).abs().amax(-1) / scale).max()) <= tol
+    assert comp.iter.max() > comp.iter.min()
+
+
+def test_export_round_trip_on_the_card(dev):
+    """An artifact exported for the card and loaded there gives the live
+    solve_batch bit for bit; the sparse artifact gives the SparseSolver's
+    x within 1e-6."""
+    import scipy.sparse as sp
+
+    from osqp_tpu_torch import export
+
+    args = [torch.as_tensor(v, dtype=torch.float32, device=dev) for v in _qps(256, 20, 30, seed=6)]
+    kw = dict(dtype="float32", verbose=False, polish=True)
+    out = export.load_solver(export.export_solver(256, 20, 30, **kw))(*args)
+    live = osqp_tpu_torch.solve_batch(*args, **kw)
+    for f in ("x", "y", "status_val", "iter", "status_polish", "obj_val"):
+        assert torch.equal(out[f], getattr(live, f)), f
+    n = 200
+    rng = np.random.default_rng(5)
+    P = sp.diags(np.abs(rng.standard_normal(n)) + 1.0).tocsc()
+    A = sp.vstack([sp.eye(n), sp.diags([1.0] * (n - 1), 1).tocsr()[: n - 1]]).tocsc()
+    q, l, u = rng.standard_normal(n), -np.ones(A.shape[0]), np.ones(A.shape[0])
+    s = osqp_tpu_torch.SparseSolver(P, q, A, l, u, device=dev, dtype="float64", verbose=False)
+    fn = export.load_sparse_solver(s.export())
+    got = fn(sp.triu(P, format="csc").data, q[None], A.data, l[None], u[None])
+    assert int(got["status_val"][0]) == 1
+    np.testing.assert_allclose(got["x"][0].cpu().numpy(), s.solve().x, rtol=0, atol=1e-6)

@@ -7,7 +7,7 @@ within 1e-6; in float32 the same status and iterations within one check
 interval (25).  Problems: the README quick start, the HS fixtures,
 CVXQP2_S, the infeasible problems of test_infeasibility.py, and update
 sequences; plus the verbose layout, time_limit, Ctrl-C, the time-based
-rho rule, the dense backends, the options not ported yet, and the JAX
+rho rule, the dense backends, export, and the JAX
 goldens that chip_smoke.py reads.
 """
 
@@ -328,18 +328,32 @@ def test_time_based_rho_interval(fraction, fires, monkeypatch):
     assert ts._cfg.adaptive_rho_interval == 0
 
 
-@pytest.mark.parametrize(
-    "make,item",
-    [
-        (lambda s: s.export(), "item 14"),
-        (lambda s: osqp_tpu_torch.SparseSolver(*_quick_start(), device="cpu", verbose=False).export(), "item 14"),
-    ],
-    ids=["export", "sparse_export"],
-)
-def test_unported_options_raise(make, item):
-    s = osqp_tpu_torch.OSQP().setup(*_quick_start(), device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        make(s)
+@pytest.mark.parametrize("sparse", [False, True], ids=["export", "sparse_export"])
+def test_formerly_unported_export_runs(sparse):
+    """Solver.export and SparseSolver.export (item 14), which raised until
+    they were ported, write artifacts whose loaded callables give the JAX
+    package's artifacts' results on the quick start."""
+    from osqp_tpu import export as jexport
+    from osqp_tpu_torch import export as texport
+
+    P, q, A, l, u = _quick_start()
+    kw = dict(dtype="float64", verbose=False, polish=True)
+    if sparse:
+        ts = osqp_tpu_torch.SparseSolver(P, q, A, l, u, device="cpu", **kw)
+        js = osqp_tpu.SparseSolver(P, q, A, l, u, **kw)
+        inputs = (sp.triu(P, format="csc").data, q[None], A.data, l[None], u[None])
+        rt = texport.load_sparse_solver(ts.export(), device="cpu")(*inputs)
+        rj = jexport.load_sparse_solver(js.export())(*inputs)
+    else:
+        js, ts = _both(P, q, A, l, u, **kw)
+        inputs = (P.toarray()[None], q[None], A.toarray()[None], l[None], u[None])
+        rt = texport.load_solver(ts.export(), device="cpu")(*inputs)
+        rj = jexport.load_solver(js.export())(*inputs)
+    for f in ("status_val", "iter", "status_polish"):
+        assert rt[f].tolist() == np.asarray(rj[f]).tolist(), f
+    assert rt["status_val"].tolist() == [osqp_tpu_torch.OSQP_SOLVED]
+    for f in ("x", "y"):
+        np.testing.assert_allclose(rt[f].numpy(), np.asarray(rj[f]), rtol=0, atol=ATOL, err_msg=f)
 
 
 @pytest.mark.parametrize(

@@ -16,6 +16,7 @@ same status and status_polish, the iterations within one check interval
 
 import importlib.util
 import os
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -426,12 +427,21 @@ class TestSparseSolverDeviceResident:
                                             dtype="float64", verbose=False)
         np.testing.assert_allclose(r.x, fresh.x.numpy()[0], rtol=0, atol=1e-10)
 
-    def test_export_not_ported(self):
-        """The JAX package's SparseSolver.export (the pattern-baked AOT
-        artifact) is ROADMAP item 14 here."""
-        ts = osqp_tpu_torch.SparseSolver(*_chain(n=10), device="cpu", verbose=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 14"):
-            ts.export()
+    def test_export_matches_jax_export(self):
+        """SparseSolver.export (ROADMAP item 14, which raised until it was
+        ported) with polish on: the loaded callable gives the JAX
+        package's artifact's status, iterations, status_polish, x and y
+        on the device-resident solver's problem."""
+        from osqp_tpu import export as jexport
+        from osqp_tpu_torch import export as texport
+
+        P, q, A, l, u = _chain(n=10)
+        js, ts = _pair(P, q, A, l, u, polish=True)
+        inputs = (ts._Pu.data, q[None], ts._Ac.data, l[None], u[None])
+        rt = texport.load_sparse_solver(ts.export(), device="cpu")(*inputs)
+        rj = jexport.load_sparse_solver(js.export())(*inputs)
+        assert rt["status_polish"].tolist() == [1]
+        _assert_batch(types.SimpleNamespace(**rt), types.SimpleNamespace(**rj), "float64")
 
 
 # ---------------------------------------------------------------------------
