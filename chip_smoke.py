@@ -165,7 +165,8 @@ failure ends the run with a non-zero exit and no result line:
     solve ms and K5 launches of both; at CVXQP2_L and the 8 copies the
     same solve on the stepwise path in the same call (a measurement hook,
     stepwise_everywhere): x, y and iterations bit-identical, solve ms, ms
-    per CG step, launches and the idle share of both under the profiler;
+    per CG step and launches of both, the loop's idle share under the
+    profiler;
     one more CVXQP2_L solve under the profiler for K5's and K6's device
     time and the idle share;
 18. the cg backend on dense operands: ``solve_batch`` on the card against
@@ -217,8 +218,8 @@ failure ends the run with a non-zero exit and no result line:
     step held to a fresh solve_batch, no refactor);
 21. polish on the sparse path: polish's PCG on K6's device loop against
     the plain loop over the same products and against the stepwise path
-    on LISWET1's polish system (float32 to convergence, float64 capped at
-    2000 steps): equal steps and x bit for bit, ms per CG step of both;
+    on LISWET1's polish system (PCG_CHECK_STEPS = 300 steps in each
+    dtype): equal steps and x bit for bit, ms per CG step of both;
     then over K5's plain products for the record; ``solve_sparse`` with
     ``polish=True`` at LISWET1 (float64, float32), CVXQP2_L (float64) and
     2 copies of LISWET1 against ``sparse_polish.npz`` (status, iterations,
@@ -226,7 +227,7 @@ failure ends the run with a non-zero exit and no result line:
     ADMM point's, polish ms, the PCG steps of each solve and K6's
     launches in the polish; at LISWET1 (float64, float32) the polish-on
     solve on the stepwise path in the same call, bit for bit, with polish
-    ms, ms per CG step and the idle share; the ``SparseSolver`` on
+    ms, ms per CG step and the loop's idle share; the ``SparseSolver`` on
     LISWET1: set-up, solve, update_lin_cost and a warm re-solve;
 22. the Maros-Meszaros harness (phase maros): the native QPS parser
     (built from ``native/qps_parser.cpp``; its build time) against the
@@ -266,12 +267,27 @@ failure ends the run with a non-zero exit and no result line:
     float32 with polish on, loaded and held to ``solve_batch`` bit for
     bit; LISWET1 in float64 through ``SparseSolver.export`` against
     ``SparseSolver.solve`` (1e-6; 1e-5 after P's values x2 through both);
-    blob sizes and call ms.
+    blob sizes and call ms;
+27. several devices (phase parallel), under a one-rank NCCL group that
+    ``parallel.make_mesh`` starts: ``solve_batch_sharded`` at the
+    headline, ``solve_single_sharded`` at a dense QP of n=1000, m=8000
+    (float64, polish on), ``solve_single_sharded_sparse`` at CVXQP2_L
+    (float64) and AUG3D (float64, polish on), each against its unsharded
+    solve, every field bit for bit, with its launch counts (the dense one
+    must launch K3, K4's step entries, K6's cg_step and K8), its
+    collectives by kind and the wall ms of both; K4's step entries on 4
+    row blocks of the headline A and of CVXQP2_M's, the maxima merged as
+    the collectives merge them, against ruiz bit for bit and timed; K3 on
+    the same blocks with A'y's partials summed against K3 whole;
+    ``allreduce_summary`` over ``run_maros(shard=(0, 1))`` of the HS rows.
 
-Every time printed by phases 24-26 carries the card's name and power
+Every time printed by phases 24-27 carries the card's name and power
 limit.  Each phase ends with a line of its wall time, ``[name: s]``.
+The timing legs of ``report_times`` after the warm one take at most
+SIDE_REPS calls, which keeps the script under half its time limit.
 
-The line before the last is a JSON object of the kernels (21 rows; the
+The line before the last is a JSON object of the kernels (22 rows, K4's
+step entries as ruiz_sweep; the
 rows of K3 and K8 also give ``launches_backward``, the launches of one
 backward pass of the float64 layer in phase 24;
 K5's grouped products are ell_group, its fused CG start ell_cg_start and
@@ -290,6 +306,7 @@ with code 2, since a partial run proves nothing of the whole.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -324,7 +341,15 @@ def require(ok: bool, what: str) -> None:
 
 
 def make_qps(B, n, m, seed=0, dtype=np.float32):
-    """The benchmark's random strictly convex QPs (bench.py:31-42)."""
+    """The benchmark's random strictly convex QPs (bench.py:31-42), made
+    once for each set of arguments and shared, read-only, by the phases
+    that ask for them again: the headline's take ~10 s of the host (numpy's
+    einsum), and some fifteen phases use them."""
+    return _make_qps(B, n, m, seed, np.dtype(dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _make_qps(B, n, m, seed, dtype):
     rng = np.random.default_rng(seed)
     M = rng.standard_normal((B, n, n)).astype(dtype)
     P = np.einsum("bij,bkj->bik", M, M) / n + 0.1 * np.eye(n, dtype=dtype)
@@ -335,6 +360,8 @@ def make_qps(B, n, m, seed=0, dtype=np.float32):
     spread = np.abs(rng.standard_normal((B, m))).astype(dtype)
     l = Ax - spread - 0.1
     u = Ax + spread + 0.1
+    for a in (P, q, A, l, u):
+        a.setflags(write=False)
     return P, q, A, l, u
 
 
@@ -447,19 +474,27 @@ def event_ms(events, names=None) -> float:
     return sum(e.time_range.elapsed_us() for e in events if names is None or any(k in e.name for k in names)) / 1e3
 
 
+# Calls a report_times leg other than the warm one takes at most (the
+# flushed, profiled and plain legs), fewer than the warm leg's reps, to
+# keep the script under half its time limit.
+SIDE_REPS = 5
+
+
 def report_times(label, fn, plain, reps, nbytes, flops):
-    """Print and return a kernel's times: warm (back-to-back calls), with
-    the L2 flushed before each call, and its device time per call from the
-    profiler; its plain version's warm time; and its bound."""
+    """Print and return a kernel's times: warm (back-to-back calls, ``reps``
+    of them), with the L2 flushed before each call, and its device time
+    per call from the profiler; its plain version's warm time; and its
+    bound.  The legs after the warm one take min(reps, SIDE_REPS) calls."""
     import torch
 
     warm = cuda_ms(fn, reps)
-    cold = cuda_ms_flushed(fn, reps)
+    few = min(reps, SIDE_REPS)
+    cold = cuda_ms_flushed(fn, few)
     fn()
     torch.cuda.synchronize()
-    _, _, events = profiled(lambda: [fn() for _ in range(reps)])
-    dev_ms = event_ms(events) / reps
-    plain_ms = cuda_ms(plain, reps)
+    _, _, events = profiled(lambda: [fn() for _ in range(few)])
+    dev_ms = event_ms(events) / few
+    plain_ms = cuda_ms(plain, few, warmup=1)
     b, by = bound(nbytes, flops)
     device = f"{dev_ms:.4f} ms" if dev_ms > 0 else "not measured (no device events)"
     share = lambda t: f"{b / t:.3f}" if t > 0 else "not measured"
@@ -559,6 +594,7 @@ def reset_counts() -> None:
     from osqp_tpu_torch.ops import block_tridiag as k7, cg as k6, ell as k5
 
     k1.launches = k1.refined_launches = k1.refined_launches_resident = k2.launches = k3.launches = k4.launches = k4.launches_resident = 0
+    k4.launches_sweep = 0
     k2.launches_leaf = k2.launches_leaf_cluster = 0
     k8.launches_factor = k8.launches_solve = 0
     k5.launches = k5.launches_group = k5.launches_start = k5.launches_scale = 0
@@ -574,7 +610,8 @@ def read_counts() -> dict:
     return {"admm_iter": k1.launches, "admm_iter_refined": k1.refined_launches,
             "admm_iter_refined_resident": k1.refined_launches_resident, "chol_inverse": k2.launches,
             "chol_inverse_leaf": k2.launches_leaf, "chol_inverse_leaf_cluster": k2.launches_leaf_cluster,
-            "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "term_products": k3.launches,
+            "ruiz": k4.launches, "ruiz_resident": k4.launches_resident, "ruiz_sweep": k4.launches_sweep,
+            "term_products": k3.launches,
             "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve, "ell_ops": k5.launches,
             "ell_group": k5.launches_group, "ell_cg_start": k5.launches_start, "ell_scale": k5.launches_scale,
             "cg_step": k6.launches, "cg_loop": k6.launches_loop, "bt_factor": k7.launches_factor,
@@ -1308,7 +1345,7 @@ def phase_solver(dev):
         elif name in ("ell_ops", "ell_group", "ell_cg_start", "ell_scale", "cg_step", "cg_loop", "bt_factor",
                       "bt_solve", "bt_factor_warp",
                       "bt_solve_warp", "bt_factor_cluster", "bt_factor_device",
-                      "bt_solve_wide"):  # other backends' kernels
+                      "bt_solve_wide", "ruiz_sweep"):  # other backends' kernels, the row-sharded path's K4 steps
             require(n_launch == 0, f"{name} launched on the dense_inv Solver path")
         elif name == "admm_iter_refined_resident":  # B = 1: K1r's split path spreads the instance over the card
             require(n_launch == 0, "K1r took the resident path on the Solver path (B = 1)")
@@ -2270,7 +2307,9 @@ def phase_sparse(dev):
     Counts are set to 0 just before the CVXQP2_L solve and read just after
     it.  At CVXQP2_L and at the 8 copies of LISWET1 the same solve with the
     stepwise path (stepwise_everywhere) in the same call: the same bits,
-    and both paths' solve ms, ms per CG step, launches and idle share."""
+    and both paths' solve ms, ms per CG step and launches, and the loop's
+    idle share (the stepwise path's ~1e5 kernel events are not traced:
+    processing them held most of the phase's time)."""
     import torch
 
     import osqp_tpu_torch as ot
@@ -2372,19 +2411,15 @@ def phase_sparse(dev):
             run = lambda: ot.solve_sparse(P, q, A, l, u, dtype=dtype, verbose=False)
             _, pwall, events = profiled(run)
             busy = event_ms(events)
-            with stepwise_everywhere():
-                _, pwall_s, events_s = profiled(run)
-            busy_s = event_ms(events_s)
             paths[case] = dict(loop_ms=wall, stepwise_ms=wall_s, steps=cg_steps, loop_ms_per_step=wall / cg_steps,
                                stepwise_ms_per_step=wall_s / cg_steps, idle_loop=1 - busy / pwall,
-                               idle_stepwise=1 - busy_s / pwall_s)
+                               idle_stepwise="not measured")
             print(f"  {case} on the stepwise path in the same call: x, y and iterations bit-identical {same}; "
                   f"solve {wall_s:.3f} ms against the loop's {wall:.3f}; ms per CG step {wall_s / cg_steps:.4f} "
                   f"against {wall / cg_steps:.4f} ({wall / wall_s:.4f} of it); launches per solve: K6 "
                   f"{after['cg_step'] - before['cg_step']} steps and K5 {after['ell_ops'] - before['ell_ops']} "
-                  f"against {delta['cg_loop']} loops and K5 {delta['ell_ops']}; under the profiler idle share "
-                  f"{1 - busy_s / pwall_s:.3f} against the loop's {1 - busy / pwall:.3f} (wall {pwall_s:.3f} and "
-                  f"{pwall:.3f} ms); loop run: {top_kernels(events, 4)}")
+                  f"against {delta['cg_loop']} loops and K5 {delta['ell_ops']}; under the profiler the loop's idle "
+                  f"share {1 - busy / pwall:.3f} (wall {pwall:.3f} ms); loop run: {top_kernels(events, 4)}")
             require(same, f"sparse {case}: the stepwise path and the device loop differ")
 
     # Where a CVXQP2_L solve's time goes: one more solve under the profiler.
@@ -2459,6 +2494,10 @@ MPC_KW = dict(eps_abs=1e-3, eps_rel=1e-3, polish=False, verbose=False)
 # runs with polish only).
 K7_KERNELS = ("factor_kernel", "solve_kernel")
 SPARSE_POLISH_GOLDENS = os.path.join(ROOT, "tests", "data", "torch_goldens", "sparse_polish.npz")
+# Steps of the polish PCG's bit check against its plain loop (phase
+# sparse_polish), short of convergence (1997 steps in float32): the plain
+# step summing in the kernels' order takes ~4 ms on the card.
+PCG_CHECK_STEPS = 300
 
 
 def mpc_scenarios(B=None, seed=0):
@@ -3453,9 +3492,11 @@ def phase_sparse_polish(dev):
         seen.append(dict(steps=steps))
         return solve, steps
 
-    # _pcg on K6 against the plain loop, on LISWET1's first polish system
+    # _pcg on K6 against the plain loop, on LISWET1's first polish system,
+    # PCG_CHECK_STEPS steps in each dtype: the plain step summing in the
+    # kernels' order costs ~4 ms a step on the card
     pcg_stats = None
-    for dtype, cap in (("float32", None), ("float64", 2000)):
+    for dtype in ("float32", "float64"):
         cfg, dyn, scaled, scl, rs, fac, it = sparse_prepared("LISWET1", dtype, dev)
         c = admm.run_segment(cfg, scaled, scl, dyn, admm.init_carry(cfg, scaled, rs, fac, it), cfg.max_iter)
         x, z, y = c.it.x, c.it.z, c.it.y
@@ -3470,7 +3511,7 @@ def phase_sparse_polish(dev):
         ones = torch.ones((B, m), dtype=x.dtype, device=dev)
         dinv = 1.0 / (k5.ell_diagonal(scaled.P) + d + k5.ell_sq_colsums(MA, ones) / d)
         tol = torch.full((B,), 1e-12 if dtype == "float64" else 1e-7, dtype=x.dtype, device=dev)
-        max_iter = cap or tpolish.polish_cg_cap(n, m)
+        max_iter = PCG_CHECK_STEPS
         op = k6.EllOperator(scaled.P, MA, div=d)
         plain = op.plain
         before = k6.launches_loop
@@ -3596,11 +3637,7 @@ def phase_sparse_polish(dev):
                 run = lambda: ot.solve_sparse(P, q, A, l, u, dtype=dtype, polish=True, verbose=False)
                 _, pwall, events = profiled(run)
                 idle = 1 - event_ms(events) / pwall
-                idle_s = "not measured (its ~1e6 kernel events are too many to trace)"
-                if dtype == "float32":
-                    with stepwise_everywhere():
-                        _, pwall_s, events_s = profiled(run)
-                    idle_s = f"{1 - event_ms(events_s) / pwall_s:.3f}"
+                idle_s = "not measured (its 1e4-1e6 kernel events are too many to trace)"
                 polish_paths[case] = dict(loop_ms=pol["ms"], stepwise_ms=pol_s["ms"], steps=n_steps,
                                           loop_ms_per_step=pol["ms"] / n_steps,
                                           stepwise_ms_per_step=pol_s["ms"] / n_steps, idle_loop=idle)
@@ -4186,6 +4223,200 @@ def phase_export(dev):
     return dict(dense_bytes=len(blob), sparse_bytes=len(sblob))
 
 
+# The parallel phase (osqp_tpu_torch.parallel) on a one-rank NCCL group.
+PARALLEL_DENSE = dict(n=1000, m=8000, seed=21)
+PARALLEL_SPARSE_POLISH = "AUG3D"  # a sparse row whose polish succeeds (0.07 s in the maros phase)
+K4_BLOCKS = 4
+# K3 on K4_BLOCKS row blocks, the partial A'y summed, against K3 whole:
+# relative to the largest entry of each product
+K3_BLOCKS_RTOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def dense_qp(n, m, seed):
+    """tests/test_intra_sharding.py:_qp at (n, m): a random strictly
+    convex QP with m two-sided constraints around a feasible point."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, n))
+    P = M @ M.T / n + 0.2 * np.eye(n)
+    q = rng.standard_normal(n)
+    A = rng.standard_normal((m, n))
+    x0 = rng.standard_normal(n)
+    return P, q, A, A @ x0 - 1.0, A @ x0 + 1.0
+
+
+def phase_parallel(dev):
+    """osqp_tpu_torch.parallel on a one-rank NCCL group (make_mesh starts
+    it on an in-process store, NCCL on the loopback interface): each
+    entry against its unsharded solve, every field bit for bit, with
+    the launch counts (set to 0 just before the sharded solve, read just
+    after) and the collectives by kind:
+    solve_batch_sharded at the headline (B=8192, n=100, m=200, float32,
+    eps 1e-3, polish off) against solve_batch; solve_single_sharded at a
+    dense QP of n=1000, m=8000 (dense_qp, float64, polish on) against
+    solve_batch with the cg backend, which must launch K3, K4's step
+    entries, K6's cg_step and K8; solve_single_sharded_sparse at CVXQP2_L
+    (float64, polish off) against solve_sparse, and at AUG3D (float64,
+    polish on), which runs K5, cg_step and, in the polish, K6's loop.
+    In one process, K4's step entries on 4 row blocks of the headline A
+    with their maxima merged as the collectives merge them
+    (ops.ruiz.ruiz_blocks) against ruiz, all eight outputs bit for bit,
+    in float32 and at CVXQP2_M's shape in float64, timed beside ruiz,
+    ruiz_plain and the bound; K3 on the same blocks with the partial
+    A'y summed against K3 whole (K3_BLOCKS_RTOL); allreduce_summary over
+    run_maros(shard=(0, 1)) of the HS rows, equal to the run's own
+    summary.  Wall ms of each entry against its unsharded solve (host
+    clock, synchronized), beside the card's name and power limit."""
+    import torch
+    import torch.distributed as dist
+
+    import osqp_tpu_torch as ot
+    from osqp_tpu_torch import parallel
+    from osqp_tpu_torch.maros import run_maros
+    from osqp_tpu_torch.ops import ruiz as k4, term_products as k3
+    from osqp_tpu_torch.parallel import rows
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    mesh = parallel.make_mesh(device=dev)
+    try:
+        require(str(dist.get_backend()) == "nccl" and dist.get_world_size() == 1, "parallel: not a one-rank NCCL group")
+        fields = lambda r: list(r)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        def compare(label, sharded, unsharded, counts_wanted=(), reps=1):
+            """Both solves once, timed (counts around the sharded one), their
+            bits, then ``reps`` more timed runs of each."""
+            reset_counts()
+            rows.reset_collectives()
+            got, first_s = timed(sharded)
+            counts, coll = read_counts(), dict(rows.collectives)
+            want, first_u = timed(unsharded)
+            differ = [f for f, a, b in zip(ot.BatchSolveResults._fields, fields(got), fields(want))
+                      if not same_bits(a, b)]
+            t_s, t_u = [first_s] + wall_times(sharded, reps=reps), [first_u] + wall_times(unsharded, reps=reps)
+            print(f"parallel {label} [{CARD}]: fields differing from the unsharded solve in some bit {differ}; status "
+                  f"{got.status_val[:4].tolist()}, iterations {got.iter[:4].tolist()}, status_polish "
+                  f"{got.status_polish[:4].tolist()}; wall ms sharded {statistics.median(t_s):.3f} "
+                  f"{[round(t, 3) for t in t_s]}, unsharded {statistics.median(t_u):.3f} {[round(t, 3) for t in t_u]} "
+                  f"(sharded over unsharded {statistics.median(t_s) / statistics.median(t_u):.3f}); collectives "
+                  f"{coll}; launches {nonzero(counts)}")
+            require(not differ, f"parallel {label}: sharded and unsharded differ in {differ}")
+            require(sum(coll.values()) > 0, f"parallel {label}: no collective ran")
+            for k in counts_wanted:
+                require(counts[k] > 0, f"parallel {label}: {k} was launched no time")
+            return counts, dict(sharded_ms=statistics.median(t_s), unsharded_ms=statistics.median(t_u))
+
+        times = {}
+        # the instance batch
+        B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
+        data = on_device(make_qps(B, n, m), torch.float32, dev)
+        _, times["batch"] = compare(
+            f"solve_batch_sharded headline B={B} n={n} m={m} float32, data on the card",
+            lambda: parallel.solve_batch_sharded(*data, mesh=mesh, **SOLVE_KW),
+            lambda: ot.solve_batch(*data, **SOLVE_KW), reps=4)
+
+        # one dense QP, rows sharded
+        d = PARALLEL_DENSE
+        P, q, A, l, u = dense_qp(d["n"], d["m"], d["seed"])
+        kw = dict(dtype="float64", polish=True, verbose=False)
+        dense_counts, times["dense"] = compare(
+            f"solve_single_sharded n={d['n']} m={d['m']} float64 polish on",
+            lambda: parallel.solve_single_sharded(P, q, A, l, u, mesh=mesh, **kw),
+            lambda: ot.solve_batch(P[None], q[None], A[None], l[None], u[None], device=dev, linsys_solver="cg", **kw),
+            ("term_products", "ruiz_sweep", "cg_step", "kkt_lu_factor"), reps=0)
+        require(dense_counts["ruiz"] == 0, "parallel: the sharded dense solve ran K4 whole")
+
+        # one sparse QP, rows sharded, without and with polish
+        Ps, qs, As, ls, us = scenario("CVXQP2_L")
+        kw = dict(dtype="float64", verbose=False)
+        sparse_counts, times["sparse"] = compare(
+            "solve_single_sharded_sparse CVXQP2_L float64",
+            lambda: parallel.solve_single_sharded_sparse(Ps, qs[0], As, ls[0], us[0], mesh=mesh, **kw),
+            lambda: ot.solve_sparse(Ps, qs[0], As, ls[0], us[0], device=dev, **kw),
+            ("ell_group", "cg_step"), reps=0)
+        require(sparse_counts["cg_loop"] == 0, "parallel: the sharded sparse solve ran K6's loop")
+        Ps, qs, As, ls, us = scenario(PARALLEL_SPARSE_POLISH)
+        kw = dict(dtype="float64", polish=True, verbose=False)
+        polish_counts, times["sparse_polish"] = compare(
+            f"solve_single_sharded_sparse {PARALLEL_SPARSE_POLISH} float64 polish on",
+            lambda: parallel.solve_single_sharded_sparse(Ps, qs[0], As, ls[0], us[0], mesh=mesh, **kw),
+            lambda: ot.solve_sparse(Ps, qs[0], As, ls[0], us[0], device=dev, **kw),
+            ("ell_group", "cg_step", "cg_loop"))
+
+        # K4's step entries on row blocks, in one process
+        sweep_stats = None
+        cvxqp = maros_dense("CVXQP2_M")
+        for label, arrays, dtype in ((f"headline B={B} n={n} m={m} float32", make_qps(B, n, m), torch.float32),
+                                     ("CVXQP2_M B=1 n=1000 m=1250 float64", cvxqp, torch.float64)):
+            args = on_device(arrays, dtype, dev)
+            Pt, qt, At, lt, ut = args
+            blocks = [b.contiguous() for b in torch.tensor_split(At, K4_BLOCKS, dim=1)]
+            whole = k4.ruiz(*args, 10)
+            before = k4.launches_sweep
+            got = k4.ruiz_blocks(Pt, qt, blocks, lt, ut, 10)
+            torch.cuda.synchronize()
+            launched = k4.launches_sweep - before
+            got = got[:5] + (torch.cat(got[5], dim=1),) + got[6:]
+            names = ("c", "D", "E", "P", "q", "A", "l", "u")
+            differ = [nm for nm, a, b in zip(names, got, whole) if not same_bits(a, b)]
+            plain = k4.ruiz_plain(*args, 10)
+            err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, plain))
+            ms = cuda_ms(lambda: k4.ruiz_blocks(Pt, qt, blocks, lt, ut, 10), reps=5)
+            ruiz_ms = cuda_ms(lambda: k4.ruiz(*args, 10), reps=5)
+            plain_ms = cuda_ms(lambda: k4.ruiz_plain(*args, 10), reps=5)
+            Bq, nq, mq = At.shape[0], At.shape[2], At.shape[1]
+            elt = At.element_size()
+            bound_ms, bound_by = bound(elt * Bq * (2 * (nq * nq + mq * nq + nq + 2 * mq) + nq + mq + 1),
+                                       {dtype_name(dtype): 32 * Bq * (nq * nq + mq * nq)})
+            print(f"K4 step entries on {K4_BLOCKS} row blocks, {label}, maxima merged as the collectives merge them "
+                  f"[{CARD}]: outputs differing from ruiz in some bit {differ}; {launched} launches; against "
+                  f"ruiz_plain max |difference| {err:.3e}; {ms:.4f} ms against ruiz's {ruiz_ms:.4f} "
+                  f"({'resident' if k4.cluster_size(nq, mq, dtype) else 'split'} path) and the plain version's "
+                  f"{plain_ms:.4f}; bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}")
+            require(not differ, f"K4 step entries differ from ruiz at {label} in {differ}")
+            if sweep_stats is None:
+                sweep_stats = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=None, ruiz_ms=ruiz_ms)
+
+        # K3 on the same blocks, A'y partials summed, against K3 whole
+        g = torch.Generator(device=dev).manual_seed(7)
+        for dtype in (torch.float32, torch.float64):
+            Pt, qt, At, lt, ut = on_device(make_qps(B, n, m), dtype, dev)
+            x, dx = (torch.randn(B, n, generator=g, dtype=dtype, device=dev) for _ in range(2))
+            y, dy = (torch.randn(B, m, generator=g, dtype=dtype, device=dev) for _ in range(2))
+            whole = k3.term_products(Pt, At, x, y, dx, dy)
+            parts = [k3.term_products(Pt, blk.contiguous(), x, yb.contiguous(), dx, dyb.contiguous())
+                     for blk, yb, dyb in zip(torch.tensor_split(At, K4_BLOCKS, dim=1),
+                                             torch.tensor_split(y, K4_BLOCKS, dim=1),
+                                             torch.tensor_split(dy, K4_BLOCKS, dim=1))]
+            merged = (torch.cat([p.Ax for p in parts], 1), parts[0].Px, sum(p.Aty for p in parts),
+                      sum(p.Atdy for p in parts), parts[0].Pdx, torch.cat([p.Adx for p in parts], 1))
+            rel = {nm: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for nm, a, b in zip(("Ax", "Px", "Aty", "Atdy", "Pdx", "Adx"), merged, whole)}
+            tol = K3_BLOCKS_RTOL[dtype_name(dtype)]
+            print(f"K3 on {K4_BLOCKS} row blocks, headline B={B} {dtype_name(dtype)}, A'y partials summed, against K3 "
+                  f"whole: relative differences {', '.join(f'{k} {v:.3e}' for k, v in rel.items())} (tolerance {tol})")
+            require(all(v <= tol for v in rel.values()), f"parallel: K3 on row blocks off K3 whole: {rel}")
+
+        # the multi-host helpers on the Maros harness's HS rows
+        paths = [os.path.join(MAROS, f"{name}.qps") for name in
+                 ("HS118", "HS21", "HS268", "HS35", "HS35MOD", "HS51", "HS52", "HS53", "HS76")]
+        rank, world = parallel.host_shard()
+        _, summary = run_maros(paths, dtype="float64", shard=(rank, world), verbose=False, device=dev)
+        total = parallel.allreduce_summary(summary)
+        print(f"parallel allreduce_summary over run_maros(shard=({rank}, {world})) of {len(paths)} HS rows: {total}")
+        require(all(total[k] == summary[k] for k in ("problems", "solved", "final", "polish_success", "polish_fail"))
+                and total["pass_rate"] == 1.0, "parallel: allreduce_summary off the run's own summary")
+    finally:
+        dist.destroy_process_group()
+    return dense_counts, sweep_stats, times
+
+
 def run_phase(phase, dev):
     """``phase(dev)``, and a line with its wall time."""
     t0 = time.perf_counter()
@@ -4256,6 +4487,7 @@ def main() -> int:
     layer_launches = run_phase(phase_qp_layer, dev)["float64"]
     run_phase(phase_compact, dev)
     run_phase(phase_export, dev)
+    parallel_launches, sweep_stats, _ = run_phase(phase_parallel, dev)
 
     # launches: the batched headline solve's, and for K1r, which that
     # well-conditioned batch does not run, the Solver path's (its times:
@@ -4298,6 +4530,8 @@ def main() -> int:
              replaces="osqp_tpu/scaling.py:51", launches=launches["ruiz"],
              launches_resident=launches["ruiz_resident"], launches_split=launches["ruiz"] - launches["ruiz_resident"],
              **k4_stats),
+        dict(name="ruiz_sweep", route="cuda", source="osqp_tpu_torch/csrc/ruiz.cu",
+             replaces="osqp_tpu/scaling.py:51", launches=parallel_launches["ruiz_sweep"], **sweep_stats),
         dict(name="term_products", route="cuda", source="osqp_tpu_torch/csrc/term_products.cu",
              replaces="osqp_tpu/termination.py:47", launches=launches["term_products"],
              launches_backward=layer_launches["term_products"], **k3_stats),

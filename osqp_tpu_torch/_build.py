@@ -54,6 +54,11 @@ _SIGNATURES = {
     "osqp_admm_iter_refined_resident_clusters": (_I,) * 5,
     "osqp_admm_iter_refined_resident_smem": (_I,) * 5,
     "osqp_ruiz": (_I,) + (_P,) * 17 + (_I,) * 7 + (_P,),
+    "osqp_ruiz_sweep_a": (_I,) + (_P,) * 5 + (_I,) * 4 + (_P,),
+    "osqp_ruiz_update": (_I,) + (_P,) * 6 + (_I,) * 3 + (_P,),
+    "osqp_ruiz_sweep_p": (_I,) + (_P,) * 6 + (_I,) * 4 + (_P,),
+    "osqp_ruiz_apply": (_I,) + (_P,) * 5 + (_I,) * 3 + (_P,),
+    "osqp_ruiz_apply_vectors": (_I,) + (_P,) * 9 + (_I,) * 3 + (_P,),
     "osqp_term_products": (_I,) + (_P,) * 10 + (_I,) * 5 + (_P,),
     "osqp_kkt_lu_factor": (_I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "osqp_kkt_lu_factor_blocks": (_I, _P, _P, _P, _D, _I, _I, _P, _P, _P, _I, _I, _P, _P),

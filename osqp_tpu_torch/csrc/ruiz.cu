@@ -745,3 +745,136 @@ extern "C" int osqp_ruiz(int dtype, const void* P, const void* q, const void* A,
 extern "C" int osqp_ruiz_resident_clusters(int dtype, int n, int m, int k) {
   return dtype == 0 ? resident_clusters<float>(n, m, k) : resident_clusters<double>(n, m, k);
 }
+
+// ---------------------------------------------------------------------------
+// The split path one step at a time
+// ---------------------------------------------------------------------------
+// The kernels of the split path behind entries of their own, for a caller
+// that runs the sweeps from the host and combines the maxima of row
+// blocks between the steps (osqp_tpu_torch.parallel: A's rows spread over
+// processes, the column maxima merged by an all-reduce of their bits and
+// the row maxima gathered).  The sequence per sweep is the split path's:
+// osqp_ruiz_sweep_a on each row block, osqp_ruiz_update, osqp_ruiz_sweep_p;
+// osqp_ruiz_sweep_p with update_cost = 0 first (P's column norm at D = 1),
+// and osqp_ruiz_apply / osqp_ruiz_apply_vectors at the end.  The maxima do
+// not depend on how the rows are cut, so c, D and E are the split path's
+// bit for bit.  Maxima buffers hold bit patterns (zero = +0.0) and come in
+// zeroed; osqp_ruiz_update and osqp_ruiz_sweep_p zero what they read.
+namespace {
+
+template <typename T>
+int sweep_a(const void* A, const void* E, const void* D, void* col_a, void* row_a, int B, int R, int n, int rows,
+            cudaStream_t s) {
+  using U = typename Bits<T>::U;
+  if (R == 0) return cudaSuccess;
+  const dim3 grid(B, (R + rows - 1) / rows, chunks_of(n));
+  amax_kernel<T><<<grid, dim3(32, kWarps), 0, s>>>(static_cast<const T*>(A), R, n, rows, static_cast<const T*>(E),
+                                                    static_cast<const T*>(D), static_cast<U*>(col_a),
+                                                    static_cast<U*>(row_a));
+  return cudaGetLastError();
+}
+
+template <typename T>
+int update(const void* c, const void* p_col, void* col_a, void* row_a, void* D, void* E, int B, int n, int m,
+           cudaStream_t s) {
+  using U = typename Bits<T>::U;
+  const int nm = n > m ? n : m;
+  update_de_kernel<T><<<dim3(B, (nm + kThreads - 1) / kThreads), dim3(32, kWarps), 0, s>>>(
+      static_cast<const T*>(c), static_cast<const T*>(p_col), static_cast<U*>(col_a), static_cast<U*>(row_a),
+      static_cast<T*>(D), static_cast<T*>(E), n, m);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int sweep_p(const void* P, const void* q, const void* D, void* col_p, void* p_col, void* c, int B, int n,
+            int rows_p, bool update_cost, cudaStream_t s) {
+  using U = typename Bits<T>::U;
+  int width = 1;
+  while (width < n) width *= 2;
+  const size_t smem_c = static_cast<size_t>(width) * sizeof(T);
+  const cudaError_t err = allow_smem(update_c_kernel<T>, smem_c);
+  if (err != cudaSuccess) return err;
+  const dim3 block(32, kWarps);
+  amax_kernel<T><<<dim3(B, (n + rows_p - 1) / rows_p, chunks_of(n)), block, 0, s>>>(
+      static_cast<const T*>(P), n, n, rows_p, static_cast<const T*>(D), nullptr, static_cast<U*>(col_p), nullptr);
+  update_c_kernel<T><<<B, block, smem_c, s>>>(static_cast<const T*>(q), static_cast<const T*>(D),
+                                              static_cast<U*>(col_p), static_cast<T*>(p_col), static_cast<T*>(c), n,
+                                              width, update_cost);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int apply(const void* M, const void* left, const void* right, const void* scale, void* out, int B, int R, int C,
+          cudaStream_t s) {
+  if (R == 0) return cudaSuccess;
+  apply_kernel<T><<<dim3(B, R < 65535 ? R : 65535), dim3(32, kWarps), 0, s>>>(
+      static_cast<const T*>(M), static_cast<const T*>(left), static_cast<const T*>(right),
+      static_cast<const T*>(scale), static_cast<T*>(out), R, C);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int apply_vectors(const void* q, const void* l, const void* u, const void* c, const void* D, const void* E, void* qs,
+                  void* ls, void* us, int B, int n, int m, cudaStream_t s) {
+  apply_vectors_kernel<T><<<B, dim3(32, kWarps), 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(l), static_cast<const T*>(u), static_cast<const T*>(c),
+      static_cast<const T*>(D), static_cast<const T*>(E), static_cast<T*>(qs), static_cast<T*>(ls),
+      static_cast<T*>(us), n, m);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype as for osqp_ruiz.  The maxima over a block of R rows of A (B,R,n)
+// with E's rows of the block (B,R) and D (B,n): col_a (B,n) takes
+// max_i E_i |A_ij| over the block's rows (atomicMax, so blocks may share
+// one buffer), row_a (B,R) max_j |A_ij| D_j.  rows: A's rows a CTA takes
+// (osqp_split_geometry for B, n, R).
+extern "C" int osqp_ruiz_sweep_a(int dtype, const void* A, const void* E, const void* D, void* col_a, void* row_a,
+                                 int B, int R, int n, int rows, void* stream) {
+  if (B == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? sweep_a<float>(A, E, D, col_a, row_a, B, R, n, rows, s)
+                    : sweep_a<double>(A, E, D, col_a, row_a, B, R, n, rows, s);
+}
+
+// One sweep's D (B,n) and E (B,m), in place, from c (B,), P's column norm
+// p_col (B,n) and the maxima over all of A's rows, col_a (B,n) and row_a
+// (B,m), which it zeroes.
+extern "C" int osqp_ruiz_update(int dtype, const void* c, const void* p_col, void* col_a, void* row_a, void* D,
+                                void* E, int B, int n, int m, void* stream) {
+  if (B == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? update<float>(c, p_col, col_a, row_a, D, E, B, n, m, s)
+                    : update<double>(c, p_col, col_a, row_a, D, E, B, n, m, s);
+}
+
+// P's column norm p_col (B,n) under D from P (B,n,n) and, with
+// update_cost, the cost normalisation of c (B,) in place; col_p (B,n) is
+// the zeroed scratch of the maxima.  rows_p as osqp_split_geometry gives.
+extern "C" int osqp_ruiz_sweep_p(int dtype, const void* P, const void* q, const void* D, void* col_p, void* p_col,
+                                 void* c, int B, int n, int rows_p, int update_cost, void* stream) {
+  if (B == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? sweep_p<float>(P, q, D, col_p, p_col, c, B, n, rows_p, update_cost != 0, s)
+                    : sweep_p<double>(P, q, D, col_p, p_col, c, B, n, rows_p, update_cost != 0, s);
+}
+
+// out (B,R,C) = scale_b ((left_i M_ij) right_j); scale may be null.
+extern "C" int osqp_ruiz_apply(int dtype, const void* M, const void* left, const void* right, const void* scale,
+                               void* out, int B, int R, int C, void* stream) {
+  if (B == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? apply<float>(M, left, right, scale, out, B, R, C, s)
+                    : apply<double>(M, left, right, scale, out, B, R, C, s);
+}
+
+// qs = c (D q), ls = E l, us = E u.
+extern "C" int osqp_ruiz_apply_vectors(int dtype, const void* q, const void* l, const void* u, const void* c,
+                                       const void* D, const void* E, void* qs, void* ls, void* us, int B, int n,
+                                       int m, void* stream) {
+  if (B == 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? apply_vectors<float>(q, l, u, c, D, E, qs, ls, us, B, n, m, s)
+                    : apply_vectors<double>(q, l, u, c, D, E, qs, ls, us, B, n, m, s);
+}

@@ -2,7 +2,9 @@
 ``osqp_tpu/linalg.py``).  The matrix products dispatch on the operand:
 a dense (B, m, n) tensor goes to ``torch.bmm``, an
 :class:`~osqp_tpu_torch.sparse_ops.ELLMatrix` to K5
-(:mod:`osqp_tpu_torch.ops.ell`).
+(:mod:`osqp_tpu_torch.ops.ell`), an A whose rows are spread over
+processes (:class:`~osqp_tpu_torch.parallel.rows.RowSharded`) to its
+products and their collectives.
 
 Importing this module pins float32 matrix products to full precision.
 On the H100, TF32 would keep about three decimal digits, and ADMM
@@ -17,6 +19,7 @@ import dataclasses
 import torch
 
 from .ops.ell import ell_matvec, ell_tmatvec
+from .parallel.rows import RowSharded
 from .sparse_ops import ELLMatrix
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -61,6 +64,8 @@ def mat_vec(A, x: torch.Tensor) -> torch.Tensor:
     """Batched A @ x: (B, m, n) x (B, n) -> (B, m) (lin_alg.c:241-271)."""
     if isinstance(A, ELLMatrix):
         return ell_matvec(A, x)
+    if isinstance(A, RowSharded):
+        return A.matvec(x)
     return torch.bmm(A, x.unsqueeze(-1)).squeeze(-1)
 
 
@@ -68,6 +73,8 @@ def mat_tvec(A, y: torch.Tensor) -> torch.Tensor:
     """Batched A' @ y: (B, m, n) x (B, m) -> (B, n) (lin_alg.c:273-323)."""
     if isinstance(A, ELLMatrix):
         return ell_tmatvec(A, y)
+    if isinstance(A, RowSharded):
+        return A.tmatvec(y)
     return torch.bmm(y.unsqueeze(-2), A).squeeze(-2)
 
 

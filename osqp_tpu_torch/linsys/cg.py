@@ -25,6 +25,7 @@ import torch
 from ..linalg import mat_tvec, mat_vec
 from ..ops import ell
 from ..ops.cg import cg_solve
+from ..parallel.rows import RowSharded
 from ..sparse_ops import ELLMatrix
 
 # Caps of the inexact schedule's relative tolerance, by dtype (the JAX
@@ -49,15 +50,18 @@ def init(P, A, sigma, rho_vec, cg_max_iter: int = 0, cg_tol_fraction: float = 1e
     m = A.shape[-2]
     dtype = P.dtype
     if isinstance(P, ELLMatrix):
-        # diag(P) and the column sums in one K5 launch
-        diagP, colsums = ell.ell_products((ell.ell_diagonal, P), (ell.ell_sq_colsums, A, rho_vec))
+        # diag(P) and the column sums in one K5 launch (of a row-sharded A,
+        # on its replicated transpose)
+        At = A.t if isinstance(A, RowSharded) else A
+        diagP, colsums = ell.ell_products((ell.ell_diagonal, P), (ell.ell_sq_colsums, At, rho_vec))
         diagM = diagP + sigma
         if m:
             diagM = diagM + colsums
     else:
         diagM = torch.diagonal(P, dim1=-2, dim2=-1) + sigma
         if m:
-            diagM = diagM + torch.einsum("bm,bmn->bn", rho_vec, A * A)
+            diagM = diagM + (A.cg_colsums(rho_vec) if isinstance(A, RowSharded)
+                             else torch.einsum("bm,bmn->bn", rho_vec, A * A))
     max_iter = int(cg_max_iter) if cg_max_iter else (n + m)
     B = diagM.shape[0]
     return {
@@ -108,7 +112,8 @@ def solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None):
     (x_tilde, z_tilde = A x_tilde).  On ELL operands with constraints the
     right-hand side b = rhs_x + A'(rho * rhs_z) and the CG's start from
     x0 come from K5's fused start (two launches), with the bits of the
-    composition below."""
+    composition below.  A row-sharded A takes the composition: its rows'
+    products cannot see the other ranks' rows."""
     P, sigma, dinv = factor["P"], factor["sigma"], factor["dinv"]
     start = None
     if isinstance(A, ELLMatrix) and A.shape[0] and x0 is not None:

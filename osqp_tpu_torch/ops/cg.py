@@ -49,6 +49,7 @@ import torch
 
 from .. import _build
 from ..linalg import mat_tvec, mat_vec, vec_dot
+from ..parallel.rows import RowSharded
 from ..sparse_ops import ELLMatrix
 from . import ell
 
@@ -106,7 +107,10 @@ class EllOperator:
 def _operator(P, A, rho_vec, plain: bool):
     """p -> (P p, A'(rho * A p), None when A has no rows): an
     :class:`EllOperator` on ELL operands (with ``plain``, its plain
-    products), ``torch.bmm`` on dense ones."""
+    products), ``torch.bmm`` on dense ones, and on a row-sharded A its
+    products and collectives (a function, so the card steps it)."""
+    if isinstance(A, RowSharded):
+        return A.products(P, rho_vec)
     if isinstance(P, ELLMatrix) and isinstance(A, ELLMatrix):
         op = EllOperator(P, A, w=rho_vec)
         return op.plain if plain else op

@@ -17,7 +17,9 @@ reduction).
   CTAs to its jobs.
 - :func:`ell_cg_start` computes the CG's right-hand side and its start
   from x0 in two launches: P x0 and A x0 grouped, then one kernel.
-- :func:`ell_scale` runs the scaling kernel on both copies of the values.
+- :func:`ell_scale` runs the scaling kernel on both copies of the values;
+  :func:`ell_scale_rows` on a block of the rows and the whole transpose
+  (A's rows spread over processes, :mod:`osqp_tpu_torch.parallel.rows`).
 
 An operand is checked once, at its first product, and what a launch
 needs of it is kept on the :class:`ELLMatrix` (:func:`_operand`); a call
@@ -402,6 +404,35 @@ def ell_scale(A: ELLMatrix, row_s: torch.Tensor, col_s: torch.Tensor, c: torch.T
     return dataclasses.replace(A, val=val, t_val=t_val)
 
 
+def ell_scale_rows(val, idx, t_val, t_idx, row_s_block, row_s, col_s, c=None):
+    """:func:`ell_scale` of a matrix whose rows this caller holds only in
+    part: ``val``, ``idx`` are a block of its rows (B, R, ka), ``t_val``,
+    ``t_idx`` its whole transpose (B, n, kt), indexing all m rows;
+    ``row_s_block`` (B, R) is the block's part of ``row_s`` (B, m).
+    Returns the scaled (val, t_val), each value the bits :func:`ell_scale`
+    gives it on the whole matrix.  On the card two launches of the scaling
+    kernel, one over each copy."""
+    global launches, launches_scale
+    (B, R, ka), (n, kt), m = val.shape, t_idx.shape, row_s.shape[1]
+    d = _operand(ELLMatrix(val, idx, t_val, t_idx, (R, n)), "ell_scale_rows")
+    for v, G in ((row_s_block, R), (row_s, m), (col_s, n)) + (((c[:, None], 1),) if c is not None else ()):
+        _check_vector(v, d.B, G, d, "ell_scale_rows")
+    if not d.cuda:
+        return ell_scale_rows_plain(val, idx, t_val, t_idx, row_s_block, row_s, col_s, c)
+    outs = torch.empty_like(val), torch.empty_like(t_val)
+    cp = c.data_ptr() if c is not None else 0
+    # the block's rows (no transpose), then the transpose (no rows)
+    for args in ((val, idx, t_val, t_idx, row_s_block, R, ka, 0), (val, idx, t_val, t_idx, row_s, m, 0, kt)):
+        v, i, tv, ti, rs, rows, k_a, k_t = args
+        code = _call(_build.library().osqp_ell_scale, d.device, d.code, v.data_ptr(), i.data_ptr(), tv.data_ptr(),
+                     ti.data_ptr(), rs.data_ptr(), col_s.data_ptr(), cp, outs[0].data_ptr(), outs[1].data_ptr(), B,
+                     rows, k_a, n, k_t)
+        _build.check(code, "ell_scale_rows")
+        launches += 1
+        launches_scale += 1
+    return outs
+
+
 # ---------------------------------------------------------------------------
 # Plain versions (an operand with no rows or columns gathers zeros: _take)
 # ---------------------------------------------------------------------------
@@ -458,3 +489,14 @@ def ell_scale_plain(A: ELLMatrix, row_s, col_s, c=None) -> ELLMatrix:
         val = val * c[:, None, None]
         t_val = t_val * c[:, None, None]
     return dataclasses.replace(A, val=val, t_val=t_val)
+
+
+def ell_scale_rows_plain(val, idx, t_val, t_idx, row_s_block, row_s, col_s, c=None):
+    """Plain version of :func:`ell_scale_rows`: the two halves of
+    :func:`ell_scale_plain`."""
+    val = val * row_s_block[..., None] * _take(col_s, idx)
+    t_val = t_val * col_s[..., None] * _take(row_s, t_idx)
+    if c is not None:
+        val = val * c[:, None, None]
+        t_val = t_val * c[:, None, None]
+    return val, t_val

@@ -18,6 +18,17 @@ launch, ``launches_resident`` those that took the resident path.
 The maxima do not depend on their order, and the cost normalisation's
 mean is taken as the same pairwise sum (:func:`tree_sum`) in both
 versions, so c, D and E come out equal bit for bit on one device.
+
+The split path's kernels also run one step at a time, each behind a C
+entry of its own (:func:`sweep_a`, :func:`update_de`, :func:`sweep_p`,
+:func:`apply`, :func:`apply_vectors`, counted in ``launches_sweep``), for
+a caller whose A is cut into row blocks that no one launch sees:
+:func:`ruiz_sweeps` runs the sweeps from the host and asks the caller for
+the maxima over all of A's rows at each sweep
+(:mod:`osqp_tpu_torch.parallel.rows` merges them across processes).  The
+maxima do not depend on how the rows are cut, so the steps give the
+split path's c, D and E bit for bit.  Each step's plain version is the
+same step of :func:`ruiz_plain`, so that composed they give its bits.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ CTA_BUDGET = _build.SMEM_PER_SM // 2 - _build.SMEM_RESERVED_PER_BLOCK
 
 launches = 0
 launches_resident = 0
+launches_sweep = 0  # launches of the step entries (sweep_a, update_de, sweep_p, apply, apply_vectors)
 
 
 def _resident_bytes(n: int, m: int, k: int, elt: int) -> int:
@@ -226,3 +238,189 @@ def ruiz_plain(P, q, A, l, u, n_iters: int):
         E * l,
         E * u,
     )
+
+
+# ---------------------------------------------------------------------------
+# The split path one step at a time
+# ---------------------------------------------------------------------------
+def _step(name: str, fn, device, *args) -> None:
+    """One C entry of the step kernels on the current stream of ``device``."""
+    global launches_sweep
+    with torch.cuda.device(device):
+        code = fn(*args, _build.stream())
+    _build.check(code, name)
+    launches_sweep += 1
+
+
+def _on_card(name: str, tensors) -> bool:
+    """True for CUDA tensors (contiguous, checked), False for CPU ones."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {dev}")
+    if any(t.device != dev or t.dtype != tensors[0].dtype or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors of one dtype on one device")
+    return True
+
+
+def _ptr(t) -> int:
+    return t.data_ptr() if t is not None else 0
+
+
+def sweep_a(A, E, D):
+    """The maxima over a block of R rows of A, (B, R, n), with E's rows of
+    the block (B, R) and D (B, n): ``(col, row)`` with col (B, n) =
+    max_i E_i |A_ij| over the block's rows and row (B, R) = max_j |A_ij| D_j.
+    Both are non-negative, so their bits order as integers do."""
+    if not _on_card("ruiz.sweep_a", (A, E, D)):
+        return sweep_a_plain(A, E, D)
+    B, R, n = A.shape
+    col = torch.zeros((B, n), dtype=A.dtype, device=A.device)
+    row = torch.zeros((B, R), dtype=A.dtype, device=A.device)
+    _, rows, _ = _build.split_geometry(B, n, R, A.device)
+    _step("ruiz_sweep_a", _build.library().osqp_ruiz_sweep_a, A.device, _build.dtype_code(A.dtype), A.data_ptr(),
+          E.data_ptr(), D.data_ptr(), col.data_ptr(), row.data_ptr(), B, R, n, rows)
+    return col, row
+
+
+def update_de(c, p_col, col, row, D, E):
+    """One sweep's (D, E) from c, P's column norm ``p_col`` and the maxima
+    over all of A's rows, ``col`` (B, n) and ``row`` (B, m) (None without
+    rows).  On the card the kernel zeroes ``col`` and ``row``."""
+    if not _on_card("ruiz.update_de", (c, p_col, D, E) + tuple(t for t in (col, row) if t is not None)):
+        return update_de_plain(c, p_col, col, row, D, E)
+    D, E = D.clone(), E.clone()
+    (B, n), m = D.shape, E.shape[1]
+    _step("ruiz_update", _build.library().osqp_ruiz_update, D.device, _build.dtype_code(D.dtype), c.data_ptr(),
+          p_col.data_ptr(), _ptr(col), _ptr(row), D.data_ptr(), E.data_ptr(), B, n, m)
+    return D, E
+
+
+def sweep_p(P, q, D, c, update_cost: bool):
+    """P's column norm under D, (max_i D_i |P_ij|) D_j, and with
+    ``update_cost`` the cost normalisation of c: returns (p_col, c)."""
+    if not _on_card("ruiz.sweep_p", (P, q, D, c)):
+        return sweep_p_plain(P, q, D, c, update_cost)
+    B, n = q.shape
+    col_p = torch.zeros((B, n), dtype=q.dtype, device=q.device)
+    p_col = torch.empty_like(col_p)
+    c = c.clone()
+    _, _, rows_p = _build.split_geometry(B, n, n, q.device)
+    _step("ruiz_sweep_p", _build.library().osqp_ruiz_sweep_p, q.device, _build.dtype_code(q.dtype), P.data_ptr(),
+          q.data_ptr(), D.data_ptr(), col_p.data_ptr(), p_col.data_ptr(), c.data_ptr(), B, n, rows_p,
+          int(update_cost))
+    return p_col, c
+
+
+def apply(M, left, right, scale=None):
+    """scale_b ((left_i M_ij) right_j) over (B, R, C); ``scale`` (B,) or None."""
+    if not _on_card("ruiz.apply", (M, left, right) + ((scale,) if scale is not None else ())):
+        return apply_plain(M, left, right, scale)
+    B, R, C = M.shape
+    out = torch.empty_like(M)
+    _step("ruiz_apply", _build.library().osqp_ruiz_apply, M.device, _build.dtype_code(M.dtype), M.data_ptr(),
+          left.data_ptr(), right.data_ptr(), _ptr(scale), out.data_ptr(), B, R, C)
+    return out
+
+
+def apply_vectors(q, l, u, c, D, E):
+    """(c (D q), E l, E u)."""
+    if not _on_card("ruiz.apply_vectors", (q, l, u, c, D, E)):
+        return apply_vectors_plain(q, l, u, c, D, E)
+    (B, n), m = q.shape, l.shape[1]
+    qs, ls, us = torch.empty_like(q), torch.empty_like(l), torch.empty_like(u)
+    _step("ruiz_apply_vectors", _build.library().osqp_ruiz_apply_vectors, q.device, _build.dtype_code(q.dtype),
+          *(t.data_ptr() for t in (q, l, u, c, D, E, qs, ls, us)), B, n, m)
+    return qs, ls, us
+
+
+def ruiz_sweeps(P, q, m: int, n_iters: int, a_maxima):
+    """``n_iters`` sweeps of the split path, step by step: returns (c, D,
+    E).  ``a_maxima(E, D)`` returns the maxima over all m rows of A,
+    ``(col (B, n), row (B, m))`` as :func:`sweep_a` gives them for a block;
+    it is not called when m is 0."""
+    B, n = q.shape
+    ones = lambda *s: torch.ones(s, dtype=q.dtype, device=q.device)
+    c, D, E = ones(B), ones(B, n), ones(B, m)
+    p_col, _ = sweep_p(P, q, D, c, update_cost=False)
+    for _ in range(n_iters):
+        col, row = a_maxima(E, D) if m else (None, None)
+        D, E = update_de(c, p_col, col, row, D, E)
+        p_col, c = sweep_p(P, q, D, c, update_cost=True)
+    return c, D, E
+
+
+def merge_maxima(a, b):
+    """The larger of two sets of maxima, taken on their bits as an
+    all-reduce of a signed-integer view takes it."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return torch.maximum(a.view(view), b.view(view)).view(a.dtype)
+
+
+def ruiz_blocks(P, q, blocks, l, u, n_iters: int):
+    """:func:`ruiz` with A given as row blocks (a list of (B, R_k, n)),
+    the steps run on each block and their maxima merged in one process
+    as :mod:`osqp_tpu_torch.parallel.rows` merges them across processes.
+    Returns (c, D, E, c·DPD, c·Dq, [E_k A_k D], El, Eu), the scaled A as
+    the list of its scaled blocks."""
+    starts = [0]
+    for blk in blocks:
+        starts.append(starts[-1] + blk.shape[1])
+    m = starts[-1]
+
+    def a_maxima(E, D):
+        col, rows = None, []
+        for blk, r0, r1 in zip(blocks, starts, starts[1:]):
+            c_k, row = sweep_a(blk, E[:, r0:r1].contiguous(), D)
+            col = c_k if col is None else merge_maxima(col, c_k)
+            rows.append(row)
+        return col, torch.cat(rows, dim=1)
+
+    c, D, E = ruiz_sweeps(P, q, m, n_iters, a_maxima)
+    As = [apply(blk, E[:, r0:r1].contiguous(), D) for blk, r0, r1 in zip(blocks, starts, starts[1:])]
+    qs, ls, us = apply_vectors(q, l, u, c, D, E)
+    return c, D, E, apply(P, D, D, c), qs, As, ls, us
+
+
+def sweep_a_plain(A, E, D):
+    """Plain PyTorch version of :func:`sweep_a`."""
+    if A.shape[1] == 0:
+        return A.new_zeros(A.shape[0], A.shape[2]), A.new_zeros(A.shape[:2])
+    absA = A.abs()
+    return (absA * E[:, :, None]).amax(-2), (absA * D[:, None, :]).amax(-1)
+
+
+def update_de_plain(c, p_col, col, row, D, E):
+    """Plain PyTorch version of :func:`update_de`: a sweep of :func:`ruiz_plain`."""
+    Pn = p_col * c[:, None]
+    if col is not None:
+        e_norm = row * E
+        d_norm = torch.maximum(Pn, col * D)
+    else:
+        e_norm = torch.zeros_like(E)
+        d_norm = Pn
+    return D * (1.0 / torch.sqrt(limit_scaling(d_norm))), E * (1.0 / torch.sqrt(limit_scaling(e_norm)))
+
+
+def sweep_p_plain(P, q, D, c, update_cost: bool):
+    """Plain PyTorch version of :func:`sweep_p`, as :func:`ruiz_plain`
+    computes the cost normalisation."""
+    Pcol = (P.abs() * D[:, :, None]).amax(-2) * D
+    if not update_cost:
+        return Pcol, c
+    c_temp = tree_sum(Pcol * c[:, None]) / torch.full_like(c, q.shape[1])
+    inf_norm_q = limit_scaling((q.abs() * D).amax(-1) * c)
+    c_temp = limit_scaling(torch.maximum(c_temp, inf_norm_q))
+    return Pcol, c / c_temp
+
+
+def apply_plain(M, left, right, scale=None):
+    """Plain PyTorch version of :func:`apply`."""
+    out = left[:, :, None] * M * right[:, None, :]
+    return out if scale is None else scale[:, None, None] * out
+
+
+def apply_vectors_plain(q, l, u, c, D, E):
+    """Plain PyTorch version of :func:`apply_vectors`."""
+    return c[:, None] * (D * q), E * l, E * u

@@ -63,6 +63,7 @@ from .linsys import kkt_lu
 from .ops.cg import EllOperator, pcg_solve
 from .ops.ell import ell_diagonal, ell_matvec, ell_products, ell_scale, ell_sq_colsums, ell_tmatvec
 from .ops.term_products import term_products
+from .parallel.rows import RowSharded
 from .sparse_ops import ELLMatrix
 from .termination import compute_products, residual_norms
 from .types import DynSettings, QPData, ScalingData, StaticConfig
@@ -152,6 +153,10 @@ def polish(
     a float64 polish over a float32 solve) everything is cast, polished
     in that dtype and cast back: float64 is native on the card.
     """
+    if isinstance(data.A, RowSharded):
+        # A whose rows are spread over processes is gathered whole once,
+        # and every rank polishes unsharded (parallel/rows.py)
+        data = dataclasses.replace(data, A=data.A.gather())
     native = x.dtype
     sparse = isinstance(data.A, ELLMatrix)
     if passes is None and sparse:

@@ -7,7 +7,10 @@ D and E, then normalizes the cost by c.  Dense operands run the sweeps
 and the final scaling in K4 (:mod:`osqp_tpu_torch.ops.ruiz`); ELL
 operands run the same sweeps matrix-free on K5's norms
 (:mod:`osqp_tpu_torch.ops.ell`), as the reference does over CSC
-(scaling.c:28-42).
+(scaling.c:28-42).  An A whose rows are spread over processes
+(:class:`~osqp_tpu_torch.parallel.rows.RowSharded`) runs the same sweeps
+with its maxima merged over the ranks: K4 step by step when dense, K5's
+norms on its rows and its replicated transpose when ELL.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from .ops.ell import ell_col_norms, ell_products, ell_row_norms, ell_scale
 from .ops.ruiz import limit_scaling, ruiz
+from .parallel.rows import RowSharded
 from .sparse_ops import ELLMatrix
 from .types import QPData, ScalingData
 
@@ -24,7 +28,10 @@ def scale_data(data: QPData, n_iters: int) -> tuple[QPData, ScalingData]:
     """Run ``n_iters`` Ruiz sweeps; returns the scaled data and scaling."""
     if isinstance(data.A, ELLMatrix) or isinstance(data.P, ELLMatrix):
         return _scale_data_ell(data, n_iters)
-    c, D, E, P, q, A, l, u = ruiz(data.P, data.q, data.A, data.l, data.u, n_iters)
+    if isinstance(data.A, RowSharded):
+        c, D, E, P, q, A, l, u = data.A.ruiz(data.P, data.q, data.l, data.u, n_iters)
+    else:
+        c, D, E, P, q, A, l, u = ruiz(data.P, data.q, data.A, data.l, data.u, n_iters)
     scl = ScalingData(c=c, cinv=1.0 / c, D=D, Dinv=1.0 / D, E=E, Einv=1.0 / E)
     return QPData(P=P, q=q, A=A, l=l, u=u), scl
 
@@ -45,6 +52,8 @@ def _scale_data_ell(data: QPData, n_iters: int) -> tuple[QPData, ScalingData]:
     def norms(D, E, sweep: bool):
         """P's column norms under D and, for a sweep to come, A's column
         norms under E and row norms under D: one K5 launch."""
+        if isinstance(A, RowSharded):
+            return A.ell_norms(P, D, E, sweep)
         calls = [(ell_col_norms, P, D)] + ([(ell_col_norms, A, E), (ell_row_norms, A, D)] if sweep else [])
         return ell_products(*calls) + [None] * (3 - len(calls))
 
@@ -76,7 +85,7 @@ def _scale_data_ell(data: QPData, n_iters: int) -> tuple[QPData, ScalingData]:
     scaled = QPData(
         P=ell_scale(P, D, D, c),
         q=c[:, None] * (D * q0),
-        A=ell_scale(A, E, D),
+        A=A.ell_scale(E, D) if isinstance(A, RowSharded) else ell_scale(A, E, D),
         l=E * data.l,
         u=E * data.u,
     )

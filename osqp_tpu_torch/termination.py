@@ -34,6 +34,7 @@ from .constants import (
 from .linalg import norm_inf, scaled_norm_inf, vec_dot
 from .ops.ell import ell_matvec, ell_products, ell_tmatvec
 from .ops.term_products import TermProducts, term_products
+from .parallel.rows import RowSharded
 from .sparse_ops import ELLMatrix
 from .types import DynSettings, QPData, ScalingData, StaticConfig
 
@@ -55,9 +56,12 @@ class Products(NamedTuple):
 def compute_products(data: QPData, x, z, y, delta_x=None, dy_proj=None) -> Products:
     """A x, P x, A'y and, given the certificate directions delta_x and
     dy_proj (see project_delta_y), A'dy, P delta_x, A delta_x: one K3
-    call on dense operands, one K5 launch on ELL operands."""
+    call on dense operands, one K5 launch on ELL operands (on a
+    row-sharded A, the same on its rows and the collectives after them)."""
     P, A = data.P, data.A
-    if isinstance(P, ELLMatrix):
+    if isinstance(A, RowSharded):
+        tp = A.term_products(P, x, y, delta_x, dy_proj)
+    elif isinstance(P, ELLMatrix):
         calls = [(ell_matvec, A, x), (ell_matvec, P, x), (ell_tmatvec, A, y)]
         if delta_x is not None:
             calls += [(ell_tmatvec, A, dy_proj), (ell_matvec, P, delta_x), (ell_matvec, A, delta_x)]

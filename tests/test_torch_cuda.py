@@ -1657,3 +1657,132 @@ def test_export_round_trip_on_the_card(dev):
     got = fn(sp.triu(P, format="csc").data, q[None], A.data, l[None], u[None])
     assert int(got["status_val"][0]) == 1
     np.testing.assert_allclose(got["x"][0].cpu().numpy(), s.solve().x, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# osqp_tpu_torch.parallel on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,B,n,m", [(torch.float32, 64, 100, 200), (torch.float64, 64, 100, 200),
+                                         (torch.float64, 1, 1000, 1250), (torch.float32, 3, 300, 7)])
+@pytest.mark.parametrize("blocks", [1, 4])
+def test_k4_step_entries_on_row_blocks_match_ruiz_bit_for_bit(dev, dtype, B, n, m, blocks):
+    """K4's step entries (sweep_a on each row block, the maxima merged,
+    update_de, sweep_p, apply) give ruiz's eight outputs bit for bit on
+    either of its paths, and their plain twins' D and E."""
+    args = [t.to(dev) for t in (torch.as_tensor(a, dtype=dtype) for a in _qps(B, n, m, seed=11))]
+    P, q, A, l, u = args
+    before = k4.launches_sweep
+    got = k4.ruiz_blocks(P, q, [b.contiguous() for b in torch.tensor_split(A, blocks, dim=1)], l, u, 10)
+    torch.cuda.synchronize()
+    assert k4.launches_sweep - before == 1 + 10 * (blocks + 2) + blocks + 2
+    got = got[:5] + (torch.cat(got[5], dim=1),) + got[6:]
+    want = k4.ruiz(*args, 10)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    plain = k4.ruiz_plain(*args, 10)
+    assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
+
+
+@pytest.fixture
+def one_rank_nccl(dev):
+    """A one-rank NCCL group as make_mesh starts it, torn down after."""
+    import torch.distributed as dist
+
+    from osqp_tpu_torch import parallel
+
+    if not dist.is_nccl_available():
+        pytest.skip("needs NCCL")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    mesh = parallel.make_mesh()
+    yield mesh
+    dist.destroy_process_group()
+
+
+def _same_results(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_parallel_entries_at_one_rank_give_the_unsharded_bits(one_rank_nccl):
+    """solve_batch_sharded, solve_single_sharded (polish on) and
+    solve_single_sharded_sparse (polish on) under a one-rank NCCL group:
+    every field the unsharded solve's bits; the dense path ran K4's step
+    entries and K6's cg_step, the sparse one cg_step and, in polish, K6's
+    loop; collectives ran."""
+    import scipy.sparse as sp
+
+    from osqp_tpu_torch import parallel
+    from osqp_tpu_torch.parallel import rows
+
+    mesh = one_rank_nccl
+    data = _qps(96, 12, 18, seed=3)
+    kw = dict(dtype="float64", verbose=False)
+    assert _same_results(parallel.solve_batch_sharded(*data, mesh=mesh, **kw),
+                         osqp_tpu_torch.solve_batch(*data, device="cuda", **kw))
+
+    rng = np.random.default_rng(21)
+    n, m = 40, 90
+    M = rng.standard_normal((n, n))
+    P, q, A = M @ M.T / n + 0.2 * np.eye(n), rng.standard_normal(n), rng.standard_normal((m, n))
+    x0 = rng.standard_normal(n)
+    l, u = A @ x0 - 1.0, A @ x0 + 1.0
+    rows.reset_collectives()
+    sweeps, steps = k4.launches_sweep, k6.launches
+    got = parallel.solve_single_sharded(P, q, A, l, u, mesh=mesh, polish=True, **kw)
+    assert k4.launches_sweep > sweeps and k6.launches > steps and sum(rows.collectives.values()) > 0
+    want = osqp_tpu_torch.solve_batch(P[None], q[None], A[None], l[None], u[None], device="cuda",
+                                      linsys_solver="cg", polish=True, **kw)
+    assert _same_results(got, want) and int(got.status_polish[0]) == 1
+
+    n = 300
+    Ps = sp.diags(1.0 + np.abs(rng.standard_normal(n))).tocsc()
+    As = sp.vstack([sp.eye(n), sp.diags([1.0] * (n - 1), 1).tocsr()[: n - 1]]).tocsc()
+    qs, ls, us = rng.standard_normal(n), -np.ones(As.shape[0]), np.ones(As.shape[0])
+    steps, loops = k6.launches, k6.launches_loop
+    got = parallel.solve_single_sharded_sparse(Ps, qs, As, ls, us, mesh=mesh, polish=True, **kw)
+    assert k6.launches > steps and k6.launches_loop > loops
+    want = osqp_tpu_torch.solve_sparse(Ps, qs, As, ls, us, device="cuda", polish=True, **kw)
+    assert _same_results(got, want) and int(got.status_polish[0]) == 1
+
+
+def test_parallel_cuda_mesh_refuses_gloo(dev):
+    """A CUDA mesh on a gloo group raises: nothing is carried through
+    gloo or the CPU in NCCL's place."""
+    import torch.distributed as dist
+
+    from osqp_tpu_torch import parallel
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="NCCL"):
+            parallel.make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_parallel_ranks_on_several_cards(dev, tmp_path, world):
+    """The intra-problem and batch cases over ``world`` NCCL ranks, one
+    card each: every rank rank 0's bits; the sparse solve the unsharded
+    bits; the dense one within 1e-6 of the unsharded cg solve."""
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} CUDA devices")
+    import torch_parallel_ranks as R
+    from osqp_tpu_torch import _build
+
+    _build.library()  # built once here, not in every rank
+    res = R.spawn(world, str(tmp_path), "intra_cuda")
+    for k in res[0]:
+        if not k.endswith(("/row0", "/seconds")):
+            assert np.array_equal(res[1][k], res[0][k], equal_nan=True), k
+    P, q, A, l, u = R.sparse_qp()
+    want = osqp_tpu_torch.solve_sparse(P, q, A, l, u, device="cuda", verbose=False, **R.F64)
+    for f in R.FIELDS:
+        assert np.array_equal(res[0][f"sparse/{f}"], getattr(want, f).cpu().numpy(), equal_nan=True), f
+    P, q, A, l, u = R.qp(m=50)
+    want = osqp_tpu_torch.solve_batch(P[None], q[None], A[None], l[None], u[None], device="cuda",
+                                      linsys_solver="cg", verbose=False, **R.F64)
+    np.testing.assert_allclose(res[0]["dense50/x"], want.x.cpu().numpy(), atol=1e-6, rtol=0)
