@@ -149,7 +149,9 @@ failure ends the run with a non-zero exit and no result line:
     float32, every fourth instance frozen: the step kernels): the same
     steps, x bit for bit, frozen instances bit-unchanged, two runs
     bit-identical; at CVXQP2_L the stepwise path on the same operator,
-    bit for bit, and ms per CG step of both beside the loop's bound; one
+    bit for bit, and ms per CG step of both; the loop's plan (cluster
+    size, width, what is resident, clusters in flight) and its device ms
+    per CG step under the profiler beside the bound and its share; one
     step's vector work against the plain step and the bound;
 17. the sparse path: ``solve_sparse`` (polish off) at CVXQP2_L in
     float64, LISWET1 in float64 and float32, and 8 copies of LISWET1
@@ -166,7 +168,7 @@ failure ends the run with a non-zero exit and no result line:
     same solve on the stepwise path in the same call (a measurement hook,
     stepwise_everywhere): x, y and iterations bit-identical, solve ms, ms
     per CG step and launches of both, the loop's idle share under the
-    profiler;
+    profiler, its plan and device ms per CG step beside the bound;
     one more CVXQP2_L solve under the profiler for K5's and K6's device
     time and the idle share;
 18. the cg backend on dense operands: ``solve_batch`` on the card against
@@ -219,7 +221,8 @@ failure ends the run with a non-zero exit and no result line:
 21. polish on the sparse path: polish's PCG on K6's device loop against
     the plain loop over the same products and against the stepwise path
     on LISWET1's polish system (PCG_CHECK_STEPS = 300 steps in each
-    dtype): equal steps and x bit for bit, ms per CG step of both;
+    dtype): equal steps and x bit for bit, ms per CG step of both, the
+    loop's plan and device ms per CG step beside the bound;
     then over K5's plain products for the record; ``solve_sparse`` with
     ``polish=True`` at LISWET1 (float64, float32), CVXQP2_L (float64) and
     2 copies of LISWET1 against ``sparse_polish.npz`` (status, iterations,
@@ -227,7 +230,8 @@ failure ends the run with a non-zero exit and no result line:
     ADMM point's, polish ms, the PCG steps of each solve and K6's
     launches in the polish; at LISWET1 (float64, float32) the polish-on
     solve on the stepwise path in the same call, bit for bit, with polish
-    ms, ms per CG step and the loop's idle share; the ``SparseSolver`` on
+    ms, ms per CG step, the loop's idle share and its device ms per CG
+    step beside a polish step's bound; the ``SparseSolver`` on
     LISWET1: set-up, solve, update_lin_cost and a warm re-solve;
 22. the Maros-Meszaros harness (phase maros): the native QPS parser
     (built from ``native/qps_parser.cpp``; its build time) against the
@@ -306,6 +310,7 @@ with code 2, since a partial run proves nothing of the whole.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -1821,7 +1826,7 @@ SPARSE_CASES = {
 K5_KERNELS = tuple(f"namespace)::{k}<" for k in ("group_kernel", "cg_start_kernel", "scale_kernel"))
 # K5's launch counts in read_counts: all, and by kernel.
 K5_COUNTS = ("ell_ops", "ell_group", "ell_cg_start", "ell_scale")
-K6_KERNELS = ("dot_kernel", "update_kernel", "direction_kernel", "loop_kernel")
+K6_KERNELS = ("dot_kernel", "update_kernel", "direction_kernel", "cluster_loop_kernel")
 
 
 def scenario(name, B=1):
@@ -2112,6 +2117,23 @@ def loop_cost(op, B, n, steps):
     return steps * nbytes, {dtype_name(op.P.dtype): steps * flops}
 
 
+K6_LOOP = ("cluster_loop_kernel",)
+
+
+def plan_text(plan) -> str:
+    """K6's device loop plan (ops.cg.LoopPlan) in words."""
+    return (f"clusters of {plan.cluster} CTAs x {plan.threads} threads, {plan.smem} B of shared memory a CTA, "
+            f"operands {'resident' if plan.resident else 'read from device memory'}, vectors "
+            f"{'resident' if plan.vectors else 'in device memory'}, {plan.clusters} clusters in flight")
+
+
+def loop_step_line(label, plan, device_ms, steps, bound_ms) -> str:
+    """The loop's plan and its device ms per CG step beside the bound."""
+    per = device_ms / max(steps, 1)
+    return (f"  {label}: plan {plan_text(plan)}; {per:.6f} ms per CG step on the device ({steps} steps, "
+            f"{device_ms:.3f} ms) against a bound of {bound_ms:.6f} ms, share {bound_ms / per if per else 0:.3f}")
+
+
 def stepwise_everywhere():
     """A measurement hook: while it is in force pcg_solve takes the stepwise
     path on ELL operators too, so that one call times both paths."""
@@ -2208,10 +2230,10 @@ def phase_k6(dev):
     step_stats = loop_stats = None
     for label, args in cases:
         x0 = args[6]
+        xk2, sk2 = k6.cg_solve(*args)
         before, before_loop = k6.launches, k6.launches_loop
         (xk, sk), solve_ms = timed(lambda: k6.cg_solve(*args))
         launched, loops = k6.launches - before, k6.launches_loop - before_loop
-        xk2, sk2 = k6.cg_solve(*args)
         (xp, sp), plain_ms = timed(lambda: k6.cg_solve_plain(*args, dot=k6.kernel_dot))
         diff, rel = rel_err(xk, xp)
         tol = RTOL[dtype_name(xk.dtype)]
@@ -2244,10 +2266,15 @@ def phase_k6(dev):
             require(torch.equal(xs, xk) and torch.equal(ss, sk), f"K6's loop and stepwise path differ at {label}")
             nbytes, flops = loop_cost(op, b.shape[0], b.shape[1], steps)
             bound_ms, bound_by = bound(nbytes, flops)
-            loop_stats = dict(ms=solve_ms / steps, plain_ms=plain_ms / steps, bound_ms=bound_ms / steps,
+            plan = k6.last_plan
+            _, _, events = profiled(lambda: k6.cg_solve(*args))
+            device_ms = event_ms(events, K6_LOOP)
+            loop_stats = dict(ms=device_ms / steps, plain_ms=plain_ms / steps, bound_ms=bound_ms / steps,
                               bound_by=bound_by, library_ms=None, max_abs_err=diff, stepwise_ms=step_ms / steps,
-                              steps=steps)
-            print(f"  loop: {solve_ms / steps:.4f} ms per step against a bound of {bound_ms / steps:.6f} ms ({bound_by})")
+                              wall_ms=solve_ms / steps, steps=steps, plan=dataclasses.asdict(plan))
+            print(loop_step_line("loop", plan, device_ms, steps, bound_ms / steps) + f" ({bound_by}); one solve's wall "
+                  f"{solve_ms / steps:.4f} ms per step with the start")
+            require(plan.cluster > 1 and plan.vectors, f"K6's loop did not spread {label} over a cluster")
             continue
 
         # One step's vector work alone, from the solve's start.
@@ -2411,9 +2438,16 @@ def phase_sparse(dev):
             run = lambda: ot.solve_sparse(P, q, A, l, u, dtype=dtype, verbose=False)
             _, pwall, events = profiled(run)
             busy = event_ms(events)
+            # the loop's device ms per CG step beside the bound of a step on this operator
+            _, _, scaled_, _, rs_, fac_, _ = sparse_prepared(name, dtype, dev, B)
+            nbytes, flops = loop_cost(k6._operator(fac_["P"], scaled_.A, rs_.rho_vec, plain=False), B, x.shape[1], 1)
+            step_bound = bound(nbytes, flops)[0]
+            loop_dev = event_ms(events, K6_LOOP)
+            print(loop_step_line(f"{case} K6's loop in the solve", k6.last_plan, loop_dev, cg_steps, step_bound))
             paths[case] = dict(loop_ms=wall, stepwise_ms=wall_s, steps=cg_steps, loop_ms_per_step=wall / cg_steps,
                                stepwise_ms_per_step=wall_s / cg_steps, idle_loop=1 - busy / pwall,
-                               idle_stepwise="not measured")
+                               idle_stepwise="not measured", loop_device_ms_per_step=loop_dev / cg_steps,
+                               bound_ms_per_step=step_bound, plan=dataclasses.asdict(k6.last_plan))
             print(f"  {case} on the stepwise path in the same call: x, y and iterations bit-identical {same}; "
                   f"solve {wall_s:.3f} ms against the loop's {wall:.3f}; ms per CG step {wall_s / cg_steps:.4f} "
                   f"against {wall / cg_steps:.4f} ({wall / wall_s:.4f} of it); launches per solve: K6 "
@@ -3496,6 +3530,7 @@ def phase_sparse_polish(dev):
     # PCG_CHECK_STEPS steps in each dtype: the plain step summing in the
     # kernels' order costs ~4 ms a step on the card
     pcg_stats = None
+    polish_bounds = {}  # a PCG step's bound on LISWET1's polish system, by dtype
     for dtype in ("float32", "float64"):
         cfg, dyn, scaled, scl, rs, fac, it = sparse_prepared("LISWET1", dtype, dev)
         c = admm.run_segment(cfg, scaled, scl, dyn, admm.init_carry(cfg, scaled, rs, fac, it), cfg.max_iter)
@@ -3558,14 +3593,19 @@ def phase_sparse_polish(dev):
         require(torch.equal(sk, sp_) and torch.equal(xk, xp), f"polish PCG differs from its plain loop at {label}")
         require(torch.equal(xs, xk) and torch.equal(ss, sk), f"polish PCG: loop and stepwise path differ at {label}")
         require(launched == 1, f"polish PCG at {label} did not run on the device loop")
+        nbytes, flops = loop_cost(op, B, n, steps)
+        bound_ms, bound_by = bound(nbytes, flops)
+        polish_bounds[dtype] = bound_ms / steps
+        plan = k6.last_plan
+        _, _, events = profiled(lambda: k6.pcg_solve(op, d, dinv, t, tol, max_iter))
+        device_ms = event_ms(events, K6_LOOP)
+        print(loop_step_line("loop in polish's PCG", plan, device_ms, steps, bound_ms / steps)
+              + f" ({bound_by}); plain loop {plain_ms / steps:.4f} ms per step")
+        require(plan.cluster > 1 and plan.vectors, f"K6's loop did not spread {label} over a cluster")
         if pcg_stats is None:
-            nbytes, flops = loop_cost(op, B, n, steps)
-            bound_ms, bound_by = bound(nbytes, flops)
-            pcg_stats = dict(ms=solve_ms / steps, plain_ms=plain_ms / steps, bound_ms=bound_ms / steps,
+            pcg_stats = dict(ms=device_ms / steps, plain_ms=plain_ms / steps, bound_ms=bound_ms / steps,
                              bound_by=bound_by, library_ms=None, max_abs_err=diff, stepwise_ms=step_ms / steps,
-                             steps=steps, shape=label)
-            print(f"  loop in polish's PCG: {pcg_stats['ms']:.4f} ms per step, plain loop "
-                  f"{pcg_stats['plain_ms']:.4f}, bound {pcg_stats['bound_ms']:.6f} ms ({bound_by})")
+                             wall_ms=solve_ms / steps, steps=steps, shape=label, plan=dataclasses.asdict(plan))
 
     gold = np.load(SPARSE_POLISH_GOLDENS)
     cases = {"LISWET1/float64": ("LISWET1", "float64", 1), "LISWET1/float32": ("LISWET1", "float32", 1),
@@ -3635,12 +3675,21 @@ def phase_sparse_polish(dev):
                 same = all(torch.equal(getattr(res_s, f), getattr(res, f)) for f in ("x", "y", "iter", "status_polish"))
                 n_steps = sum(steps[0])
                 run = lambda: ot.solve_sparse(P, q, A, l, u, dtype=dtype, polish=True, verbose=False)
-                _, pwall, events = profiled(run)
+                with cg_step_spy() as seen_all:
+                    _, pwall, events = profiled(run)
                 idle = 1 - event_ms(events) / pwall
+                loop_dev = event_ms(events, K6_LOOP)
+                all_steps = sum(int(k.max()) for k in seen_all)
+                print(loop_step_line(f"{case} K6's loop in the polish-on solve (the ADMM's CG solves and the "
+                                     f"polish's PCG; a polish step's bound)", k6.last_plan, loop_dev, all_steps,
+                                     polish_bounds[dtype]))
                 idle_s = "not measured (its 1e4-1e6 kernel events are too many to trace)"
                 polish_paths[case] = dict(loop_ms=pol["ms"], stepwise_ms=pol_s["ms"], steps=n_steps,
                                           loop_ms_per_step=pol["ms"] / n_steps,
-                                          stepwise_ms_per_step=pol_s["ms"] / n_steps, idle_loop=idle)
+                                          stepwise_ms_per_step=pol_s["ms"] / n_steps, idle_loop=idle,
+                                          loop_device_ms_per_step=loop_dev / all_steps,
+                                          bound_ms_per_step=polish_bounds[dtype],
+                                          plan=dataclasses.asdict(k6.last_plan))
                 print(f"  {case} polish on the stepwise path in the same call: x, y, iterations and status_polish "
                       f"bit-identical {same}; polish {pol_s['ms']:.3f} ms against the loop's {pol['ms']:.3f} "
                       f"({pol['ms'] / pol_s['ms']:.4f} of it); ms per CG step {pol_s['ms'] / n_steps:.4f} against "

@@ -69,8 +69,9 @@ _SIGNATURES = {
     "osqp_ell_scale": (_I,) + (_P,) * 9 + (_I,) * 5 + (_P,),
     "osqp_cg_parts": (_I,),
     "osqp_cg_step": (_I,) + (_P,) * 15 + (_D, _I, _I, _P),
-    "osqp_cg_loop": (_I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _D, _D) + (_P,) * 12 + (_I,) * 4 + (_P,),
-    "osqp_cg_loop_blocks": (_I,) * 3,
+    "osqp_cg_loop": (_I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _D, _D) + (_P,) * 11 + (_I,) * 9 + (_P,),
+    "osqp_cg_loop_smem": (_I,) * 9,
+    "osqp_cg_loop_clusters": (_I,) * 6,
     "osqp_bt_factor": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "osqp_bt_solve": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "osqp_bt_quotients": (_I, _P, _P, _P, _I, _P),

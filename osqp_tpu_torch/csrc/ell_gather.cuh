@@ -1,6 +1,7 @@
 // K5's row-gather reductions over one ELL row, shared by K5's kernels
 // (ell_ops.cu) and by K6's device loop (cg.cu), which computes the CG
-// operator's products with them so that its products are K5's bit for bit.
+// operator's products with ell_row_sum so that its products are K5's bit
+// for bit.
 //
 // With v the k values of row r of one instance, j the row's pattern and
 // g (w) the instance's gathered vector (weight):
@@ -14,10 +15,7 @@
 // Sums run in slot order from 0, each product and sum rounded on its own
 // (no fused multiply-add), as the plain versions in ops/ell.py sum them.
 // Padded slots hold v = 0, j = 0, so they add 0 to each sum and to each
-// non-negative maximum.  The gathered vectors are plain pointers, not
-// __restrict__: the device loop reads vectors that other blocks of the
-// same launch write between its grid barriers, which a read-only cache
-// could serve stale.
+// non-negative maximum.
 #pragma once
 
 #include <cstdint>
@@ -49,6 +47,16 @@ __device__ __forceinline__ T ell_row(const T* v, const int32_t* j, const T* g, c
       if (j[s] == r) acc = add(acc, v[s]);
     }
   }
+  return acc;
+}
+
+// ell_row<T, kSum> with the gathered vector read through get(j): the same
+// slot order and rounding (K6's device loop, whose p and A p lie where
+// other CTAs stored them).
+template <typename T, typename Get>
+__device__ __forceinline__ T ell_row_sum(const T* v, const int32_t* j, int k, Get&& get) {
+  T acc = T(0);
+  for (int s = 0; s < k; ++s) acc = add(acc, mul(v[s], get(j[s])));
   return acc;
 }
 

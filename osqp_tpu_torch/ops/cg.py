@@ -18,13 +18,22 @@ function of batched GEMVs.
 For CUDA tensors the path follows the operator's type.  An
 :class:`EllOperator` runs the whole solve in one launch of the loop in
 ``csrc/cg.cu`` (:func:`pcg_solve_loop`, counted in ``launches_loop``):
-the products, the step and the stop test at every step stay on the
-device, and the host reads nothing until the end.  Any other operator
-(dense batches) takes :func:`pcg_solve_stepwise`: each step's vector
-work is one call of the step kernels (:func:`cg_step`, counted in
-``launches``), and the host tests "is any instance still live" once per
-:data:`CHUNK` steps, each chunk clipped to the steps left below
-``max_iter``.  A step taken after every instance has converged has
+each instance's solve on one thread-block cluster, its state in the
+cluster's shared memory, the products, the step and the stop test on the
+device, two cluster barriers and two waits for the partial sums a step,
+and the host reads nothing until the end.  :func:`loop_plan` cuts the
+batch over the card: the cluster size, the CTAs' width, whether the
+operands' rows stay in shared memory too, and the clusters at once.  Each
+instance stops on its own, at its freeze or at ``max_iter``: a frozen
+instance of a batch loop keeps its x, r and r'r bit for bit and only its
+p moves, and the solve returns x and the steps alone, so this changes no
+bit of the result (``csrc/cg.cu`` states the argument and its one
+exception, a start whose r'r lies within a few ulps of the tolerance).
+Any other operator (dense batches) takes :func:`pcg_solve_stepwise`:
+each step's vector work is one call of the step kernels
+(:func:`cg_step`, counted in ``launches``), and the host tests "is any
+instance still live" once per :data:`CHUNK` steps, each chunk clipped to
+the steps left below ``max_iter``.  A step taken after every instance has converged has
 alpha = 0 everywhere and leaves x unchanged, so both equal the JAX loop,
 which tests at every step.  For CPU tensors :func:`pcg_solve_plain` runs
 the same loop in plain PyTorch, testing at every step (or, with
@@ -44,6 +53,7 @@ which each instance was live, so its maximum is the JAX loop's count.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -62,6 +72,7 @@ _MAX_PARTS = 64
 
 launches = 0  # step launches (pcg_solve_stepwise)
 launches_loop = 0  # loop launches, one per solve (pcg_solve_loop)
+last_plan = None  # the plan of the last loop launch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,12 +257,15 @@ def _ell_fields(M: ELLMatrix, name: str, B: int, rows: int, cols: int, dtype, de
     return M.val, M.idx, M.t_val, M.t_idx
 
 
-def pcg_solve_loop(op: EllOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=None):
+def pcg_solve_loop(op: EllOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=None,
+                   plan: "LoopPlan | None" = None):
     """The solve on the card in one launch of the loop kernel, for an
-    :class:`EllOperator`: its products, every step and the stop test at
-    every step on the device.  The start (from ``x0``, one product) is
-    the stepwise path's."""
-    global launches_loop
+    :class:`EllOperator`: each instance on a thread-block cluster, its
+    products, every step and its stop test on the device.  The start
+    (from ``x0``, one product) is the stepwise path's.  ``plan``: the
+    loop's cut of the batch, :func:`loop_plan`'s for this card by
+    default."""
+    global launches_loop, last_plan
     if not isinstance(op, EllOperator):
         raise TypeError(f"pcg_solve_loop takes an EllOperator, not {type(op).__name__}")
     B, n = b.shape
@@ -265,26 +279,132 @@ def pcg_solve_loop(op: EllOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=N
                              f"expected {shape} {dtype} on {dev}")
     _check_cuda("pcg_solve_loop", (b,) + operands + tuple(t for _, t, _ in vectors if t is not None))
     x, r, z, p, rz, rr, tol2 = _start(op, sigma, dinv, b, x0, tol_rel, start)
-    steps = torch.zeros(B, dtype=torch.int32, device=dev)
-    if n == 0 or max_iter <= 0:
-        return x, steps
-    pairs = torch.stack([rz, torch.empty_like(rz)]), torch.stack([rr, torch.empty_like(rr)])
-    Ap, Mp = torch.empty((B, m), dtype=dtype, device=dev), torch.empty_like(b)
-    parts = torch.empty((3, B, parts_of(n)), dtype=dtype, device=dev)
+    steps = torch.zeros(B + 1, dtype=torch.int32, device=dev)  # and the kernel's instance counter
+    if B == 0 or n == 0 or max_iter <= 0:
+        return x, steps[:B]
     P, A = op.P, op.A
+    kp, ka, kt = P.idx.shape[1], A.idx.shape[1], A.t_idx.shape[1]
+    if plan is None:
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        plan = _planned(B, n, m, kp, ka, kt, _build.dtype_code(dtype), index)
+    Ap, Mp = torch.empty((B, m), dtype=dtype, device=dev), torch.empty_like(b)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.osqp_cg_loop(
-            _build.dtype_code(dtype), P.val.data_ptr(), P.idx.data_ptr(), P.idx.shape[1], A.val.data_ptr(),
-            A.idx.data_ptr(), A.idx.shape[1], A.t_val.data_ptr(), A.t_idx.data_ptr(), A.t_idx.shape[1],
-            op.w.data_ptr() if op.w is not None else 0, float(sigma), float(op.div) if op.div is not None else 0.0,
-            dinv.data_ptr(), tol2.data_ptr(), x.data_ptr(), r.data_ptr(), z.data_ptr(), p.data_ptr(), Ap.data_ptr(),
-            Mp.data_ptr(), pairs[0].data_ptr(), pairs[1].data_ptr(), parts.data_ptr(), steps.data_ptr(), B, n, m,
-            int(max_iter), _build.stream(),
+            _build.dtype_code(dtype), P.val.data_ptr(), P.idx.data_ptr(), kp, A.val.data_ptr(), A.idx.data_ptr(), ka,
+            A.t_val.data_ptr(), A.t_idx.data_ptr(), kt, op.w.data_ptr() if op.w is not None else 0, float(sigma),
+            float(op.div) if op.div is not None else 0.0, dinv.data_ptr(), tol2.data_ptr(), rz.data_ptr(),
+            rr.data_ptr(), x.data_ptr(), r.data_ptr(), z.data_ptr(), p.data_ptr(), Ap.data_ptr(), Mp.data_ptr(),
+            steps.data_ptr(), B, n, m, int(max_iter), plan.cluster, plan.threads, int(plan.resident),
+            int(plan.vectors), plan.clusters, _build.stream(),
         )
     _build.check(code, "cg_loop")
     launches_loop += 1
-    return x, steps
+    last_plan = plan
+    return x, steps[:B]
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopPlan:
+    """How the device loop cuts a batch over the card: clusters of
+    ``cluster`` CTAs of ``threads`` threads and ``smem`` bytes of shared
+    memory each, an instance's solve a cluster, ``clusters`` clusters at
+    once; the operands' rows in shared memory when ``resident``, the
+    vectors when ``vectors`` (else in device memory: n beyond the
+    cluster's shared memory)."""
+
+    cluster: int
+    threads: int
+    resident: bool
+    vectors: bool
+    smem: int
+    clusters: int
+
+
+# The cluster sizes the plan starts from, largest first (above 8 CTAs a
+# cluster is non-portable).
+LOOP_CLUSTERS = (16, 8, 4, 2, 1)
+_MAX_PARTS_AT_ONCE = 4  # a CTA of 1024 threads
+
+
+def loop_smem(n: int, m: int, kp: int, ka: int, kt: int, cluster: int, resident: bool, vectors: bool,
+              itemsize: int) -> int:
+    """Bytes of shared memory of one CTA of the loop (csrc/cg.cu:
+    loop_smem): two mbarriers, the partials of every part, the warps'
+    sums of the CTA's parts and 8 scalars; with ``vectors`` x, r, z, p,
+    dinv and Mp of its entries and the weights and A p of its rows of A;
+    with ``resident`` those rows of P, A' and A, values and int32
+    pattern."""
+    parts = parts_of(n)
+    rounds = -(-n // (parts * _THREADS))
+    qmax = -(-parts // cluster)
+    E = qmax * _THREADS * rounds
+    Rp = (-(-m // cluster) + 3) // 4 * 4 if m else 0
+    vals = 3 * _MAX_PARTS + 2 * qmax * (_THREADS // 32) + 8
+    pats = 0
+    if vectors:
+        vals += 6 * E + 2 * Rp
+    if resident:
+        pats = E * (kp + kt) + Rp * ka
+        vals += pats
+    return 16 + vals * itemsize + 4 * pats
+
+
+def _clusters_estimate(cluster: int, threads: int, smem: int, sm_count: int) -> int:
+    """Clusters the card holds at once, by its SMs' shared memory and
+    threads alone (the card's own query also places clusters in GPCs)."""
+    per_sm = min(_build.SMEM_PER_SM // (smem + _build.SMEM_RESERVED_PER_BLOCK), 2048 // threads, 32)
+    return sm_count * per_sm // cluster
+
+
+def loop_plan(B: int, n: int, m: int, kp: int, ka: int, kt: int, dtype, sm_count: int, active=None) -> LoopPlan:
+    """The device loop's plan for B instances of n variables and m rows of
+    A (ELL widths kp, ka and kt) in ``dtype`` on a card of ``sm_count``
+    SMs; ``active(cluster, threads, smem, resident, vectors)`` gives the
+    clusters the card holds at once (the CUDA occupancy query), estimated
+    from the SMs' shared memory and threads without it.
+
+    From each of :data:`LOOP_CLUSTERS` not above the parts, the fewest
+    CTAs that keep its most parts a CTA (40 parts: 14 for 16); with it
+    the first of operands and vectors resident, vectors alone, neither
+    that fits a CTA's shared memory, and 256 threads a part up to four.
+    Of those whose vectors fit (the vectors go to device memory only
+    where no cluster holds them) the plan takes the fewest waves of
+    clusters over the batch, and among them the largest cluster: at B = 1
+    the widest spread of one instance, at large B clusters small enough
+    that the batch runs at once.  Raises where no cluster fits the card."""
+    itemsize = torch.empty((), dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype).element_size()
+    parts = parts_of(n)
+    plans = []
+    for start in LOOP_CLUSTERS:
+        if start > parts and start > 1:
+            continue
+        cluster = -(-parts // -(-parts // start))
+        for resident, vectors in ((True, True), (False, True), (False, False)):
+            smem = loop_smem(n, m, kp, ka, kt, cluster, resident, vectors, itemsize)
+            if smem <= _build.SMEM_BYTES:
+                break
+        threads = _THREADS * min(_MAX_PARTS_AT_ONCE, -(-parts // cluster))
+        fit = (active(cluster, threads, smem, resident, vectors) if active is not None
+               else _clusters_estimate(cluster, threads, smem, sm_count))
+        if fit < 1:
+            continue
+        plans.append(LoopPlan(cluster, threads, resident, vectors, smem, min(fit, B)))
+    if not plans:
+        raise RuntimeError(f"no plan of K6's device loop fits the card at n={n}, m={m}")
+    if any(plan.vectors for plan in plans):
+        plans = [plan for plan in plans if plan.vectors]
+    return min(plans, key=lambda plan: (-(-B // plan.clusters), -plan.cluster))
+
+
+@functools.lru_cache(maxsize=256)
+def _planned(B: int, n: int, m: int, kp: int, ka: int, kt: int, code: int, index: int) -> LoopPlan:
+    def active(cluster, threads, smem, resident, vectors):
+        with torch.cuda.device(index):
+            return _build.library().osqp_cg_loop_clusters(code, cluster, threads, smem, resident, vectors)
+
+    dtype = torch.float32 if code == 0 else torch.float64
+    return loop_plan(B, n, m, kp, ka, kt, dtype, _build.sm_count(index), active)
 
 
 def cg_step(p, u, v, sigma, dinv, tol2, rz_pair, rr_pair, cur, Mp, x, r, z, parts, steps) -> None:

@@ -38,8 +38,8 @@ The products, each reached from the dispatch point named:
   A_r'(rho_r A_r p), an n-vector a step; ELL, the all-gather of A_r p,
   then the replicated transpose, an m-vector a step.  A callable, not an
   ``EllOperator``, so the card takes K6's step kernels
-  (``pcg_solve_stepwise``): one cooperative launch cannot wait on another
-  rank;
+  (``pcg_solve_stepwise``): the device loop's one launch cannot wait on
+  another rank;
 * Ruiz (``scaling.scale_data``): dense, K4 step by step
   (:func:`osqp_tpu_torch.ops.ruiz.ruiz_sweeps`) with an all-reduce (MAX)
   of the column maxima' bits and an all-gather of the row maxima a

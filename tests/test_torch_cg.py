@@ -13,6 +13,7 @@ within 1e-6, in float32 its status with iterations within 25.
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +37,7 @@ from osqp_tpu_torch import admm as tadmm
 from osqp_tpu_torch import batch as tbatch
 from osqp_tpu_torch import convert
 from osqp_tpu_torch import solver as tsolver
+from osqp_tpu_torch._build import SMEM_BYTES
 from osqp_tpu_torch.linsys import cg
 from osqp_tpu_torch.ops import cg as k6
 from osqp_tpu_torch.sparse_ops import ELLMatrix
@@ -310,6 +312,132 @@ def test_chunked_stop_test_changes_no_bit_in_either_operator_form(form, max_iter
     assert torch.equal(s1, sc) and torch.equal(x1, xc)
     assert int(s1.max()) <= max_iter and int(s1[-1]) == 0 and torch.equal(x1[-1], x0[-1])
     assert int(s1.max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The device loop's plan and its per-instance stop
+# ---------------------------------------------------------------------------
+MAROS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "maros_mm")
+
+
+def _maros_widths(name):
+    """(n, m, kp, ka, kt) of a Maros-Meszaros problem's ELL operands."""
+    from osqp_tpu_torch.io.qps import load_qps
+    from osqp_tpu_torch.sparse_ops import ell_from_scipy
+
+    qp = load_qps(os.path.join(MAROS, f"{name}.qps"))
+    P = ell_from_scipy(sp.triu(qp.P, format="csr"), torch.float64, sym_from_triu=True)
+    A = ell_from_scipy(qp.A, torch.float64)
+    return qp.P.shape[0], qp.A.shape[0], P.idx.shape[1], A.idx.shape[1], A.t_idx.shape[1]
+
+
+@pytest.mark.parametrize(
+    "name,dtype,cluster,resident",
+    [("CVXQP2_L", "float64", 14, True), ("CVXQP2_L", "float32", 14, True), ("LISWET1", "float64", 14, True),
+     ("LISWET1", "float32", 14, True), ("DTOC3", "float64", 15, True), ("DTOC3", "float32", 15, True),
+     ("CVXQP3_L", "float64", 14, False), ("CVXQP3_L", "float32", 14, True)],
+)
+def test_loop_plan_spreads_one_instance_over_a_cluster(name, dtype, cluster, resident):
+    """At B = 1 the plan spreads the instance over the fewest CTAs that
+    keep 16's most parts a CTA (CVXQP2_L's 40 parts over 14, DTOC3's 59
+    over 15), 256 threads a part up to four, its vectors in shared memory
+    and its operands too where they fit (CVXQP3_L's do not in float64)."""
+    n, m, kp, ka, kt = _maros_widths(name)
+    plan = k6.loop_plan(1, n, m, kp, ka, kt, dtype, 132)
+    itemsize = 8 if dtype == "float64" else 4
+    assert (plan.cluster, plan.resident, plan.vectors, plan.clusters) == (cluster, resident, True, 1)
+    assert plan.threads == 256 * min(4, -(-k6.parts_of(n) // cluster))
+    assert plan.smem == k6.loop_smem(n, m, kp, ka, kt, cluster, resident, True, itemsize) <= SMEM_BYTES
+    assert (k6.loop_smem(n, m, kp, ka, kt, cluster, True, True, itemsize) <= SMEM_BYTES) == resident
+
+
+def test_loop_plan_keeps_the_vectors_in_device_memory_where_no_cluster_holds_them():
+    """n = 2e5 in float64: no cluster's shared memory holds the vectors,
+    so they stay in device memory, on the widest cluster; its shared
+    memory holds the partials alone."""
+    plan = k6.loop_plan(1, 200_000, 150_000, 9, 3, 5, torch.float64, 132)
+    assert (plan.cluster, plan.resident, plan.vectors) == (16, False, False)
+    assert plan.smem == k6.loop_smem(200_000, 150_000, 9, 3, 5, 16, False, False, 8) < 4096
+    assert k6.loop_smem(200_000, 150_000, 9, 3, 5, 16, False, True, 8) > SMEM_BYTES
+
+
+def test_loop_plan_shrinks_the_cluster_for_batches_above_the_clusters_at_once():
+    """Where the card holds fewer clusters than B (the occupancy query,
+    here given), the plan takes the cluster size with the fewest waves of
+    clusters over the batch, the largest among them; it never takes a
+    cluster that the card cannot hold, and the vectors leave shared memory
+    only where no cluster holds them."""
+    widths = _maros_widths("CVXQP2_L")
+    held = {14: 7, 8: 16, 4: 33, 2: 66, 1: 132}
+    active = lambda cluster, threads, smem, resident, vectors: held[cluster]  # noqa: E731
+    plan = k6.loop_plan(8, *widths, torch.float64, 132, active)
+    assert (plan.cluster, plan.clusters) == (8, 8)
+    plan = k6.loop_plan(7, *widths, torch.float64, 132, active)
+    assert (plan.cluster, plan.clusters) == (14, 7)
+    # 200 instances: 7 waves at a cluster of 4, the narrowest whose CTAs
+    # hold the vectors (2 would take 4 waves with the vectors in device
+    # memory)
+    plan = k6.loop_plan(200, *widths, torch.float64, 132, active)
+    assert (plan.cluster, plan.clusters, plan.vectors) == (4, 33, True)
+    assert k6.loop_smem(*widths, 2, False, True, 8) > SMEM_BYTES
+    plan = k6.loop_plan(1, *widths, torch.float64, 132, lambda c, t, s, r, v: 0 if c == 14 else 1)
+    assert plan.cluster == 8
+    with pytest.raises(RuntimeError, match="no plan"):
+        k6.loop_plan(1, *widths, torch.float64, 132, lambda c, t, s, r, v: 0)
+    # the estimate without the query, by the SMs' shared memory and
+    # threads: 64 instances in two waves of 33 clusters of 8, two CTAs of
+    # 1024 threads an SM with the operands read from device memory, where
+    # clusters of 14 with resident operands (one CTA an SM) would take 8
+    plan = k6.loop_plan(64, *widths, torch.float64, 132)
+    assert (plan.cluster, plan.resident, plan.threads, plan.clusters) == (8, False, 1024, 33)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_loop_plan_without_constraints(dtype):
+    """m = 0: no rows of A in the plan's shared memory, and a cluster no
+    wider than the parts (3000 variables: 12 parts, 6 CTAs of 2)."""
+    plan = k6.loop_plan(3, 3000, 0, 4, 1, 1, dtype, 132)
+    itemsize = 8 if dtype == "float64" else 4
+    assert (plan.cluster, plan.threads, plan.resident, plan.clusters) == (6, 512, True, 3)
+    assert plan.smem == k6.loop_smem(3000, 0, 4, 1, 1, 6, True, True, itemsize)
+    assert plan.smem < k6.loop_smem(3000, 1, 4, 1, 1, 6, True, True, itemsize)
+    assert k6.loop_plan(1, 20, 0, 3, 1, 1, dtype, 132).cluster == 1
+
+
+@pytest.mark.parametrize("form", ["cg", "polish"])
+def test_each_instance_alone_gives_the_batch_its_bits(form):
+    """The device loop stops each instance at its own freeze (or at
+    max_iter) where the batch loop stopped all of them at the last one's:
+    a frozen instance keeps its x bit for bit.  So each instance run alone
+    through pcg_solve_plain(dot=kernel_dot) gives the batch's x bit for
+    bit and its steps exactly, in both operator forms."""
+    import dataclasses as dc
+
+    from osqp_tpu_torch.ops import ell as k5
+
+    B = 5
+    P, A, rho, mask, b, x0 = _ell_system(B=B, seed=9)
+    scale = torch.linspace(1.0, 2.0, B, dtype=torch.float64)[:, None, None]
+    P = dc.replace(P, val=P.val * scale, t_val=P.t_val * scale)
+    if form == "cg":
+        sigma = torch.tensor(1e-6, dtype=torch.float64)
+        op = k6.EllOperator(P, A, w=rho)
+        dinv = 1.0 / (k5.ell_diagonal(P) + sigma + k5.ell_sq_colsums(A, rho))
+        max_iter = 45
+    else:
+        sigma = torch.tensor(1e-2, dtype=torch.float64)
+        op = k6.EllOperator(P, k5.ell_scale(A, mask, torch.ones_like(b)), div=sigma)
+        dinv = 1.0 / (k5.ell_diagonal(P) + sigma + k5.ell_sq_colsums(op.A, torch.ones_like(rho)) / sigma)
+        max_iter = 120
+    tol = torch.tensor([1e-12, 1e-6, 1e-3, 1e9, 1e-2], dtype=torch.float64)
+    xb, sb = k6.pcg_solve_plain(op, sigma, dinv, b, tol, max_iter, x0, dot=k6.kernel_dot)
+    assert len(set(sb.tolist())) == B and int(sb.max()) == max_iter and int(sb.min()) == 0
+    one = lambda M, i: dc.replace(M, val=M.val[i:i + 1], t_val=M.t_val[i:i + 1])  # noqa: E731
+    for i in range(B):
+        op_i = dc.replace(op, P=one(op.P, i), A=one(op.A, i), w=op.w[i:i + 1] if op.w is not None else None)
+        xi, si = k6.pcg_solve_plain(op_i, sigma, dinv[i:i + 1], b[i:i + 1], tol[i:i + 1], max_iter, x0[i:i + 1],
+                                    dot=k6.kernel_dot)
+        assert int(si[0]) == int(sb[i]) and torch.equal(xi[0], xb[i])
 
 
 # ---------------------------------------------------------------------------

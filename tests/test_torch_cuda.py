@@ -10,6 +10,7 @@ that has only PyTorch:
 package's tests.)
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -1523,6 +1524,147 @@ def test_device_loop_matches_the_plain_loop_on_maros_operators(dev, name, form, 
     assert k6.launches_loop - before == 1
     xp, sp_ = k6.pcg_solve_plain(op, sigma, dinv, b, tol, 300, start, chunk=1, dot=k6.kernel_dot)
     assert int(sk.max()) > 0 and torch.equal(sk, sp_) and torch.equal(xk, xp)
+
+
+def _loop_system(form, B, n, m, dtype, dev, seed=7):
+    """A random ELL system in the cg backend's form or polish's (P
+    diagonally dominant, some 5 entries a row), with tolerances from frozen
+    at the start to out of reach: (op, sigma, dinv, b, tol, x0)."""
+    import scipy.sparse as sp
+
+    from osqp_tpu_torch.ops import ell as k5
+
+    rng = np.random.default_rng(seed)
+    M = sp.random(n, n, density=2.0 / n, random_state=rng)
+    P = _ell(sp.triu(M + M.T + 6.0 * sp.eye(n), format="csr"), B, dtype, dev, seed=seed, sym=True)
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    b, x0 = T(rng.standard_normal((B, n))), T(rng.standard_normal((B, n)))
+    tol = T(np.resize([1e-10, 1e-3, 1e9, 1e-2, 1e-6], B))
+    if not m:
+        A = _ell(sp.csr_matrix((0, n)), B, dtype, dev)
+        sigma = torch.tensor(1e-2, dtype=dtype)
+        op = k6.EllOperator(P, A, w=T(np.ones((B, 0)))) if form == "cg" else k6.EllOperator(P, A, div=sigma)
+        return op, sigma, 1.0 / (k5.ell_diagonal(P) + sigma), b, tol, x0
+    A = _ell(sp.random(m, n, density=3.0 / n, random_state=rng, format="csr"), B, dtype, dev, seed=seed + 1)
+    if form == "cg":
+        sigma, w = torch.tensor(1e-6, dtype=dtype), T(rng.random((B, m)) + 0.1)
+        return (k6.EllOperator(P, A, w=w), sigma, 1.0 / (k5.ell_diagonal(P) + sigma + k5.ell_sq_colsums(A, w)), b,
+                tol, x0)
+    sigma = torch.tensor(1e-2, dtype=dtype)
+    MA = k5.ell_scale(A, T(rng.random((B, m)) < 0.5), torch.ones_like(b))
+    ones = torch.ones((B, m), dtype=dtype, device=dev)
+    dinv = 1.0 / (k5.ell_diagonal(P) + sigma + k5.ell_sq_colsums(MA, ones) / sigma)
+    return k6.EllOperator(P, MA, div=sigma), sigma, dinv, b, tol, x0
+
+
+# The loop's modes: operands and vectors in shared memory, the vectors
+# alone, and everything in device memory.
+LOOP_MODES = ((True, True), (False, True), (False, False))
+
+
+def _plans_that_fit(op, b, cluster, clusters=None):
+    """The plans of the device loop at this cluster size, one a mode that
+    fits a CTA's shared memory, their width as loop_plan derives it."""
+    from osqp_tpu_torch import _build
+
+    B, n = b.shape
+    m = op.A.shape[0]
+    kp, ka, kt = op.P.idx.shape[1], op.A.idx.shape[1], op.A.t_idx.shape[1]
+    threads = 256 * min(4, -(-k6.parts_of(n) // cluster))
+    plans = []
+    for resident, vectors in LOOP_MODES:
+        smem = k6.loop_smem(n, m, kp, ka, kt, cluster, resident, vectors, b.element_size())
+        if smem <= _build.SMEM_BYTES:
+            plans.append(k6.LoopPlan(cluster, threads, resident, vectors, smem, clusters or B))
+    return plans
+
+
+def _loop_matches_plain(op, sigma, dinv, b, tol, x0, max_iter, plans):
+    """Each plan's loop against pcg_solve_plain(chunk=1, dot=kernel_dot):
+    the same steps per instance (instances stopping at several steps) and
+    x bit for bit, one launch each."""
+    xp, sp_ = k6.pcg_solve_plain(op, sigma, dinv, b, tol, max_iter, x0, chunk=1, dot=k6.kernel_dot)
+    assert int(sp_.max()) > 0 and len(set(sp_.tolist())) > 1
+    assert plans
+    for plan in plans:
+        before = k6.launches_loop
+        xk, sk = k6.pcg_solve_loop(op, sigma, dinv, b, tol, max_iter, x0, plan=plan)
+        torch.cuda.synchronize()
+        assert k6.launches_loop - before == 1 and k6.last_plan == plan
+        assert torch.equal(sk, sp_), plan
+        assert torch.equal(xk, xp), plan
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 5, 8, 11, 14, 16])
+@pytest.mark.parametrize("form", ["cg", "polish"])
+def test_device_loop_plans_match_the_plain_loop(dev, cluster, form):
+    """The device loop on clusters of 1 to 16 CTAs (float64, n = 5000: 20
+    parts), in both operator forms, in every mode that fits a CTA: the
+    operands' rows in shared memory from 11 CTAs up, read from device
+    memory at each step, and the vectors in device memory (the only mode
+    of one CTA here); each against pcg_solve_plain(chunk=1,
+    dot=kernel_dot): the same steps per instance and x bit for bit."""
+    op, sigma, dinv, b, tol, x0 = _loop_system(form, 5, 5000, 3500, torch.float64, dev)
+    plans = _plans_that_fit(op, b, cluster)
+    assert [p.resident for p in plans].count(True) == (cluster >= 11)
+    assert all(p.vectors for p in plans[:-1]) and not plans[-1].vectors
+    _loop_matches_plain(op, sigma, dinv, b, tol, x0, 60, plans)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cluster", [1, 3, 8, 16])
+def test_device_loop_past_16384_variables(dev, dtype, cluster):
+    """n = 20000 (64 parts of two rounds of 256 each): the owners'
+    arithmetic past one round, in every mode that fits."""
+    op, sigma, dinv, b, tol, x0 = _loop_system("cg", 3, 20000, 9000, dtype, dev, seed=11)
+    _loop_matches_plain(op, sigma, dinv, b, tol, x0, 40, _plans_that_fit(op, b, cluster))
+
+
+@pytest.mark.parametrize("clusters", [1, 2, 3])
+def test_device_loop_takes_more_instances_than_clusters(dev, clusters):
+    """B = 7 over 1 to 3 clusters at once: each cluster takes the next
+    instance left when its own is done, and every instance gets the plain
+    loop's steps and bits."""
+    op, sigma, dinv, b, tol, x0 = _loop_system("cg", 7, 3000, 2000, torch.float64, dev, seed=3)
+    _loop_matches_plain(op, sigma, dinv, b, tol, x0, 80, _plans_that_fit(op, b, 4, clusters=clusters))
+
+
+@pytest.mark.parametrize("form", ["cg", "polish"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_device_loop_without_constraints(dev, form, dtype):
+    """m = 0: no A p phase, V p absent; the default plan and forced ones."""
+    op, sigma, dinv, b, tol, x0 = _loop_system(form, 4, 3000, 0, dtype, dev, seed=5)
+    _, sk = k6.pcg_solve_loop(op, sigma, dinv, b, tol, 50, x0)
+    xp, sp_ = k6.pcg_solve_plain(op, sigma, dinv, b, tol, 50, x0, chunk=1, dot=k6.kernel_dot)
+    assert torch.equal(sk, sp_)
+    _loop_matches_plain(op, sigma, dinv, b, tol, x0, 50, _plans_that_fit(op, b, 3))
+
+
+def test_device_loop_default_plans_and_the_library_agree(dev):
+    """The plan's shared memory is the kernel's (csrc/cg.cu:loop_smem) for
+    every mode; the default plan at CVXQP2_L in float64 spreads one
+    instance over a cluster of 14 CTAs with its operands resident, and the
+    card holds the clusters it plans; a plan the kernel does not serve (a
+    cluster wider than the parts) raises."""
+    from osqp_tpu_torch import _build
+
+    lib = _build.library()
+    for n, m, kp, ka, kt in [(10000, 12500, 9, 3, 5), (10002, 10000, 1, 3, 3), (20000, 9000, 4, 3, 4),
+                             (20, 0, 3, 1, 1), (1000, 1250, 9, 3, 5)]:
+        for code, itemsize in ((0, 4), (1, 8)):
+            for cluster in (1, 2, 3, 14, 16):
+                if cluster > k6.parts_of(n):
+                    continue
+                for res, vec in ((True, True), (False, True), (False, False)):
+                    assert lib.osqp_cg_loop_smem(code, n, m, kp, ka, kt, cluster, res, vec) == k6.loop_smem(
+                        n, m, kp, ka, kt, cluster, res, vec, itemsize)
+    P, A = _maros_ell("CVXQP2_L", torch.float64, dev)
+    plan = k6._planned(1, 10000, 12500, P.idx.shape[1], A.idx.shape[1], A.t_idx.shape[1], 1, dev.index or 0)
+    assert (plan.cluster, plan.resident, plan.vectors, plan.clusters) == (14, True, True, 1)
+    op, sigma, dinv, b, tol, x0 = _loop_system("cg", 2, 3000, 2000, torch.float64, dev)
+    with pytest.raises(RuntimeError, match="cg_loop"):
+        k6.pcg_solve_loop(op, sigma, dinv, b, tol, 10, x0,
+                          plan=dataclasses.replace(_plans_that_fit(op, b, 12)[0], cluster=13))
 
 
 # ---------------------------------------------------------------------------
