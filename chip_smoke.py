@@ -4206,44 +4206,206 @@ def phase_compact(dev):
     return dict(sizes=sizes, plain_ms=statistics.median(plain_ms), compact_ms=statistics.median(comp_ms))
 
 
+# The kernels a loaded program must launch (names under the profiler): K4
+# on either path, K2's kernel or its cluster leaf, K1's epilogue, K3, and
+# with polish on K8's panels on either path.
+EXPORT_KERNELS = {
+    "K4": ("ruiz_resident_kernel", "amax_kernel"),
+    "K2": ("chol_inverse_kernel", "cluster_leaf_kernel"),
+    "K1": ("epilogue_kernel",),
+    "K3": ("products_kernel",),
+    "K8": ("bpanel_kernel", "cluster_panel_kernel"),
+}
+
+# A process with torch alone: osqp_tpu_torch and osqp_tpu cannot be
+# imported.  For each (blob, inputs, outputs) file triple it loads the
+# blob (the operators' library into the process, the program by
+# torch.export.load), runs it once to warm, three times by CUDA events and
+# once under the profiler, and saves the outputs; it prints one JSON line
+# a blob: load ms, call ms, the operators in the program's graphs, the
+# kernels the profiled call launched and its host reads (aten::is_nonzero:
+# the loop's and the branches' predicates, each read by `if pred`; the
+# operators read their settings from host tensors, which waits on nothing).
+ARTIFACT_CHILD = r"""
+import io, json, os, sys, tempfile, time
+sys.modules["osqp_tpu_torch"] = None
+sys.modules["osqp_tpu"] = None
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+for blob_path, args_path, out_path in zip(*[iter(sys.argv[1:])] * 3):
+    t0 = time.perf_counter()
+    spec = torch.load(blob_path, weights_only=True)
+    assert spec["torch_version"] == str(torch.__version__), spec["torch_version"]
+    if not hasattr(torch.ops.osqp_tpu_torch, "admm_iter"):
+        fd, lib = tempfile.mkstemp(suffix=".so")
+        with os.fdopen(fd, "wb") as f:
+            f.write(spec["ops_library"])
+        torch.ops.load_library(lib)
+        os.unlink(lib)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    solve = torch.export.load(io.BytesIO(spec["programs"]["cuda"])).module()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    ops = sorted({str(n.target).split(".")[1] for _, g in solve.named_modules() if hasattr(g, "graph")
+                  for n in g.graph.nodes if n.op == "call_function" and str(n.target).startswith("osqp_tpu_torch.")})
+    args = [t.cuda() for t in torch.load(args_path)]
+    times = []
+    with torch.no_grad():
+        solve(*args)
+        for _ in range(3):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            solve(*args)
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = solve(*args)
+            torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sorted({e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA})
+    reads = sum(e.name == "aten::is_nonzero" for e in events)
+    torch.save(dict(zip(spec["fields"], (o.cpu() for o in out))), out_path)
+    print(json.dumps({"load_ms": load_ms, "call_ms": times, "ops": ops, "kernels": kernels, "host_reads": reads,
+                      "packages": [k for k, v in sys.modules.items() if k.startswith("osqp") and v is not None]}))
+"""
+
+
+def run_artifact_child(cases, workdir):
+    """Run ARTIFACT_CHILD over ``cases``, a list of (blob bytes, input
+    tensors); returns, for each, (outputs on the card, the child's JSON)."""
+    import torch
+
+    argv, saved = [], {}
+    for i, (blob, inputs) in enumerate(cases):
+        paths = [os.path.join(workdir, f"{i}.{kind}") for kind in ("blob", "inputs", "outputs")]
+        with open(paths[0], "wb") as f:
+            f.write(blob)
+        if id(inputs) not in saved:  # cases that share their inputs share the file
+            torch.save([t.cpu() for t in inputs], paths[1])
+            saved[id(inputs)] = paths[1]
+        paths[1] = saved[id(inputs)]
+        argv += paths
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", ARTIFACT_CHILD, *argv], capture_output=True, text=True,
+                          cwd=workdir, env=env, timeout=600)
+    require(proc.returncode == 0, f"export: the torch-only process failed:\n{proc.stderr[-3000:]}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    require(len(lines) == len(cases), f"export: the torch-only process printed {len(lines)} results")
+    return [({k: v.to("cuda") for k, v in torch.load(argv[3 * i + 2]).items()}, lines[i]) for i in range(len(cases))]
+
+
+def check_artifact(what, outputs, info, want, kernels):
+    """Print a loaded program's run in the torch-only process and require
+    ``want``'s bits (a dict of tensors), ``kernels`` (keys of
+    EXPORT_KERNELS) among its kernels and neither package imported."""
+    differ = [f for f in want if not same_bits(outputs[f], want[f].to(outputs[f].device))]
+    found = {k: [n for n in EXPORT_KERNELS[k] if any(n in name for name in info["kernels"])] for k in kernels}
+    print(f"export {what} [{CARD}], torch-only process: load {info['load_ms']:.3f} ms, call ms "
+          f"{[round(t, 3) for t in info['call_ms']]} (median {statistics.median(info['call_ms']):.3f}), "
+          f"host reads a call {info['host_reads']}; operators in the program {info['ops']}; kernels by K "
+          f"{found}; osqp packages imported {info['packages']}; fields differing from the live solve in some "
+          f"bit: {differ}")
+    require(not info["packages"], f"export {what}: the torch-only process imported {info['packages']}")
+    require(not differ, f"export {what}: the loaded program differs from the live solve in {differ}")
+    missing = [k for k, names in found.items() if not names]
+    require(not missing, f"export {what}: {missing} launched no kernel in the torch-only process")
+
+
 def phase_export(dev):
-    """The fixed-shape artifact (osqp_tpu_torch.export): the headline
-    shape exported in float32 with polish on, loaded on the card and held
-    to a live solve_batch bit for bit (the same code path over the same
-    range); LISWET1 exported in float64 through SparseSolver.export,
+    """The fixed-shape artifact (osqp_tpu_torch.export).  Format 2, the
+    traced program: the headline shape exported in float32 with polish off
+    and on, and CVXQP2_M through Solver.export in float64 with polish on
+    (K4 split, K2's cluster leaves, K1, K8's cluster path); each loaded
+    and run by a process that has torch alone (osqp_tpu_torch and osqp_tpu
+    blocked), which must give the live solve's bits (solve_batch's, the
+    Solver's) and launch the card's kernels; the polish-on headline blob
+    also loaded here by load_solver.  Blob bytes, export ms (host clock,
+    no host read while tracing), load and call ms and host reads a call in
+    the torch-only process beside the live solve's ms and host reads.
+    Format 1: LISWET1 exported in float64 through SparseSolver.export,
     loaded and held to SparseSolver.solve within 1e-6, then with P's
     values x2 through the artifact and through update_P within 1e-5.  The
     Solver runs with warm_start off and its rho reset to the setting
     before the re-solve, so that it starts where the artifact starts: a
     re-solve from the first solve's iterates or adapted rho stops at
     another point within eps 1e-3 of the optimum (1.9e-3 from the
-    artifact's in x, on the CPU), which no tolerance of 1e-5 could hold.
-    Blob sizes and each call's ms."""
+    artifact's in x, on the CPU), which no tolerance of 1e-5 could hold."""
+    import tempfile
+
     import scipy.sparse as sp
     import torch
 
     import osqp_tpu_torch as ot
-    from osqp_tpu_torch import export
+    from osqp_tpu_torch import export, linalg
     from osqp_tpu_torch.io.qps import load_qps
 
     B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
-    kw = dict(SOLVE_KW, polish=True)
     data = on_device(make_qps(B, n, m), torch.float32, dev)
-    t0 = time.perf_counter()
-    blob = export.export_solver(B, n, m, **kw)
-    export_ms = (time.perf_counter() - t0) * 1e3
+    cases, wants, sizes = [], [], {}
+    for polish in (False, True):
+        kw = dict(SOLVE_KW, polish=polish)
+        reads = linalg.host_reads
+        t0 = time.perf_counter()
+        blob = export.export_solver(B, n, m, **kw)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        require(linalg.host_reads == reads, "export: tracing the program read the device")
+        reads = linalg.host_reads
+        live, live_ms = event_times(lambda: ot.solve_batch(*data, **kw), reps=3)
+        live_reads = (linalg.host_reads - reads) / 3
+        print(f"export headline B={B} n={n} m={m} f32 polish {'on' if polish else 'off'} [{CARD}]: format-2 blob "
+              f"{len(blob)} bytes, export {export_ms:.3f} ms (host clock); live solve_batch ms "
+              f"{[round(t, 3) for t in live_ms]} (median {statistics.median(live_ms):.3f}), host reads a solve "
+              f"{live_reads:g}")
+        cases.append((blob, data))
+        wants.append(live._asdict())
+        sizes[f"headline_polish_{'on' if polish else 'off'}"] = len(blob)
     t0 = time.perf_counter()
     fn = export.load_solver(blob)
     load_ms = (time.perf_counter() - t0) * 1e3
-    out, call_ms = event_times(lambda: fn(*data))
-    live, live_ms = event_times(lambda: ot.solve_batch(*data, **kw))
-    differ = [f for f in export._FIELDS if not same_bits(out[f], getattr(live, f))]
-    print(f"export headline B={B} n={n} m={m} f32 polish on [{CARD}]: blob {len(blob)} bytes, export "
-          f"{export_ms:.3f} ms, load {load_ms:.3f} ms (host clock); loaded call ms {[round(t, 3) for t in call_ms]} "
-          f"(median {statistics.median(call_ms):.3f}), live solve_batch ms {[round(t, 3) for t in live_ms]} (median "
-          f"{statistics.median(live_ms):.3f}); fields differing from the live solve in some bit: {differ}; "
+    out, call_ms = event_times(lambda: fn(*data), reps=3)
+    differ = [f for f in export._FIELDS if not same_bits(out[f], wants[1][f])]
+    print(f"export headline polish on, loaded here by load_solver [{CARD}]: load {load_ms:.3f} ms, call ms "
+          f"{[round(t, 3) for t in call_ms]}; fields differing from the live solve in some bit: {differ}; "
           f"status_polish 1 in {int((out['status_polish'] == 1).sum())} of {B}")
     require(not differ, f"export: the loaded solver differs from the live solve in {differ}")
+
+    qp = load_qps(os.path.join(MAROS, "CVXQP2_M.qps"))
+    s = ot.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype="float64", verbose=False, polish=True)
+    t0 = time.perf_counter()
+    sblob = s.export()
+    sexport_ms = (time.perf_counter() - t0) * 1e3
+    reads = linalg.host_reads
+    r, s_ms = event_times(s.solve, reps=1)
+    s_reads = linalg.host_reads - reads
+    Pd = qp.P.toarray()
+    Pd = np.triu(Pd) + np.triu(Pd, 1).T
+    sdata = on_device([np.asarray(v, np.float64)[None]
+                       for v in (Pd, qp.q, qp.A.toarray(), np.clip(qp.l, -1e30, 1e30), np.clip(qp.u, -1e30, 1e30))],
+                      torch.float64, dev)
+    swant = {"x": torch.as_tensor(r.x)[None], "y": torch.as_tensor(r.y)[None],
+             "iter": torch.tensor([r.info.iter], dtype=torch.int32),
+             "status_val": torch.tensor([r.info.status_val], dtype=torch.int32),
+             "status_polish": torch.tensor([r.info.status_polish], dtype=torch.int32),
+             "obj_val": torch.tensor([r.info.obj_val], dtype=torch.float64),
+             "pri_res": torch.tensor([r.info.pri_res], dtype=torch.float64),
+             "dua_res": torch.tensor([r.info.dua_res], dtype=torch.float64)}
+    print(f"export CVXQP2_M float64 polish on through Solver.export [{CARD}]: format-2 blob {len(sblob)} bytes, "
+          f"export {sexport_ms:.3f} ms (host clock); live Solver solve {s_ms[0]:.3f} ms, host reads {s_reads}: "
+          f"{r.info.status}, {r.info.iter} iterations, status_polish {r.info.status_polish}")
+    cases.append((sblob, sdata))
+    wants.append(swant)
+    sizes["cvxqp2_m"] = len(sblob)
+
+    with tempfile.TemporaryDirectory() as workdir:
+        runs = run_artifact_child(cases, workdir)
+    for (outputs, info), want, (what, kernels) in zip(runs, wants, (
+            ("headline polish off", ("K4", "K2", "K1", "K3")),
+            ("headline polish on", ("K4", "K2", "K1", "K3", "K8")),
+            ("CVXQP2_M float64 polish on", ("K4", "K2", "K1", "K3", "K8")))):
+        check_artifact(what, outputs, info, want, kernels)
 
     qp = load_qps(os.path.join(MAROS, "LISWET1.qps"))
     s = ot.SparseSolver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype="float64", verbose=False, warm_start=False)
@@ -4261,7 +4423,7 @@ def phase_export(dev):
     s.update_rho(s.settings.rho)
     r2, s2 = event_times(s.solve, reps=1)
     e2 = float(np.abs(o2["x"][0].cpu().numpy() - r2.x).max())
-    print(f"export LISWET1 float64 through SparseSolver.export [{CARD}]: blob {len(sblob)} bytes, export "
+    print(f"export LISWET1 float64 through SparseSolver.export [{CARD}]: format-1 blob {len(sblob)} bytes, export "
           f"{sexport_ms:.3f} ms; artifact status {int(o1['status_val'][0])}, iterations {int(o1['iter'][0])} "
           f"against the Solver's {r1.info.status} {r1.info.iter}: x max difference {e1:.3e} (tolerance 1e-6); "
           f"artifact call {t1[0]:.3f} ms, Solver solve {s1[0]:.3f} ms; with P x2: status {int(o2['status_val'][0])}, "
@@ -4269,7 +4431,7 @@ def phase_export(dev):
           f"(tolerance 1e-5), artifact call {t2[0]:.3f} ms, Solver solve {s2[0]:.3f} ms")
     require(int(o1["status_val"][0]) == ot.OSQP_SOLVED and e1 <= 1e-6, "export: LISWET1 artifact off the Solver")
     require(e2 <= 1e-5, "export: LISWET1 artifact off the Solver after update_P")
-    return dict(dense_bytes=len(blob), sparse_bytes=len(sblob))
+    return dict(sizes, sparse_bytes=len(sblob))
 
 
 # The parallel phase (osqp_tpu_torch.parallel) on a one-rank NCCL group.
@@ -4494,9 +4656,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    lib_path = _build.build(ops=True)
     _build.library()
-    print(f"kernels built in {time.perf_counter() - t0:.2f} s: {lib_path.name}")
+    print(f"kernels built in {time.perf_counter() - t0:.2f} s: {lib_path.name}, {_build.ops_path().name}")
 
     if len(sys.argv) > 1:
         if len(sys.argv) != 3 or sys.argv[1] != "--only":

@@ -1,12 +1,19 @@
-"""Builds the CUDA kernels in ``csrc/`` and binds them with ctypes.
+"""Builds the CUDA kernels in ``csrc/`` and binds them, with ctypes and
+as ``torch.library`` operators.
 
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
 source, all started together, and links the objects into one shared
-library with a plain C interface, at first use on a CUDA tensor.  The
-library lands in ``osqp_tpu_torch/_build/`` under a name keyed by a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the library already there.  Nothing is built or
-loaded at import: the CPU path never touches the compiler.
+library with a plain C interface, at first use on a CUDA tensor: the
+live solve calls it through ctypes.  The same objects and
+``csrc/torch_ops.cpp`` (compiled against the running torch's headers)
+link into a second library, the operators of namespace
+``torch.ops.osqp_tpu_torch`` over the dense path's entries, which a
+traced program calls (:func:`ops`); ``build(ops=True)`` compiles both in
+one wave.  Both land in ``osqp_tpu_torch/_build/`` under names keyed by
+a hash of the sources and flags (and, for the operators, of the torch
+version and its C++ ABI), beside the kernels' objects, so an edited
+source rebuilds and an unchanged one loads what is there.  Nothing is
+built or loaded at import: the CPU path never touches the compiler.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import subprocess
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+TORCH_OPS = CSRC / "torch_ops.cpp"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -79,6 +87,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+# The file name of the operators' library loaded in this process (by
+# ops(), or from an artifact by export.load_solver), None before.
+ops_loaded = None
 
 
 def _nvcc() -> str:
@@ -108,31 +119,121 @@ def _finish(cmd, proc, others=()) -> None:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
 
 
-def build() -> pathlib.Path:
-    """Compile the kernels unless a library for these sources exists."""
-    sources = sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+def _kernel_sources() -> list[pathlib.Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _kernel_digest() -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources:
+    for p in _kernel_sources():
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
-    out = BUILD_DIR / f"libosqp_kernels_{digest.hexdigest()[:16]}.so"
-    if out.exists():
+    return digest.hexdigest()[:16]
+
+
+def _torch_flags() -> tuple[list[str], list[str]]:
+    """(compile flags, link flags) of ``csrc/torch_ops.cpp`` for the
+    running torch: its headers and libraries, and its C++ ABI."""
+    import torch
+    from torch.utils.cpp_extension import include_paths, library_paths
+
+    cflags = ["-std=c++20", "-O2", "-Xcompiler", "-fPIC",
+              f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"]
+    cflags += [f"-I{p}" for p in include_paths()]
+    lflags = []
+    for p in library_paths():
+        lflags += [f"-L{p}", "-Xlinker", f"-rpath={p}"]
+    return cflags, lflags + ["-lc10", "-lc10_cuda", "-ltorch_cpu", "-ltorch_cuda"]
+
+
+def _ops_digest(kernels: str) -> str:
+    import torch
+
+    cflags, lflags = _torch_flags()
+    digest = hashlib.sha256(kernels.encode())
+    digest.update(torch.__version__.encode())
+    digest.update(" ".join(cflags + lflags).encode())
+    digest.update(TORCH_OPS.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def ops_path() -> pathlib.Path:
+    """Where the operators' library for these sources and this torch lies."""
+    return BUILD_DIR / f"libosqp_torch_ops_{_ops_digest(_kernel_digest())}.so"
+
+
+def build(ops: bool = False) -> pathlib.Path:
+    """Compile the kernels unless a library for these sources exists, and
+    with ``ops`` the operators' library too, in the same wave of
+    compilers; returns the kernels' library.  The objects stay beside the
+    libraries, so a later :func:`build_ops` compiles only torch_ops.cpp."""
+    kernels = _kernel_digest()
+    out = BUILD_DIR / f"libosqp_kernels_{kernels}.so"
+    ops_out = BUILD_DIR / f"libosqp_torch_ops_{_ops_digest(kernels)}.so" if ops else None
+    if out.exists() and (ops_out is None or ops_out.exists()):
         return out
+    obj_dir = BUILD_DIR / f"objects_{kernels}"
     work = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
     work.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    objects = [work / f"{p.stem}.o" for p in sources if p.suffix == ".cu"]
-    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / f"{o.stem}.cu")] for o in objects]
+    units = [p for p in _kernel_sources() if p.suffix == ".cu"]
+    objects = [obj_dir / f"{p.stem}.o" for p in units]
+    jobs = []
+    if not all(o.exists() for o in objects):
+        jobs += [[nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{p.stem}.o"), str(p)] for p in units]
+        objects = [work / f"{p.stem}.o" for p in units]
+    if ops_out is not None:
+        cflags, lflags = _torch_flags()
+        jobs.append([nvcc, *cflags, "-c", "-o", str(work / "torch_ops.o"), str(TORCH_OPS)])
     try:
         procs = [_start(cmd) for cmd in jobs]
         for cmd, proc in zip(jobs, procs):
             _finish(cmd, proc, procs)
-        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(work / out.name), *(str(o) for o in objects)]
-        _finish(link, _start(link))
-        os.replace(work / out.name, out)
+        if not out.exists():
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(work / out.name), *(str(o) for o in objects)]
+            _finish(link, _start(link))
+            os.replace(work / out.name, out)
+        if ops_out is not None:
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(work / ops_out.name), *(str(o) for o in objects),
+                    str(work / "torch_ops.o"), *lflags]
+            _finish(link, _start(link))
+            os.replace(work / ops_out.name, ops_out)
+        if objects[0].parent == work and not obj_dir.exists():
+            keep = BUILD_DIR / f"{obj_dir.name}.{os.getpid()}.tmp"
+            keep.mkdir()
+            for o in objects:
+                os.replace(o, keep / o.name)
+            try:
+                os.replace(keep, obj_dir)
+            except OSError:  # another process kept its objects first
+                shutil.rmtree(keep, ignore_errors=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def build_ops() -> pathlib.Path:
+    """The operators' library, built unless it exists (with the kernels'
+    objects, compiled unless kept)."""
+    build(ops=True)
+    return ops_path()
+
+
+def ops():
+    """``torch.ops.osqp_tpu_torch``, its library loaded (built at first
+    use).  Where an artifact's library is loaded already
+    (``export.load_solver``), it serves: both are made from the same
+    sources by the same torch, or the artifact refused to load."""
+    global ops_loaded
+    import torch
+
+    if ops_loaded is None:
+        with _lock:
+            if ops_loaded is None:
+                path = build_ops()
+                torch.ops.load_library(str(path))
+                ops_loaded = path.name
+    return torch.ops.osqp_tpu_torch
 
 
 def library() -> ctypes.CDLL:
@@ -162,6 +263,29 @@ def library() -> ctypes.CDLL:
             lib.osqp_term_products_scratch.restype = ctypes.c_longlong
             _lib = lib
     return _lib
+
+
+def tracing(t=None) -> bool:
+    """True under ``torch.export`` or ``torch.compile``, or where ``t`` is
+    a FakeTensor: a wrapper then calls its ``torch.library`` operator
+    (:func:`ops`) on a CUDA tensor, in place of a ctypes launch."""
+    import torch
+
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return True
+    if t is None:
+        return False
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
+def setting(v):
+    """A setting (sigma, alpha, K8's shift) as the operators take it: a
+    one-element tensor; a number becomes a float64 one on the host."""
+    import torch
+
+    return v if isinstance(v, torch.Tensor) else torch.tensor(float(v), dtype=torch.float64)
 
 
 def check(code: int, kernel: str) -> None:

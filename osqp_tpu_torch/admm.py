@@ -15,6 +15,14 @@ int ``k``, and each iteration enqueues device work without waiting:
 
 Per-instance termination freezes instances by masked selects; the loop
 ends when every instance has terminated or ``k`` passes the segment end.
+
+The loop's pieces (:func:`step`, :func:`_apply_check`,
+:func:`_apply_rho_adaptation`, :func:`finalize`) are shared with the
+traced program (:mod:`osqp_tpu_torch.program`), where ``k`` is a device
+tensor and each host read becomes device control flow
+(:mod:`osqp_tpu_torch.flow`): the rho update's read is a
+:func:`flow.cond` in both, and the check reads the active mask only
+outside the program.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Any
 
 import torch
 
+from . import flow
 from . import linsys as linsys_registry
 from .constants import (
     MIN_SCALING,
@@ -145,7 +154,7 @@ def admm_step(solve, factor, data: QPData, dyn: DynSettings, rs: RhoState, it: I
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class Carry:
-    k: int  # global iteration counter
+    k: Any  # global iteration counter (an int; a 0-d int64 tensor in the program)
     it: Iterates
     delta_x: torch.Tensor
     delta_y: torch.Tensor
@@ -153,12 +162,13 @@ class Carry:
     factor: Any
     info: InfoState
     active: torch.Tensor  # (B,) bool
-    any_active: bool  # host copy of active.any(), refreshed at each check
+    any_active: bool  # host copy of active.any(), refreshed at each check (True in the program)
     y_lo: Any = None  # (B, m) compensated dual-ascent carry (float32 only)
 
 
-def _apply_check(cfg, data, scl, dyn, c: Carry, iter_number: int, approximate=False) -> Carry:
-    """update_info + check_termination for active instances (osqp.c:420-449)."""
+def _apply_check(cfg, data, scl, dyn, c: Carry, iter_number, approximate=False) -> Carry:
+    """update_info + check_termination for active instances (osqp.c:420-449).
+    Outside the program the host reads the new active mask's any()."""
     tr = check_termination(
         cfg, data, scl, dyn, c.it.x, c.it.z, c.it.y, c.delta_x, c.delta_y, approximate
     )
@@ -192,7 +202,7 @@ def _apply_check(cfg, data, scl, dyn, c: Carry, iter_number: int, approximate=Fa
         info=info,
         factor=factor,
         active=active,
-        any_active=bool(host_read(active.any())),
+        any_active=c.any_active if flow.in_program() else bool(host_read(active.any())),
         delta_x=bwhere(dinf, tr.dx_cert, c.delta_x),
         delta_y=bwhere(pinf, tr.dy_cert, c.delta_y),
     )
@@ -217,22 +227,29 @@ def _apply_rho_adaptation(cfg, data, dyn, c: Carry) -> Carry:
 
     Updates rho where the estimate is more than adaptive_rho_tolerance
     off and refactors; the refactorization is skipped when no instance
-    needs it.
+    needs it (a :func:`flow.cond` on ``upd.any()``: one host read outside
+    the traced program).
     """
     rs = c.rho_state
     est = compute_rho_estimate(data, c.it.x, c.it.z, c.it.y, rs.rho)
     info = replace(c.info, rho_estimate=torch.where(c.active, est, c.info.rho_estimate))
     tol = dyn.adaptive_rho_tolerance
     upd = c.active & ((est > rs.rho * tol) | (est < rs.rho / tol))
-    if not host_read(upd.any()):
-        return replace(c, info=info)
+    c = replace(c, info=info)
+    return flow.cond(upd.any(), lambda c, data, dyn, upd: _refactor(cfg, data, dyn, c, upd),
+                     lambda c, data, dyn, upd: c, (c, data, dyn, upd))
 
+
+def _refactor(cfg, data, dyn, c: Carry, upd) -> Carry:
+    """osqp_update_rho (osqp.c:1281-1332) where ``upd`` (B,) is set."""
+    rs = c.rho_state
+    est = c.info.rho_estimate
     new_rho = torch.where(upd, torch.clamp(est, RHO_MIN, RHO_MAX), rs.rho)
     new_rv = rho_vec_from_type(rs.constr_type, new_rho)
     new_rs = RhoState(rho=new_rho, rho_vec=new_rv, rho_inv_vec=1.0 / new_rv, constr_type=rs.constr_type)
     new_factor = linsys_registry.init_factor(cfg, data.P, data.A, dyn.sigma, new_rv)
     factor = {key: _select_factor(upd, new, c.factor[key]) for key, new in new_factor.items()}
-    info = replace(info, rho_updates=info.rho_updates + upd.to(torch.int32))
+    info = replace(c.info, rho_updates=c.info.rho_updates + upd.to(torch.int32))
     return replace(c, rho_state=new_rs, factor=factor, info=info)
 
 
@@ -252,6 +269,30 @@ def init_carry(cfg: StaticConfig, data: QPData, rho_state: RhoState, factor: Any
         # Compensated dual accumulation (see admm_step): float32 only.
         y_lo=torch.zeros((B, cfg.m), dtype=dtype, device=dev) if dtype == torch.float32 else None,
     )
+
+
+def step(backend, refine: bool, data: QPData, dyn: DynSettings, c: Carry, active) -> Carry:
+    """One ADMM iteration of the instances set in ``active`` (B,), the
+    loop body of :func:`run_segment` and of the program: the backend's
+    refined body (K1r) where ``refine``, its fused body (K1) where it has
+    one, else :func:`admm_step` over its ``solve`` with the TwoSum carry
+    in float32, then the masked selects."""
+    if not hasattr(backend, "fused_step"):
+        it, dx, dy, y_lo = admm_step(backend.solve, c.factor, data, dyn, c.rho_state, c.it, c.y_lo)
+        return replace(
+            c,
+            it=bwhere(active, it, c.it),
+            delta_x=bwhere(active, dx, c.delta_x),
+            delta_y=bwhere(active, dy, c.delta_y),
+            y_lo=None if y_lo is None else bwhere(active, y_lo, c.y_lo),
+        )
+    if refine:
+        x, z, y, dx, dy, y_lo = backend.refined_step(
+            c.factor, data, dyn, c.rho_state, c.it, c.delta_x, c.delta_y, c.y_lo, active
+        )
+        return replace(c, it=Iterates(x=x, z=z, y=y), delta_x=dx, delta_y=dy, y_lo=y_lo)
+    x, z, y, dx, dy = backend.fused_step(c.factor, data, dyn, c.rho_state, c.it, c.delta_x, c.delta_y, active)
+    return replace(c, it=Iterates(x=x, z=z, y=y), delta_x=dx, delta_y=dy)
 
 
 def run_segment(cfg: StaticConfig, data: QPData, scl: ScalingData, dyn: DynSettings, c: Carry, end_iter: int) -> Carry:
@@ -276,26 +317,7 @@ def run_segment(cfg: StaticConfig, data: QPData, scl: ScalingData, dyn: DynSetti
     refine = fused and bool(host_read(backend.refine_signal(c.factor)))
 
     while c.k <= end_iter and c.any_active:
-        if not fused:
-            it, dx, dy, y_lo = admm_step(backend.solve, c.factor, data, dyn, c.rho_state, c.it, c.y_lo)
-            c = replace(
-                c,
-                it=bwhere(c.active, it, c.it),
-                delta_x=bwhere(c.active, dx, c.delta_x),
-                delta_y=bwhere(c.active, dy, c.delta_y),
-                y_lo=None if y_lo is None else bwhere(c.active, y_lo, c.y_lo),
-            )
-        elif refine:
-            x, z, y, dx, dy, y_lo = backend.refined_step(
-                c.factor, data, dyn, c.rho_state, c.it, c.delta_x, c.delta_y, c.y_lo, c.active
-            )
-            c = replace(c, it=Iterates(x=x, z=z, y=y), delta_x=dx, delta_y=dy, y_lo=y_lo)
-        else:
-            x, z, y, dx, dy = backend.fused_step(
-                c.factor, data, dyn, c.rho_state, c.it, c.delta_x, c.delta_y, c.active
-            )
-            c = replace(c, it=Iterates(x=x, z=z, y=y), delta_x=dx, delta_y=dy)
-
+        c = step(backend, refine, data, dyn, c, c.active)
         if check > 0 and c.k % check == 0:
             c = _apply_check(cfg, data, scl, dyn, c, c.k)
         if interval > 0 and c.k % interval == 0:
@@ -317,7 +339,10 @@ def finalize(
     approximate-tolerance pass, the fallback status for the rest, the
     objective and the final rho estimate.  ``run_checks=False`` is the
     SIGINT path (osqp.c:377-385)."""
-    last_iter = min(c.k - 1, cfg.max_iter)
+    if isinstance(c.k, torch.Tensor):
+        last_iter = torch.clamp(c.k - 1, max=cfg.max_iter)
+    else:
+        last_iter = min(c.k - 1, cfg.max_iter)
     if run_checks:
         c = _apply_check(cfg, data, scl, dyn, c, last_iter, approximate=False)
         # Approximate-tolerance pass for instances still UNSOLVED

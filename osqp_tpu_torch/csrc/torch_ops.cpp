@@ -1,0 +1,454 @@
+// The dense path's kernel entries as torch.library operators, namespace
+// osqp_tpu_torch: the launches that the dense_inv solve and its polish
+// make (K4 ruiz, K2 chol_inverse and its leaves, K1 admm_iter, K1r
+// admm_iter_refined on both paths, K3 term_products, K8's factor from
+// the KKT blocks and its solve).
+//
+// No kernel is new here.  Each operator calls the same extern "C" entry
+// that the ctypes path calls (the wrappers in ops/), on PyTorch's current
+// stream of the inputs' device, and allocates its outputs and scratch with
+// at::empty, sized by the entries' own *_scratch queries.  The schemas are
+// functional (inputs in, new outputs out), so that torch.export can trace
+// a program through them, and each operator has a Meta kernel here, so
+// that loading this library is all a reader of a saved program needs.
+//
+// Plans stay in Python (ops/ruiz.py:cluster_size, ops/admm_iter.py:
+// refined_plan and resident_clusters, _build.split_geometry, the SM
+// count): they come in as int arguments, and each is checked here
+// against the card.  A plan that does not fit raises; no operator takes
+// another path than the one it is given.  The settings (sigma, alpha,
+// K8's shift) come in as one-element tensors, as the program holds them
+// (DynSettings): a float argument would make the tracer read a traced
+// value on the host.
+#include <cstdint>
+#include <optional>
+#include <tuple>
+
+#include <ATen/core/Tensor.h>
+#include <ATen/ops/empty.h>
+#include <ATen/ops/empty_like.h>
+#include <ATen/ops/ones.h>
+#include <ATen/ops/zeros.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <cuda_runtime_api.h>
+#include <torch/library.h>
+
+extern "C" {
+int osqp_ruiz(int dtype, const void* P, const void* q, const void* A, const void* l, const void* u, void* c, void* D,
+              void* E, void* Ps, void* qs, void* As, void* ls, void* us, void* col_a, void* row_a, void* col_p,
+              void* p_col, int n_iters, int B, int n, int m, int rows_a, int rows_p, int cluster, void* stream);
+int osqp_ruiz_resident_clusters(int dtype, int n, int m, int k);
+void osqp_split_geometry(int B, int n, int m, int sm_count, int* out);
+int osqp_chol_inverse(int dtype, const void* M, void* X, int B, int n, void* stream);
+int osqp_chol_inverse_leaf(int dtype, const void* S, void* T, int B, int n, void* stream);
+int osqp_chol_inverse_leaf_cluster(int dtype, const void* S, void* T, void* scratch, int B, int n, int k,
+                                   void* stream);
+long long osqp_chol_inverse_leaf_scratch(int n);
+int osqp_chol_inverse_blocks_per_sm(int dtype, int n);
+int osqp_admm_iter(int dtype, const void* Minv, const void* AMinvT, const void* A, const void* q, const void* l,
+                   const void* u, const void* rho, const void* rho_inv, const void* active, const void* x,
+                   const void* z, const void* y, const void* dx, const void* dy, void* x_out, void* z_out,
+                   void* y_out, void* dx_out, void* dy_out, void* scratch, double sigma, double alpha, int B, int n,
+                   int m, int sm_count, void* stream);
+size_t osqp_admm_iter_scratch(int dtype, int B, int n, int m, int sm_count);
+int osqp_admm_iter_refined(int dtype, const void* Minv, const void* A, const void* P, const void* q, const void* l,
+                           const void* u, const void* rho, const void* rho_inv, const void* active, const void* x,
+                           const void* z, const void* y, const void* dx, const void* dy, const void* y_lo,
+                           void* x_out, void* z_out, void* y_out, void* dx_out, void* dy_out, void* y_lo_out,
+                           void* scratch, double sigma, double alpha, int B, int n, int m, int sm_count,
+                           void* stream);
+size_t osqp_admm_iter_refined_scratch(int dtype, int B, int n, int m, int sm_count);
+int osqp_admm_iter_refined_resident(int dtype, const void* Minv, const void* A, const void* P, const void* q,
+                                    const void* l, const void* u, const void* rho, const void* rho_inv,
+                                    const void* active, const void* x, const void* z, const void* y,
+                                    const void* dx, const void* dy, const void* y_lo, void* x_out, void* z_out,
+                                    void* y_out, void* dx_out, void* dy_out, void* y_lo_out, double sigma,
+                                    double alpha, int B, int n, int m, int k, int p_res, int clusters,
+                                    void* stream);
+int osqp_admm_iter_refined_resident_clusters(int dtype, int n, int m, int k, int p_res);
+int osqp_term_products(int dtype, const void* P, const void* A, const void* x, const void* y, const void* dx,
+                       const void* dy, void* row_out, void* p_out, void* col_out, void* scratch, int B, int n, int m,
+                       int rows_a, int rows_p, void* stream);
+long long osqp_term_products_scratch(int dtype, int B, int n, int m, int rows_a, int rows_p, int nv);
+int osqp_kkt_lu_factor_blocks(int dtype, const void* P, const void* A, const void* d, double shift, int n, int m,
+                              void* lu, void* perm, void* scratch, int B, int sm_count, void* info, void* stream);
+long long osqp_kkt_lu_factor_scratch(int dtype, int B, int N);
+int osqp_kkt_lu_solve_scratch(int B, int N, int sm_count);
+int osqp_kkt_lu_solve(int dtype, const void* lu, const void* perm, const void* b, void* x, void* scratch, int B,
+                      int N, int sm_count, void* stream);
+}
+
+namespace {
+
+using at::Tensor;
+using OptTensor = std::optional<Tensor>;
+using Five = std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor>;
+using Six = std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor>;
+using Eight = std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor>;
+
+int code_of(const Tensor& t) {
+  TORCH_CHECK(t.scalar_type() == at::kFloat || t.scalar_type() == at::kDouble,
+              "osqp_tpu_torch: float32 or float64 tensors, not ", t.scalar_type());
+  return t.scalar_type() == at::kFloat ? 0 : 1;
+}
+
+// Every tensor on x's CUDA device, contiguous; the floating ones of x's dtype.
+void same(const char* op, const Tensor& x, std::initializer_list<const Tensor*> ts) {
+  TORCH_CHECK(x.is_cuda(), op, ": CUDA tensors, not ", x.device());
+  for (const Tensor* t : ts) {
+    TORCH_CHECK(t->device() == x.device(), op, ": a tensor on ", t->device(), ", x on ", x.device());
+    TORCH_CHECK(t->is_contiguous(), op, ": contiguous tensors");
+    TORCH_CHECK(!t->is_floating_point() || t->scalar_type() == x.scalar_type(), op, ": a ", t->scalar_type(),
+                " tensor beside ", x.scalar_type());
+  }
+}
+
+void check(int code, const char* op) {
+  TORCH_CHECK(code == 0, op, " kernel launch failed: CUDA error ", code, " (",
+              cudaGetErrorString(static_cast<cudaError_t>(code)), ")");
+}
+
+int device_sms(const Tensor& t) {
+  int sms = 0;
+  check(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, t.get_device()), "cudaDeviceGetAttribute");
+  return sms;
+}
+
+void check_sms(const char* op, const Tensor& t, int64_t sm_count) {
+  TORCH_CHECK(sm_count == device_sms(t), op, ": planned for ", sm_count, " SMs, the card has ", device_sms(t));
+}
+
+void check_split(const char* op, const Tensor& t, int B, int n, int m, int64_t rows_a, int64_t rows_p) {
+  int geo[3];
+  osqp_split_geometry(B, n, m, device_sms(t), geo);
+  TORCH_CHECK(rows_a == geo[1] && rows_p == geo[2], op, ": a split of ", rows_a, " / ", rows_p,
+              " rows a block, the card's is ", geo[1], " / ", geo[2]);
+}
+
+// A setting (sigma, alpha, K8's shift) as the C entries take it: a
+// one-element tensor, held on the host by the program that passes it (a
+// runtime setting of DynSettings), read without a wait.
+double scalar(const Tensor& t) {
+  TORCH_CHECK(t.numel() == 1, "osqp_tpu_torch: a setting is a one-element tensor, not ", t.sizes());
+  return t.item<double>();
+}
+
+void* stream_of(const Tensor& t) { return c10::cuda::getCurrentCUDAStream(t.get_device()).stream(); }
+
+const void* cptr(const Tensor& t) { return t.data_ptr(); }
+const void* cptr(const OptTensor& t) { return t.has_value() ? t->data_ptr() : nullptr; }
+void* ptr(const Tensor& t) { return t.data_ptr(); }
+
+Tensor bytes(const Tensor& like, int64_t n) { return at::empty({n}, like.options().dtype(at::kByte)); }
+
+// ---------------------------------------------------------------------------
+// K4
+// ---------------------------------------------------------------------------
+Eight ruiz_meta(const Tensor& P, const Tensor& q, const Tensor& A, const Tensor& l, const Tensor& u, int64_t, int64_t,
+                int64_t, int64_t) {
+  const int64_t B = q.size(0), n = q.size(1), m = l.size(1);
+  return {at::empty({B}, q.options()), at::empty({B, n}, q.options()), at::empty({B, m}, q.options()),
+          at::empty_like(P), at::empty_like(q), at::empty_like(A), at::empty_like(l), at::empty_like(u)};
+}
+
+Eight ruiz_cuda(const Tensor& P, const Tensor& q, const Tensor& A, const Tensor& l, const Tensor& u, int64_t n_iters,
+                int64_t cluster, int64_t rows_a, int64_t rows_p) {
+  same("ruiz", q, {&P, &q, &A, &l, &u});
+  c10::cuda::CUDAGuard guard(q.device());
+  const int code = code_of(q), B = q.size(0), n = q.size(1), m = l.size(1);
+  if (cluster > 0) {
+    TORCH_CHECK(osqp_ruiz_resident_clusters(code, n, m, cluster) > 0, "ruiz: the card holds no cluster of ",
+                cluster, " CTAs of the resident path at n = ", n, ", m = ", m);
+  } else {
+    check_split("ruiz", q, B, n, m, rows_a, rows_p);
+  }
+  Tensor c = at::ones({B}, q.options()), D = at::ones({B, n}, q.options()), E = at::ones({B, m}, q.options());
+  Tensor Ps = at::empty_like(P), qs = at::empty_like(q), As = at::empty_like(A), ls = at::empty_like(l),
+         us = at::empty_like(u);
+  Tensor col_a, row_a, col_p, p_col;  // the split path's maxima (zero = +0.0) and P's column norm
+  if (cluster == 0) {
+    col_a = at::zeros({B, n}, q.options());
+    col_p = at::zeros({B, n}, q.options());
+    p_col = at::zeros({B, n}, q.options());
+    row_a = at::zeros({B, m}, q.options());
+  }
+  auto opt = [](const Tensor& t) { return t.defined() ? t.data_ptr() : nullptr; };
+  check(osqp_ruiz(code, cptr(P), cptr(q), cptr(A), cptr(l), cptr(u), ptr(c), ptr(D), ptr(E), ptr(Ps), ptr(qs),
+                  ptr(As), ptr(ls), ptr(us), opt(col_a), opt(row_a), opt(col_p), opt(p_col), n_iters, B, n, m,
+                  rows_a, rows_p, cluster, stream_of(q)),
+        "ruiz");
+  return {c, D, E, Ps, qs, As, ls, us};
+}
+
+// ---------------------------------------------------------------------------
+// K2
+// ---------------------------------------------------------------------------
+Tensor square_meta(const Tensor& M) { return at::empty_like(M); }
+Tensor square_cluster_meta(const Tensor& S, int64_t) { return at::empty_like(S); }
+
+Tensor chol_inverse_cuda(const Tensor& M) {
+  same("chol_inverse", M, {&M});
+  c10::cuda::CUDAGuard guard(M.device());
+  const int code = code_of(M), B = M.size(0), n = M.size(1);
+  TORCH_CHECK(osqp_chol_inverse_blocks_per_sm(code, n) > 0, "chol_inverse: no block of n = ", n, " fits an SM");
+  Tensor X = at::empty_like(M);
+  check(osqp_chol_inverse(code, cptr(M), ptr(X), B, n, stream_of(M)), "chol_inverse");
+  return X;
+}
+
+Tensor chol_inverse_leaf_cuda(const Tensor& S) {
+  same("chol_inverse_leaf", S, {&S});
+  c10::cuda::CUDAGuard guard(S.device());
+  const int code = code_of(S), B = S.size(0), n = S.size(1);
+  TORCH_CHECK(osqp_chol_inverse_blocks_per_sm(code, n) > 0, "chol_inverse_leaf: no block of n = ", n,
+              " fits an SM");
+  Tensor T = at::empty_like(S);
+  check(osqp_chol_inverse_leaf(code, cptr(S), ptr(T), B, n, stream_of(S)), "chol_inverse_leaf");
+  return T;
+}
+
+Tensor chol_inverse_leaf_cluster_cuda(const Tensor& S, int64_t cluster) {
+  same("chol_inverse_leaf_cluster", S, {&S});
+  c10::cuda::CUDAGuard guard(S.device());
+  const int code = code_of(S), B = S.size(0), n = S.size(1);
+  TORCH_CHECK(cluster == 2 || cluster == 4 || cluster == 8 || cluster == 16,
+              "chol_inverse_leaf_cluster: clusters of 2, 4, 8 or 16 CTAs, not ", cluster);
+  Tensor T = at::empty_like(S);
+  // L's panel columns and the next diagonal block, published by their owners
+  Tensor scratch = at::empty({B * osqp_chol_inverse_leaf_scratch(n)}, S.options());
+  check(osqp_chol_inverse_leaf_cluster(code, cptr(S), ptr(T), ptr(scratch), B, n, cluster, stream_of(S)),
+        "chol_inverse_leaf_cluster");
+  return T;
+}
+
+// ---------------------------------------------------------------------------
+// K1 and K1r
+// ---------------------------------------------------------------------------
+Five admm_iter_meta(const Tensor&, const Tensor&, const Tensor&, const Tensor&, const Tensor&, const Tensor&,
+                    const Tensor&, const Tensor&, const Tensor&, const Tensor& x, const Tensor& z, const Tensor& y,
+                    const Tensor& dx, const Tensor& dy, const Tensor&, const Tensor&, int64_t) {
+  return {at::empty_like(x), at::empty_like(z), at::empty_like(y), at::empty_like(dx), at::empty_like(dy)};
+}
+
+Five admm_iter_cuda(const Tensor& Minv, const Tensor& AMinvT, const Tensor& A, const Tensor& q, const Tensor& l,
+                    const Tensor& u, const Tensor& rho, const Tensor& rho_inv, const Tensor& active, const Tensor& x,
+                    const Tensor& z, const Tensor& y, const Tensor& dx, const Tensor& dy, const Tensor& sigma,
+                    const Tensor& alpha, int64_t sm_count) {
+  same("admm_iter", x, {&Minv, &AMinvT, &A, &q, &l, &u, &rho, &rho_inv, &active, &x, &z, &y, &dx, &dy});
+  TORCH_CHECK(active.scalar_type() == at::kBool, "admm_iter: active must be bool");
+  c10::cuda::CUDAGuard guard(x.device());
+  check_sms("admm_iter", x, sm_count);
+  const int code = code_of(x), B = x.size(0), n = x.size(1), m = z.size(1);
+  Tensor xo = at::empty_like(x), zo = at::empty_like(z), yo = at::empty_like(y), dxo = at::empty_like(dx),
+         dyo = at::empty_like(dy);
+  Tensor ws = bytes(x, static_cast<int64_t>(osqp_admm_iter_scratch(code, B, n, m, sm_count)));
+  check(osqp_admm_iter(code, cptr(Minv), cptr(AMinvT), cptr(A), cptr(q), cptr(l), cptr(u), cptr(rho), cptr(rho_inv),
+                       cptr(active), cptr(x), cptr(z), cptr(y), cptr(dx), cptr(dy), ptr(xo), ptr(zo), ptr(yo),
+                       ptr(dxo), ptr(dyo), ptr(ws), scalar(sigma), scalar(alpha), B, n, m, sm_count, stream_of(x)),
+        "admm_iter");
+  return {xo, zo, yo, dxo, dyo};
+}
+
+// The refined outputs; y_lo's is empty where the call has no carry.
+Six refined_outputs(const Tensor& x, const Tensor& z, const Tensor& y, const Tensor& dx, const Tensor& dy,
+                    const OptTensor& y_lo) {
+  return {at::empty_like(x),  at::empty_like(z),  at::empty_like(y),
+          at::empty_like(dx), at::empty_like(dy), y_lo.has_value() ? at::empty_like(*y_lo) : at::empty({0}, x.options())};
+}
+
+Six admm_iter_refined_meta(const Tensor&, const Tensor&, const Tensor&, const Tensor&, const Tensor&, const Tensor&,
+                           const Tensor&, const Tensor&, const Tensor&, const Tensor& x, const Tensor& z,
+                           const Tensor& y, const Tensor& dx, const Tensor& dy, const OptTensor& y_lo, const Tensor&,
+                           const Tensor&, int64_t) {
+  return refined_outputs(x, z, y, dx, dy, y_lo);
+}
+
+Six admm_iter_refined_resident_meta(const Tensor&, const Tensor&, const Tensor&, const Tensor&, const Tensor&,
+                                    const Tensor&, const Tensor&, const Tensor&, const Tensor&, const Tensor& x,
+                                    const Tensor& z, const Tensor& y, const Tensor& dx, const Tensor& dy,
+                                    const OptTensor& y_lo, const Tensor&, const Tensor&, int64_t, int64_t, int64_t) {
+  return refined_outputs(x, z, y, dx, dy, y_lo);
+}
+
+void check_refined(const char* op, const Tensor& Minv, const Tensor& A, const Tensor& P, const Tensor& q,
+                   const Tensor& l, const Tensor& u, const Tensor& rho, const Tensor& rho_inv, const Tensor& active,
+                   const Tensor& x, const Tensor& z, const Tensor& y, const Tensor& dx, const Tensor& dy,
+                   const OptTensor& y_lo) {
+  same(op, x, {&Minv, &A, &P, &q, &l, &u, &rho, &rho_inv, &active, &x, &z, &y, &dx, &dy});
+  if (y_lo.has_value()) same(op, x, {&*y_lo});
+  TORCH_CHECK(active.scalar_type() == at::kBool, op, ": active must be bool");
+}
+
+Six admm_iter_refined_cuda(const Tensor& Minv, const Tensor& A, const Tensor& P, const Tensor& q, const Tensor& l,
+                           const Tensor& u, const Tensor& rho, const Tensor& rho_inv, const Tensor& active,
+                           const Tensor& x, const Tensor& z, const Tensor& y, const Tensor& dx, const Tensor& dy,
+                           const OptTensor& y_lo, const Tensor& sigma, const Tensor& alpha, int64_t sm_count) {
+  check_refined("admm_iter_refined", Minv, A, P, q, l, u, rho, rho_inv, active, x, z, y, dx, dy, y_lo);
+  c10::cuda::CUDAGuard guard(x.device());
+  check_sms("admm_iter_refined", x, sm_count);
+  const int code = code_of(x), B = x.size(0), n = x.size(1), m = z.size(1);
+  Six o = refined_outputs(x, z, y, dx, dy, y_lo);
+  Tensor ws = bytes(x, static_cast<int64_t>(osqp_admm_iter_refined_scratch(code, B, n, m, sm_count)));
+  check(osqp_admm_iter_refined(code, cptr(Minv), cptr(A), cptr(P), cptr(q), cptr(l), cptr(u), cptr(rho),
+                               cptr(rho_inv), cptr(active), cptr(x), cptr(z), cptr(y), cptr(dx), cptr(dy), cptr(y_lo),
+                               ptr(std::get<0>(o)), ptr(std::get<1>(o)), ptr(std::get<2>(o)), ptr(std::get<3>(o)),
+                               ptr(std::get<4>(o)), y_lo.has_value() ? ptr(std::get<5>(o)) : nullptr, ptr(ws),
+                               scalar(sigma), scalar(alpha), B, n, m, sm_count, stream_of(x)),
+        "admm_iter_refined");
+  return o;
+}
+
+Six admm_iter_refined_resident_cuda(const Tensor& Minv, const Tensor& A, const Tensor& P, const Tensor& q,
+                                    const Tensor& l, const Tensor& u, const Tensor& rho, const Tensor& rho_inv,
+                                    const Tensor& active, const Tensor& x, const Tensor& z, const Tensor& y,
+                                    const Tensor& dx, const Tensor& dy, const OptTensor& y_lo, const Tensor& sigma,
+                                    const Tensor& alpha, int64_t cluster, int64_t p_res, int64_t clusters) {
+  check_refined("admm_iter_refined_resident", Minv, A, P, q, l, u, rho, rho_inv, active, x, z, y, dx, dy, y_lo);
+  c10::cuda::CUDAGuard guard(x.device());
+  const int code = code_of(x), B = x.size(0), n = x.size(1), m = z.size(1);
+  TORCH_CHECK(cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 || cluster == 16,
+              "admm_iter_refined_resident: clusters of 1, 2, 4, 8 or 16 CTAs, not ", cluster);
+  const int held = osqp_admm_iter_refined_resident_clusters(code, n, m, cluster, p_res != 0);
+  TORCH_CHECK(clusters > 0 && clusters == held, "admm_iter_refined_resident: planned for ", clusters,
+              " clusters of ", cluster, " CTAs at once, the card holds ", held, " at n = ", n, ", m = ", m);
+  Six o = refined_outputs(x, z, y, dx, dy, y_lo);
+  check(osqp_admm_iter_refined_resident(code, cptr(Minv), cptr(A), cptr(P), cptr(q), cptr(l), cptr(u), cptr(rho),
+                                        cptr(rho_inv), cptr(active), cptr(x), cptr(z), cptr(y), cptr(dx), cptr(dy),
+                                        cptr(y_lo), ptr(std::get<0>(o)), ptr(std::get<1>(o)), ptr(std::get<2>(o)),
+                                        ptr(std::get<3>(o)), ptr(std::get<4>(o)),
+                                        y_lo.has_value() ? ptr(std::get<5>(o)) : nullptr, scalar(sigma), scalar(alpha),
+                                        B, n, m, cluster, p_res != 0, clusters, stream_of(x)),
+        "admm_iter_refined_resident");
+  return o;
+}
+
+// ---------------------------------------------------------------------------
+// K3
+// ---------------------------------------------------------------------------
+// [A x, A dx] (k, B, m), [P x, P dx] (k, B, n), [A'y, A'dy] (k, B, n); k = 2
+// with the certificate directions dx and dy, else 1.
+std::tuple<Tensor, Tensor, Tensor> term_outputs(const Tensor& x, const Tensor& y, const OptTensor& dx) {
+  const int64_t k = dx.has_value() ? 2 : 1, B = x.size(0), n = x.size(1), m = y.size(1);
+  return {at::empty({k, B, m}, x.options()), at::empty({k, B, n}, x.options()), at::empty({k, B, n}, x.options())};
+}
+
+std::tuple<Tensor, Tensor, Tensor> term_products_meta(const Tensor&, const Tensor&, const Tensor& x, const Tensor& y,
+                                                      const OptTensor& dx, const OptTensor&, int64_t, int64_t) {
+  return term_outputs(x, y, dx);
+}
+
+std::tuple<Tensor, Tensor, Tensor> term_products_cuda(const Tensor& P, const Tensor& A, const Tensor& x,
+                                                      const Tensor& y, const OptTensor& dx, const OptTensor& dy,
+                                                      int64_t rows_a, int64_t rows_p) {
+  same("term_products", x, {&P, &A, &x, &y});
+  TORCH_CHECK(dx.has_value() == dy.has_value(), "term_products: both certificate directions dx and dy, or neither");
+  if (dx.has_value()) same("term_products", x, {&*dx, &*dy});
+  c10::cuda::CUDAGuard guard(x.device());
+  const int code = code_of(x), B = x.size(0), n = x.size(1), m = y.size(1), k = dx.has_value() ? 2 : 1;
+  check_split("term_products", x, B, n, m, rows_a, rows_p);
+  auto o = term_outputs(x, y, dx);
+  // The partial sums and the tickets, zeroed: every launch leaves them so.
+  const int64_t nbytes = osqp_term_products_scratch(code, B, n, m, rows_a, rows_p, k);
+  Tensor ws = nbytes ? at::zeros({nbytes}, x.options().dtype(at::kByte)) : Tensor();
+  check(osqp_term_products(code, cptr(P), cptr(A), cptr(x), cptr(y), cptr(dx), cptr(dy), ptr(std::get<0>(o)),
+                           ptr(std::get<1>(o)), ptr(std::get<2>(o)), nbytes ? ptr(ws) : nullptr, B, n, m, rows_a,
+                           rows_p, stream_of(x)),
+        "term_products");
+  return o;
+}
+
+// ---------------------------------------------------------------------------
+// K8
+// ---------------------------------------------------------------------------
+std::tuple<Tensor, Tensor> kkt_factor_outputs(const Tensor& P, const Tensor& A) {
+  const int64_t B = P.size(0), N = P.size(1) + A.size(1);
+  return {at::empty({B, N, N}, P.options()), at::empty({B, N}, P.options().dtype(at::kInt))};
+}
+
+std::tuple<Tensor, Tensor> kkt_lu_factor_blocks_meta(const Tensor& P, const Tensor& A, const Tensor&, const Tensor&,
+                                                     int64_t) {
+  return kkt_factor_outputs(P, A);
+}
+
+std::tuple<Tensor, Tensor> kkt_lu_factor_blocks_cuda(const Tensor& P, const Tensor& A, const Tensor& d,
+                                                     const Tensor& shift, int64_t sm_count) {
+  same("kkt_lu_factor_blocks", P, {&P, &A, &d});
+  c10::cuda::CUDAGuard guard(P.device());
+  check_sms("kkt_lu_factor_blocks", P, sm_count);
+  const int code = code_of(P), B = P.size(0), n = P.size(1), m = A.size(1);
+  auto o = kkt_factor_outputs(P, A);
+  Tensor scratch = bytes(P, osqp_kkt_lu_factor_scratch(code, B, n + m));
+  int info[3];
+  check(osqp_kkt_lu_factor_blocks(code, cptr(P), cptr(A), cptr(d), scalar(shift), n, m, ptr(std::get<0>(o)),
+                                  ptr(std::get<1>(o)), ptr(scratch), B, sm_count, info, stream_of(P)),
+        "kkt_lu_factor_blocks");
+  return o;
+}
+
+Tensor kkt_lu_solve_meta(const Tensor&, const Tensor&, const Tensor& b, int64_t) { return at::empty_like(b); }
+
+Tensor kkt_lu_solve_cuda(const Tensor& lu, const Tensor& perm, const Tensor& b, int64_t sm_count) {
+  same("kkt_lu_solve", lu, {&lu, &perm, &b});
+  TORCH_CHECK(perm.scalar_type() == at::kInt, "kkt_lu_solve: perm must be int32");
+  c10::cuda::CUDAGuard guard(lu.device());
+  check_sms("kkt_lu_solve", lu, sm_count);
+  const int code = code_of(lu), B = lu.size(0), N = lu.size(1);
+  Tensor x = at::empty_like(b);
+  const int ints = osqp_kkt_lu_solve_scratch(B, N, sm_count);
+  Tensor scratch = ints ? at::zeros({ints}, lu.options().dtype(at::kInt)) : Tensor();
+  check(osqp_kkt_lu_solve(code, cptr(lu), cptr(perm), cptr(b), ptr(x), ints ? ptr(scratch) : nullptr, B, N, sm_count,
+                          stream_of(lu)),
+        "kkt_lu_solve");
+  return x;
+}
+
+}  // namespace
+
+TORCH_LIBRARY(osqp_tpu_torch, m) {
+  m.def("ruiz(Tensor P, Tensor q, Tensor A, Tensor l, Tensor u, int n_iters, int cluster, int rows_a, int rows_p)"
+        " -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
+  m.def("chol_inverse(Tensor M) -> Tensor");
+  m.def("chol_inverse_leaf(Tensor S) -> Tensor");
+  m.def("chol_inverse_leaf_cluster(Tensor S, int cluster) -> Tensor");
+  m.def("admm_iter(Tensor Minv, Tensor AMinvT, Tensor A, Tensor q, Tensor l, Tensor u, Tensor rho, Tensor rho_inv,"
+        " Tensor active, Tensor x, Tensor z, Tensor y, Tensor dx, Tensor dy, Tensor sigma, Tensor alpha, int sm_count)"
+        " -> (Tensor, Tensor, Tensor, Tensor, Tensor)");
+  m.def("admm_iter_refined(Tensor Minv, Tensor A, Tensor P, Tensor q, Tensor l, Tensor u, Tensor rho,"
+        " Tensor rho_inv, Tensor active, Tensor x, Tensor z, Tensor y, Tensor dx, Tensor dy, Tensor? y_lo,"
+        " Tensor sigma, Tensor alpha, int sm_count) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
+  m.def("admm_iter_refined_resident(Tensor Minv, Tensor A, Tensor P, Tensor q, Tensor l, Tensor u, Tensor rho,"
+        " Tensor rho_inv, Tensor active, Tensor x, Tensor z, Tensor y, Tensor dx, Tensor dy, Tensor? y_lo,"
+        " Tensor sigma, Tensor alpha, int cluster, int p_res, int clusters)"
+        " -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
+  m.def("term_products(Tensor P, Tensor A, Tensor x, Tensor y, Tensor? dx, Tensor? dy, int rows_a, int rows_p)"
+        " -> (Tensor, Tensor, Tensor)");
+  m.def("kkt_lu_factor_blocks(Tensor P, Tensor A, Tensor d, Tensor shift, int sm_count) -> (Tensor, Tensor)");
+  m.def("kkt_lu_solve(Tensor lu, Tensor perm, Tensor b, int sm_count) -> Tensor");
+}
+
+TORCH_LIBRARY_IMPL(osqp_tpu_torch, CUDA, m) {
+  m.impl("ruiz", &ruiz_cuda);
+  m.impl("chol_inverse", &chol_inverse_cuda);
+  m.impl("chol_inverse_leaf", &chol_inverse_leaf_cuda);
+  m.impl("chol_inverse_leaf_cluster", &chol_inverse_leaf_cluster_cuda);
+  m.impl("admm_iter", &admm_iter_cuda);
+  m.impl("admm_iter_refined", &admm_iter_refined_cuda);
+  m.impl("admm_iter_refined_resident", &admm_iter_refined_resident_cuda);
+  m.impl("term_products", &term_products_cuda);
+  m.impl("kkt_lu_factor_blocks", &kkt_lu_factor_blocks_cuda);
+  m.impl("kkt_lu_solve", &kkt_lu_solve_cuda);
+}
+
+TORCH_LIBRARY_IMPL(osqp_tpu_torch, Meta, m) {
+  m.impl("ruiz", &ruiz_meta);
+  m.impl("chol_inverse", &square_meta);
+  m.impl("chol_inverse_leaf", &square_meta);
+  m.impl("chol_inverse_leaf_cluster", &square_cluster_meta);
+  m.impl("admm_iter", &admm_iter_meta);
+  m.impl("admm_iter_refined", &admm_iter_refined_meta);
+  m.impl("admm_iter_refined_resident", &admm_iter_refined_resident_meta);
+  m.impl("term_products", &term_products_meta);
+  m.impl("kkt_lu_factor_blocks", &kkt_lu_factor_blocks_meta);
+  m.impl("kkt_lu_solve", &kkt_lu_solve_meta);
+}

@@ -111,9 +111,11 @@ def make_qp_layer(active_tol: float = 1e-8, **settings):
     solution.
 
     The gradient is first order only: the backward pass is
-    ``once_differentiable``, so a gradient of the gradient raises (the
-    JAX package's backward pass is traceable, and can be differentiated
-    again).
+    ``once_differentiable``, so a gradient of the gradient raises a
+    RuntimeError.  The JAX package's layer is first order only too: a
+    gradient of its gradient differentiates the backward pass's x* and
+    y*, which come out of the solve's while loop, and reverse mode refuses
+    a while loop (``jax.grad`` of a ``jax.grad`` raises a ValueError).
     """
     settings.setdefault("polish", True)
     settings.setdefault("verbose", False)

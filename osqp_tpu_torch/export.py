@@ -13,56 +13,67 @@ The blob fixes (B, n, m), the dtype, the platforms it may run on
 inputs of another shape or dtype with a ValueError and runs the whole
 pipeline (Ruiz scaling, rho classification, factorization, the masked
 ADMM loop over the whole iteration range, optional polish, unscaling and
-certificates) in one unsegmented solve.  :func:`export_sparse_solver`
-also bakes in a sparsity pattern and its CSC-nnz -> ELL-slot value maps,
-and its callable takes value vectors only.
+certificates) in one unsegmented solve.
 
-What differs from the JAX package's artifact: that one is a traced and
-compiled program (``jax.export``), which runs with jax and the blob
-alone.  The port's solve cannot be traced: its kernels are ctypes calls,
-and its loop reads the device from the host at every termination check.
-So this blob is a versioned ``torch.save`` of plain data (readable with
-``torch.load(..., weights_only=True)``), loading it needs
-``osqp_tpu_torch`` installed, and on the card the kernel library is
-built at first use, as for any solve.
+Format 2, written for the ``dense_inv`` backend (the default), holds the
+solve as one program, as the JAX package's ``jax.export`` blob does: for
+each platform the ``torch.export.save`` bytes of
+:class:`~osqp_tpu_torch.program.SolveProgram` traced at the fixed shapes
+(``torch.export.export(..., strict=False)``; its loop and branches are
+``while_loop`` and ``cond`` operators), and for ``"cuda"`` the bytes of
+the library of the kernels' ``torch.library`` operators with the torch
+version that built it.  A ``"cuda"`` program is traced on the card: a
+machine without one refuses it.  Such a blob runs with torch and the
+blob alone, no ``osqp_tpu_torch`` (README, "Export"):
+
+    spec = torch.load(io.BytesIO(blob), weights_only=True)
+    # "cuda": write spec["ops_library"] to a file, torch.ops.load_library it
+    solve = torch.export.load(io.BytesIO(spec["programs"]["cuda"])).module()
+    out = dict(zip(spec["fields"], solve(P, q, A, l, u)))
+
+and :func:`load_solver` does just that.  Run eagerly, the loaded program
+reads each turn's predicate of its loop and each branch's on the host.
+
+Format 1, which :func:`export_sparse_solver` and the backends other than
+``dense_inv`` (``dense_chol``, ``kkt_lu``, ``cg``, ``block_tridiag``)
+still write, is a ``torch.save`` of the settings alone: its callable runs
+the live solve, so loading it needs ``osqp_tpu_torch`` installed, and on
+the card the kernel library is built at first use.  Both formats are
+plain data (``torch.load(..., weights_only=True)`` reads them), and
+:func:`load_solver` reads both.  :func:`export_sparse_solver` also bakes
+in a sparsity pattern and its CSC-nnz -> ELL-slot value maps, and its
+callable takes value vectors only.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import io
+import os
+import tempfile
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from . import __version__
+from . import _build
 from . import admm as admm_mod
 from . import constants as con
+from . import linsys as linsys_registry
 from .batch import _postprocess, _prepare, solve_batch
-from .solver import Settings, make_config, resolve_device, torch_dtype, validate_settings
+from .program import FIELDS, SolveProgram
+from .solver import Settings, make_config, reject_time_based_rho, resolve_device, torch_dtype, validate_settings
 from .sparse_ops import ell_pattern_from_scipy, ell_value_maps, ell_with_values
 from .types import DynSettings
 
 FORMAT = "osqp_tpu_torch.export"
-FORMAT_VERSION = 1
+FORMAT_VERSION = 2  # the traced program; 1: the settings alone
+FORMATS = (1, 2)  # what load_solver reads
 PLATFORMS = ("cuda", "cpu")
 
 # Stable output order of the calling convention (the JAX package's).
-_FIELDS = (
-    "x",
-    "y",
-    "status_val",
-    "iter",
-    "obj_val",
-    "pri_res",
-    "dua_res",
-    "rho_updates",
-    "rho_estimate",
-    "status_polish",
-    "prim_inf_cert",
-    "dual_inf_cert",
-)
+_FIELDS = FIELDS
 
 
 def _settings(dtype, settings: dict, **defaults) -> Settings:
@@ -85,9 +96,9 @@ def _platforms(platforms) -> list[str]:
     return names
 
 
-def _dump(spec: dict) -> bytes:
+def _dump(spec: dict, version: int) -> bytes:
     buf = io.BytesIO()
-    torch.save({"format": FORMAT, "format_version": FORMAT_VERSION, "version": __version__, **spec}, buf)
+    torch.save({"format": FORMAT, "format_version": version, "version": __version__, **spec}, buf)
     return buf.getvalue()
 
 
@@ -95,8 +106,8 @@ def _load(blob: bytes, kind: str) -> dict:
     spec = torch.load(io.BytesIO(blob), weights_only=True)
     if not isinstance(spec, dict) or spec.get("format") != FORMAT:
         raise ValueError("not an osqp_tpu_torch solver artifact")
-    if spec["format_version"] != FORMAT_VERSION:
-        raise ValueError(f"artifact format {spec['format_version']}, this package reads {FORMAT_VERSION}")
+    if spec["format_version"] not in FORMATS:
+        raise ValueError(f"artifact format {spec['format_version']}, this package reads {FORMATS}")
     if spec["kind"] != kind:
         loader = {"dense": "load_solver", "sparse": "load_sparse_solver"}[spec["kind"]]
         raise ValueError(f"a {spec['kind']} artifact: load it with {loader}")
@@ -127,15 +138,62 @@ def _outputs(res) -> dict:
     return {f: getattr(res, f) for f in _FIELDS}
 
 
+def _trace(B: int, n: int, m: int, s: Settings, platform: str) -> bytes:
+    """The ``torch.export.save`` bytes of the solve traced on ``platform``
+    at (B, n, m).  The kernels' wrappers take their operators on the
+    card and their plain versions on the CPU."""
+    if platform == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a 'cuda' program is traced on a CUDA card, and this machine has none")
+    dev = torch.device(platform)
+    dtype = torch_dtype(s.dtype)
+    args = tuple(torch.zeros(shape, dtype=dtype, device=dev) for shape in ((B, n, n), (B, n), (B, m, n), (B, m), (B, m)))
+    settings = {k: v for k, v in dataclasses.asdict(s).items() if k not in ("verbose", "time_limit")}
+    program = torch.export.export(SolveProgram(n, m, **settings), args, strict=False)
+    program.example_inputs = None  # else the archive keeps the traced inputs (a GB at the headline)
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return buf.getvalue()
+
+
 def export_solver(B: int, n: int, m: int, dtype="float32", platforms=None, **settings) -> bytes:
     """Serialize a batched solver for fixed (B, n, m) and settings.
 
     ``platforms``: a list of ``"cuda"`` and/or ``"cpu"``, the devices the
-    loaded callable may run on; the card by default.
+    loaded callable may run on; the card by default.  The ``dense_inv``
+    backend writes format 2, the traced program for each platform (a
+    ``"cuda"`` one only on a machine with a card); the other backends
+    format 1 (see the module docstring).
     """
     s = _settings(dtype, settings)
-    return _dump(dict(kind="dense", B=int(B), n=int(n), m=int(m), dtype=s.dtype, platforms=_platforms(platforms),
-                      settings=dataclasses.asdict(s)))
+    spec = dict(kind="dense", B=int(B), n=int(n), m=int(m), dtype=s.dtype, platforms=_platforms(platforms),
+                settings=dataclasses.asdict(s))
+    if linsys_registry.get(s.linsys_solver) is not linsys_registry.get("dense_inv"):
+        return _dump(spec, 1)
+    reject_time_based_rho(s)
+    spec.update(fields=list(FIELDS), torch_version=str(torch.__version__),
+                programs={p: _trace(spec["B"], spec["n"], spec["m"], s, p) for p in spec["platforms"]})
+    if "cuda" in spec["platforms"]:
+        path = _build.build_ops()
+        spec.update(ops_library=path.read_bytes(), ops_library_name=path.name)
+    return _dump(spec, 2)
+
+
+def _load_ops(spec: dict) -> None:
+    """The blob's operator library, loaded into this process unless it
+    (by its name, which carries its digest) is loaded already."""
+    name = spec["ops_library_name"]
+    if _build.ops_loaded in (None, name) and not hasattr(torch.ops.osqp_tpu_torch, "admm_iter"):
+        fd, path = tempfile.mkstemp(suffix=".so", prefix="osqp_torch_ops_")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(spec["ops_library"])
+            torch.ops.load_library(path)
+        finally:
+            os.unlink(path)
+        _build.ops_loaded = name
+    elif _build.ops_loaded != name:
+        raise ValueError(f"this artifact's operators are {name}; this process has loaded "
+                         f"{_build.ops_loaded or 'another library of the namespace osqp_tpu_torch'}")
 
 
 def load_solver(blob: bytes, device=None):
@@ -144,16 +202,39 @@ def load_solver(blob: bytes, device=None):
         fn(P, q, A, l, u) -> dict(field -> tensor)
 
     on ``device`` (the card unless asked; the blob must list its
-    platform), over inputs of the exported shapes and dtype."""
+    platform), over inputs of the exported shapes and dtype.  A format-2
+    blob loads its program (and on the card its operator library) and
+    refuses a torch other than the one that made it."""
     spec = _load(blob, "dense")
     dev = _device(spec, device)
     B, n, m = spec["B"], spec["n"], spec["m"]
     settings = dict(spec["settings"])
     dtype = torch_dtype(settings["dtype"])
+    shapes = ((B, n, n), (B, n), (B, m, n), (B, m), (B, m))
+
+    if spec["format_version"] == 1:
+        def fn(P, q, A, l, u):
+            _check((P, q, A, l, u), ("P", "q", "A", "l", "u"), shapes, dtype)
+            return _outputs(solve_batch(P, q, A, l, u, segmented=False, device=dev, **settings))
+
+        return fn
+
+    if spec["torch_version"] != str(torch.__version__):
+        raise ValueError(f"this artifact was made with torch {spec['torch_version']}, this is {torch.__version__}")
+    if dev.type == "cuda":
+        _load_ops(spec)
+    # Full-precision float32 products, as linalg.py pins them: the set-up
+    # GEMMs must not run in TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    solve = torch.export.load(io.BytesIO(spec["programs"][dev.type])).module()
 
     def fn(P, q, A, l, u):
-        _check((P, q, A, l, u), ("P", "q", "A", "l", "u"), ((B, n, n), (B, n), (B, m, n), (B, m), (B, m)), dtype)
-        return _outputs(solve_batch(P, q, A, l, u, segmented=False, device=dev, **settings))
+        _check((P, q, A, l, u), ("P", "q", "A", "l", "u"), shapes, dtype)
+        args = (torch.as_tensor(v, device=dev).contiguous() for v in (P, q, A, l, u))
+        with torch.no_grad():
+            return dict(zip(spec["fields"], solve(*args)))
 
     return fn
 
@@ -186,7 +267,7 @@ def export_sparse_solver(P, A, B: int = 1, dtype="float32", platforms=None, **se
         operands[name] = dict(nnz=int(M.nnz), shape=list(shape),
                               pattern=tensors(idx, t_idx), maps=tensors(*ell_value_maps(M, sym_from_triu=sym)))
     return _dump(dict(kind="sparse", B=int(B), n=int(Pu.shape[0]), m=int(Ac.shape[0]), dtype=s.dtype,
-                      platforms=_platforms(platforms), settings=dataclasses.asdict(s), operands=operands))
+                      platforms=_platforms(platforms), settings=dataclasses.asdict(s), operands=operands), 1)
 
 
 def load_sparse_solver(blob: bytes, device=None):

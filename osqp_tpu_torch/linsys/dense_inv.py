@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import flow
 from ..linalg import host_read
 from ..ops import spd_inverse as k2
 from ..ops.admm_iter import admm_iter, admm_iter_refined
@@ -70,11 +71,19 @@ def guarded_inverse(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     the lower residual (the JAX package takes Cholesky's unconditionally);
     the rest keep K2's inverse bit for bit.  NaN (non-PD) does not
     trigger it: NaN is the convexity signal, and Cholesky would give it
-    too."""
+    too.
+
+    In the traced program (:mod:`osqp_tpu_torch.program`) the count is
+    not read: a :func:`flow.cond` on ``bad.any()`` inverts the whole
+    batch through Cholesky and keeps the better inverse where ``bad`` is
+    set (:func:`_rescue_batch`).  A batched Cholesky need not give the
+    bits of one over the flagged instances alone."""
     global guard_rescued
     X = k2.spd_inverse(M)
     resid = _inverse_residual(M, X)
     bad = resid > (_GUARD_TOL_F32 if M.dtype == torch.float32 else _GUARD_TOL_F64)
+    if flow.in_program():
+        return flow.cond(bad.any(), _rescue_batch, lambda M, X, resid, bad: (X, resid), (M, X, resid, bad))
     rescued = int(host_read(bad.sum()))
     if rescued:
         guard_rescued += rescued
@@ -89,6 +98,16 @@ def guarded_inverse(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         X = X.index_copy(0, idx, torch.where(better[:, None, None], Xr, X[idx]))
         resid = resid.index_copy(0, idx, torch.where(better, rr, resid[idx]))
     return X, resid
+
+
+def _rescue_batch(M, X, resid, bad):
+    """The residual guard over the whole batch: Cholesky's inverse where
+    ``bad`` is set and its residual is the lower."""
+    Xr = _chol_inverse(M)
+    rr = _inverse_residual(M, Xr)
+    better = bad & (rr < resid)  # NaN compares False: K2's is kept
+    # row-major, as the kernels take Minv (the library's inverse is column-major)
+    return torch.where(better[:, None, None], Xr, X).contiguous(), torch.where(better, rr, resid)
 
 
 def init(P, A, sigma, rho_vec, **_):

@@ -105,6 +105,8 @@ def admm_iter(Minv, AMinvT, A, q, l, u, rho, rho_inv, sigma, alpha, active, x, z
         raise ValueError(f"admm_iter runs on CPU or CUDA tensors, not {x.device}")
     if not all(t.is_contiguous() for t in args):
         raise ValueError("admm_iter takes contiguous tensors")
+    if _build.tracing(x):
+        return admm_iter_op(*args[:8], sigma, alpha, *args[8:])
     (B, n), m = x.shape, z.shape[1]
     outs = tuple(torch.empty_like(t) for t in (x, z, y, dx, dy))
     lib = _build.library()
@@ -126,6 +128,14 @@ def admm_iter(Minv, AMinvT, A, q, l, u, rho, rho_inv, sigma, alpha, active, x, z
     _build.check(code, "admm_iter")
     launches += 1
     return outs
+
+
+def admm_iter_op(Minv, AMinvT, A, q, l, u, rho, rho_inv, sigma, alpha, active, x, z, y, dx, dy):
+    """:func:`admm_iter` through its operator
+    (``torch.ops.osqp_tpu_torch.admm_iter``), as a traced program calls
+    it: the same C entry, the same bits."""
+    return tuple(_build.ops().admm_iter(Minv, AMinvT, A, q, l, u, rho, rho_inv, active, x, z, y, dx, dy,
+                                        _build.setting(sigma), _build.setting(alpha), _build.sm_count(x.device)))
 
 
 def _kkt_solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None):
@@ -246,6 +256,9 @@ def admm_iter_refined(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x
         raise ValueError("admm_iter_refined takes contiguous tensors")
     (B, n), m = x.shape, z.shape[1]
     _, cluster = refined_plan(B, n, m, x.dtype, _build.sm_count(x.device))
+    if _build.tracing(x):
+        return refined_op(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x, z, y, dx, dy, y_lo,
+                          cluster=cluster)
     return launch_refined(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x, z, y, dx, dy, y_lo,
                           cluster=cluster)
 
@@ -296,6 +309,26 @@ def launch_refined(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x, z
     refined_launches += 1
     refined_launches_resident += bool(cluster)
     return outs + (lo_out,)
+
+
+def refined_op(Minv, A, P, q, l, u, rho, rho_inv, sigma, alpha, active, x, z, y, dx, dy, y_lo=None, *,
+               cluster: int):
+    """:func:`launch_refined` through its operators
+    (``admm_iter_refined_resident`` with clusters of ``cluster`` CTAs, P
+    resident where it fits, or ``admm_iter_refined`` where ``cluster`` is
+    0), as a traced program calls them: the plan's numbers are arguments,
+    which the operator checks against the card."""
+    (B, n), m = x.shape, z.shape[1]
+    ops = _build.ops()
+    args = (Minv, A, P, q, l, u, rho, rho_inv, active, x, z, y, dx, dy, y_lo, _build.setting(sigma),
+            _build.setting(alpha))
+    if cluster:
+        p_res = p_resident(n, m, cluster, x.dtype)
+        outs = ops.admm_iter_refined_resident(*args, int(cluster), int(p_res),
+                                              resident_clusters(n, m, cluster, x.dtype, p_res, x.device))
+    else:
+        outs = ops.admm_iter_refined(*args, _build.sm_count(x.device))
+    return tuple(outs[:5]) + ((outs[5] if y_lo is not None else None),)
 
 
 def _refined_kkt_solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None):

@@ -129,6 +129,8 @@ def kkt_lu_factor_blocks(P: torch.Tensor, A: torch.Tensor, shift: float, d: torc
     B, n, _ = P.shape
     m = A.shape[1]
     P, A, d = P.contiguous(), A.contiguous(), d.contiguous()
+    if _build.tracing(P):
+        return kkt_lu_factor_blocks_op(P, A, shift, d)
     return _launch_factor(P.device, P.dtype, B, n + m, lambda lib, lu, perm, scratch, sms, info:
                           lib.osqp_kkt_lu_factor_blocks(
                               _build.dtype_code(P.dtype), P.data_ptr(), A.data_ptr(), d.data_ptr(), float(shift),
@@ -176,6 +178,8 @@ def kkt_lu_solve(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor) -> torch
         raise ValueError(f"kkt_lu_solve runs on CPU or CUDA tensors, not {lu.device}")
     if not (lu.is_contiguous() and perm.is_contiguous() and b.is_contiguous()):
         raise ValueError("kkt_lu_solve takes contiguous tensors")
+    if _build.tracing(lu):
+        return kkt_lu_solve_op(lu, perm, b)
     B, N, _ = lu.shape
     x = torch.empty_like(b)
     lib = _build.library()
@@ -190,6 +194,20 @@ def kkt_lu_solve(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor) -> torch
     _build.check(code, "kkt_lu_solve")
     launches_solve += 1
     return x
+
+
+def kkt_lu_factor_blocks_op(P, A, shift, d):
+    """:func:`kkt_lu_factor_blocks` through its operator
+    (``torch.ops.osqp_tpu_torch.kkt_lu_factor_blocks``), as a traced
+    program calls it; ``factor_info`` is left as it was."""
+    return tuple(_build.ops().kkt_lu_factor_blocks(P, A, d, _build.setting(shift), _build.sm_count(P.device)))
+
+
+def kkt_lu_solve_op(lu, perm, b):
+    """:func:`kkt_lu_solve` through its operator
+    (``torch.ops.osqp_tpu_torch.kkt_lu_solve``), as a traced program calls
+    it."""
+    return _build.ops().kkt_lu_solve(lu, perm, b, _build.sm_count(lu.device))
 
 
 def kkt_lu_factor_plain(K: torch.Tensor):

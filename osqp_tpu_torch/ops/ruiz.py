@@ -145,7 +145,19 @@ def ruiz(P, q, A, l, u, n_iters: int):
         raise ValueError(f"ruiz runs on CPU or CUDA tensors, not {q.device}")
     if not all(t.is_contiguous() for t in (P, q, A, l, u)):
         raise ValueError("ruiz takes contiguous tensors")
-    return launch(P, q, A, l, u, n_iters, cluster_size(q.shape[1], l.shape[1], q.dtype))
+    (B, n), m = q.shape, l.shape[1]
+    cluster = cluster_size(n, m, q.dtype)
+    if _build.tracing(q):
+        return ruiz_op(P, q, A, l, u, n_iters, cluster)
+    return launch(P, q, A, l, u, n_iters, cluster)
+
+
+def ruiz_op(P, q, A, l, u, n_iters: int, cluster: int):
+    """:func:`launch` through the operator ``torch.ops.osqp_tpu_torch.ruiz``
+    (what a traced program calls; the same C entry, the same bits)."""
+    (B, n), m = q.shape, l.shape[1]
+    _, rows_a, rows_p = (0, 0, 0) if cluster else _build.split_geometry(B, n, m, q.device)
+    return tuple(_build.ops().ruiz(P, q, A, l, u, int(n_iters), int(cluster), rows_a, rows_p))
 
 
 def launch(P, q, A, l, u, n_iters: int, cluster: int):

@@ -161,6 +161,8 @@ def chol_inverse(M: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chol_inverse runs on CPU or CUDA tensors, not {M.device}")
     if not M.is_contiguous():
         raise ValueError("chol_inverse takes a contiguous tensor")
+    if _build.tracing(M):
+        return chol_inverse_op(M)
     B, n, _ = M.shape
     X = torch.empty_like(M)
     lib = _build.library()
@@ -171,6 +173,13 @@ def chol_inverse(M: torch.Tensor) -> torch.Tensor:
     _build.check(code, "chol_inverse")
     launches += 1
     return X
+
+
+def chol_inverse_op(M: torch.Tensor) -> torch.Tensor:
+    """:func:`chol_inverse` through its operator
+    (``torch.ops.osqp_tpu_torch.chol_inverse``), as a traced program calls
+    it."""
+    return _build.ops().chol_inverse(M)
 
 
 def chol_inverse_leaf(S: torch.Tensor, *, cluster: int | None = None) -> torch.Tensor:
@@ -196,6 +205,8 @@ def chol_inverse_leaf(S: torch.Tensor, *, cluster: int | None = None) -> torch.T
         _validate(S, max_n(S.dtype), "chol_inverse_leaf with one block an instance")
     elif not cluster_fits(n, cluster, S.dtype):
         raise ValueError(f"chol_inverse_leaf: n = {n} does not fit clusters of {cluster} CTAs in {S.dtype}")
+    if _build.tracing(S):
+        return leaf_op(S, cluster)
     T = torch.empty_like(S)
     lib = _build.library()
     with torch.cuda.device(S.device):
@@ -212,6 +223,15 @@ def chol_inverse_leaf(S: torch.Tensor, *, cluster: int | None = None) -> torch.T
     launches_leaf += 1
     launches_leaf_cluster += cluster > 0
     return T
+
+
+def leaf_op(S: torch.Tensor, cluster: int) -> torch.Tensor:
+    """:func:`chol_inverse_leaf` with clusters of ``cluster`` CTAs (0: one
+    block an instance) through its operator (``chol_inverse_leaf_cluster``
+    or ``chol_inverse_leaf`` of ``torch.ops.osqp_tpu_torch``), as a traced
+    program calls it."""
+    ops = _build.ops()
+    return ops.chol_inverse_leaf_cluster(S, int(cluster)) if cluster else ops.chol_inverse_leaf(S)
 
 
 def chol_inverse_leaf_plain(S: torch.Tensor) -> torch.Tensor:

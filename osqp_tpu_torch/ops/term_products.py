@@ -103,6 +103,8 @@ def term_products(P, A, x, y, dx=None, dy=None) -> TermProducts:
         raise ValueError("term_products takes contiguous tensors")
     B, n = x.shape
     m = y.shape[1]
+    if _build.tracing(x):
+        return term_products_op(P, A, x, y, dx, dy)
     k = 2 if cert else 1
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -122,6 +124,20 @@ def term_products(P, A, x, y, dx=None, dy=None) -> TermProducts:
     if cert:
         return TermProducts(Ax, Px, Aty, view(n, k * B * (m + n) + B * n), view(n, k * B * m + B * n), view(m, B * m))
     return TermProducts(Ax, Px, Aty, None, None, None)
+
+
+def term_products_op(P, A, x, y, dx=None, dy=None) -> TermProducts:
+    """:func:`term_products` through its operator
+    (``torch.ops.osqp_tpu_torch.term_products``), as a traced program
+    calls it.  The operator allocates the scratch zeroed at each call, where
+    the wrapper keeps one per shape and stream that every launch leaves
+    zeroed: the same bits."""
+    (B, n), m = x.shape, y.shape[1]
+    _, rows_a, rows_p = _build.split_geometry(B, n, m, x.device)
+    rows, pcols, cols = _build.ops().term_products(P, A, x, y, dx, dy, rows_a, rows_p)
+    if dx is not None:
+        return TermProducts(rows[0], pcols[0], cols[0], cols[1], pcols[1], rows[1])
+    return TermProducts(rows[0], pcols[0], cols[0], None, None, None)
 
 
 def term_products_plain(P, A, x, y, dx=None, dy=None) -> TermProducts:

@@ -197,7 +197,7 @@ def polish(
             solve_kkt, _ = _ell_kkt_solver(n, m, data.P, MA, dyn.delta, dtype)
         else:
             MA = mask[:, :, None] * data.A
-            factor = kkt_lu.factor_blocks(data.P, MA, float(dyn.delta), delta_vec)
+            factor = kkt_lu.factor_blocks(data.P, MA, dyn.delta, delta_vec)
             solve_kkt = lambda rhs: kkt_lu.solve_raw(factor, rhs)
 
         # rhs_red = [-q; l_low, u_upp], masked at fixed shape (polish.c:105-121)

@@ -560,7 +560,9 @@ class Solver:
 
         The blob solves any (B, n, m)-shaped data in the solve dtype
         through :func:`osqp_tpu_torch.export.load_solver`, on this
-        solver's device type; optionally written to ``path``."""
+        solver's device type; optionally written to ``path``.  With the
+        ``dense_inv`` backend it holds the solve traced on that device
+        (format 2), which runs with torch alone."""
         self._require_setup()
         from .export import export_solver
 

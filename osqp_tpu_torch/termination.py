@@ -234,7 +234,9 @@ def check_termination(
         s_solved, s_pinf, s_dinf = OSQP_SOLVED, OSQP_PRIMAL_INFEASIBLE, OSQP_DUAL_INFEASIBLE
 
     dev = pri_res.device
-    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    # torch.full, not torch.tensor: inside the traced program's loop a
+    # tensor made from data is a constant that torch.export.save refuses
+    i32 = lambda v: torch.full((), v, dtype=torch.int32, device=dev)
     status = torch.where(
         non_cvx,
         i32(OSQP_NON_CVX),
@@ -243,7 +245,7 @@ def check_termination(
     terminated = non_cvx | solved | prim_inf | (~prim_inf & dual_inf)
 
     # Objective value at a terminal status (auxil.c:704, 766, 781)
-    f = lambda v: torch.tensor(v, dtype=pri_res.dtype, device=dev)
+    f = lambda v: torch.full((), v, dtype=pri_res.dtype, device=dev)
     obj_at_term = torch.where(
         non_cvx, f(float("nan")), torch.where(prim_inf, f(OSQP_INFTY), f(-OSQP_INFTY))
     )

@@ -1802,6 +1802,149 @@ def test_export_round_trip_on_the_card(dev):
 
 
 # ---------------------------------------------------------------------------
+# The dense path's torch.library operators and the exported program
+# ---------------------------------------------------------------------------
+# (B, n, m): a batch on the resident paths (K4, K1r) and K2's kernel, and
+# one problem of CVXQP2_M's size on the split paths and K2's cluster leaf.
+OP_SHAPES = [(256, 100, 200), (1, 1000, 1250)]
+
+
+def _op_problem(dev, dtype, B, n, m, seed=31):
+    return [torch.as_tensor(v, dtype=dtype, device=dev) for v in _qps(B, n, m, seed=seed)]
+
+
+def _same_bits(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    bits = lambda t: t.reshape(-1).view(torch.uint8) if t.dtype.is_floating_point else t
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,m", OP_SHAPES)
+def test_ruiz_and_term_products_ops_match_their_launches(dev, dtype, B, n, m):
+    """K4's and K3's operators give the ctypes launches' bits, on the path
+    each plan names; K3's twice in turn and on a second stream."""
+    P, q, A, l, u = _op_problem(dev, dtype, B, n, m)
+    cluster = k4.cluster_size(n, m, dtype)
+    for a, b in zip(k4.ruiz_op(P, q, A, l, u, 10, cluster), k4.ruiz(P, q, A, l, u, 10)):
+        assert _same_bits(a, b)
+    x = torch.randn(B, n, dtype=dtype, device=dev)
+    y = torch.randn(B, m, dtype=dtype, device=dev)
+    dx, dy = torch.randn_like(x), torch.randn_like(y)
+    for extra in ((), (dx, dy)):
+        want = k3.term_products(P, A, x, y, *extra)
+        for got in (k3.term_products_op(P, A, x, y, *extra), k3.term_products_op(P, A, x, y, *extra)):
+            assert all(_same_bits(a, b) for a, b in zip(got, want))
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            got = k3.term_products_op(P, A, x, y, *extra)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        assert all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,m", OP_SHAPES)
+def test_admm_iter_ops_match_their_launches(dev, dtype, B, n, m):
+    """K1's operator and K1r's on the plan's path (resident at the batch,
+    split at B = 1), with and without the TwoSum carry, give the
+    launches' bits, half the instances active."""
+    P, q, A, l, u = _op_problem(dev, dtype, B, n, m)
+    Minv = k2.spd_inverse(P + 1e-6 * torch.eye(n, dtype=dtype, device=dev)).contiguous()
+    AMinvT = torch.bmm(Minv, A.transpose(1, 2)).contiguous()
+    rho = torch.full((B, m), 0.1, dtype=dtype, device=dev)
+    x, dx = torch.randn(B, n, dtype=dtype, device=dev), torch.randn(B, n, dtype=dtype, device=dev)
+    z, y, dy = (torch.randn(B, m, dtype=dtype, device=dev) for _ in range(3))
+    active = (torch.arange(B, device=dev) % 2 == 0) if B > 1 else torch.ones(1, dtype=torch.bool, device=dev)
+    common = (q, l, u, rho, 1.0 / rho, 1e-6, 1.6, active, x, z, y, dx, dy)
+    got, want = k1.admm_iter_op(Minv, AMinvT, A, *common), k1.admm_iter(Minv, AMinvT, A, *common)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    _, cluster = k1.refined_plan(B, n, m, dtype, torch.cuda.get_device_properties(dev).multi_processor_count)
+    for y_lo in (None, torch.randn(B, m, dtype=dtype, device=dev) * 1e-9):
+        got = k1.refined_op(Minv, A, P, *common, y_lo, cluster=cluster)
+        want = k1.admm_iter_refined(Minv, A, P, *common, y_lo)
+        assert all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spd_inverse_ops_match_their_launches(dev, dtype):
+    """K2's operators: the kernel, the leaf one block an instance and the
+    leaf's cluster form give the launches' bits."""
+    M = _spd(64, 100, dtype).to(dev)
+    assert _same_bits(k2.chol_inverse_op(M), k2.chol_inverse(M))
+    assert _same_bits(k2.leaf_op(M, 0), k2.chol_inverse_leaf(M, cluster=0))
+    S = _spd(1, 256, dtype).to(dev)
+    k = k2.leaf_plan(1, 256, dtype, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert k > 0
+    assert _same_bits(k2.leaf_op(S, k), k2.chol_inverse_leaf(S, cluster=k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,m", [(256, 50, 80), (1, 300, 400)])
+def test_kkt_lu_ops_match_their_launches(dev, dtype, B, n, m):
+    """K8's factor from the blocks and its solve through their operators,
+    on the batched path (B at or above the SM count) and the cluster path
+    with its second stream (B = 1), give the launches' bits."""
+    P, q, A, l, u = _op_problem(dev, dtype, B, n, m)
+    d = torch.full((B, m), 1e-6, dtype=dtype, device=dev)
+    lu, perm = k8.kkt_lu_factor_blocks_op(P, A, 1e-6, d)
+    lu0, perm0 = k8.kkt_lu_factor_blocks(P, A, 1e-6, d)
+    assert _same_bits(lu, lu0) and _same_bits(perm, perm0)
+    b = torch.randn(B, n + m, dtype=dtype, device=dev)
+    assert _same_bits(k8.kkt_lu_solve_op(lu, perm, b), k8.kkt_lu_solve(lu0, perm0, b))
+
+
+def test_ops_refuse_a_plan_that_does_not_fit_the_card(dev):
+    """A plan made for another card raises; no operator takes another path."""
+    from osqp_tpu_torch import _build
+
+    P, q, A, l, u = _op_problem(dev, torch.float64, 4, 30, 40)
+    ops, sms = _build.ops(), _build.sm_count(dev)
+    with pytest.raises(RuntimeError, match="rows a block"):
+        ops.ruiz(P, q, A, l, u, 10, 0, 1, 1)
+    with pytest.raises(RuntimeError, match="SMs"):
+        ops.kkt_lu_solve(torch.eye(70, dtype=torch.float64, device=dev).expand(4, 70, 70).contiguous(),
+                         torch.arange(70, dtype=torch.int32, device=dev).repeat(4, 1),
+                         torch.ones(4, 70, dtype=torch.float64, device=dev), sms + 1)
+
+
+@pytest.mark.parametrize("polish", [False, True])
+def test_exported_headline_program_gives_the_live_bits(dev, polish):
+    """The headline batch (B=8192, n=100, m=200, float32) as a format-2
+    artifact, loaded in this process, gives the live solve_batch's bits
+    in every field, and its export made no host read."""
+    from osqp_tpu_torch import export, linalg
+
+    B, n, m = 8192, 100, 200
+    kw = dict(dtype="float32", verbose=False, polish=polish)
+    args = [torch.as_tensor(v, dtype=torch.float32, device=dev) for v in _qps(B, n, m, seed=0)]
+    reads = linalg.host_reads
+    blob = export.export_solver(B, n, m, **kw)
+    assert linalg.host_reads == reads
+    out = export.load_solver(blob)(*args)
+    live = osqp_tpu_torch.solve_batch(*args, **kw)
+    differ = [f for f in export._FIELDS if not _same_bits(out[f], getattr(live, f))]
+    assert not differ
+
+
+def test_blob_is_plain_data_with_a_card_program(dev):
+    """A blob for both platforms holds both programs, the operators'
+    library and the torch that built it, all plain data."""
+    import io
+
+    from osqp_tpu_torch import export
+
+    blob = export.export_solver(2, 3, 4, platforms=["cpu", "cuda"], eps_abs=1e-5)
+    spec = torch.load(io.BytesIO(blob), weights_only=True)
+    assert spec["format_version"] == 2 and spec["platforms"] == ["cpu", "cuda"]
+    assert (spec["B"], spec["n"], spec["m"], spec["dtype"]) == (2, 3, 4, "float32")
+    assert spec["settings"]["eps_abs"] == 1e-5 and spec["torch_version"] == str(torch.__version__)
+    assert sorted(spec["programs"]) == ["cpu", "cuda"]
+    assert spec["ops_library"][:4] == b"\x7fELF" and spec["ops_library_name"].startswith("libosqp_torch_ops_")
+
+
+# ---------------------------------------------------------------------------
 # osqp_tpu_torch.parallel on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype,B,n,m", [(torch.float32, 64, 100, 200), (torch.float64, 64, 100, 200),

@@ -171,6 +171,25 @@ def test_only_requested_gradients_and_first_order_only():
         torch.autograd.grad(gq.sum(), ts[1])
 
 
+def test_neither_package_differentiates_twice():
+    """A gradient of a gradient raises in both layers: the JAX package's
+    backward pass runs its solve through a while_loop, which reverse mode
+    refuses (ValueError), and the port's is once_differentiable
+    (RuntimeError)."""
+    P, q, A, l, u = random_qps(1, 3, 4, seed=43)
+    jlayer = jdiff.make_qp_layer(**TIGHT)
+    jargs = [jnp.asarray(v) for v in (P, q, A, l, u)]
+    # loss = sum(x*^2): its dL/dx* = 2 x* carries q into the backward pass
+    dq = lambda qq: jax.grad(lambda q_: jnp.sum(jlayer(jargs[0], q_, *jargs[2:]) ** 2))(qq)
+    with pytest.raises(ValueError, match="Reverse-mode differentiation does not work"):
+        jax.grad(lambda qq: jnp.sum(dq(qq)))(jargs[1])
+    ts = _tensors(P, q, A, l, u, grad=(1,))
+    x = osqp_tpu_torch.make_qp_layer(**TIGHT)(*ts)
+    (gq,) = torch.autograd.grad((x ** 2).sum(), ts[1], create_graph=True)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(gq.sum(), ts[1])
+
+
 def test_layer_in_a_training_step():
     """q = Linear(features) feeds the layer inside an nn.Module; the
     Linear's weight and bias gradients equal the chain rule applied by

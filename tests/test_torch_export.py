@@ -130,14 +130,21 @@ def test_sparse_loaded_callable_matches_jax_artifact():
 def test_blob_is_plain_data():
     """The blob loads with torch.load(weights_only=True) and carries its
     format, the port's version, the shape, dtype, platforms and the full
-    settings; the sparse blob also the pattern and value maps."""
-    blob = texport.export_solver(2, 3, 4, platforms=["cpu", "cuda"], eps_abs=1e-5)
+    settings, and (format 2) the traced program and the torch that traced
+    it; the sparse blob (format 1) the pattern and value maps.  A blob
+    with a card program is test_torch_cuda.py's
+    test_blob_is_plain_data_with_a_card_program."""
+    blob = texport.export_solver(2, 3, 4, platforms=["cpu"], eps_abs=1e-5)
     spec = torch.load(io.BytesIO(blob), weights_only=True)
     assert spec["format"] == texport.FORMAT and spec["version"] == osqp_tpu_torch.__version__
     assert (spec["B"], spec["n"], spec["m"], spec["dtype"]) == (2, 3, 4, "float32")
-    assert spec["platforms"] == ["cpu", "cuda"] and spec["settings"]["eps_abs"] == 1e-5
+    assert spec["platforms"] == ["cpu"] and spec["settings"]["eps_abs"] == 1e-5
+    assert spec["format_version"] == 2 and spec["fields"] == list(texport._FIELDS)
+    assert list(spec["programs"]) == ["cpu"] and isinstance(spec["programs"]["cpu"], bytes)
+    assert spec["torch_version"] == str(torch.__version__) and "ops_library" not in spec
     P, q, A, l, u = _sparse_problem()
     spec = torch.load(io.BytesIO(texport.export_sparse_solver(P, A, platforms=["cpu"])), weights_only=True)
+    assert spec["format_version"] == 1
     assert spec["operands"]["A"]["nnz"] == A.nnz and spec["settings"]["linsys_solver"] == "cg"
     assert all(isinstance(t, torch.Tensor) for op in spec["operands"].values() for t in op["pattern"] + op["maps"])
 
@@ -145,7 +152,8 @@ def test_blob_is_plain_data():
 def test_shape_dtype_and_platform_refused():
     B, n, m = 2, 3, 4
     P, q, A, l, u = _problems(B, n, m)
-    fn = texport.load_solver(texport.export_solver(B, n, m, dtype="float64", platforms=["cpu"]), device="cpu")
+    blob = texport.export_solver(B, n, m, dtype="float64", platforms=["cpu"])
+    fn = texport.load_solver(blob, device="cpu")
     with pytest.raises(ValueError, match="q"):
         fn(P, q[:1], A, l, u)
     with pytest.raises(ValueError, match="A"):
@@ -159,12 +167,22 @@ def test_shape_dtype_and_platform_refused():
     with pytest.raises(ValueError, match="P_val"):
         sfn(np.ones(3, np.float32), qm[None].astype(np.float32), Am.data.astype(np.float32),
             lm[None].astype(np.float32), um[None].astype(np.float32))
-    # a blob for the card alone is refused on the CPU; a dense blob by the sparse loader
+    # a blob for the card alone is refused on the CPU, and a card program
+    # is traced on a card only; a blob of another torch is refused; a
+    # dense blob by the sparse loader
+    spec = torch.load(io.BytesIO(blob), weights_only=True)
+    relabel = lambda **kw: texport._dump({k: v for k, v in spec.items() if k not in ("format", "format_version",
+                                                                                  "version")} | kw, 2)
     with pytest.raises(ValueError, match="cuda"):
-        texport.load_solver(texport.export_solver(B, n, m, platforms=["cuda"]), device="cpu")
+        texport.load_solver(relabel(platforms=["cuda"], programs={"cuda": spec["programs"]["cpu"]}), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            texport.export_solver(B, n, m, platforms=["cuda"])
+    with pytest.raises(ValueError, match="torch 0.0"):
+        texport.load_solver(relabel(torch_version="0.0"), device="cpu")
     with pytest.raises(ValueError, match="platforms"):
         texport.export_solver(B, n, m, platforms=["tpu"])
     with pytest.raises(ValueError, match="a dense artifact: load it with load_solver"):
-        texport.load_sparse_solver(texport.export_solver(B, n, m, platforms=["cpu"]), device="cpu")
+        texport.load_sparse_solver(blob, device="cpu")
     with pytest.raises(osqp_tpu_torch.OSQPError):
         texport.export_sparse_solver(Pm, Am, linsys_solver="dense_inv")
