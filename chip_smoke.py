@@ -228,10 +228,10 @@ failure ends the run with a non-zero exit and no result line:
     2 copies of LISWET1 against ``sparse_polish.npz`` (status, iterations,
     status_polish, x and y), with the polished candidate's residuals, the
     ADMM point's, polish ms, the PCG steps of each solve and K6's
-    launches in the polish; at LISWET1 (float64, float32) the polish-on
-    solve on the stepwise path in the same call, bit for bit, with polish
-    ms, ms per CG step, the loop's idle share and its device ms per CG
-    step beside a polish step's bound; the ``SparseSolver`` on
+    launches in the polish; at LISWET1 (float64, float32) polish ms, ms
+    per CG step, the loop's idle share and its device ms per CG step
+    beside a polish step's bound, and in float32 the polish-on solve on
+    the stepwise path in the same call, bit for bit; the ``SparseSolver`` on
     LISWET1: set-up, solve, update_lin_cost and a warm re-solve;
 22. the Maros-Meszaros harness (phase maros): the native QPS parser
     (built from ``native/qps_parser.cpp``; its build time) against the
@@ -267,11 +267,17 @@ failure ends the run with a non-zero exit and no result line:
     sub-batch sizes, equal statuses, iterations equal where the bits
     agree, the instances that differ in some bit and x within 1e-4
     relative, wall ms of both, medians of 5;
-26. the fixed-shape artifact (phase export): the headline shape in
-    float32 with polish on, loaded and held to ``solve_batch`` bit for
-    bit; LISWET1 in float64 through ``SparseSolver.export`` against
-    ``SparseSolver.solve`` (1e-6; 1e-5 after P's values x2 through both);
-    blob sizes and call ms;
+26. the fixed-shape artifact (phase export), format 2: the headline
+    shape in float32 with polish off and on and CVXQP2_M through
+    ``Solver.export``; LISWET1 in float64 with polish through
+    ``SparseSolver.export`` and 8 LISWET1 copies through
+    ``export_sparse_solver``; each loaded by a process that has torch
+    alone and held to the live solve bit for bit, launching the card's
+    kernels (K5's and K6's on the sparse blobs); the LISWET1 blob also
+    against ``SparseSolver.solve`` (1e-6; 1e-5 after P's values x2
+    through both), and so a format-1 LISWET1 blob (polish off), which
+    ``load_sparse_solver`` still reads; blob sizes, export, load and call
+    ms, host reads;
 27. several devices (phase parallel), under a one-rank NCCL group that
     ``parallel.make_mesh`` starts: ``solve_batch_sharded`` at the
     headline, ``solve_single_sharded`` at a dense QP of n=1000, m=8000
@@ -3666,14 +3672,20 @@ def phase_sparse_polish(dev):
             require(pol["loops"] > 0 and pol["k6"] == 0 and all(s > 0 for s in steps[0]),
                     f"sparse_polish {case}: the PCG did not run on K6's device loop")
             if case in ("LISWET1/float64", "LISWET1/float32"):
-                # the same polish-on solve on the stepwise path, in the same call
-                seen.clear()
-                with stepwise_everywhere():
-                    res_s = ot.solve_sparse(P, q, A, l, u, dtype=dtype, polish=True, verbose=False)
-                    torch.cuda.synchronize()
-                pol_s = next(e for e in seen if "res" in e)
-                same = all(torch.equal(getattr(res_s, f), getattr(res, f)) for f in ("x", "y", "iter", "status_polish"))
                 n_steps = sum(steps[0])
+                # The same polish-on solve on the stepwise path, in the same
+                # call, in float32 only: in float64 its ~1.5e5 step launches
+                # took ~36 s, and the stepwise path's float64 bits are held
+                # to the loop's on the polish system above (cap 300).
+                stepwise = dtype == "float32"
+                if stepwise:
+                    seen.clear()
+                    with stepwise_everywhere():
+                        res_s = ot.solve_sparse(P, q, A, l, u, dtype=dtype, polish=True, verbose=False)
+                        torch.cuda.synchronize()
+                    pol_s = next(e for e in seen if "res" in e)
+                    same = all(torch.equal(getattr(res_s, f), getattr(res, f))
+                               for f in ("x", "y", "iter", "status_polish"))
                 run = lambda: ot.solve_sparse(P, q, A, l, u, dtype=dtype, polish=True, verbose=False)
                 with cg_step_spy() as seen_all:
                     _, pwall, events = profiled(run)
@@ -3684,12 +3696,16 @@ def phase_sparse_polish(dev):
                                      f"polish's PCG; a polish step's bound)", k6.last_plan, loop_dev, all_steps,
                                      polish_bounds[dtype]))
                 idle_s = "not measured (its 1e4-1e6 kernel events are too many to trace)"
-                polish_paths[case] = dict(loop_ms=pol["ms"], stepwise_ms=pol_s["ms"], steps=n_steps,
-                                          loop_ms_per_step=pol["ms"] / n_steps,
-                                          stepwise_ms_per_step=pol_s["ms"] / n_steps, idle_loop=idle,
-                                          loop_device_ms_per_step=loop_dev / all_steps,
+                polish_paths[case] = dict(loop_ms=pol["ms"], steps=n_steps, loop_ms_per_step=pol["ms"] / n_steps,
+                                          idle_loop=idle, loop_device_ms_per_step=loop_dev / all_steps,
                                           bound_ms_per_step=polish_bounds[dtype],
                                           plan=dataclasses.asdict(k6.last_plan))
+                if not stepwise:
+                    print(f"  {case} polish: {pol['ms']:.3f} ms, {pol['ms'] / n_steps:.4f} ms per CG step, "
+                          f"{pol['loops']} loops; idle share of the polish-on solve under the profiler {idle:.3f} "
+                          f"(wall {pwall:.3f} ms)")
+                    continue
+                polish_paths[case].update(stepwise_ms=pol_s["ms"], stepwise_ms_per_step=pol_s["ms"] / n_steps)
                 print(f"  {case} polish on the stepwise path in the same call: x, y, iterations and status_polish "
                       f"bit-identical {same}; polish {pol_s['ms']:.3f} ms against the loop's {pol['ms']:.3f} "
                       f"({pol['ms'] / pol_s['ms']:.4f} of it); ms per CG step {pol_s['ms'] / n_steps:.4f} against "
@@ -4208,14 +4224,20 @@ def phase_compact(dev):
 
 # The kernels a loaded program must launch (names under the profiler): K4
 # on either path, K2's kernel or its cluster leaf, K1's epilogue, K3, and
-# with polish on K8's panels on either path.
+# with polish on K8's panels on either path; on the sparse path K5's grouped
+# products, its fused CG start and its scaling, and K6's device loop.
 EXPORT_KERNELS = {
     "K4": ("ruiz_resident_kernel", "amax_kernel"),
     "K2": ("chol_inverse_kernel", "cluster_leaf_kernel"),
     "K1": ("epilogue_kernel",),
     "K3": ("products_kernel",),
     "K8": ("bpanel_kernel", "cluster_panel_kernel"),
+    "K5 group": ("group_kernel",),
+    "K5 start": ("cg_start_kernel",),
+    "K5 scale": ("scale_kernel",),
+    "K6 loop": ("cluster_loop_kernel",),
 }
+SPARSE_EXPORT_KERNELS = ("K5 group", "K5 start", "K5 scale", "K6 loop")
 
 # A process with torch alone: osqp_tpu_torch and osqp_tpu cannot be
 # imported.  For each (blob, inputs, outputs) file triple it loads the
@@ -4315,31 +4337,37 @@ def check_artifact(what, outputs, info, want, kernels):
 
 
 def phase_export(dev):
-    """The fixed-shape artifact (osqp_tpu_torch.export).  Format 2, the
+    """The fixed-shape artifact (osqp_tpu_torch.export), format 2, the
     traced program: the headline shape exported in float32 with polish off
     and on, and CVXQP2_M through Solver.export in float64 with polish on
-    (K4 split, K2's cluster leaves, K1, K8's cluster path); each loaded
-    and run by a process that has torch alone (osqp_tpu_torch and osqp_tpu
-    blocked), which must give the live solve's bits (solve_batch's, the
-    Solver's) and launch the card's kernels; the polish-on headline blob
-    also loaded here by load_solver.  Blob bytes, export ms (host clock,
-    no host read while tracing), load and call ms and host reads a call in
-    the torch-only process beside the live solve's ms and host reads.
-    Format 1: LISWET1 exported in float64 through SparseSolver.export,
-    loaded and held to SparseSolver.solve within 1e-6, then with P's
-    values x2 through the artifact and through update_P within 1e-5.  The
-    Solver runs with warm_start off and its rho reset to the setting
-    before the re-solve, so that it starts where the artifact starts: a
-    re-solve from the first solve's iterates or adapted rho stops at
-    another point within eps 1e-3 of the optimum (1.9e-3 from the
-    artifact's in x, on the CPU), which no tolerance of 1e-5 could hold."""
+    (K4 split, K2's cluster leaves, K1, K8's cluster path); the sparse
+    program at LISWET1 in float64 with polish on through
+    SparseSolver.export, and at the sparse phase's 8 copies of LISWET1 in
+    float64 through export_sparse_solver(B=8) (K5's products, start and
+    scaling, K6's loop).  Each is loaded and run by a process that has
+    torch alone (osqp_tpu_torch and osqp_tpu blocked), which must give the
+    live solve's bits (solve_batch's, the Solver's, solve_sparse's) and
+    launch the card's kernels; the polish-on headline blob also loaded
+    here by load_solver.  Blob bytes, export ms (host clock, no host read
+    while tracing), load and call ms and host reads a call in the
+    torch-only process beside the live solve's ms and host reads.  The
+    LISWET1 blob is also loaded here and held to SparseSolver.solve within
+    1e-6, then with P's values x2 through the artifact and through
+    update_P within 1e-5; so is a format-1 LISWET1 blob (polish off, the
+    live solve on its pattern and maps), which load_sparse_solver still
+    reads.  The Solver runs with warm_start off and its rho
+    reset to the setting before the re-solve, so that it starts where the
+    artifact starts: a re-solve from the first solve's iterates or adapted
+    rho stops at another point within eps 1e-3 of the optimum (1.9e-3 from
+    the artifact's in x, on the CPU), which no tolerance of 1e-5 could
+    hold."""
     import tempfile
 
     import scipy.sparse as sp
     import torch
 
     import osqp_tpu_torch as ot
-    from osqp_tpu_torch import export, linalg
+    from osqp_tpu_torch import export, linalg, program
     from osqp_tpu_torch.io.qps import load_qps
 
     B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
@@ -4399,21 +4427,52 @@ def phase_export(dev):
     wants.append(swant)
     sizes["cvxqp2_m"] = len(sblob)
 
+    # The sparse program: LISWET1 with polish through SparseSolver.export,
+    # and 8 copies of LISWET1 (q scaled by 1 + 0.1 i) through
+    # export_sparse_solver, each against solve_sparse on the same values.
+    qp = load_qps(os.path.join(MAROS, "LISWET1.qps"))
+    s = ot.SparseSolver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype="float64", verbose=False, warm_start=False,
+                        polish=True)
+    Pv, Av = s._Pu.data.copy(), s._Ac.data.copy()
+    sparse = {}
+    for label, B in (("LISWET1 float64 polish on through SparseSolver.export", 1),
+                     ("8 copies of LISWET1 float64 through export_sparse_solver(B=8)", 8)):
+        P, q, A, l, u = scenario("LISWET1", B)
+        kw = dict(dtype="float64", verbose=False, polish=B == 1)
+        reads = linalg.host_reads
+        t0 = time.perf_counter()
+        blob = s.export() if B == 1 else export.export_sparse_solver(P, A, B=B, **kw)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        require(linalg.host_reads == reads, f"export: tracing the sparse program ({label}) read the device")
+        reads = linalg.host_reads
+        live, live_ms = event_times(lambda: ot.solve_sparse(P, q, A, l, u, device=dev, **kw), reps=3)
+        live_reads = (linalg.host_reads - reads) / 3
+        print(f"export sparse {label} [{CARD}]: format-2 blob {len(blob)} bytes, export {export_ms:.3f} ms (host "
+              f"clock); live solve_sparse ms {[round(t, 3) for t in live_ms]} (median "
+              f"{statistics.median(live_ms):.3f}), host reads a solve {live_reads:g}: status "
+              f"{live.status_val.tolist()}, iterations {live.iter.tolist()}, status_polish "
+              f"{live.status_polish.tolist()}")
+        vals = (Pv, Av) if B == 1 else (sp.triu(sp.csc_matrix(P), format="csc").data, sp.csc_matrix(A).data)
+        values = [torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float64, device=dev)
+                  for v in (vals[0], q, vals[1], l, u)]
+        cases.append((blob, values))
+        wants.append(live._asdict())
+        sparse[label] = blob
+        sizes["liswet1_polish" if B == 1 else "liswet1_b8"] = len(blob)
+
     with tempfile.TemporaryDirectory() as workdir:
         runs = run_artifact_child(cases, workdir)
     for (outputs, info), want, (what, kernels) in zip(runs, wants, (
             ("headline polish off", ("K4", "K2", "K1", "K3")),
             ("headline polish on", ("K4", "K2", "K1", "K3", "K8")),
-            ("CVXQP2_M float64 polish on", ("K4", "K2", "K1", "K3", "K8")))):
+            ("CVXQP2_M float64 polish on", ("K4", "K2", "K1", "K3", "K8")),
+            *((label, SPARSE_EXPORT_KERNELS) for label in sparse))):
         check_artifact(what, outputs, info, want, kernels)
 
-    qp = load_qps(os.path.join(MAROS, "LISWET1.qps"))
-    s = ot.SparseSolver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype="float64", verbose=False, warm_start=False)
+    sblob = next(iter(sparse.values()))
     t0 = time.perf_counter()
-    sblob = s.export()
-    sexport_ms = (time.perf_counter() - t0) * 1e3
     sfn = export.load_sparse_solver(sblob)
-    Pv, Av = s._Pu.data.copy(), s._Ac.data.copy()
+    load_ms = (time.perf_counter() - t0) * 1e3
     vecs = (qp.q[None], np.asarray(qp.l, np.float64)[None], np.asarray(qp.u, np.float64)[None])
     (o1, t1) = event_times(lambda: sfn(Pv, vecs[0], Av, *vecs[1:]), reps=1)
     r1, s1 = event_times(s.solve, reps=1)
@@ -4423,15 +4482,47 @@ def phase_export(dev):
     s.update_rho(s.settings.rho)
     r2, s2 = event_times(s.solve, reps=1)
     e2 = float(np.abs(o2["x"][0].cpu().numpy() - r2.x).max())
-    print(f"export LISWET1 float64 through SparseSolver.export [{CARD}]: format-1 blob {len(sblob)} bytes, export "
-          f"{sexport_ms:.3f} ms; artifact status {int(o1['status_val'][0])}, iterations {int(o1['iter'][0])} "
-          f"against the Solver's {r1.info.status} {r1.info.iter}: x max difference {e1:.3e} (tolerance 1e-6); "
-          f"artifact call {t1[0]:.3f} ms, Solver solve {s1[0]:.3f} ms; with P x2: status {int(o2['status_val'][0])}, "
-          f"iterations {int(o2['iter'][0])} against {r2.info.status} {r2.info.iter}, x max difference {e2:.3e} "
-          f"(tolerance 1e-5), artifact call {t2[0]:.3f} ms, Solver solve {s2[0]:.3f} ms")
+    print(f"export LISWET1 float64 polish on, loaded here by load_sparse_solver [{CARD}]: load {load_ms:.3f} ms; "
+          f"artifact status {int(o1['status_val'][0])}, iterations {int(o1['iter'][0])} against the Solver's "
+          f"{r1.info.status} {r1.info.iter}: x max difference {e1:.3e} (tolerance 1e-6); artifact call {t1[0]:.3f} "
+          f"ms, Solver solve {s1[0]:.3f} ms; with P x2: status {int(o2['status_val'][0])}, iterations "
+          f"{int(o2['iter'][0])} against {r2.info.status} {r2.info.iter}, x max difference {e2:.3e} (tolerance "
+          f"1e-5), artifact call {t2[0]:.3f} ms, Solver solve {s2[0]:.3f} ms")
     require(int(o1["status_val"][0]) == ot.OSQP_SOLVED and e1 <= 1e-6, "export: LISWET1 artifact off the Solver")
     require(e2 <= 1e-5, "export: LISWET1 artifact off the Solver after update_P")
-    return dict(sizes, sparse_bytes=len(sblob))
+
+    # A format-1 blob of LISWET1 (the settings, pattern and maps alone, as
+    # export_sparse_solver wrote it before format 2), polish off:
+    # load_sparse_solver still reads it and runs the live unsegmented solve
+    # on the card, held to the same checks against a SparseSolver.
+    s = ot.SparseSolver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype="float64", verbose=False, warm_start=False)
+    st = export._settings("float64", {f.name: getattr(s.settings, f.name) for f in dataclasses.fields(s.settings)
+                                      if f.name not in ("dtype", "verbose", "time_limit")} | {"verbose": False},
+                         linsys_solver="cg")
+    operands = program.sparse_operands(s._Pu, s._Ac)
+    blob = export._dump(dict(kind="sparse", B=1, n=operands["P"]["shape"][0], m=operands["A"]["shape"][0],
+                             dtype=st.dtype, platforms=["cuda"], settings=dataclasses.asdict(st),
+                             operands=operands), 1)
+    t0 = time.perf_counter()
+    sfn = export.load_sparse_solver(blob)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    (o1, t1) = event_times(lambda: sfn(Pv, vecs[0], Av, *vecs[1:]), reps=1)
+    r1, s1 = event_times(s.solve, reps=1)
+    e1 = float(np.abs(o1["x"][0].cpu().numpy() - r1.x).max())
+    (o2, t2) = event_times(lambda: sfn(2.0 * Pv, vecs[0], Av, *vecs[1:]), reps=1)
+    s.update_P(Px=2.0 * Pv)
+    s.update_rho(s.settings.rho)
+    r2, s2 = event_times(s.solve, reps=1)
+    e2 = float(np.abs(o2["x"][0].cpu().numpy() - r2.x).max())
+    print(f"export LISWET1 float64 polish off, format-1 blob {len(blob)} bytes, loaded here by load_sparse_solver "
+          f"[{CARD}]: load {load_ms:.3f} ms; artifact status {int(o1['status_val'][0])}, iterations "
+          f"{int(o1['iter'][0])} against the Solver's {r1.info.status} {r1.info.iter}: x max difference {e1:.3e} "
+          f"(tolerance 1e-6); artifact call {t1[0]:.3f} ms, Solver solve {s1[0]:.3f} ms; with P x2: status "
+          f"{int(o2['status_val'][0])}, iterations {int(o2['iter'][0])} against {r2.info.status} {r2.info.iter}, "
+          f"x max difference {e2:.3e} (tolerance 1e-5), artifact call {t2[0]:.3f} ms, Solver solve {s2[0]:.3f} ms")
+    require(int(o1["status_val"][0]) == ot.OSQP_SOLVED and e1 <= 1e-6, "export: format-1 LISWET1 off the Solver")
+    require(e2 <= 1e-5, "export: format-1 LISWET1 artifact off the Solver after update_P")
+    return dict(sizes, liswet1_format_1=len(blob))
 
 
 # The parallel phase (osqp_tpu_torch.parallel) on a one-rank NCCL group.

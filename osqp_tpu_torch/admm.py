@@ -51,7 +51,6 @@ from .constants import (
     RHO_TOL,
 )
 from .linalg import bwhere, host_read, vec_dot
-from .sparse_ops import ELLMatrix
 from .termination import check_termination, compute_products, compute_rho_estimate, residual_norms
 from .types import (
     DynSettings,
@@ -212,12 +211,13 @@ def _select_factor(upd, new, old):
     """One leaf of a refactored factor, taken where ``upd`` (B,) is set.
     What is the same for every instance passes through whole: the
     operand the factor keeps (a dense P, or an ELL operand, whose int32
-    pattern is unbatched) and 0-d leaves (sigma, cg's int32 max_iter and
-    tol_frac).  Batched leaves are selected per instance, integer ones
-    included: kkt_lu's perm goes with its lu.  (The JAX package passes
+    pattern is unbatched), 0-d leaves (sigma, cg's int32 max_iter and
+    tol_frac) and static numbers (those two in the program).  Batched
+    leaves are selected per instance, integer ones included: kkt_lu's
+    perm goes with its lu.  (The JAX package passes
     every integer leaf through, so a partial rho update there pairs a
     kept lu with a new perm.)"""
-    if new is old or isinstance(new, ELLMatrix) or new.ndim == 0:
+    if new is old or not isinstance(new, torch.Tensor) or new.ndim == 0:
         return new
     return bwhere(upd, new, old)
 

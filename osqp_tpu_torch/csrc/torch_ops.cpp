@@ -1,8 +1,10 @@
-// The dense path's kernel entries as torch.library operators, namespace
-// osqp_tpu_torch: the launches that the dense_inv solve and its polish
-// make (K4 ruiz, K2 chol_inverse and its leaves, K1 admm_iter, K1r
+// The kernel entries of the traced programs as torch.library operators,
+// namespace osqp_tpu_torch: the launches that the dense_inv solve and its
+// polish make (K4 ruiz, K2 chol_inverse and its leaves, K1 admm_iter, K1r
 // admm_iter_refined on both paths, K3 term_products, K8's factor from
-// the KKT blocks and its solve).
+// the KKT blocks and its solve), and those of the sparse cg solve and its
+// polish (K5's grouped products, its fused CG start and its scaling, K6's
+// device loop).
 //
 // No kernel is new here.  Each operator calls the same extern "C" entry
 // that the ctypes path calls (the wrappers in ops/), on PyTorch's current
@@ -17,12 +19,21 @@
 // count): they come in as int arguments, and each is checked here
 // against the card.  A plan that does not fit raises; no operator takes
 // another path than the one it is given.  The settings (sigma, alpha,
-// K8's shift) come in as one-element tensors, as the program holds them
-// (DynSettings): a float argument would make the tracer read a traced
-// value on the host.
+// K8's shift, polish's divisor) come in as one-element tensors, as the
+// program holds them (DynSettings): a float argument would make the
+// tracer read a traced value on the host.
+//
+// Two sparse launches carry state that a functional schema cannot.  K5's
+// grouped launch takes a host table of raw pointers and job words
+// (ops/ell.py:_launch_group): its operator takes the jobs as tensor and
+// int lists and writes the same words here.  K6's loop writes x, r, z and
+// p in place and counts instances in steps[B]: its operator writes copies
+// of the start it is given and a counter it zeroes, and returns x and the
+// steps.
 #include <cstdint>
 #include <optional>
 #include <tuple>
+#include <vector>
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
@@ -77,6 +88,23 @@ long long osqp_kkt_lu_factor_scratch(int dtype, int B, int N);
 int osqp_kkt_lu_solve_scratch(int B, int N, int sm_count);
 int osqp_kkt_lu_solve(int dtype, const void* lu, const void* perm, const void* b, void* x, void* scratch, int B,
                       int N, int sm_count, void* stream);
+int osqp_ell_group(int dtype, const long long* words, int njobs, int B, int rows, int ipar, int run, int ctas,
+                   void* stream);
+int osqp_ell_cg_start(int dtype, const void* t_val, const void* t_idx, int kt, const void* rhs_x, const void* rhs_z,
+                      const void* rho, const void* w, const void* Ax0, const void* Px0, const void* x0,
+                      const void* dinv, double sigma, void* b, void* r, void* z, int B, int n, int m, int sm_count,
+                      void* stream);
+int osqp_ell_scale(int dtype, const void* val, const void* idx, const void* t_val, const void* t_idx,
+                   const void* row_s, const void* col_s, const void* c, void* val_out, void* t_val_out, int B, int m,
+                   int ka, int n, int kt, void* stream);
+int osqp_cg_parts(int n);
+int osqp_cg_loop(int dtype, const void* pv, const void* pi, int kp, const void* av, const void* ai, int ka,
+                 const void* tv, const void* ti, int kt, const void* w, double sigma, double div, const void* dinv,
+                 const void* tol2, const void* rz, const void* rr, void* x, void* r, void* z, void* p, void* Ap,
+                 void* Mp, void* steps, int B, int n, int m, int max_iter, int cluster, int threads, int resident,
+                 int vectors, int clusters, void* stream);
+int osqp_cg_loop_smem(int dtype, int n, int m, int kp, int ka, int kt, int cluster, int resident, int vectors);
+int osqp_cg_loop_clusters(int dtype, int cluster, int threads, int smem, int resident, int vectors);
 }
 
 namespace {
@@ -403,6 +431,213 @@ Tensor kkt_lu_solve_cuda(const Tensor& lu, const Tensor& perm, const Tensor& b, 
   return x;
 }
 
+// ---------------------------------------------------------------------------
+// K5
+// ---------------------------------------------------------------------------
+using OptTensors = c10::List<std::optional<Tensor>>;
+using Ints = c10::IntArrayRef;
+
+constexpr int64_t kMaxJobs = 8;  // csrc/ell_ops.cu: kMaxJobs
+constexpr int64_t kWSum = 1, kDiag = 4;  // the job modes: sum, weighted sum, squares, maxima, diagonal
+
+std::vector<Tensor> ell_group_meta(at::TensorList vals, at::TensorList, const OptTensors&, const OptTensors&, Ints,
+                                   Ints R, Ints, Ints, int64_t, int64_t, int64_t, int64_t, int64_t) {
+  std::vector<Tensor> outs;
+  for (size_t j = 0; j < R.size(); ++j) outs.push_back(at::empty({vals[0].size(0), R[j]}, vals[0].options()));
+  return outs;
+}
+
+// Job j reduces vals[j] (B,R,k) over the pattern idxs[j] (R,k) int32,
+// gathering gs[j] (B,G) (none for the diagonal) weighted by ws[j] (the
+// weighted sum alone), in modes[j]; the plan (ops/ell.py:plan) cuts it
+// into tiles[j] tiles of `rows` rows from CTA cta0[j] on, over runs of
+// `run` instances.  The words are those ops/ell.py:_launch_group writes.
+std::vector<Tensor> ell_group_cuda(at::TensorList vals, at::TensorList idxs, const OptTensors& gs, const OptTensors& ws,
+                                   Ints modes, Ints R, Ints tiles, Ints cta0, int64_t rows, int64_t ipar, int64_t run,
+                                   int64_t ctas, int64_t sm_count) {
+  const int64_t nj = static_cast<int64_t>(vals.size());
+  TORCH_CHECK(nj >= 1 && nj <= kMaxJobs, "ell_group: 1 to ", kMaxJobs, " jobs a launch, not ", nj);
+  TORCH_CHECK(static_cast<int64_t>(idxs.size()) == nj && static_cast<int64_t>(gs.size()) == nj &&
+                  static_cast<int64_t>(ws.size()) == nj && static_cast<int64_t>(modes.size()) == nj &&
+                  static_cast<int64_t>(R.size()) == nj && static_cast<int64_t>(tiles.size()) == nj &&
+                  static_cast<int64_t>(cta0.size()) == nj,
+              "ell_group: every list holds one entry a job");
+  const Tensor& x = vals[0];
+  TORCH_CHECK(x.is_cuda(), "ell_group: CUDA tensors, not ", x.device());
+  c10::cuda::CUDAGuard guard(x.device());
+  check_sms("ell_group", x, sm_count);
+  const int code = code_of(x);
+  const int64_t B = x.size(0);
+  TORCH_CHECK(rows >= 1 && ipar >= 1 && run >= ipar && run % ipar == 0, "ell_group: a plan of ", rows, " rows, ",
+              ipar, " instances side by side and runs of ", run);
+  const int64_t runs = (B + run - 1) / run;
+  std::vector<long long> words;
+  std::vector<Tensor> outs;
+  int64_t next = 0;
+  for (int64_t j = 0; j < nj; ++j) {
+    const Tensor& val = vals[j];
+    const Tensor& idx = idxs[j];
+    same("ell_group", x, {&val, &idx});
+    TORCH_CHECK(idx.scalar_type() == at::kInt, "ell_group: the pattern must be int32");
+    TORCH_CHECK(val.dim() == 3 && idx.dim() == 2 && val.size(0) == B && val.size(1) == idx.size(0) &&
+                    val.size(2) == idx.size(1) && val.size(1) == R[j],
+                "ell_group: job ", j, "'s values ", val.sizes(), " do not fit its pattern ", idx.sizes(), " and ",
+                R[j], " rows");
+    TORCH_CHECK(modes[j] >= 0 && modes[j] <= kDiag, "ell_group: mode ", modes[j]);
+    TORCH_CHECK(tiles[j] >= 1 && tiles[j] * rows >= R[j] && (tiles[j] - 1) * rows < R[j] && cta0[j] == next,
+                "ell_group: job ", j, "'s tiles do not follow the plan");
+    next += tiles[j] * runs;
+    const std::optional<Tensor> g = gs.get(j), w = ws.get(j);
+    TORCH_CHECK(g.has_value() == (modes[j] != kDiag) && w.has_value() == (modes[j] == kWSum),
+                "ell_group: job ", j, " of mode ", modes[j], " takes ", modes[j] == kDiag ? "no vector" : "a vector",
+                modes[j] == kWSum ? " and weights" : "");
+    int64_t G = 0;
+    if (g.has_value()) {
+      same("ell_group", x, {&*g});
+      TORCH_CHECK(g->dim() == 2 && g->size(0) == B, "ell_group: job ", j, "'s vector is ", g->sizes());
+      G = g->size(1);
+      if (w.has_value()) {
+        same("ell_group", x, {&*w});
+        TORCH_CHECK(w->sizes() == g->sizes(), "ell_group: job ", j, "'s weights are ", w->sizes());
+      }
+    }
+    Tensor out = at::empty({B, R[j]}, x.options());
+    const long long word[] = {reinterpret_cast<long long>(val.data_ptr()),
+                              reinterpret_cast<long long>(idx.data_ptr()),
+                              g.has_value() ? reinterpret_cast<long long>(g->data_ptr()) : 0,
+                              w.has_value() ? reinterpret_cast<long long>(w->data_ptr()) : 0,
+                              reinterpret_cast<long long>(out.data_ptr()),
+                              R[j], idx.size(1), G, modes[j], tiles[j], cta0[j]};
+    words.insert(words.end(), std::begin(word), std::end(word));
+    outs.push_back(out);
+  }
+  TORCH_CHECK(next == ctas, "ell_group: the plan's ", ctas, " CTAs, its jobs' ", next);
+  if (B > 0)
+    check(osqp_ell_group(code, words.data(), static_cast<int>(nj), B, rows, ipar, run, ctas, stream_of(x)),
+          "ell_group");
+  return outs;
+}
+
+// b (with rhs_z; else an empty tensor: b is rhs_x), r and z.
+std::tuple<Tensor, Tensor, Tensor> cg_start_outputs(const Tensor& x0, const OptTensor& rhs_z) {
+  return {rhs_z.has_value() ? at::empty_like(x0) : at::empty({0}, x0.options()), at::empty_like(x0),
+          at::empty_like(x0)};
+}
+
+std::tuple<Tensor, Tensor, Tensor> ell_cg_start_meta(const Tensor&, const Tensor&, const Tensor&,
+                                                     const OptTensor& rhs_z, const OptTensor&, const Tensor&,
+                                                     const Tensor&, const Tensor&, const Tensor& x0, const Tensor&,
+                                                     const Tensor&, int64_t) {
+  return cg_start_outputs(x0, rhs_z);
+}
+
+std::tuple<Tensor, Tensor, Tensor> ell_cg_start_cuda(const Tensor& t_val, const Tensor& t_idx, const Tensor& rhs_x,
+                                                     const OptTensor& rhs_z, const OptTensor& rho, const Tensor& w,
+                                                     const Tensor& Ax0, const Tensor& Px0, const Tensor& x0,
+                                                     const Tensor& dinv, const Tensor& sigma, int64_t sm_count) {
+  same("ell_cg_start", x0, {&t_val, &t_idx, &rhs_x, &w, &Ax0, &Px0, &x0, &dinv});
+  TORCH_CHECK(rhs_z.has_value() == rho.has_value(), "ell_cg_start: rhs_z and rho together");
+  if (rhs_z.has_value()) same("ell_cg_start", x0, {&*rhs_z, &*rho});
+  TORCH_CHECK(t_idx.scalar_type() == at::kInt, "ell_cg_start: the pattern must be int32");
+  c10::cuda::CUDAGuard guard(x0.device());
+  check_sms("ell_cg_start", x0, sm_count);
+  const int code = code_of(x0), B = x0.size(0), n = x0.size(1), m = w.size(1);
+  TORCH_CHECK(t_val.dim() == 3 && t_val.size(0) == B && t_val.size(1) == n && t_idx.size(0) == n &&
+                  t_val.size(2) == t_idx.size(1) && Ax0.size(1) == m && m >= 1,
+              "ell_cg_start: the transpose ", t_val.sizes(), " does not fit x0 ", x0.sizes(), " and w ", w.sizes());
+  auto o = cg_start_outputs(x0, rhs_z);
+  check(osqp_ell_cg_start(code, cptr(t_val), cptr(t_idx), t_idx.size(1), cptr(rhs_x), cptr(rhs_z), cptr(rho),
+                          cptr(w), cptr(Ax0), cptr(Px0), cptr(x0), cptr(dinv), scalar(sigma),
+                          rhs_z.has_value() ? ptr(std::get<0>(o)) : nullptr, ptr(std::get<1>(o)),
+                          ptr(std::get<2>(o)), B, n, m, sm_count, stream_of(x0)),
+        "ell_cg_start");
+  return o;
+}
+
+std::tuple<Tensor, Tensor> ell_scale_meta(const Tensor& val, const Tensor&, const Tensor& t_val, const Tensor&,
+                                          const Tensor&, const Tensor&, const OptTensor&) {
+  return {at::empty_like(val), at::empty_like(t_val)};
+}
+
+std::tuple<Tensor, Tensor> ell_scale_cuda(const Tensor& val, const Tensor& idx, const Tensor& t_val,
+                                          const Tensor& t_idx, const Tensor& row_s, const Tensor& col_s,
+                                          const OptTensor& c) {
+  same("ell_scale", val, {&val, &idx, &t_val, &t_idx, &row_s, &col_s});
+  if (c.has_value()) same("ell_scale", val, {&*c});
+  TORCH_CHECK(idx.scalar_type() == at::kInt && t_idx.scalar_type() == at::kInt, "ell_scale: int32 patterns");
+  c10::cuda::CUDAGuard guard(val.device());
+  const int code = code_of(val), B = val.size(0), m = val.size(1), ka = val.size(2), n = t_val.size(1),
+            kt = t_val.size(2);
+  TORCH_CHECK(t_val.size(0) == B && idx.size(0) == m && idx.size(1) == ka && t_idx.size(0) == n &&
+                  t_idx.size(1) == kt && row_s.sizes() == at::IntArrayRef({B, m}) &&
+                  col_s.sizes() == at::IntArrayRef({B, n}) && (!c.has_value() || c->numel() == B),
+              "ell_scale: values ", val.sizes(), " / ", t_val.sizes(), " and scales ", row_s.sizes(), " / ",
+              col_s.sizes(), " disagree");
+  Tensor vo = at::empty_like(val), tvo = at::empty_like(t_val);
+  if (m > 0 && n > 0)
+    check(osqp_ell_scale(code, cptr(val), cptr(idx), cptr(t_val), cptr(t_idx), cptr(row_s), cptr(col_s), cptr(c),
+                         ptr(vo), ptr(tvo), B, m, ka, n, kt, stream_of(val)),
+          "ell_scale");
+  else {
+    vo.zero_();
+    tvo.zero_();
+  }
+  return {vo, tvo};
+}
+
+// ---------------------------------------------------------------------------
+// K6
+// ---------------------------------------------------------------------------
+std::tuple<Tensor, Tensor> cg_loop_meta(const Tensor&, const Tensor&, const Tensor&, const Tensor&, const Tensor&,
+                                        const Tensor&, const OptTensor&, const Tensor&, const OptTensor&,
+                                        const Tensor&, const Tensor&, const Tensor&, const Tensor&, const Tensor& x,
+                                        const Tensor&, const Tensor&, const Tensor&, int64_t, int64_t, int64_t,
+                                        int64_t, int64_t, int64_t) {
+  return {at::empty_like(x), at::empty({x.size(0)}, x.options().dtype(at::kInt))};
+}
+
+// The whole CG solve of every instance from the start (x, r, z, p, rz,
+// rr) in one launch of the loop, on the plan (ops/cg.py:loop_plan) it is
+// given: clusters of `cluster` CTAs of `threads` threads, the operands'
+// rows and the vectors in shared memory as `resident` and `vectors` say,
+// `clusters` clusters at once, which the card must hold.  The cg form
+// with the weights w, polish's with the divisor div.
+std::tuple<Tensor, Tensor> cg_loop_cuda(const Tensor& pv, const Tensor& pi, const Tensor& av, const Tensor& ai,
+                                        const Tensor& tv, const Tensor& ti, const OptTensor& w, const Tensor& sigma,
+                                        const OptTensor& div, const Tensor& dinv, const Tensor& tol2, const Tensor& rz,
+                                        const Tensor& rr, const Tensor& x, const Tensor& r, const Tensor& z,
+                                        const Tensor& p, int64_t max_iter, int64_t cluster, int64_t threads,
+                                        int64_t resident, int64_t vectors, int64_t clusters) {
+  same("cg_loop", x, {&pv, &pi, &av, &ai, &tv, &ti, &dinv, &tol2, &rz, &rr, &x, &r, &z, &p});
+  TORCH_CHECK(w.has_value() != div.has_value(), "cg_loop: exactly one of w (the cg form) and div (polish's form)");
+  if (w.has_value()) same("cg_loop", x, {&*w});
+  TORCH_CHECK(pi.scalar_type() == at::kInt && ai.scalar_type() == at::kInt && ti.scalar_type() == at::kInt,
+              "cg_loop: int32 patterns");
+  c10::cuda::CUDAGuard guard(x.device());
+  const int code = code_of(x), B = x.size(0), n = x.size(1), m = av.size(1);
+  const int kp = pi.size(1), ka = ai.size(1), kt = ti.size(1);
+  TORCH_CHECK(pv.size(0) == B && pv.size(1) == n && av.size(0) == B && tv.size(0) == B && tv.size(1) == n &&
+                  (!w.has_value() || w->sizes() == at::IntArrayRef({B, m})),
+              "cg_loop: operands P ", pv.sizes(), ", A ", av.sizes(), ", A' ", tv.sizes(), " and x ", x.sizes(),
+              " disagree");
+  Tensor xo = x.clone(), steps = at::zeros({B + 1}, x.options().dtype(at::kInt));
+  if (B == 0 || n == 0 || max_iter <= 0) return {xo, steps.narrow(0, 0, B)};
+  TORCH_CHECK(cluster >= 1 && cluster <= osqp_cg_parts(n), "cg_loop: clusters of ", cluster, " CTAs at n = ", n);
+  TORCH_CHECK(threads == 256 || threads == 512 || threads == 768 || threads == 1024, "cg_loop: CTAs of ", threads,
+              " threads");
+  const int smem = osqp_cg_loop_smem(code, n, m, kp, ka, kt, cluster, resident, vectors);
+  const int held = osqp_cg_loop_clusters(code, cluster, threads, smem, resident, vectors);
+  TORCH_CHECK(clusters >= 1 && clusters <= held, "cg_loop: planned for ", clusters, " clusters of ", cluster,
+              " CTAs at once, the card holds ", held);
+  Tensor ro = r.clone(), zo = z.clone(), po = p.clone(), Ap = at::empty({B, m}, x.options()), Mp = at::empty_like(x);
+  check(osqp_cg_loop(code, cptr(pv), cptr(pi), kp, cptr(av), cptr(ai), ka, cptr(tv), cptr(ti), kt, cptr(w),
+                     scalar(sigma), div.has_value() ? scalar(*div) : 0.0, cptr(dinv), cptr(tol2), cptr(rz), cptr(rr),
+                     ptr(xo), ptr(ro), ptr(zo), ptr(po), ptr(Ap), ptr(Mp), ptr(steps), B, n, m, max_iter, cluster,
+                     threads, resident, vectors, clusters, stream_of(x)),
+        "cg_loop");
+  return {xo, steps.narrow(0, 0, B)};
+}
+
 }  // namespace
 
 TORCH_LIBRARY(osqp_tpu_torch, m) {
@@ -425,6 +660,15 @@ TORCH_LIBRARY(osqp_tpu_torch, m) {
         " -> (Tensor, Tensor, Tensor)");
   m.def("kkt_lu_factor_blocks(Tensor P, Tensor A, Tensor d, Tensor shift, int sm_count) -> (Tensor, Tensor)");
   m.def("kkt_lu_solve(Tensor lu, Tensor perm, Tensor b, int sm_count) -> Tensor");
+  m.def("ell_group(Tensor[] vals, Tensor[] idxs, Tensor?[] gs, Tensor?[] ws, int[] modes, int[] R, int[] tiles,"
+        " int[] cta0, int rows, int ipar, int run, int ctas, int sm_count) -> Tensor[]");
+  m.def("ell_cg_start(Tensor t_val, Tensor t_idx, Tensor rhs_x, Tensor? rhs_z, Tensor? rho, Tensor w, Tensor Ax0,"
+        " Tensor Px0, Tensor x0, Tensor dinv, Tensor sigma, int sm_count) -> (Tensor, Tensor, Tensor)");
+  m.def("ell_scale(Tensor val, Tensor idx, Tensor t_val, Tensor t_idx, Tensor row_s, Tensor col_s, Tensor? c)"
+        " -> (Tensor, Tensor)");
+  m.def("cg_loop(Tensor pv, Tensor pi, Tensor av, Tensor ai, Tensor tv, Tensor ti, Tensor? w, Tensor sigma,"
+        " Tensor? div, Tensor dinv, Tensor tol2, Tensor rz, Tensor rr, Tensor x, Tensor r, Tensor z, Tensor p,"
+        " int max_iter, int cluster, int threads, int resident, int vectors, int clusters) -> (Tensor, Tensor)");
 }
 
 TORCH_LIBRARY_IMPL(osqp_tpu_torch, CUDA, m) {
@@ -438,6 +682,10 @@ TORCH_LIBRARY_IMPL(osqp_tpu_torch, CUDA, m) {
   m.impl("term_products", &term_products_cuda);
   m.impl("kkt_lu_factor_blocks", &kkt_lu_factor_blocks_cuda);
   m.impl("kkt_lu_solve", &kkt_lu_solve_cuda);
+  m.impl("ell_group", &ell_group_cuda);
+  m.impl("ell_cg_start", &ell_cg_start_cuda);
+  m.impl("ell_scale", &ell_scale_cuda);
+  m.impl("cg_loop", &cg_loop_cuda);
 }
 
 TORCH_LIBRARY_IMPL(osqp_tpu_torch, Meta, m) {
@@ -451,4 +699,8 @@ TORCH_LIBRARY_IMPL(osqp_tpu_torch, Meta, m) {
   m.impl("term_products", &term_products_meta);
   m.impl("kkt_lu_factor_blocks", &kkt_lu_factor_blocks_meta);
   m.impl("kkt_lu_solve", &kkt_lu_solve_meta);
+  m.impl("ell_group", &ell_group_meta);
+  m.impl("ell_cg_start", &ell_cg_start_meta);
+  m.impl("ell_scale", &ell_scale_meta);
+  m.impl("cg_loop", &cg_loop_meta);
 }

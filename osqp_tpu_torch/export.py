@@ -15,34 +15,40 @@ pipeline (Ruiz scaling, rho classification, factorization, the masked
 ADMM loop over the whole iteration range, optional polish, unscaling and
 certificates) in one unsegmented solve.
 
-Format 2, written for the ``dense_inv`` backend (the default), holds the
-solve as one program, as the JAX package's ``jax.export`` blob does: for
-each platform the ``torch.export.save`` bytes of
-:class:`~osqp_tpu_torch.program.SolveProgram` traced at the fixed shapes
-(``torch.export.export(..., strict=False)``; its loop and branches are
-``while_loop`` and ``cond`` operators), and for ``"cuda"`` the bytes of
-the library of the kernels' ``torch.library`` operators with the torch
-version that built it.  A ``"cuda"`` program is traced on the card: a
-machine without one refuses it.  Such a blob runs with torch and the
-blob alone, no ``osqp_tpu_torch`` (README, "Export"):
+Format 2, written for the ``dense_inv`` backend (the default) and by
+:func:`export_sparse_solver`, holds the solve as one program, as the JAX
+package's ``jax.export`` blob does: for each platform the
+``torch.export.save`` bytes of
+:class:`~osqp_tpu_torch.program.SolveProgram` (or, sparse,
+:class:`~osqp_tpu_torch.program.SparseSolveProgram`) traced at the fixed
+shapes (``torch.export.export(..., strict=False)``; its loops and
+branches are ``while_loop`` and ``cond`` operators), and for ``"cuda"``
+the bytes of the library of the kernels' ``torch.library`` operators
+with the torch version that built it.  A ``"cuda"`` program is traced on
+the card: a machine without one refuses it.  Such a blob runs with torch
+and the blob alone, no ``osqp_tpu_torch`` (README, "Export"):
 
     spec = torch.load(io.BytesIO(blob), weights_only=True)
     # "cuda": write spec["ops_library"] to a file, torch.ops.load_library it
     solve = torch.export.load(io.BytesIO(spec["programs"]["cuda"])).module()
     out = dict(zip(spec["fields"], solve(P, q, A, l, u)))
 
-and :func:`load_solver` does just that.  Run eagerly, the loaded program
-reads each turn's predicate of its loop and each branch's on the host.
+and :func:`load_solver` / :func:`load_sparse_solver` do just that.  Run
+eagerly, the loaded program reads each turn's predicate of its loops and
+each branch's on the host.
 
-Format 1, which :func:`export_sparse_solver` and the backends other than
-``dense_inv`` (``dense_chol``, ``kkt_lu``, ``cg``, ``block_tridiag``)
-still write, is a ``torch.save`` of the settings alone: its callable runs
-the live solve, so loading it needs ``osqp_tpu_torch`` installed, and on
-the card the kernel library is built at first use.  Both formats are
-plain data (``torch.load(..., weights_only=True)`` reads them), and
-:func:`load_solver` reads both.  :func:`export_sparse_solver` also bakes
-in a sparsity pattern and its CSC-nnz -> ELL-slot value maps, and its
-callable takes value vectors only.
+Format 1, which the dense backends other than ``dense_inv``
+(``dense_chol``, ``kkt_lu``, ``cg``, ``block_tridiag``) still write, is a
+``torch.save`` of the settings alone: its callable runs the live solve,
+so loading it needs ``osqp_tpu_torch`` installed, and on the card the
+kernel library is built at first use.  Both formats are plain data
+(``torch.load(..., weights_only=True)`` reads them), and both loaders
+read both (:func:`load_sparse_solver` the format-1 sparse blobs of
+earlier versions too).  A sparse blob also carries its sparsity pattern
+and its CSC-nnz -> ELL-slot value maps (``spec["operands"]``), which a
+format-2 program holds as buffers, and its callable takes value vectors
+only.  The sparse polish's CG cap (``OSQP_TPU_POLISH_CG_CAP``, read at
+export) is fixed in a format-2 sparse blob.
 """
 
 from __future__ import annotations
@@ -53,7 +59,6 @@ import os
 import tempfile
 
 import numpy as np
-import scipy.sparse as sp
 import torch
 
 from . import __version__
@@ -62,10 +67,9 @@ from . import admm as admm_mod
 from . import constants as con
 from . import linsys as linsys_registry
 from .batch import _postprocess, _prepare, solve_batch
-from .program import FIELDS, SolveProgram
+from .program import FIELDS, SolveProgram, SparseSolveProgram, make_dyn, sparse_operands
 from .solver import Settings, make_config, reject_time_based_rho, resolve_device, torch_dtype, validate_settings
-from .sparse_ops import ell_pattern_from_scipy, ell_value_maps, ell_with_values
-from .types import DynSettings
+from .sparse_ops import ell_with_values
 
 FORMAT = "osqp_tpu_torch.export"
 FORMAT_VERSION = 2  # the traced program; 1: the settings alone
@@ -138,21 +142,34 @@ def _outputs(res) -> dict:
     return {f: getattr(res, f) for f in _FIELDS}
 
 
-def _trace(B: int, n: int, m: int, s: Settings, platform: str) -> bytes:
-    """The ``torch.export.save`` bytes of the solve traced on ``platform``
-    at (B, n, m).  The kernels' wrappers take their operators on the
-    card and their plain versions on the CPU."""
+def _program_settings(s: Settings) -> dict:
+    return {k: v for k, v in dataclasses.asdict(s).items() if k not in ("verbose", "time_limit")}
+
+
+def _trace(module: torch.nn.Module, shapes, dtype: torch.dtype, platform: str) -> bytes:
+    """The ``torch.export.save`` bytes of ``module`` traced on ``platform``
+    over inputs of these shapes.  The kernels' wrappers take their
+    operators on the card and their plain versions on the CPU."""
     if platform == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("a 'cuda' program is traced on a CUDA card, and this machine has none")
     dev = torch.device(platform)
-    dtype = torch_dtype(s.dtype)
-    args = tuple(torch.zeros(shape, dtype=dtype, device=dev) for shape in ((B, n, n), (B, n), (B, m, n), (B, m), (B, m)))
-    settings = {k: v for k, v in dataclasses.asdict(s).items() if k not in ("verbose", "time_limit")}
-    program = torch.export.export(SolveProgram(n, m, **settings), args, strict=False)
+    args = tuple(torch.zeros(shape, dtype=dtype, device=dev) for shape in shapes)
+    program = torch.export.export(module.to(dev), args, strict=False)
     program.example_inputs = None  # else the archive keeps the traced inputs (a GB at the headline)
     buf = io.BytesIO()
     torch.export.save(program, buf)
     return buf.getvalue()
+
+
+def _programs(spec: dict, make, shapes, dtype: torch.dtype) -> dict:
+    """``spec`` with format 2's entries: the program ``make()`` traced for
+    each platform, and for ``"cuda"`` the operators' library."""
+    spec.update(fields=list(FIELDS), torch_version=str(torch.__version__),
+                programs={p: _trace(make(), shapes, dtype, p) for p in spec["platforms"]})
+    if "cuda" in spec["platforms"]:
+        path = _build.build_ops()
+        spec.update(ops_library=path.read_bytes(), ops_library_name=path.name)
+    return spec
 
 
 def export_solver(B: int, n: int, m: int, dtype="float32", platforms=None, **settings) -> bytes:
@@ -170,12 +187,10 @@ def export_solver(B: int, n: int, m: int, dtype="float32", platforms=None, **set
     if linsys_registry.get(s.linsys_solver) is not linsys_registry.get("dense_inv"):
         return _dump(spec, 1)
     reject_time_based_rho(s)
-    spec.update(fields=list(FIELDS), torch_version=str(torch.__version__),
-                programs={p: _trace(spec["B"], spec["n"], spec["m"], s, p) for p in spec["platforms"]})
-    if "cuda" in spec["platforms"]:
-        path = _build.build_ops()
-        spec.update(ops_library=path.read_bytes(), ops_library_name=path.name)
-    return _dump(spec, 2)
+    B, n, m = spec["B"], spec["n"], spec["m"]
+    shapes = ((B, n, n), (B, n), (B, m, n), (B, m), (B, m))
+    make = lambda: SolveProgram(n, m, **_program_settings(s))
+    return _dump(_programs(spec, make, shapes, torch_dtype(s.dtype)), 2)
 
 
 def _load_ops(spec: dict) -> None:
@@ -196,6 +211,30 @@ def _load_ops(spec: dict) -> None:
                          f"{_build.ops_loaded or 'another library of the namespace osqp_tpu_torch'}")
 
 
+def _loaded_program(spec: dict, dev: torch.device, names, shapes, dtype: torch.dtype):
+    """The callable of a format-2 blob on ``dev``: its program loaded (and
+    on the card its operator library), a torch other than the one that
+    made it refused."""
+    if spec["torch_version"] != str(torch.__version__):
+        raise ValueError(f"this artifact was made with torch {spec['torch_version']}, this is {torch.__version__}")
+    if dev.type == "cuda":
+        _load_ops(spec)
+    # Full-precision float32 products, as linalg.py pins them: the set-up
+    # GEMMs must not run in TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    solve = torch.export.load(io.BytesIO(spec["programs"][dev.type])).module()
+
+    def fn(*args):
+        _check(args, names, shapes, dtype)
+        args = (torch.as_tensor(v, device=dev).contiguous() for v in args)
+        with torch.no_grad():
+            return dict(zip(spec["fields"], solve(*args)))
+
+    return fn
+
+
 def load_solver(blob: bytes, device=None):
     """Deserialize an exported solver into a callable
 
@@ -211,30 +250,13 @@ def load_solver(blob: bytes, device=None):
     settings = dict(spec["settings"])
     dtype = torch_dtype(settings["dtype"])
     shapes = ((B, n, n), (B, n), (B, m, n), (B, m), (B, m))
-
-    if spec["format_version"] == 1:
-        def fn(P, q, A, l, u):
-            _check((P, q, A, l, u), ("P", "q", "A", "l", "u"), shapes, dtype)
-            return _outputs(solve_batch(P, q, A, l, u, segmented=False, device=dev, **settings))
-
-        return fn
-
-    if spec["torch_version"] != str(torch.__version__):
-        raise ValueError(f"this artifact was made with torch {spec['torch_version']}, this is {torch.__version__}")
-    if dev.type == "cuda":
-        _load_ops(spec)
-    # Full-precision float32 products, as linalg.py pins them: the set-up
-    # GEMMs must not run in TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    solve = torch.export.load(io.BytesIO(spec["programs"][dev.type])).module()
+    names = ("P", "q", "A", "l", "u")
+    if spec["format_version"] == 2:
+        return _loaded_program(spec, dev, names, shapes, dtype)
 
     def fn(P, q, A, l, u):
-        _check((P, q, A, l, u), ("P", "q", "A", "l", "u"), shapes, dtype)
-        args = (torch.as_tensor(v, device=dev).contiguous() for v in (P, q, A, l, u))
-        with torch.no_grad():
-            return dict(zip(spec["fields"], solve(*args)))
+        _check((P, q, A, l, u), names, shapes, dtype)
+        return _outputs(solve_batch(P, q, A, l, u, segmented=False, device=dev, **settings))
 
     return fn
 
@@ -244,13 +266,17 @@ def export_sparse_solver(P, A, B: int = 1, dtype="float32", platforms=None, **se
 
     The ELL pattern and the CSC-nnz -> ELL-slot value maps (the
     PtoKKT/AtoKKT analogue, kkt.c:184-212) of P's upper triangle and of A
-    go into the blob; the loaded callable takes only values,
+    go into the blob, as the buffers of its traced program
+    (:class:`~osqp_tpu_torch.program.SparseSolveProgram`, format 2) and
+    as plain data (``spec["operands"]``); the loaded callable takes only
+    values,
 
         fn(P_val (nnzP,), q (B, n), A_val (nnzA,), l (B, m), u (B, m))
 
     in the CSC order of ``triu(P)`` and ``A`` as given here, the value
     vectors osqp_update_P/A take (osqp.c:1031-1062).  The backend is the
-    matrix-free cg, the sparse path's only one.
+    matrix-free cg, the sparse path's only one.  ``platforms`` as
+    :func:`export_solver` takes them.
     """
     s = _settings(dtype, settings, linsys_solver="cg")
     if s.linsys_solver != "cg":
@@ -258,16 +284,14 @@ def export_sparse_solver(P, A, B: int = 1, dtype="float32", platforms=None, **se
             con.ErrorCode.SETTINGS_VALIDATION_ERROR,
             "the sparse path supports only the matrix-free 'cg' backend",
         )
-    Pu = sp.triu(sp.csc_matrix(P), format="csc")
-    Ac = sp.csc_matrix(A)
-    tensors = lambda *arrays: [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
-    operands = {}
-    for name, M, sym in (("P", Pu, True), ("A", Ac, False)):
-        idx, t_idx, shape = ell_pattern_from_scipy(M, sym_from_triu=sym)
-        operands[name] = dict(nnz=int(M.nnz), shape=list(shape),
-                              pattern=tensors(idx, t_idx), maps=tensors(*ell_value_maps(M, sym_from_triu=sym)))
-    return _dump(dict(kind="sparse", B=int(B), n=int(Pu.shape[0]), m=int(Ac.shape[0]), dtype=s.dtype,
-                      platforms=_platforms(platforms), settings=dataclasses.asdict(s), operands=operands), 1)
+    reject_time_based_rho(s)
+    operands = sparse_operands(P, A)
+    (n, _), (m, _) = operands["P"]["shape"], operands["A"]["shape"]
+    spec = dict(kind="sparse", B=int(B), n=n, m=m, dtype=s.dtype, platforms=_platforms(platforms),
+                settings=dataclasses.asdict(s), operands=operands)
+    shapes = ((operands["P"]["nnz"],), (B, n), (operands["A"]["nnz"],), (B, m), (B, m))
+    make = lambda: SparseSolveProgram(operands, spec["B"], **_program_settings(s))
+    return _dump(_programs(spec, make, shapes, torch_dtype(s.dtype)), 2)
 
 
 def load_sparse_solver(blob: bytes, device=None):
@@ -277,34 +301,29 @@ def load_sparse_solver(blob: bytes, device=None):
 
     (the calling convention it was exported with; the pattern and the
     value maps travel inside the blob) on ``device``, the card unless
-    asked."""
+    asked.  A format-2 blob loads its program as :func:`load_solver`
+    does; a format-1 blob (of an earlier version) runs the live
+    unsegmented solve on its pattern and maps."""
     spec = _load(blob, "sparse")
     dev = _device(spec, device)
     B, n, m = spec["B"], spec["n"], spec["m"]
     s = Settings(**spec["settings"])
     dtype = torch_dtype(s.dtype)
+    nnz = spec["operands"]["P"]["nnz"], spec["operands"]["A"]["nnz"]
+    names = ("P_val", "q", "A_val", "l", "u")
+    shapes = ((nnz[0],), (B, n), (nnz[1],), (B, m), (B, m))
+    if spec["format_version"] == 2:
+        return _loaded_program(spec, dev, names, shapes, dtype)
     cfg = make_config(n, m, s, dtype)
-    dyn = DynSettings.make(
-        dtype,
-        sigma=s.sigma,
-        alpha=s.alpha,
-        eps_abs=s.eps_abs,
-        eps_rel=s.eps_rel,
-        eps_prim_inf=s.eps_prim_inf,
-        eps_dual_inf=s.eps_dual_inf,
-        adaptive_rho_tolerance=s.adaptive_rho_tolerance,
-        delta=s.delta,
-    )
+    dyn = make_dyn(s, dtype)
     ops = {name: (*(t.to(dev) for t in op["pattern"]), tuple(op["shape"]), *(t.to(dev) for t in op["maps"]))
            for name, op in spec["operands"].items()}
-    nnz = spec["operands"]["P"]["nnz"], spec["operands"]["A"]["nnz"]
     on = lambda v: torch.as_tensor(v, device=dev).contiguous()
 
     def fn(P_val, q, A_val, l, u):
-        _check((P_val, q, A_val, l, u), ("P_val", "q", "A_val", "l", "u"),
-               ((nnz[0],), (B, n), (nnz[1],), (B, m), (B, m)), dtype)
-        P_ell = ell_with_values(*ops["P"], _host(P_val), dtype, batch=B, device=dev).contiguous()
-        A_ell = ell_with_values(*ops["A"], _host(A_val), dtype, batch=B, device=dev).contiguous()
+        _check((P_val, q, A_val, l, u), names, shapes, dtype)
+        P_ell = ell_with_values(*ops["P"], _host(P_val), dtype, batch=B, device=dev)
+        A_ell = ell_with_values(*ops["A"], _host(A_val), dtype, batch=B, device=dev)
         clamp = lambda v: torch.clamp(on(v), -con.OSQP_INFTY, con.OSQP_INFTY)
         rho0 = torch.full((B,), s.rho, dtype=dtype, device=dev)
         scaled, scl, rho_state, factor, it = _prepare(cfg, int(s.scaling), P_ell, on(q), A_ell, clamp(l), clamp(u),

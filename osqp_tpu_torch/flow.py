@@ -29,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import types
 
 import torch
 
@@ -58,10 +59,11 @@ def in_program() -> bool:
 def _flatten(obj, leaves: list, seen: dict):
     """The tensors of ``obj`` appended to ``leaves`` once each (``seen``
     maps a tensor's id to its place), and a spec of the rest.  Tuples,
-    lists, dicts and dataclasses nest; any other value is static.  A
-    tensor met twice (dense_inv's factor keeps the scaled P) is one
-    operand: an operator's subgraph names its inputs after the operands,
-    and two inputs of one name do not compile."""
+    lists, dicts and dataclasses nest, and a bound method nests as its
+    object (an operator's ``plain`` products); any other value is
+    static.  A tensor met twice (dense_inv's factor keeps the scaled P)
+    is one operand: an operator's subgraph names its inputs after the
+    operands, and two inputs of one name do not compile."""
     if isinstance(obj, torch.Tensor):
         if id(obj) not in seen:
             seen[id(obj)] = len(leaves)
@@ -70,6 +72,8 @@ def _flatten(obj, leaves: list, seen: dict):
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return ("d", type(obj), tuple((f.name, _flatten(getattr(obj, f.name), leaves, seen))
                                       for f in dataclasses.fields(obj)))
+    if isinstance(obj, types.MethodType):
+        return ("b", obj.__func__, _flatten(obj.__self__, leaves, seen))
     if isinstance(obj, dict):
         return ("m", tuple((k, _flatten(v, leaves, seen)) for k, v in obj.items()))
     if isinstance(obj, (tuple, list)):
@@ -84,6 +88,8 @@ def _rebuild(spec, leaves):
         return leaves[spec[1]]
     if kind == "d":
         return spec[1](**{name: _rebuild(s, leaves) for name, s in spec[2]})
+    if kind == "b":
+        return types.MethodType(spec[1], _rebuild(spec[2], leaves))
     if kind == "m":
         return {k: _rebuild(s, leaves) for k, s in spec[1]}
     if kind == "s":

@@ -221,8 +221,8 @@ class SparseSolver(Solver):
             )
         P_pat, A_pat = self._patterns
         dt, dev = self._dtype, self.device
-        P_ell = ell_with_values(*P_pat, self._Pu.data, dt, device=dev).contiguous()
-        A_ell = ell_with_values(*A_pat, self._Ac.data, dt, device=dev).contiguous()
+        P_ell = ell_with_values(*P_pat, self._Pu.data, dt, device=dev)
+        A_ell = ell_with_values(*A_pat, self._Ac.data, dt, device=dev)
         rho_arr = torch.full((1,), rho, dtype=dt, device=dev)
         self.data, self.scaling, self.rho_state, self.factor = _device_setup_sparse(
             self._cfg, int(self.settings.scaling), P_ell, self._tensor(self._q), A_ell,

@@ -16,12 +16,18 @@ one O(nnz) pass.  The operands may be dense (B, ·, ·) tensors or
 The inner tolerance follows the inexact-ADMM schedule of
 :func:`update_tolerance`: loose while the outer iteration is far from
 its tolerances, tighter as it closes in.
+
+In the traced program (:mod:`osqp_tpu_torch.program`) the step cap and
+the tolerance fraction are static numbers of the factor, not 0-d host
+tensors, so that no solve or schedule reads a value of the trace on the
+host; the arithmetic and its bits are the same.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import flow
 from ..linalg import mat_tvec, mat_vec
 from ..ops import ell
 from ..ops.cg import cg_solve
@@ -45,7 +51,8 @@ def _cap_for(dtype) -> float:
 def init(P, A, sigma, rho_vec, cg_max_iter: int = 0, cg_tol_fraction: float = 1e-7, **_):
     """The Jacobi diagonal's inverse, the step cap (``cg_max_iter``, 0
     for n + m) and the tolerances.  ``max_iter`` and ``tol_frac`` are
-    0-d host tensors; ``tol_rel`` is (B,) on the device."""
+    0-d host tensors (in the program a Python int and float); ``tol_rel``
+    is (B,) on the device."""
     n = P.shape[-1]
     m = A.shape[-2]
     dtype = P.dtype
@@ -64,12 +71,13 @@ def init(P, A, sigma, rho_vec, cg_max_iter: int = 0, cg_tol_fraction: float = 1e
                              else torch.einsum("bm,bmn->bn", rho_vec, A * A))
     max_iter = int(cg_max_iter) if cg_max_iter else (n + m)
     B = diagM.shape[0]
+    static = flow.in_program()
     return {
         "P": P,
         "sigma": torch.as_tensor(sigma, dtype=dtype),
         "dinv": 1.0 / diagM,
-        "max_iter": torch.tensor(max_iter, dtype=torch.int32),
-        "tol_frac": torch.tensor(cg_tol_fraction, dtype=dtype),
+        "max_iter": max_iter if static else torch.tensor(max_iter, dtype=torch.int32),
+        "tol_frac": float(cg_tol_fraction) if static else torch.tensor(cg_tol_fraction, dtype=dtype),
         # The inexact schedule's relative tolerance, set at every check
         # by update_tolerance; until then the static fraction under the
         # dtype's cap.
@@ -98,12 +106,16 @@ def update_tolerance(factor, tol_ratio, dyn):
 
         tol_rel = clip(tol_frac * tol_ratio, min(tol_frac, cap), cap)
 
-    exactly tol_frac at convergence, up to the cap far from it."""
+    exactly tol_frac at convergence, up to the cap far from it.  The
+    bounds are host numbers, which the clamp rounds to the dtype: the
+    bits of bounds rounded first."""
     tf = factor["tol_frac"]
     dtype = factor["dinv"].dtype
-    cap = torch.tensor(_cap_for(dtype), dtype=dtype)
-    lo = torch.minimum(tf, cap)
-    tol = torch.clamp(tf * tol_ratio.to(dtype), min=float(lo), max=float(cap))
+    cap = _cap_for(dtype)
+    lo = min(float(tf), cap)  # tf a 0-d host tensor, or the program's static number
+    if not isinstance(tf, torch.Tensor):
+        tf = torch.full((), tf, dtype=dtype)
+    tol = torch.clamp(tf * tol_ratio.to(dtype), min=lo, max=cap)
     return {**factor, "tol_rel": tol}
 
 

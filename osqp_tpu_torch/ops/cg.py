@@ -48,6 +48,12 @@ past the 1e-6 those tests hold).
 
 All return ``(x, steps)``: ``steps`` (B,) int32 counts the steps in
 which each instance was live, so its maximum is the JAX loop's count.
+
+In the traced program (:mod:`osqp_tpu_torch.program`) the device loop is
+a call of its ``torch.library`` operator ``cg_loop``
+(:func:`pcg_solve_loop_op`: the same C entry on the same plan, sigma and
+polish's ``div`` as one-element host tensors), and the plain loop a
+:func:`osqp_tpu_torch.flow.while_loop` with the same stop test and steps.
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, flow
 from ..linalg import mat_tvec, mat_vec, vec_dot
 from ..parallel.rows import RowSharded
 from ..sparse_ops import ELLMatrix
@@ -278,15 +284,15 @@ def pcg_solve_loop(op: EllOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=N
             raise ValueError(f"pcg_solve_loop: {name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
                              f"expected {shape} {dtype} on {dev}")
     _check_cuda("pcg_solve_loop", (b,) + operands + tuple(t for _, t, _ in vectors if t is not None))
+    if _build.tracing(b):
+        return pcg_solve_loop_op(op, sigma, dinv, b, tol_rel, max_iter, x0, start, plan)
     x, r, z, p, rz, rr, tol2 = _start(op, sigma, dinv, b, x0, tol_rel, start)
     steps = torch.zeros(B + 1, dtype=torch.int32, device=dev)  # and the kernel's instance counter
     if B == 0 or n == 0 or max_iter <= 0:
         return x, steps[:B]
     P, A = op.P, op.A
     kp, ka, kt = P.idx.shape[1], A.idx.shape[1], A.t_idx.shape[1]
-    if plan is None:
-        index = dev.index if dev.index is not None else torch.cuda.current_device()
-        plan = _planned(B, n, m, kp, ka, kt, _build.dtype_code(dtype), index)
+    plan = plan or _default_plan(op, b)
     Ap, Mp = torch.empty((B, m), dtype=dtype, device=dev), torch.empty_like(b)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -302,6 +308,38 @@ def pcg_solve_loop(op: EllOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=N
     launches_loop += 1
     last_plan = plan
     return x, steps[:B]
+
+
+def _default_plan(op: EllOperator, b) -> "LoopPlan":
+    """:func:`loop_plan` for this solve on the card of ``b``."""
+    B, n = b.shape
+    dev = b.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _planned(B, n, op.A.shape[0], op.P.idx.shape[1], op.A.idx.shape[1], op.A.t_idx.shape[1],
+                    _build.dtype_code(b.dtype), index)
+
+
+def pcg_solve_loop_op(op: EllOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=None,
+                      plan: "LoopPlan | None" = None):
+    """:func:`pcg_solve_loop` through its operator
+    (``torch.ops.osqp_tpu_torch.cg_loop``), as a traced program calls it:
+    the same start, then the same C entry, which the operator gives
+    copies of the start to write and a zeroed instance counter; sigma and
+    polish's ``div`` reach it as one-element host tensors.  Returns
+    ``(x, steps)``, the loop's bits.  Launches are not counted: the
+    program runs it after the trace."""
+    B, n = b.shape
+    x, r, z, p, rz, rr, tol2 = _start(op, sigma, dinv, b, x0, tol_rel, start)
+    if B == 0 or n == 0 or max_iter <= 0:
+        return x, torch.zeros(B, dtype=torch.int32, device=b.device)
+    plan = plan or _default_plan(op, b)
+    P, A = op.P, op.A
+    div = _build.setting(op.div) if op.div is not None else None
+    x, steps = _build.ops().cg_loop(
+        P.val, P.idx, A.val, A.idx, A.t_val, A.t_idx, op.w, _build.setting(sigma), div, dinv, tol2, rz, rr, x, r,
+        z, p, int(max_iter), plan.cluster, plan.threads, int(plan.resident), int(plan.vectors), plan.clusters,
+    )
+    return x, steps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -440,12 +478,38 @@ def pcg_solve_plain(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None, c
     sums the inner products (:func:`kernel_dot`: in the kernel's order)."""
     x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel, start)
     steps = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
+    if flow.in_program():
+        return _plain_program(products, sigma, dinv, tol2, int(max_iter), chunk, dot, (x, r, z, p, rz, rr, steps))
     for k in range(int(max_iter)):
         if k % chunk == 0 and not bool((rr > tol2).any()):
             break
         steps += (rr > tol2).to(torch.int32)
         x, r, z, p, rz, rr = cg_step_plain(p, *products(p), sigma, dinv, x, r, rz, rr, tol2, dot)
     return x, steps
+
+
+def _plain_program(products, sigma, dinv, tol2, max_iter: int, chunk: int, dot, state):
+    """The loop of :func:`pcg_solve_plain` in the traced program: a
+    :func:`flow.while_loop` with the same stop test (before every
+    ``chunk``-th step) and the same steps, so the same bits.  The
+    operator, sigma, dinv and the tolerances are the loop's constants."""
+
+    def more(c, products, sigma, dinv, tol2):
+        k, rr = c[0], c[6]
+        go = (rr > tol2).any()
+        if chunk > 1:
+            go = go | (k % chunk != 0)
+        return (k < max_iter) & go
+
+    def body(c, products, sigma, dinv, tol2):
+        k, x, r, z, p, rz, rr, steps = c
+        steps = steps + (rr > tol2).to(torch.int32)
+        x, r, z, p, rz, rr = cg_step_plain(p, *products(p), sigma, dinv, x, r, rz, rr, tol2, dot)
+        return k + 1, x, r, z, p, rz, rr, steps
+
+    k = torch.zeros((), dtype=torch.int64, device=dinv.device)
+    out = flow.while_loop(more, body, (k, *state), (products, sigma, dinv, tol2))
+    return out[1], out[7]
 
 
 def parts_of(n: int) -> int:

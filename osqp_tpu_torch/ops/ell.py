@@ -28,6 +28,11 @@ anything else: values broadcast over the batch are made contiguous once
 at set-up (:meth:`ELLMatrix.contiguous`), never here.  Operands with no
 rows or no columns take the short cuts of the JAX package: an empty
 product is zeros, and nothing is launched.
+
+Under tracing (``torch.export``) a CUDA operand has no pointers: the
+wrappers call the kernels' ``torch.library`` operators (``ell_group``,
+``ell_cg_start``, ``ell_scale``; ``csrc/torch_ops.cpp``), the same C
+entries on the same plans, so the same bits.
 """
 
 from __future__ import annotations
@@ -148,10 +153,13 @@ def _check_operand(val, idx, name):
 def _operand(A: ELLMatrix, name: str) -> _Operand:
     """A's launch descriptor, made and checked at its first use and kept
     on A (a new matrix, such as :func:`ell_scale`'s result, has none; a
-    copy whose values moved, such as a deep copy's, makes its own)."""
+    copy whose values moved, such as a deep copy's, makes its own).  A
+    traced operand has no pointers: its descriptor is made at each use,
+    with ``rows`` and ``t`` None, and its products take the operators."""
     d = A.__dict__.get("_k5_operand")
     if d is not None and (not d.cuda or d.rows[0] == A.val.data_ptr()):
         return d
+    traced = _build.tracing(A.val)
     _check_operand(A.val, A.idx, name)
     _check_operand(A.t_val, A.t_idx, name)
     if A.t_val.dtype != A.val.dtype or A.t_val.device != A.val.device or A.t_val.shape[0] != A.val.shape[0]:
@@ -163,10 +171,11 @@ def _operand(A: ELLMatrix, name: str) -> _Operand:
     copies = ((A.val, A.idx), (A.t_val, A.t_idx))
     if cuda and not all(t.is_contiguous() for c in copies for t in c):
         raise ValueError(f"{name} takes contiguous tensors (make the operand so with ELLMatrix.contiguous)")
-    ptrs = [(v.data_ptr(), i.data_ptr(), i.shape[1]) if cuda else None for v, i in copies]
+    ptrs = [(v.data_ptr(), i.data_ptr(), i.shape[1]) if cuda and not traced else None for v, i in copies]
     d = _Operand(cuda, A.val.dtype, dev, A.val.shape[0], ptrs[0], ptrs[1],
                  _build.dtype_code(A.val.dtype) if cuda else -1, _build.sm_count(dev) if cuda else 0)
-    object.__setattr__(A, "_k5_operand", d)
+    if not traced:
+        object.__setattr__(A, "_k5_operand", d)
     return d
 
 
@@ -200,6 +209,7 @@ class _Job(NamedTuple):
     R: int  # rows of the output
     empty: bool  # no rows or no columns: zeros, no launch
     plain: Callable[[], torch.Tensor]
+    mat: tuple  # (values, pattern) of the copy reduced, as the operator takes it
 
 
 def _gathering(name, mode, A, copy_t, g, G, R, plain, w=None):
@@ -209,7 +219,8 @@ def _gathering(name, mode, A, copy_t, g, G, R, plain, w=None):
     _check_vector(g, d.B, G, d, name)
     if w is not None:
         _check_vector(w, d.B, G, d, name)
-    return _Job(d, mode, d.t if copy_t else d.rows, g, w, R, A.shape[0] == 0 or A.shape[1] == 0, plain)
+    return _Job(d, mode, d.t if copy_t else d.rows, g, w, R, A.shape[0] == 0 or A.shape[1] == 0, plain,
+                (A.t_val, A.t_idx) if copy_t else (A.val, A.idx))
 
 
 def _job_matvec(A, x):
@@ -226,7 +237,7 @@ def _job_tmatvec(A, y, w=None):
 def _job_diagonal(P):
     d = _operand(P, "ell_diagonal")
     n = P.shape[0]
-    return _Job(d, _DIAG, d.rows, None, None, n, n == 0, lambda: ell_diagonal_plain(P))
+    return _Job(d, _DIAG, d.rows, None, None, n, n == 0, lambda: ell_diagonal_plain(P), (P.val, P.idx))
 
 
 def _job_sq_colsums(A, w):
@@ -246,20 +257,40 @@ def _job_col_norms(A, row_w):
 
 def _run(jobs) -> list:
     """The jobs' results: zeros for empty products, the plain versions on
-    the CPU, one grouped launch per MAX_JOBS of the rest on the card."""
+    the CPU, one grouped launch per MAX_JOBS of the rest on the card: a
+    ctypes launch, or for traced operands a call of the operator."""
     d = jobs[0].op
     if any(j.op.device != d.device or j.op.dtype != d.dtype or j.op.B != d.B for j in jobs):
         raise ValueError("ell_products: the operands differ in device, dtype or batch")
     zeros = lambda R: torch.zeros((d.B, R), dtype=d.dtype, device=d.device)
     if not d.cuda:
         return [zeros(j.R) if j.empty else j.plain() for j in jobs]
-    outs = [zeros(j.R) if j.empty else torch.empty((d.B, j.R), dtype=d.dtype, device=d.device) for j in jobs]
+    op = any(j.op.rows is None for j in jobs)
+    outs = [zeros(j.R) if j.empty or not d.B else None if op else
+            torch.empty((d.B, j.R), dtype=d.dtype, device=d.device) for j in jobs]
     live = [i for i, j in enumerate(jobs) if not j.empty]
     if d.B:
         for c in range(0, len(live), MAX_JOBS):
             chunk = live[c:c + MAX_JOBS]
-            _launch_group([jobs[i] for i in chunk], [outs[i] for i in chunk], d)
+            if op:
+                for i, out in zip(chunk, _group_op([jobs[i] for i in chunk], d)):
+                    outs[i] = out
+            else:
+                _launch_group([jobs[i] for i in chunk], [outs[i] for i in chunk], d)
     return outs
+
+
+def _group_op(jobs, d: _Operand) -> list:
+    """One grouped launch through the operator
+    (``torch.ops.osqp_tpu_torch.ell_group``): the jobs as tensor and int
+    lists, from which the C++ side writes the launch's job words, and the
+    plan of :func:`plan`; returns the jobs' outputs."""
+    p = plan(tuple(j.R for j in jobs), d.B, d.sms)
+    return list(_build.ops().ell_group(
+        [j.mat[0] for j in jobs], [j.mat[1] for j in jobs], [j.g for j in jobs], [j.w for j in jobs],
+        [j.mode for j in jobs], [j.R for j in jobs], list(p.tiles), list(p.cta0), p.rows, p.ipar, p.run, p.ctas,
+        d.sms,
+    ))
 
 
 def _launch_group(jobs, outs, d: _Operand) -> None:
@@ -344,7 +375,8 @@ def ell_cg_start(P: ELLMatrix, A: ELLMatrix, w, x0, dinv, sigma, rhs_x, rhs_z=No
     (a float or a 0-d CPU tensor), rounded to the operands' dtype as
     PyTorch rounds a CPU scalar.  A must have rows (else M has no V p).
     On the card: P x0 and A x0 in one grouped launch, then one launch of
-    the start kernel."""
+    the start kernel; traced, both through their operators (sigma as a
+    one-element host tensor)."""
     global launches, launches_start
     name = "ell_cg_start"
     dA, dP = _operand(A, name), _operand(P, name)
@@ -361,6 +393,10 @@ def ell_cg_start(P: ELLMatrix, A: ELLMatrix, w, x0, dinv, sigma, rhs_x, rhs_z=No
     if not dA.cuda or n == 0:
         return ell_cg_start_plain(P, A, w, x0, dinv, sigma, rhs_x, rhs_z, rho)
     Px0, Ax0 = _run((_job_matvec(P, x0), _job_matvec(A, x0)))
+    if dA.rows is None or dP.rows is None:
+        b, r, z = _build.ops().ell_cg_start(A.t_val, A.t_idx, rhs_x, rhs_z, rho, w, Ax0, Px0, x0, dinv,
+                                            _build.setting(sigma), dA.sms)
+        return (rhs_x if rhs_z is None else b), r, z
     r, z = torch.empty_like(x0), torch.empty_like(x0)
     b = rhs_x if rhs_z is None else torch.empty_like(x0)
     sig = float(sigma)
@@ -379,7 +415,7 @@ def ell_cg_start(P: ELLMatrix, A: ELLMatrix, w, x0, dinv, sigma, rhs_x, rhs_z=No
 
 def ell_scale(A: ELLMatrix, row_s: torch.Tensor, col_s: torch.Tensor, c: torch.Tensor | None = None) -> ELLMatrix:
     """diag(row_s) A diag(col_s), times c (B,) where given, on both
-    copies of the values."""
+    copies of the values; traced, through the operator."""
     global launches, launches_scale
     m, n = A.shape
     d = _operand(A, "ell_scale")
@@ -392,6 +428,9 @@ def ell_scale(A: ELLMatrix, row_s: torch.Tensor, col_s: torch.Tensor, c: torch.T
         return dataclasses.replace(A, val=torch.zeros_like(A.val), t_val=torch.zeros_like(A.t_val))
     if not d.cuda:
         return ell_scale_plain(A, row_s, col_s, c)
+    if d.rows is None:
+        val, t_val = _build.ops().ell_scale(A.val, A.idx, A.t_val, A.t_idx, row_s, col_s, c)
+        return dataclasses.replace(A, val=val, t_val=t_val)
     val = torch.empty_like(A.val)
     t_val = torch.empty_like(A.t_val)
     (v, i, ka), (tv, ti, kt) = d.rows, d.t

@@ -96,7 +96,8 @@ def _cast(obj, dtype: torch.dtype):
 def polish_cg_cap(n: int, m: int) -> int:
     """The step cap of the sparse polish's CG: ``OSQP_TPU_POLISH_CG_CAP``
     where set, else min(4 (n + m), 40000), as in the JAX package (its
-    earlier cap of 4000 under-converged DTOC3's reduced KKT)."""
+    earlier cap of 4000 under-converged DTOC3's reduced KKT).  A traced
+    program reads it once, when it is traced, and keeps that cap."""
     return int(os.environ.get("OSQP_TPU_POLISH_CG_CAP", "0")) or min(4 * (n + m), 40_000)
 
 

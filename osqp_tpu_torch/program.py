@@ -1,4 +1,4 @@
-"""The dense batched solve as one traceable program (counterpart of
+"""The batched solve as one traceable program (counterpart of
 ``osqp_tpu/batch.py:153-176``, ``solve_batch_jit``, and of the while loop
 of ``osqp_tpu/admm.py:296-385``).
 
@@ -7,7 +7,13 @@ scaling through K4, rho classification, the inverse through K2 with its
 residual guard, the ADMM loop through K1 or K1r with K3 at the checks,
 finalize, optional polish through K8 and K3, unscaling and certificates)
 with no host read and no Python branch on a device value, so that
-``torch.export`` traces it into one program:
+``torch.export`` traces it into one program.  It runs the sparse
+pipeline of the ``cg`` backend on ELL operands the same way (matrix-free
+Ruiz on K5, rho classification, ``cg.init`` on K5, the ADMM loop over
+``linsys/cg.solve`` with K5's fused start and K6's device loop each
+iteration, K5's products at the checks and the inner tolerance retuned
+there, finalize, the optional one-pass polish whose Schur system K6's
+loop solves, unscaling and certificates):
 
 * the refined or the plain loop body is a :func:`flow.cond` on
   ``dense_inv.refine_signal``, outside the loop (JAX: admm.py:375-385);
@@ -19,7 +25,11 @@ with no host read and no Python branch on a device value, so that
   each place of the turn where that can hold, and its refactor one on
   ``upd.any()``;
 * the residual guard is a :func:`flow.cond` on ``bad.any()`` over the
-  whole batch (``dense_inv.guarded_inverse``).
+  whole batch (``dense_inv.guarded_inverse``);
+* a backend without fused bodies (``cg``) has no refine ``cond``: its
+  turn runs ``admm.step``'s generic body, and on CPU tensors each CG
+  solve is itself a :func:`flow.while_loop` (``ops/cg.py``), where on
+  the card it is one call of K6's loop.
 
 The pieces between those decisions are the live solve's own
 (``batch._prepare``, ``admm.step``, ``admm._apply_check``,
@@ -31,7 +41,9 @@ where the residual guard fires (a batched Cholesky).  Under tracing the
 kernels' wrappers call their ``torch.library`` ops on CUDA tensors and
 their plain versions on CPU tensors.  :class:`SolveProgram` is the module
 that ``export.export_solver`` traces: settings are constants of the
-program, its inputs P, q, A, l, u.
+program, its inputs P, q, A, l, u.  :class:`SparseSolveProgram` is
+``export.export_sparse_solver``'s: its sparsity pattern and value maps
+are buffers, its inputs the value vectors (P_val, q, A_val, l, u).
 """
 
 from __future__ import annotations
@@ -39,6 +51,8 @@ from __future__ import annotations
 import math
 from dataclasses import replace
 
+import numpy as np
+import scipy.sparse as sp
 import torch
 
 from . import admm
@@ -47,6 +61,7 @@ from . import flow
 from . import linsys as linsys_registry
 from .batch import BatchSolveResults, _postprocess, _prepare
 from .solver import Settings, make_config, reject_time_based_rho, torch_dtype, validate_settings
+from .sparse_ops import ELLMatrix, ell_gather_values, ell_pattern_from_scipy, ell_value_maps
 from .types import DynSettings
 
 # The program's outputs, in order (the JAX package's calling convention).
@@ -103,16 +118,22 @@ def run_loop(cfg, data, scl, dyn, c: admm.Carry) -> admm.Carry:
 
         return lambda c, data, scl, dyn: flow.while_loop(more, body, c, (data, scl, dyn))
 
+    if not hasattr(backend, "fused_step"):
+        return turn(False)(c, data, scl, dyn)
     return flow.cond(backend.refine_signal(c.factor), turn(True), turn(False), (c, data, scl, dyn))
 
 
 def solve_batch_program(cfg, scaling_iters: int, do_polish: bool, refine_iter: int, P, q, A, l, u, rho0,
                         dyn: DynSettings) -> tuple:
-    """The whole batched solve of the ``dense_inv`` backend over the whole
+    """The whole batched solve of the ``dense_inv`` backend on dense
+    operands, or of the ``cg`` backend on ELL operands, over the whole
     iteration range, cold started, on unscaled inputs (l and u clamped to
     the finite infinity); returns the fields of :data:`FIELDS` in order."""
-    if linsys_registry.get(cfg.linsys_solver) is not linsys_registry.get("dense_inv"):
-        raise ValueError(f"the traced program covers the dense_inv backend, not {cfg.linsys_solver!r}")
+    backend = linsys_registry.get(cfg.linsys_solver)
+    sparse = isinstance(P, ELLMatrix) and isinstance(A, ELLMatrix)
+    if backend is not linsys_registry.get("cg" if sparse else "dense_inv"):
+        raise ValueError(f"the traced program covers the dense_inv backend on dense operands and the cg backend "
+                         f"on ELL operands, not {cfg.linsys_solver!r} on {'ELL' if sparse else 'dense'} ones")
     with flow.program():
         scaled, scl, rho_state, factor, it = _prepare(cfg, scaling_iters, P, q, A, l, u, rho0, dyn, None, None)
         c = admm.init_carry(cfg, scaled, rho_state, factor, it)
@@ -159,3 +180,64 @@ class SolveProgram(torch.nn.Module):
         rho0 = torch.full((q.shape[0],), s.rho, dtype=self.dtype, device=q.device)
         return solve_batch_program(self.cfg, int(s.scaling), bool(s.polish), int(s.polish_refine_iter),
                                    P, q, A, clamp(l), clamp(u), rho0, make_dyn(s, self.dtype))
+
+
+def sparse_operands(P, A) -> dict:
+    """The ELL patterns and CSC-nnz -> ELL-slot value maps of the upper
+    triangle of P (scipy, (n, n)) and of A (scipy, (m, n)), as plain
+    data: for "P" and "A", ``nnz``, ``shape`` and the int32 tensors
+    ``pattern`` (idx, t_idx) and ``maps`` (src, t_src)."""
+    Pu = sp.triu(sp.csc_matrix(P), format="csc")
+    Ac = sp.csc_matrix(A)
+    tensors = lambda *arrays: [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
+    out = {}
+    for name, M, sym in (("P", Pu, True), ("A", Ac, False)):
+        idx, t_idx, shape = ell_pattern_from_scipy(M, sym_from_triu=sym)
+        out[name] = dict(nnz=int(M.nnz), shape=list(shape), pattern=tensors(idx, t_idx),
+                         maps=tensors(*ell_value_maps(M, sym_from_triu=sym)))
+    return out
+
+
+class SparseSolveProgram(torch.nn.Module):
+    """``forward(P_val, q, A_val, l, u)`` -> the :data:`FIELDS` tuple for
+    B instances that share a sparsity pattern and the values of P and A:
+    ``operands`` as :func:`sparse_operands` gives them (their patterns and
+    value maps become buffers, moved with the module), settings as
+    ``Settings`` names (the ``cg`` backend).  The operands are assembled
+    from the value vectors (``sparse_ops.ell_gather_values``), the bounds
+    clamped, rho0 and the runtime settings made inside.  The sparse
+    polish's CG cap (``OSQP_TPU_POLISH_CG_CAP``) is read when the program
+    is traced, and a traced program keeps it."""
+
+    def __init__(self, operands: dict, B: int = 1, **settings):
+        super().__init__()
+        s = Settings(**{"linsys_solver": "cg", **settings})
+        validate_settings(s)
+        reject_time_based_rho(s)
+        if linsys_registry.get(s.linsys_solver) is not linsys_registry.get("cg"):
+            raise ValueError(f"the sparse program runs the cg backend, not {s.linsys_solver!r}")
+        self.settings = s
+        self.dtype = torch_dtype(s.dtype)
+        self.B = int(B)
+        self.shapes = {name: tuple(op["shape"]) for name, op in operands.items()}
+        for name, op in operands.items():
+            for key, t in zip(("idx", "t_idx", "src", "t_src"), (*op["pattern"], *op["maps"])):
+                self.register_buffer(f"{name}_{key}", torch.as_tensor(t, dtype=torch.int32))
+        n, m = self.shapes["P"][0], self.shapes["A"][0]
+        self.cfg = make_config(n, m, s, self.dtype)
+
+    def _operand(self, name: str, values) -> ELLMatrix:
+        """The ELL operand of ``name`` ("P" or "A") with these values."""
+        buf = lambda key: getattr(self, f"{name}_{key}")
+        return ell_gather_values(buf("idx"), buf("t_idx"), self.shapes[name], buf("src"), buf("t_src"), values,
+                                 self.B)
+
+    def forward(self, P_val, q, A_val, l, u):
+        s = self.settings
+        if q.dtype != self.dtype:
+            raise ValueError(f"this program solves in {self.dtype}, not {q.dtype}")
+        clamp = lambda v: torch.clamp(v, -con.OSQP_INFTY, con.OSQP_INFTY)
+        rho0 = torch.full((self.B,), s.rho, dtype=self.dtype, device=q.device)
+        return solve_batch_program(self.cfg, int(s.scaling), bool(s.polish), int(s.polish_refine_iter),
+                                   self._operand("P", P_val), q, self._operand("A", A_val), clamp(l), clamp(u), rho0,
+                                   make_dyn(s, self.dtype))

@@ -16,8 +16,9 @@ every non-negative maximum, so no product masks by count.  P is stored
 with its full symmetric pattern.
 
 This module builds the operands on the host (numpy and scipy) and holds
-the value maps that put new nonzero values into a fixed pattern.  The
-products are K5 (:mod:`osqp_tpu_torch.ops.ell`).
+the value maps that put new nonzero values into a fixed pattern, with
+which :func:`ell_gather_values` assembles operands from value tensors on
+the device.  The products are K5 (:mod:`osqp_tpu_torch.ops.ell`).
 """
 
 from __future__ import annotations
@@ -168,23 +169,28 @@ def ell_pattern_from_scipy(M, sym_from_triu: bool = False):
 
 def ell_with_values(idx, t_idx, shape, src, t_src, values, dtype, batch: int = 1, device="cpu") -> ELLMatrix:
     """An :class:`ELLMatrix` assembled by gathering ``values`` (1-D, CSC
-    nnz order) through the maps: O(nnz) gathers, no pattern work."""
+    nnz order, any array) through the maps on ``device``: O(nnz) gathers,
+    no pattern work (:func:`ell_gather_values` on the pattern, maps and
+    values as tensors)."""
+    on = lambda a: torch.as_tensor(a, device=device)
+    v = torch.as_tensor(np.asarray(values, np.float64), dtype=dtype, device=device)
+    return ell_gather_values(on(idx), on(t_idx), shape, on(src), on(t_src), v, batch)
+
+
+def ell_gather_values(idx, t_idx, shape, src, t_src, values: torch.Tensor, batch: int = 1) -> ELLMatrix:
+    """An :class:`ELLMatrix` from tensors (JAX: osqp_tpu/sparse_ops.py:
+    239-256): ``values`` (1-D, CSC nnz order) in the operand's dtype, the
+    pattern and the maps int32 tensors on its device.  The values are
+    gathered there and copied over the batch, contiguous as K5 takes them,
+    with no host read: the form in which the traced sparse program
+    assembles its operands."""
     if src.shape != idx.shape or t_src.shape != t_idx.shape:
         raise ValueError(
-            f"value maps {src.shape}/{t_src.shape} disagree with the "
-            f"pattern {idx.shape}/{t_idx.shape}: pattern and maps must "
-            "come from the same matrix (explicit zeros included)"
+            f"value maps {tuple(src.shape)}/{tuple(t_src.shape)} disagree with the pattern "
+            f"{tuple(idx.shape)}/{tuple(t_idx.shape)}: pattern and maps must come from the same matrix "
+            "(explicit zeros included)"
         )
-    v = torch.as_tensor(np.asarray(values, np.float64), dtype=dtype, device=device)
-    src = torch.as_tensor(src, device=device)
-    t_src = torch.as_tensor(t_src, device=device)
-    zero = torch.zeros((), dtype=dtype, device=device)
-    gather = lambda s: torch.where(s >= 0, v[s.clamp(min=0)] if v.numel() else zero, zero)
-    val, t_val = gather(src), gather(t_src)
-    return ELLMatrix(
-        val=val[None].expand((batch,) + tuple(val.shape)),
-        idx=torch.as_tensor(idx, device=device),
-        t_val=t_val[None].expand((batch,) + tuple(t_val.shape)),
-        t_idx=torch.as_tensor(t_idx, device=device),
-        shape=tuple(shape),
-    )
+    zero = torch.zeros((), dtype=values.dtype, device=values.device)
+    gather = lambda s: torch.where(s >= 0, values[s.clamp(min=0)] if values.numel() else zero, zero)
+    copies = lambda v: v[None].expand((batch,) + tuple(v.shape)).contiguous()
+    return ELLMatrix(val=copies(gather(src)), idx=idx, t_val=copies(gather(t_src)), t_idx=t_idx, shape=tuple(shape))

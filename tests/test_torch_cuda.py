@@ -1945,6 +1945,159 @@ def test_blob_is_plain_data_with_a_card_program(dev):
 
 
 # ---------------------------------------------------------------------------
+# The sparse path's torch.library operators and its exported program
+# ---------------------------------------------------------------------------
+def _k5_jobs(dtype, dev, B, k=5, seed=0):
+    """Nine products of every mode of K5's grouped kernel (the ninth past
+    MAX_JOBS), on rows of up to k slots."""
+    rng = np.random.default_rng(seed)
+    m, n = 700, 500
+    A = _ell(_k_slots(m, n, k, rng), B, dtype, dev, seed=k)
+    P = _ell(_k_slots(n, n, k, rng, sym=True), B, dtype, dev, seed=k + 1, sym=True)
+    r = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=dev)  # noqa: E731
+    x, y, w, cw = r(B, n), r(B, m), r(B, m).abs() + 0.1, r(B, n).abs() + 0.1
+    return [(k5.ell_matvec, A, x), (k5.ell_tmatvec, A, y), (k5.ell_tmatvec, A, y, w), (k5.ell_sq_colsums, A, w),
+            (k5.ell_row_norms, A, cw), (k5.ell_col_norms, A, w), (k5.ell_diagonal, P), (k5.ell_matvec, P, x),
+            (k5.ell_tmatvec, A, w, y)]
+
+
+def _on_operators(monkeypatch, fn, *args):
+    """``fn(*args)`` on the route a traced program takes: the wrappers see
+    their operands as traced, with no pointers, and call the operators.
+    Each ELL operand is passed as a new object, which keeps no launch
+    descriptor of an earlier call."""
+    import dataclasses
+
+    from osqp_tpu_torch import _build
+    from osqp_tpu_torch.sparse_ops import ELLMatrix
+
+    fresh = lambda a: (dataclasses.replace(a) if isinstance(a, ELLMatrix)  # noqa: E731
+                       else tuple(map(fresh, a)) if isinstance(a, tuple) else a)
+    before = k5.launches
+    with monkeypatch.context() as mp:
+        mp.setattr(_build, "tracing", lambda t=None: True)
+        out = fn(*map(fresh, args))
+    assert k5.launches == before  # no ctypes launch
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("jobs", [1, 2, 3, 4, 5, 6, 7, 8, 9])
+@pytest.mark.parametrize("B", [1, 64])
+def test_ell_group_op_matches_its_launches(dev, dtype, jobs, B, monkeypatch):
+    """K5's grouped operator on 1 to 8 jobs of every mode (sum, weighted
+    sum, squares, maxima, diagonal) and on 9, a chunk past MAX_JOBS: each
+    product the ctypes launch's bits."""
+    calls = _k5_jobs(dtype, dev, B)[:jobs]
+    got, want = _on_operators(monkeypatch, k5.ell_products, *calls), k5.ell_products(*calls)
+    assert len(got) == jobs and all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("with_rhs", [True, False])
+def test_ell_cg_start_op_matches_its_launches(dev, dtype, with_rhs, monkeypatch):
+    """K5's fused CG start through its operators, with and without rhs_z,
+    sigma a 0-d host tensor and a float: b, r and z the launches' bits."""
+    rng = np.random.default_rng(9)
+    B, m, n = 3, 600, 400
+    A = _ell(_k_slots(m, n, 9, rng), B, dtype, dev, seed=9)
+    P = _ell(_k_slots(n, n, 9, rng, sym=True), B, dtype, dev, seed=10, sym=True)
+    r = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=dev)  # noqa: E731
+    rho = r(B, m).abs() + 0.1
+    x0, dinv, rhs_x, rhs_z = r(B, n), r(B, n).abs(), r(B, n), r(B, m)
+    for sigma in (torch.tensor(1e-6, dtype=dtype), 1.1e-6):
+        args = (P, A, rho, x0, dinv, sigma, rhs_x) + ((rhs_z, rho) if with_rhs else ())
+        got, want = _on_operators(monkeypatch, k5.ell_cg_start, *args), k5.ell_cg_start(*args)
+        assert all(_same_bits(a, b) for a, b in zip(got, want))
+        assert (got[0] is rhs_x) == (not with_rhs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("with_c", [True, False])
+def test_ell_scale_op_matches_its_launch(dev, dtype, with_c, monkeypatch):
+    """K5's scaling through its operator, with and without the cost
+    factor c: both copies of the values the launch's bits."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(4)
+    B, m, n = 5, 300, 200
+    A = _ell(sp.random(m, n, density=0.03, random_state=rng, format="csr"), B, dtype, dev)
+    r = lambda *s: torch.as_tensor(rng.random(s) + 0.5, dtype=dtype, device=dev)  # noqa: E731
+    row_s, col_s, c = r(B, m), r(B, n), (r(B) if with_c else None)
+    got, want = _on_operators(monkeypatch, k5.ell_scale, A, row_s, col_s, c), k5.ell_scale(A, row_s, col_s, c)
+    assert _same_bits(got.val, want.val) and _same_bits(got.t_val, want.t_val)
+
+
+@pytest.mark.parametrize("form", ["cg", "polish"])
+@pytest.mark.parametrize("resident", [True, False])
+def test_cg_loop_op_matches_its_launch(dev, form, resident):
+    """K6's device loop through its operator, in the cg form from x0 and
+    in polish's div form from zero, on a plan with the operands and
+    vectors resident and on one with the vectors in device memory: x and
+    the steps the launch's bits."""
+    op, sigma, dinv, b, tol, x0 = _loop_system(form, 5, 5000, 3500, torch.float64, dev)
+    x0 = x0 if form == "cg" else None
+    plans = [p for p in _plans_that_fit(op, b, 16, clusters=2) if p.resident == resident and p.vectors == resident]
+    assert len(plans) == 1
+    xk, sk = k6.pcg_solve_loop(op, sigma, dinv, b, tol, 60, x0, plan=plans[0])
+    xo, so = k6.pcg_solve_loop_op(op, sigma, dinv, b, tol, 60, x0, plan=plans[0])
+    assert int(sk.max()) > 0 and _same_bits(so, sk) and _same_bits(xo, xk)
+
+
+def test_sparse_ops_refuse_a_plan_that_does_not_fit_the_card(dev):
+    """A grouped launch planned for another card, and a loop planned for
+    more clusters than the card holds, raise."""
+    from osqp_tpu_torch import _build
+
+    op, sigma, dinv, b, tol, x0 = _loop_system("cg", 2, 3000, 2000, torch.float64, dev)
+    ops, sms = _build.ops(), _build.sm_count(dev)
+    p = k5.plan((3000,), 2, sms)
+    with pytest.raises(RuntimeError, match="SMs"):
+        ops.ell_group([op.P.val], [op.P.idx], [b], [None], [0], [3000], list(p.tiles), list(p.cta0), p.rows, p.ipar,
+                      p.run, p.ctas, sms + 1)
+    plan = _plans_that_fit(op, b, 4)[0]
+    x, r, z, pp, rz, rr, tol2 = k6._start(op, sigma, dinv, b, x0, tol)
+    with pytest.raises(RuntimeError, match="clusters"):
+        ops.cg_loop(op.P.val, op.P.idx, op.A.val, op.A.idx, op.A.t_val, op.A.t_idx, op.w, sigma, None, dinv, tol2,
+                    rz, rr, x, r, z, pp, 10, plan.cluster, plan.threads, int(plan.resident), int(plan.vectors),
+                    10 ** 6)
+
+
+def _chain_problem(n=200, seed=5):
+    """The sparse export tests' chain problem at n variables."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    P = sp.diags(np.abs(rng.standard_normal(n)) + 1.0).tocsc()
+    A = sp.vstack([sp.eye(n), sp.diags([1.0] * (n - 1), 1).tocsr()[: n - 1]]).tocsc()
+    return P, rng.standard_normal(n), A, -np.ones(A.shape[0]), np.ones(A.shape[0])
+
+
+@pytest.mark.parametrize("dtype,polish", [("float64", True), ("float32", False)])
+def test_exported_sparse_program_gives_the_live_bits(dev, dtype, polish):
+    """A scenario batch of 3 as a format-2 sparse artifact, loaded in this
+    process, gives solve_sparse's bits in every field, and its export made
+    no host read."""
+    import scipy.sparse as sp
+
+    from osqp_tpu_torch import export, linalg
+
+    P, q, A, l, u = _chain_problem()
+    B = 3
+    qs = np.stack([q * (1.0 + 0.1 * i) for i in range(B)])
+    ls, us = np.tile(l, (B, 1)), np.tile(u, (B, 1))
+    kw = dict(dtype=dtype, verbose=False, polish=polish)
+    reads = linalg.host_reads
+    blob = export.export_sparse_solver(P, A, B=B, **kw)
+    assert linalg.host_reads == reads
+    T = lambda v: torch.as_tensor(np.ascontiguousarray(v), dtype=getattr(torch, dtype), device=dev)  # noqa: E731
+    out = export.load_sparse_solver(blob)(T(sp.triu(P, format="csc").data), T(qs), T(A.data), T(ls), T(us))
+    live = osqp_tpu_torch.solve_sparse(P, qs, A, ls, us, device=dev, **kw)
+    assert not [f for f in export._FIELDS if not _same_bits(out[f], getattr(live, f))]
+    assert (live.status_val == 1).all()
+
+
+# ---------------------------------------------------------------------------
 # osqp_tpu_torch.parallel on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype,B,n,m", [(torch.float32, 64, 100, 200), (torch.float64, 64, 100, 200),

@@ -5,7 +5,10 @@ the live solve (status and iterations equal, x within 1e-10),
 ``Solver.export`` writing what it returns, and the sparse round trip with
 a P-value update; then the port's loaded callable against the JAX
 package's loaded callable on the same inputs (float64: statuses and
-iterations equal, x and y within 1e-6), and the refusals.
+iterations equal, x and y within 1e-6), and the refusals.  The sparse
+tests share one format-2 blob (:func:`sparse_blob`: a trace, save and
+load take ~20 s here); tests/test_torch_sparse_program.py holds the
+sparse program to the live solve bit for bit.
 """
 
 import io
@@ -48,6 +51,27 @@ def _sparse_problem():
     return P, q, A, -np.ones(m), np.ones(m)
 
 
+# The shared sparse blob's batch and settings.
+SPARSE_B = 2
+SPARSE_KW = dict(dtype="float64", verbose=False)
+
+
+@pytest.fixture(scope="module")
+def sparse_blob(tmp_path_factory):
+    """(SparseSolver, the path it wrote, the blob, its loaded callable):
+    SparseSolver.export of the sparse problem for SPARSE_B instances, on
+    the CPU."""
+    P, q, A, l, u = _sparse_problem()
+    s = osqp_tpu_torch.SparseSolver(P=P, q=q, A=A, l=l, u=u, device="cpu", **SPARSE_KW)
+    path = tmp_path_factory.mktemp("sparse") / "sparse.bin"
+    blob = s.export(path=str(path), B=SPARSE_B)
+    return s, path, blob, texport.load_sparse_solver(blob, device="cpu")
+
+
+def _sparse_inputs(q, l, u, qscale=(1.0, 0.5)):
+    return np.stack([c * q for c in qscale]), np.stack([l] * SPARSE_B), np.stack([u] * SPARSE_B)
+
+
 def test_export_roundtrip_matches_live_solve():
     B, n, m = 4, 6, 9
     args = _problems(B, n, m)
@@ -77,22 +101,21 @@ def test_solver_export_method(tmp_path):
     np.testing.assert_allclose(out["x"][0].numpy(), live.x, rtol=0, atol=1e-9)
 
 
-def test_sparse_pattern_export_roundtrip(tmp_path):
+def test_sparse_pattern_export_roundtrip(sparse_blob):
     """SparseSolver.export bakes the ELL pattern and value maps into the
-    blob; the callable takes CSC-order value vectors, matches the live
-    solver, and again after a P-value update pushed through both."""
+    blob's program; the callable takes CSC-order value vectors, matches
+    the live solver, and again after a P-value update pushed through
+    both."""
+    s, path, blob, fn = sparse_blob
     P, q, A, l, u = _sparse_problem()
-    s = osqp_tpu_torch.SparseSolver(P=P, q=q, A=A, l=l, u=u, device="cpu", verbose=False, dtype="float64")
-    path = tmp_path / "sparse.bin"
-    blob = s.export(path=str(path))
     assert path.read_bytes() == blob
-    fn = texport.load_sparse_solver(blob, device="cpu")
     Pu = sp.triu(P, format="csc")
-    out = fn(Pu.data, q[None], A.data, l[None], u[None])
+    qs, ls, us = _sparse_inputs(q, l, u, (1.0, 1.0))
+    out = fn(Pu.data, qs, A.data, ls, us)
     r = s.solve()
-    assert int(out["status_val"][0]) == 1
+    assert out["status_val"].tolist() == [1, 1]
     np.testing.assert_allclose(out["x"].numpy()[0], r.x, atol=1e-6)
-    out2 = fn(Pu.data * 2.0, q[None], A.data, l[None], u[None])
+    out2 = fn(Pu.data * 2.0, qs, A.data, ls, us)
     s.update_P(Px=Pu.data * 2.0)
     r2 = s.solve()
     np.testing.assert_allclose(out2["x"].numpy()[0], r2.x, atol=1e-5)
@@ -112,27 +135,24 @@ def test_loaded_callable_matches_jax_artifact(polish):
         np.testing.assert_allclose(tout[f].numpy(), np.asarray(jout[f]), rtol=0, atol=1e-6, err_msg=f)
 
 
-def test_sparse_loaded_callable_matches_jax_artifact():
+def test_sparse_loaded_callable_matches_jax_artifact(sparse_blob):
     P, q, A, l, u = _sparse_problem()
-    kw = dict(B=2, dtype="float64", verbose=False)
     Pu = sp.triu(P, format="csc")
-    qs = np.stack([q, 0.5 * q])
-    inputs = (Pu.data, qs, A.data, np.stack([l, l]), np.stack([u, u]))
-    jout = jexport.load_sparse_solver(jexport.export_sparse_solver(P, A, **kw))(*inputs)
-    tout = texport.load_sparse_solver(texport.export_sparse_solver(P, A, platforms=["cpu"], **kw),
-                                      device="cpu")(*inputs)
+    inputs = (Pu.data, *_sparse_inputs(q, l, u)[:1], A.data, *_sparse_inputs(q, l, u)[1:])
+    jout = jexport.load_sparse_solver(jexport.export_sparse_solver(P, A, B=SPARSE_B, **SPARSE_KW))(*inputs)
+    tout = sparse_blob[3](*inputs)
     assert tout["status_val"].tolist() == np.asarray(jout["status_val"]).tolist()
     assert tout["iter"].tolist() == np.asarray(jout["iter"]).tolist()
     for f in ("x", "y"):
         np.testing.assert_allclose(tout[f].numpy(), np.asarray(jout[f]), rtol=0, atol=1e-6, err_msg=f)
 
 
-def test_blob_is_plain_data():
+def test_blob_is_plain_data(sparse_blob):
     """The blob loads with torch.load(weights_only=True) and carries its
     format, the port's version, the shape, dtype, platforms and the full
     settings, and (format 2) the traced program and the torch that traced
-    it; the sparse blob (format 1) the pattern and value maps.  A blob
-    with a card program is test_torch_cuda.py's
+    it; the sparse blob (format 2 too) also the pattern and value maps.
+    A blob with a card program is test_torch_cuda.py's
     test_blob_is_plain_data_with_a_card_program."""
     blob = texport.export_solver(2, 3, 4, platforms=["cpu"], eps_abs=1e-5)
     spec = torch.load(io.BytesIO(blob), weights_only=True)
@@ -143,13 +163,16 @@ def test_blob_is_plain_data():
     assert list(spec["programs"]) == ["cpu"] and isinstance(spec["programs"]["cpu"], bytes)
     assert spec["torch_version"] == str(torch.__version__) and "ops_library" not in spec
     P, q, A, l, u = _sparse_problem()
-    spec = torch.load(io.BytesIO(texport.export_sparse_solver(P, A, platforms=["cpu"])), weights_only=True)
-    assert spec["format_version"] == 1
+    spec = torch.load(io.BytesIO(sparse_blob[2]), weights_only=True)
+    assert spec["format_version"] == 2 and spec["kind"] == "sparse" and spec["fields"] == list(texport._FIELDS)
+    assert (spec["B"], spec["n"], spec["m"], spec["dtype"]) == (SPARSE_B, P.shape[0], A.shape[0], "float64")
+    assert list(spec["programs"]) == ["cpu"] and isinstance(spec["programs"]["cpu"], bytes)
+    assert spec["torch_version"] == str(torch.__version__) and "ops_library" not in spec
     assert spec["operands"]["A"]["nnz"] == A.nnz and spec["settings"]["linsys_solver"] == "cg"
     assert all(isinstance(t, torch.Tensor) for op in spec["operands"].values() for t in op["pattern"] + op["maps"])
 
 
-def test_shape_dtype_and_platform_refused():
+def test_shape_dtype_and_platform_refused(sparse_blob):
     B, n, m = 2, 3, 4
     P, q, A, l, u = _problems(B, n, m)
     blob = texport.export_solver(B, n, m, dtype="float64", platforms=["cpu"])
@@ -163,10 +186,12 @@ def test_shape_dtype_and_platform_refused():
     with pytest.raises(ValueError, match="float64"):
         fn(*(torch.tensor(v, dtype=torch.float32) for v in (P, q, A, l, u)))
     Pm, qm, Am, lm, um = _sparse_problem()
-    sfn = texport.load_sparse_solver(texport.export_sparse_solver(Pm, Am, platforms=["cpu"]), device="cpu")
+    sfn = sparse_blob[3]
     with pytest.raises(ValueError, match="P_val"):
-        sfn(np.ones(3, np.float32), qm[None].astype(np.float32), Am.data.astype(np.float32),
-            lm[None].astype(np.float32), um[None].astype(np.float32))
+        sfn(np.ones(3), *_sparse_inputs(qm, lm, um)[:1], Am.data, *_sparse_inputs(qm, lm, um)[1:])
+    with pytest.raises(ValueError, match="float64"):
+        sfn(sp.triu(Pm, format="csc").data.astype(np.float32), *_sparse_inputs(qm, lm, um)[:1], Am.data,
+            *_sparse_inputs(qm, lm, um)[1:])
     # a blob for the card alone is refused on the CPU, and a card program
     # is traced on a card only; a blob of another torch is refused; a
     # dense blob by the sparse loader

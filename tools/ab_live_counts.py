@@ -9,8 +9,10 @@ unpacked with ``git archive`` and this tree: ``old . . old``).  Each runs
 in a process of its own, which builds that checkout's kernels, then
 solves, once warm and once counted: the headline batch (chip_smoke.py's
 data, B=8192, n=100, m=200, float32) through ``solve_batch`` with polish
-off and on, and CVXQP2_M (n=1000, m=1250) through a fresh ``Solver`` in
-float64 with polish on.  For each it prints the kernel launches by
+off and on, CVXQP2_M (n=1000, m=1250) through a fresh ``Solver`` in
+float64 with polish on, and on the sparse path ``solve_sparse`` at
+CVXQP2_L (n=10000, m=12500) in float64 and at LISWET1 (n=10002,
+m=10000) in float64 with polish on.  For each it prints the kernel launches by
 wrapper count (chip_smoke.py's ``read_counts``, zeros dropped),
 ``linalg.host_reads`` and a digest of every output field's bits, so that
 two checkouts that give the same launches, reads and digests ran the same
@@ -69,6 +71,12 @@ r, c = counted(lambda: make().solve())
 c["bits"] = digest([r.x, r.y, np.array([r.info.iter, r.info.status_val, r.info.status_polish]),
                     np.array([r.info.obj_val, r.info.pri_res, r.info.dua_res])])
 row["cvxqp2_m_solver_float64_polish"] = c
+for name, polish in (("CVXQP2_L", False), ("LISWET1", True)):
+    P, q, A, l, u = cs.scenario(name)
+    res, c = counted(lambda: ot.solve_sparse(P, q, A, l, u, device=dev, dtype="float64", verbose=False,
+                                             polish=polish))
+    c["bits"] = digest(t.cpu().numpy() for t in res)
+    row[f"{name.lower()}_solve_sparse_float64{'_polish' if polish else ''}"] = c
 print(json.dumps(row))
 """
 
