@@ -199,6 +199,15 @@ failure ends the run with a non-zero exit and no result line:
     and the wide solve at the b = 140 and cluster_max_block + 1 batches,
     each beside the plain version, the library, the bound and the
     operations floor without fused multiply-adds;
+    then the other dense backends' operators (phase dense_ops) against
+    their ctypes launches, bit for bit: K7's factor (``bt_factor``) on
+    the warp path at the MPC cell, the cluster path at b = 140 (f32) and
+    the device path at b = 362 (f64, B = 1 to 4), its solve
+    (``bt_solve``) in the warp and the wide layouts, K6's step
+    (``cg_step``) on the cg backend's dense system at B=1024, three steps
+    in turn, and the traced stepwise PCG (a ``while_loop`` of 8 operator
+    steps, a ``cond`` for the tail) against the live stepwise path at a
+    cap of 13; the operators' ms beside the launches';
 20. the MPC cell through ``solve_batch`` with ``block_tridiag`` and with
     ``dense_inv`` (B=1000, float32, eps 1e-3, polish off): every
     instance solved, none at MAX_ITER, the same statuses in both legs,
@@ -269,7 +278,10 @@ failure ends the run with a non-zero exit and no result line:
     relative, wall ms of both, medians of 5;
 26. the fixed-shape artifact (phase export), format 2: the headline
     shape in float32 with polish off and on and CVXQP2_M through
-    ``Solver.export``; LISWET1 in float64 with polish through
+    ``Solver.export``; ``block_tridiag`` at the MPC cell and ``kkt_lu``,
+    ``dense_chol`` and ``cg`` at the headline shape with B=1024 (each
+    export split into trace, save and the operators' library, and held
+    to the live unsegmented ``solve_batch``); LISWET1 in float64 with polish through
     ``SparseSolver.export`` and 8 LISWET1 copies through
     ``export_sparse_solver``; each loaded by a process that has torch
     alone and held to the live solve bit for bit, launching the card's
@@ -305,8 +317,10 @@ its scaling ell_scale, K6's device loop is cg_loop, K1r's resident path
 admm_iter_refined_resident, K7's cluster and device paths
 block_tridiag_factor_cluster and block_tridiag_factor_device and its
 wide solve block_tridiag_solve_wide, K2's leaf chol_inverse_leaf and its
-cluster form chol_inverse_leaf_cluster); the last line is the device
-JSON object.
+cluster form chol_inverse_leaf_cluster); each row also names its
+torch.library operator (``operator``, None for ruiz_sweep), and the rows
+of K7 and K6's step give ``operator_ms`` from phase dense_ops; the last
+line is the device JSON object.
 
 ``python3 chip_smoke.py --only k8,polish_solver`` runs the build and the
 named phases alone (names: the ``phase_*`` functions' suffixes), for a
@@ -3074,6 +3088,112 @@ def phase_k7_device(dev):
     return launches, cluster_stats, device_stats, wide_stats
 
 
+def phase_dense_ops(dev):
+    """The other dense backends' torch.library operators
+    (csrc/torch_ops.cpp) against their ctypes launches, bit for bit, on
+    one input each: K7's factor (bt_factor) on the warp path at the MPC
+    cell's reduced matrix (B=1000, b=12, Nb=31, float32), on the cluster
+    path at b=140 (B=4, Nb=3, float32) and on the device path at b=362
+    (Nb=3, float64) for B = 1 to 4; its solve (bt_solve) in the warp
+    layout (the MPC cell) and the wide one (b=140 float32, b=362
+    float64); K6's step (cg_step) on the cg backend's dense system at the
+    headline shape (B=1024, n=100, m=200, float32, every fourth instance
+    converged at the start), three steps in turn against the in-place
+    launch, and the traced stepwise PCG (pcg_solve_stepwise_program: a
+    while_loop of 8 operator steps a turn and a cond for the tail, run
+    eagerly) against the live stepwise path at a cap of 13.  The
+    operators count no launch.  Each operator's ms beside its launch's
+    (CUDA events, means of 20 after 2 warm-up calls)."""
+    import torch
+
+    from osqp_tpu_torch.linsys import cg as cg_backend
+    from osqp_tpu_torch.ops import block_tridiag as k7, cg as k6
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, _, _, M = mpc_prepared(MPC["B"], torch.float32, dev)
+    cases = [("warp, the MPC cell", M, 12), *(
+        (f"{label}", band_schur(B, 3, b, dtype, dev)[0], b)
+        for label, B, b, dtype in (("cluster, B=4", 4, 140, torch.float32),
+                                   *((f"device, B={B}", B, 362, torch.float64) for B in (1, 2, 3, 4))))]
+    stats = {}
+    for label, M, b in cases:
+        path = k7.factor_path(b, M.dtype)
+        cluster = {"warp": lambda: 0, "cluster": lambda: k7.cluster_plan(b, M.shape[0], M.dtype, sms),
+                   "device": lambda: k7.device_plan(M.shape[0], sms)}[path]()
+        before = read_counts()
+        C, G = k7.bt_factor_op(M, b, path, cluster)
+        C0, G0 = k7.bt_factor(M, b)
+        r = torch.randn(M.shape[0], M.shape[1], dtype=M.dtype, device=dev)
+        warps = k7.solve_plan(b, M.dtype)[1]
+        x = k7.bt_solve_op(C, G, r, warps)
+        x0 = k7.bt_solve(C0, G0, r)
+        torch.cuda.synchronize()
+        counted = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+        ok = same_bits(C, C0) and same_bits(G, G0) and same_bits(x, x0)
+        line = (f"K7 operators bt_factor / bt_solve, {label}, b={b} Nb={M.shape[1] // b} {dtype_name(M.dtype)} "
+                f"({path} path, clusters of {cluster}; solve {warps} warps) [{CARD}]: bit for bit with the ctypes "
+                f"launches {ok}; launches counted {counted}")
+        if label.startswith(("warp", "cluster", "device, B=1")):
+            op_ms = cuda_ms(lambda: k7.bt_factor_op(M, b, path, cluster), 20)
+            ct_ms = cuda_ms(lambda: k7.bt_factor(M, b), 20)
+            sop_ms = cuda_ms(lambda: k7.bt_solve_op(C, G, r, warps), 20)
+            sct_ms = cuda_ms(lambda: k7.bt_solve(C0, G0, r), 20)
+            line += (f"; factor ms operator {op_ms:.4f}, launch {ct_ms:.4f}; solve ms operator {sop_ms:.4f}, "
+                     f"launch {sct_ms:.4f}")
+            stats[f"k7 {path}"] = dict(factor_op_ms=op_ms, factor_ms=ct_ms, solve_op_ms=sop_ms, solve_ms=sct_ms)
+        print(line)
+        require(ok, f"K7's operators differ from the launches ({label})")
+        require(set(counted) <= {"bt_factor", "bt_solve", f"bt_factor_{path}", "bt_solve_warp", "bt_solve_wide"}
+                and counted.get("bt_factor") == 1 and counted.get("bt_solve") == 1,
+                f"K7's operators counted launches ({label}): {counted}")
+
+    n, m = HEADLINE["n"], HEADLINE["m"]
+    dtype = torch.float32
+    scaled, rs, _, dyn = path_operands(1024, n, m, dtype, dev, seed=4)
+    fac = cg_backend.init(scaled.P, scaled.A, dyn.sigma, rs.rho_vec)
+    op = k6._operator(scaled.P, scaled.A, rs.rho_vec, plain=False)
+    x0 = torch.randn(1024, n, dtype=dtype, device=dev)
+    u0, v0 = op(x0)
+    b = u0 + float(fac["sigma"]) * x0 + v0 + 1e-3 * torch.randn(1024, n, dtype=dtype, device=dev)
+    b[::4] = (u0 + float(fac["sigma"]) * x0 + v0)[::4]
+    tol = torch.full((1024,), 1e-4, dtype=dtype, device=dev)
+    sigma, dinv = fac["sigma"], fac["dinv"]
+    x, rr_, z, p, rz, rr, tol2 = k6._start(op, sigma, dinv, b, x0, tol)
+    steps = torch.zeros(1024, dtype=torch.int32, device=dev)
+    state = (p, x, rr_, z, rz, rr, steps)
+    live = [t.clone() for t in (p, x, rr_, z)]
+    pairs = torch.stack([rz, torch.empty_like(rz)]), torch.stack([rr, torch.empty_like(rr)])
+    live_steps, Mp = steps.clone(), torch.empty_like(b)
+    parts = torch.empty((3, 1024, k6._build.library().osqp_cg_parts(n)), dtype=dtype, device=dev)
+    ok = True
+    before = read_counts()["cg_step"]
+    for cur in (0, 1, 0):
+        u, v = op(state[0])
+        state = k6.cg_step_op(state[0], u, v, sigma, dinv, tol2, state[4], state[5], state[1], state[2], state[3],
+                              state[6])
+        k6.cg_step(live[0], u, v, float(sigma), dinv, tol2, *pairs, cur, Mp, live[1], live[2], live[3], parts,
+                   live_steps)
+        want = (*live, pairs[0][1 - cur], pairs[1][1 - cur], live_steps)
+        ok = ok and all(same_bits(a, w) for a, w in zip(state, want))
+    counted = read_counts()["cg_step"] - before
+    u, v = op(p)
+    op_ms = cuda_ms(lambda: k6.cg_step_op(p, u, v, sigma, dinv, tol2, rz, rr, x, rr_, z, steps), 20)
+    step_ms = cuda_ms(lambda: k6.cg_step(live[0], u, v, float(sigma), dinv, tol2, *pairs, 0, Mp, live[1], live[2],
+                                         live[3], parts, live_steps), 20)
+    xs, ss = k6.pcg_solve_stepwise(op, sigma, dinv, b, tol, 13, x0)
+    xg, sg = k6.pcg_solve_stepwise_program(op, sigma, dinv, b, tol, 13, x0)
+    loop_ok = same_bits(xg, xs) and same_bits(sg, ss)
+    print(f"K6 operator cg_step, the cg backend's dense system B=1024 n={n} m={m} f32 [{CARD}]: three steps bit for "
+          f"bit with the in-place launch {ok} (ctypes launches counted {counted}, 3 expected: the operator's none); "
+          f"the stepwise program at a cap of 13 (8 steps + a tail of 5) bit for bit with the live stepwise path "
+          f"{loop_ok}, steps max {int(ss.max())}; a step's vector work ms operator {op_ms:.4f}, launch "
+          f"{step_ms:.4f}")
+    require(ok and counted == 3, "K6's step operator differs from its launch, or counted launches")
+    require(loop_ok, "the stepwise program differs from the live stepwise path")
+    stats["cg_step"] = dict(op_ms=op_ms, ms=step_ms)
+    return stats
+
+
 def leaf_spy(fn, seen):
     """``fn()`` with each of K2's leaf launches held against its plain
     version on the same input: appends (n, |Tk - Tp|max relative, S) to
@@ -4236,18 +4356,44 @@ EXPORT_KERNELS = {
     "K5 start": ("cg_start_kernel",),
     "K5 scale": ("scale_kernel",),
     "K6 loop": ("cluster_loop_kernel",),
+    "K4 split": ("amax_kernel",),
+    "K7 warp factor": ("warp_factor_kernel",),
+    "K7 warp solve": ("warp_solve_kernel",),
+    "K8 solve": ("lu_solve_kernel", "strip_solve_kernel"),
+    "K6 step": ("dot_kernel", "direction_kernel"),
 }
 SPARSE_EXPORT_KERNELS = ("K5 group", "K5 start", "K5 scale", "K6 loop")
+# The batch of the export legs of kkt_lu, dense_chol and cg at the
+# headline shape, and the timed calls of those legs and of block_tridiag's
+# (one each, live and loaded, to keep the script's time).
+EXPORT_DENSE_B = 1024
+EXPORT_DENSE_REPS = 1
+# Worker processes that export blobs at once (phase export).
+EXPORT_WORKERS = 4
+
+
+def export_job(name, args, kwargs):
+    """One export in a worker process of phase export:
+    ``osqp_tpu_torch.export.<name>(*args, **kwargs)`` on the card; returns
+    (blob, its seconds by the host's clock, ``export.last_seconds``, host
+    reads while tracing)."""
+    from osqp_tpu_torch import export, linalg
+
+    reads = linalg.host_reads
+    t0 = time.perf_counter()
+    blob = getattr(export, name)(*args, **kwargs)
+    return blob, time.perf_counter() - t0, dict(export.last_seconds), linalg.host_reads - reads
 
 # A process with torch alone: osqp_tpu_torch and osqp_tpu cannot be
-# imported.  For each (blob, inputs, outputs) file triple it loads the
+# imported.  For each (blob, inputs, outputs, reps) quadruple it loads the
 # blob (the operators' library into the process, the program by
-# torch.export.load), runs it once to warm, three times by CUDA events and
+# torch.export.load), runs it once to warm, reps times by CUDA events and
 # once under the profiler, and saves the outputs; it prints one JSON line
 # a blob: load ms, call ms, the operators in the program's graphs, the
-# kernels the profiled call launched and its host reads (aten::is_nonzero:
+# kernels the profiled call launched, its host reads (aten::is_nonzero:
 # the loop's and the branches' predicates, each read by `if pred`; the
-# operators read their settings from host tensors, which waits on nothing).
+# operators read their settings from host tensors, which waits on nothing)
+# and its six operators of most host time ([name, calls, self ms]).
 ARTIFACT_CHILD = r"""
 import io, json, os, sys, tempfile, time
 sys.modules["osqp_tpu_torch"] = None
@@ -4255,7 +4401,7 @@ sys.modules["osqp_tpu"] = None
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-for blob_path, args_path, out_path in zip(*[iter(sys.argv[1:])] * 3):
+for blob_path, args_path, out_path, reps in zip(*[iter(sys.argv[1:])] * 4):
     t0 = time.perf_counter()
     spec = torch.load(blob_path, weights_only=True)
     assert spec["torch_version"] == str(torch.__version__), spec["torch_version"]
@@ -4276,7 +4422,7 @@ for blob_path, args_path, out_path in zip(*[iter(sys.argv[1:])] * 3):
     times = []
     with torch.no_grad():
         solve(*args)
-        for _ in range(3):
+        for _ in range(int(reps)):
             start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             solve(*args)
@@ -4289,19 +4435,23 @@ for blob_path, args_path, out_path in zip(*[iter(sys.argv[1:])] * 3):
     events = prof.events()
     kernels = sorted({e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA})
     reads = sum(e.name == "aten::is_nonzero" for e in events)
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
+    cpu_top = [[e.key, e.count, round(e.self_cpu_time_total / 1e3, 3)] for e in top]
     torch.save(dict(zip(spec["fields"], (o.cpu() for o in out))), out_path)
     print(json.dumps({"load_ms": load_ms, "call_ms": times, "ops": ops, "kernels": kernels, "host_reads": reads,
+                      "cpu_top": cpu_top,
                       "packages": [k for k, v in sys.modules.items() if k.startswith("osqp") and v is not None]}))
 """
 
 
 def run_artifact_child(cases, workdir):
     """Run ARTIFACT_CHILD over ``cases``, a list of (blob bytes, input
-    tensors); returns, for each, (outputs on the card, the child's JSON)."""
+    tensors, timed calls); returns, for each, (outputs on the card, the
+    child's JSON)."""
     import torch
 
     argv, saved = [], {}
-    for i, (blob, inputs) in enumerate(cases):
+    for i, (blob, inputs, reps) in enumerate(cases):
         paths = [os.path.join(workdir, f"{i}.{kind}") for kind in ("blob", "inputs", "outputs")]
         with open(paths[0], "wb") as f:
             f.write(blob)
@@ -4309,14 +4459,14 @@ def run_artifact_child(cases, workdir):
             torch.save([t.cpu() for t in inputs], paths[1])
             saved[id(inputs)] = paths[1]
         paths[1] = saved[id(inputs)]
-        argv += paths
+        argv += [*paths, str(reps)]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", ARTIFACT_CHILD, *argv], capture_output=True, text=True,
                           cwd=workdir, env=env, timeout=600)
     require(proc.returncode == 0, f"export: the torch-only process failed:\n{proc.stderr[-3000:]}")
     lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
     require(len(lines) == len(cases), f"export: the torch-only process printed {len(lines)} results")
-    return [({k: v.to("cuda") for k, v in torch.load(argv[3 * i + 2]).items()}, lines[i]) for i in range(len(cases))]
+    return [({k: v.to("cuda") for k, v in torch.load(argv[4 * i + 2]).items()}, lines[i]) for i in range(len(cases))]
 
 
 def check_artifact(what, outputs, info, want, kernels):
@@ -4340,7 +4490,14 @@ def phase_export(dev):
     """The fixed-shape artifact (osqp_tpu_torch.export), format 2, the
     traced program: the headline shape exported in float32 with polish off
     and on, and CVXQP2_M through Solver.export in float64 with polish on
-    (K4 split, K2's cluster leaves, K1, K8's cluster path); the sparse
+    (K4 split, K2's cluster leaves, K1, K8's cluster path); the other
+    dense backends: block_tridiag at the MPC cell (B=1000, n=372, m=612,
+    b=12, float32, eps 1e-3: K7's warp factor and solve, K4 split, K3),
+    and kkt_lu (K8's batched factor and solve, K4, K3), dense_chol (K4, K3,
+    cuSOLVER's Cholesky) and cg (K6's step, K4, K3) at the headline shape
+    with B=1024 in float32, each against the live solve_batch(segmented=
+    False), its export split into trace, save and the operators' library
+    (export.last_seconds); the sparse
     program at LISWET1 in float64 with polish on through
     SparseSolver.export, and at the sparse phase's 8 copies of LISWET1 in
     float64 through export_sparse_solver(B=8) (K5's products, start and
@@ -4348,9 +4505,13 @@ def phase_export(dev):
     torch alone (osqp_tpu_torch and osqp_tpu blocked), which must give the
     live solve's bits (solve_batch's, the Solver's, solve_sparse's) and
     launch the card's kernels; the polish-on headline blob also loaded
-    here by load_solver.  Blob bytes, export ms (host clock, no host read
-    while tracing), load and call ms and host reads a call in the
-    torch-only process beside the live solve's ms and host reads.  The
+    here by load_solver.  The blobs of export_solver and
+    export_sparse_solver are exported by EXPORT_WORKERS worker processes
+    at once (export_job), those of Solver.export and SparseSolver.export
+    here meanwhile.  Blob bytes, export seconds (host clock, no host read
+    while tracing), load and call ms, host reads a call and the profiled
+    call's operators of most host time in the torch-only process beside
+    the live solve's ms and host reads.  The
     LISWET1 blob is also loaded here and held to SparseSolver.solve within
     1e-6, then with P's values x2 through the artifact and through
     update_P within 1e-5; so is a format-1 LISWET1 blob (polish off, the
@@ -4370,26 +4531,78 @@ def phase_export(dev):
     from osqp_tpu_torch import export, linalg, program
     from osqp_tpu_torch.io.qps import load_qps
 
+    import multiprocessing
+
     B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
     data = on_device(make_qps(B, n, m), torch.float32, dev)
-    cases, wants, sizes = [], [], {}
-    for polish in (False, True):
-        kw = dict(SOLVE_KW, polish=polish)
+    base, *mpc = mpc_scenarios()
+    mpc = on_device(mpc, torch.float32, dev)
+    dense = on_device(make_qps(EXPORT_DENSE_B, n, m), torch.float32, dev)
+    P8, q8, A8, l8, u8 = scenario("LISWET1", 8)
+    # (key, label, data, settings, kernels, timed calls) of the legs whose
+    # blobs the worker processes export; the other dense backends at the
+    # MPC cell and the headline shape each held to the live unsegmented
+    # solve_batch, dense_inv's to the live segmented one.
+    legs = [(f"headline_polish_{'on' if polish else 'off'}", f"headline polish {'on' if polish else 'off'}", data,
+             dict(SOLVE_KW, polish=polish), ("K4", "K2", "K1", "K3") + (("K8",) if polish else ()), 3)
+            for polish in (False, True)]
+    legs.append(("block_tridiag", f"block_tridiag MPC cell B={MPC['B']} n={base.P.shape[0]} m={base.A.shape[0]} "
+                                  f"b={base.block_size} f32", mpc,
+                 dict(MPC_KW, dtype="float32", linsys_solver="block_tridiag", block_size=base.block_size),
+                 ("K7 warp factor", "K7 warp solve", "K4 split", "K3"), EXPORT_DENSE_REPS))
+    legs += [(backend, f"{backend} headline shape B={EXPORT_DENSE_B} n={n} m={m} f32", dense,
+              dict(SOLVE_KW, linsys_solver=backend), want, EXPORT_DENSE_REPS)
+             for backend, want in (("kkt_lu", ("K8", "K8 solve", "K4", "K3")), ("dense_chol", ("K4", "K3")),
+                                   ("cg", ("K6 step", "K4", "K3")))]
+    cases, wants, sizes, kernels = [], [], {}, []
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(EXPORT_WORKERS) as pool:
+        # the longest first
+        order = sorted(legs, key=lambda leg: leg[0] != "cg")
+        jobs = {key: pool.apply_async(export_job, ("export_solver", (d[1].shape[0], d[1].shape[1], d[3].shape[1]), kw))
+                for key, _, d, kw, _, _ in order}
+        jobs["liswet1_b8"] = pool.apply_async(export_job, ("export_sparse_solver", (P8, A8),
+                                                           dict(B=8, dtype="float64", verbose=False)))
+        # Meanwhile the blobs that live objects write: CVXQP2_M through
+        # Solver.export, LISWET1 with polish through SparseSolver.export.
+        qp = load_qps(os.path.join(MAROS, "CVXQP2_M.qps"))
+        s = ot.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype="float64", verbose=False, polish=True)
         reads = linalg.host_reads
         t0 = time.perf_counter()
-        blob = export.export_solver(B, n, m, **kw)
-        export_ms = (time.perf_counter() - t0) * 1e3
-        require(linalg.host_reads == reads, "export: tracing the program read the device")
+        sblob = s.export()
+        sexport_s = time.perf_counter() - t0
+        lqp = load_qps(os.path.join(MAROS, "LISWET1.qps"))
+        ls = ot.SparseSolver(lqp.P, lqp.q, lqp.A, lqp.l, lqp.u, device=dev, dtype="float64", verbose=False,
+                             warm_start=False, polish=True)
+        t0 = time.perf_counter()
+        lblob = ls.export()
+        lexport_s = time.perf_counter() - t0
+        require(linalg.host_reads == reads, "export: tracing Solver.export's or SparseSolver.export's program read "
+                                            "the device")
+        done = {key: job.get() for key, job in jobs.items()}
+    print(f"export: {len(done)} blobs exported by {EXPORT_WORKERS} worker processes at once, 2 here meanwhile "
+          f"(each export's seconds below are its own, by the host's clock, beside the others)")
+
+    for key, label, d, kw, want, reps in legs:
+        blob, export_s, split, traced_reads = done[key]
+        require(traced_reads == 0, f"export: tracing the {label} program read the device")
+        live_kw = kw if key.startswith("headline") else dict(kw, segmented=False)
         reads = linalg.host_reads
-        live, live_ms = event_times(lambda: ot.solve_batch(*data, **kw), reps=3)
-        live_reads = (linalg.host_reads - reads) / 3
-        print(f"export headline B={B} n={n} m={m} f32 polish {'on' if polish else 'off'} [{CARD}]: format-2 blob "
-              f"{len(blob)} bytes, export {export_ms:.3f} ms (host clock); live solve_batch ms "
+        live, live_ms = event_times(lambda: ot.solve_batch(*d, **live_kw), reps=reps)
+        live_reads = (linalg.host_reads - reads) / reps
+        print(f"export {label} [{CARD}]: format-2 blob {len(blob)} bytes, export {export_s:.3f} s (trace "
+              f"{split['trace']:.3f}, save {split['save']:.3f}, operators' library {split['library']:.3f}); live "
+              f"solve_batch{'' if key.startswith('headline') else '(segmented=False)'} ms "
               f"{[round(t, 3) for t in live_ms]} (median {statistics.median(live_ms):.3f}), host reads a solve "
-              f"{live_reads:g}")
-        cases.append((blob, data))
+              f"{live_reads:g}; solved {float((live.status_val == ot.OSQP_SOLVED).float().mean()):.4f}, iterations "
+              f"max {int(live.iter.max())}")
+        cases.append((blob, d, reps))
         wants.append(live._asdict())
-        sizes[f"headline_polish_{'on' if polish else 'off'}"] = len(blob)
+        kernels.append((label, want))
+        sizes[key] = dict(bytes=len(blob), export_s=export_s, **{f"{k}_s": v for k, v in split.items()},
+                          live_ms=statistics.median(live_ms), live_reads=live_reads)
+
+    blob = done["headline_polish_on"][0]
     t0 = time.perf_counter()
     fn = export.load_solver(blob)
     load_ms = (time.perf_counter() - t0) * 1e3
@@ -4400,11 +4613,6 @@ def phase_export(dev):
           f"status_polish 1 in {int((out['status_polish'] == 1).sum())} of {B}")
     require(not differ, f"export: the loaded solver differs from the live solve in {differ}")
 
-    qp = load_qps(os.path.join(MAROS, "CVXQP2_M.qps"))
-    s = ot.Solver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype="float64", verbose=False, polish=True)
-    t0 = time.perf_counter()
-    sblob = s.export()
-    sexport_ms = (time.perf_counter() - t0) * 1e3
     reads = linalg.host_reads
     r, s_ms = event_times(s.solve, reps=1)
     s_reads = linalg.host_reads - reads
@@ -4421,33 +4629,32 @@ def phase_export(dev):
              "pri_res": torch.tensor([r.info.pri_res], dtype=torch.float64),
              "dua_res": torch.tensor([r.info.dua_res], dtype=torch.float64)}
     print(f"export CVXQP2_M float64 polish on through Solver.export [{CARD}]: format-2 blob {len(sblob)} bytes, "
-          f"export {sexport_ms:.3f} ms (host clock); live Solver solve {s_ms[0]:.3f} ms, host reads {s_reads}: "
+          f"export {sexport_s:.3f} s (host clock); live Solver solve {s_ms[0]:.3f} ms, host reads {s_reads}: "
           f"{r.info.status}, {r.info.iter} iterations, status_polish {r.info.status_polish}")
-    cases.append((sblob, sdata))
+    cases.append((sblob, sdata, 3))
     wants.append(swant)
+    kernels.append(("CVXQP2_M float64 polish on", ("K4", "K2", "K1", "K3", "K8")))
     sizes["cvxqp2_m"] = len(sblob)
 
     # The sparse program: LISWET1 with polish through SparseSolver.export,
     # and 8 copies of LISWET1 (q scaled by 1 + 0.1 i) through
     # export_sparse_solver, each against solve_sparse on the same values.
-    qp = load_qps(os.path.join(MAROS, "LISWET1.qps"))
-    s = ot.SparseSolver(qp.P, qp.q, qp.A, qp.l, qp.u, device=dev, dtype="float64", verbose=False, warm_start=False,
-                        polish=True)
+    qp, s = lqp, ls
     Pv, Av = s._Pu.data.copy(), s._Ac.data.copy()
     sparse = {}
     for label, B in (("LISWET1 float64 polish on through SparseSolver.export", 1),
                      ("8 copies of LISWET1 float64 through export_sparse_solver(B=8)", 8)):
-        P, q, A, l, u = scenario("LISWET1", B)
+        P, q, A, l, u = scenario("LISWET1", B) if B == 1 else (P8, q8, A8, l8, u8)
         kw = dict(dtype="float64", verbose=False, polish=B == 1)
-        reads = linalg.host_reads
-        t0 = time.perf_counter()
-        blob = s.export() if B == 1 else export.export_sparse_solver(P, A, B=B, **kw)
-        export_ms = (time.perf_counter() - t0) * 1e3
-        require(linalg.host_reads == reads, f"export: tracing the sparse program ({label}) read the device")
+        if B == 1:
+            blob, export_s = lblob, lexport_s
+        else:
+            blob, export_s, _, traced_reads = done["liswet1_b8"]
+            require(traced_reads == 0, f"export: tracing the sparse program ({label}) read the device")
         reads = linalg.host_reads
         live, live_ms = event_times(lambda: ot.solve_sparse(P, q, A, l, u, device=dev, **kw), reps=3)
         live_reads = (linalg.host_reads - reads) / 3
-        print(f"export sparse {label} [{CARD}]: format-2 blob {len(blob)} bytes, export {export_ms:.3f} ms (host "
+        print(f"export sparse {label} [{CARD}]: format-2 blob {len(blob)} bytes, export {export_s:.3f} s (host "
               f"clock); live solve_sparse ms {[round(t, 3) for t in live_ms]} (median "
               f"{statistics.median(live_ms):.3f}), host reads a solve {live_reads:g}: status "
               f"{live.status_val.tolist()}, iterations {live.iter.tolist()}, status_polish "
@@ -4455,19 +4662,25 @@ def phase_export(dev):
         vals = (Pv, Av) if B == 1 else (sp.triu(sp.csc_matrix(P), format="csc").data, sp.csc_matrix(A).data)
         values = [torch.as_tensor(np.ascontiguousarray(v), dtype=torch.float64, device=dev)
                   for v in (vals[0], q, vals[1], l, u)]
-        cases.append((blob, values))
+        cases.append((blob, values, 3))
         wants.append(live._asdict())
+        kernels.append((label, SPARSE_EXPORT_KERNELS))
         sparse[label] = blob
         sizes["liswet1_polish" if B == 1 else "liswet1_b8"] = len(blob)
 
     with tempfile.TemporaryDirectory() as workdir:
         runs = run_artifact_child(cases, workdir)
-    for (outputs, info), want, (what, kernels) in zip(runs, wants, (
-            ("headline polish off", ("K4", "K2", "K1", "K3")),
-            ("headline polish on", ("K4", "K2", "K1", "K3", "K8")),
-            ("CVXQP2_M float64 polish on", ("K4", "K2", "K1", "K3", "K8")),
-            *((label, SPARSE_EXPORT_KERNELS) for label in sparse))):
-        check_artifact(what, outputs, info, want, kernels)
+    for (outputs, info), want, (what, names) in zip(runs, wants, kernels):
+        check_artifact(what, outputs, info, want, names)
+        leg = sizes.get(what.split()[0])
+        if isinstance(leg, dict):
+            leg.update(load_ms=info["load_ms"], call_ms=statistics.median(info["call_ms"]), reads=info["host_reads"])
+            print(f"export {what.split()[0]} [{CARD}]: a loaded call {leg['call_ms']:.3f} ms (median of "
+                  f"{len(info['call_ms'])}) against the live solve's {leg['live_ms']:.3f} "
+                  f"({leg['call_ms'] / leg['live_ms']:.3f}x); host reads a call {leg['reads']} against "
+                  f"{leg['live_reads']:g}; blob {leg['bytes']} bytes, export {leg['export_s']:.3f} s (trace "
+                  f"{leg['trace_s']:.3f}, save {leg['save_s']:.3f}, library {leg['library_s']:.3f}), load "
+                  f"{leg['load_ms']:.3f} ms; host time of the profiled call by operator {info['cpu_top']}")
 
     sblob = next(iter(sparse.values()))
     t0 = time.perf_counter()
@@ -4719,6 +4932,19 @@ def phase_parallel(dev):
     return dense_counts, sweep_stats, times
 
 
+# The torch.library operator of each row of the kernels line.
+OPERATORS = {
+    "admm_iter": "admm_iter", "admm_iter_refined": "admm_iter_refined",
+    "admm_iter_refined_resident": "admm_iter_refined_resident", "chol_inverse": "chol_inverse", "ruiz": "ruiz",
+    "ruiz_sweep": None, "term_products": "term_products", "kkt_lu_factor": "kkt_lu_factor_blocks",
+    "kkt_lu_solve": "kkt_lu_solve", "ell_group": "ell_group", "ell_cg_start": "ell_cg_start",
+    "ell_scale": "ell_scale", "cg_step": "cg_step", "cg_step_polish_pcg": "cg_loop", "k7_factor": "bt_factor",
+    "k7_solve": "bt_solve", "cg_loop": "cg_loop", "block_tridiag_factor_device": "bt_factor",
+    "block_tridiag_factor_cluster": "bt_factor", "block_tridiag_solve_wide": "bt_solve",
+    "chol_inverse_leaf": "chol_inverse_leaf", "chol_inverse_leaf_cluster": "chol_inverse_leaf_cluster",
+}
+
+
 def run_phase(phase, dev):
     """``phase(dev)``, and a line with its wall time."""
     t0 = time.perf_counter()
@@ -4779,6 +5005,7 @@ def main() -> int:
     cg_dense_launches = run_phase(phase_cg_dense, dev)
     k7_factor_stats, k7_solve_stats = run_phase(phase_k7, dev)
     k7_large_launches, k7_cluster_stats, k7_device_stats, k7_wide_stats = run_phase(phase_k7_device, dev)
+    op_stats = run_phase(phase_dense_ops, dev)
     mpc_legs = run_phase(phase_mpc, dev)
     mpc_launches = mpc_legs["block_tridiag"]
     portfolio_launches = run_phase(phase_parametric_portfolio, dev)
@@ -4879,6 +5106,19 @@ def main() -> int:
              replaces="osqp_tpu/ops/spd_inverse.py:129",
              launches=solver_launches["chol_inverse_leaf_cluster"], **k2_cluster_stats),
     ]
+    # Each row's torch.library operator (csrc/torch_ops.cpp), which a
+    # traced program calls in place of the ctypes launch (ruiz_sweep, the
+    # row-sharded entries' steps, has none); for K7's and K6's step, the
+    # operator's ms beside the launch's from phase dense_ops.
+    for k in kernels:
+        k["operator"] = OPERATORS[k["name"]]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["cg_step"]["operator_ms"] = op_stats["cg_step"]["op_ms"]
+    for row, key in (("k7_factor", "k7 warp"), ("block_tridiag_factor_cluster", "k7 cluster"),
+                     ("block_tridiag_factor_device", "k7 device")):
+        by_name[row]["operator_ms"] = op_stats[key]["factor_op_ms"]
+    by_name["k7_solve"]["operator_ms"] = op_stats["k7 warp"]["solve_op_ms"]
+    by_name["block_tridiag_solve_wide"]["operator_ms"] = op_stats["k7 device"]["solve_op_ms"]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} was launched no time on its main path")
     print(json.dumps({"kernels": kernels}))

@@ -1322,6 +1322,26 @@ extern "C" int osqp_bt_solve(int dtype, const void* C, const void* G, const void
                     : solve<double>(C, G, rhs, x, scratch, B, b, Nb, warps, s);
 }
 
+// Values of device scratch the entries above take, for the operators that
+// allocate it (csrc/torch_ops.cpp): osqp_bt_factor's, a CTA, at block size
+// b on `path` (the device path's panel buffer and band where they miss
+// shared memory, else 0); osqp_bt_solve's, an instance, in CTAs of `warps`
+// warps (the wide solve's three vectors where they miss shared memory,
+// else 0).  ops/block_tridiag.py:device_scratch and solve_scratch size the
+// same.
+extern "C" long long osqp_bt_factor_scratch(int dtype, int b, int path) {
+  const size_t values = band_values(b);
+  return path == 2 && values * (dtype == 0 ? sizeof(float) : sizeof(double)) > static_cast<size_t>(kClusterSmem)
+             ? static_cast<long long>(values)
+             : 0;
+}
+
+extern "C" long long osqp_bt_solve_scratch(int dtype, int b, int warps) {
+  if (warps == 0) return 0;
+  const size_t bytes = solve_values(b, warps, true) * (dtype == 0 ? sizeof(float) : sizeof(double));
+  return bytes > static_cast<size_t>(osqp_cuda::kMaxSmem) ? 3LL * b : 0;
+}
+
 // out = a / d elementwise by the solve's quotient route (route_quotient),
 // n values; chip_smoke.py holds it to the division bit for bit.
 extern "C" int osqp_bt_quotients(int dtype, const void* a, const void* d, void* out, int n, void* stream) {

@@ -2,9 +2,10 @@
 // namespace osqp_tpu_torch: the launches that the dense_inv solve and its
 // polish make (K4 ruiz, K2 chol_inverse and its leaves, K1 admm_iter, K1r
 // admm_iter_refined on both paths, K3 term_products, K8's factor from
-// the KKT blocks and its solve), and those of the sparse cg solve and its
+// the KKT blocks and its solve), those of the sparse cg solve and its
 // polish (K5's grouped products, its fused CG start and its scaling, K6's
-// device loop).
+// device loop), and those of the other dense backends (K7's factor and
+// solve for block_tridiag, K6's step for cg on dense operands).
 //
 // No kernel is new here.  Each operator calls the same extern "C" entry
 // that the ctypes path calls (the wrappers in ops/), on PyTorch's current
@@ -23,13 +24,15 @@
 // program holds them (DynSettings): a float argument would make the
 // tracer read a traced value on the host.
 //
-// Two sparse launches carry state that a functional schema cannot.  K5's
+// Three launches carry state that a functional schema cannot.  K5's
 // grouped launch takes a host table of raw pointers and job words
 // (ops/ell.py:_launch_group): its operator takes the jobs as tensor and
 // int lists and writes the same words here.  K6's loop writes x, r, z and
 // p in place and counts instances in steps[B]: its operator writes copies
 // of the start it is given and a counter it zeroes, and returns x and the
-// steps.
+// steps.  K6's step updates p, x, r, z and the steps in place and writes
+// rz and r'r to the other slots of ping-pong pairs: its operator writes
+// copies and returns all seven.
 #include <cstdint>
 #include <optional>
 #include <tuple>
@@ -105,6 +108,15 @@ int osqp_cg_loop(int dtype, const void* pv, const void* pi, int kp, const void* 
                  int vectors, int clusters, void* stream);
 int osqp_cg_loop_smem(int dtype, int n, int m, int kp, int ka, int kt, int cluster, int resident, int vectors);
 int osqp_cg_loop_clusters(int dtype, int cluster, int threads, int smem, int resident, int vectors);
+int osqp_cg_step(int dtype, void* p, const void* u, const void* v, const void* dinv, const void* tol2, const void* rz,
+                 const void* rr, void* Mp, void* x, void* r, void* z, void* rz_next, void* rr_next, void* part,
+                 void* steps, double sigma, int B, int n, void* stream);
+int osqp_bt_factor(int dtype, const void* M, void* C, void* G, void* scratch, int B, int b, int Nb, int path,
+                   int cluster, void* stream);
+int osqp_bt_solve(int dtype, const void* C, const void* G, const void* rhs, void* x, void* scratch, int B, int b,
+                  int Nb, int warps, void* stream);
+long long osqp_bt_factor_scratch(int dtype, int b, int path);
+long long osqp_bt_solve_scratch(int dtype, int b, int warps);
 }
 
 namespace {
@@ -113,6 +125,7 @@ using at::Tensor;
 using OptTensor = std::optional<Tensor>;
 using Five = std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor>;
 using Six = std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor>;
+using Seven = std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor>;
 using Eight = std::tuple<Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor>;
 
 int code_of(const Tensor& t) {
@@ -638,6 +651,119 @@ std::tuple<Tensor, Tensor> cg_loop_cuda(const Tensor& pv, const Tensor& pi, cons
   return {xo, steps.narrow(0, 0, B)};
 }
 
+// One step's vector work (the three step kernels) from the direction p
+// and its products u = P p and v = A'(rho A p) (none without rows of A):
+// the new p, x, r, z, rz, r'r and steps, in copies of the inputs, as the
+// ctypes launch writes them in place (ops/cg.py:cg_step).
+Seven cg_step_meta(const Tensor& p, const Tensor&, const OptTensor&, const Tensor&, const Tensor&, const Tensor& rz,
+                   const Tensor& rr, const Tensor& x, const Tensor& r, const Tensor& z, const Tensor& steps,
+                   const Tensor&) {
+  return {at::empty_like(p), at::empty_like(x), at::empty_like(r), at::empty_like(z), at::empty_like(rz),
+          at::empty_like(rr), at::empty_like(steps)};
+}
+
+Seven cg_step_cuda(const Tensor& p, const Tensor& u, const OptTensor& v, const Tensor& dinv, const Tensor& tol2,
+                   const Tensor& rz, const Tensor& rr, const Tensor& x, const Tensor& r, const Tensor& z,
+                   const Tensor& steps, const Tensor& sigma) {
+  same("cg_step", p, {&p, &u, &dinv, &tol2, &rz, &rr, &x, &r, &z, &steps});
+  if (v.has_value()) same("cg_step", p, {&*v});
+  TORCH_CHECK(steps.scalar_type() == at::kInt, "cg_step: steps must be int32");
+  c10::cuda::CUDAGuard guard(p.device());
+  const int code = code_of(p), B = p.size(0), n = p.size(1);
+  TORCH_CHECK(u.sizes() == p.sizes() && (!v.has_value() || v->sizes() == p.sizes()) && dinv.sizes() == p.sizes() &&
+                  x.sizes() == p.sizes() && r.sizes() == p.sizes() && z.sizes() == p.sizes() &&
+                  rz.sizes() == at::IntArrayRef({B}) && rr.sizes() == at::IntArrayRef({B}) &&
+                  tol2.sizes() == at::IntArrayRef({B}) && steps.sizes() == at::IntArrayRef({B}),
+              "cg_step: vectors ", p.sizes(), " and ", u.sizes(), ", scalars ", rz.sizes(), " disagree");
+  if (B == 0 || n == 0) return {p.clone(), x.clone(), r.clone(), z.clone(), rz.clone(), rr.clone(), steps.clone()};
+  // The launch updates p, x, r and steps in place and writes every entry
+  // of z: the first four start as copies (plain device copies, with no
+  // operator dispatched a copy), z's as new memory.
+  void* stream = stream_of(p);
+  auto copy = [stream](const Tensor& t) {
+    Tensor o = at::empty_like(t);
+    check(cudaMemcpyAsync(o.data_ptr(), t.data_ptr(), t.nbytes(), cudaMemcpyDeviceToDevice,
+                          static_cast<cudaStream_t>(stream)),
+          "cg_step copy");
+    return o;
+  };
+  Tensor po = copy(p), xo = copy(x), ro = copy(r), so = copy(steps), zo = at::empty_like(z);
+  Tensor rzo = at::empty_like(rz), rro = at::empty_like(rr);
+  Tensor Mp = at::empty_like(p), parts = at::empty({3, B, osqp_cg_parts(n)}, p.options());
+  check(osqp_cg_step(code, ptr(po), cptr(u), cptr(v), cptr(dinv), cptr(tol2), cptr(rz), cptr(rr), ptr(Mp), ptr(xo),
+                     ptr(ro), ptr(zo), ptr(rzo), ptr(rro), ptr(parts), ptr(so), scalar(sigma), B, n, stream),
+        "cg_step");
+  return {po, xo, ro, zo, rzo, rro, so};
+}
+
+// ---------------------------------------------------------------------------
+// K7
+// ---------------------------------------------------------------------------
+// (C (B, Nb, b, b), G (B, Nb-1, b, b)) of M (B, Nb b, Nb b); G is (B, 0, b,
+// b) at Nb = 1.
+std::tuple<Tensor, Tensor> bt_factor_outputs(const Tensor& M, int64_t b) {
+  const int64_t B = M.size(0), Nb = M.size(1) / b;
+  return {at::empty({B, Nb, b, b}, M.options()), at::empty({B, Nb - 1, b, b}, M.options())};
+}
+
+void check_block(const char* op, const Tensor& M, int64_t b) {
+  TORCH_CHECK(M.dim() == 3 && M.size(1) == M.size(2) && M.size(1) > 0 && b > 0 && M.size(1) % b == 0, op,
+              ": a (B, n, n) batch with a block size dividing n, not ", M.sizes(), " and b = ", b);
+}
+
+std::tuple<Tensor, Tensor> bt_factor_meta(const Tensor& M, int64_t b, int64_t, int64_t) {
+  check_block("bt_factor", M, b);
+  return bt_factor_outputs(M, b);
+}
+
+// The factor on the path (0 warp, 1 cluster, 2 device) and in clusters of
+// `cluster` CTAs that ops/block_tridiag.py (factor_path, cluster_plan,
+// device_plan) names; the entry refuses a path that does not take b and
+// a cluster whose strips miss shared memory.  The device path's scratch
+// where its band misses shared memory (device_scratch).
+std::tuple<Tensor, Tensor> bt_factor_cuda(const Tensor& M, int64_t b, int64_t path, int64_t cluster) {
+  same("bt_factor", M, {&M});
+  check_block("bt_factor", M, b);
+  TORCH_CHECK((path == 0 && cluster == 0 && b <= 32) ||
+                  ((path == 1 || path == 2) && (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 ||
+                                                cluster == 16)),
+              "bt_factor: no path ", path, " with clusters of ", cluster, " CTAs at b = ", b);
+  c10::cuda::CUDAGuard guard(M.device());
+  const int code = code_of(M), B = M.size(0), Nb = M.size(1) / b;
+  auto o = bt_factor_outputs(M, b);
+  const long long spill = osqp_bt_factor_scratch(code, b, path);
+  Tensor scratch = spill ? at::empty({B * cluster * spill}, M.options()) : Tensor();
+  check(osqp_bt_factor(code, cptr(M), ptr(std::get<0>(o)), ptr(std::get<1>(o)), spill ? ptr(scratch) : nullptr, B,
+                       b, Nb, path, cluster, stream_of(M)),
+        "bt_factor");
+  return o;
+}
+
+Tensor bt_solve_meta(const Tensor&, const Tensor&, const Tensor& r, int64_t) { return at::empty_like(r); }
+
+// x = M^-1 r in the layout ops/block_tridiag.py:solve_plan names: 0 warps
+// the warp path (b <= 32), else the wide solve in CTAs of that many warps,
+// with the scratch of solve_scratch where its vectors miss shared memory.
+Tensor bt_solve_cuda(const Tensor& C, const Tensor& G, const Tensor& r, int64_t warps) {
+  same("bt_solve", C, {&C, &G, &r});
+  TORCH_CHECK(C.dim() == 4 && C.size(2) == C.size(3) && C.size(1) > 0 && C.size(2) > 0, "bt_solve: C is ",
+              C.sizes());
+  const int64_t B = C.size(0), Nb = C.size(1), b = C.size(2);
+  TORCH_CHECK(G.sizes() == at::IntArrayRef({B, Nb - 1, b, b}) && r.sizes() == at::IntArrayRef({B, Nb * b}),
+              "bt_solve: G ", G.sizes(), " and r ", r.sizes(), " do not fit C ", C.sizes());
+  TORCH_CHECK((warps == 0 && b <= 32) || (warps >= 2 && warps <= 12 && b > 32), "bt_solve: no layout of ", warps,
+              " warps at b = ", b);
+  c10::cuda::CUDAGuard guard(C.device());
+  const int code = code_of(C);
+  Tensor x = at::empty_like(r);
+  const long long spill = osqp_bt_solve_scratch(code, b, warps);
+  Tensor scratch = spill ? at::empty({B * spill}, C.options()) : Tensor();
+  check(osqp_bt_solve(code, cptr(C), cptr(G), cptr(r), ptr(x), spill ? ptr(scratch) : nullptr, B, b, Nb, warps,
+                      stream_of(C)),
+        "bt_solve");
+  return x;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(osqp_tpu_torch, m) {
@@ -669,6 +795,10 @@ TORCH_LIBRARY(osqp_tpu_torch, m) {
   m.def("cg_loop(Tensor pv, Tensor pi, Tensor av, Tensor ai, Tensor tv, Tensor ti, Tensor? w, Tensor sigma,"
         " Tensor? div, Tensor dinv, Tensor tol2, Tensor rz, Tensor rr, Tensor x, Tensor r, Tensor z, Tensor p,"
         " int max_iter, int cluster, int threads, int resident, int vectors, int clusters) -> (Tensor, Tensor)");
+  m.def("cg_step(Tensor p, Tensor u, Tensor? v, Tensor dinv, Tensor tol2, Tensor rz, Tensor rr, Tensor x, Tensor r,"
+        " Tensor z, Tensor steps, Tensor sigma) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
+  m.def("bt_factor(Tensor M, int b, int path, int cluster) -> (Tensor, Tensor)");
+  m.def("bt_solve(Tensor C, Tensor G, Tensor r, int warps) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(osqp_tpu_torch, CUDA, m) {
@@ -686,6 +816,9 @@ TORCH_LIBRARY_IMPL(osqp_tpu_torch, CUDA, m) {
   m.impl("ell_cg_start", &ell_cg_start_cuda);
   m.impl("ell_scale", &ell_scale_cuda);
   m.impl("cg_loop", &cg_loop_cuda);
+  m.impl("cg_step", &cg_step_cuda);
+  m.impl("bt_factor", &bt_factor_cuda);
+  m.impl("bt_solve", &bt_solve_cuda);
 }
 
 TORCH_LIBRARY_IMPL(osqp_tpu_torch, Meta, m) {
@@ -703,4 +836,7 @@ TORCH_LIBRARY_IMPL(osqp_tpu_torch, Meta, m) {
   m.impl("ell_cg_start", &ell_cg_start_meta);
   m.impl("ell_scale", &ell_scale_meta);
   m.impl("cg_loop", &cg_loop_meta);
+  m.impl("cg_step", &cg_step_meta);
+  m.impl("bt_factor", &bt_factor_meta);
+  m.impl("bt_solve", &bt_solve_meta);
 }

@@ -15,10 +15,10 @@ pipeline (Ruiz scaling, rho classification, factorization, the masked
 ADMM loop over the whole iteration range, optional polish, unscaling and
 certificates) in one unsegmented solve.
 
-Format 2, written for the ``dense_inv`` backend (the default) and by
-:func:`export_sparse_solver`, holds the solve as one program, as the JAX
-package's ``jax.export`` blob does: for each platform the
-``torch.export.save`` bytes of
+Format 2, which :func:`export_solver` writes for every backend and
+:func:`export_sparse_solver` for the sparse path, holds the solve as one
+program, as the JAX package's ``jax.export`` blob does: for each platform
+the ``torch.export.save`` bytes of
 :class:`~osqp_tpu_torch.program.SolveProgram` (or, sparse,
 :class:`~osqp_tpu_torch.program.SparseSolveProgram`) traced at the fixed
 shapes (``torch.export.export(..., strict=False)``; its loops and
@@ -35,20 +35,25 @@ and the blob alone, no ``osqp_tpu_torch`` (README, "Export"):
 
 and :func:`load_solver` / :func:`load_sparse_solver` do just that.  Run
 eagerly, the loaded program reads each turn's predicate of its loops and
-each branch's on the host.
+each branch's on the host.  The program holds no host check of the live
+entry points: ``block_tridiag``'s band check
+(``linsys.block_tridiag.validate_structure``) runs in ``solve_batch`` and
+the ``Solver``, not in the program, as the JAX package's
+``solve_batch_jit`` leaves it to ``solve_batch``.
 
-Format 1, which the dense backends other than ``dense_inv``
-(``dense_chol``, ``kkt_lu``, ``cg``, ``block_tridiag``) still write, is a
-``torch.save`` of the settings alone: its callable runs the live solve,
-so loading it needs ``osqp_tpu_torch`` installed, and on the card the
-kernel library is built at first use.  Both formats are plain data
-(``torch.load(..., weights_only=True)`` reads them), and both loaders
-read both (:func:`load_sparse_solver` the format-1 sparse blobs of
-earlier versions too).  A sparse blob also carries its sparsity pattern
-and its CSC-nnz -> ELL-slot value maps (``spec["operands"]``), which a
-format-2 program holds as buffers, and its callable takes value vectors
-only.  The sparse polish's CG cap (``OSQP_TPU_POLISH_CG_CAP``, read at
-export) is fixed in a format-2 sparse blob.
+Format 1, which earlier versions wrote for the dense backends other than
+``dense_inv`` and for the sparse path, is a ``torch.save`` of the
+settings alone (and, sparse, the pattern and maps): no exporter writes it
+now, and both loaders still read it, its callable running the live
+unsegmented solve (so it needs ``osqp_tpu_torch`` installed, and on the
+card builds the kernels at first use).  Both formats are plain data
+(``torch.load(..., weights_only=True)`` reads them).  A sparse blob also
+carries its sparsity pattern and its CSC-nnz -> ELL-slot value maps
+(``spec["operands"]``), which a format-2 program holds as buffers, and
+its callable takes value vectors only.  The sparse polish's CG cap
+(``OSQP_TPU_POLISH_CG_CAP``, read at export) is fixed in a format-2
+sparse blob.  :data:`last_seconds` splits the last export's time into
+tracing, saving and the operators' library.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import dataclasses
 import io
 import os
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -65,7 +71,6 @@ from . import __version__
 from . import _build
 from . import admm as admm_mod
 from . import constants as con
-from . import linsys as linsys_registry
 from .batch import _postprocess, _prepare, solve_batch
 from .program import FIELDS, SolveProgram, SparseSolveProgram, make_dyn, sparse_operands
 from .solver import Settings, make_config, reject_time_based_rho, resolve_device, torch_dtype, validate_settings
@@ -146,29 +151,45 @@ def _program_settings(s: Settings) -> dict:
     return {k: v for k, v in dataclasses.asdict(s).items() if k not in ("verbose", "time_limit")}
 
 
-def _trace(module: torch.nn.Module, shapes, dtype: torch.dtype, platform: str) -> bytes:
+# Seconds of the last format-2 export by part, the host's clock: "trace"
+# (torch.export.export), "save" (torch.export.save) over its platforms, and
+# "library" (the operators' library built or found, and read).
+last_seconds: dict = {}
+
+
+def _trace(module: torch.nn.Module, shapes, dtype: torch.dtype, platform: str, seconds: dict) -> bytes:
     """The ``torch.export.save`` bytes of ``module`` traced on ``platform``
-    over inputs of these shapes.  The kernels' wrappers take their
-    operators on the card and their plain versions on the CPU."""
+    over inputs of these shapes, the seconds of each part added to
+    ``seconds``.  The kernels' wrappers take their operators on the card
+    and their plain versions on the CPU."""
     if platform == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("a 'cuda' program is traced on a CUDA card, and this machine has none")
     dev = torch.device(platform)
     args = tuple(torch.zeros(shape, dtype=dtype, device=dev) for shape in shapes)
+    t0 = time.perf_counter()
     program = torch.export.export(module.to(dev), args, strict=False)
     program.example_inputs = None  # else the archive keeps the traced inputs (a GB at the headline)
+    t1 = time.perf_counter()
     buf = io.BytesIO()
     torch.export.save(program, buf)
+    seconds["trace"] += t1 - t0
+    seconds["save"] += time.perf_counter() - t1
     return buf.getvalue()
 
 
 def _programs(spec: dict, make, shapes, dtype: torch.dtype) -> dict:
     """``spec`` with format 2's entries: the program ``make()`` traced for
     each platform, and for ``"cuda"`` the operators' library."""
+    seconds = dict(trace=0.0, save=0.0, library=0.0)
     spec.update(fields=list(FIELDS), torch_version=str(torch.__version__),
-                programs={p: _trace(make(), shapes, dtype, p) for p in spec["platforms"]})
+                programs={p: _trace(make(), shapes, dtype, p, seconds) for p in spec["platforms"]})
     if "cuda" in spec["platforms"]:
+        t0 = time.perf_counter()
         path = _build.build_ops()
         spec.update(ops_library=path.read_bytes(), ops_library_name=path.name)
+        seconds["library"] = time.perf_counter() - t0
+    last_seconds.clear()
+    last_seconds.update(seconds)
     return spec
 
 
@@ -176,17 +197,18 @@ def export_solver(B: int, n: int, m: int, dtype="float32", platforms=None, **set
     """Serialize a batched solver for fixed (B, n, m) and settings.
 
     ``platforms``: a list of ``"cuda"`` and/or ``"cpu"``, the devices the
-    loaded callable may run on; the card by default.  The ``dense_inv``
-    backend writes format 2, the traced program for each platform (a
-    ``"cuda"`` one only on a machine with a card); the other backends
-    format 1 (see the module docstring).
+    loaded callable may run on; the card by default.  Every backend
+    (``dense_inv``, ``kkt_lu``, ``dense_chol``, ``cg``, ``block_tridiag``
+    with its ``block_size``) writes format 2, the traced program for each
+    platform (a ``"cuda"`` one only on a machine with a card).  The
+    program runs no host check of the data: ``block_tridiag``'s band check
+    (``validate_structure``) is the live entry points' and the caller's,
+    as in the JAX package, whose artifact leaves it to ``solve_batch``.
     """
     s = _settings(dtype, settings)
+    reject_time_based_rho(s)
     spec = dict(kind="dense", B=int(B), n=int(n), m=int(m), dtype=s.dtype, platforms=_platforms(platforms),
                 settings=dataclasses.asdict(s))
-    if linsys_registry.get(s.linsys_solver) is not linsys_registry.get("dense_inv"):
-        return _dump(spec, 1)
-    reject_time_based_rho(s)
     B, n, m = spec["B"], spec["n"], spec["m"]
     shapes = ((B, n, n), (B, n), (B, m, n), (B, m), (B, m))
     make = lambda: SolveProgram(n, m, **_program_settings(s))

@@ -44,6 +44,13 @@ keep that order for every entry (``tests/test_torch_block_tridiag_order.py``
 renders them).  A stage that is not positive definite gives NaN in the
 whole lower triangle of its factor block, as ``jnp.linalg.cholesky``
 does, and nothing raises.
+
+In a traced program (:mod:`osqp_tpu_torch.program`) the wrappers call
+the ``torch.library`` operators ``bt_factor`` and ``bt_solve``
+(:func:`bt_factor_op`, :func:`bt_solve_op`: the same C entries on the
+same path, cluster size and layout, their scratch allocated by the
+operator), and count nothing: the program launches them after the
+trace.
 """
 
 from __future__ import annotations
@@ -238,6 +245,8 @@ def bt_factor(M: torch.Tensor, b: int, *, path: str | None = None, cluster: int 
             raise ValueError(f"bt_factor: no cluster of {cluster} CTAs, only {CLUSTERS}")
     elif path != "warp" or cluster is not None:
         raise ValueError(f"bt_factor: no path {path!r} with clusters of {cluster}")
+    if _build.tracing(M):
+        return bt_factor_op(M, b, path, cluster or 0)
     C = torch.empty((B, Nb, b, b), dtype=M.dtype, device=M.device)
     G = torch.empty((B, Nb - 1, b, b), dtype=M.dtype, device=M.device)
     spill = device_scratch(b, M.dtype) if path == "device" else 0
@@ -283,6 +292,8 @@ def bt_solve(C: torch.Tensor, G: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         raise ValueError("bt_solve takes contiguous tensors")
     B, Nb, b, _ = C.shape
     path, warps = solve_plan(b, C.dtype)
+    if _build.tracing(C):
+        return bt_solve_op(C, G, r, warps)
     x = torch.empty_like(r)
     spill = solve_scratch(b, C.dtype)
     scratch = torch.empty(B * spill, dtype=C.dtype, device=C.device) if spill else None
@@ -295,6 +306,20 @@ def bt_solve(C: torch.Tensor, G: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     launches_solve_warp += path == "warp"
     launches_solve_wide += path == "wide"
     return x
+
+
+def bt_factor_op(M: torch.Tensor, b: int, path: str, cluster: int):
+    """:func:`bt_factor` through its operator
+    (``torch.ops.osqp_tpu_torch.bt_factor``) on ``path`` in clusters of
+    ``cluster`` CTAs (0 on the warp path), as a traced program calls it."""
+    return tuple(_build.ops().bt_factor(M, int(b), _PATH_CODES[path], int(cluster)))
+
+
+def bt_solve_op(C: torch.Tensor, G: torch.Tensor, r: torch.Tensor, warps: int) -> torch.Tensor:
+    """:func:`bt_solve` through its operator
+    (``torch.ops.osqp_tpu_torch.bt_solve``) in CTAs of ``warps`` warps (0:
+    the warp path), as a traced program calls it."""
+    return _build.ops().bt_solve(C, G, r, int(warps))
 
 
 def route_quotient(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ M = P + sigma I + A' diag(rho) A; polish passes its own operator
 (``osqp_tpu_torch.polish``).  On ELL operands the operator is an
 :class:`EllOperator`, which names its form (the cg backend's
 V p = A'(rho * A p) or polish's V p = A'(A p) / d); on dense ones a
-function of batched GEMVs.
+:class:`DenseOperator` of batched GEMVs.
 
 For CUDA tensors the path follows the operator's type.  An
 :class:`EllOperator` runs the whole solve in one launch of the loop in
@@ -52,8 +52,14 @@ which each instance was live, so its maximum is the JAX loop's count.
 In the traced program (:mod:`osqp_tpu_torch.program`) the device loop is
 a call of its ``torch.library`` operator ``cg_loop``
 (:func:`pcg_solve_loop_op`: the same C entry on the same plan, sigma and
-polish's ``div`` as one-element host tensors), and the plain loop a
-:func:`osqp_tpu_torch.flow.while_loop` with the same stop test and steps.
+polish's ``div`` as one-element host tensors), the plain loop a
+:func:`osqp_tpu_torch.flow.while_loop` with the same stop test and steps,
+and the stepwise path :func:`pcg_solve_stepwise_program`: a
+:func:`flow.while_loop` whose turn is :data:`CHUNK` steps of the step
+operator ``cg_step`` (:func:`cg_step_op`, functional: copies in, the new
+state out) with the stop test before it, then the steps left below
+``max_iter`` (fewer than :data:`CHUNK`) under a :func:`flow.cond` on the
+same test, so the steps and bits of the live chunks.
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ import functools
 import torch
 
 from .. import _build, flow
-from ..linalg import mat_tvec, mat_vec, vec_dot
+from ..linalg import host_read, mat_tvec, mat_vec, vec_dot
 from ..parallel.rows import RowSharded
 from ..sparse_ops import ELLMatrix
 from . import ell
@@ -124,19 +130,29 @@ class EllOperator:
 def _operator(P, A, rho_vec, plain: bool):
     """p -> (P p, A'(rho * A p), None when A has no rows): an
     :class:`EllOperator` on ELL operands (with ``plain``, its plain
-    products), ``torch.bmm`` on dense ones, and on a row-sharded A its
-    products and collectives (a function, so the card steps it)."""
+    products), a :class:`DenseOperator` on dense ones, and on a
+    row-sharded A its products and collectives (a function, so the card
+    steps it)."""
     if isinstance(A, RowSharded):
         return A.products(P, rho_vec)
     if isinstance(P, ELLMatrix) and isinstance(A, ELLMatrix):
         op = EllOperator(P, A, w=rho_vec)
         return op.plain if plain else op
-    m = A.shape[-2]
+    return DenseOperator(P, A, rho_vec)
 
-    def products(p):
-        return mat_vec(P, p), (mat_tvec(A, rho_vec * mat_vec(A, p)) if m else None)
 
-    return products
+@dataclasses.dataclass(frozen=True)
+class DenseOperator:
+    """p -> (P p, A'(w * A p)) on dense operands by batched GEMVs, V p
+    None when A has no rows: the cg backend's form.  A dataclass and not a
+    closure, so that a traced loop gets its tensors as operands."""
+
+    P: torch.Tensor
+    A: torch.Tensor
+    w: torch.Tensor
+
+    def __call__(self, p):
+        return mat_vec(self.P, p), (mat_tvec(self.A, self.w * mat_vec(self.A, p)) if self.A.shape[-2] else None)
 
 
 def _start(products, sigma, dinv, b, x0, tol_rel, start=None):
@@ -202,17 +218,20 @@ def pcg_solve(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=N
     returns ``(x, steps)``.  On a CPU ``b`` the plain loop; on a CUDA one
     the device loop for an :class:`EllOperator`, else the step kernels
     step by step."""
-    return _route(products, b.device.type)(products, sigma, dinv, b, tol_rel, max_iter, x0, start=start)
+    route = _route(products, b.device.type, _build.tracing(b))
+    return route(products, sigma, dinv, b, tol_rel, max_iter, x0, start=start)
 
 
-def _route(products, device_type: str):
+def _route(products, device_type: str, traced: bool = False):
     """The loop that :func:`pcg_solve` runs for ``products`` on a device
-    of this type."""
+    of this type, in a trace where ``traced``."""
     if device_type == "cpu":
         return pcg_solve_plain
     if device_type != "cuda":
         raise ValueError(f"cg_solve runs on CPU or CUDA tensors, not {device_type}")
-    return pcg_solve_loop if isinstance(products, EllOperator) else pcg_solve_stepwise
+    if isinstance(products, EllOperator):
+        return pcg_solve_loop
+    return pcg_solve_stepwise_program if traced else pcg_solve_stepwise
 
 
 def _check_cuda(name, tensors) -> None:
@@ -225,8 +244,8 @@ def _check_cuda(name, tensors) -> None:
 def pcg_solve_stepwise(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=None):
     """The solve on the card step by step: one :func:`cg_step` per step
     after ``products(p)``, the stop test read by the host once per
-    :data:`CHUNK` steps.  Takes any operator (dense GEMVs, or an
-    :class:`EllOperator`'s K5 launches)."""
+    :data:`CHUNK` steps (``linalg.host_read``, counted).  Takes any
+    operator (dense GEMVs, or an :class:`EllOperator`'s K5 launches)."""
     _check_cuda("pcg_solve_stepwise", (b, dinv, tol_rel) + ((x0,) if x0 is not None else ()))
     x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel, start)
     B, n = b.shape
@@ -239,13 +258,64 @@ def pcg_solve_stepwise(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None
     Mp = torch.empty_like(b)
     parts = torch.empty((3, B, _build.library().osqp_cg_parts(n)), dtype=b.dtype, device=b.device)
     k, cur = 0, 0
-    while k < max_iter and bool((rr_pair[cur] > tol2).any()):
+    while k < max_iter and host_read((rr_pair[cur] > tol2).any()):
         for _ in range(min(CHUNK, max_iter - k)):
             u, v = products(p)
             cg_step(p, u, v, sigma, dinv, tol2, rz_pair, rr_pair, cur, Mp, x, r, z, parts, steps)
             cur = 1 - cur
             k += 1
     return x, steps
+
+
+def pcg_solve_stepwise_program(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=None, step=None):
+    """:func:`pcg_solve_stepwise` with its host reads as device control
+    flow, as a traced program runs it: a :func:`flow.while_loop` of
+    :data:`CHUNK` steps a turn while ``k`` lies below the last whole
+    chunk and an instance is live, then the ``max_iter % CHUNK`` steps
+    left under a :func:`flow.cond` on the same test: the live path's
+    chunks, its steps and its bits.  ``step(p, u, v, sigma, dinv, tol2,
+    rz, rr, x, r, z, steps)`` returns the new (p, x, r, z, rz, rr, steps):
+    the step operator (:func:`cg_step_op`) by default.  Run eagerly, it
+    reads the stop test on the host before each turn, once to leave the
+    loop and, where ``max_iter % CHUNK`` > 0, once for the tail: the live
+    path's reads and one more a solve with a tail."""
+    x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel, start)
+    B, n = b.shape
+    steps = torch.zeros(B, dtype=torch.int32, device=b.device)
+    if n == 0:
+        return x, steps
+    step = cg_step_op if step is None else step
+    whole, tail = divmod(int(max_iter), CHUNK)
+
+    def run(count):
+        def body(c, products, sigma, dinv, tol2):
+            k, p, x, r, z, rz, rr, steps = c
+            for _ in range(count):
+                u, v = products(p)
+                p, x, r, z, rz, rr, steps = step(p, u, v, sigma, dinv, tol2, rz, rr, x, r, z, steps)
+            return k + count, p, x, r, z, rz, rr, steps
+
+        return body
+
+    def more(c, products, sigma, dinv, tol2):
+        return (c[0] < whole * CHUNK) & (c[6] > tol2).any()
+
+    consts = (products, sigma, dinv, tol2)
+    c = (torch.zeros((), dtype=torch.int64, device=b.device), p, x, r, z, rz, rr, steps)
+    if whole:
+        c = flow.while_loop(more, run(CHUNK), c, consts)
+    if tail:
+        c = flow.cond((c[6] > tol2).any(), run(tail), lambda c, *_: c, (c, *consts))
+    return c[2], c[7]
+
+
+def cg_step_op(p, u, v, sigma, dinv, tol2, rz, rr, x, r, z, steps):
+    """One step of K6 through its operator (``torch.ops.osqp_tpu_torch.
+    cg_step``), functional: returns the new (p, x, r, z, rz, r'r, steps),
+    the bits :func:`cg_step` writes in place and to the pairs' other
+    slots; ``sigma`` a one-element host tensor.  Launches are not counted:
+    a traced program runs it after the trace."""
+    return tuple(_build.ops().cg_step(p, u, v, dinv, tol2, rz, rr, x, r, z, steps, _build.setting(sigma)))
 
 
 def _ell_fields(M: ELLMatrix, name: str, B: int, rows: int, cols: int, dtype, device):

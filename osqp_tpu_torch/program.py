@@ -2,34 +2,46 @@
 ``osqp_tpu/batch.py:153-176``, ``solve_batch_jit``, and of the while loop
 of ``osqp_tpu/admm.py:296-385``).
 
-:func:`solve_batch_program` runs the whole ``dense_inv`` pipeline (Ruiz
-scaling through K4, rho classification, the inverse through K2 with its
-residual guard, the ADMM loop through K1 or K1r with K3 at the checks,
-finalize, optional polish through K8 and K3, unscaling and certificates)
-with no host read and no Python branch on a device value, so that
-``torch.export`` traces it into one program.  It runs the sparse
-pipeline of the ``cg`` backend on ELL operands the same way (matrix-free
-Ruiz on K5, rho classification, ``cg.init`` on K5, the ADMM loop over
-``linsys/cg.solve`` with K5's fused start and K6's device loop each
-iteration, K5's products at the checks and the inner tolerance retuned
-there, finalize, the optional one-pass polish whose Schur system K6's
-loop solves, unscaling and certificates):
+:func:`solve_batch_program` runs the whole pipeline of any backend on
+dense operands, and of the ``cg`` backend on ELL operands, with no host
+read and no Python branch on a device value, so that ``torch.export``
+traces it into one program: Ruiz scaling (K4, or on ELL operands K5's
+matrix-free sweeps), rho classification, the factor, the ADMM loop with
+K3's products at the checks, finalize, the optional polish (K8 and K3;
+on ELL operands the one-pass polish whose Schur system K6's loop
+solves), unscaling and certificates.  The factor and each iteration's
+KKT solve are the backend's:
+
+* ``dense_inv``: the inverse through K2 with its residual guard, the
+  loop body K1 or K1r;
+* ``kkt_lu``: K8's factor from the KKT blocks and its solve;
+* ``dense_chol``: torch's batched Cholesky (``cholesky_ex``) and
+  ``cholesky_solve``, as the JAX package leaves them to its library;
+* ``block_tridiag``: K7's factor and solve (two GEMVs with A beside);
+* ``cg`` on dense operands: K6's step, the stepwise PCG with batched
+  GEMV products; on ELL operands K5's fused start and K6's device loop.
+
+Its decisions are device control flow:
 
 * the refined or the plain loop body is a :func:`flow.cond` on
   ``dense_inv.refine_signal``, outside the loop (JAX: admm.py:375-385);
+  a backend without fused bodies (every one but ``dense_inv``) has no
+  refine ``cond``: its turn runs ``admm.step``'s generic body;
 * the loop is a :func:`flow.while_loop` while some instance is active
   and ``k <= max_iter``; one turn runs one check interval, its
   iterations masked by ``k <= max_iter``, so the check sits at the turn's
   end and a run that stops at a check stops where the live loop does;
 * the rho adaptation is a :func:`flow.cond` on ``k % interval == 0`` at
-  each place of the turn where that can hold, and its refactor one on
-  ``upd.any()``;
+  each place of the turn where that can hold, and its refactor (any
+  backend's ``init``) one on ``upd.any()``, the new factor merged per
+  instance (``admm._select_factor``: ``kkt_lu``'s perm goes with its lu);
 * the residual guard is a :func:`flow.cond` on ``bad.any()`` over the
   whole batch (``dense_inv.guarded_inverse``);
-* a backend without fused bodies (``cg``) has no refine ``cond``: its
-  turn runs ``admm.step``'s generic body, and on CPU tensors each CG
-  solve is itself a :func:`flow.while_loop` (``ops/cg.py``), where on
-  the card it is one call of K6's loop.
+* each CG solve of ``cg`` on dense operands on the card is a
+  :func:`flow.while_loop` of 8 steps a turn with the stop test before it
+  and a :func:`flow.cond` for the steps left below the cap
+  (``ops/cg.py:pcg_solve_stepwise_program``); on ELL operands one call of
+  K6's loop; on CPU tensors the plain loop, a :func:`flow.while_loop`.
 
 The pieces between those decisions are the live solve's own
 (``batch._prepare``, ``admm.step``, ``admm._apply_check``,
@@ -41,9 +53,11 @@ where the residual guard fires (a batched Cholesky).  Under tracing the
 kernels' wrappers call their ``torch.library`` ops on CUDA tensors and
 their plain versions on CPU tensors.  :class:`SolveProgram` is the module
 that ``export.export_solver`` traces: settings are constants of the
-program, its inputs P, q, A, l, u.  :class:`SparseSolveProgram` is
-``export.export_sparse_solver``'s: its sparsity pattern and value maps
-are buffers, its inputs the value vectors (P_val, q, A_val, l, u).
+program, its inputs P, q, A, l, u; it runs no host check of the data
+(``block_tridiag.validate_structure`` stays with the live entry points).
+:class:`SparseSolveProgram` is ``export.export_sparse_solver``'s: its
+sparsity pattern and value maps are buffers, its inputs the value
+vectors (P_val, q, A_val, l, u).
 """
 
 from __future__ import annotations
@@ -125,15 +139,13 @@ def run_loop(cfg, data, scl, dyn, c: admm.Carry) -> admm.Carry:
 
 def solve_batch_program(cfg, scaling_iters: int, do_polish: bool, refine_iter: int, P, q, A, l, u, rho0,
                         dyn: DynSettings) -> tuple:
-    """The whole batched solve of the ``dense_inv`` backend on dense
-    operands, or of the ``cg`` backend on ELL operands, over the whole
-    iteration range, cold started, on unscaled inputs (l and u clamped to
-    the finite infinity); returns the fields of :data:`FIELDS` in order."""
-    backend = linsys_registry.get(cfg.linsys_solver)
+    """The whole batched solve of any backend on dense operands, or of the
+    ``cg`` backend on ELL operands, over the whole iteration range, cold
+    started, on unscaled inputs (l and u clamped to the finite infinity);
+    returns the fields of :data:`FIELDS` in order."""
     sparse = isinstance(P, ELLMatrix) and isinstance(A, ELLMatrix)
-    if backend is not linsys_registry.get("cg" if sparse else "dense_inv"):
-        raise ValueError(f"the traced program covers the dense_inv backend on dense operands and the cg backend "
-                         f"on ELL operands, not {cfg.linsys_solver!r} on {'ELL' if sparse else 'dense'} ones")
+    if sparse and linsys_registry.get(cfg.linsys_solver) is not linsys_registry.get("cg"):
+        raise ValueError(f"the traced program runs the cg backend on ELL operands, not {cfg.linsys_solver!r}")
     with flow.program():
         scaled, scl, rho_state, factor, it = _prepare(cfg, scaling_iters, P, q, A, l, u, rho0, dyn, None, None)
         c = admm.init_carry(cfg, scaled, rho_state, factor, it)

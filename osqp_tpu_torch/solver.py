@@ -560,9 +560,9 @@ class Solver:
 
         The blob solves any (B, n, m)-shaped data in the solve dtype
         through :func:`osqp_tpu_torch.export.load_solver`, on this
-        solver's device type; optionally written to ``path``.  With the
-        ``dense_inv`` backend it holds the solve traced on that device
-        (format 2), which runs with torch alone."""
+        solver's device type; optionally written to ``path``.  It holds
+        the solve traced on that device (format 2) with any backend,
+        ``block_size`` in its settings, and runs with torch alone."""
         self._require_setup()
         from .export import export_solver
 

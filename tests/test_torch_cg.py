@@ -224,7 +224,7 @@ def test_pcg_takes_the_device_loop_for_ell_operators_only():
     assert k6._route(op, "cpu") is k6.pcg_solve_plain and k6._route(dense, "cpu") is k6.pcg_solve_plain
     with pytest.raises(ValueError, match="CPU or CUDA"):
         k6._route(op, "meta")
-    # the cg backend hands ELL operands over as an EllOperator, dense ones as a function
+    # the cg backend hands ELL operands over as an EllOperator, dense ones as a DenseOperator
     assert k6._operator(P, A, rho, plain=False) == op
     Pd, Ad = torch.eye(4, dtype=torch.float64)[None], torch.ones((1, 2, 4), dtype=torch.float64)
     assert not isinstance(k6._operator(Pd, Ad, torch.ones((1, 2), dtype=torch.float64), plain=False),

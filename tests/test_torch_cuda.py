@@ -2224,3 +2224,176 @@ def test_parallel_ranks_on_several_cards(dev, tmp_path, world):
     want = osqp_tpu_torch.solve_batch(P[None], q[None], A[None], l[None], u[None], device="cuda",
                                       linsys_solver="cg", verbose=False, **R.F64)
     np.testing.assert_allclose(res[0]["dense50/x"], want.x.cpu().numpy(), atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The other dense backends' operators (K7's factor and solve, K6's step)
+# and their exported programs
+# ---------------------------------------------------------------------------
+# (dtype, B, Nb, b, path): the warp path (the MPC cell's b = 12), the
+# cluster path (b = 140), the device path at b = cluster_max_block + 1 in
+# float64 for B = 1 to 4 (clusters of 16 to 1 CTAs a side: device_plan),
+# and its band in device memory (b = 849, the operator's scratch).
+K7_OP_CASES = [(torch.float32, 64, 31, 12, "warp"), (torch.float64, 4, 3, 12, "warp"),
+               (torch.float32, 4, 3, 140, "cluster"), (torch.float64, 2, 3, 99, "cluster"),
+               *((torch.float64, B, 3, 362, "device") for B in (1, 2, 3, 4)), (torch.float64, 1, 2, 849, "device")]
+
+
+@pytest.mark.parametrize("dtype,B,Nb,b,path", K7_OP_CASES)
+def test_k7_ops_match_their_launches(dev, dtype, B, Nb, b, path):
+    """K7's factor and solve operators on the path and layout the plans
+    name give the ctypes launches' bits; the operators count nothing."""
+    assert k7.factor_path(b, dtype) == path
+    M = _band_schur(B, Nb, b, dtype, seed=b).to(dev)
+    C0, G0 = k7.bt_factor(M, b)
+    cluster = {"warp": lambda: 0, "cluster": lambda: k7.cluster_plan(b, B, dtype, _sms(dev)),
+               "device": lambda: k7.device_plan(B, _sms(dev))}[path]()
+    counts = k7.launches_factor, k7.launches_solve
+    C, G = k7.bt_factor_op(M, b, path, cluster)
+    assert _same_bits(C, C0) and _same_bits(G, G0) and G.shape == (B, Nb - 1, b, b)
+    r = torch.randn(B, Nb * b, dtype=dtype, device=dev)
+    x = k7.bt_solve_op(C, G, r, k7.solve_plan(b, dtype)[1])
+    assert (k7.launches_factor, k7.launches_solve) == counts
+    assert _same_bits(x, k7.bt_solve(C0, G0, r))
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def test_k7_ops_at_one_stage_and_on_the_traced_route(dev, monkeypatch):
+    """Nb = 1 (G of shape (B, 0, b, b), also from the Meta kernel), and the
+    wrappers' own traced route (``_build.tracing``) to the operators."""
+    from osqp_tpu_torch import _build
+
+    M = _band_schur(5, 1, 7, torch.float64).to(dev)
+    C, G = k7.bt_factor_op(M, 7, "warp", 0)
+    assert G.shape == (5, 0, 7, 7) and _same_bits(C, k7.bt_factor(M, 7)[0])
+    meta = _build.ops().bt_factor(M.to("meta"), 7, 0, 0)
+    assert tuple(meta[1].shape) == (5, 0, 7, 7) and tuple(meta[0].shape) == (5, 1, 7, 7)
+    M = _band_schur(3, 4, 40, torch.float32).to(dev)
+    r = torch.randn(3, 160, dtype=torch.float32, device=dev)
+    C0, G0 = k7.bt_factor(M, 40)
+    counts = k7.launches_factor, k7.launches_solve
+    with monkeypatch.context() as mp:
+        mp.setattr(_build, "tracing", lambda t=None: True)
+        C, G = k7.bt_factor(M, 40)
+        x = k7.bt_solve(C, G, r)
+    assert (k7.launches_factor, k7.launches_solve) == counts
+    assert _same_bits(C, C0) and _same_bits(G, G0) and _same_bits(x, k7.bt_solve(C0, G0, r))
+    with pytest.raises(RuntimeError, match="no path"):
+        _build.ops().bt_factor(M, 40, 0, 0)
+
+
+def _cg_state(dev, dtype, B=64, n=300, m=500, seed=9, frozen=True):
+    """The cg backend's dense system at a random point on the card: its
+    operator, sigma, dinv, b, x0 and tol_rel (every fourth instance
+    converged at the start where ``frozen``)."""
+    from osqp_tpu_torch.linsys import cg as cg_backend
+
+    P, q, A, l, u = _op_problem(dev, dtype, B, n, m, seed=seed)
+    rho = torch.rand(B, m, dtype=dtype, device=dev) + 0.1
+    fac = cg_backend.init(P, A, 1e-6, rho)
+    op = k6._operator(P, A, rho, plain=False)
+    x0 = torch.randn(B, n, dtype=dtype, device=dev)
+    u0, v0 = op(x0)
+    b = u0 + 1e-6 * x0 + v0 + 1e-3 * torch.randn(B, n, dtype=dtype, device=dev)
+    if frozen:
+        b[::4] = (u0 + 1e-6 * x0 + v0)[::4]
+    tol = torch.full((B,), 1e-7 if dtype == torch.float64 else 1e-4, dtype=dtype, device=dev)
+    return op, fac["sigma"], fac["dinv"], b, x0, tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cg_step_op_matches_its_launch(dev, dtype):
+    """K6's step operator, three steps in turn, against the in-place launch
+    (p, x, r, z, the pairs' next slots, steps), bit for bit; its inputs
+    unchanged; nothing counted."""
+    op, sigma, dinv, b, x0, tol = _cg_state(dev, dtype)
+    x, r, z, p, rz, rr, tol2 = k6._start(op, sigma, dinv, b, x0, tol)
+    B, n = b.shape
+    steps = torch.zeros(B, dtype=torch.int32, device=dev)
+    state = (p, x, r, z, rz, rr, steps)
+    live = [t.clone() for t in (p, x, r, z)]
+    pairs = torch.stack([rz, torch.empty_like(rz)]), torch.stack([rr, torch.empty_like(rr)])
+    live_steps, Mp = steps.clone(), torch.empty_like(b)
+    parts = torch.empty((3, B, k6._build.library().osqp_cg_parts(n)), dtype=dtype, device=dev)
+    for cur in (0, 1, 0):
+        u, v = op(state[0])
+        inputs, before = state, [t.clone() for t in state]
+        counted = k6.launches
+        state = k6.cg_step_op(state[0], u, v, sigma, dinv, tol2, state[4], state[5], state[1], state[2], state[3],
+                              state[6])
+        assert k6.launches == counted
+        k6.cg_step(live[0], u, v, float(sigma), dinv, tol2, *pairs, cur, Mp, live[1], live[2], live[3], parts,
+                   live_steps)
+        assert all(_same_bits(a, b) for a, b in zip(inputs, before))
+        got = dict(zip(("p", "x", "r", "z", "rz", "rr", "steps"), state))
+        want = dict(zip(("p", "x", "r", "z"), live), rz=pairs[0][1 - cur], rr=pairs[1][1 - cur], steps=live_steps)
+        assert not [k for k in got if not _same_bits(got[k], want[k])]
+    assert int(live_steps[0]) == 0 and int(live_steps[1]) == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("max_iter", [13, 16, 300])
+def test_stepwise_program_matches_the_stepwise_path(dev, dtype, max_iter):
+    """The traced stepwise PCG (a while_loop of 8 operator steps a turn and
+    a cond for the tail), run eagerly on the card, against the live
+    stepwise path: x and the steps bit for bit, at a cap with a tail, a
+    whole number of chunks, and one every instance stops before."""
+    op, sigma, dinv, b, x0, tol = _cg_state(dev, dtype)
+    xs, ss = k6.pcg_solve_stepwise(op, sigma, dinv, b, tol, max_iter, x0)
+    xg, sg = k6.pcg_solve_stepwise_program(op, sigma, dinv, b, tol, max_iter, x0)
+    assert _same_bits(xg, xs) and _same_bits(sg, ss)
+    assert int(ss.max()) <= max_iter and int(ss[0]) == 0
+
+
+def _mpc_batch(B=64, horizon=8, seed=0):
+    """An MPC scenario batch (nx = 8, nu = 4: b = 12) of B initial states."""
+    from osqp_tpu_torch.models import build_mpc_qp
+
+    rng = np.random.default_rng(seed)
+    nx, nu = 8, 4
+    Ad = np.eye(nx) + 0.05 * rng.standard_normal((nx, nx)) / np.sqrt(nx)
+    Bd = rng.standard_normal((nx, nu)) / np.sqrt(nx)
+    base = build_mpc_qp(Ad, Bd, np.eye(nx), 0.1 * np.eye(nu), horizon=horizon, xmin=np.full(nx, -10.0),
+                        xmax=np.full(nx, 10.0), umin=np.full(nu, -1.0), umax=np.full(nu, 1.0))
+    l, u = np.tile(base.l, (B, 1)), np.tile(base.u, (B, 1))
+    l[:, :nx] = u[:, :nx] = rng.standard_normal((B, nx))
+    return base.block_size, (np.stack([base.P] * B), np.stack([base.q] * B), np.stack([base.A] * B), l, u)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_exported_block_tridiag_program_gives_the_live_bits(dev, dtype):
+    """An MPC batch through a format-2 block_tridiag blob, loaded in this
+    process, gives the live solve_batch's bits in every field; its export
+    read the device 0 times and its program calls K7's operators."""
+    from osqp_tpu_torch import export, linalg
+
+    b, args = _mpc_batch()
+    B, n, m = args[1].shape[0], args[1].shape[1], args[3].shape[1]
+    kw = dict(dtype=dtype, verbose=False, linsys_solver="block_tridiag", block_size=b)
+    T = lambda a: torch.as_tensor(a, dtype=getattr(torch, dtype), device=dev)  # noqa: E731
+    reads = linalg.host_reads
+    blob = export.export_solver(B, n, m, **kw)
+    assert linalg.host_reads == reads
+    out = export.load_solver(blob)(*map(T, args))
+    live = osqp_tpu_torch.solve_batch(*map(T, args), segmented=False, **kw)
+    assert not [f for f in export._FIELDS if not _same_bits(out[f], getattr(live, f))]
+    assert (live.status_val == 1).all()
+
+
+@pytest.mark.parametrize("backend", ["kkt_lu", "dense_chol", "cg"])
+def test_exported_dense_backend_program_gives_the_live_bits(dev, backend):
+    """A batch of the benchmark's QPs through a format-2 blob of each other
+    dense backend (cg with a CG cap that is no multiple of 8), loaded in
+    this process: the live solve_batch's bits in every field."""
+    from osqp_tpu_torch import export
+
+    B, n, m = 256, 30, 50
+    kw = dict(dtype="float64", verbose=False, linsys_solver=backend, polish=backend == "kkt_lu",
+              **({"cg_max_iter": 13} if backend == "cg" else {}))
+    args = _op_problem(dev, torch.float64, B, n, m, seed=5)
+    out = export.load_solver(export.export_solver(B, n, m, **kw))(*args)
+    live = osqp_tpu_torch.solve_batch(*args, segmented=False, **kw)
+    assert not [f for f in export._FIELDS if not _same_bits(out[f], getattr(live, f))]

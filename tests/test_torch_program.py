@@ -13,9 +13,6 @@ loaded and run by a process in which neither package can be imported.
 """
 
 import io
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -27,21 +24,12 @@ from osqp_tpu_torch import export, flow, linalg, program
 from osqp_tpu_torch.linsys import dense_inv
 from osqp_tpu_torch.solver import Settings, make_config
 from test_batch import random_qps
+from torch_program_helpers import differ, run_torch_alone
 
 torch.set_num_threads(2)
 
 FIELDS = program.FIELDS
 CHECK = 25
-
-
-def _bits(t: torch.Tensor) -> torch.Tensor:
-    return t.reshape(-1).view(torch.uint8) if t.dtype.is_floating_point else t
-
-
-def _differ(out, live) -> list:
-    """Fields of ``out`` (the program's tuple) not bit for bit ``live``'s."""
-    return [f for f, a in zip(FIELDS, out)
-            if not (a.dtype == getattr(live, f).dtype and torch.equal(_bits(a), _bits(getattr(live, f))))]
 
 
 def _run_both(args, **kw):
@@ -83,7 +71,7 @@ def _ill_conditioned(scale, seed=2):
 @pytest.mark.parametrize("dtype,polish", [("float64", False), ("float64", True), ("float32", False)])
 def test_program_gives_the_live_bits(dtype, polish):
     out, live = _run_both(random_qps(4, 6, 9, seed=2), dtype=dtype, polish=polish)
-    assert not _differ(out, live)
+    assert not differ(out, live)
     assert (live.status_val == 1).all()
     if polish:
         assert (live.status_polish == 1).all()
@@ -94,7 +82,7 @@ def test_program_gives_the_live_bits_where_rho_adapts():
     refactor give the live loop's rho, its counts and its iterates."""
     out, live = _run_both(random_qps(4, 6, 9, seed=5), check_termination=5, adaptive_rho_interval=5,
                           eps_abs=1e-7, eps_rel=1e-7)
-    assert not _differ(out, live)
+    assert not differ(out, live)
     assert (live.rho_updates > 0).any()
 
 
@@ -103,14 +91,14 @@ def test_program_gives_the_live_bits_with_a_rho_interval_off_the_checks():
     update falls at several places of a turn."""
     out, live = _run_both(random_qps(3, 5, 7, seed=6), check_termination=10, adaptive_rho_interval=4,
                           eps_abs=1e-7, eps_rel=1e-7, max_iter=57)
-    assert not _differ(out, live)
+    assert not differ(out, live)
     assert (live.rho_updates > 0).any()
 
 
 def test_program_gives_the_live_bits_on_infeasible_instances():
     """Statuses 1, -3 and -4 in one batch, with their certificates."""
     out, live = _run_both(_infeasible_batch(), polish=True)
-    assert not _differ(out, live)
+    assert not differ(out, live)
     assert live.status_val.tolist() == [1, -3, -4]
 
 
@@ -118,7 +106,7 @@ def test_program_gives_the_live_bits_in_float32_with_the_carry():
     """float32 on the refined body, which carries the TwoSum low part of y."""
     args = _ill_conditioned(0.1)
     out, live = _run_both(args, dtype="float32")
-    assert not _differ(out, live)
+    assert not differ(out, live)
     assert _refine_signal(*(torch.as_tensor(v, dtype=torch.float32) for v in args))
 
 
@@ -140,7 +128,7 @@ def test_program_gives_the_live_bits_on_the_refined_body():
     rescued = dense_inv.guard_rescued
     out, live = _run_both(args)
     assert dense_inv.guard_rescued == rescued
-    assert not _differ(out, live)
+    assert not differ(out, live)
 
 
 def test_program_where_the_guard_fires(monkeypatch):
@@ -219,22 +207,6 @@ def test_flow_reads_the_host_only_when_not_tracing():
         assert flow.in_program()
 
 
-# A process with torch alone: the two packages cannot be imported.
-_CHILD = """
-import io, sys
-sys.modules["osqp_tpu_torch"] = None
-sys.modules["osqp_tpu"] = None
-import torch
-blob, inputs, outputs = sys.argv[1:]
-spec = torch.load(blob, weights_only=True)
-solve = torch.export.load(io.BytesIO(spec["programs"]["cpu"])).module()
-with torch.no_grad():
-    out = solve(*torch.load(inputs))
-torch.save(dict(zip(spec["fields"], out)), outputs)
-print(sorted(k for k, v in sys.modules.items() if k.startswith("osqp") and v is not None))
-"""
-
-
 def test_format_2_blob_runs_with_torch_alone(tmp_path):
     """A CPU blob, loaded by a process in which neither package can be
     imported, gives the live solve's bits; load_solver gives them too."""
@@ -245,21 +217,27 @@ def test_format_2_blob_runs_with_torch_alone(tmp_path):
     spec = torch.load(io.BytesIO(blob), weights_only=True)
     assert spec["format_version"] == 2 and list(spec["programs"]) == ["cpu"] and "ops_library" not in spec
     live = osqp_tpu_torch.solve_batch(*ts, device="cpu", **kw)
-    (tmp_path / "blob").write_bytes(blob)
-    torch.save(ts, tmp_path / "inputs")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path / "blob"), str(tmp_path / "inputs"),
-                           str(tmp_path / "outputs")], capture_output=True, text=True, cwd=tmp_path, env=env,
-                          timeout=600)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.strip() == "[]"
-    got = torch.load(tmp_path / "outputs")
-    assert not _differ([got[f] for f in FIELDS], live)
+    (got,) = run_torch_alone([(blob, ts)], tmp_path)
+    assert not differ(got, live)
     here = export.load_solver(blob, device="cpu")(*ts)
-    assert not _differ([here[f] for f in FIELDS], live)
+    assert not differ(here, live)
 
 
 def test_program_refuses_other_backends():
-    with pytest.raises(ValueError, match="dense_inv"):
-        program.SolveProgram(3, 4, linsys_solver="kkt_lu", dtype="float64")(*(torch.zeros(s, dtype=torch.float64) for s in (
-            (1, 3, 3), (1, 3), (1, 4, 3), (1, 4), (1, 4))))
+    """Every backend runs on dense operands; on ELL operands only cg: a
+    dense backend there is refused, by solve_batch_program and by
+    SparseSolveProgram."""
+    import scipy.sparse as sp
+
+    from osqp_tpu_torch.sparse_ops import ell_from_scipy
+
+    P = ell_from_scipy(sp.eye(3, format="csr"), torch.float64, sym_from_triu=True)
+    A = ell_from_scipy(sp.random(4, 3, density=0.5, random_state=0, format="csr"), torch.float64)
+    s = Settings(linsys_solver="kkt_lu", dtype="float64", verbose=False)
+    cfg = make_config(3, 4, s, torch.float64)
+    with pytest.raises(ValueError, match="cg backend on ELL operands, not 'kkt_lu'"):
+        program.solve_batch_program(cfg, 0, False, 0, P, torch.zeros(1, 3, dtype=torch.float64), A,
+                                    -torch.ones(1, 4, dtype=torch.float64), torch.ones(1, 4, dtype=torch.float64),
+                                    torch.ones(1, dtype=torch.float64), program.make_dyn(s, torch.float64))
+    with pytest.raises(ValueError, match="cg"):
+        program.SparseSolveProgram(program.sparse_operands(sp.eye(3), sp.eye(3)), 1, linsys_solver="dense_chol")

@@ -18,9 +18,6 @@ equal, iterations within one check interval).
 
 import dataclasses
 import io
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -34,6 +31,7 @@ from osqp_tpu_torch import constants as con
 from osqp_tpu_torch.batch import _postprocess, _prepare
 from osqp_tpu_torch.solver import Settings, make_config
 from osqp_tpu_torch.sparse_ops import ell_with_values
+from torch_program_helpers import differ, graph_targets, run_torch_alone
 
 torch.set_num_threads(2)
 
@@ -97,16 +95,6 @@ def _live(P, A, B, values, **kw):
     return _postprocess(cfg, bool(s.polish), int(s.polish_refine_iter), scaled, scl, dyn, fin)
 
 
-def _bits(t: torch.Tensor) -> torch.Tensor:
-    return t.reshape(-1).view(torch.uint8) if t.dtype.is_floating_point else t
-
-
-def _differ(got: dict, want) -> list:
-    """Fields of ``got`` not bit for bit ``want``'s (a results tuple or dict)."""
-    w = want if isinstance(want, dict) else want._asdict()
-    return [f for f in FIELDS if not (got[f].dtype == w[f].dtype and torch.equal(_bits(got[f]), _bits(w[f])))]
-
-
 def _eager(P, A, B, values, **kw):
     out = program.SparseSolveProgram(program.sparse_operands(P, A), B, **kw)(*_tensors(values, kw["dtype"]))
     return dict(zip(FIELDS, out))
@@ -127,7 +115,7 @@ def test_eager_program_gives_the_live_bits(case):
     kw = dict(kw, verbose=False)
     P, A, values = _batch(B)
     live = _live(P, A, B, values, **kw)
-    assert not _differ(_eager(P, A, B, values, **kw), live)
+    assert not differ(_eager(P, A, B, values, **kw), live)
     assert (live.status_val == 1).all()
     if kw.get("polish"):
         assert (live.status_polish == 1).all()
@@ -141,7 +129,7 @@ def test_eager_program_gives_the_live_bits_where_rho_adapts():
               eps_rel=1e-7)
     P, A, values = _batch(3, scale=40.0)
     live = _live(P, A, 3, values, **kw)
-    assert not _differ(_eager(P, A, 3, values, **kw), live)
+    assert not differ(_eager(P, A, 3, values, **kw), live)
     assert (live.rho_updates > 0).all() and (live.status_val == 1).all()
 
 
@@ -150,7 +138,7 @@ def test_eager_program_gives_the_live_bits_on_a_primal_infeasible_instance():
     kw = dict(dtype="float64", verbose=False, polish=True)
     P, A, values = _infeasible_batch()
     live = _live(P, A, 3, values, **kw)
-    assert not _differ(_eager(P, A, 3, values, **kw), live)
+    assert not differ(_eager(P, A, 3, values, **kw), live)
     assert live.status_val.tolist() == [1, -3, 1]
 
 
@@ -162,7 +150,7 @@ def test_solve_sparse_gives_the_program_bits():
     P, A, values = _batch(3)
     _, q, _, l, u = values
     live = osqp_tpu_torch.solve_sparse(P, q, A, l, u, device="cpu", **kw)
-    assert not _differ(_eager(P, A, 3, values, **kw), live)
+    assert not differ(_eager(P, A, 3, values, **kw), live)
 
 
 # One traced blob a dtype, made once: float64 with polish, float32 without.
@@ -183,11 +171,6 @@ def blobs():
     return out
 
 
-def _graph_targets(module) -> set:
-    return {n.target for _, g in module.named_modules() if hasattr(g, "graph")
-            for n in g.graph.nodes if n.op == "call_function"}
-
-
 @pytest.mark.parametrize("dtype", list(BLOB_CASES))
 def test_traced_program_reads_nothing_and_gives_the_eager_bits(blobs, dtype):
     """The trace read the host 0 times; the saved program holds its loops
@@ -199,31 +182,15 @@ def test_traced_program_reads_nothing_and_gives_the_eager_bits(blobs, dtype):
     spec = torch.load(io.BytesIO(blob), weights_only=True)
     assert spec["format_version"] == 2 and spec["kind"] == "sparse" and list(spec["programs"]) == ["cpu"]
     loaded = torch.export.load(io.BytesIO(spec["programs"]["cpu"])).module()
-    targets = _graph_targets(loaded)
+    targets = graph_targets(loaded)
     assert torch.ops.higher_order.while_loop in targets and torch.ops.higher_order.cond in targets
     kw = dict(BLOB_CASES[dtype], verbose=False, check_termination=CHECK)
     P, A, values = _batch(B_TRACED)
     eager = _eager(P, A, B_TRACED, values, **kw)
     with torch.no_grad():
-        assert not _differ(dict(zip(FIELDS, loaded(*_tensors(values, dtype)))), eager)
-    assert not _differ(export.load_sparse_solver(blob, device="cpu")(*_tensors(values, dtype)), eager)
-    assert not _differ(eager, _live(P, A, B_TRACED, values, **kw))
-
-
-# A process with torch alone: the two packages cannot be imported.
-_CHILD = """
-import io, sys
-sys.modules["osqp_tpu_torch"] = None
-sys.modules["osqp_tpu"] = None
-import torch
-blob, inputs, outputs = sys.argv[1:]
-spec = torch.load(blob, weights_only=True)
-solve = torch.export.load(io.BytesIO(spec["programs"]["cpu"])).module()
-with torch.no_grad():
-    out = solve(*torch.load(inputs))
-torch.save(dict(zip(spec["fields"], out)), outputs)
-print(sorted(k for k, v in sys.modules.items() if k.startswith("osqp") and v is not None))
-"""
+        assert not differ(loaded(*_tensors(values, dtype)), eager)
+    assert not differ(export.load_sparse_solver(blob, device="cpu")(*_tensors(values, dtype)), eager)
+    assert not differ(eager, _live(P, A, B_TRACED, values, **kw))
 
 
 def test_sparse_blob_runs_with_torch_alone(blobs, tmp_path):
@@ -232,15 +199,8 @@ def test_sparse_blob_runs_with_torch_alone(blobs, tmp_path):
     blob, _ = blobs["float64"]
     kw = dict(BLOB_CASES["float64"], verbose=False, check_termination=CHECK)
     P, A, values = _batch(B_TRACED)
-    (tmp_path / "blob").write_bytes(blob)
-    torch.save(_tensors(values, "float64"), tmp_path / "inputs")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path / "blob"), str(tmp_path / "inputs"),
-                           str(tmp_path / "outputs")], capture_output=True, text=True, cwd=tmp_path, env=env,
-                          timeout=600)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert proc.stdout.strip() == "[]"
-    assert not _differ(torch.load(tmp_path / "outputs"), _live(P, A, B_TRACED, values, **kw))
+    (got,) = run_torch_alone([(blob, _tensors(values, "float64"))], tmp_path)
+    assert not differ(got, _live(P, A, B_TRACED, values, **kw))
 
 
 @pytest.mark.parametrize("dtype", list(BLOB_CASES))
@@ -273,7 +233,7 @@ def test_format_1_sparse_blob_still_loads():
     blob = export._dump(dict(kind="sparse", B=2, n=ops["P"]["shape"][0], m=ops["A"]["shape"][0], dtype="float64",
                              platforms=["cpu"], settings=dataclasses.asdict(s), operands=ops), 1)
     got = export.load_sparse_solver(blob, device="cpu")(*values)
-    assert not _differ(got, _live(P, A, 2, values, **kw))
+    assert not differ(got, _live(P, A, 2, values, **kw))
 
 
 def test_program_refuses_other_inputs():
