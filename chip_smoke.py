@@ -292,12 +292,21 @@ failure ends the run with a non-zero exit and no result line:
     ms, host reads;
 27. several devices (phase parallel), under a one-rank NCCL group that
     ``parallel.make_mesh`` starts: ``solve_batch_sharded`` at the
-    headline, ``solve_single_sharded`` at a dense QP of n=1000, m=8000
-    (float64, polish on), ``solve_single_sharded_sparse`` at CVXQP2_L
-    (float64) and AUG3D (float64, polish on), each against its unsharded
-    solve, every field bit for bit, with its launch counts (the dense one
-    must launch K3, K4's step entries, K6's cg_step and K8), its
-    collectives by kind and the wall ms of both; K4's step entries on 4
+    headline, ``solve_single_sharded`` at dense QPs of n=1000, m=8000
+    and m=2000 (float64, polish on), ``solve_single_sharded_sparse`` at
+    CVXQP2_L (float64) and AUG3D (float64, polish on), each against its
+    unsharded solve, every field bit for bit but the dense polished ones
+    (the sharded polish solves the Schur complement, K8 the unsharded
+    one: x, y and the residuals within 1e-6, the objective within 1e-9
+    relative, and every bit of the unsharded solve whose polish takes the
+    Schur branch), with its launch counts (the dense one must launch K3,
+    K4's step entries, K6's cg_step and K2's leaf, no K8), its
+    collectives by kind, its largest all-gather (at most B m), the wall
+    ms of both, the dense polish's ms and peak memory beside K8's, K2's
+    route on the polish's S beside its plain route, ``torch.linalg.inv``
+    and the bound, AUG3D's PCG steps on K6's step kernels; both entries
+    at a time limit of 1e-9 s, every field bit for bit with the unsharded
+    solve at the same limit (status -6 at 200); K4's step entries on 4
     row blocks of the headline A and of CVXQP2_M's, the maxima merged as
     the collectives merge them, against ruiz bit for bit and timed; K3 on
     the same blocks with A'y's partials summed against K3 whole;
@@ -330,6 +339,7 @@ with code 2, since a partial run proves nothing of the whole.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -4740,11 +4750,78 @@ def phase_export(dev):
 
 # The parallel phase (osqp_tpu_torch.parallel) on a one-rank NCCL group.
 PARALLEL_DENSE = dict(n=1000, m=8000, seed=21)
+PARALLEL_DENSE_POLISHED = dict(n=1000, m=2000, seed=21)  # its polish succeeds at eps 1e-3
 PARALLEL_SPARSE_POLISH = "AUG3D"  # a sparse row whose polish succeeds (0.07 s in the maros phase)
 K4_BLOCKS = 4
 # K3 on K4_BLOCKS row blocks, the partial A'y summed, against K3 whole:
 # relative to the largest entry of each product
 K3_BLOCKS_RTOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+# The dense sharded polish (the Schur branch) against the unsharded one
+# (K8's LU of K_delta): the ROADMAP's parity bounds, absolute on x, y and
+# the residuals, relative on the objective.
+PARALLEL_POLISH_ATOL = 1e-6
+PARALLEL_POLISH_OBJ_RTOL = 1e-9
+# The fields of the dense sharded polish-on solve that stay bit for bit
+# with the unsharded one: everything the ADMM loop decides.
+PARALLEL_ADMM_FIELDS = ("status_val", "iter", "rho_updates", "rho_estimate", "prim_inf_cert", "dual_inf_cert")
+# A time limit that every solve reaches at its first poll, after two
+# segments (iteration 200), at tolerances that nothing meets before.
+PARALLEL_TIME_LIMIT = dict(time_limit=1e-9, eps_abs=1e-9, eps_rel=1e-9)
+
+
+class PolishProbe:
+    """batch's polish timed (synchronized, host clock) with the launches
+    made inside it (``read_counts``' keys, summed over the calls), and the
+    first S that polish hands K2's route (``polish.spd_inverse``)."""
+
+    def __init__(self):
+        self.ms, self.launches, self.S = 0.0, {}, None
+
+    def __enter__(self):
+        import torch
+
+        from osqp_tpu_torch import batch, polish
+
+        self._real = batch.polish_fn, polish.spd_inverse
+
+        def timed_polish(*args, **kw):
+            torch.cuda.synchronize()
+            before, t0 = read_counts(), time.perf_counter()
+            out = self._real[0](*args, **kw)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            for k, v in read_counts().items():
+                self.launches[k] = self.launches.get(k, 0) + v - before[k]
+            return out
+
+        def captured(M, *args, **kw):
+            if self.S is None:
+                self.S = M.clone()
+            return self._real[1](M, *args, **kw)
+
+        batch.polish_fn, polish.spd_inverse = timed_polish, captured
+        return self
+
+    def __exit__(self, *exc):
+        from osqp_tpu_torch import batch, polish
+
+        batch.polish_fn, polish.spd_inverse = self._real
+
+
+@contextlib.contextmanager
+def schur_polish():
+    """solve_batch's polish on the Schur branch (``polish(schur=True)``),
+    the branch the row-sharded dense entry takes."""
+    from osqp_tpu_torch import batch, polish
+
+    real = batch.polish_fn
+    batch.polish_fn = functools.partial(polish.polish, schur=True)
+    try:
+        yield
+    finally:
+        batch.polish_fn = real
 
 
 def dense_qp(n, m, seed):
@@ -4768,11 +4845,22 @@ def phase_parallel(dev):
     solve_batch_sharded at the headline (B=8192, n=100, m=200, float32,
     eps 1e-3, polish off) against solve_batch; solve_single_sharded at a
     dense QP of n=1000, m=8000 (dense_qp, float64, polish on) against
-    solve_batch with the cg backend, which must launch K3, K4's step
-    entries, K6's cg_step and K8; solve_single_sharded_sparse at CVXQP2_L
-    (float64, polish off) against solve_sparse, and at AUG3D (float64,
-    polish on), which runs K5, cg_step and, in the polish, K6's loop.
-    In one process, K4's step entries on 4 row blocks of the headline A
+    solve_batch with the cg backend, and at n=1000, m=2000, whose polish
+    succeeds (PARALLEL_DENSE_POLISHED), each of which must launch K3, K4's
+    step entries, K6's cg_step and, in polish, K2's leaf and no K8: the
+    ADMM fields bit for bit, status_polish equal (1 at the second), the polished x, y and
+    residuals within PARALLEL_POLISH_ATOL and the objective within
+    PARALLEL_POLISH_OBJ_RTOL (the sharded polish solves the Schur
+    complement, the unsharded one K8's LU), every field bit for bit with
+    the unsharded solve whose polish takes the Schur branch, no all-gather
+    above B m, peak memory and polish ms of both, and K2's route on the
+    polish's S against the plain route, torch.linalg.inv and the bound;
+    solve_single_sharded_sparse at CVXQP2_L (float64, polish off) against
+    solve_sparse, and at AUG3D (float64, polish on), which runs K5 and
+    cg_step, in the polish too (no K6 loop), with its PCG steps; both
+    entries at PARALLEL_TIME_LIMIT (the dense QP and CVXQP2_L), every
+    field bit for bit with the unsharded solve at the same limit.  In one
+    process, K4's step entries on 4 row blocks of the headline A
     with their maxima merged as the collectives merge them
     (ops.ruiz.ruiz_blocks) against ruiz, all eight outputs bit for bit,
     in float32 and at CVXQP2_M's shape in float64, timed beside ruiz,
@@ -4787,7 +4875,7 @@ def phase_parallel(dev):
     import osqp_tpu_torch as ot
     from osqp_tpu_torch import parallel
     from osqp_tpu_torch.maros import run_maros
-    from osqp_tpu_torch.ops import ruiz as k4, term_products as k3
+    from osqp_tpu_torch.ops import ruiz as k4, spd_inverse as k2, term_products as k3
     from osqp_tpu_torch.parallel import rows
 
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
@@ -4834,20 +4922,95 @@ def phase_parallel(dev):
             f"solve_batch_sharded headline B={B} n={n} m={m} float32, data on the card",
             lambda: parallel.solve_batch_sharded(*data, mesh=mesh, **SOLVE_KW),
             lambda: ot.solve_batch(*data, **SOLVE_KW), reps=4)
+        del data
 
-        # one dense QP, rows sharded
+        # one dense QP, rows sharded, polished on the shards: the QP too
+        # large for a card (its polish fails in both branches at eps 1e-3),
+        # then one whose polish succeeds
+        def dense_leg(d, polished):
+            P, q, A, l, u = dense_qp(d["n"], d["m"], d["seed"])
+            kw = dict(dtype="float64", polish=True, verbose=False)
+            sharded = lambda: parallel.solve_single_sharded(P, q, A, l, u, mesh=mesh, **kw)
+            unsharded = lambda: ot.solve_batch(P[None], q[None], A[None], l[None], u[None], device=dev,
+                                               linsys_solver="cg", **kw)
+            reset_counts()
+            rows.reset_collectives()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)  # what the phase holds already
+            with PolishProbe() as pol_s:
+                got, ms_s = timed(sharded)
+            peak_s = torch.cuda.max_memory_allocated(dev) - base
+            counts, coll, largest = read_counts(), dict(rows.collectives), rows.largest_gather
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            with PolishProbe() as pol_u:
+                want, ms_u = timed(unsharded)
+            peak_u = torch.cuda.max_memory_allocated(dev) - base
+            with schur_polish():
+                route = unsharded()
+            exact = [f for f in PARALLEL_ADMM_FIELDS if not same_bits(getattr(got, f), getattr(want, f))]
+            err = {f: float((getattr(got, f) - getattr(want, f)).abs().max())
+                   for f in ("x", "y", "pri_res", "dua_res")}
+            obj_rel = float(((got.obj_val - want.obj_val).abs() / want.obj_val.abs()).max())
+            differ_route = [f for f, a, b in zip(ot.BatchSolveResults._fields, got, route) if not same_bits(a, b)]
+            B_m = got.y.shape[0] * (d["m"] + (-d["m"]) % dist.get_world_size())
+            label = f"solve_single_sharded n={d['n']} m={d['m']} float64 polish on"
+            print(f"parallel {label} [{CARD}]: ADMM fields differing from the unsharded solve in some bit {exact}; "
+                  f"status {got.status_val.tolist()}, iterations {got.iter.tolist()}, status_polish "
+                  f"{got.status_polish.tolist()} (unsharded {want.status_polish.tolist()}); polished fields against "
+                  f"the unsharded polish (K8's LU): max |diff| {', '.join(f'{k} {v:.3e}' for k, v in err.items())} "
+                  f"(tolerance {PARALLEL_POLISH_ATOL:g}), obj_val relative {obj_rel:.3e} (tolerance "
+                  f"{PARALLEL_POLISH_OBJ_RTOL:g}); fields differing in some bit from the unsharded solve with its "
+                  f"polish on the Schur branch {differ_route}; wall ms sharded {ms_s:.3f}, unsharded {ms_u:.3f}; "
+                  f"polish ms sharded {pol_s.ms:.3f}, unsharded {pol_u.ms:.3f}; peak memory above what the phase held "
+                  f"sharded {peak_s} B, unsharded {peak_u} B (torch.cuda.max_memory_allocated); largest all-gather {largest} elements "
+                  f"(B m = {B_m}); collectives {coll}; launches {nonzero(counts)}; in the sharded polish "
+                  f"{nonzero(pol_s.launches)}, in the unsharded {nonzero(pol_u.launches)}")
+            require(not exact, f"parallel {label}: ADMM fields {exact} differ from the unsharded solve")
+            require(same_bits(got.status_polish, want.status_polish), f"parallel {label}: status_polish differs")
+            require(not polished or int(got.status_polish[0]) == 1, f"parallel {label}: the sharded polish failed")
+            require(max(err.values()) <= PARALLEL_POLISH_ATOL and obj_rel <= PARALLEL_POLISH_OBJ_RTOL,
+                    f"parallel {label}: polished fields off the unsharded polish: {err}, obj {obj_rel:.3e}")
+            require(not differ_route, f"parallel {label}: off the Schur-route unsharded solve in {differ_route}")
+            for k in ("term_products", "ruiz_sweep", "cg_step", "chol_inverse_leaf"):
+                require(counts[k] > 0, f"parallel {label}: {k} was launched no time")
+            require(counts["ruiz"] == 0, f"parallel {label}: the sharded dense solve ran K4 whole")
+            require(counts["kkt_lu_factor"] == 0, f"parallel {label}: the sharded dense polish ran K8")
+            require(0 < largest <= B_m, f"parallel {label}: an all-gather of {largest} elements, above B m = {B_m}")
+            return counts, pol_s, pol_u, peak_s, peak_u, dict(sharded_ms=ms_s, unsharded_ms=ms_u), (P, q, A, l, u)
+
         d = PARALLEL_DENSE
-        P, q, A, l, u = dense_qp(d["n"], d["m"], d["seed"])
-        kw = dict(dtype="float64", polish=True, verbose=False)
-        dense_counts, times["dense"] = compare(
-            f"solve_single_sharded n={d['n']} m={d['m']} float64 polish on",
-            lambda: parallel.solve_single_sharded(P, q, A, l, u, mesh=mesh, **kw),
-            lambda: ot.solve_batch(P[None], q[None], A[None], l[None], u[None], device=dev, linsys_solver="cg", **kw),
-            ("term_products", "ruiz_sweep", "cg_step", "kkt_lu_factor"), reps=0)
-        require(dense_counts["ruiz"] == 0, "parallel: the sharded dense solve ran K4 whole")
+        dense_counts, pol_s, pol_u, peak_s, peak_u, times["dense"], (P, q, A, l, u) = dense_leg(d, False)
+        _, pol_ok, pol_ok_u, *_ = dense_leg(PARALLEL_DENSE_POLISHED, True)
+
+        # K2's route on the sharded polish's first S (B=1, n=1000, float64)
+        S = pol_s.S
+        n_s = S.shape[-1]
+        eye = torch.eye(n_s, dtype=S.dtype, device=dev)
+        X, Xp = k2.spd_inverse(S), plain_leaves(lambda: k2.spd_inverse(S))
+        s_err = float((X - Xp).abs().max() / Xp.abs().max())
+        resid = [float((eye - torch.bmm(S, Y)).abs().max()) for Y in (X, Xp)]
+        s_ms = cuda_ms(lambda: k2.spd_inverse(S), reps=5)
+        s_plain_ms = cuda_ms(lambda: plain_leaves(lambda: k2.spd_inverse(S)), reps=5)
+        s_inv_ms = cuda_ms(lambda: torch.linalg.inv(S), reps=5)  # library_ms only
+        s_bound, s_by = bound(2 * S.element_size() * S.shape[0] * n_s * n_s, {dtype_name(S.dtype): S.shape[0] * n_s ** 3})
+        print(f"K2 route on the sharded polish's S B={S.shape[0]} n={n_s} float64 [{CARD}]: kernel route {s_ms:.4f} ms, "
+              f"plain route {s_plain_ms:.4f}, torch.linalg.inv {s_inv_ms:.4f}; bound {s_bound:.4f} ms ({s_by}), share "
+              f"{s_bound / s_ms:.4f}; kernel against plain route max relative {s_err:.3e}, |I-SX|max kernel "
+              f"{resid[0]:.3e}, plain {resid[1]:.3e}; per sharded polish {pol_s.launches['chol_inverse_leaf']} leaf "
+              f"launches ({pol_s.launches['chol_inverse_leaf_cluster']} in the cluster form), "
+              f"{pol_s.launches['term_products']} K3, {pol_s.launches['cg_step']} cg_step")
+        require(resid[0] <= 10 * max(resid[1], 1e-12), f"K2 route on S: |I-SX| {resid[0]:.3e} against the plain "
+                f"route's {resid[1]:.3e}")
+        polish_stats = dict(s_inverse=dict(ms=s_ms, plain_ms=s_plain_ms, library_ms=s_inv_ms, bound_ms=s_bound,
+                                           bound_by=s_by, max_abs_err=s_err),
+                            launches=dict(pol_s.launches), polish_ms=pol_s.ms, unsharded_polish_ms=pol_u.ms,
+                            peak_bytes=peak_s, unsharded_peak_bytes=peak_u, polished_ms=pol_ok.ms,
+                            polished_unsharded_ms=pol_ok_u.ms)
 
         # one sparse QP, rows sharded, without and with polish
         Ps, qs, As, ls, us = scenario("CVXQP2_L")
+        cvxqp2_l = (Ps, qs[0], As, ls[0], us[0])
         kw = dict(dtype="float64", verbose=False)
         sparse_counts, times["sparse"] = compare(
             "solve_single_sharded_sparse CVXQP2_L float64",
@@ -4857,11 +5020,52 @@ def phase_parallel(dev):
         require(sparse_counts["cg_loop"] == 0, "parallel: the sharded sparse solve ran K6's loop")
         Ps, qs, As, ls, us = scenario(PARALLEL_SPARSE_POLISH)
         kw = dict(dtype="float64", polish=True, verbose=False)
+        probes = []
+
+        def probed(fn):
+            with PolishProbe() as probe:
+                out = fn()
+            probes.append(probe)
+            return out
+
+        rows.reset_collectives()
         polish_counts, times["sparse_polish"] = compare(
             f"solve_single_sharded_sparse {PARALLEL_SPARSE_POLISH} float64 polish on",
-            lambda: parallel.solve_single_sharded_sparse(Ps, qs[0], As, ls[0], us[0], mesh=mesh, **kw),
-            lambda: ot.solve_sparse(Ps, qs[0], As, ls[0], us[0], device=dev, **kw),
-            ("ell_group", "cg_step", "cg_loop"))
+            lambda: probed(lambda: parallel.solve_single_sharded_sparse(Ps, qs[0], As, ls[0], us[0], mesh=mesh,
+                                                                          **kw)),
+            lambda: probed(lambda: ot.solve_sparse(Ps, qs[0], As, ls[0], us[0], device=dev, **kw)),
+            ("ell_group", "cg_step"), reps=0)
+        pol_sh, pol_un = probes[0], probes[1]
+        pol_steps = pol_sh.launches["cg_step"]
+        print(f"parallel {PARALLEL_SPARSE_POLISH} sharded polish [{CARD}]: {pol_steps} PCG steps on K6's step "
+              f"kernels, {pol_sh.launches['cg_loop']} loop launches, {pol_sh.ms:.3f} ms; the unsharded polish "
+              f"{pol_un.launches['cg_loop']} loop launches, {pol_un.ms:.3f} ms; largest all-gather "
+              f"{rows.largest_gather} elements")
+        require(polish_counts["cg_loop"] == 0, "parallel: the sharded sparse polish ran K6's loop")
+        require(0 < rows.largest_gather <= As.shape[0], f"parallel {PARALLEL_SPARSE_POLISH}: an all-gather of "
+                f"{rows.largest_gather} elements, above B m = {As.shape[0]}")
+        polish_stats.update(sparse_pcg_steps=pol_steps, sparse_polish_ms=pol_sh.ms,
+                            sparse_unsharded_polish_ms=pol_un.ms)
+
+        # a time limit that stops both entries at their first poll
+        for label, sharded, unsharded in (
+                (f"dense n={d['n']} m={d['m']}", lambda: parallel.solve_single_sharded(
+                    P, q, A, l, u, mesh=mesh, dtype="float64", verbose=False, **PARALLEL_TIME_LIMIT),
+                 lambda: ot.solve_batch(P[None], q[None], A[None], l[None], u[None], device=dev, linsys_solver="cg",
+                                        dtype="float64", verbose=False, **PARALLEL_TIME_LIMIT)),
+                ("sparse CVXQP2_L", lambda: parallel.solve_single_sharded_sparse(
+                    *cvxqp2_l, mesh=mesh, dtype="float64", verbose=False, **PARALLEL_TIME_LIMIT),
+                 lambda: ot.solve_sparse(*cvxqp2_l, device=dev, dtype="float64", verbose=False,
+                                         **PARALLEL_TIME_LIMIT))):
+            reset_counts()
+            got = sharded()
+            want = unsharded()
+            differ = [f for f, a, b in zip(ot.BatchSolveResults._fields, got, want) if not same_bits(a, b)]
+            print(f"parallel time limit {label} float64 {PARALLEL_TIME_LIMIT} [{CARD}]: status "
+                  f"{got.status_val.tolist()}, iterations {got.iter.tolist()}; fields differing from the unsharded "
+                  f"solve at the same limit in some bit {differ}")
+            require(not differ and int(got.status_val[0]) == ot.OSQP_TIME_LIMIT_REACHED and int(got.iter[0]) == 200,
+                    f"parallel time limit {label}: {differ}, status {got.status_val.tolist()}, iter {got.iter.tolist()}")
 
         # K4's step entries on row blocks, in one process
         sweep_stats = None
@@ -4929,7 +5133,7 @@ def phase_parallel(dev):
                 and total["pass_rate"] == 1.0, "parallel: allreduce_summary off the run's own summary")
     finally:
         dist.destroy_process_group()
-    return dense_counts, sweep_stats, times
+    return dense_counts, sweep_stats, times, polish_stats
 
 
 # The torch.library operator of each row of the kernels line.
@@ -5016,7 +5220,7 @@ def main() -> int:
     layer_launches = run_phase(phase_qp_layer, dev)["float64"]
     run_phase(phase_compact, dev)
     run_phase(phase_export, dev)
-    parallel_launches, sweep_stats, _ = run_phase(phase_parallel, dev)
+    parallel_launches, sweep_stats, _, sharded_polish = run_phase(phase_parallel, dev)
 
     # launches: the batched headline solve's, and for K1r, which that
     # well-conditioned batch does not run, the Solver path's (its times:
@@ -5119,6 +5323,12 @@ def main() -> int:
         by_name[row]["operator_ms"] = op_stats[key]["factor_op_ms"]
     by_name["k7_solve"]["operator_ms"] = op_stats["k7 warp"]["solve_op_ms"]
     by_name["block_tridiag_solve_wide"]["operator_ms"] = op_stats["k7 device"]["solve_op_ms"]
+    # the row-sharded dense polish (the parallel phase): launches of K2's
+    # leaf, K3 and K6's step per polish, and K2's route on its S
+    for row, key in (("chol_inverse_leaf", "chol_inverse_leaf"), ("chol_inverse_leaf_cluster",
+                     "chol_inverse_leaf_cluster"), ("term_products", "term_products"), ("cg_step", "cg_step")):
+        by_name[row]["launches_sharded_polish"] = sharded_polish["launches"][key]
+    by_name["chol_inverse_leaf"]["sharded_polish_S"] = sharded_polish["s_inverse"]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} was launched no time on its main path")
     print(json.dumps({"kernels": kernels}))

@@ -135,17 +135,22 @@ def _postprocess(cfg, do_polish, refine_iter, scaled, scl, dyn, result):
 
 
 def _solve_segmented(cfg, scaling_iters, do_polish, refine_iter, P, q, A, l, u, rho0, dyn, x0, y0,
-                     time_limit=0.0, verbose=False):
+                     time_limit=0.0, verbose=False, stop=None):
     """The non-compact segmented driver (osqp_tpu/batch.py:304-502).
 
-    Without verbose output and time limit the first segment spans the
-    whole iteration range; otherwise segments are ``check`` iterations
-    long with verbose output and ``max(4 check, 100)`` without.
+    Without verbose output, time limit and ``stop`` the first segment
+    spans the whole iteration range; otherwise segments are ``check``
+    iterations long with verbose output and ``max(4 check, 100)``
+    without.  ``stop()``, where given, is polled where the clock is, from
+    the second segment's end on, and returns None or the status to stop
+    with (``OSQP_TIME_LIMIT_REACHED``, or ``OSQP_SIGINT``, which
+    finalizes as Ctrl-C does): the row-sharded entries' agreed stop.
     """
     t0 = time.perf_counter()
     check = cfg.check_termination if cfg.check_termination > 0 else 25
     seg = check if verbose else max(4 * check, 100)
-    first_end = min(seg, cfg.max_iter) if (verbose or time_limit > 0) else cfg.max_iter
+    polled = verbose or time_limit > 0 or stop is not None
+    first_end = min(seg, cfg.max_iter) if polled else cfg.max_iter
     fallback = con.OSQP_MAX_ITER_REACHED
     run_checks = True
 
@@ -188,6 +193,13 @@ def _solve_segmented(cfg, scaling_iters, do_polish, refine_iter, P, q, A, l, u, 
                     break
                 if time_limit > 0 and time.perf_counter() - t0 >= time_limit:
                     fallback = con.OSQP_TIME_LIMIT_REACHED
+                    break
+                status = stop() if stop is not None else None
+                if status is not None:
+                    fallback = status
+                    if status == con.OSQP_SIGINT:
+                        run_checks = False
+                        print("Solver interrupted")
                     break
                 end = min(end + seg, cfg.max_iter)
                 c = admm_mod.run_segment(cfg, scaled, scl, dyn, c, end)

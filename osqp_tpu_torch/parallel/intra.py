@@ -14,22 +14,39 @@ and the products carry the collectives:
 Every m-vector (z, y, l, u, rho, the residuals) stays whole on every rank,
 so termination, rho adaptation, the certificates and finalize run
 unchanged and every rank takes the same decisions; the JAX package
-shards y too.  A time limit is refused: each rank's clock could stop it
-at another iteration.
+shards y too.
 
-Polish runs on both paths, unsharded: A is gathered whole on every rank
-once, at the start of polish, which costs a rank m n values of a dense A
-and the rows' nnz slots of an ELL one on top of its block.  The dense
-path factors the polish KKT with K8's LU, as the port's ``cg`` polish
-does everywhere; the ELL path runs K6's device loop over the whole rows.
-The JAX package partitions a Schur-complement polish over the row shards
-instead (its batched LU cannot be partitioned).
+**The stop is agreed.**  Every rank runs the same segments (``max(4
+check, 100)`` iterations each) and, from the second segment's end on,
+takes part in one all-reduce (MAX) of two flags at each end: rank 0's
+clock decision (``time_limit`` reached since the solve began; the other
+ranks send 0, so their clocks decide nothing) and whether any rank has
+received SIGINT.  So every rank stops after the same segment, with
+``OSQP_TIME_LIMIT_REACHED`` or ``OSQP_SIGINT``, and finalizes from the
+same state.  While an entry runs in the main thread, its SIGINT handler
+only records the signal (the previous handler comes back on the way
+out): Ctrl-C stops the solve at the next segment end, not at once, and a
+signal after the last segment end lets the solve finish.  The JAX
+package, one controller, stops at once, where its host catches the
+``KeyboardInterrupt``.
+
+Polish runs on the shards: A is never gathered (``polish.polish``).  A
+dense A takes the Schur branch, whose (MA)'(MA) is summed over the
+blocks by one all-reduce and whose n x n S is inverted by K2 on every
+rank; an ELL A runs the Schur PCG over the row-sharded operators, on the
+card by K6's step kernels.  As in the JAX package, whose ``cg`` backend
+routes polish to the same branches.
 
 Every rank calls an entry with the same arguments; the results are the
 same on every rank, bit for bit.
 """
 
 from __future__ import annotations
+
+import contextlib
+import signal
+import threading
+import time
 
 import numpy as np
 import scipy.sparse as sp
@@ -38,23 +55,16 @@ import torch
 from .. import constants as con
 from ..batch import BatchSolveResults, _solve_segmented
 from ..large import prepare_sparse
+from ..linalg import host_array
 from ..solver import Settings, make_config, reject_time_based_rho, torch_dtype, validate_settings
 from ..sparse_ops import ELLMatrix
 from ..types import DynSettings
 from .mesh import make_mesh, mesh_group
-from .rows import RowSharded
+from .rows import RowSharded, all_reduce_max
 
 
 def _host(v) -> np.ndarray:
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-
-
-def _refuse_time_limit(s: Settings) -> None:
-    if s.time_limit and s.time_limit > 0:
-        raise con.OSQPError(
-            con.ErrorCode.SETTINGS_VALIDATION_ERROR,
-            "intra-problem sharding takes no time limit: the ranks' clocks could stop them at different iterations",
-        )
 
 
 def _padded(l, u, m: int, W: int):
@@ -81,9 +91,11 @@ def solve_single_sharded(P, q, A, l, u, mesh=None, axis_name: str = "batch", dev
     ``"cg"`` (the default here).  The rows are padded with loose all-zero
     constraints (l = -inf, u = +inf) to a multiple of the mesh's size,
     which changes no iterate; rank r puts rows r R to (r + 1) R of the
-    padded A on its device.  Returns a batch-of-1
-    :class:`BatchSolveResults`, the padding stripped from y and
-    ``prim_inf_cert``."""
+    padded A on its device.  ``time_limit`` and Ctrl-C stop every rank
+    at the same segment end (the module's docstring); ``polish=True``
+    polishes by the Schur complement on the shards.  Returns a
+    batch-of-1 :class:`BatchSolveResults`, the padding stripped from y
+    and ``prim_inf_cert``."""
     settings.setdefault("linsys_solver", "cg")
     if settings["linsys_solver"] != "cg":
         raise con.OSQPError(con.ErrorCode.SETTINGS_VALIDATION_ERROR,
@@ -91,7 +103,6 @@ def solve_single_sharded(P, q, A, l, u, mesh=None, axis_name: str = "batch", dev
     s = Settings(**settings)
     validate_settings(s)
     reject_time_based_rho(s)
-    _refuse_time_limit(s)
     mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name, device=device)
     group, W, rank, dev = mesh_group(mesh, axis_name, device)
 
@@ -108,7 +119,7 @@ def solve_single_sharded(P, q, A, l, u, mesh=None, axis_name: str = "batch", dev
     as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=dev).contiguous()
     bound = lambda v: torch.clamp(as_t(v[None]), -con.OSQP_INFTY, con.OSQP_INFTY)
     A_s = RowSharded(as_t(block[None]), m + pad, r0, group, pad)
-    res = _solve(s, dtype, dev, n, m + pad, as_t(P[None]), as_t(q[None]), A_s, bound(l), bound(u))
+    res = _solve(s, dtype, dev, n, m + pad, as_t(P[None]), as_t(q[None]), A_s, bound(l), bound(u), group, rank)
     return _strip(res, m, pad)
 
 
@@ -120,8 +131,9 @@ def solve_single_sharded_sparse(P, q, A, l, u, mesh=None, axis_name: str = "batc
     are padded as in :func:`solve_single_sharded`; the ELL operands come
     from :func:`osqp_tpu_torch.large.prepare_sparse`, and each rank puts
     P, its block of A's rows and A's whole transpose on its device.
-    ``polish=True`` polishes on the gathered rows.  Returns a batch-of-1
-    :class:`BatchSolveResults`."""
+    ``time_limit`` and Ctrl-C as in :func:`solve_single_sharded`;
+    ``polish=True`` runs the Schur PCG on the sharded rows.  Returns a
+    batch-of-1 :class:`BatchSolveResults`."""
     l = _host(l).astype(np.float64).ravel()
     u = _host(u).astype(np.float64).ravel()
     A = sp.csr_matrix(A)
@@ -133,7 +145,6 @@ def solve_single_sharded_sparse(P, q, A, l, u, mesh=None, axis_name: str = "batc
         A = sp.vstack([A, sp.csr_matrix((pad, A.shape[1]))], format="csr")
 
     s, dtype, cfg, dyn, P_ell, A_ell, q2, l2, u2 = prepare_sparse(P, q, A, l, u, settings)
-    _refuse_time_limit(s)
     R = (m + pad) // W
     r0 = rank * R
     on = lambda t: t.to(dev).contiguous()
@@ -142,13 +153,58 @@ def solve_single_sharded_sparse(P, q, A, l, u, mesh=None, axis_name: str = "batc
     as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
     P_dev = ELLMatrix(val=on(P_ell.val), idx=on(P_ell.idx), t_val=on(P_ell.t_val), t_idx=on(P_ell.t_idx),
                             shape=P_ell.shape)
-    res = _solve(s, dtype, dev, cfg.n, cfg.m, P_dev, as_t(q2), A_s, as_t(l2), as_t(u2), cfg=cfg, dyn=dyn)
+    res = _solve(s, dtype, dev, cfg.n, cfg.m, P_dev, as_t(q2), A_s, as_t(l2), as_t(u2), group, rank, cfg=cfg,
+                 dyn=dyn)
     return _strip(res, m, pad)
 
 
-def _solve(s: Settings, dtype, dev, n: int, m: int, P, q, A, l, u, cfg=None, dyn=None) -> BatchSolveResults:
+class _AgreedStop:
+    """The stop hook of :func:`osqp_tpu_torch.batch._solve_segmented` that
+    every rank of ``group`` polls at the same segment ends: one all-reduce
+    (MAX) of (rank 0's clock decision, SIGINT seen here), read on the host.
+    ``interrupted`` is set by the entries' SIGINT handler."""
+
+    def __init__(self, group, rank: int, dev, time_limit: float):
+        self.group, self.dev = group, dev
+        self.clock = rank == 0 and time_limit > 0
+        self.time_limit = float(time_limit)
+        self.t0 = time.perf_counter()
+        self.interrupted = False
+
+    def __call__(self):
+        late = self.clock and time.perf_counter() - self.t0 >= self.time_limit
+        flags = torch.tensor([int(late), int(self.interrupted)], dtype=torch.int32, device=self.dev)
+        late, interrupted = host_array(all_reduce_max(flags, self.group)).tolist()
+        if interrupted:
+            return con.OSQP_SIGINT
+        if late:
+            return con.OSQP_TIME_LIMIT_REACHED
+        return None
+
+
+@contextlib.contextmanager
+def _deferred_sigint(stop: _AgreedStop):
+    """SIGINT recorded in ``stop`` instead of raised, in the main thread
+    (where Python runs signal handlers); the previous handler restored on
+    the way out.  Elsewhere nothing changes."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def record(signum, frame):
+        stop.interrupted = True
+
+    previous = signal.signal(signal.SIGINT, record)
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGINT, signal.SIG_DFL if previous is None else previous)
+
+
+def _solve(s: Settings, dtype, dev, n: int, m: int, P, q, A, l, u, group, rank: int, cfg=None, dyn=None
+           ) -> BatchSolveResults:
     """The segmented driver of :func:`osqp_tpu_torch.solve_batch` on one
-    instance, from its settings."""
+    instance, from its settings, stopped where the ranks agree."""
     if cfg is None:
         cfg = make_config(n, m, s, dtype)
         dyn = DynSettings.make(
@@ -157,5 +213,7 @@ def _solve(s: Settings, dtype, dev, n: int, m: int, P, q, A, l, u, cfg=None, dyn
             adaptive_rho_tolerance=s.adaptive_rho_tolerance, delta=s.delta,
         )
     rho0 = torch.full((1,), s.rho, dtype=dtype, device=dev)
-    return _solve_segmented(cfg, int(s.scaling), bool(s.polish), int(s.polish_refine_iter), P, q, A, l, u, rho0, dyn,
-                            None, None, verbose=bool(s.verbose))
+    stop = _AgreedStop(group, rank, dev, s.time_limit)
+    with _deferred_sigint(stop):
+        return _solve_segmented(cfg, int(s.scaling), bool(s.polish), int(s.polish_refine_iter), P, q, A, l, u, rho0,
+                                dyn, None, None, verbose=bool(s.verbose), stop=stop)

@@ -28,9 +28,9 @@ The products, each reached from the dispatch point named:
   all-reduce (SUM); ELL, the replicated transpose over the whole y, no
   collective, the unsharded bits;
 * the termination products (``termination.compute_products``): K3 once
-  on the block with y's and dy's rows, then one all-gather of A x and
-  A dx and one all-reduce of A'y and A'dy (ELL: K5's grouped launch, and
-  only the gather);
+  on the block with y's and dy's rows, then an all-gather of A x, one of
+  A dx, and one all-reduce of A'y and A'dy (ELL: K5's grouped launch, and
+  only the gathers);
 * the cg backend's diagonal sum_i rho_i A_ij^2 (``linsys/cg.init``):
   dense, the block's sum and an all-reduce; ELL, the replicated
   transpose;
@@ -46,12 +46,17 @@ The products, each reached from the dispatch point named:
   sweep; ELL, K5's column norms on the replicated transpose, its row
   norms on the block and an all-gather, the scaling of the block and of
   the transpose (``ops.ell.ell_scale_rows``);
-* polish (``polish.polish``) gathers A whole once (:meth:`gather`) and
-  runs unsharded on every rank: m n values a rank for a dense A, the
-  ELL rows' nnz for a sparse one.
+* polish (``polish.polish``) keeps A's rows sharded: the mask scales the
+  block (:meth:`masked`; ELL, K5's scale on the block and the
+  transpose); a dense A's Schur complement takes the block's
+  (MA)'(MA) and one all-reduce of the (B, n, n) (:meth:`gram`); an ELL
+  A's PCG runs the operator of :meth:`schur_products`; the refinement's
+  products are :meth:`term_products`' with its collectives.
 
 ``collectives`` counts the collectives by kind, in the style of the
-kernel wrappers' launch counts.
+kernel wrappers' launch counts, and ``largest_gather`` records the
+elements of the largest all-gather since :func:`reset_collectives`: an
+m-vector an instance at most, never A.
 """
 
 from __future__ import annotations
@@ -63,23 +68,28 @@ from ..ops import ell
 from ..sparse_ops import ELLMatrix
 
 collectives = {"all_gather": 0, "all_reduce_sum": 0, "all_reduce_max": 0}
+largest_gather = 0  # elements of the largest all-gather's output
 
 
 def reset_collectives() -> None:
+    global largest_gather
     for kind in collectives:
         collectives[kind] = 0
+    largest_gather = 0
 
 
 def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every rank's ``t`` concatenated along ``dim``, in rank order: one
     gather along the first axis (``all_gather_single``, named
     ``all_gather_into_tensor`` before torch 2.13), then one reshape."""
+    global largest_gather
     t = t.contiguous()
     W = dist.get_world_size(group)
     out = torch.empty((W * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     gather(out, t, group=group)
     collectives["all_gather"] += 1
+    largest_gather = max(largest_gather, out.numel())
     if dim == 0:
         return out
     if dim == 1 and t.shape[0] == 1:  # one instance: the first-axis gather is already in row order
@@ -103,6 +113,14 @@ def all_reduce_max_bits(t: torch.Tensor, group) -> torch.Tensor:
     dist.all_reduce(bits, op=dist.ReduceOp.MAX, group=group)
     collectives["all_reduce_max"] += 1
     return bits.view(t.dtype)
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over the ranks of an integer tensor."""
+    t = t.contiguous()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    collectives["all_reduce_max"] += 1
+    return t
 
 
 class RowSharded:
@@ -157,6 +175,14 @@ class RowSharded:
     def device(self) -> torch.device:
         return self.local.device
 
+    def to(self, dtype: torch.dtype) -> "RowSharded":
+        """The same rows with their values cast to ``dtype``."""
+        if not self.ell:
+            return RowSharded(self.local.to(dtype), self.m, self.row0, self.group, self.pad)
+        r = self.local
+        return RowSharded.from_ell(r.val.to(dtype), r.idx, r.t_val.to(dtype), r.t_idx, self.m, self.row0, self.group,
+                                   self.pad)
+
     def block(self, v: torch.Tensor) -> torch.Tensor:
         """This rank's rows of an m-vector (B, m) -> (B, R)."""
         return v[:, self.row0:self.row0 + self.rows_count].contiguous()
@@ -197,12 +223,10 @@ class RowSharded:
             # one all-reduce for the transposed products
             sums = all_reduce_sum(torch.stack([Aty, Atdy]) if cert else Aty, self.group)
             Aty, Atdy = (sums[0], sums[1]) if cert else (sums, None)
-        # one all-gather for the row products
+        # an all-gather for each row product: an m-vector an instance a gather
+        Ax = self.gather_rows(Ax)
         if cert:
-            both = self.gather_rows(torch.cat([Ax, Adx], dim=0))
-            Ax, Adx = both[:self.B], both[self.B:]
-        else:
-            Ax = self.gather_rows(Ax)
+            Adx = self.gather_rows(Adx)
         return TermProducts(Ax, Px, Aty, Atdy, Pdx, Adx)
 
     def cg_colsums(self, w: torch.Tensor) -> torch.Tensor:
@@ -261,11 +285,33 @@ class RowSharded:
         return RowSharded.from_ell(val, r.idx, t_val, r.t_idx, self.m, self.row0, self.group, self.pad)
 
     # -- polish ----------------------------------------------------------------
-    def gather(self):
-        """A whole on this rank: a dense (B, m, n) tensor, or the
-        :class:`ELLMatrix` of all its rows and the transpose."""
+    def masked(self, mask: torch.Tensor) -> "RowSharded":
+        """diag(mask) A for a (B, m) mask: the block's rows times their part
+        of it; an ELL operand through K5's scale (``ops.ell.ell_scale_rows``)
+        on the block and the whole transpose, each value the bits
+        ``ell_scale`` gives it on the whole A."""
         if not self.ell:
-            return self.gather_rows(self.local)
+            return RowSharded(self.block(mask)[:, :, None] * self.local, self.m, self.row0, self.group, self.pad)
         r = self.local
-        return ELLMatrix(val=self.gather_rows(r.val), idx=all_gather(r.idx, self.group, dim=0), t_val=r.t_val,
-                         t_idx=r.t_idx, shape=(self.m, self.n))
+        ones = torch.ones((self.B, self.n), dtype=mask.dtype, device=mask.device)
+        val, t_val = ell.ell_scale_rows(r.val, r.idx, r.t_val, r.t_idx, self.block(mask), mask, ones)
+        return RowSharded.from_ell(val, r.idx, t_val, r.t_idx, self.m, self.row0, self.group, self.pad)
+
+    def gram(self) -> torch.Tensor:
+        """A'A (B, n, n) of a dense operand: the block's A_r'A_r, then one
+        all-reduce (SUM)."""
+        return all_reduce_sum(torch.bmm(self.local.mT, self.local), self.group)
+
+    def schur_products(self, P: ELLMatrix, d: torch.Tensor):
+        """p -> (P p, A'(A p) / d) on ELL operands, polish's Schur
+        operator: the block's rows, an all-gather of A p, the replicated
+        transpose, then a division by ``d`` (a 0-d host tensor) copied to
+        the device, elementwise and correctly rounded, as
+        :class:`~osqp_tpu_torch.ops.cg.EllOperator` divides.  A callable,
+        so the card steps it (``ops.cg.pcg_solve_stepwise``)."""
+        d_dev = torch.as_tensor(d, dtype=self.dtype).to(self.device)
+
+        def products(p):
+            return ell.ell_matvec(P, p), ell.ell_tmatvec(self.t, self.matvec(p)) / d_dev
+
+        return products

@@ -38,12 +38,27 @@ max(delta, 1e-4): S squares the conditioning of K_delta, and at the
 reference delta a float32 S cannot be solved.  A sparse polish runs one
 active-set pass by default.
 
+On a row-sharded A (:class:`~osqp_tpu_torch.parallel.rows.RowSharded`,
+the entries of :mod:`osqp_tpu_torch.parallel.intra`) no rank holds
+K_delta, and A is never gathered.  A dense A takes the JAX package's
+Schur branch (``osqp_tpu/polish.py:156-204``): S = P + (MA)'(MA)/d + d I,
+its (MA)'(MA) the blocks' products summed by one all-reduce, inverted
+by K2's route (:func:`osqp_tpu_torch.ops.spd_inverse.spd_inverse`) at
+d = max(delta, 1e-4) in both dtypes, since S squares K_delta's
+conditioning and at the reference delta even a float64 inverse of S
+loses the polish; the refinement, which targets the unregularized KKT,
+recovers the accuracy.  An ELL A runs the PCG above on the sharded
+rows, its operator a function of the rows, the all-gather and the
+replicated transpose, so on the card K6's step kernels.  Either way a
+rank holds its block, the transpose (ELL) and n x n values (dense),
+where gathering A would cost it m n values and, for K8, (n + m)^2.
+
 Not carried over from the JAX package, each for its reason: the switch
-of dense operands to a Schur-complement solve above KKT dimension 2048,
-with its clamp of delta, ``prefer_schur``, which the ``cg`` backend
-sets, and the rule that keeps float64 LU off the accelerator.  All
-three exist because the TPU's batched-LU call serialises, exceeds its
-fast memory and has no float64 form; K8 takes any N in both dtypes.
+of unsharded dense operands to the Schur branch above KKT dimension
+2048, ``prefer_schur``, which the ``cg`` backend sets, and the rule that
+keeps float64 LU off the accelerator.  All three exist because the TPU's
+batched-LU call serialises, exceeds its fast memory and has no float64
+form; K8 takes any N in both dtypes.
 
 The passes and refinement steps are Python loops that enqueue device
 work; only the caller's read of ``success`` waits on the device (the
@@ -62,6 +77,7 @@ from .linalg import bwhere, mat_tvec, mat_vec, vec_dot
 from .linsys import kkt_lu
 from .ops.cg import EllOperator, pcg_solve
 from .ops.ell import ell_diagonal, ell_matvec, ell_products, ell_scale, ell_sq_colsums, ell_tmatvec
+from .ops.spd_inverse import spd_inverse
 from .ops.term_products import term_products
 from .parallel.rows import RowSharded
 from .sparse_ops import ELLMatrix
@@ -80,6 +96,8 @@ class PolishResult(NamedTuple):
 
 
 def _cast_leaf(v, dtype: torch.dtype):
+    if isinstance(v, RowSharded):
+        return v.to(dtype)
     if isinstance(v, ELLMatrix):
         return dataclasses.replace(v, val=v.val.to(dtype), t_val=v.t_val.to(dtype))
     return v.to(dtype) if v.is_floating_point() else v
@@ -101,21 +119,25 @@ def polish_cg_cap(n: int, m: int) -> int:
     return int(os.environ.get("OSQP_TPU_POLISH_CG_CAP", "0")) or min(4 * (n + m), 40_000)
 
 
-def _ell_kkt_solver(n: int, m: int, P: ELLMatrix, MA: ELLMatrix, delta, dtype):
+def _ell_kkt_solver(n: int, m: int, P: ELLMatrix, MA, delta, dtype):
     """rhs (B, n+m) -> K_delta^-1 rhs by the Schur complement S, solved
-    matrix-free (JAX: polish.py:114-155).  Also returns the CG's steps
-    of each solve in a list."""
+    matrix-free (JAX: polish.py:114-155); MA an :class:`ELLMatrix` or a
+    row-sharded one.  Also returns the CG's steps of each solve in a
+    list."""
     d = delta if dtype == torch.float64 else torch.clamp(delta.to(dtype), min=1e-4)
-    B = MA.batch
+    sharded = isinstance(MA, RowSharded)
+    B = MA.B if sharded else MA.batch
     ones_m = torch.ones((B, m), dtype=dtype, device=MA.device)
-    diagP, colsums = ell_products((ell_diagonal, P), (ell_sq_colsums, MA, ones_m))
+    # column sums over the transpose, which a row-sharded MA keeps whole
+    diagP, colsums = ell_products((ell_diagonal, P), (ell_sq_colsums, MA.t if sharded else MA, ones_m))
     dinv = 1.0 / (diagP + d + colsums / d)
     tol_rel = torch.full((B,), 1e-12 if dtype == torch.float64 else 1e-7, dtype=dtype, device=MA.device)
     cap = polish_cg_cap(n, m)
 
     # (P v, (MA)'((MA) v) / d), rounded as the JAX package's matvec_S: on
-    # the card pcg_solve runs it in K6's device loop
-    products = EllOperator(P, MA, div=d)
+    # the card pcg_solve runs it in K6's device loop, or on sharded rows
+    # step by step (each step waits on an all-gather)
+    products = MA.schur_products(P, d) if sharded else EllOperator(P, MA, div=d)
     steps = []
 
     def solve(rhs):
@@ -127,6 +149,28 @@ def _ell_kkt_solver(n: int, m: int, P: ELLMatrix, MA: ELLMatrix, delta, dtype):
         return torch.cat([sx, snu], dim=-1)
 
     return solve, steps
+
+
+def _schur_kkt_solver(n: int, m: int, P: torch.Tensor, MA, delta, dtype):
+    """rhs (B, n+m) -> K_delta^-1 rhs on dense operands by the Schur
+    complement (JAX: polish.py:156-204): S = P + (MA)'(MA)/d + d I with
+    d = max(delta, 1e-4), X = S^-1 by K2's route, then sx = X t with t =
+    r_x + (MA)' r_z / d and snu = ((MA) sx - r_z) / d.  MA is (B, m, n)
+    or row-sharded; its (MA)'(MA) is one ``torch.bmm``, of a row-sharded
+    MA the block's and one all-reduce."""
+    d = torch.clamp(delta.to(dtype), min=1e-4)
+    gram = MA.gram() if isinstance(MA, RowSharded) else torch.bmm(MA.mT, MA)
+    eye = torch.eye(n, dtype=dtype, device=P.device)
+    X = spd_inverse(P + gram / d + d * eye)
+
+    def solve(rhs):
+        r_x, r_z = rhs[:, :n], rhs[:, n:].contiguous()
+        t = r_x + mat_tvec(MA, r_z) / d
+        sx = torch.bmm(X, t.unsqueeze(-1)).squeeze(-1)
+        snu = (mat_vec(MA, sx) - r_z) / d
+        return torch.cat([sx, snu], dim=-1)
+
+    return solve
 
 
 def polish(
@@ -141,6 +185,7 @@ def polish(
     admm_dua_res,
     refine_iter: int,
     passes: int | None = None,
+    schur: bool | None = None,
 ) -> PolishResult:
     """Batched polish (polish.c:212-350).  All inputs scaled.
 
@@ -153,13 +198,16 @@ def polish(
     With ``cfg.polish_dtype`` different from the solve dtype (typically
     a float64 polish over a float32 solve) everything is cast, polished
     in that dtype and cast back: float64 is native on the card.
+
+    ``schur`` sends dense operands to the Schur branch
+    (:func:`_schur_kkt_solver`) or to K8; by default a row-sharded A
+    takes the first, any other the second.
     """
-    if isinstance(data.A, RowSharded):
-        # A whose rows are spread over processes is gathered whole once,
-        # and every rank polishes unsharded (parallel/rows.py)
-        data = dataclasses.replace(data, A=data.A.gather())
     native = x.dtype
-    sparse = isinstance(data.A, ELLMatrix)
+    sharded = isinstance(data.A, RowSharded)
+    sparse = data.A.ell if sharded else isinstance(data.A, ELLMatrix)
+    if schur is None:
+        schur = sharded and not sparse
     if passes is None and sparse:
         # One pass on ELL operands, as in the JAX package: re-guessing has
         # rescued no problem of the sparse path there, and every pass costs
@@ -171,7 +219,7 @@ def polish(
             dataclasses.replace(cfg, polish_dtype=None),
             _cast(data, tgt), _cast(scl, tgt), _cast(dyn, tgt),
             x.to(tgt), z.to(tgt), y.to(tgt), admm_pri_res.to(tgt), admm_dua_res.to(tgt),
-            refine_iter, passes,
+            refine_iter, passes, schur,
         )
         return PolishResult(*(v.to(native) if v.is_floating_point() else v for v in res))
     if passes is None:
@@ -179,7 +227,7 @@ def polish(
     B, n = x.shape
     m = cfg.m
     dtype = native
-    if not sparse:
+    if not (sparse or schur):
         delta_vec = torch.full((B, m), float(dyn.delta), dtype=dtype, device=x.device)
 
     def one_pass(x, z, y):
@@ -192,12 +240,19 @@ def polish(
         # K_delta = [P + delta I, (MA)'; MA, -delta I]
         # (qdldl_interface.c:261-267): factored by K8 on dense operands,
         # eliminated to S and solved by CG on ELL ones, whose rows are
-        # masked by scaling them.
-        if sparse:
+        # masked by scaling them, and by S's inverse on row-sharded dense
+        # ones.
+        if sharded:
+            MA = data.A.masked(mask)
+        elif sparse:
             MA = ell_scale(data.A, mask, torch.ones((B, n), dtype=dtype, device=x.device))
-            solve_kkt, _ = _ell_kkt_solver(n, m, data.P, MA, dyn.delta, dtype)
         else:
             MA = mask[:, :, None] * data.A
+        if sparse:
+            solve_kkt, _ = _ell_kkt_solver(n, m, data.P, MA, dyn.delta, dtype)
+        elif schur:
+            solve_kkt = _schur_kkt_solver(n, m, data.P, MA, dyn.delta, dtype)
+        else:
             factor = kkt_lu.factor_blocks(data.P, MA, dyn.delta, delta_vec)
             solve_kkt = lambda rhs: kkt_lu.solve_raw(factor, rhs)
 
@@ -234,14 +289,15 @@ def polish(
         best = eval_point(sol)
         for _ in range(refine_iter):
             sx, snu = sol[:, :n].contiguous(), sol[:, n:].contiguous()
-            if sparse:
+            if sharded:
+                # K3 or K5 on the block, then the collectives
+                Ax, Px, Aty = MA.term_products(data.P, sx, snu)[:3]
+            elif sparse:
                 Px, Aty, Ax = ell_products((ell_matvec, data.P, sx), (ell_tmatvec, MA, snu), (ell_matvec, MA, sx))
-                r_x = -data.q - (Px + Aty)
-                r_z = rhs_z - Ax
             else:
-                tp = term_products(data.P, MA, sx, snu)  # MA sx, P sx, (MA)' snu
-                r_x = -data.q - (tp.Px + tp.Aty)
-                r_z = rhs_z - tp.Ax
+                Ax, Px, Aty = term_products(data.P, MA, sx, snu)[:3]  # MA sx, P sx, (MA)' snu
+            r_x = -data.q - (Px + Aty)
+            r_z = rhs_z - Ax
             sol = sol + solve_kkt(torch.cat([r_x, r_z], dim=-1))
             cand = eval_point(sol)
             better = cand[5] & (torch.maximum(cand[3], cand[4]) < torch.maximum(best[3], best[4]))

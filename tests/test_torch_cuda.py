@@ -2142,12 +2142,23 @@ def _same_results(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def test_parallel_entries_at_one_rank_give_the_unsharded_bits(one_rank_nccl):
+def _schur_polish(monkeypatch):
+    """solve_batch's polish on the Schur branch, as the sharded entry's."""
+    import functools
+
+    from osqp_tpu_torch import batch, polish
+
+    monkeypatch.setattr(batch, "polish_fn", functools.partial(polish.polish, schur=True))
+
+
+def test_parallel_entries_at_one_rank_give_the_unsharded_bits(one_rank_nccl, monkeypatch):
     """solve_batch_sharded, solve_single_sharded (polish on) and
     solve_single_sharded_sparse (polish on) under a one-rank NCCL group:
-    every field the unsharded solve's bits; the dense path ran K4's step
-    entries and K6's cg_step, the sparse one cg_step and, in polish, K6's
-    loop; collectives ran."""
+    every field the unsharded solve's bits (the dense polish's on the
+    Schur branch, which the sharded one takes); the dense path ran K4's
+    step entries and K6's cg_step, and K2 but no K8 in polish; the sparse
+    one cg_step and, in polish too, no K6 loop (the unsharded one's
+    loop, the same bits); collectives ran."""
     import scipy.sparse as sp
 
     from osqp_tpu_torch import parallel
@@ -2166,9 +2177,11 @@ def test_parallel_entries_at_one_rank_give_the_unsharded_bits(one_rank_nccl):
     x0 = rng.standard_normal(n)
     l, u = A @ x0 - 1.0, A @ x0 + 1.0
     rows.reset_collectives()
-    sweeps, steps = k4.launches_sweep, k6.launches
+    sweeps, steps, inverses, factors = k4.launches_sweep, k6.launches, k2.launches, k8.launches_factor
     got = parallel.solve_single_sharded(P, q, A, l, u, mesh=mesh, polish=True, **kw)
     assert k4.launches_sweep > sweeps and k6.launches > steps and sum(rows.collectives.values()) > 0
+    assert k2.launches > inverses and k8.launches_factor == factors and rows.largest_gather <= m
+    _schur_polish(monkeypatch)
     want = osqp_tpu_torch.solve_batch(P[None], q[None], A[None], l[None], u[None], device="cuda",
                                       linsys_solver="cg", polish=True, **kw)
     assert _same_results(got, want) and int(got.status_polish[0]) == 1
@@ -2179,8 +2192,38 @@ def test_parallel_entries_at_one_rank_give_the_unsharded_bits(one_rank_nccl):
     qs, ls, us = rng.standard_normal(n), -np.ones(As.shape[0]), np.ones(As.shape[0])
     steps, loops = k6.launches, k6.launches_loop
     got = parallel.solve_single_sharded_sparse(Ps, qs, As, ls, us, mesh=mesh, polish=True, **kw)
-    assert k6.launches > steps and k6.launches_loop > loops
+    assert k6.launches > steps and k6.launches_loop == loops
     want = osqp_tpu_torch.solve_sparse(Ps, qs, As, ls, us, device="cuda", polish=True, **kw)
+    assert k6.launches_loop > loops
+    assert _same_results(got, want) and int(got.status_polish[0]) == 1
+
+
+def test_sharded_dense_polish_on_the_card_is_the_schur_routes_bits(one_rank_nccl, monkeypatch):
+    """The sharded dense polish at n = 200 (above K2's one-block n in
+    float64, so its recursion on the leaf entry), at eps 1e-5, where the
+    ADMM point's active set lets polish succeed (at 1e-3 it fails in both
+    branches): the unsharded solve with its polish on the Schur branch
+    gives every bit; K2's leaf ran and K8 did not; no all-gather moved
+    more than m values; status_polish 1."""
+    from osqp_tpu_torch import parallel
+    from osqp_tpu_torch.parallel import rows
+
+    rng = np.random.default_rng(22)
+    n, m = 200, 600
+    M = rng.standard_normal((n, n))
+    P, q, A = M @ M.T / n + 0.2 * np.eye(n), rng.standard_normal(n), rng.standard_normal((m, n))
+    x0 = rng.standard_normal(n)
+    l, u = A @ x0 - 1.0, A @ x0 + 1.0
+    kw = dict(dtype="float64", polish=True, verbose=False, eps_abs=1e-5, eps_rel=1e-5)
+    rows.reset_collectives()
+    leaves, factors = k2.launches_leaf, k8.launches_factor
+    got = parallel.solve_single_sharded(P, q, A, l, u, mesh=one_rank_nccl, **kw)
+    torch.cuda.synchronize()
+    assert k2.launches_leaf > leaves and k8.launches_factor == factors
+    assert 0 < rows.largest_gather <= m
+    _schur_polish(monkeypatch)
+    want = osqp_tpu_torch.solve_batch(P[None], q[None], A[None], l[None], u[None], device="cuda",
+                                      linsys_solver="cg", **kw)
     assert _same_results(got, want) and int(got.status_polish[0]) == 1
 
 

@@ -5,7 +5,9 @@ W blocks held to the unsharded ones, its W ranks run as threads of this
 process over an in-process stand-in for the collectives.  The
 multi-process runs are in tests/test_torch_parallel_ranks.py."""
 
+import functools
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -17,13 +19,16 @@ import torch
 import torch.distributed as dist
 
 import osqp_tpu_torch as ot
+from osqp_tpu_torch import batch as batch_mod
 from osqp_tpu_torch import constants as con
 from osqp_tpu_torch import parallel
+from osqp_tpu_torch import polish as polish_mod
 from osqp_tpu_torch.linalg import mat_tvec, mat_vec
 from osqp_tpu_torch.linsys import cg as cg_backend
 from osqp_tpu_torch.ops import cg as k6
 from osqp_tpu_torch.ops import ell as k5
 from osqp_tpu_torch.ops import ruiz as k4
+from osqp_tpu_torch.parallel import intra as intra_mod
 from osqp_tpu_torch.parallel import rows as rows_mod
 from osqp_tpu_torch.scaling import scale_data
 from osqp_tpu_torch.sparse_ops import ell_from_scipy
@@ -304,10 +309,10 @@ def test_ell_products_on_w_blocks_are_the_unsharded_bits(thread_ranks, W):
         As = _sharded_ell(A, W, r)
         d = QPData(P=P, q=q, A=As, l=l, u=u)
         s2, c2 = scale_data(d, 10)
-        whole = s2.A.gather()
+        rows = s2.A.local
         return (mat_vec(As, x), mat_tvec(As, y), mat_tvec(As, w * y), *compute_products(d, x, l, y, dx, dy),
                 cg_backend.init(P, As, 1e-6, w)["dinv"], *k6._operator(P, As, w, plain=True)(p),
-                c2.c, c2.D, c2.E, s2.q, s2.l, s2.P.val, whole.val, whole.t_val)
+                c2.c, c2.D, c2.E, s2.q, s2.l, s2.P.val, s2.A.gather_rows(rows.val), rows.t_val)
 
     got = thread_ranks(W).run(rank)
     for g_r in got:
@@ -324,7 +329,8 @@ def test_dense_ruiz_on_w_blocks_is_ruiz_plains_bits(thread_ranks, W):
 
     def rank(r):
         scaled, scl = scale_data(QPData(P=P, q=q, A=_sharded_dense(A, W, r), l=l, u=u), 10)
-        return scl.c, scl.D, scl.E, scaled.P, scaled.q, scaled.A.gather(), scaled.l, scaled.u
+        As = scaled.A
+        return scl.c, scl.D, scl.E, scaled.P, scaled.q, As.gather_rows(As.local), scaled.l, scaled.u
 
     for got in thread_ranks(W).run(rank):
         assert all(torch.equal(a, b) for a, b in zip(want, got))
@@ -351,9 +357,13 @@ def _fields(res):
 
 
 @pytest.mark.parametrize("polish", [False, True])
-def test_solve_single_sharded_at_one_rank_gives_the_unsharded_bits(one_rank, polish):
+def test_solve_single_sharded_at_one_rank_gives_the_unsharded_bits(one_rank, polish, monkeypatch):
+    """With polish, the unsharded solve's polish takes the Schur branch
+    (``polish(..., schur=True)``), as the sharded one does on its rows:
+    the same bits at one rank, K2's inverse of S and no K8."""
     P, q, A, l, u = R.qp(m=50)
     got = parallel.solve_single_sharded(P, q, A, l, u, mesh=one_rank, verbose=False, polish=polish, **R.F64)
+    monkeypatch.setattr(batch_mod, "polish_fn", functools.partial(polish_mod.polish, schur=True))
     want = ot.solve_batch(P[None], q[None], A[None], l[None], u[None], device="cpu", linsys_solver="cg",
                           verbose=False, polish=polish, **R.F64)
     assert all(torch.equal(a, b) for a, b in zip(_fields(got), _fields(want)))
@@ -376,10 +386,179 @@ def test_solve_batch_sharded_at_one_rank_gives_the_unsharded_bits(one_rank):
 
 
 def test_the_entries_refuse_a_time_limit_and_direct_backends(one_rank):
+    """The direct backends are refused.  A time limit no longer is: both
+    entries stop at the first poll (iteration 200) with the unsharded
+    solve's bits at the same limit."""
     P, q, A, l, u = R.qp()
-    with pytest.raises(con.OSQPError, match="time limit"):
-        parallel.solve_single_sharded(P, q, A, l, u, mesh=one_rank, verbose=False, time_limit=1.0)
     with pytest.raises(con.OSQPError, match="cg backend"):
         parallel.solve_single_sharded(P, q, A, l, u, mesh=one_rank, verbose=False, linsys_solver="kkt_lu")
-    with pytest.raises(con.OSQPError, match="time limit"):
-        parallel.solve_single_sharded_sparse(*R.sparse_polish_qp(), mesh=one_rank, verbose=False, time_limit=1.0)
+    kw = dict(verbose=False, time_limit=1e-9, **R.TIGHT)
+    got = parallel.solve_single_sharded(P, q, A, l, u, mesh=one_rank, **kw)
+    want = ot.solve_batch(P[None], q[None], A[None], l[None], u[None], device="cpu", linsys_solver="cg", **kw)
+    assert all(torch.equal(a, b) for a, b in zip(_fields(got), _fields(want)))
+    got = parallel.solve_single_sharded_sparse(*R.sparse_dense_qp(), mesh=one_rank, **kw)
+    want = ot.solve_sparse(*R.sparse_dense_qp(), device="cpu", **kw)
+    assert all(torch.equal(a, b) for a, b in zip(_fields(got), _fields(want)))
+    assert int(got.status_val[0]) == con.OSQP_TIME_LIMIT_REACHED and int(got.iter[0]) == 200
+
+
+# ---------------------------------------------------------------------------
+# Polish on the shards: the Schur branch and the row-sharded operators
+# ---------------------------------------------------------------------------
+def _masked_kkt(B=2, n=12, m=20, seed=4):
+    """P, MA, delta and a right-hand side in float64, about half of MA's
+    rows inactive (zero), as polish masks them."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((B, n, n))
+    P = M @ M.transpose(0, 2, 1) / n + 0.1 * np.eye(n)
+    mask = (rng.random((B, m)) < 0.5).astype(np.float64)
+    mask[:, :2] = 0.0  # inactive rows at the first block's start
+    MA = mask[:, :, None] * rng.standard_normal((B, m, n))
+    rhs = rng.standard_normal((B, n + m))
+    rhs[:, n:] *= mask  # an inactive row's right-hand side is 0 (polish.c:105-121)
+    return P, MA, 1e-6, rhs
+
+
+def test_schur_kkt_solver_matches_the_jax_packages_schur_branch():
+    """K_delta^-1 rhs by _schur_kkt_solver against osqp_tpu.polish.
+    _make_kkt_solver(prefer_schur=True), both at d = max(delta, 1e-4).
+    Each side forms S and its inverse X with its own rounding, an error
+    of order cond(S) eps |X| in X, and then sx = X t cancels: t = r_x +
+    (MA)' r_z / d is ~1e5 here where sx is ~1.  So the two agree within
+    cond(S) eps |X|_2 |t|_2 (~2e-5 here; they differ by ~6e-7, as far as
+    each lies from a direct solve of K_delta); inactive rows give nu = 0
+    exactly in both."""
+    import jax.numpy as jnp
+
+    from osqp_tpu.polish import _make_kkt_solver
+
+    P, MA, delta, rhs = _masked_kkt()
+    B, m, n = MA.shape
+    want = np.asarray(_make_kkt_solver(n, m, jnp.asarray(P), jnp.asarray(MA), delta, jnp.float64,
+                                       prefer_schur=True)(jnp.asarray(rhs)))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    got = polish_mod._schur_kkt_solver(n, m, t(P), t(MA), torch.tensor(delta, dtype=torch.float64),
+                                       torch.float64)(t(rhs)).numpy()
+    d = max(delta, 1e-4)
+    S = P + MA.transpose(0, 2, 1) @ MA / d + d * np.eye(n)
+    t_ = rhs[:, :n] + np.einsum("bmn,bm->bn", MA, rhs[:, n:]) / d
+    tol = max(np.linalg.cond(S[b]) * np.finfo(np.float64).eps * np.linalg.norm(t_[b]) / np.linalg.eigvalsh(S[b])[0]
+              for b in range(B))
+    assert np.abs(got - want).max() <= tol
+    inactive = np.abs(MA).sum(-1) == 0
+    assert np.all(got[:, n:][inactive] == 0.0) and np.all(want[:, n:][inactive] == 0.0)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4])
+def test_dense_polish_operators_on_w_blocks(thread_ranks, W):
+    """masked and gram on W row blocks against the whole A: the mask's
+    product bit for bit, (MA)'(MA) within 1e-12 (its sums are cut by
+    rank), the Schur solve within 1e-9 and bit for bit at one block; no
+    gather larger than B m."""
+    P, MA, delta, rhs = _masked_kkt(m=16)
+    B, m, n = MA.shape
+    rng = np.random.default_rng(5)
+    A = torch.as_tensor(rng.standard_normal((B, m, n)))
+    mask = torch.as_tensor((rng.random((B, m)) < 0.5).astype(np.float64))
+    P, rhs = torch.as_tensor(P), torch.as_tensor(rhs)
+    d = torch.tensor(delta, dtype=torch.float64)
+    whole = mask[:, :, None] * A
+    want = (torch.bmm(whole.mT, whole), polish_mod._schur_kkt_solver(n, m, P, whole, d, torch.float64)(rhs))
+
+    def rank(r):
+        rows_mod.reset_collectives()
+        MAs = _sharded_dense(A, W, r).masked(mask)
+        got = (MAs.local, MAs.gram(), polish_mod._schur_kkt_solver(n, m, P, MAs, d, torch.float64)(rhs))
+        return got, rows_mod.largest_gather
+
+    for r, (got, largest) in enumerate(thread_ranks(W).run(rank)):
+        R_ = m // W
+        assert torch.equal(got[0], whole[:, r * R_:(r + 1) * R_])
+        assert float((got[1] - want[0]).abs().max()) <= 1e-12 * float(want[0].abs().max())
+        assert float((got[2] - want[1]).abs().max()) <= 1e-9 * float(want[1].abs().max())
+        if W == 1:
+            assert torch.equal(got[1], want[0]) and torch.equal(got[2], want[1])
+        assert largest <= B * m
+
+
+@pytest.mark.parametrize("W", [1, 3, 4])
+def test_ell_polish_operators_on_w_blocks_are_the_unsharded_bits(thread_ranks, W):
+    """masked (K5's scale on the block and the transpose) and the Schur
+    operator of schur_products against ell_scale and EllOperator(div=d) on
+    the whole A: the same bits; the operator's gather is an m-vector."""
+    P, A = _ell_qp()
+    B, (m, n) = A.batch, A.shape
+    g = torch.Generator().manual_seed(3)
+    mask = (torch.rand(B, m, generator=g) < 0.5).to(torch.float64)
+    p = torch.randn(B, n, generator=g, dtype=torch.float64)
+    d = torch.tensor(1e-6, dtype=torch.float64)
+    MA = k5.ell_scale(A, mask, torch.ones(B, n, dtype=torch.float64))
+    want = (MA.val, MA.t_val, *k6.EllOperator(P, MA, div=d)(p))
+
+    def rank(r):
+        rows_mod.reset_collectives()
+        MAs = _sharded_ell(A, W, r).masked(mask)
+        got = (MAs.gather_rows(MAs.local.val), MAs.t.t_val, *MAs.schur_products(P, d)(p))
+        return got, rows_mod.largest_gather
+
+    for got, largest in thread_ranks(W).run(rank):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert largest <= B * m * A.val.shape[-1]  # the check's own gather of the values; the operator's is B m
+
+
+# ---------------------------------------------------------------------------
+# The agreed stop
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("W", [1, 3])
+def test_agreed_stop_carries_rank_0s_clock_and_any_ranks_sigint(thread_ranks, W):
+    """One all-reduce (MAX) of (rank 0's clock decision, SIGINT seen) a
+    poll: rank 0 past the limit stops every rank; another rank past it
+    stops none; a SIGINT on any rank stops every rank, before the clock."""
+    def rank(r, late_rank, sigint_rank):
+        stop = intra_mod._AgreedStop(None, r, torch.device("cpu"), 1.0)
+        if r == late_rank:
+            stop.t0 -= 10.0
+        stop.interrupted = r == sigint_rank
+        return stop()
+
+    ranks = thread_ranks(W)
+    assert ranks.run(lambda r: rank(r, -1, -1)) == [None] * W
+    assert ranks.run(lambda r: rank(r, 0, -1)) == [con.OSQP_TIME_LIMIT_REACHED] * W
+    assert ranks.run(lambda r: rank(r, W - 1, W - 1)) == [con.OSQP_SIGINT] * W
+    assert ranks.run(lambda r: rank(r, 0, W - 1)) == [con.OSQP_SIGINT] * W
+    if W > 1:
+        assert ranks.run(lambda r: rank(r, 1, -1)) == [None] * W
+
+
+def test_deferred_sigint_records_the_signal_and_restores_the_handler():
+    before = signal.getsignal(signal.SIGINT)
+    stop = intra_mod._AgreedStop(None, 0, torch.device("cpu"), 0.0)
+    with intra_mod._deferred_sigint(stop):
+        signal.raise_signal(signal.SIGINT)  # no KeyboardInterrupt
+    assert stop.interrupted
+    assert signal.getsignal(signal.SIGINT) is before
+
+
+@pytest.mark.parametrize("status", [None, con.OSQP_TIME_LIMIT_REACHED, con.OSQP_SIGINT])
+def test_the_segmented_loops_stop_hook_ends_the_solve_where_it_says(monkeypatch, status):
+    """batch._solve_segmented with a stop hook: polled from the second
+    segment's end (200) on; stopping at the second poll ends at 300 with
+    the hook's status (SIGINT with no further checks), and a hook that
+    never stops leaves the unsharded solve's bits."""
+    P, q, A, l, u = (a[None] for a in R.qp(m=50))
+    kw = dict(device="cpu", linsys_solver="cg", verbose=False, **R.TIGHT)
+    plain = ot.solve_batch(P, q, A, l, u, **kw)
+    polls = []
+
+    def stop():
+        polls.append(len(polls))
+        return status if len(polls) == 2 else None
+
+    segmented = batch_mod._solve_segmented
+    monkeypatch.setattr(batch_mod, "_solve_segmented", lambda *a, **k: segmented(*a, **k, stop=stop))
+    got = ot.solve_batch(P, q, A, l, u, **kw)
+    if status is None:
+        assert all(torch.equal(a, b) for a, b in zip(_fields(got), _fields(plain)))
+        assert len(polls) == (int(plain.iter[0]) - 1) // 100 - 1
+    else:
+        assert int(got.status_val[0]) == status and int(got.iter[0]) == 300 and len(polls) == 2

@@ -153,6 +153,75 @@ def test_sparse_sharded_polish(ranks, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case", ["dense_polish", "sparse_polish"])
+def test_sharded_polish_gathers_no_more_than_an_m_vector(ranks, world, case):
+    """A stays sharded through polish: no all-gather of the solve moves
+    more than B m elements (m padded to a multiple of W), an m-vector an
+    instance, where gathering A would move m n (dense) or its nnz slots."""
+    for res in ranks(world):
+        B, m = 1, int(res[f"{case}/padded_m"])
+        assert 0 < int(res[f"{case}/largest_gather"]) <= B * m
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_time_limit_stops_every_rank_at_the_same_segment(ranks, world):
+    """time_limit=1e-9 at eps 1e-9: rank 0's clock stops every rank at the
+    first poll, after the second segment (iteration 200), with the JAX
+    package's status.  Dense: the JAX package's sharded solve stops at the
+    same poll.  Sparse: the port's unsharded solve_sparse at the same
+    limit, bit for bit, and the JAX package's sharded solve, whose
+    segment loop drops its dispatch band (not ported on purpose) under a
+    time limit, at the same poll too."""
+    from osqp_tpu import constants as jcon
+
+    res = ranks(world)
+    for case in ("dense_time_limit", "sparse_time_limit"):
+        got, jax_ = _get(res[0], case), _jax(case)
+        assert int(got["status_val"][0]) == ot.OSQP_TIME_LIMIT_REACHED == jcon.OSQP_TIME_LIMIT_REACHED
+        assert int(jax_["status_val"][0]) == jcon.OSQP_TIME_LIMIT_REACHED
+        assert int(got["iter"][0]) == int(jax_["iter"][0]) == 200
+        for r in range(1, world):
+            assert all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                       for a, b in zip(_get(res[r], case).values(), got.values())), r
+    got, port = _get(res[0], "sparse_time_limit"), _port("sparse_time_limit")
+    for f in R.FIELDS:
+        assert torch.equal(torch.as_tensor(got[f]), torch.as_tensor(port[f])), f
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_a_clock_past_the_limit_on_rank_1_alone_stops_no_rank(ranks, world):
+    """Rank 1's clock reads 1e9 s past the solve's start at every poll;
+    only rank 0's decides: every rank solves to the bits of the case with
+    no limit."""
+    res = ranks(world)
+    want = _get(res[0], "dense50")
+    assert int(want["status_val"][0]) == ot.OSQP_SOLVED
+    for r in range(world):
+        got = _get(res[r], "dense_clock_rank1")
+        for f in R.FIELDS:
+            assert torch.equal(torch.as_tensor(got[f]), torch.as_tensor(want[f])), (r, f)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sigint_on_rank_1_stops_every_rank_at_the_same_segment(ranks, world):
+    """Rank 1 raises SIGINT on itself as the second segment starts; the
+    entries' handler records it, the next poll carries it to every rank,
+    and all return OSQP_SIGINT (the JAX package's constant) at that
+    segment's end with rank 0's bits; the handler is restored after."""
+    from osqp_tpu import constants as jcon
+
+    res = ranks(world)
+    want = _get(res[0], "dense_sigint_rank1")
+    for r in range(world):
+        got = _get(res[r], "dense_sigint_rank1")
+        assert int(got["status_val"][0]) == ot.OSQP_SIGINT == jcon.OSQP_SIGINT
+        assert int(got["iter"][0]) == R.SIGINT_SEGMENT_END
+        for f in R.FIELDS:
+            assert torch.equal(torch.as_tensor(got[f]), torch.as_tensor(want[f])), (r, f)
+        assert int(res[r]["sigint_handler_restored"]) == 1
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_batch_sharded_matches_local_and_jax(ranks, world):
     res = ranks(world)[0]
     got, port, jax_ = _get(res, "batch"), _port("batch"), _jax("batch")

@@ -8,8 +8,11 @@ This module imports nothing of JAX: the children import it to find
 :func:`run_rank`.
 """
 
+import contextlib
 import os
+import signal
 import time
+import types
 from datetime import timedelta
 
 import numpy as np
@@ -76,7 +79,21 @@ def sparse_polish_qp():
     return P, q, A, -np.ones(m), np.ones(m)
 
 
+def sparse_dense_qp(m=50):
+    """:func:`qp` as scipy matrices, for the sparse entry: 675 iterations
+    at eps 1e-9 (``sparse_qp`` stops at 125, before the first poll of a
+    time limit)."""
+    import scipy.sparse as sp
+
+    P, q, A, l, u = qp(m=m)
+    return sp.triu(P, format="csc"), q, sp.csc_matrix(A), l, u
+
+
 F64 = {"dtype": "float64"}
+# eps 1e-9: nothing converges before the first poll, after 2 segments of 100
+TIGHT = {**F64, "eps_abs": 1e-9, "eps_rel": 1e-9}
+# a clock past this on rank 1 alone must stop no rank
+LONG_LIMIT = 1000.0
 # name -> (entry, data, settings)
 INTRA_CASES = {
     "dense50": ("dense", lambda: qp(m=50), F64),
@@ -84,18 +101,67 @@ INTRA_CASES = {
     "dense_polish": ("dense", lambda: qp(m=50), {**F64, "polish": True}),
     "sparse": ("sparse", sparse_qp, F64),
     "sparse_polish": ("sparse", sparse_polish_qp, {**F64, "polish": True}),
+    "dense_time_limit": ("dense", lambda: qp(m=50), {**TIGHT, "time_limit": 1e-9}),
+    "sparse_time_limit": ("sparse", sparse_dense_qp, {**TIGHT, "time_limit": 1e-9}),
+    "dense_clock_rank1": ("dense", lambda: qp(m=50), {**F64, "time_limit": LONG_LIMIT}),
+    "dense_sigint_rank1": ("dense", lambda: qp(m=50), TIGHT),
 }
+# what rank 1 does to itself during a case (:func:`_rank1_hook`)
+RANK1_HOOKS = {"dense_clock_rank1": "clock", "dense_sigint_rank1": "sigint"}
+SIGINT_SEGMENT_END = 200  # rank 1 raises SIGINT as the segment to this end starts
 FIELDS = ("x", "y", "status_val", "iter", "obj_val", "pri_res", "dua_res", "rho_updates", "rho_estimate",
           "status_polish", "prim_inf_cert", "dual_inf_cert")
 
 
+@contextlib.contextmanager
+def _rank1_hook(name: str, rank: int):
+    """On rank 1, for a case of ``RANK1_HOOKS``: ``"clock"`` pushes the
+    clock of the entries' agreed stop 1e9 s ahead after its first reading
+    (the solve's start), past ``LONG_LIMIT``; ``"sigint"`` raises SIGINT
+    in this process as the segment ending at ``SIGINT_SEGMENT_END``
+    starts.  Elsewhere nothing."""
+    from osqp_tpu_torch import admm
+    from osqp_tpu_torch.parallel import intra
+
+    hook = RANK1_HOOKS.get(name) if rank == 1 else None
+    if hook == "clock":
+        readings = []
+
+        def pushed():
+            readings.append(None)
+            return time.perf_counter() + (0.0 if len(readings) == 1 else 1e9)
+
+        intra.time = types.SimpleNamespace(perf_counter=pushed)
+        try:
+            yield
+        finally:
+            intra.time = time
+    elif hook == "sigint":
+        run_segment = admm.run_segment
+
+        def interrupted(cfg, data, scl, dyn, c, end_iter):
+            if end_iter == SIGINT_SEGMENT_END:
+                signal.raise_signal(signal.SIGINT)
+            return run_segment(cfg, data, scl, dyn, c, end_iter)
+
+        admm.run_segment = interrupted
+        try:
+            yield
+        finally:
+            admm.run_segment = run_segment
+    else:
+        yield
+
+
 def _intra_suite(out: dict, device: str) -> None:
     import torch
+    import torch.distributed as dist
 
     from osqp_tpu_torch.constants import OSQPError
     from osqp_tpu_torch.parallel import intra, make_mesh, rows, solve_batch_sharded
 
     mesh = make_mesh(device=device)
+    rank = dist.get_rank()
     blocks = []
 
     class Recorded(rows.RowSharded):
@@ -106,12 +172,14 @@ def _intra_suite(out: dict, device: str) -> None:
             blocks.append(self)
 
     intra.RowSharded = Recorded
+    handler = signal.getsignal(signal.SIGINT)
     for name, (entry, data, settings) in INTRA_CASES.items():
         blocks.clear()
         rows.reset_collectives()
         fn = intra.solve_single_sharded if entry == "dense" else intra.solve_single_sharded_sparse
         t0 = time.perf_counter()
-        res = fn(*data(), mesh=mesh, verbose=False, **settings)
+        with _rank1_hook(name, rank):
+            res = fn(*data(), mesh=mesh, verbose=False, **settings)
         out[f"{name}/seconds"] = np.array(time.perf_counter() - t0)
         for f in FIELDS:
             out[f"{name}/{f}"] = getattr(res, f).cpu().numpy()
@@ -120,6 +188,9 @@ def _intra_suite(out: dict, device: str) -> None:
         out[f"{name}/block_stored_rows"] = np.array(blk.local.shape[0] if blk.ell else blk.local.shape[1])
         out[f"{name}/row0"] = np.array(blk.row0)
         out[f"{name}/collectives"] = np.array([rows.collectives[k] for k in sorted(rows.collectives)])
+        out[f"{name}/largest_gather"] = np.array(rows.largest_gather)
+        out[f"{name}/padded_m"] = np.array(blk.m)
+    out["sigint_handler_restored"] = np.array(int(signal.getsignal(signal.SIGINT) is handler))
     try:
         intra.solve_single_sharded(*qp(), mesh=mesh, linsys_solver="dense_inv", verbose=False)
         out["direct_refused"] = np.array(0)
