@@ -633,7 +633,7 @@ def reset_counts() -> None:
     k2.launches_leaf = k2.launches_leaf_cluster = 0
     k8.launches_factor = k8.launches_solve = 0
     k5.launches = k5.launches_group = k5.launches_start = k5.launches_scale = 0
-    k6.launches = k6.launches_loop = 0
+    k6.launches = k6.launches_loop = k6.launches_dense_loop = 0
     k7.launches_factor = k7.launches_solve = k7.launches_factor_warp = k7.launches_solve_warp = 0
     k7.launches_factor_cluster = k7.launches_factor_device = k7.launches_solve_wide = 0
 
@@ -649,7 +649,8 @@ def read_counts() -> dict:
             "term_products": k3.launches,
             "kkt_lu_factor": k8.launches_factor, "kkt_lu_solve": k8.launches_solve, "ell_ops": k5.launches,
             "ell_group": k5.launches_group, "ell_cg_start": k5.launches_start, "ell_scale": k5.launches_scale,
-            "cg_step": k6.launches, "cg_loop": k6.launches_loop, "bt_factor": k7.launches_factor,
+            "cg_step": k6.launches, "cg_loop": k6.launches_loop, "cg_dense_loop": k6.launches_dense_loop,
+            "bt_factor": k7.launches_factor,
             "bt_solve": k7.launches_solve, "bt_factor_warp": k7.launches_factor_warp,
             "bt_solve_warp": k7.launches_solve_warp, "bt_factor_cluster": k7.launches_factor_cluster,
             "bt_factor_device": k7.launches_factor_device, "bt_solve_wide": k7.launches_solve_wide}
@@ -1248,7 +1249,8 @@ def phase_headline(dev):
         require(launches[name] > 0, f"{name}, a kernel of the batched path, never launched")
     require(launches["ruiz_resident"] == launches["ruiz"], "the headline's K4 did not take the resident path")
     require(launches["kkt_lu_factor"] == launches["kkt_lu_solve"] == 0, "K8 launched with polish off")
-    require(launches["ell_ops"] == launches["cg_step"] == 0, "K5 or K6 launched on the dense_inv path")
+    require(launches["ell_ops"] == launches["cg_step"] == launches["cg_dense_loop"] == 0,
+            "K5 or K6 launched on the dense_inv path")
     require(launches["chol_inverse_leaf_cluster"] == 0, "a K2 leaf took the cluster form at the headline")
 
     times = []
@@ -1377,7 +1379,8 @@ def phase_solver(dev):
     for name, n_launch in total.items():
         if name.startswith("kkt_lu"):  # polish is off here: K8 must stay out of it
             require(n_launch == 0, f"{name} launched on the Solver path with polish off")
-        elif name in ("ell_ops", "ell_group", "ell_cg_start", "ell_scale", "cg_step", "cg_loop", "bt_factor",
+        elif name in ("ell_ops", "ell_group", "ell_cg_start", "ell_scale", "cg_step", "cg_loop", "cg_dense_loop",
+                      "bt_factor",
                       "bt_solve", "bt_factor_warp",
                       "bt_solve_warp", "bt_factor_cluster", "bt_factor_device",
                       "bt_solve_wide", "ruiz_sweep"):  # other backends' kernels, the row-sharded path's K4 steps
@@ -2166,19 +2169,21 @@ def loop_step_line(label, plan, device_ms, steps, bound_ms) -> str:
 
 def stepwise_everywhere():
     """A measurement hook: while it is in force pcg_solve takes the stepwise
-    path on ELL operators too, so that one call times both paths."""
+    path on ELL and dense operators too, so that one call times both
+    paths (and the row-sharded entries' unsharded reference takes their
+    path)."""
     import contextlib
 
     from osqp_tpu_torch.ops import cg as k6
 
     @contextlib.contextmanager
     def hook():
-        loop = k6.pcg_solve_loop
-        k6.pcg_solve_loop = k6.pcg_solve_stepwise
+        loop, dense = k6.pcg_solve_loop, k6.pcg_solve_dense_loop
+        k6.pcg_solve_loop = k6.pcg_solve_dense_loop = k6.pcg_solve_stepwise
         try:
             yield
         finally:
-            k6.pcg_solve_loop = loop
+            k6.pcg_solve_loop, k6.pcg_solve_dense_loop = loop, dense
 
     return hook()
 
@@ -2212,16 +2217,41 @@ def unfused_start():
     return hook()
 
 
+def dense_loop_cost(B, n, m, itemsize, steps, starts):
+    """(bytes, operations) of the dense loop's solves of B instances: the
+    operands (P, A) read once and b, dinv, x0 and w read and x written
+    once; per CG step and per start from x0 (``steps`` and ``starts`` over
+    the batch) the products' n^2 + 2 m n multiply-adds, two operations
+    each, and some 18 n + m operations of the vector work.  The loop
+    rounds every multiply and every add on its own, so each takes the slot
+    of an FMA: its operations floor is twice this operations figure
+    (k7_no_fma_ms)."""
+    nbytes = itemsize * B * (n * n + m * n + 4 * n + m)
+    ops = (steps + starts) * (2 * (n * n + 2 * m * n) + 18 * n + m)
+    return nbytes, {"float32" if itemsize == 4 else "float64": ops}
+
+
+K6_DENSE_LOOP = ("dense_loop_kernel",)
+
+
 def phase_k6(dev):
     """K6 against its plain loop: one cg solve from a mid-solve ADMM state
-    of CVXQP2_L (float64, ELL operands: the device loop; iteration 100) and
-    of the headline data (dense, B=8192, float32: the step kernels;
-    iteration 25, every fourth instance frozen by a huge tolerance): steps
-    equal, x bit for bit, frozen instances bit-unchanged, two runs
-    bit-identical; at CVXQP2_L the stepwise path on the same operator,
-    bit for bit, and the ms per CG step of both; one step's vector work
-    timed against the plain step and the bound.  Returns the step's stats
-    at the headline (the stepwise path's main user) and the loop's."""
+    of CVXQP2_L (float64, ELL operands: the device loop; iteration 100)
+    and of dense data (the dense loop): the headline (B=8192, float32 and
+    float64; iteration 25, every fourth instance frozen by a huge
+    tolerance), its first 1024 instances, and one streamed B=1 QP (n=1000,
+    m=1250, float64: its operands beyond any cluster).  Steps equal, x bit
+    for bit, frozen instances bit-unchanged, two runs bit-identical, one
+    loop launch and no step launch; the dense loop against its plain twin
+    (pcg_solve_plain over DenseOperator.ordered, both sums in the kernel's
+    order).  At CVXQP2_L and at every dense case the stepwise path on the
+    same operator in the same call (stepwise_everywhere: ELL bit for bit,
+    dense its own products' order) and the ms per CG step of both, the
+    loop's device ms per step beside its bound (FMA-rated, and without
+    FMA); one step's vector work held bit for bit to cg_step_plain and
+    timed against it and the bound at B=1, n=1000, float64 (the row-sharded
+    dense solve's step shape), at the headline and at B=1024.  Returns the step's stats, the ELL loop's and the dense loop's
+    (the headline float32's, the others under their labels)."""
     import torch
 
     from osqp_tpu_torch import admm, _build, batch, solver
@@ -2239,6 +2269,18 @@ def phase_k6(dev):
         return [fac["P"], scaled.A, fac["sigma"], rs.rho_vec, fac["dinv"], b, c.it.x, fac["tol_rel"],
                 int(fac["max_iter"])]
 
+    def dense_state(B, n, m, dtype, frozen=True, seed=0):
+        s = solver.Settings(**{**SOLVE_KW, "dtype": dtype_name(dtype), "linsys_solver": "cg"})
+        cfg = solver.make_config(n, m, s, dtype)
+        dyn = DynSettings.make(dtype, eps_abs=s.eps_abs, eps_rel=s.eps_rel)
+        P, q, A, l, u = on_device(make_qps(B, n, m, seed=seed), dtype, dev)
+        rho0 = torch.full((B,), s.rho, dtype=dtype, device=dev)
+        args = mid_solve(cfg, dyn, *batch._prepare(cfg, s.scaling, P, q, A, l, u, rho0, dyn, None, None), 25)
+        args[7] = args[7].clone()
+        if frozen:
+            args[7][::4] = 1e9
+        return args
+
     def timed(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2246,84 +2288,139 @@ def phase_k6(dev):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
+    def first(args, B):
+        return [a[:B].contiguous() if isinstance(a, torch.Tensor) and a.ndim and a.shape[0] > B else a
+                for a in args]
+
     B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
-    s = solver.Settings(**{**SOLVE_KW, "linsys_solver": "cg"})
-    cfg = solver.make_config(n, m, s, torch.float32)
-    dyn = DynSettings.make(torch.float32, eps_abs=s.eps_abs, eps_rel=s.eps_rel)
-    P, q, A, l, u = on_device(make_qps(B, n, m), torch.float32, dev)
-    rho0 = torch.full((B,), s.rho, dtype=torch.float32, device=dev)
-    head = mid_solve(cfg, dyn, *batch._prepare(cfg, s.scaling, P, q, A, l, u, rho0, dyn, None, None), 25)
-    head[7] = head[7].clone()
-    head[7][::4] = 1e9
+    head32 = dense_state(B, n, m, torch.float32)
+    head64 = dense_state(B, n, m, torch.float64)
     cases = (("CVXQP2_L B=1 n=10000 m=12500 float64, ELL", mid_solve(*sparse_prepared("CVXQP2_L", "float64", dev), 100)),
-             (f"headline B={B} n={n} m={m} float32, dense", head))
-    step_stats = loop_stats = None
+             (f"headline B={B} n={n} m={m} float32, dense", head32),
+             (f"headline B={B} n={n} m={m} float64, dense", head64),
+             (f"headline's first B=1024 float32, dense", first(head32, 1024)),
+             (f"headline's first B=1024 float64, dense", first(head64, 1024)),
+             ("B=1 n=1000 m=1250 float64, dense, streamed", dense_state(1, 1000, 1250, torch.float64, frozen=False,
+                                                                          seed=3)))
+    loop_stats = None
+    step_stats, dense_stats = {}, {}
     for label, args in cases:
-        x0 = args[6]
+        Pm, Am, sigma, rho, dinv, b, x0, tol_rel, max_iter = args
+        ell = label.endswith("ELL")
+        op = k6._operator(Pm, Am, rho, plain=False)
         xk2, sk2 = k6.cg_solve(*args)
-        before, before_loop = k6.launches, k6.launches_loop
+        before = read_counts()
         (xk, sk), solve_ms = timed(lambda: k6.cg_solve(*args))
-        launched, loops = k6.launches - before, k6.launches_loop - before_loop
-        (xp, sp), plain_ms = timed(lambda: k6.cg_solve_plain(*args, dot=k6.kernel_dot))
+        counted = {k: v - before[k] for k, v in read_counts().items()}
+        if ell:
+            plain = lambda: k6.cg_solve_plain(*args, dot=k6.kernel_dot)  # noqa: E731
+        else:
+            plain = lambda: k6.pcg_solve_plain(op.ordered, sigma, dinv, b, tol_rel, max_iter, x0,  # noqa: E731
+                                               dot=k6.kernel_dot, start_dot=k6.kernel_dot)
+        (xp, sp), plain_ms = timed(plain)
         diff, rel = rel_err(xk, xp)
         tol = RTOL[dtype_name(xk.dtype)]
         frozen = sk == 0
         steps = int(sk.max())
-        ell = loops > 0
-        print(f"K6 cg {label}: {'device loop' if ell else 'step kernels'}, steps max {steps} (plain {int(sp.max())}), "
-              f"steps equal {torch.equal(sk, sp)}, launched {loops if ell else launched} "
-              f"{'loop' if ell else 'steps'}; x relative difference {rel:.3e} (tol {tol:g}), |k-p|max {diff:.3e}; "
-              f"{int(frozen.sum())} frozen instances bit-unchanged {torch.equal(xk[frozen], x0[frozen])}; two runs "
-              f"bit-identical {torch.equal(xk, xk2) and torch.equal(sk, sk2)}; one solve {solve_ms:.3f} ms, "
+        total_steps = int(sk.sum())
+        path = "cg_loop" if ell else "cg_dense_loop"
+        print(f"K6 cg {label}: {'device loop' if ell else 'dense loop'}, steps max {steps} (plain {int(sp.max())}), "
+              f"steps equal {torch.equal(sk, sp)}, launched {counted[path]} loop, {counted['cg_step']} steps; x "
+              f"relative difference {rel:.3e} (tol {tol:g}), |k-p|max {diff:.3e}; {int(frozen.sum())} frozen "
+              f"instances bit-unchanged {torch.equal(xk[frozen], x0[frozen])}; two runs bit-identical "
+              f"{torch.equal(xk, xk2) and torch.equal(sk, sk2)}; one solve {solve_ms:.3f} ms, "
               f"{solve_ms / max(steps, 1):.4f} ms per CG step (with the operator's products)")
-        require(ell == (label.endswith("ELL") and loops == 1 and launched == 0), f"K6 took the wrong path at {label}")
+        require(counted[path] == 1 and counted["cg_step"] == 0 and counted["cg_loop" if not ell else "cg_dense_loop"] == 0,
+                f"K6 took the wrong path at {label}: {nonzero(counted)}")
         require(torch.equal(sk, sp), f"K6 took other steps than its plain loop at {label}")
-        require(rel <= tol and torch.equal(xk, xp), f"K6's x off by {rel:.3e} relative at {label}")
+        require(rel <= tol and same_bits(xk, xp), f"K6's x off by {rel:.3e} relative at {label}")
         require(torch.equal(xk[frozen], x0[frozen]), f"K6 moved a frozen instance at {label}")
         require(torch.equal(xk, xk2) and torch.equal(sk, sk2), f"K6: two runs differ at {label}")
 
-        Pm, Am, sigma, rho, dinv, b, x0, tol_rel, max_iter = args
+        # the stepwise path on the same operator, in the same call
+        before = k6.launches
+        with stepwise_everywhere():
+            (xs, ss), step_ms = timed(lambda: k6.cg_solve(*args))
+        stepped = k6.launches - before
+        same = torch.equal(xs, xk) and torch.equal(ss, sk)
+        print(f"  stepwise path on the same operator: x bit-identical {same}, steps equal {torch.equal(ss, sk)} "
+              f"(max {int(ss.max())}), x max |diff| {float((xs - xk).abs().max()):.3e}; {step_ms:.3f} ms, "
+              f"{step_ms / max(int(ss.max()), 1):.4f} ms per CG step, {stepped} step launches; the loop "
+              f"{solve_ms / step_ms:.4f} of its time; the plain loop {plain_ms / max(steps, 1):.4f} ms per step")
+        require(stepped > 0, f"K6's stepwise path launched no step at {label}")
         if ell:
-            # the stepwise path on the same operator, in the same call
-            op = k6._operator(Pm, Am, rho, plain=False)
-            before = k6.launches
-            (xs, ss), step_ms = timed(lambda: k6.pcg_solve_stepwise(op, sigma, dinv, b, tol_rel, max_iter, x0))
-            stepped = k6.launches - before
-            print(f"  stepwise path on the same operator: x bit-identical {torch.equal(xs, xk)}, steps equal "
-                  f"{torch.equal(ss, sk)}; {step_ms:.3f} ms, {step_ms / max(steps, 1):.4f} ms per CG step, {stepped} "
-                  f"step launches; the loop {solve_ms / step_ms:.4f} of its time; the plain loop "
-                  f"{plain_ms / max(steps, 1):.4f} ms per step")
-            require(torch.equal(xs, xk) and torch.equal(ss, sk), f"K6's loop and stepwise path differ at {label}")
+            require(same, f"K6's loop and stepwise path differ at {label}")
             nbytes, flops = loop_cost(op, b.shape[0], b.shape[1], steps)
-            bound_ms, bound_by = bound(nbytes, flops)
-            plan = k6.last_plan
-            _, _, events = profiled(lambda: k6.cg_solve(*args))
-            device_ms = event_ms(events, K6_LOOP)
-            loop_stats = dict(ms=device_ms / steps, plain_ms=plain_ms / steps, bound_ms=bound_ms / steps,
-                              bound_by=bound_by, library_ms=None, max_abs_err=diff, stepwise_ms=step_ms / steps,
-                              wall_ms=solve_ms / steps, steps=steps, plan=dataclasses.asdict(plan))
-            print(loop_step_line("loop", plan, device_ms, steps, bound_ms / steps) + f" ({bound_by}); one solve's wall "
-                  f"{solve_ms / steps:.4f} ms per step with the start")
+            names = K6_LOOP
+        else:
+            nbytes, flops = dense_loop_cost(b.shape[0], b.shape[1], Am.shape[1], b.element_size(), total_steps,
+                                            int((sk >= 0).sum()))
+            names = K6_DENSE_LOOP
+        bound_ms, bound_by = bound(nbytes, flops)
+        plan = k6.last_plan if ell else k6.last_dense_plan
+        _, _, events = profiled(lambda: k6.cg_solve(*args))
+        device_ms = event_ms(events, names)
+        stats = dict(ms=device_ms / steps, plain_ms=plain_ms / steps, bound_ms=bound_ms / steps, bound_by=bound_by,
+                     library_ms=None, max_abs_err=diff, stepwise_ms=step_ms / max(int(ss.max()), 1),
+                     wall_ms=solve_ms / steps, steps=steps, solve_device_ms=device_ms, solve_bound_ms=bound_ms,
+                     plan=dataclasses.asdict(plan))
+        print(loop_step_line("loop" if ell else "dense loop", plan, device_ms, steps, bound_ms / steps)
+              + f" ({bound_by}); the solve {device_ms:.4f} device ms against its bound {bound_ms:.4f}; one solve's "
+              f"wall {solve_ms / steps:.4f} ms per step with the start")
+        if not ell:
+            # the bound with every rounded operation in an FMA's slot, beside
+            # the FMA-rated one, as the K7 and K8 rows have it
+            no_fma = max(nbytes / HBM_BYTES_PER_S * 1e3, k7_no_fma_ms(flops))
+            stats["bound_no_fma_ms"] = no_fma / steps
+            print(f"  without fused multiply-add: bound {no_fma / steps:.6f} ms per CG step, share "
+                  f"{no_fma / device_ms if device_ms else 0:.3f}")
+        if ell:
+            loop_stats = stats
             require(plan.cluster > 1 and plan.vectors, f"K6's loop did not spread {label} over a cluster")
             continue
+        dense_stats[label] = stats
+        require(plan.resident != label.endswith("streamed"), f"K6's dense loop took the wrong mode at {label}")
 
-        # One step's vector work alone, from the solve's start.
-        products = k6._operator(Pm, Am, rho, plain=False)
-        x, r, z, p, rz, rr, tol2 = k6._start(products, sigma, dinv, b, x0, tol_rel)
-        u, v = products(p)
-        Bn, nn = b.shape
-        pairs = torch.stack([rz, rz]), torch.stack([rr, rr])
-        Mp = torch.empty_like(b)
-        parts = torch.empty((3, Bn, _build.library().osqp_cg_parts(nn)), dtype=b.dtype, device=dev)
-        steps_t = torch.zeros(Bn, dtype=torch.int32, device=dev)
-        kernel = lambda: k6.cg_step(p, u, v, float(sigma), dinv, tol2, *pairs, 0, Mp, x, r, z, parts, steps_t)
-        plain = lambda: k6.cg_step_plain(p, u, v, sigma, dinv, x, r, rz, rr, tol2)
-        elt = b.element_size()
-        # p, u, v, dinv, x, r read and x, r, z, p written once; 16 operations per element
-        t = report_times(f"K6 cg_step {label}", kernel, plain, 50, elt * Bn * nn * 10 + 3 * elt * Bn,
-                         {dtype_name(b.dtype): 16 * Bn * nn})
-        step_stats = dict(t, max_abs_err=diff, library_ms=None)
-    return step_stats, loop_stats
+        # One step's vector work alone, from the solve's start: at the
+        # headline and its first 1024 instances (secondary keys), and at
+        # the streamed B=1 n=1000 float64 case, the shape of the row-sharded
+        # dense solve that runs the step kernels (the row's numbers).
+        at = ((b.shape[0], 1024) if label.startswith("headline B=") else
+              (1,) if label.endswith("streamed") else ())
+        for Bn in at:
+            bb, dd, xx, tt = b[:Bn].contiguous(), dinv[:Bn].contiguous(), x0[:Bn].contiguous(), tol_rel[:Bn]
+            products = k6.DenseOperator(Pm[:Bn].contiguous(), Am[:Bn].contiguous(), rho[:Bn].contiguous())
+            x, r, z, p, rz, rr, tol2 = k6._start(products, sigma, dd, bb, xx, tt.contiguous())
+            u, v = products(p)
+            nn = bb.shape[1]
+            pairs = torch.stack([rz, rz]), torch.stack([rr, rr])
+            Mp = torch.empty_like(bb)
+            parts = torch.empty((3, Bn, _build.library().osqp_cg_parts(nn)), dtype=bb.dtype, device=dev)
+            steps_t = torch.zeros(Bn, dtype=torch.int32, device=dev)
+            # the step against cg_step_plain, its sums in the kernel's order,
+            # on copies: the same bits of x, r, z, p, rz and r'r
+            xc, rc, zc, pc = x.clone(), r.clone(), z.clone(), p.clone()
+            k6.cg_step(pc, u, v, float(sigma), dd, tol2, *pairs, 0, Mp, xc, rc, zc, parts, steps_t)
+            want = k6.cg_step_plain(p, u, v, sigma, dd, x, r, rz, rr, tol2, dot=k6.kernel_dot)
+            got = (xc, rc, zc, pc, pairs[0][1], pairs[1][1])
+            step_diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            step_same = all(same_bits(g, w) for g, w in zip(got, want))
+            where = f"{label.split(',')[0]} at B={Bn}"
+            print(f"K6 cg_step {where}: one step against cg_step_plain (kernel_dot) bit-identical {step_same}, "
+                  f"max |diff| {step_diff:.3e}")
+            require(step_same, f"K6's step differs from cg_step_plain at {where}")
+            kernel = lambda: k6.cg_step(p, u, v, float(sigma), dd, tol2, *pairs, 0, Mp, x, r, z, parts, steps_t)  # noqa: E731
+            plain = lambda: k6.cg_step_plain(p, u, v, sigma, dd, x, r, rz, rr, tol2)  # noqa: E731
+            elt = bb.element_size()
+            # p, u, v, dinv, x, r read and x, r, z, p written once; 16 operations per element
+            t = report_times(f"K6 cg_step {where}", kernel, plain, 50,
+                             elt * Bn * nn * 10 + 3 * elt * Bn, {dtype_name(bb.dtype): 16 * Bn * nn})
+            t["max_abs_err"] = step_diff
+            if Bn == 1:
+                step_stats = dict(t, library_ms=None, at=f"B=1 n={nn} {dtype_name(bb.dtype)}", **step_stats)
+            elif b.dtype == torch.float32:
+                step_stats[f"B{Bn}"] = t
+    return step_stats, loop_stats, dense_stats
 
 
 def cg_step_spy():
@@ -2501,10 +2598,16 @@ def phase_sparse(dev):
 def phase_cg_dense(dev):
     """The cg backend on dense operands: solve_batch on the card against
     the CPU's plain path (float64, B=64, n=20, m=30), then the headline
-    data at B=1024 in float32 beside the dense_inv run."""
+    data at B=1024 in float32 beside the dense_inv run and beside the same
+    cg solve on the step kernels (stepwise_everywhere) in the same call:
+    wall ms, host reads and K6 launches of each; the dense loop's run must
+    launch the dense loop once a CG solve and no step kernel, solve 0.99,
+    give dense_inv's statuses and iterations within one check interval of
+    the stepwise path's."""
     import torch
 
     import osqp_tpu_torch as ot
+    from osqp_tpu_torch import linalg
 
     P, q, A, l, u = make_qps(64, 20, 30, seed=3, dtype=np.float64)
     kw = dict(dtype="float64", verbose=False, linsys_solver="cg")
@@ -2520,32 +2623,44 @@ def phase_cg_dense(dev):
 
     n, m = HEADLINE["n"], HEADLINE["m"]
     args = on_device(make_qps(1024, n, m), torch.float32, dev)
-    out = {}
+    out, walls, counts = {}, {}, {}
     launches = None
-    for backend in ("dense_inv", "cg"):
-        ot.solve_batch(*args, **{**SOLVE_KW, "linsys_solver": backend, "max_iter": 25})  # warm-up
-        if backend == "cg":
+    for leg in ("dense_inv", "cg", "cg stepwise"):
+        backend = leg.split()[0]
+        hook = stepwise_everywhere() if leg.endswith("stepwise") else contextlib.nullcontext()
+        with hook:
+            ot.solve_batch(*args, **{**SOLVE_KW, "linsys_solver": backend, "max_iter": 25})  # warm-up
             reset_counts()
-        before = read_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = ot.solve_batch(*args, **{**SOLVE_KW, "linsys_solver": backend})
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        after = read_counts()
-        if backend == "cg":
+            reads = linalg.host_reads
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ot.solve_batch(*args, **{**SOLVE_KW, "linsys_solver": backend})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            reads = linalg.host_reads - reads
+            after = read_counts()
+        if leg == "cg":
             launches = after
-            require(after["cg_step"] > 0 and after["cg_loop"] == 0, "the cg backend on dense operands left the step kernels")
+            require(after["cg_dense_loop"] > 0 and after["cg_step"] == 0 and after["cg_loop"] == 0,
+                    "the cg backend on dense operands left the dense loop")
         iters = res.iter.float()
         solved = float((res.status_val == ot.OSQP_SOLVED).float().mean())
-        out[backend] = res
-        print(f"{backend} backend headline B=1024 n={n} m={m} f32: solved {solved:.4f}, iterations mean "
-              f"{float(iters.mean()):.2f} max {int(iters.max())}; {wall:.3f} ms; K6 steps launched "
-              f"{after['cg_step'] - before['cg_step']}")
-        require(solved >= 0.99, f"{backend} backend at the headline: solved {solved}")
+        out[leg], walls[leg], counts[leg] = res, wall, after
+        print(f"{leg} backend headline B=1024 n={n} m={m} f32 [{CARD}]: solved {solved:.4f}, iterations mean "
+              f"{float(iters.mean()):.2f} max {int(iters.max())}; {wall:.3f} ms; host reads {reads}; K6 dense loop "
+              f"launches {after['cg_dense_loop']}, step launches {after['cg_step']}")
+        require(solved >= 0.99, f"{leg} backend at the headline: solved {solved}")
     agree = int((out["cg"].status_val == out["dense_inv"].status_val).sum())
-    print(f"cg backend headline: statuses equal to dense_inv's in {agree} of 1024 instances")
-    return launches
+    spread = int((out["cg"].iter - out["cg stepwise"].iter).abs().max())
+    interval = ot.Settings().check_termination
+    print(f"cg backend headline: statuses equal to dense_inv's in {agree} of 1024 instances; iterations within "
+          f"{spread} of the stepwise path's (one check interval: {interval}); wall {walls['cg']:.3f} ms against "
+          f"dense_inv's {walls['dense_inv']:.3f} and the stepwise path's {walls['cg stepwise']:.3f} "
+          f"({walls['cg stepwise'] / walls['cg']:.2f}x); 365.746 before the dense loop")
+    require(agree == 1024, f"the cg backend's statuses differ from dense_inv's in {1024 - agree} instances")
+    require(spread <= interval, f"the dense loop's iterations {spread} from the stepwise path's")
+    return dict(launches, wall_ms=walls["cg"], stepwise_wall_ms=walls["cg stepwise"],
+                dense_inv_wall_ms=walls["dense_inv"], stepwise_steps=counts["cg stepwise"]["cg_step"])
 
 
 # The MPC cell: bench.py's bench_mpc (nx = 8, nu = 4, horizon 30: n = 372,
@@ -3111,8 +3226,9 @@ def phase_dense_ops(dev):
     converged at the start), three steps in turn against the in-place
     launch, and the traced stepwise PCG (pcg_solve_stepwise_program: a
     while_loop of 8 operator steps a turn and a cond for the tail, run
-    eagerly) against the live stepwise path at a cap of 13.  The
-    operators count no launch.  Each operator's ms beside its launch's
+    eagerly) against the live stepwise path at a cap of 13; K6's dense
+    loop (cg_dense_loop) on the same system, from x0 and from zero,
+    against its live launch.  The operators count no launch.  Each operator's ms beside its launch's
     (CUDA events, means of 20 after 2 warm-up calls)."""
     import torch
 
@@ -3201,6 +3317,25 @@ def phase_dense_ops(dev):
     require(ok and counted == 3, "K6's step operator differs from its launch, or counted launches")
     require(loop_ok, "the stepwise program differs from the live stepwise path")
     stats["cg_step"] = dict(op_ms=op_ms, ms=step_ms)
+
+    # K6's dense loop through its operator against the live launch, from x0
+    # and from zero, on the plan the live solve takes
+    ok, counted = True, 0
+    for start in (x0, None):
+        before = read_counts()["cg_dense_loop"]
+        xk, sk = k6.pcg_solve_dense_loop(op, sigma, dinv, b, tol, 300, start)
+        xo, so = k6.pcg_solve_dense_loop_op(op, sigma, dinv, b, tol, 300, start, plan=k6.last_dense_plan)
+        torch.cuda.synchronize()
+        counted += read_counts()["cg_dense_loop"] - before
+        ok = ok and same_bits(xo, xk) and same_bits(so, sk)
+    plan = k6.last_dense_plan
+    dop_ms = cuda_ms(lambda: k6.pcg_solve_dense_loop_op(op, sigma, dinv, b, tol, 300, x0, plan=plan), 5)
+    dl_ms = cuda_ms(lambda: k6.pcg_solve_dense_loop(op, sigma, dinv, b, tol, 300, x0), 5)
+    print(f"K6 operator cg_dense_loop, the same system [{CARD}]: from x0 and from zero bit for bit with the live "
+          f"launch {ok} (launches counted {counted}, 2 expected: the operator's none), steps max {int(sk.max())}; "
+          f"plan {plan_text(plan)}; a solve's ms operator {dop_ms:.4f}, launch {dl_ms:.4f}")
+    require(ok and counted == 2, "K6's dense loop operator differs from its launch, or counted launches")
+    stats["cg_dense_loop"] = dict(op_ms=dop_ms, ms=dl_ms)
     return stats
 
 
@@ -4371,6 +4506,7 @@ EXPORT_KERNELS = {
     "K7 warp solve": ("warp_solve_kernel",),
     "K8 solve": ("lu_solve_kernel", "strip_solve_kernel"),
     "K6 step": ("dot_kernel", "direction_kernel"),
+    "K6 dense loop": ("dense_loop_kernel",),
 }
 SPARSE_EXPORT_KERNELS = ("K5 group", "K5 start", "K5 scale", "K6 loop")
 # The batch of the export legs of kkt_lu, dense_chol and cg at the
@@ -4395,23 +4531,31 @@ def export_job(name, args, kwargs):
     return blob, time.perf_counter() - t0, dict(export.last_seconds), linalg.host_reads - reads
 
 # A process with torch alone: osqp_tpu_torch and osqp_tpu cannot be
-# imported.  For each (blob, inputs, outputs, reps) quadruple it loads the
-# blob (the operators' library into the process, the program by
-# torch.export.load), runs it once to warm, reps times by CUDA events and
-# once under the profiler, and saves the outputs; it prints one JSON line
-# a blob: load ms, call ms, the operators in the program's graphs, the
-# kernels the profiled call launched, its host reads (aten::is_nonzero:
-# the loop's and the branches' predicates, each read by `if pred`; the
-# operators read their settings from host tensors, which waits on nothing)
-# and its six operators of most host time ([name, calls, self ms]).
+# imported.  For each (blob, inputs, outputs, reps, wanted kernels)
+# quintuple it loads the blob (the operators' library into the process,
+# the program by torch.export.load), runs it once to warm, reps times by
+# CUDA events and once under the profiler after a discarded warm-up call
+# in the same profiler (schedule warmup=1, active=1), and saves the
+# outputs; it prints one JSON line a blob: load ms, call ms, the
+# operators in the program's graphs, the kernels the profiled call
+# launched, its host reads (aten::is_nonzero: the loop's and the
+# branches' predicates, each read by `if pred`; the operators read their
+# settings from host tensors, which waits on nothing) and its six
+# operators of most host time ([name, calls, self ms]).  The wanted
+# kernels are a JSON list of groups of names: where a profiled window
+# lacks every name of some group, the profiler dropped device records
+# (once on the H100 it handed back every kernel of a CVXQP2_M call but the
+# first, K4's amax_kernel), so the same call is profiled again, up to
+# three windows in all, and the kernels are those of all windows; reads
+# and host times stay the first window's.
 ARTIFACT_CHILD = r"""
 import io, json, os, sys, tempfile, time
 sys.modules["osqp_tpu_torch"] = None
 sys.modules["osqp_tpu"] = None
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
-for blob_path, args_path, out_path, reps in zip(*[iter(sys.argv[1:])] * 4):
+for blob_path, args_path, out_path, reps, wanted in zip(*[iter(sys.argv[1:])] * 5):
     t0 = time.perf_counter()
     spec = torch.load(blob_path, weights_only=True)
     assert spec["torch_version"] == str(torch.__version__), spec["torch_version"]
@@ -4439,29 +4583,40 @@ for blob_path, args_path, out_path, reps in zip(*[iter(sys.argv[1:])] * 4):
             stop.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(stop))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = solve(*args)
-            torch.cuda.synchronize()
-    events = prof.events()
-    kernels = sorted({e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA})
-    reads = sum(e.name == "aten::is_nonzero" for e in events)
-    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
-    cpu_top = [[e.key, e.count, round(e.self_cpu_time_total / 1e3, 3)] for e in top]
+        kernels, windows = set(), 0
+        for windows in range(1, 4):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+                for _ in range(2):
+                    out = solve(*args)
+                    torch.cuda.synchronize()
+                    prof.step()
+            events = prof.events()
+            kernels |= {e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA}
+            if windows == 1:
+                reads = sum(e.name == "aten::is_nonzero" for e in events)
+                top = sorted((e for e in prof.key_averages() if not e.key.startswith("ProfilerStep")),
+                             key=lambda e: -e.self_cpu_time_total)[:6]
+                cpu_top = [[e.key, e.count, round(e.self_cpu_time_total / 1e3, 3)] for e in top]
+            if all(any(n in k for k in kernels for n in group) for group in json.loads(wanted)):
+                break
+    kernels = sorted(kernels)
     torch.save(dict(zip(spec["fields"], (o.cpu() for o in out))), out_path)
     print(json.dumps({"load_ms": load_ms, "call_ms": times, "ops": ops, "kernels": kernels, "host_reads": reads,
-                      "cpu_top": cpu_top,
+                      "cpu_top": cpu_top, "profiled_windows": windows,
                       "packages": [k for k, v in sys.modules.items() if k.startswith("osqp") and v is not None]}))
 """
 
 
-def run_artifact_child(cases, workdir):
+def run_artifact_child(cases, kernels, workdir):
     """Run ARTIFACT_CHILD over ``cases``, a list of (blob bytes, input
-    tensors, timed calls); returns, for each, (outputs on the card, the
-    child's JSON)."""
+    tensors, timed calls), each wanting the kernels of its entry of
+    ``kernels`` ((label, keys of EXPORT_KERNELS)); returns, for each,
+    (outputs on the card, the child's JSON)."""
     import torch
 
     argv, saved = [], {}
-    for i, (blob, inputs, reps) in enumerate(cases):
+    for i, ((blob, inputs, reps), (_, names)) in enumerate(zip(cases, kernels, strict=True)):
         paths = [os.path.join(workdir, f"{i}.{kind}") for kind in ("blob", "inputs", "outputs")]
         with open(paths[0], "wb") as f:
             f.write(blob)
@@ -4469,14 +4624,14 @@ def run_artifact_child(cases, workdir):
             torch.save([t.cpu() for t in inputs], paths[1])
             saved[id(inputs)] = paths[1]
         paths[1] = saved[id(inputs)]
-        argv += [*paths, str(reps)]
+        argv += [*paths, str(reps), json.dumps([EXPORT_KERNELS[k] for k in names])]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", ARTIFACT_CHILD, *argv], capture_output=True, text=True,
                           cwd=workdir, env=env, timeout=600)
     require(proc.returncode == 0, f"export: the torch-only process failed:\n{proc.stderr[-3000:]}")
     lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
     require(len(lines) == len(cases), f"export: the torch-only process printed {len(lines)} results")
-    return [({k: v.to("cuda") for k, v in torch.load(argv[4 * i + 2]).items()}, lines[i]) for i in range(len(cases))]
+    return [({k: v.to("cuda") for k, v in torch.load(argv[5 * i + 2]).items()}, lines[i]) for i in range(len(cases))]
 
 
 def check_artifact(what, outputs, info, want, kernels):
@@ -4488,7 +4643,7 @@ def check_artifact(what, outputs, info, want, kernels):
     print(f"export {what} [{CARD}], torch-only process: load {info['load_ms']:.3f} ms, call ms "
           f"{[round(t, 3) for t in info['call_ms']]} (median {statistics.median(info['call_ms']):.3f}), "
           f"host reads a call {info['host_reads']}; operators in the program {info['ops']}; kernels by K "
-          f"{found}; osqp packages imported {info['packages']}; fields differing from the live solve in some "
+          f"{found} (profiled windows {info['profiled_windows']}); osqp packages imported {info['packages']}; fields differing from the live solve in some "
           f"bit: {differ}")
     require(not info["packages"], f"export {what}: the torch-only process imported {info['packages']}")
     require(not differ, f"export {what}: the loaded program differs from the live solve in {differ}")
@@ -4504,7 +4659,9 @@ def phase_export(dev):
     dense backends: block_tridiag at the MPC cell (B=1000, n=372, m=612,
     b=12, float32, eps 1e-3: K7's warp factor and solve, K4 split, K3),
     and kkt_lu (K8's batched factor and solve, K4, K3), dense_chol (K4, K3,
-    cuSOLVER's Cholesky) and cg (K6's step, K4, K3) at the headline shape
+    cuSOLVER's Cholesky) and cg (K6's dense loop, K4, K3; its blob's bytes
+    and export seconds beside those of the blob in which each CG solve was 8-step chunks
+    of K6's step operator) at the headline shape
     with B=1024 in float32, each against the live solve_batch(segmented=
     False), its export split into trace, save and the operators' library
     (export.last_seconds); the sparse
@@ -4563,7 +4720,7 @@ def phase_export(dev):
     legs += [(backend, f"{backend} headline shape B={EXPORT_DENSE_B} n={n} m={m} f32", dense,
               dict(SOLVE_KW, linsys_solver=backend), want, EXPORT_DENSE_REPS)
              for backend, want in (("kkt_lu", ("K8", "K8 solve", "K4", "K3")), ("dense_chol", ("K4", "K3")),
-                                   ("cg", ("K6 step", "K4", "K3")))]
+                                   ("cg", ("K6 dense loop", "K4", "K3")))]
     cases, wants, sizes, kernels = [], [], {}, []
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(EXPORT_WORKERS) as pool:
@@ -4679,7 +4836,7 @@ def phase_export(dev):
         sizes["liswet1_polish" if B == 1 else "liswet1_b8"] = len(blob)
 
     with tempfile.TemporaryDirectory() as workdir:
-        runs = run_artifact_child(cases, workdir)
+        runs = run_artifact_child(cases, kernels, workdir)
     for (outputs, info), want, (what, names) in zip(runs, wants, kernels):
         check_artifact(what, outputs, info, want, names)
         leg = sizes.get(what.split()[0])
@@ -4691,6 +4848,12 @@ def phase_export(dev):
                   f"{leg['live_reads']:g}; blob {leg['bytes']} bytes, export {leg['export_s']:.3f} s (trace "
                   f"{leg['trace_s']:.3f}, save {leg['save_s']:.3f}, library {leg['library_s']:.3f}), load "
                   f"{leg['load_ms']:.3f} ms; host time of the profiled call by operator {info['cpu_top']}")
+
+    cg = sizes["cg"]
+    print(f"export cg [{CARD}]: blob {cg['bytes']} bytes against the stepwise program's 24349421, export "
+          f"{cg['export_s']:.3f} s beside the other exports against the stepwise program's 58.514 s alone and 80.925 "
+          f"beside them; a loaded call {cg.get('call_ms', float('nan')):.3f} ms against the live {cg['live_ms']:.3f}, host "
+          f"reads a call {cg.get('reads')} against {cg['live_reads']:g}")
 
     sblob = next(iter(sparse.values()))
     t0 = time.perf_counter()
@@ -4845,8 +5008,12 @@ def phase_parallel(dev):
     solve_batch_sharded at the headline (B=8192, n=100, m=200, float32,
     eps 1e-3, polish off) against solve_batch; solve_single_sharded at a
     dense QP of n=1000, m=8000 (dense_qp, float64, polish on) against
-    solve_batch with the cg backend, and at n=1000, m=2000, whose polish
-    succeeds (PARALLEL_DENSE_POLISHED), each of which must launch K3, K4's
+    solve_batch with the cg backend on the step kernels
+    (stepwise_everywhere: the sharded solve's path, its bits), and at
+    n=1000, m=2000, whose polish succeeds (PARALLEL_DENSE_POLISHED), each
+    also held to the unsharded solve on K6's dense loop by the parity
+    bounds (status, iterations within one check interval, x and y within
+    1e-6), each of which must launch K3, K4's
     step entries, K6's cg_step and, in polish, K2's leaf and no K8: the
     ADMM fields bit for bit, status_polish equal (1 at the second), the polished x, y and
     residuals within PARALLEL_POLISH_ATOL and the objective within
@@ -4914,6 +5081,10 @@ def phase_parallel(dev):
                 require(counts[k] > 0, f"parallel {label}: {k} was launched no time")
             return counts, dict(sharded_ms=statistics.median(t_s), unsharded_ms=statistics.median(t_u))
 
+        def stepwise_solve(fn):
+            with stepwise_everywhere():
+                return fn()
+
         times = {}
         # the instance batch
         B, n, m = HEADLINE["B"], HEADLINE["n"], HEADLINE["m"]
@@ -4943,11 +5114,22 @@ def phase_parallel(dev):
             counts, coll, largest = read_counts(), dict(rows.collectives), rows.largest_gather
             torch.cuda.reset_peak_memory_stats(dev)
             base = torch.cuda.memory_allocated(dev)
-            with PolishProbe() as pol_u:
-                want, ms_u = timed(unsharded)
-            peak_u = torch.cuda.max_memory_allocated(dev) - base
+            # the unsharded reference on the step kernels, the sharded
+            # solve's path (stepwise_everywhere): its bits
+            with stepwise_everywhere():
+                with PolishProbe() as pol_u:
+                    want, ms_u = timed(unsharded)
+                peak_u = torch.cuda.max_memory_allocated(dev) - base
+                with schur_polish():
+                    route = unsharded()
+            # and on the dense loop: the parity bounds
+            before = read_counts()["cg_dense_loop"]
             with schur_polish():
-                route = unsharded()
+                loop, ms_l = timed(unsharded)
+            loop_launches = read_counts()["cg_dense_loop"] - before
+            interval = ot.Settings().check_termination
+            loop_err = {f: float((getattr(got, f) - getattr(loop, f)).abs().max()) for f in ("x", "y")}
+            loop_iters = int((got.iter - loop.iter).abs().max())
             exact = [f for f in PARALLEL_ADMM_FIELDS if not same_bits(getattr(got, f), getattr(want, f))]
             err = {f: float((getattr(got, f) - getattr(want, f)).abs().max())
                    for f in ("x", "y", "pri_res", "dua_res")}
@@ -4965,13 +5147,19 @@ def phase_parallel(dev):
                   f"polish ms sharded {pol_s.ms:.3f}, unsharded {pol_u.ms:.3f}; peak memory above what the phase held "
                   f"sharded {peak_s} B, unsharded {peak_u} B (torch.cuda.max_memory_allocated); largest all-gather {largest} elements "
                   f"(B m = {B_m}); collectives {coll}; launches {nonzero(counts)}; in the sharded polish "
-                  f"{nonzero(pol_s.launches)}, in the unsharded {nonzero(pol_u.launches)}")
+                  f"{nonzero(pol_s.launches)}, in the unsharded {nonzero(pol_u.launches)}; against the unsharded "
+                  f"solve on the dense loop (Schur polish; {loop_launches} dense loop launches, {ms_l:.3f} ms): status "
+                  f"{loop.status_val.tolist()}, iterations {loop.iter.tolist()} (within {loop_iters}, interval "
+                  f"{interval}), max |diff| x {loop_err['x']:.3e}, y {loop_err['y']:.3e} (tolerance 1e-6)")
             require(not exact, f"parallel {label}: ADMM fields {exact} differ from the unsharded solve")
             require(same_bits(got.status_polish, want.status_polish), f"parallel {label}: status_polish differs")
             require(not polished or int(got.status_polish[0]) == 1, f"parallel {label}: the sharded polish failed")
             require(max(err.values()) <= PARALLEL_POLISH_ATOL and obj_rel <= PARALLEL_POLISH_OBJ_RTOL,
                     f"parallel {label}: polished fields off the unsharded polish: {err}, obj {obj_rel:.3e}")
             require(not differ_route, f"parallel {label}: off the Schur-route unsharded solve in {differ_route}")
+            require(loop_launches > 0 and same_bits(got.status_val, loop.status_val) and loop_iters <= interval
+                    and max(loop_err.values()) <= 1e-6, f"parallel {label}: off the dense loop's unsharded solve "
+                    f"beyond the parity bounds: iterations {loop_iters}, {loop_err}")
             for k in ("term_products", "ruiz_sweep", "cg_step", "chol_inverse_leaf"):
                 require(counts[k] > 0, f"parallel {label}: {k} was launched no time")
             require(counts["ruiz"] == 0, f"parallel {label}: the sharded dense solve ran K4 whole")
@@ -5051,8 +5239,9 @@ def phase_parallel(dev):
         for label, sharded, unsharded in (
                 (f"dense n={d['n']} m={d['m']}", lambda: parallel.solve_single_sharded(
                     P, q, A, l, u, mesh=mesh, dtype="float64", verbose=False, **PARALLEL_TIME_LIMIT),
-                 lambda: ot.solve_batch(P[None], q[None], A[None], l[None], u[None], device=dev, linsys_solver="cg",
-                                        dtype="float64", verbose=False, **PARALLEL_TIME_LIMIT)),
+                 lambda: stepwise_solve(lambda: ot.solve_batch(P[None], q[None], A[None], l[None], u[None], device=dev,
+                                                               linsys_solver="cg", dtype="float64", verbose=False,
+                                                               **PARALLEL_TIME_LIMIT))),
                 ("sparse CVXQP2_L", lambda: parallel.solve_single_sharded_sparse(
                     *cvxqp2_l, mesh=mesh, dtype="float64", verbose=False, **PARALLEL_TIME_LIMIT),
                  lambda: ot.solve_sparse(*cvxqp2_l, device=dev, dtype="float64", verbose=False,
@@ -5142,7 +5331,8 @@ OPERATORS = {
     "admm_iter_refined_resident": "admm_iter_refined_resident", "chol_inverse": "chol_inverse", "ruiz": "ruiz",
     "ruiz_sweep": None, "term_products": "term_products", "kkt_lu_factor": "kkt_lu_factor_blocks",
     "kkt_lu_solve": "kkt_lu_solve", "ell_group": "ell_group", "ell_cg_start": "ell_cg_start",
-    "ell_scale": "ell_scale", "cg_step": "cg_step", "cg_step_polish_pcg": "cg_loop", "k7_factor": "bt_factor",
+    "ell_scale": "ell_scale", "cg_step": "cg_step", "cg_dense_loop": "cg_dense_loop",
+    "cg_step_polish_pcg": "cg_loop", "k7_factor": "bt_factor",
     "k7_solve": "bt_solve", "cg_loop": "cg_loop", "block_tridiag_factor_device": "bt_factor",
     "block_tridiag_factor_cluster": "bt_factor", "block_tridiag_solve_wide": "bt_solve",
     "chol_inverse_leaf": "chol_inverse_leaf", "chol_inverse_leaf_cluster": "chol_inverse_leaf_cluster",
@@ -5204,7 +5394,7 @@ def main() -> int:
     run_phase(phase_polish_solver, dev)
     run_phase(phase_kkt_lu_backend, dev)
     k5_group_stats, k5_start_stats, k5_scale_stats = run_phase(phase_k5, dev)
-    k6_stats, loop_stats = run_phase(phase_k6, dev)
+    k6_stats, loop_stats, dense_stats = run_phase(phase_k6, dev)
     sparse_launches, sparse_paths = run_phase(phase_sparse, dev)
     cg_dense_launches = run_phase(phase_cg_dense, dev)
     k7_factor_stats, k7_solve_stats = run_phase(phase_k7, dev)
@@ -5230,8 +5420,12 @@ def main() -> int:
     # kernels the sparse path's CVXQP2_L solve (times at CVXQP2_L in
     # float64: P x with A x for ell_group, A x alone and B=64 beside it;
     # the fused start, both launches, for ell_cg_start; the scaling); for
-    # K6's step kernels the cg backend's dense solve at B=1024 (times: one
-    # step at the headline shape, B=8192); for K6's device loop the
+    # K6's step kernels the row-sharded dense solve of the parallel phase
+    # (n=1000, m=8000; times: one step at B=1, n=1000, float64, the step
+    # kernels' shape there, and at the headline, float32, under B8192 and
+    # B1024); for K6's dense loop the cg backend's dense
+    # solve at B=1024 (times per CG step at the headline, B=8192 float32,
+    # the other dense cases of phase k6 under their labels); for K6's device loop the
     # CVXQP2_L solve (times per CG step, and the stepwise path's beside
     # them under stepwise_ms); for K7 the MPC cell's block_tridiag solve
     # (times at the MPC cell, B=1000, float32); for K1r's resident path the
@@ -5281,7 +5475,15 @@ def main() -> int:
         dict(name="ell_scale", route="cuda", source="osqp_tpu_torch/csrc/ell_ops.cu",
              replaces="osqp_tpu/sparse_ops.py:167", launches=sparse_launches["ell_scale"], **k5_scale_stats),
         dict(name="cg_step", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",
-             replaces="osqp_tpu/linsys/cg.py:129", launches=cg_dense_launches["cg_step"], **k6_stats),
+             replaces="osqp_tpu/linsys/cg.py:129", launches=parallel_launches["cg_step"],
+             launches_cg_B1024_stepwise=cg_dense_launches["stepwise_steps"], **k6_stats),
+        dict(name="cg_dense_loop", route="cuda", source="osqp_tpu_torch/csrc/cg_dense.cu",
+             replaces="osqp_tpu/linsys/cg.py:141", launches=cg_dense_launches["cg_dense_loop"],
+             cg_B1024_wall_ms=cg_dense_launches["wall_ms"],
+             cg_B1024_stepwise_wall_ms=cg_dense_launches["stepwise_wall_ms"],
+             cg_B1024_dense_inv_wall_ms=cg_dense_launches["dense_inv_wall_ms"],
+             cases={k: v for k, v in dense_stats.items() if not k.startswith("headline B=8192 n=100 m=200 float32")},
+             **next(v for k, v in dense_stats.items() if k.startswith("headline B=8192 n=100 m=200 float32"))),
         dict(name="cg_step_polish_pcg", route="cuda", source="osqp_tpu_torch/csrc/cg.cu",
              replaces="osqp_tpu/polish.py:65", launches=polish_loops,
              launches_solve=polish_launches_sparse["cg_loop"], paths=polish_paths, **pcg_stats),
@@ -5318,6 +5520,7 @@ def main() -> int:
         k["operator"] = OPERATORS[k["name"]]
     by_name = {k["name"]: k for k in kernels}
     by_name["cg_step"]["operator_ms"] = op_stats["cg_step"]["op_ms"]
+    by_name["cg_dense_loop"]["operator_ms"] = op_stats["cg_dense_loop"]["op_ms"]
     for row, key in (("k7_factor", "k7 warp"), ("block_tridiag_factor_cluster", "k7 cluster"),
                      ("block_tridiag_factor_device", "k7 device")):
         by_name[row]["operator_ms"] = op_stats[key]["factor_op_ms"]

@@ -80,6 +80,9 @@ _SIGNATURES = {
     "osqp_cg_loop": (_I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _D, _D) + (_P,) * 11 + (_I,) * 9 + (_P,),
     "osqp_cg_loop_smem": (_I,) * 9,
     "osqp_cg_loop_clusters": (_I,) * 6,
+    "osqp_cg_dense_loop": (_I, _P, _P, _P, _D) + (_P,) * 7 + (_I,) * 9 + (_P,),
+    "osqp_cg_dense_loop_smem": (_I,) * 6,
+    "osqp_cg_dense_loop_clusters": (_I,) * 6,
     "osqp_bt_factor": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "osqp_bt_solve": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "osqp_bt_quotients": (_I, _P, _P, _P, _I, _P),
@@ -261,6 +264,8 @@ def library() -> ctypes.CDLL:
             lib.osqp_kkt_lu_factor_scratch.restype = ctypes.c_longlong
             lib.osqp_term_products_scratch.argtypes = (_I,) * 7
             lib.osqp_term_products_scratch.restype = ctypes.c_longlong
+            lib.osqp_cg_dense_loop_scratch.argtypes = (_I,) * 6
+            lib.osqp_cg_dense_loop_scratch.restype = ctypes.c_longlong
             _lib = lib
     return _lib
 

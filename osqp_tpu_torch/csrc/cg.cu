@@ -1,7 +1,9 @@
 // K6: the batched Jacobi-preconditioned conjugate gradient, warm-started,
 // with converged instances frozen: one step's vector work per launch
-// (cg_step), and on ELL operands the whole solve in one launch, each
-// instance's solve on one thread-block cluster (cg_loop).
+// (cg_step, for the row-sharded operators, whose products wait on other
+// ranks' collectives), and on ELL operands the whole solve in one launch,
+// each instance's solve on one thread-block cluster (cg_loop).  Dense
+// operands have a loop of their own, csrc/cg_dense.cu.
 //
 // Replaces the while loop of osqp_tpu/linsys/cg.py:129-169 (solve), which
 // solves (P + sigma I + A' diag(rho) A) x = b for every instance of the
@@ -9,8 +11,8 @@
 // S = P + d I + (MA)'(MA) / d.
 //
 // The step, three launches over the (B, n) vectors, from the caller's
-// operator products (K5 launches on ELL operands, batched GEMVs on dense
-// ones):
+// operator products (a row-sharded A's products and collectives, or any
+// operator's):
 //
 //   dot_kernel        Mp = (P p + sigma p) + V p;  partials of p'Mp
 //   update_kernel     alpha = rz / p'Mp, 0 where r'r <= tol^2 (the freeze);
@@ -118,6 +120,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "cg_sums.cuh"
 #include "cluster.cuh"
 #include "common.cuh"
 #include "ell_gather.cuh"
@@ -125,13 +128,6 @@
 namespace {
 
 using namespace osqp_cuda;
-
-constexpr int kMaxParts = 64;  // blocks per instance at most
-
-inline int parts_of(int n) {
-  const int p = (n + kThreads - 1) / kThreads;
-  return p < 1 ? 1 : (p > kMaxParts ? kMaxParts : p);
-}
 
 // Sum of v over the block in a fixed order: a butterfly within each warp,
 // then warp 0 adds the warps' sums.  Every thread gets the result.
@@ -309,37 +305,6 @@ struct LoopArgs {
   int kp, ka, kt, B, n, m, max_iter, C;
   LoopGeom g;
 };
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = add(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// block_sum's last stage, the butterfly of warp 0 over the kWarps warps'
-// sums with +0 in the other lanes: the levels at offsets 16 and 8 add +0
-// to lanes below 8, which turns a -0 into +0 and changes no other value,
-// so one addition of +0 stands for them.  Every lane below 8 gets the sum.
-template <typename T>
-__device__ __forceinline__ T warps_sum(T v) {
-  static_assert(kWarps == 8, "the butterfly below is block_sum's over 8 warps");
-  v = add(v, T(0));
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1) v = add(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// parts_sum of parts <= 64 partials by one warp, every lane getting it:
-// block_sum's warps 0 and 1 over partials [0, 32) and [32, 64), its warps
-// 2-7 over zeros (+0), then its warp 0 over the eight warps' sums, whose
-// butterfly adds +0 to the first two sums four times and then adds them.
-template <typename T>
-__device__ __forceinline__ T parts_total(const T* part, int parts, int lane) {
-  const T a = warp_sum(lane < parts ? add(T(0), part[lane]) : T(0));
-  const T b = parts > 32 ? warp_sum(lane + 32 < parts ? add(T(0), part[lane + 32]) : T(0)) : T(0);
-  return add(add(a, T(0)), add(b, T(0)));
-}
 
 template <typename U>
 __device__ __forceinline__ void copy_in(U* __restrict__ dst, const U* __restrict__ src, size_t count) {

@@ -5,7 +5,8 @@
 // the KKT blocks and its solve), those of the sparse cg solve and its
 // polish (K5's grouped products, its fused CG start and its scaling, K6's
 // device loop), and those of the other dense backends (K7's factor and
-// solve for block_tridiag, K6's step for cg on dense operands).
+// solve for block_tridiag, K6's dense loop for cg on dense operands, and
+// K6's step, which the row-sharded operators' PCG takes).
 //
 // No kernel is new here.  Each operator calls the same extern "C" entry
 // that the ctypes path calls (the wrappers in ops/), on PyTorch's current
@@ -30,7 +31,8 @@
 // int lists and writes the same words here.  K6's loop writes x, r, z and
 // p in place and counts instances in steps[B]: its operator writes copies
 // of the start it is given and a counter it zeroes, and returns x and the
-// steps.  K6's step updates p, x, r, z and the steps in place and writes
+// steps (its dense loop computes its own start: its operator gives it a
+// new x and a zeroed counter).  K6's step updates p, x, r, z and the steps in place and writes
 // rz and r'r to the other slots of ping-pong pairs: its operator writes
 // copies and returns all seven.
 #include <cstdint>
@@ -108,6 +110,13 @@ int osqp_cg_loop(int dtype, const void* pv, const void* pi, int kp, const void* 
                  int vectors, int clusters, void* stream);
 int osqp_cg_loop_smem(int dtype, int n, int m, int kp, int ka, int kt, int cluster, int resident, int vectors);
 int osqp_cg_loop_clusters(int dtype, int cluster, int threads, int smem, int resident, int vectors);
+int osqp_cg_dense_loop(int dtype, const void* P, const void* A, const void* w, double sigma, const void* dinv,
+                       const void* b, const void* x0, const void* tol2, void* x, void* steps, void* scratch, int B,
+                       int n, int m, int max_iter, int cluster, int threads, int resident, int vectors, int clusters,
+                       void* stream);
+int osqp_cg_dense_loop_smem(int dtype, int n, int m, int cluster, int resident, int vectors);
+long long osqp_cg_dense_loop_scratch(int dtype, int n, int m, int cluster, int vectors, int clusters);
+int osqp_cg_dense_loop_clusters(int dtype, int cluster, int threads, int smem, int resident, int vectors);
 int osqp_cg_step(int dtype, void* p, const void* u, const void* v, const void* dinv, const void* tol2, const void* rz,
                  const void* rr, void* Mp, void* x, void* r, void* z, void* rz_next, void* rr_next, void* part,
                  void* steps, double sigma, int B, int n, void* stream);
@@ -651,6 +660,49 @@ std::tuple<Tensor, Tensor> cg_loop_cuda(const Tensor& pv, const Tensor& pi, cons
   return {xo, steps.narrow(0, 0, B)};
 }
 
+std::tuple<Tensor, Tensor> cg_dense_loop_meta(const Tensor&, const Tensor&, const Tensor&, const Tensor&,
+                                              const Tensor&, const Tensor& b, const OptTensor&, const Tensor&,
+                                              int64_t, int64_t, int64_t, int64_t, int64_t, int64_t) {
+  return {at::empty_like(b), at::empty({b.size(0)}, b.options().dtype(at::kInt))};
+}
+
+// The whole CG solve of every instance on dense operands in one launch of
+// the dense loop, from x0 (zeros where absent), its start included, on
+// the plan (ops/cg.py:dense_loop_plan) it is given: clusters of `cluster`
+// CTAs of `threads` threads, the rows of P and A and the vectors in
+// shared memory as `resident` and `vectors` say, `clusters` clusters at
+// once, which the card must hold.  tol2: the squared tolerances.
+std::tuple<Tensor, Tensor> cg_dense_loop_cuda(const Tensor& P, const Tensor& A, const Tensor& w, const Tensor& sigma,
+                                              const Tensor& dinv, const Tensor& b, const OptTensor& x0,
+                                              const Tensor& tol2, int64_t max_iter, int64_t cluster, int64_t threads,
+                                              int64_t resident, int64_t vectors, int64_t clusters) {
+  same("cg_dense_loop", b, {&P, &A, &w, &dinv, &b, &tol2});
+  if (x0.has_value()) same("cg_dense_loop", b, {&*x0});
+  c10::cuda::CUDAGuard guard(b.device());
+  const int code = code_of(b), B = b.size(0), n = b.size(1), m = A.size(1);
+  TORCH_CHECK(P.sizes() == at::IntArrayRef({B, n, n}) && A.sizes() == at::IntArrayRef({B, m, n}) &&
+                  w.sizes() == at::IntArrayRef({B, m}) && dinv.sizes() == b.sizes() &&
+                  tol2.sizes() == at::IntArrayRef({B}) && (!x0.has_value() || x0->sizes() == b.sizes()),
+              "cg_dense_loop: P ", P.sizes(), ", A ", A.sizes(), ", w ", w.sizes(), " and b ", b.sizes(), " disagree");
+  Tensor steps = at::zeros({B + 1}, b.options().dtype(at::kInt));
+  if (B == 0 || n == 0 || max_iter <= 0)
+    return {x0.has_value() ? x0->clone() : at::zeros(b.sizes(), b.options()), steps.narrow(0, 0, B)};
+  TORCH_CHECK(cluster >= 1 && cluster <= 16 && (cluster & (cluster - 1)) == 0, "cg_dense_loop: clusters of ",
+              cluster, " CTAs (a power of two up to 16)");
+  TORCH_CHECK(threads == 256 || threads == 512 || threads == 768, "cg_dense_loop: CTAs of ", threads, " threads");
+  const int smem = osqp_cg_dense_loop_smem(code, n, m, cluster, resident, vectors);
+  const int held = osqp_cg_dense_loop_clusters(code, cluster, threads, smem, resident, vectors);
+  TORCH_CHECK(clusters >= 1 && clusters <= held, "cg_dense_loop: planned for ", clusters, " clusters of ", cluster,
+              " CTAs at once, the card holds ", held);
+  const int at_once = clusters < B ? clusters : B;
+  Tensor x = at::empty_like(b), scratch = bytes(b, osqp_cg_dense_loop_scratch(code, n, m, cluster, vectors, at_once));
+  check(osqp_cg_dense_loop(code, cptr(P), cptr(A), cptr(w), scalar(sigma), cptr(dinv), cptr(b), cptr(x0), cptr(tol2),
+                           ptr(x), ptr(steps), ptr(scratch), B, n, m, max_iter, cluster, threads, resident, vectors,
+                           at_once, stream_of(b)),
+        "cg_dense_loop");
+  return {x, steps.narrow(0, 0, B)};
+}
+
 // One step's vector work (the three step kernels) from the direction p
 // and its products u = P p and v = A'(rho A p) (none without rows of A):
 // the new p, x, r, z, rz, r'r and steps, in copies of the inputs, as the
@@ -795,6 +847,8 @@ TORCH_LIBRARY(osqp_tpu_torch, m) {
   m.def("cg_loop(Tensor pv, Tensor pi, Tensor av, Tensor ai, Tensor tv, Tensor ti, Tensor? w, Tensor sigma,"
         " Tensor? div, Tensor dinv, Tensor tol2, Tensor rz, Tensor rr, Tensor x, Tensor r, Tensor z, Tensor p,"
         " int max_iter, int cluster, int threads, int resident, int vectors, int clusters) -> (Tensor, Tensor)");
+  m.def("cg_dense_loop(Tensor P, Tensor A, Tensor w, Tensor sigma, Tensor dinv, Tensor b, Tensor? x0, Tensor tol2,"
+        " int max_iter, int cluster, int threads, int resident, int vectors, int clusters) -> (Tensor, Tensor)");
   m.def("cg_step(Tensor p, Tensor u, Tensor? v, Tensor dinv, Tensor tol2, Tensor rz, Tensor rr, Tensor x, Tensor r,"
         " Tensor z, Tensor steps, Tensor sigma) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)");
   m.def("bt_factor(Tensor M, int b, int path, int cluster) -> (Tensor, Tensor)");
@@ -816,6 +870,7 @@ TORCH_LIBRARY_IMPL(osqp_tpu_torch, CUDA, m) {
   m.impl("ell_cg_start", &ell_cg_start_cuda);
   m.impl("ell_scale", &ell_scale_cuda);
   m.impl("cg_loop", &cg_loop_cuda);
+  m.impl("cg_dense_loop", &cg_dense_loop_cuda);
   m.impl("cg_step", &cg_step_cuda);
   m.impl("bt_factor", &bt_factor_cuda);
   m.impl("bt_solve", &bt_solve_cuda);
@@ -836,6 +891,7 @@ TORCH_LIBRARY_IMPL(osqp_tpu_torch, Meta, m) {
   m.impl("ell_cg_start", &ell_cg_start_meta);
   m.impl("ell_scale", &ell_scale_meta);
   m.impl("cg_loop", &cg_loop_meta);
+  m.impl("cg_dense_loop", &cg_dense_loop_meta);
   m.impl("cg_step", &cg_step_meta);
   m.impl("bt_factor", &bt_factor_meta);
   m.impl("bt_solve", &bt_solve_meta);

@@ -15,51 +15,68 @@ M = P + sigma I + A' diag(rho) A; polish passes its own operator
 V p = A'(rho * A p) or polish's V p = A'(A p) / d); on dense ones a
 :class:`DenseOperator` of batched GEMVs.
 
-For CUDA tensors the path follows the operator's type.  An
-:class:`EllOperator` runs the whole solve in one launch of the loop in
-``csrc/cg.cu`` (:func:`pcg_solve_loop`, counted in ``launches_loop``):
-each instance's solve on one thread-block cluster, its state in the
-cluster's shared memory, the products, the step and the stop test on the
-device, two cluster barriers and two waits for the partial sums a step,
-and the host reads nothing until the end.  :func:`loop_plan` cuts the
-batch over the card: the cluster size, the CTAs' width, whether the
-operands' rows stay in shared memory too, and the clusters at once.  Each
-instance stops on its own, at its freeze or at ``max_iter``: a frozen
-instance of a batch loop keeps its x, r and r'r bit for bit and only its
-p moves, and the solve returns x and the steps alone, so this changes no
-bit of the result (``csrc/cg.cu`` states the argument and its one
-exception, a start whose r'r lies within a few ulps of the tolerance).
-Any other operator (dense batches) takes :func:`pcg_solve_stepwise`:
-each step's vector work is one call of the step kernels
-(:func:`cg_step`, counted in ``launches``), and the host tests "is any
-instance still live" once per :data:`CHUNK` steps, each chunk clipped to
-the steps left below ``max_iter``.  A step taken after every instance has converged has
-alpha = 0 everywhere and leaves x unchanged, so both equal the JAX loop,
-which tests at every step.  For CPU tensors :func:`pcg_solve_plain` runs
-the same loop in plain PyTorch, testing at every step (or, with
-``chunk``, as the stepwise path does).  With ``dot=kernel_dot`` it sums
-its inner products in the kernels' order, so that over the same
-products the kernels and the plain loop take the same steps to the same
-bits: the reference the card's tests hold K6 to.  By default it sums as
-PyTorch does, the order the CPU path's parity with the JAX package was
-set on: the CG is inexact, and the ADMM point moves with the rounding of
-its sums (by 2e-6 in y at CVXQP2_S in float64 under the kernel's order,
-past the 1e-6 those tests hold).
+For CUDA tensors the path follows the operator's type, and each of the
+two device loops runs the whole solve in one launch: each instance's
+solve on one thread-block cluster, the products, the step and the stop
+test on the device, and the host reads nothing until the end.
+
+* An :class:`EllOperator` runs the loop in ``csrc/cg.cu``
+  (:func:`pcg_solve_loop`, counted in ``launches_loop``): the instance's
+  state in the cluster's shared memory, two cluster barriers and two
+  waits for the partial sums a step.  :func:`loop_plan` cuts the batch
+  over the card: the cluster size, the CTAs' width, whether the
+  operands' rows stay in shared memory too, and the clusters at once.
+* A :class:`DenseOperator` runs the loop in ``csrc/cg_dense.cu``
+  (:func:`pcg_solve_dense_loop`, counted in ``launches_dense_loop``):
+  each CTA's rows of P and A in its shared memory, brought in once per
+  CG solve by bulk copies (or read from device memory at each step
+  where they do not fit), the start's product too, one exchange of the
+  products a step.  :func:`dense_loop_plan` cuts the batch; its products
+  are summed in an order fixed by n and m (:meth:`DenseOperator.ordered`
+  renders it), so every plan gives the same bits.
+
+Each instance stops on its own, at its freeze or at ``max_iter``: a
+frozen instance of a batch loop keeps its x, r and r'r bit for bit and
+only its p moves, and the solve returns x and the steps alone, so this
+changes no bit of the result (``csrc/cg.cu`` states the argument and,
+for its loop, the one exception, a start whose r'r lies within a few
+ulps of the tolerance).  Any other operator (a row-sharded A's products
+and collectives, which a launch cannot wait on) takes
+:func:`pcg_solve_stepwise`: each step's vector work is one call of the
+step kernels (:func:`cg_step`, counted in ``launches``), and the host
+tests "is any instance still live" once per :data:`CHUNK` steps, each
+chunk clipped to the steps left below ``max_iter``.  A step taken after
+every instance has converged has alpha = 0 everywhere and leaves x
+unchanged, so both equal the JAX loop, which tests at every step.  For
+CPU tensors :func:`pcg_solve_plain` runs the same loop in plain PyTorch,
+testing at every step (or, with ``chunk``, as the stepwise path does).
+With ``dot=kernel_dot`` it sums its inner products in the kernels'
+order, so that over the same products the kernels and the plain loop
+take the same steps to the same bits: the reference the card's tests
+hold K6 to (the dense loop's with ``op.ordered`` as the products and
+``start_dot=kernel_dot``, since that loop sums its start too).  By
+default it sums as PyTorch does, the order the CPU path's parity with
+the JAX package was set on: the CG is inexact, and the ADMM point moves
+with the rounding of its sums (by 2e-6 in y at CVXQP2_S in float64 under
+the kernel's order, past the 1e-6 those tests hold).
 
 All return ``(x, steps)``: ``steps`` (B,) int32 counts the steps in
 which each instance was live, so its maximum is the JAX loop's count.
 
-In the traced program (:mod:`osqp_tpu_torch.program`) the device loop is
-a call of its ``torch.library`` operator ``cg_loop``
+In the traced program (:mod:`osqp_tpu_torch.program`) each device loop
+is a call of its ``torch.library`` operator, ``cg_loop``
 (:func:`pcg_solve_loop_op`: the same C entry on the same plan, sigma and
-polish's ``div`` as one-element host tensors), the plain loop a
-:func:`osqp_tpu_torch.flow.while_loop` with the same stop test and steps,
-and the stepwise path :func:`pcg_solve_stepwise_program`: a
-:func:`flow.while_loop` whose turn is :data:`CHUNK` steps of the step
-operator ``cg_step`` (:func:`cg_step_op`, functional: copies in, the new
-state out) with the stop test before it, then the steps left below
-``max_iter`` (fewer than :data:`CHUNK`) under a :func:`flow.cond` on the
-same test, so the steps and bits of the live chunks.
+polish's ``div`` as one-element host tensors) or ``cg_dense_loop``
+(:func:`pcg_solve_dense_loop_op`), and the plain loop a
+:func:`osqp_tpu_torch.flow.while_loop` with the same stop test and
+steps.  :func:`pcg_solve_stepwise_program` renders the stepwise path as
+device control flow: a :func:`flow.while_loop` whose turn is
+:data:`CHUNK` steps of the step operator ``cg_step`` (:func:`cg_step_op`,
+functional: copies in, the new state out) with the stop test before it,
+then the steps left below ``max_iter`` (fewer than :data:`CHUNK`) under a
+:func:`flow.cond` on the same test, so the steps and bits of the live
+chunks; no traced path calls it since the dense loop took the dense
+operators.
 """
 
 from __future__ import annotations
@@ -85,6 +102,8 @@ _MAX_PARTS = 64
 launches = 0  # step launches (pcg_solve_stepwise)
 launches_loop = 0  # loop launches, one per solve (pcg_solve_loop)
 last_plan = None  # the plan of the last loop launch
+launches_dense_loop = 0  # dense loop launches, one per solve (pcg_solve_dense_loop)
+last_dense_plan = None  # the plan of the last dense loop launch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,14 +173,75 @@ class DenseOperator:
     def __call__(self, p):
         return mat_vec(self.P, p), (mat_tvec(self.A, self.w * mat_vec(self.A, p)) if self.A.shape[-2] else None)
 
+    def ordered(self, p):
+        """The same products summed in the dense loop's order
+        (csrc/cg_dense.cu), each product and sum rounded on its own: P p and
+        A p a row at a time (:func:`_row_dots`), w * (A p), then
+        A'(w * A p) over :func:`dense_slabs`' sub-slabs of A's rows, each
+        column of a sub-slab summed over its rows in order, and the
+        sub-slabs' partials, the 16 leaves of a pairwise tree (those past
+        the sub-slabs +0), summed level by level.  The dense loop's plain
+        twin: pcg_solve_plain(op.ordered, ..., dot=kernel_dot,
+        start_dot=kernel_dot) takes its steps to its bits."""
+        u = _row_dots(self.P, p)
+        B, n = p.shape
+        m = self.A.shape[-2]
+        if not m:
+            return u, None
+        v = self.w * _row_dots(self.A, p)
+        S, RS = dense_slabs(m)
+        prod = torch.nn.functional.pad(self.A * v[:, :, None], (0, 0, 0, S * RS - m)).reshape(B, S, RS, n)
+        acc = prod.new_zeros((B, S, n))
+        for j in range(RS):
+            acc = acc + prod[:, :, j]
+        leaves = torch.nn.functional.pad(acc, (0, 0, 0, DENSE_SLABS - S))
+        while leaves.shape[1] > 1:
+            leaves = leaves[:, 0::2] + leaves[:, 1::2]
+        return u, leaves[:, 0]
 
-def _start(products, sigma, dinv, b, x0, tol_rel, start=None):
-    """x, r = b - M x, z = dinv r, p = z, rz, r'r and the squared
-    tolerance max((tol_rel |b|)^2, 1e-30).  From x0 = None, x = 0 and
-    r = b, with no product; from x0, (r, z) is ``start`` where the caller
-    computed it, else K5's fused start (:func:`ell.ell_cg_start`) on the
-    cg form of an :class:`EllOperator` with rows in A, else
-    ``products(x0)`` composed with the vector work, to the same bits."""
+
+# A's rows fall in at most this many sub-slabs, the leaves of their
+# partials' pairwise sum (csrc/cg_dense.cu: kSlabs); a CTA of a cluster of
+# C (a power of two) takes 16 / C of them, a subtree
+DENSE_SLABS = 16
+
+
+def dense_slabs(m: int) -> tuple[int, int]:
+    """(S, RS): the dense loop's S = min(16, m) sub-slabs of A's m rows,
+    of RS = ceil(m / S) rows each (the last shorter); (0, 0) at m = 0."""
+    if not m:
+        return 0, 0
+    S = min(DENSE_SLABS, m)
+    return S, -(-m // S)
+
+
+def _row_dots(M: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """(B, R, n) x (B, n) -> (B, R), each row by one warp of the dense
+    loop: lane l adds the products of entries l, l + 32, ... in order
+    (+0 past n), then the warp's xor butterfly, lane 0's sum."""
+    B, R, n = M.shape
+    K = -(-n // 32)
+    prod = torch.nn.functional.pad(M * p[:, None, :], (0, 32 * K - n)).reshape(B, R, K, 32)
+    acc = prod.new_zeros((B, R, 32))
+    for k in range(K):
+        acc = acc + prod[:, :, k]
+    return _lane0_of_butterfly(acc)
+
+
+def _tol2(b, tol_rel):
+    """The squared tolerances max((tol_rel |b|)^2, 1e-30)."""
+    tol = tol_rel * torch.linalg.vector_norm(b, dim=-1)
+    return torch.clamp(tol * tol, min=1e-30)
+
+
+def _start(products, sigma, dinv, b, x0, tol_rel, start=None, dot=vec_dot):
+    """x, r = b - M x, z = dinv r, p = z, rz, r'r (summed by ``dot``) and
+    the squared tolerance max((tol_rel |b|)^2, 1e-30).  From x0 = None,
+    x = 0 and r = b, with no product; from x0, (r, z) is ``start`` where
+    the caller computed it, else K5's fused start
+    (:func:`ell.ell_cg_start`) on the cg form of an :class:`EllOperator`
+    with rows in A, else ``products(x0)`` composed with the vector work,
+    to the same bits."""
     if x0 is None:
         x, r = torch.zeros_like(b), b.clone()
         z = dinv * r
@@ -178,9 +258,7 @@ def _start(products, sigma, dinv, b, x0, tol_rel, start=None):
             z = dinv * r
         else:
             r, z = start
-    tol = tol_rel * torch.linalg.vector_norm(b, dim=-1)
-    tol2 = torch.clamp(tol * tol, min=1e-30)
-    return x, r, z, z.clone(), vec_dot(r, z), vec_dot(r, r), tol2
+    return x, r, z, z.clone(), dot(r, z), dot(r, r), _tol2(b, tol_rel)
 
 
 def _validate(P, A, rho_vec, dinv, b, x0, tol_rel):
@@ -216,8 +294,8 @@ def pcg_solve(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=N
     """PCG on M p = P p + sigma p + V p with ``products(p)`` = (P p, V p)
     from ``x0`` (zeros when None, ``start`` as :func:`_start` takes it);
     returns ``(x, steps)``.  On a CPU ``b`` the plain loop; on a CUDA one
-    the device loop for an :class:`EllOperator`, else the step kernels
-    step by step."""
+    the device loop for an :class:`EllOperator`, the dense loop for a
+    :class:`DenseOperator`, else the step kernels step by step."""
     route = _route(products, b.device.type, _build.tracing(b))
     return route(products, sigma, dinv, b, tol_rel, max_iter, x0, start=start)
 
@@ -231,6 +309,8 @@ def _route(products, device_type: str, traced: bool = False):
         raise ValueError(f"cg_solve runs on CPU or CUDA tensors, not {device_type}")
     if isinstance(products, EllOperator):
         return pcg_solve_loop
+    if isinstance(products, DenseOperator):
+        return pcg_solve_dense_loop_op if traced else pcg_solve_dense_loop
     return pcg_solve_stepwise_program if traced else pcg_solve_stepwise
 
 
@@ -245,7 +325,8 @@ def pcg_solve_stepwise(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None
     """The solve on the card step by step: one :func:`cg_step` per step
     after ``products(p)``, the stop test read by the host once per
     :data:`CHUNK` steps (``linalg.host_read``, counted).  Takes any
-    operator (dense GEMVs, or an :class:`EllOperator`'s K5 launches)."""
+    operator (a row-sharded A's products, dense GEMVs, or an
+    :class:`EllOperator`'s K5 launches)."""
     _check_cuda("pcg_solve_stepwise", (b, dinv, tol_rel) + ((x0,) if x0 is not None else ()))
     x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel, start)
     B, n = b.shape
@@ -515,6 +596,177 @@ def _planned(B: int, n: int, m: int, kp: int, ka: int, kt: int, code: int, index
     return loop_plan(B, n, m, kp, ka, kt, dtype, _build.sm_count(index), active)
 
 
+def _dense_fields(op: DenseOperator, name: str, dinv, b, tol_rel, x0):
+    """Check the dense loop's operands and vectors; returns (B, n, m)."""
+    if not isinstance(op, DenseOperator):
+        raise TypeError(f"{name} takes a DenseOperator, not {type(op).__name__}")
+    B, n = b.shape
+    m = op.A.shape[-2]
+    dtype, dev = b.dtype, b.device
+    for t_name, t, shape in (("P", op.P, (B, n, n)), ("A", op.A, (B, m, n)), ("w", op.w, (B, m)),
+                             ("dinv", dinv, (B, n)), ("tol_rel", tol_rel, (B,)), ("x0", x0, (B, n))):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev):
+            raise ValueError(f"{name}: {t_name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
+                             f"expected {shape} {dtype} on {dev}")
+    _check_cuda(name, (b, op.P, op.A, op.w, dinv, tol_rel) + ((x0,) if x0 is not None else ()))
+    return B, n, m
+
+
+def pcg_solve_dense_loop(op: DenseOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=None,
+                         plan: "LoopPlan | None" = None):
+    """The solve on the card in one launch of the dense loop
+    (csrc/cg_dense.cu), for a :class:`DenseOperator`: each instance on a
+    thread-block cluster, its rows of P and A in shared memory where
+    ``plan`` keeps them there, the start's product, every step and its
+    stop test on the device.  ``plan``: :func:`dense_loop_plan`'s for
+    this card by default.  The loop computes its own start: ``start``
+    must be None."""
+    global launches_dense_loop, last_dense_plan
+    if start is not None:
+        raise ValueError("pcg_solve_dense_loop computes its start on the device: start must be None")
+    B, n, m = _dense_fields(op, "pcg_solve_dense_loop", dinv, b, tol_rel, x0)
+    if _build.tracing(b):
+        return pcg_solve_dense_loop_op(op, sigma, dinv, b, tol_rel, max_iter, x0, plan=plan)
+    steps = torch.zeros(B + 1, dtype=torch.int32, device=b.device)  # and the kernel's instance counter
+    if B == 0 or n == 0 or max_iter <= 0:
+        return (x0.clone() if x0 is not None else torch.zeros_like(b)), steps[:B]
+    tol2 = _tol2(b, tol_rel)
+    plan = plan or _default_dense_plan(b, m)
+    clusters = min(plan.clusters, B)
+    lib = _build.library()
+    code = _build.dtype_code(b.dtype)
+    scratch = torch.empty(lib.osqp_cg_dense_loop_scratch(code, n, m, plan.cluster, int(plan.vectors), clusters),
+                          dtype=torch.uint8, device=b.device)
+    x = torch.empty_like(b)
+    with torch.cuda.device(b.device):
+        err = lib.osqp_cg_dense_loop(
+            code, op.P.data_ptr(), op.A.data_ptr(), op.w.data_ptr(), float(sigma), dinv.data_ptr(), b.data_ptr(),
+            x0.data_ptr() if x0 is not None else 0, tol2.data_ptr(), x.data_ptr(), steps.data_ptr(),
+            scratch.data_ptr(), B, n, m, int(max_iter), plan.cluster, plan.threads, int(plan.resident),
+            int(plan.vectors), clusters, _build.stream(),
+        )
+    _build.check(err, "cg_dense_loop")
+    launches_dense_loop += 1
+    last_dense_plan = plan
+    return x, steps[:B]
+
+
+def pcg_solve_dense_loop_op(op: DenseOperator, sigma, dinv, b, tol_rel, max_iter: int, x0=None, start=None,
+                            plan: "LoopPlan | None" = None):
+    """:func:`pcg_solve_dense_loop` through its operator
+    (``torch.ops.osqp_tpu_torch.cg_dense_loop``), as a traced program
+    calls it: the same squared tolerances, then the same C entry on the
+    same plan, sigma as a one-element host tensor.  Returns ``(x,
+    steps)``, the loop's bits.  Launches are not counted: the program runs
+    it after the trace."""
+    if start is not None:
+        raise ValueError("pcg_solve_dense_loop_op computes its start on the device: start must be None")
+    B, n = b.shape
+    if B == 0 or n == 0 or max_iter <= 0:
+        return (x0.clone() if x0 is not None else torch.zeros_like(b)), torch.zeros(B, dtype=torch.int32,
+                                                                                     device=b.device)
+    plan = plan or _default_dense_plan(b, op.A.shape[-2])
+    x, steps = _build.ops().cg_dense_loop(
+        op.P, op.A, op.w, _build.setting(sigma), dinv, b, x0, _tol2(b, tol_rel), int(max_iter), plan.cluster,
+        plan.threads, int(plan.resident), int(plan.vectors), plan.clusters,
+    )
+    return x, steps
+
+
+def _default_dense_plan(b, m: int) -> "LoopPlan":
+    """:func:`dense_loop_plan` for this solve on the card of ``b``."""
+    B, n = b.shape
+    dev = b.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _dense_planned(B, n, m, _build.dtype_code(b.dtype), index)
+
+
+# Multiply-adds of a step that a CTA of the dense loop takes at least: a
+# cluster spreads an instance no wider (n (n + 2 m) of them a step).
+DENSE_MIN_WORK = 8192
+# Threads an SM runs of the dense loop (csrc/cg_dense.cu: kDenseMaxThreads,
+# also a CTA's most): up to 80 registers a thread in the SM's 65536.
+_DENSE_THREADS_PER_SM = 768
+
+
+def dense_loop_smem(n: int, m: int, cluster: int, resident: bool, vectors: bool, itemsize: int) -> int:
+    """Bytes of shared memory of one CTA of the dense loop
+    (csrc/cg_dense.cu: dense_smem): two mbarriers, 8 scalars, the partials
+    and the warps' sums of two inner products by part; with ``vectors``
+    x, r, z, p, dinv and Mp of all n entries, the weights and w * A p of
+    its rows of A and its 16 / C leaves' partials; in a cluster of one the
+    published products (P p and the tree's root); with ``resident`` its
+    rows of P and of A, each in a 16-byte aligned buffer with 32 bytes to
+    spare for the bulk copy's aligned window."""
+    S, RS = dense_slabs(m)
+    leaves = DENSE_SLABS // cluster
+    rows_p, rows_a = -(-n // cluster), leaves * RS
+    align = lambda v: -(-v // 16) * 16  # noqa: E731
+    vals = 8 + 2 * _MAX_PARTS + 2 * parts_of(n) * (_THREADS // 32)
+    if vectors:
+        vals += (6 + leaves) * n + 2 * rows_a
+    if cluster == 1:
+        vals += 2 * n
+    nbytes = align(16 + vals * itemsize)
+    if resident:
+        nbytes += align(itemsize * rows_p * n + 32) + align(itemsize * rows_a * n + 32)
+    return nbytes
+
+
+def dense_loop_plan(B: int, n: int, m: int, dtype, sm_count: int, active=None) -> LoopPlan:
+    """The dense loop's plan for B instances of n variables and m rows of A
+    in ``dtype`` on a card of ``sm_count`` SMs; ``active(cluster, threads,
+    smem, resident, vectors)`` gives the clusters the card holds at once
+    (the CUDA occupancy query), estimated from the SMs' shared memory and
+    registers without it.
+
+    Each of :data:`LOOP_CLUSTERS` that leaves a CTA at least
+    :data:`DENSE_MIN_WORK` multiply-adds a step takes the first of rows
+    and vectors resident, vectors alone, neither that fits a CTA's shared
+    memory, and the widest CTA (256 threads up to 768) that keeps the
+    CTAs an SM runs at once within its 768 threads.  Of those whose
+    vectors fit the plan takes, as :func:`loop_plan` does, the fewest waves
+    of clusters over the batch and among them the largest cluster, but a
+    plan that holds the operands' rows goes first: it reads them once a
+    CG solve, a streamed one at every step.  Raises where no cluster fits
+    the card."""
+    itemsize = torch.empty((), dtype=getattr(torch, dtype) if isinstance(dtype, str) else dtype).element_size()
+    cap = max(1, n * (n + 2 * m) // DENSE_MIN_WORK)
+    plans = []
+    for cluster in LOOP_CLUSTERS:
+        if cluster > cap:
+            continue
+        for resident, vectors in ((True, True), (False, True), (False, False)):
+            smem = dense_loop_smem(n, m, cluster, resident, vectors, itemsize)
+            if smem <= _build.SMEM_BYTES:
+                break
+        else:
+            continue
+        per_sm = _build.SMEM_PER_SM // (smem + _build.SMEM_RESERVED_PER_BLOCK)
+        busy = min(per_sm, -(-B * cluster // sm_count))
+        threads = _THREADS * max(1, _DENSE_THREADS_PER_SM // (_THREADS * busy))
+        fit = (active(cluster, threads, smem, resident, vectors) if active is not None
+               else sm_count * min(per_sm, _DENSE_THREADS_PER_SM // threads, 32) // cluster)
+        if fit < 1:
+            continue
+        plans.append(LoopPlan(cluster, threads, resident, vectors, smem, min(fit, B)))
+    if not plans:
+        raise RuntimeError(f"no plan of K6's dense loop fits the card at n={n}, m={m}")
+    if any(plan.vectors for plan in plans):
+        plans = [plan for plan in plans if plan.vectors]
+    return min(plans, key=lambda plan: (not plan.resident, -(-B // plan.clusters), -plan.cluster))
+
+
+@functools.lru_cache(maxsize=256)
+def _dense_planned(B: int, n: int, m: int, code: int, index: int) -> LoopPlan:
+    def active(cluster, threads, smem, resident, vectors):
+        with torch.cuda.device(index):
+            return _build.library().osqp_cg_dense_loop_clusters(code, cluster, threads, smem, resident, vectors)
+
+    dtype = torch.float32 if code == 0 else torch.float64
+    return dense_loop_plan(B, n, m, dtype, _build.sm_count(index), active)
+
+
 def cg_step(p, u, v, sigma, dinv, tol2, rz_pair, rr_pair, cur, Mp, x, r, z, parts, steps) -> None:
     """One launch of K6: the vector work of one step.  ``p``, ``x``,
     ``r``, ``z`` are updated in place; rz and r'r go to slot ``1 - cur``
@@ -541,12 +793,14 @@ def cg_solve_plain(P, A, sigma, rho_vec, dinv, b, x0, tol_rel, max_iter: int, ch
 
 
 def pcg_solve_plain(products, sigma, dinv, b, tol_rel, max_iter: int, x0=None, chunk: int = 1, dot=vec_dot,
-                    start=None):
+                    start=None, start_dot=vec_dot):
     """Plain PyTorch version of :func:`pcg_solve`.  The stop test runs
     before every ``chunk``-th step (every step by default, as the JAX
     loops have it; ``chunk=CHUNK`` as the kernel path has it); ``dot``
-    sums the inner products (:func:`kernel_dot`: in the kernel's order)."""
-    x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel, start)
+    sums the steps' inner products and ``start_dot`` the start's
+    (:func:`kernel_dot`: in the kernel's order; the dense loop sums both
+    so, the other paths the steps' alone)."""
+    x, r, z, p, rz, rr, tol2 = _start(products, sigma, dinv, b, x0, tol_rel, start, start_dot)
     steps = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
     if flow.in_program():
         return _plain_program(products, sigma, dinv, tol2, int(max_iter), chunk, dot, (x, r, z, p, rz, rr, steps))

@@ -213,8 +213,9 @@ def _ell_system(dtype=torch.float64, B=3, n=60, m=40, seed=4):
 def test_pcg_takes_the_device_loop_for_ell_operators_only():
     """pcg_solve's path follows the operator's type: the plain loop on the
     CPU; on the card the device loop for an EllOperator (the sparse path's
-    cg backend and polish), the step kernels for any other operator (dense
-    batches)."""
+    cg backend and polish), the dense loop for a DenseOperator (the cg
+    backend on dense operands; its operator in a trace), the step kernels
+    for any other operator (a row-sharded A's products)."""
     P, A, rho, *_ = _ell_system()
     op = k6.EllOperator(P, A, w=rho)
     dense = lambda p: (p, None)
@@ -229,6 +230,11 @@ def test_pcg_takes_the_device_loop_for_ell_operators_only():
     Pd, Ad = torch.eye(4, dtype=torch.float64)[None], torch.ones((1, 2, 4), dtype=torch.float64)
     assert not isinstance(k6._operator(Pd, Ad, torch.ones((1, 2), dtype=torch.float64), plain=False),
                           k6.EllOperator)
+    dense_op = k6._operator(Pd, Ad, torch.ones((1, 2), dtype=torch.float64), plain=False)
+    assert isinstance(dense_op, k6.DenseOperator)
+    assert k6._route(dense_op, "cuda") is k6.pcg_solve_dense_loop
+    assert k6._route(dense_op, "cuda", traced=True) is k6.pcg_solve_dense_loop_op
+    assert k6._route(dense_op, "cpu") is k6.pcg_solve_plain
 
 
 def test_ell_operator_computes_both_forms_as_their_plain_versions():

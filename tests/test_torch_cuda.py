@@ -746,7 +746,9 @@ def test_k6_kernel_matches_plain(dev, dtype, kind, max_iter):
     bit-unchanged, two runs bit-identical, and no step past max_iter
     (11 = a chunk of 8 and 3).  ELL operands take the device loop, one
     launch per solve, and the stepwise path gives the same bits; dense
-    ones take the step kernels."""
+    ones take the dense loop, one launch per solve, against the plain loop
+    over the products in its order (DenseOperator.ordered, the start
+    summed in the kernel's order too)."""
     import scipy.sparse as sp
 
     from osqp_tpu_torch.linsys import cg
@@ -768,16 +770,19 @@ def test_k6_kernel_matches_plain(dev, dtype, kind, max_iter):
     x0 = torch.as_tensor(rng.standard_normal((B, nn)), dtype=dtype, device=dev)
     tol = torch.tensor([1e-7, 1e-5, 1e-3, 1e9], dtype=dtype, device=dev)
     args = (P, A, fac["sigma"], rho, fac["dinv"], b, x0, tol, max_iter)
-    before, before_loop = k6.launches, k6.launches_loop
+    before, before_loop, before_dense = k6.launches, k6.launches_loop, k6.launches_dense_loop
     xk, sk = k6.cg_solve(*args)
     xk2, sk2 = k6.cg_solve(*args)
     torch.cuda.synchronize()
     if kind == "ell":
         assert k6.launches_loop - before_loop == 2 and k6.launches == before
+        xp, sp_ = k6.cg_solve_plain(*args, dot=k6.kernel_dot)
     else:
-        assert k6.launches - before == 2 * min(max_iter, -(-int(sk.max()) // k6.CHUNK) * k6.CHUNK)
+        assert k6.launches_dense_loop - before_dense == 2 and k6.launches == before
         assert k6.launches_loop == before_loop
-    xp, sp_ = k6.cg_solve_plain(*args, dot=k6.kernel_dot)
+        op = k6._operator(P, A, rho, plain=False)
+        xp, sp_ = k6.pcg_solve_plain(op.ordered, fac["sigma"], fac["dinv"], b, tol, max_iter, x0, dot=k6.kernel_dot,
+                                     start_dot=k6.kernel_dot)
     assert torch.equal(xk, xk2) and torch.equal(sk, sk2)
     assert torch.equal(sk, sp_) and int(sk.max()) <= max_iter
     assert torch.equal(xk[3], x0[3]) and int(sk[3]) == 0
@@ -2063,6 +2068,147 @@ def test_sparse_ops_refuse_a_plan_that_does_not_fit_the_card(dev):
                     10 ** 6)
 
 
+def _dense_system(B, n, m, dtype, dev, seed=7):
+    """The cg backend's dense system at a random point: its operator,
+    sigma, dinv, b, x0 and tol_rel, instance 0 frozen from the start by a
+    huge tolerance and the others at tolerances that stop them at several
+    steps."""
+    from osqp_tpu_torch.linsys import cg as cg_backend
+
+    P, q, A, l, u = _op_problem(dev, dtype, B, n, m, seed=seed)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rho = (torch.rand(B, m, generator=g, dtype=torch.float64) + 0.1).to(dtype).to(dev)
+    fac = cg_backend.init(P, A, 1e-6, rho)
+    op = k6._operator(P, A, rho, plain=False)
+    b = torch.randn(B, n, generator=g, dtype=torch.float64).to(dtype).to(dev)
+    x0 = torch.randn(B, n, generator=g, dtype=torch.float64).to(dtype).to(dev)
+    tol = torch.logspace(-2, -9 if dtype == torch.float64 else -5, B, dtype=dtype).to(dev)
+    tol[0] = 1e9
+    return op, fac["sigma"], fac["dinv"], b, x0, tol
+
+
+def _dense_plans(n, m, dtype, cluster, clusters):
+    """The dense loop's plans at this cluster size, one a mode that fits a
+    CTA's shared memory, at 256 threads (resident) or 768 (the others)."""
+    from osqp_tpu_torch import _build
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plans = []
+    for resident, vectors in LOOP_MODES:
+        smem = k6.dense_loop_smem(n, m, cluster, resident, vectors, itemsize)
+        if smem <= _build.SMEM_BYTES:
+            plans.append(k6.LoopPlan(cluster, 256 if resident else 768, resident, vectors, smem, clusters))
+    return plans
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("B,n,m,from_zero", [(6, 130, 90, False), (3, 300, 37, True), (4, 40, 0, False),
+                                             (5, 45, 11, False)])
+def test_dense_loop_plans_match_the_plain_twin(dev, dtype, cluster, B, n, m, from_zero):
+    """K6's dense loop forced through every mode that fits and every
+    cluster size, two clusters at once (each takes several instances),
+    against its plain twin pcg_solve_plain(op.ordered, dot=kernel_dot,
+    start_dot=kernel_dot): the same steps per instance and x bit for bit,
+    from x0 and from zero, with and without rows of A, p past the lanes'
+    registers (n = 300); one launch each, nothing on the step kernels;
+    a frozen instance keeps x0; two runs give the same bits."""
+    op, sigma, dinv, b, x0, tol = _dense_system(B, n, m, dtype, dev)
+    x0 = None if from_zero else x0
+    xp, sp_ = k6.pcg_solve_plain(op.ordered, sigma, dinv, b, tol, 400, x0, dot=k6.kernel_dot,
+                                 start_dot=k6.kernel_dot)
+    assert int(sp_[0]) == 0 and int(sp_.max()) > 0 and len(set(sp_.tolist())) > 1
+    plans = _dense_plans(n, m, dtype, cluster, clusters=2)
+    assert plans
+    for plan in plans:
+        before, steps_before = k6.launches_dense_loop, k6.launches
+        xk, sk = k6.pcg_solve_dense_loop(op, sigma, dinv, b, tol, 400, x0, plan=plan)
+        xk2, sk2 = k6.pcg_solve_dense_loop(op, sigma, dinv, b, tol, 400, x0, plan=plan)
+        torch.cuda.synchronize()
+        assert k6.launches_dense_loop - before == 2 and k6.launches == steps_before and k6.last_dense_plan == plan
+        assert torch.equal(sk, sp_), plan
+        assert _same_bits(xk, xp), plan
+        assert _same_bits(xk, xk2) and torch.equal(sk, sk2), plan
+        if x0 is not None:
+            assert _same_bits(xk[0], x0[0])
+
+
+def test_dense_loop_stops_at_max_iter_and_matches_the_library_query(dev):
+    """A cap below the steps the tolerances need: every live instance
+    takes max_iter steps, as the twin does; the library's shared memory
+    of every plan is dense_loop_smem's, and its default plan is
+    dense_loop_plan's over the card's query."""
+    from osqp_tpu_torch import _build
+
+    op, sigma, dinv, b, x0, tol = _dense_system(5, 100, 200, torch.float64, dev)
+    tol = torch.full_like(tol, 1e-14)
+    xk, sk = k6.pcg_solve(op, sigma, dinv, b, tol, 7, x0)
+    xp, sp_ = k6.pcg_solve_plain(op.ordered, sigma, dinv, b, tol, 7, x0, dot=k6.kernel_dot, start_dot=k6.kernel_dot)
+    assert sk.tolist() == [7] * 5 and torch.equal(sk, sp_) and _same_bits(xk, xp)
+    lib = _build.library()
+    for n, m in ((100, 200), (372, 612), (1000, 750), (40, 0), (3, 17)):
+        for cluster in (1, 2, 4, 16):
+            for res, vec in LOOP_MODES:
+                for code, size in ((0, 4), (1, 8)):
+                    assert lib.osqp_cg_dense_loop_smem(code, n, m, cluster, res, vec) == k6.dense_loop_smem(
+                        n, m, cluster, res, vec, size)
+    plan = k6._dense_planned(8192, 100, 200, 0, dev.index or 0)
+    assert plan.resident and plan.cluster in (1, 2, 4) and plan.clusters >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cg_dense_loop_op_matches_its_launch(dev, dtype):
+    """K6's dense loop through its operator, from x0 and from zero, on a
+    resident plan and a streamed one: x and the steps the launch's bits,
+    nothing counted; a plan for more clusters than the card holds raises."""
+    from osqp_tpu_torch import _build
+
+    op, sigma, dinv, b, x0, tol = _dense_system(6, 130, 90, dtype, dev)
+    plans = [p for p in _dense_plans(130, 90, dtype, 2, clusters=3) if p.vectors]
+    assert len(plans) == 2
+    for plan in plans:
+        for start in (x0, None):
+            xk, sk = k6.pcg_solve_dense_loop(op, sigma, dinv, b, tol, 300, start, plan=plan)
+            counted = k6.launches_dense_loop
+            xo, so = k6.pcg_solve_dense_loop_op(op, sigma, dinv, b, tol, 300, start, plan=plan)
+            torch.cuda.synchronize()
+            assert k6.launches_dense_loop == counted
+            assert int(sk.max()) > 0 and _same_bits(so, sk) and _same_bits(xo, xk)
+    plan = plans[0]
+    with pytest.raises(RuntimeError, match="clusters"):
+        _build.ops().cg_dense_loop(op.P, op.A, op.w, _build.setting(sigma), dinv, b, x0, tol * tol, 10, plan.cluster,
+                                   plan.threads, int(plan.resident), int(plan.vectors), 10 ** 6)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_cg_backend_on_dense_operands_takes_the_dense_loop(dev, dtype):
+    """solve_batch, Solver and BatchedSolver with linsys_solver="cg" on
+    dense operands launch the dense loop once per CG solve and the step
+    kernels never; solve_batch against the CPU's plain path (float64:
+    statuses and iterations equal, x and y within 1e-6)."""
+    from osqp_tpu_torch.parametric import BatchedSolver
+
+    P, q, A, l, u = _qps(32, 20, 30, seed=3)
+    kw = dict(dtype=dtype, verbose=False, linsys_solver="cg")
+    loops, steps = k6.launches_dense_loop, k6.launches
+    rg = osqp_tpu_torch.solve_batch(P, q, A, l, u, device=dev, **kw)
+    assert k6.launches_dense_loop > loops and k6.launches == steps
+    rc = osqp_tpu_torch.solve_batch(P, q, A, l, u, device="cpu", **kw)
+    assert torch.equal(rg.status_val.cpu(), rc.status_val)
+    if dtype == "float64":
+        assert torch.equal(rg.iter.cpu(), rc.iter)
+        assert float((rg.x.cpu() - rc.x).abs().max()) <= 1e-6
+        assert float((rg.y.cpu() - rc.y).abs().max()) <= 1e-6
+    loops = k6.launches_dense_loop
+    import scipy.sparse as sp
+
+    s = osqp_tpu_torch.Solver(sp.csc_matrix(P[0]), q[0], sp.csc_matrix(A[0]), l[0], u[0], device=dev, **kw)
+    assert s.solve().info.status_val == 1
+    bs = BatchedSolver(P, q, A, l, u, device=dev, **kw)
+    assert (bs.solve().status_val == 1).all()
+    assert k6.launches_dense_loop > loops and k6.launches == steps
+
+
 def _chain_problem(n=200, seed=5):
     """The sparse export tests' chain problem at n variables."""
     import scipy.sparse as sp
@@ -2151,6 +2297,22 @@ def _schur_polish(monkeypatch):
     monkeypatch.setattr(batch, "polish_fn", functools.partial(polish.polish, schur=True))
 
 
+def _stepwise_dense(monkeypatch):
+    """The unsharded cg solve on dense operands on the step kernels, the
+    path of the row-sharded entries: their bit-for-bit reference."""
+    monkeypatch.setattr(k6, "pcg_solve_dense_loop", k6.pcg_solve_stepwise)
+
+
+def _loop_parity(got, loop):
+    """The sharded solve against the unsharded one on the dense loop, whose
+    products sum in another order: the same status, iterations within one
+    check interval, x and y within 1e-6."""
+    interval = osqp_tpu_torch.Settings().check_termination
+    assert torch.equal(got.status_val, loop.status_val)
+    assert int((got.iter - loop.iter).abs().max()) <= interval
+    assert float((got.x - loop.x).abs().max()) <= 1e-6 and float((got.y - loop.y).abs().max()) <= 1e-6
+
+
 def test_parallel_entries_at_one_rank_give_the_unsharded_bits(one_rank_nccl, monkeypatch):
     """solve_batch_sharded, solve_single_sharded (polish on) and
     solve_single_sharded_sparse (polish on) under a one-rank NCCL group:
@@ -2158,7 +2320,9 @@ def test_parallel_entries_at_one_rank_give_the_unsharded_bits(one_rank_nccl, mon
     Schur branch, which the sharded one takes); the dense path ran K4's
     step entries and K6's cg_step, and K2 but no K8 in polish; the sparse
     one cg_step and, in polish too, no K6 loop (the unsharded one's
-    loop, the same bits); collectives ran."""
+    loop, the same bits); collectives ran.  The dense unsharded reference
+    takes the step kernels, as the sharded solve does; against the
+    unsharded solve on the dense loop the parity bounds hold."""
     import scipy.sparse as sp
 
     from osqp_tpu_torch import parallel
@@ -2182,9 +2346,15 @@ def test_parallel_entries_at_one_rank_give_the_unsharded_bits(one_rank_nccl, mon
     assert k4.launches_sweep > sweeps and k6.launches > steps and sum(rows.collectives.values()) > 0
     assert k2.launches > inverses and k8.launches_factor == factors and rows.largest_gather <= m
     _schur_polish(monkeypatch)
-    want = osqp_tpu_torch.solve_batch(P[None], q[None], A[None], l[None], u[None], device="cuda",
-                                      linsys_solver="cg", polish=True, **kw)
+    unsharded = lambda: osqp_tpu_torch.solve_batch(P[None], q[None], A[None], l[None], u[None],  # noqa: E731
+                                                   device="cuda", linsys_solver="cg", polish=True, **kw)
+    loops = k6.launches_dense_loop
+    loop = unsharded()
+    assert k6.launches_dense_loop > loops
+    _stepwise_dense(monkeypatch)
+    want = unsharded()
     assert _same_results(got, want) and int(got.status_polish[0]) == 1
+    _loop_parity(got, loop)
 
     n = 300
     Ps = sp.diags(1.0 + np.abs(rng.standard_normal(n))).tocsc()
@@ -2203,8 +2373,9 @@ def test_sharded_dense_polish_on_the_card_is_the_schur_routes_bits(one_rank_nccl
     float64, so its recursion on the leaf entry), at eps 1e-5, where the
     ADMM point's active set lets polish succeed (at 1e-3 it fails in both
     branches): the unsharded solve with its polish on the Schur branch
-    gives every bit; K2's leaf ran and K8 did not; no all-gather moved
-    more than m values; status_polish 1."""
+    and its CG on the step kernels gives every bit, the one on the dense
+    loop the parity bounds; K2's leaf ran and K8 did not; no all-gather
+    moved more than m values; status_polish 1."""
     from osqp_tpu_torch import parallel
     from osqp_tpu_torch.parallel import rows
 
@@ -2222,9 +2393,13 @@ def test_sharded_dense_polish_on_the_card_is_the_schur_routes_bits(one_rank_nccl
     assert k2.launches_leaf > leaves and k8.launches_factor == factors
     assert 0 < rows.largest_gather <= m
     _schur_polish(monkeypatch)
-    want = osqp_tpu_torch.solve_batch(P[None], q[None], A[None], l[None], u[None], device="cuda",
-                                      linsys_solver="cg", **kw)
+    unsharded = lambda: osqp_tpu_torch.solve_batch(P[None], q[None], A[None], l[None], u[None],  # noqa: E731
+                                                   device="cuda", linsys_solver="cg", **kw)
+    loop = unsharded()
+    _stepwise_dense(monkeypatch)
+    want = unsharded()
     assert _same_results(got, want) and int(got.status_polish[0]) == 1
+    _loop_parity(got, loop)
 
 
 def test_parallel_cuda_mesh_refuses_gloo(dev):

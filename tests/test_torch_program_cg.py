@@ -1,11 +1,13 @@
 """The traced program (osqp_tpu_torch.program) of the ``cg`` backend on
-dense operands, its stepwise PCG as device control flow, and its
+dense operands, the stepwise PCG as device control flow, and its
 format-2 artifact, on the CPU.
 
-On the card a traced dense ``cg`` solve runs
-``ops.cg.pcg_solve_stepwise_program``: the stop test a ``while_loop``
-turn before every ``CHUNK`` = 8 steps of K6's step operator, and the
-``max_iter % CHUNK`` steps left under a ``cond``.  Here that loop runs
+On the card a traced dense ``cg`` solve is one call of K6's dense loop
+operator (``cg_dense_loop``).  The stepwise program,
+``ops.cg.pcg_solve_stepwise_program``, renders the step kernels' path
+for any other operator: the stop test a ``while_loop`` turn before every
+``CHUNK`` = 8 steps of K6's step operator, and the ``max_iter % CHUNK``
+steps left under a ``cond``.  Here that loop runs
 with the plain step summed in the kernel's order, against the plain
 loop that tests before every eighth step (``pcg_solve_plain(chunk=
 CHUNK)``, the live stepwise path's order): the same steps and bits at
@@ -127,13 +129,17 @@ def test_stepwise_program_traces_to_a_while_loop_and_a_cond():
 
 
 def test_a_traced_dense_solve_takes_the_stepwise_program():
-    """On the card the route of a dense operator is the stepwise path live
-    and its program in a trace; an ELL operator keeps the device loop."""
+    """On the card the route of a dense operator is the dense loop live and
+    its operator in a trace; any other operator's is the stepwise path
+    live and the stepwise program in a trace; on the CPU the plain loop."""
     dense = k6._operator(torch.eye(3, dtype=torch.float64)[None], torch.ones((1, 2, 3), dtype=torch.float64),
                          torch.ones((1, 2), dtype=torch.float64), plain=False)
     assert isinstance(dense, k6.DenseOperator)
-    assert k6._route(dense, "cuda") is k6.pcg_solve_stepwise
-    assert k6._route(dense, "cuda", traced=True) is k6.pcg_solve_stepwise_program
+    assert k6._route(dense, "cuda") is k6.pcg_solve_dense_loop
+    assert k6._route(dense, "cuda", traced=True) is k6.pcg_solve_dense_loop_op
+    generic = lambda p: (p, None)  # noqa: E731
+    assert k6._route(generic, "cuda") is k6.pcg_solve_stepwise
+    assert k6._route(generic, "cuda", traced=True) is k6.pcg_solve_stepwise_program
     assert k6._route(dense, "cpu", traced=True) is k6.pcg_solve_plain
 
 
